@@ -8,9 +8,11 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
   1. the card's name and power limit (nvidia-smi) and torch's device name;
   2. build every kernel of gtsam_torch/csrc with nvcc (sm_90a), timed;
   3. a fast first gate: each kernel against its plain PyTorch version on the
-     same CUDA tensors at make_bal_problem(100, 5000, 4, seed=0), with stated
-     tolerances, and a small ba_optimize on the card against the same run on
-     the CPU;
+     same CUDA tensors at make_bal_problem(100, 5000, 4, seed=0) plus tracks
+     that take every branch of the kernels (a 200-observation track, a
+     track that sees one camera twice, 700 points over one camera pair),
+     with stated tolerances, and a small ba_optimize on the card against the
+     same run on the CPU;
   4. the main path: gtsam_torch.sfm.ba.ba_optimize at the Ladybug-1723 shape
      (make_bal_problem(1723, 150000, 4, seed=0)) with bench.py's LM settings,
      held to the C++ GTSAM optimum 329,909 x 1.0001, every kernel's launch
@@ -18,7 +20,10 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
   5. each kernel against its plain version again at the Ladybug shape, on
      the converged state (same tolerances), then its time (CUDA events)
      beside the plain version's time and its bound from this run's shapes;
-  6. one profiled run of the main path: device busy time by kernel.
+     two assemblies of the same inputs must give the same bits; the time of
+     the plan build (host and device) and of one factorization;
+  6. one profiled run of the main path: device busy time by kernel, and the
+     rows of the full-matrix passes (mul, fill, tril).
 The last three lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}.  Imports neither JAX nor gtsam_tpu.
 """
@@ -38,8 +43,11 @@ TARGET = 329909.0 * 1.0001     # baselines/reference_cpu.json bal_ladybug x 1.00
 # are read from gtsam_torch.sfm.ba_kernels.KERNELS.
 # kernel-vs-plain tolerances, relative to the plain output's largest entry:
 # kernel 1 shares the plain version's formulas (FMA contraction only);
-# kernels 2 and 4 sum in another order; kernel 3's atomics in a run-dependent
-# order (S is reproducible only to rounding).
+# kernels 2, 3 and 4 sum in another (fixed) order than their plain versions:
+# kernel 2 per point in row order (a warp butterfly on long tracks), kernel 3
+# per cell in 14 interleaved partial sums, and C in kernel 2 is a 3x3 inverse
+# that carries its block's condition number into WC and corr, which kernel 3
+# then sums; 1e-10 leaves that room at lam = 1.
 TOL = {"bal_linearize": 1e-12, "bal_error": 1e-12, "ba_point_eliminate": 1e-10,
        "ba_camera_assemble": 1e-10, "ba_pair_assemble": 1e-10,
        "ba_back_substitute": 1e-10}
@@ -95,13 +103,17 @@ class Inputs:
         self.proj = ba._projection_args(self.plan, cams, pts, self.uv)
         self.A_cam, self.A_pt, self.b = bk.linearize_plain(*self.proj)
         (self.W, self.WC, self.corr, self.C, self.gl) = \
-            bk.point_eliminate_plain(self.plan.pt_ptr, self.A_cam, self.A_pt,
-                                     self.b, lam, False)
+            bk.point_eliminate_plain(self.plan.pt_ptr, self.plan.pt_tile,
+                                     self.A_cam, self.A_pt, self.b, lam,
+                                     False)
         n = 9 * prob.num_cameras
         self.S = torch.zeros((n, n), dtype=torch.float64, device="cuda")
         self.dc = torch.randn((prob.num_cameras, 9), dtype=torch.float64,
                               device="cuda",
                               generator=torch.Generator("cuda").manual_seed(0))
+        # the scale s that kernel 3b reads, from 3a's plain version
+        self.s = None
+        _, self.s = bk.camera_assemble_plain(*self.args("ba_camera_assemble"))
 
     # argument tuples of each kernel wrapper and its plain version
     def args(self, name):
@@ -109,40 +121,70 @@ class Inputs:
         return {
             "bal_linearize": self.proj,
             "bal_error": self.proj,
-            "ba_point_eliminate": (p.pt_ptr, self.A_cam, self.A_pt, self.b,
-                                   self.lam, False),
+            "ba_point_eliminate": (p.pt_ptr, p.pt_tile, self.A_cam, self.A_pt,
+                                   self.b, self.lam, False),
             "ba_camera_assemble": (p.cam_ptr, p.cam_obs, self.A_cam, self.b,
-                                   self.corr, self.lam, False, self.S),
-            "ba_pair_assemble": (p.pair_ptr, p.pair_a, p.pair_b, p.obs_cam,
-                                 self.WC, self.W, self.S),
+                                   self.corr, p.cell_ptr, p.diag_cell,
+                                   p.cell_a, p.cell_b, self.WC, self.W,
+                                   self.lam, False, self.S),
+            "ba_pair_assemble": (p.cell_ptr, p.cell_ca, p.cell_cb, p.cell_a,
+                                 p.cell_b, self.WC, self.W, self.s, self.S),
             "ba_back_substitute": (p.pt_ptr, p.obs_cam, self.W, self.dc,
                                    self.C, self.gl),
         }[name]
 
+    def shape(self):
+        """Counts of the plan that the kernels' work depends on."""
+        import numpy as np
+        p = self.plan
+        cell_ptr = p.cell_ptr.cpu().numpy().astype(np.int64)
+        diag = (p.cell_ca == p.cell_cb).cpu().numpy()
+        per_cell = np.diff(cell_ptr)
+        off_pair = np.repeat(~diag, per_cell)
+        tile_rows = np.diff(p.pt_ptr.cpu().numpy()[p.pt_tile.cpu().numpy()])
+        return dict(
+            P=int(cell_ptr[-1]), U=len(diag), U_diag=int(diag.sum()),
+            P_diag=int(per_cell[diag].sum()), P_off=int(off_pair.sum()),
+            rows_off=int(np.unique(p.cell_a.cpu().numpy()[off_pair]).size),
+            max_cell_off=int(per_cell[~diag].max(initial=0)),
+            diag_a_ne_b=int((p.cell_a != p.cell_b).cpu().numpy()[
+                ~off_pair].sum()),
+            tiles=len(tile_rows), max_tile_rows=int(tile_rows.max()),
+            max_track=int(np.diff(p.pt_ptr.cpu().numpy()).max()))
+
     def work(self, name):
         """(bytes that must move, FP64 operations) of one call, counted from
-        this problem's shapes; each input read once, each output written
+        this problem's plan; each input read once, each output written
         once."""
-        import numpy as np
         M, N = self.prob.num_cameras, self.prob.num_points
         K = self.prob.num_observations
-        p = self.plan
-        P = int(p.pair_ptr[-1])
-        oc = p.obs_cam.cpu().numpy().astype(np.int64)
-        cells = np.unique(oc[p.pair_a.cpu().numpy()] * M
-                          + oc[p.pair_b.cpu().numpy()]).size
+        c = self.shape()
         params = M * (9 + 3 + 3) * 8 + N * 3 * 8
         return {
             "bal_linearize": (K * (8 + 16) + params + K * (18 + 6 + 2) * 8,
                               K * 110),
             "bal_error": (K * (8 + 16) + params + 8 * (-(-K // 256)), K * 40),
+            # A_cam, A_pt, b and the point CSR and tiles in; W, WC, corr, C,
+            # gl out
             "ba_point_eliminate": (K * (18 + 6 + 2) * 8 + (N + 1) * 4
+                                   + (c["tiles"] + 1) * 4
                                    + K * (27 + 27 + 9) * 8 + N * (9 + 3) * 8,
                                    K * 350 + N * 60),
+            # A_cam, b, corr, the camera CSR; the diagonal cells' pairs and
+            # the WC and W of every row (each row's pair (k, k) is one);
+            # diagonal blocks, s and g out
             "ba_camera_assemble": (K * (18 + 2 + 9) * 8 + K * 4 + (M + 1) * 4
-                                   + M * (81 + 9) * 8, K * 370),
-            "ba_pair_assemble": (K * (27 + 27) * 8 + K * 4 + P * 8
-                                 + (N + 1) * 4 + cells * 81 * 8, P * 81 * 6),
+                                   + M * 4 + c["U_diag"] * 8
+                                   + c["P_diag"] * 8 + K * (27 + 27) * 8
+                                   + M * (81 + 9 + 9) * 8,
+                                   K * 370 + c["P_diag"] * 81 * 6),
+            # the cell CSR, the off-diagonal pairs, WC and W of their rows and
+            # s in; each off-diagonal cell out once
+            "ba_pair_assemble": ((c["U"] + 1) * 4 + c["U"] * 8
+                                 + c["P_off"] * 8
+                                 + c["rows_off"] * (27 + 27) * 8 + 9 * M * 8
+                                 + (c["U"] - c["U_diag"]) * 81 * 8,
+                                 c["P_off"] * 81 * 6),
             "ba_back_substitute": (K * (27 * 8 + 4) + M * 9 * 8
                                    + N * (9 + 3 + 3) * 8 + (N + 1) * 4,
                                    K * 54 + N * 15),
@@ -150,18 +192,16 @@ class Inputs:
 
 
 def run_pair(name, inp, bk):
-    """(kernel outputs, plain outputs) of kernel `name` on the same inputs."""
+    """(kernel outputs, plain outputs) of kernel `name` on the same inputs;
+    the assembly kernels' output includes all of S, zeroed before each."""
     import torch
     outs = []
     wrapper = bk.KERNELS[name].wrapper
     for f in (getattr(bk, wrapper), getattr(bk, wrapper + "_plain")):
         inp.S.zero_()
-        if name == "ba_pair_assemble":
-            # start both from the same diagonal blocks (kernel 3a's plain run)
-            bk.camera_assemble_plain(*inp.args("ba_camera_assemble"))
         r = f(*inp.args(name))
         if name in ("ba_camera_assemble", "ba_pair_assemble"):
-            r = (inp.S.clone(),) + ((r,) if r is not None else ())
+            r = (inp.S.clone(),) + (r if r is not None else ())
         elif not isinstance(r, tuple):
             r = (r,)
         outs.append(r)
@@ -194,6 +234,7 @@ def main(argv):
         return 1
     quick = "--quick" in argv
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
     from gtsam_torch import LMParams, _build
     from gtsam_torch.sfm import ba, ba_kernels as bk, synthetic
 
@@ -222,15 +263,29 @@ def main(argv):
     bad = dataclasses.replace(small, points=small.points.copy())
     first = bad.obs_cam[[int((bad.obs_pt == j).argmax()) for j in range(8)]]
     bad.points[:8] = 3.0 * bad.cam_t[first]
+    # tracks the synthetic generator never makes: 200 observations (twice
+    # round the ring: kernel 2's cooperative branch, and a != b pairs in
+    # diagonal cells), one camera seen twice in a short track, and 700
+    # points over cameras 3 and 4 (a long off-diagonal cell; the Ladybug
+    # shape's longest has 604 pairs)
+    bad = synthetic.add_tracks(
+        bad, [np.arange(200) % 100, np.array([1, 1, 2])]
+        + [np.array([3, 4])] * 700, seed=0)
     # lam = 1 keeps every damped 3x3 point block well conditioned, so the
     # differences measure the kernels' arithmetic: at lam = 1e-4 a track that
     # sees one camera twice has an unobservable depth (condition ~1e7), and
     # two correct inverses of it differ by ~1e-8 of their largest entry.
     inp = Inputs(bad, 1.0)
     behind = int((bk.linearize_plain(*inp.proj)[2] == -1e3).all(1).sum())
-    log(f"kernel checks: {behind} observations behind their camera")
+    shape = inp.shape()
+    log(f"kernel checks: {behind} observations behind their camera; "
+        f"plan {json.dumps(shape)}")
     if behind == 0:
         raise AssertionError("the kernel checks miss the cheirality branch")
+    if not (shape["max_tile_rows"] > bk.POINT_TILE_STAGED
+            and shape["diag_a_ne_b"] > 0 and shape["max_cell_off"] >= 700):
+        raise AssertionError("the kernel checks miss a branch of kernel 2 "
+                             "or 3")
     check_kernels(inp, bk, "small")
     del inp
     lm_small = LMParams(max_iterations=10)
@@ -310,12 +365,23 @@ def main(argv):
             f"{launches[name]}, {launches[name] / tries:.2f} per try")
     n = big.S.shape[0]
     zero_ms = cuda_ms(big.S.zero_, reps=5)
+    # no atomics: two assemblies of one try's inputs (lam 1e-4) give the same
+    # bits, S included
+    outs = []
+    for _ in range(2):
+        big.S.fill_(float("nan"))
+        g, s, _, _, _ = ba.assemble(big.plan, big.A_cam, big.A_pt, big.b,
+                                    1e-4, False, big.S)
+        outs.append((big.S.clone(), g, s))
+    same = all(torch.equal(x, y) for x, y in zip(*outs))
+    log(f"assembly reproducible: {same}")
+    if not same:
+        raise AssertionError("two assemblies of the same inputs differ")
+    # the factorization of one try, on the S that ba.assemble returned
+    # (already equilibrated)
+    S0 = outs[0][0]
+    del outs
     info_t = torch.empty((), dtype=torch.int32, device="cuda")
-    # the factorization of one try: S assembled at lam 1e-4, equilibrated
-    ba.assemble(big.plan, big.A_cam, big.A_pt, big.b, 1e-4, False, big.S)
-    s = torch.diagonal(big.S).clamp(min=1e-12).rsqrt()
-    big.S.mul_(s[:, None]).mul_(s[None, :])
-    S0 = big.S.clone()
     chol_ms = []
     for _ in range(3):   # each factorization overwrites S: restore, then time
         big.S.copy_(S0)
@@ -330,10 +396,14 @@ def main(argv):
     chol_bound = max(n ** 3 / 3 / FP64_TC_FLOPS,
                      2 * n * n * 8 / HBM_BYTES_PER_S) * 1e3
     del big
-    t0 = time.time()
-    ba.BAStructure.build(prob.obs_cam, prob.obs_pt, prob.num_cameras,
-                         prob.num_points)
-    plan_s = time.time() - t0
+    plan_s = []   # the plan as ba_optimize builds it: host rows, device cells
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ba.BAStructure.build(prob.obs_cam, prob.obs_pt, prob.num_cameras,
+                             prob.num_points).to("cuda")
+        torch.cuda.synchronize()
+        plan_s.append(time.time() - t0)
     log(json.dumps({"library": {
         "cholesky_ex": {"ms": chol_ms, "n": n, "bound_ms": chol_bound,
                         "calls": tries},
@@ -359,6 +429,11 @@ def main(argv):
         "wall_ms": traced_ms, "device_busy_ms": busy if rows else None,
         "idle_share": 1.0 - busy / traced_ms if rows else None,
         "by_kernel_ms": [[k[:80], ms, c] for k, ms, c in rows[:15]]}}))
+    # the full-matrix passes around the factorization: elementwise mul (the
+    # equilibration, fused into kernel 3 now), fill (S.zero_) and tril
+    log(json.dumps({"profile_passes": [
+        [k[:120], ms, c] for k, ms, c in rows
+        if any(w in k.lower() for w in ("mul", "fill", "zero", "tril"))]}))
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

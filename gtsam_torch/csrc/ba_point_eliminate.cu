@@ -16,31 +16,57 @@
 //
 // Bound on the H100: bytes.  Per observation it reads 208 bytes (A_cam,
 // A_pt, b) and writes 504 (W, WC, corr) for ~500 FP64 operations, below
-// the card's balance point.  Design: one warp per point, lanes striding
-// over the observations of the run (any run length, no padding to powers
-// of two); the 12 reductions are warp butterflies in registers, so Hll and
-// gl never touch device memory; the second pass re-reads the run's
-// Jacobians from L1/L2 to emit W, WC and corr.
+// the card's balance point.  Tracks are short (2-4 observations at the
+// Ladybug shape), so a warp per point would leave most lanes idle and
+// store each row's 63 outputs at a stride between lanes.  Design: one
+// block per row tile of the plan (pt_tile: the points whose first row lies
+// in the tile).  Rows are sorted by point, so the tile's rows are one
+// contiguous range of the inputs and of the outputs:
+//   1. the block copies its rows of A_cam, A_pt and b into shared memory
+//      with flat, coalesced loads;
+//   2. one thread per point sums Hll and gl from shared memory in row
+//      order and forms C, gl and Cg there;
+//   3. one thread per OUTPUT ELEMENT writes W, WC and corr (and C, gl),
+//      recomputing its few products from shared memory, so consecutive
+//      threads store consecutive doubles.
+// A tile whose rows or points exceed the shared buffers (a track longer
+// than ~32 observations lies in it, or many points without observations)
+// takes the cooperative branch instead: one warp per point, lanes
+// striding over the track, warp butterflies for the 12 sums, outputs
+// stored from registers.  Every sum runs in a fixed order, so the results
+// do not change between runs.
 #include "ba_common.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / gt::kWarp;
+constexpr int kTileRows = 128;  // >= the plan's POINT_TILE_ROWS + overhang
+constexpr int kTilePts = 128;
 
-__global__ void __launch_bounds__(kWarpsPerBlock * gt::kWarp)
-ba_point_eliminate_kernel(int N, const int* __restrict__ pt_ptr,
-                          const double* __restrict__ A_cam,
-                          const double* __restrict__ A_pt,
-                          const double* __restrict__ b, double lam,
-                          int diagonal_damping, double* __restrict__ W,
-                          double* __restrict__ WC, double* __restrict__ corr,
-                          double* __restrict__ C_out,
-                          double* __restrict__ gl_out) {
-  const int p = blockIdx.x * kWarpsPerBlock + threadIdx.x / gt::kWarp;
-  const int lane = threadIdx.x % gt::kWarp;
-  if (p >= N) return;  // whole warp leaves together
+// lam_eff damping, C = (Hll + lam_eff I)^-1 and Cg = C g, in place in h.
+__device__ __forceinline__ void point_solve(double h[9], const double g[3],
+                                            double lam, int diagonal_damping,
+                                            double C[9], double Cg[3]) {
+  const double lam_eff =
+      diagonal_damping ? (h[0] + h[4] + h[8]) / 3.0 * lam : lam;
+  h[0] += lam_eff;
+  h[4] += lam_eff;
+  h[8] += lam_eff;
+  gt::inv3x3(h, C);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    Cg[i] = C[3 * i] * g[0] + C[3 * i + 1] * g[1] + C[3 * i + 2] * g[2];
+}
+
+// The cooperative branch: one warp eliminates point p from device memory.
+__device__ void eliminate_point_warp(int p, int lane, const int* pt_ptr,
+                                     const double* A_cam, const double* A_pt,
+                                     const double* b, double lam,
+                                     int diagonal_damping, double* W,
+                                     double* WC, double* corr, double* C_out,
+                                     double* gl_out) {
   const int s = pt_ptr[p], e = pt_ptr[p + 1];
-
   double h[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0}, g[3] = {0, 0, 0};
   for (int k = s + lane; k < e; k += gt::kWarp) {
     const double* ap = A_pt + 6 * (int64_t)k;
@@ -62,15 +88,8 @@ ba_point_eliminate_kernel(int N, const int* __restrict__ pt_ptr,
     if (lane < 3) gl_out[3 * (int64_t)p + lane] = 0.0;
     return;
   }
-  const double lam_eff =
-      diagonal_damping ? (h[0] + h[4] + h[8]) / 3.0 * lam : lam;
   double C[9], Cg[3];
-  h[0] += lam_eff;
-  h[4] += lam_eff;
-  h[8] += lam_eff;
-  gt::inv3x3(h, C);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) Cg[i] = C[3 * i] * g[0] + C[3 * i + 1] * g[1] + C[3 * i + 2] * g[2];
+  point_solve(h, g, lam, diagonal_damping, C, Cg);
   if (lane < 9) C_out[9 * (int64_t)p + lane] = C[lane];
   if (lane < 3) gl_out[3 * (int64_t)p + lane] = g[lane];
 
@@ -96,19 +115,115 @@ ba_point_eliminate_kernel(int N, const int* __restrict__ pt_ptr,
   }
 }
 
+__global__ void __launch_bounds__(kThreads) ba_point_eliminate_kernel(
+    const int* __restrict__ pt_ptr, const int* __restrict__ pt_tile,
+    const double* __restrict__ A_cam, const double* __restrict__ A_pt,
+    const double* __restrict__ b, double lam, int diagonal_damping,
+    double* __restrict__ W, double* __restrict__ WC,
+    double* __restrict__ corr, double* __restrict__ C_out,
+    double* __restrict__ gl_out) {
+  __shared__ double s_ac[kTileRows * 18];
+  __shared__ double s_ap[kTileRows * 6];
+  __shared__ double s_b[kTileRows * 2];
+  __shared__ double s_C[kTilePts * 9];
+  __shared__ double s_gl[kTilePts * 3];
+  __shared__ double s_Cg[kTilePts * 3];
+  __shared__ int s_pt[kTileRows];  // tile-local point of each row
+
+  const int t = threadIdx.x;
+  const int p0 = pt_tile[blockIdx.x], p1 = pt_tile[blockIdx.x + 1];
+  const int r0 = pt_ptr[p0], r1 = pt_ptr[p1];
+  const int np = p1 - p0, nr = r1 - r0;
+
+  if (nr > kTileRows || np > kTilePts) {  // uniform over the block
+    for (int p = p0 + t / gt::kWarp; p < p1; p += kWarps)
+      eliminate_point_warp(p, t % gt::kWarp, pt_ptr, A_cam, A_pt, b, lam,
+                           diagonal_damping, W, WC, corr, C_out, gl_out);
+    return;
+  }
+
+  // 1. stage the tile's rows
+  const double* ac_g = A_cam + 18 * (int64_t)r0;
+  const double* ap_g = A_pt + 6 * (int64_t)r0;
+  const double* b_g = b + 2 * (int64_t)r0;
+  for (int e = t; e < nr * 18; e += kThreads) s_ac[e] = ac_g[e];
+  for (int e = t; e < nr * 6; e += kThreads) s_ap[e] = ap_g[e];
+  for (int e = t; e < nr * 2; e += kThreads) s_b[e] = b_g[e];
+  __syncthreads();
+
+  // 2. one thread per point
+  for (int lp = t; lp < np; lp += kThreads) {
+    const int s = pt_ptr[p0 + lp] - r0, e = pt_ptr[p0 + lp + 1] - r0;
+    double h[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0}, g[3] = {0, 0, 0};
+    for (int r = s; r < e; ++r) {
+      const double* ap = s_ap + 6 * r;
+      const double b0 = s_b[2 * r], b1 = s_b[2 * r + 1];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) h[3 * i + j] += ap[i] * ap[j] + ap[3 + i] * ap[3 + j];
+        g[i] += ap[i] * b0 + ap[3 + i] * b1;
+      }
+      s_pt[r] = lp;
+    }
+    double C[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0}, Cg[3] = {0, 0, 0};
+    if (s < e) point_solve(h, g, lam, diagonal_damping, C, Cg);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) s_C[9 * lp + i] = C[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      s_gl[3 * lp + i] = g[i];
+      s_Cg[3 * lp + i] = Cg[i];
+    }
+  }
+  __syncthreads();
+
+  // 3. coalesced stores, one thread per output element
+  for (int e = t; e < np * 9; e += kThreads) C_out[9 * (int64_t)p0 + e] = s_C[e];
+  for (int e = t; e < np * 3; e += kThreads) gl_out[3 * (int64_t)p0 + e] = s_gl[e];
+  double* W_g = W + 27 * (int64_t)r0;
+  double* WC_g = WC + 27 * (int64_t)r0;
+  double* corr_g = corr + 9 * (int64_t)r0;
+  for (int e = t; e < nr * 27; e += kThreads) {
+    const int r = e / 27, q = e - 27 * r, i = q / 3, l = q - 3 * i;
+    const double* ac = s_ac + 18 * r;
+    const double* ap = s_ap + 6 * r;
+    W_g[e] = ac[i] * ap[l] + ac[9 + i] * ap[3 + l];
+  }
+  for (int e = t; e < nr * 27; e += kThreads) {
+    const int r = e / 27, q = e - 27 * r, i = q / 3, l = q - 3 * i;
+    const double* ac = s_ac + 18 * r;
+    const double* ap = s_ap + 6 * r;
+    const double* C = s_C + 9 * s_pt[r];
+    double w[3];
+#pragma unroll
+    for (int m = 0; m < 3; ++m) w[m] = ac[i] * ap[m] + ac[9 + i] * ap[3 + m];
+    WC_g[e] = w[0] * C[l] + w[1] * C[3 + l] + w[2] * C[6 + l];
+  }
+  for (int e = t; e < nr * 9; e += kThreads) {
+    const int r = e / 9, i = e - 9 * r;
+    const double* ac = s_ac + 18 * r;
+    const double* ap = s_ap + 6 * r;
+    const double* Cg = s_Cg + 3 * s_pt[r];
+    double w[3];
+#pragma unroll
+    for (int m = 0; m < 3; ++m) w[m] = ac[i] * ap[m] + ac[9 + i] * ap[3 + m];
+    corr_g[e] = w[0] * Cg[0] + w[1] * Cg[1] + w[2] * Cg[2];
+  }
+}
+
 }  // namespace
 
-GT_EXPORT int gt_ba_point_eliminate(int N, const int* pt_ptr,
-                                    const double* A_cam, const double* A_pt,
-                                    const double* b, double lam,
-                                    int diagonal_damping, double* W,
-                                    double* WC, double* corr, double* C,
-                                    double* gl, void* stream) {
-  if (N > 0) {
-    const int grid = (N + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    ba_point_eliminate_kernel<<<grid, kWarpsPerBlock * gt::kWarp, 0,
-                                (cudaStream_t)stream>>>(
-        N, pt_ptr, A_cam, A_pt, b, lam, diagonal_damping, W, WC, corr, C, gl);
+GT_EXPORT int gt_ba_point_eliminate(int T, const int* pt_ptr,
+                                    const int* pt_tile, const double* A_cam,
+                                    const double* A_pt, const double* b,
+                                    double lam, int diagonal_damping,
+                                    double* W, double* WC, double* corr,
+                                    double* C, double* gl, void* stream) {
+  if (T > 0) {
+    ba_point_eliminate_kernel<<<T, kThreads, 0, (cudaStream_t)stream>>>(
+        pt_ptr, pt_tile, A_cam, A_pt, b, lam, diagonal_damping, W, WC, corr,
+        C, gl);
   }
   return (int)cudaGetLastError();
 }

@@ -1,113 +1,220 @@
-// Kernel 3: assembly of the dense reduced camera matrix S (9M x 9M,
-// camera-major: row 9*c + i) and the reduced camera gradient.
+// Kernel 3: assembly of the Jacobi-equilibrated reduced camera matrix S
+// (9M x 9M, camera-major: row 9*c + i) and the reduced camera gradient.
 //
 // Replaces: gtsam_tpu/sfm/ba.py::schur_solve camera reduce (:1103-1108,
 // :1134), pair products and cell reduce (:1142-1213), _assemble_S_planes
-// (:543) and the Hpp damping (:1217-1221).  The JAX package assembles in a
+// (:543), the Hpp damping (:1217-1221) and the equilibration of
+// _dense_spd_solve (:468-470).  The JAX package assembles in a
 // parameter-major layout (row i*M + c) to suit TPU tiling; camera-major is a
 // symmetric permutation of it, so the Cholesky solution is the same.
 //
-// (a) ba_camera_assemble: one block per camera over the camera CSR
-//     (cam_ptr, cam_obs): Hpp = sum A_cam^T A_cam, damped (Hpp + lam I, or
-//     Hpp * (1 + lam) on the diagonal), stored into S's diagonal block;
-//     g~ = sum A_cam^T b - sum corr.  Thread t < 81 owns Hpp entry t,
-//     threads 81..89 the gradient: no atomics, since ~319 observations hit
-//     each camera at Ladybug shape and atomics there would serialise.
-// (b) ba_pair_assemble: one block per point; for every DIRECTED pair (a, b)
-//     of its observations (the plan's pair list), S[cam_a, cam_b] -=
-//     WC_a W_b^T with float64 atomicAdd.  Directed pairs give the full
-//     symmetric S and need no special case for a track that sees one camera
-//     twice.  Atomic order changes from run to run, so S is reproducible
-//     only to rounding.
-// The caller zeroes S and launches (a) before (b) on one stream.
+// The plan groups the directed pairs (a, b) of every point's observations
+// by cell (camera of a, camera of b): a CSR over cell_a / cell_b with the
+// cells sorted.  Each cell of S is computed by one block and written once,
+// already scaled: no atomics, and every sum runs in a fixed order, so two
+// assemblies of the same inputs give the same bits.
+// (a) ba_camera_assemble: one block per camera c.  Hpp over the camera CSR
+//     (cam_ptr, cam_obs), damped (Hpp + lam I, or Hpp * (1 + lam) on the
+//     diagonal), minus sum WC_a W_b^T over the pairs of cell (c, c) (a == b,
+//     and a != b for a track that sees c twice) gives the diagonal block
+//     D_c; s_c = rsqrt(clamp(diag D_c, 1e-12)) and D_c s_c s_c^T go to s
+//     and S; g~ = sum A_cam^T b - sum corr.
+// (b) ba_pair_assemble: one block per off-diagonal cell (ca, cb), after
+//     (a) on the same stream: -sum WC_a W_b^T scaled by s_ca s_cb^T.
+// In both, the block's 126 working threads form 14 groups of 9: a group
+// takes every 14th observation or pair of the run, each of its threads a
+// 3x3 tile of the 9x9 block, and the 14 partial blocks are summed in group
+// order in shared memory.  So a cell with hundreds of pairs (604 at the
+// Ladybug shape) is spread over the block, not walked by one thread.
+// Thread t < 81 then writes entry (t / 9, t % 9): each 9-double row of a
+// block is stored by 9 consecutive threads.
 //
-// Bound on the H100: bytes.  (a) reads A_cam, b and corr once per
-// observation (232 B); (b) reads WC and W (432 B per observation, re-read
-// through L1/L2 for each pair) and read-modify-writes the touched 9x9
-// cells.  The zero-fill of S (1.92 GB at Ladybug shape) is the largest
-// single cost and is a plain memset outside these kernels.
+// Bound on the H100: bytes.  (a) reads A_cam, b and corr (232 B) and, for
+// the pairs of the diagonal cells, WC and W (432 B) of every observation;
+// (b) reads WC and W of the observations in off-diagonal pairs and writes
+// each touched cell (648 B) once.  The zero-fill of the untouched cells of
+// S (1.92 GB at Ladybug shape) is a plain memset outside these kernels.
 #include "ba_common.cuh"
 
 namespace {
 
-constexpr int kCamThreads = 96;   // 81 Hpp entries + 9 gradient entries
-constexpr int kPairThreads = 128;
+constexpr int kThreads = 128;
+constexpr int kGroups = 14;  // 14 groups of 9 threads: 126 working threads
+constexpr int kRed = 81 + 81 + 18;  // per group: Hpp, pair sums, gp and corr
 
-__global__ void __launch_bounds__(kCamThreads) ba_camera_assemble_kernel(
-    int M, const int* __restrict__ cam_ptr, const int* __restrict__ cam_obs,
-    const double* __restrict__ A_cam, const double* __restrict__ b,
-    const double* __restrict__ corr, double lam, int diagonal_damping,
-    double* __restrict__ S, double* __restrict__ g) {
-  const int c = blockIdx.x;
-  const int t = threadIdx.x;
-  const int s = cam_ptr[c], e = cam_ptr[c + 1];
-  const int64_t n = 9 * (int64_t)M;
-  if (t < 81) {
-    const int i = t / 9, j = t % 9;
-    double acc = 0.0;
-    for (int q = s; q < e; ++q) {
-      const double* ac = A_cam + 18 * (int64_t)cam_obs[q];
-      acc += ac[i] * ac[j] + ac[9 + i] * ac[9 + j];
+// Adds sum WC_a W_b^T over the pairs q = q0 + g, q0 + g + kGroups, ... < q1
+// to this thread's 3x3 tile (rows 3 ti.., columns 3 tl..) in acc.
+__device__ __forceinline__ void pair_tile(int q0, int q1, int g, int ti,
+                                          int tl, const int* cell_a,
+                                          const int* cell_b, const double* WC,
+                                          const double* W, double acc[9]) {
+  for (int q = q0 + g; q < q1; q += kGroups) {
+    const double* x = WC + 27 * (int64_t)cell_a[q] + 9 * ti;
+    const double* y = W + 27 * (int64_t)cell_b[q] + 9 * tl;
+    double xv[9], yv[9];
+#pragma unroll
+    for (int m = 0; m < 9; ++m) {
+      xv[m] = x[m];
+      yv[m] = y[m];
     }
-    if (i == j) acc = diagonal_damping ? acc * (1.0 + lam) : acc + lam;
-    S[(9 * (int64_t)c + i) * n + 9 * (int64_t)c + j] = acc;
-  } else if (t < 90) {
-    const int i = t - 81;
-    double gp = 0.0, cr = 0.0;
-    for (int q = s; q < e; ++q) {
-      const int64_t k = cam_obs[q];
-      const double* ac = A_cam + 18 * k;
-      gp += ac[i] * b[2 * k] + ac[9 + i] * b[2 * k + 1];
-      cr += corr[9 * k + i];
-    }
-    g[9 * (int64_t)c + i] = gp - cr;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int l = 0; l < 3; ++l)
+        acc[3 * i + l] += xv[3 * i] * yv[3 * l] + xv[3 * i + 1] * yv[3 * l + 1] +
+                          xv[3 * i + 2] * yv[3 * l + 2];
   }
 }
 
-__global__ void __launch_bounds__(kPairThreads) ba_pair_assemble_kernel(
-    int N, int M, const int* __restrict__ pair_ptr,
-    const int* __restrict__ pair_a, const int* __restrict__ pair_b,
-    const int* __restrict__ obs_cam, const double* __restrict__ WC,
-    const double* __restrict__ W, double* __restrict__ S) {
-  const int p = blockIdx.x;
-  const int q0 = pair_ptr[p];
-  // 64-bit: a track of l >= 5149 observations has l * l * 81 >= 2^31 entries
-  const int64_t total = (int64_t)(pair_ptr[p + 1] - q0) * 81;
-  const int64_t n = 9 * (int64_t)M;
-  for (int64_t w = threadIdx.x; w < total; w += kPairThreads) {
-    const int q = q0 + (int)(w / 81);
-    const int ent = (int)(w % 81);
-    const int i = ent / 9, l = ent % 9;
-    const int64_t a = pair_a[q], bb = pair_b[q];
-    const double* wc = WC + 27 * a + 3 * i;
-    const double* wv = W + 27 * bb + 3 * l;
-    const double v = wc[0] * wv[0] + wc[1] * wv[1] + wc[2] * wv[2];
-    atomicAdd(S + (9 * (int64_t)obs_cam[a] + i) * n + 9 * (int64_t)obs_cam[bb] + l,
-              -v);
+// Stores a thread's 3x3 tile into entries 9 * (3 ti + i) + 3 tl + l of red.
+__device__ __forceinline__ void put_tile(double* red, int ti, int tl,
+                                         const double acc[9]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int l = 0; l < 3; ++l) red[9 * (3 * ti + i) + 3 * tl + l] = acc[3 * i + l];
+}
+
+__device__ __forceinline__ double group_sum(const double (*red)[kRed], int e) {
+  double v = 0.0;
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) v += red[g][e];
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads) ba_camera_assemble_kernel(
+    int M, const int* __restrict__ cam_ptr, const int* __restrict__ cam_obs,
+    const double* __restrict__ A_cam, const double* __restrict__ b,
+    const double* __restrict__ corr, const int* __restrict__ cell_ptr,
+    const int* __restrict__ diag_cell, const int* __restrict__ cell_a,
+    const int* __restrict__ cell_b, const double* __restrict__ WC,
+    const double* __restrict__ W, double lam, int diagonal_damping,
+    double* __restrict__ S, double* __restrict__ s_out,
+    double* __restrict__ g_out) {
+  __shared__ double red[kGroups][kRed];
+  __shared__ double s_s[9];
+  const int c = blockIdx.x;
+  const int t = threadIdx.x;
+  if (t < 9 * kGroups) {
+    const int g = t / 9, ti = (t % 9) / 3, tl = t % 3;
+    double h[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
+    double pr[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
+    double gp[3] = {0, 0, 0}, cr[3] = {0, 0, 0};
+    for (int q = cam_ptr[c] + g; q < cam_ptr[c + 1]; q += kGroups) {
+      const int64_t k = cam_obs[q];
+      const double* ac = A_cam + 18 * k;
+      double x0[3], x1[3], y0[3], y1[3];
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        x0[m] = ac[3 * ti + m];
+        x1[m] = ac[9 + 3 * ti + m];
+        y0[m] = ac[3 * tl + m];
+        y1[m] = ac[9 + 3 * tl + m];
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int l = 0; l < 3; ++l) h[3 * i + l] += x0[i] * y0[l] + x1[i] * y1[l];
+      if (tl == 0) {
+        const double b0 = b[2 * k], b1 = b[2 * k + 1];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          gp[i] += x0[i] * b0 + x1[i] * b1;
+          cr[i] += corr[9 * k + 3 * ti + i];
+        }
+      }
+    }
+    const int dc = diag_cell[c];
+    if (dc >= 0)
+      pair_tile(cell_ptr[dc], cell_ptr[dc + 1], g, ti, tl, cell_a, cell_b, WC,
+                W, pr);
+    put_tile(red[g], ti, tl, h);
+    put_tile(red[g] + 81, ti, tl, pr);
+    if (tl == 0) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        red[g][162 + 3 * ti + i] = gp[i];
+        red[g][171 + 3 * ti + i] = cr[i];
+      }
+    }
+  }
+  __syncthreads();
+
+  const int i = t / 9, l = t % 9;
+  double v = 0.0;
+  if (t < 81) {
+    double hs = group_sum(red, t);
+    if (i == l) hs = diagonal_damping ? hs * (1.0 + lam) : hs + lam;
+    v = hs - group_sum(red, 81 + t);
+    if (i == l) {
+      // clamp as torch.clamp does: a NaN stays NaN
+      const double sc = 1.0 / sqrt(v < 1e-12 ? 1e-12 : v);
+      s_s[i] = sc;
+      s_out[9 * (int64_t)c + i] = sc;
+    }
+  } else if (t < 90) {
+    const int r = t - 81;
+    g_out[9 * (int64_t)c + r] = group_sum(red, 162 + r) - group_sum(red, 171 + r);
+  }
+  __syncthreads();
+  if (t < 81) {
+    const int64_t n = 9 * (int64_t)M;
+    S[(9 * (int64_t)c + i) * n + 9 * (int64_t)c + l] = v * s_s[i] * s_s[l];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) ba_pair_assemble_kernel(
+    int M, const int* __restrict__ cell_ptr, const int* __restrict__ cell_ca,
+    const int* __restrict__ cell_cb, const int* __restrict__ cell_a,
+    const int* __restrict__ cell_b, const double* __restrict__ WC,
+    const double* __restrict__ W, const double* __restrict__ s,
+    double* __restrict__ S) {
+  __shared__ double red[kGroups][kRed];
+  const int cell = blockIdx.x;
+  const int t = threadIdx.x;
+  const int ca = cell_ca[cell], cb = cell_cb[cell];
+  if (ca == cb) return;  // diagonal cells are ba_camera_assemble's
+  if (t < 9 * kGroups) {
+    const int g = t / 9, ti = (t % 9) / 3, tl = t % 3;
+    double pr[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
+    pair_tile(cell_ptr[cell], cell_ptr[cell + 1], g, ti, tl, cell_a, cell_b,
+              WC, W, pr);
+    put_tile(red[g], ti, tl, pr);
+  }
+  __syncthreads();
+  if (t < 81) {
+    const int i = t / 9, l = t % 9;
+    const int64_t n = 9 * (int64_t)M;
+    const double v = -group_sum(red, t);
+    S[(9 * (int64_t)ca + i) * n + 9 * (int64_t)cb + l] =
+        v * s[9 * (int64_t)ca + i] * s[9 * (int64_t)cb + l];
   }
 }
 
 }  // namespace
 
-GT_EXPORT int gt_ba_camera_assemble(int M, const int* cam_ptr,
-                                    const int* cam_obs, const double* A_cam,
-                                    const double* b, const double* corr,
-                                    double lam, int diagonal_damping,
-                                    double* S, double* g, void* stream) {
+GT_EXPORT int gt_ba_camera_assemble(
+    int M, const int* cam_ptr, const int* cam_obs, const double* A_cam,
+    const double* b, const double* corr, const int* cell_ptr,
+    const int* diag_cell, const int* cell_a, const int* cell_b,
+    const double* WC, const double* W, double lam, int diagonal_damping,
+    double* S, double* s, double* g, void* stream) {
   if (M > 0) {
-    ba_camera_assemble_kernel<<<M, kCamThreads, 0, (cudaStream_t)stream>>>(
-        M, cam_ptr, cam_obs, A_cam, b, corr, lam, diagonal_damping, S, g);
+    ba_camera_assemble_kernel<<<M, kThreads, 0, (cudaStream_t)stream>>>(
+        M, cam_ptr, cam_obs, A_cam, b, corr, cell_ptr, diag_cell, cell_a,
+        cell_b, WC, W, lam, diagonal_damping, S, s, g);
   }
   return (int)cudaGetLastError();
 }
 
-GT_EXPORT int gt_ba_pair_assemble(int N, int M, const int* pair_ptr,
-                                  const int* pair_a, const int* pair_b,
-                                  const int* obs_cam, const double* WC,
-                                  const double* W, double* S, void* stream) {
-  if (N > 0) {
-    ba_pair_assemble_kernel<<<N, kPairThreads, 0, (cudaStream_t)stream>>>(
-        N, M, pair_ptr, pair_a, pair_b, obs_cam, WC, W, S);
+GT_EXPORT int gt_ba_pair_assemble(int U, int M, const int* cell_ptr,
+                                  const int* cell_ca, const int* cell_cb,
+                                  const int* cell_a, const int* cell_b,
+                                  const double* WC, const double* W,
+                                  const double* s, double* S, void* stream) {
+  if (U > 0) {
+    ba_pair_assemble_kernel<<<U, kThreads, 0, (cudaStream_t)stream>>>(
+        M, cell_ptr, cell_ca, cell_cb, cell_a, cell_b, WC, W, s, S);
   }
   return (int)cudaGetLastError();
 }

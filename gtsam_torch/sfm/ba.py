@@ -2,9 +2,9 @@
 
 Counterpart of gtsam_tpu/sfm/ba.py (non-mixed float64 path).  Landmarks are
 eliminated per track with 3x3 algebra, the reduced camera system
-S = Hpp - Hpl Hll^-1 Hlp is assembled dense (9M x 9M, camera-major) and
-factorized by Cholesky; the LM loop is host-driven and matches the JAX
-package's (GTSAM LevenbergMarquardtOptimizer semantics).
+S = Hpp - Hpl Hll^-1 Hlp is assembled dense (9M x 9M, camera-major), already
+Jacobi-equilibrated, and factorized by Cholesky; the LM loop is host-driven
+and matches the JAX package's (GTSAM LevenbergMarquardtOptimizer semantics).
 
 On CUDA tensors the per-observation and per-point work runs in the
 hand-written kernels of gtsam_torch/csrc (see ba_kernels.py); the dense
@@ -26,21 +26,25 @@ from ..optimize.optimizers import LMParams, check_convergence
 from . import ba_kernels
 from .bal import BalProblem
 
-_DEVICE_ARRAYS = ("obs_cam", "obs_pt", "pt_ptr", "cam_ptr", "cam_obs",
-                  "pair_ptr", "pair_a", "pair_b")
+_ROW_ARRAYS = ("obs_cam", "obs_pt", "pt_ptr", "cam_ptr", "cam_obs")
 
 
 @dataclasses.dataclass(frozen=True)
 class BAStructure:
-    """Static plan of one BA problem, built once on the host.
+    """Static plan of one BA problem.
 
     Observations are sorted by point ("rows"); every per-point reduction is
     a run of the point CSR, every per-camera reduction a run of the camera
-    CSR, and the reduced camera matrix is assembled from the directed pairs
-    (a, b) of each point's rows, both orders and a == b included.  Tracks of
-    any length, and tracks that see one camera twice, need no special case.
-    `build` gives numpy arrays; `to(device)` the same plan with every array
-    but `order` as int32 tensors.
+    CSR.  The reduced camera matrix is assembled from the directed pairs
+    (a, b) of each point's rows, both orders and a == b included, grouped
+    by the 9x9 cell (camera of a, camera of b) they add to: a cell CSR with
+    the cells sorted by ca * M + cb and, inside a cell, the pairs in point
+    order.  Tracks of any length, and tracks that see one camera twice, need
+    no special case.
+
+    `build` gives the row plan as numpy arrays, on the host; `to(device)`
+    moves it as int32 tensors and builds the pair and cell plan there
+    (`cell_*`, `diag_cell`, `pt_tile`, None until then).
     """
 
     num_cameras: int
@@ -51,9 +55,14 @@ class BAStructure:
     pt_ptr: object    # (N+1,) point CSR over rows
     cam_ptr: object   # (M+1,) camera CSR over cam_obs
     cam_obs: object   # (K,) rows grouped by camera
-    pair_ptr: object  # (N+1,) per-point CSR over the pair list
-    pair_a: object    # (P,) first row of each directed pair
-    pair_b: object    # (P,) second row of each directed pair
+    num_pairs: int    # P = sum of squared track lengths
+    pt_tile: object = None    # (T+1,) first point of each row tile, then N
+    cell_ptr: object = None   # (U+1,) cell CSR over cell_a / cell_b
+    cell_ca: object = None    # (U,) camera of the cell's block row
+    cell_cb: object = None    # (U,) camera of the cell's block column
+    cell_a: object = None     # (P,) first row of each pair, in cell order
+    cell_b: object = None     # (P,) second row of each pair, in cell order
+    diag_cell: object = None  # (M,) cell (c, c) of each camera, -1 if none
 
     @staticmethod
     def build(obs_cam, obs_pt, num_cameras, num_points) -> "BAStructure":
@@ -71,22 +80,59 @@ class BAStructure:
         pt_ptr = np.concatenate([[0], np.cumsum(counts)])
         cam_obs = np.argsort(oc, kind="stable")
         cam_ptr = np.concatenate([[0], np.cumsum(np.bincount(oc, minlength=M))])
-        npairs = counts * counts
-        pair_ptr = np.concatenate([[0], np.cumsum(npairs)])
-        owner = np.repeat(np.arange(N), npairs)
-        q = np.arange(pair_ptr[-1]) - pair_ptr[owner]
-        ln = counts[owner]
-        pair_a = pt_ptr[owner] + q // ln
-        pair_b = pt_ptr[owner] + q % ln
-        if max(len(oc), pair_ptr[-1]) >= 2 ** 31:
+        P = int(np.sum(counts * counts))
+        if max(len(oc), P) >= 2 ** 31:
             raise ValueError("problem too large for int32 plan indices")
-        return BAStructure(M, N, order, oc, op, pt_ptr, cam_ptr, cam_obs,
-                           pair_ptr, pair_a, pair_b)
+        if M * M >= 2 ** 31:
+            raise ValueError("too many cameras for int32 cell keys")
+        return BAStructure(M, N, order, oc, op, pt_ptr, cam_ptr, cam_obs, P)
 
     def to(self, device) -> "BAStructure":
-        return dataclasses.replace(self, **{
-            f: torch.as_tensor(np.asarray(getattr(self, f), dtype=np.int32),
-                               device=device) for f in _DEVICE_ARRAYS})
+        """The plan on `device` (of a plan from `build`): row arrays as int32
+        tensors, and the pair and cell plan built there."""
+        dev = torch.device(device)
+        rows = {f: torch.as_tensor(np.asarray(getattr(self, f),
+                                              dtype=np.int32), device=dev)
+                for f in _ROW_ARRAYS}
+        return dataclasses.replace(self, **rows, **_device_plan(
+            rows["pt_ptr"], rows["obs_cam"], self.num_cameras,
+            self.num_pairs))
+
+
+def _device_plan(pt_ptr, obs_cam, M, P):
+    """Directed pairs of every point's rows, sorted by cell with a stable
+    sort of the int32 keys obs_cam[a] * M + obs_cam[b] (so a cell keeps its
+    pairs in point order), and the row tiles of kernel 2; on pt_ptr's
+    device."""
+    dev = pt_ptr.device
+    N, K = pt_ptr.numel() - 1, obs_cam.numel()
+    start = pt_ptr[:-1].long()
+    counts = pt_ptr[1:].long() - start
+    npairs = counts * counts
+    owner = torch.repeat_interleave(torch.arange(N, device=dev), npairs,
+                                    output_size=P)
+    q = torch.arange(P, device=dev) - (torch.cumsum(npairs, 0) - npairs)[owner]
+    ln = counts[owner]
+    a = start[owner] + torch.div(q, ln, rounding_mode="floor")
+    b = start[owner] + torch.remainder(q, ln)
+    key, perm = torch.sort(obs_cam[a] * M + obs_cam[b], stable=True)
+    cells, per_cell = torch.unique_consecutive(key, return_counts=True)
+    cell_ca = torch.div(cells, M, rounding_mode="floor").int()
+    cell_cb = torch.remainder(cells, M).int()
+    diag = torch.nonzero(cell_ca == cell_cb)[:, 0]
+    diag_cell = torch.full((M,), -1, dtype=torch.int32, device=dev)
+    diag_cell[cell_ca[diag].long()] = diag.int()
+    T = max(1, -(-K // ba_kernels.POINT_TILE_ROWS))
+    bounds = torch.arange(T, dtype=torch.int32,
+                          device=dev) * ba_kernels.POINT_TILE_ROWS
+    pt_tile = torch.cat([
+        torch.searchsorted(pt_ptr[:-1].contiguous(), bounds).int(),
+        torch.full((1,), N, dtype=torch.int32, device=dev)])
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    return dict(pt_tile=pt_tile,
+                cell_ptr=torch.cat([zero, torch.cumsum(per_cell, 0).int()]),
+                cell_ca=cell_ca, cell_cb=cell_cb, cell_a=a[perm].int(),
+                cell_b=b[perm].int(), diag_cell=diag_cell)
 
 
 def state_from_numpy(cam_R, cam_t, cam_calib, points, device=None):
@@ -129,27 +175,40 @@ def error(plan: BAStructure, cams: BalCamera, points, uv) -> float:
 
 def assemble(plan: BAStructure, A_cam, A_pt, b, lam, diagonal_damping, S):
     """Eliminate the landmarks and assemble the damped reduced camera system
-    into S (9M x 9M, camera-major, overwritten).  Returns (g~ (M,9), and
-    W, C, gl for the back-substitution)."""
+    into S (9M x 9M, camera-major, overwritten), already Jacobi-equilibrated:
+    S holds D^-1/2 S_red D^-1/2 with s = D^-1/2 = rsqrt(clamp(diag(S_red),
+    1e-12)), the scaling of gtsam_tpu/sfm/ba.py _dense_spd_solve (:468-470).
+    Returns (g~ (M,9), s (9M,), and W, C, gl for the back-substitution)."""
     W, WC, corr, C, gl = ba_kernels.point_eliminate(
-        plan.pt_ptr, A_cam, A_pt, b, lam, diagonal_damping)
-    # One S buffer serves every try of a run: zeroed here and rebuilt (the
-    # JAX package builds a fresh S each try).
+        plan.pt_ptr, plan.pt_tile, A_cam, A_pt, b, lam, diagonal_damping)
+    # One S buffer serves every try of a run (the JAX package builds a fresh
+    # S each try).  The kernels write each touched cell once; the zero-fill
+    # clears the rest, which the previous try's factorization filled in.
     S.zero_()
-    g = ba_kernels.camera_assemble(plan.cam_ptr, plan.cam_obs, A_cam, b, corr,
-                                   lam, diagonal_damping, S)
-    ba_kernels.pair_assemble(plan.pair_ptr, plan.pair_a, plan.pair_b,
-                             plan.obs_cam, WC, W, S)
-    return g, W, C, gl
+    g, s = ba_kernels.camera_assemble(
+        plan.cam_ptr, plan.cam_obs, A_cam, b, corr, plan.cell_ptr,
+        plan.diag_cell, plan.cell_a, plan.cell_b, WC, W, lam,
+        diagonal_damping, S)
+    ba_kernels.pair_assemble(plan.cell_ptr, plan.cell_ca, plan.cell_cb,
+                             plan.cell_a, plan.cell_b, WC, W, s, S)
+    return g, s, W, C, gl
 
 
-def _dense_spd_solve(S, rhs):
-    """Jacobi-equilibrated Cholesky solve of S x = rhs (gtsam_tpu/sfm/ba.py
-    _dense_spd_solve, :468-475).  S is scratch: it is equilibrated and
-    factorized in place, so no second n x n buffer is held.  Returns None
-    when the factorization fails."""
+def equilibrate(S):
+    """Jacobi-equilibrate an arbitrary symmetric S in place; returns s with
+    S now D^-1/2 S D^-1/2.  `assemble` gives S already equilibrated, so the
+    BA path never calls this."""
     s = torch.diagonal(S).clamp(min=1e-12).rsqrt()
     S.mul_(s[:, None]).mul_(s[None, :])
+    return s
+
+
+def _dense_spd_solve(S, rhs, s):
+    """Cholesky solve of S_red x = rhs from its equilibrated S =
+    D^-1/2 S_red D^-1/2 and s = D^-1/2 (gtsam_tpu/sfm/ba.py
+    _dense_spd_solve, :468-475): x = s * S^-1 (s * rhs).  S is scratch and
+    is factorized in place, so no second n x n buffer is held.  Returns None
+    when the factorization fails."""
     # S is symmetric, so its transpose view is the same matrix in the
     # column-major layout LAPACK/cuSOLVER use; factorizing into that view
     # leaves L in S's memory.
@@ -163,8 +222,9 @@ def _dense_spd_solve(S, rhs):
 
 
 def _schur_step(plan, A_cam, A_pt, b, lam, diagonal_damping, S):
-    g, W, C, gl = assemble(plan, A_cam, A_pt, b, lam, diagonal_damping, S)
-    x = _dense_spd_solve(S, g.reshape(-1))
+    g, s, W, C, gl = assemble(plan, A_cam, A_pt, b, lam, diagonal_damping,
+                              S)
+    x = _dense_spd_solve(S, g.reshape(-1), s)
     if x is None:
         return None
     dc = x.reshape(-1, 9)

@@ -66,13 +66,12 @@ KERNELS = {k.name: k for k in (
            "gtsam_tpu/sfm/ba.py:1338", [_INT] + [_P] * 8),
     Kernel("ba_point_eliminate", "ba_point_eliminate", "point_eliminate",
            "gtsam_tpu/sfm/ba.py:1086",
-           [_INT, _P, _P, _P, _P, _DBL, _INT, _P, _P, _P, _P, _P]),
+           [_INT, _P, _P, _P, _P, _P, _DBL, _INT, _P, _P, _P, _P, _P]),
     Kernel("ba_camera_assemble", "ba_schur_assemble", "camera_assemble",
            "gtsam_tpu/sfm/ba.py:1103",
-           [_INT, _P, _P, _P, _P, _P, _DBL, _INT, _P, _P]),
+           [_INT] + [_P] * 11 + [_DBL, _INT, _P, _P, _P]),
     Kernel("ba_pair_assemble", "ba_schur_assemble", "pair_assemble",
-           "gtsam_tpu/sfm/ba.py:1142",
-           [_INT, _INT, _P, _P, _P, _P, _P, _P, _P]),
+           "gtsam_tpu/sfm/ba.py:1142", [_INT, _INT] + [_P] * 9),
     Kernel("ba_back_substitute", "ba_back_substitute", "back_substitute",
            "gtsam_tpu/sfm/ba.py:1264", [_INT, _P, _P, _P, _P, _P, _P, _P]),
 )}
@@ -228,7 +227,18 @@ def _inv3x3(H):
             * inv_det[:, None]).reshape(-1, 3, 3)
 
 
-def point_eliminate_plain(pt_ptr, A_cam, A_pt, b, lam, diagonal_damping):
+# Rows per tile of ba_point_eliminate: the plan's pt_tile gives each tile the
+# points whose first row falls in it.  A tile's rows (with its last point's
+# overhang) and points are staged in shared memory when they fit the
+# kernel's buffers (kTileRows, kTilePts in csrc/ba_point_eliminate.cu), so
+# tracks of up to 33 rows always take that path; a larger tile takes the
+# kernel's cooperative branch.
+POINT_TILE_ROWS = 96
+POINT_TILE_STAGED = 128
+
+
+def point_eliminate_plain(pt_ptr, pt_tile, A_cam, A_pt, b, lam,
+                          diagonal_damping):
     N = pt_ptr.numel() - 1
     seg = _seg(pt_ptr)
     has = (pt_ptr[1:] > pt_ptr[:-1])
@@ -251,15 +261,18 @@ def point_eliminate_plain(pt_ptr, A_cam, A_pt, b, lam, diagonal_damping):
     return W, WC, corr, C, gl
 
 
-def point_eliminate(pt_ptr, A_cam, A_pt, b, lam, diagonal_damping):
+def point_eliminate(pt_ptr, pt_tile, A_cam, A_pt, b, lam, diagonal_damping):
     """Per point: Hll, gl, C = (Hll + lam_eff I)^-1; per observation:
-    W = A_cam^T A_pt, WC = W C, corr = W C gl.
+    W = A_cam^T A_pt, WC = W C, corr = W C gl.  pt_tile: the plan's row
+    tiles (the kernel's blocks; the plain version does not need them).
     Returns W (K,9,3), WC (K,9,3), corr (K,9), C (N,3,3), gl (N,3)."""
-    args = (pt_ptr, A_cam, A_pt, b)
+    args = (pt_ptr, pt_tile, A_cam, A_pt, b)
     if _on_cpu(*args):
         return point_eliminate_plain(*args, lam, diagonal_damping)
     N, K = pt_ptr.shape[0] - 1, A_cam.shape[0]
+    T = max(1, -(-K // POINT_TILE_ROWS))
     dev = _check("ba_point_eliminate", ("pt_ptr", pt_ptr, I32, (N + 1,)),
+                 ("pt_tile", pt_tile, I32, (T + 1,)),
                  ("A_cam", A_cam, F64, (K, 2, 9)),
                  ("A_pt", A_pt, F64, (K, 2, 3)), ("b", b, F64, (K, 2)))
     W = torch.empty((K, 9, 3), dtype=F64, device=dev)
@@ -268,81 +281,112 @@ def point_eliminate(pt_ptr, A_cam, A_pt, b, lam, diagonal_damping):
     C = torch.empty((N, 3, 3), dtype=F64, device=dev)
     gl = torch.empty((N, 3), dtype=F64, device=dev)
     KERNELS["ba_point_eliminate"].launch(
-        dev, N, *map(_ptr, args), float(lam), int(bool(diagonal_damping)),
+        dev, T, *map(_ptr, args), float(lam), int(bool(diagonal_damping)),
         _ptr(W), _ptr(WC), _ptr(corr), _ptr(C), _ptr(gl))
     return W, WC, corr, C, gl
 
 
-# -- kernel 3: reduced camera system -----------------------------------------
+# -- kernel 3: the equilibrated reduced camera system --------------------------
 
 
-def camera_assemble_plain(cam_ptr, cam_obs, A_cam, b, corr, lam,
+def _pair_blocks(cell_ptr, cell_a, cell_b, WC, W, cells):
+    """sum WC_a W_b^T over the pairs of each cell in `cells` (bool (U,)):
+    (number of such cells, 9, 9), in cell order."""
+    of = _seg(cell_ptr)
+    keep = cells[of]
+    idx = torch.cumsum(cells.long(), 0) - 1
+    prods = WC[cell_a[keep].long()] @ W[cell_b[keep].long()].transpose(-1, -2)
+    return torch.zeros((int(cells.sum()), 9, 9), dtype=F64,
+                       device=WC.device).index_add_(0, idx[of[keep]], prods)
+
+
+def camera_assemble_plain(cam_ptr, cam_obs, A_cam, b, corr, cell_ptr,
+                          diag_cell, cell_a, cell_b, WC, W, lam,
                           diagonal_damping, S):
     M = cam_ptr.numel() - 1
+    dev = A_cam.device
     cam_of = _seg(cam_ptr)
     k = cam_obs.long()
     Ac = A_cam[k]
-    Hpp = torch.zeros((M, 9, 9), dtype=F64, device=A_cam.device).index_add_(
+    Hpp = torch.zeros((M, 9, 9), dtype=F64, device=dev).index_add_(
         0, cam_of, torch.einsum("kri,krj->kij", Ac, Ac))
-    gp = torch.zeros((M, 9), dtype=F64, device=A_cam.device).index_add_(
+    gp = torch.zeros((M, 9), dtype=F64, device=dev).index_add_(
         0, cam_of, torch.einsum("kri,kr->ki", Ac, b[k]))
-    cr = torch.zeros((M, 9), dtype=F64, device=A_cam.device).index_add_(
+    cr = torch.zeros((M, 9), dtype=F64, device=dev).index_add_(
         0, cam_of, corr[k])
     d = Hpp.diagonal(dim1=1, dim2=2)
     if diagonal_damping:
         d.mul_(1.0 + lam)
     else:
         d.add_(lam)
+    has = diag_cell >= 0
+    cells = torch.zeros(cell_ptr.numel() - 1, dtype=torch.bool, device=dev)
+    cells[diag_cell[has].long()] = True
+    # the diagonal cells in cell order are the cameras that have one, in order
+    Hpp[has] -= _pair_blocks(cell_ptr, cell_a, cell_b, WC, W, cells)
+    s = Hpp.diagonal(dim1=1, dim2=2).clamp(min=1e-12).rsqrt()        # (M, 9)
     ar = torch.arange(M, device=S.device)
-    S.view(M, 9, M, 9)[ar, :, ar, :] = Hpp
-    return gp - cr
+    S.view(M, 9, M, 9)[ar, :, ar, :] = Hpp * s[:, :, None] * s[:, None, :]
+    return gp - cr, s.reshape(-1)
 
 
-def camera_assemble(cam_ptr, cam_obs, A_cam, b, corr, lam, diagonal_damping,
-                    S):
-    """Per camera: the damped Hpp block, stored into S's diagonal block
-    (S camera-major, (9M, 9M)), and g~ = sum A_cam^T b - sum corr (M, 9)."""
-    args = (cam_ptr, cam_obs, A_cam, b, corr)
+def camera_assemble(cam_ptr, cam_obs, A_cam, b, corr, cell_ptr, diag_cell,
+                    cell_a, cell_b, WC, W, lam, diagonal_damping, S):
+    """Per camera c, the diagonal block of the reduced camera system:
+    D_c = damped Hpp_c - sum WC_a W_b^T over the pairs of cell (c, c), and
+    s_c = rsqrt(clamp(diag D_c, 1e-12)); stores D_c scaled by s_c s_c^T
+    into S's diagonal block (S camera-major, (9M, 9M)).
+    Returns g~ = sum A_cam^T b - sum corr (M, 9) and s (9M,)."""
+    args = (cam_ptr, cam_obs, A_cam, b, corr, cell_ptr, diag_cell, cell_a,
+            cell_b, WC, W)
     if _on_cpu(*args, S):
         return camera_assemble_plain(*args, lam, diagonal_damping, S)
     M, K = cam_ptr.shape[0] - 1, A_cam.shape[0]
+    U, P = cell_ptr.shape[0] - 1, cell_a.shape[0]
     dev = _check("ba_camera_assemble", ("cam_ptr", cam_ptr, I32, (M + 1,)),
                  ("cam_obs", cam_obs, I32, (K,)),
                  ("A_cam", A_cam, F64, (K, 2, 9)), ("b", b, F64, (K, 2)),
                  ("corr", corr, F64, (K, 9)),
-                 ("S", S, F64, (9 * M, 9 * M)))
-    g = torch.empty((M, 9), dtype=F64, device=dev)
-    KERNELS["ba_camera_assemble"].launch(
-        dev, M, *map(_ptr, args), float(lam), int(bool(diagonal_damping)),
-        _ptr(S), _ptr(g))
-    return g
-
-
-def pair_assemble_plain(pair_ptr, pair_a, pair_b, obs_cam, WC, W, S):
-    pa, pb, oc = pair_a.long(), pair_b.long(), obs_cam.long()
-    blocks = WC[pa] @ W[pb].transpose(-1, -2)                  # (P, 9, 9)
-    n = S.shape[0]
-    i9 = torch.arange(9, device=S.device)
-    rows = (9 * oc[pa])[:, None, None] + i9[None, :, None]
-    cols = (9 * oc[pb])[:, None, None] + i9[None, None, :]
-    S.view(-1).index_add_(0, (rows * n + cols).reshape(-1),
-                          -blocks.reshape(-1))
-
-
-def pair_assemble(pair_ptr, pair_a, pair_b, obs_cam, WC, W, S):
-    """S[cam_a, cam_b] -= WC_a W_b^T over every directed pair (a, b) of
-    observations of one point, in place."""
-    args = (pair_ptr, pair_a, pair_b, obs_cam, WC, W, S)
-    if _on_cpu(*args):
-        return pair_assemble_plain(*args)
-    N, P, K = pair_ptr.shape[0] - 1, pair_a.shape[0], obs_cam.shape[0]
-    M = S.shape[0] // 9
-    dev = _check("ba_pair_assemble", ("pair_ptr", pair_ptr, I32, (N + 1,)),
-                 ("pair_a", pair_a, I32, (P,)), ("pair_b", pair_b, I32, (P,)),
-                 ("obs_cam", obs_cam, I32, (K,)),
+                 ("cell_ptr", cell_ptr, I32, (U + 1,)),
+                 ("diag_cell", diag_cell, I32, (M,)),
+                 ("cell_a", cell_a, I32, (P,)), ("cell_b", cell_b, I32, (P,)),
                  ("WC", WC, F64, (K, 9, 3)), ("W", W, F64, (K, 9, 3)),
                  ("S", S, F64, (9 * M, 9 * M)))
-    KERNELS["ba_pair_assemble"].launch(dev, N, M, *map(_ptr, args))
+    g = torch.empty((M, 9), dtype=F64, device=dev)
+    s = torch.empty((9 * M,), dtype=F64, device=dev)
+    KERNELS["ba_camera_assemble"].launch(
+        dev, M, *map(_ptr, args), float(lam), int(bool(diagonal_damping)),
+        _ptr(S), _ptr(s), _ptr(g))
+    return g, s
+
+
+def pair_assemble_plain(cell_ptr, cell_ca, cell_cb, cell_a, cell_b, WC, W, s,
+                        S):
+    off = cell_ca != cell_cb
+    blocks = _pair_blocks(cell_ptr, cell_a, cell_b, WC, W, off)
+    ca, cb = cell_ca[off].long(), cell_cb[off].long()
+    M = S.shape[0] // 9
+    s9 = s.view(M, 9)
+    S.view(M, 9, M, 9)[ca, :, cb, :] = (-blocks * s9[ca][:, :, None]
+                                        * s9[cb][:, None, :])
+
+
+def pair_assemble(cell_ptr, cell_ca, cell_cb, cell_a, cell_b, WC, W, s, S):
+    """Every off-diagonal cell (ca, cb) of the reduced camera system,
+    -sum WC_a W_b^T over its pairs, scaled by s_ca s_cb^T and stored into S
+    (in place; s from camera_assemble)."""
+    args = (cell_ptr, cell_ca, cell_cb, cell_a, cell_b, WC, W, s, S)
+    if _on_cpu(*args):
+        return pair_assemble_plain(*args)
+    U, P, K = cell_ptr.shape[0] - 1, cell_a.shape[0], WC.shape[0]
+    M = S.shape[0] // 9
+    dev = _check("ba_pair_assemble", ("cell_ptr", cell_ptr, I32, (U + 1,)),
+                 ("cell_ca", cell_ca, I32, (U,)),
+                 ("cell_cb", cell_cb, I32, (U,)),
+                 ("cell_a", cell_a, I32, (P,)), ("cell_b", cell_b, I32, (P,)),
+                 ("WC", WC, F64, (K, 9, 3)), ("W", W, F64, (K, 9, 3)),
+                 ("s", s, F64, (9 * M,)), ("S", S, F64, (9 * M, 9 * M)))
+    KERNELS["ba_pair_assemble"].launch(dev, U, M, *map(_ptr, args))
 
 
 # -- kernel 4: landmark back-substitution ------------------------------------

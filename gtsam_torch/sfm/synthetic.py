@@ -86,3 +86,29 @@ def make_bal_problem(num_cameras=1723, num_points=156000, obs_per_point=4,
 
     return bal.BalProblem(cam_R, cam_t, cam_calib, points_init,
                           obs_cam, obs_pt, obs_uv)
+
+
+def add_tracks(prob: bal.BalProblem, tracks, seed=0) -> bal.BalProblem:
+    """`prob` with one new point per entry of `tracks` (an array of the
+    cameras that see it, repeats allowed), placed near the ring's centre,
+    with measurements = projections + 1 px noise.  Builds the tracks that
+    the generator never makes: longer than any window, seeing one camera
+    twice, or many points over one pair of cameras."""
+    rng = np.random.default_rng(seed)
+    new_pts = [rng.normal(size=3) for _ in tracks]
+    obs_cam, obs_pt, obs_uv = [prob.obs_cam], [prob.obs_pt], [prob.obs_uv]
+    for i, (cs, p) in enumerate(zip(tracks, new_pts)):
+        cs = np.asarray(cs)
+        pc = np.einsum("kji,kj->ki", prob.cam_R[cs], p - prob.cam_t[cs])
+        if not (pc[:, 2] > 1.0).all():
+            raise ValueError(f"track {i}: the point is not in front of "
+                             "every camera")
+        uv = pc[:, :2] / pc[:, 2:] * prob.cam_calib[cs, :1]
+        obs_cam.append(cs.astype(np.int32))
+        obs_pt.append(np.full(len(cs), prob.num_points + i, np.int32))
+        obs_uv.append(uv + rng.normal(size=uv.shape))
+    return bal.BalProblem(
+        prob.cam_R, prob.cam_t, prob.cam_calib,
+        np.concatenate([prob.points, np.stack(new_pts)]),
+        np.concatenate(obs_cam), np.concatenate(obs_pt),
+        np.concatenate(obs_uv))

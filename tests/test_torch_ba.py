@@ -63,22 +63,9 @@ def _with_special_tracks(prob, seed):
     64-observation group cap, cycling through every camera, so it sees each
     one several times) and a 3-observation point that sees one camera
     twice.  Measurements are projections plus 1 px noise."""
-    rng = np.random.default_rng(seed)
     M = prob.num_cameras
-    cams = [np.arange(70) % M, np.array([1, 1, 2])]
-    new_pts = [np.zeros(3) + rng.normal(size=3), rng.normal(size=3)]
-    obs_cam, obs_pt, obs_uv = [prob.obs_cam], [prob.obs_pt], [prob.obs_uv]
-    for i, (cs, p) in enumerate(zip(cams, new_pts)):
-        pc = np.einsum("kji,kj->ki", prob.cam_R[cs], p - prob.cam_t[cs])
-        assert (pc[:, 2] > 1.0).all()
-        uv = pc[:, :2] / pc[:, 2:] * prob.cam_calib[cs, :1]
-        obs_cam.append(cs.astype(np.int32))
-        obs_pt.append(np.full(len(cs), prob.num_points + i, np.int32))
-        obs_uv.append(uv + rng.normal(size=uv.shape))
-    return dataclasses.replace(
-        prob, points=np.concatenate([prob.points, np.stack(new_pts)]),
-        obs_cam=np.concatenate(obs_cam), obs_pt=np.concatenate(obs_pt),
-        obs_uv=np.concatenate(obs_uv))
+    return synthetic.add_tracks(prob, [np.arange(70) % M, np.array([1, 1, 2])],
+                                seed)
 
 
 def _jax_linearize(prob, obs_cam, obs_pt, uv):
@@ -205,21 +192,30 @@ def _schur_case(prob, lam, dd):
     Sj = np.asarray(Sj).reshape(9, M, 9, M).transpose(1, 0, 3, 2).reshape(
         9 * M, 9 * M)
     S = torch.empty((9 * M, 9 * M), dtype=torch.float64)
-    g, _, _, _ = ba.assemble(plan, tA, tP, tb, lam, dd, S)
+    g, s, _, _, _ = ba.assemble(plan, tA, tP, tb, lam, dd, S)
     dcj, dlj = jba.schur_solve(st, jA, jP, jb, lam, dd)
     dc, dl = ba.schur_solve(plan, tA, tP, tb, lam, dd)
-    return dict(st=st, S=S, g=g, Sj=Sj, gj=np.asarray(gj), dc=dc, dl=dl,
+    return dict(st=st, S=S, s=s, g=g, Sj=Sj, gj=np.asarray(gj), dc=dc, dl=dl,
                 dcj=np.asarray(dcj), dlj=np.asarray(dlj), plan=plan, uv=uv,
                 cams=cams, pts=pts)
+
+
+def _check_equilibrated(c, g_rtol=1e-12):
+    """The port's S is JAX's S equilibrated: S / (s s^T) equals JAX's S and
+    s equals rsqrt(clamp(diag S_jax, 1e-12)), both to 1e-12 (the same sums
+    in another order); g~ to g_rtol."""
+    s = c["s"].numpy()
+    _close(c["S"].numpy() / np.outer(s, s), c["Sj"], 1e-12)
+    _close(s, 1.0 / np.sqrt(np.clip(np.diag(c["Sj"]), 1e-12, None)), 1e-12)
+    _close(c["g"], c["gj"], g_rtol)
 
 
 @pytest.mark.parametrize("dd", [False, True], ids=["lam_I", "diagonal"])
 def test_schur_solve_matches_jax(dd):
     prob = synthetic.make_bal_problem(12, 150, 4, seed=0)
     c = _schur_case(prob, 1e-4, dd)
-    # the assembled reduced system: same sums in another order
-    _close(c["S"], c["Sj"], 1e-12)
-    _close(c["g"], c["gj"], 1e-12)
+    # the assembled reduced system
+    _check_equilibrated(c)
     if dd:
         _close(c["dc"], c["dcj"], 1e-8)
         _close(c["dl"], c["dlj"], 1e-8)
@@ -250,10 +246,104 @@ def test_schur_solve_long_track_and_repeated_camera():
                                 seed=2)
     c = _schur_case(prob, 1e-4, True)
     assert c["st"].pt_tail is not None   # JAX took its general pair path
-    _close(c["S"], c["Sj"], 1e-12)
-    _close(c["g"], c["gj"], 1e-12)
+    _check_equilibrated(c)
     _close(c["dc"], c["dcj"], 1e-8)
     _close(c["dl"], c["dlj"], 1e-8)
+
+
+def test_schur_solve_long_track_and_repeated_camera_lam_I():
+    """The same tracks under lam I damping: the gauge-limited system of
+    test_schur_solve_matches_jax, so the step is held by residual as there."""
+    prob = _with_special_tracks(synthetic.make_bal_problem(12, 150, 4, seed=2),
+                                seed=2)
+    c = _schur_case(prob, 1e-4, False)
+    # g~ carries C gl of the track that sees camera 1 twice: at lam 1e-4 its
+    # depth is held only by lam, and two correct 3x3 inverses of its block
+    # differ at ~1e-11 of max |g~|
+    _check_equilibrated(c, g_rtol=1e-10)
+    x, xj = c["dc"].numpy().reshape(-1), c["dcj"].reshape(-1)
+    res = np.abs(c["Sj"] @ x - c["gj"].reshape(-1)).max()
+    resj = np.abs(c["Sj"] @ xj - c["gj"].reshape(-1)).max()
+    assert res <= 10 * resj + 1e-14 * np.abs(c["gj"]).max()
+
+
+def _cell_problems():
+    return {"synthetic": synthetic.make_bal_problem(12, 150, 4, seed=0),
+            "special": _with_special_tracks(
+                synthetic.make_bal_problem(12, 150, 4, seed=2), seed=2)}
+
+
+@pytest.mark.parametrize("name", ["synthetic", "special"])
+def test_cell_plan_covers_every_pair_once(name):
+    """The cell CSR, built by to(device) with torch: every directed pair of
+    every point's rows exactly once, cells sorted by ca * M + cb with their
+    pairs in point order, and the cell set of the JAX plan
+    (gtsam_tpu/sfm/ba.py:110-113)."""
+    prob = _cell_problems()[name]
+    plan = ba.BAStructure.build(prob.obs_cam, prob.obs_pt, prob.num_cameras,
+                                prob.num_points).to("cpu")
+    M, K = prob.num_cameras, prob.num_observations
+    pt_ptr, oc = plan.pt_ptr.numpy(), plan.obs_cam.numpy().astype(np.int64)
+    want = np.sort(np.concatenate([
+        (np.arange(s, e)[:, None] * K + np.arange(s, e)[None, :]).reshape(-1)
+        for s, e in zip(pt_ptr[:-1], pt_ptr[1:])]))
+    a, b = plan.cell_a.numpy().astype(np.int64), plan.cell_b.numpy()
+    assert plan.num_pairs == len(a) == len(want)
+    assert np.array_equal(np.sort(a * K + b), want)
+    cell_ptr = plan.cell_ptr.numpy()
+    ca, cb = plan.cell_ca.numpy(), plan.cell_cb.numpy()
+    keys = ca.astype(np.int64) * M + cb
+    assert cell_ptr[0] == 0 and cell_ptr[-1] == len(a)
+    assert (np.diff(keys) > 0).all() and (np.diff(cell_ptr) > 0).all()
+    of = np.repeat(np.arange(len(keys)), np.diff(cell_ptr))
+    assert np.array_equal(oc[a], ca[of]) and np.array_equal(oc[b], cb[of])
+    pos = a * K + b     # point order: rows of one point are contiguous
+    for u in range(len(keys)):
+        assert (np.diff(pos[cell_ptr[u]:cell_ptr[u + 1]]) > 0).all()
+    diag = plan.diag_cell.numpy()
+    has = np.flatnonzero(diag >= 0)
+    assert np.array_equal(ca[diag[has]], has) and np.array_equal(cb[diag[has]],
+                                                                 has)
+    assert set(has) == set(oc) and (ca == cb).sum() == len(has)
+    st, _ = jba.SchurStructure.build(prob.obs_cam, prob.obs_pt, M,
+                                     prob.num_points)
+    assert set(keys.tolist()) == set(np.asarray(st.cell_unique).tolist())
+
+
+@pytest.mark.parametrize("name", ["synthetic", "special"])
+def test_point_tiles_cover_every_point_once(name):
+    """Kernel 2's row tiles: tile j holds the points whose first row lies in
+    [j, j + 1) x POINT_TILE_ROWS (the last tile also those past the end),
+    so every point is in exactly one tile and tiles do not share rows."""
+    prob = _cell_problems()[name]
+    plan = ba.BAStructure.build(prob.obs_cam, prob.obs_pt, prob.num_cameras,
+                                prob.num_points).to("cpu")
+    tile, pt_ptr = plan.pt_tile.numpy(), plan.pt_ptr.numpy()
+    R, K = ba_kernels.POINT_TILE_ROWS, prob.num_observations
+    assert len(tile) == max(1, -(-K // R)) + 1
+    assert tile[0] == 0 and tile[-1] == prob.num_points
+    assert (np.diff(tile) >= 0).all()
+    for j in range(len(tile) - 1):
+        starts = pt_ptr[tile[j]:tile[j + 1]]
+        assert (starts >= j * R).all()
+        assert j == len(tile) - 2 or (starts < (j + 1) * R).all()
+
+
+def test_assembly_is_reproducible():
+    """No atomics: two assemblies of the same inputs give the same bits."""
+    prob = _with_special_tracks(synthetic.make_bal_problem(12, 150, 4, seed=2),
+                                seed=2)
+    plan, uv, cams, pts = _torch_problem(prob)
+    A_cam, A_pt, b = ba.linearize(plan, cams, pts, uv)
+    n = 9 * prob.num_cameras
+    outs = []
+    for _ in range(2):
+        S = torch.full((n, n), float("nan"), dtype=torch.float64)
+        g, s, W, C, gl = ba.assemble(plan, A_cam, A_pt, b, 1e-4, False, S)
+        outs.append((S, g, s, W, C, gl))
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+    assert not torch.isnan(outs[0][0]).any()
 
 
 @pytest.mark.parametrize("dd", [False, True], ids=["lam_I", "diagonal"])
@@ -292,8 +382,10 @@ def test_plain_kernels_match_dense_schur(dd):
     g_dense = gr[:9 * M] - Hcl @ Hll_inv @ gr[9 * M:]
 
     S = torch.empty((9 * M, 9 * M), dtype=torch.float64)
-    g, W, C, gl = ba.assemble(plan, A_cam, A_pt, b, lam, dd, S)
-    _close(S, S_dense, 1e-9)
+    g, s, W, C, gl = ba.assemble(plan, A_cam, A_pt, b, lam, dd, S)
+    # S comes equilibrated: undo the scaling s s^T
+    _close(S / torch.outer(s, s), S_dense, 1e-9)
+    _close(s, S_dense.diagonal().clamp(min=1e-12).rsqrt(), 1e-12)
     _close(g.reshape(-1), g_dense, 1e-10)
     dc = torch.from_numpy(np.random.default_rng(0).normal(size=(M, 9)))
     dl = ba_kernels.back_substitute(plan.pt_ptr, plan.obs_cam, W, dc, C, gl)
@@ -307,12 +399,15 @@ def test_dense_spd_solve():
     d = np.exp(rng.uniform(-6, 6, size=40))     # scales spanning ~1e5
     Sn = d[:, None] * (A @ A.T + 40 * np.eye(40)) * d[None, :]
     rhs = rng.normal(size=40)
-    x = ba._dense_spd_solve(torch.from_numpy(Sn.copy()), torch.from_numpy(rhs))
+    S = torch.from_numpy(Sn.copy())
+    s = ba.equilibrate(S)
+    _close(S.diagonal(), np.ones(40), 1e-14)
+    x = ba._dense_spd_solve(S, torch.from_numpy(rhs), s)
     _close(x, np.linalg.solve(Sn, rhs), 1e-10)
     indefinite = torch.from_numpy(np.diag([1.0, -1.0, 2.0]))
-    assert ba._dense_spd_solve(indefinite, torch.ones(3,
-                                                      dtype=torch.float64)) \
-        is None
+    s = ba.equilibrate(indefinite)
+    assert ba._dense_spd_solve(indefinite, torch.ones(3, dtype=torch.float64),
+                               s) is None
 
 
 def test_cholesky_failure_is_a_failed_try():

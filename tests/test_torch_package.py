@@ -74,7 +74,7 @@ def test_cpu_path_counts_no_launch():
     assert all(n == 0 for n in ba_kernels.launch_counts().values())
 
 
-def _meta_args(name, K=10, M=3, N=4, P=20):
+def _meta_args(name, K=10, M=3, N=4, P=20, U=5):
     """Well-formed arguments of each wrapper, on the meta device."""
     def f(*shape):
         return torch.empty(shape, dtype=torch.float64, device="meta")
@@ -87,12 +87,13 @@ def _meta_args(name, K=10, M=3, N=4, P=20):
                       f(K, 2)),
         "error": (f(M, 3, 3), f(M, 3), f(M, 3), f(N, 3), i(K), i(K),
                   f(K, 2)),
-        "point_eliminate": (i(N + 1), f(K, 2, 9), f(K, 2, 3), f(K, 2), 1e-4,
-                            False),
+        "point_eliminate": (i(N + 1), i(2), f(K, 2, 9), f(K, 2, 3), f(K, 2),
+                            1e-4, False),
         "camera_assemble": (i(M + 1), i(K), f(K, 2, 9), f(K, 2), f(K, 9),
-                            1e-4, False, f(9 * M, 9 * M)),
-        "pair_assemble": (i(N + 1), i(P), i(P), i(K), f(K, 9, 3),
-                          f(K, 9, 3), f(9 * M, 9 * M)),
+                            i(U + 1), i(M), i(P), i(P), f(K, 9, 3),
+                            f(K, 9, 3), 1e-4, False, f(9 * M, 9 * M)),
+        "pair_assemble": (i(U + 1), i(U), i(U), i(P), i(P), f(K, 9, 3),
+                          f(K, 9, 3), f(9 * M), f(9 * M, 9 * M)),
         "back_substitute": (i(N + 1), i(K), f(K, 9, 3), f(M, 9), f(N, 3, 3),
                             f(N, 3)),
     }[name]
@@ -169,18 +170,21 @@ def _cpu_args(name):
     proj = ba._projection_args(plan, cams, pts, uv)
     A_cam, A_pt, b = ba_kernels.linearize_plain(*proj)
     W, WC, corr, C, gl = ba_kernels.point_eliminate_plain(
-        plan.pt_ptr, A_cam, A_pt, b, 1e-4, False)
+        plan.pt_ptr, plan.pt_tile, A_cam, A_pt, b, 1e-4, False)
     M = prob.num_cameras
     S = torch.zeros((9 * M, 9 * M), dtype=torch.float64)
+    cam = (plan.cam_ptr, plan.cam_obs, A_cam, b, corr, plan.cell_ptr,
+           plan.diag_cell, plan.cell_a, plan.cell_b, WC, W, 1e-4, False, S)
+    _, s = ba_kernels.camera_assemble_plain(*cam[:-1], S.clone())
     dc = torch.from_numpy(np.random.default_rng(0).normal(size=(M, 9)))
     return {
         "linearize": proj,
         "error": proj,
-        "point_eliminate": (plan.pt_ptr, A_cam, A_pt, b, 1e-4, False),
-        "camera_assemble": (plan.cam_ptr, plan.cam_obs, A_cam, b, corr, 1e-4,
-                            False, S),
-        "pair_assemble": (plan.pair_ptr, plan.pair_a, plan.pair_b,
-                          plan.obs_cam, WC, W, S),
+        "point_eliminate": (plan.pt_ptr, plan.pt_tile, A_cam, A_pt, b, 1e-4,
+                            False),
+        "camera_assemble": cam,
+        "pair_assemble": (plan.cell_ptr, plan.cell_ca, plan.cell_cb,
+                          plan.cell_a, plan.cell_b, WC, W, s, S),
         "back_substitute": (plan.pt_ptr, plan.obs_cam, W, dc, C, gl),
     }[name]
 
