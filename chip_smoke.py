@@ -11,19 +11,25 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      same CUDA tensors at make_bal_problem(100, 5000, 4, seed=0) plus tracks
      that take every branch of the kernels (a 200-observation track, a
      track that sees one camera twice, 700 points over one camera pair),
-     with stated tolerances, and a small ba_optimize on the card against the
-     same run on the CPU;
+     with stated tolerances; kernel 1 also at make_bal_problem(3, 10, 2)
+     (K below one warp tile; the problem above leaves a partial last tile
+     and error block), twice on the same inputs (same bits) and with error
+     calls of different K back to back; and a small ba_optimize on the card
+     against the same run on the CPU;
   4. the main path: gtsam_torch.sfm.ba.ba_optimize at the Ladybug-1723 shape
      (make_bal_problem(1723, 150000, 4, seed=0)) with bench.py's LM settings,
      held to the C++ GTSAM optimum 329,909 x 1.0001, every kernel's launch
      count read from this run alone;
   5. each kernel against its plain version again at the Ladybug shape, on
      the converged state (same tolerances), then its time (CUDA events)
-     beside the plain version's time and its bound from this run's shapes;
-     two assemblies of the same inputs must give the same bits; the time of
-     the plan build (host and device) and of one factorization;
+     beside the plain version's time and its bound from this run's shapes,
+     and kernel 1's ptxas register and spill lines; two assemblies, and two
+     calls of kernel 1, on the same inputs must give the same bits; the
+     time of the plan build (host and device) and of one factorization;
   6. one profiled run of the main path: device busy time by kernel, and the
-     rows of the full-matrix passes (mul, fill, tril).
+     rows of the full-matrix passes (mul, fill, tril); then a profile of
+     error calls alone, each of which must be one launch of its kernel and
+     no other device work.
 The last three lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}.  Imports neither JAX nor gtsam_tpu.
 """
@@ -163,7 +169,8 @@ class Inputs:
         return {
             "bal_linearize": (K * (8 + 16) + params + K * (18 + 6 + 2) * 8,
                               K * 110),
-            "bal_error": (K * (8 + 16) + params + 8 * (-(-K // 256)), K * 40),
+            # out: one double (the partials are the kernel's scratch)
+            "bal_error": (K * (8 + 16) + params + 8, K * 40),
             # A_cam, A_pt, b and the point CSR and tiles in; W, WC, corr, C,
             # gl out
             "ba_point_eliminate": (K * (18 + 6 + 2) * 8 + (N + 1) * 4
@@ -209,11 +216,12 @@ def run_pair(name, inp, bk):
     return outs
 
 
-def check_kernels(inp, bk, label):
-    """Each kernel against its plain version on the same tensors of `inp`;
-    raises on a miss of TOL.  Returns {kernel: max abs err}."""
+def check_kernels(inp, bk, label, names=None):
+    """Each kernel of `names` (default: all) against its plain version on the
+    same tensors of `inp`; raises on a miss of TOL.  Returns {kernel: max abs
+    err}."""
     errs = {}
-    for name in bk.KERNELS:
+    for name in names or bk.KERNELS:
         kern, plain = run_pair(name, inp, bk)
         rel, ab = rel_err(kern, plain)
         del kern, plain
@@ -224,6 +232,47 @@ def check_kernels(inp, bk, label):
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"({label}): {rel:.3e} > {TOL[name]:.0e}")
     return errs
+
+
+def check_kernel1_repeats(cases, bk, label):
+    """Kernel 1 called again on the same inputs gives the same bits, and
+    error calls on problems of different K, back to back on one stream
+    (largest first, so a smaller call may get a reused, stale partial
+    buffer), each match the plain version: the completion counter resets
+    and no partial of an earlier launch is read."""
+    import torch
+    for c in cases:
+        for f in (bk.linearize, bk.error):
+            a, b = f(*c.proj), f(*c.proj)
+            a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"{f.__name__} ({label}): two calls on "
+                                     "the same inputs differ")
+    order = sorted(cases, key=lambda c: -c.prob.num_observations)
+    order += order[::-1]
+    got = [bk.error(*c.proj) for c in order]
+    for c, g in zip(order, got):
+        ref = bk.error_plain(*c.proj)
+        rel = abs(float(g) - float(ref)) / max(abs(float(ref)), 1e-300)
+        if not rel <= TOL["bal_error"]:
+            raise AssertionError(f"bal_error ({label}, back to back, K "
+                                 f"{c.prob.num_observations}): {rel:.3e}")
+    log(f"kernel 1 ({label}): same bits on repeat; back-to-back error calls "
+        f"at K {[c.prob.num_observations for c in order]} match the plain "
+        "version")
+
+
+def ptxas_lines(build_log, kernel):
+    """The ptxas `registers` and `spill` lines of the kernel function whose
+    name contains `kernel`, from one source's build log."""
+    out, fn = [], ""
+    for line in build_log.splitlines():
+        if ("Compiling entry function" in line
+                or "Function properties for" in line):
+            fn = line
+        elif ("registers" in line or "spill" in line) and kernel in fn:
+            out.append(line.strip())
+    return out
 
 
 def main(argv):
@@ -287,7 +336,21 @@ def main(argv):
         raise AssertionError("the kernel checks miss a branch of kernel 2 "
                              "or 3")
     check_kernels(inp, bk, "small")
-    del inp
+    # kernel 1's edges: the small problem's K leaves a partial last warp
+    # tile and a partial last error block; a 20-observation problem is
+    # below one tile
+    tiny = Inputs(synthetic.make_bal_problem(3, 10, 2, seed=0), 1.0)
+    tile, blk = bk.LINEARIZE_TILE_ROWS, bk.ERROR_BLOCK
+    K_small, K_tiny = bad.num_observations, tiny.prob.num_observations
+    log(f"kernel 1 edges: K {K_small} (tile {tile}: {K_small % tile} rows "
+        f"over; error block {blk}: {K_small % blk} over), K {K_tiny}")
+    if not (K_small % tile and K_small % blk and K_small > blk
+            and K_tiny < tile):
+        raise AssertionError("the kernel checks miss a partial tile of "
+                             "kernel 1 or a K below one tile")
+    check_kernels(tiny, bk, "tiny", ("bal_linearize", "bal_error"))
+    check_kernel1_repeats([inp, tiny], bk, "small")
+    del inp, tiny
     lm_small = LMParams(max_iterations=10)
     _, info_gpu = ba.ba_optimize(small, lm_small, device="cuda")
     _, info_cpu = ba.ba_optimize(small, lm_small, device="cpu")
@@ -341,6 +404,7 @@ def main(argv):
     # cannot mask a fault; the kernels' work does not depend on lam) --------
     big = Inputs(prob, 1.0, vals["cams"], vals["points"])
     check = check_kernels(big, bk, "ladybug")
+    check_kernel1_repeats([big], bk, "ladybug")
     kernels = []
     for name, kern in bk.KERNELS.items():
         kfn = getattr(bk, kern.wrapper)
@@ -363,6 +427,10 @@ def main(argv):
             f"{max(t_bytes, t_ops):.4f} ms by {kernels[-1]['bound_by']}, "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); launches "
             f"{launches[name]}, {launches[name] / tries:.2f} per try")
+        if kern.source == "bal_linearize":
+            for line in ptxas_lines(_build.BUILD_LOG.get(kern.source, ""),
+                                    name + "_kernel"):
+                log(f"  {name}: {line}")
     n = big.S.shape[0]
     zero_ms = cuda_ms(big.S.zero_, reps=5)
     # no atomics: two assemblies of one try's inputs (lam 1e-4) give the same
@@ -395,6 +463,7 @@ def main(argv):
     del S0
     chol_bound = max(n ** 3 / 3 / FP64_TC_FLOPS,
                      2 * n * n * 8 / HBM_BYTES_PER_S) * 1e3
+    proj = big.proj
     del big
     plan_s = []   # the plan as ba_optimize builds it: host rows, device cells
     for _ in range(3):
@@ -434,6 +503,25 @@ def main(argv):
     log(json.dumps({"profile_passes": [
         [k[:120], ms, c] for k, ms, c in rows
         if any(w in k.lower() for w in ("mul", "fill", "zero", "tril"))]}))
+    # the error wrapper alone, at the Ladybug shape: each call must be one
+    # launch of its kernel and no other device work
+    calls = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            bk.error(*proj)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    log(json.dumps({"profile_error_calls": {
+        "calls": calls, "device_rows": [[k[:80], ms, c] for k, ms, c in rows],
+        "device_ms_per_call": sum(r[1] for r in rows) / calls}}))
+    if not (len(rows) == 1 and "bal_error_kernel" in rows[0][0]
+            and rows[0][2] == calls):
+        raise AssertionError("an error call is not one launch of its kernel "
+                             f"alone: {rows}")
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -4,7 +4,7 @@
 // gtsam_tpu/graph/factors.py::linearize (:147, jacfwd + vmap) with the unit
 // noise model of gtsam_tpu/sfm/ba.py:1319, and error_fn (ba.py:1338).
 //
-// Per observation k (one thread each): p_c = R^T (p - t); x = p_c/z;
+// Per observation k: p_c = R^T (p - t); x = p_c/z;
 // pixel = f (1 + k1 r2 + k2 r2^2) x; r = pixel - uv.  Jacobians are
 // analytic at the right retraction of gtsam_torch/geometry/cameras.py:
 // d p_c / d omega = [p_c]x, d p_c / d v = -I, d p_c / d point = R^T, then the
@@ -13,18 +13,45 @@
 //
 // Bound on the H100: bytes.  About 60 FP64 operations against ~232 bytes of
 // traffic per observation (indices, uv, the 2x9 + 2x3 Jacobians and b), far
-// below the card's ~10 FP64 flop/byte balance point.  Design: one thread per
-// observation, each output row written by its own thread in one pass; the
-// camera and point parameters are gathered through L2 (1723 cameras fit it).
-// The error mode writes one partial sum per block (fixed-order tree in
-// shared memory), so the half-chi2 is reproducible from run to run.
+// below the card's ~10 FP64 flop/byte balance point.  The camera and point
+// parameters are gathered through L2 (1723 cameras fit it); rows are sorted
+// by point, so points are read almost in order.
+//
+// Linearization design: one thread per observation computes its row in
+// registers, and each warp owns a tile of 32 consecutive rows.  The rows'
+// outputs are contiguous spans of A_cam (32 x 144 B), A_pt (32 x 48 B) and
+// b (32 x 16 B), so the warp first writes its rows into a shared-memory
+// copy of those spans (16-byte stores; the 144-, 48- and 16-byte row
+// strides put the 8 lanes of each quarter-warp on distinct banks), then
+// copies each span out linearly, one lane per double2, so every store
+// instruction writes whole 128-byte lines.  Only __syncwarp orders the two
+// steps.  A tile is 6.5 KB; 128-thread blocks (4 tiles, 26 KB) stay under
+// the 48 KB static shared-memory limit.  A partial last tile stores only its
+// rows.
+//
+// Half-chi2 design: one launch.  Each block of 256 threads owns 1024 rows;
+// each thread sums r^2 of 4 of them (256 apart, so every load is
+// coalesced), then the block sums its threads (warp butterflies, then the
+// 8 warp sums in order) and writes its partial.  The block that finds,
+// through __threadfence and an atomic counter, that it finished last sums
+// all partials in index order (a fixed strided split over its threads,
+// then the same block tree), writes 0.5 * sum and resets the counter to 0.
+// The order of every addition depends only on K, so the same inputs give
+// the same bits on every call.  At the Ladybug shape 1024-row blocks (537
+// of them) took 0.017 ms of device time on an H100 SXM, 256-row blocks
+// (2147: more waves, four times the atomics and partials) 0.022 ms
+// (scripts/port_kernel1_time.py).
 #include "ba_common.cuh"
 
 namespace {
 
 constexpr double kCheiralityEps = 1e-8;
 constexpr double kPenalty = 1e3;
-constexpr int kBlock = 256;
+constexpr int kThreads = 128;         // bal_linearize_kernel: 4 warp tiles
+constexpr int kTileRows = gt::kWarp;  // LINEARIZE_TILE_ROWS in ba_kernels.py
+constexpr int kErrorThreads = 256;    // bal_error_kernel
+constexpr int kErrorRows = 4;         // rows per thread
+constexpr int kErrorBlock = kErrorThreads * kErrorRows;  // ERROR_BLOCK
 
 // Residual (and, when Jc != nullptr, the 2x9 / 2x3 Jacobians, row-major)
 // of observation k.
@@ -93,47 +120,110 @@ __device__ __forceinline__ void project(
   }
 }
 
-__global__ void __launch_bounds__(kBlock) bal_linearize_kernel(
+// A warp's 32 rows of A_cam, A_pt and b, laid out as in device memory.
+struct WarpTile {
+  double2 cam[kTileRows * 9];
+  double2 pt[kTileRows * 3];
+  double2 b[kTileRows];
+};
+
+__global__ void __launch_bounds__(kThreads) bal_linearize_kernel(
     int K, const double* __restrict__ cam_R, const double* __restrict__ cam_t,
     const double* __restrict__ calib, const double* __restrict__ points,
     const int* __restrict__ obs_cam, const int* __restrict__ obs_pt,
     const double* __restrict__ uv, double* __restrict__ A_cam,
     double* __restrict__ A_pt, double* __restrict__ b) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  double r[2], Jc[18], Jp[6];
-  project(k, cam_R, cam_t, calib, points, obs_cam, obs_pt, uv, r, Jc, Jp);
-  double* ac = A_cam + 18 * (int64_t)k;
-  double* ap = A_pt + 6 * (int64_t)k;
+  __shared__ WarpTile tiles[kThreads / gt::kWarp];
+  const int lane = threadIdx.x % gt::kWarp;
+  const int k0 = blockIdx.x * kThreads + threadIdx.x - lane;  // tile's row 0
+  if (k0 >= K) return;  // uniform over the warp
+  WarpTile& s = tiles[threadIdx.x / gt::kWarp];
+  const int n = min(kTileRows, K - k0);
+
+  if (lane < n) {
+    double r[2], Jc[18], Jp[6];
+    project(k0 + lane, cam_R, cam_t, calib, points, obs_cam, obs_pt, uv, r,
+            Jc, Jp);
 #pragma unroll
-  for (int i = 0; i < 18; ++i) ac[i] = Jc[i];
+    for (int i = 0; i < 9; ++i)
+      s.cam[9 * lane + i] = make_double2(Jc[2 * i], Jc[2 * i + 1]);
 #pragma unroll
-  for (int i = 0; i < 6; ++i) ap[i] = Jp[i];
-  b[2 * (int64_t)k + 0] = -r[0];
-  b[2 * (int64_t)k + 1] = -r[1];
+    for (int i = 0; i < 3; ++i)
+      s.pt[3 * lane + i] = make_double2(Jp[2 * i], Jp[2 * i + 1]);
+    s.b[lane] = make_double2(-r[0], -r[1]);
+  }
+  __syncwarp();
+
+  double2* ac = reinterpret_cast<double2*>(A_cam + 18 * (int64_t)k0);
+  double2* ap = reinterpret_cast<double2*>(A_pt + 6 * (int64_t)k0);
+  double2* bb = reinterpret_cast<double2*>(b + 2 * (int64_t)k0);
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    const int e = lane + gt::kWarp * j;
+    if (e < 9 * n) ac[e] = s.cam[e];
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int e = lane + gt::kWarp * j;
+    if (e < 3 * n) ap[e] = s.pt[e];
+  }
+  if (lane < n) bb[lane] = s.b[lane];
 }
 
-__global__ void __launch_bounds__(kBlock) bal_error_kernel(
+// Fixed-order sum over a block of kErrorThreads threads; thread 0 gets the
+// total.  sh holds one double per warp.
+__device__ __forceinline__ double block_sum(double v, double* sh) {
+  v = gt::warp_sum(v);
+  if (threadIdx.x % gt::kWarp == 0) sh[threadIdx.x / gt::kWarp] = v;
+  __syncthreads();
+  double total = 0.0;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 0; w < kErrorThreads / gt::kWarp; ++w) total += sh[w];
+  }
+  __syncthreads();  // sh may be written again
+  return total;
+}
+
+__global__ void __launch_bounds__(kErrorThreads) bal_error_kernel(
     int K, const double* __restrict__ cam_R, const double* __restrict__ cam_t,
     const double* __restrict__ calib, const double* __restrict__ points,
     const int* __restrict__ obs_cam, const int* __restrict__ obs_pt,
-    const double* __restrict__ uv, double* __restrict__ partial) {
-  __shared__ double sh[kBlock];
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+    const double* __restrict__ uv, double* __restrict__ partial,
+    int* __restrict__ counter, double* __restrict__ out) {
+  __shared__ double sh[kErrorThreads / gt::kWarp];
+  __shared__ bool last;
   double v = 0.0;
-  if (k < K) {
-    double r[2];
-    project(k, cam_R, cam_t, calib, points, obs_cam, obs_pt, uv, r, nullptr,
-            nullptr);
-    v = r[0] * r[0] + r[1] * r[1];
+#pragma unroll
+  for (int j = 0; j < kErrorRows; ++j) {
+    const int k = blockIdx.x * kErrorBlock + j * kErrorThreads + threadIdx.x;
+    if (k < K) {
+      double r[2];
+      project(k, cam_R, cam_t, calib, points, obs_cam, obs_pt, uv, r, nullptr,
+              nullptr);
+      v += r[0] * r[0] + r[1] * r[1];
+    }
   }
-  sh[threadIdx.x] = v;
+  v = block_sum(v, sh);
+  if (threadIdx.x == 0) {
+    partial[blockIdx.x] = v;
+    __threadfence();  // the partial is visible before the count says so
+    last = atomicAdd(counter, 1) == (int)gridDim.x - 1;
+  }
   __syncthreads();
-  for (int s = kBlock / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] += sh[threadIdx.x + s];
-    __syncthreads();
+  if (!last) return;
+
+  // the last block: every partial of this launch is written
+  __threadfence();
+  double t = 0.0;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += kErrorThreads)
+    t += __ldcg(partial + i);  // from L2: written by other SMs
+  t = block_sum(t, sh);
+  if (threadIdx.x == 0) {
+    *out = 0.5 * t;
+    *counter = 0;  // ready for the next launch on this stream
   }
-  if (threadIdx.x == 0) partial[blockIdx.x] = sh[0];
 }
 
 }  // namespace
@@ -144,22 +234,25 @@ GT_EXPORT int gt_bal_linearize(int K, const double* cam_R, const double* cam_t,
                                const double* uv, double* A_cam, double* A_pt,
                                double* b, void* stream) {
   if (K > 0) {
-    const int grid = (K + kBlock - 1) / kBlock;
-    bal_linearize_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+    const int grid = (K + kThreads - 1) / kThreads;
+    bal_linearize_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         K, cam_R, cam_t, calib, points, obs_cam, obs_pt, uv, A_cam, A_pt, b);
   }
   return (int)cudaGetLastError();
 }
 
-// partial must hold ceil(K / 256) doubles (ERROR_BLOCK in sfm/ba_kernels.py).
+// partial must hold max(1, ceil(K / 1024)) doubles (ERROR_BLOCK in
+// sfm/ba_kernels.py); counter is an int that is 0 between launches (the
+// kernel leaves it so); out is one double.  Launches even at K = 0, so out
+// is always written.
 GT_EXPORT int gt_bal_error(int K, const double* cam_R, const double* cam_t,
                            const double* calib, const double* points,
                            const int* obs_cam, const int* obs_pt,
-                           const double* uv, double* partial, void* stream) {
-  if (K > 0) {
-    const int grid = (K + kBlock - 1) / kBlock;
-    bal_error_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-        K, cam_R, cam_t, calib, points, obs_cam, obs_pt, uv, partial);
-  }
+                           const double* uv, double* partial, int* counter,
+                           double* out, void* stream) {
+  const int grid = K > 0 ? (K + kErrorBlock - 1) / kErrorBlock : 1;
+  bal_error_kernel<<<grid, kErrorThreads, 0, (cudaStream_t)stream>>>(
+      K, cam_R, cam_t, calib, points, obs_cam, obs_pt, uv, partial, counter,
+      out);
   return (int)cudaGetLastError();
 }

@@ -51,8 +51,7 @@ class Kernel:
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = self._fn(*args, stream)
+        err = self._fn(*args, _stream(device))
         if err != 0:
             raise RuntimeError(f"{self.name}: kernel launch failed with CUDA "
                                f"error {err}")
@@ -63,7 +62,7 @@ KERNELS = {k.name: k for k in (
     Kernel("bal_linearize", "bal_linearize", "linearize",
            "gtsam_tpu/sfm/bal.py:182", [_INT] + [_P] * 10),
     Kernel("bal_error", "bal_linearize", "error",
-           "gtsam_tpu/sfm/ba.py:1338", [_INT] + [_P] * 8),
+           "gtsam_tpu/sfm/ba.py:1338", [_INT] + [_P] * 10),
     Kernel("ba_point_eliminate", "ba_point_eliminate", "point_eliminate",
            "gtsam_tpu/sfm/ba.py:1086",
            [_INT, _P, _P, _P, _P, _P, _DBL, _INT, _P, _P, _P, _P, _P]),
@@ -75,6 +74,13 @@ KERNELS = {k.name: k for k in (
     Kernel("ba_back_substitute", "ba_back_substitute", "back_substitute",
            "gtsam_tpu/sfm/ba.py:1264", [_INT, _P, _P, _P, _P, _P, _P, _P]),
 )}
+
+
+def _stream(device):
+    """The handle of `device`'s current stream: what
+    torch.cuda.current_stream(device).cuda_stream gives, without building a
+    Stream object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def reset_launch_counts():
@@ -196,19 +202,34 @@ def linearize(cam_R, cam_t, calib, points, obs_cam, obs_pt, uv):
     return A_cam, A_pt, b
 
 
-ERROR_BLOCK = 256   # threads per block of bal_error_kernel (bal_linearize.cu)
+# Rows per warp tile of bal_linearize_kernel and per block of
+# bal_error_kernel (kTileRows and kErrorBlock in csrc/bal_linearize.cu).
+LINEARIZE_TILE_ROWS = 32
+ERROR_BLOCK = 1024
+
+# bal_error_kernel's completion counter, one int32 per (device, stream): the
+# last block of a launch finds itself by it and sets it back to 0, so
+# launches in one stream's order share it and concurrent streams do not.
+_ERROR_COUNTERS = {}
 
 
 def error(cam_R, cam_t, calib, points, obs_cam, obs_pt, uv):
-    """Half-chi2 0.5 * sum r^2 (with the cheirality penalty), a 0-d tensor."""
+    """Half-chi2 0.5 * sum r^2 (with the cheirality penalty), a 0-d tensor.
+    On the card: one launch, summed in an order fixed by K alone."""
     args = (cam_R, cam_t, calib, points, obs_cam, obs_pt, uv)
     if _on_cpu(*args):
         return error_plain(*args)
     dev = _projection_specs("bal_error", *args)
     K = obs_cam.shape[0]
-    partial = torch.zeros(max(1, -(-K // ERROR_BLOCK)), dtype=F64, device=dev)
-    KERNELS["bal_error"].launch(dev, K, *map(_ptr, args), _ptr(partial))
-    return 0.5 * partial.sum()
+    key = (dev, _stream(dev))
+    counter = _ERROR_COUNTERS.get(key)
+    if counter is None:
+        counter = _ERROR_COUNTERS[key] = torch.zeros((), dtype=I32, device=dev)
+    n = max(1, -(-K // ERROR_BLOCK))
+    buf = torch.empty(n + 1, dtype=F64, device=dev)   # n partials, the sum
+    KERNELS["bal_error"].launch(dev, K, *map(_ptr, args), _ptr(buf),
+                                _ptr(counter), _ptr(buf) + 8 * n)
+    return buf[n]
 
 
 # -- kernel 2: landmark elimination ------------------------------------------

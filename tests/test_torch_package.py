@@ -4,6 +4,7 @@ and its kernel wrappers check what they launch on and never fall back to
 the plain version for a tensor that is not on the CPU."""
 
 import os
+import re
 import pkgutil
 import subprocess
 import sys
@@ -210,6 +211,47 @@ def test_wrapper_on_cpu_is_its_plain_version(name):
         assert a.device.type == "cpu" and torch.equal(a, r)
     assert name != "pair_assemble" or args[-1].abs().max() > 0
     assert all(n == 0 for n in ba_kernels.launch_counts().values())
+
+
+def _cu_source(name):
+    with open(_build.CSRC / f"{name}.cu") as f:
+        return f.read()
+
+
+def test_kernel1_sizes_match_the_source():
+    """The rows per warp tile and per error block that the wrappers size
+    their buffers by are the kernel's own constants."""
+    src = _cu_source("bal_linearize")
+
+    def const(name):
+        m = re.search(rf"constexpr int {name} = ([^;]+);", src)
+        assert m, name
+        return m.group(1).strip()
+
+    assert const("kTileRows") == "gt::kWarp"
+    assert ba_kernels.LINEARIZE_TILE_ROWS == 32
+    assert const("kErrorBlock") == "kErrorThreads * kErrorRows"
+    assert ba_kernels.ERROR_BLOCK == (int(const("kErrorThreads"))
+                                      * int(const("kErrorRows")))
+
+
+def test_argtypes_match_the_c_entry_points():
+    """Each Kernel's ctypes argtypes follow its C entry point's parameters:
+    int, double, or a pointer (the stream last); a mismatch would pass
+    arguments in the wrong registers on the card."""
+    import ctypes
+    for k in ba_kernels.KERNELS.values():
+        m = re.search(rf"GT_EXPORT int gt_{k.name}\(([^)]*)\)",
+                      _cu_source(k.source))
+        assert m, k.name
+        params = [p.strip() for p in m.group(1).split(",")]
+        want = [ctypes.c_void_p if "*" in p else
+                ctypes.c_double if p.startswith("double") else ctypes.c_int
+                for p in params]
+        assert params[-1] == "void* stream"
+        assert all(p.startswith(("int ", "double ")) for p in params
+                   if "*" not in p), params
+        assert k.argtypes == want, k.name
 
 
 def test_build_targets_hopper():
