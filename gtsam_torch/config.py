@@ -1,8 +1,11 @@
 """Global configuration for gtsam_torch.
 
-Counterpart of gtsam_tpu/config.py.  The port computes in float64 throughout:
-the H100 has native FP64, so the f32 + two-float scheme the JAX package needs
-on a TPU (where f64 is emulated) does not carry over.
+Counterpart of gtsam_tpu/config.py.  The state, residuals and every
+reduction of the port are float64 (the H100 has native FP64, so the
+two-float pairs the JAX package uses on a TPU are not carried over).  Bundle
+adjustment may also run its Jacobians and reduced camera matrix S in
+float32 (`ba_optimize(dtype=torch.float32, mixed_precision=True)`): the
+JAX package's mixed-precision mode, an f32 factorization refined in float64.
 
 Entry points run on the CUDA device unless the caller passes device="cpu";
 they never fall back to the CPU on their own.
@@ -11,10 +14,22 @@ they never fall back to the CPU on their own.
 import torch
 
 DEFAULT_DTYPE = torch.float64
+# dtypes of BA's Jacobians and reduced camera matrix (the working dtype)
+WORKING_DTYPES = (torch.float64, torch.float32)
 
 
 def default_dtype() -> torch.dtype:
     return DEFAULT_DTYPE
+
+
+def working_dtype(dtype=None) -> torch.dtype:
+    """`dtype` (float64 when None) if the port can run BA in it; raises
+    otherwise."""
+    dt = DEFAULT_DTYPE if dtype is None else dtype
+    if dt not in WORKING_DTYPES:
+        raise ValueError(f"working dtype must be one of {WORKING_DTYPES}, "
+                         f"got {dt}")
+    return dt
 
 
 def resolve_device(device=None) -> torch.device:

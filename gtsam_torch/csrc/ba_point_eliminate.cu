@@ -35,6 +35,14 @@
 // striding over the track, warp butterflies for the 12 sums, outputs
 // stored from registers.  Every sum runs in a fixed order, so the results
 // do not change between runs.
+//
+// A_cam and A_pt come as double, or as float in the mixed-precision mode
+// (the kernel is templated on their load type; b is always double).  All
+// arithmetic is double: a product of two floats is exact in double, so Hll,
+// gl, C, W, WC and corr are the exact-Gram values that the JAX package's
+// two-float chain _schur_solve_df (gtsam_tpu/sfm/ba.py:777-1037) emulates.
+// The staged tile keeps the inputs in their load type, so a float tile
+// takes half the shared memory of a double one.
 #include "ba_common.cuh"
 
 namespace {
@@ -60,8 +68,9 @@ __device__ __forceinline__ void point_solve(double h[9], const double g[3],
 }
 
 // The cooperative branch: one warp eliminates point p from device memory.
+template <typename TA>
 __device__ void eliminate_point_warp(int p, int lane, const int* pt_ptr,
-                                     const double* A_cam, const double* A_pt,
+                                     const TA* A_cam, const TA* A_pt,
                                      const double* b, double lam,
                                      int diagonal_damping, double* W,
                                      double* WC, double* corr, double* C_out,
@@ -69,13 +78,14 @@ __device__ void eliminate_point_warp(int p, int lane, const int* pt_ptr,
   const int s = pt_ptr[p], e = pt_ptr[p + 1];
   double h[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0}, g[3] = {0, 0, 0};
   for (int k = s + lane; k < e; k += gt::kWarp) {
-    const double* ap = A_pt + 6 * (int64_t)k;
+    const TA* ap = A_pt + 6 * (int64_t)k;
     const double b0 = b[2 * (int64_t)k], b1 = b[2 * (int64_t)k + 1];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
 #pragma unroll
-      for (int j = 0; j < 3; ++j) h[3 * i + j] += ap[i] * ap[j] + ap[3 + i] * ap[3 + j];
-      g[i] += ap[i] * b0 + ap[3 + i] * b1;
+      for (int j = 0; j < 3; ++j)
+        h[3 * i + j] += (double)ap[i] * ap[j] + (double)ap[3 + i] * ap[3 + j];
+      g[i] += (double)ap[i] * b0 + (double)ap[3 + i] * b1;
     }
   }
 #pragma unroll
@@ -94,8 +104,8 @@ __device__ void eliminate_point_warp(int p, int lane, const int* pt_ptr,
   if (lane < 3) gl_out[3 * (int64_t)p + lane] = g[lane];
 
   for (int k = s + lane; k < e; k += gt::kWarp) {
-    const double* ac = A_cam + 18 * (int64_t)k;
-    const double* ap = A_pt + 6 * (int64_t)k;
+    const TA* ac = A_cam + 18 * (int64_t)k;
+    const TA* ap = A_pt + 6 * (int64_t)k;
     double* Wk = W + 27 * (int64_t)k;
     double* WCk = WC + 27 * (int64_t)k;
     double* ck = corr + 9 * (int64_t)k;
@@ -104,7 +114,7 @@ __device__ void eliminate_point_warp(int p, int lane, const int* pt_ptr,
       double w[3];
 #pragma unroll
       for (int l = 0; l < 3; ++l) {
-        w[l] = ac[i] * ap[l] + ac[9 + i] * ap[3 + l];
+        w[l] = (double)ac[i] * ap[l] + (double)ac[9 + i] * ap[3 + l];
         Wk[3 * i + l] = w[l];
       }
 #pragma unroll
@@ -115,15 +125,16 @@ __device__ void eliminate_point_warp(int p, int lane, const int* pt_ptr,
   }
 }
 
+template <typename TA>
 __global__ void __launch_bounds__(kThreads) ba_point_eliminate_kernel(
     const int* __restrict__ pt_ptr, const int* __restrict__ pt_tile,
-    const double* __restrict__ A_cam, const double* __restrict__ A_pt,
+    const TA* __restrict__ A_cam, const TA* __restrict__ A_pt,
     const double* __restrict__ b, double lam, int diagonal_damping,
     double* __restrict__ W, double* __restrict__ WC,
     double* __restrict__ corr, double* __restrict__ C_out,
     double* __restrict__ gl_out) {
-  __shared__ double s_ac[kTileRows * 18];
-  __shared__ double s_ap[kTileRows * 6];
+  __shared__ TA s_ac[kTileRows * 18];
+  __shared__ TA s_ap[kTileRows * 6];
   __shared__ double s_b[kTileRows * 2];
   __shared__ double s_C[kTilePts * 9];
   __shared__ double s_gl[kTilePts * 3];
@@ -143,8 +154,8 @@ __global__ void __launch_bounds__(kThreads) ba_point_eliminate_kernel(
   }
 
   // 1. stage the tile's rows
-  const double* ac_g = A_cam + 18 * (int64_t)r0;
-  const double* ap_g = A_pt + 6 * (int64_t)r0;
+  const TA* ac_g = A_cam + 18 * (int64_t)r0;
+  const TA* ap_g = A_pt + 6 * (int64_t)r0;
   const double* b_g = b + 2 * (int64_t)r0;
   for (int e = t; e < nr * 18; e += kThreads) s_ac[e] = ac_g[e];
   for (int e = t; e < nr * 6; e += kThreads) s_ap[e] = ap_g[e];
@@ -156,13 +167,14 @@ __global__ void __launch_bounds__(kThreads) ba_point_eliminate_kernel(
     const int s = pt_ptr[p0 + lp] - r0, e = pt_ptr[p0 + lp + 1] - r0;
     double h[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0}, g[3] = {0, 0, 0};
     for (int r = s; r < e; ++r) {
-      const double* ap = s_ap + 6 * r;
+      const TA* ap = s_ap + 6 * r;
       const double b0 = s_b[2 * r], b1 = s_b[2 * r + 1];
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
 #pragma unroll
-        for (int j = 0; j < 3; ++j) h[3 * i + j] += ap[i] * ap[j] + ap[3 + i] * ap[3 + j];
-        g[i] += ap[i] * b0 + ap[3 + i] * b1;
+        for (int j = 0; j < 3; ++j)
+          h[3 * i + j] += (double)ap[i] * ap[j] + (double)ap[3 + i] * ap[3 + j];
+        g[i] += (double)ap[i] * b0 + (double)ap[3 + i] * b1;
       }
       s_pt[r] = lp;
     }
@@ -186,30 +198,46 @@ __global__ void __launch_bounds__(kThreads) ba_point_eliminate_kernel(
   double* corr_g = corr + 9 * (int64_t)r0;
   for (int e = t; e < nr * 27; e += kThreads) {
     const int r = e / 27, q = e - 27 * r, i = q / 3, l = q - 3 * i;
-    const double* ac = s_ac + 18 * r;
-    const double* ap = s_ap + 6 * r;
-    W_g[e] = ac[i] * ap[l] + ac[9 + i] * ap[3 + l];
+    const TA* ac = s_ac + 18 * r;
+    const TA* ap = s_ap + 6 * r;
+    W_g[e] = (double)ac[i] * ap[l] + (double)ac[9 + i] * ap[3 + l];
   }
   for (int e = t; e < nr * 27; e += kThreads) {
     const int r = e / 27, q = e - 27 * r, i = q / 3, l = q - 3 * i;
-    const double* ac = s_ac + 18 * r;
-    const double* ap = s_ap + 6 * r;
+    const TA* ac = s_ac + 18 * r;
+    const TA* ap = s_ap + 6 * r;
     const double* C = s_C + 9 * s_pt[r];
     double w[3];
 #pragma unroll
-    for (int m = 0; m < 3; ++m) w[m] = ac[i] * ap[m] + ac[9 + i] * ap[3 + m];
+    for (int m = 0; m < 3; ++m)
+      w[m] = (double)ac[i] * ap[m] + (double)ac[9 + i] * ap[3 + m];
     WC_g[e] = w[0] * C[l] + w[1] * C[3 + l] + w[2] * C[6 + l];
   }
   for (int e = t; e < nr * 9; e += kThreads) {
     const int r = e / 9, i = e - 9 * r;
-    const double* ac = s_ac + 18 * r;
-    const double* ap = s_ap + 6 * r;
+    const TA* ac = s_ac + 18 * r;
+    const TA* ap = s_ap + 6 * r;
     const double* Cg = s_Cg + 3 * s_pt[r];
     double w[3];
 #pragma unroll
-    for (int m = 0; m < 3; ++m) w[m] = ac[i] * ap[m] + ac[9 + i] * ap[3 + m];
+    for (int m = 0; m < 3; ++m)
+      w[m] = (double)ac[i] * ap[m] + (double)ac[9 + i] * ap[3 + m];
     corr_g[e] = w[0] * Cg[0] + w[1] * Cg[1] + w[2] * Cg[2];
   }
+}
+
+template <typename TA>
+int launch_point_eliminate(int T, const int* pt_ptr, const int* pt_tile,
+                           const TA* A_cam, const TA* A_pt, const double* b,
+                           double lam, int diagonal_damping, double* W,
+                           double* WC, double* corr, double* C, double* gl,
+                           void* stream) {
+  if (T > 0) {
+    ba_point_eliminate_kernel<TA><<<T, kThreads, 0, (cudaStream_t)stream>>>(
+        pt_ptr, pt_tile, A_cam, A_pt, b, lam, diagonal_damping, W, WC, corr,
+        C, gl);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -220,10 +248,17 @@ GT_EXPORT int gt_ba_point_eliminate(int T, const int* pt_ptr,
                                     double lam, int diagonal_damping,
                                     double* W, double* WC, double* corr,
                                     double* C, double* gl, void* stream) {
-  if (T > 0) {
-    ba_point_eliminate_kernel<<<T, kThreads, 0, (cudaStream_t)stream>>>(
-        pt_ptr, pt_tile, A_cam, A_pt, b, lam, diagonal_damping, W, WC, corr,
-        C, gl);
-  }
-  return (int)cudaGetLastError();
+  return launch_point_eliminate(T, pt_ptr, pt_tile, A_cam, A_pt, b, lam,
+                                diagonal_damping, W, WC, corr, C, gl, stream);
+}
+
+// The mixed-precision variant: A_cam and A_pt float, all else double.
+GT_EXPORT int gt_ba_point_eliminate_f32(int T, const int* pt_ptr,
+                                        const int* pt_tile, const float* A_cam,
+                                        const float* A_pt, const double* b,
+                                        double lam, int diagonal_damping,
+                                        double* W, double* WC, double* corr,
+                                        double* C, double* gl, void* stream) {
+  return launch_point_eliminate(T, pt_ptr, pt_tile, A_cam, A_pt, b, lam,
+                                diagonal_damping, W, WC, corr, C, gl, stream);
 }

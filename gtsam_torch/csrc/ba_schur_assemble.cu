@@ -29,6 +29,14 @@
 // Thread t < 81 then writes entry (t / 9, t % 9): each 9-double row of a
 // block is stored by 9 consecutive threads.
 //
+// Mixed-precision variants: A_cam comes as float and S is stored as float
+// (the kernels are templated on both types).  Every sum and the scaling
+// run in double; each entry of S is rounded once, at its store (the JAX
+// package's "hi-summed cells round once", gtsam_tpu/sfm/ba.py:1227-1233).
+// (a) then also writes the damped Hpp_c before its cell's pairs are taken
+// off (M x 81 doubles), the diagonal term of the implicit Schur matvec of
+// the refinement (csrc/ba_schur_matvec.cu).
+//
 // Bound on the H100: bytes.  (a) reads A_cam, b and corr (232 B) and, for
 // the pairs of the diagonal cells, WC and W (432 B) of every observation;
 // (b) reads WC and W of the observations in off-diagonal pairs and writes
@@ -82,15 +90,16 @@ __device__ __forceinline__ double group_sum(const double (*red)[kRed], int e) {
   return v;
 }
 
+template <typename TA, typename TS>
 __global__ void __launch_bounds__(kThreads) ba_camera_assemble_kernel(
     int M, const int* __restrict__ cam_ptr, const int* __restrict__ cam_obs,
-    const double* __restrict__ A_cam, const double* __restrict__ b,
+    const TA* __restrict__ A_cam, const double* __restrict__ b,
     const double* __restrict__ corr, const int* __restrict__ cell_ptr,
     const int* __restrict__ diag_cell, const int* __restrict__ cell_a,
     const int* __restrict__ cell_b, const double* __restrict__ WC,
     const double* __restrict__ W, double lam, int diagonal_damping,
-    double* __restrict__ S, double* __restrict__ s_out,
-    double* __restrict__ g_out) {
+    TS* __restrict__ S, double* __restrict__ s_out,
+    double* __restrict__ g_out, double* __restrict__ Hpp_d) {
   __shared__ double red[kGroups][kRed];
   __shared__ double s_s[9];
   const int c = blockIdx.x;
@@ -102,7 +111,7 @@ __global__ void __launch_bounds__(kThreads) ba_camera_assemble_kernel(
     double gp[3] = {0, 0, 0}, cr[3] = {0, 0, 0};
     for (int q = cam_ptr[c] + g; q < cam_ptr[c + 1]; q += kGroups) {
       const int64_t k = cam_obs[q];
-      const double* ac = A_cam + 18 * k;
+      const TA* ac = A_cam + 18 * k;
       double x0[3], x1[3], y0[3], y1[3];
 #pragma unroll
       for (int m = 0; m < 3; ++m) {
@@ -145,6 +154,7 @@ __global__ void __launch_bounds__(kThreads) ba_camera_assemble_kernel(
   if (t < 81) {
     double hs = group_sum(red, t);
     if (i == l) hs = diagonal_damping ? hs * (1.0 + lam) : hs + lam;
+    if (Hpp_d) Hpp_d[81 * (int64_t)c + t] = hs;
     v = hs - group_sum(red, 81 + t);
     if (i == l) {
       // clamp as torch.clamp does: a NaN stays NaN
@@ -159,16 +169,17 @@ __global__ void __launch_bounds__(kThreads) ba_camera_assemble_kernel(
   __syncthreads();
   if (t < 81) {
     const int64_t n = 9 * (int64_t)M;
-    S[(9 * (int64_t)c + i) * n + 9 * (int64_t)c + l] = v * s_s[i] * s_s[l];
+    S[(9 * (int64_t)c + i) * n + 9 * (int64_t)c + l] = (TS)(v * s_s[i] * s_s[l]);
   }
 }
 
+template <typename TS>
 __global__ void __launch_bounds__(kThreads) ba_pair_assemble_kernel(
     int M, const int* __restrict__ cell_ptr, const int* __restrict__ cell_ca,
     const int* __restrict__ cell_cb, const int* __restrict__ cell_a,
     const int* __restrict__ cell_b, const double* __restrict__ WC,
     const double* __restrict__ W, const double* __restrict__ s,
-    double* __restrict__ S) {
+    TS* __restrict__ S) {
   __shared__ double red[kGroups][kRed];
   const int cell = blockIdx.x;
   const int t = threadIdx.x;
@@ -187,8 +198,38 @@ __global__ void __launch_bounds__(kThreads) ba_pair_assemble_kernel(
     const int64_t n = 9 * (int64_t)M;
     const double v = -group_sum(red, t);
     S[(9 * (int64_t)ca + i) * n + 9 * (int64_t)cb + l] =
-        v * s[9 * (int64_t)ca + i] * s[9 * (int64_t)cb + l];
+        (TS)(v * s[9 * (int64_t)ca + i] * s[9 * (int64_t)cb + l]);
   }
+}
+
+template <typename TA, typename TS>
+int launch_camera_assemble(int M, const int* cam_ptr, const int* cam_obs,
+                           const TA* A_cam, const double* b, const double* corr,
+                           const int* cell_ptr, const int* diag_cell,
+                           const int* cell_a, const int* cell_b,
+                           const double* WC, const double* W, double lam,
+                           int diagonal_damping, TS* S, double* s, double* g,
+                           double* Hpp_d, void* stream) {
+  if (M > 0) {
+    ba_camera_assemble_kernel<TA, TS>
+        <<<M, kThreads, 0, (cudaStream_t)stream>>>(
+            M, cam_ptr, cam_obs, A_cam, b, corr, cell_ptr, diag_cell, cell_a,
+            cell_b, WC, W, lam, diagonal_damping, S, s, g, Hpp_d);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename TS>
+int launch_pair_assemble(int U, int M, const int* cell_ptr,
+                         const int* cell_ca, const int* cell_cb,
+                         const int* cell_a, const int* cell_b,
+                         const double* WC, const double* W, const double* s,
+                         TS* S, void* stream) {
+  if (U > 0) {
+    ba_pair_assemble_kernel<TS><<<U, kThreads, 0, (cudaStream_t)stream>>>(
+        M, cell_ptr, cell_ca, cell_cb, cell_a, cell_b, WC, W, s, S);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -199,12 +240,23 @@ GT_EXPORT int gt_ba_camera_assemble(
     const int* diag_cell, const int* cell_a, const int* cell_b,
     const double* WC, const double* W, double lam, int diagonal_damping,
     double* S, double* s, double* g, void* stream) {
-  if (M > 0) {
-    ba_camera_assemble_kernel<<<M, kThreads, 0, (cudaStream_t)stream>>>(
-        M, cam_ptr, cam_obs, A_cam, b, corr, cell_ptr, diag_cell, cell_a,
-        cell_b, WC, W, lam, diagonal_damping, S, s, g);
-  }
-  return (int)cudaGetLastError();
+  return launch_camera_assemble(M, cam_ptr, cam_obs, A_cam, b, corr, cell_ptr,
+                                diag_cell, cell_a, cell_b, WC, W, lam,
+                                diagonal_damping, S, s, g, (double*)nullptr,
+                                stream);
+}
+
+// The mixed-precision variant: A_cam float, S stored float, and the damped
+// Hpp blocks (M x 81 doubles) written to Hpp_d.
+GT_EXPORT int gt_ba_camera_assemble_f32(
+    int M, const int* cam_ptr, const int* cam_obs, const float* A_cam,
+    const double* b, const double* corr, const int* cell_ptr,
+    const int* diag_cell, const int* cell_a, const int* cell_b,
+    const double* WC, const double* W, double lam, int diagonal_damping,
+    float* S, double* s, double* g, double* Hpp_d, void* stream) {
+  return launch_camera_assemble(M, cam_ptr, cam_obs, A_cam, b, corr, cell_ptr,
+                                diag_cell, cell_a, cell_b, WC, W, lam,
+                                diagonal_damping, S, s, g, Hpp_d, stream);
 }
 
 GT_EXPORT int gt_ba_pair_assemble(int U, int M, const int* cell_ptr,
@@ -212,9 +264,17 @@ GT_EXPORT int gt_ba_pair_assemble(int U, int M, const int* cell_ptr,
                                   const int* cell_a, const int* cell_b,
                                   const double* WC, const double* W,
                                   const double* s, double* S, void* stream) {
-  if (U > 0) {
-    ba_pair_assemble_kernel<<<U, kThreads, 0, (cudaStream_t)stream>>>(
-        M, cell_ptr, cell_ca, cell_cb, cell_a, cell_b, WC, W, s, S);
-  }
-  return (int)cudaGetLastError();
+  return launch_pair_assemble(U, M, cell_ptr, cell_ca, cell_cb, cell_a, cell_b,
+                              WC, W, s, S, stream);
+}
+
+// The mixed-precision variant: S stored float.
+GT_EXPORT int gt_ba_pair_assemble_f32(int U, int M, const int* cell_ptr,
+                                      const int* cell_ca, const int* cell_cb,
+                                      const int* cell_a, const int* cell_b,
+                                      const double* WC, const double* W,
+                                      const double* s, float* S,
+                                      void* stream) {
+  return launch_pair_assemble(U, M, cell_ptr, cell_ca, cell_cb, cell_a, cell_b,
+                              WC, W, s, S, stream);
 }

@@ -19,15 +19,25 @@
 //
 // Linearization design: one thread per observation computes its row in
 // registers, and each warp owns a tile of 32 consecutive rows.  The rows'
-// outputs are contiguous spans of A_cam (32 x 144 B), A_pt (32 x 48 B) and
+// outputs are contiguous spans of A_cam (32 x 18 T), A_pt (32 x 6 T) and
 // b (32 x 16 B), so the warp first writes its rows into a shared-memory
-// copy of those spans (16-byte stores; the 144-, 48- and 16-byte row
-// strides put the 8 lanes of each quarter-warp on distinct banks), then
-// copies each span out linearly, one lane per double2, so every store
-// instruction writes whole 128-byte lines.  Only __syncwarp orders the two
-// steps.  A tile is 6.5 KB; 128-thread blocks (4 tiles, 26 KB) stay under
-// the 48 KB static shared-memory limit.  A partial last tile stores only its
-// rows.
+// copy of those spans, then copies each span out linearly, one 16-byte
+// vector per lane, so every store instruction writes whole 128-byte lines.
+// Only __syncwarp orders the two steps.  A partial last tile stores only
+// its rows.  The Jacobians' type T is double, or float for the
+// mixed-precision mode (gtsam_tpu/graph/factors.py:147-176 with
+// out_dtype=f32, b_dtype=f64): every value is computed in double and
+// rounded once at the store; b stays double.
+//   - double: rows write 16-byte pairs at strides of 144, 48 and 16 bytes,
+//     which put the 8 lanes of each quarter-warp on distinct banks; a tile
+//     is 6.5 KB, and 128-thread blocks (4 tiles, 26 KB) stay under the
+//     48 KB static shared-memory limit.
+//   - float: an A_cam row is 72 bytes and an A_pt row 24, not multiples of
+//     16, so rows write 8-byte pairs; at strides of 18 and 6 words the 16
+//     lanes of each half-warp hit distinct bank pairs.  The spans of a
+//     whole tile (2304 and 768 bytes) stay 16-byte aligned, so the copy-out
+//     keeps its 16-byte vectors and adds one 8-byte store when a partial
+//     tile has an odd number of rows.  A tile is 3.5 KB.
 //
 // Half-chi2 design: one launch.  Each block of 256 threads owns 1024 rows;
 // each thread sums r^2 of 4 of them (256 apart, so every load is
@@ -120,54 +130,85 @@ __device__ __forceinline__ void project(
   }
 }
 
-// A warp's 32 rows of A_cam, A_pt and b, laid out as in device memory.
-struct WarpTile {
-  double2 cam[kTileRows * 9];
-  double2 pt[kTileRows * 3];
-  double2 b[kTileRows];
+template <typename T> struct Pair;
+template <> struct Pair<double> { using type = double2; };
+template <> struct Pair<float> { using type = float2; };
+
+// A warp's 32 rows of A_cam, A_pt (in T) and b, laid out as in device
+// memory.
+template <typename T>
+struct __align__(16) WarpTile {
+  T cam[kTileRows * 18];
+  T pt[kTileRows * 6];
+  double b[kTileRows * 2];
 };
 
+// Copies the first `bytes` (a multiple of 8, at most kMaxBytes) of a
+// 16-byte-aligned shared span to a 16-byte-aligned global span: one 16-byte
+// vector per lane and step, then the last 8 bytes if `bytes` is not a
+// multiple of 16.
+template <int kMaxBytes>
+__device__ __forceinline__ void copy_out(void* dst, const void* src,
+                                         int bytes, int lane) {
+  constexpr int kSteps = (kMaxBytes + 16 * gt::kWarp - 1) / (16 * gt::kWarp);
+  const int n16 = bytes / 16;
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j) {
+    const int e = lane + gt::kWarp * j;
+    if (e < n16) d[e] = s[e];
+  }
+  if ((bytes & 15) && lane == 0)
+    reinterpret_cast<uint2*>(dst)[2 * n16] =
+        reinterpret_cast<const uint2*>(src)[2 * n16];
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads) bal_linearize_kernel(
     int K, const double* __restrict__ cam_R, const double* __restrict__ cam_t,
     const double* __restrict__ calib, const double* __restrict__ points,
     const int* __restrict__ obs_cam, const int* __restrict__ obs_pt,
-    const double* __restrict__ uv, double* __restrict__ A_cam,
-    double* __restrict__ A_pt, double* __restrict__ b) {
-  __shared__ WarpTile tiles[kThreads / gt::kWarp];
+    const double* __restrict__ uv, T* __restrict__ A_cam,
+    T* __restrict__ A_pt, double* __restrict__ b) {
+  using P = typename Pair<T>::type;
+  __shared__ WarpTile<T> tiles[kThreads / gt::kWarp];
   const int lane = threadIdx.x % gt::kWarp;
   const int k0 = blockIdx.x * kThreads + threadIdx.x - lane;  // tile's row 0
   if (k0 >= K) return;  // uniform over the warp
-  WarpTile& s = tiles[threadIdx.x / gt::kWarp];
+  WarpTile<T>& s = tiles[threadIdx.x / gt::kWarp];
   const int n = min(kTileRows, K - k0);
 
   if (lane < n) {
     double r[2], Jc[18], Jp[6];
     project(k0 + lane, cam_R, cam_t, calib, points, obs_cam, obs_pt, uv, r,
             Jc, Jp);
+    P* cam = reinterpret_cast<P*>(s.cam) + 9 * lane;
+    P* pt = reinterpret_cast<P*>(s.pt) + 3 * lane;
 #pragma unroll
-    for (int i = 0; i < 9; ++i)
-      s.cam[9 * lane + i] = make_double2(Jc[2 * i], Jc[2 * i + 1]);
+    for (int i = 0; i < 9; ++i) {
+      P v;
+      v.x = (T)Jc[2 * i];
+      v.y = (T)Jc[2 * i + 1];
+      cam[i] = v;
+    }
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
-      s.pt[3 * lane + i] = make_double2(Jp[2 * i], Jp[2 * i + 1]);
-    s.b[lane] = make_double2(-r[0], -r[1]);
+    for (int i = 0; i < 3; ++i) {
+      P v;
+      v.x = (T)Jp[2 * i];
+      v.y = (T)Jp[2 * i + 1];
+      pt[i] = v;
+    }
+    reinterpret_cast<double2*>(s.b)[lane] = make_double2(-r[0], -r[1]);
   }
   __syncwarp();
 
-  double2* ac = reinterpret_cast<double2*>(A_cam + 18 * (int64_t)k0);
-  double2* ap = reinterpret_cast<double2*>(A_pt + 6 * (int64_t)k0);
-  double2* bb = reinterpret_cast<double2*>(b + 2 * (int64_t)k0);
-#pragma unroll
-  for (int j = 0; j < 9; ++j) {
-    const int e = lane + gt::kWarp * j;
-    if (e < 9 * n) ac[e] = s.cam[e];
-  }
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const int e = lane + gt::kWarp * j;
-    if (e < 3 * n) ap[e] = s.pt[e];
-  }
-  if (lane < n) bb[lane] = s.b[lane];
+  constexpr int kBytes = (int)sizeof(T);
+  copy_out<kTileRows * 18 * kBytes>(A_cam + 18 * (int64_t)k0, s.cam,
+                                       n * 18 * kBytes, lane);
+  copy_out<kTileRows * 6 * kBytes>(A_pt + 6 * (int64_t)k0, s.pt,
+                                      n * 6 * kBytes, lane);
+  copy_out<kTileRows * 16>(b + 2 * (int64_t)k0, s.b, n * 16, lane);
 }
 
 // Fixed-order sum over a block of kErrorThreads threads; thread 0 gets the
@@ -226,6 +267,19 @@ __global__ void __launch_bounds__(kErrorThreads) bal_error_kernel(
   }
 }
 
+template <typename T>
+int launch_linearize(int K, const double* cam_R, const double* cam_t,
+                     const double* calib, const double* points,
+                     const int* obs_cam, const int* obs_pt, const double* uv,
+                     T* A_cam, T* A_pt, double* b, void* stream) {
+  if (K > 0) {
+    const int grid = (K + kThreads - 1) / kThreads;
+    bal_linearize_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        K, cam_R, cam_t, calib, points, obs_cam, obs_pt, uv, A_cam, A_pt, b);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 GT_EXPORT int gt_bal_linearize(int K, const double* cam_R, const double* cam_t,
@@ -233,12 +287,19 @@ GT_EXPORT int gt_bal_linearize(int K, const double* cam_R, const double* cam_t,
                                const int* obs_cam, const int* obs_pt,
                                const double* uv, double* A_cam, double* A_pt,
                                double* b, void* stream) {
-  if (K > 0) {
-    const int grid = (K + kThreads - 1) / kThreads;
-    bal_linearize_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        K, cam_R, cam_t, calib, points, obs_cam, obs_pt, uv, A_cam, A_pt, b);
-  }
-  return (int)cudaGetLastError();
+  return launch_linearize(K, cam_R, cam_t, calib, points, obs_cam, obs_pt, uv,
+                          A_cam, A_pt, b, stream);
+}
+
+// The mixed-precision variant: A_cam and A_pt rounded to float, b double.
+GT_EXPORT int gt_bal_linearize_f32(int K, const double* cam_R,
+                                   const double* cam_t, const double* calib,
+                                   const double* points, const int* obs_cam,
+                                   const int* obs_pt, const double* uv,
+                                   float* A_cam, float* A_pt, double* b,
+                                   void* stream) {
+  return launch_linearize(K, cam_R, cam_t, calib, points, obs_cam, obs_pt, uv,
+                          A_cam, A_pt, b, stream);
 }
 
 // partial must hold max(1, ceil(K / 1024)) doubles (ERROR_BLOCK in

@@ -1,10 +1,20 @@
 """Bundle adjustment by Schur-complement landmark elimination (torch).
 
-Counterpart of gtsam_tpu/sfm/ba.py (non-mixed float64 path).  Landmarks are
-eliminated per track with 3x3 algebra, the reduced camera system
-S = Hpp - Hpl Hll^-1 Hlp is assembled dense (9M x 9M, camera-major), already
-Jacobi-equilibrated, and factorized by Cholesky; the LM loop is host-driven
-and matches the JAX package's (GTSAM LevenbergMarquardtOptimizer semantics).
+Counterpart of gtsam_tpu/sfm/ba.py.  Landmarks are eliminated per track
+with 3x3 algebra, the reduced camera system S = Hpp - Hpl Hll^-1 Hlp is
+assembled dense (9M x 9M, camera-major), already Jacobi-equilibrated, and
+factorized by Cholesky; the LM loop is host-driven and matches the JAX
+package's (GTSAM LevenbergMarquardtOptimizer semantics).
+
+Two precisions, as in the JAX package:
+  - float64 (the default): Jacobians, S and the Cholesky in float64;
+  - mixed (dtype=float32, mixed_precision=True): float32 Jacobians, every
+    sum over them in float64 (exact Gram products), S stored and factorized
+    in float32, and the step refined in float64 against the implicit Schur
+    matvec (kernel 5), whose product needs no float64 S.  A stall switches
+    the run to a float64 phase: float64 Jacobians and S, an f32 copy of S
+    factorized, refined against S itself (gtsam_tpu/sfm/ba.py:453-529,
+    :1359-1411, :1435-1438, :1546-1551).
 
 On CUDA tensors the per-observation and per-point work runs in the
 hand-written kernels of gtsam_torch/csrc (see ba_kernels.py); the dense
@@ -14,12 +24,12 @@ factorization goes to cuSOLVER through torch.linalg.
 import dataclasses
 import math
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..config import default_dtype, resolve_device
+from ..config import default_dtype, resolve_device, working_dtype
 from ..geometry.cameras import BalCamera, bal_retract
 from ..geometry.se3 import SE3
 from ..optimize.optimizers import LMParams, check_convergence
@@ -160,12 +170,15 @@ def _projection_args(plan, cams, points, uv):
             plan.obs_pt, uv)
 
 
-def linearize(plan: BAStructure, cams: BalCamera, points, uv):
-    """Whitened Jacobians A_cam (K,2,9), A_pt (K,2,3) and b = -r (K,2) of
-    the plan's rows; uv (K,2) is in row order.  Matches
-    gtsam_tpu.graph.factors.linearize of the BAL projection factor with unit
-    noise (the batch built in gtsam_tpu/sfm/ba.py:1319)."""
-    return ba_kernels.linearize(*_projection_args(plan, cams, points, uv))
+def linearize(plan: BAStructure, cams: BalCamera, points, uv,
+              jac_dtype=torch.float64):
+    """Whitened Jacobians A_cam (K,2,9), A_pt (K,2,3) (in jac_dtype) and
+    b = -r (K,2) (float64) of the plan's rows; uv (K,2) is in row order.
+    Matches gtsam_tpu.graph.factors.linearize of the BAL projection factor
+    with unit noise (the batch built in gtsam_tpu/sfm/ba.py:1319), with
+    out_dtype=jac_dtype and b_dtype=float64."""
+    return ba_kernels.linearize(*_projection_args(plan, cams, points, uv),
+                                jac_dtype)
 
 
 def error(plan: BAStructure, cams: BalCamera, points, uv) -> float:
@@ -173,25 +186,41 @@ def error(plan: BAStructure, cams: BalCamera, points, uv) -> float:
     return float(ba_kernels.error(*_projection_args(plan, cams, points, uv)))
 
 
-def assemble(plan: BAStructure, A_cam, A_pt, b, lam, diagonal_damping, S):
+class Reduced(NamedTuple):
+    """What `assemble` gives besides S: the reduced gradient g~ (M, 9), the
+    scale s (9M,), the back-substitution's W, C, gl and, in the
+    mixed-precision mode, the implicit matvec's WC and damped Hpp (M, 9, 9);
+    all float64."""
+    g: torch.Tensor
+    s: torch.Tensor
+    W: torch.Tensor
+    C: torch.Tensor
+    gl: torch.Tensor
+    WC: torch.Tensor
+    Hpp_d: Optional[torch.Tensor]
+
+
+def assemble(plan: BAStructure, A_cam, A_pt, b, lam, diagonal_damping,
+             S) -> Reduced:
     """Eliminate the landmarks and assemble the damped reduced camera system
     into S (9M x 9M, camera-major, overwritten), already Jacobi-equilibrated:
     S holds D^-1/2 S_red D^-1/2 with s = D^-1/2 = rsqrt(clamp(diag(S_red),
     1e-12)), the scaling of gtsam_tpu/sfm/ba.py _dense_spd_solve (:468-470).
-    Returns (g~ (M,9), s (9M,), and W, C, gl for the back-substitution)."""
+    A_cam, A_pt and S are float64, or float32 (the mixed-precision mode:
+    every sum in float64, each entry of S rounded once)."""
     W, WC, corr, C, gl = ba_kernels.point_eliminate(
         plan.pt_ptr, plan.pt_tile, A_cam, A_pt, b, lam, diagonal_damping)
     # One S buffer serves every try of a run (the JAX package builds a fresh
     # S each try).  The kernels write each touched cell once; the zero-fill
     # clears the rest, which the previous try's factorization filled in.
     S.zero_()
-    g, s = ba_kernels.camera_assemble(
+    g, s, *Hpp_d = ba_kernels.camera_assemble(
         plan.cam_ptr, plan.cam_obs, A_cam, b, corr, plan.cell_ptr,
         plan.diag_cell, plan.cell_a, plan.cell_b, WC, W, lam,
         diagonal_damping, S)
     ba_kernels.pair_assemble(plan.cell_ptr, plan.cell_ca, plan.cell_cb,
                              plan.cell_a, plan.cell_b, WC, W, s, S)
-    return g, s, W, C, gl
+    return Reduced(g, s, W, C, gl, WC, Hpp_d[0] if Hpp_d else None)
 
 
 def equilibrate(S):
@@ -203,59 +232,130 @@ def equilibrate(S):
     return s
 
 
-def _dense_spd_solve(S, rhs, s):
-    """Cholesky solve of S_red x = rhs from its equilibrated S =
-    D^-1/2 S_red D^-1/2 and s = D^-1/2 (gtsam_tpu/sfm/ba.py
-    _dense_spd_solve, :468-475): x = s * S^-1 (s * rhs).  S is scratch and
-    is factorized in place, so no second n x n buffer is held.  Returns None
-    when the factorization fails."""
-    # S is symmetric, so its transpose view is the same matrix in the
-    # column-major layout LAPACK/cuSOLVER use; factorizing into that view
-    # leaves L in S's memory.
+# iterative-refinement passes of the mixed-precision solves: against the
+# implicit matvec (float32 S) and against a float64 S (gtsam_tpu/sfm/ba.py
+# :1260-1261, :1014)
+REFINE_IMPLICIT = 3
+REFINE_DENSE = 2
+
+
+def _cholesky_in_place(S):
+    """L with S = L L^T, factorized into S's own memory; None when the
+    factorization fails.  S is symmetric, so its transpose view is the same
+    matrix in the column-major layout LAPACK/cuSOLVER use; factorizing into
+    that view leaves L in S's memory."""
     L = S.mT
     info = torch.empty((), dtype=torch.int32, device=S.device)
     torch.linalg.cholesky_ex(L, out=(L, info))
-    if int(info) != 0:
+    return L if int(info) == 0 else None
+
+
+def _cho_solve(L, r):
+    y = torch.linalg.solve_triangular(L, r[:, None], upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
+
+
+def _dense_spd_solve(S, rhs, s, mixed_precision=False, matvec=None,
+                     S32=None):
+    """Solve S_red x = rhs from the equilibrated S = D^-1/2 S_red D^-1/2 and
+    s = D^-1/2 (gtsam_tpu/sfm/ba.py _dense_spd_solve, :453-529).  rhs, s
+    and x are float64.  Returns None when the factorization fails.
+      - float64 S, not mixed: Cholesky of S in place, x = s S^-1 (s rhs).
+      - float32 S (the mixed mode's working phase): Cholesky of S in place,
+        then x = s L^-T L^-1 (s rhs) refined REFINE_IMPLICIT times by
+        x += s L^-T L^-1 (s (rhs - matvec(x))), the triangular solves in
+        float32 and everything else in float64; matvec(x) = S_red x in
+        float64 (kernel 5).
+      - float64 S, mixed (the fallback phase): S is copied into the float32
+        buffer S32 and that is factorized; the refinement (REFINE_DENSE
+        passes) multiplies by S itself, which stays intact.
+    S (or S32) is scratch, so no second n x n buffer is held beyond S32."""
+    if S.dtype == torch.float64 and not mixed_precision:
+        L = _cholesky_in_place(S)
+        return None if L is None else _cho_solve(L, rhs * s) * s
+    if S.dtype == torch.float32:
+        L, passes = _cholesky_in_place(S), REFINE_IMPLICIT
+    else:
+        S32.copy_(S)            # each entry rounded once
+        L, passes = _cholesky_in_place(S32), REFINE_DENSE
+
+        def matvec(x):          # S_red x = D^1/2 S D^1/2 x
+            return torch.mv(S, x / s) / s
+    if L is None:
         return None
-    y = torch.linalg.solve_triangular(L, (rhs * s)[:, None], upper=False)
-    return torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0] * s
+
+    def precond(r):
+        return s * _cho_solve(L, (s * r).to(torch.float32)).to(torch.float64)
+
+    x = precond(rhs)
+    for _ in range(passes):
+        x = x + precond(rhs - matvec(x))
+    return x
 
 
-def _schur_step(plan, A_cam, A_pt, b, lam, diagonal_damping, S):
-    g, s, W, C, gl = assemble(plan, A_cam, A_pt, b, lam, diagonal_damping,
-                              S)
-    x = _dense_spd_solve(S, g.reshape(-1), s)
+def _schur_step(plan, A_cam, A_pt, b, lam, diagonal_damping, S,
+                mixed_precision=False, S32=None):
+    """(dc, dl) of one LM try, or None when the factorization fails.  The
+    mode follows the dtypes as gtsam_tpu/sfm/ba.py:1077-1081 routes them:
+    float64 A (and S) is the float64 path (mixed_precision: the fallback
+    phase, which needs S32); float32 A (and S) with float64 b is the mixed
+    mode's working phase.  dc is float64 and dl has A's dtype (the
+    reference rounds dl to the working dtype, gtsam_tpu/sfm/ba.py:1035)."""
+    if A_cam.dtype == torch.float32 and not (mixed_precision
+                                             and b.dtype == torch.float64):
+        raise ValueError("float32 Jacobians need mixed_precision=True and a "
+                         "float64 b")
+    red = assemble(plan, A_cam, A_pt, b, lam, diagonal_damping, S)
+    matvec = None
+    if A_cam.dtype == torch.float32:
+        def matvec(x):
+            return ba_kernels.schur_matvec(
+                plan.pt_ptr, plan.pt_tile, plan.obs_cam, plan.obs_pt,
+                plan.cam_ptr, plan.cam_obs, red.W, red.WC, red.Hpp_d,
+                x.view(-1, 9)).view(-1)
+    x = _dense_spd_solve(S, red.g.reshape(-1), red.s, mixed_precision,
+                         matvec, S32)
     if x is None:
         return None
     dc = x.reshape(-1, 9)
-    return dc, ba_kernels.back_substitute(plan.pt_ptr, plan.obs_cam, W, dc, C,
-                                          gl)
+    dl = ba_kernels.back_substitute(plan.pt_ptr, plan.pt_tile, plan.obs_cam,
+                                    red.W, dc, red.C, red.gl)
+    return dc, dl.to(A_cam.dtype)
 
 
 def schur_solve(plan: BAStructure, A_cam, A_pt, b, lam,
-                diagonal_damping=False):
+                diagonal_damping=False, mixed_precision=False):
     """Solve the damped Gauss-Newton system by landmark elimination.
 
     A_cam (K,2,9), A_pt (K,2,3), b (K,2) in the plan's row order (a plan on
-    the tensors' device).  Returns (dc (M,9), dl (N,3)) with dl in original
-    point numbering and 0 for points without observations; both are NaN when
-    the Cholesky factorization fails.
+    the tensors' device).  float64 A: the float64 solve (with
+    mixed_precision, an f32 factorization refined against the float64 S);
+    float32 A with float64 b and mixed_precision: the mixed mode's working
+    phase.  Returns (dc (M,9) float64, dl (N,3) of A's dtype) with dl in
+    original point numbering and 0 for points without observations; both
+    are NaN when the Cholesky factorization fails.
     """
-    M = plan.num_cameras
-    S = torch.empty((9 * M, 9 * M), dtype=default_dtype(), device=A_cam.device)
-    step = _schur_step(plan, A_cam, A_pt, b, lam, diagonal_damping, S)
+    M, n = plan.num_cameras, 9 * plan.num_cameras
+    dev = A_cam.device
+    S = torch.empty((n, n), dtype=A_cam.dtype, device=dev)
+    S32 = None
+    if mixed_precision and A_cam.dtype == torch.float64:
+        S32 = torch.empty((n, n), dtype=torch.float32, device=dev)
+    step = _schur_step(plan, A_cam, A_pt, b, lam, diagonal_damping, S,
+                       mixed_precision, S32)
     if step is None:
         nan = float("nan")
-        return (torch.full((M, 9), nan, dtype=S.dtype, device=S.device),
-                torch.full((plan.num_points, 3), nan, dtype=S.dtype,
-                           device=S.device))
+        return (torch.full((M, 9), nan, dtype=torch.float64, device=dev),
+                torch.full((plan.num_points, 3), nan, dtype=A_cam.dtype,
+                           device=dev))
     return step
 
 
 def ba_optimize(prob: BalProblem, params: Optional[LMParams] = None,
                 verbose: bool = False, target_error: Optional[float] = None,
-                device=None, initial=None):
-    """Full BAL bundle adjustment: LM with Schur elimination, float64.
+                device=None, initial=None, dtype=None,
+                mixed_precision: bool = False):
+    """Full BAL bundle adjustment: LM with Schur elimination.
 
     Returns ({"cams": BalCamera, "points": (N,3)}, info) with info keys
     error, iterations, converged, history, iter_times, phases.
@@ -263,40 +363,66 @@ def ba_optimize(prob: BalProblem, params: Optional[LMParams] = None,
     device: CUDA when None (raises without CUDA); "cpu" runs the plain
     versions of the kernels.  initial: optional (cams, points) state, as
     from state_from_numpy, in place of the problem's own.
+    dtype: the working dtype of the Jacobians and S, float64 (the default)
+    or float32.  mixed_precision: factorize in float32 and refine in
+    float64 (gtsam_tpu/sfm/ba.py ba_optimize's two-phase schedule).  With
+    dtype=float32 the run starts in the working phase (float32 Jacobians
+    and S, the implicit matvec); when an iteration is not accepted or gains
+    less than switch_tol = max(10 relative_error_tol, 1e-7) of the error, it
+    switches to the float64 phase for good (lambda = min(lambda,
+    lambda_initial); an iteration that was not accepted is tried again
+    there).  info["phases"] names each iteration's phase.  The state and
+    residuals are float64 throughout; float32 without mixed_precision is
+    not supported.
     """
     params = params or LMParams()
+    dt = working_dtype(dtype)
+    if dt == torch.float32 and not mixed_precision:
+        raise ValueError("float32 BA runs only with mixed_precision=True")
+    hi = default_dtype()
     dev = resolve_device(device)
     plan = BAStructure.build(prob.obs_cam, prob.obs_pt, prob.num_cameras,
                              prob.num_points).to(dev)
-    uv = torch.as_tensor(prob.obs_uv[plan.order], dtype=default_dtype(),
-                         device=dev)
+    uv = torch.as_tensor(prob.obs_uv[plan.order], dtype=hi, device=dev)
     if initial is None:
         initial = state_from_numpy(prob.cam_R, prob.cam_t, prob.cam_calib,
                                    prob.points, dev)
     cams, pts = initial
     n = 9 * prob.num_cameras
-    S = torch.empty((n, n), dtype=default_dtype(), device=dev)
+    buffers = {}   # n x n scratch by dtype, allocated when a phase needs it
 
+    def buffer(dtype):
+        if dtype not in buffers:
+            buffers[dtype] = torch.empty((n, n), dtype=dtype, device=dev)
+        return buffers[dtype]
+
+    pdt = dt
+    switch_tol = max(10.0 * params.relative_error_tol, 1e-7)
     err = error(plan, cams, pts, uv)
     history = [err]
     iter_times = []
+    phases = []
     lam = params.lambda_initial
     lam_fail_ceiling = 0.0   # conservative policy: largest lambda that failed
     it = 0
     converged = False
     for it in range(1, params.max_iterations + 1):
         t0 = time.time()
-        A_cam, A_pt, b = linearize(plan, cams, pts, uv)
+        S = buffer(pdt)
+        S32 = (buffer(torch.float32)
+               if mixed_precision and pdt == torch.float64 else None)
+        A_cam, A_pt, b = linearize(plan, cams, pts, uv, pdt)
         prev = err
         accepted = False
         lam_entry = lam
         while True:
             step = _schur_step(plan, A_cam, A_pt, b, lam,
-                               params.diagonal_damping, S)
+                               params.diagonal_damping, S, mixed_precision,
+                               S32)
             ne = math.inf
             if step is not None:
                 dc, dl = step
-                nc, npts = bal_retract(cams, dc), pts + dl
+                nc, npts = bal_retract(cams, dc), pts + dl.to(hi)
                 ne = error(plan, nc, npts, uv)
             if math.isfinite(ne) and ne < err:
                 cams, pts, err = nc, npts, ne
@@ -313,13 +439,19 @@ def ba_optimize(prob: BalProblem, params: Optional[LMParams] = None,
             if lam > params.lambda_upper_bound:
                 break
         iter_times.append(time.time() - t0)
+        phases.append(str(pdt).replace("torch.", ""))
         if verbose:
-            print(f"BA iter {it}: {prev:.6g} -> {err:.6g} lambda={lam:.3g} "
-                  f"({iter_times[-1]:.3f}s)", flush=True)
+            print(f"BA iter {it} [{phases[-1]}]: {prev:.6g} -> {err:.6g} "
+                  f"lambda={lam:.3g} ({iter_times[-1]:.3f}s)", flush=True)
         history.append(err)
         if target_error is not None and err <= target_error:
             converged = True
             break
+        if pdt != hi and (not accepted or (prev - err) < switch_tol * prev):
+            pdt = hi
+            lam = min(lam, params.lambda_initial)
+            if not accepted:
+                continue   # try this iteration again in the float64 phase
         if not accepted:
             break
         if check_convergence(prev, err, params):
@@ -327,4 +459,4 @@ def ba_optimize(prob: BalProblem, params: Optional[LMParams] = None,
             break
     return dict(cams=cams, points=pts), dict(
         error=err, iterations=it, converged=converged, history=history,
-        iter_times=iter_times, phases=["float64"] * len(iter_times))
+        iter_times=iter_times, phases=phases)

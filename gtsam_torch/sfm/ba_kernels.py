@@ -1,7 +1,9 @@
 """Wrappers of the hand-written CUDA kernels of Schur bundle adjustment.
 
 Each wrapper takes tensors in the layout of gtsam_torch/sfm/ba.py (float64,
-int32 indices, row-major and contiguous) and
+int32 indices, row-major and contiguous; in the mixed-precision mode the
+Jacobians A_cam, A_pt and the reduced camera matrix S are float32, and the
+wrapper launches the float32 variant of its kernel) and
   - on CPU tensors computes its plain PyTorch version (`*_plain`), which the
     CPU tests compare against the JAX package;
   - on CUDA tensors checks dtype, shape, contiguity and device, launches its
@@ -22,6 +24,7 @@ from ..geometry.so3 import hat
 from .bal import CHEIRALITY_PENALTY
 
 F64 = torch.float64
+F32 = torch.float32
 I32 = torch.int32
 
 _P = ctypes.c_void_p
@@ -58,21 +61,35 @@ class Kernel:
         self.launches += 1
 
 
+# A kernel named "<name>_f32" is the float32 variant of "<name>": the same
+# source and wrapper, float32 Jacobians (and S), float64 arithmetic.
 KERNELS = {k.name: k for k in (
     Kernel("bal_linearize", "bal_linearize", "linearize",
            "gtsam_tpu/sfm/bal.py:182", [_INT] + [_P] * 10),
+    Kernel("bal_linearize_f32", "bal_linearize", "linearize",
+           "gtsam_tpu/graph/factors.py:147", [_INT] + [_P] * 10),
     Kernel("bal_error", "bal_linearize", "error",
            "gtsam_tpu/sfm/ba.py:1338", [_INT] + [_P] * 10),
     Kernel("ba_point_eliminate", "ba_point_eliminate", "point_eliminate",
            "gtsam_tpu/sfm/ba.py:1086",
            [_INT, _P, _P, _P, _P, _P, _DBL, _INT, _P, _P, _P, _P, _P]),
+    Kernel("ba_point_eliminate_f32", "ba_point_eliminate", "point_eliminate",
+           "gtsam_tpu/sfm/ba.py:804",
+           [_INT, _P, _P, _P, _P, _P, _DBL, _INT, _P, _P, _P, _P, _P]),
     Kernel("ba_camera_assemble", "ba_schur_assemble", "camera_assemble",
            "gtsam_tpu/sfm/ba.py:1103",
            [_INT] + [_P] * 11 + [_DBL, _INT, _P, _P, _P]),
+    Kernel("ba_camera_assemble_f32", "ba_schur_assemble", "camera_assemble",
+           "gtsam_tpu/sfm/ba.py:846",
+           [_INT] + [_P] * 11 + [_DBL, _INT, _P, _P, _P, _P]),
     Kernel("ba_pair_assemble", "ba_schur_assemble", "pair_assemble",
            "gtsam_tpu/sfm/ba.py:1142", [_INT, _INT] + [_P] * 9),
+    Kernel("ba_pair_assemble_f32", "ba_schur_assemble", "pair_assemble",
+           "gtsam_tpu/sfm/ba.py:954", [_INT, _INT] + [_P] * 9),
     Kernel("ba_back_substitute", "ba_back_substitute", "back_substitute",
-           "gtsam_tpu/sfm/ba.py:1264", [_INT, _P, _P, _P, _P, _P, _P, _P]),
+           "gtsam_tpu/sfm/ba.py:1264", [_INT] + [_P] * 8),
+    Kernel("ba_schur_matvec", "ba_schur_matvec", "schur_matvec",
+           "gtsam_tpu/sfm/ba.py:1239", [_INT, _INT] + [_P] * 12),
 )}
 
 
@@ -113,6 +130,24 @@ def _check(name, *specs):
             raise ValueError(f"{name}: every tensor must lie on one CUDA "
                              f"device; {arg} is on {t.device}")
     return dev
+
+
+_SUFFIX = {F64: "", F32: "_f32"}
+
+
+def _variant(name, arg, dtype):
+    """The kernel of `name` for Jacobians (or S) of `dtype`, named after
+    argument `arg`; raises for a dtype no variant takes."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"{name}: {arg} must be torch.float64 or "
+                        f"torch.float32, got {dtype}")
+    return name + _SUFFIX[dtype]
+
+
+def _check_aligned(name, arg, t):
+    """The kernels load t with 16-byte vectors."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: {arg} must be 16-byte aligned")
 
 
 def _seg(ptr):
@@ -166,9 +201,11 @@ def _projection_plain(cam_R, cam_t, calib, points, obs_cam, obs_pt, uv,
     return A_cam, A_pt, -r
 
 
-def linearize_plain(cam_R, cam_t, calib, points, obs_cam, obs_pt, uv):
-    return _projection_plain(cam_R, cam_t, calib, points, obs_cam, obs_pt, uv,
-                             True)
+def linearize_plain(cam_R, cam_t, calib, points, obs_cam, obs_pt, uv,
+                    jac_dtype=F64):
+    A_cam, A_pt, b = _projection_plain(cam_R, cam_t, calib, points, obs_cam,
+                                       obs_pt, uv, True)
+    return A_cam.to(jac_dtype), A_pt.to(jac_dtype), b
 
 
 def error_plain(cam_R, cam_t, calib, points, obs_cam, obs_pt, uv):
@@ -186,19 +223,23 @@ def _projection_specs(name, cam_R, cam_t, calib, points, obs_cam, obs_pt, uv):
                   ("obs_pt", obs_pt, I32, (K,)), ("uv", uv, F64, (K, 2)))
 
 
-def linearize(cam_R, cam_t, calib, points, obs_cam, obs_pt, uv):
+def linearize(cam_R, cam_t, calib, points, obs_cam, obs_pt, uv,
+              jac_dtype=F64):
     """Whitened (unit noise) BAL linearization, one row per observation:
-    A_cam (K,2,9), A_pt (K,2,3), b = -r (K,2)."""
+    A_cam (K,2,9), A_pt (K,2,3) in jac_dtype and b = -r (K,2) in float64.
+    jac_dtype float32 is the mixed-precision mode: the Jacobians are
+    computed in float64 and rounded once."""
     args = (cam_R, cam_t, calib, points, obs_cam, obs_pt, uv)
+    name = _variant("bal_linearize", "jac_dtype", jac_dtype)
     if _on_cpu(*args):
-        return linearize_plain(*args)
-    dev = _projection_specs("bal_linearize", *args)
+        return linearize_plain(*args, jac_dtype)
+    dev = _projection_specs(name, *args)
     K = obs_cam.shape[0]
-    A_cam = torch.empty((K, 2, 9), dtype=F64, device=dev)
-    A_pt = torch.empty((K, 2, 3), dtype=F64, device=dev)
+    A_cam = torch.empty((K, 2, 9), dtype=jac_dtype, device=dev)
+    A_pt = torch.empty((K, 2, 3), dtype=jac_dtype, device=dev)
     b = torch.empty((K, 2), dtype=F64, device=dev)
-    KERNELS["bal_linearize"].launch(dev, K, *map(_ptr, args), _ptr(A_cam),
-                                    _ptr(A_pt), _ptr(b))
+    KERNELS[name].launch(dev, K, *map(_ptr, args), _ptr(A_cam), _ptr(A_pt),
+                         _ptr(b))
     return A_cam, A_pt, b
 
 
@@ -260,6 +301,7 @@ POINT_TILE_STAGED = 128
 
 def point_eliminate_plain(pt_ptr, pt_tile, A_cam, A_pt, b, lam,
                           diagonal_damping):
+    A_cam, A_pt = A_cam.to(F64), A_pt.to(F64)   # products of floats: exact
     N = pt_ptr.numel() - 1
     seg = _seg(pt_ptr)
     has = (pt_ptr[1:] > pt_ptr[:-1])
@@ -286,22 +328,26 @@ def point_eliminate(pt_ptr, pt_tile, A_cam, A_pt, b, lam, diagonal_damping):
     """Per point: Hll, gl, C = (Hll + lam_eff I)^-1; per observation:
     W = A_cam^T A_pt, WC = W C, corr = W C gl.  pt_tile: the plan's row
     tiles (the kernel's blocks; the plain version does not need them).
-    Returns W (K,9,3), WC (K,9,3), corr (K,9), C (N,3,3), gl (N,3)."""
+    A_cam and A_pt are float64, or both float32 (then the products run in
+    float64).  Returns W (K,9,3), WC (K,9,3), corr (K,9), C (N,3,3),
+    gl (N,3), all float64."""
     args = (pt_ptr, pt_tile, A_cam, A_pt, b)
     if _on_cpu(*args):
         return point_eliminate_plain(*args, lam, diagonal_damping)
     N, K = pt_ptr.shape[0] - 1, A_cam.shape[0]
     T = max(1, -(-K // POINT_TILE_ROWS))
-    dev = _check("ba_point_eliminate", ("pt_ptr", pt_ptr, I32, (N + 1,)),
+    name = _variant("ba_point_eliminate", "A_cam", A_cam.dtype)
+    dev = _check(name, ("pt_ptr", pt_ptr, I32, (N + 1,)),
                  ("pt_tile", pt_tile, I32, (T + 1,)),
-                 ("A_cam", A_cam, F64, (K, 2, 9)),
-                 ("A_pt", A_pt, F64, (K, 2, 3)), ("b", b, F64, (K, 2)))
+                 ("A_cam", A_cam, A_cam.dtype, (K, 2, 9)),
+                 ("A_pt", A_pt, A_cam.dtype, (K, 2, 3)),
+                 ("b", b, F64, (K, 2)))
     W = torch.empty((K, 9, 3), dtype=F64, device=dev)
     WC = torch.empty((K, 9, 3), dtype=F64, device=dev)
     corr = torch.empty((K, 9), dtype=F64, device=dev)
     C = torch.empty((N, 3, 3), dtype=F64, device=dev)
     gl = torch.empty((N, 3), dtype=F64, device=dev)
-    KERNELS["ba_point_eliminate"].launch(
+    KERNELS[name].launch(
         dev, T, *map(_ptr, args), float(lam), int(bool(diagonal_damping)),
         _ptr(W), _ptr(WC), _ptr(corr), _ptr(C), _ptr(gl))
     return W, WC, corr, C, gl
@@ -328,7 +374,7 @@ def camera_assemble_plain(cam_ptr, cam_obs, A_cam, b, corr, cell_ptr,
     dev = A_cam.device
     cam_of = _seg(cam_ptr)
     k = cam_obs.long()
-    Ac = A_cam[k]
+    Ac = A_cam[k].to(F64)
     Hpp = torch.zeros((M, 9, 9), dtype=F64, device=dev).index_add_(
         0, cam_of, torch.einsum("kri,krj->kij", Ac, Ac))
     gp = torch.zeros((M, 9), dtype=F64, device=dev).index_add_(
@@ -340,6 +386,7 @@ def camera_assemble_plain(cam_ptr, cam_obs, A_cam, b, corr, cell_ptr,
         d.mul_(1.0 + lam)
     else:
         d.add_(lam)
+    Hpp_d = Hpp.clone() if A_cam.dtype == F32 else None
     has = diag_cell >= 0
     cells = torch.zeros(cell_ptr.numel() - 1, dtype=torch.bool, device=dev)
     cells[diag_cell[has].long()] = True
@@ -347,8 +394,12 @@ def camera_assemble_plain(cam_ptr, cam_obs, A_cam, b, corr, cell_ptr,
     Hpp[has] -= _pair_blocks(cell_ptr, cell_a, cell_b, WC, W, cells)
     s = Hpp.diagonal(dim1=1, dim2=2).clamp(min=1e-12).rsqrt()        # (M, 9)
     ar = torch.arange(M, device=S.device)
-    S.view(M, 9, M, 9)[ar, :, ar, :] = Hpp * s[:, :, None] * s[:, None, :]
-    return gp - cr, s.reshape(-1)
+    # float64 products, rounded once into a float32 S
+    S.view(M, 9, M, 9)[ar, :, ar, :] = (
+        Hpp * s[:, :, None] * s[:, None, :]).to(S.dtype)
+    if Hpp_d is None:
+        return gp - cr, s.reshape(-1)
+    return gp - cr, s.reshape(-1), Hpp_d
 
 
 def camera_assemble(cam_ptr, cam_obs, A_cam, b, corr, cell_ptr, diag_cell,
@@ -356,29 +407,36 @@ def camera_assemble(cam_ptr, cam_obs, A_cam, b, corr, cell_ptr, diag_cell,
     """Per camera c, the diagonal block of the reduced camera system:
     D_c = damped Hpp_c - sum WC_a W_b^T over the pairs of cell (c, c), and
     s_c = rsqrt(clamp(diag D_c, 1e-12)); stores D_c scaled by s_c s_c^T
-    into S's diagonal block (S camera-major, (9M, 9M)).
-    Returns g~ = sum A_cam^T b - sum corr (M, 9) and s (9M,)."""
+    into S's diagonal block (S camera-major, (9M, 9M), of A_cam's dtype).
+    Returns g~ = sum A_cam^T b - sum corr (M, 9) and s (9M,); with float32
+    A_cam (the mixed-precision mode) also the damped Hpp (M, 9, 9) before
+    its cell's pairs are taken off, for schur_matvec."""
     args = (cam_ptr, cam_obs, A_cam, b, corr, cell_ptr, diag_cell, cell_a,
             cell_b, WC, W)
     if _on_cpu(*args, S):
         return camera_assemble_plain(*args, lam, diagonal_damping, S)
     M, K = cam_ptr.shape[0] - 1, A_cam.shape[0]
     U, P = cell_ptr.shape[0] - 1, cell_a.shape[0]
-    dev = _check("ba_camera_assemble", ("cam_ptr", cam_ptr, I32, (M + 1,)),
+    name = _variant("ba_camera_assemble", "A_cam", A_cam.dtype)
+    dev = _check(name, ("cam_ptr", cam_ptr, I32, (M + 1,)),
                  ("cam_obs", cam_obs, I32, (K,)),
-                 ("A_cam", A_cam, F64, (K, 2, 9)), ("b", b, F64, (K, 2)),
-                 ("corr", corr, F64, (K, 9)),
+                 ("A_cam", A_cam, A_cam.dtype, (K, 2, 9)),
+                 ("b", b, F64, (K, 2)), ("corr", corr, F64, (K, 9)),
                  ("cell_ptr", cell_ptr, I32, (U + 1,)),
                  ("diag_cell", diag_cell, I32, (M,)),
                  ("cell_a", cell_a, I32, (P,)), ("cell_b", cell_b, I32, (P,)),
                  ("WC", WC, F64, (K, 9, 3)), ("W", W, F64, (K, 9, 3)),
-                 ("S", S, F64, (9 * M, 9 * M)))
+                 ("S", S, A_cam.dtype, (9 * M, 9 * M)))
     g = torch.empty((M, 9), dtype=F64, device=dev)
     s = torch.empty((9 * M,), dtype=F64, device=dev)
-    KERNELS["ba_camera_assemble"].launch(
-        dev, M, *map(_ptr, args), float(lam), int(bool(diagonal_damping)),
-        _ptr(S), _ptr(s), _ptr(g))
-    return g, s
+    out = [_ptr(S), _ptr(s), _ptr(g)]
+    Hpp_d = None
+    if A_cam.dtype == F32:
+        Hpp_d = torch.empty((M, 9, 9), dtype=F64, device=dev)
+        out.append(_ptr(Hpp_d))
+    KERNELS[name].launch(dev, M, *map(_ptr, args), float(lam),
+                         int(bool(diagonal_damping)), *out)
+    return (g, s) if Hpp_d is None else (g, s, Hpp_d)
 
 
 def pair_assemble_plain(cell_ptr, cell_ca, cell_cb, cell_a, cell_b, WC, W, s,
@@ -389,47 +447,97 @@ def pair_assemble_plain(cell_ptr, cell_ca, cell_cb, cell_a, cell_b, WC, W, s,
     M = S.shape[0] // 9
     s9 = s.view(M, 9)
     S.view(M, 9, M, 9)[ca, :, cb, :] = (-blocks * s9[ca][:, :, None]
-                                        * s9[cb][:, None, :])
+                                        * s9[cb][:, None, :]).to(S.dtype)
 
 
 def pair_assemble(cell_ptr, cell_ca, cell_cb, cell_a, cell_b, WC, W, s, S):
     """Every off-diagonal cell (ca, cb) of the reduced camera system,
     -sum WC_a W_b^T over its pairs, scaled by s_ca s_cb^T and stored into S
-    (in place; s from camera_assemble)."""
+    (in place; s from camera_assemble; S float64, or float32 with each entry
+    rounded once)."""
     args = (cell_ptr, cell_ca, cell_cb, cell_a, cell_b, WC, W, s, S)
     if _on_cpu(*args):
         return pair_assemble_plain(*args)
     U, P, K = cell_ptr.shape[0] - 1, cell_a.shape[0], WC.shape[0]
     M = S.shape[0] // 9
-    dev = _check("ba_pair_assemble", ("cell_ptr", cell_ptr, I32, (U + 1,)),
+    name = _variant("ba_pair_assemble", "S", S.dtype)
+    dev = _check(name, ("cell_ptr", cell_ptr, I32, (U + 1,)),
                  ("cell_ca", cell_ca, I32, (U,)),
                  ("cell_cb", cell_cb, I32, (U,)),
                  ("cell_a", cell_a, I32, (P,)), ("cell_b", cell_b, I32, (P,)),
                  ("WC", WC, F64, (K, 9, 3)), ("W", W, F64, (K, 9, 3)),
-                 ("s", s, F64, (9 * M,)), ("S", S, F64, (9 * M, 9 * M)))
-    KERNELS["ba_pair_assemble"].launch(dev, U, M, *map(_ptr, args))
+                 ("s", s, F64, (9 * M,)), ("S", S, S.dtype, (9 * M, 9 * M)))
+    KERNELS[name].launch(dev, U, M, *map(_ptr, args))
 
 
-# -- kernel 4: landmark back-substitution ------------------------------------
+# -- kernels 4 and 5: the point pass, back-substitution and Schur matvec -------
 
 
-def back_substitute_plain(pt_ptr, obs_cam, W, dc, C, gl):
+def _point_sums(pt_ptr, obs_cam, W, x):
+    """u_p = sum over point p's rows of W_k^T x[cam_k]: (N, 3)."""
     N = pt_ptr.numel() - 1
-    u = torch.zeros((N, 3), dtype=F64, device=W.device).index_add_(
-        0, _seg(pt_ptr), torch.einsum("kil,ki->kl", W, dc[obs_cam.long()]))
+    return torch.zeros((N, 3), dtype=F64, device=W.device).index_add_(
+        0, _seg(pt_ptr), torch.einsum("kil,ki->kl", W, x[obs_cam.long()]))
+
+
+def back_substitute_plain(pt_ptr, pt_tile, obs_cam, W, dc, C, gl):
+    u = _point_sums(pt_ptr, obs_cam, W, dc)
     return torch.einsum("nij,nj->ni", C, gl - u)
 
 
-def back_substitute(pt_ptr, obs_cam, W, dc, C, gl):
-    """dl_p = C_p (gl_p - sum_k W_k^T dc[cam_k]) per point: (N, 3)."""
-    args = (pt_ptr, obs_cam, W, dc, C, gl)
+def back_substitute(pt_ptr, pt_tile, obs_cam, W, dc, C, gl):
+    """dl_p = C_p (gl_p - sum_k W_k^T dc[cam_k]) per point: (N, 3).
+    pt_tile: the plan's row tiles (the kernel's blocks)."""
+    args = (pt_ptr, pt_tile, obs_cam, W, dc, C, gl)
     if _on_cpu(*args):
         return back_substitute_plain(*args)
     N, K, M = pt_ptr.shape[0] - 1, obs_cam.shape[0], dc.shape[0]
+    T = max(1, -(-K // POINT_TILE_ROWS))
     dev = _check("ba_back_substitute", ("pt_ptr", pt_ptr, I32, (N + 1,)),
+                 ("pt_tile", pt_tile, I32, (T + 1,)),
                  ("obs_cam", obs_cam, I32, (K,)), ("W", W, F64, (K, 9, 3)),
                  ("dc", dc, F64, (M, 9)), ("C", C, F64, (N, 3, 3)),
                  ("gl", gl, F64, (N, 3)))
+    _check_aligned("ba_back_substitute", "W", W)
     dl = torch.empty((N, 3), dtype=F64, device=dev)
-    KERNELS["ba_back_substitute"].launch(dev, N, *map(_ptr, args), _ptr(dl))
+    KERNELS["ba_back_substitute"].launch(dev, T, *map(_ptr, args), _ptr(dl))
     return dl
+
+
+def schur_matvec_plain(pt_ptr, pt_tile, obs_cam, obs_pt, cam_ptr, cam_obs, W,
+                       WC, Hpp_d, x):
+    M = x.shape[0]
+    u = _point_sums(pt_ptr, obs_cam, W, x)
+    v = torch.einsum("kil,kl->ki", WC, u[obs_pt.long()])
+    return (torch.einsum("cij,cj->ci", Hpp_d, x)
+            - torch.zeros((M, 9), dtype=F64, device=x.device).index_add_(
+                0, obs_cam.long(), v))
+
+
+def schur_matvec(pt_ptr, pt_tile, obs_cam, obs_pt, cam_ptr, cam_obs, W, WC,
+                 Hpp_d, x):
+    """The implicit reduced-camera-system product in float64,
+    y = Hpp_d x - sum_k WC_k u_pt(k) with u_p = sum over p's rows of
+    W_k^T x[cam_k]; x and y (M, 9) camera-major.  pt_ptr, pt_tile, obs_cam,
+    obs_pt: the plan's point side (the point pass); cam_ptr, cam_obs: its
+    camera CSR (the camera pass; the plain version does not need them)."""
+    args = (pt_ptr, pt_tile, obs_cam, obs_pt, cam_ptr, cam_obs, W, WC, Hpp_d,
+            x)
+    if _on_cpu(*args):
+        return schur_matvec_plain(*args)
+    N, K, M = pt_ptr.shape[0] - 1, obs_cam.shape[0], x.shape[0]
+    T = max(1, -(-K // POINT_TILE_ROWS))
+    dev = _check("ba_schur_matvec", ("pt_ptr", pt_ptr, I32, (N + 1,)),
+                 ("pt_tile", pt_tile, I32, (T + 1,)),
+                 ("obs_cam", obs_cam, I32, (K,)),
+                 ("obs_pt", obs_pt, I32, (K,)),
+                 ("cam_ptr", cam_ptr, I32, (M + 1,)),
+                 ("cam_obs", cam_obs, I32, (K,)), ("W", W, F64, (K, 9, 3)),
+                 ("WC", WC, F64, (K, 9, 3)), ("Hpp_d", Hpp_d, F64, (M, 9, 9)),
+                 ("x", x, F64, (M, 9)))
+    _check_aligned("ba_schur_matvec", "W", W)
+    u = torch.empty((N, 3), dtype=F64, device=dev)    # the point pass's out
+    y = torch.empty((M, 9), dtype=F64, device=dev)
+    KERNELS["ba_schur_matvec"].launch(dev, T, M, *map(_ptr, args), _ptr(u),
+                                      _ptr(y))
+    return y

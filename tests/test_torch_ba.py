@@ -68,9 +68,10 @@ def _with_special_tracks(prob, seed):
                                 seed)
 
 
-def _jax_linearize(prob, obs_cam, obs_pt, uv):
+def _jax_linearize(prob, obs_cam, obs_pt, uv, **dtypes):
     """JAX factors.linearize of the BAL projection batch with unit noise, as
-    gtsam_tpu/sfm/ba.py:1319 builds it, on the given observation rows."""
+    gtsam_tpu/sfm/ba.py:1319 builds it, on the given observation rows
+    (dtypes: its out_dtype and b_dtype)."""
     batch = jfactors.custom_factors(
         "ProjectionBal", ("BalCamera", "Point3"), np.zeros((1, 2), np.int64),
         jbal._projection_residual, 2, None, jnoise.unit())
@@ -79,7 +80,7 @@ def _jax_linearize(prob, obs_cam, obs_pt, uv):
     cam_k = jax.tree.map(lambda a: a[obs_cam], cams)
     (A_cam, A_pt), b = jfactors.linearize(
         batch, (cam_k, jnp.asarray(prob.points)[obs_pt]),
-        measurements=jnp.asarray(uv))
+        measurements=jnp.asarray(uv), **dtypes)
     return np.asarray(A_cam), np.asarray(A_pt), np.asarray(b)
 
 
@@ -162,6 +163,32 @@ def test_linearize_matches_jacfwd(behind):
     _close(b, -residual(zc, zp, cam_k, pts[op], uv), 1e-12)
 
 
+def test_linearize_f32_matches_jax(behind):
+    """The mixed mode's linearization, float32 Jacobians and float64 b,
+    against JAX's factors.linearize(out_dtype=f32, b_dtype=f64)
+    (gtsam_tpu/graph/factors.py:147-176; with x64 on it computes in float64
+    and rounds once, as the port does).  Each Jacobian entry within one f32
+    ulp of its row's largest entry: two float64 values that differ at ~1e-13
+    may round to neighbouring floats.  b to 1e-10, as in float64."""
+    plan, uv, cams, pts = _torch_problem(behind)
+    A_cam, A_pt, b = ba.linearize(plan, cams, pts, uv, torch.float32)
+    assert A_cam.dtype == A_pt.dtype == torch.float32
+    assert b.dtype == torch.float64
+    order = plan.order
+    jA_cam, jA_pt, jb = _jax_linearize(
+        behind, behind.obs_cam[order], behind.obs_pt[order],
+        behind.obs_uv[order], out_dtype=jnp.float32, b_dtype=jnp.float64)
+    assert jA_cam.dtype == np.float32 and jb.dtype == np.float64
+    for got, ref in ((A_cam.numpy(), jA_cam), (A_pt.numpy(), jA_pt)):
+        ulp = np.spacing(np.abs(ref).max(axis=2, keepdims=True))
+        assert (np.abs(got.astype(np.float64) - ref) <= ulp).all()
+    _close(b, jb, 1e-10)
+    # the float32 Jacobians are the float64 ones rounded once
+    A64, P64, b64 = ba.linearize(plan, cams, pts, uv)
+    assert torch.equal(A_cam, A64.float()) and torch.equal(A_pt, P64.float())
+    assert torch.equal(b, b64)
+
+
 def test_error_matches_jax(behind):
     plan, uv, cams, pts = _torch_problem(behind)
     _, _, jb = _jax_linearize(behind, behind.obs_cam, behind.obs_pt,
@@ -192,7 +219,7 @@ def _schur_case(prob, lam, dd):
     Sj = np.asarray(Sj).reshape(9, M, 9, M).transpose(1, 0, 3, 2).reshape(
         9 * M, 9 * M)
     S = torch.empty((9 * M, 9 * M), dtype=torch.float64)
-    g, s, _, _, _ = ba.assemble(plan, tA, tP, tb, lam, dd, S)
+    g, s = ba.assemble(plan, tA, tP, tb, lam, dd, S)[:2]
     dcj, dlj = jba.schur_solve(st, jA, jP, jb, lam, dd)
     dc, dl = ba.schur_solve(plan, tA, tP, tb, lam, dd)
     return dict(st=st, S=S, s=s, g=g, Sj=Sj, gj=np.asarray(gj), dc=dc, dl=dl,
@@ -339,8 +366,9 @@ def test_assembly_is_reproducible():
     outs = []
     for _ in range(2):
         S = torch.full((n, n), float("nan"), dtype=torch.float64)
-        g, s, W, C, gl = ba.assemble(plan, A_cam, A_pt, b, 1e-4, False, S)
-        outs.append((S, g, s, W, C, gl))
+        red = ba.assemble(plan, A_cam, A_pt, b, 1e-4, False, S)
+        assert red.Hpp_d is None
+        outs.append((S,) + tuple(red[:6]))
     for x, y in zip(*outs):
         assert torch.equal(x, y)
     assert not torch.isnan(outs[0][0]).any()
@@ -382,13 +410,14 @@ def test_plain_kernels_match_dense_schur(dd):
     g_dense = gr[:9 * M] - Hcl @ Hll_inv @ gr[9 * M:]
 
     S = torch.empty((9 * M, 9 * M), dtype=torch.float64)
-    g, s, W, C, gl = ba.assemble(plan, A_cam, A_pt, b, lam, dd, S)
+    g, s, W, C, gl = ba.assemble(plan, A_cam, A_pt, b, lam, dd, S)[:5]
     # S comes equilibrated: undo the scaling s s^T
     _close(S / torch.outer(s, s), S_dense, 1e-9)
     _close(s, S_dense.diagonal().clamp(min=1e-12).rsqrt(), 1e-12)
     _close(g.reshape(-1), g_dense, 1e-10)
     dc = torch.from_numpy(np.random.default_rng(0).normal(size=(M, 9)))
-    dl = ba_kernels.back_substitute(plan.pt_ptr, plan.obs_cam, W, dc, C, gl)
+    dl = ba_kernels.back_substitute(plan.pt_ptr, plan.pt_tile, plan.obs_cam,
+                                    W, dc, C, gl)
     dl_dense = Hll_inv @ (gr[9 * M:] - Hcl.T @ dc.reshape(-1))
     _close(dl.reshape(-1), dl_dense, 1e-10)
 
@@ -430,6 +459,222 @@ def test_cholesky_failure_is_a_failed_try():
     _, jinfo = jba.ba_optimize(prob, gt.LMParams(max_iterations=3,
                                                  diagonal_damping=True))
     np.testing.assert_allclose(info["error"], jinfo["error"], rtol=1e-12)
+
+
+# -- the mixed-precision mode ---------------------------------------------------
+
+
+def _dense_system(plan, A_cam, A_pt, b, lam, dd):
+    """The damped Gauss-Newton system of the Jacobians in float64, dense:
+    (H, g, Hcc_d, Hcl, Hll_d) with the damping of gtsam_tpu/sfm/ba.py
+    (lam I, or cameras x (1 + lam) and points + trace / 3 x lam)."""
+    A_cam, A_pt = A_cam.double(), A_pt.double()
+    M, N, K = plan.num_cameras, plan.num_points, A_cam.shape[0]
+    J = torch.zeros((2 * K, 9 * M + 3 * N), dtype=torch.float64)
+    for k in range(K):
+        c, p = int(plan.obs_cam[k]), int(plan.obs_pt[k])
+        J[2 * k:2 * k + 2, 9 * c:9 * c + 9] = A_cam[k]
+        J[2 * k:2 * k + 2, 9 * M + 3 * p:9 * M + 3 * p + 3] = A_pt[k]
+    H, g = J.T @ J, J.T @ b.reshape(-1)
+    Hcc, Hcl, Hll = H[:9 * M, :9 * M], H[:9 * M, 9 * M:], H[9 * M:, 9 * M:]
+    if dd:
+        Hcc_d = Hcc + torch.diag(lam * Hcc.diagonal())
+        blocks = Hll.reshape(N, 3, N, 3).diagonal(dim1=0, dim2=2)
+        lam_eff = blocks.diagonal(dim1=0, dim2=1).sum(1) / 3.0 * lam
+    else:
+        Hcc_d = Hcc + lam * torch.eye(9 * M, dtype=torch.float64)
+        lam_eff = torch.full((N,), lam, dtype=torch.float64)
+    Hll_d = Hll + torch.diag(lam_eff.repeat_interleave(3))
+    H_d = torch.cat([torch.cat([Hcc_d, Hcl], 1),
+                     torch.cat([Hcl.T, Hll_d], 1)], 0)
+    return H_d, g, Hcc_d, Hcl, Hll_d
+
+
+@pytest.mark.parametrize("dd", [False, True], ids=["lam_I", "diagonal"])
+def test_mixed_schur_solve_matches_df_and_oracle(dd):
+    """The mixed mode's Schur step (float32 Jacobians, float64 b) against
+    the JAX package's two-float _schur_solve_df and against the dense
+    float64 solve of the damped system built from the same float32 entries,
+    on the fixture of tests/test_sfm.py:192-248.  The port's error to that
+    oracle is no larger than the JAX package's (the port sums in float64
+    where JAX sums in f32 pairs; both factorize in float32 and refine), and
+    dc and dl are within that test's 2e-4 and 3e-3 of their largest
+    entries.  dc comes back float64 and dl float32, as in the JAX
+    package."""
+    prob = jsynthetic.make_bal_problem(num_cameras=8, num_points=80,
+                                       obs_per_point=3, seed=3)
+    M, N = prob.num_cameras, prob.num_points
+    st, order = jba.SchurStructure.build(prob.obs_cam, prob.obs_pt, M, N)
+    jA, jP, jb = _jax_linearize(prob, prob.obs_cam[order], prob.obs_pt[order],
+                                prob.obs_uv[order], out_dtype=jnp.float32,
+                                b_dtype=jnp.float64)
+    lam = 1e-3
+    dcj, dlj = jba._schur_solve_df(st, jnp.asarray(jA), jnp.asarray(jP),
+                                   jnp.asarray(jb), lam, dd)
+    plan, _, _, _ = _torch_problem(prob)
+    inv = np.empty_like(order)
+    inv[order] = np.arange(len(order))
+    rows = inv[plan.order]
+    tA, tP, tb = (torch.from_numpy(x[rows]) for x in (jA, jP, jb))
+    dc, dl = ba.schur_solve(plan, tA, tP, tb, lam, dd, mixed_precision=True)
+    assert dc.dtype == torch.float64 and dl.dtype == torch.float32
+
+    H, g, *_ = _dense_system(plan, tA, tP, tb, lam, dd)
+    sol = torch.linalg.solve(H, g).numpy()
+    dc_ref, dl_ref = sol[:9 * M].reshape(M, 9), sol[9 * M:].reshape(N, 3)
+    for got, jgot, ref, tol in ((dc.numpy(), np.asarray(dcj), dc_ref, 2e-4),
+                                (dl.numpy(), np.asarray(dlj), dl_ref, 3e-3)):
+        err, jerr = np.abs(got - ref).max(), np.abs(jgot - ref).max()
+        assert err <= jerr, (err, jerr)
+        assert err <= tol * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("name", ["synthetic", "special"])
+def test_schur_matvec_plain_matches_dense(name):
+    """schur_matvec_plain (Hpp_d x - sum WC u, from the float32 Jacobians'
+    exact float64 Gram products) against the dense unequilibrated
+    S_red = Hcc_d - Hcl Hll_d^-1 Hlc of the same entries times x, to 1e-12
+    of max |Hcc_d x| (the scale of the terms that cancel in S_red x);
+    Hpp_d against the damped camera blocks of J^T J to 1e-14."""
+    prob = _cell_problems()[name]
+    plan, uv, cams, pts = _torch_problem(prob)
+    A_cam, A_pt, b = ba.linearize(plan, cams, pts, uv, torch.float32)
+    M, lam = prob.num_cameras, 1.0
+    S = torch.empty((9 * M, 9 * M), dtype=torch.float32)
+    red = ba.assemble(plan, A_cam, A_pt, b, lam, False, S)
+    _, _, Hcc_d, Hcl, Hll_d = _dense_system(plan, A_cam, A_pt, b, lam, False)
+    S_red = Hcc_d - Hcl @ torch.linalg.inv(Hll_d) @ Hcl.T
+    blocks = Hcc_d.reshape(M, 9, M, 9).diagonal(dim1=0, dim2=2)
+    _close(red.Hpp_d, blocks.permute(2, 0, 1), 1e-14)
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(M, 9)))
+    y = ba_kernels.schur_matvec_plain(
+        plan.pt_ptr, plan.pt_tile, plan.obs_cam, plan.obs_pt, plan.cam_ptr,
+        plan.cam_obs, red.W, red.WC, red.Hpp_d, x)
+    scale = float((Hcc_d @ x.reshape(-1)).abs().max())
+    assert float((y.reshape(-1) - S_red @ x.reshape(-1)).abs().max()) \
+        <= 1e-12 * scale
+
+
+@pytest.mark.parametrize("name", ["synthetic", "special"])
+def test_mixed_assembly_rounds_once(name):
+    """The float32 S of the mixed mode is the float64 assembly of the same
+    float32 Jacobian entries, each entry rounded once; g~, s, W, C, gl and
+    WC are the float64 assembly's to the last bit."""
+    prob = _cell_problems()[name]
+    plan, uv, cams, pts = _torch_problem(prob)
+    A_cam, A_pt, b = ba.linearize(plan, cams, pts, uv, torch.float32)
+    n = 9 * prob.num_cameras
+    S32 = torch.full((n, n), float("nan"), dtype=torch.float32)
+    S64 = torch.full((n, n), float("nan"), dtype=torch.float64)
+    red = ba.assemble(plan, A_cam, A_pt, b, 1e-4, False, S32)
+    red64 = ba.assemble(plan, A_cam.double(), A_pt.double(), b, 1e-4, False,
+                        S64)
+    assert torch.equal(S32, S64.float()) and not torch.isnan(S32).any()
+    for x, y in zip(red[:6], red64[:6]):
+        assert torch.equal(x, y)
+    assert red.Hpp_d is not None and red64.Hpp_d is None
+
+
+@pytest.mark.parametrize("mode", ["implicit", "dense"])
+def test_dense_spd_solve_mixed(mode):
+    """The refined solves of _dense_spd_solve against numpy's float64
+    solve: an equilibrated float32 S refined against an exact matvec
+    (the working phase), and a float64 S factorized through its float32
+    copy and refined against itself (the fallback phase).  The system's
+    condition number after equilibration is ~1e4, so each refinement pass
+    gains about 1e-4 x eps32 / eps32, and 3 (or 2) passes reach 1e-10."""
+    rng = np.random.default_rng(2)
+    n = 60
+    Q = np.linalg.qr(rng.normal(size=(n, n)))[0]
+    B = Q @ np.diag(np.logspace(0, 4, n)) @ Q.T
+    d = np.exp(rng.uniform(-6, 6, size=n))      # scales spanning ~1e5
+    Sn = d[:, None] * B * d[None, :]
+    rhs = rng.normal(size=n)
+    S = torch.from_numpy(Sn.copy())
+    s = ba.equilibrate(S)
+    if mode == "implicit":
+        Sd = torch.from_numpy(Sn)
+        x = ba._dense_spd_solve(S.float(), torch.from_numpy(rhs), s, True,
+                                lambda v: Sd @ v)
+    else:
+        x = ba._dense_spd_solve(S, torch.from_numpy(rhs), s, True,
+                                S32=torch.empty((n, n), dtype=torch.float32))
+        # the float64 S is left intact for the refinement's products
+        _close(S / torch.outer(s, s), Sn, 1e-15)
+    assert x.dtype == torch.float64
+    _close(x, np.linalg.solve(Sn, rhs), 1e-10)
+    indefinite = torch.from_numpy(np.diag([1.0, -1.0, 2.0]))
+    s = ba.equilibrate(indefinite)
+    one = torch.ones(3, dtype=torch.float64)
+    assert (ba._dense_spd_solve(indefinite.float(), one, s, True, lambda v: v)
+            if mode == "implicit" else
+            ba._dense_spd_solve(indefinite, one, s, True,
+                                S32=torch.empty((3, 3)))) is None
+
+
+def test_mixed_ba_optimize_matches_jax():
+    """Mixed-precision BA end to end (as tests/test_sfm.py:250-261) against
+    the JAX package's ba_optimize(dtype=f32, mixed_precision=True) and
+    against the port's float64 optimum: within 1e-4 relative of both, with
+    every iteration in the float32 working phase in both packages."""
+    prob = synthetic.make_bal_problem(12, 150, 3, seed=4)
+    lm = dict(max_iterations=15)
+    _, info64 = ba.ba_optimize(prob, LMParams(**lm), device="cpu")
+    _, info = ba.ba_optimize(prob, LMParams(**lm), device="cpu",
+                             dtype=torch.float32, mixed_precision=True)
+    _, jinfo = jba.ba_optimize(prob, gt.LMParams(**lm), dtype=jnp.float32,
+                               mixed_precision=True)
+    assert info["error"] <= info64["error"] * (1 + 1e-4)
+    np.testing.assert_allclose(info["error"], float(jinfo["error"]),
+                               rtol=1e-4)
+    assert info["phases"] == ["float32"] * len(info["iter_times"])
+    assert jinfo["phases"] == ["float32"] * len(jinfo["iter_times"])
+
+
+def test_mixed_stall_switches_to_float64():
+    """A gain below switch_tol = max(10 relative_error_tol, 1e-7) of the
+    error ends the float32 phase: the rest of the run is float64 (an f32
+    factorization refined against the float64 S), with lambda capped at
+    lambda_initial, as in the JAX package.  relative_error_tol 0.02 makes
+    the switch fire after the first iteration that gains under 20%."""
+    prob = synthetic.make_bal_problem(12, 150, 3, seed=4)
+    lm = dict(max_iterations=8, relative_error_tol=0.02)
+    _, info = ba.ba_optimize(prob, LMParams(**lm), device="cpu",
+                             dtype=torch.float32, mixed_precision=True)
+    _, jinfo = jba.ba_optimize(prob, gt.LMParams(**lm), dtype=jnp.float32,
+                               mixed_precision=True)
+    phases = info["phases"]
+    assert "float32" in phases and "float64" in phases
+    first = phases.index("float64")
+    assert phases == ["float32"] * first + ["float64"] * (len(phases) - first)
+    assert phases == jinfo["phases"]
+    np.testing.assert_allclose(info["history"], np.asarray(jinfo["history"]),
+                               rtol=1e-6)
+
+
+def test_mixed_cholesky_failure_retries_in_float64():
+    """The singular system of test_cholesky_failure_is_a_failed_try in the
+    mixed mode: the float32 try fails, so the iteration is tried again in
+    the float64 phase, which fails too; the JAX package does the same."""
+    prob = synthetic.make_bal_problem(12, 150, 4, seed=0)
+    prob = dataclasses.replace(
+        prob, cam_R=np.concatenate([prob.cam_R, prob.cam_R[:1]]),
+        cam_t=np.concatenate([prob.cam_t, prob.cam_t[:1]]),
+        cam_calib=np.concatenate([prob.cam_calib, prob.cam_calib[:1]]))
+    plan, uv, cams, pts = _torch_problem(prob)
+    A_cam, A_pt, b = ba.linearize(plan, cams, pts, uv, torch.float32)
+    dc, dl = ba.schur_solve(plan, A_cam, A_pt, b, 1e-4, True,
+                            mixed_precision=True)
+    assert torch.isnan(dc).all() and torch.isnan(dl).all()
+    lm = dict(max_iterations=3, diagonal_damping=True)
+    _, info = ba.ba_optimize(prob, LMParams(**lm), device="cpu",
+                             dtype=torch.float32, mixed_precision=True)
+    _, jinfo = jba.ba_optimize(prob, gt.LMParams(**lm), dtype=jnp.float32,
+                               mixed_precision=True)
+    assert info["phases"] == ["float32", "float64"] == jinfo["phases"]
+    assert not info["converged"] and info["error"] == info["history"][0]
+    np.testing.assert_allclose(info["error"], float(jinfo["error"]),
+                               rtol=1e-12)
 
 
 # -- the LM loop -------------------------------------------------------------

@@ -64,54 +64,103 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert config.default_dtype() == torch.float64
 
 
+def test_working_dtype():
+    """BA's Jacobians and S may be float64 or float32; nothing else, and
+    float32 only in the mixed-precision mode."""
+    assert config.working_dtype() == torch.float64
+    assert config.working_dtype(torch.float32) == torch.float32
+    with pytest.raises(ValueError, match="working dtype"):
+        config.working_dtype(torch.float16)
+    prob = synthetic.make_bal_problem(6, 40, 3, seed=0)
+    with pytest.raises(ValueError, match="mixed_precision"):
+        ba.ba_optimize(prob, device="cpu", dtype=torch.float32)
+    plan = ba.BAStructure.build(prob.obs_cam, prob.obs_pt, prob.num_cameras,
+                                prob.num_points).to("cpu")
+    K = prob.num_observations
+    with pytest.raises(ValueError, match="mixed_precision"):
+        ba.schur_solve(plan, torch.zeros((K, 2, 9), dtype=torch.float32),
+                       torch.zeros((K, 2, 3), dtype=torch.float32),
+                       torch.zeros((K, 2), dtype=torch.float64), 1e-4)
+
+
 def test_cpu_path_counts_no_launch():
     prob = synthetic.make_bal_problem(6, 40, 3, seed=0)
     ba_kernels.reset_launch_counts()
     _, info = ba.ba_optimize(prob, device="cpu")
     assert np.isfinite(info["error"])
-    assert set(ba_kernels.launch_counts()) == {
-        "bal_linearize", "bal_error", "ba_point_eliminate",
-        "ba_camera_assemble", "ba_pair_assemble", "ba_back_substitute"}
+    _, info = ba.ba_optimize(prob, device="cpu", dtype=torch.float32,
+                             mixed_precision=True)
+    assert np.isfinite(info["error"])
+    base = {"bal_linearize", "ba_point_eliminate", "ba_camera_assemble",
+            "ba_pair_assemble"}
+    assert set(ba_kernels.launch_counts()) == (
+        base | {k + "_f32" for k in base}
+        | {"bal_error", "ba_back_substitute", "ba_schur_matvec"})
     assert all(n == 0 for n in ba_kernels.launch_counts().values())
 
 
 def _meta_args(name, K=10, M=3, N=4, P=20, U=5):
-    """Well-formed arguments of each wrapper, on the meta device."""
+    """Well-formed arguments of each wrapper case (a wrapper, or with
+    "_f32" the same wrapper on its float32 variant's dtypes), on the meta
+    device."""
     def f(*shape):
         return torch.empty(shape, dtype=torch.float64, device="meta")
+
+    def h(*shape):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
 
     def i(*shape):
         return torch.empty(shape, dtype=torch.int32, device="meta")
 
+    proj = (f(M, 3, 3), f(M, 3), f(M, 3), f(N, 3), i(K), i(K), f(K, 2))
     return {
-        "linearize": (f(M, 3, 3), f(M, 3), f(M, 3), f(N, 3), i(K), i(K),
-                      f(K, 2)),
-        "error": (f(M, 3, 3), f(M, 3), f(M, 3), f(N, 3), i(K), i(K),
-                  f(K, 2)),
+        "linearize": proj,
+        "linearize_f32": proj + (torch.float32,),
+        "error": proj,
         "point_eliminate": (i(N + 1), i(2), f(K, 2, 9), f(K, 2, 3), f(K, 2),
                             1e-4, False),
+        "point_eliminate_f32": (i(N + 1), i(2), h(K, 2, 9), h(K, 2, 3),
+                                f(K, 2), 1e-4, False),
         "camera_assemble": (i(M + 1), i(K), f(K, 2, 9), f(K, 2), f(K, 9),
                             i(U + 1), i(M), i(P), i(P), f(K, 9, 3),
                             f(K, 9, 3), 1e-4, False, f(9 * M, 9 * M)),
+        "camera_assemble_f32": (i(M + 1), i(K), h(K, 2, 9), f(K, 2), f(K, 9),
+                                i(U + 1), i(M), i(P), i(P), f(K, 9, 3),
+                                f(K, 9, 3), 1e-4, False, h(9 * M, 9 * M)),
         "pair_assemble": (i(U + 1), i(U), i(U), i(P), i(P), f(K, 9, 3),
                           f(K, 9, 3), f(9 * M), f(9 * M, 9 * M)),
-        "back_substitute": (i(N + 1), i(K), f(K, 9, 3), f(M, 9), f(N, 3, 3),
-                            f(N, 3)),
+        "pair_assemble_f32": (i(U + 1), i(U), i(U), i(P), i(P), f(K, 9, 3),
+                              f(K, 9, 3), f(9 * M), h(9 * M, 9 * M)),
+        "back_substitute": (i(N + 1), i(2), i(K), f(K, 9, 3), f(M, 9),
+                            f(N, 3, 3), f(N, 3)),
+        "schur_matvec": (i(N + 1), i(2), i(K), i(K), i(M + 1), i(K),
+                         f(K, 9, 3), f(K, 9, 3), f(M, 9, 9), f(M, 9)),
     }[name]
 
 
 WRAPPERS = ["linearize", "error", "point_eliminate", "camera_assemble",
-            "pair_assemble", "back_substitute"]
+            "pair_assemble", "back_substitute", "linearize_f32",
+            "point_eliminate_f32", "camera_assemble_f32", "pair_assemble_f32",
+            "schur_matvec"]
+
+
+def _wrapper(name):
+    """The wrapper function of a case of WRAPPERS."""
+    return getattr(ba_kernels, name.removesuffix("_f32"))
 
 
 @pytest.mark.parametrize("name", WRAPPERS)
 def test_wrapper_rejects_float32(name):
+    """A float tensor of the other float dtype than the case's kernel takes
+    (float32 where it takes float64, and the reverse for the float32
+    variants: e.g. float32 A_cam with float64 A_pt) is refused."""
     args = list(_meta_args(name))
     j = next(k for k, a in enumerate(args)
-             if isinstance(a, torch.Tensor) and a.dtype == torch.float64)
-    args[j] = args[j].float()
-    with pytest.raises(TypeError, match="float64"):
-        getattr(ba_kernels, name)(*args)
+             if isinstance(a, torch.Tensor) and a.is_floating_point())
+    other = {torch.float64: torch.float32, torch.float32: torch.float64}
+    args[j] = args[j].to(other[args[j].dtype])
+    with pytest.raises(TypeError, match="must be torch.float"):
+        _wrapper(name)(*args)
 
 
 @pytest.mark.parametrize("name", WRAPPERS)
@@ -124,7 +173,7 @@ def test_wrapper_rejects_non_contiguous(name):
                           device="meta").permute(*reversed(range(a.dim())))
     assert args[j].shape == a.shape and not args[j].is_contiguous()
     with pytest.raises(ValueError, match="contiguous"):
-        getattr(ba_kernels, name)(*args)
+        _wrapper(name)(*args)
 
 
 @pytest.mark.parametrize("name", WRAPPERS)
@@ -133,12 +182,12 @@ def test_wrapper_never_falls_back_off_the_cpu(name):
     whose device check raises here (meta tensors), instead of running the
     plain version."""
     with pytest.raises(ValueError, match="CUDA"):
-        getattr(ba_kernels, name)(*_meta_args(name))
+        _wrapper(name)(*_meta_args(name))
 
 
 def test_wrapper_rejects_wrong_shape():
     args = list(_meta_args("back_substitute"))
-    args[3] = torch.empty((3, 8), dtype=torch.float64, device="meta")
+    args[4] = torch.empty((3, 8), dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="shape"):
         ba_kernels.back_substitute(*args)
 
@@ -155,7 +204,7 @@ def test_wrapper_refuses_a_cpu_and_device_mix(name):
             for k, a in enumerate(args)]
     ba_kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="one CUDA device; .* is on cpu"):
-        getattr(ba_kernels, name)(*args)
+        _wrapper(name)(*args)
     assert all(n == 0 for n in ba_kernels.launch_counts().values())
 
 
@@ -169,24 +218,35 @@ def _cpu_args(name):
                                     prob.points, device="cpu")
     uv = torch.as_tensor(prob.obs_uv[plan.order])
     proj = ba._projection_args(plan, cams, pts, uv)
-    A_cam, A_pt, b = ba_kernels.linearize_plain(*proj)
+    dt = torch.float32 if name.endswith("_f32") or name == "schur_matvec" \
+        else torch.float64
+    A_cam, A_pt, b = ba_kernels.linearize_plain(*proj, dt)
     W, WC, corr, C, gl = ba_kernels.point_eliminate_plain(
         plan.pt_ptr, plan.pt_tile, A_cam, A_pt, b, 1e-4, False)
     M = prob.num_cameras
-    S = torch.zeros((9 * M, 9 * M), dtype=torch.float64)
+    S = torch.zeros((9 * M, 9 * M), dtype=dt)
     cam = (plan.cam_ptr, plan.cam_obs, A_cam, b, corr, plan.cell_ptr,
            plan.diag_cell, plan.cell_a, plan.cell_b, WC, W, 1e-4, False, S)
-    _, s = ba_kernels.camera_assemble_plain(*cam[:-1], S.clone())
+    _, s, *Hpp_d = ba_kernels.camera_assemble_plain(*cam[:-1], S.clone())
     dc = torch.from_numpy(np.random.default_rng(0).normal(size=(M, 9)))
+    pair = (plan.cell_ptr, plan.cell_ca, plan.cell_cb, plan.cell_a,
+            plan.cell_b, WC, W, s, S)
     return {
         "linearize": proj,
+        "linearize_f32": proj + (dt,),
         "error": proj,
         "point_eliminate": (plan.pt_ptr, plan.pt_tile, A_cam, A_pt, b, 1e-4,
                             False),
+        "point_eliminate_f32": (plan.pt_ptr, plan.pt_tile, A_cam, A_pt, b,
+                                1e-4, False),
         "camera_assemble": cam,
-        "pair_assemble": (plan.cell_ptr, plan.cell_ca, plan.cell_cb,
-                          plan.cell_a, plan.cell_b, WC, W, s, S),
-        "back_substitute": (plan.pt_ptr, plan.obs_cam, W, dc, C, gl),
+        "camera_assemble_f32": cam,
+        "pair_assemble": pair,
+        "pair_assemble_f32": pair,
+        "back_substitute": (plan.pt_ptr, plan.pt_tile, plan.obs_cam, W, dc,
+                            C, gl),
+        "schur_matvec": (plan.pt_ptr, plan.pt_tile, plan.obs_cam, plan.obs_pt,
+                         plan.cam_ptr, plan.cam_obs, W, WC, *Hpp_d, dc),
     }[name]
 
 
@@ -196,8 +256,8 @@ def test_wrapper_on_cpu_is_its_plain_version(name):
     exactly what its plain version does, and counts no launch."""
     ba_kernels.reset_launch_counts()
     args, ref_args = _cpu_args(name), _cpu_args(name)
-    got = getattr(ba_kernels, name)(*args)
-    ref = getattr(ba_kernels, name + "_plain")(*ref_args)
+    got = _wrapper(name)(*args)
+    ref = getattr(ba_kernels, _wrapper(name).__name__ + "_plain")(*ref_args)
 
     def tensors(out):
         return [] if out is None else [out] if isinstance(
@@ -209,7 +269,7 @@ def test_wrapper_on_cpu_is_its_plain_version(name):
               if isinstance(a, torch.Tensor)]
     for a, r in pairs:
         assert a.device.type == "cpu" and torch.equal(a, r)
-    assert name != "pair_assemble" or args[-1].abs().max() > 0
+    assert not name.startswith("pair_assemble") or args[-1].abs().max() > 0
     assert all(n == 0 for n in ba_kernels.launch_counts().values())
 
 
@@ -233,6 +293,20 @@ def test_kernel1_sizes_match_the_source():
     assert const("kErrorBlock") == "kErrorThreads * kErrorRows"
     assert ba_kernels.ERROR_BLOCK == (int(const("kErrorThreads"))
                                       * int(const("kErrorRows")))
+
+
+def test_point_pass_sizes_match_the_source():
+    """Kernels 2, 4 and 5 stage the tiles of the plan's pt_tile in buffers
+    of POINT_TILE_STAGED rows and points, which hold POINT_TILE_ROWS plus
+    the overhang of a track of up to 33 rows."""
+    for src in (_cu_source("ba_point_eliminate"),
+                _build.CSRC.joinpath("ba_point_pass.cuh").read_text()):
+        for name in ("kTileRows", "kTilePts"):
+            m = re.search(rf"constexpr int {name} = (\d+);", src)
+            assert m and int(m.group(1)) == ba_kernels.POINT_TILE_STAGED
+    assert ba_kernels.POINT_TILE_STAGED >= ba_kernels.POINT_TILE_ROWS + 32
+    assert '#include "ba_point_pass.cuh"' in _cu_source("ba_back_substitute")
+    assert '#include "ba_point_pass.cuh"' in _cu_source("ba_schur_matvec")
 
 
 def test_argtypes_match_the_c_entry_points():
