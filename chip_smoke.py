@@ -16,14 +16,23 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      (an odd K below one warp tile; the problem above leaves a partial last
      tile and error block), twice on the same inputs (same bits) and with
      error calls of different K back to back; and small ba_optimize runs, float64 and
-     mixed, on the card against the same runs on the CPU;
+     mixed, on the card against the same runs on the CPU; then the
+     pose-graph kernels 6-9 (gtsam_torch.linear.supernodal_kernels.KERNELS)
+     against their plain versions on a 6 x 8 sphere and on a graph that
+     mixes SE3 poses with Point3 landmarks (both linearization routes), at
+     lam 1e-4 and 1, diagonal damping off and on, and a small pose-graph
+     LM on the card against the same run on the CPU;
   4. the main paths: gtsam_torch.sfm.ba.ba_optimize at the Ladybug-1723
      shape (make_bal_problem(1723, 150000, 4, seed=0)) with bench.py's LM
      settings, (a) float64 and (b) mixed precision (dtype=float32,
      mixed_precision=True, as bench.py:68-73 runs the JAX package), each
      held to the C++ GTSAM optimum 329,909 x 1.0001 and run twice for the
-     same bits; every kernel's launch count is read from the first run of
-     its path alone;
+     same bits; then bench.py's run_sphere path on the port (load_3d, prior,
+     chordal initialization, optimizers.make_fused_lm on the supernodal
+     solver, float64) at the sphere2500 shape, held to TARGET_SPHERE and
+     run twice for the same bits; every kernel's launch count is read from
+     the first run of its path alone, and the sphere path must launch no
+     generic linearization;
   5. each kernel against its plain version again at the Ladybug shape, on
      the converged state (same tolerances), then its time (CUDA events)
      beside the plain version's time and its bound from this run's shapes,
@@ -31,11 +40,13 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      calls of kernel 1 and two matvecs on the same inputs must give the
      same bits; the time of the plan build (host and device), of one
      factorization in float64 and in float32, and of the triangular-solve
-     pairs;
+     pairs; the same for kernels 6-9 on the sphere's converged state, with
+     the library call of each one that has one, the time of each level's
+     cholesky_ex, solve_triangular and bmm, and of a try by stage;
   6. one profiled run of each main path: device busy time by kernel, and
      the rows of the full-matrix passes (mul, fill, copy, tril); then a
      profile of error calls alone, each of which must be one launch of its
-     kernel and no other device work.
+     kernel and no other device work; then one profiled sphere run.
 The last three lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}.  Imports neither JAX nor gtsam_tpu.
 """
@@ -53,7 +64,8 @@ FP64_TC_FLOPS = 67e12          # H100 SXM FP64 tensor cores (cuSOLVER's DGEMMs)
 FP32_FLOPS = 67e12             # H100 SXM FP32 outside the tensor cores
 TARGET = 329909.0 * 1.0001     # baselines/reference_cpu.json bal_ladybug x 1.0001
 # Kernel source, wrapper, plain version and the JAX routine each replaces
-# are read from gtsam_torch.sfm.ba_kernels.KERNELS.
+# are read from gtsam_torch.sfm.ba_kernels.KERNELS (BA) and
+# gtsam_torch.linear.supernodal_kernels.KERNELS (the pose graph).
 # kernel-vs-plain tolerances, relative to the plain output's largest entry:
 # kernel 1 shares the plain version's formulas (FMA contraction only);
 # kernels 2, 3 and 4 sum in another (fixed) order than their plain versions:
@@ -374,6 +386,691 @@ def ptxas_lines(build_log, kernel):
     return out
 
 
+# -- the pose-graph path (kernels 6-9) ---------------------------------------
+
+# The sphere-shaped stand-in for sphere2500 (scripts/port_sphere_data.py,
+# seed 0: 2,500 poses, 4,949 edges, plus bench.py's prior on pose 0).
+# TARGET_SPHERE is the JAX package's float64 optimum of that graph,
+# 7283.31667050108, times 1.0001: `python3 scripts/port_sphere_reference.py`
+# runs gtsam_tpu on the CPU with bench.py's prior, chordal initialization and
+# LM settings (gain policy, SparseSolver(refine_iters=1, force_width=32))
+# and error_tol 0, and converges in 3 iterations and 3 tries.
+TARGET_SPHERE = 7283.31667050108 * 1.0001
+SPHERE_LM = dict(max_iterations=30, error_tol=TARGET_SPHERE,
+                 relative_error_tol=1e-7, absolute_error_tol=1e-9,
+                 lambda_policy="gain")
+SPHERE_SOLVER = dict(refine_iters=1, supernodal_kwargs=dict(force_width=32))
+# kernel-vs-plain tolerances, relative to the plain output's largest entry
+# (per output where a kernel writes two): kernel 6 shares its plain
+# version's formulas (FMA contraction and the order of 6-term dot products
+# only): 1e-12 for its Jacobian products A^T A and its half-chi2.  Its
+# gradient rows A^T b carry the residual r = Log(Z^-1 Ti^-1 Tj) itself, a
+# difference of positions up to 200 m apart (the sphere's diameter) that is
+# ~2e-2 m at the optimum: float64 rounds each position to ~2e-14 m, ~1e-12
+# of that residual, so two float64 evaluations of r in different orders
+# (FMA or not) differ by ~1e-12 of it before any kernel error: 1e-10 for
+# A^T b.  Assembly, the Schur scatter
+# and the matvec sum the same terms in another fixed order: 1e-12; the
+# front gather and the pivot check copy and compare, with the gather's one
+# addition in the plain version's order: exact; the triangular solves of
+# kernel 8 run in another order than cuBLAS/LAPACK's, which their fronts'
+# condition numbers amplify: 1e-10 at lam = 1, 1e-8 at lam = 1e-4.
+PG_TOL = {"pg_linearize": (1e-12, 1e-10), "pg_error": 1e-12,
+          "pg_assemble": 1e-12,
+          "sn_front_gather": 0.0, "sn_pivot_check": 0.0,
+          "sn_schur_scatter": 1e-12, "sn_forward_level": 1e-10,
+          "sn_segment_add": 1e-12, "sn_backward_level": 1e-10,
+          "sn_matvec": 1e-12}
+PG_SOLVE_TOL_SMALL_LAM = 1e-8
+
+
+def _port_module(name):
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(here, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sphere_graph(laps, per_lap, **kw):
+    """(graph, chordal values, true positions, seconds of the chordal
+    initialization) of the sphere-shaped graph, written under build/."""
+    import numpy as np
+    from gtsam_torch.base import noise
+    from gtsam_torch.geometry.se3 import SE3
+    from gtsam_torch.graph import factors
+    from gtsam_torch.io import datasets
+    from gtsam_torch.slam.initialize import initialize_pose3_chordal
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(here, "build", "port_sphere")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"sphere_{laps}x{per_lap}.g2o")
+    _, true_t = _port_module("port_sphere_data").write_sphere_g2o(
+        path, laps, per_lap, **kw)
+    graph, _ = datasets.load_3d(path)
+    graph.add(factors.prior_factors(
+        "SE3", [0], SE3(np.eye(3)[None], np.zeros((1, 3))),
+        noise.sigmas([[1e-3] * 3 + [1e-2] * 3])))
+    t0 = time.time()
+    vals = initialize_pose3_chordal(graph)
+    return graph, vals, true_t, time.time() - t0
+
+
+def mixed_graph():
+    """SE3 poses and Point3 landmarks joined by a pose-frame landmark
+    factor (the generic linearization) besides SE3 between factors and a
+    prior (kernel 6): the 6-wide store pads the landmarks' 3 dimensions."""
+    import numpy as np
+    import torch
+    from gtsam_torch.base import noise
+    from gtsam_torch.geometry import se3
+    from gtsam_torch.geometry.se3 import SE3
+    from gtsam_torch.graph import factors
+    from gtsam_torch.graph.graph import FactorGraph
+    from gtsam_torch.graph.values import Values
+    rng = np.random.default_rng(3)
+    n_pose, n_pt = 24, 30
+    T = se3.expmap(torch.as_tensor(rng.normal(size=(n_pose, 6))
+                                   * np.array([0.3] * 3 + [2.0] * 3)))
+    i = np.arange(n_pose - 1)
+    Z = se3.between(SE3(T.R[i], T.t[i]), SE3(T.R[i + 1], T.t[i + 1]))
+    pts = torch.as_tensor(rng.normal(size=(n_pt, 3)) * 3.0)
+    op = np.concatenate([np.arange(n_pt) % n_pose, (np.arange(n_pt) + 5)
+                         % n_pose])
+    ol = np.concatenate([np.arange(n_pt), np.arange(n_pt)])
+    z = se3.transform_to(SE3(T.R[op], T.t[op]), pts[ol])
+    g = FactorGraph()
+    g.add(factors.between_factors("SE3", i, i + 1, Z, noise.information(
+        np.diag([400.0] * 3 + [100.0] * 3))))
+    g.add(factors.prior_factors("SE3", [0], SE3(T.R[:1], T.t[:1]),
+                                noise.sigmas([[1e-3] * 3 + [1e-2] * 3])))
+    g.add(factors.FactorBatch(
+        "Obs", ("SE3", "Point3"), np.stack([op, ol + 100], 1), 3,
+        lambda xs, m: se3.transform_to(xs[0], xs[1]) - m,
+        z + torch.as_tensor(rng.normal(size=z.shape) * 0.1),
+        noise.isotropic(3, 0.1)))
+    T0 = se3.retract(T, torch.as_tensor(rng.normal(size=(n_pose, 6)) * 0.05))
+    vals = Values({"SE3": T0, "Point3": pts + torch.as_tensor(
+        rng.normal(size=(n_pt, 3)) * 0.2)},
+        {"SE3": np.arange(n_pose), "Point3": np.arange(n_pt) + 100})
+    return g, vals
+
+
+class PGCase:
+    """A pose graph bound on the card with its supernodal solver, and the
+    plain versions' intermediate tensors of one try at (lam, damping): the
+    system, each level's factorization inputs and outputs, and the forward
+    and backward passes' per-level state."""
+
+    def __init__(self, graph, vals, lam, dd, **sn_kw):
+        import torch
+        from gtsam_torch.graph.graph import BoundGraph
+        from gtsam_torch.linear.supernodal import SupernodalCholeskySolver
+        self.vals = vals.to("cuda")
+        self.bound = BoundGraph(graph, self.vals, "cuda")
+        self.s = SupernodalCholeskySolver(self.bound, **sn_kw)
+        self.lam, self.dd = lam, dd
+        self.arrays = self.vals.arrays
+        self.blocks, self.g = self.s.system(self.arrays)
+        torch.cuda.synchronize()
+        self._levels()
+
+    def se3_batches(self):
+        from gtsam_torch.graph import factors
+        return [(i, b, st) for i, (b, st) in enumerate(zip(
+            self.bound.graph.batches, self.bound.structures))
+            if factors.se3_route(b) is not None]
+
+    def _levels(self):
+        import torch
+        from gtsam_torch.linear import supernodal_kernels as K
+        s, dv = self.s, self.s.dev
+        work = self.blocks.clone()
+        state = torch.tensor([1, -1], dtype=torch.int32, device="cuda")
+        self.lv = []
+        for lv in dv.levels:
+            front, panel = K.sn_front_gather_plain(
+                work, self.blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
+                lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, self.lam,
+                self.dd)
+            L, info = torch.linalg.cholesky_ex(front)
+            Lp = torch.linalg.solve_triangular(L.mT, panel, upper=True,
+                                               left=False) if lv.R else None
+            e = dict(work=work.clone(), front=front, panel=panel,
+                     L0=L.clone(), Lp0=None if Lp is None else Lp.clone(),
+                     info=info, state=state.clone())
+            K.sn_pivot_check_plain(L, Lp, info, lv.valid_diag, lv.col_vars,
+                                   state)
+            e.update(L=L, Lp=Lp)
+            if lv.R:
+                e["U"] = torch.bmm(Lp, Lp.mT)
+                K.sn_schur_scatter_plain(e["U"], lv.schur_src, lv.schur_ptr,
+                                         lv.schur_tgt, work)
+            self.lv.append(e)
+        self.ok = bool(state[0] == 1)
+        n, d = s.nvars, s.d
+        acc = torch.zeros((n + 1, d), dtype=torch.float64, device="cuda")
+        for lv, e in zip(dv.levels, self.lv):
+            e["acc"] = acc.clone()
+            e["y"], e["c"] = K.sn_forward_level_plain(self.g, acc, e["L"],
+                                                      e["Lp"], lv.col_vars)
+            if lv.R:
+                K.sn_segment_add_plain(e["c"], lv.fwd_src, lv.fwd_ptr,
+                                       lv.fwd_tgt, acc)
+        x = torch.zeros((n + 1, d), dtype=torch.float64, device="cuda")
+        for lv, e in zip(reversed(dv.levels), reversed(self.lv)):
+            e["x"] = x.clone()
+            K.sn_backward_level_plain(e["y"], e["L"], e["Lp"], lv.row_vars,
+                                      lv.col_vars, x)
+        self.x = x[:n]
+
+    def calls(self, name):
+        """[(argument maker, outputs of a call)]: each call of kernel `name`
+        on this case; the maker gives fresh arguments (in-place outputs
+        cloned), the second returns the tensors to compare."""
+        import torch
+        s, dv = self.s, self.s.dev
+        out = []
+        if name in ("pg_linearize", "pg_error"):
+            for i, b, st in self.se3_batches():
+                N, arity = b.num_factors, b.arity
+                base = (self.arrays["SE3"].R, self.arrays["SE3"].t,
+                        st.rows_i32, b.measurements.R, b.measurements.t,
+                        b.noise.kind, b.noise.data, b.sign)
+                if name == "pg_error":
+                    out.append((lambda base=base: base, lambda r, a: (r,)))
+                    continue
+                flip = dv.flips[i][1 if arity == 2 else 0]
+                npair = 3 if arity == 2 else 1
+
+                def mk(base=base, flip=flip, N=N, npair=npair, arity=arity):
+                    return base + (flip, torch.full(
+                        (N, npair, s.d * s.d), float("nan"),
+                        dtype=torch.float64, device="cuda"),
+                        torch.full((N, arity, s.d), float("nan"),
+                                   dtype=torch.float64, device="cuda"))
+                out.append((mk, lambda r, a: (a[-2], a[-1])))
+            return out
+        if name == "pg_assemble":
+            gen = torch.Generator("cuda").manual_seed(2)
+            hc = torch.randn((s._n_hc, s.d * s.d), dtype=torch.float64,
+                             device="cuda", generator=gen)
+            gc = torch.randn((s._n_gc, s.d), dtype=torch.float64,
+                             device="cuda", generator=gen)
+            args = (hc, gc, dv.asm_src, dv.blk_ptr, dv.g_src, dv.g_ptr,
+                    dv.diag_col, dv.pad_diag)
+            return [(lambda: args, lambda r, a: r)]
+        if name == "sn_matvec":
+            x = self.x
+            args = (self.blocks, x, dv.mv_row_ptr, dv.mv_row_blk,
+                    dv.mv_col_ptr, dv.mv_col_blk, dv.block_row, dv.block_col,
+                    dv.dbc, dv.pad_diag, self.lam, self.dd)
+            return [(lambda: args, lambda r, a: (r,))]
+        for lv, e in zip(dv.levels, self.lv):
+            if name == "sn_front_gather":
+                args = (e["work"], self.blocks, lv.diag_ids, lv.diag_flip,
+                        lv.diag_pad, lv.valid_diag, lv.col_vars, dv.dbc,
+                        lv.panel_ids, self.lam, self.dd)
+                out.append((lambda args=args: args,
+                            lambda r, a: tuple(t for t in r
+                                               if t is not None)))
+            elif name == "sn_pivot_check":
+                def mk(e=e, lv=lv):
+                    return (e["L0"].clone(), None if e["Lp0"] is None
+                            else e["Lp0"].clone(), e["info"], lv.valid_diag,
+                            lv.col_vars, e["state"].clone())
+                out.append((mk, lambda r, a: tuple(
+                    t for t in (a[0], a[1], a[5]) if t is not None)))
+            elif name == "sn_schur_scatter" and lv.R:
+                def mk(e=e, lv=lv):
+                    return (e["U"], lv.schur_src, lv.schur_ptr, lv.schur_tgt,
+                            e["work"].clone())
+                out.append((mk, lambda r, a: (a[-1],)))
+            elif name == "sn_forward_level":
+                args = (self.g, e["acc"], e["L"], e["Lp"], lv.col_vars)
+                out.append((lambda args=args: args,
+                            lambda r, a: tuple(t for t in r
+                                               if t is not None)))
+            elif name == "sn_segment_add" and lv.R:
+                def mk(e=e, lv=lv):
+                    return (e["c"], lv.fwd_src, lv.fwd_ptr, lv.fwd_tgt,
+                            e["acc"].clone())
+                out.append((mk, lambda r, a: (a[-1],)))
+            elif name == "sn_backward_level":
+                def mk(e=e, lv=lv):
+                    return (e["y"], e["L"], e["Lp"], lv.row_vars, lv.col_vars,
+                            e["x"].clone())
+                out.append((mk, lambda r, a: (a[-1],)))
+        return out
+
+
+def check_pg_kernels(case, label, names=None):
+    """Every call of each pose-graph kernel on `case` against its plain
+    version on the same CUDA tensors; raises on a miss of PG_TOL (kernel
+    8's solves at PG_SOLVE_TOL_SMALL_LAM when lam < 1).  Returns {kernel:
+    max abs err}."""
+    import torch
+    from gtsam_torch.linear import supernodal_kernels as K
+    errs = {}
+    for name in names or K.KERNELS:
+        kern = getattr(K, name)
+        plain = getattr(K, name + "_plain")
+        tol = PG_TOL[name]
+        if name in ("sn_forward_level", "sn_backward_level") \
+                and case.lam < 1.0:
+            tol = PG_SOLVE_TOL_SMALL_LAM
+        tols = tol if isinstance(tol, tuple) else None
+        worst_rel, worst_abs = {}, 0.0
+        calls = case.calls(name)
+        for mk, pick in calls:
+            a1, a2 = mk(), mk()
+            r1 = pick(kern(*a1), a1)
+            r2 = pick(plain(*a2), a2)
+            torch.cuda.synchronize()
+            for i, (g, r) in enumerate(zip(r1, r2)):
+                if g.dtype == torch.int32:
+                    if not torch.equal(g, r):
+                        raise AssertionError(f"{name} ({label}): {g} != {r}")
+                    continue
+                fin = torch.isfinite(r)
+                if not torch.equal(fin, torch.isfinite(g)):
+                    raise AssertionError(f"{name} ({label}): non-finite "
+                                         "entries differ")
+                d = float(torch.max(torch.abs(g[fin] - r[fin]))) \
+                    if fin.any() else 0.0
+                scale = float(torch.max(torch.abs(r[fin]))) \
+                    if fin.any() else 1.0
+                worst_abs = max(worst_abs, d)
+                j = i if tols else 0
+                worst_rel[j] = max(worst_rel.get(j, 0.0),
+                                   d / max(scale, 1e-300))
+        errs[name] = worst_abs
+        limits = {j: tols[j] if tols else tol for j in worst_rel}
+        log(f"check {label} {name}: {len(calls)} calls, max rel err "
+            + ", ".join(f"{worst_rel[j]:.3e} (tol {limits[j]:.0e})"
+                        for j in sorted(worst_rel))
+            + f", max abs err {worst_abs:.3e}")
+        bad = [j for j in worst_rel if not worst_rel[j] <= limits[j]]
+        if bad or not calls:
+            raise AssertionError(
+                f"{name} disagrees with its plain version ({label}): "
+                + ", ".join(f"{worst_rel[j]:.3e} > {limits[j]:.0e}"
+                            for j in bad))
+    return errs
+
+
+def pg_small_checks():
+    """Phase 3 of the pose graph: kernels 6-9 against their plain versions
+    on the small sphere and the mixed graph at lam 1e-4 and 1, damping off
+    and on; the mixed graph's routing (kernel 6 and the generic
+    linearization); a small LM on the card against the CPU."""
+    from gtsam_torch import _kernels
+    from gtsam_torch.graph import factors
+    from gtsam_torch.optimize import optimizers as O
+    sph, sph_vals, _, _ = sphere_graph(6, 8, radius=10.0, sigma_t=0.1,
+                                       sigma_r=0.05, seed=1)
+    mix, mix_vals = mixed_graph()
+    for label, (g, v, kw) in {
+            "small sphere": (sph, sph_vals, dict(force_width=4,
+                                                 max_width=8)),
+            "mixed": (mix, mix_vals, dict(force_width=4, max_width=8))
+    }.items():
+        for lam in (1e-4, 1.0):
+            for dd in (False, True):
+                _kernels.reset_launch_counts()
+                factors.GENERIC_LINEARIZATIONS[0] = 0
+                case = PGCase(g, v, lam, dd, **kw)
+                if label == "mixed" and lam == 1e-4 and not dd:
+                    counts = _kernels.launch_counts()
+                    log(f"mixed graph routing: pg_linearize "
+                        f"{counts['pg_linearize']} launches, generic "
+                        f"linearizations {factors.GENERIC_LINEARIZATIONS[0]}")
+                    if not (counts["pg_linearize"] > 0
+                            and factors.GENERIC_LINEARIZATIONS[0] > 0):
+                        raise AssertionError("the mixed graph does not take "
+                                             "both linearization routes")
+                log(f"pg case {label}: lam {lam} diagonal_damping {dd}: "
+                    f"{len(case.s.level_plans)} levels, B {case.s.B}, ok "
+                    f"{case.ok}")
+                check_pg_kernels(case, f"{label} lam={lam} dd={dd}")
+                del case
+    p = O.LMParams(max_iterations=10, relative_error_tol=1e-9,
+                   absolute_error_tol=1e-12, lambda_policy="gain")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        fn = O.make_fused_lm(sph, sph_vals, p, solver=O.SparseSolver(
+            refine_iters=1, supernodal_kwargs=dict(force_width=4,
+                                                   max_width=8)), device=dev)
+        it, _, err, conv, hist, tries = fn(sph_vals.arrays)
+        res[dev] = (it, tries, err, hist)
+    d = abs(res["cuda"][2] - res["cpu"][2]) / res["cpu"][2]
+    log(f"small pose-graph LM: card {res['cuda'][2]!r} cpu "
+        f"{res['cpu'][2]!r} rel diff {d:.3e}; iterations/tries card "
+        f"{res['cuda'][:2]} cpu {res['cpu'][:2]}")
+    if not (d <= 1e-9 and res["cuda"][:2] == res["cpu"][:2]):
+        raise AssertionError("the small pose-graph LM on the card disagrees "
+                             "with the CPU")
+
+
+def sphere_main_path():
+    """Phase 4 of the pose graph: the path of bench.py's run_sphere on the
+    port at the sphere2500 shape, twice; returns what phases 5 and 6
+    need."""
+    import numpy as np
+    import torch
+    from gtsam_torch import _kernels, LMParams
+    from gtsam_torch.graph import factors
+    from gtsam_torch.linear import supernodal_kernels as K
+    from gtsam_torch.optimize import optimizers as O
+    from gtsam_torch.utils.metrics import ate
+    t0 = time.time()
+    graph, vals0, true_t, chordal_s = sphere_graph(50, 50)
+    log(f"sphere graph: {graph.num_factors} factors, "
+        f"{len(vals0.keys['SE3'])} poses (written and loaded in "
+        f"{time.time() - t0 - chordal_s:.3f} s); chordal {chordal_s:.3f} s")
+    p = LMParams(**SPHERE_LM)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fn = O.make_fused_lm(graph, vals0, p,
+                         solver=O.SparseSolver(**SPHERE_SOLVER),
+                         device="cuda")
+    torch.cuda.synchronize()
+    plan_s = time.time() - t0
+    solver = fn.solver
+    log(f"sphere plan: {plan_s:.3f} s (symbolic analysis, plans, .to), "
+        f"chosen order {solver._s.chosen_order}, B {solver._s.B}, levels "
+        f"{[(lp.S, lp.W, lp.R) for lp in solver._s.level_plans]}")
+    runs = []
+    for rep in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        factors.GENERIC_LINEARIZATIONS[0] = 0
+        t0 = time.time()
+        it, arrays, err, conv, hist, tries = fn(vals0.arrays)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k: v for k, v in _kernels.launch_counts().items()
+                    if k in K.KERNELS}
+        generic = factors.GENERIC_LINEARIZATIONS[0]
+        peak = torch.cuda.max_memory_allocated()
+        est = arrays["SE3"].t.cpu().numpy()[np.argsort(vals0.keys["SE3"])]
+        ate_rmse = ate(est, true_t)["rmse"]
+        log(f"sphere path run {rep + 1}: half-chi2 {err!r} (target "
+            f"{TARGET_SPHERE!r}) in {it} iterations, {tries} tries, "
+            f"converged {conv}, wall {wall:.4f} s ({wall / max(tries, 1):.4f}"
+            f" s per try), ATE rmse {ate_rmse:.6f}, peak "
+            f"{peak / 2**30:.3f} GiB")
+        log(f"  history {hist[:it + 1].tolist()}")
+        log(f"  launches {launches}; generic linearizations {generic}")
+        if not err <= TARGET_SPHERE:
+            raise AssertionError(f"the sphere path did not reach "
+                                 f"{TARGET_SPHERE}: {err}")
+        runs.append(dict(it=it, arrays=arrays, err=err, hist=hist,
+                         tries=tries, wall=wall, launches=launches,
+                         generic=generic, peak=peak, ate=ate_rmse))
+    a, b = runs
+    same = (torch.equal(a["hist"][:a["it"] + 1], b["hist"][:b["it"] + 1])
+            and torch.equal(a["arrays"]["SE3"].R, b["arrays"]["SE3"].R)
+            and torch.equal(a["arrays"]["SE3"].t, b["arrays"]["SE3"].t))
+    log(f"sphere path: two runs give the same bits: {same}")
+    if not same:
+        raise AssertionError("two runs of the sphere path differ")
+    for name, n in a["launches"].items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "sphere path")
+    if a["generic"]:
+        raise AssertionError("the sphere path linearized a batch by the "
+                             "generic path")
+    return dict(fn=fn, solver=solver, graph=graph, vals0=vals0, runs=runs,
+                plan_s=plan_s, chordal_s=chordal_s)
+
+
+def pg_work(case):
+    """(bytes that must move, FP64 operations) of one call of each
+    pose-graph kernel (summed over a factorization's or a solve's levels)
+    on `case`'s plan; each input read once, each output written once."""
+    import numpy as np
+    s, dv = case.s, case.s.dev
+    d, dd, n, B = s.d, s.d * s.d, s.nvars, s.B
+    se3 = [(b.num_factors, b.arity, b.noise) for _, b, _ in
+           case.se3_batches()]
+    big = max(se3, key=lambda x: x[0])          # the between batch
+    N, arity, nz = big
+    nzb = 0 if nz.data is None else nz.data.numel() * 8
+    factor_in = N * (arity * 96 + 96 + 4 * arity) + nzb
+    ops_per = 3200 if arity == 2 else 1600
+    lin = (factor_in + N + N * (3 if arity == 2 else 1) * dd * 8
+           + N * arity * d * 8, N * ops_per)
+    err = (factor_in + 8, N * 900)
+    C, Cg = s._n_hc, s._n_gc
+    asm = (C * dd * 8 + Cg * d * 8 + 4 * (C + Cg) + 4 * (B + 2) + 4 * (n + 1)
+           + 4 * (B + 1) + n * d * 8 + (B + 1) * dd * 8 + n * d * 8,
+           C * dd + Cg * d)
+    front = [0, 0]
+    piv = [0, 0]
+    schur = [0, 0]
+    fwd = [0, 0]
+    seg = [0, 0]
+    bwd = [0, 0]
+    for lp, lv in zip(s.level_plans, dv.levels):
+        S, W, R = lp.S, lp.W, lp.R
+        Wd, Rd = W * d, R * d
+        ids = np.unique(lp.diag_ids[lp.diag_ids < B])
+        if R:
+            ids = np.union1d(ids, lp.panel_ids[lp.panel_ids < B])
+        front[0] += (ids.size * dd * 8 + S * W * W * 5 + S * Wd * 9
+                     + S * W * 4 + S * Wd * Wd * 8 + S * Rd * Wd * 8
+                     + (S * R * W * 4 if R else 0))
+        front[1] += S * Wd
+        piv[0] += S * Wd * Wd * 8 + S * Rd * Wd * 8 + S * 4 + S * Wd + 8
+        piv[1] += S * Wd * Wd + S * Rd * Wd
+        fwd[0] += (S * Wd * (Wd + 1) // 2 * 8 + S * Rd * Wd * 8
+                   + S * Wd * 2 * 8 + S * W * 4 + S * Wd * 8 + S * Rd * 8)
+        fwd[1] += S * (Wd * Wd + 2 * Rd * Wd)
+        bwd[0] += (S * Wd * (Wd + 1) // 2 * 8 + S * Rd * Wd * 8
+                   + S * Rd * 8 + S * Wd * 8 + S * (W + R) * 4
+                   + S * Wd * 8)
+        bwd[1] += S * (Wd * Wd + 2 * Rd * Wd)
+        if R:
+            T = len(lp.schur_tgt)
+            schur[0] += (len(lp.schur_src) * (dd * 8 + 4) + 4 * (T + 1)
+                         + 4 * T + 2 * T * dd * 8)
+            schur[1] += len(lp.schur_src) * dd
+            Tf = len(lp.fwd_tgt)
+            seg[0] += (len(lp.fwd_src) * (d * 8 + 4) + 4 * (Tf + 1) + 4 * Tf
+                       + 2 * Tf * d * 8)
+            seg[1] += len(lp.fwd_src) * d
+    offd = len(s._mv_plan[4])
+    mv = (B * dd * 8 + n * d * 8 + 4 * (2 * (n + 1) + B + offd + 2 * B + n)
+          + n * d * 8 + n * d * 8, 2 * dd * (B + offd) + 3 * n * d)
+    return {"pg_linearize": lin, "pg_error": err, "pg_assemble": asm,
+            "sn_front_gather": tuple(front), "sn_pivot_check": tuple(piv),
+            "sn_schur_scatter": tuple(schur), "sn_forward_level": tuple(fwd),
+            "sn_segment_add": tuple(seg), "sn_backward_level": tuple(bwd),
+            "sn_matvec": mv}
+
+
+def _library_call(name, case):
+    """One PyTorch call computing kernel `name`'s function on the same
+    inputs (one per level where the kernel runs per level), where one
+    exists, else None; timed as a yardstick, never used by the port.  Both
+    index_add_ calls scatter with atomics (their bits vary) into a store
+    zeroed outside the timing; the spmv's CSR is built outside it too."""
+    import torch
+    s, dv = case.s, case.s.dev
+    if name == "pg_assemble":
+        # each contribution row straight to its block: one index_add_
+        owner = torch.repeat_interleave(
+            torch.arange(s.B + 1, device="cuda"),
+            (dv.blk_ptr[1:] - dv.blk_ptr[:-1]).long())
+        idx = torch.empty(s._n_hc, dtype=torch.long, device="cuda")
+        idx[dv.asm_src.long()] = owner
+        hc = torch.randn((s._n_hc, s.d * s.d), dtype=torch.float64,
+                         device="cuda")
+        out = torch.zeros((s.B + 1, s.d * s.d), dtype=torch.float64,
+                          device="cuda")
+        return lambda: out.index_add_(0, idx, hc)
+    if name == "sn_segment_add":
+        # one index_add_ per level with a panel, as the kernel's launches
+        calls = []
+        for lv, e in zip(dv.levels, case.lv):
+            if not lv.R:
+                continue
+            owner = torch.repeat_interleave(
+                lv.fwd_tgt.long(), (lv.fwd_ptr[1:] - lv.fwd_ptr[:-1]).long())
+            c = e["c"].reshape(-1, s.d)
+            # c's padded rows go to acc's sentinel row n
+            idx = torch.full((c.shape[0],), s.nvars, dtype=torch.long,
+                             device="cuda")
+            idx[lv.fwd_src.long()] = owner
+            calls.append((e["acc"].clone(), idx, c))
+        return lambda: [acc.index_add_(0, idx, c) for acc, idx, c in calls]
+    if name == "sn_matvec":
+        # the full symmetric H + damping as one CSR matrix, then one spmv
+        B = s.B
+        d = s.d
+        blocks = case.blocks[:B].reshape(B, d, d)
+        br, bc = dv.block_row.long(), dv.block_col.long()
+        ii = torch.arange(d, device="cuda")
+        rows = (br[:, None, None] * d + ii[None, :, None]).expand(B, d, d)
+        cols = (bc[:, None, None] * d + ii[None, None, :]).expand(B, d, d)
+        off = br != bc
+        r = torch.cat([rows.reshape(-1), cols[off].transpose(1, 2)
+                       .reshape(-1)])
+        c = torch.cat([cols.reshape(-1), rows[off].transpose(1, 2)
+                       .reshape(-1)])
+        v = torch.cat([blocks.reshape(-1), blocks[off].reshape(-1)])
+        damp = s.damp_vec(case.blocks, case.lam, case.dd).reshape(-1)
+        diag = torch.arange(s.nvars * d, device="cuda")
+        H = torch.sparse_coo_tensor(
+            torch.stack([torch.cat([r, diag]), torch.cat([c, diag])]),
+            torch.cat([v, damp]), (s.nvars * d, s.nvars * d)).coalesce() \
+            .to_sparse_csr()
+        x = case.x.reshape(-1, 1)
+        return lambda: torch.sparse.mm(H, x)
+    return None
+
+
+def pg_kernel_times(main, ms_fn):
+    """Phase 5 of the pose graph: on the sphere path's converged state at
+    lam = 1 (the kernels' work does not depend on lam), each kernel against
+    its plain version, its time (all the launches of one call: one
+    factorization's or one solve's levels), its bound, the plain version's
+    and the library call's; the library calls of each level; the time of a
+    try by stage."""
+    import torch
+    from gtsam_torch.graph.values import retract_arrays
+    from gtsam_torch.linear import supernodal_kernels as K
+    fn, solver = main["fn"], main["solver"]
+    arrays = main["runs"][0]["arrays"]
+    graph, vals0 = main["graph"], main["vals0"]
+    case = PGCase(graph, vals0.replace_arrays(arrays), 1.0, False,
+                  **SPHERE_SOLVER["supernodal_kwargs"])
+    checks = check_pg_kernels(case, "sphere")
+    work = pg_work(case)
+    kernels = []
+    for name, kern in K.KERNELS.items():
+        kfn, pfn = getattr(K, name), getattr(K, name + "_plain")
+        calls = case.calls(name)
+        built = [mk() for mk, _ in calls]
+
+        def run(f, built=built):
+            for a in built:
+                f(*a)
+        ms = ms_fn(lambda: run(kfn), reps=20)
+        plain_ms = ms_fn(lambda: run(pfn), reps=3, warmup=1)
+        lib = _library_call(name, case)
+        library_ms = ms_fn(lib, reps=20) if lib is not None else None
+        nbytes, flops = work[name]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP64_FLOPS * 1e3
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"gtsam_torch/csrc/{kern.source}.cu",
+            "replaces": kern.replaces,
+            "launches": main["runs"][0]["launches"][name],
+            "max_abs_err": checks[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "calls_timed": len(built)})
+        log(f"time {name}: {ms:.4f} ms for {len(built)} launches (plain "
+            f"{plain_ms:.4f} ms, library {library_ms}, bound "
+            f"{max(t_bytes, t_ops):.4f} ms by {kernels[-1]['bound_by']}, "
+            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP); launches on "
+            f"the path {kernels[-1]['launches']}")
+    # the library calls of each level, on that level's inputs
+    levels = []
+    for lp, e in zip(solver._s.level_plans, case.lv):
+        Wd, Rd = lp.W * solver._s.d, lp.R * solver._s.d
+        row = {"S": lp.S, "W": lp.W, "R": lp.R,
+               "cholesky_ex_ms": ms_fn(
+                   lambda e=e: torch.linalg.cholesky_ex(e["front"]), reps=10),
+               "cholesky_bound_ms": max(
+                   lp.S * Wd ** 3 / 3 / FP64_TC_FLOPS,
+                   2 * lp.S * Wd * Wd * 8 / HBM_BYTES_PER_S) * 1e3}
+        if lp.R:
+            row["solve_triangular_ms"] = ms_fn(
+                lambda e=e: torch.linalg.solve_triangular(
+                    e["L"].mT, e["panel"], upper=True, left=False), reps=10)
+            row["solve_triangular_bound_ms"] = max(
+                lp.S * Rd * Wd * Wd / FP64_TC_FLOPS,
+                (lp.S * Wd * Wd / 2 + 2 * lp.S * Rd * Wd) * 8
+                / HBM_BYTES_PER_S) * 1e3
+            row["bmm_ms"] = ms_fn(lambda e=e: torch.bmm(e["Lp"], e["Lp"].mT),
+                                  reps=10)
+            row["bmm_bound_ms"] = max(
+                2 * lp.S * Rd * Rd * Wd / FP64_TC_FLOPS,
+                (lp.S * Rd * Wd + lp.S * Rd * Rd) * 8 / HBM_BYTES_PER_S) * 1e3
+        levels.append(row)
+    # one try by stage, at the converged state
+    s = solver._s
+    blocks, g = s.system(arrays)
+    f = s.factorize(blocks, 1e-3)
+    dx = s._flatten(s._solve_padded(f, g))
+    layout = vals0.layout()
+    stages = {
+        "error": ms_fn(lambda: fn.bound.error(arrays), reps=10),
+        "linearize_assemble": ms_fn(lambda: s.system(arrays), reps=10),
+        "factorize": ms_fn(lambda: s.factorize(blocks, 1e-3), reps=10),
+        "two_solves": ms_fn(lambda: (s._solve_padded(f, g),
+                                     s._solve_padded(f, g)), reps=10),
+        "matvec": ms_fn(lambda: s.matvec(blocks, s.pack_rhs(dx), 1e-3),
+                        reps=10),
+        "retract": ms_fn(lambda: retract_arrays(arrays, dx, layout), reps=10),
+        "try": ms_fn(lambda: (retract_arrays(arrays, solver.solve(
+            (blocks, g), 1e-3, False)[0], layout)), reps=10)}
+    del case
+    return kernels, levels, stages
+
+
+def profile_sphere(main):
+    """Phase 6 of the pose graph: one traced run of the sphere path: device
+    busy time and idle share, time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn, vals0 = main["fn"], main["vals0"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        out = fn(vals0.arrays)
+        torch.cuda.synchronize()
+        traced_ms = (time.time() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    log(json.dumps({"profile": {
+        "path": "sphere", "wall_ms": traced_ms, "tries": out[5],
+        "device_busy_ms": busy if rows else None,
+        "idle_share": 1.0 - busy / traced_ms if rows else None,
+        "by_kernel_ms": [[k[:80], ms, c] for k, ms, c in rows[:24]]}}))
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -383,7 +1080,7 @@ def main(argv):
     quick = "--quick" in argv
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
-    from gtsam_torch import LMParams, _build
+    from gtsam_torch import LMParams, _build, _kernels, native
     from gtsam_torch.sfm import ba, ba_kernels as bk, synthetic
 
     # -- 1. the card --------------------------------------------------------
@@ -398,6 +1095,9 @@ def main(argv):
     t0 = time.time()
     paths = _build.build()
     log(f"build: {time.time() - t0:.3f} s for {len(paths)} libraries")
+    t0 = time.time()
+    log(f"native orderings: {native.build().name} in "
+        f"{time.time() - t0:.3f} s")
     for name, out in _build.BUILD_LOG.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -467,6 +1167,7 @@ def main(argv):
         if not d <= 1e-6:
             raise AssertionError(f"small BA ({mode}) on the card disagrees "
                                  "with the CPU")
+    pg_small_checks()
 
     if quick:
         log(json.dumps({"kernels": [], "quick": True}))
@@ -492,14 +1193,15 @@ def main(argv):
         for rep in range(2):   # counts from the first; the second for bits
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            bk.reset_launch_counts()
+            _kernels.reset_launch_counts()
             t0 = time.time()
             vals, info = ba.ba_optimize(prob, lm, verbose=rep == 0,
                                         target_error=TARGET, device="cuda",
                                         **kw)
             torch.cuda.synchronize()
             wall = time.time() - t0
-            launches = bk.launch_counts()
+            launches = {k: v for k, v in _kernels.launch_counts().items()
+                        if k in bk.KERNELS}
             peak = torch.cuda.max_memory_allocated()
             tries = (launches["ba_point_eliminate"]
                      + launches["ba_point_eliminate_f32"])
@@ -533,6 +1235,8 @@ def main(argv):
     vals = runs["float64"]["vals"]
     launches = {name: sum(r["launches"][name] for r in runs.values())
                 for name in bk.KERNELS}
+    # the pose graph at the sphere2500 shape (bench.py's run_sphere)
+    sphere = sphere_main_path()
 
     # -- 5. kernels against their plain versions, and timed, at the Ladybug
     # shape (the float64 path's converged state; lam = 1 as in phase 3, so
@@ -666,6 +1370,20 @@ def main(argv):
                           "peak_bytes": r["peak"]}
                       for m, r in runs.items()}}))
 
+    pg_kernels, pg_levels, pg_stages = pg_kernel_times(sphere, cuda_ms)
+    r1 = sphere["runs"][0]
+    log(json.dumps({"sphere": {
+        "half_chi2": [r["err"] for r in sphere["runs"]],
+        "target": TARGET_SPHERE, "iterations": r1["it"], "tries": r1["tries"],
+        "chosen_order": sphere["solver"]._s.chosen_order,
+        "chordal_s": sphere["chordal_s"], "plan_s": sphere["plan_s"],
+        "wall_to_converged_s": [r["wall"] for r in sphere["runs"]],
+        "s_per_try": [r["wall"] / r["tries"] for r in sphere["runs"]],
+        "ate_rmse": r1["ate"], "peak_bytes": r1["peak"],
+        "history": r1["hist"][:r1["it"] + 1].tolist(),
+        "launches": r1["launches"], "stage_ms": pg_stages,
+        "levels": pg_levels}}))
+
     # -- 6. where the time goes: one traced run of each main path ------------
     from torch.profiler import ProfilerActivity, profile
     for mode, kw in modes.items():
@@ -713,7 +1431,9 @@ def main(argv):
         raise AssertionError("an error call is not one launch of its kernel "
                              f"alone: {rows}")
 
-    log(json.dumps({"kernels": kernels}))
+    profile_sphere(sphere)
+
+    log(json.dumps({"kernels": kernels + pg_kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,0 +1,109 @@
+"""Plumbing shared by the port's kernel tables.
+
+A kernel table (sfm/ba_kernels.py, linear/supernodal_kernels.py) is a dict
+of `Kernel`s made by `table(...)`, which also registers it here, so that
+`launch_counts()` and `reset_launch_counts()` cover every kernel of the
+port.  Each Kernel is one C entry point of a csrc/ library, loaded with
+ctypes at its first launch (the library is built then if needed, never at
+import), and counts its launches.
+"""
+
+import ctypes
+
+import torch
+
+from . import _build
+
+P = ctypes.c_void_p
+INT = ctypes.c_int
+DBL = ctypes.c_double
+
+TABLES = []
+
+
+class Kernel:
+    """One C entry point of a csrc/ library and its launch count.
+
+    `wrapper` names the function of its table's module that launches it
+    (its plain version is `wrapper + "_plain"`); `replaces` is the JAX
+    routine it ports, as file:line."""
+
+    def __init__(self, name, source, wrapper, replaces, argtypes):
+        self.name = name
+        self.source = source
+        self.wrapper = wrapper
+        self.replaces = replaces
+        self.argtypes = list(argtypes) + [P]   # the stream comes last
+        self.launches = 0
+        self._fn = None
+
+    def launch(self, device, *args):
+        if self._fn is None:
+            fn = getattr(_build.load(self.source), "gt_" + self.name)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        err = self._fn(*args, stream(device))
+        if err != 0:
+            raise RuntimeError(f"{self.name}: kernel launch failed with CUDA "
+                               f"error {err}")
+        self.launches += 1
+
+
+def table(*kernels) -> dict:
+    """{name: Kernel} of `kernels`, registered for the launch counts."""
+    t = {k.name: k for k in kernels}
+    TABLES.append(t)
+    return t
+
+
+def stream(device):
+    """The handle of `device`'s current stream: what
+    torch.cuda.current_stream(device).cuda_stream gives, without building a
+    Stream object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def reset_launch_counts():
+    for t in TABLES:
+        for k in t.values():
+            k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: k.launches for t in TABLES for name, k in t.items()}
+
+
+def on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def check(name, *specs):
+    """specs: (arg name, tensor, dtype, shape).  Returns the common CUDA
+    device; raises on anything the kernel does not take."""
+    for arg, t, dtype, shape in specs:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {arg} must have shape {tuple(shape)}, "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    dev = specs[0][1].device
+    for arg, t, _, _ in specs:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: every tensor must lie on one CUDA "
+                             f"device; {arg} is on {t.device}")
+    return dev
+
+
+def ptr(t):
+    return t.data_ptr()
+
+
+def segment_owner(p):
+    """Owner index of every element of a CSR with offsets `p`: the segment
+    ids the plain versions' index_add_ sums over."""
+    n = p.numel() - 1
+    return torch.repeat_interleave(torch.arange(n, device=p.device),
+                                   (p[1:] - p[:-1]).long())

@@ -1,0 +1,180 @@
+"""Typed factor batches.
+
+Counterpart of gtsam_tpu/graph/factors.py: all factors of one type form a
+FactorBatch (a key table and stacked measurements).  The generic
+linearization is `torch.func.vmap` of forward-mode `jacfwd` of the
+tangent-perturbed residual, the port of linearize_raw.  On the supernodal
+path, SE3 between and prior batches take kernel 6 instead
+(linear/supernodal_kernels.py); every other batch takes this path, which
+counts its calls in GENERIC_LINEARIZATIONS.
+
+A residual_fn has the signature (xs: tuple of elements, meas) -> (rdim,);
+the port's geometry broadcasts, so it is also applied to stacked batches.
+"""
+
+import dataclasses
+import functools
+from typing import Any, Callable, Tuple
+
+import numpy as np
+import torch
+
+from ..base.noise import NoiseModel
+from ..geometry import se3
+from ..geometry.se3 import SE3
+from . import manifolds
+
+# calls of linearize() on a batch without linearize_fn
+GENERIC_LINEARIZATIONS = [0]
+
+
+@dataclasses.dataclass
+class FactorBatch:
+    name: str
+    var_types: Tuple[str, ...]       # manifold type of each slot
+    keys: np.ndarray                 # (N, arity) int64, host-side
+    rdim: int
+    residual_fn: Callable            # (xs, meas) -> (rdim,)
+    measurements: Any                # tensor or SE3 with leading dim N
+    noise: NoiseModel
+    # optional custom whitened linearization:
+    # (xs_one, meas_one) -> (tuple of (rdim, d_i) jacobians, (rdim,) b)
+    linearize_fn: Callable = None
+    # +1.0 normally; -1.0 subtracts this batch's information (AntiFactor.h)
+    sign: float = 1.0
+
+    def __post_init__(self):
+        self.keys = np.atleast_2d(np.asarray(self.keys, dtype=np.int64))
+
+    @property
+    def num_factors(self) -> int:
+        return self.keys.shape[0]
+
+    @property
+    def arity(self) -> int:
+        return self.keys.shape[1]
+
+    def dims(self) -> Tuple[int, ...]:
+        return tuple(manifolds.get(t).dim for t in self.var_types)
+
+    def to(self, device) -> "FactorBatch":
+        meas = self.measurements
+        if isinstance(meas, SE3):
+            meas = SE3(meas.R.to(device), meas.t.to(device))
+        elif meas is not None:
+            meas = meas.to(device)
+        return dataclasses.replace(self, measurements=meas,
+                                   noise=self.noise.to(device))
+
+
+def residuals(batch: FactorBatch, xs):
+    """Batched unwhitened residuals (N, rdim): xs = tuple of stacked
+    elements per slot."""
+    return batch.residual_fn(xs, batch.measurements)
+
+
+def linearize_raw(batch: FactorBatch, xs):
+    """Batched UNWHITENED tangent-space Jacobians and residuals: (J, r) with
+    J = tuple of (N, rdim, d_i), r = (N, rdim)."""
+    dims = batch.dims()
+    retracts = tuple(manifolds.get(t).retract for t in batch.var_types)
+    def res_tangent(deltas, xs_one, meas_one):
+        xs_p = tuple(r(x, d) for r, x, d in zip(retracts, xs_one, deltas))
+        return batch.residual_fn(xs_p, meas_one)
+
+    def one(xs_one, meas_one):
+        dev = torch.utils._pytree.tree_leaves(xs_one)[0].device
+        zeros = tuple(torch.zeros(d, dtype=torch.float64, device=dev)
+                      for d in dims)
+        return torch.func.jacfwd(res_tangent)(zeros, xs_one, meas_one)
+
+    J = torch.func.vmap(one)(xs, batch.measurements)
+    return tuple(J), residuals(batch, xs)
+
+
+def linearize(batch: FactorBatch, xs):
+    """Batched whitened Jacobians and right-hand sides in tangent space:
+    (A: tuple of (N, rdim, d_i), b: (N, rdim)) with ||A dx - b||^2 and
+    b = -whitened residual."""
+    if batch.linearize_fn is not None:
+        J, b = torch.func.vmap(batch.linearize_fn)(xs, batch.measurements)
+        return J, b
+    GENERIC_LINEARIZATIONS[0] += 1
+    J, r = linearize_raw(batch, xs)
+    wr = batch.noise.whiten(r)
+    wJ = tuple(batch.noise.whiten_jacobian(Ji) for Ji in J)
+    return wJ, -wr
+
+
+# -- concrete factor constructors -------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _between_residual(tname):
+    # memoized: every Between<T> batch shares one residual function object,
+    # which is how the supernodal path recognises the SE3 ones
+    if tname == "SE3":
+        def fn(xs, meas):
+            return se3.local(meas, se3.between(xs[0], xs[1]))
+    else:
+        mt = manifolds.get(tname)
+        if not tname.startswith(("Point", "Vec")):
+            raise NotImplementedError(f"Between{tname} is not ported yet")
+
+        def fn(xs, meas):
+            return mt.local(meas, xs[1] - xs[0])
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _prior_residual(tname):
+    mt = manifolds.get(tname)
+
+    def fn(xs, meas):
+        return mt.local(meas, xs[0])
+
+    return fn
+
+
+def _as_measurements(m):
+    if isinstance(m, SE3):
+        return SE3(torch.as_tensor(m.R, dtype=torch.float64),
+                   torch.as_tensor(m.t, dtype=torch.float64))
+    return torch.as_tensor(np.asarray(m), dtype=torch.float64)
+
+
+def between_factors(tname: str, keys1, keys2, measurements,
+                    noise: NoiseModel, name=None) -> FactorBatch:
+    """BetweenFactor<T> batch: error = Local(measured, between(x1, x2))
+    (reference gtsam/slam/BetweenFactor.h)."""
+    keys = np.stack([np.asarray(keys1), np.asarray(keys2)], axis=1)
+    return FactorBatch(name=name or f"Between{tname}",
+                       var_types=(tname, tname), keys=keys,
+                       rdim=manifolds.get(tname).dim,
+                       residual_fn=_between_residual(tname),
+                       measurements=_as_measurements(measurements),
+                       noise=noise)
+
+
+def prior_factors(tname: str, keys, measurements, noise: NoiseModel,
+                  name=None) -> FactorBatch:
+    """PriorFactor<T> batch: error = Local(prior, x) (reference
+    gtsam/slam/PriorFactor.h)."""
+    keys = np.asarray(keys).reshape(-1, 1)
+    return FactorBatch(name=name or f"Prior{tname}", var_types=(tname,),
+                       keys=keys, rdim=manifolds.get(tname).dim,
+                       residual_fn=_prior_residual(tname),
+                       measurements=_as_measurements(measurements),
+                       noise=noise)
+
+
+def se3_route(batch: FactorBatch):
+    """"between" or "prior" for an SE3 batch that kernel 6 linearizes (no
+    custom linearize_fn), else None."""
+    if batch.linearize_fn is not None:
+        return None
+    if batch.residual_fn is _between_residual("SE3"):
+        return "between"
+    if batch.residual_fn is _prior_residual("SE3"):
+        return "prior"
+    return None

@@ -1,0 +1,144 @@
+"""FactorGraph: a list of typed factor batches, and its bound form.
+
+Counterpart of gtsam_tpu/graph/graph.py (reference
+gtsam/nonlinear/NonlinearFactorGraph.cpp:239-274).  `bind()` freezes the
+graph structure against a Values' key table and moves measurements, noise
+and row indices to the values' device once; the bound graph's error,
+linearization and dense Gauss-Newton system are functions of the arrays.
+The error of an SE3 between or prior batch is kernel 6's `pg_error`, on
+every device; other batches use the generic residuals.  Hard constraints
+(constrained noise) are not ported yet.
+"""
+
+import dataclasses
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from ..geometry.se3 import SE3
+from . import factors as factors_mod
+from .values import Layout, Values, take_rows
+
+
+class FactorGraph:
+    def __init__(self, batches: List[factors_mod.FactorBatch] = None):
+        self.batches: List[factors_mod.FactorBatch] = list(batches or [])
+
+    def add(self, batch: factors_mod.FactorBatch) -> "FactorGraph":
+        self.batches.append(batch)
+        return self
+
+    @property
+    def num_factors(self) -> int:
+        return sum(b.num_factors for b in self.batches)
+
+    def keys(self):
+        out = set()
+        for b in self.batches:
+            out.update(int(k) for k in b.keys.reshape(-1))
+        return out
+
+    def error(self, values: Values):
+        return self.bind(values).error(values.arrays)
+
+    def bind(self, values: Values) -> "BoundGraph":
+        return BoundGraph(self, values)
+
+
+@dataclasses.dataclass(frozen=True)
+class _BatchStructure:
+    rows: Tuple[np.ndarray, ...]         # per slot: (N,) row index into type array
+    col_offsets: Tuple[np.ndarray, ...]  # per slot: (N,) global column offset
+    rows_dev: Tuple[torch.Tensor, ...]   # rows on the device, int64
+    rows_i32: torch.Tensor               # (N, arity) int32 on the device
+
+
+def _device_of(values: Values):
+    a = next(iter(values.arrays.values()))
+    return (a.t if isinstance(a, SE3) else a).device
+
+
+class BoundGraph:
+    """Graph structure frozen against a Values key table, on one device."""
+
+    def __init__(self, graph: FactorGraph, values: Values, device=None):
+        self.device = torch.device(device) if device is not None \
+            else _device_of(values)
+        self.graph = FactorGraph([b.to(self.device) for b in graph.batches])
+        self.layout: Layout = values.layout()
+        self.structures: List[_BatchStructure] = []
+        for b in graph.batches:
+            if b.noise.kind not in ("unit", "diagonal", "gaussian"):
+                raise NotImplementedError("constrained noise is not ported "
+                                          "yet")
+            rows, offs = [], []
+            for s, t in enumerate(b.var_types):
+                r = values.rows_of(t, b.keys[:, s])
+                rows.append(r)
+                offs.append(self.layout.offsets[t][r])
+            rows_dev = tuple(torch.as_tensor(r, dtype=torch.long,
+                                             device=self.device)
+                             for r in rows)
+            rows_i32 = torch.as_tensor(np.stack(rows, axis=1),
+                                       dtype=torch.int32, device=self.device)
+            self.structures.append(_BatchStructure(tuple(rows), tuple(offs),
+                                                   rows_dev, rows_i32))
+
+    def _xs(self, b, st, arrays):
+        return tuple(take_rows(arrays[t], st.rows_dev[s])
+                     for s, t in enumerate(b.var_types))
+
+    def error(self, arrays):
+        """Total graph error: the sum of the batches' half-chi2 (0-d)."""
+        from ..linear import supernodal_kernels as sk
+        total = None
+        for b, st in zip(self.graph.batches, self.structures):
+            if factors_mod.se3_route(b) is not None:
+                e = sk.pg_error(arrays["SE3"].R, arrays["SE3"].t, st.rows_i32,
+                                b.measurements.R, b.measurements.t,
+                                b.noise.kind, b.noise.data, b.sign)
+            else:
+                r = factors_mod.residuals(b, self._xs(b, st, arrays))
+                e = b.sign * b.noise.error(r)
+            total = e if total is None else total + e
+        if total is None:
+            total = torch.zeros((), dtype=torch.float64, device=self.device)
+        return total
+
+    def linearize_batch(self, i, arrays):
+        """Whitened (wJ tuple, b) of batch i by the generic path."""
+        b, st = self.graph.batches[i], self.structures[i]
+        return factors_mod.linearize(b, self._xs(b, st, arrays))
+
+    def linearize(self, arrays):
+        """Per-batch whitened (A, b) blocks; list of (wJ tuple, b)."""
+        return [self.linearize_batch(i, arrays)
+                for i in range(len(self.graph.batches))]
+
+    def gn_system(self, arrays):
+        """Dense Gauss-Newton normal equations (H, g) in the canonical
+        tangent layout: H = J^T J, g = J^T b (reference
+        linearizeToHessianFactor, NonlinearFactorGraph.cpp:312)."""
+        D = self.layout.total_dim
+        dev = self.device
+        H = torch.zeros((D, D), dtype=torch.float64, device=dev)
+        g = torch.zeros(D, dtype=torch.float64, device=dev)
+        for (wJ, bvec), bt, st in zip(self.linearize(arrays),
+                                      self.graph.batches, self.structures):
+            dims = bt.dims()
+            idx = [torch.as_tensor(st.col_offsets[i][:, None]
+                                   + np.arange(dims[i])[None, :],
+                                   dtype=torch.long, device=dev)
+                   for i in range(bt.arity)]
+            for i in range(bt.arity):
+                gi = bt.sign * torch.einsum("nrd,nr->nd", wJ[i], bvec)
+                g.index_put_((idx[i],), gi, accumulate=True)
+                for j in range(i, bt.arity):
+                    Hij = bt.sign * torch.einsum("nri,nrj->nij", wJ[i], wJ[j])
+                    H.index_put_((idx[i][:, :, None], idx[j][:, None, :]),
+                                 Hij, accumulate=True)
+                    if j > i:
+                        H.index_put_((idx[j][:, :, None], idx[i][:, None, :]),
+                                     Hij.transpose(1, 2), accumulate=True)
+        return H, g

@@ -1,0 +1,589 @@
+"""Supernodal sparse block Cholesky: batched dense fronts per tree level.
+
+Counterpart of gtsam_tpu/linear/supernodal.py (reference multifrontal
+elimination, gtsam/inference/ClusterTree-inst.h:285).  The symbolic phase
+(inference/supernodes.py) amalgamates columns into supernodes and levels
+the assembly tree; the host plans built here from it equal the JAX
+package's, array for array, and move to the device once (`to`).  Then:
+
+  system:    kernel 6 linearizes the SE3 between/prior batches straight into
+             a contribution buffer (other batches: the generic torch.func
+             path), and pg_assemble sums it into the block store (B+1, d*d)
+             and the gradient (n, d) through sorted CSRs;
+  factorize: per level, kernel 7 gathers the fronts and panels from a
+             working copy of the store (damping applied there), then
+             cholesky_ex / solve_triangular / bmm (library), kernel 7's
+             pivot check, and its Schur scatter into the working store;
+  solve:     kernel 8 per level, forward then backward, one CTA per front;
+  matvec:    kernel 9, the refinement residual's (H + damping) x.
+
+Every kernel has a plain PyTorch version (supernodal_kernels.py) that the
+CPU runs.  The multifrontal QR and the two-float refinement of the JAX
+package (matvec_df, solve_refined_df) are not ported: the card refines in
+native float64 (solve_refined).
+
+A failed factorization: jnp.linalg.cholesky fills a failed front with NaN
+and the JAX SparseSolver solves on with a zeroed factor, so the step's
+error is not finite and LM rejects it.  cholesky_ex leaves a partial
+factor instead, so here the factorization's `ok` flag (read once per try
+with the error) rejects the try.
+"""
+
+import dataclasses
+import types
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..graph import factors as factors_mod
+from ..graph import manifolds
+from ..graph.graph import BoundGraph
+from ..inference import ordering as ordering_mod
+from ..inference import supernodes as sn_mod
+from . import supernodal_kernels as K
+from .exceptions import IndeterminantLinearSystemError
+
+F64 = torch.float64
+I32 = torch.int32
+
+
+@dataclasses.dataclass
+class _LevelPlan:
+    snodes: np.ndarray
+    S: int
+    W: int                      # max snode width (blocks) this level
+    R: int                      # max row-structure size (blocks)
+    diag_ids: np.ndarray        # (S, W, W) block ids (sentinel B)
+    diag_flip: np.ndarray       # (S, W, W) bool
+    diag_pad: np.ndarray        # (S, W*d) 1.0 where padded col slot
+    valid_diag: np.ndarray      # (S, W*d) bool: true (unpadded) pivots
+    col_vars: np.ndarray        # (S, W) permuted col ids (sentinel n)
+    panel_ids: Optional[np.ndarray]   # (S, R, W) block ids (sentinel B)
+    row_vars: Optional[np.ndarray]    # (S, R) permuted row ids (sentinel n)
+    diag_sc_src: np.ndarray     # scatter L_diag: flat src into (S*W*W)
+    diag_sc_tgt: np.ndarray
+    panel_sc_src: Optional[np.ndarray]
+    panel_sc_tgt: Optional[np.ndarray]
+    schur_src: Optional[np.ndarray]   # sorted by target: flat into (S*R*R)
+    schur_seg: Optional[np.ndarray]
+    schur_tgt: Optional[np.ndarray]   # unique target block ids
+    fwd_src: Optional[np.ndarray]     # sorted flat into (S*R)
+    fwd_seg: Optional[np.ndarray]
+    fwd_tgt: Optional[np.ndarray]     # unique row var ids
+    x_sc_src: np.ndarray        # flat into (S*W)
+    x_sc_tgt: np.ndarray        # col var ids (unique by construction)
+
+
+def _sorted_segments(tgt: np.ndarray):
+    """Host: sort targets, return (order, segment_ids, unique_targets)."""
+    order = np.argsort(tgt, kind="stable")
+    st = tgt[order]
+    if len(st) == 0:
+        return order, np.zeros(0, dtype=np.int32), np.zeros(0, dtype=np.int32)
+    new = np.concatenate([[True], st[1:] != st[:-1]])
+    seg = np.cumsum(new) - 1
+    return (order.astype(np.int32), seg.astype(np.int32),
+            st[new].astype(np.int32))
+
+
+def _seg_ptr(seg, nseg):
+    """CSR offsets (nseg + 1,) of sorted segment ids."""
+    counts = np.bincount(seg, minlength=nseg) if len(seg) \
+        else np.zeros(nseg, np.int64)
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def _slot_pairs(arity):
+    return [(s1, s2) for s1 in range(arity) for s2 in range(s1, arity)]
+
+
+@dataclasses.dataclass
+class Factored:
+    """One numeric factorization: per level the dense L (S, W*d, W*d) and
+    panel Lp (S, R*d, W*d) or None; ok and badcol (0-d tensors, read on the
+    host when needed)."""
+
+    Ldiag: List[torch.Tensor]
+    Lpanel: List[Optional[torch.Tensor]]
+    ok: torch.Tensor
+    badcol: torch.Tensor
+
+
+class SupernodalCholeskySolver:
+    """Sparse solver over a bound graph: system / factorize /
+    solve_factored / solve_refined / matvec.  Built once per (graph
+    structure, values structure); its device plan lives on the bound
+    graph's device."""
+
+    @staticmethod
+    def _level_cost(sym, level_overhead_flops: float = 2e6):
+        """Device cost model of a supernodal schedule: padded dense-front
+        flops per level plus a fixed per-level charge (the JAX package's;
+        the ordering it picks must be the same)."""
+        total = 0.0
+        for sids in sym.levels:
+            widths = sym.snode_width[sids]
+            rs = np.asarray([len(sym.snode_rows[s]) for s in sids])
+            W = int(widths.max())
+            R = int(rs.max()) if len(rs) else 0
+            F = W + R
+            total += len(sids) * (float(F) ** 2) * W + level_overhead_flops
+        return total
+
+    def __init__(self, bound: BoundGraph, order: str = "auto",
+                 relax_tau: float = 0.3, force_width: int = 16,
+                 max_width: int = 64):
+        layout = bound.layout
+        self.layout = layout
+        self.var_dims = []
+        self.var_offsets = []
+        var_id = {}
+        for t in layout.type_order:
+            d = manifolds.get(t).dim
+            for r in range(len(layout.offsets[t])):
+                var_id[(t, r)] = len(self.var_dims)
+                self.var_dims.append(d)
+                self.var_offsets.append(int(layout.offsets[t][r]))
+        self.nvars = len(self.var_dims)
+        self.var_dims = np.asarray(self.var_dims)
+        self.var_offsets = np.asarray(self.var_offsets)
+        self.d = int(self.var_dims.max()) if self.nvars else 0
+
+        self.batch_var_ids = []
+        for b, st in zip(bound.graph.batches, bound.structures):
+            self.batch_var_ids.append(np.stack([
+                np.asarray([var_id[(t, int(r))] for r in st.rows[s]])
+                for s, t in enumerate(b.var_types)], axis=1))
+
+        adj = ordering_mod.adjacency_from_factors(self.batch_var_ids,
+                                                  self.nvars)
+        kw = dict(relax_tau=relax_tau, force_width=force_width,
+                  max_width=max_width)
+        self.chosen_order = order
+        if order == "natural":
+            sym = sn_mod.analyze_supernodal(
+                adj, ordering_mod.natural(self.nvars), **kw)
+        elif order == "amd":
+            sym = sn_mod.analyze_supernodal(
+                adj, ordering_mod.minimum_degree(adj), **kw)
+        elif order == "nd":
+            sym = sn_mod.analyze_supernodal(
+                adj, ordering_mod.nested_dissection(adj), **kw)
+        else:
+            # auto: AMD, native ND and ND by BFS, scored by the level cost
+            cands = []
+            for nm, p in (
+                    ("amd", ordering_mod.minimum_degree(adj)),
+                    ("nd", ordering_mod.nested_dissection(adj,
+                                                          method="native")),
+                    ("nd-bfs", ordering_mod.nested_dissection(adj,
+                                                              method="bfs"))):
+                s = sn_mod.analyze_supernodal(adj, p, **kw)
+                cands.append((self._level_cost(s), nm, s))
+            cands.sort(key=lambda t: t[0])
+            sym = cands[0][2]
+            self.chosen_order = cands[0][1]
+        self.sym = sym
+        n, d = self.nvars, self.d
+        B = sym.nnz_blocks
+        self.B = B
+
+        # -- per-level plans (the JAX package's, loop for loop) -------------
+        self.level_plans: List[_LevelPlan] = []
+        for sids in sym.levels:
+            S = len(sids)
+            widths = sym.snode_width[sids]
+            rsizes = np.asarray([len(sym.snode_rows[s]) for s in sids])
+            W = int(widths.max())
+            R = int(rsizes.max()) if len(rsizes) else 0
+            diag_ids = np.full((S, W, W), B, dtype=np.int32)
+            diag_flip = np.zeros((S, W, W), dtype=bool)
+            col_vars = np.full((S, W), n, dtype=np.int32)
+            dsc_src, dsc_tgt = [], []
+            xs_src, xs_tgt = [], []
+            for si, s in enumerate(sids):
+                c0, w = int(sym.snode_start[s]), int(sym.snode_width[s])
+                col_vars[si, :w] = np.arange(c0, c0 + w)
+                for a in range(w):
+                    xs_src.append(si * W + a)
+                    xs_tgt.append(c0 + a)
+                    for b in range(w):
+                        if a >= b:
+                            diag_ids[si, a, b] = sym.block_of[(c0 + a, c0 + b)]
+                            dsc_src.append(si * W * W + a * W + b)
+                            dsc_tgt.append(sym.block_of[(c0 + a, c0 + b)])
+                        else:
+                            diag_ids[si, a, b] = sym.block_of[(c0 + b, c0 + a)]
+                            diag_flip[si, a, b] = True
+            pad_cols = (np.arange(W)[None, :] >= widths[:, None])  # (S, W)
+            diag_pad = np.repeat(pad_cols, d, axis=1).astype(np.float64)
+            # valid pivots: unpadded col slot AND true manifold dim
+            vd = np.zeros((S, W * d), dtype=bool)
+            for si, s in enumerate(sids):
+                c0, w = int(sym.snode_start[s]), int(sym.snode_width[s])
+                for a in range(w):
+                    dim = self.var_dims[sym.perm[c0 + a]]
+                    vd[si, a * d:a * d + dim] = True
+            panel_ids = row_vars = None
+            psc_src = psc_tgt = None
+            schur = fwd = None
+            if R > 0:
+                panel_ids = np.full((S, R, W), B, dtype=np.int32)
+                row_vars = np.full((S, R), n, dtype=np.int32)
+                psc_src, psc_tgt = [], []
+                sc_src, sc_tgt = [], []
+                fw_src, fw_tgt = [], []
+                for si, s in enumerate(sids):
+                    c0, w = int(sym.snode_start[s]), int(sym.snode_width[s])
+                    rows = sym.snode_rows[s]
+                    row_vars[si, :len(rows)] = rows
+                    for a, ra in enumerate(rows):
+                        fw_src.append(si * R + a)
+                        fw_tgt.append(int(ra))
+                        for b in range(w):
+                            bid = sym.block_of[(int(ra), c0 + b)]
+                            panel_ids[si, a, b] = bid
+                            psc_src.append(si * R * W + a * W + b)
+                            psc_tgt.append(bid)
+                        for b in range(a + 1):
+                            sc_src.append(si * R * R + a * R + b)
+                            sc_tgt.append(sym.block_of[(int(ra),
+                                                        int(rows[b]))])
+                sc_src = np.asarray(sc_src, dtype=np.int32)
+                sc_tgt = np.asarray(sc_tgt, dtype=np.int32)
+                so, seg, uniq = _sorted_segments(sc_tgt)
+                schur = (sc_src[so], seg, uniq)
+                fw_src = np.asarray(fw_src, dtype=np.int32)
+                fw_tgt = np.asarray(fw_tgt, dtype=np.int32)
+                fo, fseg, funiq = _sorted_segments(fw_tgt)
+                fwd = (fw_src[fo], fseg, funiq)
+                psc_src = np.asarray(psc_src, dtype=np.int32)
+                psc_tgt = np.asarray(psc_tgt, dtype=np.int32)
+            self.level_plans.append(_LevelPlan(
+                snodes=sids, S=S, W=W, R=R,
+                diag_ids=diag_ids, diag_flip=diag_flip, diag_pad=diag_pad,
+                valid_diag=vd, col_vars=col_vars,
+                panel_ids=panel_ids, row_vars=row_vars,
+                diag_sc_src=np.asarray(dsc_src, dtype=np.int32),
+                diag_sc_tgt=np.asarray(dsc_tgt, dtype=np.int32),
+                panel_sc_src=psc_src, panel_sc_tgt=psc_tgt,
+                schur_src=None if schur is None else schur[0],
+                schur_seg=None if schur is None else schur[1],
+                schur_tgt=None if schur is None else schur[2],
+                fwd_src=None if fwd is None else fwd[0],
+                fwd_seg=None if fwd is None else fwd[1],
+                fwd_tgt=None if fwd is None else fwd[2],
+                x_sc_src=np.asarray(xs_src, dtype=np.int32),
+                x_sc_tgt=np.asarray(xs_tgt, dtype=np.int32),
+            ))
+
+        # -- assembly plan: one sorted segment-sum over all contributions ----
+        # JAX order: per (batch, slot pair) the batch's N blocks; the flips
+        # per pair were computed here, in plan order
+        asm_tgt, self._asm_plan = [], []
+        pos = 0
+        for ids in self.batch_var_ids:
+            arity = ids.shape[1]
+            for s1, s2 in _slot_pairs(arity):
+                ni = sym.inv_perm[ids[:, s1]]
+                nj = sym.inv_perm[ids[:, s2]]
+                flip = ni < nj
+                hi = np.maximum(ni, nj)
+                lo = np.minimum(ni, nj)
+                bids = np.asarray(
+                    [sym.block_of[(int(h), int(l))]
+                     for h, l in zip(hi, lo)], dtype=np.int32)
+                self._asm_plan.append((s1, s2, flip, pos))
+                asm_tgt.append(bids)
+                pos += len(bids)
+        if asm_tgt:
+            ao, aseg, auniq = _sorted_segments(np.concatenate(asm_tgt))
+            self._asm_order, self._asm_seg, self._asm_uniq = ao, aseg, auniq
+        else:
+            self._asm_order = self._asm_seg = self._asm_uniq = (
+                np.zeros(0, dtype=np.int32))
+        # gradient assembly: the same over (batch, slot) -> var targets
+        g_tgt = []
+        for ids in self.batch_var_ids:
+            for s in range(ids.shape[1]):
+                g_tgt.append(sym.inv_perm[ids[:, s]].astype(np.int32))
+        if g_tgt:
+            go, gseg, guniq = _sorted_segments(np.concatenate(g_tgt))
+            self._g_order, self._g_seg, self._g_uniq = go, gseg, guniq
+        else:
+            self._g_order = self._g_seg = self._g_uniq = (
+                np.zeros(0, dtype=np.int32))
+
+        # identity on padding diagonal (true dims < d), by NEW col id
+        self.pad_diag = np.zeros((self.nvars, self.d))
+        for v in range(self.nvars):
+            self.pad_diag[sym.inv_perm[v], self.var_dims[v]:] = 1.0
+        self.bound = bound
+
+        # block-sparse symmetric matvec plan (refinement residual): y[r] +=
+        # B_k x[c] for every stored lower block, y[c] += B_k^T x[r] for the
+        # off-diagonal ones, both as sorted segment-sums
+        br, bc = sym.block_row, sym.block_col
+        ro, rseg, runiq = _sorted_segments(br)
+        offd = np.where(br != bc)[0].astype(np.int32)
+        co, cseg, cuniq = _sorted_segments(bc[offd])
+        self._mv_plan = (ro, rseg, runiq, offd, offd[co], cseg, cuniq)
+        self._port_plans()
+        self.to(bound.device)
+
+    def _port_plans(self):
+        """Host arrays the port's kernels read on top of the JAX plans: the
+        contribution buffer's layout (factor-major per batch: factor n's
+        slot pairs, then its slots), the assembly CSRs over that layout,
+        and the CSR offsets of the Schur, forward and matvec segments."""
+        n, B = self.nvars, self.B
+        sym = self.sym
+        h_port, g_port = [], []
+        self._h_base, self._g_base = [], []
+        hb = gb = 0
+        for ids in self.batch_var_ids:
+            N, arity = ids.shape
+            npair = len(_slot_pairs(arity))
+            self._h_base.append(hb)
+            self._g_base.append(gb)
+            for p in range(npair):     # JAX position (pair p, factor k)
+                h_port.append(hb + np.arange(N) * npair + p)
+            for s in range(arity):
+                g_port.append(gb + np.arange(N) * arity + s)
+            hb += N * npair
+            gb += N * arity
+        self._n_hc, self._n_gc = hb, gb
+        h_port = np.concatenate(h_port) if h_port else np.zeros(0, np.int64)
+        g_port = np.concatenate(g_port) if g_port else np.zeros(0, np.int64)
+        self.asm_src = h_port[self._asm_order].astype(np.int32)
+        counts = np.zeros(B + 1, np.int64)
+        counts[self._asm_uniq] = np.bincount(self._asm_seg,
+                                             minlength=len(self._asm_uniq))
+        self.blk_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(
+            np.int32)
+        self.g_src = g_port[self._g_order].astype(np.int32)
+        gcounts = np.zeros(n, np.int64)
+        gcounts[self._g_uniq] = np.bincount(self._g_seg,
+                                            minlength=len(self._g_uniq))
+        self.g_ptr = np.concatenate([[0], np.cumsum(gcounts)]).astype(
+            np.int32)
+        self.diag_col = np.full(B + 1, -1, np.int32)
+        self.diag_col[sym.diag_block_by_col] = np.arange(n, dtype=np.int32)
+        ro, rseg, runiq, offd, coi, cseg, cuniq = self._mv_plan
+        self.mv_row_blk = ro.astype(np.int32)
+        self.mv_row_ptr = np.concatenate(
+            [[0], np.cumsum(np.bincount(sym.block_row, minlength=n))]
+        ).astype(np.int32)
+        self.mv_col_blk = coi.astype(np.int32)
+        self.mv_col_ptr = np.concatenate(
+            [[0], np.cumsum(np.bincount(sym.block_col[coi], minlength=n))]
+        ).astype(np.int32)
+        self.schur_ptr = [None if lp.R == 0 else
+                          _seg_ptr(lp.schur_seg, len(lp.schur_tgt))
+                          for lp in self.level_plans]
+        self.fwd_ptr = [None if lp.R == 0 else
+                        _seg_ptr(lp.fwd_seg, len(lp.fwd_tgt))
+                        for lp in self.level_plans]
+        # flat canonical index -> flat (permuted var, component) index
+        src = []
+        for v in range(n):
+            src.append(self.sym.inv_perm[v] * self.d
+                       + np.arange(self.var_dims[v]))
+        order = np.argsort(self.var_offsets, kind="stable")
+        self.flat_src = (np.concatenate([src[v] for v in order])
+                         if n else np.zeros(0, np.int64))
+
+    def to(self, device) -> "SupernodalCholeskySolver":
+        """Move the plans to `device` (once; the solver then runs there)."""
+        dev = torch.device(device)
+        self.device = dev
+
+        def t(a, dtype=I32):
+            return None if a is None else torch.as_tensor(
+                np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+        sym = self.sym
+        self.dev = types.SimpleNamespace(
+            asm_src=t(self.asm_src), blk_ptr=t(self.blk_ptr),
+            g_src=t(self.g_src), g_ptr=t(self.g_ptr),
+            diag_col=t(self.diag_col), pad_diag=t(self.pad_diag, F64),
+            dbc=t(sym.diag_block_by_col), block_row=t(sym.block_row),
+            block_col=t(sym.block_col), mv_row_ptr=t(self.mv_row_ptr),
+            mv_row_blk=t(self.mv_row_blk), mv_col_ptr=t(self.mv_col_ptr),
+            mv_col_blk=t(self.mv_col_blk),
+            flat_src=t(self.flat_src, torch.long),
+            flips=[[t(flip, torch.bool) for (_, _, flip, _) in pairs]
+                   for pairs in self._batch_pairs()],
+            levels=[types.SimpleNamespace(
+                S=lp.S, W=lp.W, R=lp.R,
+                diag_ids=t(lp.diag_ids), diag_flip=t(lp.diag_flip, torch.bool),
+                diag_pad=t(lp.diag_pad, F64),
+                valid_diag=t(lp.valid_diag, torch.bool),
+                col_vars=t(lp.col_vars), panel_ids=t(lp.panel_ids),
+                row_vars=t(lp.row_vars), schur_src=t(lp.schur_src),
+                schur_ptr=t(sp), schur_tgt=t(lp.schur_tgt),
+                fwd_src=t(lp.fwd_src), fwd_ptr=t(fp), fwd_tgt=t(lp.fwd_tgt))
+                for lp, sp, fp in zip(self.level_plans, self.schur_ptr,
+                                      self.fwd_ptr)])
+        return self
+
+    def _batch_pairs(self):
+        """The assembly plan's (s1, s2, flip, pos) entries, per batch."""
+        out, k = [], 0
+        for ids in self.batch_var_ids:
+            npair = len(_slot_pairs(ids.shape[1]))
+            out.append(self._asm_plan[k:k + npair])
+            k += npair
+        return out
+
+    # -- system assembly -------------------------------------------------
+
+    def system(self, arrays):
+        """Linearize and assemble: (blocks (B+1, d*d) — the flat block store,
+        one row per stored (d, d) block, the last row the zero sentinel —
+        and g (nvars, d) in the permuted order)."""
+        d, dv = self.d, self.dev
+        bound = self.bound
+        hc = torch.empty((self._n_hc, d * d), dtype=F64, device=self.device)
+        gc = torch.empty((self._n_gc, d), dtype=F64, device=self.device)
+        for bi, (b, st) in enumerate(zip(bound.graph.batches,
+                                         bound.structures)):
+            N, arity = b.num_factors, b.arity
+            npair = len(_slot_pairs(arity))
+            H = hc[self._h_base[bi]:self._h_base[bi] + N * npair].view(
+                N, npair, d * d)
+            gv = gc[self._g_base[bi]:self._g_base[bi] + N * arity].view(
+                N, arity, d)
+            flips = dv.flips[bi]
+            if factors_mod.se3_route(b) is not None:
+                flip = flips[1] if arity == 2 else flips[0]
+                K.pg_linearize(arrays["SE3"].R, arrays["SE3"].t, st.rows_i32,
+                               b.measurements.R, b.measurements.t,
+                               b.noise.kind, b.noise.data, b.sign, flip, H,
+                               gv)
+                continue
+            wJ, bvec = bound.linearize_batch(bi, arrays)
+            dims = b.dims()
+            H.zero_()
+            gv.zero_()
+            Hv = H.view(N, npair, d, d)
+            for p, (s1, s2) in enumerate(_slot_pairs(arity)):
+                Hij = b.sign * torch.einsum("nri,nrj->nij", wJ[s1], wJ[s2])
+                Hij = torch.nn.functional.pad(Hij, (0, d - dims[s2],
+                                                    0, d - dims[s1]))
+                Hv[:, p] = torch.where(flips[p][:, None, None],
+                                       Hij.transpose(1, 2), Hij)
+            for s in range(arity):
+                gv[:, s, :dims[s]] = b.sign * torch.einsum("nrd,nr->nd",
+                                                           wJ[s], bvec)
+        return K.pg_assemble(hc, gc, dv.asm_src, dv.blk_ptr, dv.g_src,
+                             dv.g_ptr, dv.diag_col, dv.pad_diag)
+
+    # -- numeric factorization -------------------------------------------
+
+    def factorize(self, blocks, lam=0.0, diagonal_damping: bool = False,
+                  min_diag: float = 1e-6, max_diag: float = 1e32) -> Factored:
+        """The per-level dense factors of (H + damping); `blocks` is not
+        changed (the Schur updates go to a working copy).  ok / badcol:
+        all pivots finite and positive / the first offending permuted
+        column or -1 (reference splitConditional,
+        gtsam/linear/JacobianFactor.cpp:838)."""
+        dv = self.dev
+        work = blocks.clone()
+        state = torch.tensor([1, -1], dtype=I32, device=self.device)
+        Ls, Lps = [], []
+        for lv in dv.levels:
+            front, panel = K.sn_front_gather(
+                work, blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
+                lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, lam,
+                diagonal_damping, min_diag, max_diag)
+            L, info = torch.linalg.cholesky_ex(front)
+            Lp = None
+            if lv.R:
+                Lp = torch.linalg.solve_triangular(L.mT, panel, upper=True,
+                                                   left=False)   # A L^-T
+            K.sn_pivot_check(L, Lp, info, lv.valid_diag, lv.col_vars, state)
+            if lv.R:
+                K.sn_schur_scatter(torch.bmm(Lp, Lp.mT), lv.schur_src,
+                                   lv.schur_ptr, lv.schur_tgt, work)
+            Ls.append(L)
+            Lps.append(Lp)
+        return Factored(Ls, Lps, state[0] == 1, state[1])
+
+    def damp_vec(self, blocks, lam, diagonal_damping, min_diag=1e-6,
+                 max_diag=1e32):
+        """(n, d) additive diagonal damping, as factorize() applies it."""
+        return K.damp_vec(blocks, self.dev.dbc, self.dev.pad_diag, lam,
+                          diagonal_damping, min_diag, max_diag)
+
+    def matvec(self, blocks, x, lam=0.0, diagonal_damping: bool = False):
+        """(H + damping) x on the block store; x and the result (n, d) in
+        the permuted layout."""
+        dv = self.dev
+        return K.sn_matvec(blocks, x, dv.mv_row_ptr, dv.mv_row_blk,
+                           dv.mv_col_ptr, dv.mv_col_blk, dv.block_row,
+                           dv.block_col, dv.dbc, dv.pad_diag, lam,
+                           diagonal_damping)
+
+    def _solve_padded(self, factored: Factored, g):
+        """Forward and backward substitution; x (n, d) in the permuted
+        layout."""
+        n, d = self.nvars, self.d
+        acc = torch.zeros((n + 1, d), dtype=F64, device=self.device)
+        ys = []
+        for lv, L, P in zip(self.dev.levels, factored.Ldiag,
+                            factored.Lpanel):
+            y, c = K.sn_forward_level(g, acc, L, P, lv.col_vars)
+            ys.append(y)
+            if P is not None:
+                K.sn_segment_add(c, lv.fwd_src, lv.fwd_ptr, lv.fwd_tgt, acc)
+        x = torch.zeros((n + 1, d), dtype=F64, device=self.device)
+        for lv, L, P, y in zip(reversed(self.dev.levels),
+                               reversed(factored.Ldiag),
+                               reversed(factored.Lpanel), reversed(ys)):
+            K.sn_backward_level(y, L, P, lv.row_vars, lv.col_vars, x)
+        return x[:n]
+
+    def solve_refined(self, blocks, g, lam=0.0,
+                      diagonal_damping: bool = False, refine_iters: int = 2):
+        """Factorize, solve, and refine refine_iters times against the
+        float64 matvec: (flat delta in the canonical layout, ok)."""
+        factored = self.factorize(blocks, lam, diagonal_damping)
+        x = self._solve_padded(factored, g)
+        for _ in range(refine_iters):
+            r = g - self.matvec(blocks, x, lam, diagonal_damping)
+            x = x + self._solve_padded(factored, r)
+        return self._flatten(x), factored.ok
+
+    def solve_factored(self, factored: Factored, g):
+        """Forward + backward substitution; flat delta (canonical)."""
+        return self._flatten(self._solve_padded(factored, g))
+
+    def _flatten(self, x):
+        """(n, d) permuted-padded solution -> flat delta (canonical)."""
+        return x.reshape(-1)[self.dev.flat_src]
+
+    def pack_rhs(self, vec):
+        """Canonical flat (total_dim,) vector -> (nvars, d) permuted-padded
+        layout (the inverse of _flatten; padded dims 0)."""
+        out = torch.zeros(self.nvars * self.d, dtype=vec.dtype,
+                          device=vec.device)
+        out[self.dev.flat_src] = vec
+        return out.view(self.nvars, self.d)
+
+    def solve(self, arrays, lam=0.0, diagonal_damping: bool = False,
+              refine_iters: int = 0):
+        blocks, g = self.system(arrays)
+        return self.solve_refined(blocks, g, lam, diagonal_damping,
+                                  refine_iters)[0]
+
+    def check_system(self, arrays, lam=0.0):
+        """Factorize and raise IndeterminantLinearSystemError on a bad
+        pivot, naming the variable in the canonical order."""
+        blocks, _ = self.system(arrays)
+        f = self.factorize(blocks, lam)
+        if not bool(f.ok):
+            c = int(f.badcol)
+            raise IndeterminantLinearSystemError(
+                int(self.sym.perm[c]) if c >= 0 else -1)

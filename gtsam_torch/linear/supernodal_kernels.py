@@ -1,0 +1,605 @@
+"""Wrappers of the hand-written CUDA kernels of the pose-graph path.
+
+Kernels 6-9 (csrc/pg_between.cu, sn_factor.cu, sn_solve.cu, sn_matvec.cu)
+port the device routines of the JAX package's pose-graph LM: the SE3
+between/prior linearization with block-store assembly
+(gtsam_tpu/graph/factors.py, linear/supernodal.py::system), the
+level-batched supernodal factorization (supernodal.py::factorize), the
+forward and backward substitution (_solve_padded) and the refinement matvec
+(matvec).  Every tensor is float64 (int32 indices, bool masks), row-major
+and contiguous, in the layout of gtsam_torch/linear/supernodal.py: the
+block store is (B+1, d*d) with a zero sentinel row B, vectors are (n, d) in
+the permuted (elimination) order.  Each wrapper
+  - on CPU tensors computes its plain PyTorch version (`*_plain`), which the
+    CPU tests compare against the JAX package;
+  - on CUDA tensors checks dtype, shape, contiguity and device, launches its
+    kernel on the current stream and counts the launch.
+It never falls back to the plain version on a CUDA tensor.  No kernel uses
+atomics: every sum runs in an order fixed by the plan, so two runs on the
+same inputs give the same bits.
+
+The dense algebra of each level (batched Cholesky, panel triangular solve,
+Lp Lp^T) stays on torch.linalg / torch.bmm between kernel 7's launches, as
+the JAX package leaves it to XLA (jnp.linalg.cholesky,
+lax.linalg.triangular_solve, einsum).
+"""
+
+import torch
+
+from .. import _kernels
+from .._kernels import (DBL, INT, P, Kernel, check, on_cpu, ptr,
+                       segment_owner)
+from ..geometry import se3
+from ..geometry.se3 import SE3
+
+F64 = torch.float64
+I32 = torch.int32
+BOOL = torch.bool
+
+NOISE_KINDS = {"unit": 0, "diagonal": 1, "gaussian": 2}
+
+KERNELS = _kernels.table(
+    Kernel("pg_linearize", "pg_between", "pg_linearize",
+           "gtsam_tpu/graph/factors.py:147",
+           [INT, INT, INT] + [P] * 5 + [INT, INT, P, DBL, P, P, P]),
+    Kernel("pg_assemble", "pg_between", "pg_assemble",
+           "gtsam_tpu/linear/supernodal.py:320", [INT] * 3 + [P] * 10),
+    Kernel("pg_error", "pg_between", "pg_error",
+           "gtsam_tpu/graph/graph.py:108",
+           [INT, INT] + [P] * 5 + [INT, INT, P, DBL, P]),
+    Kernel("sn_front_gather", "sn_factor", "sn_front_gather",
+           "gtsam_tpu/linear/supernodal.py:383",
+           [INT] * 5 + [P] * 9 + [DBL, INT, DBL, DBL, P, P]),
+    Kernel("sn_pivot_check", "sn_factor", "sn_pivot_check",
+           "gtsam_tpu/linear/supernodal.py:405", [INT] * 4 + [P] * 6),
+    Kernel("sn_schur_scatter", "sn_factor", "sn_schur_scatter",
+           "gtsam_tpu/linear/supernodal.py:436", [INT] * 5 + [P] * 5),
+    Kernel("sn_forward_level", "sn_solve", "sn_forward_level",
+           "gtsam_tpu/linear/supernodal.py:580", [INT] * 5 + [P] * 7),
+    Kernel("sn_segment_add", "sn_solve", "sn_segment_add",
+           "gtsam_tpu/linear/supernodal.py:589", [INT] * 2 + [P] * 5),
+    Kernel("sn_backward_level", "sn_solve", "sn_backward_level",
+           "gtsam_tpu/linear/supernodal.py:593", [INT] * 5 + [P] * 6),
+    Kernel("sn_matvec", "sn_matvec", "sn_matvec",
+           "gtsam_tpu/linear/supernodal.py:456",
+           [INT] * 2 + [P] * 10 + [DBL, INT, DBL, DBL, P]),
+)
+
+
+def _tensors(*maybe):
+    """The arguments that are not None (optional tensors)."""
+    return tuple(t for t in maybe if t is not None)
+
+
+def _dense(t):
+    """(t, 0) for a contiguous t, (t.mT, 1) for one stored column-major per
+    batch entry, as cholesky_ex and solve_triangular leave their results on
+    the card; the first is what the shape and contiguity checks see."""
+    if t is None or t.is_contiguous() or not t.mT.is_contiguous():
+        return t, 0
+    return t.mT, 1
+
+
+def _colmajor(t):
+    """The (S, k, m) row-major view of t (S, m, k) stored column-major per
+    batch entry, as cholesky_ex and solve_triangular leave their results on
+    the card; a copy for any other layout.  Kernel 8 reads only this one."""
+    return t.mT if t.mT.is_contiguous() else t.mT.contiguous()
+
+
+def _width(dd):
+    d = int(round(dd ** 0.5))
+    if d * d != dd:
+        raise ValueError(f"block width {dd} is not a square")
+    return d
+
+
+# -- kernel 6: SE3 between / prior linearization, assembly, error -------------
+
+
+def _pair_slots(arity):
+    return ((0, 0), (0, 1), (1, 1)) if arity == 2 else ((0, 0),)
+
+
+def _residual_plain(R, t, rows, ZR, Zt):
+    """r = Log(Z^-1 T_i^-1 T_j) (between) or Log(Z^-1 T_i) (prior), and the
+    relative pose T_j^-1 T_i of a between factor (None for a prior)."""
+    r0 = rows[:, 0].long()
+    Ti = SE3(R[r0], t[r0])
+    Z = SE3(ZR, Zt)
+    if rows.shape[1] == 1:
+        return se3.logmap(se3.between(Z, Ti)), None
+    r1 = rows[:, 1].long()
+    Tj = SE3(R[r1], t[r1])
+    return (se3.logmap(se3.between(Z, se3.between(Ti, Tj))),
+            se3.between(Tj, Ti))
+
+
+def _whiten(kind, noise, r):
+    if kind == "unit":
+        return r
+    if kind == "diagonal":
+        return r * noise
+    return (noise @ r[..., None])[..., 0]
+
+
+def pg_jacobians_plain(R, t, rows, ZR, Zt, kind, noise):
+    """Whitened Jacobians (A_0[, A_1]) (N, 6, 6) and b = -R_w r (N, 6) of
+    SE3 between (arity 2) or prior (arity 1) factors, in closed form: with
+    r = Log(Z^-1 T_i^-1 T_j), A_j = R_w Jr^-1(r) and
+    A_i = -R_w Jr^-1(r) Ad(T_j^-1 T_i); a prior has A = R_w Jr^-1(r)."""
+    r, Tji = _residual_plain(R, t, rows, ZR, Zt)
+    Jinv = se3.right_jacobian_inverse(r)
+    J = (Jinv,) if Tji is None else (-(Jinv @ se3.adjoint(Tji)), Jinv)
+    if kind == "unit":
+        A = J
+    elif kind == "diagonal":
+        A = tuple(Ji * noise[..., None] for Ji in J)
+    else:
+        A = tuple(noise @ Ji for Ji in J)
+    return A, -_whiten(kind, noise, r)
+
+
+def pg_linearize_plain(R, t, rows, ZR, Zt, kind, noise, sign, flip, H, gv):
+    A, b = pg_jacobians_plain(R, t, rows, ZR, Zt, kind, noise)
+    N, arity = rows.shape
+    d = gv.shape[2]
+    H.zero_()
+    gv.zero_()
+    Hv = H.view(N, -1, d, d)
+    for p, (s1, s2) in enumerate(_pair_slots(arity)):
+        Hij = sign * torch.einsum("nri,nrj->nij", A[s1], A[s2])
+        if s1 != s2:
+            Hij = torch.where(flip[:, None, None], Hij.transpose(1, 2), Hij)
+        Hv[:, p, :6, :6] = Hij
+    for s in range(arity):
+        gv[:, s, :6] = sign * torch.einsum("nrd,nr->nd", A[s], b)
+
+
+def _se3_specs(name, R, t, rows, ZR, Zt, kind, noise, *extra):
+    """Checks of the arguments of pg_linearize and pg_error (`extra`: more
+    specs); returns (device, noise kind code, noise stride, noise
+    pointer)."""
+    Nv, (N, arity) = R.shape[0], rows.shape
+    if arity not in (1, 2):
+        raise ValueError(f"{name}: rows must have 1 or 2 slots, got {arity}")
+    specs = [("R", R, F64, (Nv, 3, 3)), ("t", t, F64, (Nv, 3)),
+             ("rows", rows, I32, (N, arity)), ("ZR", ZR, F64, (N, 3, 3)),
+             ("Zt", Zt, F64, (N, 3))]
+    if kind not in NOISE_KINDS:
+        raise NotImplementedError(f"{name}: noise kind {kind!r}")
+    if kind != "unit":
+        M = noise.shape[0]
+        if M not in (1, N):
+            raise ValueError(f"{name}: noise must have 1 or {N} rows, got {M}")
+        specs.append(("noise", noise, F64,
+                      (M, 6) if kind == "diagonal" else (M, 6, 6)))
+    dev = check(name, *specs, *extra)
+    if kind == "unit":
+        return dev, 0, 0, 0
+    stride = 0 if noise.shape[0] == 1 else noise[0].numel()
+    return dev, NOISE_KINDS[kind], stride, ptr(noise)
+
+
+def pg_linearize(R, t, rows, ZR, Zt, kind, noise, sign, flip, H, gv):
+    """Kernel 6, linearize: for each SE3 between (arity 2) or prior (arity
+    1) factor n, writes sign A_s1^T A_s2 of each slot pair (s1 <= s2; the
+    (0, 1) block transposed where flip[n]) into H[n, pair] ((N, P, d*d), P
+    = 3 or 1, zero outside the leading 6x6) and sign A_s^T b into
+    gv[n, s] ((N, arity, d)).  R, t: the SE3 values; rows: (N, arity)
+    int32 rows of the slots; ZR, Zt: the measurements; noise: None (unit),
+    (1 or N, 6) inverse sigmas or (1 or N, 6, 6) square-root informations."""
+    args = (R, t, rows, ZR, Zt)
+    if on_cpu(*args, *_tensors(noise), flip, H, gv):
+        return pg_linearize_plain(*args, kind, noise, sign, flip, H, gv)
+    N, arity = rows.shape
+    d = gv.shape[-1]
+    dev, code, stride, nptr = _se3_specs(
+        "pg_linearize", *args, kind, noise, ("flip", flip, BOOL, (N,)),
+        ("H", H, F64, (N, len(_pair_slots(arity)), d * d)),
+        ("gv", gv, F64, (N, arity, d)))
+    if d < 6:
+        raise ValueError(f"pg_linearize: block width {d} < 6")
+    KERNELS["pg_linearize"].launch(dev, N, arity, d, *map(ptr, args), code,
+                                   stride, nptr, float(sign), ptr(flip),
+                                   ptr(H), ptr(gv))
+
+
+def pg_error_plain(R, t, rows, ZR, Zt, kind, noise, sign):
+    r, _ = _residual_plain(R, t, rows, ZR, Zt)
+    wr = _whiten(kind, noise, r)
+    return sign * (0.5 * torch.sum(wr * wr))
+
+
+# threads of pg_error_kernel's single block (kErrorThreads in pg_between.cu)
+ERROR_THREADS = 512
+
+
+def pg_error(R, t, rows, ZR, Zt, kind, noise, sign):
+    """Kernel 6, error: sign * 0.5 * sum ||R_w r||^2 over the batch's SE3
+    between or prior factors, a 0-d tensor.  On the card one launch of one
+    block, summed in an order fixed by N alone."""
+    args = (R, t, rows, ZR, Zt)
+    if on_cpu(*args, *_tensors(noise)):
+        return pg_error_plain(*args, kind, noise, sign)
+    N, arity = rows.shape
+    dev, code, stride, nptr = _se3_specs("pg_error", *args, kind, noise)
+    out = torch.empty((), dtype=F64, device=dev)
+    KERNELS["pg_error"].launch(dev, N, arity, *map(ptr, args), code, stride,
+                               nptr, float(sign), ptr(out))
+    return out
+
+
+def pg_assemble_plain(hc, gc, asm_src, blk_ptr, g_src, g_ptr, diag_col,
+                      pad_diag):
+    nb, dd = blk_ptr.numel() - 1, hc.shape[1]
+    n, d = pad_diag.shape
+    blocks = torch.zeros((nb, dd), dtype=F64, device=hc.device).index_add_(
+        0, segment_owner(blk_ptr), hc[asm_src.long()])
+    has = diag_col >= 0
+    dg = torch.arange(d, device=hc.device) * (d + 1)
+    rows = torch.nonzero(has)[:, 0]
+    blocks[rows[:, None], dg[None, :]] += pad_diag[diag_col[has].long()]
+    g = torch.zeros((n, d), dtype=F64, device=hc.device).index_add_(
+        0, segment_owner(g_ptr), gc[g_src.long()])
+    return blocks, g
+
+
+def pg_assemble(hc, gc, asm_src, blk_ptr, g_src, g_ptr, diag_col, pad_diag):
+    """Kernel 6, assemble: blocks[b] = sum of hc[asm_src[k]] over k in
+    [blk_ptr[b], blk_ptr[b+1]), in that order, plus the identity on the
+    padded dimensions of the diagonal block of column diag_col[b] (-1: none);
+    g[v] = sum of gc[g_src[k]] over v's range of g_ptr.  Returns the block
+    store (B+1, d*d) (row B, the sentinel, stays 0) and g (n, d)."""
+    args = (hc, gc, asm_src, blk_ptr, g_src, g_ptr, diag_col, pad_diag)
+    if on_cpu(*args):
+        return pg_assemble_plain(*args)
+    C, dd = hc.shape
+    Cg, d = gc.shape
+    nb, n = blk_ptr.shape[0] - 1, pad_diag.shape[0]
+    dev = check("pg_assemble", ("hc", hc, F64, (C, d * d)),
+                ("gc", gc, F64, (Cg, d)),
+                ("asm_src", asm_src, I32, (asm_src.shape[0],)),
+                ("blk_ptr", blk_ptr, I32, (nb + 1,)),
+                ("g_src", g_src, I32, (g_src.shape[0],)),
+                ("g_ptr", g_ptr, I32, (n + 1,)),
+                ("diag_col", diag_col, I32, (nb,)),
+                ("pad_diag", pad_diag, F64, (n, d)))
+    blocks = torch.empty((nb, dd), dtype=F64, device=dev)
+    g = torch.empty((n, d), dtype=F64, device=dev)
+    KERNELS["pg_assemble"].launch(dev, nb, n, d, *map(ptr, args),
+                                  ptr(blocks), ptr(g))
+    return blocks, g
+
+
+# -- kernel 7: the level step of the supernodal factorization ---------------
+
+
+def _damp_entries(blocks, col_vars, valid, dbc, d, lam, diagonal_damping,
+                  min_diag, max_diag):
+    """The damping of each front diagonal entry (S, W*d): lam, or
+    lam * clip(H_cc[k, k]) of the undamped store, on true dimensions
+    only."""
+    n = dbc.shape[0]
+    cols = col_vars.long().repeat_interleave(d, dim=1).clamp(max=n - 1)
+    if not diagonal_damping:
+        return valid.to(F64) * lam
+    k = torch.arange(cols.shape[1], device=blocks.device) % d
+    dv = blocks[dbc.long()[cols], k * (d + 1)].clamp(min_diag, max_diag)
+    return torch.where(valid, lam * dv, 0.0)
+
+
+def sn_front_gather_plain(work, blocks, diag_ids, diag_flip, diag_pad,
+                          valid_diag, col_vars, dbc, panel_ids, lam,
+                          diagonal_damping, min_diag=1e-6, max_diag=1e32):
+    S, W, _ = diag_ids.shape
+    d = _width(work.shape[1])
+    G = work[diag_ids.long()].reshape(S, W, W, d, d)
+    G = torch.where(diag_flip[..., None, None], G.transpose(-1, -2), G)
+    front = G.permute(0, 1, 3, 2, 4).reshape(S, W * d, W * d)
+    front.diagonal(dim1=1, dim2=2).add_(
+        diag_pad + _damp_entries(blocks, col_vars, valid_diag, dbc, d, lam,
+                                 diagonal_damping, min_diag, max_diag))
+    if panel_ids is None:
+        return front, None
+    R = panel_ids.shape[1]
+    Pb = work[panel_ids.long()].reshape(S, R, W, d, d)
+    return front, Pb.permute(0, 1, 3, 2, 4).reshape(S, R * d, W * d)
+
+
+def sn_front_gather(work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
+                    col_vars, dbc, panel_ids, lam, diagonal_damping,
+                    min_diag=1e-6, max_diag=1e32):
+    """Kernel 7, gather: one level's dense fronts (S, W*d, W*d) from the
+    working store `work` (diag_ids blocks, transposed where diag_flip), plus
+    diag_pad and the damping (lam, or lam * clip(diag, min_diag, max_diag)
+    of the undamped store `blocks`) on the true-dimension diagonal; and the
+    panels (S, R*d, W*d) of panel_ids (None when the level has no row
+    structure)."""
+    args = (work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
+            col_vars, dbc)
+    if on_cpu(*args, *_tensors(panel_ids)):
+        return sn_front_gather_plain(*args, panel_ids, lam, diagonal_damping,
+                                     min_diag, max_diag)
+    nb, dd = work.shape
+    d = _width(dd)
+    S, W, _ = diag_ids.shape
+    R = 0 if panel_ids is None else panel_ids.shape[1]
+    n = dbc.shape[0]
+    specs = [("work", work, F64, (nb, dd)), ("blocks", blocks, F64, (nb, dd)),
+             ("diag_ids", diag_ids, I32, (S, W, W)),
+             ("diag_flip", diag_flip, BOOL, (S, W, W)),
+             ("diag_pad", diag_pad, F64, (S, W * d)),
+             ("valid_diag", valid_diag, BOOL, (S, W * d)),
+             ("col_vars", col_vars, I32, (S, W)), ("dbc", dbc, I32, (n,))]
+    if R:
+        specs.append(("panel_ids", panel_ids, I32, (S, R, W)))
+    dev = check("sn_front_gather", *specs)
+    front = torch.empty((S, W * d, W * d), dtype=F64, device=dev)
+    panel = torch.empty((S, R * d, W * d), dtype=F64, device=dev) if R \
+        else None
+    KERNELS["sn_front_gather"].launch(
+        dev, S, W, R, d, n, *map(ptr, args), ptr(panel_ids) if R else 0,
+        float(lam), int(bool(diagonal_damping)), float(min_diag),
+        float(max_diag), ptr(front), ptr(panel) if R else 0)
+    return front, panel
+
+
+def sn_pivot_check_plain(L, Lp, info, valid_diag, col_vars, state):
+    S, Wd, _ = L.shape
+    d = Wd // col_vars.shape[1]
+    piv = L.diagonal(dim1=1, dim2=2)
+    idx = torch.arange(Wd, device=L.device)
+    failed_at = torch.where(info > 0, info - 1, Wd)
+    bad = ((valid_diag & (~torch.isfinite(piv) | (piv <= 0)))
+           | (idx[None, :] == failed_at[:, None])).reshape(-1)
+    anyb = bad.any()
+    first = bad.to(torch.int8).argmax()
+    col = col_vars.repeat_interleave(d, dim=1).reshape(-1)[first]
+    state[1] = torch.where((state[0] == 1) & anyb, col, state[1])
+    state[0] = torch.where(anyb, 0, state[0])
+    for X in (L, Lp):
+        if X is not None:
+            X.masked_fill_(~torch.isfinite(X), 0.0)
+
+
+def sn_pivot_check(L, Lp, info, valid_diag, col_vars, state):
+    """Kernel 7, pivots: a pivot of the level is bad when it is a true
+    dimension and not finite or not positive, or where cholesky_ex's info
+    says the front failed; the first bad pivot of the first bad level sets
+    state = (0, its permuted column) (state starts as (1, -1)).  Zeroes
+    every non-finite entry of L (S, W*d, W*d) and Lp (S, R*d, W*d; or
+    None), in place."""
+    args = (L, info, valid_diag, col_vars, state)
+    if on_cpu(*args, *_tensors(Lp)):
+        return sn_pivot_check_plain(L, Lp, info, valid_diag, col_vars, state)
+    S, Wd, _ = L.shape
+    W = col_vars.shape[1]
+    d = Wd // W
+    specs = [("L", _dense(L)[0], F64, (S, Wd, Wd)), ("info", info, I32, (S,)),
+             ("valid_diag", valid_diag, BOOL, (S, Wd)),
+             ("col_vars", col_vars, I32, (S, W)), ("state", state, I32, (2,))]
+    Rd = 0
+    if Lp is not None:
+        Rd = Lp.shape[1]
+        Lpc, cm = _dense(Lp)
+        specs.append(("Lp", Lpc, F64, (S, Wd, Rd) if cm else (S, Rd, Wd)))
+    dev = check("sn_pivot_check", *specs)
+    KERNELS["sn_pivot_check"].launch(dev, S, Wd, Rd, d, ptr(L),
+                                     ptr(Lp) if Rd else 0, ptr(info),
+                                     ptr(valid_diag), ptr(col_vars),
+                                     ptr(state))
+
+
+def sn_schur_scatter_plain(U, schur_src, schur_ptr, schur_tgt, work):
+    S, Rd, _ = U.shape
+    d = _width(work.shape[1])
+    R = Rd // d
+    Ub = U.reshape(S, R, d, R, d).permute(0, 1, 3, 2, 4).reshape(-1, d * d)
+    seg = torch.zeros((schur_tgt.shape[0], d * d), dtype=F64,
+                      device=U.device).index_add_(0, segment_owner(schur_ptr),
+                                                  Ub[schur_src.long()])
+    work[schur_tgt.long()] -= seg
+
+
+def sn_schur_scatter(U, schur_src, schur_ptr, schur_tgt, work):
+    """Kernel 7, Schur update: work[schur_tgt[i]] -= the sum of U's (d, d)
+    blocks schur_src[k] (flat (s, a, b) over (S, R, R)) for k in
+    [schur_ptr[i], schur_ptr[i+1]), in that order; U = Lp Lp^T
+    (S, R*d, R*d, row- or column-major).  Targets are unique: no
+    atomics."""
+    args = (U, schur_src, schur_ptr, schur_tgt, work)
+    if on_cpu(*args):
+        return sn_schur_scatter_plain(*args)
+    S, Rd, _ = U.shape
+    nb, dd = work.shape
+    d = _width(dd)
+    T = schur_tgt.shape[0]
+    Uc, u_cm = _dense(U)
+    dev = check("sn_schur_scatter", ("U", Uc, F64, (S, Rd, Rd)),
+                ("schur_src", schur_src, I32, (schur_src.shape[0],)),
+                ("schur_ptr", schur_ptr, I32, (T + 1,)),
+                ("schur_tgt", schur_tgt, I32, (T,)),
+                ("work", work, F64, (nb, dd)))
+    KERNELS["sn_schur_scatter"].launch(dev, S, Rd // d, d, T, u_cm,
+                                       *map(ptr, args))
+
+
+# -- kernel 8: forward and backward substitution -----------------------------
+
+
+def _solve_lower(L, rhs, transpose):
+    """L^-1 rhs, or L^-T rhs, batched over fronts: (S, Wd)."""
+    if transpose:
+        return torch.linalg.solve_triangular(L.mT, rhs[..., None],
+                                             upper=True)[..., 0]
+    return torch.linalg.solve_triangular(L, rhs[..., None],
+                                         upper=False)[..., 0]
+
+
+def sn_forward_level_plain(g, acc, L, P, col_vars):
+    S, W = col_vars.shape
+    n, d = g.shape
+    g_ext = torch.cat([g, torch.zeros((1, d), dtype=F64, device=g.device)])
+    rhs = (g_ext - acc)[col_vars.long()].reshape(S, W * d)
+    y = _solve_lower(L, rhs, False)
+    c = None if P is None else torch.einsum("sij,sj->si", P, y)
+    return y, c
+
+
+def sn_forward_level(g, acc, L, P, col_vars):
+    """Kernel 8, forward step of one level: rhs = (g - acc)[col_vars]
+    (sentinel n reads 0), y = L^-1 rhs per front (S, W*d) and c = P y
+    (S, R*d; None without a panel).  g (n, d); acc (n+1, d); L and P
+    column-major per front, as the library leaves them, are read in place
+    (another layout is copied first)."""
+    args = (g, acc, L, col_vars)
+    if on_cpu(*args, *_tensors(P)):
+        return sn_forward_level_plain(g, acc, L, P, col_vars)
+    n, d = g.shape
+    S, W = col_vars.shape
+    Wd = W * d
+    Lc = _colmajor(L)
+    specs = [("g", g, F64, (n, d)), ("acc", acc, F64, (n + 1, d)),
+             ("L", Lc, F64, (S, Wd, Wd)), ("col_vars", col_vars, I32, (S, W))]
+    R = 0
+    if P is not None:
+        R = P.shape[1] // d
+        Pc = _colmajor(P)
+        specs.append(("P", Pc, F64, (S, Wd, R * d)))
+    dev = check("sn_forward_level", *specs)
+    y = torch.empty((S, Wd), dtype=F64, device=dev)
+    c = torch.empty((S, R * d), dtype=F64, device=dev) if R else None
+    KERNELS["sn_forward_level"].launch(dev, S, W, R, d, n, ptr(g), ptr(acc),
+                                       ptr(Lc), ptr(Pc) if R else 0,
+                                       ptr(col_vars), ptr(y),
+                                       ptr(c) if R else 0)
+    return y, c
+
+
+def sn_segment_add_plain(c, fwd_src, fwd_ptr, fwd_tgt, acc):
+    d = acc.shape[1]
+    seg = torch.zeros((fwd_tgt.shape[0], d), dtype=F64,
+                      device=c.device).index_add_(
+        0, segment_owner(fwd_ptr), c.reshape(-1, d)[fwd_src.long()])
+    acc[fwd_tgt.long()] += seg
+
+
+def sn_segment_add(c, fwd_src, fwd_ptr, fwd_tgt, acc):
+    """Kernel 8, the level's update of the forward accumulator, in place:
+    acc[fwd_tgt[i]] += sum of c's d-rows fwd_src[k] for k in
+    [fwd_ptr[i], fwd_ptr[i+1]), in that order (targets unique)."""
+    args = (c, fwd_src, fwd_ptr, fwd_tgt, acc)
+    if on_cpu(*args):
+        return sn_segment_add_plain(*args)
+    T = fwd_tgt.shape[0]
+    n1, d = acc.shape
+    dev = check("sn_segment_add", ("c", c, F64, tuple(c.shape)),
+                ("fwd_src", fwd_src, I32, (fwd_src.shape[0],)),
+                ("fwd_ptr", fwd_ptr, I32, (T + 1,)),
+                ("fwd_tgt", fwd_tgt, I32, (T,)),
+                ("acc", acc, F64, (n1, d)))
+    KERNELS["sn_segment_add"].launch(dev, T, d, *map(ptr, args))
+
+
+def sn_backward_level_plain(y, L, P, row_vars, col_vars, x):
+    S, W = col_vars.shape
+    n1, d = x.shape
+    rhs = y
+    if P is not None:
+        xr = x[row_vars.long()].reshape(S, -1)
+        rhs = y - torch.einsum("sij,si->sj", P, xr)
+    xs = _solve_lower(L, rhs, True).reshape(S, W, d)
+    keep = col_vars < n1 - 1
+    x[col_vars[keep].long()] = xs[keep]
+
+
+def sn_backward_level(y, L, P, row_vars, col_vars, x):
+    """Kernel 8, backward step of one level, in place on x (n+1, d):
+    rhs = y - P^T x[row_vars] (sentinel n reads 0), x = L^-T rhs per front,
+    stored at the front's true columns (col_vars < n; unique).  L and P as
+    in sn_forward_level."""
+    args = (y, L, col_vars, x)
+    if on_cpu(*args, *_tensors(P, row_vars)):
+        return sn_backward_level_plain(y, L, P, row_vars, col_vars, x)
+    n1, d = x.shape
+    S, W = col_vars.shape
+    Wd = W * d
+    Lc = _colmajor(L)
+    specs = [("y", y, F64, (S, Wd)), ("L", Lc, F64, (S, Wd, Wd)),
+             ("col_vars", col_vars, I32, (S, W)), ("x", x, F64, (n1, d))]
+    R = 0
+    if P is not None:
+        R = P.shape[1] // d
+        Pc = _colmajor(P)
+        specs += [("P", Pc, F64, (S, Wd, R * d)),
+                  ("row_vars", row_vars, I32, (S, R))]
+    dev = check("sn_backward_level", *specs)
+    KERNELS["sn_backward_level"].launch(dev, S, W, R, d, n1 - 1, ptr(y),
+                                        ptr(Lc), ptr(Pc) if R else 0,
+                                        ptr(row_vars) if R else 0,
+                                        ptr(col_vars), ptr(x))
+
+
+# -- kernel 9: the refinement matvec ---------------------------------------
+
+
+def damp_vec(blocks, dbc, pad_diag, lam, diagonal_damping, min_diag=1e-6,
+             max_diag=1e32):
+    """(n, d) additive diagonal damping on the true dimensions: lam, or
+    lam * clip(diag H) (supernodal.py::_damp_vec)."""
+    n, d = pad_diag.shape
+    true_dims = 1.0 - pad_diag
+    if diagonal_damping:
+        dv = blocks[dbc.long()][:, torch.arange(d, device=blocks.device)
+                                * (d + 1)]
+        return lam * dv.clamp(min_diag, max_diag) * true_dims
+    return lam * true_dims
+
+
+def sn_matvec_plain(blocks, x, row_ptr, row_blk, col_ptr, col_blk, block_row,
+                    block_col, dbc, pad_diag, lam, diagonal_damping,
+                    min_diag=1e-6, max_diag=1e32):
+    n, d = x.shape
+    B = blocks.shape[0] - 1
+    rb, cb = row_blk.long(), col_blk.long()
+    Bv = blocks[:B].reshape(B, d, d)
+    t1 = torch.einsum("bij,bj->bi", Bv[rb], x[block_col.long()[rb]])
+    y = torch.zeros((n, d), dtype=F64, device=x.device).index_add_(
+        0, segment_owner(row_ptr), t1)
+    if cb.numel():
+        t2 = torch.einsum("bij,bi->bj", Bv[cb], x[block_row.long()[cb]])
+        y = y + torch.zeros((n, d), dtype=F64, device=x.device).index_add_(
+            0, segment_owner(col_ptr), t2)
+    return y + damp_vec(blocks, dbc, pad_diag, lam, diagonal_damping,
+                        min_diag, max_diag) * x
+
+
+def sn_matvec(blocks, x, row_ptr, row_blk, col_ptr, col_blk, block_row,
+              block_col, dbc, pad_diag, lam, diagonal_damping, min_diag=1e-6,
+              max_diag=1e32):
+    """Kernel 9: y = (H + damping) x on the block store, x and y (n, d) in
+    the permuted layout.  Variable v sums B_k x[col_k] over its row blocks
+    (row_blk[row_ptr[v]:row_ptr[v+1]]) and B_k^T x[row_k] over its
+    off-diagonal column blocks (col_blk over col_ptr), each in plan order,
+    then adds damp x."""
+    args = (blocks, x, row_ptr, row_blk, col_ptr, col_blk, block_row,
+            block_col, dbc, pad_diag)
+    if on_cpu(*args):
+        return sn_matvec_plain(*args, lam, diagonal_damping, min_diag,
+                               max_diag)
+    nb, dd = blocks.shape
+    n, d = x.shape
+    dev = check("sn_matvec", ("blocks", blocks, F64, (nb, d * d)),
+                ("x", x, F64, (n, d)), ("row_ptr", row_ptr, I32, (n + 1,)),
+                ("row_blk", row_blk, I32, (nb - 1,)),
+                ("col_ptr", col_ptr, I32, (n + 1,)),
+                ("col_blk", col_blk, I32, (col_blk.shape[0],)),
+                ("block_row", block_row, I32, (nb - 1,)),
+                ("block_col", block_col, I32, (nb - 1,)),
+                ("dbc", dbc, I32, (n,)), ("pad_diag", pad_diag, F64, (n, d)))
+    y = torch.empty((n, d), dtype=F64, device=dev)
+    KERNELS["sn_matvec"].launch(dev, n, d, *map(ptr, args), float(lam),
+                                int(bool(diagonal_damping)), float(min_diag),
+                                float(max_diag), ptr(y))
+    return y

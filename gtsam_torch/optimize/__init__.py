@@ -1,1 +1,1 @@
-"""Optimizer parameters (torch counterpart of gtsam_tpu.optimize)."""
+"""Optimizers (torch counterpart of gtsam_tpu.optimize)."""

@@ -14,11 +14,13 @@ tensors when called directly, which is how the kernels are checked on the
 card.
 """
 
-import ctypes
-
 import torch
 
-from .. import _build
+from .. import _kernels
+from .._kernels import DBL as _DBL, INT as _INT, P as _P, Kernel
+from .._kernels import check as _check, on_cpu as _on_cpu, ptr as _ptr
+from .._kernels import segment_owner as _segment_owner
+from .._kernels import stream as _stream
 from ..geometry.cameras import CHEIRALITY_EPS
 from ..geometry.so3 import hat
 from .bal import CHEIRALITY_PENALTY
@@ -27,43 +29,10 @@ F64 = torch.float64
 F32 = torch.float32
 I32 = torch.int32
 
-_P = ctypes.c_void_p
-_INT = ctypes.c_int
-_DBL = ctypes.c_double
-
-
-class Kernel:
-    """One C entry point of a csrc/ library and its launch count.
-
-    `wrapper` names the function of this module that launches it (its plain
-    version is `wrapper + "_plain"`); `replaces` is the JAX routine it ports,
-    as file:line."""
-
-    def __init__(self, name, source, wrapper, replaces, argtypes):
-        self.name = name
-        self.source = source
-        self.wrapper = wrapper
-        self.replaces = replaces
-        self.argtypes = list(argtypes) + [_P]   # the stream comes last
-        self.launches = 0
-        self._fn = None
-
-    def launch(self, device, *args):
-        if self._fn is None:
-            fn = getattr(_build.load(self.source), "gt_" + self.name)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        err = self._fn(*args, _stream(device))
-        if err != 0:
-            raise RuntimeError(f"{self.name}: kernel launch failed with CUDA "
-                               f"error {err}")
-        self.launches += 1
-
 
 # A kernel named "<name>_f32" is the float32 variant of "<name>": the same
 # source and wrapper, float32 Jacobians (and S), float64 arithmetic.
-KERNELS = {k.name: k for k in (
+KERNELS = _kernels.table(
     Kernel("bal_linearize", "bal_linearize", "linearize",
            "gtsam_tpu/sfm/bal.py:182", [_INT] + [_P] * 10),
     Kernel("bal_linearize_f32", "bal_linearize", "linearize",
@@ -90,46 +59,7 @@ KERNELS = {k.name: k for k in (
            "gtsam_tpu/sfm/ba.py:1264", [_INT] + [_P] * 8),
     Kernel("ba_schur_matvec", "ba_schur_matvec", "schur_matvec",
            "gtsam_tpu/sfm/ba.py:1239", [_INT, _INT] + [_P] * 12),
-)}
-
-
-def _stream(device):
-    """The handle of `device`'s current stream: what
-    torch.cuda.current_stream(device).cuda_stream gives, without building a
-    Stream object on every launch."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
-
-
-def reset_launch_counts():
-    for k in KERNELS.values():
-        k.launches = 0
-
-
-def launch_counts() -> dict:
-    return {name: k.launches for name, k in KERNELS.items()}
-
-
-def _on_cpu(*tensors) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
-
-
-def _check(name, *specs):
-    """specs: (arg name, tensor, dtype, shape).  Returns the common CUDA
-    device; raises on anything the kernel does not take."""
-    for arg, t, dtype, shape in specs:
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name}: {arg} must have shape {tuple(shape)}, "
-                             f"got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
-    dev = specs[0][1].device
-    for arg, t, _, _ in specs:
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(f"{name}: every tensor must lie on one CUDA "
-                             f"device; {arg} is on {t.device}")
-    return dev
+)
 
 
 _SUFFIX = {F64: "", F32: "_f32"}
@@ -148,17 +78,6 @@ def _check_aligned(name, arg, t):
     """The kernels load t with 16-byte vectors."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: {arg} must be 16-byte aligned")
-
-
-def _seg(ptr):
-    """Owner index of every element of a CSR with offsets `ptr`."""
-    n = ptr.numel() - 1
-    return torch.repeat_interleave(torch.arange(n, device=ptr.device),
-                                   (ptr[1:] - ptr[:-1]).long())
-
-
-def _ptr(t):
-    return t.data_ptr()
 
 
 # -- kernel 1: linearization and half-chi2 -----------------------------------
@@ -303,7 +222,7 @@ def point_eliminate_plain(pt_ptr, pt_tile, A_cam, A_pt, b, lam,
                           diagonal_damping):
     A_cam, A_pt = A_cam.to(F64), A_pt.to(F64)   # products of floats: exact
     N = pt_ptr.numel() - 1
-    seg = _seg(pt_ptr)
+    seg = _segment_owner(pt_ptr)
     has = (pt_ptr[1:] > pt_ptr[:-1])
     Hll = torch.zeros((N, 3, 3), dtype=F64, device=A_pt.device).index_add_(
         0, seg, torch.einsum("kri,krj->kij", A_pt, A_pt))
@@ -359,7 +278,7 @@ def point_eliminate(pt_ptr, pt_tile, A_cam, A_pt, b, lam, diagonal_damping):
 def _pair_blocks(cell_ptr, cell_a, cell_b, WC, W, cells):
     """sum WC_a W_b^T over the pairs of each cell in `cells` (bool (U,)):
     (number of such cells, 9, 9), in cell order."""
-    of = _seg(cell_ptr)
+    of = _segment_owner(cell_ptr)
     keep = cells[of]
     idx = torch.cumsum(cells.long(), 0) - 1
     prods = WC[cell_a[keep].long()] @ W[cell_b[keep].long()].transpose(-1, -2)
@@ -372,7 +291,7 @@ def camera_assemble_plain(cam_ptr, cam_obs, A_cam, b, corr, cell_ptr,
                           diagonal_damping, S):
     M = cam_ptr.numel() - 1
     dev = A_cam.device
-    cam_of = _seg(cam_ptr)
+    cam_of = _segment_owner(cam_ptr)
     k = cam_obs.long()
     Ac = A_cam[k].to(F64)
     Hpp = torch.zeros((M, 9, 9), dtype=F64, device=dev).index_add_(
@@ -477,7 +396,7 @@ def _point_sums(pt_ptr, obs_cam, W, x):
     """u_p = sum over point p's rows of W_k^T x[cam_k]: (N, 3)."""
     N = pt_ptr.numel() - 1
     return torch.zeros((N, 3), dtype=F64, device=W.device).index_add_(
-        0, _seg(pt_ptr), torch.einsum("kil,ki->kl", W, x[obs_cam.long()]))
+        0, _segment_owner(pt_ptr), torch.einsum("kil,ki->kl", W, x[obs_cam.long()]))
 
 
 def back_substitute_plain(pt_ptr, pt_tile, obs_cam, W, dc, C, gl):

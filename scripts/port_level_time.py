@@ -1,0 +1,145 @@
+#!/usr/bin/env python3
+"""Time the level algebra of gtsam_torch's supernodal factorization on one
+card, at the sphere2500 shape.
+
+    python3 scripts/port_level_time.py [--root DIR] [--reps N]
+
+Imports gtsam_torch from DIR (default: this checkout), writes the
+sphere-shaped stand-in of scripts/port_sphere_data.py (50 x 50 poses) under
+DIR/build/port_sphere/, adds bench.py's prior, binds it on the card with
+SparseSolver's supernodal plan (force_width=32) and assembles the system at
+the chordal initialization.  Then it runs one factorization at lam = 1e-3
+level by level and times, with CUDA events (mean of N calls), each level's
+cholesky_ex and its panel solve Lp = panel L^-T in two forms: the right
+triangular solve factorize() makes (solve_triangular(L^T, panel,
+left=False)) and the left one on the transposed panel (solve_triangular(L,
+panel^T).mT), with their largest relative difference and the layouts they
+leave.  Then, on the factor of that lam, it times kernel 8: one solve
+(_solve_padded), and its forward and backward launches alone over all
+levels.  Prints one JSON line with the card's name and power limit.  Give
+two roots in turns (A, B, B, A), one process each on one card, to compare
+two versions.
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+
+def _cuda_ms(fn, reps):
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def main(argv):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    ap.add_argument("--reps", type=int, default=10)
+    a = ap.parse_args(argv)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("port_level_time: needs a CUDA card", file=sys.stderr)
+        return 1
+    root = os.path.abspath(a.root)
+    sys.path.insert(0, root)
+    from gtsam_torch.base import noise
+    from gtsam_torch.geometry.se3 import SE3
+    from gtsam_torch.graph import factors
+    from gtsam_torch.graph.graph import BoundGraph
+    from gtsam_torch.io import datasets
+    from gtsam_torch.linear import supernodal_kernels as K
+    from gtsam_torch.linear.supernodal import SupernodalCholeskySolver
+    from gtsam_torch.slam.initialize import initialize_pose3_chordal
+    spec = importlib.util.spec_from_file_location(
+        "port_sphere_data", os.path.join(root, "scripts",
+                                         "port_sphere_data.py"))
+    data = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(data)
+    out = os.path.join(root, "build", "port_sphere")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "sphere_50x50.g2o")
+    data.write_sphere_g2o(path, 50, 50)
+    graph, _ = datasets.load_3d(path)
+    graph.add(factors.prior_factors(
+        "SE3", [0], SE3(np.eye(3)[None], np.zeros((1, 3))),
+        noise.sigmas([[1e-3] * 3 + [1e-2] * 3])))
+    vals = initialize_pose3_chordal(graph).to("cuda")
+    s = SupernodalCholeskySolver(BoundGraph(graph, vals, "cuda"),
+                                 force_width=32)
+    blocks, g = s.system(vals.arrays)
+    dv = s.dev
+    work = blocks.clone()
+    state = torch.tensor([1, -1], dtype=torch.int32, device="cuda")
+    rows = []
+    for lv in dv.levels:
+        front, panel = K.sn_front_gather(
+            work, blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
+            lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, 1e-3, False)
+        L, info = torch.linalg.cholesky_ex(front)
+        row = {"S": lv.S, "W": lv.W, "R": lv.R,
+               "cholesky_ex_ms": _cuda_ms(
+                   lambda: torch.linalg.cholesky_ex(front), a.reps)}
+        Lp = None
+        if lv.R:
+            def right():
+                return torch.linalg.solve_triangular(L.mT, panel, upper=True,
+                                                     left=False)
+
+            def left():
+                return torch.linalg.solve_triangular(L, panel.mT,
+                                                     upper=False).mT
+            Lp, Lq = right(), left()
+            scale = float(Lp.abs().max())
+            row.update(
+                right_ms=_cuda_ms(right, a.reps),
+                left_ms=_cuda_ms(left, a.reps),
+                max_rel_diff=float((Lp - Lq).abs().max()) / scale,
+                right_column_major=bool(Lp.mT.is_contiguous()),
+                left_column_major=bool(Lq.mT.is_contiguous()))
+        K.sn_pivot_check(L, Lp, info, lv.valid_diag, lv.col_vars, state)
+        if lv.R:
+            K.sn_schur_scatter(torch.bmm(Lp, Lp.mT), lv.schur_src,
+                               lv.schur_ptr, lv.schur_tgt, work)
+        rows.append(row)
+    f = s.factorize(blocks, 1e-3)
+    levels = list(zip(dv.levels, f.Ldiag, f.Lpanel))
+    acc = torch.zeros((s.nvars + 1, s.d), dtype=torch.float64, device="cuda")
+    ys = [K.sn_forward_level(g, acc, L, P, lv.col_vars)[0]
+          for lv, L, P in levels]
+    x = torch.zeros_like(acc)
+
+    def forward():
+        for lv, L, P in levels:
+            K.sn_forward_level(g, acc, L, P, lv.col_vars)
+
+    def backward():
+        for (lv, L, P), y in reversed(list(zip(levels, ys))):
+            K.sn_backward_level(y, L, P, lv.row_vars, lv.col_vars, x)
+    solve = {"solve_ms": _cuda_ms(lambda: s._solve_padded(f, g), a.reps),
+             "forward_ms": _cuda_ms(forward, a.reps),
+             "backward_ms": _cuda_ms(backward, a.reps)}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()
+    print(json.dumps({"levels": rows, "kernel8": solve,
+                      "ok": bool(state[0] == 1),
+                      "root": root, "card": smi[0] if smi else None}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

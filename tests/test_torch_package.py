@@ -14,7 +14,14 @@ import pytest
 import torch
 
 import gtsam_torch
-from gtsam_torch import _build, config
+from gtsam_torch import _build, _kernels, config, native
+from gtsam_torch.geometry.se3 import SE3
+from gtsam_torch.graph import factors as tfactors
+from gtsam_torch.graph.graph import BoundGraph, FactorGraph
+from gtsam_torch.graph.values import Values
+from gtsam_torch.linear import supernodal_kernels
+from gtsam_torch.linear.supernodal import SupernodalCholeskySolver
+from gtsam_torch.optimize import optimizers
 from gtsam_torch.sfm import ba, ba_kernels, synthetic
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -84,19 +91,28 @@ def test_working_dtype():
 
 
 def test_cpu_path_counts_no_launch():
+    """BA (both modes) and the pose-graph LM on the CPU launch no kernel;
+    the launch counts cover both kernel tables."""
     prob = synthetic.make_bal_problem(6, 40, 3, seed=0)
-    ba_kernels.reset_launch_counts()
+    _kernels.reset_launch_counts()
     _, info = ba.ba_optimize(prob, device="cpu")
     assert np.isfinite(info["error"])
     _, info = ba.ba_optimize(prob, device="cpu", dtype=torch.float32,
                              mixed_precision=True)
     assert np.isfinite(info["error"])
+    graph, vals = _small_pose_graph()
+    fn = optimizers.make_fused_lm(
+        graph, vals, optimizers.LMParams(max_iterations=3),
+        solver=optimizers.SparseSolver(refine_iters=1), device="cpu")
+    assert np.isfinite(fn(vals.arrays)[2])
     base = {"bal_linearize", "ba_point_eliminate", "ba_camera_assemble",
             "ba_pair_assemble"}
-    assert set(ba_kernels.launch_counts()) == (
+    assert set(_kernels.launch_counts()) == (
         base | {k + "_f32" for k in base}
-        | {"bal_error", "ba_back_substitute", "ba_schur_matvec"})
-    assert all(n == 0 for n in ba_kernels.launch_counts().values())
+        | {"bal_error", "ba_back_substitute", "ba_schur_matvec"}
+        | set(supernodal_kernels.KERNELS))
+    assert len(supernodal_kernels.KERNELS) == 10
+    assert all(n == 0 for n in _kernels.launch_counts().values())
 
 
 def _meta_args(name, K=10, M=3, N=4, P=20, U=5):
@@ -135,18 +151,62 @@ def _meta_args(name, K=10, M=3, N=4, P=20, U=5):
                             f(N, 3, 3), f(N, 3)),
         "schur_matvec": (i(N + 1), i(2), i(K), i(K), i(M + 1), i(K),
                          f(K, 9, 3), f(K, 9, 3), f(M, 9, 9), f(M, 9)),
+    }.get(name) or _meta_args_pg(name)
+
+
+def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
+    """Well-formed arguments of each pose-graph wrapper (d = 6) on the meta
+    device."""
+    def f(*shape):
+        return torch.empty(shape, dtype=torch.float64, device="meta")
+
+    def i(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+
+    def b(*shape):
+        return torch.empty(shape, dtype=torch.bool, device="meta")
+
+    Wd, Rd = 6 * W, 6 * R
+    se3 = (f(Nv, 3, 3), f(Nv, 3), i(N, 2), f(N, 3, 3), f(N, 3))
+    return {
+        "pg_linearize": se3 + ("gaussian", f(N, 6, 6), 1.0, b(N),
+                               f(N, 3, 36), f(N, 2, 6)),
+        "pg_error": se3 + ("diagonal", f(N, 6), 1.0),
+        "pg_assemble": (f(12, 36), f(8, 6), i(12), i(nb + 1), i(8),
+                        i(n + 1), i(nb), f(n, 6)),
+        "sn_front_gather": (f(nb, 36), f(nb, 36), i(S, W, W), b(S, W, W),
+                            f(S, Wd), b(S, Wd), i(S, W), i(n), i(S, R, W),
+                            1e-3, False),
+        "sn_pivot_check": (f(S, Wd, Wd), f(S, Rd, Wd), i(S), b(S, Wd),
+                           i(S, W), i(2)),
+        "sn_schur_scatter": (f(S, Rd, Rd), i(7), i(T + 1), i(T), f(nb, 36)),
+        "sn_forward_level": (f(n, 6), f(n + 1, 6), f(S, Wd, Wd),
+                             f(S, Rd, Wd), i(S, W)),
+        "sn_segment_add": (f(S, Rd), i(6), i(T + 1), i(T), f(n + 1, 6)),
+        "sn_backward_level": (f(S, Wd), f(S, Wd, Wd), f(S, Rd, Wd), i(S, R),
+                              i(S, W), f(n + 1, 6)),
+        "sn_matvec": (f(nb, 36), f(n, 6), i(n + 1), i(nb - 1), i(n + 1),
+                      i(4), i(nb - 1), i(nb - 1), i(n), f(n, 6), 0.1, False),
     }[name]
 
 
 WRAPPERS = ["linearize", "error", "point_eliminate", "camera_assemble",
             "pair_assemble", "back_substitute", "linearize_f32",
             "point_eliminate_f32", "camera_assemble_f32", "pair_assemble_f32",
-            "schur_matvec"]
+            "schur_matvec"] + sorted(supernodal_kernels.KERNELS)
+TABLES = {ba_kernels: ba_kernels.KERNELS,
+          supernodal_kernels: supernodal_kernels.KERNELS}
+
+
+def _module(name):
+    """The kernel table's module whose wrapper a case of WRAPPERS names."""
+    return supernodal_kernels if name in supernodal_kernels.KERNELS \
+        else ba_kernels
 
 
 def _wrapper(name):
     """The wrapper function of a case of WRAPPERS."""
-    return getattr(ba_kernels, name.removesuffix("_f32"))
+    return getattr(_module(name), name.removesuffix("_f32"))
 
 
 @pytest.mark.parametrize("name", WRAPPERS)
@@ -185,11 +245,13 @@ def test_wrapper_never_falls_back_off_the_cpu(name):
         _wrapper(name)(*_meta_args(name))
 
 
-def test_wrapper_rejects_wrong_shape():
-    args = list(_meta_args("back_substitute"))
-    args[4] = torch.empty((3, 8), dtype=torch.float64, device="meta")
+@pytest.mark.parametrize("name", ["back_substitute", "sn_matvec"])
+def test_wrapper_rejects_wrong_shape(name):
+    args = list(_meta_args(name))
+    j = {"back_substitute": 4, "sn_matvec": 1}[name]
+    args[j] = torch.empty((3, 8), dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="shape"):
-        ba_kernels.back_substitute(*args)
+        _wrapper(name)(*args)
 
 
 @pytest.mark.parametrize("name", WRAPPERS)
@@ -202,10 +264,10 @@ def test_wrapper_refuses_a_cpu_and_device_mix(name):
     args = [torch.zeros(a.shape, dtype=a.dtype)
             if isinstance(a, torch.Tensor) and k != last else a
             for k, a in enumerate(args)]
-    ba_kernels.reset_launch_counts()
+    _kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="one CUDA device; .* is on cpu"):
         _wrapper(name)(*args)
-    assert all(n == 0 for n in ba_kernels.launch_counts().values())
+    assert all(n == 0 for n in _kernels.launch_counts().values())
 
 
 def _cpu_args(name):
@@ -247,6 +309,85 @@ def _cpu_args(name):
                             C, gl),
         "schur_matvec": (plan.pt_ptr, plan.pt_tile, plan.obs_cam, plan.obs_pt,
                          plan.cam_ptr, plan.cam_obs, W, WC, *Hpp_d, dc),
+    }.get(name) or _cpu_args_pg(name)
+
+
+def _small_pose_graph(laps=3, per_lap=4, seed=0):
+    """A ring-to-ring pose graph (CPU) with a prior: (graph, values)."""
+    rng = np.random.default_rng(seed)
+    n = laps * per_lap
+    T = SE3(*(torch.as_tensor(a) for a in _random_poses(rng, n)))
+    ij = [(k, k + 1) for k in range(n - 1)] + [
+        (k, k + per_lap) for k in range(n - per_lap)]
+    i, j = (np.array(c) for c in zip(*ij))
+    from gtsam_torch.base import noise
+    from gtsam_torch.geometry import se3
+    Z = se3.between(SE3(T.R[i], T.t[i]), SE3(T.R[j], T.t[j]))
+    g = FactorGraph([tfactors.between_factors(
+        "SE3", i, j, Z, noise.information(np.diag([4.0] * 3 + [1.0] * 3)))])
+    g.add(tfactors.prior_factors("SE3", [0], SE3(T.R[:1], T.t[:1]),
+                                 noise.sigmas([[1e-2] * 6])))
+    T0 = se3.retract(T, torch.as_tensor(rng.normal(size=(n, 6)) * 0.1))
+    return g, Values({"SE3": T0}, {"SE3": np.arange(n)})
+
+
+def _random_poses(rng, n):
+    from gtsam_torch.geometry import se3
+    T = se3.expmap(torch.as_tensor(rng.normal(size=(n, 6))))
+    return T.R.numpy(), T.t.numpy()
+
+
+def _cpu_args_pg(name):
+    """Arguments of each pose-graph wrapper at the shapes the supernodal
+    solver gives it, from a small pose graph, on the CPU; made anew at each
+    call."""
+    graph, vals = _small_pose_graph()
+    s = SupernodalCholeskySolver(BoundGraph(graph, vals, "cpu"),
+                                 force_width=2, max_width=4)
+    dv, b, st = s.dev, s.bound.graph.batches[0], s.bound.structures[0]
+    arr = vals.arrays["SE3"]
+    se3_args = (arr.R, arr.t, st.rows_i32, b.measurements.R,
+                b.measurements.t)
+    N, d = b.num_factors, s.d
+    rng = np.random.default_rng(1)
+    blocks, g = s.system(vals.arrays)
+    lv = next(lv for lv in dv.levels if lv.R)
+    f = s.factorize(blocks, 0.1)
+    k = dv.levels.index(lv)
+    L, P = f.Ldiag[k], f.Lpanel[k]
+    info = torch.zeros(lv.S, dtype=torch.int32)
+    y, c = supernodal_kernels.sn_forward_level_plain(
+        g, torch.zeros((s.nvars + 1, d), dtype=torch.float64), L, P,
+        lv.col_vars)
+    return {
+        "pg_linearize": se3_args + (
+            "gaussian", b.noise.data, 1.0, dv.flips[0][1],
+            torch.zeros((N, 3, d * d), dtype=torch.float64),
+            torch.zeros((N, 2, d), dtype=torch.float64)),
+        "pg_error": se3_args + ("gaussian", b.noise.data, -1.0),
+        "pg_assemble": (
+            torch.as_tensor(rng.normal(size=(s._n_hc, d * d))),
+            torch.as_tensor(rng.normal(size=(s._n_gc, d))), dv.asm_src,
+            dv.blk_ptr, dv.g_src, dv.g_ptr, dv.diag_col, dv.pad_diag),
+        "sn_front_gather": (blocks.clone(), blocks, lv.diag_ids, lv.diag_flip,
+                            lv.diag_pad, lv.valid_diag, lv.col_vars, dv.dbc,
+                            lv.panel_ids, 0.3, True),
+        "sn_pivot_check": (L.clone(), P.clone(), info, lv.valid_diag,
+                           lv.col_vars,
+                           torch.tensor([1, -1], dtype=torch.int32)),
+        "sn_schur_scatter": (P @ P.mT, lv.schur_src, lv.schur_ptr,
+                             lv.schur_tgt, blocks.clone()),
+        "sn_forward_level": (g, torch.as_tensor(rng.normal(
+            size=(s.nvars + 1, d))), L, P, lv.col_vars),
+        "sn_segment_add": (c, lv.fwd_src, lv.fwd_ptr, lv.fwd_tgt,
+                           torch.zeros((s.nvars + 1, d), dtype=torch.float64)),
+        "sn_backward_level": (y, L, P, lv.row_vars, lv.col_vars,
+                              torch.as_tensor(rng.normal(
+                                  size=(s.nvars + 1, d)))),
+        "sn_matvec": (blocks, torch.as_tensor(rng.normal(size=(s.nvars, d))),
+                      dv.mv_row_ptr, dv.mv_row_blk, dv.mv_col_ptr,
+                      dv.mv_col_blk, dv.block_row, dv.block_col, dv.dbc,
+                      dv.pad_diag, 0.2, True),
     }[name]
 
 
@@ -254,10 +395,11 @@ def _cpu_args(name):
 def test_wrapper_on_cpu_is_its_plain_version(name):
     """On CPU tensors a wrapper returns, and writes into its arguments,
     exactly what its plain version does, and counts no launch."""
-    ba_kernels.reset_launch_counts()
+    _kernels.reset_launch_counts()
     args, ref_args = _cpu_args(name), _cpu_args(name)
     got = _wrapper(name)(*args)
-    ref = getattr(ba_kernels, _wrapper(name).__name__ + "_plain")(*ref_args)
+    ref = getattr(_module(name), _wrapper(name).__name__ + "_plain")(
+        *ref_args)
 
     def tensors(out):
         return [] if out is None else [out] if isinstance(
@@ -270,7 +412,7 @@ def test_wrapper_on_cpu_is_its_plain_version(name):
     for a, r in pairs:
         assert a.device.type == "cpu" and torch.equal(a, r)
     assert not name.startswith("pair_assemble") or args[-1].abs().max() > 0
-    assert all(n == 0 for n in ba_kernels.launch_counts().values())
+    assert all(n == 0 for n in _kernels.launch_counts().values())
 
 
 def _cu_source(name):
@@ -309,12 +451,13 @@ def test_point_pass_sizes_match_the_source():
     assert '#include "ba_point_pass.cuh"' in _cu_source("ba_schur_matvec")
 
 
-def test_argtypes_match_the_c_entry_points():
+@pytest.mark.parametrize("module", list(TABLES), ids=lambda m: m.__name__)
+def test_argtypes_match_the_c_entry_points(module):
     """Each Kernel's ctypes argtypes follow its C entry point's parameters:
     int, double, or a pointer (the stream last); a mismatch would pass
     arguments in the wrong registers on the card."""
     import ctypes
-    for k in ba_kernels.KERNELS.values():
+    for k in TABLES[module].values():
         m = re.search(rf"GT_EXPORT int gt_{k.name}\(([^)]*)\)",
                       _cu_source(k.source))
         assert m, k.name
@@ -338,10 +481,27 @@ def test_build_targets_hopper():
         assert path.parent == _build.BUILD_DIR
         assert path == _build.library_path(name)     # stable digest
     assert _build.BUILD_DIR.parts[-2:] == ("build", "gtsam_torch_kernels")
-    kernels = {k.source for k in ba_kernels.KERNELS.values()}
+    kernels = {k.source for t in TABLES.values() for k in t.values()}
     assert kernels == set(_build.SOURCES)
-    for k in ba_kernels.KERNELS.values():
-        assert callable(getattr(ba_kernels, k.wrapper))
-        assert callable(getattr(ba_kernels, k.wrapper + "_plain"))
-        path, line = k.replaces.split(":")
-        assert os.path.isfile(os.path.join(REPO, path)) and int(line) > 0
+    assert sum(len(t) for t in TABLES.values()) == len(
+        _kernels.launch_counts())
+    for module, table in TABLES.items():
+        for k in table.values():
+            assert callable(getattr(module, k.wrapper))
+            assert callable(getattr(module, k.wrapper + "_plain"))
+            path, line = k.replaces.split(":")
+            assert os.path.isfile(os.path.join(REPO, path)) and int(line) > 0
+
+
+def test_native_orderings_build_or_raise(monkeypatch, tmp_path):
+    """The C orderings build with gcc into build/gtsam_torch_native/ under
+    a digest of their sources; a failed build raises instead of falling
+    back to other orderings."""
+    assert native.BUILD_DIR.parts[-2:] == ("build", "gtsam_torch_native")
+    assert native.library_path().parent == native.BUILD_DIR
+    assert native.build().is_file()
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "CFLAGS", ("-O3", "-shared", "-fPIC",
+                                           "-no-such-flag"))
+    with pytest.raises(RuntimeError, match="native orderings"):
+        native.build()

@@ -1,0 +1,680 @@
+"""Parity of gtsam_torch's pose-graph slice with gtsam_tpu's (CPU).
+
+The JAX side runs float64 (tests/conftest.py turns x64 on); the torch side
+runs float64 on the CPU, where every kernel wrapper computes its plain
+PyTorch version.  Inputs are made with numpy from seeds and handed to both
+packages.  Graphs: a 6-ring x 8-pose sphere (scripts/port_sphere_data.py)
+with the prior of bench.py, factorized with force_width 4 (five levels), and
+a graph mixing SE3 poses with Point3 landmarks through a custom
+pose-landmark factor (so the 6-wide store pads the 3-dim landmarks).
+Tolerances, each stated where it is used.
+"""
+
+import importlib.util
+import math
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gtsam_tpu as gt
+from gtsam_tpu.base import noise as jnoise
+from gtsam_tpu.geometry import se3 as jse3
+from gtsam_tpu.graph import factors as jfactors
+from gtsam_tpu.graph.graph import FactorGraph as JGraph
+from gtsam_tpu.graph.values import Values as JValues
+from gtsam_tpu.inference import ordering as jordering
+from gtsam_tpu.inference import supernodes as jsupernodes
+from gtsam_tpu.io import datasets as jdatasets
+from gtsam_tpu.linear.supernodal import SupernodalCholeskySolver as JSolver
+from gtsam_tpu.optimize import optimizers as JO
+from gtsam_tpu.slam.initialize import initialize_pose3_chordal as jchordal
+from gtsam_tpu.utils import metrics as jmetrics
+
+from gtsam_torch import _kernels
+from gtsam_torch.base import noise as tnoise
+from gtsam_torch.geometry import se3, so3
+from gtsam_torch.geometry.se3 import SE3
+from gtsam_torch.graph import factors as tfactors
+from gtsam_torch.graph import manifolds
+from gtsam_torch.graph.graph import BoundGraph, FactorGraph
+from gtsam_torch.graph.values import Values
+from gtsam_torch.inference import ordering as tordering
+from gtsam_torch.inference import supernodes as tsupernodes
+from gtsam_torch.io import datasets as tdatasets
+from gtsam_torch.linear import supernodal_kernels as K
+from gtsam_torch.linear.exceptions import IndeterminantLinearSystemError
+from gtsam_torch.linear.supernodal import SupernodalCholeskySolver
+from gtsam_torch.optimize import optimizers as TO
+from gtsam_torch.slam.initialize import initialize_pose3_chordal
+from gtsam_torch.utils import metrics as tmetrics
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SN_KW = dict(force_width=4, max_width=8)
+PRIOR_SIGMAS = [[1e-3] * 3 + [1e-2] * 3]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _data_module():
+    spec = importlib.util.spec_from_file_location(
+        "port_sphere_data", os.path.join(REPO, "scripts",
+                                         "port_sphere_data.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _close(got, ref, rtol):
+    """rtol against each entry, atol rtol x the largest entry."""
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got)
+    ref = np.asarray(ref)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=rtol,
+                               atol=rtol * max(np.abs(ref).max(), 1e-300))
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+class Case:
+    """One graph in both packages, bound at its initial values, with the
+    supernodal solvers of both."""
+
+    def __init__(self, jgraph, jvals, tgraph, tvals, **kw):
+        self.jgraph, self.jvals = jgraph, jvals
+        self.tgraph, self.tvals = tgraph, tvals
+        self.jbound = jgraph.bind(jvals)
+        self.tbound = BoundGraph(tgraph, tvals, "cpu")
+        self.js = JSolver(self.jbound, **kw)
+        self.ts = SupernodalCholeskySolver(self.tbound, **kw)
+        self._sys = None
+
+    def systems(self):
+        if self._sys is None:
+            jb, jg = jax.jit(self.js.system)(self.jvals.arrays)
+            tb, tg = self.ts.system(self.tvals.arrays)
+            self._sys = (np.asarray(jb), np.asarray(jg), tb, tg)
+        return self._sys
+
+
+def _sphere_graphs(tmp):
+    path = os.path.join(tmp, "sphere.g2o")
+    _data_module().write_sphere_g2o(path, laps=6, per_lap=8, radius=10.0,
+                                    sigma_t=0.1, sigma_r=0.05, seed=1)
+    jg, _ = jdatasets.load_3d(path)
+    jg.add(gt.prior_factors("SE3", [0], gt.SE3(np.eye(3)[None],
+                                               np.zeros((1, 3))),
+                            gt.noise.sigmas(PRIOR_SIGMAS)))
+    tg, _ = tdatasets.load_3d(path)
+    tg.add(tfactors.prior_factors("SE3", [0], SE3(np.eye(3)[None],
+                                                  np.zeros((1, 3))),
+                                  tnoise.sigmas(PRIOR_SIGMAS)))
+    return jg, tg
+
+
+@pytest.fixture(scope="module")
+def sphere(tmp_path_factory):
+    jg, tg = _sphere_graphs(str(tmp_path_factory.mktemp("sphere")))
+    return Case(jg, jchordal(jg), tg, initialize_pose3_chordal(tg), **SN_KW)
+
+
+def _mixed_parts(seed=3, n_pose=6, n_pt=5):
+    """Numpy inputs of the mixed graph: a pose chain with a prior, and each
+    landmark seen from two poses (pose-frame position, sigma 0.1)."""
+    rng = np.random.default_rng(seed)
+    xi = rng.normal(size=(n_pose, 6)) * np.array([0.3] * 3 + [2.0] * 3)
+    T = se3.expmap(_t(xi))
+    R, tr = T.R.numpy(), T.t.numpy()
+    pts = rng.normal(size=(n_pt, 3)) * 3.0
+    i = np.arange(n_pose - 1)
+    Rij = np.einsum("nji,njk->nik", R[i], R[i + 1])
+    tij = np.einsum("nji,nj->ni", R[i], tr[i + 1] - tr[i])
+    obs_pose = np.array([k % n_pose for k in range(2 * n_pt)])
+    obs_pt = np.array([k // 2 for k in range(2 * n_pt)])
+    z = np.einsum("nji,nj->ni", R[obs_pose], pts[obs_pt] - tr[obs_pose])
+    z = z + rng.normal(size=z.shape) * 0.1
+    noisy = rng.normal(size=(n_pose, 6)) * 0.05
+    T0 = se3.retract(T, _t(noisy))
+    pts0 = pts + rng.normal(size=pts.shape) * 0.2
+    return dict(Rij=Rij, tij=tij, obs_pose=obs_pose, obs_pt=obs_pt + 100,
+                z=z, R0=T0.R.numpy(), t0=T0.t.numpy(), pts0=pts0,
+                n_pose=n_pose, n_pt=n_pt)
+
+
+def _mixed_case(**kw):
+    p = _mixed_parts()
+    n_pose = p["n_pose"]
+    info = np.diag([400.0] * 3 + [100.0] * 3)
+    jg = JGraph()
+    jg.add(jfactors.between_factors(
+        "SE3", np.arange(n_pose - 1), np.arange(1, n_pose),
+        gt.SE3(jnp.asarray(p["Rij"]), jnp.asarray(p["tij"])),
+        jnoise.information(info)))
+    jg.add(gt.prior_factors("SE3", [0], gt.SE3(np.eye(3)[None],
+                                               np.zeros((1, 3))),
+                            gt.noise.sigmas(PRIOR_SIGMAS)))
+    jg.add(jfactors.custom_factors(
+        "Obs", ("SE3", "Point3"), np.stack([p["obs_pose"], p["obs_pt"]], 1),
+        lambda xs, m: jse3.transform_to(xs[0], xs[1]) - m, 3,
+        jnp.asarray(p["z"]), jnoise.isotropic(3, 0.1)))
+    keys_pt = np.arange(p["n_pt"]) + 100
+    jv = JValues({"SE3": gt.SE3(jnp.asarray(p["R0"]), jnp.asarray(p["t0"])),
+                  "Point3": jnp.asarray(p["pts0"])},
+                 {"SE3": np.arange(n_pose), "Point3": keys_pt})
+    tg = FactorGraph()
+    tg.add(tfactors.between_factors(
+        "SE3", np.arange(n_pose - 1), np.arange(1, n_pose),
+        SE3(p["Rij"], p["tij"]), tnoise.information(info)))
+    tg.add(tfactors.prior_factors("SE3", [0], SE3(np.eye(3)[None],
+                                                  np.zeros((1, 3))),
+                                  tnoise.sigmas(PRIOR_SIGMAS)))
+    tg.add(tfactors.FactorBatch(
+        "Obs", ("SE3", "Point3"), np.stack([p["obs_pose"], p["obs_pt"]], 1),
+        3, lambda xs, m: se3.transform_to(xs[0], xs[1]) - m, _t(p["z"]),
+        tnoise.isotropic(3, 0.1)))
+    tv = Values({"SE3": SE3(_t(p["R0"]), _t(p["t0"])),
+                 "Point3": _t(p["pts0"])},
+                {"SE3": np.arange(n_pose), "Point3": keys_pt})
+    return Case(jg, jv, tg, tv, **kw)
+
+
+@pytest.fixture(scope="module")
+def mixed():
+    return _mixed_case(force_width=2, max_width=4)
+
+
+@pytest.fixture(params=["sphere", "mixed"])
+def case(request):
+    return request.getfixturevalue(request.param)
+
+
+# -- noise models -------------------------------------------------------------
+
+NOISES = {
+    "unit": lambda m: m.unit(),
+    "sigmas": lambda m: m.sigmas(np.random.default_rng(0).uniform(
+        0.1, 2.0, size=(4, 5))),
+    "isotropic": lambda m: m.isotropic(5, 0.3),
+    "precisions": lambda m: m.precisions([[1.0, 4.0, 9.0, 0.5, 2.0]]),
+    "information": lambda m: m.information(_spd(5, 4)),
+    "covariance": lambda m: m.covariance(_spd(5, 1)[0]),
+}
+
+
+def _spd(n, count):
+    A = np.random.default_rng(1).normal(size=(count, n, n))
+    return A @ A.transpose(0, 2, 1) + n * np.eye(n)
+
+
+@pytest.mark.parametrize("kind", sorted(NOISES))
+def test_noise_whiten_and_error(kind):
+    """whiten, whiten_jacobian and error of each ported model against the
+    JAX package's at 1e-13 (the same products; a Cholesky for information
+    and covariance)."""
+    rng = np.random.default_rng(2)
+    r = rng.normal(size=(4, 5))
+    A = rng.normal(size=(4, 5, 3))
+    jm, tm = NOISES[kind](jnoise), NOISES[kind](tnoise)
+    _close(tm.whiten(_t(r)), jm.whiten(jnp.asarray(r)), 1e-13)
+    _close(tm.whiten_jacobian(_t(A)), jm.whiten_jacobian(jnp.asarray(A)),
+           1e-13)
+    _close(tm.error(_t(r)), jm.error(jnp.asarray(r)), 1e-13)
+
+
+def test_unported_noise_and_manifolds_raise():
+    with pytest.raises(NotImplementedError):
+        tnoise.constrained([0.0, 1.0])
+    with pytest.raises(NotImplementedError):
+        tnoise.robust(tnoise.unit(), "huber")
+    with pytest.raises(NotImplementedError):
+        manifolds.get("SE2")
+    assert manifolds.get("Vec4").dim == 4
+    with pytest.raises(KeyError):
+        manifolds.get("NoSuchType")
+
+
+# -- input, initialization, metrics -------------------------------------------
+
+
+def _write_edges(path, with_vertices):
+    """A small file: EDGE_SE3:QUAT rows (with vertices) or EDGE3 rows
+    (roll, pitch, yaw; no vertices: the loader composes the odometry)."""
+    rng = np.random.default_rng(4)
+    mod = _data_module()
+    lines = []
+    for k in range(5):
+        if with_vertices:
+            R, tr = mod._se3_exp(rng.normal(size=6))
+            q = mod._quat(R)
+            lines.append(f"VERTEX_SE3:QUAT {k} {tr[0]} {tr[1]} {tr[2]} "
+                         f"{q[1]} {q[2]} {q[3]} {q[0]}")
+    A = rng.normal(size=(6, 6))
+    M = A @ A.T + 6.0 * np.eye(6)
+    upper = " ".join(str(M[i, j]) for i in range(6) for j in range(i, 6))
+    for i, j in ((0, 1), (1, 2), (2, 3), (3, 4), (0, 4)):
+        v = rng.normal(size=6)
+        if with_vertices:
+            q = rng.normal(size=4)
+            lines.append(f"EDGE_SE3:QUAT {i} {j} {v[0]} {v[1]} {v[2]} "
+                         f"{q[0]} {q[1]} {q[2]} {q[3]} {upper}")
+        else:
+            lines.append(f"EDGE3 {i} {j} {' '.join(map(str, v))} {upper}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+@pytest.mark.parametrize("with_vertices", [True, False])
+def test_load_3d(tmp_path, with_vertices):
+    """Keys, measurements, square-root informations (the g2o (t, R) ->
+    (R, t) reorder of EDGE_SE3:QUAT) and initial poses equal the JAX
+    package's at 1e-13 (the same parse; the Cholesky of each information
+    matrix in LAPACK on both sides)."""
+    path = str(tmp_path / "g.g2o")
+    _write_edges(path, with_vertices)
+    jg, jv = jdatasets.load_3d(path)
+    tg, tv = tdatasets.load_3d(path)
+    (jb,), (tb,) = jg.batches, tg.batches
+    np.testing.assert_array_equal(tb.keys, jb.keys)
+    _close(tb.measurements.R, jb.measurements.R, 1e-13)
+    _close(tb.measurements.t, jb.measurements.t, 1e-13)
+    assert tb.noise.kind == jb.noise.kind == "gaussian"
+    _close(tb.noise.data, jb.noise.data, 1e-13)
+    np.testing.assert_array_equal(tv.keys["SE3"], jv.keys["SE3"])
+    _close(tv.arrays["SE3"].R, jv.arrays["SE3"].R, 1e-13)
+    _close(tv.arrays["SE3"].t, jv.arrays["SE3"].t, 1e-13)
+
+
+def test_chordal_initialization(sphere):
+    """Chordal rotations and translations equal the JAX package's at 1e-12
+    (the same scipy factorizations on the same matrices)."""
+    jv, tv = sphere.jvals, sphere.tvals
+    np.testing.assert_array_equal(tv.keys["SE3"], jv.keys["SE3"])
+    _close(tv.arrays["SE3"].R, jv.arrays["SE3"].R, 1e-12)
+    _close(tv.arrays["SE3"].t, jv.arrays["SE3"].t, 1e-12)
+
+
+def test_ate_matches():
+    rng = np.random.default_rng(5)
+    gt_t = rng.normal(size=(20, 3))
+    Rz = so3.expmap(_t([0.1, -0.2, 0.3])).numpy()
+    est = gt_t @ Rz.T + 1.5 + rng.normal(size=(20, 3)) * 0.01
+    for scale in (False, True):
+        a = tmetrics.ate(est, gt_t, with_scale=scale)
+        b = jmetrics.ate(est, gt_t, with_scale=scale)
+        for k in a:
+            assert abs(a[k] - b[k]) <= 1e-12 * max(abs(b[k]), 1.0)
+
+
+# -- orderings and symbolic analysis -----------------------------------------
+
+
+def _adjacency(case):
+    return tordering.adjacency_from_factors(case.ts.batch_var_ids,
+                                            case.ts.nvars)
+
+
+@pytest.mark.parametrize("order", ["amd", "nd", "nd-bfs"])
+def test_orderings_equal(sphere, order):
+    """The native AMD, the native nested dissection and the BFS dissection
+    give the JAX package's permutations exactly."""
+    adj = _adjacency(sphere)
+    jadj = jordering.adjacency_from_factors(sphere.js.batch_var_ids,
+                                            sphere.js.nvars)
+    assert (adj != jadj).nnz == 0
+    if order == "amd":
+        got, ref = tordering.minimum_degree(adj), jordering.minimum_degree(adj)
+    else:
+        m = "bfs" if order == "nd-bfs" else "native"
+        got = tordering.nested_dissection(adj, method=m)
+        ref = jordering.nested_dissection(adj, method=m)
+    np.testing.assert_array_equal(got, ref)
+    assert sorted(got.tolist()) == list(range(adj.shape[0]))
+
+
+def _plan_arrays(s):
+    """Every host plan array of a solver, by name."""
+    out = {"perm": s.sym.perm, "inv_perm": s.sym.inv_perm,
+           "snode_start": s.sym.snode_start, "snode_width": s.sym.snode_width,
+           "snode_parent": s.sym.snode_parent, "block_row": s.sym.block_row,
+           "block_col": s.sym.block_col,
+           "diag_block_by_col": s.sym.diag_block_by_col,
+           "asm_order": s._asm_order, "asm_seg": s._asm_seg,
+           "asm_uniq": s._asm_uniq, "g_order": s._g_order,
+           "g_seg": s._g_seg, "g_uniq": s._g_uniq, "pad_diag": s.pad_diag}
+    for i, a in enumerate(s._mv_plan):
+        out[f"mv_plan{i}"] = a
+    for i, (s1, s2, flip, pos) in enumerate(s._asm_plan):
+        out[f"asm_plan{i}"] = np.concatenate([[s1, s2, pos], flip])
+    for lvl, lp in enumerate(s.level_plans):
+        for f in lp.__dataclass_fields__:
+            v = getattr(lp, f)
+            out[f"level{lvl}.{f}"] = v
+    return out
+
+
+def test_analyze_supernodal_and_plans(case):
+    """The auto ordering's choice, the symbolic structure, the levels,
+    block_of and every plan array (each _LevelPlan field, the assembly,
+    gradient and matvec plans, pad_diag) equal the JAX package's exactly."""
+    js, ts = case.js, case.ts
+    assert ts.chosen_order == js.chosen_order
+    assert ts.B == js.B and ts.sym.nsuper == js.sym.nsuper
+    assert ts.sym.block_of == js.sym.block_of
+    assert len(ts.sym.levels) == len(js.sym.levels) >= 3
+    for a, b in zip(ts.sym.levels, js.sym.levels):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(ts.sym.snode_rows, js.sym.snode_rows):
+        np.testing.assert_array_equal(a, b)
+    got, ref = _plan_arrays(ts), _plan_arrays(js)
+    assert got.keys() == ref.keys()
+    for name in ref:
+        if ref[name] is None or np.isscalar(ref[name]):
+            assert got[name] == ref[name], name
+        else:
+            np.testing.assert_array_equal(got[name], ref[name], err_msg=name)
+
+
+def test_analyze_supernodal_on_its_own(sphere):
+    """analyze_supernodal alone, on one ordering at other widths, equals
+    the JAX package's (structure and levels)."""
+    adj = _adjacency(sphere)
+    perm = tordering.minimum_degree(adj)
+    kw = dict(relax_tau=0.5, force_width=2, max_width=16)
+    a = tsupernodes.analyze_supernodal(adj, perm, **kw)
+    b = jsupernodes.analyze_supernodal(adj, perm, **kw)
+    for f in ("perm", "snode_start", "snode_width", "snode_parent",
+              "snode_level", "block_row", "block_col"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    assert a.block_of == b.block_of
+
+
+# -- the linear system, factorization, solves ---------------------------------
+
+
+def test_system(case):
+    """The block store and gradient against the JAX package's: kernel 6's
+    closed-form Jacobians against jacfwd (SE3), the generic torch.func path
+    against jacfwd (landmark factors), and the same sorted sums.  1e-12
+    relative to the largest entry for the blocks; 1e-11 for g, whose
+    entries J^T r carry the ~eps/theta^2 error of jacfwd through the
+    closed-form SO(3) coefficients at the residuals' small angles."""
+    jb, jg, tb, tg = case.systems()
+    _close(tb, jb, 1e-12)
+    _close(tg, jg, 1e-11)
+    assert torch.all(tb[-1] == 0)
+
+
+@pytest.mark.parametrize("damping", ["lambda", "diagonal"])
+def test_factorize_per_level(case, damping):
+    """Each level's L and Lp, and ok / badcol, against the JAX package's at
+    1e-10 (the fronts are Cholesky factors of the same matrices, summed in
+    another order; 1e-10 leaves room for the fronts' conditioning at lam =
+    1e-2)."""
+    jb, _, tb, _ = case.systems()
+    dd = damping == "diagonal"
+    _, jL, jP, jok, jbad = jax.jit(case.js.factorize, static_argnums=2)(
+        jnp.asarray(jb), 1e-2, dd)
+    f = case.ts.factorize(tb, 1e-2, dd)
+    assert bool(f.ok) and bool(jok) and int(f.badcol) == int(jbad) == -1
+    assert len(f.Ldiag) == len(jL)
+    for a, b, c, e in zip(f.Ldiag, jL, f.Lpanel, jP):
+        _close(a, b, 1e-10)
+        assert (c is None) == (e is None)
+        if c is not None:
+            _close(c, e, 1e-10)
+
+
+def _dense_oracle(case, lam, dd):
+    """The dense (H + damping) and g in the canonical layout, from the
+    port's dense gn_system (the generic jacfwd path and index_put_ sums,
+    held to the JAX package's by test_dense_solver_paths)."""
+    H, g = case.tbound.gn_system(case.tvals.arrays)
+    H, g = H.numpy(), g.numpy()
+    D = np.clip(np.diag(H), 1e-6, 1e32) if dd else np.ones(len(g))
+    return H + np.diag(lam * D), g
+
+
+def test_solves_against_jax_and_dense(case):
+    """_solve_padded and solve_refined against the JAX package's at 1e-9,
+    and the refined step against the dense (H + lam I)^-1 g at 1e-9 (the
+    system's condition number times eps leaves that room)."""
+    jb, jg, tb, tg = case.systems()
+    lam = 1e-3
+
+    def jax_solves(b, g):
+        f = case.js.factorize(b, lam, False)
+        return (case.js._solve_padded(f, g),
+                case.js.solve_refined(b, g, lam, False, refine_iters=1))
+
+    jx, jdx = jax.jit(jax_solves)(jnp.asarray(jb), jnp.asarray(jg))
+    f = case.ts.factorize(tb, lam, False)
+    _close(case.ts._solve_padded(f, tg), jx, 1e-9)
+    dx, ok = case.ts.solve_refined(tb, tg, lam, False, refine_iters=1)
+    assert bool(ok)
+    _close(dx, jdx, 1e-9)
+    Hd, g = _dense_oracle(case, lam, False)
+    _close(dx, np.linalg.solve(Hd, g), 1e-9)
+
+
+@pytest.mark.parametrize("dd", [False, True])
+def test_matvec(case, dd):
+    """(H + damping) x on the block store against the JAX package's matvec
+    and the dense product, at 1e-12 (the same sums in the same order; the
+    dense product in another)."""
+    jb, _, tb, _ = case.systems()
+    x = np.random.default_rng(6).normal(size=(case.ts.nvars, case.ts.d))
+    x = x * (1.0 - case.ts.pad_diag)
+    got = case.ts.matvec(tb, _t(x), 0.3, dd)
+    jmv = jax.jit(case.js.matvec, static_argnums=3)
+    _close(got, jmv(jnp.asarray(jb), jnp.asarray(x), 0.3, dd), 1e-12)
+    Hd, _ = _dense_oracle(case, 0.3, dd)
+    ref = case.ts._flatten(torch.as_tensor(x)).numpy()
+    _close(case.ts._flatten(got), Hd @ ref, 1e-12)
+
+
+def test_plain_kernels_against_the_dense_factor(sphere):
+    """The plain versions of kernels 7 and 8 against dense linear algebra:
+    the level factors, placed into one lower-triangular L, give
+    L L^T = P (H + lam I) P^T at 1e-12, and the forward and backward
+    passes give the dense solve at 1e-10."""
+    _, _, tb, tg = sphere.systems()
+    s = sphere.ts
+    n, d = s.nvars, s.d
+    lam = 0.5
+    f = s.factorize(tb, lam, False)
+    Lfull = np.zeros((n * d, n * d))
+    for lp, L, P in zip(s.level_plans, f.Ldiag, f.Lpanel):
+        for si in range(lp.S):
+            cols = lp.col_vars[si]
+            w = int((cols < n).sum())
+            ci = (cols[:w, None] * d + np.arange(d)).reshape(-1)
+            Lfull[np.ix_(ci, ci)] = L[si, :w * d, :w * d].numpy()
+            if P is not None:
+                rows = lp.row_vars[si]
+                r = int((rows < n).sum())
+                ri = (rows[:r, None] * d + np.arange(d)).reshape(-1)
+                Lfull[np.ix_(ri, ci)] = P[si, :r * d, :w * d].numpy()
+    Hd, g = _dense_oracle(sphere, lam, False)
+    perm = (s.sym.inv_perm[:, None] * d + np.arange(d)).reshape(-1)
+    Hp = np.zeros_like(Hd)
+    Hp[np.ix_(perm, perm)] = Hd
+    _close(Lfull @ Lfull.T, Hp, 1e-12)
+    x = s.solve_factored(f, tg).numpy()
+    _close(x, np.linalg.solve(Hd, g), 1e-10)
+
+
+def _jacfwd_blocks(T, Z, arity):
+    """Unwhitened Jacobians of the port's own residual by torch.func.jacfwd
+    at delta = 0: (J_i[, J_j])."""
+    def res(di, dj):
+        Ti = se3.retract(T[0], di)
+        if arity == 1:
+            return se3.local(Z, Ti)
+        return se3.local(Z, se3.between(Ti, se3.retract(T[1], dj)))
+    z = torch.zeros(6, dtype=torch.float64)
+    Ji, Jj = torch.func.jacfwd(res, argnums=(0, 1))(z, z)
+    return (Ji,) if arity == 1 else (Ji, Jj)
+
+
+@pytest.mark.parametrize("angle", [0.0, 1e-7, 0.8, math.pi - 1e-4])
+def test_kernel6_jacobians_against_jacfwd(angle):
+    """Kernel 6's closed-form Jacobians (its plain version) against
+    torch.func.jacfwd of the port's se3 at 1e-12 relative, for residual
+    rotations of the given angle: exactly 0, in the Taylor branch, mid
+    range, and next to pi.  (Between ~1e-5 and ~0.05 rad jacfwd through
+    the closed-form SO(3) coefficients loses up to ~1e-7 to cancellation,
+    which the closed form's Taylor branch avoids.)"""
+    rng = np.random.default_rng(7)
+    xi = rng.normal(size=(2, 6))
+    Ti = se3.expmap(_t(xi[0]))
+    Tj = se3.expmap(_t(xi[1]))
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    E = se3.expmap(_t(np.concatenate([axis * angle, rng.normal(size=3)])))
+    Z = se3.compose(se3.between(Ti, Tj), se3.inverse(E))   # Z^-1 Tij = E
+    R = torch.stack([Ti.R, Tj.R])
+    tt = torch.stack([Ti.t, Tj.t])
+    for arity in (2, 1):
+        if arity == 1:
+            Zk = se3.compose(Ti, se3.inverse(E))
+        else:
+            Zk = Z
+        rows = torch.tensor([[0, 1]] if arity == 2 else [[0]],
+                            dtype=torch.int32)
+        A, b = K.pg_jacobians_plain(R, tt, rows, Zk.R[None], Zk.t[None],
+                                    "unit", None)
+        ref = _jacfwd_blocks((Ti, Tj), Zk, arity)
+        for a, r in zip(A, ref):
+            _close(a[0], r, 1e-12)
+        _close(-b[0], se3.logmap(E), 1e-12)
+
+
+def test_failed_factorization(mixed):
+    """A landmark that no factor touches makes H singular there: the JAX
+    package and the port both report not ok; the port names the landmark
+    (its permuted column, and check_system's variable) where cholesky_ex
+    stopped, and Gauss-Newton raises there on its first try (cholesky_ex
+    leaves no NaN in a failed front, so the port counts ok == False as a
+    failed try instead of solving on with a zeroed factor, as the JAX
+    package does)."""
+    p = _mixed_parts()
+    tg = FactorGraph(mixed.tgraph.batches[:2])     # poses only
+    tv = Values({"SE3": mixed.tvals.arrays["SE3"],
+                 "Point3": mixed.tvals.arrays["Point3"][:1]},
+                {"SE3": np.arange(p["n_pose"]), "Point3": np.array([100])})
+    jg = JGraph(mixed.jgraph.batches[:2])
+    jv = JValues({"SE3": mixed.jvals.arrays["SE3"],
+                  "Point3": mixed.jvals.arrays["Point3"][:1]},
+                 {"SE3": np.arange(p["n_pose"]), "Point3": np.array([100])})
+    ts = SupernodalCholeskySolver(BoundGraph(tg, tv, "cpu"), force_width=2)
+    js = JSolver(jg.bind(jv), force_width=2)
+    blocks, _ = ts.system(tv.arrays)
+    f = ts.factorize(blocks, 0.0)
+    jf = js.factorize(js.system(jv.arrays)[0], 0.0)
+    assert not bool(f.ok) and not bool(jf[3])
+    lm_var = 0                     # "Point3" sorts before "SE3"
+    assert ts.sym.perm[int(f.badcol)] == lm_var
+    with pytest.raises(IndeterminantLinearSystemError) as e:
+        ts.check_system(tv.arrays)
+    assert e.value.var == lm_var
+    with pytest.raises(IndeterminantLinearSystemError) as e:
+        TO.gauss_newton(tg, tv, solver=TO.SparseSolver(
+            supernodal_kwargs=dict(force_width=2)), device="cpu")
+    assert e.value.var == lm_var
+
+
+def test_flatten_and_pack_roundtrip(mixed):
+    s = mixed.ts
+    v = torch.as_tensor(np.random.default_rng(8).normal(
+        size=s.layout.total_dim))
+    xp = s.pack_rhs(v)
+    assert torch.equal(s._flatten(xp), v)
+    assert torch.all(xp[torch.as_tensor(s.pad_diag) > 0] == 0)
+    np.testing.assert_array_equal(
+        xp.numpy(), np.asarray(mixed.js.pack_rhs(jnp.asarray(v.numpy()))))
+
+
+# -- the optimizers -------------------------------------------------------------
+
+
+def _lm_params(mod, policy, maxit=10):
+    return mod.LMParams(max_iterations=maxit, relative_error_tol=1e-9,
+                        absolute_error_tol=1e-12, lambda_policy=policy)
+
+
+@pytest.mark.parametrize("policy", ["gain", "gtsam", "conservative"])
+def test_make_fused_lm(sphere, policy):
+    """make_fused_lm (SparseSolver, one refinement pass) against the JAX
+    package's on the sphere: iterations, tries and converged equal, the
+    half-chi2 history at rtol 1e-9 (the JAX package refines in two-float
+    pairs, the port in float64; the steps agree to ~1e-13)."""
+    jfn = JO.make_fused_lm(sphere.jgraph, sphere.jvals,
+                           _lm_params(gt, policy),
+                           solver=JO.SparseSolver(refine_iters=1,
+                                                  supernodal_kwargs=SN_KW))
+    jit, _, jerr, jconv, jhist, jtries = jfn(sphere.jvals.arrays)
+    tfn = TO.make_fused_lm(sphere.tgraph, sphere.tvals,
+                           _lm_params(TO, policy),
+                           solver=TO.SparseSolver(refine_iters=1,
+                                                  supernodal_kwargs=SN_KW),
+                           device="cpu")
+    it, arrays, err, conv, hist, tries = tfn(sphere.tvals.arrays)
+    assert (it, tries, conv) == (int(jit), int(jtries), bool(jconv))
+    assert it >= 3
+    _close(hist[:it + 1], np.asarray(jhist)[:it + 1], 1e-9)
+    assert abs(err - float(jerr)) <= 1e-9 * float(jerr)
+    assert torch.isnan(hist[it + 1:]).all()
+
+
+def test_levenberg_marquardt_sparse(mixed):
+    """levenberg_marquardt on the mixed graph with SparseSolver: the
+    history and iterations of the JAX package's at rtol 1e-9."""
+    jres = JO.levenberg_marquardt(
+        mixed.jgraph, mixed.jvals, _lm_params(gt, "gtsam"),
+        solver=JO.SparseSolver(supernodal_kwargs=dict(force_width=2)))
+    tres = TO.levenberg_marquardt(
+        mixed.tgraph, mixed.tvals, _lm_params(TO, "gtsam"),
+        solver=TO.SparseSolver(supernodal_kwargs=dict(force_width=2)),
+        device="cpu")
+    assert tres.iterations == jres.iterations
+    assert tres.converged == jres.converged
+    _close(tres.history, jres.history, 1e-9)
+
+
+def test_dense_solver_paths(mixed):
+    """The auto solver of a small graph (dense normal equations through the
+    generic linearization) in gauss_newton and levenberg_marquardt against
+    the JAX package's at rtol 1e-9."""
+    for jf, tf_ in ((JO.gauss_newton, TO.gauss_newton),
+                    (JO.levenberg_marquardt, TO.levenberg_marquardt)):
+        p = _lm_params(gt, "gtsam") if jf is JO.levenberg_marquardt \
+            else gt.OptimizerParams(max_iterations=10,
+                                    relative_error_tol=1e-9)
+        tp = _lm_params(TO, "gtsam") if tf_ is TO.levenberg_marquardt \
+            else TO.OptimizerParams(max_iterations=10,
+                                    relative_error_tol=1e-9)
+        jres = jf(mixed.jgraph, mixed.jvals, p)
+        tres = tf_(mixed.tgraph, mixed.tvals, tp, device="cpu")
+        assert tres.iterations == jres.iterations
+        _close(tres.history, jres.history, 1e-9)
+
+
+def test_graph_error_and_cpu_path_launches_nothing(case):
+    """The bound graph's error (kernel 6's plain error for SE3 batches, the
+    generic residuals for the rest) equals the JAX package's at 1e-12, and
+    the CPU path counts no kernel launch."""
+    _kernels.reset_launch_counts()
+    got = case.tbound.error(case.tvals.arrays)
+    ref = case.jbound.error(case.jvals.arrays)
+    _close(got, ref, 1e-12)
+    case.ts.solve_refined(*case.systems()[2:], 1e-3, False, 1)
+    assert all(n == 0 for n in _kernels.launch_counts().values())
