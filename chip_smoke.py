@@ -20,8 +20,10 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      pose-graph kernels 6-9 (gtsam_torch.linear.supernodal_kernels.KERNELS)
      against their plain versions on a 6 x 8 sphere and on a graph that
      mixes SE3 poses with Point3 landmarks (both linearization routes), at
-     lam 1e-4 and 1, diagonal damping off and on, and a small pose-graph
-     LM on the card against the same run on the CPU;
+     lam 1e-4 and 1, diagonal damping off and on, with a check that kernel
+     6's assembly and kernel 9 neither read nor write the store's fill (the
+     rows outside H's own blocks), and a small pose-graph LM on the card
+     against the same run on the CPU;
   4. the main paths: gtsam_torch.sfm.ba.ba_optimize at the Ladybug-1723
      shape (make_bal_problem(1723, 150000, 4, seed=0)) with bench.py's LM
      settings, (a) float64 and (b) mixed precision (dtype=float32,
@@ -31,8 +33,9 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      chordal initialization, optimizers.make_fused_lm on the supernodal
      solver, float64) at the sphere2500 shape, held to TARGET_SPHERE and
      run twice for the same bits; every kernel's launch count is read from
-     the first run of its path alone, and the sphere path must launch no
-     generic linearization;
+     the first run of its path alone, the sphere path must launch no
+     generic linearization, and its solver's owned block store must be zero
+     outside H's own blocks after both runs;
   5. each kernel against its plain version again at the Ladybug shape, on
      the converged state (same tolerances), then its time (CUDA events)
      beside the plain version's time and its bound from this run's shapes,
@@ -41,8 +44,10 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      same bits; the time of the plan build (host and device), of one
      factorization in float64 and in float32, and of the triangular-solve
      pairs; the same for kernels 6-9 on the sphere's converged state, with
-     the library call of each one that has one, the time of each level's
-     cholesky_ex, solve_triangular and bmm, and of a try by stage;
+     the library call of each one that has one, each also as device time
+     per call (torch.profiler; the events time of back-to-back wrapper calls
+     includes the host's), the time of each level's cholesky_ex,
+     solve_triangular and bmm, and of a try by stage;
   6. one profiled run of each main path: device busy time by kernel, and
      the rows of the full-matrix passes (mul, fill, copy, tril); then a
      profile of error calls alone, each of which must be one launch of its
@@ -137,6 +142,23 @@ def cuda_ms(fn, reps, warmup=2):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps=10):
+    """Device time of one call of fn: the self device time of every kernel
+    it launches (torch.profiler), summed over reps calls, over reps.  Unlike
+    cuda_ms it leaves out the host's time between launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")) / 1e3 / reps
 
 
 class Inputs:
@@ -594,14 +616,16 @@ class PGCase:
                 out.append((mk, lambda r, a: (a[-2], a[-1])))
             return out
         if name == "pg_assemble":
+            # into a store zeroed once per maker call, as the main path's
+            # SparseSolver assembles into its owned store
             gen = torch.Generator("cuda").manual_seed(2)
             hc = torch.randn((s._n_hc, s.d * s.d), dtype=torch.float64,
                              device="cuda", generator=gen)
             gc = torch.randn((s._n_gc, s.d), dtype=torch.float64,
                              device="cuda", generator=gen)
-            args = (hc, gc, dv.asm_src, dv.blk_ptr, dv.g_src, dv.g_ptr,
-                    dv.diag_col, dv.pad_diag)
-            return [(lambda: args, lambda r, a: r)]
+            args = (hc, gc, dv.asm_src, dv.asm_ptr, dv.asm_blk, dv.asm_diag,
+                    dv.g_src, dv.g_ptr, dv.pad_diag, s.B + 1)
+            return [(lambda: args + (s.new_store(),), lambda r, a: r)]
         if name == "sn_matvec":
             x = self.x
             args = (self.blocks, x, dv.mv_row_ptr, dv.mv_row_blk,
@@ -701,6 +725,43 @@ def check_pg_kernels(case, label, names=None):
     return errs
 
 
+def fill_rows(s):
+    """Mask of the block store rows outside H's own blocks T (the fill and
+    the sentinel row) of supernodal solver s, on the card."""
+    import torch
+    fill = torch.ones(s.B + 1, dtype=torch.bool, device="cuda")
+    fill[s.dev.asm_blk.long()] = False
+    return fill
+
+
+def check_fill_untouched(case, label):
+    """Neither kernel 6's assembly nor kernel 9 touches the store's fill
+    (the rows outside H's own blocks T): an assembly into a store whose
+    fill holds NaN leaves it NaN and writes T's rows with the bits of an
+    assembly into a zeroed store, and the matvec on blocks whose fill holds
+    NaN gives the bits it gives on the zero-fill store."""
+    import torch
+    from gtsam_torch.linear import supernodal_kernels as K
+    s = case.s
+    fill = fill_rows(s)
+    args = case.calls("pg_assemble")[0][0]()
+    ref, _ = K.pg_assemble(*args)
+    nan_store = torch.zeros_like(ref)
+    nan_store[fill] = float("nan")
+    got, _ = K.pg_assemble(*args[:-1], nan_store)
+    mv = case.calls("sn_matvec")[0][0]()
+    nan_blocks = mv[0].clone()
+    nan_blocks[fill] = float("nan")
+    ok = (bool(torch.isnan(got[fill]).all())
+          and torch.equal(got[~fill], ref[~fill])
+          and torch.equal(K.sn_matvec(*mv), K.sn_matvec(nan_blocks, *mv[1:])))
+    log(f"fill untouched ({label}): {ok} (T {int((~fill).sum())} of "
+        f"{s.B + 1} store rows)")
+    if not ok:
+        raise AssertionError(f"pg_assemble or sn_matvec touched the store's "
+                             f"fill ({label})")
+
+
 def pg_small_checks():
     """Phase 3 of the pose graph: kernels 6-9 against their plain versions
     on the small sphere and the mixed graph at lam 1e-4 and 1, damping off
@@ -735,6 +796,7 @@ def pg_small_checks():
                     f"{len(case.s.level_plans)} levels, B {case.s.B}, ok "
                     f"{case.ok}")
                 check_pg_kernels(case, f"{label} lam={lam} dd={dd}")
+                check_fill_untouched(case, f"{label} lam={lam} dd={dd}")
                 del case
     p = O.LMParams(max_iterations=10, relative_error_tol=1e-9,
                    absolute_error_tol=1e-12, lambda_policy="gain")
@@ -811,6 +873,15 @@ def sphere_main_path():
         runs.append(dict(it=it, arrays=arrays, err=err, hist=hist,
                          tries=tries, wall=wall, launches=launches,
                          generic=generic, peak=peak, ate=ate_rmse))
+    # the solver's owned store: one allocation for both runs, zero outside
+    # T after them
+    store, s = solver.store, solver._s
+    fill = fill_rows(s)
+    clean = bool((store[fill] == 0).all())
+    log(f"sphere path: owned store {tuple(store.shape)}, zero outside T "
+        f"({int((~fill).sum())} of {s.B + 1} rows) after both runs: {clean}")
+    if not clean:
+        raise AssertionError("the owned store is not zero outside T")
     a, b = runs
     same = (torch.equal(a["hist"][:a["it"] + 1], b["hist"][:b["it"] + 1])
             and torch.equal(a["arrays"]["SE3"].R, b["arrays"]["SE3"].R)
@@ -846,9 +917,11 @@ def pg_work(case):
     lin = (factor_in + N + N * (3 if arity == 2 else 1) * dd * 8
            + N * arity * d * 8, N * ops_per)
     err = (factor_in + 8, N * 900)
-    C, Cg = s._n_hc, s._n_gc
-    asm = (C * dd * 8 + Cg * d * 8 + 4 * (C + Cg) + 4 * (B + 2) + 4 * (n + 1)
-           + 4 * (B + 1) + n * d * 8 + (B + 1) * dd * 8 + n * d * 8,
+    # assembly: the contribution rows and their indices, T's CSR, g's CSR
+    # and pad_diag in; T's blocks and g out (the fill is not touched)
+    C, Cg, T = s._n_hc, s._n_gc, len(s.asm_blk)
+    asm = (C * dd * 8 + Cg * d * 8 + 4 * (C + Cg) + 4 * (T + 1) + 8 * T
+           + 4 * (n + 1) + n * d * 8 + T * dd * 8 + n * d * 8,
            C * dd + Cg * d)
     front = [0, 0]
     piv = [0, 0]
@@ -884,9 +957,12 @@ def pg_work(case):
             seg[0] += (len(lp.fwd_src) * (d * 8 + 4) + 4 * (Tf + 1) + 4 * Tf
                        + 2 * Tf * d * 8)
             seg[1] += len(lp.fwd_src) * d
-    offd = len(s._mv_plan[4])
-    mv = (B * dd * 8 + n * d * 8 + 4 * (2 * (n + 1) + B + offd + 2 * B + n)
-          + n * d * 8 + n * d * 8, 2 * dd * (B + offd) + 3 * n * d)
+    # matvec: T's blocks by row and its off-diagonal ones by column, with
+    # their ids and the other variable's id; the CSR offsets, x and
+    # pad_diag in, y out
+    nr, nc = len(s.mv_row_blk), len(s.mv_col_blk)
+    mv = ((nr + nc) * (dd * 8 + 8) + 4 * 2 * (n + 1) + 3 * n * d * 8,
+          2 * dd * (nr + nc) + 3 * n * d)
     return {"pg_linearize": lin, "pg_error": err, "pg_assemble": asm,
             "sn_front_gather": tuple(front), "sn_pivot_check": tuple(piv),
             "sn_schur_scatter": tuple(schur), "sn_forward_level": tuple(fwd),
@@ -897,16 +973,16 @@ def pg_work(case):
 def _library_call(name, case):
     """One PyTorch call computing kernel `name`'s function on the same
     inputs (one per level where the kernel runs per level), where one
-    exists, else None; timed as a yardstick, never used by the port.  Both
+    exists, else None; timed as a yardstick, never used by the port.  The
     index_add_ calls scatter with atomics (their bits vary) into a store
-    zeroed outside the timing; the spmv's CSR is built outside it too."""
+    copied or zeroed outside the timing; the spmv's CSR (H's own blocks T
+    only) is built outside it too."""
     import torch
     s, dv = case.s, case.s.dev
     if name == "pg_assemble":
         # each contribution row straight to its block: one index_add_
         owner = torch.repeat_interleave(
-            torch.arange(s.B + 1, device="cuda"),
-            (dv.blk_ptr[1:] - dv.blk_ptr[:-1]).long())
+            dv.asm_blk.long(), (dv.asm_ptr[1:] - dv.asm_ptr[:-1]).long())
         idx = torch.empty(s._n_hc, dtype=torch.long, device="cuda")
         idx[dv.asm_src.long()] = owner
         hc = torch.randn((s._n_hc, s.d * s.d), dtype=torch.float64,
@@ -929,20 +1005,51 @@ def _library_call(name, case):
             idx[lv.fwd_src.long()] = owner
             calls.append((e["acc"].clone(), idx, c))
         return lambda: [acc.index_add_(0, idx, c) for acc, idx, c in calls]
+    if name == "sn_schur_scatter":
+        # one index_add_ per level with a panel, element by element, U's
+        # entries straight to their target block's entries (alpha -1); the
+        # entries of U that no target takes (upper blocks, padding) go to
+        # spare slots of their own after the working copy, so no atomic
+        # contends for them
+        d, dd = s.d, s.d * s.d
+        ii = torch.arange(d, device="cuda")
+        calls = []
+        for lv, e in zip(dv.levels, case.lv):
+            if not lv.R:
+                continue
+            S, R = lv.S, lv.R
+            tgt = torch.full((S * R * R,), -1, dtype=torch.long,
+                             device="cuda")
+            tgt[lv.schur_src.long()] = torch.repeat_interleave(
+                lv.schur_tgt.long(),
+                (lv.schur_ptr[1:] - lv.schur_ptr[:-1]).long())
+            # U[s, a*d + i, b*d + j] -> work[tgt(s, a, b), i*d + j]
+            t5 = tgt.view(S, R, 1, R, 1)
+            idx = (t5 * dd + ii.view(1, 1, d, 1, 1) * d
+                   + ii.view(1, 1, 1, 1, d))
+            u = e["U"].reshape(-1)
+            spare = e["work"].numel() + torch.arange(
+                u.numel(), device="cuda").view(idx.shape)
+            idx = torch.where(t5 >= 0, idx, spare).reshape(-1)
+            calls.append((torch.cat([e["work"].reshape(-1),
+                                     torch.zeros_like(u)]), idx, u))
+        return lambda: [w.index_add_(0, idx, u, alpha=-1.0)
+                        for w, idx, u in calls]
     if name == "sn_matvec":
-        # the full symmetric H + damping as one CSR matrix, then one spmv
-        B = s.B
+        # the symmetric H + damping on T's blocks as one CSR matrix, then
+        # one spmv
         d = s.d
-        blocks = case.blocks[:B].reshape(B, d, d)
-        br, bc = dv.block_row.long(), dv.block_col.long()
+        rb = dv.mv_row_blk.long()          # every block of T, once
+        B = rb.numel()
+        blocks = case.blocks[rb].reshape(B, d, d)
+        br, bc = dv.block_row.long()[rb], dv.block_col.long()[rb]
         ii = torch.arange(d, device="cuda")
         rows = (br[:, None, None] * d + ii[None, :, None]).expand(B, d, d)
         cols = (bc[:, None, None] * d + ii[None, None, :]).expand(B, d, d)
         off = br != bc
-        r = torch.cat([rows.reshape(-1), cols[off].transpose(1, 2)
-                       .reshape(-1)])
-        c = torch.cat([cols.reshape(-1), rows[off].transpose(1, 2)
-                       .reshape(-1)])
+        # each off-diagonal B also as B^T: entry (i, j) at (col j, row i)
+        r = torch.cat([rows.reshape(-1), cols[off].reshape(-1)])
+        c = torch.cat([cols.reshape(-1), rows[off].reshape(-1)])
         v = torch.cat([blocks.reshape(-1), blocks[off].reshape(-1)])
         damp = s.damp_vec(case.blocks, case.lam, case.dd).reshape(-1)
         diag = torch.arange(s.nvars * d, device="cuda")
@@ -963,6 +1070,7 @@ def pg_kernel_times(main, ms_fn):
     and the library call's; the library calls of each level; the time of a
     try by stage."""
     import torch
+    from gtsam_torch import _build
     from gtsam_torch.graph.values import retract_arrays
     from gtsam_torch.linear import supernodal_kernels as K
     fn, solver = main["fn"], main["solver"]
@@ -971,6 +1079,7 @@ def pg_kernel_times(main, ms_fn):
     case = PGCase(graph, vals0.replace_arrays(arrays), 1.0, False,
                   **SPHERE_SOLVER["supernodal_kwargs"])
     checks = check_pg_kernels(case, "sphere")
+    check_fill_untouched(case, "sphere")
     work = pg_work(case)
     kernels = []
     for name, kern in K.KERNELS.items():
@@ -985,6 +1094,8 @@ def pg_kernel_times(main, ms_fn):
         plain_ms = ms_fn(lambda: run(pfn), reps=3, warmup=1)
         lib = _library_call(name, case)
         library_ms = ms_fn(lib, reps=20) if lib is not None else None
+        dev_ms = device_ms(lambda: run(kfn))
+        lib_dev_ms = device_ms(lib) if lib is not None else None
         nbytes, flops = work[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / FP64_FLOPS * 1e3
@@ -996,12 +1107,18 @@ def pg_kernel_times(main, ms_fn):
             "max_abs_err": checks[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, "calls_timed": len(built)})
-        log(f"time {name}: {ms:.4f} ms for {len(built)} launches (plain "
-            f"{plain_ms:.4f} ms, library {library_ms}, bound "
+            "library_ms": library_ms, "calls_timed": len(built),
+            "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
+        log(f"time {name}: {ms:.4f} ms for {len(built)} launches, device "
+            f"{dev_ms:.4f} ms (plain {plain_ms:.4f} ms, library {library_ms}, "
+            f"device {lib_dev_ms}, bound "
             f"{max(t_bytes, t_ops):.4f} ms by {kernels[-1]['bound_by']}, "
             f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP); launches on "
             f"the path {kernels[-1]['launches']}")
+        if name in ("pg_assemble", "sn_matvec"):
+            for line in ptxas_lines(_build.BUILD_LOG.get(kern.source, ""),
+                                    name + "_kernel"):
+                log(f"  {name}: {line}")
     # the library calls of each level, on that level's inputs
     levels = []
     for lp, e in zip(solver._s.level_plans, case.lv):
@@ -1034,7 +1151,7 @@ def pg_kernel_times(main, ms_fn):
     layout = vals0.layout()
     stages = {
         "error": ms_fn(lambda: fn.bound.error(arrays), reps=10),
-        "linearize_assemble": ms_fn(lambda: s.system(arrays), reps=10),
+        "linearize_assemble": ms_fn(lambda: solver.system(arrays), reps=10),
         "factorize": ms_fn(lambda: s.factorize(blocks, 1e-3), reps=10),
         "two_solves": ms_fn(lambda: (s._solve_padded(f, g),
                                      s._solve_padded(f, g)), reps=10),

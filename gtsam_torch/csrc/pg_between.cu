@@ -15,16 +15,26 @@
 // information.  The thread writes sign A_s1^T A_s2 for each slot pair
 // (s1 <= s2; the (0, 1) block transposed where flip says the plan stores it
 // so) and sign A_s^T b into the contribution buffer, factor-major.
-// gt_pg_assemble: one thread per entry of the block store (and of g): sums
-// the block's contributions in the plan's sorted-CSR order, adds the
-// identity of the padded dimensions, writes.  No atomics: the same bits on
-// every run.
+// gt_pg_assemble (replaces system's segment sums and scatter, :352-367):
+// one launch over H's own blocks T (the store rows that receive a
+// contribution, and the diagonal blocks; the plan's asm_blk) and g.  A warp
+// takes one block of T: lane l owns entries l, l + 32, ... of it, so each
+// 288-byte contribution row (d = 6) is read with coalesced loads, summed in
+// the plan's asm_ptr order (four rows' loads in flight), the identity of
+// the padded dimensions added on the diagonal, and the block written with
+// whole-line stores.  Thread blocks past T's take g, a thread per entry.
+// Indices are 32-bit, from the block and warp ids; the grid follows |T| and
+// n, never the store's B rows.  The store's fill (zero by the solver's
+// invariant, supernodal.py) is neither read nor written.  No atomics: the
+// same bits on every run.
 // gt_pg_error: one block; each thread sums its strided factors, then a
 // fixed shared-memory tree.
 //
 // Bound on the H100: linearize by FP64 operations (~2,000 a between factor)
-// against 0.5 KB of traffic; assemble by bytes (the whole block store is
-// written, most of it zero fill).
+// against 0.5 KB of traffic; assemble by bytes: T's contribution rows read
+// and T's blocks written once (sphere stand-in: 14,848 and 7,449 rows of
+// 288 B, ~6.7 MB with g and the indices, ~0.002 ms at 3.35 TB/s), where the
+// first design wrote the whole 36 MB store on every call.
 #include "ba_common.cuh"
 
 namespace {
@@ -384,36 +394,58 @@ __global__ void __launch_bounds__(kErrorThreads) pg_error_kernel(
   if (threadIdx.x == 0) *out = sign * (0.5 * red[0]);
 }
 
-__global__ void __launch_bounds__(256) pg_assemble_blocks_kernel(
-    int64_t total, int d, const double* __restrict__ hc,
-    const int* __restrict__ asm_src, const int* __restrict__ blk_ptr,
-    const int* __restrict__ diag_col, const double* __restrict__ pad_diag,
-    double* __restrict__ blocks) {
-  const int64_t idx = (int64_t)blockIdx.x * 256 + threadIdx.x;
-  if (idx >= total) return;
-  const int dd = d * d;
-  const int64_t b = idx / dd;
-  const int e = (int)(idx - b * dd);
-  double acc = 0.0;
-  for (int k = blk_ptr[b]; k < blk_ptr[b + 1]; ++k)
-    acc += hc[(int64_t)asm_src[k] * dd + e];
-  const int col = diag_col[b];
-  if (col >= 0 && e % (d + 1) == 0) acc += pad_diag[(int64_t)col * d + e / (d + 1)];
-  blocks[idx] = acc;
-}
+constexpr int kAsmThreads = 256;               // 8 warps: 8 blocks of T
+constexpr int kAsmWarps = kAsmThreads / gt::kWarp;
+constexpr int kMaxD = 12;                       // store width d <= 12
+constexpr int kAsmSlots = (kMaxD * kMaxD + gt::kWarp - 1) / gt::kWarp;
 
-__global__ void __launch_bounds__(256) pg_assemble_g_kernel(
-    int64_t total, int d, const double* __restrict__ gc,
-    const int* __restrict__ g_src, const int* __restrict__ g_ptr,
-    double* __restrict__ g) {
-  const int64_t idx = (int64_t)blockIdx.x * 256 + threadIdx.x;
-  if (idx >= total) return;
-  const int64_t v = idx / d;
-  const int i = (int)(idx - v * d);
-  double acc = 0.0;
-  for (int k = g_ptr[v]; k < g_ptr[v + 1]; ++k)
-    acc += gc[(int64_t)g_src[k] * d + i];
-  g[idx] = acc;
+__global__ void __launch_bounds__(kAsmThreads) pg_assemble_kernel(
+    int nt, int n, int d, int blk_ctas, const double* __restrict__ hc,
+    const double* __restrict__ gc, const int* __restrict__ asm_src,
+    const int* __restrict__ asm_ptr, const int* __restrict__ asm_blk,
+    const int* __restrict__ asm_diag, const int* __restrict__ g_src,
+    const int* __restrict__ g_ptr, const double* __restrict__ pad_diag,
+    double* __restrict__ blocks, double* __restrict__ g) {
+  if ((int)blockIdx.x >= blk_ctas) {   // g: one thread per entry
+    const int t = ((int)blockIdx.x - blk_ctas) * kAsmThreads + threadIdx.x;
+    if (t >= n * d) return;
+    const int v = t / d;
+    const int i = t - v * d;
+    double acc = 0.0;
+    for (int k = g_ptr[v]; k < g_ptr[v + 1]; ++k)
+      acc += gc[(int64_t)g_src[k] * d + i];
+    g[t] = acc;
+    return;
+  }
+  const int w = (int)blockIdx.x * kAsmWarps + (threadIdx.x >> 5);
+  if (w >= nt) return;
+  const int lane = threadIdx.x & 31;
+  const int dd = d * d;
+  const int k1 = asm_ptr[w + 1];
+  double acc[kAsmSlots];
+#pragma unroll
+  for (int r = 0; r < kAsmSlots; ++r) acc[r] = 0.0;
+  // the rows in plan order; the unroll only issues their loads early
+#pragma unroll 4
+  for (int k = asm_ptr[w]; k < k1; ++k) {
+    const double* row = hc + (int64_t)asm_src[k] * dd;
+#pragma unroll
+    for (int r = 0; r < kAsmSlots; ++r) {
+      const int e = lane + r * gt::kWarp;
+      if (e < dd) acc[r] += row[e];
+    }
+  }
+  const int col = asm_diag[w];
+  double* out = blocks + (int64_t)asm_blk[w] * dd;
+#pragma unroll
+  for (int r = 0; r < kAsmSlots; ++r) {
+    const int e = lane + r * gt::kWarp;
+    if (e < dd) {
+      double a = acc[r];
+      if (col >= 0 && e % (d + 1) == 0) a += pad_diag[col * d + e / (d + 1)];
+      out[e] = a;
+    }
+  }
 }
 
 }  // namespace
@@ -444,22 +476,20 @@ GT_EXPORT int gt_pg_error(int N, int arity, const double* R, const double* t,
   return (int)cudaGetLastError();
 }
 
-// nb = B + 1 store rows of d*d, n variables.
-GT_EXPORT int gt_pg_assemble(int nb, int n, int d, const double* hc,
+// nt blocks of T (asm_blk: their store rows), n variables, d <= 12.
+GT_EXPORT int gt_pg_assemble(int nt, int n, int d, const double* hc,
                              const double* gc, const int* asm_src,
-                             const int* blk_ptr, const int* g_src,
-                             const int* g_ptr, const int* diag_col,
-                             const double* pad_diag, double* blocks,
-                             double* g, void* stream) {
-  const int64_t tb = (int64_t)nb * d * d, tg = (int64_t)n * d;
-  if (tb > 0)
-    pg_assemble_blocks_kernel<<<(unsigned)((tb + 255) / 256), 256, 0,
-                                (cudaStream_t)stream>>>(
-        tb, d, hc, asm_src, blk_ptr, diag_col, pad_diag, blocks);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  if (tg > 0)
-    pg_assemble_g_kernel<<<(unsigned)((tg + 255) / 256), 256, 0,
-                           (cudaStream_t)stream>>>(tg, d, gc, g_src, g_ptr, g);
+                             const int* asm_ptr, const int* asm_blk,
+                             const int* asm_diag, const int* g_src,
+                             const int* g_ptr, const double* pad_diag,
+                             double* blocks, double* g, void* stream) {
+  if (d > kMaxD) return (int)cudaErrorInvalidValue;
+  const int blk_ctas = (nt + kAsmWarps - 1) / kAsmWarps;
+  const int g_ctas = (n * d + kAsmThreads - 1) / kAsmThreads;
+  if (blk_ctas + g_ctas > 0)
+    pg_assemble_kernel<<<blk_ctas + g_ctas, kAsmThreads, 0,
+                         (cudaStream_t)stream>>>(
+        nt, n, d, blk_ctas, hc, gc, asm_src, asm_ptr, asm_blk, asm_diag,
+        g_src, g_ptr, pad_diag, blocks, g);
   return (int)cudaGetLastError();
 }

@@ -5,14 +5,27 @@
 // :293-300): y = (H + damping) x on the lower block store, x and y (n x d)
 // in the permuted layout.
 //
-// One warp per variable v.  Its lanes stride over v's row blocks (every
-// stored block with row v, in the plan's sorted order) adding B_k x[col_k],
-// and over its off-diagonal column blocks adding B_k^T x[row_k]; each sum is
-// then folded by a fixed butterfly, and lane i < d writes
-// y_i = row_i + col_i + damp_i x_i (damp: lam, or lam * clip(H_vv[i, i]), on
-// true dimensions).  No atomics: the same bits on every run.
-// Bound on the H100: bytes (the store, ~36 MB at the sphere shape, read
-// once; x gathered through L2).
+// The row and column CSRs list H's own blocks only (the solver's set T:
+// supernodal.py), so the store's fill, zero by the solver's invariant, is
+// never read.  One warp per variable v, cut into 32 / d groups of d lanes
+// (five groups of six for d = 6).  v's tasks are its row blocks (every
+// block of T in row v: y_v += B x[col]) and then its off-diagonal column
+// blocks (y_v += B^T x[row]); group g takes tasks g, g + groups, ...  For a
+// row task lane i of the group reads row i of the block, for a column task
+// column i, so the group's d lanes read the block's d*d doubles once, all
+// within its 288 bytes (d = 6), and each lane forms output component i of
+// that task with no reduction; it also reads x of the block's other
+// variable (the same d doubles for the group: one broadcast).  The groups'
+// partial sums are then folded into the first group's lanes by shuffles in
+// a fixed order, and lane i < d writes y_i + damp_i x_i (damp: lam, or
+// lam * clip(H_vv[i, i]), on true dimensions).  No atomics: the same bits on
+// every run.
+// Bound on the H100: bytes, T's blocks read once by row and the
+// off-diagonal ones once more by column (sphere stand-in: 7,449 + 4,949
+// blocks of 288 B, ~3.7 MB with x, y and the indices, ~0.0011 ms at 3.35
+// TB/s); the launch and the chain of dependent index loads (row_ptr ->
+// row_blk -> block_col -> x) are the real floor at that size.  The first
+// design read every block of the 36 MB store, a lane per block.
 #include "ba_common.cuh"
 
 namespace {
@@ -28,50 +41,40 @@ __global__ void __launch_bounds__(kThreads) sn_matvec_kernel(
     const int* __restrict__ block_col, const int* __restrict__ dbc,
     const double* __restrict__ pad_diag, double lam, int diagonal_damping,
     double min_diag, double max_diag, double* __restrict__ y) {
-  const int64_t v = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int v = ((int)blockIdx.x * kThreads + (int)threadIdx.x) >> 5;
+  if (v >= n) return;   // warp-uniform: the shuffles below see all lanes
   const int lane = threadIdx.x & 31;
-  if (v >= n) return;
+  const int groups = gt::kWarp / d;
+  const int grp = lane / d;
+  const int i = lane - grp * d;
   const int dd = d * d;
-  double ar[kMaxD], ac[kMaxD];
+  const int r0 = row_ptr[v];
+  const int nr = row_ptr[v + 1] - r0;
+  const int c0 = col_ptr[v] - nr;   // task t >= nr is column block c0 + t
+  const int ntask = nr + col_ptr[v + 1] - col_ptr[v];
+  double acc = 0.0;
+  if (grp < groups) {
+    for (int t = grp; t < ntask; t += groups) {
+      const bool row = t < nr;
+      const int b = row ? row_blk[r0 + t] : col_blk[c0 + t];
+      const int o = row ? block_col[b] : block_row[b];
+      const double* B = blocks + (int64_t)b * dd + (row ? i * d : i);
+      const int step = row ? 1 : d;
+      const double* xo = x + (int64_t)o * d;
+      double s = 0.0;
 #pragma unroll
-  for (int i = 0; i < kMaxD; ++i) ar[i] = ac[i] = 0.0;
-  for (int k = row_ptr[v] + lane; k < row_ptr[v + 1]; k += 32) {
-    const int64_t b = row_blk[k];
-    const double* B = blocks + b * dd;
-    const double* xc = x + (int64_t)block_col[b] * d;
-#pragma unroll
-    for (int i = 0; i < kMaxD; ++i) {
-      if (i < d) {
-        double s = 0.0;
-        for (int j = 0; j < d; ++j) s += B[i * d + j] * xc[j];
-        ar[i] += s;
-      }
+      for (int j = 0; j < kMaxD; ++j)
+        if (j < d) s += B[j * step] * xo[j];
+      acc += s;
     }
   }
-  for (int k = col_ptr[v] + lane; k < col_ptr[v + 1]; k += 32) {
-    const int64_t b = col_blk[k];
-    const double* B = blocks + b * dd;
-    const double* xr = x + (int64_t)block_row[b] * d;
-#pragma unroll
-    for (int j = 0; j < kMaxD; ++j) {
-      if (j < d) {
-        double s = 0.0;
-        for (int i = 0; i < d; ++i) s += B[i * d + j] * xr[i];
-        ac[j] += s;
-      }
-    }
-  }
-  double out = 0.0;
-#pragma unroll
-  for (int i = 0; i < kMaxD; ++i) {
-    if (i < d) {
-      const double r = gt::warp_sum(ar[i]);
-      const double c = gt::warp_sum(ac[i]);
-      if (lane == i) out = r + c;
-    }
+  double out = acc;
+  for (int g = 1; g < groups; ++g) {
+    const double o = __shfl_sync(0xffffffffu, acc, lane + g * d);
+    if (lane < d) out += o;
   }
   if (lane < d) {
-    const int64_t e = v * d + lane;
+    const int64_t e = (int64_t)v * d + lane;
     double damp = lam;
     if (diagonal_damping)
       damp = lam * fmin(fmax(blocks[(int64_t)dbc[v] * dd + lane * (d + 1)],
@@ -82,7 +85,8 @@ __global__ void __launch_bounds__(kThreads) sn_matvec_kernel(
 
 }  // namespace
 
-// n variables of d <= 12 components; blocks: (B+1) x d*d.
+// n variables of d <= 12 components; blocks: (B+1) x d*d, read only at the
+// blocks the CSRs list.
 GT_EXPORT int gt_sn_matvec(int n, int d, const double* blocks,
                            const double* x, const int* row_ptr,
                            const int* row_blk, const int* col_ptr,
@@ -92,7 +96,7 @@ GT_EXPORT int gt_sn_matvec(int n, int d, const double* blocks,
                            int diagonal_damping, double min_diag,
                            double max_diag, double* y, void* stream) {
   if (d > kMaxD) return (int)cudaErrorInvalidValue;
-  const int64_t threads = (int64_t)n * 32;
+  const int64_t threads = (int64_t)n * gt::kWarp;
   if (threads > 0)
     sn_matvec_kernel<<<(unsigned)((threads + kThreads - 1) / kThreads),
                        kThreads, 0, (cudaStream_t)stream>>>(

@@ -17,6 +17,18 @@ package's, array for array, and move to the device once (`to`).  Then:
   solve:     kernel 8 per level, forward then backward, one CTA per front;
   matvec:    kernel 9, the refinement residual's (H + damping) x.
 
+H's own blocks.  The store holds every block of the factor's structure, B
+of them, but H puts something into only the set T (`asm_blk`): the store
+rows that receive a contribution, plus every diagonal block (its padded
+dimensions get the identity).  The rest is fill, which only factorize's
+working copy receives.  The invariant: outside T, the store that system()
+returns is zero.  The assembly plan (asm_ptr over asm_src, asm_diag) and
+the matvec's row and column CSRs list T's blocks only, in the JAX plans'
+order with the fill removed, so their sums are the JAX package's less
+exact-zero terms.  system(arrays, out=store) writes T's rows of a store
+that is zero outside T and leaves the rest alone: SparseSolver owns one
+such store, zeroed once, and every iteration assembles into it.
+
 Every kernel has a plain PyTorch version (supernodal_kernels.py) that the
 CPU runs.  The multifrontal QR and the two-float refinement of the JAX
 package (matvec_df, solve_refined_df) are not ported: the card refines in
@@ -335,8 +347,9 @@ class SupernodalCholeskySolver:
     def _port_plans(self):
         """Host arrays the port's kernels read on top of the JAX plans: the
         contribution buffer's layout (factor-major per batch: factor n's
-        slot pairs, then its slots), the assembly CSRs over that layout,
-        and the CSR offsets of the Schur, forward and matvec segments."""
+        slot pairs, then its slots), the assembly CSRs over that layout and
+        over T, the matvec's CSRs over T, and the CSR offsets of the Schur
+        and forward segments."""
         n, B = self.nvars, self.B
         sym = self.sym
         h_port, g_port = [], []
@@ -357,28 +370,34 @@ class SupernodalCholeskySolver:
         h_port = np.concatenate(h_port) if h_port else np.zeros(0, np.int64)
         g_port = np.concatenate(g_port) if g_port else np.zeros(0, np.int64)
         self.asm_src = h_port[self._asm_order].astype(np.int32)
-        counts = np.zeros(B + 1, np.int64)
+        counts = np.zeros(B, np.int64)
         counts[self._asm_uniq] = np.bincount(self._asm_seg,
                                              minlength=len(self._asm_uniq))
-        self.blk_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(
-            np.int32)
+        diag_col = np.full(B, -1, np.int32)
+        diag_col[sym.diag_block_by_col] = np.arange(n, dtype=np.int32)
+        # T: H's own blocks (module docstring), ascending, as asm_src's
+        # targets are sorted
+        in_t = (counts > 0) | (diag_col >= 0)
+        self.asm_blk = np.flatnonzero(in_t).astype(np.int32)
+        self.asm_ptr = np.concatenate(
+            [[0], np.cumsum(counts[self.asm_blk])]).astype(np.int32)
+        self.asm_diag = diag_col[self.asm_blk]
         self.g_src = g_port[self._g_order].astype(np.int32)
         gcounts = np.zeros(n, np.int64)
         gcounts[self._g_uniq] = np.bincount(self._g_seg,
                                             minlength=len(self._g_uniq))
         self.g_ptr = np.concatenate([[0], np.cumsum(gcounts)]).astype(
             np.int32)
-        self.diag_col = np.full(B + 1, -1, np.int32)
-        self.diag_col[sym.diag_block_by_col] = np.arange(n, dtype=np.int32)
+        # the matvec's CSRs: the JAX plan's sorted blocks that lie in T
         ro, rseg, runiq, offd, coi, cseg, cuniq = self._mv_plan
-        self.mv_row_blk = ro.astype(np.int32)
+        self.mv_row_blk = ro[in_t[ro]].astype(np.int32)
         self.mv_row_ptr = np.concatenate(
-            [[0], np.cumsum(np.bincount(sym.block_row, minlength=n))]
-        ).astype(np.int32)
-        self.mv_col_blk = coi.astype(np.int32)
+            [[0], np.cumsum(np.bincount(sym.block_row[self.mv_row_blk],
+                                        minlength=n))]).astype(np.int32)
+        self.mv_col_blk = coi[in_t[coi]].astype(np.int32)
         self.mv_col_ptr = np.concatenate(
-            [[0], np.cumsum(np.bincount(sym.block_col[coi], minlength=n))]
-        ).astype(np.int32)
+            [[0], np.cumsum(np.bincount(sym.block_col[self.mv_col_blk],
+                                        minlength=n))]).astype(np.int32)
         self.schur_ptr = [None if lp.R == 0 else
                           _seg_ptr(lp.schur_seg, len(lp.schur_tgt))
                           for lp in self.level_plans]
@@ -405,9 +424,10 @@ class SupernodalCholeskySolver:
 
         sym = self.sym
         self.dev = types.SimpleNamespace(
-            asm_src=t(self.asm_src), blk_ptr=t(self.blk_ptr),
+            asm_src=t(self.asm_src), asm_ptr=t(self.asm_ptr),
+            asm_blk=t(self.asm_blk), asm_diag=t(self.asm_diag),
             g_src=t(self.g_src), g_ptr=t(self.g_ptr),
-            diag_col=t(self.diag_col), pad_diag=t(self.pad_diag, F64),
+            pad_diag=t(self.pad_diag, F64),
             dbc=t(sym.diag_block_by_col), block_row=t(sym.block_row),
             block_col=t(sym.block_col), mv_row_ptr=t(self.mv_row_ptr),
             mv_row_blk=t(self.mv_row_blk), mv_col_ptr=t(self.mv_col_ptr),
@@ -439,10 +459,18 @@ class SupernodalCholeskySolver:
 
     # -- system assembly -------------------------------------------------
 
-    def system(self, arrays):
+    def new_store(self):
+        """A zeroed block store (B+1, d*d) on the solver's device, for
+        system(..., out=)."""
+        return torch.zeros((self.B + 1, self.d * self.d), dtype=F64,
+                           device=self.device)
+
+    def system(self, arrays, out=None):
         """Linearize and assemble: (blocks (B+1, d*d) — the flat block store,
         one row per stored (d, d) block, the last row the zero sentinel —
-        and g (nvars, d) in the permuted order)."""
+        and g (nvars, d) in the permuted order).  blocks is `out` when given
+        (a store that is zero outside T: only T's rows are written), else a
+        new store."""
         d, dv = self.d, self.dev
         bound = self.bound
         hc = torch.empty((self._n_hc, d * d), dtype=F64, device=self.device)
@@ -477,8 +505,9 @@ class SupernodalCholeskySolver:
             for s in range(arity):
                 gv[:, s, :dims[s]] = b.sign * torch.einsum("nrd,nr->nd",
                                                            wJ[s], bvec)
-        return K.pg_assemble(hc, gc, dv.asm_src, dv.blk_ptr, dv.g_src,
-                             dv.g_ptr, dv.diag_col, dv.pad_diag)
+        return K.pg_assemble(hc, gc, dv.asm_src, dv.asm_ptr, dv.asm_blk,
+                             dv.asm_diag, dv.g_src, dv.g_ptr, dv.pad_diag,
+                             self.B + 1, out)
 
     # -- numeric factorization -------------------------------------------
 

@@ -43,7 +43,7 @@ KERNELS = _kernels.table(
            "gtsam_tpu/graph/factors.py:147",
            [INT, INT, INT] + [P] * 5 + [INT, INT, P, DBL, P, P, P]),
     Kernel("pg_assemble", "pg_between", "pg_assemble",
-           "gtsam_tpu/linear/supernodal.py:320", [INT] * 3 + [P] * 10),
+           "gtsam_tpu/linear/supernodal.py:320", [INT] * 3 + [P] * 11),
     Kernel("pg_error", "pg_between", "pg_error",
            "gtsam_tpu/graph/graph.py:108",
            [INT, INT] + [P] * 5 + [INT, INT, P, DBL, P]),
@@ -230,46 +230,58 @@ def pg_error(R, t, rows, ZR, Zt, kind, noise, sign):
     return out
 
 
-def pg_assemble_plain(hc, gc, asm_src, blk_ptr, g_src, g_ptr, diag_col,
-                      pad_diag):
-    nb, dd = blk_ptr.numel() - 1, hc.shape[1]
+def pg_assemble_plain(hc, gc, asm_src, asm_ptr, asm_blk, asm_diag, g_src,
+                      g_ptr, pad_diag, nb, out=None):
     n, d = pad_diag.shape
-    blocks = torch.zeros((nb, dd), dtype=F64, device=hc.device).index_add_(
-        0, segment_owner(blk_ptr), hc[asm_src.long()])
-    has = diag_col >= 0
+    T = asm_blk.shape[0]
+    blk = torch.zeros((T, hc.shape[1]), dtype=F64, device=hc.device
+                      ).index_add_(0, segment_owner(asm_ptr),
+                                   hc[asm_src.long()])
+    rows = torch.nonzero(asm_diag >= 0)[:, 0]
     dg = torch.arange(d, device=hc.device) * (d + 1)
-    rows = torch.nonzero(has)[:, 0]
-    blocks[rows[:, None], dg[None, :]] += pad_diag[diag_col[has].long()]
+    blk[rows[:, None], dg[None, :]] += pad_diag[asm_diag[rows].long()]
+    if out is None:
+        out = torch.zeros((nb, hc.shape[1]), dtype=F64, device=hc.device)
+    out[asm_blk.long()] = blk
     g = torch.zeros((n, d), dtype=F64, device=hc.device).index_add_(
         0, segment_owner(g_ptr), gc[g_src.long()])
-    return blocks, g
+    return out, g
 
 
-def pg_assemble(hc, gc, asm_src, blk_ptr, g_src, g_ptr, diag_col, pad_diag):
-    """Kernel 6, assemble: blocks[b] = sum of hc[asm_src[k]] over k in
-    [blk_ptr[b], blk_ptr[b+1]), in that order, plus the identity on the
-    padded dimensions of the diagonal block of column diag_col[b] (-1: none);
-    g[v] = sum of gc[g_src[k]] over v's range of g_ptr.  Returns the block
-    store (B+1, d*d) (row B, the sentinel, stays 0) and g (n, d)."""
-    args = (hc, gc, asm_src, blk_ptr, g_src, g_ptr, diag_col, pad_diag)
-    if on_cpu(*args):
-        return pg_assemble_plain(*args)
+def pg_assemble(hc, gc, asm_src, asm_ptr, asm_blk, asm_diag, g_src, g_ptr,
+                pad_diag, nb, out=None):
+    """Kernel 6, assemble, over H's own blocks T (asm_blk, (T,) store rows):
+    out[asm_blk[i]] = the sum of hc[asm_src[k]] over k in
+    [asm_ptr[i], asm_ptr[i+1]), in that order, plus the identity on the
+    padded dimensions of the diagonal block of column asm_diag[i] (-1:
+    none); g[v] = the sum of gc[g_src[k]] over v's range of g_ptr.  Returns
+    the block store (nb, d*d) and g (n, d).  `out`: a store that is zero
+    outside T, of which only T's rows are written; None: a new zeroed
+    store.  On the card one launch, whose grid depends on T and n only."""
+    args = (hc, gc, asm_src, asm_ptr, asm_blk, asm_diag, g_src, g_ptr,
+            pad_diag)
+    if on_cpu(*args, *_tensors(out)):
+        return pg_assemble_plain(*args, nb, out)
     C, dd = hc.shape
     Cg, d = gc.shape
-    nb, n = blk_ptr.shape[0] - 1, pad_diag.shape[0]
-    dev = check("pg_assemble", ("hc", hc, F64, (C, d * d)),
-                ("gc", gc, F64, (Cg, d)),
-                ("asm_src", asm_src, I32, (asm_src.shape[0],)),
-                ("blk_ptr", blk_ptr, I32, (nb + 1,)),
-                ("g_src", g_src, I32, (g_src.shape[0],)),
-                ("g_ptr", g_ptr, I32, (n + 1,)),
-                ("diag_col", diag_col, I32, (nb,)),
-                ("pad_diag", pad_diag, F64, (n, d)))
-    blocks = torch.empty((nb, dd), dtype=F64, device=dev)
+    T, n = asm_blk.shape[0], pad_diag.shape[0]
+    specs = [("hc", hc, F64, (C, d * d)), ("gc", gc, F64, (Cg, d)),
+             ("asm_src", asm_src, I32, (asm_src.shape[0],)),
+             ("asm_ptr", asm_ptr, I32, (T + 1,)),
+             ("asm_blk", asm_blk, I32, (T,)),
+             ("asm_diag", asm_diag, I32, (T,)),
+             ("g_src", g_src, I32, (g_src.shape[0],)),
+             ("g_ptr", g_ptr, I32, (n + 1,)),
+             ("pad_diag", pad_diag, F64, (n, d))]
+    if out is not None:
+        specs.append(("out", out, F64, (nb, dd)))
+    dev = check("pg_assemble", *specs)
+    if out is None:
+        out = torch.zeros((nb, dd), dtype=F64, device=dev)
     g = torch.empty((n, d), dtype=F64, device=dev)
-    KERNELS["pg_assemble"].launch(dev, nb, n, d, *map(ptr, args),
-                                  ptr(blocks), ptr(g))
-    return blocks, g
+    KERNELS["pg_assemble"].launch(dev, T, n, d, *map(ptr, args), ptr(out),
+                                  ptr(g))
+    return out, g
 
 
 # -- kernel 7: the level step of the supernodal factorization ---------------
@@ -581,8 +593,9 @@ def sn_matvec(blocks, x, row_ptr, row_blk, col_ptr, col_blk, block_row,
     """Kernel 9: y = (H + damping) x on the block store, x and y (n, d) in
     the permuted layout.  Variable v sums B_k x[col_k] over its row blocks
     (row_blk[row_ptr[v]:row_ptr[v+1]]) and B_k^T x[row_k] over its
-    off-diagonal column blocks (col_blk over col_ptr), each in plan order,
-    then adds damp x."""
+    off-diagonal column blocks (col_blk over col_ptr), then adds damp x.
+    The CSRs list H's own blocks (the solver's, over T): the kernel reads
+    those blocks and no other."""
     args = (blocks, x, row_ptr, row_blk, col_ptr, col_blk, block_row,
             block_col, dbc, pad_diag)
     if on_cpu(*args):
@@ -592,7 +605,7 @@ def sn_matvec(blocks, x, row_ptr, row_blk, col_ptr, col_blk, block_row,
     n, d = x.shape
     dev = check("sn_matvec", ("blocks", blocks, F64, (nb, d * d)),
                 ("x", x, F64, (n, d)), ("row_ptr", row_ptr, I32, (n + 1,)),
-                ("row_blk", row_blk, I32, (nb - 1,)),
+                ("row_blk", row_blk, I32, (row_blk.shape[0],)),
                 ("col_ptr", col_ptr, I32, (n + 1,)),
                 ("col_blk", col_blk, I32, (col_blk.shape[0],)),
                 ("block_row", block_row, I32, (nb - 1,)),

@@ -99,7 +99,13 @@ class SparseSolver:
     """The supernodal sparse Cholesky (linear/supernodal.py), with
     refine_iters float64 refinement passes per solve (solve_refined).  The
     JAX package's other methods ('levels', 'qr') and constrained rows are
-    not ported."""
+    not ported.
+
+    It owns one block store, zeroed once at its first system() call, and
+    every system() call assembles into it: only H's own blocks are written,
+    the rest stays zero.  So a system() result holds until the next call,
+    which the optimizers make once per iteration after dropping the last
+    one; nothing writes into it (factorize works on a copy)."""
 
     def __init__(self, order: str = "auto", method: str = "supernodal",
                  refine_iters: Optional[int] = None,
@@ -114,10 +120,13 @@ class SparseSolver:
     def bind(self, bound):
         self._s = SupernodalCholeskySolver(bound, order=self._order,
                                            **self._sn_kwargs)
+        self.store = None
         return self
 
     def system(self, arrays):
-        return self._s.system(arrays)
+        if self.store is None:
+            self.store = self._s.new_store()
+        return self._s.system(arrays, out=self.store)
 
     def solve(self, system, lam, diagonal_damping):
         blocks, g = system

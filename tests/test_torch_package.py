@@ -172,8 +172,8 @@ def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
         "pg_linearize": se3 + ("gaussian", f(N, 6, 6), 1.0, b(N),
                                f(N, 3, 36), f(N, 2, 6)),
         "pg_error": se3 + ("diagonal", f(N, 6), 1.0),
-        "pg_assemble": (f(12, 36), f(8, 6), i(12), i(nb + 1), i(8),
-                        i(n + 1), i(nb), f(n, 6)),
+        "pg_assemble": (f(12, 36), f(8, 6), i(12), i(T + 1), i(T), i(T),
+                        i(8), i(n + 1), f(n, 6), nb),
         "sn_front_gather": (f(nb, 36), f(nb, 36), i(S, W, W), b(S, W, W),
                             f(S, Wd), b(S, Wd), i(S, W), i(n), i(S, R, W),
                             1e-3, False),
@@ -368,7 +368,8 @@ def _cpu_args_pg(name):
         "pg_assemble": (
             torch.as_tensor(rng.normal(size=(s._n_hc, d * d))),
             torch.as_tensor(rng.normal(size=(s._n_gc, d))), dv.asm_src,
-            dv.blk_ptr, dv.g_src, dv.g_ptr, dv.diag_col, dv.pad_diag),
+            dv.asm_ptr, dv.asm_blk, dv.asm_diag, dv.g_src, dv.g_ptr,
+            dv.pad_diag, s.B + 1),
         "sn_front_gather": (blocks.clone(), blocks, lv.diag_ids, lv.diag_flip,
                             lv.diag_pad, lv.valid_diag, lv.col_vars, dv.dbc,
                             lv.panel_ids, 0.3, True),

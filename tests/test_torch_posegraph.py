@@ -481,6 +481,68 @@ def test_matvec(case, dd):
     _close(case.ts._flatten(got), Hd @ ref, 1e-12)
 
 
+def _rows_outside_t(s):
+    """Store rows outside T (the sentinel row B included), as a mask."""
+    out = np.ones(s.B + 1, dtype=bool)
+    out[s.asm_blk] = False
+    return torch.as_tensor(out)
+
+
+def test_store_rows_t_are_the_rows_h_fills(case):
+    """T (asm_blk) is exactly the set of store rows that the JAX package's
+    system leaves non-zero, at two random states (random steps from the
+    initial values, so no entry of H is zero by accident)."""
+    jsys = jax.jit(case.js.system)
+    rng = np.random.default_rng(11)
+    for _ in range(2):
+        delta = rng.normal(size=case.jvals.layout().total_dim) * 0.1
+        jb = np.asarray(jsys(case.jvals.retract(jnp.asarray(delta)).arrays)[0])
+        np.testing.assert_array_equal(
+            np.flatnonzero(np.any(jb != 0, axis=1)), case.ts.asm_blk)
+
+
+def test_system_into_an_owned_store(case):
+    """Two successive system calls into one store at different states give
+    exactly what fresh stores give (the first state's blocks leave nothing
+    behind), and a fresh store is zero outside T."""
+    s = case.ts
+    rng = np.random.default_rng(12)
+    store = s.new_store()
+    outside = _rows_outside_t(s)
+    for _ in range(2):
+        delta = _t(rng.normal(size=s.layout.total_dim) * 0.1)
+        arrays = case.tvals.retract(delta).arrays
+        fb, fg = s.system(arrays)
+        assert torch.all(fb[outside] == 0)
+        ob, og = s.system(arrays, out=store)
+        assert ob is store
+        assert torch.equal(ob, fb) and torch.equal(og, fg)
+
+
+@pytest.mark.parametrize("dd", [False, True])
+def test_matvec_over_t_equals_the_full_store(case, dd):
+    """sn_matvec_plain over the CSRs of T equals the same function over the
+    JAX plan's CSRs of the whole store (fill included) at 1e-15: the sums
+    differ only by exact-zero terms."""
+    s = case.ts
+    _, _, tb, _ = case.systems()
+    ro, _, _, _, coi, _, _ = s._mv_plan
+    n = s.nvars
+    full = (_t(np.concatenate([[0], np.cumsum(np.bincount(
+                s.sym.block_row, minlength=n))]).astype(np.int32)),
+            _t(ro.astype(np.int32)),
+            _t(np.concatenate([[0], np.cumsum(np.bincount(
+                s.sym.block_col[coi], minlength=n))]).astype(np.int32)),
+            _t(coi.astype(np.int32)))
+    dv = s.dev
+    x = _t(np.random.default_rng(13).normal(size=(n, s.d)))
+    rest = (dv.block_row, dv.block_col, dv.dbc, dv.pad_diag, 0.3, dd)
+    got = K.sn_matvec_plain(tb, x, dv.mv_row_ptr, dv.mv_row_blk,
+                            dv.mv_col_ptr, dv.mv_col_blk, *rest)
+    assert len(dv.mv_row_blk) < len(ro) and len(dv.mv_col_blk) < len(coi)
+    _close(got, K.sn_matvec_plain(tb, x, *full, *rest), 1e-15)
+
+
 def test_plain_kernels_against_the_dense_factor(sphere):
     """The plain versions of kernels 7 and 8 against dense linear algebra:
     the level factors, placed into one lower-triangular L, give
@@ -606,24 +668,31 @@ def test_flatten_and_pack_roundtrip(mixed):
 # -- the optimizers -------------------------------------------------------------
 
 
-def _lm_params(mod, policy, maxit=10):
+def _lm_params(mod, policy, maxit=10, diagonal_damping=False):
     return mod.LMParams(max_iterations=maxit, relative_error_tol=1e-9,
-                        absolute_error_tol=1e-12, lambda_policy=policy)
+                        absolute_error_tol=1e-12, lambda_policy=policy,
+                        diagonal_damping=diagonal_damping)
 
 
-@pytest.mark.parametrize("policy", ["gain", "gtsam", "conservative"])
-def test_make_fused_lm(sphere, policy):
+@pytest.mark.parametrize("policy,dd", [("gain", False), ("gtsam", False),
+                                       ("conservative", False),
+                                       ("gain", True)],
+                         ids=["gain", "gtsam", "conservative",
+                              "gain-diagonal_damping"])
+def test_make_fused_lm(sphere, policy, dd):
     """make_fused_lm (SparseSolver, one refinement pass) against the JAX
-    package's on the sphere: iterations, tries and converged equal, the
-    half-chi2 history at rtol 1e-9 (the JAX package refines in two-float
-    pairs, the port in float64; the steps agree to ~1e-13)."""
+    package's on the sphere, with lam I or diagonal damping: iterations,
+    tries and converged equal, the half-chi2 history at rtol 1e-9 (the JAX
+    package refines in two-float pairs, the port in float64; the steps
+    agree to ~1e-13).  The solver's owned store is still zero outside T
+    after the run."""
     jfn = JO.make_fused_lm(sphere.jgraph, sphere.jvals,
-                           _lm_params(gt, policy),
+                           _lm_params(gt, policy, diagonal_damping=dd),
                            solver=JO.SparseSolver(refine_iters=1,
                                                   supernodal_kwargs=SN_KW))
     jit, _, jerr, jconv, jhist, jtries = jfn(sphere.jvals.arrays)
     tfn = TO.make_fused_lm(sphere.tgraph, sphere.tvals,
-                           _lm_params(TO, policy),
+                           _lm_params(TO, policy, diagonal_damping=dd),
                            solver=TO.SparseSolver(refine_iters=1,
                                                   supernodal_kwargs=SN_KW),
                            device="cpu")
@@ -633,6 +702,9 @@ def test_make_fused_lm(sphere, policy):
     _close(hist[:it + 1], np.asarray(jhist)[:it + 1], 1e-9)
     assert abs(err - float(jerr)) <= 1e-9 * float(jerr)
     assert torch.isnan(hist[it + 1:]).all()
+    store = tfn.solver.store
+    assert store is not None
+    assert torch.all(store[_rows_outside_t(tfn.solver._s)] == 0)
 
 
 def test_levenberg_marquardt_sparse(mixed):
