@@ -22,8 +22,9 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      mixes SE3 poses with Point3 landmarks (both linearization routes), at
      lam 1e-4 and 1, diagonal damping off and on, with a check that kernel
      6's assembly and kernel 9 neither read nor write the store's fill (the
-     rows outside H's own blocks), and a small pose-graph LM on the card
-     against the same run on the CPU;
+     rows outside H's own blocks); kernel 8 on a hub with 600 chains of 6
+     poses, whose lowest level holds too many fronts for the cluster split;
+     and a small pose-graph LM on the card against the same run on the CPU;
   4. the main paths: gtsam_torch.sfm.ba.ba_optimize at the Ladybug-1723
      shape (make_bal_problem(1723, 150000, 4, seed=0)) with bench.py's LM
      settings, (a) float64 and (b) mixed precision (dtype=float32,
@@ -34,8 +35,10 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      solver, float64) at the sphere2500 shape, held to TARGET_SPHERE and
      run twice for the same bits; every kernel's launch count is read from
      the first run of its path alone, the sphere path must launch no
-     generic linearization, and its solver's owned block store must be zero
-     outside H's own blocks after both runs;
+     generic linearization and kernel 8 exactly once per factorization
+     (the tile inverses) and once per direction per solve, and its
+     solver's owned block store must be zero outside H's own blocks after
+     both runs;
   5. each kernel against its plain version again at the Ladybug shape, on
      the converged state (same tolerances), then its time (CUDA events)
      beside the plain version's time and its bound from this run's shapes,
@@ -43,8 +46,9 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      calls of kernel 1 and two matvecs on the same inputs must give the
      same bits; the time of the plan build (host and device), of one
      factorization in float64 and in float32, and of the triangular-solve
-     pairs; the same for kernels 6-9 on the sphere's converged state, with
-     the library call of each one that has one, each also as device time
+     pairs; the same for kernels 6-9 on the sphere's converged state,
+     with the library call of each one that has one (kernel 8's solves:
+     one sparse triangular solve over the whole factor as a CSR matrix), each also as device time
      per call (torch.profiler; the events time of back-to-back wrapper calls
      includes the host's), the time of each level's cholesky_ex,
      solve_triangular and bmm, and of a try by stage;
@@ -434,14 +438,17 @@ SPHERE_SOLVER = dict(refine_iters=1, supernodal_kwargs=dict(force_width=32))
 # A^T b.  Assembly, the Schur scatter
 # and the matvec sum the same terms in another fixed order: 1e-12; the
 # front gather and the pivot check copy and compare, with the gather's one
-# addition in the plain version's order: exact; the triangular solves of
-# kernel 8 run in another order than cuBLAS/LAPACK's, which their fronts'
-# condition numbers amplify: 1e-10 at lam = 1, 1e-8 at lam = 1e-4.
+# addition in the plain version's order: exact; kernel 8's tile inverses
+# are column-by-column forward substitutions, cuBLAS's trsm another order
+# of the same sums, on tiles of Cholesky factors: 1e-12; its solves apply
+# those inverses as products, in another order than cuBLAS/LAPACK's
+# triangular solves, which their fronts' condition numbers amplify: 1e-10
+# at lam = 1, 1e-8 at lam = 1e-4.
 PG_TOL = {"pg_linearize": (1e-12, 1e-10), "pg_error": 1e-12,
           "pg_assemble": 1e-12,
           "sn_front_gather": 0.0, "sn_pivot_check": 0.0,
-          "sn_schur_scatter": 1e-12, "sn_forward_level": 1e-10,
-          "sn_segment_add": 1e-12, "sn_backward_level": 1e-10,
+          "sn_schur_scatter": 1e-12, "sn_invert_tiles": 1e-12,
+          "sn_forward": 1e-10, "sn_backward": 1e-10,
           "sn_matvec": 1e-12}
 PG_SOLVE_TOL_SMALL_LAM = 1e-8
 
@@ -520,6 +527,34 @@ def mixed_graph():
     return g, vals
 
 
+def chains_graph(n_chains, length):
+    """A hub pose with a prior and n_chains chains of `length` poses hanging
+    off it, joined by SE3 between factors: the lowest level of its
+    supernodal plan holds a front per chain, more fronts than the cluster
+    split can share out."""
+    import numpy as np
+    import torch
+    from gtsam_torch.base import noise
+    from gtsam_torch.geometry import se3
+    from gtsam_torch.geometry.se3 import SE3
+    from gtsam_torch.graph import factors
+    from gtsam_torch.graph.graph import FactorGraph
+    from gtsam_torch.graph.values import Values
+    rng = np.random.default_rng(4)
+    n = 1 + n_chains * length
+    T = se3.expmap(torch.as_tensor(rng.normal(size=(n, 6))))
+    a = np.arange(n_chains * length).reshape(n_chains, length) + 1
+    i = np.concatenate([np.zeros(n_chains, dtype=int), a[:, :-1].ravel()])
+    j = np.concatenate([a[:, 0], a[:, 1:].ravel()])
+    Z = se3.between(SE3(T.R[i], T.t[i]), SE3(T.R[j], T.t[j]))
+    g = FactorGraph()
+    g.add(factors.between_factors("SE3", i, j, Z, noise.isotropic(6, 0.1)))
+    g.add(factors.prior_factors("SE3", [0], SE3(T.R[:1], T.t[:1]),
+                                noise.isotropic(6, 0.01)))
+    T0 = se3.retract(T, torch.as_tensor(rng.normal(size=(n, 6)) * 0.05))
+    return g, Values({"SE3": T0}, {"SE3": np.arange(n)})
+
+
 class PGCase:
     """A pose graph bound on the card with its supernodal solver, and the
     plain versions' intermediate tensors of one try at (lam, damping): the
@@ -573,20 +608,19 @@ class PGCase:
             self.lv.append(e)
         self.ok = bool(state[0] == 1)
         n, d = s.nvars, s.d
-        acc = torch.zeros((n + 1, d), dtype=torch.float64, device="cuda")
-        for lv, e in zip(dv.levels, self.lv):
-            e["acc"] = acc.clone()
-            e["y"], e["c"] = K.sn_forward_level_plain(self.g, acc, e["L"],
-                                                      e["Lp"], lv.col_vars)
-            if lv.R:
-                K.sn_segment_add_plain(e["c"], lv.fwd_src, lv.fwd_ptr,
-                                       lv.fwd_tgt, acc)
-        x = torch.zeros((n + 1, d), dtype=torch.float64, device="cuda")
-        for lv, e in zip(reversed(dv.levels), reversed(self.lv)):
-            e["x"] = x.clone()
-            K.sn_backward_level_plain(e["y"], e["L"], e["Lp"], lv.row_vars,
-                                      lv.col_vars, x)
-        self.x = x[:n]
+        f64 = torch.float64
+        self.levels = K.level_table(
+            [e["L"] for e in self.lv], [e["Lp"] for e in self.lv], d)
+        self.Linv = K.sn_invert_tiles_plain(self.levels, torch.empty(
+            (self.levels.tiles, K.TILE, K.TILE), dtype=f64, device="cuda"))
+        self.y, self.c = K.sn_forward_plain(
+            self.g, self.levels, self.Linv, dv.sol_cols, dv.gat_ptr,
+            dv.gat_seg, dv.gat_src,
+            torch.empty(s.n_y, dtype=f64, device="cuda"),
+            torch.empty(s.n_c, dtype=f64, device="cuda"))
+        self.x = K.sn_backward_plain(
+            self.y, self.levels, self.Linv, dv.sol_cols, dv.sol_rows,
+            torch.empty((n, d), dtype=f64, device="cuda"))
 
     def calls(self, name):
         """[(argument maker, outputs of a call)]: each call of kernel `name`
@@ -632,6 +666,21 @@ class PGCase:
                     dv.mv_col_ptr, dv.mv_col_blk, dv.block_row, dv.block_col,
                     dv.dbc, dv.pad_diag, self.lam, self.dd)
             return [(lambda: args, lambda r, a: (r,))]
+        # kernel 8's outputs start as NaN: each must be written in full
+        nan = float("nan")
+        sol = (self.levels, self.Linv, dv.sol_cols)
+        if name == "sn_invert_tiles":
+            return [(lambda: (self.levels, torch.full_like(self.Linv, nan)),
+                     lambda r, a: (a[-1],))]
+        if name == "sn_forward":
+            return [(lambda: (self.g, *sol, dv.gat_ptr, dv.gat_seg,
+                              dv.gat_src, torch.full_like(self.y, nan),
+                              torch.full_like(self.c, nan)),
+                     lambda r, a: (a[-2], a[-1]))]
+        if name == "sn_backward":
+            return [(lambda: (self.y, *sol, dv.sol_rows,
+                              torch.full_like(self.x, nan)),
+                     lambda r, a: (a[-1],))]
         for lv, e in zip(dv.levels, self.lv):
             if name == "sn_front_gather":
                 args = (e["work"], self.blocks, lv.diag_ids, lv.diag_flip,
@@ -652,21 +701,6 @@ class PGCase:
                     return (e["U"], lv.schur_src, lv.schur_ptr, lv.schur_tgt,
                             e["work"].clone())
                 out.append((mk, lambda r, a: (a[-1],)))
-            elif name == "sn_forward_level":
-                args = (self.g, e["acc"], e["L"], e["Lp"], lv.col_vars)
-                out.append((lambda args=args: args,
-                            lambda r, a: tuple(t for t in r
-                                               if t is not None)))
-            elif name == "sn_segment_add" and lv.R:
-                def mk(e=e, lv=lv):
-                    return (e["c"], lv.fwd_src, lv.fwd_ptr, lv.fwd_tgt,
-                            e["acc"].clone())
-                out.append((mk, lambda r, a: (a[-1],)))
-            elif name == "sn_backward_level":
-                def mk(e=e, lv=lv):
-                    return (e["y"], e["L"], e["Lp"], lv.row_vars, lv.col_vars,
-                            e["x"].clone())
-                out.append((mk, lambda r, a: (a[-1],)))
         return out
 
 
@@ -682,8 +716,7 @@ def check_pg_kernels(case, label, names=None):
         kern = getattr(K, name)
         plain = getattr(K, name + "_plain")
         tol = PG_TOL[name]
-        if name in ("sn_forward_level", "sn_backward_level") \
-                and case.lam < 1.0:
+        if name in ("sn_forward", "sn_backward") and case.lam < 1.0:
             tol = PG_SOLVE_TOL_SMALL_LAM
         tols = tol if isinstance(tol, tuple) else None
         worst_rel, worst_abs = {}, 0.0
@@ -766,7 +799,9 @@ def pg_small_checks():
     """Phase 3 of the pose graph: kernels 6-9 against their plain versions
     on the small sphere and the mixed graph at lam 1e-4 and 1, damping off
     and on; the mixed graph's routing (kernel 6 and the generic
-    linearization); a small LM on the card against the CPU."""
+    linearization); kernel 8 on the chains graph; a small LM on the card
+    against the CPU."""
+    import torch
     from gtsam_torch import _kernels
     from gtsam_torch.graph import factors
     from gtsam_torch.optimize import optimizers as O
@@ -798,6 +833,22 @@ def pg_small_checks():
                 check_pg_kernels(case, f"{label} lam={lam} dd={dd}")
                 check_fill_untouched(case, f"{label} lam={lam} dd={dd}")
                 del case
+    # kernel 8 where a level has more fronts than its grid's 8-CTA clusters
+    # can share out at two CTAs a front, so each front takes a CTA of its
+    # own (an SM holds at most 2048 threads, 4 of the solves' 512-thread
+    # CTAs: at most SMs / 2 clusters, 2 x SMs fronts at two CTAs each); the
+    # hub's front above it takes the split
+    g, v = chains_graph(600, 6)
+    case = PGCase(g, v, 1.0, False, force_width=32, max_width=64)
+    shape = [(lp.S, lp.W, lp.R) for lp in case.s.level_plans]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"pg case chains: levels (S, W, R) {shape}; {sms} SMs")
+    if max(S for S, _, _ in shape) <= 2 * sms:
+        raise AssertionError("the chains graph's widest level fits the "
+                             "cluster split")
+    check_pg_kernels(case, "chains lam=1 dd=False",
+                     ["sn_invert_tiles", "sn_forward", "sn_backward"])
+    del case
     p = O.LMParams(max_iterations=10, relative_error_tol=1e-9,
                    absolute_error_tol=1e-12, lambda_policy="gain")
     res = {}
@@ -893,6 +944,15 @@ def sphere_main_path():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "sphere path")
+    # kernel 8: the tile inverses once per factorization (one a try), one
+    # forward and one backward launch per solve (two a try: the solve and
+    # its refinement)
+    want = {"sn_invert_tiles": a["tries"], "sn_forward": 2 * a["tries"],
+            "sn_backward": 2 * a["tries"]}
+    got = {k: a["launches"][k] for k in want}
+    log(f"sphere path: kernel 8 launches {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"kernel 8 launched {got}, not {want}")
     if a["generic"]:
         raise AssertionError("the sphere path linearized a batch by the "
                              "generic path")
@@ -926,9 +986,10 @@ def pg_work(case):
     front = [0, 0]
     piv = [0, 0]
     schur = [0, 0]
+    inv = [0, 0]
     fwd = [0, 0]
-    seg = [0, 0]
     bwd = [0, 0]
+    tile = 32 * 32 * 8
     for lp, lv in zip(s.level_plans, dv.levels):
         S, W, R = lp.S, lp.W, lp.R
         Wd, Rd = W * d, R * d
@@ -941,22 +1002,35 @@ def pg_work(case):
         front[1] += S * Wd
         piv[0] += S * Wd * Wd * 8 + S * Rd * Wd * 8 + S * 4 + S * Wd + 8
         piv[1] += S * Wd * Wd + S * Rd * Wd
-        fwd[0] += (S * Wd * (Wd + 1) // 2 * 8 + S * Rd * Wd * 8
-                   + S * Wd * 2 * 8 + S * W * 4 + S * Wd * 8 + S * Rd * 8)
+        # kernel 8: each diagonal tile's lower triangle in, its inverse
+        # out; per solve the function's own inputs, L's lower triangles and
+        # P (the kernels read the tile inverses in place of the diagonal
+        # tiles' triangles), with the column (and row) slots; y and c out
+        # (forward), y in (backward)
+        for j0 in range(0, Wd, 32):
+            nb = min(32, Wd - j0)
+            inv[0] += S * (nb * (nb + 1) // 2 * 8 + tile)
+            inv[1] += S * nb ** 3 // 3
+        factor = S * Wd * (Wd + 1) // 2 * 8 + S * Rd * Wd * 8
+        fwd[0] += factor + S * W * 4 + S * Wd * 8 + S * Rd * 8
         fwd[1] += S * (Wd * Wd + 2 * Rd * Wd)
-        bwd[0] += (S * Wd * (Wd + 1) // 2 * 8 + S * Rd * Wd * 8
-                   + S * Rd * 8 + S * Wd * 8 + S * (W + R) * 4
-                   + S * Wd * 8)
+        bwd[0] += factor + S * (W + R) * 4 + S * Wd * 8
         bwd[1] += S * (Wd * Wd + 2 * Rd * Wd)
         if R:
             T = len(lp.schur_tgt)
             schur[0] += (len(lp.schur_src) * (dd * 8 + 4) + 4 * (T + 1)
                          + 4 * T + 2 * T * dd * 8)
             schur[1] += len(lp.schur_src) * dd
-            Tf = len(lp.fwd_tgt)
-            seg[0] += (len(lp.fwd_src) * (d * 8 + 4) + 4 * (Tf + 1) + 4 * Tf
-                       + 2 * Tf * d * 8)
-            seg[1] += len(lp.fwd_src) * d
+    # the forward's g and gather CSR, and the c rows it gathers; the
+    # backward's x; both read the level table
+    table = len(s.level_plans) * 12 * 8
+    nsrc = len(s.gat_src)
+    gather = (4 * (len(s.gat_ptr) + len(s.gat_seg) + nsrc) + nsrc * d * 8,
+              nsrc * d)
+    inv[0] += table
+    fwd[0] += n * d * 8 + gather[0] + table
+    fwd[1] += gather[1]
+    bwd[0] += n * d * 8 + table
     # matvec: T's blocks by row and its off-diagonal ones by column, with
     # their ids and the other variable's id; the CSR offsets, x and
     # pad_diag in, y out
@@ -965,9 +1039,58 @@ def pg_work(case):
           2 * dd * (nr + nc) + 3 * n * d)
     return {"pg_linearize": lin, "pg_error": err, "pg_assemble": asm,
             "sn_front_gather": tuple(front), "sn_pivot_check": tuple(piv),
-            "sn_schur_scatter": tuple(schur), "sn_forward_level": tuple(fwd),
-            "sn_segment_add": tuple(seg), "sn_backward_level": tuple(bwd),
-            "sn_matvec": mv}
+            "sn_schur_scatter": tuple(schur), "sn_invert_tiles": tuple(inv),
+            "sn_forward": tuple(fwd), "sn_backward": tuple(bwd),
+            "sn_matvec": mv, "gather": gather}
+
+
+def factor_csr(levels, cols, rows, g):
+    """A factorization as one sparse lower-triangular CSR matrix over the
+    all-levels y's slots (slot q's entry i is y[q*d + i]: each front's L at
+    its own slots, its P at the slots of its row variables), its transpose
+    as an upper-triangular CSR matrix, and g at the column slots, 0 at the
+    padding ((slots * d, 1)).  cols / rows: every level's column and row
+    slots (sentinel n), as sn_forward and sn_backward take them."""
+    import torch
+    n, d = g.shape
+    dev = g.device
+    cols, rows = cols.long(), rows.long()
+    slot = torch.full((n + 1,), -1, dtype=torch.long, device=dev)
+    true = cols < n
+    slot[cols[true]] = torch.arange(cols.numel(), device=dev)[true]
+    ii = torch.arange(d, device=dev)
+    r_all, c_all, v_all = [], [], []
+    yo = ro = 0
+    for L, P in zip(levels.Ls, levels.Ps):
+        S, Wd, _ = L.shape
+        base = yo + torch.arange(S, device=dev)[:, None] * Wd
+        j = torch.arange(Wd, device=dev)
+        lo = j[:, None] >= j[None, :]
+        r = (base[:, :, None] + j[None, :, None]).expand(S, Wd, Wd)
+        c = (base[:, None, :] + j[None, None, :]).expand(S, Wd, Wd)
+        r_all.append(r[:, lo].reshape(-1))
+        c_all.append(c[:, lo].reshape(-1))
+        v_all.append(L[:, lo].reshape(-1))
+        if P is not None:
+            Rd = P.shape[1]
+            R = Rd // d
+            rv = rows[ro:ro + S * R].view(S, R)
+            keep = (rv < n).repeat_interleave(d, 1)
+            pr = (slot[rv] * d)[:, :, None] + ii
+            r = pr.reshape(S, Rd, 1).expand(S, Rd, Wd)
+            c = base[:, None, :] + j[None, None, :]
+            r_all.append(r[keep].reshape(-1))
+            c_all.append(c.expand(S, Rd, Wd)[keep].reshape(-1))
+            v_all.append(P[keep].reshape(-1))
+            ro += S * R
+        yo += S * Wd
+    r, c, v = torch.cat(r_all), torch.cat(c_all), torch.cat(v_all)
+    size = (yo, yo)
+    L = torch.sparse_coo_tensor(torch.stack([r, c]), v, size).coalesce()
+    Lt = torch.sparse_coo_tensor(torch.stack([c, r]), v, size).coalesce()
+    g_ext = torch.cat([g, torch.zeros((1, d), dtype=g.dtype, device=dev)])
+    return (L.to_sparse_csr(), Lt.to_sparse_csr(),
+            g_ext[cols].reshape(-1, 1))
 
 
 def _library_call(name, case):
@@ -978,6 +1101,7 @@ def _library_call(name, case):
     copied or zeroed outside the timing; the spmv's CSR (H's own blocks T
     only) is built outside it too."""
     import torch
+    from gtsam_torch.linear import supernodal_kernels as K
     s, dv = case.s, case.s.dev
     if name == "pg_assemble":
         # each contribution row straight to its block: one index_add_
@@ -990,21 +1114,37 @@ def _library_call(name, case):
         out = torch.zeros((s.B + 1, s.d * s.d), dtype=torch.float64,
                           device="cuda")
         return lambda: out.index_add_(0, idx, hc)
-    if name == "sn_segment_add":
-        # one index_add_ per level with a panel, as the kernel's launches
-        calls = []
-        for lv, e in zip(dv.levels, case.lv):
-            if not lv.R:
-                continue
-            owner = torch.repeat_interleave(
-                lv.fwd_tgt.long(), (lv.fwd_ptr[1:] - lv.fwd_ptr[:-1]).long())
-            c = e["c"].reshape(-1, s.d)
-            # c's padded rows go to acc's sentinel row n
-            idx = torch.full((c.shape[0],), s.nvars, dtype=torch.long,
-                             device="cuda")
-            idx[lv.fwd_src.long()] = owner
-            calls.append((e["acc"].clone(), idx, c))
-        return lambda: [acc.index_add_(0, idx, c) for acc, idx, c in calls]
+    if name == "sn_invert_tiles":
+        # every tile in one batched triangular solve against the identity
+        # (the tiles gathered outside the timing)
+        tiles = K.diagonal_tiles(case.levels.Ls)
+        eye = torch.eye(32, dtype=torch.float64, device="cuda").expand_as(
+            tiles)
+        return lambda: torch.linalg.solve_triangular(tiles, eye, upper=False)
+    if name in ("sn_forward", "sn_backward"):
+        # the whole factor as one sparse CSR triangle (built outside the
+        # timing), then one triangular solve: y = L^-1 g at the column
+        # slots, or x = L^-T y (in slot order: x's scatter to the variables
+        # is left out) through L^T's own CSR; each checked once against the
+        # kernels' y and x
+        L, Lt, b = factor_csr(case.levels, dv.sol_cols, dv.sol_rows, case.g)
+        y = case.y.view(-1, 1)
+        if name == "sn_forward":
+            call = lambda: torch.triangular_solve(b, L, upper=False)[0]
+            ref = y
+        else:
+            call = lambda: torch.triangular_solve(y, Lt, upper=True)[0]
+            true = dv.sol_cols < s.nvars
+            ref = torch.zeros_like(y).view(-1, s.d)
+            ref[true] = case.x[dv.sol_cols[true].long()]
+            ref = ref.view(-1, 1)
+        err = float((call() - ref).abs().max()) / float(ref.abs().max())
+        log(f"library {name}: sparse triangular solve over {L._nnz()} "
+            f"entries, max rel diff from the plain result {err:.3e}")
+        if not err <= 1e-6:
+            raise AssertionError(f"the library call of {name} computes "
+                                 "something else")
+        return call
     if name == "sn_schur_scatter":
         # one index_add_ per level with a panel, element by element, U's
         # entries straight to their target block's entries (alpha -1); the
@@ -1115,10 +1255,24 @@ def pg_kernel_times(main, ms_fn):
             f"{max(t_bytes, t_ops):.4f} ms by {kernels[-1]['bound_by']}, "
             f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP); launches on "
             f"the path {kernels[-1]['launches']}")
-        if name in ("pg_assemble", "sn_matvec"):
+        if name in ("pg_assemble", "sn_matvec", "sn_invert_tiles",
+                    "sn_forward", "sn_backward"):
             for line in ptxas_lines(_build.BUILD_LOG.get(kern.source, ""),
                                     name + "_kernel"):
                 log(f"  {name}: {line}")
+    # the segment sum of the forward pass is no kernel of its own any more:
+    # sn_forward gathers it per column (its bound: the gather's share of
+    # sn_forward's)
+    gb, gops = work["gather"]
+    t_bytes, t_ops = gb / HBM_BYTES_PER_S * 1e3, gops / FP64_FLOPS * 1e3
+    kernels.append({
+        "name": "sn_segment_add", "route": "cuda",
+        "source": "gtsam_torch/csrc/sn_solve.cu",
+        "replaces": "gtsam_tpu/linear/supernodal.py:589", "launches": 0,
+        "max_abs_err": None, "ms": None, "plain_ms": None,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "folded_into": "sn_forward"})
     # the library calls of each level, on that level's inputs
     levels = []
     for lp, e in zip(solver._s.level_plans, case.lv):

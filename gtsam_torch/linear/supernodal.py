@@ -14,7 +14,10 @@ package's, array for array, and move to the device once (`to`).  Then:
              working copy of the store (damping applied there), then
              cholesky_ex / solve_triangular / bmm (library), kernel 7's
              pivot check, and its Schur scatter into the working store;
-  solve:     kernel 8 per level, forward then backward, one CTA per front;
+             then kernel 8 inverts every front's 32x32 diagonal tiles;
+  solve:     kernel 8, one launch forward over all levels (the lower
+             levels' panel products gathered per column through a CSR)
+             and one backward;
   matvec:    kernel 9, the refinement residual's (H + damping) x.
 
 H's own blocks.  The store holds every block of the factor's structure, B
@@ -112,14 +115,25 @@ def _slot_pairs(arity):
 
 @dataclasses.dataclass
 class Factored:
-    """One numeric factorization: per level the dense L (S, W*d, W*d) and
-    panel Lp (S, R*d, W*d) or None; ok and badcol (0-d tensors, read on the
-    host when needed)."""
+    """One numeric factorization: its levels (supernodal_kernels.Levels:
+    per level the dense L (S, W*d, W*d) and panel Lp (S, R*d, W*d) or None,
+    each column-major per front, and the level table that the solve's
+    kernels read them through); ok and badcol (0-d tensors, read on the
+    host when needed); the inverses of L's 32x32 diagonal tiles (tiles, 32,
+    32)."""
 
-    Ldiag: List[torch.Tensor]
-    Lpanel: List[Optional[torch.Tensor]]
+    levels: K.Levels
     ok: torch.Tensor
     badcol: torch.Tensor
+    Linv: torch.Tensor
+
+    @property
+    def Ldiag(self) -> List[torch.Tensor]:
+        return self.levels.Ls
+
+    @property
+    def Lpanel(self) -> List[Optional[torch.Tensor]]:
+        return self.levels.Ps
 
 
 class SupernodalCholeskySolver:
@@ -404,6 +418,7 @@ class SupernodalCholeskySolver:
         self.fwd_ptr = [None if lp.R == 0 else
                         _seg_ptr(lp.fwd_seg, len(lp.fwd_tgt))
                         for lp in self.level_plans]
+        self._solve_plan()
         # flat canonical index -> flat (permuted var, component) index
         src = []
         for v in range(n):
@@ -412,6 +427,54 @@ class SupernodalCholeskySolver:
         order = np.argsort(self.var_offsets, kind="stable")
         self.flat_src = (np.concatenate([src[v] for v in order])
                          if n else np.zeros(0, np.int64))
+
+    def _solve_plan(self):
+        """Kernel 8's all-levels layout: the column slots (every level's
+        col_vars, flattened in level order) and row slots (row_vars), the
+        sizes of y, c (every level's S*R d-rows, in level order) and the
+        diagonal tiles, and the
+        gather CSR over the column slots: slot q's segments
+        gat_seg[gat_ptr[q]:gat_ptr[q+1]], one per lower level with rows
+        that target q's variable, in level order; segment e's c rows
+        gat_src[gat_seg[e]:gat_seg[e+1]], in the level's fwd_src order.
+        Summing each segment, then the segments in order, is the JAX
+        forward's sorted segment sum and accumulation."""
+        n = self.nvars
+        lps = self.level_plans
+        self.sol_cols = np.concatenate(
+            [lp.col_vars.reshape(-1) for lp in lps]).astype(np.int32)
+        self.sol_rows = np.concatenate(
+            [np.zeros(0, np.int32)] + [lp.row_vars.reshape(-1)
+                                       for lp in lps if lp.R]).astype(np.int32)
+        slot_of = np.full(n + 1, -1, np.int64)
+        true = self.sol_cols < n
+        slot_of[self.sol_cols[true]] = np.flatnonzero(true)
+        seg_slot, seg_len, srcs = [], [], []
+        crow = 0
+        for lp, fp in zip(lps, self.fwd_ptr):
+            if lp.R:
+                seg_slot.append(slot_of[lp.fwd_tgt])
+                seg_len.append(np.diff(fp))
+                srcs.append(lp.fwd_src.astype(np.int64) + crow)
+                crow += lp.S * lp.R
+        nq = len(self.sol_cols)
+        if seg_slot:
+            seg_slot = np.concatenate(seg_slot)
+            seg_len = np.concatenate(seg_len)
+            src = np.concatenate(srcs)
+        else:
+            seg_slot = seg_len = src = np.zeros(0, np.int64)
+        order = np.argsort(seg_slot, kind="stable")   # keeps level order
+        start = np.concatenate([[0], np.cumsum(seg_len)])[:-1]
+        ln = seg_len[order]
+        self.gat_seg = np.concatenate([[0], np.cumsum(ln)]).astype(np.int32)
+        within = np.arange(int(ln.sum())) - np.repeat(self.gat_seg[:-1], ln)
+        self.gat_src = src[np.repeat(start[order], ln) + within].astype(
+            np.int32)
+        self.gat_ptr = np.concatenate([[0], np.cumsum(np.bincount(
+            seg_slot, minlength=nq))]).astype(np.int32)
+        self.n_y = sum(lp.S * lp.W * self.d for lp in lps)
+        self.n_c = crow * self.d
 
     def to(self, device) -> "SupernodalCholeskySolver":
         """Move the plans to `device` (once; the solver then runs there)."""
@@ -433,6 +496,13 @@ class SupernodalCholeskySolver:
             mv_row_blk=t(self.mv_row_blk), mv_col_ptr=t(self.mv_col_ptr),
             mv_col_blk=t(self.mv_col_blk),
             flat_src=t(self.flat_src, torch.long),
+            sol_cols=t(self.sol_cols), sol_rows=t(self.sol_rows),
+            gat_ptr=t(self.gat_ptr), gat_seg=t(self.gat_seg),
+            gat_src=t(self.gat_src),
+            # kernel 8's y and c of every level: scratch of one solve at a
+            # time, on the solver's stream
+            sol_y=torch.empty(self.n_y, dtype=F64, device=dev),
+            sol_c=torch.empty(self.n_c, dtype=F64, device=dev),
             flips=[[t(flip, torch.bool) for (_, _, flip, _) in pairs]
                    for pairs in self._batch_pairs()],
             levels=[types.SimpleNamespace(
@@ -442,10 +512,8 @@ class SupernodalCholeskySolver:
                 valid_diag=t(lp.valid_diag, torch.bool),
                 col_vars=t(lp.col_vars), panel_ids=t(lp.panel_ids),
                 row_vars=t(lp.row_vars), schur_src=t(lp.schur_src),
-                schur_ptr=t(sp), schur_tgt=t(lp.schur_tgt),
-                fwd_src=t(lp.fwd_src), fwd_ptr=t(fp), fwd_tgt=t(lp.fwd_tgt))
-                for lp, sp, fp in zip(self.level_plans, self.schur_ptr,
-                                      self.fwd_ptr)])
+                schur_ptr=t(sp), schur_tgt=t(lp.schur_tgt))
+                for lp, sp in zip(self.level_plans, self.schur_ptr)])
         return self
 
     def _batch_pairs(self):
@@ -538,7 +606,11 @@ class SupernodalCholeskySolver:
                                    lv.schur_ptr, lv.schur_tgt, work)
             Ls.append(L)
             Lps.append(Lp)
-        return Factored(Ls, Lps, state[0] == 1, state[1])
+        levels = K.level_table(Ls, Lps, self.d)
+        Linv = torch.empty((levels.tiles, K.TILE, K.TILE), dtype=F64,
+                           device=self.device)
+        K.sn_invert_tiles(levels, Linv)
+        return Factored(levels, state[0] == 1, state[1], Linv)
 
     def damp_vec(self, blocks, lam, diagonal_damping, min_diag=1e-6,
                  max_diag=1e32):
@@ -556,23 +628,14 @@ class SupernodalCholeskySolver:
                            diagonal_damping)
 
     def _solve_padded(self, factored: Factored, g):
-        """Forward and backward substitution; x (n, d) in the permuted
-        layout."""
-        n, d = self.nvars, self.d
-        acc = torch.zeros((n + 1, d), dtype=F64, device=self.device)
-        ys = []
-        for lv, L, P in zip(self.dev.levels, factored.Ldiag,
-                            factored.Lpanel):
-            y, c = K.sn_forward_level(g, acc, L, P, lv.col_vars)
-            ys.append(y)
-            if P is not None:
-                K.sn_segment_add(c, lv.fwd_src, lv.fwd_ptr, lv.fwd_tgt, acc)
-        x = torch.zeros((n + 1, d), dtype=F64, device=self.device)
-        for lv, L, P, y in zip(reversed(self.dev.levels),
-                               reversed(factored.Ldiag),
-                               reversed(factored.Lpanel), reversed(ys)):
-            K.sn_backward_level(y, L, P, lv.row_vars, lv.col_vars, x)
-        return x[:n]
+        """Forward and backward substitution, one kernel 8 launch each; x
+        (n, d) in the permuted layout."""
+        f, dv = factored, self.dev
+        K.sn_forward(g, f.levels, f.Linv, dv.sol_cols, dv.gat_ptr,
+                     dv.gat_seg, dv.gat_src, dv.sol_y, dv.sol_c)
+        x = torch.empty((self.nvars, self.d), dtype=F64, device=self.device)
+        return K.sn_backward(dv.sol_y, f.levels, f.Linv, dv.sol_cols,
+                             dv.sol_rows, x)
 
     def solve_refined(self, blocks, g, lam=0.0,
                       diagonal_damping: bool = False, refine_iters: int = 2):

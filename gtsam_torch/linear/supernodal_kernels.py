@@ -5,11 +5,13 @@ port the device routines of the JAX package's pose-graph LM: the SE3
 between/prior linearization with block-store assembly
 (gtsam_tpu/graph/factors.py, linear/supernodal.py::system), the
 level-batched supernodal factorization (supernodal.py::factorize), the
-forward and backward substitution (_solve_padded) and the refinement matvec
-(matvec).  Every tensor is float64 (int32 indices, bool masks), row-major
-and contiguous, in the layout of gtsam_torch/linear/supernodal.py: the
-block store is (B+1, d*d) with a zero sentinel row B, vectors are (n, d) in
-the permuted (elimination) order.  Each wrapper
+forward and backward substitution (_solve_padded: the diagonal tiles
+inverted once per factorization, then one launch per direction over all
+levels) and the refinement matvec (matvec).  Every tensor is float64
+(int32 indices, bool masks), row-major and contiguous, in the layout of
+gtsam_torch/linear/supernodal.py: the block store is (B+1, d*d) with a
+zero sentinel row B, vectors are (n, d) in the permuted (elimination)
+order.  Each wrapper
   - on CPU tensors computes its plain PyTorch version (`*_plain`), which the
     CPU tests compare against the JAX package;
   - on CUDA tensors checks dtype, shape, contiguity and device, launches its
@@ -23,6 +25,8 @@ Lp Lp^T) stays on torch.linalg / torch.bmm between kernel 7's launches, as
 the JAX package leaves it to XLA (jnp.linalg.cholesky,
 lax.linalg.triangular_solve, einsum).
 """
+
+from typing import NamedTuple
 
 import torch
 
@@ -54,11 +58,11 @@ KERNELS = _kernels.table(
            "gtsam_tpu/linear/supernodal.py:405", [INT] * 4 + [P] * 6),
     Kernel("sn_schur_scatter", "sn_factor", "sn_schur_scatter",
            "gtsam_tpu/linear/supernodal.py:436", [INT] * 5 + [P] * 5),
-    Kernel("sn_forward_level", "sn_solve", "sn_forward_level",
-           "gtsam_tpu/linear/supernodal.py:580", [INT] * 5 + [P] * 7),
-    Kernel("sn_segment_add", "sn_solve", "sn_segment_add",
-           "gtsam_tpu/linear/supernodal.py:589", [INT] * 2 + [P] * 5),
-    Kernel("sn_backward_level", "sn_solve", "sn_backward_level",
+    Kernel("sn_invert_tiles", "sn_solve", "sn_invert_tiles",
+           "gtsam_tpu/linear/supernodal.py:583", [INT, INT, P, P]),
+    Kernel("sn_forward", "sn_solve", "sn_forward",
+           "gtsam_tpu/linear/supernodal.py:580", [INT] * 5 + [P] * 9),
+    Kernel("sn_backward", "sn_solve", "sn_backward",
            "gtsam_tpu/linear/supernodal.py:593", [INT] * 5 + [P] * 6),
     Kernel("sn_matvec", "sn_matvec", "sn_matvec",
            "gtsam_tpu/linear/supernodal.py:456",
@@ -78,13 +82,6 @@ def _dense(t):
     if t is None or t.is_contiguous() or not t.mT.is_contiguous():
         return t, 0
     return t.mT, 1
-
-
-def _colmajor(t):
-    """The (S, k, m) row-major view of t (S, m, k) stored column-major per
-    batch entry, as cholesky_ex and solve_triangular leave their results on
-    the card; a copy for any other layout.  Kernel 8 reads only this one."""
-    return t.mT if t.mT.is_contiguous() else t.mT.contiguous()
 
 
 def _width(dd):
@@ -439,6 +436,93 @@ def sn_schur_scatter(U, schur_src, schur_ptr, schur_tgt, work):
 
 # -- kernel 8: forward and backward substitution -----------------------------
 
+# The diagonal tiles of the blocked substitution (kTile in sn_solve.cu), the
+# int64 fields of a level-table row (struct Level) and the most dynamic
+# shared memory a block takes on the H100.
+TILE = 32
+LEVEL_FIELDS = 12
+SHARED_BYTES = 232448
+# CTAs of a thread-block cluster in kernel 8's solves (sn_solve.cu): a
+# level's fronts each take as many of a cluster's CTAs as still lets all of
+# them run at once.  scripts/port_level_time.py sets it to 1 (a CTA per
+# front throughout) to time the split against; nothing else changes it.
+_SOLVE_CLUSTER = 8
+I64 = torch.int64
+
+
+class Levels(NamedTuple):
+    """A factorization as kernel 8 reads it (level_table): the level table,
+    each level's L and P (column-major per front), and the totals over the
+    levels that size the solves' buffers: diagonal tiles, y and c doubles,
+    column and row slots, and the most Wd + Rd of a front."""
+    table: torch.Tensor
+    Ls: list
+    Ps: list
+    tiles: int
+    n_y: int
+    n_c: int
+    n_slots: int
+    n_rows: int
+    front: int
+
+
+def _ntiles(Wd):
+    return -(-Wd // TILE)
+
+
+def _as_colmajor(t):
+    """t itself when stored column-major per batch entry (as cholesky_ex
+    and solve_triangular leave their results), else a column-major copy."""
+    return t if t.mT.is_contiguous() else t.mT.contiguous().mT
+
+
+def level_table(Ls, Ps, d):
+    """The Levels of one factorization.  The table is (nlev, LEVEL_FIELDS)
+    int64 on the factor's device: per level S, W, R, W*d, R*d, the
+    addresses of L (S, Wd, Wd) and P (S, Rd, Wd; 0 without a panel; both 0
+    on the CPU, where the plain versions read the factor itself), and the
+    level's offsets into the all-levels y (S*Wd doubles a level), c (S*Rd),
+    tile inverses (S*ceil(Wd/32) tiles), column slots (S*W) and row slots
+    (S*R).  Each factor is kept column-major per front (a copy where it was
+    not): the table refers to those.  On the card this is where each factor
+    is checked, once per factorization, and the table is copied from pinned
+    memory without a host sync."""
+    Ls = [_as_colmajor(L) for L in Ls]
+    Ps = [None if P is None else _as_colmajor(P) for P in Ps]
+    cpu = not Ls or on_cpu(*Ls, *_tensors(*Ps))
+    rows, off, front = [], [0] * 5, 0
+    for L, P in zip(Ls, Ps):
+        S, Wd, _ = L.shape
+        Rd = 0 if P is None else P.shape[1]
+        W, R = Wd // d, Rd // d
+        addr = (0, 0) if cpu else (ptr(L), 0 if P is None else ptr(P))
+        rows.append([S, W, R, Wd, Rd, *addr] + off)
+        for j, v in enumerate((S * Wd, S * Rd, S * _ntiles(Wd), S * W,
+                               S * R)):
+            off[j] += v
+        front = max(front, Wd + Rd)
+    table = torch.tensor(rows, dtype=I64).reshape(-1, LEVEL_FIELDS)
+    n_y, n_c, tiles, n_slots, n_rows = off
+    if not cpu:
+        specs = []
+        for k, (L, P) in enumerate(zip(Ls, Ps)):
+            S, Wd, _ = L.shape
+            specs.append((f"L[{k}]", L.mT, F64, (S, Wd, Wd)))
+            if P is not None:
+                specs.append((f"P[{k}]", P.mT, F64, (S, Wd, P.shape[1])))
+        dev = check("level_table", *specs)
+        # kernel 8 reads two rows, or two columns, at once with 16-byte
+        # loads
+        for _, t, _, shape in specs:
+            if shape[1] % 2 or shape[2] % 2 or ptr(t) % 16:
+                raise ValueError("level_table: kernel 8 needs even W*d and "
+                                 "R*d and 16-byte aligned factors")
+        if front * 8 > SHARED_BYTES:
+            raise ValueError(f"level_table: a front of {front} rows exceeds "
+                             "kernel 8's shared memory")
+        table = table.pin_memory().to(dev, non_blocking=True)
+    return Levels(table, Ls, Ps, tiles, n_y, n_c, n_slots, n_rows, front)
+
 
 def _solve_lower(L, rhs, transpose):
     """L^-1 rhs, or L^-T rhs, batched over fronts: (S, Wd)."""
@@ -449,108 +533,151 @@ def _solve_lower(L, rhs, transpose):
                                          upper=False)[..., 0]
 
 
-def sn_forward_level_plain(g, acc, L, P, col_vars):
-    S, W = col_vars.shape
+def diagonal_tiles(Ls):
+    """Every front's 32 x 32 diagonal tiles of L, level after level, front
+    after front, tile after tile: (tiles, 32, 32), the rows and columns past
+    a front's last column set to the identity."""
+    out = []
+    for L in Ls:
+        S, Wd, _ = L.shape
+        nt = _ntiles(Wd)
+        pad = nt * TILE - Wd
+        Lp = torch.nn.functional.pad(L, (0, pad, 0, pad))
+        Lp.diagonal(dim1=1, dim2=2)[:, Wd:] = 1.0
+        i = torch.arange(nt, device=L.device)
+        out.append(Lp.reshape(S, nt, TILE, nt, TILE)[:, i, :, i, :]
+                   .transpose(0, 1).reshape(S * nt, TILE, TILE))
+    return torch.cat(out) if out else torch.zeros((0, TILE, TILE), dtype=F64)
+
+
+def sn_invert_tiles_plain(levels, Linv):
+    tiles = diagonal_tiles(levels.Ls)
+    eye = torch.eye(TILE, dtype=F64, device=tiles.device)
+    Linv.copy_(torch.linalg.solve_triangular(tiles, eye.expand_as(tiles),
+                                             upper=False))
+    return Linv
+
+
+def sn_invert_tiles(levels, Linv):
+    """Kernel 8, tile inverses: Linv[t] = the inverse of diagonal tile t of
+    the factor (tiles as diagonal_tiles orders them; (tiles, 32, 32),
+    row-major).  levels: the factor's level_table.  Once per factorization;
+    on the card one launch, a warp per tile."""
+    if on_cpu(levels.table, Linv):
+        return sn_invert_tiles_plain(levels, Linv)
+    nlev = len(levels.Ls)
+    dev = check("sn_invert_tiles",
+                ("table", levels.table, I64, (nlev, LEVEL_FIELDS)),
+                ("Linv", Linv, F64, (levels.tiles, TILE, TILE)))
+    KERNELS["sn_invert_tiles"].launch(dev, nlev, levels.tiles,
+                                      ptr(levels.table), ptr(Linv))
+    return Linv
+
+
+def sn_forward_plain(g, levels, Linv, cols, gat_ptr, gat_seg, gat_src, y, c):
     n, d = g.shape
     g_ext = torch.cat([g, torch.zeros((1, d), dtype=F64, device=g.device)])
-    rhs = (g_ext - acc)[col_vars.long()].reshape(S, W * d)
-    y = _solve_lower(L, rhs, False)
-    c = None if P is None else torch.einsum("sij,sj->si", P, y)
+    crows = c.view(-1, d)
+    yo = co = q = 0
+    for L, P in zip(levels.Ls, levels.Ps):
+        S, Wd, _ = L.shape
+        nq = S * (Wd // d)
+        # the gather: each segment's c rows summed in order, then each
+        # slot's segments in level order
+        p = gat_ptr[q:q + nq + 1]
+        e = gat_seg[int(p[0]):int(p[-1]) + 1]
+        seg = torch.zeros((e.numel() - 1, d), dtype=F64,
+                          device=g.device).index_add_(
+            0, segment_owner(e - e[0]),
+            crows[gat_src[int(e[0]):int(e[-1])].long()])
+        acc = torch.zeros((nq, d), dtype=F64, device=g.device).index_add_(
+            0, segment_owner(p - p[0]), seg)
+        rhs = (g_ext[cols[q:q + nq].long()] - acc).reshape(S, Wd)
+        yk = _solve_lower(L, rhs, False)
+        y[yo:yo + S * Wd] = yk.reshape(-1)
+        if P is not None:
+            Rd = P.shape[1]
+            c[co:co + S * Rd] = torch.einsum("sij,sj->si", P, yk).reshape(-1)
+            co += S * Rd
+        yo += S * Wd
+        q += nq
     return y, c
 
 
-def sn_forward_level(g, acc, L, P, col_vars):
-    """Kernel 8, forward step of one level: rhs = (g - acc)[col_vars]
-    (sentinel n reads 0), y = L^-1 rhs per front (S, W*d) and c = P y
-    (S, R*d; None without a panel).  g (n, d); acc (n+1, d); L and P
-    column-major per front, as the library leaves them, are read in place
-    (another layout is copied first)."""
-    args = (g, acc, L, col_vars)
-    if on_cpu(*args, *_tensors(P)):
-        return sn_forward_level_plain(g, acc, L, P, col_vars)
+def sn_forward(g, levels, Linv, cols, gat_ptr, gat_seg, gat_src, y, c):
+    """Kernel 8, forward over every level: per front rhs = g at its columns
+    (cols: every level's col_vars in level order, sentinel n reads 0) less
+    the gathered c rows that target each column (gat_ptr over the slots of
+    cols -> gat_seg -> gat_src, d-rows of c; each segment summed, then the
+    segments in order), y = L^-1 rhs and c = P y, into y (every level's
+    S x Wd) and c (every level's S x Rd) at the level table's offsets.
+    levels: the factor's level_table; Linv: its sn_invert_tiles.  On the
+    card one cooperative launch, whose wrapper checks only the flat tensors
+    (level_table checked the factor)."""
+    args = (g, Linv, cols, gat_ptr, gat_seg, gat_src, y, c)
+    if on_cpu(levels.table, *args):
+        return sn_forward_plain(g, levels, *args[1:])
     n, d = g.shape
-    S, W = col_vars.shape
-    Wd = W * d
-    Lc = _colmajor(L)
-    specs = [("g", g, F64, (n, d)), ("acc", acc, F64, (n + 1, d)),
-             ("L", Lc, F64, (S, Wd, Wd)), ("col_vars", col_vars, I32, (S, W))]
-    R = 0
-    if P is not None:
-        R = P.shape[1] // d
-        Pc = _colmajor(P)
-        specs.append(("P", Pc, F64, (S, Wd, R * d)))
-    dev = check("sn_forward_level", *specs)
-    y = torch.empty((S, Wd), dtype=F64, device=dev)
-    c = torch.empty((S, R * d), dtype=F64, device=dev) if R else None
-    KERNELS["sn_forward_level"].launch(dev, S, W, R, d, n, ptr(g), ptr(acc),
-                                       ptr(Lc), ptr(Pc) if R else 0,
-                                       ptr(col_vars), ptr(y),
-                                       ptr(c) if R else 0)
+    lv = levels
+    dev = check("sn_forward", ("g", g, F64, (n, d)),
+                ("table", lv.table, I64, (len(lv.Ls), LEVEL_FIELDS)),
+                ("Linv", Linv, F64, (lv.tiles, TILE, TILE)),
+                ("cols", cols, I32, (lv.n_slots,)),
+                ("gat_ptr", gat_ptr, I32, (lv.n_slots + 1,)),
+                ("gat_seg", gat_seg, I32, (gat_seg.shape[0],)),
+                ("gat_src", gat_src, I32, (gat_src.shape[0],)),
+                ("y", y, F64, (lv.n_y,)), ("c", c, F64, (lv.n_c,)))
+    KERNELS["sn_forward"].launch(dev, len(lv.Ls), d, n, lv.front,
+                                 _SOLVE_CLUSTER, ptr(lv.table),
+                                 *map(ptr, args))
     return y, c
 
 
-def sn_segment_add_plain(c, fwd_src, fwd_ptr, fwd_tgt, acc):
-    d = acc.shape[1]
-    seg = torch.zeros((fwd_tgt.shape[0], d), dtype=F64,
-                      device=c.device).index_add_(
-        0, segment_owner(fwd_ptr), c.reshape(-1, d)[fwd_src.long()])
-    acc[fwd_tgt.long()] += seg
+def sn_backward_plain(y, levels, Linv, cols, rows, x):
+    n, d = x.shape
+    x_ext = torch.zeros((n + 1, d), dtype=F64, device=x.device)
+    offs, yo = [], 0
+    q = r = 0
+    for L, P in zip(levels.Ls, levels.Ps):
+        S, Wd, _ = L.shape
+        R = 0 if P is None else P.shape[1] // d
+        offs.append((yo, q, r))
+        yo, q, r = yo + S * Wd, q + S * (Wd // d), r + S * R
+    for (yo, q, r), L, P in reversed(list(zip(offs, levels.Ls, levels.Ps))):
+        S, Wd, _ = L.shape
+        rhs = y[yo:yo + S * Wd].view(S, Wd)
+        if P is not None:
+            Rd = P.shape[1]
+            xr = x_ext[rows[r:r + S * (Rd // d)].long()].reshape(S, Rd)
+            rhs = rhs - torch.einsum("sij,si->sj", P, xr)
+        xs = _solve_lower(L, rhs, True).reshape(-1, d)
+        cv = cols[q:q + S * (Wd // d)]
+        keep = cv < n
+        x_ext[cv[keep].long()] = xs[keep]
+    x.copy_(x_ext[:n])
+    return x
 
 
-def sn_segment_add(c, fwd_src, fwd_ptr, fwd_tgt, acc):
-    """Kernel 8, the level's update of the forward accumulator, in place:
-    acc[fwd_tgt[i]] += sum of c's d-rows fwd_src[k] for k in
-    [fwd_ptr[i], fwd_ptr[i+1]), in that order (targets unique)."""
-    args = (c, fwd_src, fwd_ptr, fwd_tgt, acc)
-    if on_cpu(*args):
-        return sn_segment_add_plain(*args)
-    T = fwd_tgt.shape[0]
-    n1, d = acc.shape
-    dev = check("sn_segment_add", ("c", c, F64, tuple(c.shape)),
-                ("fwd_src", fwd_src, I32, (fwd_src.shape[0],)),
-                ("fwd_ptr", fwd_ptr, I32, (T + 1,)),
-                ("fwd_tgt", fwd_tgt, I32, (T,)),
-                ("acc", acc, F64, (n1, d)))
-    KERNELS["sn_segment_add"].launch(dev, T, d, *map(ptr, args))
-
-
-def sn_backward_level_plain(y, L, P, row_vars, col_vars, x):
-    S, W = col_vars.shape
-    n1, d = x.shape
-    rhs = y
-    if P is not None:
-        xr = x[row_vars.long()].reshape(S, -1)
-        rhs = y - torch.einsum("sij,si->sj", P, xr)
-    xs = _solve_lower(L, rhs, True).reshape(S, W, d)
-    keep = col_vars < n1 - 1
-    x[col_vars[keep].long()] = xs[keep]
-
-
-def sn_backward_level(y, L, P, row_vars, col_vars, x):
-    """Kernel 8, backward step of one level, in place on x (n+1, d):
-    rhs = y - P^T x[row_vars] (sentinel n reads 0), x = L^-T rhs per front,
-    stored at the front's true columns (col_vars < n; unique).  L and P as
-    in sn_forward_level."""
-    args = (y, L, col_vars, x)
-    if on_cpu(*args, *_tensors(P, row_vars)):
-        return sn_backward_level_plain(y, L, P, row_vars, col_vars, x)
-    n1, d = x.shape
-    S, W = col_vars.shape
-    Wd = W * d
-    Lc = _colmajor(L)
-    specs = [("y", y, F64, (S, Wd)), ("L", Lc, F64, (S, Wd, Wd)),
-             ("col_vars", col_vars, I32, (S, W)), ("x", x, F64, (n1, d))]
-    R = 0
-    if P is not None:
-        R = P.shape[1] // d
-        Pc = _colmajor(P)
-        specs += [("P", Pc, F64, (S, Wd, R * d)),
-                  ("row_vars", row_vars, I32, (S, R))]
-    dev = check("sn_backward_level", *specs)
-    KERNELS["sn_backward_level"].launch(dev, S, W, R, d, n1 - 1, ptr(y),
-                                        ptr(Lc), ptr(Pc) if R else 0,
-                                        ptr(row_vars) if R else 0,
-                                        ptr(col_vars), ptr(x))
+def sn_backward(y, levels, Linv, cols, rows, x):
+    """Kernel 8, backward over every level, top-down, into x (n, d), each
+    variable written once: per front rhs = y - P^T x at its rows (rows:
+    every level's row_vars in level order, sentinel n reads 0), x = L^-T rhs
+    at its true columns (cols < n).  levels, Linv and cols as in
+    sn_forward.  On the card one cooperative launch."""
+    args = (y, Linv, cols, rows, x)
+    if on_cpu(levels.table, *args):
+        return sn_backward_plain(y, levels, *args[1:])
+    n, d = x.shape
+    lv = levels
+    dev = check("sn_backward", ("y", y, F64, (lv.n_y,)),
+                ("table", lv.table, I64, (len(lv.Ls), LEVEL_FIELDS)),
+                ("Linv", Linv, F64, (lv.tiles, TILE, TILE)),
+                ("cols", cols, I32, (lv.n_slots,)),
+                ("rows", rows, I32, (lv.n_rows,)), ("x", x, F64, (n, d)))
+    KERNELS["sn_backward"].launch(dev, len(lv.Ls), d, n, lv.front,
+                                  _SOLVE_CLUSTER, ptr(lv.table),
+                                  *map(ptr, args))
+    return x
 
 
 # -- kernel 9: the refinement matvec ---------------------------------------

@@ -14,11 +14,15 @@ cholesky_ex and its panel solve Lp = panel L^-T in two forms: the right
 triangular solve factorize() makes (solve_triangular(L^T, panel,
 left=False)) and the left one on the transposed panel (solve_triangular(L,
 panel^T).mT), with their largest relative difference and the layouts they
-leave.  Then, on the factor of that lam, it times kernel 8: one solve
-(_solve_padded), and its forward and backward launches alone over all
-levels.  Prints one JSON line with the card's name and power limit.  Give
-two roots in turns (A, B, B, A), one process each on one card, to compare
-two versions.
+leave.  Then, on the factor of that lam, it times kernel 8 by CUDA events
+and by device time (torch.profiler): one solve (_solve_padded), its
+forward and its backward alone over all levels (in a tree with per-level
+kernels, the forward's segment sums included), and the tile inverses of
+one factorization where the tree has them; in a tree whose solve splits
+the top levels' fronts over thread-block clusters, forward, backward and
+solve again with a CTA per front throughout.  Prints one JSON line with the
+card's name and power limit.  Give two roots in turns (A, B, B, A), one
+process each on one card, to compare two versions.
 """
 
 import argparse
@@ -41,6 +45,22 @@ def _cuda_ms(fn, reps):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _device_ms(fn, reps):
+    """The self device time of every kernel fn launches (torch.profiler),
+    per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")) / 1e3 / reps
 
 
 def main(argv):
@@ -116,22 +136,64 @@ def main(argv):
                                lv.schur_ptr, lv.schur_tgt, work)
         rows.append(row)
     f = s.factorize(blocks, 1e-3)
-    levels = list(zip(dv.levels, f.Ldiag, f.Lpanel))
-    acc = torch.zeros((s.nvars + 1, s.d), dtype=torch.float64, device="cuda")
-    ys = [K.sn_forward_level(g, acc, L, P, lv.col_vars)[0]
-          for lv, L, P in levels]
-    x = torch.zeros_like(acc)
+    if hasattr(K, "sn_forward"):
+        # one launch per direction over all levels; the tile inverses once
+        # per factorization
+        x = torch.empty((s.nvars, s.d), dtype=torch.float64, device="cuda")
 
-    def forward():
-        for lv, L, P in levels:
-            K.sn_forward_level(g, acc, L, P, lv.col_vars)
+        def forward():
+            K.sn_forward(g, f.levels, f.Linv, dv.sol_cols, dv.gat_ptr,
+                         dv.gat_seg, dv.gat_src, dv.sol_y, dv.sol_c)
 
-    def backward():
-        for (lv, L, P), y in reversed(list(zip(levels, ys))):
-            K.sn_backward_level(y, L, P, lv.row_vars, lv.col_vars, x)
-    solve = {"solve_ms": _cuda_ms(lambda: s._solve_padded(f, g), a.reps),
-             "forward_ms": _cuda_ms(forward, a.reps),
-             "backward_ms": _cuda_ms(backward, a.reps)}
+        def backward():
+            K.sn_backward(dv.sol_y, f.levels, f.Linv, dv.sol_cols,
+                          dv.sol_rows, x)
+
+        def invert():
+            K.sn_invert_tiles(f.levels, f.Linv)
+        parts = {"forward": forward, "backward": backward, "invert": invert}
+    else:
+        # the per-level launches of an older tree: forward and segment sum
+        # per level, then backward per level
+        levels = list(zip(dv.levels, f.Ldiag, f.Lpanel))
+        acc = torch.zeros((s.nvars + 1, s.d), dtype=torch.float64,
+                          device="cuda")
+        ys = [K.sn_forward_level(g, acc, L, P, lv.col_vars)[0]
+              for lv, L, P in levels]
+        x = torch.zeros_like(acc)
+
+        def forward():
+            for lv, L, P in levels:
+                c = K.sn_forward_level(g, acc, L, P, lv.col_vars)[1]
+                if P is not None:
+                    K.sn_segment_add(c, lv.fwd_src, lv.fwd_ptr, lv.fwd_tgt,
+                                     acc)
+
+        def backward():
+            for (lv, L, P), y in reversed(list(zip(levels, ys))):
+                K.sn_backward_level(y, L, P, lv.row_vars, lv.col_vars, x)
+        parts = {"forward": forward, "backward": backward}
+    parts["solve"] = lambda: s._solve_padded(f, g)
+    solve = {}
+    for name, fn in parts.items():
+        solve[name + "_ms"] = _cuda_ms(fn, a.reps)
+        solve[name + "_device_ms"] = _device_ms(fn, a.reps)
+    cluster = getattr(K, "_SOLVE_CLUSTER", None)
+    if cluster is not None:
+        # the same without the cluster split (a CTA per front throughout)
+        solve["cluster"] = cluster
+        K._SOLVE_CLUSTER = 1
+        for name in ("forward", "backward", "solve"):
+            solve[name + "_no_split_ms"] = _cuda_ms(parts[name], a.reps)
+            solve[name + "_no_split_device_ms"] = _device_ms(parts[name],
+                                                             a.reps)
+        K._SOLVE_CLUSTER = cluster
+    # kernel 8's device time per solve: forward + backward, plus the tile
+    # inverses over the two solves of a factorization (the solve and its
+    # refinement)
+    solve["kernel8_per_solve_device_ms"] = (
+        solve["forward_device_ms"] + solve["backward_device_ms"]
+        + solve.get("invert_device_ms", 0.0) / 2)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()

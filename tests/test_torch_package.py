@@ -166,8 +166,14 @@ def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
     def b(*shape):
         return torch.empty(shape, dtype=torch.bool, device="meta")
 
+    def l(*shape):
+        return torch.empty(shape, dtype=torch.int64, device="meta")
+
     Wd, Rd = 6 * W, 6 * R
     se3 = (f(Nv, 3, 3), f(Nv, 3), i(N, 2), f(N, 3, 3), f(N, 3))
+    levels = supernodal_kernels.Levels(
+        l(1, 12), [f(S, Wd, Wd)], [f(S, Rd, Wd)], S, S * Wd, S * Rd, S * W,
+        S * R, Wd + Rd)
     return {
         "pg_linearize": se3 + ("gaussian", f(N, 6, 6), 1.0, b(N),
                                f(N, 3, 36), f(N, 2, 6)),
@@ -180,11 +186,11 @@ def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
         "sn_pivot_check": (f(S, Wd, Wd), f(S, Rd, Wd), i(S), b(S, Wd),
                            i(S, W), i(2)),
         "sn_schur_scatter": (f(S, Rd, Rd), i(7), i(T + 1), i(T), f(nb, 36)),
-        "sn_forward_level": (f(n, 6), f(n + 1, 6), f(S, Wd, Wd),
-                             f(S, Rd, Wd), i(S, W)),
-        "sn_segment_add": (f(S, Rd), i(6), i(T + 1), i(T), f(n + 1, 6)),
-        "sn_backward_level": (f(S, Wd), f(S, Wd, Wd), f(S, Rd, Wd), i(S, R),
-                              i(S, W), f(n + 1, 6)),
+        "sn_invert_tiles": (levels, f(S, 32, 32)),
+        "sn_forward": (f(n, 6), levels, f(S, 32, 32), i(S * W),
+                       i(S * W + 1), i(T + 1), i(7), f(S * Wd), f(S * Rd)),
+        "sn_backward": (f(S * Wd), levels, f(S, 32, 32), i(S * W), i(S * R),
+                        f(n, 6)),
         "sn_matvec": (f(nb, 36), f(n, 6), i(n + 1), i(nb - 1), i(n + 1),
                       i(4), i(nb - 1), i(nb - 1), i(n), f(n, 6), 0.1, False),
     }[name]
@@ -257,12 +263,17 @@ def test_wrapper_rejects_wrong_shape(name):
 @pytest.mark.parametrize("name", WRAPPERS)
 def test_wrapper_refuses_a_cpu_and_device_mix(name):
     """Every argument on the CPU but the last tensor (S for the assembly
-    wrappers): the wrapper does not take the plain version, and its device
-    check refuses the mix before any launch."""
+    wrappers; a level table counts as an argument): the wrapper does not
+    take the plain version, and its device check refuses the mix before
+    any launch."""
+    def cpu(a):
+        return torch.zeros(a.shape, dtype=a.dtype)
+
     args = list(_meta_args(name))
     last = max(k for k, a in enumerate(args) if isinstance(a, torch.Tensor))
-    args = [torch.zeros(a.shape, dtype=a.dtype)
-            if isinstance(a, torch.Tensor) and k != last else a
+    args = [cpu(a) if isinstance(a, torch.Tensor) and k != last
+            else a._replace(table=cpu(a.table))
+            if isinstance(a, supernodal_kernels.Levels) else a
             for k, a in enumerate(args)]
     _kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="one CUDA device; .* is on cpu"):
@@ -356,9 +367,11 @@ def _cpu_args_pg(name):
     k = dv.levels.index(lv)
     L, P = f.Ldiag[k], f.Lpanel[k]
     info = torch.zeros(lv.S, dtype=torch.int32)
-    y, c = supernodal_kernels.sn_forward_level_plain(
-        g, torch.zeros((s.nvars + 1, d), dtype=torch.float64), L, P,
-        lv.col_vars)
+    sol = (f.levels, f.Linv, dv.sol_cols)
+    y, _ = supernodal_kernels.sn_forward_plain(
+        g, *sol, dv.gat_ptr, dv.gat_seg, dv.gat_src,
+        torch.zeros(s.n_y, dtype=torch.float64),
+        torch.zeros(s.n_c, dtype=torch.float64))
     return {
         "pg_linearize": se3_args + (
             "gaussian", b.noise.data, 1.0, dv.flips[0][1],
@@ -378,13 +391,13 @@ def _cpu_args_pg(name):
                            torch.tensor([1, -1], dtype=torch.int32)),
         "sn_schur_scatter": (P @ P.mT, lv.schur_src, lv.schur_ptr,
                              lv.schur_tgt, blocks.clone()),
-        "sn_forward_level": (g, torch.as_tensor(rng.normal(
-            size=(s.nvars + 1, d))), L, P, lv.col_vars),
-        "sn_segment_add": (c, lv.fwd_src, lv.fwd_ptr, lv.fwd_tgt,
-                           torch.zeros((s.nvars + 1, d), dtype=torch.float64)),
-        "sn_backward_level": (y, L, P, lv.row_vars, lv.col_vars,
-                              torch.as_tensor(rng.normal(
-                                  size=(s.nvars + 1, d)))),
+        "sn_invert_tiles": (f.levels, torch.zeros_like(f.Linv)),
+        "sn_forward": (torch.as_tensor(rng.normal(size=(s.nvars, d))), *sol,
+                       dv.gat_ptr, dv.gat_seg, dv.gat_src,
+                       torch.zeros(s.n_y, dtype=torch.float64),
+                       torch.zeros(s.n_c, dtype=torch.float64)),
+        "sn_backward": (y, *sol, dv.sol_rows,
+                        torch.zeros((s.nvars, d), dtype=torch.float64)),
         "sn_matvec": (blocks, torch.as_tensor(rng.normal(size=(s.nvars, d))),
                       dv.mv_row_ptr, dv.mv_row_blk, dv.mv_col_ptr,
                       dv.mv_col_blk, dv.block_row, dv.block_col, dv.dbc,

@@ -444,20 +444,24 @@ def _dense_oracle(case, lam, dd):
 
 
 def test_solves_against_jax_and_dense(case):
-    """_solve_padded and solve_refined against the JAX package's at 1e-9,
-    and the refined step against the dense (H + lam I)^-1 g at 1e-9 (the
-    system's condition number times eps leaves that room)."""
+    """_solve_padded (kernel 8's plain sn_forward and sn_backward over the
+    gather CSR) against the JAX package's at lam 1e-4, 1e-3 and 1, and
+    solve_refined at 1e-3, at 1e-9; the refined step against the dense
+    (H + lam I)^-1 g at 1e-9 (the system's condition number times eps
+    leaves that room)."""
     jb, jg, tb, tg = case.systems()
     lam = 1e-3
 
-    def jax_solves(b, g):
-        f = case.js.factorize(b, lam, False)
+    def jax_solves(b, g, lam_s):
+        f = case.js.factorize(b, lam_s, False)
         return (case.js._solve_padded(f, g),
                 case.js.solve_refined(b, g, lam, False, refine_iters=1))
 
-    jx, jdx = jax.jit(jax_solves)(jnp.asarray(jb), jnp.asarray(jg))
-    f = case.ts.factorize(tb, lam, False)
-    _close(case.ts._solve_padded(f, tg), jx, 1e-9)
+    jsolve = jax.jit(jax_solves)
+    for lam_s in (1e-4, 1.0, lam):
+        jx, jdx = jsolve(jnp.asarray(jb), jnp.asarray(jg), lam_s)
+        f = case.ts.factorize(tb, lam_s, False)
+        _close(case.ts._solve_padded(f, tg), jx, 1e-9)
     dx, ok = case.ts.solve_refined(tb, tg, lam, False, refine_iters=1)
     assert bool(ok)
     _close(dx, jdx, 1e-9)
@@ -479,6 +483,71 @@ def test_matvec(case, dd):
     Hd, _ = _dense_oracle(case, 0.3, dd)
     ref = case.ts._flatten(torch.as_tensor(x)).numpy()
     _close(case.ts._flatten(got), Hd @ ref, 1e-12)
+
+
+def test_tile_inverses_against_numpy(case):
+    """Kernel 8's plain sn_invert_tiles against numpy.linalg.inv of every
+    32x32 diagonal tile of every front, built here from the level factors
+    (a partial last tile padded with the identity, the fronts' padded
+    column slots included), at 1e-12 relative to the largest entry; the
+    padding inverts to exactly the identity."""
+    _, _, tb, _ = case.systems()
+    for lam in (1e-4, 1.0):
+        f = case.ts.factorize(tb, lam, False)
+        ref, pads = [], []
+        for L in f.Ldiag:
+            Ln = L.numpy()
+            S, Wd, _ = Ln.shape
+            for s in range(S):
+                for j0 in range(0, Wd, K.TILE):
+                    nb = min(K.TILE, Wd - j0)
+                    T = np.eye(K.TILE)
+                    T[:nb, :nb] = np.tril(Ln[s, j0:j0 + nb, j0:j0 + nb])
+                    ref.append(np.linalg.inv(T))
+                    pads.append(nb)
+        assert f.Linv.shape == (len(ref), K.TILE, K.TILE)
+        assert any(nb < K.TILE for nb in pads)
+        _close(f.Linv, np.stack(ref), 1e-12)
+        for got, nb in zip(f.Linv.numpy(), pads):
+            pad = np.eye(K.TILE)[nb:]
+            np.testing.assert_array_equal(got[nb:], pad)
+            np.testing.assert_array_equal(got[:, nb:], pad.T)
+
+
+def test_gather_csr_against_the_jax_forward_plans(case):
+    """The all-levels gather CSR lists, for every column slot, exactly the
+    (level, c row -> target) pairs of the JAX plan's per-level fwd_src /
+    fwd_seg / fwd_tgt whose target is the slot's variable: one segment per
+    level, in level order, each with its rows in fwd_src order; every pair
+    appears once."""
+    ts, js = case.ts, case.js
+    n = ts.nvars
+    want, crow = {}, 0      # var -> [(level, [c rows])] in level order
+    for k, lp in enumerate(js.level_plans):
+        if lp.R:
+            for i, u in enumerate(lp.fwd_tgt):
+                rows = (lp.fwd_src[lp.fwd_seg == i] + crow).tolist()
+                want.setdefault(int(u), []).append((k, rows))
+            crow += lp.S * lp.R
+    level_of_row = np.concatenate([np.full(lp.S * lp.R, k) for k, lp in
+                                   enumerate(js.level_plans) if lp.R])
+    assert ts.n_c == crow * ts.d
+    np.testing.assert_array_equal(ts.sol_cols, np.concatenate(
+        [lp.col_vars.reshape(-1) for lp in js.level_plans]))
+    got, pairs = {}, 0
+    for q, v in enumerate(ts.sol_cols):
+        segs = []
+        for e in range(ts.gat_ptr[q], ts.gat_ptr[q + 1]):
+            rows = ts.gat_src[ts.gat_seg[e]:ts.gat_seg[e + 1]].tolist()
+            assert len(set(level_of_row[rows])) == 1
+            segs.append((int(level_of_row[rows[0]]), rows))
+            pairs += len(rows)
+        if segs:
+            assert v < n
+            got[int(v)] = segs
+    assert got == want
+    assert pairs == len(ts.gat_src) == sum(
+        len(lp.fwd_src) for lp in js.level_plans if lp.R)
 
 
 def _rows_outside_t(s):
