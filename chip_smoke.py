@@ -15,7 +15,12 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      tolerances; kernel 1 also at make_bal_problem(3, 10, 2) plus one track
      (an odd K below one warp tile; the problem above leaves a partial last
      tile and error block), twice on the same inputs (same bits) and with
-     error calls of different K back to back; and small ba_optimize runs, float64 and
+     error calls of different K back to back; kernels 10 and 11 (BA's dense
+     factorization and solve, gtsam_torch.linear.dense_kernels.KERNELS) and
+     their float32 variants against their plain versions at n = 900, 909
+     (a partial last panel) and 2100, the whole blocked factorization and solve
+     on the card against the CPU, and the failure flag of an indefinite S;
+     and small ba_optimize runs, float64 and
      mixed, on the card against the same runs on the CPU; then the
      pose-graph kernels 6-9 (gtsam_torch.linear.supernodal_kernels.KERNELS)
      against their plain versions on a 6 x 8 sphere and on a graph that
@@ -34,7 +39,9 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      chordal initialization, optimizers.make_fused_lm on the supernodal
      solver, float64) at the sphere2500 shape, held to TARGET_SPHERE and
      run twice for the same bits; every kernel's launch count is read from
-     the first run of its path alone, the sphere path must launch no
+     the first run of its path alone, kernels 10 and 11 exactly once per
+     panel of each factorization and once per direction of each solve,
+     the sphere path must launch no
      generic linearization and kernel 8 exactly once per factorization
      (the tile inverses) and once per direction per solve, and its
      solver's owned block store must be zero outside H's own blocks after
@@ -44,16 +51,23 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      beside the plain version's time and its bound from this run's shapes,
      and kernel 1's ptxas register and spill lines; two assemblies, two
      calls of kernel 1 and two matvecs on the same inputs must give the
-     same bits; the time of the plan build (host and device), of one
-     factorization in float64 and in float32, and of the triangular-solve
-     pairs; the same for kernels 6-9 on the sphere's converged state,
+     same bits; the time of the plan build (host and device); kernels 10
+     and 11 against their plain versions on S at lam = 1 and its blocked
+     factor, |L L^T - S| / |S|, the blocked factorization and the solves by
+     events and device time beside their bounds and library yardsticks
+     (cholesky_ex and the solve_triangular pair, timed here and used
+     nowhere in the port), the first trailing update's products at rank
+     128 and 256, and kernels 10 and 11's ptxas lines; the same for kernels
+     6-9 on the sphere's converged state,
      with the library call of each one that has one (kernel 8's solves:
      one sparse triangular solve over the whole factor as a CSR matrix), each also as device time
      per call (torch.profiler; the events time of back-to-back wrapper calls
      includes the host's), the time of each level's cholesky_ex,
      solve_triangular and bmm, and of a try by stage;
-  6. one profiled run of each main path: device busy time by kernel, and
-     the rows of the full-matrix passes (mul, fill, copy, tril); then a
+  6. one profiled run of each main path: device busy time by kernel (no
+     cuSOLVER potrf, no trsv/trsm and no tril kernel may appear, and
+     kernels 10 and 11 must), and the rows of the full-matrix passes (mul,
+     fill, copy); then a
      profile of error calls alone, each of which must be one launch of its
      kernel and no other device work; then one profiled sphere run.
 The last three lines are the kernels' JSON, the nvidia-smi line and
@@ -97,10 +111,13 @@ TOL = {"bal_linearize": 1e-12, "bal_linearize_f32": 1e-12, "bal_error": 1e-12,
 PATHS = {
     "float64": ("bal_linearize", "bal_error", "ba_point_eliminate",
                 "ba_camera_assemble", "ba_pair_assemble",
-                "ba_back_substitute"),
+                "ba_back_substitute", "dense_factor_diag", "dense_forward",
+                "dense_backward"),
     "mixed": ("bal_linearize_f32", "bal_error", "ba_point_eliminate_f32",
               "ba_camera_assemble_f32", "ba_pair_assemble_f32",
-              "ba_back_substitute", "ba_schur_matvec")}
+              "ba_back_substitute", "ba_schur_matvec",
+              "dense_factor_diag_f32", "dense_forward_f32",
+              "dense_backward_f32")}
 
 
 def log(*a):
@@ -196,6 +213,7 @@ class Inputs:
         damped Hpp) that 3a's plain version gives."""
         import types
         import torch
+        from gtsam_torch import _kernels
         from gtsam_torch.sfm import ba_kernels as bk
         d = types.SimpleNamespace()
         d.A_cam, d.A_pt, d.b = bk.linearize_plain(*self.proj, dt)
@@ -203,7 +221,7 @@ class Inputs:
             self.plan.pt_ptr, self.plan.pt_tile, d.A_cam, d.A_pt, d.b,
             self.lam, False)
         n = 9 * self.prob.num_cameras
-        d.S = torch.zeros((n, n), dtype=dt, device="cuda")
+        d.S = _kernels.row_strided(n, dt, "cuda").zero_()   # as BA's
         d.s, d.Hpp_d = None, None
         d.s, *Hpp_d = bk.camera_assemble_plain(*self._args(
             "ba_camera_assemble", d))[1:]
@@ -410,6 +428,340 @@ def ptxas_lines(build_log, kernel):
         elif ("registers" in line or "spill" in line) and kernel in fn:
             out.append(line.strip())
     return out
+
+
+# -- BA's dense solve (kernels 10 and 11) -------------------------------------
+
+# kernel-vs-plain tolerances of kernels 10 and 11, relative to the plain
+# output's largest entry: both compute the plain version's sums in another
+# order (kernel 10: 32-wide tiles, the inverse composed from the tiles'
+# inverses; kernel 11: per-block partial sums), which the blocks' condition
+# numbers amplify: 1e-10 in float64; in float32, against the plain float32
+# version, a few f32 ulps times those condition numbers: 1e-4.
+DENSE_TOL = {"float64": 1e-10, "float32": 1e-4}
+DENSE_NAMES = ("dense_factor_diag", "dense_forward", "dense_backward")
+
+
+def dtype_name(dt):
+    return str(dt).replace("torch.", "")
+
+
+def spd_matrix(n, seed):
+    """A seeded SPD matrix with a unit diagonal, as ba.assemble gives S:
+    D^-1/2 (A A^T / n + I) D^-1/2, condition ~5."""
+    import numpy as np
+    A = np.random.default_rng(seed).normal(size=(n, n))
+    S = A @ A.T / n + np.eye(n)
+    d = 1.0 / np.sqrt(np.diag(S))
+    return d[:, None] * S * d[None, :]
+
+
+def max_rel(got, ref):
+    """(max |got - ref| / max |ref|, max |got - ref|) over tensor pairs."""
+    rel = ab = 0.0
+    for g, r in zip(got, ref):
+        d = float((g.double() - r.double()).abs().max())
+        rel = max(rel, d / max(float(r.double().abs().max()), 1e-300))
+        ab = max(ab, d)
+    return rel, ab
+
+
+def dense_pairs(S0, L, Dinv, b):
+    """{kernel: (rel, abs)} of kernel 10 on every panel's diagonal block of
+    S0 and kernel 11 on (L, Dinv, b), each against its plain version on the
+    same CUDA tensors, the outputs NaN-filled before each call."""
+    import torch
+    from gtsam_torch.linear import dense_kernels as dk
+    n, dt = S0.shape[0], S0.dtype
+    P = dk.panels(n)
+    out, res = {}, []
+    for f in (dk.factor_diag, dk.factor_diag_plain):
+        S = S0.clone()
+        D = torch.full((P, dk.PANEL, dk.PANEL), float("nan"), dtype=dt,
+                       device="cuda")
+        info = torch.zeros((), dtype=torch.int32, device="cuda")
+        for k in range(P):
+            f(S, D, info, k)
+        res.append((S, D, info))
+    torch.cuda.synchronize()
+    if int(res[0][2]) != int(res[1][2]):
+        raise AssertionError(f"dense_factor_diag: info {int(res[0][2])} != "
+                             f"plain {int(res[1][2])}")
+    out["dense_factor_diag"] = max_rel(res[0][:2], res[1][:2])
+    del res
+    y = [f(L, Dinv, b, torch.full_like(b, float("nan")))
+         for f in (dk.solve_forward, dk.solve_forward_plain)]
+    out["dense_forward"] = max_rel(y[:1], y[1:])
+    x = [f(L, Dinv, y[1], torch.full_like(b, float("nan")))
+         for f in (dk.solve_backward, dk.solve_backward_plain)]
+    out["dense_backward"] = max_rel(x[:1], x[1:])
+    torch.cuda.synchronize()
+    suffix = "" if dt == torch.float64 else "_f32"
+    return {k + suffix: v for k, v in out.items()}
+
+
+def check_dense(S0, label, b):
+    """Kernels 10 and 11 against their plain versions on S0 (CUDA) and the
+    port's factor of it; raises on a miss of DENSE_TOL.  Returns ({kernel:
+    max abs err}, (L, Dinv))."""
+    from gtsam_torch import _kernels
+    from gtsam_torch.linear import dense_blocked as db
+    dt = S0.dtype
+    tol = DENSE_TOL[dtype_name(dt)]
+    # the factor in BA's layout (rows 256-byte aligned): kernel 11 is held
+    # at a row stride other than n, kernel 10 (in dense_pairs) at n
+    L, Dinv, info = db.blocked_cholesky(
+        _kernels.row_strided(S0.shape[0], dt, "cuda").copy_(S0))
+    if int(info) != 0:
+        raise AssertionError(f"blocked_cholesky ({label}, {dt}) failed at "
+                             f"column {int(info) - 1}")
+    errs = {}
+    for name, (rel, ab) in dense_pairs(S0, L, Dinv, b.to(dt)).items():
+        errs[name] = ab
+        log(f"check {label} {name}: max rel err {rel:.3e} (tol {tol:.0e}), "
+            f"max abs err {ab:.3e}")
+        if not rel <= tol:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"({label}): {rel:.3e} > {tol:.0e}")
+    return errs, (L, Dinv)
+
+
+def check_dense_small():
+    """Phase 3: kernels 10 and 11 at n = 900, 909 (a 13-wide last panel)
+    and 2100 (three super-panels, the look-ahead's side stream), float64
+    and float32; the whole factorization and solve on the card against the
+    same on the CPU; the failure flag of an indefinite S, on the card and
+    on the CPU."""
+    import numpy as np
+    import torch
+    from gtsam_torch.linear import dense_blocked as db
+    for n in (900, 909, 2100):
+        Sn = spd_matrix(n, n)
+        bn = np.random.default_rng(n).normal(size=n)
+        for dt in (torch.float64, torch.float32):
+            S0 = torch.as_tensor(Sn, dtype=dt, device="cuda")
+            b = torch.as_tensor(bn, dtype=dt, device="cuda")
+            _, (L, Dinv) = check_dense(S0, f"n={n}", b)
+            x = db.blocked_cho_solve(L, Dinv, b)
+            Lc, Dc, _ = db.blocked_cholesky(S0.cpu().clone())
+            xc = db.blocked_cho_solve(Lc, Dc, b.cpu())
+            tol = DENSE_TOL[dtype_name(dt)]
+            rel, _ = max_rel([L.tril().cpu(), Dinv.cpu(), x.cpu()],
+                             [Lc.tril(), Dc, xc])
+            res = float(torch.linalg.norm(S0.double() @ x.double()
+                                          - b.double())
+                        / torch.linalg.norm(b.double()))
+            log(f"dense n={n} {dt}: card vs cpu (factor, inverses, solve) "
+                f"{rel:.3e} (tol {tol:.0e}); |S x - b| / |b| {res:.3e}")
+            if not (rel <= tol and res <= tol):
+                raise AssertionError(f"dense n={n} {dt}: card vs cpu "
+                                     f"{rel:.3e}, residual {res:.3e}")
+    for dt in (torch.float64, torch.float32):
+        Sn = spd_matrix(909, 1)
+        Sn[300, 300] = -1.0
+        infos = [int(db.blocked_cholesky(torch.tensor(
+            Sn, dtype=dt, device=dev))[2]) for dev in ("cuda", "cpu")]
+        log(f"dense failure flag {dt}: card {infos[0]}, cpu {infos[1]} "
+            "(want column 300 + 1)")
+        if infos != [301, 301]:
+            raise AssertionError(f"dense failure flag ({dt}): {infos}")
+
+
+def events_ms(fn, setup=None, reps=3):
+    """Each of reps calls of fn, timed by CUDA events, after setup()."""
+    import torch
+    out = []
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+def trailing_rates(S, dt):
+    """Phase 5: the first trailing update's products (dense_blocked's
+    column groups over the lower triangle, rank 128, 256 and 512, the last
+    the rank the port updates by) on the n x n buffer S, by events: {rank: {ms, tflops}} at the flops they do."""
+    import torch
+    from gtsam_torch.linear.dense_blocked import GROUP
+    n = S.shape[0]
+    out = {}
+    for nb in (r for r in (128, 256, 512) if r < n):
+        m = n - nb
+        X = torch.randn((m, nb), dtype=dt, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(nb))
+        flops = 0
+        groups = []
+        for j0 in range(nb, n, GROUP):
+            j1 = min(j0 + GROUP, n)
+            groups.append((S[j0:, j0:j1], X[j0 - nb:], X[j0 - nb:j1 - nb].mT))
+            flops += 2 * nb * (n - j0) * (j1 - j0)
+
+        def update():
+            for c, a, b in groups:
+                c.addmm_(a, b, alpha=-1)
+        update()
+        ms = events_ms(update, reps=3)
+        out[nb] = {"ms": ms, "tflops": flops / (min(ms) * 1e-3) / 1e12,
+                   "flops": flops}
+    return out
+
+
+def dense_times(factors, bufs, rhs, launches, build_log):
+    """Phase 5 at the Ladybug shape, each precision: kernels 10 and 11
+    against their plain versions (on S at lam = 1 and the port's factor of
+    it), |L L^T - S| / |S|, the factorization and the solves by events and
+    device time beside their bounds, plain versions and library yardsticks
+    (cholesky_ex, solve_triangular), the trailing products' rates, ptxas
+    lines.  Returns (kernel rows, {dtype: summary})."""
+    import torch
+    from gtsam_torch.linear import dense_blocked as db, dense_kernels as dk
+    rows, summary = [], {}
+    for dt, S0 in factors.items():
+        S, sfx = bufs[dt], ("" if dt == torch.float64 else "_f32")
+        n, item = S.shape[0], S0.element_size()
+        P = dk.panels(n)
+        b = rhs.to(dt)
+        errs, (L, Dinv) = check_dense(S0, "ladybug", b)
+        Lt = L.tril().double()
+        S64 = S0.double()
+        llt = float(torch.linalg.norm(Lt @ Lt.mT - S64)
+                    / torch.linalg.norm(S64))
+        del Lt, S64, L, Dinv
+        log(f"dense ladybug {dt}: |L L^T - S| / |S| = {llt:.3e}")
+
+        def restore():
+            S.copy_(S0)
+        fact_ms = events_ms(lambda: db.blocked_cholesky(S), restore)
+        copy_dev = device_ms(restore, reps=3)
+        fact_dev = device_ms(lambda: (restore(), db.blocked_cholesky(S)),
+                             reps=3) - copy_dev
+        Dinv = torch.empty((P, dk.PANEL, dk.PANEL), dtype=dt, device="cuda")
+        info = torch.zeros((), dtype=torch.int32, device="cuda")
+
+        def diag_loop(f):
+            return lambda: [f(S, Dinv, info, k) for k in range(P)]
+        k10 = min(events_ms(diag_loop(dk.factor_diag), restore)) / P
+        k10_dev = (device_ms(lambda: (restore(), diag_loop(dk.factor_diag)()),
+                             reps=3) - copy_dev) / P
+        k10_plain = min(events_ms(diag_loop(dk.factor_diag_plain), restore,
+                                  reps=1)) / P
+        # the port's factor, then kernel 11 on it
+        restore()
+        L, Dinv, info = db.blocked_cholesky(S)
+        y, x = torch.empty_like(b), torch.empty_like(b)
+        fwd = cuda_ms(lambda: dk.solve_forward(L, Dinv, b, y), reps=20)
+        bwd = cuda_ms(lambda: dk.solve_backward(L, Dinv, y, x), reps=20)
+        fwd_dev = device_ms(lambda: dk.solve_forward(L, Dinv, b, y))
+        bwd_dev = device_ms(lambda: dk.solve_backward(L, Dinv, y, x))
+        fwd_plain = cuda_ms(lambda: dk.solve_forward_plain(L, Dinv, b, y),
+                            reps=2, warmup=1)
+        bwd_plain = cuda_ms(lambda: dk.solve_backward_plain(L, Dinv, y, x),
+                            reps=2, warmup=1)
+        del L, Dinv
+        # library yardsticks: cuSOLVER's factorization into the transpose
+        # view of a contiguous copy of S (the column-major layout it uses,
+        # as the port called it before), cuBLAS's triangular solves
+        S = torch.empty_like(S0)
+        info_t = torch.empty((), dtype=torch.int32, device="cuda")
+        lib = events_ms(lambda: torch.linalg.cholesky_ex(
+            S.mT, out=(S.mT, info_t)), restore)
+        lib_dev = device_ms(lambda: (restore(), torch.linalg.cholesky_ex(
+            S.mT, out=(S.mT, info_t))), reps=3) - copy_dev
+        if int(info_t) != 0:
+            raise AssertionError(f"cholesky_ex ({dt}) failed")
+        Ll, bc = S.mT, b[:, None]
+        yl = torch.linalg.solve_triangular(Ll, bc, upper=False)
+
+        def lib_fwd():
+            torch.linalg.solve_triangular(Ll, bc, upper=False)
+
+        def lib_bwd():
+            torch.linalg.solve_triangular(Ll.mT, yl, upper=True)
+        lib_f, lib_b = cuda_ms(lib_fwd, reps=5), cuda_ms(lib_bwd, reps=5)
+        lib_f_dev, lib_b_dev = device_ms(lib_fwd, 5), device_ms(lib_bwd, 5)
+        rates = trailing_rates(bufs[dt], dt)
+        # bounds: the factorization's flops at the tensor-core (float64) or
+        # FP32 rate; kernel 10's block bytes (lower triangle read, L_D's
+        # lower triangle and Dinv written) and ~2 w^3 / 3 flops on the CUDA
+        # cores; kernel 11's bytes, L's lower triangle and Dinv read once
+        tc = FP64_TC_FLOPS if dt == torch.float64 else FP32_FLOPS
+        core = FP64_FLOPS if dt == torch.float64 else FP32_FLOPS
+        w = dk.PANEL
+        fact_bound = max(n ** 3 / 3 / tc, n * n * item / HBM_BYTES_PER_S) * 1e3
+        k10_bytes = (w * (w + 1) + w * w) * item
+        k10_b = (k10_bytes / HBM_BYTES_PER_S * 1e3,
+                 2 * w ** 3 / 3 / core * 1e3)
+        k11_bytes = (n * (n + 1) / 2 + P * w * w + 2 * n) * item
+        k11_b = (k11_bytes / HBM_BYTES_PER_S * 1e3, 2 * n * n / 2 / core * 1e3)
+
+        def row(name, ms, dev, plain, bound, library, library_dev, **extra):
+            r = {"name": name + sfx, "route": "cuda",
+                 "source": f"gtsam_torch/csrc/{dk.KERNELS[name].source}.cu",
+                 "replaces": dk.KERNELS[name].replaces,
+                 "launches": launches[name + sfx],
+                 "max_abs_err": errs[name + sfx], "ms": ms, "device_ms": dev,
+                 "plain_ms": plain, "bound_ms": max(bound),
+                 "bound_by": "bytes" if bound[0] >= bound[1] else "operations",
+                 "library_ms": library, "library_device_ms": library_dev}
+            r.update(extra)
+            log(f"time {name + sfx}: {ms:.4f} ms (device {dev:.4f}; plain "
+                f"{plain:.4f}; bound {max(bound):.4f} by {r['bound_by']}; "
+                f"library {library}) launches {r['launches']} {extra}")
+            return r
+        rows += [
+            row("dense_factor_diag", k10, k10_dev, k10_plain, k10_b, None,
+                None, factorization_ms=fact_ms,
+                factorization_device_ms=fact_dev,
+                factorization_bound_ms=fact_bound,
+                factorization_library_ms=lib,
+                factorization_library_device_ms=lib_dev,
+                llt_rel_residual=llt, panels=P),
+            row("dense_forward", fwd, fwd_dev, fwd_plain, k11_b, lib_f,
+                lib_f_dev),
+            row("dense_backward", bwd, bwd_dev, bwd_plain, k11_b, lib_b,
+                lib_b_dev)]
+        summary[dtype_name(dt)] = {
+            "factorization_ms": fact_ms, "factorization_device_ms": fact_dev,
+            "bound_ms": fact_bound, "cholesky_ex_ms": lib,
+            "cholesky_ex_device_ms": lib_dev,
+            "solve_pair_ms": fwd + bwd,
+            "solve_pair_device_ms": fwd_dev + bwd_dev,
+            "solve_triangular_pair_ms": lib_f + lib_b,
+            "solve_triangular_pair_device_ms": lib_f_dev + lib_b_dev,
+            "llt_rel_residual": llt,
+            "trailing_rank_rates": {str(k): v for k, v in rates.items()}}
+        log(f"dense ladybug {dt}: {json.dumps(summary[dtype_name(dt)])}")
+    for src, fn in (("dense_factor", "dense_factor_diag_kernel"),
+                    ("dense_solve", "dense_forward_kernel"),
+                    ("dense_solve", "dense_backward_kernel")):
+        for line in ptxas_lines(build_log.get(src, ""), fn):
+            log(f"  {fn}: {line}")
+    return rows, summary
+
+
+def dense_expected(mode, launches, P):
+    """The exact launches of kernels 10 and 11 in a BA run whose tries all
+    factorize: P a factorization, one per direction a solve."""
+    from gtsam_torch.sfm import ba
+    t64 = launches["ba_point_eliminate"]
+    t32 = launches["ba_point_eliminate_f32"]
+    want = {k + s: 0 for k in DENSE_NAMES for s in ("", "_f32")}
+    if mode == "float64":
+        want.update(dense_factor_diag=t64 * P, dense_forward=t64,
+                    dense_backward=t64)
+    else:
+        solves = (t32 * (ba.REFINE_IMPLICIT + 1)
+                  + t64 * (ba.REFINE_DENSE + 1))
+        want.update(dense_factor_diag_f32=(t32 + t64) * P,
+                    dense_forward_f32=solves, dense_backward_f32=solves)
+    return want
 
 
 # -- the pose-graph path (kernels 6-9) ---------------------------------------
@@ -1352,6 +1704,7 @@ def main(argv):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
     from gtsam_torch import LMParams, _build, _kernels, native
+    from gtsam_torch.linear import dense_blocked, dense_kernels as dk
     from gtsam_torch.sfm import ba, ba_kernels as bk, synthetic
 
     # -- 1. the card --------------------------------------------------------
@@ -1425,6 +1778,9 @@ def main(argv):
                                      "bal_error"))
     check_kernel1_repeats([inp, tiny], bk, "small")
     del inp, tiny
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 products must run in full float32")
+    check_dense_small()
     lm_small = LMParams(max_iterations=10)
     for mode, kw in (("float64", {}),
                      ("mixed", dict(dtype=torch.float32,
@@ -1472,7 +1828,7 @@ def main(argv):
             torch.cuda.synchronize()
             wall = time.time() - t0
             launches = {k: v for k, v in _kernels.launch_counts().items()
-                        if k in bk.KERNELS}
+                        if k in bk.KERNELS or k in dk.KERNELS}
             peak = torch.cuda.max_memory_allocated()
             tries = (launches["ba_point_eliminate"]
                      + launches["ba_point_eliminate_f32"])
@@ -1500,12 +1856,18 @@ def main(argv):
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the "
                                      f"{mode} main path")
+        want = dense_expected(mode, launches, dk.panels(9 * prob.num_cameras))
+        got = {k: launches[k] for k in want}
+        log(f"  kernels 10 and 11: launches {got}, expected {want}")
+        if got != want:
+            raise AssertionError(f"kernels 10 and 11 on the {mode} main path:"
+                                 f" launches {got}, expected {want}")
         runs[mode] = dict(vals=vals, info=info, launches=launches,
                           wall=[o[3] for o in outs], peak=peak, tries=tries)
         del outs, v1, v2
     vals = runs["float64"]["vals"]
     launches = {name: sum(r["launches"][name] for r in runs.values())
-                for name in bk.KERNELS}
+                for name in list(bk.KERNELS) + list(dk.KERNELS)}
     # the pose graph at the sphere2500 shape (bench.py's run_sphere)
     sphere = sphere_main_path()
 
@@ -1570,8 +1932,7 @@ def main(argv):
         # the factorization at lam 1e-4 of the converged state, where a 4th
         # iteration would try; then the S of lam = 1 (which factorizes in
         # both precisions) for the timings below
-        info_t = torch.empty((), dtype=torch.int32, device="cuda")
-        torch.linalg.cholesky_ex(d.S.mT, out=(d.S.mT, info_t))
+        info_t = dense_blocked.blocked_cholesky(d.S)[2]
         log(f"factorization ({dt}) at lam 1e-4, converged state: info "
             f"{int(info_t)}")
         ba.assemble(big.plan, d.A_cam, d.A_pt, d.b, 1.0, False, d.S)
@@ -1586,30 +1947,12 @@ def main(argv):
     # the factorization of one try, on the S that ba.assemble returned
     # (already equilibrated), in each precision; then the triangular-solve
     # pair of one preconditioner application on that factor
-    chol_ms, trsv_ms = {}, {}
     rhs = torch.randn(n, dtype=torch.float64, device="cuda",
                       generator=torch.Generator("cuda").manual_seed(1))
-    for dt, S0 in factors.items():
-        S = big.sys[dt].S
-        chol_ms[dt] = []
-        for _ in range(3):   # each factorization overwrites S: restore, time
-            S.copy_(S0)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            torch.linalg.cholesky_ex(S.mT, out=(S.mT, info_t))
-            b.record()
-            b.synchronize()
-            chol_ms[dt].append(a.elapsed_time(b))
-        if int(info_t) != 0:
-            raise AssertionError(f"the {dt} factorization failed")
-        r = rhs.to(dt)
-        trsv_ms[dt] = cuda_ms(lambda: ba._cho_solve(S.mT, r), reps=5)
-    del factors, S0, S
-    chol_bound = max(n ** 3 / 3 / FP64_TC_FLOPS,
-                     2 * n * n * 8 / HBM_BYTES_PER_S) * 1e3
-    chol32_bound = max(n ** 3 / 3 / FP32_FLOPS,
-                       2 * n * n * 4 / HBM_BYTES_PER_S) * 1e3
+    dense_rows, dense_summary = dense_times(
+        factors, {dt: big.sys[dt].S for dt in factors}, rhs, launches,
+        _build.BUILD_LOG)
+    del factors
     proj = big.proj
     del big
     plan_s = []   # the plan as ba_optimize builds it: host rows, device cells
@@ -1622,16 +1965,9 @@ def main(argv):
         plan_s.append(time.time() - t0)
     f64, f32 = torch.float64, torch.float32
     log(json.dumps({"library": {
-        "cholesky_ex": {"ms": chol_ms[f64], "n": n, "bound_ms": chol_bound,
-                        "calls": runs["float64"]["tries"]},
-        "cholesky_ex_f32": {"ms": chol_ms[f32], "n": n,
-                            "bound_ms": chol32_bound,
-                            "calls": runs["mixed"]["tries"]},
-        "solve_triangular_pair": {"ms": trsv_ms[f64],
-                                  "calls": runs["float64"]["tries"]},
-        "solve_triangular_pair_f32": {
-            "ms": trsv_ms[f32],
-            "calls": runs["mixed"]["tries"] * (ba.REFINE_IMPLICIT + 1)},
+        "dense": dense_summary,
+        "calls": {"factorizations": {m: r["tries"] for m, r in runs.items()},
+                  "solves_float64": runs["float64"]["tries"]},
         "S.zero_": {"ms": zero_ms, "bytes": n * n * 8}},
         "main_path": {m: {"wall_s": r["wall"], "plan_s": plan_s,
                           "iterations": r["info"]["iterations"],
@@ -1675,6 +2011,16 @@ def main(argv):
             "device_busy_ms": busy if rows else None,
             "idle_share": 1.0 - busy / traced_ms if rows else None,
             "by_kernel_ms": [[k[:80], ms, c] for k, ms, c in rows[:18]]}}))
+        # BA's dense solve runs on kernels 10 and 11 and cuBLAS's products:
+        # no cuSOLVER factorization, no triangular-solve kernel, no tril pass
+        library = [k for k, _, _ in rows if any(
+            w in k.lower() for w in ("potrf", "trsv", "trsm", "tril"))]
+        dense = {k[:60]: c for k, _, c in rows if "dense_" in k}
+        log(f"  {mode}: kernels 10 and 11 in the trace {dense}; library "
+            f"factorization or solve kernels {library}")
+        if library or len(dense) != 3:
+            raise AssertionError(f"the traced {mode} run's dense solve: "
+                                 f"{library}, {dense}")
         # the full-matrix passes around the factorization: elementwise mul
         # (the equilibration, fused into kernel 3 now), fill (S.zero_), the
         # float32 copy of the fallback phase, and tril
@@ -1685,15 +2031,23 @@ def main(argv):
     # the error wrapper alone, at the Ladybug shape: each call must be one
     # launch of its kernel and no other device work
     calls = 5
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            bk.error(*proj)
-        torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")
-            and e.self_device_time_total > 0]
+    for attempt in range(3):
+        # a profile that recorded no device work at all is taken again
+        # (this happened once in a run of this script after phase 5's
+        # profiles); what is recorded must be the kernel alone
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                bk.error(*proj)
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")
+                and e.self_device_time_total > 0]
+        if rows:
+            break
+        log(f"profile of the error calls recorded no device work (attempt "
+            f"{attempt + 1})")
     log(json.dumps({"profile_error_calls": {
         "calls": calls, "device_rows": [[k[:80], ms, c] for k, ms, c in rows],
         "device_ms_per_call": sum(r[1] for r in rows) / calls}}))
@@ -1704,7 +2058,7 @@ def main(argv):
 
     profile_sphere(sphere)
 
-    log(json.dumps({"kernels": kernels + pg_kernels}))
+    log(json.dumps({"kernels": kernels + dense_rows + pg_kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

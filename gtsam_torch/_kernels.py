@@ -19,6 +19,20 @@ INT = ctypes.c_int
 DBL = ctypes.c_double
 
 TABLES = []
+ROWS = "rows"      # check(): a matrix with a leading dimension of its own
+
+# Row stride, in elements, of the port's dense n x n buffers (BA's S): n
+# rounded up to it, so that every row starts on a 256-byte boundary (on an
+# H100, cuBLAS's rank-512 DGEMM into S ran at 36 TFLOP/s at BA's odd row
+# stride of 15,507 and 46 at 15,520: scripts/port_dense_probe.py).
+ROW_ALIGN = 32
+
+
+def row_strided(n, dtype, device):
+    """An uninitialized n x n matrix whose rows are ROW_ALIGN-aligned: the
+    first n columns of an (n, ld) buffer."""
+    ld = -(-n // ROW_ALIGN) * ROW_ALIGN
+    return torch.empty((n, ld), dtype=dtype, device=device)[:, :n]
 
 
 class Kernel:
@@ -79,18 +93,25 @@ def on_cpu(*tensors) -> bool:
 
 
 def check(name, *specs):
-    """specs: (arg name, tensor, dtype, shape).  Returns the common CUDA
-    device; raises on anything the kernel does not take."""
-    for arg, t, dtype, shape in specs:
+    """specs: (arg name, tensor, dtype, shape), or with a fifth entry
+    ROWS for a matrix whose rows may lie apart (a view of the first columns
+    of a wider buffer: unit column stride, row stride at least the width,
+    read by the kernel with its own leading dimension).  Returns the common
+    CUDA device; raises on anything the kernel does not take."""
+    for arg, t, dtype, shape, *rows in specs:
         if t.dtype != dtype:
             raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {arg} must have shape {tuple(shape)}, "
                              f"got {tuple(t.shape)}")
-        if not t.is_contiguous():
+        if rows and not (t.dim() == 2 and t.stride(1) == 1
+                         and t.stride(0) >= t.shape[1]):
+            raise ValueError(f"{name}: {arg} must be contiguous along its "
+                             "rows")
+        if not rows and not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
     dev = specs[0][1].device
-    for arg, t, _, _ in specs:
+    for arg, t, *_ in specs:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: every tensor must lie on one CUDA "
                              f"device; {arg} is on {t.device}")

@@ -1,5 +1,6 @@
 // Kernel 3: assembly of the Jacobi-equilibrated reduced camera matrix S
-// (9M x 9M, camera-major: row 9*c + i) and the reduced camera gradient.
+// (9M x 9M, camera-major: row 9*c + i, rows ld entries apart) and the
+// reduced camera gradient.
 //
 // Replaces: gtsam_tpu/sfm/ba.py::schur_solve camera reduce (:1103-1108,
 // :1134), pair products and cell reduce (:1142-1213), _assemble_S_planes
@@ -92,8 +93,9 @@ __device__ __forceinline__ double group_sum(const double (*red)[kRed], int e) {
 
 template <typename TA, typename TS>
 __global__ void __launch_bounds__(kThreads) ba_camera_assemble_kernel(
-    int M, const int* __restrict__ cam_ptr, const int* __restrict__ cam_obs,
-    const TA* __restrict__ A_cam, const double* __restrict__ b,
+    int M, int ld, const int* __restrict__ cam_ptr,
+    const int* __restrict__ cam_obs, const TA* __restrict__ A_cam,
+    const double* __restrict__ b,
     const double* __restrict__ corr, const int* __restrict__ cell_ptr,
     const int* __restrict__ diag_cell, const int* __restrict__ cell_a,
     const int* __restrict__ cell_b, const double* __restrict__ WC,
@@ -168,14 +170,15 @@ __global__ void __launch_bounds__(kThreads) ba_camera_assemble_kernel(
   }
   __syncthreads();
   if (t < 81) {
-    const int64_t n = 9 * (int64_t)M;
-    S[(9 * (int64_t)c + i) * n + 9 * (int64_t)c + l] = (TS)(v * s_s[i] * s_s[l]);
+    S[(9 * (int64_t)c + i) * ld + 9 * (int64_t)c + l] =
+        (TS)(v * s_s[i] * s_s[l]);
   }
 }
 
 template <typename TS>
 __global__ void __launch_bounds__(kThreads) ba_pair_assemble_kernel(
-    int M, const int* __restrict__ cell_ptr, const int* __restrict__ cell_ca,
+    int M, int ld, const int* __restrict__ cell_ptr,
+    const int* __restrict__ cell_ca,
     const int* __restrict__ cell_cb, const int* __restrict__ cell_a,
     const int* __restrict__ cell_b, const double* __restrict__ WC,
     const double* __restrict__ W, const double* __restrict__ s,
@@ -195,15 +198,15 @@ __global__ void __launch_bounds__(kThreads) ba_pair_assemble_kernel(
   __syncthreads();
   if (t < 81) {
     const int i = t / 9, l = t % 9;
-    const int64_t n = 9 * (int64_t)M;
     const double v = -group_sum(red, t);
-    S[(9 * (int64_t)ca + i) * n + 9 * (int64_t)cb + l] =
+    S[(9 * (int64_t)ca + i) * ld + 9 * (int64_t)cb + l] =
         (TS)(v * s[9 * (int64_t)ca + i] * s[9 * (int64_t)cb + l]);
   }
 }
 
 template <typename TA, typename TS>
-int launch_camera_assemble(int M, const int* cam_ptr, const int* cam_obs,
+int launch_camera_assemble(int M, int ld, const int* cam_ptr,
+                           const int* cam_obs,
                            const TA* A_cam, const double* b, const double* corr,
                            const int* cell_ptr, const int* diag_cell,
                            const int* cell_a, const int* cell_b,
@@ -213,21 +216,21 @@ int launch_camera_assemble(int M, const int* cam_ptr, const int* cam_obs,
   if (M > 0) {
     ba_camera_assemble_kernel<TA, TS>
         <<<M, kThreads, 0, (cudaStream_t)stream>>>(
-            M, cam_ptr, cam_obs, A_cam, b, corr, cell_ptr, diag_cell, cell_a,
-            cell_b, WC, W, lam, diagonal_damping, S, s, g, Hpp_d);
+            M, ld, cam_ptr, cam_obs, A_cam, b, corr, cell_ptr, diag_cell,
+            cell_a, cell_b, WC, W, lam, diagonal_damping, S, s, g, Hpp_d);
   }
   return (int)cudaGetLastError();
 }
 
 template <typename TS>
-int launch_pair_assemble(int U, int M, const int* cell_ptr,
+int launch_pair_assemble(int U, int M, int ld, const int* cell_ptr,
                          const int* cell_ca, const int* cell_cb,
                          const int* cell_a, const int* cell_b,
                          const double* WC, const double* W, const double* s,
                          TS* S, void* stream) {
   if (U > 0) {
     ba_pair_assemble_kernel<TS><<<U, kThreads, 0, (cudaStream_t)stream>>>(
-        M, cell_ptr, cell_ca, cell_cb, cell_a, cell_b, WC, W, s, S);
+        M, ld, cell_ptr, cell_ca, cell_cb, cell_a, cell_b, WC, W, s, S);
   }
   return (int)cudaGetLastError();
 }
@@ -235,12 +238,13 @@ int launch_pair_assemble(int U, int M, const int* cell_ptr,
 }  // namespace
 
 GT_EXPORT int gt_ba_camera_assemble(
-    int M, const int* cam_ptr, const int* cam_obs, const double* A_cam,
+    int M, int ld, const int* cam_ptr, const int* cam_obs, const double* A_cam,
     const double* b, const double* corr, const int* cell_ptr,
     const int* diag_cell, const int* cell_a, const int* cell_b,
     const double* WC, const double* W, double lam, int diagonal_damping,
     double* S, double* s, double* g, void* stream) {
-  return launch_camera_assemble(M, cam_ptr, cam_obs, A_cam, b, corr, cell_ptr,
+  return launch_camera_assemble(M, ld, cam_ptr, cam_obs, A_cam, b, corr,
+                                cell_ptr,
                                 diag_cell, cell_a, cell_b, WC, W, lam,
                                 diagonal_damping, S, s, g, (double*)nullptr,
                                 stream);
@@ -249,32 +253,36 @@ GT_EXPORT int gt_ba_camera_assemble(
 // The mixed-precision variant: A_cam float, S stored float, and the damped
 // Hpp blocks (M x 81 doubles) written to Hpp_d.
 GT_EXPORT int gt_ba_camera_assemble_f32(
-    int M, const int* cam_ptr, const int* cam_obs, const float* A_cam,
+    int M, int ld, const int* cam_ptr, const int* cam_obs, const float* A_cam,
     const double* b, const double* corr, const int* cell_ptr,
     const int* diag_cell, const int* cell_a, const int* cell_b,
     const double* WC, const double* W, double lam, int diagonal_damping,
     float* S, double* s, double* g, double* Hpp_d, void* stream) {
-  return launch_camera_assemble(M, cam_ptr, cam_obs, A_cam, b, corr, cell_ptr,
+  return launch_camera_assemble(M, ld, cam_ptr, cam_obs, A_cam, b, corr,
+                                cell_ptr,
                                 diag_cell, cell_a, cell_b, WC, W, lam,
                                 diagonal_damping, S, s, g, Hpp_d, stream);
 }
 
-GT_EXPORT int gt_ba_pair_assemble(int U, int M, const int* cell_ptr,
+GT_EXPORT int gt_ba_pair_assemble(int U, int M, int ld, const int* cell_ptr,
                                   const int* cell_ca, const int* cell_cb,
                                   const int* cell_a, const int* cell_b,
                                   const double* WC, const double* W,
                                   const double* s, double* S, void* stream) {
-  return launch_pair_assemble(U, M, cell_ptr, cell_ca, cell_cb, cell_a, cell_b,
+  return launch_pair_assemble(U, M, ld, cell_ptr, cell_ca, cell_cb, cell_a,
+                              cell_b,
                               WC, W, s, S, stream);
 }
 
 // The mixed-precision variant: S stored float.
-GT_EXPORT int gt_ba_pair_assemble_f32(int U, int M, const int* cell_ptr,
+GT_EXPORT int gt_ba_pair_assemble_f32(int U, int M, int ld,
+                                      const int* cell_ptr,
                                       const int* cell_ca, const int* cell_cb,
                                       const int* cell_a, const int* cell_b,
                                       const double* WC, const double* W,
                                       const double* s, float* S,
                                       void* stream) {
-  return launch_pair_assemble(U, M, cell_ptr, cell_ca, cell_cb, cell_a, cell_b,
+  return launch_pair_assemble(U, M, ld, cell_ptr, cell_ca, cell_cb, cell_a,
+                              cell_b,
                               WC, W, s, S, stream);
 }

@@ -18,7 +18,8 @@ Two precisions, as in the JAX package:
 
 On CUDA tensors the per-observation and per-point work runs in the
 hand-written kernels of gtsam_torch/csrc (see ba_kernels.py); the dense
-factorization goes to cuSOLVER through torch.linalg.
+factorization and solve are linear/dense_blocked.py's (kernels 10 and 11,
+and cuBLAS's trailing products).
 """
 
 import dataclasses
@@ -29,9 +30,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .._kernels import row_strided
 from ..config import default_dtype, resolve_device, working_dtype
 from ..geometry.cameras import BalCamera, bal_retract
 from ..geometry.se3 import SE3
+from ..linear import dense_blocked
 from ..optimize.optimizers import LMParams, check_convergence
 from . import ba_kernels
 from .bal import BalProblem
@@ -203,7 +206,8 @@ class Reduced(NamedTuple):
 def assemble(plan: BAStructure, A_cam, A_pt, b, lam, diagonal_damping,
              S) -> Reduced:
     """Eliminate the landmarks and assemble the damped reduced camera system
-    into S (9M x 9M, camera-major, overwritten), already Jacobi-equilibrated:
+    into S (9M x 9M, camera-major, overwritten; its rows may lie further
+    apart, as _kernels.row_strided makes them), already Jacobi-equilibrated:
     S holds D^-1/2 S_red D^-1/2 with s = D^-1/2 = rsqrt(clamp(diag(S_red),
     1e-12)), the scaling of gtsam_tpu/sfm/ba.py _dense_spd_solve (:468-470).
     A_cam, A_pt and S are float64, or float32 (the mixed-precision mode:
@@ -240,19 +244,17 @@ REFINE_DENSE = 2
 
 
 def _cholesky_in_place(S):
-    """L with S = L L^T, factorized into S's own memory; None when the
-    factorization fails.  S is symmetric, so its transpose view is the same
-    matrix in the column-major layout LAPACK/cuSOLVER use; factorizing into
-    that view leaves L in S's memory."""
-    L = S.mT
-    info = torch.empty((), dtype=torch.int32, device=S.device)
-    torch.linalg.cholesky_ex(L, out=(L, info))
-    return L if int(info) == 0 else None
+    """The blocked Cholesky factor (L, Dinv) of S, computed in S's own
+    memory (linear/dense_blocked.py: kernel 10 and cuBLAS products on the
+    card); None when the factorization fails.  The failure flag is read
+    once per factorization."""
+    L, Dinv, info = dense_blocked.blocked_cholesky(S)
+    return (L, Dinv) if int(info) == 0 else None
 
 
-def _cho_solve(L, r):
-    y = torch.linalg.solve_triangular(L, r[:, None], upper=False)
-    return torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
+def _cho_solve(factor, r):
+    """S^-1 r from _cholesky_in_place's factor (kernel 11 on the card)."""
+    return dense_blocked.blocked_cho_solve(*factor, r)
 
 
 def _dense_spd_solve(S, rhs, s, mixed_precision=False, matvec=None,
@@ -337,10 +339,10 @@ def schur_solve(plan: BAStructure, A_cam, A_pt, b, lam,
     """
     M, n = plan.num_cameras, 9 * plan.num_cameras
     dev = A_cam.device
-    S = torch.empty((n, n), dtype=A_cam.dtype, device=dev)
+    S = row_strided(n, A_cam.dtype, dev)
     S32 = None
     if mixed_precision and A_cam.dtype == torch.float64:
-        S32 = torch.empty((n, n), dtype=torch.float32, device=dev)
+        S32 = row_strided(n, torch.float32, dev)
     step = _schur_step(plan, A_cam, A_pt, b, lam, diagonal_damping, S,
                        mixed_precision, S32)
     if step is None:
@@ -393,7 +395,7 @@ def ba_optimize(prob: BalProblem, params: Optional[LMParams] = None,
 
     def buffer(dtype):
         if dtype not in buffers:
-            buffers[dtype] = torch.empty((n, n), dtype=dtype, device=dev)
+            buffers[dtype] = row_strided(n, dtype, dev)
         return buffers[dtype]
 
     pdt = dt

@@ -1,9 +1,11 @@
 """Wrappers of the hand-written CUDA kernels of Schur bundle adjustment.
 
 Each wrapper takes tensors in the layout of gtsam_torch/sfm/ba.py (float64,
-int32 indices, row-major and contiguous; in the mixed-precision mode the
-Jacobians A_cam, A_pt and the reduced camera matrix S are float32, and the
-wrapper launches the float32 variant of its kernel) and
+int32 indices, row-major and contiguous, but for S, whose rows may lie
+further apart than its width (_kernels.row_strided); in the
+mixed-precision mode the Jacobians A_cam, A_pt and the reduced camera
+matrix S are float32, and the wrapper launches the float32 variant of its
+kernel) and
   - on CPU tensors computes its plain PyTorch version (`*_plain`), which the
     CPU tests compare against the JAX package;
   - on CUDA tensors checks dtype, shape, contiguity and device, launches its
@@ -18,6 +20,7 @@ import torch
 
 from .. import _kernels
 from .._kernels import DBL as _DBL, INT as _INT, P as _P, Kernel
+from .._kernels import ROWS as _ROWS
 from .._kernels import check as _check, on_cpu as _on_cpu, ptr as _ptr
 from .._kernels import segment_owner as _segment_owner
 from .._kernels import stream as _stream
@@ -47,14 +50,14 @@ KERNELS = _kernels.table(
            [_INT, _P, _P, _P, _P, _P, _DBL, _INT, _P, _P, _P, _P, _P]),
     Kernel("ba_camera_assemble", "ba_schur_assemble", "camera_assemble",
            "gtsam_tpu/sfm/ba.py:1103",
-           [_INT] + [_P] * 11 + [_DBL, _INT, _P, _P, _P]),
+           [_INT, _INT] + [_P] * 11 + [_DBL, _INT, _P, _P, _P]),
     Kernel("ba_camera_assemble_f32", "ba_schur_assemble", "camera_assemble",
            "gtsam_tpu/sfm/ba.py:846",
-           [_INT] + [_P] * 11 + [_DBL, _INT, _P, _P, _P, _P]),
+           [_INT, _INT] + [_P] * 11 + [_DBL, _INT, _P, _P, _P, _P]),
     Kernel("ba_pair_assemble", "ba_schur_assemble", "pair_assemble",
-           "gtsam_tpu/sfm/ba.py:1142", [_INT, _INT] + [_P] * 9),
+           "gtsam_tpu/sfm/ba.py:1142", [_INT, _INT, _INT] + [_P] * 9),
     Kernel("ba_pair_assemble_f32", "ba_schur_assemble", "pair_assemble",
-           "gtsam_tpu/sfm/ba.py:954", [_INT, _INT] + [_P] * 9),
+           "gtsam_tpu/sfm/ba.py:954", [_INT, _INT, _INT] + [_P] * 9),
     Kernel("ba_back_substitute", "ba_back_substitute", "back_substitute",
            "gtsam_tpu/sfm/ba.py:1264", [_INT] + [_P] * 8),
     Kernel("ba_schur_matvec", "ba_schur_matvec", "schur_matvec",
@@ -72,6 +75,11 @@ def _variant(name, arg, dtype):
         raise TypeError(f"{name}: {arg} must be torch.float64 or "
                         f"torch.float32, got {dtype}")
     return name + _SUFFIX[dtype]
+
+
+def _cells(S, M):
+    """S (9M x 9M, rows possibly apart) as its (M, 9, M, 9) cells, a view."""
+    return S.unflatten(0, (M, 9)).unflatten(2, (M, 9))
 
 
 def _check_aligned(name, arg, t):
@@ -314,7 +322,7 @@ def camera_assemble_plain(cam_ptr, cam_obs, A_cam, b, corr, cell_ptr,
     s = Hpp.diagonal(dim1=1, dim2=2).clamp(min=1e-12).rsqrt()        # (M, 9)
     ar = torch.arange(M, device=S.device)
     # float64 products, rounded once into a float32 S
-    S.view(M, 9, M, 9)[ar, :, ar, :] = (
+    _cells(S, M)[ar, :, ar, :] = (
         Hpp * s[:, :, None] * s[:, None, :]).to(S.dtype)
     if Hpp_d is None:
         return gp - cr, s.reshape(-1)
@@ -345,7 +353,7 @@ def camera_assemble(cam_ptr, cam_obs, A_cam, b, corr, cell_ptr, diag_cell,
                  ("diag_cell", diag_cell, I32, (M,)),
                  ("cell_a", cell_a, I32, (P,)), ("cell_b", cell_b, I32, (P,)),
                  ("WC", WC, F64, (K, 9, 3)), ("W", W, F64, (K, 9, 3)),
-                 ("S", S, A_cam.dtype, (9 * M, 9 * M)))
+                 ("S", S, A_cam.dtype, (9 * M, 9 * M), _ROWS))
     g = torch.empty((M, 9), dtype=F64, device=dev)
     s = torch.empty((9 * M,), dtype=F64, device=dev)
     out = [_ptr(S), _ptr(s), _ptr(g)]
@@ -353,7 +361,7 @@ def camera_assemble(cam_ptr, cam_obs, A_cam, b, corr, cell_ptr, diag_cell,
     if A_cam.dtype == F32:
         Hpp_d = torch.empty((M, 9, 9), dtype=F64, device=dev)
         out.append(_ptr(Hpp_d))
-    KERNELS[name].launch(dev, M, *map(_ptr, args), float(lam),
+    KERNELS[name].launch(dev, M, S.stride(0), *map(_ptr, args), float(lam),
                          int(bool(diagonal_damping)), *out)
     return (g, s) if Hpp_d is None else (g, s, Hpp_d)
 
@@ -365,8 +373,8 @@ def pair_assemble_plain(cell_ptr, cell_ca, cell_cb, cell_a, cell_b, WC, W, s,
     ca, cb = cell_ca[off].long(), cell_cb[off].long()
     M = S.shape[0] // 9
     s9 = s.view(M, 9)
-    S.view(M, 9, M, 9)[ca, :, cb, :] = (-blocks * s9[ca][:, :, None]
-                                        * s9[cb][:, None, :]).to(S.dtype)
+    _cells(S, M)[ca, :, cb, :] = (-blocks * s9[ca][:, :, None]
+                                  * s9[cb][:, None, :]).to(S.dtype)
 
 
 def pair_assemble(cell_ptr, cell_ca, cell_cb, cell_a, cell_b, WC, W, s, S):
@@ -385,8 +393,9 @@ def pair_assemble(cell_ptr, cell_ca, cell_cb, cell_a, cell_b, WC, W, s, S):
                  ("cell_cb", cell_cb, I32, (U,)),
                  ("cell_a", cell_a, I32, (P,)), ("cell_b", cell_b, I32, (P,)),
                  ("WC", WC, F64, (K, 9, 3)), ("W", W, F64, (K, 9, 3)),
-                 ("s", s, F64, (9 * M,)), ("S", S, S.dtype, (9 * M, 9 * M)))
-    KERNELS[name].launch(dev, U, M, *map(_ptr, args))
+                 ("s", s, F64, (9 * M,)),
+                 ("S", S, S.dtype, (9 * M, 9 * M), _ROWS))
+    KERNELS[name].launch(dev, U, M, S.stride(0), *map(_ptr, args))
 
 
 # -- kernels 4 and 5: the point pass, back-substitution and Schur matvec -------

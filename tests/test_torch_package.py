@@ -19,7 +19,7 @@ from gtsam_torch.geometry.se3 import SE3
 from gtsam_torch.graph import factors as tfactors
 from gtsam_torch.graph.graph import BoundGraph, FactorGraph
 from gtsam_torch.graph.values import Values
-from gtsam_torch.linear import supernodal_kernels
+from gtsam_torch.linear import dense_blocked, dense_kernels, supernodal_kernels
 from gtsam_torch.linear.supernodal import SupernodalCholeskySolver
 from gtsam_torch.optimize import optimizers
 from gtsam_torch.sfm import ba, ba_kernels, synthetic
@@ -110,7 +110,7 @@ def test_cpu_path_counts_no_launch():
     assert set(_kernels.launch_counts()) == (
         base | {k + "_f32" for k in base}
         | {"bal_error", "ba_back_substitute", "ba_schur_matvec"}
-        | set(supernodal_kernels.KERNELS))
+        | set(supernodal_kernels.KERNELS) | set(dense_kernels.KERNELS))
     assert len(supernodal_kernels.KERNELS) == 10
     assert all(n == 0 for n in _kernels.launch_counts().values())
 
@@ -151,7 +151,24 @@ def _meta_args(name, K=10, M=3, N=4, P=20, U=5):
                             f(N, 3, 3), f(N, 3)),
         "schur_matvec": (i(N + 1), i(2), i(K), i(K), i(M + 1), i(K),
                          f(K, 9, 3), f(K, 9, 3), f(M, 9, 9), f(M, 9)),
-    }.get(name) or _meta_args_pg(name)
+    }.get(name) or _meta_args_dense(name) or _meta_args_pg(name)
+
+
+def _meta_args_dense(name, n=130):
+    """Well-formed arguments of each dense wrapper case on the meta device
+    (float32 tensors for the "_f32" cases), or None for another name."""
+    if name.removesuffix("_f32") not in DENSE_WRAPPERS:
+        return None
+    dt = torch.float32 if name.endswith("_f32") else torch.float64
+
+    def f(*shape):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    P = dense_kernels.panels(n)
+    info = torch.empty((), dtype=torch.int32, device="meta")
+    if name.startswith("factor_diag"):
+        return (f(n, n), f(P, 128, 128), info, 1)
+    return (f(n, n), f(P, 128, 128), f(n), f(n))
 
 
 def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
@@ -199,13 +216,19 @@ def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
 WRAPPERS = ["linearize", "error", "point_eliminate", "camera_assemble",
             "pair_assemble", "back_substitute", "linearize_f32",
             "point_eliminate_f32", "camera_assemble_f32", "pair_assemble_f32",
-            "schur_matvec"] + sorted(supernodal_kernels.KERNELS)
+            "schur_matvec"] + sorted(supernodal_kernels.KERNELS) + [
+                "factor_diag", "factor_diag_f32", "solve_forward",
+                "solve_forward_f32", "solve_backward", "solve_backward_f32"]
 TABLES = {ba_kernels: ba_kernels.KERNELS,
-          supernodal_kernels: supernodal_kernels.KERNELS}
+          supernodal_kernels: supernodal_kernels.KERNELS,
+          dense_kernels: dense_kernels.KERNELS}
+DENSE_WRAPPERS = ("factor_diag", "solve_forward", "solve_backward")
 
 
 def _module(name):
     """The kernel table's module whose wrapper a case of WRAPPERS names."""
+    if name.removesuffix("_f32") in DENSE_WRAPPERS:
+        return dense_kernels
     return supernodal_kernels if name in supernodal_kernels.KERNELS \
         else ba_kernels
 
@@ -320,7 +343,24 @@ def _cpu_args(name):
                             C, gl),
         "schur_matvec": (plan.pt_ptr, plan.pt_tile, plan.obs_cam, plan.obs_pt,
                          plan.cam_ptr, plan.cam_obs, W, WC, *Hpp_d, dc),
-    }.get(name) or _cpu_args_pg(name)
+    }.get(name) or _cpu_args_dense(name) or _cpu_args_pg(name)
+
+
+def _cpu_args_dense(name, n=150):
+    """Arguments of each dense wrapper case from a seeded SPD matrix and
+    its blocked factor, on the CPU, or None for another name."""
+    if name.removesuffix("_f32") not in DENSE_WRAPPERS:
+        return None
+    dt = torch.float32 if name.endswith("_f32") else torch.float64
+    rng = np.random.default_rng(5)
+    A = rng.normal(size=(n, n))
+    S = torch.tensor(A @ A.T / n + np.eye(n), dtype=dt)
+    b = torch.tensor(rng.normal(size=n), dtype=dt)
+    if name.startswith("factor_diag"):
+        return (S, torch.zeros((2, 128, 128), dtype=dt),
+                torch.zeros((), dtype=torch.int32), 1)
+    L, Dinv, _ = dense_blocked.blocked_cholesky(S)
+    return (L, Dinv, b, torch.zeros_like(b))
 
 
 def _small_pose_graph(laps=3, per_lap=4, seed=0):
