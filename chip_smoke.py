@@ -20,6 +20,12 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      their float32 variants against their plain versions at n = 900, 909
      (a partial last panel) and 2100, the whole blocked factorization and solve
      on the card against the CPU, and the failure flag of an indefinite S;
+     then at their edges (check_dense_edges): a last panel ending inside
+     each of kernel 10's 4 tile rows and n = 129, a block of condition
+     ~1e8, a failing pivot in tile 0 and in tile 3 (info equal to the plain
+     version's), kernel 11 at a panel count that is not a multiple of its
+     grid; each kernel twice on the same inputs for the same bits, and the
+     identity past the last panel's width in Dinv;
      and small ba_optimize runs, float64 and
      mixed, on the card against the same runs on the CPU; then the
      pose-graph kernels 6-9 (gtsam_torch.linear.supernodal_kernels.KERNELS)
@@ -56,7 +62,10 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      factor, |L L^T - S| / |S|, the blocked factorization and the solves by
      events and device time beside their bounds and library yardsticks
      (cholesky_ex and the solve_triangular pair, timed here and used
-     nowhere in the port), the first trailing update's products at rank
+     nowhere in the port; for kernel 10, which no one call matches,
+     cholesky_ex + solve_triangular on one 128 x 128 block, labelled as
+     two calls, and its bound at one SM's share of the card beside the
+     card's), the first trailing update's products at rank
      128 and 256, and kernels 10 and 11's ptxas lines; the same for kernels
      6-9 on the sphere's converged state,
      with the library call of each one that has one (kernel 8's solves:
@@ -469,13 +478,16 @@ def max_rel(got, ref):
 def dense_pairs(S0, L, Dinv, b):
     """{kernel: (rel, abs)} of kernel 10 on every panel's diagonal block of
     S0 and kernel 11 on (L, Dinv, b), each against its plain version on the
-    same CUDA tensors, the outputs NaN-filled before each call."""
+    same CUDA tensors, the outputs NaN-filled before each call.  Each kernel
+    runs twice and must give the same bits; kernel 10's info must equal the
+    plain version's, and its last Dinv must hold the identity past the last
+    panel's width w exactly (zeros beside it)."""
     import torch
     from gtsam_torch.linear import dense_kernels as dk
     n, dt = S0.shape[0], S0.dtype
     P = dk.panels(n)
     out, res = {}, []
-    for f in (dk.factor_diag, dk.factor_diag_plain):
+    for f in (dk.factor_diag, dk.factor_diag, dk.factor_diag_plain):
         S = S0.clone()
         D = torch.full((P, dk.PANEL, dk.PANEL), float("nan"), dtype=dt,
                        device="cuda")
@@ -484,46 +496,128 @@ def dense_pairs(S0, L, Dinv, b):
             f(S, D, info, k)
         res.append((S, D, info))
     torch.cuda.synchronize()
-    if int(res[0][2]) != int(res[1][2]):
+    if not all(torch.equal(a, b) for a, b in zip(res[0], res[1])):
+        raise AssertionError("dense_factor_diag: two calls differ")
+    if int(res[0][2]) != int(res[2][2]):
         raise AssertionError(f"dense_factor_diag: info {int(res[0][2])} != "
-                             f"plain {int(res[1][2])}")
-    out["dense_factor_diag"] = max_rel(res[0][:2], res[1][:2])
+                             f"plain {int(res[2][2])}")
+    w = n - (P - 1) * dk.PANEL
+    eye = torch.eye(dk.PANEL, dtype=dt, device="cuda")
+    last = res[0][1][P - 1]
+    if not (torch.equal(last[w:], eye[w:]) and torch.equal(last[:, w:],
+                                                            eye[:, w:])):
+        raise AssertionError(f"dense_factor_diag: Dinv[{P - 1}] is not the "
+                             f"identity past w = {w}")
+    out["dense_factor_diag"] = max_rel(res[0][:2], res[2][:2])
+    factors = (res[0][:2], res[2][:2])
     del res
     y = [f(L, Dinv, b, torch.full_like(b, float("nan")))
-         for f in (dk.solve_forward, dk.solve_forward_plain)]
-    out["dense_forward"] = max_rel(y[:1], y[1:])
-    x = [f(L, Dinv, y[1], torch.full_like(b, float("nan")))
-         for f in (dk.solve_backward, dk.solve_backward_plain)]
-    out["dense_backward"] = max_rel(x[:1], x[1:])
+         for f in (dk.solve_forward, dk.solve_forward,
+                   dk.solve_forward_plain)]
+    out["dense_forward"] = max_rel(y[:1], y[2:])
+    x = [f(L, Dinv, y[2], torch.full_like(b, float("nan")))
+         for f in (dk.solve_backward, dk.solve_backward,
+                   dk.solve_backward_plain)]
+    out["dense_backward"] = max_rel(x[:1], x[2:])
     torch.cuda.synchronize()
+    if not (torch.equal(y[0], y[1]) and torch.equal(x[0], x[1])):
+        raise AssertionError("dense_forward / dense_backward: two calls "
+                             "differ")
     suffix = "" if dt == torch.float64 else "_f32"
-    return {k + suffix: v for k, v in out.items()}
+    return {k + suffix: v for k, v in out.items()}, factors
 
 
-def check_dense(S0, label, b):
+def factor_residuals(S0, S, D):
+    """Kernel 10's backward errors on every panel's block D0 of S0, from its
+    outputs S (L_D in the lower triangle) and D (Dinv): (max over panels of
+    max |L_D L_D^T - D0| / max |D0|, max over panels of max |Dinv L_D - I|),
+    in float64."""
+    import torch
+    from gtsam_torch.linear import dense_kernels as dk
+    n = S0.shape[0]
+    res_l = res_x = 0.0
+    for k in range(dk.panels(n)):
+        o = k * dk.PANEL
+        w = min(dk.PANEL, n - o)
+        D0 = S0[o:o + w, o:o + w].double().tril()
+        D0 = D0 + D0.tril(-1).mT
+        Lk = S[o:o + w, o:o + w].double().tril()
+        Xk = D[k, :w, :w].double()
+        eye = torch.eye(w, dtype=torch.float64, device=S.device)
+        res_l = max(res_l, float((Lk @ Lk.mT - D0).abs().max()
+                                 / D0.abs().max()))
+        res_x = max(res_x, float((Xk @ Lk - eye).abs().max()))
+    return res_l, res_x
+
+
+def check_dense(S0, label, b, ill=False):
     """Kernels 10 and 11 against their plain versions on S0 (CUDA) and the
-    port's factor of it; raises on a miss of DENSE_TOL.  Returns ({kernel:
-    max abs err}, (L, Dinv))."""
+    port's factor of it; raises on a miss of DENSE_TOL.  With `ill` (a block
+    whose condition number puts two correct factorizations further apart
+    than DENSE_TOL) kernel 10 is held instead by its backward errors
+    (factor_residuals), each within DENSE_TOL, and its distance from the
+    plain version is logged.  Returns ({kernel: max abs err}, (L, Dinv))."""
+    import torch
     from gtsam_torch import _kernels
     from gtsam_torch.linear import dense_blocked as db
     dt = S0.dtype
     tol = DENSE_TOL[dtype_name(dt)]
     # the factor in BA's layout (rows 256-byte aligned): kernel 11 is held
-    # at a row stride other than n, kernel 10 (in dense_pairs) at n
+    # at a row stride other than n (and at n below), kernel 10 (in
+    # dense_pairs) at n
     L, Dinv, info = db.blocked_cholesky(
         _kernels.row_strided(S0.shape[0], dt, "cuda").copy_(S0))
     if int(info) != 0:
         raise AssertionError(f"blocked_cholesky ({label}, {dt}) failed at "
                              f"column {int(info) - 1}")
     errs = {}
-    for name, (rel, ab) in dense_pairs(S0, L, Dinv, b.to(dt)).items():
+    pairs, factors = dense_pairs(S0, L, Dinv, b.to(dt))
+    for name, (rel, ab) in pairs.items():
         errs[name] = ab
         log(f"check {label} {name}: max rel err {rel:.3e} (tol {tol:.0e}), "
             f"max abs err {ab:.3e}")
-        if not rel <= tol:
+        if ill and name.startswith("dense_factor_diag"):
+            res = [factor_residuals(S0, *f) for f in factors]
+            log(f"check {label} {name}: backward errors |L L^T - D| / |D|, "
+                f"|Dinv L - I|: kernel {res[0][0]:.3e}, {res[0][1]:.3e}; "
+                f"plain {res[1][0]:.3e}, {res[1][1]:.3e} (tol {tol:.0e})")
+            if not max(res[0]) <= tol:
+                raise AssertionError(f"{name} ({label}): backward errors "
+                                     f"{res[0]} > {tol:.0e}")
+        elif not rel <= tol:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"({label}): {rel:.3e} > {tol:.0e}")
+    # kernel 11 on the same factor at row stride n (odd rows for odd n)
+    from gtsam_torch.linear import dense_kernels as dk
+    Lc, bt = L.contiguous(), b.to(dt)
+    y = dk.solve_forward(Lc, Dinv, bt, torch.empty_like(bt))
+    x = dk.solve_backward(Lc, Dinv, y, torch.empty_like(bt))
+    ref_y = dk.solve_forward_plain(L, Dinv, bt, torch.empty_like(bt))
+    ref_x = dk.solve_backward_plain(L, Dinv, y, torch.empty_like(bt))
+    rel = max(max_rel([y], [ref_y])[0], max_rel([x], [ref_x])[0])
+    log(f"check {label} kernel 11 at row stride {Lc.stride(0)}: max rel err "
+        f"{rel:.3e} (tol {tol:.0e})")
+    if not rel <= tol:
+        raise AssertionError(f"kernel 11 at row stride {Lc.stride(0)} "
+                             f"({label}): {rel:.3e} > {tol:.0e}")
+    del Lc
     return errs, (L, Dinv)
+
+
+def spd_with_condition(n, cond, seed):
+    """A seeded SPD matrix whose leading 128 x 128 block is
+    Q diag(logspace(0, -log10 cond)) Q^T, scaled to a unit diagonal
+    (condition of the order of `cond`), beside spd_matrix(n - 128) with no
+    coupling between the two."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.normal(size=(128, 128)))
+    B = (Q * np.logspace(0, -np.log10(cond), 128)) @ Q.T
+    d = 1.0 / np.sqrt(np.diag(B))
+    S = np.zeros((n, n))
+    S[:128, :128] = d[:, None] * B * d[None, :]
+    S[128:, 128:] = spd_matrix(n - 128, seed)
+    return S
 
 
 def check_dense_small():
@@ -531,7 +625,7 @@ def check_dense_small():
     and 2100 (three super-panels, the look-ahead's side stream), float64
     and float32; the whole factorization and solve on the card against the
     same on the CPU; the failure flag of an indefinite S, on the card and
-    on the CPU."""
+    on the CPU; then check_dense_edges."""
     import numpy as np
     import torch
     from gtsam_torch.linear import dense_blocked as db
@@ -565,6 +659,78 @@ def check_dense_small():
             "(want column 300 + 1)")
         if infos != [301, 301]:
             raise AssertionError(f"dense failure flag ({dt}): {infos}")
+    check_dense_edges()
+
+
+def check_dense_edges():
+    """Phase 3: kernels 10 and 11 where their code paths can break, each
+    against its plain version at DENSE_TOL (dense_pairs: two calls give the
+    same bits, the identity past w):
+      - a last panel that ends inside each of the 4 tile rows of kernel
+        10's block (w = 19, 45, 77, 109) and n = 129 (w = 1);
+      - blocks of condition ~1e6 and ~1e8 in float64, and ~1e4 in float32
+        (whose rounding makes any two factorizations of a 1e8 block differ
+        by O(1)).  Two backward-stable factorizations of a block of
+        condition c differ by up to ~c eps in L and more in its inverse:
+        at ~1e8 kernel 10 is ~4e-10 from cuSOLVER's on an H100, past
+        DENSE_TOL, so there it is held to DENSE_TOL by its backward errors
+        |L L^T - D| / |D| and |Dinv L - I| instead (factor_residuals);
+      - a failing pivot in tile 0 and in tile 3 of a block: kernel 10's
+        info must equal the plain version's (the factors past a failure
+        are meaningless, and not compared);
+      - kernel 11 at a panel count that is not a multiple of its grid (one
+        CTA per SM: P = SMs + 2, so two CTAs own two panels)."""
+    import numpy as np
+    import torch
+    from gtsam_torch.linear import dense_kernels as dk
+    for dt in (torch.float64, torch.float32):
+        for n in (128 + 19, 128 + 45, 128 + 77, 128 + 109, 129):
+            S0 = torch.as_tensor(spd_matrix(n, n), dtype=dt, device="cuda")
+            b = torch.as_tensor(np.random.default_rng(n).normal(size=n),
+                                dtype=dt, device="cuda")
+            check_dense(S0, f"n={n}", b)
+        conds = (1e6, 1e8) if dt == torch.float64 else (1e4,)
+        for cond in conds:
+            Sn = spd_with_condition(256, cond, 7)
+            block = np.linalg.cond(Sn[:128, :128])
+            log(f"dense ill-conditioned {dt}: leading block condition "
+                f"{block:.3e}")
+            check_dense(torch.as_tensor(Sn, dtype=dt, device="cuda"),
+                        f"cond~{cond:.0e}", torch.as_tensor(
+                            np.random.default_rng(3).normal(size=256),
+                            dtype=dt, device="cuda"), ill=cond > 1e6)
+        for col in (5, 100):   # tile 0 and tile 3 of panel 0
+            Sn = spd_matrix(300, col)
+            Sn[col, col] = -1.0
+            infos = []
+            for f in (dk.factor_diag, dk.factor_diag_plain):
+                S = torch.as_tensor(Sn, dtype=dt, device="cuda").clone()
+                D = torch.empty((dk.panels(300), dk.PANEL, dk.PANEL),
+                                dtype=dt, device="cuda")
+                info = torch.zeros((), dtype=torch.int32, device="cuda")
+                for k in range(dk.panels(300)):
+                    f(S, D, info, k)
+                infos.append(int(info))
+            log(f"dense_factor_diag failing pivot {dt}: kernel {infos[0]}, "
+                f"plain {infos[1]} (want {col + 1})")
+            if infos != [col + 1] * 2:
+                raise AssertionError(f"dense_factor_diag failing pivot at "
+                                     f"column {col} ({dt}): {infos}")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        n = (sms + 1) * dk.PANEL + 77
+        g = torch.Generator("cuda").manual_seed(5)
+        A = torch.randn((n, 256), dtype=torch.float64, device="cuda",
+                        generator=g)
+        S64 = A @ A.mT / 256
+        del A
+        S64.diagonal().add_(1.0)
+        d = S64.diagonal().rsqrt()
+        S0 = (S64 * d[:, None] * d[None, :]).to(dt)
+        del S64, d
+        log(f"dense n={n} {dt}: {dk.panels(n)} panels over {sms} CTAs")
+        check_dense(S0, f"n={n}", torch.randn(
+            n, dtype=torch.float64, device="cuda", generator=g).to(dt))
+        del S0
 
 
 def events_ms(fn, setup=None, reps=3):
@@ -687,17 +853,33 @@ def dense_times(factors, bufs, rhs, launches, build_log):
         lib_f, lib_b = cuda_ms(lib_fwd, reps=5), cuda_ms(lib_bwd, reps=5)
         lib_f_dev, lib_b_dev = device_ms(lib_fwd, 5), device_ms(lib_bwd, 5)
         rates = trailing_rates(bufs[dt], dt)
+        # kernel 10's yardstick: no one PyTorch call factors and inverts a
+        # block, so two calls on panel 0's 128 x 128 block (lam = 1's S):
+        # cholesky_ex, then solve_triangular of its factor against I
+        w = dk.PANEL
+        blk = S0[:w, :w].contiguous()
+        eye = torch.eye(w, dtype=dt, device="cuda")
+
+        def two_calls():
+            Lb = torch.linalg.cholesky_ex(blk)[0]
+            torch.linalg.solve_triangular(Lb, eye, upper=False)
+        k10_two = cuda_ms(two_calls, reps=20)
+        k10_two_dev = device_ms(two_calls)
+        del blk, eye
         # bounds: the factorization's flops at the tensor-core (float64) or
         # FP32 rate; kernel 10's block bytes (lower triangle read, L_D's
-        # lower triangle and Dinv written) and ~2 w^3 / 3 flops on the CUDA
-        # cores; kernel 11's bytes, L's lower triangle and Dinv read once
+        # lower triangle and Dinv written) and w^3 flops (the factorization
+        # w^3 / 3 multiply-adds, the inverse w^3 / 6) at the card's rate for
+        # them (float64: the tensor cores'), and at one SM's share of the
+        # card's bandwidth and rate (kernel 10 is one CTA); kernel 11's
+        # bytes, L's lower triangle and Dinv read once
         tc = FP64_TC_FLOPS if dt == torch.float64 else FP32_FLOPS
         core = FP64_FLOPS if dt == torch.float64 else FP32_FLOPS
-        w = dk.PANEL
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         fact_bound = max(n ** 3 / 3 / tc, n * n * item / HBM_BYTES_PER_S) * 1e3
         k10_bytes = (w * (w + 1) + w * w) * item
-        k10_b = (k10_bytes / HBM_BYTES_PER_S * 1e3,
-                 2 * w ** 3 / 3 / core * 1e3)
+        k10_b = (k10_bytes / HBM_BYTES_PER_S * 1e3, w ** 3 / tc * 1e3)
+        k10_one_sm = max(k10_b) * sms
         k11_bytes = (n * (n + 1) / 2 + P * w * w + 2 * n) * item
         k11_b = (k11_bytes / HBM_BYTES_PER_S * 1e3, 2 * n * n / 2 / core * 1e3)
 
@@ -717,7 +899,9 @@ def dense_times(factors, bufs, rhs, launches, build_log):
             return r
         rows += [
             row("dense_factor_diag", k10, k10_dev, k10_plain, k10_b, None,
-                None, factorization_ms=fact_ms,
+                None, two_call_yardstick_ms=k10_two,
+                two_call_yardstick_device_ms=k10_two_dev,
+                bound_one_sm_ms=k10_one_sm, factorization_ms=fact_ms,
                 factorization_device_ms=fact_dev,
                 factorization_bound_ms=fact_bound,
                 factorization_library_ms=lib,

@@ -11,47 +11,153 @@
 // the panels b, b + G, ... (G CTAs, one panel each at n <= 128 G) and keeps
 // their right-hand sides in shared memory.
 // gt_dense_forward: for k = 0, 1, ...: panel k's owner forms
-//   y_k = L_D^-1 r_k, writes it to y and publishes it (flags[k]); every CTA
-//   that owns a panel i > k waits for that flag, then subtracts L_ik y_k
-//   from its rhs, reading panel k's column strip of L once (right-looking).
+//   y_k = L_D^-1 r_k and writes it to y; every CTA that owns a panel i > k
+//   reads y_k as soon as it is written and subtracts L_ik y_k from its rhs,
+//   reading panel k's column strip of L once (right-looking).
 // gt_dense_backward: for k = P-1, ..., 0: the owner forms x_k = L_D^-T r_k
-//   into x and publishes it; every CTA that owns a panel j < k subtracts
-//   L_kj^T x_k from it, reading panel k's row strip once.
-// A CTA waits only for the panel it needs next, not for the whole grid (a
-// grid barrier a panel, the first design, took 0.64 / 0.76 ms a direction
-// in float64 on an H100), and loads its next block of L into registers
-// before it waits.  A block product is a warp per 8 rows (lanes along the
-// row, one 128- or 256-byte load a row) reduced by a transposing butterfly
-// (forward), or a thread per column and 32 rows with the 4 row groups'
-// partials summed in order through shared memory (backward).  No atomics:
-// every sum runs in a fixed order, so the same inputs give the same bits.
-// The cooperative launch keeps every CTA resident, so a wait always ends.
+//   into x; every CTA that owns a panel j < k subtracts L_kj^T x_k from it,
+//   reading panel k's row strip once.
+// The output is the only channel between CTAs, and each entry is its own
+// flag: the wrapper fills y (x) with kPending, a NaN that no arithmetic
+// gives (every NaN the kernel writes is made the canonical one first), the
+// owner stores each entry once with a relaxed store at device scope, and
+// one warp of a consumer polls the 128 entries it needs with relaxed loads
+// until none is pending.  So a panel step's critical path holds one trip
+// through L2 (the stores reaching it and the polls seeing them) and two
+// CTA barriers (the polled values to the CTA; the rhs complete before the
+// owner's product), with no fence and no flag.  A CTA loads its next
+// block of L into registers before it waits.
+// Block products: a warp per 8 rows, a lane taking 16 bytes of a row at
+// a time (two entries in float64, four in float32), reduced by a
+// transposing butterfly (forward, and the owner's L_D^-1 or L_D^-T
+// product, for which the backward stages Dinv transposed); in the
+// backward, a thread per 16 bytes of a row and 16 (float64) or 8 (float32)
+// rows, each thread adding its partial sums into its own shared-memory
+// slots across the steps, the row groups' slots summed in order only when
+// the owner needs its rhs.  Entries are loaded one at a time: 16-byte
+// loads where L is aligned for them took as long or longer on an H100
+// (scripts/port_dense_probe.py).  No atomics: every
+// sum runs in a fixed order, so the same inputs give the same bits.  The
+// cooperative launch keeps every CTA resident, so a wait always ends.
 // Bound on the H100: L's lower triangle read once a direction, n^2 / 2
-// entries (0.287 ms in float64, 0.144 ms in float32 at n = 15,507); the
-// chain of P - 1 publications, each a block product, a fence and a flag
-// away from the next, adds a latency floor of a few microseconds a panel.
+// entries (0.287 ms in float64, 0.144 ms in float32 at n = 15,507); a step
+// whose blocks the card delivers faster than that is bound by the chain's
+// latency: the owner's product and one trip through L2 a panel.
 #include "ba_common.cuh"
 
 namespace {
 
 constexpr int kNB = 128;
+constexpr int kPitch = kNB + 1;                // shared row pitch of Dinv
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = kNB / kWarps;     // 8
-constexpr int kGroups = kThreads / kNB;        // 4 row groups (backward)
-constexpr int kGroupRows = kNB / kGroups;      // 32
 constexpr unsigned kFull = 0xffffffffu;
 
-// A load through the read-only path from device memory (kGlobal), or a
-// plain load (shared memory).
-template <bool kGlobal, typename T>
-__device__ __forceinline__ T load1(const T* p) {
-  if constexpr (kGlobal) return __ldg(p); else return *p;
+// A thread takes kVec consecutive entries of a row (16 bytes).  Backward
+// column layout: kColThreads threads across a row, kGroups row groups of
+// kGroupRows rows (float64: 64 x 8 of 16 rows; float32: 32 x 16 of 8
+// rows).
+template <typename T>
+constexpr int kVec = 16 / sizeof(T);
+template <typename T>
+constexpr int kColThreads = kNB / kVec<T>;
+template <typename T>
+constexpr int kGroups = kThreads / kColThreads<T>;
+template <typename T>
+constexpr int kGroupRows = kNB / kGroups<T>;
+
+// kPending: an entry not yet written (the wrappers fill the output with
+// it; gtsam_torch/linear/dense_kernels.py::PENDING holds the same words).
+// kNaN: what every NaN result is stored as.
+template <typename T>
+struct Word;
+template <>
+struct Word<double> {
+  using U = unsigned long long;
+  static constexpr U kPending = 0x7ff4dead5eed0001ull;
+  static constexpr U kNaN = 0x7ff8000000000000ull;
+  static __device__ U bits(double v) { return __double_as_longlong(v); }
+  static __device__ double value(U u) { return __longlong_as_double(u); }
+};
+template <>
+struct Word<float> {
+  using U = unsigned int;
+  static constexpr U kPending = 0x7fa5eed1u;
+  static constexpr U kNaN = 0x7fc00000u;
+  static __device__ U bits(float v) { return __float_as_uint(v); }
+  static __device__ float value(U u) { return __uint_as_float(u); }
+};
+
+__device__ __forceinline__ void st_relaxed(unsigned long long* p,
+                                           unsigned long long u) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(u)
+               : "memory");
+}
+__device__ __forceinline__ void st_relaxed(unsigned* p, unsigned u) {
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(u)
+               : "memory");
+}
+__device__ __forceinline__ unsigned long long ld_relaxed(
+    const unsigned long long* p) {
+  unsigned long long u;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(u) : "l"(p)
+               : "memory");
+  return u;
+}
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+  unsigned u;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];" : "=r"(u) : "l"(p)
+               : "memory");
+  return u;
 }
 
-// Row layout: lane l of warp w holds M[8w + a][l + 32 j] (a < 8, j < 4),
-// rows at or past `rows` read as 0.
-template <bool kGlobal, typename T>
+// Store one entry of a panel's solution for the other CTAs.
+template <typename T>
+__device__ __forceinline__ void publish(T* p, T v) {
+  using W = Word<T>;
+  st_relaxed(reinterpret_cast<typename W::U*>(p),
+             v != v ? W::kNaN : W::bits(v));
+}
+
+// v[j] = entry lane + 32 j of a panel's solution at src (0 at or past
+// `valid`), once it is written; called by one warp.
+template <typename T>
+__device__ __forceinline__ void poll4(const T* src, int valid, T v[4]) {
+  using W = Word<T>;
+  using U = typename W::U;
+  const int lane = threadIdx.x & 31;
+  const U* s = reinterpret_cast<const U*>(src);
+  bool done[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    done[j] = lane + 32 * j >= valid;
+    v[j] = T(0);
+  }
+  while (!(done[0] && done[1] && done[2] && done[3])) {
+    U u[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (!done[j]) u[j] = ld_relaxed(s + lane + 32 * j);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (!done[j] && u[j] != W::kPending) {
+        v[j] = W::value(u[j]);
+        done[j] = true;
+      }
+  }
+}
+
+// Row layout: lane l of warp w takes entries (8w + a, col_of(l, j)) of a
+// block, a < 8, j < 4: kVec consecutive columns at a time.
+template <typename T>
+__device__ __forceinline__ int col_of(int lane, int j) {
+  return kVec<T> * lane + (j / kVec<T>) * 32 * kVec<T> + j % kVec<T>;
+}
+
+// reg[4 a + j] <- M's entry (8w + a, col_of(lane, j)), rows ldm apart, 0
+// at or past `rows`.
+template <typename T>
 __device__ __forceinline__ void load_rows(const T* __restrict__ M,
                                           int64_t ldm, int rows, T reg[32]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -61,16 +167,17 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ M,
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       reg[a * 4 + j] =
-          r < rows ? load1<kGlobal>(M + r * ldm + lane + 32 * j) : T(0);
+          r < rows ? __ldg(M + r * ldm + col_of<T>(lane, j)) : T(0);
   }
 }
 
 // store(r, sum_c M[r][c] v[c]) for the 128 rows of a row-layout block,
-// called by one lane of each row.  The 8 rows' partials of a warp are
-// summed by a butterfly that halves the values a lane holds at each of
-// its first three steps (offsets 16, 8, 4), then over the 4 lanes left.
-template <typename T, typename Store>
-__device__ __forceinline__ void dot_rows(const T reg[32], const T* v,
+// called by one lane of each row; m(a, j) gives the lane's entry (a, j) of
+// M, vv[j] = v[col_of(lane, j)].  The 8 rows' partials of a warp are
+// summed by a butterfly that halves the values a lane holds at each of its
+// first three steps (offsets 16, 8, 4), then over the 4 lanes left.
+template <typename T, typename Entry, typename Store>
+__device__ __forceinline__ void dot_rows(Entry m, const T vv[4],
                                          Store store) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   T p[8];
@@ -78,7 +185,7 @@ __device__ __forceinline__ void dot_rows(const T reg[32], const T* v,
   for (int a = 0; a < 8; ++a) {
     T s = T(0);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s += reg[a * 4 + j] * v[lane + 32 * j];
+    for (int j = 0; j < 4; ++j) s += m(a, j) * vv[j];
     p[a] = s;
   }
   const bool u1 = lane & 16, u2 = lane & 8, u3 = lane & 4;
@@ -105,67 +212,40 @@ __device__ __forceinline__ void dot_rows(const T reg[32], const T* v,
     store(warp * kRowsPerWarp + 4 * u1 + 2 * u2 + u3, p[0]);
 }
 
-// Column layout: warp w takes columns 32 (w % 4) + lane and rows
-// 32 (w / 4) + i (i < 32) of M, rows at or past `rows` read as 0.
-template <bool kGlobal, typename T>
+// The owner's product with its panel's staged Dinv (or Dinv^T), read from
+// shared memory as it goes, or (a later panel of the CTA) from device
+// memory (trans: Dinv^T from Dinv's columns): no register array, so the
+// prefetched block of L stays in registers beside it.
+template <typename T, typename Store>
+__device__ __forceinline__ void dot_dinv(const T* staged, const T* g,
+                                         bool trans, const T vv[4],
+                                         Store store) {
+  const int lane = threadIdx.x & 31, w8 = (threadIdx.x >> 5) * kRowsPerWarp;
+  if (staged != nullptr)
+    dot_rows<T>([&](int a, int j) {
+      return staged[(w8 + a) * kPitch + col_of<T>(lane, j)];
+    }, vv, store);
+  else
+    dot_rows<T>([&](int a, int j) {
+      const int r = w8 + a, c = col_of<T>(lane, j);
+      return __ldg(g + (trans ? c * kNB + r : r * kNB + c));
+    }, vv, store);
+}
+
+// Column layout: thread t takes columns kVec (t % kColThreads) + h
+// (h < kVec) and rows kGroupRows (t / kColThreads) + i of a block;
+// reg[i kVec + h] <- that entry, 0 at or past `rows`.
+template <typename T>
 __device__ __forceinline__ void load_cols(const T* __restrict__ M,
                                           int64_t ldm, int rows, T reg[32]) {
-  const int warp = threadIdx.x >> 5;
-  const int c = 32 * (warp % kGroups) + (threadIdx.x & 31);
-  const int r0 = kGroupRows * (warp / kGroups);
+  const int c = kVec<T> * (threadIdx.x % kColThreads<T>);
+  const int r0 = kGroupRows<T> * (threadIdx.x / kColThreads<T>);
 #pragma unroll
-  for (int i = 0; i < kGroupRows; ++i)
-    reg[i] = r0 + i < rows ? load1<kGlobal>(M + (r0 + i) * ldm + c) : T(0);
-}
-
-// store(c, sum_r M[r][c] v[r]) for the 128 columns of a column-layout
-// block, called by threads 0-127; part: kGroups x 128 of shared scratch.
-// Ends with a barrier of the CTA.
-template <typename T, typename Store>
-__device__ __forceinline__ void dot_cols(const T reg[32], const T* v, T* part,
-                                         Store store) {
-  const int warp = threadIdx.x >> 5;
-  const int c = 32 * (warp % kGroups) + (threadIdx.x & 31);
-  const int g = warp / kGroups;
-  T s = T(0);
+  for (int i = 0; i < kGroupRows<T>; ++i)
 #pragma unroll
-  for (int i = 0; i < kGroupRows; ++i) s += reg[i] * v[kGroupRows * g + i];
-  part[g * kNB + c] = s;
-  __syncthreads();
-  if (threadIdx.x < kNB) {
-    T t = part[threadIdx.x];
-#pragma unroll
-    for (int q = 1; q < kGroups; ++q) t += part[q * kNB + threadIdx.x];
-    store(threadIdx.x, t);
-  }
-  __syncthreads();
-}
-
-// Panel k's solution is published by its owner through flags[k] (0 until
-// then; the wrapper zeroes the flags for each launch): every thread that
-// wrote a value fences it to device scope, the CTA meets a barrier, and one
-// thread stores the flag with release semantics.  A consumer's first thread
-// spins on the flag with acquire loads; the CTA then reads the values past
-// L1.
-__device__ __forceinline__ void publish(int* flag) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(flag), "r"(1)
-                 : "memory");
-}
-
-__device__ __forceinline__ void await(const int* flag) {
-  if (threadIdx.x == 0) {
-    int v = 0;
-    do {
-      asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
-                   : "=r"(v)
-                   : "l"(flag)
-                   : "memory");
-    } while (v == 0);
-  }
-  __syncthreads();
+    for (int h = 0; h < kVec<T>; ++h)
+      reg[i * kVec<T> + h] =
+          r0 + i < rows ? __ldg(M + (r0 + i) * ldm + c + h) : T(0);
 }
 
 // The last panel CTA me owns (me < P).
@@ -177,131 +257,170 @@ __device__ __forceinline__ int rows_of(int n, int p) {
   return min(kNB, n - p * kNB);
 }
 
-// Shared memory: Dinv of the CTA's first panel, then `owned` rhs panels.
+__device__ __forceinline__ int owned_of(int P, int G) {
+  return (P + G - 1) / G;
+}
+
+// Shared memory: Dinv of the CTA's first panel (transposed for the
+// backward; row pitch kPitch), `owned` rhs panels, and (backward) each
+// owned panel's kGroups x 128 partial sums.
 template <typename T>
 struct Shared {
   T* dinv;
   T* rhs;
-  __device__ Shared(unsigned char* s)
-      : dinv(reinterpret_cast<T*>(s)), rhs(dinv + kNB * kNB) {}
+  T* part;
+  __device__ Shared(unsigned char* s, int owned)
+      : dinv(reinterpret_cast<T*>(s)), rhs(dinv + kNB * kPitch),
+        part(rhs + owned * kNB) {}
 };
 
-template <typename T>
+template <bool kTrans, typename T>
 __device__ void stage(int n, int P, const T* __restrict__ Dinv,
-                      const T* __restrict__ src, Shared<T> sh) {
+                      const T* __restrict__ src, Shared<T> sh, bool parts) {
   const int G = gridDim.x, me = blockIdx.x;
-  if (me < P)
-    for (int e = threadIdx.x; e < kNB * kNB; e += kThreads)
-      sh.dinv[e] = Dinv[(int64_t)me * kNB * kNB + e];
+  for (int e = threadIdx.x; e < kNB * kNB; e += kThreads) {
+    const int r = e / kNB, c = e % kNB;
+    sh.dinv[kTrans ? c * kPitch + r : r * kPitch + c] =
+        Dinv[(int64_t)me * kNB * kNB + e];
+  }
   for (int p = me, m = 0; p < P; p += G, ++m)
     for (int r = threadIdx.x; r < kNB; r += kThreads)
       sh.rhs[m * kNB + r] = p * kNB + r < n ? src[p * kNB + r] : T(0);
+  if (parts)
+    for (int e = threadIdx.x; e < owned_of(P, G) * kGroups<T> * kNB;
+         e += kThreads)
+      sh.part[e] = T(0);
+  __syncthreads();
+}
+
+// vk (shared) <- panel k's solution at out, polled by warp 0; then a
+// barrier.  Two buffers in turn: a warp reads step k's values before it
+// meets step k + 1's barrier, after which warp 0 may fill the other.
+template <typename T>
+__device__ __forceinline__ void receive(const T* out, int n, int k, T* vk) {
+  if ((threadIdx.x >> 5) == 0) {
+    T v[4];
+    poll4(out + (int64_t)k * kNB, n - k * kNB, v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) vk[(threadIdx.x & 31) + 32 * j] = v[j];
+  }
   __syncthreads();
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) dense_forward_kernel(
     int n, int ld, int P, const T* __restrict__ L,
-    const T* __restrict__ Dinv, const T* __restrict__ b, T* y,
-    int* __restrict__ flags) {
+    const T* __restrict__ Dinv, const T* __restrict__ b, T* y) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ T vk[kNB];
-  const Shared<T> sh(smem);
-  const int G = gridDim.x, me = blockIdx.x;
+  __shared__ T vk[2][kNB];
+  const int G = gridDim.x, me = blockIdx.x, lane = threadIdx.x & 31;
+  const Shared<T> sh(smem, owned_of(P, G));
   const int last = last_owned(P, G, me);
-  stage(n, P, Dinv, b, sh);
+  stage<false>(n, P, Dinv, b, sh, false);
   T reg[32];
   // this CTA's first panel's block in column strip 0
-  if (me > 0 && me < P)
-    load_rows<true>(L + (int64_t)me * kNB * ld, ld, rows_of(n, me), reg);
+  if (me > 0)
+    load_rows(L + (int64_t)me * kNB * ld, ld, rows_of(n, me), reg);
   for (int k = 0; k < P; ++k) {
     if (k % G == me) {   // y_k = L_D^-1 r_k
       const int m = k / G;
-      T dreg[32];
-      if (m == 0)
-        load_rows<false>(sh.dinv, kNB, kNB, dreg);
-      else
-        load_rows<true>(Dinv + (int64_t)k * kNB * kNB, kNB, kNB, dreg);
-      dot_rows(dreg, sh.rhs + m * kNB, [&](int r, T s) {
-        if (k * kNB + r < n) y[k * kNB + r] = s;
-      });
-      publish(flags + k);
+      __syncthreads();   // r_k complete
+      T vv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) vv[j] = sh.rhs[m * kNB + col_of<T>(lane, j)];
+      dot_dinv(m == 0 ? sh.dinv : nullptr, Dinv + (int64_t)k * kNB * kNB,
+               false, vv, [&](int r, T s) {
+                 if (k * kNB + r < n) publish(y + k * kNB + r, s);
+               });
     }
     if (last <= k) break;   // no panel of this CTA below k
-    await(flags + k);
-    for (int c = threadIdx.x; c < kNB; c += kThreads)
-      vk[c] = k * kNB + c < n ? __ldcg(y + k * kNB + c) : T(0);
-    __syncthreads();
+    T* v = vk[k & 1];
+    receive(y, n, k, v);
+    T vv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) vv[j] = v[col_of<T>(lane, j)];
     for (int p = me, m = 0; p < P; p += G, ++m) {
       if (p <= k) continue;
       if (m > 0)
-        load_rows<true>(L + (int64_t)p * kNB * ld + k * kNB, ld,
-                        rows_of(n, p), reg);
+        load_rows(L + (int64_t)p * kNB * ld + k * kNB, ld,
+                            rows_of(n, p), reg);
       T* r = sh.rhs + m * kNB;
-      dot_rows(reg, vk, [&](int i, T s) { r[i] -= s; });
+      dot_rows<T>([&](int a, int j) { return reg[a * 4 + j]; }, vv,
+                  [&](int i, T s) { r[i] -= s; });
     }
     if (me > k + 1)   // the next step's block, ahead of the wait
-      load_rows<true>(L + (int64_t)me * kNB * ld + (k + 1) * kNB, ld,
-                      rows_of(n, me), reg);
-    __syncthreads();
+      load_rows(L + (int64_t)me * kNB * ld + (k + 1) * kNB, ld,
+                          rows_of(n, me), reg);
   }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) dense_backward_kernel(
     int n, int ld, int P, const T* __restrict__ L,
-    const T* __restrict__ Dinv, const T* __restrict__ y, T* x,
-    int* __restrict__ flags) {
+    const T* __restrict__ Dinv, const T* __restrict__ y, T* x) {
+  constexpr int kG = kGroups<T>, kR = kGroupRows<T>, kV = kVec<T>;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ T vk[kNB];
-  __shared__ T part[kGroups * kNB];
-  const Shared<T> sh(smem);
-  const int G = gridDim.x, me = blockIdx.x;
-  stage(n, P, Dinv, y, sh);
+  __shared__ T vk[2][kNB];
+  const int G = gridDim.x, me = blockIdx.x, lane = threadIdx.x & 31;
+  const int c = kV * (threadIdx.x % kColThreads<T>);
+  const int g = threadIdx.x / kColThreads<T>;
+  const Shared<T> sh(smem, owned_of(P, G));
+  stage<true>(n, P, Dinv, y, sh, true);
   T reg[32];
   // this CTA's first panel's block in row strip P - 1
   if (me < P - 1)
-    load_cols<true>(L + (int64_t)(P - 1) * kNB * ld + me * kNB, ld,
-                    rows_of(n, P - 1), reg);
+    load_cols(L + (int64_t)(P - 1) * kNB * ld + me * kNB, ld,
+                        rows_of(n, P - 1), reg);
   for (int k = P - 1; k >= 0; --k) {
-    if (k % G == me) {   // x_k = L_D^-T r_k
+    if (k % G == me) {   // x_k = L_D^-T r_k, r_k = its rhs less its partials
       const int m = k / G;
-      T dreg[32];
-      if (m == 0)
-        load_cols<false>(sh.dinv, kNB, kNB, dreg);
-      else
-        load_cols<true>(Dinv + (int64_t)k * kNB * kNB, kNB, kNB, dreg);
-      dot_cols(dreg, sh.rhs + m * kNB, part, [&](int c, T s) {
-        if (k * kNB + c < n) x[k * kNB + c] = s;
-      });
-      publish(flags + k);
+      __syncthreads();   // every partial of r_k added
+      T vv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cc = col_of<T>(lane, j);
+        const T* q = sh.part + m * kG * kNB + cc;
+        T s = T(0);
+#pragma unroll
+        for (int gg = 0; gg < kG; ++gg) s += q[gg * kNB];
+        vv[j] = sh.rhs[m * kNB + cc] - s;
+      }
+      dot_dinv(m == 0 ? sh.dinv : nullptr, Dinv + (int64_t)k * kNB * kNB,
+               true, vv, [&](int r, T s) {
+                 if (k * kNB + r < n) publish(x + k * kNB + r, s);
+               });
     }
     if (me >= k) break;     // no panel of this CTA above k
-    await(flags + k);
-    for (int r = threadIdx.x; r < kNB; r += kThreads)
-      vk[r] = k * kNB + r < n ? __ldcg(x + k * kNB + r) : T(0);
-    __syncthreads();
+    const T* v = vk[k & 1];
+    receive(x, n, k, vk[k & 1]);
     for (int p = me, m = 0; p < P; p += G, ++m) {
       if (p >= k) break;
       if (m > 0)
-        load_cols<true>(L + (int64_t)k * kNB * ld + p * kNB, ld,
-                        rows_of(n, k), reg);
-      T* r = sh.rhs + m * kNB;
-      dot_cols(reg, vk, part, [&](int c, T s) { r[c] -= s; });
+        load_cols(L + (int64_t)k * kNB * ld + p * kNB, ld,
+                            rows_of(n, k), reg);
+      T* q = sh.part + (m * kG + g) * kNB + c;   // this thread's own slots
+#pragma unroll
+      for (int h = 0; h < kV; ++h) {
+        T s = T(0);
+#pragma unroll
+        for (int i = 0; i < kR; ++i) s += reg[i * kV + h] * v[kR * g + i];
+        q[h] += s;
+      }
     }
     if (me < k - 1)   // the next step's block, ahead of the wait
-      load_cols<true>(L + (int64_t)(k - 1) * kNB * ld + me * kNB, ld,
-                      rows_of(n, k - 1), reg);
-    __syncthreads();
+      load_cols(L + (int64_t)(k - 1) * kNB * ld + me * kNB, ld,
+                          rows_of(n, k - 1), reg);
   }
 }
 
 // Launch `kernel` cooperatively: min(P, the CTAs the card holds at once)
-// CTAs, each with Dinv and its rhs panels in dynamic shared memory.
-template <typename T, typename... Act>
+// CTAs, each with Dinv, its rhs panels and (with `groups` > 0) their
+// partial sums in dynamic shared memory.
+template <typename T>
 int launch_solve(void (*kernel)(int, int, int, const T*, const T*, const T*,
-                                T*, int*),
-                 int n, int ld, cudaStream_t stream, Act... args) {
+                                T*),
+                 int groups, int n, int ld, cudaStream_t stream, const T* L,
+                 const T* Dinv, const T* in, T* out) {
   const int P = (n + kNB - 1) / kNB;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -309,7 +428,8 @@ int launch_solve(void (*kernel)(int, int, int, const T*, const T*, const T*,
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   const int owned = (P + min(P, sms) - 1) / min(P, sms);
-  const size_t shm = ((size_t)kNB * kNB + (size_t)owned * kNB) * sizeof(T);
+  const size_t shm = ((size_t)kNB * kPitch +
+                      (size_t)owned * kNB * (1 + groups)) * sizeof(T);
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)shm);
   if (e != cudaSuccess) return (int)e;
@@ -328,41 +448,51 @@ int launch_solve(void (*kernel)(int, int, int, const T*, const T*, const T*,
   cfg.stream = stream;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, n, ld, P, args...);
+  e = cudaLaunchKernelEx(&cfg, kernel, n, ld, P, L, Dinv, in, out);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int forward(int n, int ld, const T* L, const T* Dinv, const T* b, T* y,
+            void* stream) {
+  return launch_solve<T>(dense_forward_kernel<T>, 0, n, ld,
+                         (cudaStream_t)stream, L, Dinv, b, y);
+}
+
+template <typename T>
+int backward(int n, int ld, const T* L, const T* Dinv, const T* y, T* x,
+             void* stream) {
+  return launch_solve<T>(dense_backward_kernel<T>, kGroups<T>, n, ld,
+                         (cudaStream_t)stream, L, Dinv, y, x);
 }
 
 }  // namespace
 
 // L: n x n row-major factor (lower triangle), rows ld entries apart;
-// Dinv: ceil(n / 128) x 128 x 128; b, y: n; flags: ceil(n / 128) ints,
-// zero.  y = L^-1 b.
+// Dinv: ceil(n / 128) x 128 x 128; b, y: n, y filled with kPending.
+// y = L^-1 b.
 GT_EXPORT int gt_dense_forward(int n, int ld, const double* L,
                                const double* Dinv, const double* b, double* y,
-                               int* flags, void* stream) {
-  return launch_solve<double>(dense_forward_kernel<double>, n, ld,
-                              (cudaStream_t)stream, L, Dinv, b, y, flags);
+                               void* stream) {
+  return forward<double>(n, ld, L, Dinv, b, y, stream);
 }
 
 GT_EXPORT int gt_dense_forward_f32(int n, int ld, const float* L,
                                    const float* Dinv, const float* b,
-                                   float* y, int* flags, void* stream) {
-  return launch_solve<float>(dense_forward_kernel<float>, n, ld,
-                             (cudaStream_t)stream, L, Dinv, b, y, flags);
+                                   float* y, void* stream) {
+  return forward<float>(n, ld, L, Dinv, b, y, stream);
 }
 
-// y, x: n; flags as above.  x = L^-T y.
+// y, x: n, x filled with kPending.  x = L^-T y.
 GT_EXPORT int gt_dense_backward(int n, int ld, const double* L,
                                 const double* Dinv, const double* y,
-                                double* x, int* flags, void* stream) {
-  return launch_solve<double>(dense_backward_kernel<double>, n, ld,
-                              (cudaStream_t)stream, L, Dinv, y, x, flags);
+                                double* x, void* stream) {
+  return backward<double>(n, ld, L, Dinv, y, x, stream);
 }
 
 GT_EXPORT int gt_dense_backward_f32(int n, int ld, const float* L,
                                     const float* Dinv, const float* y,
-                                    float* x, int* flags, void* stream) {
-  return launch_solve<float>(dense_backward_kernel<float>, n, ld,
-                             (cudaStream_t)stream, L, Dinv, y, x, flags);
+                                    float* x, void* stream) {
+  return backward<float>(n, ld, L, Dinv, y, x, stream);
 }

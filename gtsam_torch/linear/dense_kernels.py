@@ -42,14 +42,22 @@ KERNELS = _kernels.table(
     Kernel("dense_factor_diag_f32", "dense_factor", "factor_diag",
            f"{_DENSE}:83", [INT, INT, INT, P, P, P]),
     Kernel("dense_forward", "dense_solve", "solve_forward",
-           f"{_DENSE}:121", [INT, INT, P, P, P, P, P]),
+           f"{_DENSE}:121", [INT, INT, P, P, P, P]),
     Kernel("dense_forward_f32", "dense_solve", "solve_forward",
-           f"{_DENSE}:121", [INT, INT, P, P, P, P, P]),
+           f"{_DENSE}:121", [INT, INT, P, P, P, P]),
     Kernel("dense_backward", "dense_solve", "solve_backward",
-           f"{_DENSE}:134", [INT, INT, P, P, P, P, P]),
+           f"{_DENSE}:134", [INT, INT, P, P, P, P]),
     Kernel("dense_backward_f32", "dense_solve", "solve_backward",
-           f"{_DENSE}:134", [INT, INT, P, P, P, P, P]),
+           f"{_DENSE}:134", [INT, INT, P, P, P, P]),
 )
+
+# Kernel 11's output is also its channel between CTAs: each entry is
+# published by one relaxed store, and the wrapper first fills the output
+# with the word below (a NaN no arithmetic gives: the kernel stores every
+# NaN as the canonical one), which a reader takes for "not written yet".
+# csrc/dense_solve.cu's Word<T>::kPending holds the same words.
+PENDING = {F64: (torch.int64, 0x7FF4DEAD5EED0001),
+           F32: (torch.int32, 0x7FA5EED1)}
 
 _SUFFIX = {F64: "", F32: "_f32"}
 
@@ -141,34 +149,39 @@ def solve_backward_plain(L, Dinv, y, x):
 
 
 def _solve_specs(name, L, Dinv, u, v):
+    """Check kernel 11's arguments and fill its output with PENDING;
+    returns (device, n)."""
     n = _square(name, "L", L)
-    return check(name, ("L", L, L.dtype, (n, n), ROWS),
-                 ("Dinv", Dinv, L.dtype, (panels(n), PANEL, PANEL)),
-                 ("rhs", u, L.dtype, (n,)), ("out", v, L.dtype, (n,))), n
+    dev = check(name, ("L", L, L.dtype, (n, n), ROWS),
+                ("Dinv", Dinv, L.dtype, (panels(n), PANEL, PANEL)),
+                ("rhs", u, L.dtype, (n,)), ("out", v, L.dtype, (n,)))
+    if u.data_ptr() == v.data_ptr():
+        raise ValueError(f"{name}: rhs and out must not share memory")
+    word, bits = PENDING[L.dtype]
+    v.view(word).fill_(bits)
+    return dev, n
 
 
 def solve_forward(L, Dinv, b, y):
     """Kernel 11, forward: y = L^-1 b, from the factor's lower triangle and
     its panels' inverses (factor_diag).  On the card one cooperative launch
-    (and the zeroing of its per-panel flags)."""
+    (and the fill of y that marks its entries unwritten)."""
     if on_cpu(L, Dinv, b, y):
         return solve_forward_plain(L, Dinv, b, y)
     name = _variant("dense_forward", "L", L)
     dev, n = _solve_specs(name, L, Dinv, b, y)
-    flags = torch.zeros(panels(n), dtype=I32, device=dev)
     KERNELS[name].launch(dev, n, L.stride(0), ptr(L), ptr(Dinv), ptr(b),
-                         ptr(y), ptr(flags))
+                         ptr(y))
     return y
 
 
 def solve_backward(L, Dinv, y, x):
     """Kernel 11, backward: x = L^-T y.  On the card one cooperative launch
-    (and the zeroing of its per-panel flags)."""
+    (and the fill of x that marks its entries unwritten)."""
     if on_cpu(L, Dinv, y, x):
         return solve_backward_plain(L, Dinv, y, x)
     name = _variant("dense_backward", "L", L)
     dev, n = _solve_specs(name, L, Dinv, y, x)
-    flags = torch.zeros(panels(n), dtype=I32, device=dev)
     KERNELS[name].launch(dev, n, L.stride(0), ptr(L), ptr(Dinv), ptr(y),
-                         ptr(x), ptr(flags))
+                         ptr(x))
     return x

@@ -11,7 +11,12 @@ the mixed mode (dtype=float32, mixed_precision=True): one untimed run, then
 N timed runs (wall in seconds, ending in torch.cuda.synchronize(), and each
 iteration's time), then one run under torch.profiler whose device time is
 summed by stage (kernel names matched against STAGES; the rest is
-"other").  Prints one JSON line with the card's name, the root and those
+"other"), and from whose kernel timeline the time kernel 10 stands on the
+critical path is read: the device time during which the side stream that
+blocked_cholesky factors its super-panels on was busy and no other stream
+ran a kernel (the main stream waiting on the side stream's events), for
+all of the side stream's kernels and for kernel 10's alone, in total and
+per factorization.  Prints one JSON line with the card's name, the root and those
 numbers.  Give two roots in turns (A, B, B, A) in one run to compare
 two versions on one card.
 """
@@ -39,6 +44,64 @@ STAGES = (
     ("refinement matvec", ("ba_matvec_camera", "point_pass_kernel<false>")),
     ("back-substitution", ("point_pass",)),
 )
+
+
+def _merge(iv):
+    out = []
+    for a, b in sorted(iv):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _minus(A, B):
+    """The length of the union of intervals A less that of B (both merged
+    and sorted)."""
+    total, j = 0, 0
+    for a, b in A:
+        while j < len(B) and B[j][1] <= a:
+            j += 1
+        cur, k = a, j
+        while k < len(B) and B[k][0] < b:
+            total += max(0, B[k][0] - cur)
+            cur = max(cur, B[k][1])
+            k += 1
+        total += max(0, b - cur)
+    return total
+
+
+def exposed(prof, panels):
+    """Device ms of the traced run during which the side stream (the one
+    kernel 10 runs on) was busy and no other stream ran a kernel: of all of
+    its kernels, and of kernel 10's alone; in total and per factorization
+    (kernel 10's launches / panels).  None if the trace has no kernel 10 or
+    no stream ids."""
+    try:
+        evs = [(e.name(), e.device_resource_id(), e.start_ns(),
+                e.start_ns() + e.duration_ns())
+               for e in prof.profiler.kineto_results.events()
+               if str(e.device_type()).endswith("CUDA")]
+    except AttributeError:
+        return None
+    k10 = [e for e in evs if "dense_factor_diag" in e[0]]
+    if not k10:
+        return None
+    streams = {}
+    for e in k10:
+        streams[e[1]] = streams.get(e[1], 0) + 1
+    side = max(streams, key=streams.get)
+    main = _merge([(a, b) for _, s, a, b in evs if s != side])
+    fact = len(k10) / panels
+    side_ms = _minus(_merge([(a, b) for _, s, a, b in evs if s == side]),
+                     main) / 1e6
+    k10_ms = _minus(_merge([(a, b) for _, _, a, b in k10]), main) / 1e6
+    return {"side_stream_ms": side_ms, "kernel10_ms": k10_ms,
+            "factorizations": fact,
+            "side_stream_ms_per_factorization": side_ms / fact,
+            "kernel10_ms_per_factorization": k10_ms / fact,
+            "kernel10_streams": len(streams)}
 
 
 def stage_of(name):
@@ -102,6 +165,7 @@ def main(argv):
         busy = sum(ms for ms, _ in stages.values())
         out[mode] = {"wall_s": walls, "iter_times": iters, "half_chi2": errs,
                      "traced_wall_ms": traced * 1e3, "device_busy_ms": busy,
+                     "exposed": exposed(prof, -(-9 * prob.num_cameras // 128)),
                      "idle_share": 1.0 - busy / (traced * 1e3),
                      "stages_ms_launches": dict(sorted(
                          stages.items(), key=lambda kv: -kv[1][0]))}

@@ -505,6 +505,148 @@ def test_point_pass_sizes_match_the_source():
     assert '#include "ba_point_pass.cuh"' in _cu_source("ba_schur_matvec")
 
 
+def test_pending_words_match_the_source():
+    """Kernel 11's wrappers fill its output with the word the kernel reads
+    as "not written yet": the same bits in csrc/dense_solve.cu, a NaN that
+    is not the canonical one the kernel stores every NaN as."""
+    src = _cu_source("dense_solve")
+    for dt, c in (("double", "ull"), ("float", "u")):
+        m = re.search(rf"struct Word<{dt}> {{.*?kPending = (0x[0-9a-f]+){c};"
+                      rf".*?kNaN = (0x[0-9a-f]+){c};", src, re.S)
+        assert m, dt
+        word, bits = dense_kernels.PENDING[getattr(torch, dt)]
+        assert bits == int(m.group(1), 16) != int(m.group(2), 16)
+        v = torch.tensor([bits], dtype=word).view(getattr(torch, dt))
+        assert torch.isnan(v).all()
+
+
+def _kernel10_schedule():
+    """Kernel 10's job list and phase offsets, read from its source."""
+    src = _cu_source("dense_factor")
+    body = re.search(r"__constant__ Job kJobs\[\] = \{(.*?)\n\};", src,
+                     re.S).group(1)
+    jobs = [(k, int(i), int(j), int(t), int(c)) for k, i, j, t, c in
+            re.findall(r"\{(k\w+), (\d+), (\d+), (\d+), (\d+)\}", body)]
+    phase = [int(x) for x in re.search(
+        r"__constant__ int kPhase\[\] = \{([^}]*)\};", src).group(1).split(",")]
+    return jobs, phase
+
+
+def _check_kernel10_schedule(jobs, phase):
+    """Walk kernel 10's lists in order (S(t) and U(t) for t < 3, then A and
+    B) beside its chain (in phase t: tile (t + 1, t + 1) updated by column
+    t and factored; tile (t + 2, t) solved before U(t), tile (t + 2, t + 1)
+    updated by column t and solved against tile t + 1 during it) and
+    assert that each job reads only tiles an earlier list finished, that no
+    job of a list touches a strip another job of it (or the chain) writes,
+    and that every tile of L_D and of L_D^-1 is written out once."""
+    tiles = [(i, j) for i in range(4) for j in range(i + 1)]
+    upd = {(i, j, c): 0 for i, j in tiles for c in (0, 16)}   # A updates
+    L = {(0, 0), (1, 0)}   # final tiles of L_D (the first phase's)
+    Y, X = set(), set()    # strips of sums, tiles of L_D^-1
+    out_L, out_X = [], []
+
+    def strips(m, i, j):
+        return {(m, i, j, 0), (m, i, j, 16)}
+
+    def bump(i, j):
+        for c in (0, 16):
+            upd[(i, j, c)] += 1
+
+    for ph in range(8):
+        touch, after = [], []   # (reads, writes) of each worker
+        t = ph // 2
+        if ph < 6:              # the chain of phase t
+            below = t + 2 < 4
+            if ph % 2 == 0:
+                assert all(upd[(t + 1, t + 1, c)] == t for c in (0, 16))
+                assert (t + 1, t) in L and (t, t) in L
+                r = strips("A", t + 1, t) | strips("A", t, t) | {("rinv", t)}
+                w = strips("A", t + 1, t + 1) | {("rinv", t + 1)}
+                if below:
+                    assert all(upd[(t + 2, t, c)] == t for c in (0, 16))
+                    assert all(upd[(t + 2, t + 1, c)] == t for c in (0, 16))
+                    w |= strips("A", t + 2, t) | strips("A", t + 2, t + 1)
+                    after.append(lambda t=t: L.add((t + 2, t)))
+                after.append(lambda t=t: bump(t + 1, t + 1))
+            else:
+                r = strips("A", t + 1, t) | {("rinv", t + 1)}
+                w = strips("A", t + 1, t + 1) | {("rinv", t + 1)}
+                after.append(lambda t=t: L.add((t + 1, t + 1)))
+                if below:
+                    r |= strips("A", t + 2, t)
+                    w |= strips("A", t + 2, t + 1)
+                    after.append(lambda t=t: bump(t + 2, t + 1))
+                    after.append(lambda t=t: L.add((t + 2, t + 1)))
+            touch.append((r - w, w))
+        for kind, i, j, t, c in jobs[phase[ph]:phase[ph + 1]]:
+            r, w = set(), set()
+            if kind == "kSolve":
+                assert all(upd[(i, t, c)] == t for c in (0, 16))
+                assert (t, t) in L
+                r |= strips("A", t, t) | {("rinv", t)}
+                w |= strips("A", i, t)
+                after.append(lambda i=i, t=t: L.add((i, t)))
+            elif kind == "kInvert":
+                assert (t, t) in L
+                r |= strips("A", t, t) | {("rinv", t)}
+                w |= strips("X", t, t)
+                after.append(lambda t=t: X.add((t, t)))
+                if t == 3:
+                    after.append(lambda: out_X.append((3, 3)))
+            elif kind == "kUpdate":
+                assert (i, t) in L and (j, t) in L and upd[(i, j, c)] == t
+                r |= strips("A", i, t) | strips("A", j, t)
+                w |= {("A", i, j, c)}
+                after.append(lambda k=(i, j, c): upd.__setitem__(k, upd[k] + 1))
+            elif kind == "kSum":
+                for m in range(j, i):
+                    assert (i, m) in L and (m, j) in X
+                    r |= strips("A", i, m) | strips("X", m, j)
+                w |= {("X", i, j, c)}
+                after.append(lambda k=(i, j, c): Y.add(k))
+            elif kind in ("kScale", "kScaleOut"):
+                assert (i, i) in X and (i, j, c) in Y
+                r |= strips("X", i, i) | {("X", i, j, c)}
+                if kind == "kScale":
+                    w |= {("X", i, j, c)}
+                    if c == 16:
+                        after.append(lambda k=(i, j): X.add(k))
+                else:
+                    after.append(lambda k=(i, j, c): out_X.append(k))
+            elif kind == "kWriteL":
+                assert (i, j) in L
+                r |= strips("A", i, j)
+                after.append(lambda k=(i, j): out_L.append(k))
+            else:
+                assert kind == "kWriteX" and (i, j) in X
+                r |= strips("X", i, j)
+                after.append(lambda k=(i, j): out_X.append(k))
+            r -= w
+            touch.append((r, w))
+        for a, (_, wa) in enumerate(touch):
+            for b, (rb, wb) in enumerate(touch):
+                assert a == b or not wa & (rb | wb), (ph, a, b)
+        for f in after:
+            f()
+    assert sorted(out_L) == tiles
+    halves = [k for k in out_X if len(k) == 3]
+    assert sorted([k for k in out_X if len(k) == 2]
+                  + [(i, j) for i, j, c in halves if c == 0]) == tiles
+    assert sorted(halves) == sorted((i, j, c) for i, j, c0 in halves
+                                    for c in (0, 16) if c0 == 0)
+
+
+def test_kernel10_jobs_read_only_finished_tiles():
+    """Kernel 10's job lists (csrc/dense_factor.cu) keep its phases' order
+    beside its chain: a job reads only finished tiles, two jobs of a list
+    never touch a strip one of them writes, and every tile is written out
+    once."""
+    jobs, phase = _kernel10_schedule()
+    assert phase[0] == 0 and phase[-1] == len(jobs) and len(phase) == 9
+    _check_kernel10_schedule(jobs, phase)
+
+
 @pytest.mark.parametrize("module", list(TABLES), ids=lambda m: m.__name__)
 def test_argtypes_match_the_c_entry_points(module):
     """Each Kernel's ctypes argtypes follow its C entry point's parameters:
