@@ -33,9 +33,13 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      mixes SE3 poses with Point3 landmarks (both linearization routes), at
      lam 1e-4 and 1, diagonal damping off and on, with a check that kernel
      6's assembly and kernel 9 neither read nor write the store's fill (the
-     rows outside H's own blocks); kernel 8 on a hub with 600 chains of 6
-     poses, whose lowest level holds too many fronts for the cluster split;
-     and a small pose-graph LM on the card against the same run on the CPU;
+     rows outside H's own blocks), kernel 7's front kernel and pivot check
+     twice for the same bits, with every output NaN-filled first, and on a
+     store with a failed pivot in a middle level (badcol and every front's
+     record equal to the plain versions'); kernels 7 and 8 on a hub with
+     600 chains of 6 poses, whose lowest level holds too many fronts for
+     the cluster split; and a small pose-graph LM on the card against the
+     same run on the CPU;
   4. the main paths: gtsam_torch.sfm.ba.ba_optimize at the Ladybug-1723
      shape (make_bal_problem(1723, 150000, 4, seed=0)) with bench.py's LM
      settings, (a) float64 and (b) mixed precision (dtype=float32,
@@ -48,8 +52,10 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      the first run of its path alone, kernels 10 and 11 exactly once per
      panel of each factorization and once per direction of each solve,
      the sphere path must launch no
-     generic linearization and kernel 8 exactly once per factorization
-     (the tile inverses) and once per direction per solve, and its
+     generic linearization, kernel 7's front kernel exactly once per level
+     and its pivot check once per factorization, kernel 8 exactly once per
+     factorization (the tile inverses) and once per direction per solve,
+     and its
      solver's owned block store must be zero outside H's own blocks after
      both runs;
   5. each kernel against its plain version again at the Ladybug shape, on
@@ -71,14 +77,18 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      with the library call of each one that has one (kernel 8's solves:
      one sparse triangular solve over the whole factor as a CSR matrix), each also as device time
      per call (torch.profiler; the events time of back-to-back wrapper calls
-     includes the host's), the time of each level's cholesky_ex,
-     solve_triangular and bmm, and of a try by stage;
+     includes the host's), per level the front kernel's launch by events
+     and device time beside the card's bound and the bound at the level's
+     S SMs' share, the two library calls it replaces on the same fronts
+     (cholesky_ex + solve_triangular against I) and the level's two bmm,
+     and a try by stage;
   6. one profiled run of each main path: device busy time by kernel (no
      cuSOLVER potrf, no trsv/trsm and no tril kernel may appear, and
      kernels 10 and 11 must), and the rows of the full-matrix passes (mul,
      fill, copy); then a
      profile of error calls alone, each of which must be one launch of its
-     kernel and no other device work; then one profiled sphere run.
+     kernel and no other device work; then one profiled sphere run (no
+     potrf, trsm or trsv kernel, and the front kernel, may appear).
 The last three lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}.  Imports neither JAX nor gtsam_tpu.
 """
@@ -973,20 +983,33 @@ SPHERE_SOLVER = dict(refine_iters=1, supernodal_kwargs=dict(force_width=32))
 # (FMA or not) differ by ~1e-12 of it before any kernel error: 1e-10 for
 # A^T b.  Assembly, the Schur scatter
 # and the matvec sum the same terms in another fixed order: 1e-12; the
-# front gather and the pivot check copy and compare, with the gather's one
-# addition in the plain version's order: exact; kernel 8's tile inverses
+# pivot check compares: exact; kernel 8's tile inverses
 # are column-by-column forward substitutions, cuBLAS's trsm another order
 # of the same sums, on tiles of Cholesky factors: 1e-12; its solves apply
 # those inverses as products, in another order than cuBLAS/LAPACK's
 # triangular solves, which their fronts' condition numbers amplify: 1e-10
-# at lam = 1, 1e-8 at lam = 1e-4.
+# at lam = 1, 1e-8 at lam = 1e-4.  Kernel 7's front kernel: L and L^-1
+# (outputs 0 and 1) are the plain version's cholesky_ex and triangular
+# solve against I summed in another order (128-wide blocks, kernel 10's
+# tiles, the inverse composed from the blocks' inverses), which the
+# fronts' condition numbers amplify as they do the solves': the solves'
+# 1e-10 at lam = 1 and 1e-8 at lam = 1e-4 (kernel 10 is held to 1e-10 on
+# blocks of condition ~5); its records (output 2) exactly; the gathered,
+# transposed panel (output 3) is a copy: exact.
 PG_TOL = {"pg_linearize": (1e-12, 1e-10), "pg_error": 1e-12,
           "pg_assemble": 1e-12,
-          "sn_front_gather": 0.0, "sn_pivot_check": 0.0,
+          "sn_front_factor": (1e-10, 1e-10, None, 0.0),
+          "sn_pivot_check": 0.0,
           "sn_schur_scatter": 1e-12, "sn_invert_tiles": 1e-12,
           "sn_forward": 1e-10, "sn_backward": 1e-10,
           "sn_matvec": 1e-12}
 PG_SOLVE_TOL_SMALL_LAM = 1e-8
+# kernels that check_pg_kernels also calls twice for the same bits
+REPEAT_CHECKED = ("sn_front_factor", "sn_pivot_check")
+PG_TOL_SMALL_LAM = {"sn_forward": PG_SOLVE_TOL_SMALL_LAM,
+                    "sn_backward": PG_SOLVE_TOL_SMALL_LAM,
+                    "sn_front_factor": (PG_SOLVE_TOL_SMALL_LAM,
+                                        PG_SOLVE_TOL_SMALL_LAM, None, 0.0)}
 
 
 def _port_module(name):
@@ -1091,6 +1114,41 @@ def chains_graph(n_chains, length):
     return g, Values({"SE3": T0}, {"SE3": np.arange(n)})
 
 
+def plain_levels(s, blocks, lam, dd):
+    """The plain versions' factorization of `blocks` on supernodal solver s,
+    level by level as factorize() runs it: per level a dict of the working
+    store it starts from, the front (the plain gather, for the library
+    yardstick), L, L^-1, At, Lp, U and the records; all the records (level
+    after level) and the state they reduce to."""
+    import torch
+    from gtsam_torch.linear import supernodal_kernels as K
+    dv = s.dev
+    work = blocks.clone()
+    out, recs = [], []
+    for lv in dv.levels:
+        e = dict(work=work.clone())
+        e["front"] = K._front_gather(
+            work, blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
+            lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, lam, dd,
+            1e-6, 1e32)[0]
+        rec = torch.empty(lv.S, dtype=torch.int32, device=blocks.device)
+        e["L"], e["Linv"], e["At"] = K.sn_front_factor_plain(
+            work, blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
+            lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, lam, dd, rec)
+        e["rec"], e["Lp"] = rec, None
+        if lv.R:
+            e["Lp"] = torch.bmm(e["Linv"], e["At"]).mT
+            e["U"] = torch.bmm(e["Lp"], e["Lp"].mT)
+            K.sn_schur_scatter_plain(e["U"], lv.schur_src, lv.schur_ptr,
+                                     lv.schur_tgt, work)
+        out.append(e)
+        recs.append(rec)
+    recs = torch.cat(recs)
+    state = torch.empty(2, dtype=torch.int32, device=blocks.device)
+    K.sn_pivot_check_plain(recs, state)
+    return out, recs, state
+
+
 class PGCase:
     """A pose graph bound on the card with its supernodal solver, and the
     plain versions' intermediate tensors of one try at (lam, damping): the
@@ -1119,29 +1177,9 @@ class PGCase:
     def _levels(self):
         import torch
         from gtsam_torch.linear import supernodal_kernels as K
+        self.lv, self.rec, state = plain_levels(self.s, self.blocks,
+                                                self.lam, self.dd)
         s, dv = self.s, self.s.dev
-        work = self.blocks.clone()
-        state = torch.tensor([1, -1], dtype=torch.int32, device="cuda")
-        self.lv = []
-        for lv in dv.levels:
-            front, panel = K.sn_front_gather_plain(
-                work, self.blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
-                lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, self.lam,
-                self.dd)
-            L, info = torch.linalg.cholesky_ex(front)
-            Lp = torch.linalg.solve_triangular(L.mT, panel, upper=True,
-                                               left=False) if lv.R else None
-            e = dict(work=work.clone(), front=front, panel=panel,
-                     L0=L.clone(), Lp0=None if Lp is None else Lp.clone(),
-                     info=info, state=state.clone())
-            K.sn_pivot_check_plain(L, Lp, info, lv.valid_diag, lv.col_vars,
-                                   state)
-            e.update(L=L, Lp=Lp)
-            if lv.R:
-                e["U"] = torch.bmm(Lp, Lp.mT)
-                K.sn_schur_scatter_plain(e["U"], lv.schur_src, lv.schur_ptr,
-                                         lv.schur_tgt, work)
-            self.lv.append(e)
         self.ok = bool(state[0] == 1)
         n, d = s.nvars, s.d
         f64 = torch.float64
@@ -1217,21 +1255,30 @@ class PGCase:
             return [(lambda: (self.y, *sol, dv.sol_rows,
                               torch.full_like(self.x, nan)),
                      lambda r, a: (a[-1],))]
+        if name == "sn_pivot_check":
+            return [(lambda: (self.rec, torch.full(
+                (2,), -7, dtype=torch.int32, device="cuda")),
+                lambda r, a: (a[1],))]
         for lv, e in zip(dv.levels, self.lv):
-            if name == "sn_front_gather":
-                args = (e["work"], self.blocks, lv.diag_ids, lv.diag_flip,
-                        lv.diag_pad, lv.valid_diag, lv.col_vars, dv.dbc,
-                        lv.panel_ids, self.lam, self.dd)
-                out.append((lambda args=args: args,
-                            lambda r, a: tuple(t for t in r
-                                               if t is not None)))
-            elif name == "sn_pivot_check":
+            if name == "sn_front_factor":
+                # every output NaN-filled (the records -7): written whole
                 def mk(e=e, lv=lv):
-                    return (e["L0"].clone(), None if e["Lp0"] is None
-                            else e["Lp0"].clone(), e["info"], lv.valid_diag,
-                            lv.col_vars, e["state"].clone())
-                out.append((mk, lambda r, a: tuple(
-                    t for t in (a[0], a[1], a[5]) if t is not None)))
+                    Wd, Rd = e["L"].shape[1], lv.R * s.d
+                    nan = float("nan")
+                    buf = [torch.full((lv.S, Wd, Wd), nan,
+                                      dtype=torch.float64, device="cuda")
+                           for _ in range(2)]
+                    buf.append(torch.full((lv.S, Wd, Rd), nan,
+                                          dtype=torch.float64, device="cuda")
+                               if lv.R else None)
+                    return (e["work"], self.blocks, lv.diag_ids, lv.diag_flip,
+                            lv.diag_pad, lv.valid_diag, lv.col_vars, dv.dbc,
+                            lv.panel_ids, self.lam, self.dd,
+                            torch.full((lv.S,), -7, dtype=torch.int32,
+                                       device="cuda"), 1e-6, 1e32,
+                            tuple(buf))
+                out.append((mk, lambda r, a: (r[0], r[1], a[11])
+                            + ((r[2],) if r[2] is not None else ())))
             elif name == "sn_schur_scatter" and lv.R:
                 def mk(e=e, lv=lv):
                     return (e["U"], lv.schur_src, lv.schur_ptr, lv.schur_tgt,
@@ -1252,8 +1299,8 @@ def check_pg_kernels(case, label, names=None):
         kern = getattr(K, name)
         plain = getattr(K, name + "_plain")
         tol = PG_TOL[name]
-        if name in ("sn_forward", "sn_backward") and case.lam < 1.0:
-            tol = PG_SOLVE_TOL_SMALL_LAM
+        if case.lam < 1.0:
+            tol = PG_TOL_SMALL_LAM.get(name, tol)
         tols = tol if isinstance(tol, tuple) else None
         worst_rel, worst_abs = {}, 0.0
         calls = case.calls(name)
@@ -1261,6 +1308,13 @@ def check_pg_kernels(case, label, names=None):
             a1, a2 = mk(), mk()
             r1 = pick(kern(*a1), a1)
             r2 = pick(plain(*a2), a2)
+            if name in REPEAT_CHECKED:
+                a3 = mk()
+                r3 = pick(kern(*a3), a3)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(r1, r3)):
+                    raise AssertionError(f"{name} ({label}): two calls on "
+                                         "the same inputs differ")
             torch.cuda.synchronize()
             for i, (g, r) in enumerate(zip(r1, r2)):
                 if g.dtype == torch.int32:
@@ -1282,8 +1336,8 @@ def check_pg_kernels(case, label, names=None):
         errs[name] = worst_abs
         limits = {j: tols[j] if tols else tol for j in worst_rel}
         log(f"check {label} {name}: {len(calls)} calls, max rel err "
-            + ", ".join(f"{worst_rel[j]:.3e} (tol {limits[j]:.0e})"
-                        for j in sorted(worst_rel))
+            + (", ".join(f"{worst_rel[j]:.3e} (tol {limits[j]:.0e})"
+                         for j in sorted(worst_rel)) or "- (integers, equal)")
             + f", max abs err {worst_abs:.3e}")
         bad = [j for j in worst_rel if not worst_rel[j] <= limits[j]]
         if bad or not calls:
@@ -1331,6 +1385,41 @@ def check_fill_untouched(case, label):
                              f"fill ({label})")
 
 
+def check_bad_pivot(case, label):
+    """The front kernel's failure records: a store whose middle level's
+    first front has its first column's diagonal at -1e6 factorizes on the
+    card to ok False and the badcol the plain versions give, every level's
+    records equal to theirs."""
+    import torch
+    from gtsam_torch.linear import supernodal_kernels as K
+    s = case.s
+    m = len(s.level_plans) // 2
+    c = int(s.level_plans[m].col_vars[0, 0])
+    bad = case.blocks.clone()
+    bad[int(s.sym.diag_block_by_col[c]), 0] = -1e6
+    f = s.factorize(bad, case.lam, case.dd)
+    _, recs, state = plain_levels(s, bad, case.lam, case.dd)
+    card = torch.empty_like(recs)
+    work, off = bad.clone(), 0
+    for lv in s.dev.levels:
+        _, Linv, At = K.sn_front_factor(
+            work, bad, lv.diag_ids, lv.diag_flip, lv.diag_pad, lv.valid_diag,
+            lv.col_vars, s.dev.dbc, lv.panel_ids, case.lam, case.dd,
+            card[off:off + lv.S])
+        off += lv.S
+        if lv.R:
+            Lp = torch.bmm(Linv, At).mT
+            K.sn_schur_scatter(torch.bmm(Lp, Lp.mT), lv.schur_src,
+                               lv.schur_ptr, lv.schur_tgt, work)
+    got = [int(bool(f.ok)), int(f.badcol)]
+    log(f"bad pivot ({label}): level {m} column {c}: card (ok, badcol) "
+        f"{got}, plain {state.tolist()}; records equal "
+        f"{torch.equal(card, recs)}")
+    if not (got == state.tolist() == [0, c] and torch.equal(card, recs)):
+        raise AssertionError(f"the front kernel's failure records disagree "
+                             f"with the plain versions' ({label})")
+
+
 def pg_small_checks():
     """Phase 3 of the pose graph: kernels 6-9 against their plain versions
     on the small sphere and the mixed graph at lam 1e-4 and 1, damping off
@@ -1368,6 +1457,7 @@ def pg_small_checks():
                     f"{case.ok}")
                 check_pg_kernels(case, f"{label} lam={lam} dd={dd}")
                 check_fill_untouched(case, f"{label} lam={lam} dd={dd}")
+                check_bad_pivot(case, f"{label} lam={lam} dd={dd}")
                 del case
     # kernel 8 where a level has more fronts than its grid's 8-CTA clusters
     # can share out at two CTAs a front, so each front takes a CTA of its
@@ -1383,7 +1473,9 @@ def pg_small_checks():
         raise AssertionError("the chains graph's widest level fits the "
                              "cluster split")
     check_pg_kernels(case, "chains lam=1 dd=False",
-                     ["sn_invert_tiles", "sn_forward", "sn_backward"])
+                     ["sn_front_factor", "sn_pivot_check", "sn_invert_tiles",
+                      "sn_forward", "sn_backward"])
+    check_bad_pivot(case, "chains lam=1 dd=False")
     del case
     p = O.LMParams(max_iterations=10, relative_error_tol=1e-9,
                    absolute_error_tol=1e-12, lambda_policy="gain")
@@ -1483,12 +1575,17 @@ def sphere_main_path():
     # kernel 8: the tile inverses once per factorization (one a try), one
     # forward and one backward launch per solve (two a try: the solve and
     # its refinement)
-    want = {"sn_invert_tiles": a["tries"], "sn_forward": 2 * a["tries"],
+    # kernel 7: the front kernel once per level and the pivot check once
+    # per factorization
+    nlev = len(solver._s.level_plans)
+    want = {"sn_front_factor": nlev * a["tries"],
+            "sn_pivot_check": a["tries"],
+            "sn_invert_tiles": a["tries"], "sn_forward": 2 * a["tries"],
             "sn_backward": 2 * a["tries"]}
     got = {k: a["launches"][k] for k in want}
-    log(f"sphere path: kernel 8 launches {got} (expected {want})")
+    log(f"sphere path: kernel 7 and 8 launches {got} (expected {want})")
     if got != want:
-        raise AssertionError(f"kernel 8 launched {got}, not {want}")
+        raise AssertionError(f"kernels 7 and 8 launched {got}, not {want}")
     if a["generic"]:
         raise AssertionError("the sphere path linearized a batch by the "
                              "generic path")
@@ -1520,7 +1617,7 @@ def pg_work(case):
            + 4 * (n + 1) + n * d * 8 + T * dd * 8 + n * d * 8,
            C * dd + Cg * d)
     front = [0, 0]
-    piv = [0, 0]
+    gather = [0, 0]
     schur = [0, 0]
     inv = [0, 0]
     fwd = [0, 0]
@@ -1529,15 +1626,11 @@ def pg_work(case):
     for lp, lv in zip(s.level_plans, dv.levels):
         S, W, R = lp.S, lp.W, lp.R
         Wd, Rd = W * d, R * d
-        ids = np.unique(lp.diag_ids[lp.diag_ids < B])
-        if R:
-            ids = np.union1d(ids, lp.panel_ids[lp.panel_ids < B])
-        front[0] += (ids.size * dd * 8 + S * W * W * 5 + S * Wd * 9
-                     + S * W * 4 + S * Wd * Wd * 8 + S * Rd * Wd * 8
-                     + (S * R * W * 4 if R else 0))
-        front[1] += S * Wd
-        piv[0] += S * Wd * Wd * 8 + S * Rd * Wd * 8 + S * 4 + S * Wd + 8
-        piv[1] += S * Wd * Wd + S * Rd * Wd
+        (gb, gops), (fb, fops) = front_work(s, lp)
+        gather[0] += gb
+        gather[1] += gops
+        front[0] += fb
+        front[1] += fops
         # kernel 8: each diagonal tile's lower triangle in, its inverse
         # out; per solve the function's own inputs, L's lower triangles and
         # P (the kernels read the tile inverses in place of the diagonal
@@ -1561,11 +1654,11 @@ def pg_work(case):
     # backward's x; both read the level table
     table = len(s.level_plans) * 12 * 8
     nsrc = len(s.gat_src)
-    gather = (4 * (len(s.gat_ptr) + len(s.gat_seg) + nsrc) + nsrc * d * 8,
-              nsrc * d)
+    gather_csr = (4 * (len(s.gat_ptr) + len(s.gat_seg) + nsrc)
+                  + nsrc * d * 8, nsrc * d)
     inv[0] += table
-    fwd[0] += n * d * 8 + gather[0] + table
-    fwd[1] += gather[1]
+    fwd[0] += n * d * 8 + gather_csr[0] + table
+    fwd[1] += gather_csr[1]
     bwd[0] += n * d * 8 + table
     # matvec: T's blocks by row and its off-diagonal ones by column, with
     # their ids and the other variable's id; the CSR offsets, x and
@@ -1573,11 +1666,35 @@ def pg_work(case):
     nr, nc = len(s.mv_row_blk), len(s.mv_col_blk)
     mv = ((nr + nc) * (dd * 8 + 8) + 4 * 2 * (n + 1) + 3 * n * d * 8,
           2 * dd * (nr + nc) + 3 * n * d)
+    front = (front[0] + gather[0], front[1] + gather[1])
+    # the records of every front in, the state out
+    fronts = sum(lp.S for lp in s.level_plans)
+    piv = (fronts * 4 + 8, fronts)
     return {"pg_linearize": lin, "pg_error": err, "pg_assemble": asm,
-            "sn_front_gather": tuple(front), "sn_pivot_check": tuple(piv),
+            "sn_front_factor": front, "sn_front_gather": tuple(gather),
+            "sn_pivot_check": piv,
             "sn_schur_scatter": tuple(schur), "sn_invert_tiles": tuple(inv),
             "sn_forward": tuple(fwd), "sn_backward": tuple(bwd),
-            "sn_matvec": mv, "gather": gather}
+            "sn_matvec": mv, "gather": gather_csr}
+
+
+def front_work(s, lp):
+    """((bytes, operations) of the gather, (bytes, FP64 operations) of the
+    rest) of the front kernel on level plan lp of supernodal solver s: the
+    gather's inputs (the store's blocks, the plan's ids, flips, padding,
+    masks, columns) read once; L, L^-1 and At written, the records; a
+    front's factorization and its inverse, Wd^3 / 3 operations each."""
+    import numpy as np
+    d, dd, B = s.d, s.d * s.d, s.B
+    S, W, R = lp.S, lp.W, lp.R
+    Wd, Rd = W * d, R * d
+    ids = np.unique(lp.diag_ids[lp.diag_ids < B])
+    if R:
+        ids = np.union1d(ids, lp.panel_ids[lp.panel_ids < B])
+    gather = (ids.size * dd * 8 + S * W * W * 5 + S * Wd * 9 + S * W * 4
+              + (S * R * W * 4 if R else 0), S * Wd)
+    return gather, (2 * S * Wd * Wd * 8 + S * Rd * Wd * 8 + S * 4,
+                    2 * S * Wd ** 3 // 3)
 
 
 def factor_csr(levels, cols, rows, g):
@@ -1738,6 +1855,67 @@ def _library_call(name, case):
     return None
 
 
+def front_levels(s, case, ms_fn):
+    """Phase 5, per level of the sphere's factorization: the front kernel's
+    launch by events and device time beside two bounds, the card's and the
+    share of the level's S SMs (one CTA a front; as kernel 10's one-SM
+    bound), the library yardstick of two calls on the same fronts
+    (cholesky_ex, then solve_triangular of its factor against I), and the
+    level's two products (the panel Lp^T = L^-1 At, U = Lp Lp^T), each
+    beside its bound.  Returns (rows, the front kernel's per-factorization
+    sums for its kernel row)."""
+    import torch
+    from gtsam_torch.linear import supernodal_kernels as K
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, tot = [], {}
+    calls = case.calls("sn_front_factor")
+    for lp, e, (mk, _) in zip(s.level_plans, case.lv, calls):
+        Wd, Rd = lp.W * s.d, lp.R * s.d
+        (gb, gops), (fb, fops) = front_work(s, lp)
+        card = max((gb + fb) / HBM_BYTES_PER_S,
+                   fops / FP64_TC_FLOPS) * 1e3
+        args = mk()
+        eye = torch.eye(Wd, dtype=torch.float64, device="cuda").expand(
+            lp.S, Wd, Wd)
+
+        def lib(e=e, eye=eye):
+            L = torch.linalg.cholesky_ex(e["front"])[0]
+            return torch.linalg.solve_triangular(L, eye, upper=False)
+        row = {"S": lp.S, "W": lp.W, "R": lp.R, "Wd": Wd, "Rd": Rd,
+               "front_ms": ms_fn(lambda: K.sn_front_factor(*args), reps=10),
+               "front_device_ms": device_ms(lambda: K.sn_front_factor(*args)),
+               "front_bound_ms": card,
+               "front_bound_sms_ms": card * sms / min(lp.S, sms),
+               "library_two_calls_ms": ms_fn(lib, reps=10),
+               "library_two_calls_device_ms": device_ms(lib)}
+        if lp.R:
+            row["panel_bmm_ms"] = ms_fn(
+                lambda e=e: torch.bmm(e["Linv"], e["At"]), reps=10)
+            row["panel_bmm_bound_ms"] = max(
+                2 * lp.S * Rd * Wd * Wd / FP64_TC_FLOPS,
+                (lp.S * Wd * Wd + 2 * lp.S * Rd * Wd) * 8
+                / HBM_BYTES_PER_S) * 1e3
+            row["u_bmm_ms"] = ms_fn(
+                lambda e=e: torch.bmm(e["Lp"], e["Lp"].mT), reps=10)
+            row["u_bmm_bound_ms"] = max(
+                2 * lp.S * Rd * Rd * Wd / FP64_TC_FLOPS,
+                (lp.S * Rd * Wd + lp.S * Rd * Rd) * 8 / HBM_BYTES_PER_S) * 1e3
+        for k in ("front_ms", "front_device_ms", "front_bound_ms",
+                  "front_bound_sms_ms", "library_two_calls_ms",
+                  "library_two_calls_device_ms", "panel_bmm_ms",
+                  "u_bmm_ms"):
+            tot[k] = tot.get(k, 0.0) + row.get(k, 0.0)
+        log(f"level S {lp.S} W*d {Wd} R*d {Rd}: {json.dumps(row)}")
+        rows.append(row)
+    log(f"levels, a factorization: {json.dumps(tot)}")
+    return rows, {"bound_sms_ms": tot["front_bound_sms_ms"],
+                  "library_two_calls_ms": tot["library_two_calls_ms"],
+                  "library_two_calls_device_ms":
+                      tot["library_two_calls_device_ms"],
+                  "level_algebra_ms": tot["front_ms"] + tot["panel_bmm_ms"]
+                  + tot["u_bmm_ms"]}
+
+
 def pg_kernel_times(main, ms_fn):
     """Phase 5 of the pose graph: on the sphere path's converged state at
     lam = 1 (the kernels' work does not depend on lam), each kernel against
@@ -1774,7 +1952,9 @@ def pg_kernel_times(main, ms_fn):
         lib_dev_ms = device_ms(lib) if lib is not None else None
         nbytes, flops = work[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP64_FLOPS * 1e3
+        # the front kernel's products run on the FP64 tensor cores
+        t_ops = flops / (FP64_TC_FLOPS if name == "sn_front_factor"
+                         else FP64_FLOPS) * 1e3
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"gtsam_torch/csrc/{kern.source}.cu",
@@ -1792,7 +1972,7 @@ def pg_kernel_times(main, ms_fn):
             f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP); launches on "
             f"the path {kernels[-1]['launches']}")
         if name in ("pg_assemble", "sn_matvec", "sn_invert_tiles",
-                    "sn_forward", "sn_backward"):
+                    "sn_forward", "sn_backward", "sn_front_factor"):
             for line in ptxas_lines(_build.BUILD_LOG.get(kern.source, ""),
                                     name + "_kernel"):
                 log(f"  {name}: {line}")
@@ -1809,30 +1989,22 @@ def pg_kernel_times(main, ms_fn):
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None, "folded_into": "sn_forward"})
-    # the library calls of each level, on that level's inputs
-    levels = []
-    for lp, e in zip(solver._s.level_plans, case.lv):
-        Wd, Rd = lp.W * solver._s.d, lp.R * solver._s.d
-        row = {"S": lp.S, "W": lp.W, "R": lp.R,
-               "cholesky_ex_ms": ms_fn(
-                   lambda e=e: torch.linalg.cholesky_ex(e["front"]), reps=10),
-               "cholesky_bound_ms": max(
-                   lp.S * Wd ** 3 / 3 / FP64_TC_FLOPS,
-                   2 * lp.S * Wd * Wd * 8 / HBM_BYTES_PER_S) * 1e3}
-        if lp.R:
-            row["solve_triangular_ms"] = ms_fn(
-                lambda e=e: torch.linalg.solve_triangular(
-                    e["L"].mT, e["panel"], upper=True, left=False), reps=10)
-            row["solve_triangular_bound_ms"] = max(
-                lp.S * Rd * Wd * Wd / FP64_TC_FLOPS,
-                (lp.S * Wd * Wd / 2 + 2 * lp.S * Rd * Wd) * 8
-                / HBM_BYTES_PER_S) * 1e3
-            row["bmm_ms"] = ms_fn(lambda e=e: torch.bmm(e["Lp"], e["Lp"].mT),
-                                  reps=10)
-            row["bmm_bound_ms"] = max(
-                2 * lp.S * Rd * Rd * Wd / FP64_TC_FLOPS,
-                (lp.S * Rd * Wd + lp.S * Rd * Rd) * 8 / HBM_BYTES_PER_S) * 1e3
-        levels.append(row)
+    # the front gather is no kernel of its own any more: the front kernel
+    # gathers its front (its bound: the gather's share of the front
+    # kernel's)
+    gb, gops = work["sn_front_gather"]
+    t_bytes, t_ops = gb / HBM_BYTES_PER_S * 1e3, gops / FP64_FLOPS * 1e3
+    kernels.append({
+        "name": "sn_front_gather", "route": "cuda",
+        "source": "gtsam_torch/csrc/sn_factor.cu",
+        "replaces": "gtsam_tpu/linear/supernodal.py:383", "launches": 0,
+        "max_abs_err": None, "ms": None, "plain_ms": None,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "folded_into": "sn_front_factor"})
+    levels, front_row = front_levels(solver._s, case, ms_fn)
+    row = next(k for k in kernels if k["name"] == "sn_front_factor")
+    row.update(front_row)
     # one try by stage, at the converged state
     s = solver._s
     blocks, g = s.system(arrays)
@@ -1875,7 +2047,18 @@ def profile_sphere(main):
         "path": "sphere", "wall_ms": traced_ms, "tries": out[5],
         "device_busy_ms": busy if rows else None,
         "idle_share": 1.0 - busy / traced_ms if rows else None,
+        "launches": sum(r[2] for r in rows),
         "by_kernel_ms": [[k[:80], ms, c] for k, ms, c in rows[:24]]}}))
+    # the level algebra runs on kernel 7's front kernel and cuBLAS's
+    # products: no cuSOLVER factorization and no triangular-solve kernel
+    library = [k for k, _, _ in rows if any(
+        w in k.lower() for w in ("potrf", "trsm", "trsv"))]
+    fronts = {k[:60]: c for k, _, c in rows if "sn_front_factor" in k}
+    log(f"  sphere: front kernels in the trace {fronts}; library "
+        f"factorization or solve kernels {library}")
+    if library or not fronts:
+        raise AssertionError(f"the traced sphere run's level algebra: "
+                             f"{library}, {fronts}")
 
 
 def main(argv):

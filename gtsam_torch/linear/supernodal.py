@@ -10,11 +10,14 @@ package's, array for array, and move to the device once (`to`).  Then:
              a contribution buffer (other batches: the generic torch.func
              path), and pg_assemble sums it into the block store (B+1, d*d)
              and the gradient (n, d) through sorted CSRs;
-  factorize: per level, kernel 7 gathers the fronts and panels from a
-             working copy of the store (damping applied there), then
-             cholesky_ex / solve_triangular / bmm (library), kernel 7's
-             pivot check, and its Schur scatter into the working store;
-             then kernel 8 inverts every front's 32x32 diagonal tiles;
+  factorize: per level, kernel 7's front kernel gathers the fronts and
+             panels from a working copy of the store (damping applied
+             there) and factors and inverts every front in one launch;
+             then the panel Lp = A L^-T = (L^-1 A^T)^T and U = Lp Lp^T
+             (two bmm, library) and kernel 7's Schur scatter into the
+             working store; after the levels, kernel 7's pivot check (one
+             launch) and kernel 8's inverses of every front's 32x32
+             diagonal tiles;
   solve:     kernel 8, one launch forward over all levels (the lower
              levels' panel products gathered per column through a CSR)
              and one backward;
@@ -39,9 +42,9 @@ native float64 (solve_refined).
 
 A failed factorization: jnp.linalg.cholesky fills a failed front with NaN
 and the JAX SparseSolver solves on with a zeroed factor, so the step's
-error is not finite and LM rejects it.  cholesky_ex leaves a partial
-factor instead, so here the factorization's `ok` flag (read once per try
-with the error) rejects the try.
+error is not finite and LM rejects it.  Here the factorization's `ok` flag
+(read once per try with the error) rejects the try, and badcol names the
+first bad pivot's column (where cholesky_ex stops, in the plain version).
 """
 
 import dataclasses
@@ -503,6 +506,7 @@ class SupernodalCholeskySolver:
             # time, on the solver's stream
             sol_y=torch.empty(self.n_y, dtype=F64, device=dev),
             sol_c=torch.empty(self.n_c, dtype=F64, device=dev),
+            fronts=sum(lp.S for lp in self.level_plans),
             flips=[[t(flip, torch.bool) for (_, _, flip, _) in pairs]
                    for pairs in self._batch_pairs()],
             levels=[types.SimpleNamespace(
@@ -588,24 +592,24 @@ class SupernodalCholeskySolver:
         gtsam/linear/JacobianFactor.cpp:838)."""
         dv = self.dev
         work = blocks.clone()
-        state = torch.tensor([1, -1], dtype=I32, device=self.device)
+        rec = torch.empty(dv.fronts, dtype=I32, device=self.device)
         Ls, Lps = [], []
+        off = 0
         for lv in dv.levels:
-            front, panel = K.sn_front_gather(
+            L, Linv, At = K.sn_front_factor(
                 work, blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
                 lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, lam,
-                diagonal_damping, min_diag, max_diag)
-            L, info = torch.linalg.cholesky_ex(front)
+                diagonal_damping, rec[off:off + lv.S], min_diag, max_diag)
+            off += lv.S
             Lp = None
             if lv.R:
-                Lp = torch.linalg.solve_triangular(L.mT, panel, upper=True,
-                                                   left=False)   # A L^-T
-            K.sn_pivot_check(L, Lp, info, lv.valid_diag, lv.col_vars, state)
-            if lv.R:
+                Lp = torch.bmm(Linv, At).mT      # A L^-T, column-major
                 K.sn_schur_scatter(torch.bmm(Lp, Lp.mT), lv.schur_src,
                                    lv.schur_ptr, lv.schur_tgt, work)
             Ls.append(L)
             Lps.append(Lp)
+        state = torch.empty(2, dtype=I32, device=self.device)
+        K.sn_pivot_check(rec, state)
         levels = K.level_table(Ls, Lps, self.d)
         Linv = torch.empty((levels.tiles, K.TILE, K.TILE), dtype=F64,
                            device=self.device)

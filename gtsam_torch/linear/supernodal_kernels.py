@@ -20,10 +20,10 @@ It never falls back to the plain version on a CUDA tensor.  No kernel uses
 atomics: every sum runs in an order fixed by the plan, so two runs on the
 same inputs give the same bits.
 
-The dense algebra of each level (batched Cholesky, panel triangular solve,
-Lp Lp^T) stays on torch.linalg / torch.bmm between kernel 7's launches, as
-the JAX package leaves it to XLA (jnp.linalg.cholesky,
-lax.linalg.triangular_solve, einsum).
+Kernel 7's front kernel factors and inverts each level's fronts in one
+launch; the level's two products (the panel Lp = A L^-T as (L^-1 A^T)^T,
+and Lp Lp^T) stay on torch.bmm between its launches, as the JAX package
+leaves its products to XLA (einsum).
 """
 
 from typing import NamedTuple
@@ -51,11 +51,11 @@ KERNELS = _kernels.table(
     Kernel("pg_error", "pg_between", "pg_error",
            "gtsam_tpu/graph/graph.py:108",
            [INT, INT] + [P] * 5 + [INT, INT, P, DBL, P]),
-    Kernel("sn_front_gather", "sn_factor", "sn_front_gather",
-           "gtsam_tpu/linear/supernodal.py:383",
-           [INT] * 5 + [P] * 9 + [DBL, INT, DBL, DBL, P, P]),
+    Kernel("sn_front_factor", "sn_factor", "sn_front_factor",
+           "gtsam_tpu/linear/supernodal.py:404",
+           [INT] * 5 + [P] * 9 + [DBL, INT, DBL, DBL] + [P] * 5),
     Kernel("sn_pivot_check", "sn_factor", "sn_pivot_check",
-           "gtsam_tpu/linear/supernodal.py:405", [INT] * 4 + [P] * 6),
+           "gtsam_tpu/linear/supernodal.py:405", [INT, P, P]),
     Kernel("sn_schur_scatter", "sn_factor", "sn_schur_scatter",
            "gtsam_tpu/linear/supernodal.py:436", [INT] * 5 + [P] * 5),
     Kernel("sn_invert_tiles", "sn_solve", "sn_invert_tiles",
@@ -283,6 +283,10 @@ def pg_assemble(hc, gc, asm_src, asm_ptr, asm_blk, asm_diag, g_src, g_ptr,
 
 # -- kernel 7: the level step of the supernodal factorization ---------------
 
+# The column blocks of sn_front_factor's fronts (kNB in chol_tiles.cuh): its
+# Dinv scratch holds a 128 x 128 inverse per block.
+FRONT_BLOCK = 128
+
 
 def _damp_entries(blocks, col_vars, valid, dbc, d, lam, diagonal_damping,
                   min_diag, max_diag):
@@ -298,9 +302,11 @@ def _damp_entries(blocks, col_vars, valid, dbc, d, lam, diagonal_damping,
     return torch.where(valid, lam * dv, 0.0)
 
 
-def sn_front_gather_plain(work, blocks, diag_ids, diag_flip, diag_pad,
-                          valid_diag, col_vars, dbc, panel_ids, lam,
-                          diagonal_damping, min_diag=1e-6, max_diag=1e32):
+def _front_gather(work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
+                  col_vars, dbc, panel_ids, lam, diagonal_damping, min_diag,
+                  max_diag):
+    """One level's dense fronts (S, W*d, W*d), damped, and panels (S, R*d,
+    W*d; None without a row structure), gathered from the working store."""
     S, W, _ = diag_ids.shape
     d = _width(work.shape[1])
     G = work[diag_ids.long()].reshape(S, W, W, d, d)
@@ -316,88 +322,120 @@ def sn_front_gather_plain(work, blocks, diag_ids, diag_flip, diag_pad,
     return front, Pb.permute(0, 1, 3, 2, 4).reshape(S, R * d, W * d)
 
 
-def sn_front_gather(work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
-                    col_vars, dbc, panel_ids, lam, diagonal_damping,
-                    min_diag=1e-6, max_diag=1e32):
-    """Kernel 7, gather: one level's dense fronts (S, W*d, W*d) from the
-    working store `work` (diag_ids blocks, transposed where diag_flip), plus
-    diag_pad and the damping (lam, or lam * clip(diag, min_diag, max_diag)
-    of the undamped store `blocks`) on the true-dimension diagonal; and the
-    panels (S, R*d, W*d) of panel_ids (None when the level has no row
-    structure)."""
+def _finite(t):
+    return t.masked_fill_(~torch.isfinite(t), 0.0)
+
+
+def sn_front_factor_plain(work, blocks, diag_ids, diag_flip, diag_pad,
+                          valid_diag, col_vars, dbc, panel_ids, lam,
+                          diagonal_damping, rec, min_diag=1e-6,
+                          max_diag=1e32, out=None):
+    front, panel = _front_gather(work, blocks, diag_ids, diag_flip, diag_pad,
+                                 valid_diag, col_vars, dbc, panel_ids, lam,
+                                 diagonal_damping, min_diag, max_diag)
+    S, Wd, _ = front.shape
+    d = Wd // col_vars.shape[1]
+    L, info = torch.linalg.cholesky_ex(front)
+    # the first bad pivot of each front: a true dimension not finite or
+    # not positive, or where cholesky_ex stopped
+    piv = L.diagonal(dim1=1, dim2=2)
+    idx = torch.arange(Wd, device=L.device)
+    bad = ((valid_diag & (~torch.isfinite(piv) | (piv <= 0)))
+           | (idx[None, :] == torch.where(info > 0, info - 1, Wd)[:, None]))
+    first = bad.to(torch.int8).argmax(dim=1)
+    col = torch.gather(col_vars, 1, (first // d)[:, None])[:, 0]
+    rec.copy_(torch.where(bad.any(dim=1), col, -1))
+    L = _finite(_as_colmajor(L))
+    eye = torch.eye(Wd, dtype=F64, device=L.device).expand(S, Wd, Wd)
+    Linv = _finite(_as_colmajor(torch.linalg.solve_triangular(L, eye,
+                                                              upper=False)))
+    At = None if panel is None else _finite(panel.mT.contiguous())
+    if out is None:
+        return L, Linv, At
+    for o, t in zip(out, (L.mT, Linv.mT, At)):
+        if t is not None:
+            o.copy_(t)
+    return out[0].mT, out[1].mT, out[2]
+
+
+def sn_front_factor(work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
+                    col_vars, dbc, panel_ids, lam, diagonal_damping, rec,
+                    min_diag=1e-6, max_diag=1e32, out=None):
+    """Kernel 7, fronts: one level's dense fronts (S, W*d, W*d) gathered
+    from the working store `work` (diag_ids blocks, transposed where
+    diag_flip), plus diag_pad and the damping (lam, or lam * clip(diag,
+    min_diag, max_diag) of the undamped store `blocks`) on the
+    true-dimension diagonal, factored: returns (L, L^-1, At), L and its
+    inverse (S, W*d, W*d) column-major per front, and the panels of
+    panel_ids transposed, At (S, W*d, R*d) (None when the level has no row
+    structure), non-finite entries zeroed.  rec (S,) int32 receives each
+    front's first bad pivot (a true dimension not finite or not positive)
+    as its permuted column, or -1.  On the card one launch, a CTA a
+    front; `out`: the buffers it writes whole, (L^T, L^-T, At) row-major
+    (default: new ones)."""
     args = (work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
             col_vars, dbc)
-    if on_cpu(*args, *_tensors(panel_ids)):
-        return sn_front_gather_plain(*args, panel_ids, lam, diagonal_damping,
-                                     min_diag, max_diag)
+    if on_cpu(*args, rec, *_tensors(panel_ids)):
+        return sn_front_factor_plain(*args, panel_ids, lam, diagonal_damping,
+                                     rec, min_diag, max_diag, out)
     nb, dd = work.shape
     d = _width(dd)
     S, W, _ = diag_ids.shape
     R = 0 if panel_ids is None else panel_ids.shape[1]
     n = dbc.shape[0]
+    Wd = W * d
     specs = [("work", work, F64, (nb, dd)), ("blocks", blocks, F64, (nb, dd)),
              ("diag_ids", diag_ids, I32, (S, W, W)),
              ("diag_flip", diag_flip, BOOL, (S, W, W)),
-             ("diag_pad", diag_pad, F64, (S, W * d)),
-             ("valid_diag", valid_diag, BOOL, (S, W * d)),
-             ("col_vars", col_vars, I32, (S, W)), ("dbc", dbc, I32, (n,))]
+             ("diag_pad", diag_pad, F64, (S, Wd)),
+             ("valid_diag", valid_diag, BOOL, (S, Wd)),
+             ("col_vars", col_vars, I32, (S, W)), ("dbc", dbc, I32, (n,)),
+             ("rec", rec, I32, (S,))]
     if R:
         specs.append(("panel_ids", panel_ids, I32, (S, R, W)))
-    dev = check("sn_front_gather", *specs)
-    front = torch.empty((S, W * d, W * d), dtype=F64, device=dev)
-    panel = torch.empty((S, R * d, W * d), dtype=F64, device=dev) if R \
-        else None
-    KERNELS["sn_front_gather"].launch(
+    if out is not None:
+        specs += [("out[0]", out[0], F64, (S, Wd, Wd)),
+                  ("out[1]", out[1], F64, (S, Wd, Wd))]
+        if R:
+            specs.append(("out[2]", out[2], F64, (S, Wd, R * d)))
+    dev = check("sn_front_factor", *specs)
+    if Wd % 2:
+        raise ValueError("sn_front_factor: the front kernel copies pairs of "
+                         f"columns; W*d = {Wd} must be even")
+    if out is None:
+        out = (torch.empty((S, Wd, Wd), dtype=F64, device=dev),
+               torch.empty((S, Wd, Wd), dtype=F64, device=dev),
+               torch.empty((S, Wd, R * d), dtype=F64, device=dev) if R
+               else None)
+    L, X, At = out
+    Dinv = torch.empty((S, -(-Wd // FRONT_BLOCK), FRONT_BLOCK, FRONT_BLOCK),
+                       dtype=F64, device=dev)
+    KERNELS["sn_front_factor"].launch(
         dev, S, W, R, d, n, *map(ptr, args), ptr(panel_ids) if R else 0,
         float(lam), int(bool(diagonal_damping)), float(min_diag),
-        float(max_diag), ptr(front), ptr(panel) if R else 0)
-    return front, panel
+        float(max_diag), ptr(L), ptr(X), ptr(At) if R else 0, ptr(Dinv),
+        ptr(rec))
+    return L.mT, X.mT, At
 
 
-def sn_pivot_check_plain(L, Lp, info, valid_diag, col_vars, state):
-    S, Wd, _ = L.shape
-    d = Wd // col_vars.shape[1]
-    piv = L.diagonal(dim1=1, dim2=2)
-    idx = torch.arange(Wd, device=L.device)
-    failed_at = torch.where(info > 0, info - 1, Wd)
-    bad = ((valid_diag & (~torch.isfinite(piv) | (piv <= 0)))
-           | (idx[None, :] == failed_at[:, None])).reshape(-1)
-    anyb = bad.any()
+def sn_pivot_check_plain(rec, state):
+    bad = rec >= 0
     first = bad.to(torch.int8).argmax()
-    col = col_vars.repeat_interleave(d, dim=1).reshape(-1)[first]
-    state[1] = torch.where((state[0] == 1) & anyb, col, state[1])
-    state[0] = torch.where(anyb, 0, state[0])
-    for X in (L, Lp):
-        if X is not None:
-            X.masked_fill_(~torch.isfinite(X), 0.0)
+    state[0] = torch.where(bad.any(), 0, 1)
+    state[1] = torch.where(bad.any(), rec[first], -1)
 
 
-def sn_pivot_check(L, Lp, info, valid_diag, col_vars, state):
-    """Kernel 7, pivots: a pivot of the level is bad when it is a true
-    dimension and not finite or not positive, or where cholesky_ex's info
-    says the front failed; the first bad pivot of the first bad level sets
-    state = (0, its permuted column) (state starts as (1, -1)).  Zeroes
-    every non-finite entry of L (S, W*d, W*d) and Lp (S, R*d, W*d; or
-    None), in place."""
-    args = (L, info, valid_diag, col_vars, state)
-    if on_cpu(*args, *_tensors(Lp)):
-        return sn_pivot_check_plain(L, Lp, info, valid_diag, col_vars, state)
-    S, Wd, _ = L.shape
-    W = col_vars.shape[1]
-    d = Wd // W
-    specs = [("L", _dense(L)[0], F64, (S, Wd, Wd)), ("info", info, I32, (S,)),
-             ("valid_diag", valid_diag, BOOL, (S, Wd)),
-             ("col_vars", col_vars, I32, (S, W)), ("state", state, I32, (2,))]
-    Rd = 0
-    if Lp is not None:
-        Rd = Lp.shape[1]
-        Lpc, cm = _dense(Lp)
-        specs.append(("Lp", Lpc, F64, (S, Wd, Rd) if cm else (S, Rd, Wd)))
-    dev = check("sn_pivot_check", *specs)
-    KERNELS["sn_pivot_check"].launch(dev, S, Wd, Rd, d, ptr(L),
-                                     ptr(Lp) if Rd else 0, ptr(info),
-                                     ptr(valid_diag), ptr(col_vars),
-                                     ptr(state))
+def sn_pivot_check(rec, state):
+    """Kernel 7, pivots: the first-bad records of every front of one
+    factorization (sn_front_factor's rec, level after level; (N,) int32, -1
+    where a front is sound) into state = (ok, badcol) (2,) int32: (1, -1),
+    or (0, the first bad front's column), so the first bad pivot of the
+    first bad level.  On the card one launch a factorization."""
+    if on_cpu(rec, state):
+        return sn_pivot_check_plain(rec, state)
+    dev = check("sn_pivot_check", ("rec", rec, I32, (rec.shape[0],)),
+                ("state", state, I32, (2,)))
+    KERNELS["sn_pivot_check"].launch(dev, rec.shape[0], ptr(rec), ptr(state))
 
 
 def sn_schur_scatter_plain(U, schur_src, schur_ptr, schur_tgt, work):

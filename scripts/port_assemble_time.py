@@ -11,10 +11,12 @@ optimizers.make_fused_lm on SparseSolver (SPHERE_SOLVER, SPHERE_LM).  It
 runs the path once to warm up, then N times (host clock, synchronized:
 wall to converged), and on the converged state times, with CUDA events
 (mean of N calls): the solver's system() as the path calls it, the
-matvec (lam 1e-3) and one try (solve, retract, error).  Then the device
-time per call (torch.profiler, N calls) of the assembly kernels (names
-containing "pg_assemble") inside system() and of kernel 9 inside the
-matvec.  Prints one JSON line with the card's name and power limit.  Give
+matvec (lam 1e-3), one factorization and one try (solve, retract,
+error).  Then the device time per call (torch.profiler, N calls) of the
+assembly kernels (names containing "pg_assemble") inside system(), of
+kernel 9 inside the matvec and of every kernel of the factorization, and
+one traced run of the path (device busy time, idle share, kernel
+launches).  Prints one JSON line with the card's name and power limit.  Give
 two roots in turns (A, B, B, A), one process each on one card, to compare
 two versions.
 """
@@ -97,6 +99,23 @@ def main(argv):
         dx = solver.solve((blocks, g), 1e-3, False)[0]
         return fn.bound.error(retract_arrays(arrays, dx, layout))
     walls.sort()
+    # one traced run of the path: device busy time, idle share, launches
+    # (every device kernel's count), and the factorize stage's device time
+    # per factorization
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        traced_tries = fn(vals0.arrays)[5]
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA")
+           and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    trace = {"wall_ms": traced_ms, "tries": traced_tries,
+             "device_busy_ms": busy, "idle_share": 1.0 - busy / traced_ms,
+             "launches": sum(e.count for e in dev)}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()
@@ -107,6 +126,10 @@ def main(argv):
         "system_ms": _cuda_ms(lambda: solver.system(arrays), a.reps),
         "matvec_ms": _cuda_ms(lambda: s.matvec(blocks, x, 1e-3), a.reps),
         "try_ms": _cuda_ms(try_, a.reps),
+        "factorize_ms": _cuda_ms(lambda: s.factorize(blocks, 1e-3), a.reps),
+        "factorize_device_ms": _kernel_ms(lambda: s.factorize(blocks, 1e-3),
+                                          a.reps, ""),
+        "trace": trace,
         "pg_assemble_device_ms": _kernel_ms(lambda: solver.system(arrays),
                                             a.reps, "pg_assemble"),
         "sn_matvec_device_ms": _kernel_ms(lambda: s.matvec(blocks, x, 1e-3),

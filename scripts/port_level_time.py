@@ -9,13 +9,15 @@ sphere-shaped stand-in of scripts/port_sphere_data.py (50 x 50 poses) under
 DIR/build/port_sphere/, adds bench.py's prior, binds it on the card with
 SparseSolver's supernodal plan (force_width=32) and assembles the system at
 the chordal initialization.  Then it runs one factorization at lam = 1e-3
-level by level and times, with CUDA events (mean of N calls), each level's
-cholesky_ex and its panel solve Lp = panel L^-T in two forms: the right
-triangular solve factorize() makes (solve_triangular(L^T, panel,
-left=False)) and the left one on the transposed panel (solve_triangular(L,
-panel^T).mT), with their largest relative difference and the layouts they
-leave.  Then, on the factor of that lam, it times kernel 8 by CUDA events
-and by device time (torch.profiler): one solve (_solve_padded), its
+level by level and times, with CUDA events and by device time
+(torch.profiler, mean of N calls), each level's algebra: in a tree with
+kernel 7's front kernel (sn_front_factor), its launch and the level's two
+products (the panel Lp^T = L^-1 At and U = Lp Lp^T); in an older tree,
+cholesky_ex, the panel's triangular solve (solve_triangular(L^T, panel,
+left=False)) and U; then the whole factorize() and the level algebra's
+device time summed over the levels.  Then, on the factor of that lam, it
+times kernel 8 by CUDA events and by device time (torch.profiler): one
+solve (_solve_padded), its
 forward and its backward alone over all levels (in a tree with per-level
 kernels, the forward's segment sums included), and the tile inverses of
 one factorization where the tree has them; in a tree whose solve splits
@@ -103,38 +105,84 @@ def main(argv):
     blocks, g = s.system(vals.arrays)
     dv = s.dev
     work = blocks.clone()
-    state = torch.tensor([1, -1], dtype=torch.int32, device="cuda")
     rows = []
-    for lv in dv.levels:
-        front, panel = K.sn_front_gather(
-            work, blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
-            lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, 1e-3, False)
-        L, info = torch.linalg.cholesky_ex(front)
-        row = {"S": lv.S, "W": lv.W, "R": lv.R,
-               "cholesky_ex_ms": _cuda_ms(
-                   lambda: torch.linalg.cholesky_ex(front), a.reps)}
-        Lp = None
-        if lv.R:
-            def right():
-                return torch.linalg.solve_triangular(L.mT, panel, upper=True,
-                                                     left=False)
+    if hasattr(K, "sn_front_factor"):
+        # the front kernel (gather, factor and inverse in one launch) and
+        # the level's two products
+        rec = torch.empty(dv.fronts, dtype=torch.int32, device="cuda")
+        off = 0
+        for lv in dv.levels:
+            r = rec[off:off + lv.S]
+            off += lv.S
 
-            def left():
-                return torch.linalg.solve_triangular(L, panel.mT,
-                                                     upper=False).mT
-            Lp, Lq = right(), left()
-            scale = float(Lp.abs().max())
-            row.update(
-                right_ms=_cuda_ms(right, a.reps),
-                left_ms=_cuda_ms(left, a.reps),
-                max_rel_diff=float((Lp - Lq).abs().max()) / scale,
-                right_column_major=bool(Lp.mT.is_contiguous()),
-                left_column_major=bool(Lq.mT.is_contiguous()))
-        K.sn_pivot_check(L, Lp, info, lv.valid_diag, lv.col_vars, state)
-        if lv.R:
-            K.sn_schur_scatter(torch.bmm(Lp, Lp.mT), lv.schur_src,
-                               lv.schur_ptr, lv.schur_tgt, work)
-        rows.append(row)
+            def front(lv=lv, r=r):
+                return K.sn_front_factor(
+                    work, blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
+                    lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, 1e-3,
+                    False, r)
+            L, Linv, At = front()
+            row = {"S": lv.S, "W": lv.W, "R": lv.R,
+                   "front_ms": _cuda_ms(front, a.reps),
+                   "front_device_ms": _device_ms(front, a.reps)}
+            if lv.R:
+                Lp = torch.bmm(Linv, At).mT
+                row.update(
+                    panel_bmm_ms=_cuda_ms(lambda: torch.bmm(Linv, At),
+                                          a.reps),
+                    panel_bmm_device_ms=_device_ms(
+                        lambda: torch.bmm(Linv, At), a.reps),
+                    u_bmm_ms=_cuda_ms(lambda: torch.bmm(Lp, Lp.mT), a.reps),
+                    u_bmm_device_ms=_device_ms(lambda: torch.bmm(Lp, Lp.mT),
+                                               a.reps))
+                K.sn_schur_scatter(torch.bmm(Lp, Lp.mT), lv.schur_src,
+                                   lv.schur_ptr, lv.schur_tgt, work)
+            row["algebra_device_ms"] = (row["front_device_ms"]
+                                        + row.get("panel_bmm_device_ms", 0)
+                                        + row.get("u_bmm_device_ms", 0))
+            rows.append(row)
+        state = torch.empty(2, dtype=torch.int32, device="cuda")
+        K.sn_pivot_check(rec, state)
+    else:
+        # an older tree: the gather kernel, then cholesky_ex, the panel's
+        # triangular solve and U in the library, and the pivot check
+        state = torch.tensor([1, -1], dtype=torch.int32, device="cuda")
+        for lv in dv.levels:
+            front, panel = K.sn_front_gather(
+                work, blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
+                lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, 1e-3, False)
+            L, info = torch.linalg.cholesky_ex(front)
+
+            def chol(front=front):
+                return torch.linalg.cholesky_ex(front)
+            row = {"S": lv.S, "W": lv.W, "R": lv.R,
+                   "cholesky_ex_ms": _cuda_ms(chol, a.reps),
+                   "cholesky_ex_device_ms": _device_ms(chol, a.reps)}
+            Lp = None
+            if lv.R:
+                def right(L=L, panel=panel):
+                    return torch.linalg.solve_triangular(
+                        L.mT, panel, upper=True, left=False)
+                Lp = right()
+                row.update(
+                    right_ms=_cuda_ms(right, a.reps),
+                    right_device_ms=_device_ms(right, a.reps),
+                    u_bmm_ms=_cuda_ms(lambda: torch.bmm(Lp, Lp.mT), a.reps),
+                    u_bmm_device_ms=_device_ms(lambda: torch.bmm(Lp, Lp.mT),
+                                               a.reps))
+            row["algebra_device_ms"] = (row["cholesky_ex_device_ms"]
+                                        + row.get("right_device_ms", 0)
+                                        + row.get("u_bmm_device_ms", 0))
+            K.sn_pivot_check(L, Lp, info, lv.valid_diag, lv.col_vars, state)
+            if lv.R:
+                K.sn_schur_scatter(torch.bmm(Lp, Lp.mT), lv.schur_src,
+                                   lv.schur_ptr, lv.schur_tgt, work)
+            rows.append(row)
+    factorize = {
+        "factorize_ms": _cuda_ms(lambda: s.factorize(blocks, 1e-3), a.reps),
+        "factorize_device_ms": _device_ms(lambda: s.factorize(blocks, 1e-3),
+                                          a.reps),
+        "level_algebra_device_ms": sum(r["algebra_device_ms"]
+                                       for r in rows)}
     f = s.factorize(blocks, 1e-3)
     if hasattr(K, "sn_forward"):
         # one launch per direction over all levels; the tile inverses once
@@ -197,7 +245,8 @@ def main(argv):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()
-    print(json.dumps({"levels": rows, "kernel8": solve,
+    print(json.dumps({"levels": rows, "factorize": factorize,
+                      "kernel8": solve,
                       "ok": bool(state[0] == 1),
                       "root": root, "card": smi[0] if smi else None}))
     return 0

@@ -197,11 +197,10 @@ def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
         "pg_error": se3 + ("diagonal", f(N, 6), 1.0),
         "pg_assemble": (f(12, 36), f(8, 6), i(12), i(T + 1), i(T), i(T),
                         i(8), i(n + 1), f(n, 6), nb),
-        "sn_front_gather": (f(nb, 36), f(nb, 36), i(S, W, W), b(S, W, W),
+        "sn_front_factor": (f(nb, 36), f(nb, 36), i(S, W, W), b(S, W, W),
                             f(S, Wd), b(S, Wd), i(S, W), i(n), i(S, R, W),
-                            1e-3, False),
-        "sn_pivot_check": (f(S, Wd, Wd), f(S, Rd, Wd), i(S), b(S, Wd),
-                           i(S, W), i(2)),
+                            1e-3, False, i(S)),
+        "sn_pivot_check": (i(3 * S), i(2)),
         "sn_schur_scatter": (f(S, Rd, Rd), i(7), i(T + 1), i(T), f(nb, 36)),
         "sn_invert_tiles": (levels, f(S, 32, 32)),
         "sn_forward": (f(n, 6), levels, f(S, 32, 32), i(S * W),
@@ -242,24 +241,41 @@ def _wrapper(name):
 def test_wrapper_rejects_float32(name):
     """A float tensor of the other float dtype than the case's kernel takes
     (float32 where it takes float64, and the reverse for the float32
-    variants: e.g. float32 A_cam with float64 A_pt) is refused."""
+    variants: e.g. float32 A_cam with float64 A_pt) is refused; a wrapper
+    that takes no float tensor (sn_pivot_check) refuses int64 for its
+    first int32 tensor."""
     args = list(_meta_args(name))
-    j = next(k for k, a in enumerate(args)
-             if isinstance(a, torch.Tensor) and a.is_floating_point())
-    other = {torch.float64: torch.float32, torch.float32: torch.float64}
+    tensors = [k for k, a in enumerate(args) if isinstance(a, torch.Tensor)]
+    j = next((k for k in tensors if args[k].is_floating_point()), None)
+    other = {torch.float64: torch.float32, torch.float32: torch.float64,
+             torch.int32: torch.int64}
+    want = "must be torch.float"
+    if j is None:
+        j = next(k for k in tensors if args[k].dtype == torch.int32)
+        want = "must be torch.int32"
     args[j] = args[j].to(other[args[j].dtype])
-    with pytest.raises(TypeError, match="must be torch.float"):
+    with pytest.raises(TypeError, match=want):
         _wrapper(name)(*args)
 
 
 @pytest.mark.parametrize("name", WRAPPERS)
 def test_wrapper_rejects_non_contiguous(name):
+    """The last tensor of two or more dimensions, transposed in memory (or,
+    where the wrapper takes only vectors, the last vector as every other
+    entry of a longer one), is refused."""
     args = list(_meta_args(name))
-    j = max(k for k, a in enumerate(args)
-            if isinstance(a, torch.Tensor) and a.dim() >= 2)
-    a = args[j]
-    args[j] = torch.empty(tuple(reversed(a.shape)), dtype=a.dtype,
-                          device="meta").permute(*reversed(range(a.dim())))
+    tensors = [k for k, a in enumerate(args) if isinstance(a, torch.Tensor)]
+    j = max((k for k in tensors if args[k].dim() >= 2), default=None)
+    if j is None:
+        j = tensors[-1]
+        a = args[j]
+        args[j] = torch.empty(2 * a.shape[0], dtype=a.dtype,
+                              device="meta")[::2]
+    else:
+        a = args[j]
+        args[j] = torch.empty(tuple(reversed(a.shape)), dtype=a.dtype,
+                              device="meta").permute(
+                                  *reversed(range(a.dim())))
     assert args[j].shape == a.shape and not args[j].is_contiguous()
     with pytest.raises(ValueError, match="contiguous"):
         _wrapper(name)(*args)
@@ -405,8 +421,7 @@ def _cpu_args_pg(name):
     lv = next(lv for lv in dv.levels if lv.R)
     f = s.factorize(blocks, 0.1)
     k = dv.levels.index(lv)
-    L, P = f.Ldiag[k], f.Lpanel[k]
-    info = torch.zeros(lv.S, dtype=torch.int32)
+    P = f.Lpanel[k]
     sol = (f.levels, f.Linv, dv.sol_cols)
     y, _ = supernodal_kernels.sn_forward_plain(
         g, *sol, dv.gat_ptr, dv.gat_seg, dv.gat_src,
@@ -423,12 +438,13 @@ def _cpu_args_pg(name):
             torch.as_tensor(rng.normal(size=(s._n_gc, d))), dv.asm_src,
             dv.asm_ptr, dv.asm_blk, dv.asm_diag, dv.g_src, dv.g_ptr,
             dv.pad_diag, s.B + 1),
-        "sn_front_gather": (blocks.clone(), blocks, lv.diag_ids, lv.diag_flip,
-                            lv.diag_pad, lv.valid_diag, lv.col_vars, dv.dbc,
-                            lv.panel_ids, 0.3, True),
-        "sn_pivot_check": (L.clone(), P.clone(), info, lv.valid_diag,
-                           lv.col_vars,
-                           torch.tensor([1, -1], dtype=torch.int32)),
+        "sn_front_factor": (blocks.clone(), blocks, lv.diag_ids,
+                            lv.diag_flip, lv.diag_pad, lv.valid_diag,
+                            lv.col_vars, dv.dbc, lv.panel_ids, 0.3, True,
+                            torch.zeros(lv.S, dtype=torch.int32)),
+        "sn_pivot_check": (torch.tensor([-1, -1, 4, 2, -1],
+                                        dtype=torch.int32),
+                           torch.zeros(2, dtype=torch.int32)),
         "sn_schur_scatter": (P @ P.mT, lv.schur_src, lv.schur_ptr,
                              lv.schur_tgt, blocks.clone()),
         "sn_invert_tiles": (f.levels, torch.zeros_like(f.Linv)),
@@ -521,8 +537,9 @@ def test_pending_words_match_the_source():
 
 
 def _kernel10_schedule():
-    """Kernel 10's job list and phase offsets, read from its source."""
-    src = _cu_source("dense_factor")
+    """Kernel 10's job list and phase offsets, read from its device code
+    (csrc/chol_tiles.cuh, which kernel 7's front kernel shares)."""
+    src = (_build.CSRC / "chol_tiles.cuh").read_text()
     body = re.search(r"__constant__ Job kJobs\[\] = \{(.*?)\n\};", src,
                      re.S).group(1)
     jobs = [(k, int(i), int(j), int(t), int(c)) for k, i, j, t, c in
@@ -638,7 +655,7 @@ def _check_kernel10_schedule(jobs, phase):
 
 
 def test_kernel10_jobs_read_only_finished_tiles():
-    """Kernel 10's job lists (csrc/dense_factor.cu) keep its phases' order
+    """Kernel 10's job lists (csrc/chol_tiles.cuh) keep its phases' order
     beside its chain: a job reads only finished tiles, two jobs of a list
     never touch a strip one of them writes, and every tile is written out
     once."""

@@ -433,6 +433,114 @@ def test_factorize_per_level(case, damping):
             _close(c, e, 1e-10)
 
 
+def _level_outputs(s, blocks, lam, dd):
+    """Each level's front kernel outputs (L, L^-1, At, rec) on the CPU (the
+    plain versions), along factorize's own path: the working store takes
+    each level's Schur update before the next level gathers."""
+    dv = s.dev
+    work = blocks.clone()
+    out = []
+    for lv in dv.levels:
+        rec = torch.empty(lv.S, dtype=torch.int32)
+        L, Linv, At = K.sn_front_factor(
+            work, blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
+            lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, lam, dd, rec)
+        if lv.R:
+            Lp = torch.bmm(Linv, At).mT
+            K.sn_schur_scatter(torch.bmm(Lp, Lp.mT), lv.schur_src,
+                               lv.schur_ptr, lv.schur_tgt, work)
+        out.append((L, Linv, At, rec))
+    return out
+
+
+def test_front_inverses_against_numpy(case):
+    """The front kernel's plain L^-1 of every front against
+    numpy.linalg.inv of its L, at 1e-12 relative to the largest entry (two
+    inverses of a triangular factor of condition ~sqrt(cond(H + lam I)),
+    summed in another order), at lam 1e-4 and 1; both are column-major per
+    front (what level_table and the panel product read) and lower
+    triangular."""
+    _, _, tb, _ = case.systems()
+    for lam in (1e-4, 1.0):
+        for L, Linv, _, rec in _level_outputs(case.ts, tb, lam, False):
+            assert L.mT.is_contiguous() and Linv.mT.is_contiguous()
+            assert torch.all(rec == -1)
+            _close(Linv, np.linalg.inv(L.numpy()), 1e-12)
+            assert torch.equal(Linv, Linv.tril())
+
+
+def _spoil_pivot(case, blocks, level):
+    """A copy of the store whose first column of front 0 of `level` has
+    the diagonal -1e6: that front's first pivot fails, and no lower level
+    reads it.  Returns (store, the column's permuted id)."""
+    s = case.ts
+    c = int(s.level_plans[level].col_vars[0, 0])
+    bad = blocks.clone()
+    bad[int(s.sym.diag_block_by_col[c]), 0] = -1e6
+    return bad, c
+
+
+def _jax_badcol(case, blocks, lam):
+    _, _, _, jok, jbad = jax.jit(case.js.factorize, static_argnums=2)(
+        jnp.asarray(blocks.numpy()), lam, False)
+    return bool(jok), int(jbad)
+
+
+def test_bad_pivot_in_a_middle_level(sphere):
+    """A failed pivot in a middle level: ok is False and badcol is that
+    front's first column in both packages (the JAX package's failed front
+    is NaN, so its first true pivot is the first bad one; the port's first
+    bad pivot is the same column), and the front's record names it."""
+    _, _, tb, _ = sphere.systems()
+    m = len(sphere.ts.level_plans) // 2
+    assert 0 < m < len(sphere.ts.level_plans) - 1
+    bad, c = _spoil_pivot(sphere, tb, m)
+    f = sphere.ts.factorize(bad, 1e-2)
+    assert not bool(f.ok) and int(f.badcol) == c
+    assert _jax_badcol(sphere, bad, 1e-2) == (False, c)
+    recs = [o[3] for o in _level_outputs(sphere.ts, bad, 1e-2, False)]
+    assert all(torch.all(r == -1) for r in recs[:m])
+    assert int(recs[m][0]) == c
+
+
+def test_first_bad_level_wins(sphere):
+    """Two levels fail (a middle one and the top one): the records of both
+    say so, and the one-launch reduction over all the records, like the
+    JAX package's per-level fold, reports the first bad level's column;
+    the plain reduction also on records made up by hand."""
+    _, _, tb, _ = sphere.systems()
+    top = len(sphere.ts.level_plans) - 1
+    m = top // 2
+    bad, c = _spoil_pivot(sphere, tb, m)
+    bad, c_top = _spoil_pivot(sphere, bad, top)
+    recs = [o[3] for o in _level_outputs(sphere.ts, bad, 1e-2, False)]
+    assert int(recs[m][0]) == c and int(recs[top][0]) >= 0
+    f = sphere.ts.factorize(bad, 1e-2)
+    assert not bool(f.ok) and int(f.badcol) == c != c_top
+    assert _jax_badcol(sphere, bad, 1e-2) == (False, c)
+    state = torch.zeros(2, dtype=torch.int32)
+    for rec, want in (([-1, -1, 9, -1, 4], [0, 9]), ([-1, -1], [1, -1]),
+                      ([3], [0, 3])):
+        K.sn_pivot_check(torch.tensor(rec, dtype=torch.int32), state)
+        assert state.tolist() == want
+
+
+def test_factorize_on_cpu_launches_nothing(mixed):
+    """factorize on CPU tensors takes the plain versions (no launch is
+    counted) and leaves each level's L and Lp column-major per front, as
+    the front kernel and the panel product leave them on the card, so
+    level_table keeps them without a copy."""
+    _, _, tb, _ = mixed.systems()
+    _kernels.reset_launch_counts()
+    f = mixed.ts.factorize(tb, 1e-2, True)
+    assert bool(f.ok)
+    assert all(n == 0 for n in _kernels.launch_counts().values())
+    for L, P, Lk, Pk in zip(f.Ldiag, f.Lpanel, f.levels.Ls, f.levels.Ps):
+        assert L.mT.is_contiguous() and Lk is L
+        assert (P is None) == (Pk is None)
+        assert P is None or (P.mT.is_contiguous() and Pk is P)
+
+
 def _dense_oracle(case, lam, dd):
     """The dense (H + damping) and g in the canonical layout, from the
     port's dense gn_system (the generic jacfwd path and index_put_ sums,
