@@ -1005,7 +1005,11 @@ PG_TOL = {"pg_linearize": (1e-12, 1e-10), "pg_error": 1e-12,
           "sn_matvec": 1e-12}
 PG_SOLVE_TOL_SMALL_LAM = 1e-8
 # kernels that check_pg_kernels also calls twice for the same bits
-REPEAT_CHECKED = ("sn_front_factor", "sn_pivot_check")
+REPEAT_CHECKED = ("sn_front_factor", "sn_pivot_check", "pg_linearize",
+                  "pg_error")
+# kernel 6's synthetic batches (phase 3; the largest also timed in phase 5):
+# SE3_BIG between factors over SE3_POSES poses
+SE3_BIG, SE3_POSES = 50_000, 10_000
 PG_TOL_SMALL_LAM = {"sn_forward": PG_SOLVE_TOL_SMALL_LAM,
                     "sn_backward": PG_SOLVE_TOL_SMALL_LAM,
                     "sn_front_factor": (PG_SOLVE_TOL_SMALL_LAM,
@@ -1204,25 +1208,12 @@ class PGCase:
         s, dv = self.s, self.s.dev
         out = []
         if name in ("pg_linearize", "pg_error"):
-            for i, b, st in self.se3_batches():
-                N, arity = b.num_factors, b.arity
-                base = (self.arrays["SE3"].R, self.arrays["SE3"].t,
-                        st.rows_i32, b.measurements.R, b.measurements.t,
-                        b.noise.kind, b.noise.data, b.sign)
-                if name == "pg_error":
-                    out.append((lambda base=base: base, lambda r, a: (r,)))
-                    continue
-                flip = dv.flips[i][1 if arity == 2 else 0]
-                npair = 3 if arity == 2 else 1
-
-                def mk(base=base, flip=flip, N=N, npair=npair, arity=arity):
-                    return base + (flip, torch.full(
-                        (N, npair, s.d * s.d), float("nan"),
-                        dtype=torch.float64, device="cuda"),
-                        torch.full((N, arity, s.d), float("nan"),
-                                   dtype=torch.float64, device="cuda"))
-                out.append((mk, lambda r, a: (a[-2], a[-1])))
-            return out
+            return se3_calls(name, [
+                ((self.arrays["SE3"].R, self.arrays["SE3"].t, st.rows_i32,
+                  b.measurements.R, b.measurements.t, b.noise.kind,
+                  b.noise.data, b.sign),
+                 dv.flips[i][1 if b.arity == 2 else 0], s.d)
+                for i, b, st in self.se3_batches()])
         if name == "pg_assemble":
             # into a store zeroed once per maker call, as the main path's
             # SparseSolver assembles into its owned store
@@ -1285,6 +1276,110 @@ class PGCase:
                             e["work"].clone())
                 out.append((mk, lambda r, a: (a[-1],)))
         return out
+
+
+def se3_calls(name, batches):
+    """PGCase.calls of kernel 6 (`name`: pg_linearize or pg_error) on
+    `batches`, each ((R, t, rows, ZR, Zt, kind, noise, sign), flip, d);
+    linearize's outputs start as NaN: each must be written in full."""
+    import torch
+    out = []
+    for base, flip, d in batches:
+        if name == "pg_error":
+            out.append((lambda base=base: base, lambda r, a: (r,)))
+            continue
+        N, arity = base[2].shape
+
+        def mk(base=base, flip=flip, N=N, arity=arity, d=d):
+            nan = float("nan")
+            return base + (flip, torch.full(
+                (N, 3 if arity == 2 else 1, d * d), nan, dtype=torch.float64,
+                device="cuda"), torch.full((N, arity, d), nan,
+                                           dtype=torch.float64, device="cuda"))
+        out.append((mk, lambda r, a: (a[-2], a[-1])))
+    return out
+
+
+def se3_batch(n_poses, N, arity, d, kind, per_factor, seed):
+    """A seeded batch of N SE3 between (arity 2) or prior factors over
+    n_poses random poses, on the card as kernel 6's wrappers take it:
+    ((R, t, rows, ZR, Zt, kind, noise, sign), flip, d).  Half the
+    measurements lie within ~0.02 rad of the poses they relate (Jr^-1's
+    Taylor branch), half anywhere; the noise is one model (per_factor
+    False) or one a factor: inverse sigmas in [0.5, 20], or square-root
+    informations of random SPD matrices; the sign alternates with the
+    seed."""
+    import numpy as np
+    import torch
+    from gtsam_torch.base import noise
+    from gtsam_torch.geometry import se3
+    from gtsam_torch.geometry.se3 import SE3
+    rng = np.random.default_rng(seed)
+
+    def poses(n, rot, pos):
+        return se3.expmap(torch.as_tensor(
+            rng.normal(size=(n, 6)) * np.array([rot] * 3 + [pos] * 3)))
+    T = poses(n_poses, 1.0, 10.0)
+    i = rng.integers(0, n_poses, N)
+    rows = i[:, None]
+    Tz = SE3(T.R[i], T.t[i])
+    if arity == 2:
+        j = (i + 1 + rng.integers(0, n_poses - 1, N)) % n_poses
+        rows = np.stack([i, j], 1)
+        Tz = se3.between(Tz, SE3(T.R[j], T.t[j]))
+    Z = se3.compose(Tz, poses(N, 0.01, 0.01))
+    far = poses(N, 1.0, 10.0)
+    h = N // 2
+    ZR = torch.cat([Z.R[:h], far.R[h:]])
+    Zt = torch.cat([Z.t[:h], far.t[h:]])
+    M = N if per_factor else 1
+    model = {"unit": noise.unit,
+             "diagonal": lambda: noise.sigmas(
+                 1.0 / rng.uniform(0.5, 20.0, size=(M, 6))),
+             "gaussian": lambda: noise.information(
+                 (lambda A: A @ A.transpose(0, 2, 1) + 6 * np.eye(6))(
+                     rng.normal(size=(M, 6, 6))))}[kind]()
+    flip = torch.as_tensor(rng.random(N) < 0.5)
+
+    def dev(x):
+        return None if x is None else x.to("cuda").contiguous()
+    base = (dev(T.R), dev(T.t), dev(torch.as_tensor(rows, dtype=torch.int32)),
+            dev(ZR), dev(Zt), kind, dev(model.data), -1.0 if seed % 2 else 1.0)
+    return base, dev(flip), d
+
+
+class SE3Batches:
+    """Kernel 6's synthetic batches in PGCase's form for check_pg_kernels:
+    each spec of se3_batch without its seed."""
+    lam = 1.0
+
+    def __init__(self, specs):
+        self.batches = [se3_batch(*spec, seed=k)
+                        for k, spec in enumerate(specs)]
+
+    def calls(self, name):
+        return se3_calls(name, self.batches)
+
+
+def se3_batch_checks():
+    """Phase 3 of kernel 6 alone: linearize and error on seeded synthetic
+    SE3 batches against their plain versions at PG_TOL, each called twice
+    for the same bits: SE3_BIG between factors over SE3_POSES poses, a
+    batch of one linearize CTA plus one (store width 6) and one of one
+    error CTA plus one (store width 9: the padding), and one prior; under
+    unit, diagonal and gaussian noise, one model for the batch and one a
+    factor."""
+    from gtsam_torch.linear import supernodal_kernels as K
+    sizes = [(SE3_POSES, SE3_BIG, 2, 6), (40, K.LINEARIZE_FACTORS + 1, 2, 6),
+             (40, K.ERROR_BLOCK + 1, 2, 9), (40, 1, 1, 6)]
+    for kind, scope in (("unit", False), ("diagonal", False),
+                        ("diagonal", True), ("gaussian", False),
+                        ("gaussian", True)):
+        case = SE3Batches([size + (kind, scope) for size in sizes])
+        check_pg_kernels(case, f"se3 batches {kind} "
+                         f"{'per-factor' if scope else 'shared'}",
+                         ["pg_linearize", "pg_error"])
+        del case
 
 
 def check_pg_kernels(case, label, names=None):
@@ -1477,6 +1572,7 @@ def pg_small_checks():
                       "sn_forward", "sn_backward"])
     check_bad_pivot(case, "chains lam=1 dd=False")
     del case
+    se3_batch_checks()
     p = O.LMParams(max_iterations=10, relative_error_tol=1e-9,
                    absolute_error_tol=1e-12, lambda_policy="gain")
     res = {}
@@ -1577,15 +1673,19 @@ def sphere_main_path():
     # its refinement)
     # kernel 7: the front kernel once per level and the pivot check once
     # per factorization
+    # kernel 6: linearize once a batch an iteration, the error once a
+    # batch at the start and a try
     nlev = len(solver._s.level_plans)
-    want = {"sn_front_factor": nlev * a["tries"],
+    nb = sum(factors.se3_route(b) is not None for b in graph.batches)
+    want = {"pg_linearize": nb * a["it"], "pg_error": nb * (a["tries"] + 1),
+            "sn_front_factor": nlev * a["tries"],
             "sn_pivot_check": a["tries"],
             "sn_invert_tiles": a["tries"], "sn_forward": 2 * a["tries"],
             "sn_backward": 2 * a["tries"]}
     got = {k: a["launches"][k] for k in want}
-    log(f"sphere path: kernel 7 and 8 launches {got} (expected {want})")
+    log(f"sphere path: kernel 6-8 launches {got} (expected {want})")
     if got != want:
-        raise AssertionError(f"kernels 7 and 8 launched {got}, not {want}")
+        raise AssertionError(f"kernels 6-8 launched {got}, not {want}")
     if a["generic"]:
         raise AssertionError("the sphere path linearized a batch by the "
                              "generic path")
@@ -1600,16 +1700,13 @@ def pg_work(case):
     import numpy as np
     s, dv = case.s, case.s.dev
     d, dd, n, B = s.d, s.d * s.d, s.nvars, s.B
-    se3 = [(b.num_factors, b.arity, b.noise) for _, b, _ in
-           case.se3_batches()]
-    big = max(se3, key=lambda x: x[0])          # the between batch
-    N, arity, nz = big
-    nzb = 0 if nz.data is None else nz.data.numel() * 8
-    factor_in = N * (arity * 96 + 96 + 4 * arity) + nzb
-    ops_per = 3200 if arity == 2 else 1600
-    lin = (factor_in + N + N * (3 if arity == 2 else 1) * dd * 8
-           + N * arity * d * 8, N * ops_per)
-    err = (factor_in + 8, N * 900)
+    # kernel 6: every SE3 batch, a launch each
+    lin, err = [0, 0], [0, 0]
+    for _, b, st in case.se3_batches():
+        for acc, name in ((lin, "pg_linearize"), (err, "pg_error")):
+            w = se3_work(name, st.rows_i32, b.noise.data, d)
+            acc[0] += w[0]
+            acc[1] += w[1]
     # assembly: the contribution rows and their indices, T's CSR, g's CSR
     # and pad_diag in; T's blocks and g out (the fill is not touched)
     C, Cg, T = s._n_hc, s._n_gc, len(s.asm_blk)
@@ -1670,12 +1767,32 @@ def pg_work(case):
     # the records of every front in, the state out
     fronts = sum(lp.S for lp in s.level_plans)
     piv = (fronts * 4 + 8, fronts)
-    return {"pg_linearize": lin, "pg_error": err, "pg_assemble": asm,
+    return {"pg_linearize": tuple(lin), "pg_error": tuple(err),
+            "pg_assemble": asm,
             "sn_front_factor": front, "sn_front_gather": tuple(gather),
             "sn_pivot_check": piv,
             "sn_schur_scatter": tuple(schur), "sn_invert_tiles": tuple(inv),
             "sn_forward": tuple(fwd), "sn_backward": tuple(bwd),
             "sn_matvec": mv, "gather": gather_csr}
+
+
+def se3_work(name, rows, noise, d):
+    """(bytes that must move, FP64 operations) of one launch of kernel 6's
+    linearize or error (`name`) on a batch of SE3 factors with slot rows
+    `rows` ((N, arity)), noise data `noise` (None: unit) and store width d:
+    each pose the batch reads (96 bytes), measurement (96), row index and
+    noise model read once; H, gv and the flags, or the sum, written once;
+    ~3,200 FP64 operations a between factor's linearization (1,600 a
+    prior's), ~900 its error."""
+    import torch
+    N, arity = rows.shape
+    inputs = (int(torch.unique(rows).numel()) * 96 + N * (96 + 4 * arity)
+              + (0 if noise is None else noise.numel() * 8))
+    if name == "pg_error":
+        return inputs + 8, N * 900
+    npair = 3 if arity == 2 else 1
+    return (inputs + N + N * (npair * d * d + arity * d) * 8,
+            N * (3200 if arity == 2 else 1600))
 
 
 def front_work(s, lp):
@@ -1855,6 +1972,32 @@ def _library_call(name, case):
     return None
 
 
+def se3_big_times(kernels, ms_fn):
+    """Phase 5 of kernel 6 at scale: linearize and error on one synthetic
+    batch of SE3_BIG between factors over SE3_POSES poses, one gaussian
+    model a factor (as a g2o file gives each edge its information): events
+    and device time of one launch, the plain version's, the bound; into
+    each kernel's row as "at_50000"."""
+    from gtsam_torch.linear import supernodal_kernels as K
+    batch = SE3Batches([(SE3_POSES, SE3_BIG, 2, 6, "gaussian", True)])
+    base, _, d = batch.batches[0]
+    for name in ("pg_linearize", "pg_error"):
+        (mk, _), = batch.calls(name)
+        args = mk()
+        kfn, pfn = getattr(K, name), getattr(K, name + "_plain")
+        nbytes, flops = se3_work(name, base[2], base[6], d)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP64_FLOPS * 1e3
+        row = {"N": SE3_BIG, "ms": ms_fn(lambda: kfn(*args), reps=20),
+               "device_ms": device_ms(lambda: kfn(*args)),
+               "plain_ms": ms_fn(lambda: pfn(*args), reps=3, warmup=1),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        next(k for k in kernels if k["name"] == name)["at_50000"] = row
+        log(f"time {name} at N = {SE3_BIG}: {json.dumps(row)} "
+            f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP)")
+
+
 def front_levels(s, case, ms_fn):
     """Phase 5, per level of the sphere's factorization: the front kernel's
     launch by events and device time beside two bounds, the card's and the
@@ -1971,11 +2114,13 @@ def pg_kernel_times(main, ms_fn):
             f"{max(t_bytes, t_ops):.4f} ms by {kernels[-1]['bound_by']}, "
             f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP); launches on "
             f"the path {kernels[-1]['launches']}")
-        if name in ("pg_assemble", "sn_matvec", "sn_invert_tiles",
-                    "sn_forward", "sn_backward", "sn_front_factor"):
+        if name in ("pg_linearize", "pg_error", "pg_assemble", "sn_matvec",
+                    "sn_invert_tiles", "sn_forward", "sn_backward",
+                    "sn_front_factor"):
             for line in ptxas_lines(_build.BUILD_LOG.get(kern.source, ""),
                                     name + "_kernel"):
                 log(f"  {name}: {line}")
+    se3_big_times(kernels, ms_fn)
     # the segment sum of the forward pass is no kernel of its own any more:
     # sn_forward gathers it per column (its bound: the gather's share of
     # sn_forward's)

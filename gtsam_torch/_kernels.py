@@ -78,6 +78,27 @@ def stream(device):
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
+# The scratch of the kernels that finish a sum in their last CTA (bal_error,
+# pg_error): per (device, stream), an int32 completion ticket and a float64
+# buffer of the CTAs' partials.  The last CTA of a launch finds itself by
+# the ticket and sets it back to 0, so launches in one stream's order share
+# both and concurrent streams do not.
+_SUM_SCRATCH = {}
+
+
+def sum_scratch(device, n):
+    """(ticket, partials) of `device`'s current stream: the zeroed int32
+    ticket and a float64 buffer of at least n partials."""
+    key = (device, stream(device))
+    sc = _SUM_SCRATCH.get(key)
+    if sc is None or sc[1].numel() < n:
+        ticket = sc[0] if sc is not None else torch.zeros(
+            (), dtype=torch.int32, device=device)
+        sc = _SUM_SCRATCH[key] = (ticket, torch.empty(
+            max(n, 1024), dtype=torch.float64, device=device))
+    return sc
+
+
 def reset_launch_counts():
     for t in TABLES:
         for k in t.values():

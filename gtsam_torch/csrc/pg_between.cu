@@ -6,15 +6,40 @@
 // assembly of gtsam_tpu/linear/supernodal.py::system (:320-368), and
 // gtsam_tpu/graph/graph.py::BoundGraph.error (:108-126) for those batches.
 //
-// gt_pg_linearize: one thread per factor.  With r = Log(Z^-1 Ti^-1 Tj),
+// The factor math: with r = Log(Z^-1 Ti^-1 Tj),
 //   A_j = R_w Jr^-1(r),  A_i = -R_w Jr^-1(r) Ad(Tj^-1 Ti),  b = -R_w r
 // (a prior: A = R_w Jr^-1(r) with r = Log(Z^-1 Ti)), Jr^-1 the exact SE(3)
 // right-Jacobian inverse with its Q(omega, v) block, Taylor series below
 // theta^2 = 5e-3 (gtsam_torch/geometry/se3.py::right_jacobian_inverse, the
 // plain version's formulas).  R_w is unit, diagonal or a full 6x6 square-root
-// information.  The thread writes sign A_s1^T A_s2 for each slot pair
-// (s1 <= s2; the (0, 1) block transposed where flip says the plan stores it
-// so) and sign A_s^T b into the contribution buffer, factor-major.
+// information, one model for the batch (stride 0) or one a factor.
+//
+// gt_pg_linearize: a CTA is one warp and owns 16 consecutive factors, a
+// lane pair each (3 CTAs for 50 factors; 310 for the sphere stand-in's
+// 4,949, so every SM takes two or three).  The CTA's noise models are
+// copied to shared memory by cp.async at the start, while phase 1 runs.
+// Phase 1: both lanes of a pair compute r and Jr^-1 (the sequential part:
+// compose, SO(3) log, the coefficients), then each forms one whitened
+// Jacobian in registers, A = sgn R_w Jr^-1 Ad(P): lane 0 A_j (P = I, sgn
+// 1; a prior's A) and b, lane 1 A_i (P = Tj^-1 Ti, sgn -1), with the same
+// instructions, and leaves a copy in shared memory (79 doubles a factor:
+// an odd stride keeps a half-warp's lanes on distinct banks); a ballot
+// gathers the flips.  Phase 2: each lane computes the Gram block of its
+// own Jacobian (sign A^T A, from registers, one triangle mirrored) and its
+// gv row (sign A^T b), and three rows of the pair's (0, 1) block (sign
+// A_i^T A_j, out of shared memory), and writes them, compact, over the
+// Jacobians (121 doubles a factor, once every lane has read them).  Then
+// the CTA copies its span of H ((N, npair, d*d), factor-major, the (0, 1)
+// block transposed where flip says the plan stores it so, zero outside
+// the leading 6x6) and of gv ((N, arity, d)) out: lane l takes entry q =
+// l, l + 32, ... of every factor's blocks, its place in the buffer worked
+// out once, so a store instruction writes 256 contiguous bytes of one
+// factor's span (whole 32-byte sectors at d = 6).  The first design (a
+// thread a factor, 128-thread CTAs: 39 at the sphere) stored each
+// factor's 960 bytes from one thread; a lane an entry of the span, each a
+// 6-term dot product out of shared memory, spent half the kernel's time
+// in those loads and the entries' index arithmetic
+// (scripts/port_pg_probe.py).
 // gt_pg_assemble (replaces system's segment sums and scatter, :352-367):
 // one launch over H's own blocks T (the store rows that receive a
 // contribution, and the diagonal blocks; the plan's asm_blk) and g.  A warp
@@ -27,20 +52,36 @@
 // n, never the store's B rows.  The store's fill (zero by the solver's
 // invariant, supernodal.py) is neither read nor written.  No atomics: the
 // same bits on every run.
-// gt_pg_error: one block; each thread sums its strided factors, then a
-// fixed shared-memory tree.
+// gt_pg_error: a grid over the factors, as bal_linearize.cu's half-chi2.
+// A CTA is one warp, a factor a lane; the warp sums its lanes' ||R_w r||^2
+// by a butterfly and writes its partial.  The CTA that finds, through
+// __threadfence and an atomic ticket, that it finished last sums all
+// partials in index order (a fixed strided split over its lanes, then the
+// butterfly), writes sign * 0.5 * sum and resets the ticket to 0.  The
+// grid is ceil(N / 32), a function of N alone, so the order of every
+// addition is too and two calls give the same bits; no value is summed by
+// atomics.  The first design ran one 512-thread CTA on one SM.
 //
-// Bound on the H100: linearize by FP64 operations (~2,000 a between factor)
-// against 0.5 KB of traffic; assemble by bytes: T's contribution rows read
-// and T's blocks written once (sphere stand-in: 14,848 and 7,449 rows of
-// 288 B, ~6.7 MB with g and the indices, ~0.002 ms at 3.35 TB/s), where the
-// first design wrote the whole 36 MB store on every call.
+// Bound on the H100: linearize by bytes, ~1.3 KB a between factor (H and
+// gv written: 1,056 bytes at d = 6) against ~3,200 FP64 operations; error
+// by bytes too (~0.3 KB read a factor), though at the sphere's size both
+// are a few microseconds of a launch's latency and one factor's chain of
+// dependent FP64 operations (the SO(3) log's atan2, sin and cos);
+// assemble by bytes: T's contribution rows read and T's blocks written
+// once (sphere stand-in: 14,848 and 7,449 rows of 288 B, ~6.7 MB with g
+// and the indices, ~0.002 ms at 3.35 TB/s), where the first design wrote
+// the whole 36 MB store on every call.
 #include "ba_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kErrorThreads = 512;   // ERROR_THREADS in supernodal_kernels.py
+constexpr int kLinFactors = 16;                // factors a CTA of linearize
+constexpr int kLinThreads = 2 * kLinFactors;   // a lane pair a factor: a warp
+constexpr int kSlot = 36;                      // a 6x6 Jacobian
+constexpr int kFactorDoubles = 2 * kSlot + 7;  // A_0, A_1, b; odd
+constexpr int kOutDoubles = 3 * kSlot + 13;    // 3 blocks, 2 gv rows; odd
+constexpr int kErrorThreads = gt::kWarp;       // ERROR_BLOCK (Python)
+constexpr int kMaxD = 12;                      // store width d <= 12
 constexpr double kSmall = 1e-10;     // so3.py _SMALL (theta^2)
 constexpr double kJrSmall = 5e-3;    // se3.py _JR_SMALL (theta^2)
 
@@ -144,8 +185,10 @@ __device__ void se3_log(const Pose& T, double* xi) {
     E = 1.0 / 12.0 + th2 / 720.0;
   } else {
     const double th = sqrt(th2);
-    const double A = sin(th) / th;
-    const double B = (1.0 - cos(th)) / th2;
+    double sn, cs;
+    sincos(th, &sn, &cs);
+    const double A = sn / th;
+    const double B = (1.0 - cs) / th2;
     E = (1.0 - 0.5 * A / B) / th2;
   }
   double W[9], WW[9];
@@ -208,17 +251,23 @@ __device__ void jr_inverse(const double* xi, double* Jw, double* Q2) {
   const double x = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
   double a1, a2, a3, E;
   if (x < kJrSmall) {
-    a1 = 1.0 / 6 - x / 120 + x * x / 5040 - x * x * x / 362880;
-    a2 = 1.0 / 24 - x / 720 + x * x / 40320 - x * x * x / 3628800;
-    a3 = 1.0 / 120 - x / 2520 + x * x / 120960 - x * x * x / 9979200;
-    E = 1.0 / 12 + x / 720 + x * x / 30240 + x * x * x / 1209600;
+    // the plain version's series in Horner form, by constant reciprocals:
+    // no division on the chain (0.6 us of a sphere launch on an H100,
+    // scripts/port_pg_probe.py)
+    a1 = 1.0 / 6 + x * (-1.0 / 120 + x * (1.0 / 5040 - x * (1.0 / 362880)));
+    a2 = 1.0 / 24 + x * (-1.0 / 720 + x * (1.0 / 40320 - x * (1.0 / 3628800)));
+    a3 = 1.0 / 120 +
+         x * (-1.0 / 2520 + x * (1.0 / 120960 - x * (1.0 / 9979200)));
+    E = 1.0 / 12 + x * (1.0 / 720 + x * (1.0 / 30240 + x * (1.0 / 1209600)));
   } else {
     const double th = sqrt(x);
-    const double s = sin(th), c = cos(th);
+    double s, c, sh, ch;
+    sincos(th, &s, &c);
+    sincos(0.5 * th, &sh, &ch);
     a1 = (th - s) / (x * th);
     a2 = (x + 2 * c - 2) / (2 * x * x);
     a3 = (2 * th - 3 * s + th * c) / (2 * x * x * th);
-    E = 1 / x - cos(0.5 * th) / (2 * th * sin(0.5 * th));
+    E = 1 / x - ch / (2 * th * sh);
   }
   double W[9], V[9], WW[9], WV[9], VW[9], WVW[9], T1[9], T2[9], Q[9];
   hat(w, W);
@@ -245,127 +294,207 @@ __device__ void jr_inverse(const double* xi, double* Jw, double* Q2) {
   for (int i = 0; i < 9; ++i) Q2[i] = -Q2[i];
 }
 
-// A = R_w M for the 6x6 M (row-major), in place
-__device__ __forceinline__ void whiten_mat(int kind, const double* nz,
-                                           double* M) {
-  if (kind == 0) return;
-  if (kind == 1) {
+// out (6x6, row-major) = R_w A for A = sgn [[D, 0], [C, D]] (D, C 3x3)
+__device__ __forceinline__ void whiten_into(int kind, const double* nz,
+                                            const double* D, const double* C,
+                                            double sgn, double* out) {
+  double A[36];
 #pragma unroll
-    for (int i = 0; i < 6; ++i)
+  for (int i = 0; i < 3; ++i)
 #pragma unroll
-      for (int j = 0; j < 6; ++j) M[6 * i + j] *= nz[i];
-    return;
-  }
-  double col[6];
-#pragma unroll
-  for (int j = 0; j < 6; ++j) {
-#pragma unroll
-    for (int i = 0; i < 6; ++i) col[i] = M[6 * i + j];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      double acc = 0.0;
-#pragma unroll
-      for (int l = 0; l < 6; ++l) acc += nz[6 * i + l] * col[l];
-      M[6 * i + j] = acc;
+    for (int j = 0; j < 3; ++j) {
+      A[6 * i + j] = sgn * D[3 * i + j];
+      A[6 * i + 3 + j] = 0.0;
+      A[6 * (3 + i) + j] = sgn * C[3 * i + j];
+      A[6 * (3 + i) + 3 + j] = sgn * D[3 * i + j];
     }
-  }
-}
-
-// out (d x d block at H) = sign * A^T B, transposed if flip; zero padding
-__device__ __forceinline__ void store_pair(const double* A, const double* B,
-                                           double sign, bool flip, int d,
-                                           double* H) {
-  for (int i = 0; i < d; ++i)
-    for (int j = 0; j < d; ++j) {
-      double v = 0.0;
-      if (i < 6 && j < 6) {
-        const int a = flip ? j : i, b = flip ? i : j;
-        double acc = 0.0;
 #pragma unroll
-        for (int r = 0; r < 6; ++r) acc += A[6 * r + a] * B[6 * r + b];
-        v = sign * acc;
+  for (int i = 0; i < 6; ++i) {
+    double w[6];
+    if (kind == 2) {
+#pragma unroll
+      for (int l = 0; l < 6; ++l) w[l] = nz[6 * i + l];
+    }
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      double v = A[6 * i + j];
+      if (kind == 1) {
+        v *= nz[i];
+      } else if (kind == 2) {
+        v = 0.0;
+#pragma unroll
+        for (int l = 0; l < 6; ++l) v += w[l] * A[6 * l + j];
       }
-      H[d * i + j] = v;
+      out[6 * i + j] = v;
     }
+  }
 }
 
-__global__ void __launch_bounds__(kThreads) pg_linearize_kernel(
+// 8-byte copy from global to shared memory that bypasses the registers
+__device__ __forceinline__ void copy_async8(double* dst, const double* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__global__ void __launch_bounds__(kLinThreads) pg_linearize_kernel(
     int N, int arity, int d, const double* __restrict__ R,
     const double* __restrict__ t, const int* __restrict__ rows,
     const double* __restrict__ ZR, const double* __restrict__ Zt, int kind,
     int stride, const double* __restrict__ noise, double sign,
     const unsigned char* __restrict__ flip, double* __restrict__ H,
     double* __restrict__ gv) {
-  const int64_t k = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (k >= N) return;
-  double r[6];
-  Pose Tji;
-  residual(R, t, rows, ZR, Zt, arity, k, r, Tji);
-  const double* nz = kind == 0 ? nullptr : noise + (int64_t)stride * k;
-  double Jw[9], Q2[9];
-  jr_inverse(r, Jw, Q2);
-  double Aj[36];   // Jr^-1 = [[Jw, 0], [Q2, Jw]]
+  // a factor's A_0 (A_i, or a prior's A), A_1 (A_j) and b, kFactorDoubles
+  // apart; then its 6x6 blocks and gv rows, kOutDoubles apart
+  __shared__ double sBuf[kLinFactors * kOutDoubles];
+  __shared__ double sN[kLinFactors * kSlot];   // the factors' noise models
+  const int lane = threadIdx.x;
+  const int64_t k0 = (int64_t)blockIdx.x * kLinFactors;
+  const int64_t left = (int64_t)N - k0;
+  const int nf = left < kLinFactors ? (int)left : kLinFactors;
+  const int f = lane >> 1, half = lane & 1;
+  const int64_t k = k0 + f;
+  // lane 0 of a pair forms A_j (a prior's A) and b, lane 1 A_i
+  const bool forms = f < nf && (half == 0 || arity == 2);
+  const int slot = half == 0 ? arity - 1 : 0;
+
+  // the CTA's noise models, fetched while phase 1 computes r and Jr^-1
+  const int m = kind == 0 ? 0 : kind == 1 ? 6 : kSlot;   // doubles a model
+  const int nn = stride == 0 ? m : nf * m;
+  const double* src = noise + (stride == 0 ? 0 : k0 * m);
+  for (int e = lane; e < nn; e += kLinThreads) copy_async8(sN + e, src + e);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  // phase 1: a lane pair a factor
+  double r[6], D[9], C[9];
+  if (f < nf) {
+    Pose P;
+    residual(R, t, rows, ZR, Zt, arity, k, r, P);
+    if (half == 0 || arity == 1) {   // A_j: Ad(I)
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
+      for (int i = 0; i < 9; ++i) P.R[i] = (i % 4 == 0) ? 1.0 : 0.0;
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      Aj[6 * i + j] = Jw[3 * i + j];
-      Aj[6 * i + 3 + j] = 0.0;
-      Aj[6 * (3 + i) + j] = Q2[3 * i + j];
-      Aj[6 * (3 + i) + 3 + j] = Jw[3 * i + j];
+      for (int i = 0; i < 3; ++i) P.t[i] = 0.0;
     }
-  double b[6], wr[6];
-  whiten_vec(kind, nz, r, wr);
-#pragma unroll
-  for (int i = 0; i < 6; ++i) b[i] = -wr[i];
-  const int npair = arity == 2 ? 3 : 1;
-  double* Hk = H + (int64_t)npair * d * d * k;
-  double* gk = gv + (int64_t)arity * d * k;
-  if (arity == 1) {
-    whiten_mat(kind, nz, Aj);
-    store_pair(Aj, Aj, sign, false, d, Hk);
-  } else {
-    // A_i = -Jr^-1 Ad(Tji), Ad = [[R, 0], [hat(t) R, R]]:
+    double Jw[9], Q2[9];
+    jr_inverse(r, Jw, Q2);
+    // Jr^-1 Ad(P), Jr^-1 = [[Jw, 0], [Q2, Jw]], Ad = [[R, 0], [hat(t) R, R]]:
     // [[Jw R, 0], [Q2 R + Jw hat(t) R, Jw R]]
-    double tR[9], t_hat[9], JR[9], QR[9], JtR[9], Ai[36];
-    hat(Tji.t, t_hat);
-    mm3(t_hat, Tji.R, tR);
-    mm3(Jw, Tji.R, JR);
-    mm3(Q2, Tji.R, QR);
+    double tR[9], t_hat[9], JtR[9];
+    hat(P.t, t_hat);
+    mm3(t_hat, P.R, tR);
+    mm3(Jw, P.R, D);
+    mm3(Q2, P.R, C);
     mm3(Jw, tR, JtR);
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        Ai[6 * i + j] = -JR[3 * i + j];
-        Ai[6 * i + 3 + j] = -0.0;
-        Ai[6 * (3 + i) + j] = -(QR[3 * i + j] + JtR[3 * i + j]);
-        Ai[6 * (3 + i) + 3 + j] = -JR[3 * i + j];
-      }
-    whiten_mat(kind, nz, Ai);
-    whiten_mat(kind, nz, Aj);
-    store_pair(Ai, Ai, sign, false, d, Hk);
-    store_pair(Ai, Aj, sign, flip[k] != 0, d, Hk + d * d);
-    store_pair(Aj, Aj, sign, false, d, Hk + 2 * d * d);
-    for (int i = 0; i < d; ++i) {
-      double acc = 0.0;
-      if (i < 6) {
-#pragma unroll
-        for (int q = 0; q < 6; ++q) acc += Ai[6 * q + i] * b[q];
-        acc *= sign;
-      }
-      gk[i] = acc;
-    }
-    gk += d;
+    for (int i = 0; i < 9; ++i) C[i] += JtR[i];
   }
-  for (int i = 0; i < d; ++i) {
-    double acc = 0.0;
-    if (i < 6) {
+  // factor g's (0, 1) block is stored transposed where bit 2 g + 1 is set
+  const unsigned flips = __ballot_sync(
+      0xffffffffu, half == 1 && f < nf && arity == 2 && flip[k] != 0);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp();
+  double M[36];   // this lane's whitened Jacobian
+  if (forms) {
+    const double* nz = sN + (stride == 0 ? 0 : f * m);
+    double* s = sBuf + f * kFactorDoubles;
+    whiten_into(kind, nz, D, C, half == 0 ? 1.0 : -1.0, M);
 #pragma unroll
-      for (int q = 0; q < 6; ++q) acc += Aj[6 * q + i] * b[q];
-      acc *= sign;
+    for (int i = 0; i < 36; ++i) s[kSlot * slot + i] = M[i];
+    if (half == 0) {
+      double wr[6];
+      whiten_vec(kind, nz, r, wr);
+#pragma unroll
+      for (int i = 0; i < 6; ++i) s[2 * kSlot + i] = -wr[i];
     }
-    gk[i] = acc;
+  }
+  __syncwarp();
+
+  // phase 2: each lane's share of its factor's blocks, in registers: the
+  // Gram block of its own Jacobian (sign M^T M) and its gv row (sign M^T
+  // b), and rows 3 half .. 3 half + 2 of the (0, 1) block (sign A_i^T A_j,
+  // out of shared memory); then into the buffer, compact
+  double b[6], cx[18];
+  if (f < nf) {
+    const double* s = sBuf + f * kFactorDoubles;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) b[i] = s[2 * kSlot + i];
+    if (arity == 2) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        double x[6];
+#pragma unroll
+        for (int q = 0; q < 6; ++q) x[q] = s[6 * q + 3 * half + a];
+#pragma unroll
+        for (int j = 0; j < 6; ++j) {
+          double acc = 0.0;
+#pragma unroll
+          for (int q = 0; q < 6; ++q) acc += x[q] * s[kSlot + 6 * q + j];
+          cx[6 * a + j] = sign * acc;
+        }
+      }
+    }
+  }
+  __syncwarp();   // the Jacobians are read: the buffer takes the outputs
+  if (f < nf) {
+    double* o = sBuf + f * kOutDoubles;
+    if (forms) {
+#pragma unroll
+      for (int a = 0; a < 6; ++a)
+#pragma unroll
+        for (int j = a; j < 6; ++j) {
+          double acc = 0.0;
+#pragma unroll
+          for (int q = 0; q < 6; ++q) acc += M[6 * q + a] * M[6 * q + j];
+          o[2 * kSlot * slot + 6 * a + j] = sign * acc;
+          o[2 * kSlot * slot + 6 * j + a] = sign * acc;
+        }
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        double acc = 0.0;
+#pragma unroll
+        for (int q = 0; q < 6; ++q) acc += M[6 * q + i] * b[q];
+        o[3 * kSlot + 6 * slot + i] = sign * acc;
+      }
+    }
+    if (arity == 2) {
+      const bool tr = (flips >> (2 * f + 1)) & 1u;
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int j = 0; j < 6; ++j) {
+          const int i = 3 * half + a;
+          o[kSlot + (tr ? 6 * j + i : 6 * i + j)] = cx[6 * a + j];
+        }
+    }
+  }
+  __syncwarp();
+
+  // the CTA's span of H, entry q of each factor's npair d x d blocks by
+  // lane q % 32 (its place in the buffer worked out once), then of gv
+  const int npair = arity == 2 ? 3 : 1;
+  const int dd = d * d, npd = npair * dd;
+  // q / d = (q * magic) >> 16 for every q < d^2 (d <= kMaxD)
+  const unsigned magic = (65536u + d - 1) / d;
+  double* Hs = H + k0 * npd;
+  for (int q = lane; q < npd; q += kLinThreads) {
+    const int p = (q >= dd) + (q >= 2 * dd);
+    const int qq = q - p * dd;
+    const int i = (int)(((unsigned)qq * magic) >> 16), j = qq - i * d;
+    const bool pad = i >= 6 || j >= 6;
+    const int at = pad ? 0 : kSlot * p + 6 * i + j;
+#pragma unroll 4
+    for (int g = 0; g < nf; ++g)
+      Hs[g * npd + q] = pad ? 0.0 : sBuf[g * kOutDoubles + at];
+  }
+  const int ng = arity * d;
+  double* Gs = gv + k0 * ng;
+  for (int q = lane; q < ng; q += kLinThreads) {
+    const int sl = q >= d, i = q - sl * d;
+    const bool pad = i >= 6;
+    const int at = pad ? 0 : 3 * kSlot + 6 * sl + i;
+    for (int g = 0; g < nf; ++g)
+      Gs[g * ng + q] = pad ? 0.0 : sBuf[g * kOutDoubles + at];
   }
 }
 
@@ -374,29 +503,43 @@ __global__ void __launch_bounds__(kErrorThreads) pg_error_kernel(
     const double* __restrict__ t, const int* __restrict__ rows,
     const double* __restrict__ ZR, const double* __restrict__ Zt, int kind,
     int stride, const double* __restrict__ noise, double sign,
+    double* __restrict__ partial, int* __restrict__ counter,
     double* __restrict__ out) {
-  __shared__ double red[kErrorThreads];
-  double acc = 0.0;
-  for (int64_t k = threadIdx.x; k < N; k += kErrorThreads) {
+  __shared__ bool last;
+  const int64_t k = (int64_t)blockIdx.x * kErrorThreads + threadIdx.x;
+  double v = 0.0;
+  if (k < N) {
     double r[6], wr[6];
     Pose Tji;
     residual(R, t, rows, ZR, Zt, arity, k, r, Tji);
     whiten_vec(kind, kind == 0 ? nullptr : noise + (int64_t)stride * k, r, wr);
 #pragma unroll
-    for (int i = 0; i < 6; ++i) acc += wr[i] * wr[i];
+    for (int i = 0; i < 6; ++i) v += wr[i] * wr[i];
   }
-  red[threadIdx.x] = acc;
+  v = gt::warp_sum(v);
+  if (threadIdx.x == 0) {
+    partial[blockIdx.x] = v;
+    __threadfence();  // the partial is visible before the ticket says so
+    last = atomicAdd(counter, 1) == (int)gridDim.x - 1;
+  }
   __syncthreads();
-  for (int h = kErrorThreads / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
-    __syncthreads();
+  if (!last) return;
+
+  // the last CTA: every partial of this launch is written
+  __threadfence();
+  double s = 0.0;
+#pragma unroll 8
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += kErrorThreads)
+    s += __ldcg(partial + i);  // from L2: written by other SMs
+  s = gt::warp_sum(s);
+  if (threadIdx.x == 0) {
+    *out = sign * (0.5 * s);
+    *counter = 0;  // ready for the next launch on this stream
   }
-  if (threadIdx.x == 0) *out = sign * (0.5 * red[0]);
 }
 
 constexpr int kAsmThreads = 256;               // 8 warps: 8 blocks of T
 constexpr int kAsmWarps = kAsmThreads / gt::kWarp;
-constexpr int kMaxD = 12;                       // store width d <= 12
 constexpr int kAsmSlots = (kMaxD * kMaxD + gt::kWarp - 1) / gt::kWarp;
 
 __global__ void __launch_bounds__(kAsmThreads) pg_assemble_kernel(
@@ -450,29 +593,38 @@ __global__ void __launch_bounds__(kAsmThreads) pg_assemble_kernel(
 
 }  // namespace
 
-// N factors of arity 1 (prior) or 2 (between); d >= 6 the store's block
-// width; kind 0 unit, 1 diagonal, 2 gaussian noise, `stride` doubles apart
-// (0: one model shared by every factor).  H: N x npair x d*d, gv: N x arity x d.
+// N factors of arity 1 (prior) or 2 (between); 6 <= d <= 12 the store's
+// block width; kind 0 unit, 1 diagonal, 2 gaussian noise, `stride` doubles
+// apart (0: one model shared by every factor).  H: N x npair x d*d, gv: N x
+// arity x d.
 GT_EXPORT int gt_pg_linearize(int N, int arity, int d, const double* R,
                               const double* t, const int* rows,
                               const double* ZR, const double* Zt, int kind,
                               int stride, const double* noise, double sign,
                               const unsigned char* flip, double* H,
                               double* gv, void* stream) {
+  if (d < 6 || d > kMaxD) return (int)cudaErrorInvalidValue;
   if (N > 0)
-    pg_linearize_kernel<<<(N + kThreads - 1) / kThreads, kThreads, 0,
-                          (cudaStream_t)stream>>>(N, arity, d, R, t, rows, ZR,
-                                                  Zt, kind, stride, noise,
-                                                  sign, flip, H, gv);
+    pg_linearize_kernel<<<(N + kLinFactors - 1) / kLinFactors, kLinThreads,
+                          0, (cudaStream_t)stream>>>(N, arity, d, R, t, rows,
+                                                     ZR, Zt, kind, stride,
+                                                     noise, sign, flip, H, gv);
   return (int)cudaGetLastError();
 }
 
+// partial must hold max(1, ceil(N / 32)) doubles (ERROR_BLOCK in
+// linear/supernodal_kernels.py); counter is an int that is 0 between
+// launches (the kernel leaves it so); out is one double.  Launches even at
+// N = 0, so out is always written.
 GT_EXPORT int gt_pg_error(int N, int arity, const double* R, const double* t,
                           const int* rows, const double* ZR, const double* Zt,
                           int kind, int stride, const double* noise,
-                          double sign, double* out, void* stream) {
-  pg_error_kernel<<<1, kErrorThreads, 0, (cudaStream_t)stream>>>(
-      N, arity, R, t, rows, ZR, Zt, kind, stride, noise, sign, out);
+                          double sign, double* partial, int* counter,
+                          double* out, void* stream) {
+  const int grid = N > 0 ? (N + kErrorThreads - 1) / kErrorThreads : 1;
+  pg_error_kernel<<<grid, kErrorThreads, 0, (cudaStream_t)stream>>>(
+      N, arity, R, t, rows, ZR, Zt, kind, stride, noise, sign, partial,
+      counter, out);
   return (int)cudaGetLastError();
 }
 

@@ -16,9 +16,10 @@ order.  Each wrapper
     CPU tests compare against the JAX package;
   - on CUDA tensors checks dtype, shape, contiguity and device, launches its
     kernel on the current stream and counts the launch.
-It never falls back to the plain version on a CUDA tensor.  No kernel uses
-atomics: every sum runs in an order fixed by the plan, so two runs on the
-same inputs give the same bits.
+It never falls back to the plain version on a CUDA tensor.  No kernel sums
+with atomics: every sum runs in an order fixed by the plan (pg_error's
+across its CTAs by N alone; its one atomic is a completion ticket), so two
+runs on the same inputs give the same bits.
 
 Kernel 7's front kernel factors and inverts each level's fronts in one
 launch; the level's two products (the panel Lp = A L^-T as (L^-1 A^T)^T,
@@ -50,7 +51,7 @@ KERNELS = _kernels.table(
            "gtsam_tpu/linear/supernodal.py:320", [INT] * 3 + [P] * 11),
     Kernel("pg_error", "pg_between", "pg_error",
            "gtsam_tpu/graph/graph.py:108",
-           [INT, INT] + [P] * 5 + [INT, INT, P, DBL, P]),
+           [INT, INT] + [P] * 5 + [INT, INT, P, DBL, P, P, P]),
     Kernel("sn_front_factor", "sn_factor", "sn_front_factor",
            "gtsam_tpu/linear/supernodal.py:404",
            [INT] * 5 + [P] * 9 + [DBL, INT, DBL, DBL] + [P] * 5),
@@ -178,6 +179,11 @@ def _se3_specs(name, R, t, rows, ZR, Zt, kind, noise, *extra):
     return dev, NOISE_KINDS[kind], stride, ptr(noise)
 
 
+# factors of a CTA of pg_linearize_kernel, a lane pair each (kLinFactors in
+# csrc/pg_between.cu)
+LINEARIZE_FACTORS = 16
+
+
 def pg_linearize(R, t, rows, ZR, Zt, kind, noise, sign, flip, H, gv):
     """Kernel 6, linearize: for each SE3 between (arity 2) or prior (arity
     1) factor n, writes sign A_s1^T A_s2 of each slot pair (s1 <= s2; the
@@ -185,7 +191,10 @@ def pg_linearize(R, t, rows, ZR, Zt, kind, noise, sign, flip, H, gv):
     = 3 or 1, zero outside the leading 6x6) and sign A_s^T b into
     gv[n, s] ((N, arity, d)).  R, t: the SE3 values; rows: (N, arity)
     int32 rows of the slots; ZR, Zt: the measurements; noise: None (unit),
-    (1 or N, 6) inverse sigmas or (1 or N, 6, 6) square-root informations."""
+    (1 or N, 6) inverse sigmas or (1 or N, 6, 6) square-root informations.
+    On the card one launch of one-warp CTAs, LINEARIZE_FACTORS factors
+    each, that stage their factors' blocks in shared memory and copy their
+    spans of H and gv out with coalesced stores (d <= 12)."""
     args = (R, t, rows, ZR, Zt)
     if on_cpu(*args, *_tensors(noise), flip, H, gv):
         return pg_linearize_plain(*args, kind, noise, sign, flip, H, gv)
@@ -208,22 +217,27 @@ def pg_error_plain(R, t, rows, ZR, Zt, kind, noise, sign):
     return sign * (0.5 * torch.sum(wr * wr))
 
 
-# threads of pg_error_kernel's single block (kErrorThreads in pg_between.cu)
-ERROR_THREADS = 512
+# factors of a CTA of pg_error_kernel, one a thread (kErrorThreads in
+# csrc/pg_between.cu): the launch writes one partial a CTA
+ERROR_BLOCK = 32
 
 
 def pg_error(R, t, rows, ZR, Zt, kind, noise, sign):
     """Kernel 6, error: sign * 0.5 * sum ||R_w r||^2 over the batch's SE3
-    between or prior factors, a 0-d tensor.  On the card one launch of one
-    block, summed in an order fixed by N alone."""
+    between or prior factors, a 0-d tensor.  On the card one launch over a
+    grid of ceil(N / ERROR_BLOCK) CTAs, each writing its partial, the last
+    to finish summing them in index order: the order of every addition is
+    fixed by N alone."""
     args = (R, t, rows, ZR, Zt)
     if on_cpu(*args, *_tensors(noise)):
         return pg_error_plain(*args, kind, noise, sign)
     N, arity = rows.shape
     dev, code, stride, nptr = _se3_specs("pg_error", *args, kind, noise)
+    ticket, part = _kernels.sum_scratch(dev, max(1, -(-N // ERROR_BLOCK)))
     out = torch.empty((), dtype=F64, device=dev)
     KERNELS["pg_error"].launch(dev, N, arity, *map(ptr, args), code, stride,
-                               nptr, float(sign), ptr(out))
+                               nptr, float(sign), ptr(part), ptr(ticket),
+                               ptr(out))
     return out
 
 

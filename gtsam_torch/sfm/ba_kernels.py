@@ -23,7 +23,6 @@ from .._kernels import DBL as _DBL, INT as _INT, P as _P, Kernel
 from .._kernels import ROWS as _ROWS
 from .._kernels import check as _check, on_cpu as _on_cpu, ptr as _ptr
 from .._kernels import segment_owner as _segment_owner
-from .._kernels import stream as _stream
 from ..geometry.cameras import CHEIRALITY_EPS
 from ..geometry.so3 import hat
 from .bal import CHEIRALITY_PENALTY
@@ -175,12 +174,6 @@ def linearize(cam_R, cam_t, calib, points, obs_cam, obs_pt, uv,
 LINEARIZE_TILE_ROWS = 32
 ERROR_BLOCK = 1024
 
-# bal_error_kernel's completion counter, one int32 per (device, stream): the
-# last block of a launch finds itself by it and sets it back to 0, so
-# launches in one stream's order share it and concurrent streams do not.
-_ERROR_COUNTERS = {}
-
-
 def error(cam_R, cam_t, calib, points, obs_cam, obs_pt, uv):
     """Half-chi2 0.5 * sum r^2 (with the cheirality penalty), a 0-d tensor.
     On the card: one launch, summed in an order fixed by K alone."""
@@ -189,15 +182,11 @@ def error(cam_R, cam_t, calib, points, obs_cam, obs_pt, uv):
         return error_plain(*args)
     dev = _projection_specs("bal_error", *args)
     K = obs_cam.shape[0]
-    key = (dev, _stream(dev))
-    counter = _ERROR_COUNTERS.get(key)
-    if counter is None:
-        counter = _ERROR_COUNTERS[key] = torch.zeros((), dtype=I32, device=dev)
-    n = max(1, -(-K // ERROR_BLOCK))
-    buf = torch.empty(n + 1, dtype=F64, device=dev)   # n partials, the sum
-    KERNELS["bal_error"].launch(dev, K, *map(_ptr, args), _ptr(buf),
-                                _ptr(counter), _ptr(buf) + 8 * n)
-    return buf[n]
+    ticket, part = _kernels.sum_scratch(dev, max(1, -(-K // ERROR_BLOCK)))
+    out = torch.empty((), dtype=F64, device=dev)
+    KERNELS["bal_error"].launch(dev, K, *map(_ptr, args), _ptr(part),
+                                _ptr(ticket), _ptr(out))
+    return out
 
 
 # -- kernel 2: landmark elimination ------------------------------------------

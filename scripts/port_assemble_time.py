@@ -8,17 +8,19 @@ Imports gtsam_torch and chip_smoke.py from DIR (default: this checkout) and
 drives chip_smoke's sphere path there: the 50 x 50 stand-in of
 scripts/port_sphere_data.py with bench.py's prior, chordal initialization,
 optimizers.make_fused_lm on SparseSolver (SPHERE_SOLVER, SPHERE_LM).  It
-runs the path once to warm up, then N times (host clock, synchronized:
-wall to converged), and on the converged state times, with CUDA events
-(mean of N calls): the solver's system() as the path calls it, the
-matvec (lam 1e-3), one factorization and one try (solve, retract,
-error).  Then the device time per call (torch.profiler, N calls) of the
-assembly kernels (names containing "pg_assemble") inside system(), of
-kernel 9 inside the matvec and of every kernel of the factorization, and
-one traced run of the path (device busy time, idle share, kernel
-launches).  Prints one JSON line with the card's name and power limit.  Give
-two roots in turns (A, B, B, A), one process each on one card, to compare
-two versions.
+runs the path once to warm up, then N times (host clock, synchronized: wall
+to converged), and on the converged state times, with CUDA events (mean of
+N calls): the solver's system() as the path calls it, the graph's error,
+the matvec (lam 1e-3), one factorization and one try (solve, retract,
+error), and the host time of system() and the error (their calls enqueued
+back to back, the clock stopped before the device is waited for).  Then the
+device time per call (torch.profiler, N calls) of kernel 6's linearize and
+assembly kernels (names containing "pg_linearize", "pg_assemble") inside
+system(), of its error kernel inside the error, of kernel 9 inside the
+matvec and of every kernel of the factorization, and one traced run of the
+path (device busy time, idle share, kernel launches).  Prints one JSON line
+with the card's name and power limit.  Give two roots in turns (A, B, B,
+A), one process each on one card, to compare two versions.
 """
 
 import argparse
@@ -42,6 +44,20 @@ def _cuda_ms(fn, reps):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _host_ms(fn, reps):
+    """Host time per call of fn: its calls enqueued back to back, the clock
+    stopped before the device is waited for."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e3 / reps
 
 
 def _kernel_ms(fn, reps, key):
@@ -124,14 +140,21 @@ def main(argv):
         "half_chi2": err, "iterations": it, "tries": tries,
         "wall_ms": walls, "wall_median_ms": walls[len(walls) // 2],
         "system_ms": _cuda_ms(lambda: solver.system(arrays), a.reps),
+        "error_ms": _cuda_ms(lambda: fn.bound.error(arrays), a.reps),
+        "system_host_ms": _host_ms(lambda: solver.system(arrays), a.reps),
+        "error_host_ms": _host_ms(lambda: fn.bound.error(arrays), a.reps),
         "matvec_ms": _cuda_ms(lambda: s.matvec(blocks, x, 1e-3), a.reps),
         "try_ms": _cuda_ms(try_, a.reps),
         "factorize_ms": _cuda_ms(lambda: s.factorize(blocks, 1e-3), a.reps),
         "factorize_device_ms": _kernel_ms(lambda: s.factorize(blocks, 1e-3),
                                           a.reps, ""),
         "trace": trace,
+        "pg_linearize_device_ms": _kernel_ms(
+            lambda: solver.system(arrays), a.reps, "pg_linearize"),
         "pg_assemble_device_ms": _kernel_ms(lambda: solver.system(arrays),
                                             a.reps, "pg_assemble"),
+        "pg_error_device_ms": _kernel_ms(lambda: fn.bound.error(arrays),
+                                         a.reps, "pg_error"),
         "sn_matvec_device_ms": _kernel_ms(lambda: s.matvec(blocks, x, 1e-3),
                                           a.reps, "sn_matvec")}))
     return 0

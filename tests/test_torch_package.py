@@ -492,19 +492,26 @@ def _cu_source(name):
 
 def test_kernel1_sizes_match_the_source():
     """The rows per warp tile and per error block that the wrappers size
-    their buffers by are the kernel's own constants."""
-    src = _cu_source("bal_linearize")
-
-    def const(name):
+    their buffers by are the kernel's own constants (and kernel 6's: the
+    error block, by which pg_error sizes its partials, and the factors of
+    a linearize CTA, one lane pair each)."""
+    def const(src, name):
         m = re.search(rf"constexpr int {name} = ([^;]+);", src)
         assert m, name
         return m.group(1).strip()
 
-    assert const("kTileRows") == "gt::kWarp"
+    src = _cu_source("bal_linearize")
+    assert const(src, "kTileRows") == "gt::kWarp"
     assert ba_kernels.LINEARIZE_TILE_ROWS == 32
-    assert const("kErrorBlock") == "kErrorThreads * kErrorRows"
-    assert ba_kernels.ERROR_BLOCK == (int(const("kErrorThreads"))
-                                      * int(const("kErrorRows")))
+    assert const(src, "kErrorBlock") == "kErrorThreads * kErrorRows"
+    assert ba_kernels.ERROR_BLOCK == (int(const(src, "kErrorThreads"))
+                                      * int(const(src, "kErrorRows")))
+    src = _cu_source("pg_between")
+    assert const(src, "kErrorThreads") == "gt::kWarp"
+    assert supernodal_kernels.ERROR_BLOCK == 32
+    assert const(src, "kLinThreads") == "2 * kLinFactors"
+    assert supernodal_kernels.LINEARIZE_FACTORS == int(const(src,
+                                                             "kLinFactors"))
 
 
 def test_point_pass_sizes_match_the_source():

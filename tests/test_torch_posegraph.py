@@ -927,3 +927,98 @@ def test_graph_error_and_cpu_path_launches_nothing(case):
     _close(got, ref, 1e-12)
     case.ts.solve_refined(*case.systems()[2:], 1e-3, False, 1)
     assert all(n == 0 for n in _kernels.launch_counts().values())
+
+
+def test_kernel6_plain_versions_under_each_noise_kind():
+    """Kernel 6's plain versions against the JAX package on a seeded graph
+    of SE3 between factors and a prior, under unit, diagonal and gaussian
+    noise, each one model for the batch and one a factor (unit: none):
+    pg_error_plain through BoundGraph.error against the JAX bound graph's
+    error; pg_jacobians_plain's whitened A and b against factors.linearize
+    (jacfwd); and the H and gv blocks pg_linearize_plain writes (sign
+    A_s1^T A_s2, the (0, 1) block transposed where flip says so, and sign
+    A_s^T b; store width 8, its padding zero) against the same products of
+    the JAX Jacobians.  Half the between measurements lie near the relative
+    poses (residual angles of 0.006-0.03 rad, in Jr^-1's Taylor branch),
+    half ~0.3 rad away.  1e-12 relative to the largest entry of each
+    output, but 1e-11 for the near half's Jacobians and their products:
+    jacfwd differentiates the SO(3) log's closed form, whose cancellation
+    costs ~eps / theta^2 (6e-12 at 0.006 rad; torch's autograd of the same
+    formulas agrees with jacfwd to 6e-14), where the plain versions take
+    Jr^-1's Taylor series."""
+    rng = np.random.default_rng(12)
+    n, N, d = 12, 24, 8
+    T = se3.expmap(_t(rng.normal(size=(n, 6))
+                      * np.array([0.8] * 3 + [3.0] * 3)))
+    i = rng.integers(0, n, N)
+    j = (i + 1 + rng.integers(0, n - 1, N)) % n
+    near = np.where(np.arange(N) < N // 2, 1e-2, 0.3)[:, None]
+    Z = se3.compose(se3.between(SE3(T.R[i], T.t[i]), SE3(T.R[j], T.t[j])),
+                    se3.expmap(_t(rng.normal(size=(N, 6)) * near)))
+    Zp = se3.compose(SE3(T.R[3:4], T.t[3:4]),
+                     se3.expmap(_t(rng.normal(size=(1, 6)) * 0.2)))
+    flip = torch.as_tensor(rng.random(N) < 0.5)
+    A6 = rng.normal(size=(N, 6, 6))
+    info = A6 @ A6.transpose(0, 2, 1) + 6 * np.eye(6)
+    sig = rng.uniform(0.05, 2.0, size=(N, 6))
+    models = [("unit", lambda m, k: m.unit())]
+    for scope, rows in (("shared", slice(0, 1)), ("per-factor", None)):
+        def pick(a, k, rows=rows):
+            return a[rows] if rows is not None else a[:k]
+        models += [
+            (f"diagonal {scope}", lambda m, k, pick=pick: m.sigmas(
+                pick(sig, k))),
+            (f"gaussian {scope}", lambda m, k, pick=pick: m.information(
+                pick(info, k)))]
+    jT = gt.SE3(jnp.asarray(T.R.numpy()), jnp.asarray(T.t.numpy()))
+    jv = JValues({"SE3": jT}, {"SE3": np.arange(n)})
+    tv = Values({"SE3": T}, {"SE3": np.arange(n)})
+    for label, model in models:
+        jg, tg = JGraph(), FactorGraph()
+        jg.add(jfactors.between_factors(
+            "SE3", i, j, gt.SE3(jnp.asarray(Z.R.numpy()),
+                                jnp.asarray(Z.t.numpy())), model(jnoise, N)))
+        jg.add(gt.prior_factors("SE3", [3], gt.SE3(
+            jnp.asarray(Zp.R.numpy()), jnp.asarray(Zp.t.numpy())),
+            model(jnoise, 1)))
+        tg.add(tfactors.between_factors("SE3", i, j, Z, model(tnoise, N)))
+        tg.add(tfactors.prior_factors("SE3", [3], Zp, model(tnoise, 1)))
+        tb = BoundGraph(tg, tv, "cpu")
+        _close(tb.error(tv.arrays), jg.bind(jv).error(jv.arrays), 1e-12)
+        for jbatch, b, st in zip(jg.batches, tg.batches, tb.structures):
+            rows = st.rows_i32
+            xs = tuple(gt.SE3(jT.R[np.asarray(rows[:, s])],
+                              jT.t[np.asarray(rows[:, s])])
+                       for s in range(b.arity))
+            jA, jb = jfactors.linearize(jbatch, xs)
+            jA = [np.asarray(a) for a in jA]
+            args = (T.R, T.t, rows, b.measurements.R, b.measurements.t,
+                    b.noise.kind, b.noise.data)
+            A, bv = K.pg_jacobians_plain(*args)
+            M = b.num_factors
+            cut = M // 2 if b.arity == 2 else 0
+
+            def close(got, ref):
+                if cut:
+                    _close(got[:cut], ref[:cut], 1e-11)
+                _close(got[cut:], ref[cut:], 1e-12)
+            for a, ja in zip(A, jA):
+                close(a.numpy(), ja)
+            _close(bv, jb, 1e-12)
+            fl = flip[:M] if b.arity == 2 else torch.zeros(M, dtype=bool)
+            npair = 3 if b.arity == 2 else 1
+            H = torch.full((M, npair, d * d), np.nan, dtype=torch.float64)
+            gv = torch.full((M, b.arity, d), np.nan, dtype=torch.float64)
+            K.pg_linearize_plain(*args, -1.0, fl, H, gv)
+            H, gv = H.view(M, npair, d, d).numpy(), gv.numpy()
+            for p, (s1, s2) in enumerate(K._pair_slots(b.arity)):
+                ref = -np.einsum("nri,nrj->nij", jA[s1], jA[s2])
+                if s1 != s2:
+                    ref = np.where(fl.numpy()[:, None, None],
+                                   ref.transpose(0, 2, 1), ref)
+                close(H[:, p, :6, :6], ref)
+            for s in range(b.arity):
+                close(gv[:, s, :6],
+                      -np.einsum("nrd,nr->nd", jA[s], np.asarray(jb)))
+            assert not H[:, :, 6:].any() and not H[:, :, :, 6:].any()
+            assert not gv[:, :, 6:].any(), label
