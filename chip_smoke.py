@@ -36,7 +36,11 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      rows outside H's own blocks), kernel 7's front kernel and pivot check
      twice for the same bits, with every output NaN-filled first, and on a
      store with a failed pivot in a middle level (badcol and every front's
-     record equal to the plain versions'); kernels 7 and 8 on a hub with
+     record equal to the plain versions'), the front kernel's tile inverses
+     against the inverses of its own L's diagonal tiles (1e-12), kernel 7's
+     Schur update twice for the same bits on NaN-filled panels, leaving
+     every store row outside its targets untouched; kernels 7 and 8 on a
+     hub with
      600 chains of 6 poses, whose lowest level holds too many fronts for
      the cluster split; and a small pose-graph LM on the card against the
      same run on the CPU;
@@ -52,9 +56,9 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      the first run of its path alone, kernels 10 and 11 exactly once per
      panel of each factorization and once per direction of each solve,
      the sphere path must launch no
-     generic linearization, kernel 7's front kernel exactly once per level
-     and its pivot check once per factorization, kernel 8 exactly once per
-     factorization (the tile inverses) and once per direction per solve,
+     generic linearization, kernel 7's front kernel exactly once per level,
+     its Schur update once per level with a panel and its pivot check once
+     per factorization, kernel 8 exactly once per direction per solve,
      and its
      solver's owned block store must be zero outside H's own blocks after
      both runs;
@@ -80,15 +84,18 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      includes the host's), per level the front kernel's launch by events
      and device time beside the card's bound and the bound at the level's
      S SMs' share, the two library calls it replaces on the same fronts
-     (cholesky_ex + solve_triangular against I) and the level's two bmm,
-     and a try by stage;
+     (cholesky_ex + solve_triangular against I), the Schur update by events
+     and device time beside its bound and the two bmm it replaced (their
+     library yardstick), and a try by stage;
   6. one profiled run of each main path: device busy time by kernel (no
      cuSOLVER potrf, no trsv/trsm and no tril kernel may appear, and
      kernels 10 and 11 must), and the rows of the full-matrix passes (mul,
      fill, copy); then a
      profile of error calls alone, each of which must be one launch of its
      kernel and no other device work; then one profiled sphere run (no
-     potrf, trsm or trsv kernel, and the front kernel, may appear).
+     potrf, trsm or trsv kernel, and the front kernel, may appear) and one
+     profiled factorization (the front kernel, the Schur update and the
+     pivot check, and no cuBLAS product, potrf or trsm).
 The last three lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}.  Imports neither JAX nor gtsam_tpu.
 """
@@ -981,11 +988,8 @@ SPHERE_SOLVER = dict(refine_iters=1, supernodal_kwargs=dict(force_width=32))
 # ~2e-2 m at the optimum: float64 rounds each position to ~2e-14 m, ~1e-12
 # of that residual, so two float64 evaluations of r in different orders
 # (FMA or not) differ by ~1e-12 of it before any kernel error: 1e-10 for
-# A^T b.  Assembly, the Schur scatter
-# and the matvec sum the same terms in another fixed order: 1e-12; the
-# pivot check compares: exact; kernel 8's tile inverses
-# are column-by-column forward substitutions, cuBLAS's trsm another order
-# of the same sums, on tiles of Cholesky factors: 1e-12; its solves apply
+# A^T b.  Assembly and the matvec sum the same terms in another fixed
+# order: 1e-12; the pivot check compares: exact; kernel 8's solves apply
 # those inverses as products, in another order than cuBLAS/LAPACK's
 # triangular solves, which their fronts' condition numbers amplify: 1e-10
 # at lam = 1, 1e-8 at lam = 1e-4.  Kernel 7's front kernel: L and L^-1
@@ -994,26 +998,42 @@ SPHERE_SOLVER = dict(refine_iters=1, supernodal_kwargs=dict(force_width=32))
 # tiles, the inverse composed from the blocks' inverses), which the
 # fronts' condition numbers amplify as they do the solves': the solves'
 # 1e-10 at lam = 1 and 1e-8 at lam = 1e-4 (kernel 10 is held to 1e-10 on
-# blocks of condition ~5); its records (output 2) exactly; the gathered,
-# transposed panel (output 3) is a copy: exact.
+# blocks of condition ~5); its records (output 2) exactly; its tile
+# inverses (output 3) invert the diagonal tiles of its own L, which differ
+# from the plain L as above: the same tolerance (against the inverses of its
+# own L's tiles they are held to TILE_TOL, by check_level_extras); the
+# gathered, transposed panel (output 4) is a copy: exact.  Kernel 7's Schur
+# update forms the panel L^-1 At and U = Lp Lp^T as products on the
+# tensor cores in another order than the plain versions' bmm, and sums
+# U's blocks into the store as they do: its panel (output 0) and store
+# (output 1) carry the rounding of the same products as the front kernel's
+# L^-1, which the fronts' condition numbers amplify: 1e-10 at lam = 1 and
+# 1e-8 at lam = 1e-4.
 PG_TOL = {"pg_linearize": (1e-12, 1e-10), "pg_error": 1e-12,
           "pg_assemble": 1e-12,
-          "sn_front_factor": (1e-10, 1e-10, None, 0.0),
+          "sn_front_factor": (1e-10, 1e-10, None, 1e-10, 0.0),
           "sn_pivot_check": 0.0,
-          "sn_schur_scatter": 1e-12, "sn_invert_tiles": 1e-12,
+          "sn_schur_update": (1e-10, 1e-10),
           "sn_forward": 1e-10, "sn_backward": 1e-10,
           "sn_matvec": 1e-12}
 PG_SOLVE_TOL_SMALL_LAM = 1e-8
 # kernels that check_pg_kernels also calls twice for the same bits
-REPEAT_CHECKED = ("sn_front_factor", "sn_pivot_check", "pg_linearize",
-                  "pg_error")
+REPEAT_CHECKED = ("sn_front_factor", "sn_pivot_check", "sn_schur_update",
+                  "pg_linearize", "pg_error")
 # kernel 6's synthetic batches (phase 3; the largest also timed in phase 5):
 # SE3_BIG between factors over SE3_POSES poses
 SE3_BIG, SE3_POSES = 50_000, 10_000
 PG_TOL_SMALL_LAM = {"sn_forward": PG_SOLVE_TOL_SMALL_LAM,
                     "sn_backward": PG_SOLVE_TOL_SMALL_LAM,
                     "sn_front_factor": (PG_SOLVE_TOL_SMALL_LAM,
-                                        PG_SOLVE_TOL_SMALL_LAM, None, 0.0)}
+                                        PG_SOLVE_TOL_SMALL_LAM, None,
+                                        PG_SOLVE_TOL_SMALL_LAM, 0.0),
+                    "sn_schur_update": (PG_SOLVE_TOL_SMALL_LAM,
+                                        PG_SOLVE_TOL_SMALL_LAM)}
+# the front kernel's tile inverses against the inverses of its own L's
+# diagonal tiles: two inversions of the same 32 x 32 triangles of Cholesky
+# factors, in another order (kernel 10's tiles, a batched triangular solve)
+TILE_TOL = 1e-12
 
 
 def _port_module(name):
@@ -1122,8 +1142,9 @@ def plain_levels(s, blocks, lam, dd):
     """The plain versions' factorization of `blocks` on supernodal solver s,
     level by level as factorize() runs it: per level a dict of the working
     store it starts from, the front (the plain gather, for the library
-    yardstick), L, L^-1, At, Lp, U and the records; all the records (level
-    after level) and the state they reduce to."""
+    yardstick), L, L^-1, At, the tile inverses, Lp, U (for the library
+    yardstick) and the records; all the records (level after level) and
+    the state they reduce to."""
     import torch
     from gtsam_torch.linear import supernodal_kernels as K
     dv = s.dev
@@ -1136,15 +1157,14 @@ def plain_levels(s, blocks, lam, dd):
             lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, lam, dd,
             1e-6, 1e32)[0]
         rec = torch.empty(lv.S, dtype=torch.int32, device=blocks.device)
-        e["L"], e["Linv"], e["At"] = K.sn_front_factor_plain(
+        e["L"], e["Linv"], e["At"], e["tiles"] = K.sn_front_factor_plain(
             work, blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
             lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, lam, dd, rec)
         e["rec"], e["Lp"] = rec, None
         if lv.R:
-            e["Lp"] = torch.bmm(e["Linv"], e["At"]).mT
+            e["Lp"] = K.sn_schur_update_plain(e["Linv"], e["At"], lv.schur,
+                                              work, dv.schur_U)
             e["U"] = torch.bmm(e["Lp"], e["Lp"].mT)
-            K.sn_schur_scatter_plain(e["U"], lv.schur_src, lv.schur_ptr,
-                                     lv.schur_tgt, work)
         out.append(e)
         recs.append(rec)
     recs = torch.cat(recs)
@@ -1189,8 +1209,7 @@ class PGCase:
         f64 = torch.float64
         self.levels = K.level_table(
             [e["L"] for e in self.lv], [e["Lp"] for e in self.lv], d)
-        self.Linv = K.sn_invert_tiles_plain(self.levels, torch.empty(
-            (self.levels.tiles, K.TILE, K.TILE), dtype=f64, device="cuda"))
+        self.Linv = torch.cat([e["tiles"] for e in self.lv])
         self.y, self.c = K.sn_forward_plain(
             self.g, self.levels, self.Linv, dv.sol_cols, dv.gat_ptr,
             dv.gat_seg, dv.gat_src,
@@ -1234,9 +1253,6 @@ class PGCase:
         # kernel 8's outputs start as NaN: each must be written in full
         nan = float("nan")
         sol = (self.levels, self.Linv, dv.sol_cols)
-        if name == "sn_invert_tiles":
-            return [(lambda: (self.levels, torch.full_like(self.Linv, nan)),
-                     lambda r, a: (a[-1],))]
         if name == "sn_forward":
             return [(lambda: (self.g, *sol, dv.gat_ptr, dv.gat_seg,
                               dv.gat_src, torch.full_like(self.y, nan),
@@ -1262,19 +1278,26 @@ class PGCase:
                     buf.append(torch.full((lv.S, Wd, Rd), nan,
                                           dtype=torch.float64, device="cuda")
                                if lv.R else None)
+                    buf.append(torch.full(e["tiles"].shape, nan,
+                                          dtype=torch.float64, device="cuda"))
                     return (e["work"], self.blocks, lv.diag_ids, lv.diag_flip,
                             lv.diag_pad, lv.valid_diag, lv.col_vars, dv.dbc,
                             lv.panel_ids, self.lam, self.dd,
                             torch.full((lv.S,), -7, dtype=torch.int32,
                                        device="cuda"), 1e-6, 1e32,
                             tuple(buf))
-                out.append((mk, lambda r, a: (r[0], r[1], a[11])
+                out.append((mk, lambda r, a: (r[0], r[1], a[11], r[3])
                             + ((r[2],) if r[2] is not None else ())))
-            elif name == "sn_schur_scatter" and lv.R:
+            elif name == "sn_schur_update" and lv.R:
+                # the panel and the scratch NaN-filled (the panel must be
+                # written whole, U formed anew), the level's own store
                 def mk(e=e, lv=lv):
-                    return (e["U"], lv.schur_src, lv.schur_ptr, lv.schur_tgt,
-                            e["work"].clone())
-                out.append((mk, lambda r, a: (a[-1],)))
+                    nan = float("nan")
+                    return (e["Linv"], e["At"], lv.schur, e["work"].clone(),
+                            torch.full_like(dv.schur_U, nan),
+                            torch.full(e["At"].shape, nan,
+                                       dtype=torch.float64, device="cuda"))
+                out.append((mk, lambda r, a: (r, a[3])))
         return out
 
 
@@ -1480,6 +1503,47 @@ def check_fill_untouched(case, label):
                              f"fill ({label})")
 
 
+def check_level_extras(case, label):
+    """Per level on the card: the front kernel's tile inverses against the
+    inverses of its own L's diagonal tiles (tile_inverses) at TILE_TOL; the
+    Schur update on a store whose rows outside the level's targets hold NaN
+    leaves them with their bits and gives the targets the bits of an update
+    of the level's own store."""
+    import torch
+    from gtsam_torch.linear import supernodal_kernels as K
+    s = case.s
+    worst = 0.0
+    for (mk, _), e, lv in zip(case.calls("sn_front_factor"), case.lv,
+                              s.dev.levels):
+        L, _, _, tiles = K.sn_front_factor(*mk()[:-1])
+        ref = K.tile_inverses([L])
+        err = float((tiles - ref).abs().max() / ref.abs().max())
+        worst = max(worst, err)
+        if not err <= TILE_TOL:
+            raise AssertionError(f"the front kernel's tile inverses "
+                                 f"({label}): {err:.3e} from those of its "
+                                 "own L")
+        if not lv.R:
+            continue
+        other = torch.ones(s.B + 1, dtype=torch.bool, device="cuda")
+        other[lv.schur.tgt.long()] = False
+        args = [e["Linv"], e["At"], lv.schur, e["work"].clone(),
+                s.dev.schur_U]
+        K.sn_schur_update(*args)
+        nan_work = e["work"].clone()
+        nan_work[other] = float("nan")
+        K.sn_schur_update(*args[:3], nan_work, s.dev.schur_U)
+        nan = torch.full_like(nan_work[other], float("nan"))
+        if not (torch.equal(nan_work[other].view(torch.int64),
+                            nan.view(torch.int64))
+                and torch.equal(nan_work[~other], args[3][~other])):
+            raise AssertionError(f"the Schur update wrote outside its "
+                                 f"targets, or read there ({label})")
+    log(f"level extras ({label}): tile inverses {worst:.3e} from those of "
+        f"the kernel's own L (tol {TILE_TOL:.0e}); the Schur update leaves "
+        "every other store row alone")
+
+
 def check_bad_pivot(case, label):
     """The front kernel's failure records: a store whose middle level's
     first front has its first column's diagonal at -1e6 factorizes on the
@@ -1497,15 +1561,13 @@ def check_bad_pivot(case, label):
     card = torch.empty_like(recs)
     work, off = bad.clone(), 0
     for lv in s.dev.levels:
-        _, Linv, At = K.sn_front_factor(
+        _, Linv, At, _ = K.sn_front_factor(
             work, bad, lv.diag_ids, lv.diag_flip, lv.diag_pad, lv.valid_diag,
             lv.col_vars, s.dev.dbc, lv.panel_ids, case.lam, case.dd,
             card[off:off + lv.S])
         off += lv.S
         if lv.R:
-            Lp = torch.bmm(Linv, At).mT
-            K.sn_schur_scatter(torch.bmm(Lp, Lp.mT), lv.schur_src,
-                               lv.schur_ptr, lv.schur_tgt, work)
+            K.sn_schur_update(Linv, At, lv.schur, work, s.dev.schur_U)
     got = [int(bool(f.ok)), int(f.badcol)]
     log(f"bad pivot ({label}): level {m} column {c}: card (ok, badcol) "
         f"{got}, plain {state.tolist()}; records equal "
@@ -1551,6 +1613,7 @@ def pg_small_checks():
                     f"{len(case.s.level_plans)} levels, B {case.s.B}, ok "
                     f"{case.ok}")
                 check_pg_kernels(case, f"{label} lam={lam} dd={dd}")
+                check_level_extras(case, f"{label} lam={lam} dd={dd}")
                 check_fill_untouched(case, f"{label} lam={lam} dd={dd}")
                 check_bad_pivot(case, f"{label} lam={lam} dd={dd}")
                 del case
@@ -1568,8 +1631,9 @@ def pg_small_checks():
         raise AssertionError("the chains graph's widest level fits the "
                              "cluster split")
     check_pg_kernels(case, "chains lam=1 dd=False",
-                     ["sn_front_factor", "sn_pivot_check", "sn_invert_tiles",
+                     ["sn_front_factor", "sn_pivot_check", "sn_schur_update",
                       "sn_forward", "sn_backward"])
+    check_level_extras(case, "chains lam=1 dd=False")
     check_bad_pivot(case, "chains lam=1 dd=False")
     del case
     se3_batch_checks()
@@ -1668,23 +1732,27 @@ def sphere_main_path():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "sphere path")
-    # kernel 8: the tile inverses once per factorization (one a try), one
-    # forward and one backward launch per solve (two a try: the solve and
-    # its refinement)
-    # kernel 7: the front kernel once per level and the pivot check once
+    # kernel 8: one forward and one backward launch per solve (two a try:
+    # the solve and its refinement)
+    # kernel 7: the front kernel once per level (its tile inverses with it),
+    # the Schur update once per level with a panel, the pivot check once
     # per factorization
     # kernel 6: linearize once a batch an iteration, the error once a
     # batch at the start and a try
     nlev = len(solver._s.level_plans)
+    npanel = sum(lp.R > 0 for lp in solver._s.level_plans)
     nb = sum(factors.se3_route(b) is not None for b in graph.batches)
     want = {"pg_linearize": nb * a["it"], "pg_error": nb * (a["tries"] + 1),
             "sn_front_factor": nlev * a["tries"],
-            "sn_pivot_check": a["tries"],
-            "sn_invert_tiles": a["tries"], "sn_forward": 2 * a["tries"],
+            "sn_schur_update": npanel * a["tries"],
+            "sn_pivot_check": a["tries"], "sn_forward": 2 * a["tries"],
             "sn_backward": 2 * a["tries"]}
     got = {k: a["launches"][k] for k in want}
-    log(f"sphere path: kernel 6-8 launches {got} (expected {want})")
-    if got != want:
+    log(f"sphere path: kernel 6-8 launches {got} (expected {want}); "
+        f"sn_schur_scatter and sn_invert_tiles: no kernels of their own, 0 "
+        f"launches (folded into sn_schur_update and sn_front_factor)")
+    if got != want or {"sn_schur_scatter", "sn_invert_tiles"} & set(
+            _kernels.launch_counts()):
         raise AssertionError(f"kernels 6-8 launched {got}, not {want}")
     if a["generic"]:
         raise AssertionError("the sphere path linearized a batch by the "
@@ -1716,6 +1784,7 @@ def pg_work(case):
     front = [0, 0]
     gather = [0, 0]
     schur = [0, 0]
+    update = [0, 0, 0]
     inv = [0, 0]
     fwd = [0, 0]
     bwd = [0, 0]
@@ -1747,6 +1816,8 @@ def pg_work(case):
             schur[0] += (len(lp.schur_src) * (dd * 8 + 4) + 4 * (T + 1)
                          + 4 * T + 2 * T * dd * 8)
             schur[1] += len(lp.schur_src) * dd
+            for j, v in enumerate(update_work(s, lp)):
+                update[j] += v
     # the forward's g and gather CSR, and the c rows it gathers; the
     # backward's x; both read the level table
     table = len(s.level_plans) * 12 * 8
@@ -1771,9 +1842,37 @@ def pg_work(case):
             "pg_assemble": asm,
             "sn_front_factor": front, "sn_front_gather": tuple(gather),
             "sn_pivot_check": piv,
+            "sn_schur_update": tuple(update),
             "sn_schur_scatter": tuple(schur), "sn_invert_tiles": tuple(inv),
             "sn_forward": tuple(fwd), "sn_backward": tuple(bwd),
             "sn_matvec": mv, "gather": gather_csr}
+
+
+def update_work(s, lp):
+    """(bytes that must move, FP64 tensor-core operations, other FP64
+    operations) of the Schur update on level plan lp (R > 0) of supernodal
+    solver s: L^-1's lower triangle, At, the plan and the targets' store
+    rows read once; Lp and the targets' rows written once; the panel
+    L^-1 At over L^-1's triangle, U's blocks on and below the block
+    diagonal (Wd-deep dot products), and the scatter's additions."""
+    d, dd = s.d, s.d * s.d
+    S, R = lp.S, lp.R
+    Wd, Rd = lp.W * d, R * d
+    T, nsrc = len(lp.schur_tgt), len(lp.schur_src)
+    nbytes = (S * Wd * (Wd + 1) // 2 * 8 + 2 * S * Wd * Rd * 8
+              + 4 * (nsrc + 2 * T + 1) + 2 * T * dd * 8)
+    tc = S * Rd * Wd * (Wd + 1) + S * R * (R + 1) * dd * Wd
+    return nbytes, tc, nsrc * dd
+
+
+def bound_ms(nbytes, tc_ops=0, ops=0):
+    """(the least time of work that moves nbytes and does tc_ops on the
+    FP64 tensor cores and ops on the FP64 units, in ms; "bytes" or
+    "operations", whichever bounds it)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (tc_ops / FP64_TC_FLOPS + ops / FP64_FLOPS) * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def se3_work(name, rows, noise, d):
@@ -1799,8 +1898,9 @@ def front_work(s, lp):
     """((bytes, operations) of the gather, (bytes, FP64 operations) of the
     rest) of the front kernel on level plan lp of supernodal solver s: the
     gather's inputs (the store's blocks, the plan's ids, flips, padding,
-    masks, columns) read once; L, L^-1 and At written, the records; a
-    front's factorization and its inverse, Wd^3 / 3 operations each."""
+    masks, columns) read once; L, L^-1, At and the tile inverses written,
+    the records; a front's factorization and its inverse, Wd^3 / 3
+    operations each."""
     import numpy as np
     d, dd, B = s.d, s.d * s.d, s.B
     S, W, R = lp.S, lp.W, lp.R
@@ -1810,7 +1910,8 @@ def front_work(s, lp):
         ids = np.union1d(ids, lp.panel_ids[lp.panel_ids < B])
     gather = (ids.size * dd * 8 + S * W * W * 5 + S * Wd * 9 + S * W * 4
               + (S * R * W * 4 if R else 0), S * Wd)
-    return gather, (2 * S * Wd * Wd * 8 + S * Rd * Wd * 8 + S * 4,
+    tiles = S * -(-Wd // 32) * 32 * 32 * 8
+    return gather, (2 * S * Wd * Wd * 8 + S * Rd * Wd * 8 + tiles + S * 4,
                     2 * S * Wd ** 3 // 3)
 
 
@@ -1884,13 +1985,6 @@ def _library_call(name, case):
         out = torch.zeros((s.B + 1, s.d * s.d), dtype=torch.float64,
                           device="cuda")
         return lambda: out.index_add_(0, idx, hc)
-    if name == "sn_invert_tiles":
-        # every tile in one batched triangular solve against the identity
-        # (the tiles gathered outside the timing)
-        tiles = K.diagonal_tiles(case.levels.Ls)
-        eye = torch.eye(32, dtype=torch.float64, device="cuda").expand_as(
-            tiles)
-        return lambda: torch.linalg.solve_triangular(tiles, eye, upper=False)
     if name in ("sn_forward", "sn_backward"):
         # the whole factor as one sparse CSR triangle (built outside the
         # timing), then one triangular solve: y = L^-1 g at the column
@@ -1915,36 +2009,6 @@ def _library_call(name, case):
             raise AssertionError(f"the library call of {name} computes "
                                  "something else")
         return call
-    if name == "sn_schur_scatter":
-        # one index_add_ per level with a panel, element by element, U's
-        # entries straight to their target block's entries (alpha -1); the
-        # entries of U that no target takes (upper blocks, padding) go to
-        # spare slots of their own after the working copy, so no atomic
-        # contends for them
-        d, dd = s.d, s.d * s.d
-        ii = torch.arange(d, device="cuda")
-        calls = []
-        for lv, e in zip(dv.levels, case.lv):
-            if not lv.R:
-                continue
-            S, R = lv.S, lv.R
-            tgt = torch.full((S * R * R,), -1, dtype=torch.long,
-                             device="cuda")
-            tgt[lv.schur_src.long()] = torch.repeat_interleave(
-                lv.schur_tgt.long(),
-                (lv.schur_ptr[1:] - lv.schur_ptr[:-1]).long())
-            # U[s, a*d + i, b*d + j] -> work[tgt(s, a, b), i*d + j]
-            t5 = tgt.view(S, R, 1, R, 1)
-            idx = (t5 * dd + ii.view(1, 1, d, 1, 1) * d
-                   + ii.view(1, 1, 1, 1, d))
-            u = e["U"].reshape(-1)
-            spare = e["work"].numel() + torch.arange(
-                u.numel(), device="cuda").view(idx.shape)
-            idx = torch.where(t5 >= 0, idx, spare).reshape(-1)
-            calls.append((torch.cat([e["work"].reshape(-1),
-                                     torch.zeros_like(u)]), idx, u))
-        return lambda: [w.index_add_(0, idx, u, alpha=-1.0)
-                        for w, idx, u in calls]
     if name == "sn_matvec":
         # the symmetric H + damping on T's blocks as one CSR matrix, then
         # one spmv
@@ -2003,15 +2067,19 @@ def front_levels(s, case, ms_fn):
     launch by events and device time beside two bounds, the card's and the
     share of the level's S SMs (one CTA a front; as kernel 10's one-SM
     bound), the library yardstick of two calls on the same fronts
-    (cholesky_ex, then solve_triangular of its factor against I), and the
-    level's two products (the panel Lp^T = L^-1 At, U = Lp Lp^T), each
-    beside its bound.  Returns (rows, the front kernel's per-factorization
-    sums for its kernel row)."""
+    (cholesky_ex, then solve_triangular of its factor against I); the Schur
+    update's launch by events and device time beside its bound and its work
+    items per phase (update_split), and the two products it replaced as its
+    library yardstick (the panel Lp^T = L^-1 At and U = Lp Lp^T by bmm,
+    events and device time), each beside its bound.  Returns (rows, the
+    front kernel's and the update's per-factorization sums for their
+    kernel rows)."""
     import torch
     from gtsam_torch.linear import supernodal_kernels as K
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, tot = [], {}
     calls = case.calls("sn_front_factor")
+    updates = iter(case.calls("sn_schur_update"))
     for lp, e, (mk, _) in zip(s.level_plans, case.lv, calls):
         Wd, Rd = lp.W * s.d, lp.R * s.d
         (gb, gops), (fb, fops) = front_work(s, lp)
@@ -2032,21 +2100,37 @@ def front_levels(s, case, ms_fn):
                "library_two_calls_ms": ms_fn(lib, reps=10),
                "library_two_calls_device_ms": device_ms(lib)}
         if lp.R:
-            row["panel_bmm_ms"] = ms_fn(
-                lambda e=e: torch.bmm(e["Linv"], e["At"]), reps=10)
+            uargs = next(updates)[0]()
+            row["update_ms"] = ms_fn(lambda: K.sn_schur_update(*uargs),
+                                     reps=10)
+            row["update_device_ms"] = device_ms(
+                lambda: K.sn_schur_update(*uargs))
+            row["update_bound_ms"], row["update_bound_by"] = bound_ms(
+                *update_work(s, lp))
+            row["update_split"] = K.update_split(
+                lp.S, lp.W, lp.R, s.d, len(lp.schur_tgt))._asdict()
+
+            def panel(e=e):
+                return torch.bmm(e["Linv"], e["At"])
+
+            def u(e=e):
+                return torch.bmm(e["Lp"], e["Lp"].mT)
+            row["panel_bmm_ms"] = ms_fn(panel, reps=10)
+            row["panel_bmm_device_ms"] = device_ms(panel)
             row["panel_bmm_bound_ms"] = max(
                 2 * lp.S * Rd * Wd * Wd / FP64_TC_FLOPS,
                 (lp.S * Wd * Wd + 2 * lp.S * Rd * Wd) * 8
                 / HBM_BYTES_PER_S) * 1e3
-            row["u_bmm_ms"] = ms_fn(
-                lambda e=e: torch.bmm(e["Lp"], e["Lp"].mT), reps=10)
+            row["u_bmm_ms"] = ms_fn(u, reps=10)
+            row["u_bmm_device_ms"] = device_ms(u)
             row["u_bmm_bound_ms"] = max(
                 2 * lp.S * Rd * Rd * Wd / FP64_TC_FLOPS,
                 (lp.S * Rd * Wd + lp.S * Rd * Rd) * 8 / HBM_BYTES_PER_S) * 1e3
         for k in ("front_ms", "front_device_ms", "front_bound_ms",
                   "front_bound_sms_ms", "library_two_calls_ms",
-                  "library_two_calls_device_ms", "panel_bmm_ms",
-                  "u_bmm_ms"):
+                  "library_two_calls_device_ms", "update_ms",
+                  "update_device_ms", "update_bound_ms", "panel_bmm_ms",
+                  "panel_bmm_device_ms", "u_bmm_ms", "u_bmm_device_ms"):
             tot[k] = tot.get(k, 0.0) + row.get(k, 0.0)
         log(f"level S {lp.S} W*d {Wd} R*d {Rd}: {json.dumps(row)}")
         rows.append(row)
@@ -2055,8 +2139,10 @@ def front_levels(s, case, ms_fn):
                   "library_two_calls_ms": tot["library_two_calls_ms"],
                   "library_two_calls_device_ms":
                       tot["library_two_calls_device_ms"],
-                  "level_algebra_ms": tot["front_ms"] + tot["panel_bmm_ms"]
-                  + tot["u_bmm_ms"]}
+                  "level_algebra_ms": tot["front_ms"] + tot["update_ms"]}, {
+        "library_two_bmm_ms": tot["panel_bmm_ms"] + tot["u_bmm_ms"],
+        "library_two_bmm_device_ms": tot["panel_bmm_device_ms"]
+        + tot["u_bmm_device_ms"]}
 
 
 def pg_kernel_times(main, ms_fn):
@@ -2076,6 +2162,7 @@ def pg_kernel_times(main, ms_fn):
     case = PGCase(graph, vals0.replace_arrays(arrays), 1.0, False,
                   **SPHERE_SOLVER["supernodal_kwargs"])
     checks = check_pg_kernels(case, "sphere")
+    check_level_extras(case, "sphere")
     check_fill_untouched(case, "sphere")
     work = pg_work(case)
     kernels = []
@@ -2093,29 +2180,31 @@ def pg_kernel_times(main, ms_fn):
         library_ms = ms_fn(lib, reps=20) if lib is not None else None
         dev_ms = device_ms(lambda: run(kfn))
         lib_dev_ms = device_ms(lib) if lib is not None else None
-        nbytes, flops = work[name]
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        # the front kernel's products run on the FP64 tensor cores
-        t_ops = flops / (FP64_TC_FLOPS if name == "sn_front_factor"
-                         else FP64_FLOPS) * 1e3
+        nbytes, flops, *more = work[name]
+        # the front kernel's and the Schur update's products run on the
+        # FP64 tensor cores
+        if name == "sn_schur_update":
+            bound, bound_by = bound_ms(nbytes, flops, *more)
+        elif name == "sn_front_factor":
+            bound, bound_by = bound_ms(nbytes, flops)
+        else:
+            bound, bound_by = bound_ms(nbytes, 0, flops)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"gtsam_torch/csrc/{kern.source}.cu",
             "replaces": kern.replaces,
             "launches": main["runs"][0]["launches"][name],
             "max_abs_err": checks[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound, "bound_by": bound_by,
             "library_ms": library_ms, "calls_timed": len(built),
             "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
         log(f"time {name}: {ms:.4f} ms for {len(built)} launches, device "
             f"{dev_ms:.4f} ms (plain {plain_ms:.4f} ms, library {library_ms}, "
-            f"device {lib_dev_ms}, bound "
-            f"{max(t_bytes, t_ops):.4f} ms by {kernels[-1]['bound_by']}, "
+            f"device {lib_dev_ms}, bound {bound:.4f} ms by {bound_by}, "
             f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP); launches on "
             f"the path {kernels[-1]['launches']}")
         if name in ("pg_linearize", "pg_error", "pg_assemble", "sn_matvec",
-                    "sn_invert_tiles", "sn_forward", "sn_backward",
+                    "sn_schur_update", "sn_forward", "sn_backward",
                     "sn_front_factor"):
             for line in ptxas_lines(_build.BUILD_LOG.get(kern.source, ""),
                                     name + "_kernel"):
@@ -2124,32 +2213,33 @@ def pg_kernel_times(main, ms_fn):
     # the segment sum of the forward pass is no kernel of its own any more:
     # sn_forward gathers it per column (its bound: the gather's share of
     # sn_forward's)
-    gb, gops = work["gather"]
-    t_bytes, t_ops = gb / HBM_BYTES_PER_S * 1e3, gops / FP64_FLOPS * 1e3
-    kernels.append({
-        "name": "sn_segment_add", "route": "cuda",
-        "source": "gtsam_torch/csrc/sn_solve.cu",
-        "replaces": "gtsam_tpu/linear/supernodal.py:589", "launches": 0,
-        "max_abs_err": None, "ms": None, "plain_ms": None,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None, "folded_into": "sn_forward"})
-    # the front gather is no kernel of its own any more: the front kernel
-    # gathers its front (its bound: the gather's share of the front
-    # kernel's)
-    gb, gops = work["sn_front_gather"]
-    t_bytes, t_ops = gb / HBM_BYTES_PER_S * 1e3, gops / FP64_FLOPS * 1e3
-    kernels.append({
-        "name": "sn_front_gather", "route": "cuda",
-        "source": "gtsam_torch/csrc/sn_factor.cu",
-        "replaces": "gtsam_tpu/linear/supernodal.py:383", "launches": 0,
-        "max_abs_err": None, "ms": None, "plain_ms": None,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None, "folded_into": "sn_front_factor"})
-    levels, front_row = front_levels(solver._s, case, ms_fn)
-    row = next(k for k in kernels if k["name"] == "sn_front_factor")
-    row.update(front_row)
+    # kernels folded into others: rows of their own with 0 launches and
+    # their bound (their share of the kernel that took them over): the
+    # forward's segment sum (sn_forward gathers it per column), the front
+    # gather (the front kernel gathers its front), the Schur scatter (the
+    # Schur update's last phase) and the tile inverses (the front kernel
+    # copies them out of its diagonal blocks' inverses)
+    for name, source, line, into, key in (
+            ("sn_segment_add", "sn_solve", 589, "sn_forward", "gather"),
+            ("sn_front_gather", "sn_factor", 383, "sn_front_factor",
+             "sn_front_gather"),
+            ("sn_schur_scatter", "sn_factor", 436, "sn_schur_update",
+             "sn_schur_scatter"),
+            ("sn_invert_tiles", "sn_solve", 583, "sn_front_factor",
+             "sn_invert_tiles")):
+        bound, bound_by = bound_ms(work[key][0], 0, work[key][1])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"gtsam_torch/csrc/{source}.cu",
+            "replaces": f"gtsam_tpu/linear/supernodal.py:{line}",
+            "launches": 0, "max_abs_err": None, "ms": None,
+            "plain_ms": None, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None, "folded_into": into})
+    levels, front_row, update_row = front_levels(solver._s, case, ms_fn)
+    next(k for k in kernels if k["name"] == "sn_front_factor").update(
+        front_row)
+    next(k for k in kernels if k["name"] == "sn_schur_update").update(
+        update_row)
     # one try by stage, at the converged state
     s = solver._s
     blocks, g = s.system(arrays)
@@ -2194,8 +2284,8 @@ def profile_sphere(main):
         "idle_share": 1.0 - busy / traced_ms if rows else None,
         "launches": sum(r[2] for r in rows),
         "by_kernel_ms": [[k[:80], ms, c] for k, ms, c in rows[:24]]}}))
-    # the level algebra runs on kernel 7's front kernel and cuBLAS's
-    # products: no cuSOLVER factorization and no triangular-solve kernel
+    # the level algebra runs on kernel 7's front kernel and Schur update:
+    # no cuSOLVER factorization and no triangular-solve kernel
     library = [k for k, _, _ in rows if any(
         w in k.lower() for w in ("potrf", "trsm", "trsv"))]
     fronts = {k[:60]: c for k, _, c in rows if "sn_front_factor" in k}
@@ -2204,6 +2294,41 @@ def profile_sphere(main):
     if library or not fronts:
         raise AssertionError(f"the traced sphere run's level algebra: "
                              f"{library}, {fronts}")
+
+
+def profile_factorize(main):
+    """Phase 6 of the pose graph: one traced factorization of the sphere's
+    converged system: each level's front kernel, each level's Schur update
+    (the levels with a panel) and one pivot check, and no cuBLAS product,
+    potrf or trsm."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    s = main["solver"]._s
+    blocks, _ = s.system(main["runs"][0]["arrays"])
+    s.factorize(blocks, 1e-3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s.factorize(blocks, 1e-3)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    counts = {k: sum(c for n, c in rows if k in n)
+              for k in ("sn_front_factor_kernel", "sn_schur_update_kernel",
+                        "sn_pivot_kernel")}
+    want = {"sn_front_factor_kernel": len(s.level_plans),
+            "sn_schur_update_kernel": sum(lp.R > 0 for lp in s.level_plans),
+            "sn_pivot_kernel": 1}
+    library = [k for k, _ in rows if any(
+        w in k.lower() for w in ("gemm", "potrf", "trsm", "cublas", "xmma",
+                                 "cutlass"))]
+    names = [[k[:60], c] for k, c in rows]
+    log(f"  traced factorize: device kernels {names}; kernel 7 {counts} "
+        f"(expected {want}); library products or solves {library}")
+    if library or counts != want:
+        raise AssertionError(f"the traced factorization: {counts}, "
+                             f"{library}")
 
 
 def main(argv):
@@ -2569,6 +2694,7 @@ def main(argv):
                              f"alone: {rows}")
 
     profile_sphere(sphere)
+    profile_factorize(sphere)
 
     log(json.dumps({"kernels": kernels + dense_rows + pg_kernels}))
     log(smi)

@@ -3,11 +3,10 @@
 // Replaces: gtsam_tpu/linear/supernodal.py::factorize (:372-442): the damping
 // (:383-392), the front and panel gathers (:398-403, :429-430), the batched
 // Cholesky (:404), the pivot test and first bad column (:404-417), the
-// zeroing of non-finite factor entries (:419, :434) and the sorted
-// segment-sum Schur scatter (:436-441).  The panel Lp = A L^-T (:431) is a
-// batched product with the inverse this kernel writes, and U = Lp Lp^T
-// (:436) another, both in the library (torch.bmm), as the JAX package
-// leaves its products to XLA.
+// zeroing of non-finite factor entries (:419, :434), the panel Lp = A L^-T
+// (:431-434), U = Lp Lp^T (:436) and the sorted segment-sum Schur scatter
+// (:436-441); and kernel 8's inverses of the fronts' 32 x 32 diagonal tiles
+// (:583, which the JAX package leaves to its triangular solves).
 //
 // gt_sn_front_factor: one CTA (8 warps) per front of the level, one launch.
 // The CTA gathers its front from the working store into the level's L^-1
@@ -27,7 +26,10 @@
 // column-major per front (what level_table reads), zero above the diagonal
 // and non-finite entries zeroed, and the front's first bad pivot (a true
 // dimension whose L_kk is not finite or not positive) as its permuted
-// column, or -1.  No atomics.
+// column, or -1.  Each diagonal block's L_D^-1 holds the inverses of L's
+// 32 x 32 diagonal tiles on its own diagonal (L_D is block lower
+// triangular in tiles), the identity past the front's width: they are
+// copied into kernel 8's packed tile buffer.  No atomics.
 // Bound on the H100: the FP64 tensor-core operations of the products and
 // factorizations at the card's rate (or the fronts' bytes); one CTA a front
 // holds a level of S fronts to S of the 132 SMs, and the diagonal blocks'
@@ -41,14 +43,50 @@
 // gt_sn_pivot_check: one block reduces the first-bad records of every front
 // of a factorization (level after level) to state = (ok, badcol): the first
 // bad pivot of the first bad level, by a fixed min-tree.
-// gt_sn_schur_scatter: one thread per entry of each unique target block;
-// sums the level's U = Lp Lp^T blocks of its segment in the plan's order
-// and subtracts once.  No atomics.
+// gt_sn_schur_update: the level's tail in one cooperative launch of CTAs
+// that share out the level's output tiles, whatever its count of fronts,
+// with a grid barrier between three phases:
+//   1. the panel: Lp^T = L^-1 A^T of every front, in 64 x 64 tiles, from
+//      the front kernel's L^-1 and At, non-finite entries zeroed; written
+//      as (S, Wd, Rd) row-major, which is Lp column-major per front (what
+//      level_table keeps, and kernel 8 reads);
+//   2. U = Lp Lp^T: only the 64 x 64 tiles, and within them the 16 x 8
+//      product blocks, that hold an entry of a d x d block on or below the
+//      block diagonal (the blocks the plan scatters), into a scratch of
+//      the solver's (S, Rd, Rd) that L2 holds;
+//   3. the scatter: a thread per row of each unique target block sums its
+//      segment's U blocks in the plan's order and subtracts once.
+// A product phase of few tiles (a level of one or two fronts) splits each
+// tile's depth into k-chunks, a CTA each, and sums their partial tiles in
+// chunk order after a barrier.
+// Both products are C = P^T Q of operands stored k-major (P[k][m]: L^-1 is
+// column-major, At and Lp^T row-major), staged by cp.async 32 rows deep
+// through a ring of three shared-memory buffers (a 64-column slab each,
+// pitch 68: a half-warp's fragment loads hit 16 distinct banks) and
+// multiplied on the FP64 tensor cores (mma.sync m16n8k16), a warp a 32 x 32
+// quadrant; the panel skips the 16 x 16 blocks of L^-1 above its diagonal.
+// Values written in this launch by other CTAs are read past L1 (cp.async.cg,
+// ld.cg).  No atomics: every sum runs in a fixed order.
+// Bound on the H100: the products' FP64 tensor-core operations (L^-1's
+// triangle and U's block triangle counted once), ~2.6 GFLOP a sphere
+// factorization (0.040 ms) against ~0.12 GB moved (0.035 ms).  On an H100
+// (scripts/port_update_probe.py) the sphere's seven launches take ~0.31 ms
+// of device time: ~0.13 the panel, ~0.13 U, ~0.03 the scatter, ~0.03 the
+// launches and grid barriers.  The products run at a fair share of one
+// SM's tensor cores, but a level's time is its deepest tile's chain of
+// slabs, and 64 x 64 tiles waste work on ragged widths (R*d 144, 198, 426,
+// 450); splitting the tiles of the wider levels into k-chunks cost more in
+// partial tiles than it saved in balance.
+#include <cooperative_groups.h>
+
+#include <algorithm>
+
 #include "chol_tiles.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kElemThreads = 256;
 constexpr int kCheckThreads = 1024;
 constexpr int kNB = chol::kNB;
 constexpr int kTile = chol::kTile;
@@ -275,7 +313,8 @@ __global__ void __launch_bounds__(chol::kThreads, 1) sn_front_factor_kernel(
     const int* __restrict__ panel_ids, double lam, int diagonal_damping,
     double min_diag, double max_diag, double* __restrict__ Lout,
     double* __restrict__ Xout, double* __restrict__ At,
-    double* __restrict__ Dinv, int* __restrict__ rec) {
+    double* __restrict__ Dinv, double* __restrict__ tiles,
+    int* __restrict__ rec) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ double rinv[kNT * kTile];
   __shared__ __align__(16) double lt[kNT * kTile * chol::kLtPitch];
@@ -291,6 +330,7 @@ __global__ void __launch_bounds__(chol::kThreads, 1) sn_front_factor_kernel(
   double* Wk = Xout + fo;   // the working front (row-major), then L^-1
   double* Lo = Lout + fo;   // L, column-major
   double* Ds = Dinv + (int64_t)s * nb * kNB * kNB;
+  double* Ts = tiles + (int64_t)s * ((Wd + kTile - 1) / kTile) * kTile * kTile;
   auto width = [&](int k) { return min(kNB, Wd - k * kNB); };
   auto at = [&](int i, int j) {   // block (i, j) of the row-major view
     return Wk + (int64_t)i * kNB * Wd + j * kNB;
@@ -430,6 +470,13 @@ __global__ void __launch_bounds__(chol::kThreads, 1) sn_front_factor_kernel(
                        !(p > 0.0 && isfinite(p));
       const unsigned m = __ballot_sync(0xffffffffu, bad);
       if (lane == 0) first[warp] = m ? kTile * warp + __ffs(m) - 1 : kNB;
+    }
+    // L_D^-1's 32 x 32 diagonal tiles, in shared memory, into kernel 8's
+    // buffer (tile 4 k + t of the front, row-major), a warp per row
+    for (int q = warp; q < (w + kTile - 1) / kTile * kTile; q += kWarps) {
+      const int t = q / kTile, r = q % kTile;
+      Ts[((int64_t)(k * kNT + t) * kTile + r) * kTile + lane] =
+          b.x(t, t)[r * kLd + lane];
     }
     // L_D into L (column-major, zero above the diagonal) from its tiles, a
     // lane per row
@@ -571,26 +618,337 @@ __global__ void __launch_bounds__(kCheckThreads) sn_pivot_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kElemThreads) sn_schur_kernel(
-    int64_t total, int R, int d, int u_cm, const double* __restrict__ U,
-    const int* __restrict__ src, const int* __restrict__ ptr,
-    const int* __restrict__ tgt, double* __restrict__ work) {
-  const int64_t idx = (int64_t)blockIdx.x * kElemThreads + threadIdx.x;
-  if (idx >= total) return;
-  const int dd = d * d, Rd = R * d;
-  const int64_t t = idx / dd;
-  const int e = (int)(idx - t * dd);
-  const int i = e / d, j = e - i * d;
-  double acc = 0.0;
-  for (int k = ptr[t]; k < ptr[t + 1]; ++k) {
-    const int64_t sk = src[k];
-    const int64_t s = sk / ((int64_t)R * R);
-    const int rem = (int)(sk - s * R * R);
-    const int a = rem / R, b = rem - a * R;
-    const int64_t r = a * d + i, c = b * d + j;
-    acc += U[s * Rd * Rd + (u_cm ? c * Rd + r : r * Rd + c)];
+// -- the level's tail: panel, U's block-lower tiles and the scatter ---------
+
+constexpr int kUT = 64;                    // a CTA's output tile
+constexpr int kUThreads = 128;             // 4 warps, a 32 x 32 quadrant each
+constexpr int kUPitch = kUT + 4;           // shared row pitch of a slab
+constexpr int kUSlab = kTile * kUPitch;    // one operand's 32-row slab
+constexpr int kUStages = 3;                // slabs in flight
+constexpr int kUShm = kUStages * 2 * kUSlab * (int)sizeof(double);
+constexpr int kUTileSq = kUT * kUT;        // a partial tile in the scratch
+constexpr int kMaxD = 12;                  // the widest block the scatter takes
+constexpr int kMaxChunks = 8;              // k-chunks of a split product's tile
+
+// Queue the copy of rows k0 .. k0 + 31 (< K) and columns c0 .. c0 + 63
+// (< cols) of a k-major operand (entry (k, c) at p[k * ld + c]) into dst
+// (pitch kUPitch), zero outside: 16 bytes a cp.async (widths are even, so
+// a pair is whole or absent), a warp a row.
+__device__ __forceinline__ void stage_kslab(const double* p, int64_t ld,
+                                            int K, int cols, int k0, int c0,
+                                            double* dst) {
+#pragma unroll
+  for (int q = 0; q < kTile * kUT / 2 / kUThreads; ++q) {
+    const int z = threadIdx.x + kUThreads * q;
+    const int r = z >> 5, c = 2 * (z & 31);
+    const int valid = k0 + r < K ? max(0, min(2, cols - c0 - c)) : 0;
+    const double* src = valid ? p + (int64_t)(k0 + r) * ld + c0 + c : p;
+    const unsigned d =
+        (unsigned)__cvta_generic_to_shared(dst + r * kUPitch + c);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+                 "l"(src), "r"(8 * valid)
+                 : "memory");
   }
-  work[(int64_t)tgt[t] * dd + e] -= acc;
+}
+
+enum UpdateProduct { kPanel, kLowerU };
+
+// The 64 x 64 tile (m0, n0) of C = P^T Q over k in [k0, k1), P and Q
+// k-major (rows ldp, ldq apart; pcols and qcols columns, zero past them),
+// then epi(r, c, two values) for the pairs (r, c), (r, c + 1) of every
+// 16 x 8 block the warps formed.  Blocks past C's rows (pcols) or columns
+// (qcols), and k16 steps past k1, are skipped.  kPanel: P is L^-1
+// (P[k][m] = L^-1[m][k], zero for k > m), whose 16 x 16 blocks above the
+// diagonal are skipped.  kLowerU: P = Q, and only the blocks holding an
+// entry (r, c) with c / d <= r / d are formed; a tile on the diagonal
+// stages its one operand once.  Warp (wm, wn) forms quadrant (32 wm,
+// 32 wn): acc[mb][nb][v] is entry (32 wm + 16 mb + g + 8 (v / 2),
+// 32 wn + 8 nb + 2 q + v % 2), g = lane / 4, q = lane % 4 (kernel 10's
+// fragment layout).  Ends with a CTA barrier.
+template <int kMode, typename F>
+__device__ __forceinline__ void tile_product(const double* P, int64_t ldp,
+                                             int pcols, const double* Q,
+                                             int64_t ldq, int qcols, int k0,
+                                             int k1, int m0, int n0, int d,
+                                             double* smem, F epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int r0 = m0 + 32 * (warp >> 1), c0 = n0 + 32 * (warp & 1);
+  const bool same = kMode == kLowerU && m0 == n0;
+  unsigned live = 0u;   // bit 4 mb + nb: the block is formed
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+      if (r0 + 16 * mb < pcols && c0 + 8 * nb < qcols &&
+          (kMode != kLowerU || (c0 + 8 * nb) / d <= (r0 + 16 * mb + 15) / d))
+        live |= 1u << (4 * mb + nb);
+  double acc[2][4][4];
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[mb][nb][v] = 0.0;
+  const int nslab = (k1 - k0 + kTile - 1) / kTile;
+  auto stage = [&](int i) {
+    if (i < nslab) {
+      double* buf = smem + (i % kUStages) * 2 * kUSlab;
+      stage_kslab(P, ldp, k1, pcols, k0 + kTile * i, m0, buf);
+      if (!same)
+        stage_kslab(Q, ldq, k1, qcols, k0 + kTile * i, n0, buf + kUSlab);
+    }
+    commit_slabs();
+  };
+  stage(0);
+  stage(1);
+  for (int i = 0; i < nslab; ++i) {
+    stage(i + 2);
+    await_slabs<kUStages - 1>();
+    __syncthreads();
+    const double* buf = smem + (i % kUStages) * 2 * kUSlab;
+    const double* As = buf + (r0 - m0);
+    const double* Bs = buf + (same ? 0 : kUSlab) + (c0 - n0);
+    if (live) {
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const int kk = 16 * ks, kabs = k0 + kTile * i + kk;
+        // the m16 blocks this k16 step reaches: none past k1; kPanel:
+        // only those whose last row is at or below the step's first k
+        unsigned rows = kabs < k1 ? 3u : 0u;
+        if (kMode == kPanel) {
+#pragma unroll
+          for (int mb = 0; mb < 2; ++mb)
+            if (kabs > r0 + 16 * mb + 15) rows &= ~(1u << mb);
+        }
+        if (!rows) continue;
+        double a[2][8], b[4][4];
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+          for (int v = 0; v < 8; ++v)
+            a[mb][v] = As[(kk + q + 4 * (v >> 1)) * kUPitch + 16 * mb + g +
+                          8 * (v & 1)];
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int v = 0; v < 4; ++v)
+            b[nb][v] = Bs[(kk + q + 4 * v) * kUPitch + 8 * nb + g];
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) {
+            if (!(rows >> mb & 1u) || !(live >> (4 * mb + nb) & 1u))
+              continue;
+            double* c = acc[mb][nb];
+            asm("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+                "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
+                "{%12, %13, %14, %15}, {%0, %1, %2, %3};"
+                : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+                : "d"(a[mb][0]), "d"(a[mb][1]), "d"(a[mb][2]), "d"(a[mb][3]),
+                  "d"(a[mb][4]), "d"(a[mb][5]), "d"(a[mb][6]), "d"(a[mb][7]),
+                  "d"(b[nb][0]), "d"(b[nb][1]), "d"(b[nb][2]),
+                  "d"(b[nb][3]));
+          }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (live >> (4 * mb + nb) & 1u)
+          epi(r0 + 16 * mb + g + 8 * h, c0 + 8 * nb + 2 * q,
+              acc[mb][nb][2 * h], acc[mb][nb][2 * h + 1]);
+}
+
+// U's tiles of one front: the pairs (mt, nt) with nt <= mt + 1 (nt < ntn),
+// row after row; a front has u_tiles(ntn) of them.
+__device__ __host__ __forceinline__ int u_tiles(int ntn) {
+  int per = 0;
+  for (int m = 0; m < ntn; ++m) per += m + 2 < ntn ? m + 2 : ntn;
+  return per;
+}
+// Tile u of a front's U tiles: false where it holds no entry (r, c) of U's
+// block-lower triangle (c / d <= r / d).
+__device__ __forceinline__ bool u_tile(int u, int ntn, int Rd, int d,
+                                       int& mt, int& nt) {
+  for (mt = 0; u >= min(mt + 2, ntn); ++mt) u -= min(mt + 2, ntn);
+  nt = u;
+  return (kUT * nt) / d <= min(kUT * mt + kUT - 1, Rd - 1) / d;
+}
+
+// Sum the partial tiles of each tile's k-chunks in chunk order, a thread a
+// pair of entries over the whole grid: S fronts of `per` tiles, nk chunks
+// a tile in the scratch; where(s, t, m0, n0, nv) gives tile t's place in
+// the product and the count nv (<= kMaxChunks) of its chunks that were
+// formed (false: the tile was not); fin(s, r, c, v0, v1) stores the sums
+// of entries (r, c), (r, c + 1).  A pair's chunks are loaded at once.
+template <typename Where, typename Fin>
+__device__ __forceinline__ void reduce_chunks(int S, int per, int nk,
+                                              const double* __restrict__ part,
+                                              Where where, Fin fin) {
+  constexpr int kPairs = kUTileSq / 2;
+  const int64_t total = (int64_t)S * per * kPairs;
+  for (int64_t idx = (int64_t)blockIdx.x * kUThreads + threadIdx.x;
+       idx < total; idx += (int64_t)gridDim.x * kUThreads) {
+    const int tile = (int)(idx / kPairs), e = 2 * (int)(idx % kPairs);
+    const int s = tile / per;
+    int m0, n0, nv;
+    if (!where(s, tile - s * per, m0, n0, nv)) continue;
+    const double* p = part + (int64_t)tile * nk * kUTileSq + e;
+    double2 v[kMaxChunks];
+#pragma unroll
+    for (int k = 0; k < kMaxChunks; ++k)
+      if (k < nv)
+        v[k] = __ldcg(reinterpret_cast<const double2*>(p + k * kUTileSq));
+    double2 acc = make_double2(0.0, 0.0);
+#pragma unroll
+    for (int k = 0; k < kMaxChunks; ++k)
+      if (k < nv) {
+        acc.x += v[k].x;
+        acc.y += v[k].y;
+      }
+    fin(s, m0 + e / kUT, n0 + e % kUT, acc.x, acc.y);
+  }
+}
+
+__global__ void __launch_bounds__(kUThreads, 2) sn_schur_update_kernel(
+    int S, int Wd, int Rd, int d, int T, int ck1, int ck2,
+    const double* __restrict__ X, const double* __restrict__ At,
+    const int* __restrict__ uoff, const int* __restrict__ ptr,
+    const int* __restrict__ tgt, double* __restrict__ Lp,
+    double* __restrict__ U, double* work) {
+  extern __shared__ __align__(16) double usm[];
+  cg::grid_group grid = cg::this_grid();
+  const int mtn = (Wd + kUT - 1) / kUT, ntn = (Rd + kUT - 1) / kUT;
+  const int slabs = (Wd + kTile - 1) / kTile;
+  const int nk1 = (slabs + ck1 - 1) / ck1, nk2 = (slabs + ck2 - 1) / ck2;
+  const int per = u_tiles(ntn);
+  const int jobs1 = S * mtn * ntn * nk1, jobs2 = S * per * nk2;
+  // the partial tiles of split products, past U
+  double* part = U + (int64_t)S * Rd * Rd;
+  // 1. Lp^T = L^-1 At: rows m take L^-1's columns k <= m only; each tile's
+  // k range in nk1 chunks of ck1 slabs (a job each, the deepest row tiles
+  // first), whose partial tiles are summed in order after a barrier when
+  // nk1 > 1
+  auto panel_slabs = [&](int mt) { return min(2 * mt + 2, slabs); };
+  auto panel_job = [&](int j) {
+    const int tile = j / nk1, kc = j - tile * nk1;
+    const int mt = mtn - 1 - tile / (S * ntn), rem = tile % (S * ntn);
+    const int s = rem / ntn, nt = rem - s * ntn;
+    if (kc * ck1 >= panel_slabs(mt)) return;
+    const int k0 = kTile * kc * ck1;
+    const int k1 = min(min(Wd, kUT * mt + kUT), k0 + kTile * ck1);
+    double* Ls = Lp + (int64_t)s * Wd * Rd;
+    double* Ps = part + ((int64_t)(s * mtn + mt) * ntn + nt) * nk1 * kUTileSq
+                 + (int64_t)kc * kUTileSq;
+    tile_product<kPanel>(
+        X + (int64_t)s * Wd * Wd, Wd, Wd, At + (int64_t)s * Wd * Rd, Rd, Rd,
+        k0, k1, kUT * mt, kUT * nt, d, usm,
+        [&](int r, int c, double v0, double v1) {
+          if (nk1 > 1)
+            *reinterpret_cast<double2*>(
+                Ps + (r - kUT * mt) * kUT + c - kUT * nt) =
+                make_double2(v0, v1);
+          else if (r < Wd && c < Rd)
+            *reinterpret_cast<double2*>(Ls + (int64_t)r * Rd + c) =
+                make_double2(finite_or_zero(v0), finite_or_zero(v1));
+        });
+  };
+  // 2. U's block-lower tiles: U[a][b] = sum_k Lp^T[k][a] Lp^T[k][b], each
+  // tile's k range in nk2 chunks of ck2 slabs
+  auto u_job = [&](int j) {
+    const int tile = j / nk2, kc = j - tile * nk2;
+    const int s = tile / per;
+    int mt, nt;
+    if (!u_tile(tile - s * per, ntn, Rd, d, mt, nt)) return;
+    const int k0 = kTile * kc * ck2, k1 = min(Wd, k0 + kTile * ck2);
+    const double* Ls = Lp + (int64_t)s * Wd * Rd;
+    double* Us = U + (int64_t)s * Rd * Rd;
+    double* Ps = part + ((int64_t)tile * nk2 + kc) * kUTileSq;
+    tile_product<kLowerU>(
+        Ls, Rd, Rd, Ls, Rd, Rd, k0, k1, kUT * mt, kUT * nt, d, usm,
+        [&](int r, int c, double v0, double v1) {
+          if (nk2 > 1)
+            *reinterpret_cast<double2*>(
+                Ps + (r - kUT * mt) * kUT + c - kUT * nt) =
+                make_double2(v0, v1);
+          else if (r < Rd && c < Rd)
+            *reinterpret_cast<double2*>(Us + (int64_t)r * Rd + c) =
+                make_double2(v0, v1);
+        });
+  };
+  for (int j = blockIdx.x; j < jobs1; j += gridDim.x) panel_job(j);
+  if (nk1 > 1) {
+    grid.sync();
+    reduce_chunks(
+        S, mtn * ntn, nk1, part,
+        [&](int, int t, int& m0, int& n0, int& nv) {
+          const int mt = t / ntn;
+          m0 = kUT * mt;
+          n0 = kUT * (t - mt * ntn);
+          nv = (panel_slabs(mt) + ck1 - 1) / ck1;
+          return true;
+        },
+        [&](int s, int r, int c, double v0, double v1) {
+          if (r < Wd && c < Rd)
+            *reinterpret_cast<double2*>(Lp + ((int64_t)s * Wd + r) * Rd + c) =
+                make_double2(finite_or_zero(v0), finite_or_zero(v1));
+        });
+  }
+  grid.sync();
+  for (int j = blockIdx.x; j < jobs2; j += gridDim.x) u_job(j);
+  if (nk2 > 1) {
+    grid.sync();
+    reduce_chunks(
+        S, per, nk2, part,
+        [&](int, int t, int& m0, int& n0, int& nv) {
+          int mt, nt;
+          const bool formed = u_tile(t, ntn, Rd, d, mt, nt);
+          m0 = kUT * mt;
+          n0 = kUT * nt;
+          nv = nk2;
+          return formed;
+        },
+        // the pairs outside U's block-lower triangle are never read
+        [&](int s, int r, int c, double v0, double v1) {
+          if (r < Rd && c < Rd)
+            *reinterpret_cast<double2*>(U + ((int64_t)s * Rd + r) * Rd + c) =
+                make_double2(v0, v1);
+        });
+  }
+  grid.sync();
+  // 3. the scatter, a thread per row of a target block: its old row and
+  // the first source's row loaded at once (d <= kMaxD contiguous entries
+  // each), each entry's sources summed in the plan's order, the row
+  // stored; uoff: a source block's first entry in U
+  const int64_t rows = (int64_t)T * d;
+  for (int64_t idx = (int64_t)blockIdx.x * kUThreads + threadIdx.x;
+       idx < rows; idx += (int64_t)gridDim.x * kUThreads) {
+    const int64_t t = idx / d;
+    const int i = (int)(idx - t * d);
+    const int kb = ptr[t], ke = ptr[t + 1];
+    double* w = work + (int64_t)tgt[t] * d * d + i * d;
+    double old[kMaxD], acc[kMaxD];
+#pragma unroll
+    for (int j = 0; j < kMaxD; ++j) {
+      acc[j] = 0.0;
+      if (j < d) old[j] = w[j];
+    }
+    for (int k = kb; k < ke; ++k) {
+      const double* u = U + uoff[k] + i * Rd;
+#pragma unroll
+      for (int j = 0; j < kMaxD; ++j)
+        if (j < d) acc[j] += __ldcg(u + j);
+    }
+#pragma unroll
+    for (int j = 0; j < kMaxD; ++j)
+      if (j < d) w[j] = old[j] - acc[j];
+  }
 }
 
 }  // namespace
@@ -598,14 +956,17 @@ __global__ void __launch_bounds__(kElemThreads) sn_schur_kernel(
 // One level: S fronts of W blocks (d wide), R panel rows (0: no panel), n
 // variables (col_vars' sentinel).  L, X: S x Wd x Wd, each front
 // column-major (L and L^-1); At: S x Wd x Rd (the panel transposed; unused
-// when R = 0); Dinv: S x ceil(Wd / 128) x 128 x 128 scratch; rec: S ints.
+// when R = 0); Dinv: S x ceil(Wd / 128) x 128 x 128 scratch; tiles: the
+// level's S x ceil(Wd / 32) inverses of L's 32 x 32 diagonal tiles, 32 x 32
+// row-major each (kernel 8's order); rec: S ints.
 GT_EXPORT int gt_sn_front_factor(
     int S, int W, int R, int d, int n, const double* work,
     const double* blocks, const int* diag_ids, const unsigned char* diag_flip,
     const double* diag_pad, const unsigned char* valid_diag,
     const int* col_vars, const int* dbc, const int* panel_ids, double lam,
     int diagonal_damping, double min_diag, double max_diag, double* L,
-    double* X, double* At, double* Dinv, int* rec, void* stream) {
+    double* X, double* At, double* Dinv, double* tiles, int* rec,
+    void* stream) {
   if (S == 0) return 0;
   const size_t shm = 2 * chol::kTiles * kTileSz * sizeof(double);
   cudaError_t e = cudaFuncSetAttribute(
@@ -615,7 +976,7 @@ GT_EXPORT int gt_sn_front_factor(
   sn_front_factor_kernel<<<S, chol::kThreads, shm, (cudaStream_t)stream>>>(
       W, R, d, n, work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
       col_vars, dbc, panel_ids, lam, diagonal_damping, min_diag, max_diag, L,
-      X, At, Dinv, rec);
+      X, At, Dinv, tiles, rec);
   return (int)cudaGetLastError();
 }
 
@@ -628,17 +989,63 @@ GT_EXPORT int gt_sn_pivot_check(int N, const int* rec, int* state,
   return (int)cudaGetLastError();
 }
 
-// U: S x Rd x Rd, each front row-major or (u_cm = 1) column-major; T unique
-// targets.
-GT_EXPORT int gt_sn_schur_scatter(int S, int R, int d, int T, int u_cm,
-                                  const double* U,
-                                  const int* src, const int* ptr,
-                                  const int* tgt, double* work,
-                                  void* stream) {
-  const int64_t total = (int64_t)T * d * d;
-  if (total > 0)
-    sn_schur_kernel<<<(unsigned)((total + kElemThreads - 1) / kElemThreads),
-                      kElemThreads, 0, (cudaStream_t)stream>>>(
-        total, R, d, u_cm, U, src, ptr, tgt, work);
+// One level's tail: S fronts of W column blocks and R row blocks of width d
+// <= 12 (Wd = W d, Rd = R d), X the front kernel's L^-1 (S x Wd x Wd, each
+// front column-major), At its panels transposed (S x Wd x Rd); the level's
+// scatter plan: uoff, the first entry in U of each summed block, in T
+// segments ptr, with unique target rows tgt of work; ck1, ck2: the slabs of a k-chunk
+// of the panel's and U's products (as deep as Wd: no split); Lp: S x Wd x
+// Rd (Lp^T row-major), U: the scratch, S x Rd x Rd and, where a product is
+// split, the partial 64 x 64 tiles of its chunks after it; all 16-byte
+// aligned.  One cooperative launch of as many CTAs as the phases have work
+// for and the card holds at once.
+GT_EXPORT int gt_sn_schur_update(int S, int W, int R, int d, int T, int ck1,
+                                 int ck2, const double* X, const double* At,
+                                 const int* uoff, const int* ptr,
+                                 const int* tgt, double* Lp, double* U,
+                                 double* work, void* stream) {
+  if (S == 0 || R == 0) return 0;
+  if (d > kMaxD) return (int)cudaErrorInvalidValue;
+  // the co-resident CTAs of each device, found once
+  static int cap[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (cap[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaFuncSetAttribute(sn_schur_update_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kUShm);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, sn_schur_update_kernel, kUThreads, kUShm);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    cap[dev] = sms * per_sm;
+  }
+  const int Wd = W * d, Rd = R * d;
+  const int mtn = (Wd + kUT - 1) / kUT, ntn = (Rd + kUT - 1) / kUT;
+  const int slabs = (Wd + kTile - 1) / kTile;
+  const long long nk1 = (slabs + ck1 - 1) / ck1, nk2 = (slabs + ck2 - 1) / ck2;
+  const long long tiles1 = (long long)S * mtn * ntn;
+  const long long tiles2 = (long long)S * u_tiles(ntn);
+  const long long scatter = ((long long)T * d + kUThreads - 1) / kUThreads;
+  const long long jobs = std::max({tiles1 * nk1, tiles2 * nk2, scatter});
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeCooperative;
+  at[0].val.cooperative = 1;
+  cfg.gridDim = dim3((unsigned)std::min((long long)cap[dev], jobs));
+  cfg.blockDim = dim3(kUThreads);
+  cfg.dynamicSmemBytes = kUShm;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, sn_schur_update_kernel, S, Wd, Rd, d, T, ck1,
+                         ck2, X, At, uoff, ptr, tgt, Lp, U, work);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -6,11 +6,10 @@
 // the panel products and the sorted segment-sum / unique scatter of the
 // results.
 //
-// gt_sn_invert_tiles: once per factorization, every 32x32 diagonal tile of
-// every front's L (all levels, one launch, a warp per tile, each lane one
-// column of L_tt X = I; padded slots invert to the identity).  The solves
-// then apply a tile as a 32x32 product, with no division and no chain of
-// 32 dependent steps.
+// The inverses of every front's 32x32 diagonal tiles of L (padded slots
+// invert to the identity) come from kernel 7's front kernel, once per
+// factorization: the solves apply a tile as a 32x32 product, with no
+// division and no chain of 32 dependent steps.
 // gt_sn_forward: levels bottom-up, one cooperative launch with a grid
 // barrier between levels.  A front first gathers its rhs: g at its columns
 // less, per column, the sum of the lower levels' c rows that target it
@@ -58,8 +57,6 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;        // diagonal tile of the blocked substitution
 constexpr int kTileSq = kTile * kTile;
-constexpr int kTileLd = 33;      // shared-memory row stride of a staged tile
-constexpr int kInvWarps = 4;     // tiles per CTA of sn_invert_tiles
 
 // One level of the factor: a row of the wrapper's level table (int64).
 struct Level {
@@ -71,50 +68,6 @@ struct Level {
   long long slot_off, row_off;    // entries into cols and rows
 };
 static_assert(sizeof(Level) == 12 * sizeof(long long), "table row");
-
-// ---------------------------------------------------------------------------
-// Tile inverses: Linv_t = L_tt^-1, row-major 32 x 32, one warp per tile.
-
-__global__ void __launch_bounds__(kInvWarps * 32) sn_invert_tiles_kernel(
-    int nlev, int ntiles, const Level* __restrict__ table,
-    double* __restrict__ Linv) {
-  __shared__ double tl[kInvWarps][kTile * kTileLd];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int t = blockIdx.x * kInvWarps + warp;
-  if (t >= ntiles) return;
-  int k = 0;
-  while (k + 1 < nlev && t >= table[k + 1].tile_off) ++k;
-  const Level lv = table[k];
-  const int Wd = (int)lv.Wd;
-  const int nt = (Wd + kTile - 1) / kTile;
-  const long long lt = t - lv.tile_off;
-  const int s = (int)(lt / nt), j0 = (int)(lt - (long long)s * nt) * kTile;
-  const int nb = min(kTile, Wd - j0);
-  const double* L = reinterpret_cast<const double*>(lv.L) +
-                    (int64_t)s * Wd * Wd;
-  double* tile = tl[warp];
-  // tile[i][c] = L(j0 + i, j0 + c) for c <= i < nb, the identity beyond nb;
-  // lane i reads row i of each column (contiguous in the column-major L)
-  for (int c = 0; c < kTile; ++c) {
-    const int i = lane;
-    double v = (i == c) ? 1.0 : 0.0;
-    if (i < nb && c < nb && c <= i) v = L[(int64_t)(j0 + c) * Wd + j0 + i];
-    tile[i * kTileLd + c] = v;
-  }
-  __syncwarp();
-  // lane c: column c of X = L_tt^-1 by forward substitution, in registers
-  double x[kTile];
-#pragma unroll
-  for (int i = 0; i < kTile; ++i) {
-    double v = (i == lane) ? 1.0 : 0.0;
-#pragma unroll
-    for (int j = 0; j < i; ++j) v -= tile[i * kTileLd + j] * x[j];
-    x[i] = v / tile[i * kTileLd + i];
-  }
-  double* out = Linv + (int64_t)t * kTileSq;
-#pragma unroll
-  for (int i = 0; i < kTile; ++i) out[i * kTile + lane] = x[i];
-}
 
 // ---------------------------------------------------------------------------
 // The per-front passes.
@@ -687,17 +640,6 @@ int launch_levels(void (*kernel)(Args...), int cluster, size_t shm,
 }
 
 }  // namespace
-
-// ntiles tiles over nlev levels; table: (nlev, 12) int64 rows of Level;
-// Linv: ntiles x 32 x 32, row-major.
-GT_EXPORT int gt_sn_invert_tiles(int nlev, int ntiles, const long long* table,
-                                 double* Linv, void* stream) {
-  if (ntiles > 0)
-    sn_invert_tiles_kernel<<<(ntiles + kInvWarps - 1) / kInvWarps,
-                             kInvWarps * 32, 0, (cudaStream_t)stream>>>(
-        nlev, ntiles, reinterpret_cast<const Level*>(table), Linv);
-  return (int)cudaGetLastError();
-}
 
 // n variables of width d; max_front: the most Wd + Rd of a front (doubles
 // of dynamic shared memory); cluster: CTAs a cluster (8; 1 gives every

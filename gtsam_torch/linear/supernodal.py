@@ -12,12 +12,12 @@ package's, array for array, and move to the device once (`to`).  Then:
              and the gradient (n, d) through sorted CSRs;
   factorize: per level, kernel 7's front kernel gathers the fronts and
              panels from a working copy of the store (damping applied
-             there) and factors and inverts every front in one launch;
-             then the panel Lp = A L^-T = (L^-1 A^T)^T and U = Lp Lp^T
-             (two bmm, library) and kernel 7's Schur scatter into the
-             working store; after the levels, kernel 7's pivot check (one
-             launch) and kernel 8's inverses of every front's 32x32
-             diagonal tiles;
+             there), factors and inverts every front in one launch and
+             leaves the inverses of its 32x32 diagonal tiles for kernel 8;
+             then kernel 7's Schur update, one launch: the panel
+             Lp = A L^-T = (L^-1 A^T)^T, U = Lp Lp^T's block-lower
+             triangle and the scatter into the working store; after the
+             levels, kernel 7's pivot check (one launch);
   solve:     kernel 8, one launch forward over all levels (the lower
              levels' panel products gathered per column through a CSR)
              and one backward;
@@ -123,7 +123,7 @@ class Factored:
     each column-major per front, and the level table that the solve's
     kernels read them through); ok and badcol (0-d tensors, read on the
     host when needed); the inverses of L's 32x32 diagonal tiles (tiles, 32,
-    32)."""
+    32), which the front kernel leaves, level after level."""
 
     levels: K.Levels
     ok: torch.Tensor
@@ -421,6 +421,11 @@ class SupernodalCholeskySolver:
         self.fwd_ptr = [None if lp.R == 0 else
                         _seg_ptr(lp.fwd_seg, len(lp.fwd_tgt))
                         for lp in self.level_plans]
+        # each level's first tile in kernel 8's buffer of diagonal-tile
+        # inverses (S * ceil(W*d / 32) a level), which the front kernel fills
+        ntiles = [lp.S * -(-lp.W * self.d // K.TILE) for lp in
+                  self.level_plans]
+        self.tile_off = np.concatenate([[0], np.cumsum(ntiles)]).astype(int)
         self._solve_plan()
         # flat canonical index -> flat (permuted var, component) index
         src = []
@@ -509,15 +514,26 @@ class SupernodalCholeskySolver:
             fronts=sum(lp.S for lp in self.level_plans),
             flips=[[t(flip, torch.bool) for (_, _, flip, _) in pairs]
                    for pairs in self._batch_pairs()],
+            # the Schur update's scratch (U and partial tiles), a level at a
+            # time
+            schur_U=torch.empty(max([K.update_split(
+                lp.S, lp.W, lp.R, self.d, 0).scratch
+                for lp in self.level_plans if lp.R] + [0]),
+                dtype=F64, device=dev),
             levels=[types.SimpleNamespace(
                 S=lp.S, W=lp.W, R=lp.R,
                 diag_ids=t(lp.diag_ids), diag_flip=t(lp.diag_flip, torch.bool),
                 diag_pad=t(lp.diag_pad, F64),
                 valid_diag=t(lp.valid_diag, torch.bool),
                 col_vars=t(lp.col_vars), panel_ids=t(lp.panel_ids),
-                row_vars=t(lp.row_vars), schur_src=t(lp.schur_src),
-                schur_ptr=t(sp), schur_tgt=t(lp.schur_tgt))
-                for lp, sp in zip(self.level_plans, self.schur_ptr)])
+                row_vars=t(lp.row_vars),
+                tiles=slice(int(self.tile_off[k]),
+                            int(self.tile_off[k + 1])),
+                schur=None if lp.R == 0 else K.schur_plan(
+                    t(lp.schur_src), t(sp), t(lp.schur_tgt), lp.S, lp.W,
+                    lp.R, self.d, self.B + 1))
+                for k, (lp, sp) in enumerate(zip(self.level_plans,
+                                                 self.schur_ptr))])
         return self
 
     def _batch_pairs(self):
@@ -593,28 +609,26 @@ class SupernodalCholeskySolver:
         dv = self.dev
         work = blocks.clone()
         rec = torch.empty(dv.fronts, dtype=I32, device=self.device)
+        tiles = torch.empty((int(self.tile_off[-1]), K.TILE, K.TILE),
+                            dtype=F64, device=self.device)
         Ls, Lps = [], []
         off = 0
         for lv in dv.levels:
-            L, Linv, At = K.sn_front_factor(
+            L, Linv, At, _ = K.sn_front_factor(
                 work, blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
                 lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, lam,
-                diagonal_damping, rec[off:off + lv.S], min_diag, max_diag)
+                diagonal_damping, rec[off:off + lv.S], min_diag, max_diag,
+                out=(None, None, None, tiles[lv.tiles]))
             off += lv.S
             Lp = None
-            if lv.R:
-                Lp = torch.bmm(Linv, At).mT      # A L^-T, column-major
-                K.sn_schur_scatter(torch.bmm(Lp, Lp.mT), lv.schur_src,
-                                   lv.schur_ptr, lv.schur_tgt, work)
+            if lv.R:      # A L^-T, column-major; the Schur update of work
+                Lp = K.sn_schur_update(Linv, At, lv.schur, work, dv.schur_U)
             Ls.append(L)
             Lps.append(Lp)
         state = torch.empty(2, dtype=I32, device=self.device)
         K.sn_pivot_check(rec, state)
-        levels = K.level_table(Ls, Lps, self.d)
-        Linv = torch.empty((levels.tiles, K.TILE, K.TILE), dtype=F64,
-                           device=self.device)
-        K.sn_invert_tiles(levels, Linv)
-        return Factored(levels, state[0] == 1, state[1], Linv)
+        return Factored(K.level_table(Ls, Lps, self.d), state[0] == 1,
+                        state[1], tiles)
 
     def damp_vec(self, blocks, lam, diagonal_damping, min_diag=1e-6,
                  max_diag=1e32):

@@ -5,10 +5,11 @@ port the device routines of the JAX package's pose-graph LM: the SE3
 between/prior linearization with block-store assembly
 (gtsam_tpu/graph/factors.py, linear/supernodal.py::system), the
 level-batched supernodal factorization (supernodal.py::factorize), the
-forward and backward substitution (_solve_padded: the diagonal tiles
-inverted once per factorization, then one launch per direction over all
-levels) and the refinement matvec (matvec).  Every tensor is float64
-(int32 indices, bool masks), row-major and contiguous, in the layout of
+forward and backward substitution (_solve_padded: one launch per direction
+over all levels, on the inverses of the fronts' diagonal tiles that the
+factorization leaves) and the refinement matvec (matvec).  Every tensor is
+float64 (int32 indices, bool masks), row-major and contiguous, in the
+layout of
 gtsam_torch/linear/supernodal.py: the block store is (B+1, d*d) with a
 zero sentinel row B, vectors are (n, d) in the permuted (elimination)
 order.  Each wrapper
@@ -21,10 +22,11 @@ with atomics: every sum runs in an order fixed by the plan (pg_error's
 across its CTAs by N alone; its one atomic is a completion ticket), so two
 runs on the same inputs give the same bits.
 
-Kernel 7's front kernel factors and inverts each level's fronts in one
-launch; the level's two products (the panel Lp = A L^-T as (L^-1 A^T)^T,
-and Lp Lp^T) stay on torch.bmm between its launches, as the JAX package
-leaves its products to XLA (einsum).
+Kernel 7 takes two launches a level: the front kernel factors and inverts
+the level's fronts (and leaves the inverses of their diagonal tiles for
+kernel 8), and the Schur update forms the panel Lp = A L^-T as
+(L^-1 A^T)^T, U = Lp Lp^T's block-lower triangle and the scatter into the
+working store, over the whole card.
 """
 
 from typing import NamedTuple
@@ -54,13 +56,11 @@ KERNELS = _kernels.table(
            [INT, INT] + [P] * 5 + [INT, INT, P, DBL, P, P, P]),
     Kernel("sn_front_factor", "sn_factor", "sn_front_factor",
            "gtsam_tpu/linear/supernodal.py:404",
-           [INT] * 5 + [P] * 9 + [DBL, INT, DBL, DBL] + [P] * 5),
+           [INT] * 5 + [P] * 9 + [DBL, INT, DBL, DBL] + [P] * 6),
     Kernel("sn_pivot_check", "sn_factor", "sn_pivot_check",
            "gtsam_tpu/linear/supernodal.py:405", [INT, P, P]),
-    Kernel("sn_schur_scatter", "sn_factor", "sn_schur_scatter",
-           "gtsam_tpu/linear/supernodal.py:436", [INT] * 5 + [P] * 5),
-    Kernel("sn_invert_tiles", "sn_solve", "sn_invert_tiles",
-           "gtsam_tpu/linear/supernodal.py:583", [INT, INT, P, P]),
+    Kernel("sn_schur_update", "sn_factor", "sn_schur_update",
+           "gtsam_tpu/linear/supernodal.py:431", [INT] * 7 + [P] * 8),
     Kernel("sn_forward", "sn_solve", "sn_forward",
            "gtsam_tpu/linear/supernodal.py:580", [INT] * 5 + [P] * 9),
     Kernel("sn_backward", "sn_solve", "sn_backward",
@@ -74,15 +74,6 @@ KERNELS = _kernels.table(
 def _tensors(*maybe):
     """The arguments that are not None (optional tensors)."""
     return tuple(t for t in maybe if t is not None)
-
-
-def _dense(t):
-    """(t, 0) for a contiguous t, (t.mT, 1) for one stored column-major per
-    batch entry, as cholesky_ex and solve_triangular leave their results on
-    the card; the first is what the shape and contiguity checks see."""
-    if t is None or t.is_contiguous() or not t.mT.is_contiguous():
-        return t, 0
-    return t.mT, 1
 
 
 def _width(dd):
@@ -364,12 +355,11 @@ def sn_front_factor_plain(work, blocks, diag_ids, diag_flip, diag_pad,
     Linv = _finite(_as_colmajor(torch.linalg.solve_triangular(L, eye,
                                                               upper=False)))
     At = None if panel is None else _finite(panel.mT.contiguous())
-    if out is None:
-        return L, Linv, At
-    for o, t in zip(out, (L.mT, Linv.mT, At)):
-        if t is not None:
-            o.copy_(t)
-    return out[0].mT, out[1].mT, out[2]
+    bufs = (L.mT, Linv.mT, At, tile_inverses([L]))   # as the kernel writes
+    if out is not None:
+        bufs = tuple(t if o is None or t is None else o.copy_(t)
+                     for o, t in zip(out, bufs))
+    return bufs[0].mT, bufs[1].mT, bufs[2], bufs[3]
 
 
 def sn_front_factor(work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
@@ -379,14 +369,17 @@ def sn_front_factor(work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
     from the working store `work` (diag_ids blocks, transposed where
     diag_flip), plus diag_pad and the damping (lam, or lam * clip(diag,
     min_diag, max_diag) of the undamped store `blocks`) on the
-    true-dimension diagonal, factored: returns (L, L^-1, At), L and its
-    inverse (S, W*d, W*d) column-major per front, and the panels of
+    true-dimension diagonal, factored: returns (L, L^-1, At, tiles), L and
+    its inverse (S, W*d, W*d) column-major per front, the panels of
     panel_ids transposed, At (S, W*d, R*d) (None when the level has no row
-    structure), non-finite entries zeroed.  rec (S,) int32 receives each
-    front's first bad pivot (a true dimension not finite or not positive)
-    as its permuted column, or -1.  On the card one launch, a CTA a
-    front; `out`: the buffers it writes whole, (L^T, L^-T, At) row-major
-    (default: new ones)."""
+    structure), non-finite entries zeroed, and the inverses of every
+    front's 32 x 32 diagonal tiles of L, (S * ceil(W*d / 32), 32, 32)
+    row-major in kernel 8's order (tile_inverses; on the card the diagonal
+    tiles of the blocks' L_D^-1, the identity past the front's width).
+    rec (S,) int32 receives each front's first bad pivot (a true dimension
+    not finite or not positive) as its permuted column, or -1.  On the
+    card one launch, a CTA a front; `out`: the buffers it writes whole,
+    (L^T, L^-T, At, tiles) row-major, each None for a new one."""
     args = (work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
             col_vars, dbc)
     if on_cpu(*args, rec, *_tensors(panel_ids)):
@@ -407,29 +400,28 @@ def sn_front_factor(work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
              ("rec", rec, I32, (S,))]
     if R:
         specs.append(("panel_ids", panel_ids, I32, (S, R, W)))
-    if out is not None:
-        specs += [("out[0]", out[0], F64, (S, Wd, Wd)),
-                  ("out[1]", out[1], F64, (S, Wd, Wd))]
-        if R:
-            specs.append(("out[2]", out[2], F64, (S, Wd, R * d)))
+    shapes = ((S, Wd, Wd), (S, Wd, Wd), (S, Wd, R * d) if R else None,
+              (S * _ntiles(Wd), TILE, TILE))
+    out = (None,) * 4 if out is None else tuple(out)
+    specs += [(f"out[{k}]", o, F64, shape)
+              for k, (o, shape) in enumerate(zip(out, shapes))
+              if o is not None and shape is not None]
     dev = check("sn_front_factor", *specs)
     if Wd % 2:
         raise ValueError("sn_front_factor: the front kernel copies pairs of "
                          f"columns; W*d = {Wd} must be even")
-    if out is None:
-        out = (torch.empty((S, Wd, Wd), dtype=F64, device=dev),
-               torch.empty((S, Wd, Wd), dtype=F64, device=dev),
-               torch.empty((S, Wd, R * d), dtype=F64, device=dev) if R
-               else None)
-    L, X, At = out
+    L, X, At, tiles = (
+        None if shape is None else o if o is not None
+        else torch.empty(shape, dtype=F64, device=dev)
+        for o, shape in zip(out, shapes))
     Dinv = torch.empty((S, -(-Wd // FRONT_BLOCK), FRONT_BLOCK, FRONT_BLOCK),
                        dtype=F64, device=dev)
     KERNELS["sn_front_factor"].launch(
         dev, S, W, R, d, n, *map(ptr, args), ptr(panel_ids) if R else 0,
         float(lam), int(bool(diagonal_damping)), float(min_diag),
         float(max_diag), ptr(L), ptr(X), ptr(At) if R else 0, ptr(Dinv),
-        ptr(rec))
-    return L.mT, X.mT, At
+        ptr(tiles), ptr(rec))
+    return L.mT, X.mT, At, tiles
 
 
 def sn_pivot_check_plain(rec, state):
@@ -452,38 +444,169 @@ def sn_pivot_check(rec, state):
     KERNELS["sn_pivot_check"].launch(dev, rec.shape[0], ptr(rec), ptr(state))
 
 
-def sn_schur_scatter_plain(U, schur_src, schur_ptr, schur_tgt, work):
-    S, Rd, _ = U.shape
-    d = _width(work.shape[1])
-    R = Rd // d
-    Ub = U.reshape(S, R, d, R, d).permute(0, 1, 3, 2, 4).reshape(-1, d * d)
-    seg = torch.zeros((schur_tgt.shape[0], d * d), dtype=F64,
-                      device=U.device).index_add_(0, segment_owner(schur_ptr),
-                                                  Ub[schur_src.long()])
-    work[schur_tgt.long()] -= seg
+# The output tile of a CTA of sn_schur_update_kernel (kUT in sn_factor.cu)
+# and its threads (kUThreads): 4 warps, a 32 x 32 quadrant each.  A product
+# phase with fewer tiles than UPDATE_JOBS splits each tile's k range into
+# at most UPDATE_MAX_CHUNKS chunks of at least UPDATE_MIN_CHUNK slabs of 32
+# rows, towards that many jobs, so that a level of one or two fronts keeps
+# the card busy; the chunks' partial tiles are summed in chunk order.  (On
+# an H100, splitting the wider levels too, at 512 or 1024 jobs, cost more
+# in partial tiles than it saved: scripts/port_update_probe.py.)
+UPDATE_TILE = 64
+UPDATE_THREADS = 128
+UPDATE_JOBS = 256
+UPDATE_MIN_CHUNK = 2
+UPDATE_MAX_CHUNKS = 8     # kMaxChunks
+UPDATE_MAX_D = 12         # kMaxD: the widest block the scatter takes
 
 
-def sn_schur_scatter(U, schur_src, schur_ptr, schur_tgt, work):
-    """Kernel 7, Schur update: work[schur_tgt[i]] -= the sum of U's (d, d)
-    blocks schur_src[k] (flat (s, a, b) over (S, R, R)) for k in
-    [schur_ptr[i], schur_ptr[i+1]), in that order; U = Lp Lp^T
-    (S, R*d, R*d, row- or column-major).  Targets are unique: no
-    atomics."""
-    args = (U, schur_src, schur_ptr, schur_tgt, work)
-    if on_cpu(*args):
-        return sn_schur_scatter_plain(*args)
-    S, Rd, _ = U.shape
-    nb, dd = work.shape
-    d = _width(dd)
-    T = schur_tgt.shape[0]
-    Uc, u_cm = _dense(U)
-    dev = check("sn_schur_scatter", ("U", Uc, F64, (S, Rd, Rd)),
-                ("schur_src", schur_src, I32, (schur_src.shape[0],)),
-                ("schur_ptr", schur_ptr, I32, (T + 1,)),
-                ("schur_tgt", schur_tgt, I32, (T,)),
-                ("work", work, F64, (nb, dd)))
-    KERNELS["sn_schur_scatter"].launch(dev, S, Rd // d, d, T, u_cm,
-                                       *map(ptr, args))
+class UpdateSplit(NamedTuple):
+    """One sn_schur_update launch's work items, as the kernel counts them:
+    the panel's output tiles and the slabs (and count) of their k-chunks,
+    U's tiles on or next to the diagonal (nt <= mt + 1; those that hold no
+    entry of U's block-lower triangle are skipped) and theirs, the
+    scatter's CTAs of UPDATE_THREADS block rows, and the doubles of scratch
+    it needs (U, then the partial tiles of a split product)."""
+    panel_tiles: int
+    panel_chunk: int
+    panel_chunks: int
+    u_tiles: int
+    u_chunk: int
+    u_chunks: int
+    scatter_ctas: int
+    scratch: int
+
+
+def update_split(S, W, R, d, T) -> UpdateSplit:
+    tile = UPDATE_TILE
+    mtn, ntn = -(-W * d // tile), -(-R * d // tile)
+    slabs = -(-W * d // 32)
+    t1 = S * mtn * ntn
+    t2 = S * sum(min(m + 2, ntn) for m in range(ntn))
+
+    def chunk(tiles):
+        nk = max(1, min(UPDATE_JOBS // tiles, -(-slabs // UPDATE_MIN_CHUNK),
+                        UPDATE_MAX_CHUNKS))
+        ck = -(-slabs // nk)
+        return ck, -(-slabs // ck)
+    (ck1, nk1), (ck2, nk2) = chunk(t1), chunk(t2)
+    part = max(t1 * nk1 if nk1 > 1 else 0, t2 * nk2 if nk2 > 1 else 0)
+    return UpdateSplit(t1, ck1, nk1, t2, ck2, nk2,
+                       -(-T * d // UPDATE_THREADS),
+                       S * (R * d) ** 2 + part * tile * tile)
+
+
+class SchurPlan(NamedTuple):
+    """One level's Schur update (schur_plan): work row tgt[i] takes the
+    sum of the U blocks src[ptr[i]:ptr[i+1]] (flat (s, a, b) over (S, R,
+    R), b <= a), in that order; uoff: each such block's first entry in U
+    (S, R*d, R*d); S fronts of W column blocks and R row blocks of width d,
+    on a store of nb rows; `split`: the launch's work (update_split)."""
+    src: torch.Tensor
+    ptr: torch.Tensor
+    tgt: torch.Tensor
+    uoff: torch.Tensor
+    S: int
+    W: int
+    R: int
+    d: int
+    nb: int
+    split: UpdateSplit
+
+
+def schur_plan(src, ptr_, tgt, S, W, R, d, nb) -> SchurPlan:
+    """A level's SchurPlan, checked once, where the solver moves to its
+    device: dtypes, shapes, one device, and every index in range (one sync
+    on the card), so that sn_schur_update checks only its other tensors."""
+    T = tgt.shape[0]
+    specs = [("src", src, I32, (src.shape[0],)), ("ptr", ptr_, I32, (T + 1,)),
+             ("tgt", tgt, I32, (T,))]
+    if not on_cpu(src, ptr_, tgt):
+        check("schur_plan", *specs)
+    steps = ptr_[1:] - ptr_[:-1]
+    if not (int(ptr_[0]) == 0 and int(ptr_[-1]) == src.shape[0]
+            and bool((steps >= 0).all())
+            and (src.numel() == 0 or (int(src.min()) >= 0
+                                      and int(src.max()) < S * R * R))
+            and (T == 0 or (int(tgt.min()) >= 0 and int(tgt.max()) < nb - 1
+                            and bool((tgt[1:] > tgt[:-1]).all())))):
+        raise ValueError("schur_plan: an index of the plan is out of range")
+    Rd = R * d
+    if S * Rd * Rd >= 2 ** 31:
+        raise ValueError(f"schur_plan: U of {S} x {Rd} x {Rd} entries "
+                         "outgrows the kernel's int32 offsets")
+    if d > UPDATE_MAX_D:
+        raise ValueError(f"schur_plan: blocks {d} wide; the kernel's "
+                         f"scatter takes at most {UPDATE_MAX_D}")
+    s, ab = src.long() // (R * R), src.long() % (R * R)
+    uoff = ((s * Rd + ab // R * d) * Rd + ab % R * d).to(I32)
+    return SchurPlan(src, ptr_, tgt, uoff, int(S), int(W), int(R), int(d),
+                     int(nb), update_split(S, W, R, d, T))
+
+
+def sn_schur_update_plain(Linv, At, plan, work, U, out=None):
+    S, R, d = plan.S, plan.R, plan.d
+    LpT = _finite(torch.bmm(Linv, At))
+    if out is not None:
+        LpT = out.copy_(LpT)
+    Lp = LpT.mT
+    Ub = torch.bmm(Lp, Lp.mT).reshape(S, R, d, R, d).permute(
+        0, 1, 3, 2, 4).reshape(-1, d * d)
+    seg = torch.zeros((plan.tgt.shape[0], d * d), dtype=F64,
+                      device=work.device).index_add_(
+        0, segment_owner(plan.ptr), Ub[plan.src.long()])
+    work[plan.tgt.long()] -= seg
+    return Lp
+
+
+def sn_schur_update(Linv, At, plan, work, U, out=None):
+    """Kernel 7, Schur update of one level: the panel Lp = A L^-T of every
+    front, as (L^-1 At)^T with non-finite entries zeroed, returned (S, R*d,
+    W*d) column-major per front (what level_table keeps); then work[tgt[i]]
+    -= the sum of the blocks (a, b) of U = Lp Lp^T that plan (a SchurPlan,
+    checked once by schur_plan) lists for target i, in its order.  Linv:
+    the front kernel's L^-1 (S, W*d, W*d), column-major per front; At: its
+    panels transposed (S, W*d, R*d); U: a flat scratch of at least
+    plan.split.scratch doubles, which the kernel fills with U's block-lower
+    triangle (and a split product's partial tiles); `out`:
+    the (S, W*d, R*d) buffer of Lp^T (default: a new one).  On the card one
+    cooperative launch whose CTAs share out the level's output tiles."""
+    if on_cpu(Linv, At, work, U, *_tensors(out)):
+        return sn_schur_update_plain(Linv, At, plan, work, U, out)
+    S, Wd, _ = Linv.shape
+    R, d = plan.R, plan.d
+    Rd = R * d
+    # Linv is checked in either layout here, so a device or dtype fault is
+    # reported as such, and must then be column-major
+    specs = [("Linv", Linv.mT if Linv.mT.is_contiguous() else Linv, F64,
+              (S, Wd, Wd)),
+             ("At", At, F64, (S, Wd, Rd)),
+             ("work", work, F64, (plan.nb, d * d)),
+             ("U", U, F64, (U.shape[0],))]
+    if out is not None:
+        specs.append(("out", out, F64, (S, Wd, Rd)))
+    dev = check("sn_schur_update", *specs)
+    if not Linv.mT.is_contiguous():
+        raise ValueError("sn_schur_update: Linv must be column-major per "
+                         "front, as the front kernel leaves it")
+    if S != plan.S or plan.src.device != dev:
+        raise ValueError(f"sn_schur_update: the plan is for {plan.S} fronts "
+                         f"on {plan.src.device}, not {S} on {dev}")
+    if U.shape[0] < plan.split.scratch or Wd != plan.W * d:
+        raise ValueError(f"sn_schur_update: U holds {U.shape[0]} doubles of "
+                         f"{plan.split.scratch}, or Linv's width {Wd} is not "
+                         f"the plan's")
+    if out is None:
+        out = torch.empty((S, Wd, Rd), dtype=F64, device=dev)
+    if Wd % 2 or Rd % 2 or any(ptr(t) % 16 for t in (Linv, At, out)):
+        raise ValueError("sn_schur_update: the kernel moves pairs of "
+                         "entries; W*d and R*d must be even and Linv, At "
+                         "and the panel 16-byte aligned")
+    KERNELS["sn_schur_update"].launch(
+        dev, S, plan.W, R, d, plan.tgt.shape[0], plan.split.panel_chunk,
+        plan.split.u_chunk, ptr(Linv), ptr(At), ptr(plan.uoff),
+        ptr(plan.ptr), ptr(plan.tgt), ptr(out), ptr(U), ptr(work))
+    return out.mT
 
 
 # -- kernel 8: forward and backward substitution -----------------------------
@@ -602,28 +725,13 @@ def diagonal_tiles(Ls):
     return torch.cat(out) if out else torch.zeros((0, TILE, TILE), dtype=F64)
 
 
-def sn_invert_tiles_plain(levels, Linv):
-    tiles = diagonal_tiles(levels.Ls)
+def tile_inverses(Ls):
+    """The inverses of diagonal_tiles(Ls) (tiles, 32, 32): what the front
+    kernel leaves for kernel 8, by a batched triangular solve."""
+    tiles = diagonal_tiles(Ls)
     eye = torch.eye(TILE, dtype=F64, device=tiles.device)
-    Linv.copy_(torch.linalg.solve_triangular(tiles, eye.expand_as(tiles),
-                                             upper=False))
-    return Linv
-
-
-def sn_invert_tiles(levels, Linv):
-    """Kernel 8, tile inverses: Linv[t] = the inverse of diagonal tile t of
-    the factor (tiles as diagonal_tiles orders them; (tiles, 32, 32),
-    row-major).  levels: the factor's level_table.  Once per factorization;
-    on the card one launch, a warp per tile."""
-    if on_cpu(levels.table, Linv):
-        return sn_invert_tiles_plain(levels, Linv)
-    nlev = len(levels.Ls)
-    dev = check("sn_invert_tiles",
-                ("table", levels.table, I64, (nlev, LEVEL_FIELDS)),
-                ("Linv", Linv, F64, (levels.tiles, TILE, TILE)))
-    KERNELS["sn_invert_tiles"].launch(dev, nlev, levels.tiles,
-                                      ptr(levels.table), ptr(Linv))
-    return Linv
+    return torch.linalg.solve_triangular(tiles, eye.expand_as(tiles),
+                                         upper=False).contiguous()
 
 
 def sn_forward_plain(g, levels, Linv, cols, gat_ptr, gat_seg, gat_src, y, c):
@@ -663,7 +771,8 @@ def sn_forward(g, levels, Linv, cols, gat_ptr, gat_seg, gat_src, y, c):
     cols -> gat_seg -> gat_src, d-rows of c; each segment summed, then the
     segments in order), y = L^-1 rhs and c = P y, into y (every level's
     S x Wd) and c (every level's S x Rd) at the level table's offsets.
-    levels: the factor's level_table; Linv: its sn_invert_tiles.  On the
+    levels: the factor's level_table; Linv: its tile inverses (the front
+    kernel's tiles, level after level).  On the
     card one cooperative launch, whose wrapper checks only the flat tensors
     (level_table checked the factor)."""
     args = (g, Linv, cols, gat_ptr, gat_seg, gat_src, y, c)

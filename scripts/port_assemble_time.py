@@ -12,12 +12,14 @@ runs the path once to warm up, then N times (host clock, synchronized: wall
 to converged), and on the converged state times, with CUDA events (mean of
 N calls): the solver's system() as the path calls it, the graph's error,
 the matvec (lam 1e-3), one factorization and one try (solve, retract,
-error), and the host time of system() and the error (their calls enqueued
-back to back, the clock stopped before the device is waited for).  Then the
-device time per call (torch.profiler, N calls) of kernel 6's linearize and
-assembly kernels (names containing "pg_linearize", "pg_assemble") inside
-system(), of its error kernel inside the error, of kernel 9 inside the
-matvec and of every kernel of the factorization, and one traced run of the
+error), and the host time of system(), the error and a factorization
+(their calls enqueued back to back, the clock stopped before the device is
+waited for).  Then the device time per call (torch.profiler, N calls) of
+kernel 6's linearize and assembly kernels (names containing
+"pg_linearize", "pg_assemble") inside system(), of its error kernel inside
+the error, of kernel 9 inside the matvec and of every kernel of the
+factorization (in all, and by kernel with its launches), and one traced
+run of the
 path (device busy time, idle share, kernel launches).  Prints one JSON line
 with the card's name and power limit.  Give two roots in turns (A, B, B,
 A), one process each on one card, to compare two versions.
@@ -74,6 +76,27 @@ def _kernel_ms(fn, reps, key):
     return sum(e.self_device_time_total for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA") and key in e.key
                ) / 1e3 / reps
+
+
+def _kernels_ms(fn, reps):
+    """Device time per call of the kernels fn launches, by the first 60
+    characters of their names, with their launches per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and e.self_device_time_total:
+            row = out.setdefault(e.key[:60], [0.0, 0.0])
+            row[0] += e.self_device_time_total / 1e3 / reps
+            row[1] += e.count / reps
+    return out
 
 
 def main(argv):
@@ -148,6 +171,10 @@ def main(argv):
         "factorize_ms": _cuda_ms(lambda: s.factorize(blocks, 1e-3), a.reps),
         "factorize_device_ms": _kernel_ms(lambda: s.factorize(blocks, 1e-3),
                                           a.reps, ""),
+        "factorize_host_ms": _host_ms(lambda: s.factorize(blocks, 1e-3),
+                                      a.reps),
+        "factorize_by_kernel": _kernels_ms(
+            lambda: s.factorize(blocks, 1e-3), a.reps),
         "trace": trace,
         "pg_linearize_device_ms": _kernel_ms(
             lambda: solver.system(arrays), a.reps, "pg_linearize"),

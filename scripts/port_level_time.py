@@ -11,16 +11,21 @@ SparseSolver's supernodal plan (force_width=32) and assembles the system at
 the chordal initialization.  Then it runs one factorization at lam = 1e-3
 level by level and times, with CUDA events and by device time
 (torch.profiler, mean of N calls), each level's algebra: in a tree with
-kernel 7's front kernel (sn_front_factor), its launch and the level's two
-products (the panel Lp^T = L^-1 At and U = Lp Lp^T); in an older tree,
-cholesky_ex, the panel's triangular solve (solve_triangular(L^T, panel,
-left=False)) and U; then the whole factorize() and the level algebra's
-device time summed over the levels.  Then, on the factor of that lam, it
-times kernel 8 by CUDA events and by device time (torch.profiler): one
-solve (_solve_padded), its
-forward and its backward alone over all levels (in a tree with per-level
-kernels, the forward's segment sums included), and the tile inverses of
-one factorization where the tree has them; in a tree whose solve splits
+kernel 7's Schur update (sn_schur_update), the front kernel's launch and
+the update's (the panel, U's block-lower triangle and the scatter, one
+launch); in a tree with the front kernel alone, its launch, the level's two
+products (the panel Lp^T = L^-1 At and U = Lp Lp^T, torch.bmm) and the
+Schur scatter (sn_schur_scatter), the three as the level's tail; in an
+older tree, cholesky_ex, the panel's triangular solve
+(solve_triangular(L^T, panel, left=False)) and U; then the whole
+factorize() and the level algebra's (and tail's) device time summed over
+the levels.  Then, on the factor of that lam, it times kernel 8 by CUDA
+events and by device time (torch.profiler): one solve (_solve_padded),
+its forward and its backward alone over all levels (in a tree with
+per-level kernels, the forward's segment sums included), and the tile
+inverses of one factorization where the tree has a kernel of their own
+(sn_invert_tiles; since the update, the front kernel leaves them); in a
+tree whose solve splits
 the top levels' fronts over thread-block clusters, forward, backward and
 solve again with a CTA per front throughout.  Prints one JSON line with the
 card's name and power limit.  Give two roots in turns (A, B, B, A), one
@@ -108,7 +113,8 @@ def main(argv):
     rows = []
     if hasattr(K, "sn_front_factor"):
         # the front kernel (gather, factor and inverse in one launch) and
-        # the level's two products
+        # the level's tail: the Schur update, or the two products and the
+        # scatter
         rec = torch.empty(dv.fronts, dtype=torch.int32, device="cuda")
         off = 0
         for lv in dv.levels:
@@ -120,12 +126,33 @@ def main(argv):
                     work, blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
                     lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, 1e-3,
                     False, r)
-            L, Linv, At = front()
+            Linv, At = front()[1:3]
             row = {"S": lv.S, "W": lv.W, "R": lv.R,
                    "front_ms": _cuda_ms(front, a.reps),
                    "front_device_ms": _device_ms(front, a.reps)}
-            if lv.R:
+            if lv.R and hasattr(K, "sn_schur_update"):
+                # timed on a copy of the store (each call subtracts again)
+                w = work.clone()
+
+                def update(Linv=Linv, At=At, lv=lv, w=w):
+                    return K.sn_schur_update(Linv, At, lv.schur, w,
+                                             dv.schur_U)
+                row.update(tail_ms=_cuda_ms(update, a.reps),
+                           tail_device_ms=_device_ms(update, a.reps))
+                update(w=work)
+            elif lv.R:
                 Lp = torch.bmm(Linv, At).mT
+                U = torch.bmm(Lp, Lp.mT)
+                w = work.clone()
+
+                def scatter(U=U, lv=lv, w=w):
+                    K.sn_schur_scatter(U, lv.schur_src, lv.schur_ptr,
+                                       lv.schur_tgt, w)
+
+                def tail(Linv=Linv, At=At, lv=lv, w=w):
+                    Lp = torch.bmm(Linv, At).mT
+                    K.sn_schur_scatter(torch.bmm(Lp, Lp.mT), lv.schur_src,
+                                       lv.schur_ptr, lv.schur_tgt, w)
                 row.update(
                     panel_bmm_ms=_cuda_ms(lambda: torch.bmm(Linv, At),
                                           a.reps),
@@ -133,12 +160,15 @@ def main(argv):
                         lambda: torch.bmm(Linv, At), a.reps),
                     u_bmm_ms=_cuda_ms(lambda: torch.bmm(Lp, Lp.mT), a.reps),
                     u_bmm_device_ms=_device_ms(lambda: torch.bmm(Lp, Lp.mT),
-                                               a.reps))
-                K.sn_schur_scatter(torch.bmm(Lp, Lp.mT), lv.schur_src,
-                                   lv.schur_ptr, lv.schur_tgt, work)
+                                               a.reps),
+                    scatter_ms=_cuda_ms(scatter, a.reps),
+                    scatter_device_ms=_device_ms(scatter, a.reps),
+                    tail_ms=_cuda_ms(tail, a.reps),
+                    tail_device_ms=_device_ms(tail, a.reps))
+                K.sn_schur_scatter(U, lv.schur_src, lv.schur_ptr,
+                                   lv.schur_tgt, work)
             row["algebra_device_ms"] = (row["front_device_ms"]
-                                        + row.get("panel_bmm_device_ms", 0)
-                                        + row.get("u_bmm_device_ms", 0))
+                                        + row.get("tail_device_ms", 0))
             rows.append(row)
         state = torch.empty(2, dtype=torch.int32, device="cuda")
         K.sn_pivot_check(rec, state)
@@ -182,7 +212,9 @@ def main(argv):
         "factorize_device_ms": _device_ms(lambda: s.factorize(blocks, 1e-3),
                                           a.reps),
         "level_algebra_device_ms": sum(r["algebra_device_ms"]
-                                       for r in rows)}
+                                       for r in rows),
+        "tail_ms": sum(r.get("tail_ms", 0) for r in rows),
+        "tail_device_ms": sum(r.get("tail_device_ms", 0) for r in rows)}
     f = s.factorize(blocks, 1e-3)
     if hasattr(K, "sn_forward"):
         # one launch per direction over all levels; the tile inverses once
@@ -197,9 +229,9 @@ def main(argv):
             K.sn_backward(dv.sol_y, f.levels, f.Linv, dv.sol_cols,
                           dv.sol_rows, x)
 
-        def invert():
-            K.sn_invert_tiles(f.levels, f.Linv)
-        parts = {"forward": forward, "backward": backward, "invert": invert}
+        parts = {"forward": forward, "backward": backward}
+        if hasattr(K, "sn_invert_tiles"):
+            parts["invert"] = lambda: K.sn_invert_tiles(f.levels, f.Linv)
     else:
         # the per-level launches of an older tree: forward and segment sum
         # per level, then backward per level

@@ -111,7 +111,7 @@ def test_cpu_path_counts_no_launch():
         base | {k + "_f32" for k in base}
         | {"bal_error", "ba_back_substitute", "ba_schur_matvec"}
         | set(supernodal_kernels.KERNELS) | set(dense_kernels.KERNELS))
-    assert len(supernodal_kernels.KERNELS) == 10
+    assert len(supernodal_kernels.KERNELS) == 9
     assert all(n == 0 for n in _kernels.launch_counts().values())
 
 
@@ -191,6 +191,9 @@ def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
     levels = supernodal_kernels.Levels(
         l(1, 12), [f(S, Wd, Wd)], [f(S, Rd, Wd)], S, S * Wd, S * Rd, S * W,
         S * R, Wd + Rd)
+    plan = supernodal_kernels.SchurPlan(
+        i(7), i(T + 1), i(T), i(7), S, W, R, 6, nb,
+        supernodal_kernels.update_split(S, W, R, 6, T))
     return {
         "pg_linearize": se3 + ("gaussian", f(N, 6, 6), 1.0, b(N),
                                f(N, 3, 36), f(N, 2, 6)),
@@ -201,8 +204,8 @@ def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
                             f(S, Wd), b(S, Wd), i(S, W), i(n), i(S, R, W),
                             1e-3, False, i(S)),
         "sn_pivot_check": (i(3 * S), i(2)),
-        "sn_schur_scatter": (f(S, Rd, Rd), i(7), i(T + 1), i(T), f(nb, 36)),
-        "sn_invert_tiles": (levels, f(S, 32, 32)),
+        "sn_schur_update": (f(S, Wd, Wd).mT, f(S, Wd, Rd), plan, f(nb, 36),
+                            f(plan.split.scratch)),
         "sn_forward": (f(n, 6), levels, f(S, 32, 32), i(S * W),
                        i(S * W + 1), i(T + 1), i(7), f(S * Wd), f(S * Rd)),
         "sn_backward": (f(S * Wd), levels, f(S, 32, 32), i(S * W), i(S * R),
@@ -420,8 +423,10 @@ def _cpu_args_pg(name):
     blocks, g = s.system(vals.arrays)
     lv = next(lv for lv in dv.levels if lv.R)
     f = s.factorize(blocks, 0.1)
-    k = dv.levels.index(lv)
-    P = f.Lpanel[k]
+    _, Linv, At, _ = supernodal_kernels.sn_front_factor(
+        blocks.clone(), blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
+        lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, 0.1, False,
+        torch.zeros(lv.S, dtype=torch.int32))
     sol = (f.levels, f.Linv, dv.sol_cols)
     y, _ = supernodal_kernels.sn_forward_plain(
         g, *sol, dv.gat_ptr, dv.gat_seg, dv.gat_src,
@@ -445,9 +450,8 @@ def _cpu_args_pg(name):
         "sn_pivot_check": (torch.tensor([-1, -1, 4, 2, -1],
                                         dtype=torch.int32),
                            torch.zeros(2, dtype=torch.int32)),
-        "sn_schur_scatter": (P @ P.mT, lv.schur_src, lv.schur_ptr,
-                             lv.schur_tgt, blocks.clone()),
-        "sn_invert_tiles": (f.levels, torch.zeros_like(f.Linv)),
+        "sn_schur_update": (Linv, At, lv.schur, blocks.clone(),
+                            torch.zeros_like(dv.schur_U)),
         "sn_forward": (torch.as_tensor(rng.normal(size=(s.nvars, d))), *sol,
                        dv.gat_ptr, dv.gat_seg, dv.gat_src,
                        torch.zeros(s.n_y, dtype=torch.float64),
@@ -512,6 +516,66 @@ def test_kernel1_sizes_match_the_source():
     assert const(src, "kLinThreads") == "2 * kLinFactors"
     assert supernodal_kernels.LINEARIZE_FACTORS == int(const(src,
                                                              "kLinFactors"))
+
+
+def test_schur_update_sizes_match_the_source():
+    """sn_schur_update's output tile and threads, by which update_split
+    counts its work, are the kernel's own constants; its ring of three
+    slabs of both operands leaves room for the two CTAs an SM that its
+    launch bounds ask for; the U tiles it walks (nt <= mt + 1, skipping
+    those outside U's block-lower triangle) are exactly the tiles that hold
+    an entry (r, c) with c // d <= r // d; and each product's k-chunks
+    cover its depth once, as the kernel counts them, with the scratch for
+    their partial tiles; at shapes with partial tiles and at the sphere's
+    level shapes."""
+    src = _cu_source("sn_factor")
+
+    def const(name):
+        m = re.search(rf"constexpr int {name} = ([^;]+);", src)
+        assert m, name
+        return m.group(1).strip()
+
+    K = supernodal_kernels
+    assert int(const("kUT")) == K.UPDATE_TILE == 64
+    assert int(const("kUThreads")) == K.UPDATE_THREADS == 4 * 32
+    assert int(const("kMaxChunks")) == K.UPDATE_MAX_CHUNKS
+    assert int(const("kMaxD")) == K.UPDATE_MAX_D
+    assert const("kUPitch") == "kUT + 4" and const("kUStages") == "3"
+    assert "__launch_bounds__(kUThreads, 2) sn_schur_update_kernel" in src
+    assert "nk1 = (slabs + ck1 - 1) / ck1, nk2 = (slabs + ck2 - 1) / ck2" \
+        in src
+    assert 2 * 3 * 2 * 32 * (K.UPDATE_TILE + 4) * 8 <= K.SHARED_BYTES
+    tile = K.UPDATE_TILE
+    shapes = [(5, 63, 71, 6), (1, 60, 50, 6), (2, 3, 11, 6), (1, 8, 23, 9),
+              (58, 34, 24, 6), (16, 37, 33, 6), (8, 60, 48, 6),
+              (3, 64, 75, 6), (1, 64, 32, 6)]
+    for S, W, R, d in shapes:
+        Rd = R * d
+        ntn = -(-Rd // tile)
+        needed = {(mt, nt) for mt in range(ntn) for nt in range(ntn)
+                  if any(c // d <= r // d
+                         for r in range(tile * mt, min(Rd, tile * mt + tile))
+                         for c in range(tile * nt, min(Rd, tile * nt + tile)))}
+        walked = {(mt, nt) for mt in range(ntn)
+                  for nt in range(min(mt + 2, ntn))
+                  if tile * nt // d <= min(tile * mt + tile - 1, Rd - 1) // d}
+        assert walked == needed
+        sp = K.update_split(S, W, R, d, 7)
+        slabs = -(-W * d // 32)
+        for tiles, ck, nk in ((sp.panel_tiles, sp.panel_chunk,
+                               sp.panel_chunks),
+                              (sp.u_tiles, sp.u_chunk, sp.u_chunks)):
+            assert ck >= min(K.UPDATE_MIN_CHUNK, slabs) and nk == -(
+                -slabs // ck) and (nk - 1) * ck < slabs <= nk * ck
+            assert nk <= K.UPDATE_MAX_CHUNKS
+            assert nk == 1 or tiles * nk <= 2 * K.UPDATE_JOBS
+        assert sp.panel_tiles == S * -(-W * d // tile) * ntn
+        assert sp.u_tiles == S * sum(min(m + 2, ntn) for m in range(ntn))
+        part = max(t * n for t, n in ((sp.panel_tiles, sp.panel_chunks),
+                                      (sp.u_tiles, sp.u_chunks)) if n > 1) \
+            if max(sp.panel_chunks, sp.u_chunks) > 1 else 0
+        assert sp.scratch == S * Rd * Rd + part * tile * tile
+        assert sp.scatter_ctas == -(-7 * d // K.UPDATE_THREADS)
 
 
 def test_point_pass_sizes_match_the_source():

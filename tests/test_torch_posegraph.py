@@ -434,22 +434,23 @@ def test_factorize_per_level(case, damping):
 
 
 def _level_outputs(s, blocks, lam, dd):
-    """Each level's front kernel outputs (L, L^-1, At, rec) on the CPU (the
-    plain versions), along factorize's own path: the working store takes
-    each level's Schur update before the next level gathers."""
+    """Each level's front kernel outputs (L, L^-1, At, rec), its panel Lp
+    (None without a row structure) and a copy of the working store after
+    its Schur update, on the CPU (the plain versions), along factorize's
+    own path: the working store takes each level's update before the next
+    level gathers."""
     dv = s.dev
     work = blocks.clone()
     out = []
     for lv in dv.levels:
         rec = torch.empty(lv.S, dtype=torch.int32)
-        L, Linv, At = K.sn_front_factor(
+        L, Linv, At, _ = K.sn_front_factor(
             work, blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
             lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, lam, dd, rec)
+        Lp = None
         if lv.R:
-            Lp = torch.bmm(Linv, At).mT
-            K.sn_schur_scatter(torch.bmm(Lp, Lp.mT), lv.schur_src,
-                               lv.schur_ptr, lv.schur_tgt, work)
-        out.append((L, Linv, At, rec))
+            Lp = K.sn_schur_update(Linv, At, lv.schur, work, dv.schur_U)
+        out.append((L, Linv, At, rec, Lp, work.clone()))
     return out
 
 
@@ -462,11 +463,90 @@ def test_front_inverses_against_numpy(case):
     triangular."""
     _, _, tb, _ = case.systems()
     for lam in (1e-4, 1.0):
-        for L, Linv, _, rec in _level_outputs(case.ts, tb, lam, False):
+        for L, Linv, _, rec, _, _ in _level_outputs(case.ts, tb, lam,
+                                                    False):
             assert L.mT.is_contiguous() and Linv.mT.is_contiguous()
             assert torch.all(rec == -1)
             _close(Linv, np.linalg.inv(L.numpy()), 1e-12)
             assert torch.equal(Linv, Linv.tril())
+
+
+def test_schur_update_against_jax(case):
+    """Each level's panel Lp and the working store after its Schur update
+    against the JAX package's factorize at 1e-10 relative to the largest
+    entry (the products summed in another order, through L^-1 here and a
+    triangular solve there): its panels (:431-434), and its store replayed
+    level by level from them (the damping added once, :383-393, then
+    :436-441); the port's store is undamped, so its diagonal blocks take
+    the same damping for the comparison.  The plan's U offsets name the
+    blocks that its src lists."""
+    jb, _, tb, _ = case.systems()
+    s, js, lam = case.ts, case.js, 1e-2
+    _, _, jP, _, _ = jax.jit(js.factorize, static_argnums=2)(
+        jnp.asarray(jb), lam, False)
+    d = s.d
+    diag = np.arange(d) * (d + 1)
+    dbc = s.sym.diag_block_by_col
+    jwork = jnp.asarray(jb).at[dbc[:, None], diag[None, :]].add(
+        js._damp_vec(jnp.asarray(jb), lam, False))
+    damp = s.damp_vec(tb, lam, False)
+    outs = _level_outputs(s, tb, lam, False)
+    assert sum(lp.R > 0 for lp in s.level_plans) >= 2
+    for lp, lv, P, (_, _, _, _, Lp, work) in zip(js.level_plans, s.dev.levels,
+                                                 jP, outs):
+        assert (Lp is None) == (P is None) == (lp.R == 0)
+        if P is None:
+            continue
+        _close(Lp, P, 1e-10)
+        S, R = lp.S, lp.R
+        U = jnp.einsum("sij,skj->sik", P, P)
+        # the kernel's offsets of the summed blocks' first entries in U
+        np.testing.assert_array_equal(
+            np.asarray(U).reshape(-1)[lv.schur.uoff.numpy()],
+            np.asarray(U).reshape(S, R, d, R, d)[:, :, 0, :, 0].reshape(-1)[
+                lv.schur.src.numpy()])
+        Ub = U.reshape(S, R, d, R, d).transpose(0, 1, 3, 2, 4).reshape(
+            S * R * R, d * d)
+        seg = jax.ops.segment_sum(Ub[lp.schur_src], lp.schur_seg,
+                                  num_segments=len(lp.schur_tgt))
+        jwork = jwork.at[lp.schur_tgt].add(-seg)
+        got = work.clone()
+        got[torch.as_tensor(dbc).long()[:, None],
+            torch.as_tensor(diag)[None, :]] += damp
+        _close(got, np.asarray(jwork), 1e-10)
+
+
+def test_schur_update_leaves_other_rows(case):
+    """The Schur update writes only its targets: at each level of a
+    factorization, on a copy of the working store whose rows outside the
+    level's schur_tgt (the sentinel row among them) hold NaN, those rows
+    keep their bits and the targets come out finite and changed."""
+    _, _, tb, _ = case.systems()
+    s, dv = case.ts, case.ts.dev
+    work = tb.clone()
+    checked = 0
+    for lv in dv.levels:
+        _, Linv, At, _ = K.sn_front_factor(
+            work, tb, lv.diag_ids, lv.diag_flip, lv.diag_pad,
+            lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, 1.0, False,
+            torch.empty(lv.S, dtype=torch.int32))
+        if not lv.R:
+            continue
+        other = torch.ones(s.B + 1, dtype=torch.bool)
+        other[lv.schur.tgt.long()] = False
+        assert bool(other[s.B]) and bool(other.any())
+        got = work.clone()
+        got[other] = float("nan")
+        K.sn_schur_update(Linv, At, lv.schur, got, dv.schur_U)
+        assert bool(torch.isnan(got[other]).all())
+        assert torch.equal(got[other].view(torch.int64),
+                           torch.full_like(got[other], float("nan")).view(
+                               torch.int64))
+        K.sn_schur_update(Linv, At, lv.schur, work, dv.schur_U)
+        assert torch.equal(got[~other], work[~other])
+        assert not torch.equal(got[~other], tb[~other])
+        checked += 1
+    assert checked >= 2
 
 
 def _spoil_pivot(case, blocks, level):
@@ -594,7 +674,8 @@ def test_matvec(case, dd):
 
 
 def test_tile_inverses_against_numpy(case):
-    """Kernel 8's plain sn_invert_tiles against numpy.linalg.inv of every
+    """The tile inverses that factorize hands kernel 8 (the front kernel's;
+    on the CPU its plain version's) against numpy.linalg.inv of every
     32x32 diagonal tile of every front, built here from the level factors
     (a partial last tile padded with the identity, the fronts' padded
     column slots included), at 1e-12 relative to the largest entry; the
