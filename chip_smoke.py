@@ -43,7 +43,14 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      hub with
      600 chains of 6 poses, whose lowest level holds too many fronts for
      the cluster split; and a small pose-graph LM on the card against the
-     same run on the CPU;
+     same run on the CPU; kernel 6's loss branch: each of the nine losses
+     of gtsam_torch.base.losses and constrained noise against the plain
+     versions, twice for the same bits, on the small sphere's and the
+     mixed graph's SE3 batches, on seeded batches whose whitened norms
+     cover 0, the loss's threshold and far beyond under unit, diagonal,
+     gaussian and GNC-scaled noise, and on SE3_BIG factors; a small Huber
+     LM, a hard-prior LM and a GNC (TLS) on a 6 x 8 outlier sphere on the
+     card against the same runs on the CPU;
   4. the main paths: gtsam_torch.sfm.ba.ba_optimize at the Ladybug-1723
      shape (make_bal_problem(1723, 150000, 4, seed=0)) with bench.py's LM
      settings, (a) float64 and (b) mixed precision (dtype=float32,
@@ -61,7 +68,20 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      per factorization, kernel 8 exactly once per direction per solve,
      and its
      solver's owned block store must be zero outside H's own blocks after
-     both runs;
+     both runs; then the sphere-outliers configuration
+     (scripts/port_robust_data.py: the stand-in with 495 of its 2,450
+     closures replaced), each run twice for the same bits, its launch
+     counts read from its first run alone: robust-huber (the closures
+     under Huber, fused LM, held to the JAX package's optimum x 1.0001,
+     kernel 6 only, no generic linearization; on the graph with 248
+     closures replaced: at 495 the JAX package's LM does not converge
+     within 100 iterations), gnc-tls (gnc_optimize, TLS, GTSAM's 100
+     outer iterations: every replaced closure below a weight of 0.1, >=
+     97% of the true ones above 0.9, the half-chi2 of the graph of the
+     closures it keeps within 1% of that graph's JAX optimum, and the JAX
+     run's outer iterations, sides of 0.5 and final error) and hard-prior (the clean
+     stand-in with a constrained_all(6) prior: |Local(prior, x0)| <= 1e-9,
+     the JAX optimum x 1.0001);
   5. each kernel against its plain version again at the Ladybug shape, on
      the converged state (same tolerances), then its time (CUDA events)
      beside the plain version's time and its bound from this run's shapes,
@@ -86,7 +106,9 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      S SMs' share, the two library calls it replaces on the same fronts
      (cholesky_ex + solve_triangular against I), the Schur update by events
      and device time beside its bound and the two bmm it replaced (their
-     library yardstick), and a try by stage;
+     library yardstick), and a try by stage; kernel 6's robust calls (the
+     robust-huber run's closure batch and SE3_BIG factors under Huber)
+     beside the same calls without the loss, as rows of their own;
   6. one profiled run of each main path: device busy time by kernel (no
      cuSOLVER potrf, no trsv/trsm and no tril kernel may appear, and
      kernels 10 and 11 must), and the rows of the full-matrix passes (mul,
@@ -95,7 +117,9 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      kernel and no other device work; then one profiled sphere run (no
      potrf, trsm or trsv kernel, and the front kernel, may appear) and one
      profiled factorization (the front kernel, the Schur update and the
-     pivot check, and no cuBLAS product, potrf or trsm).
+     pivot check, and no cuBLAS product, potrf or trsm), and one profiled
+     robust-huber run (kernel 6's linearize and error, no generic
+     linearization).
 The last three lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}.  Imports neither JAX nor gtsam_tpu.
 """
@@ -1227,11 +1251,13 @@ class PGCase:
         s, dv = self.s, self.s.dev
         out = []
         if name in ("pg_linearize", "pg_error"):
+            from gtsam_torch.base import losses
             return se3_calls(name, [
                 ((self.arrays["SE3"].R, self.arrays["SE3"].t, st.rows_i32,
                   b.measurements.R, b.measurements.t, b.noise.kind,
                   b.noise.data, b.sign),
-                 dv.flips[i][1 if b.arity == 2 else 0], s.d)
+                 dv.flips[i][1 if b.arity == 2 else 0], s.d,
+                 losses.kernel_code(b.noise.loss) + (b.noise.mu,))
                 for i, b, st in self.se3_batches()])
         if name == "pg_assemble":
             # into a store zeroed once per maker call, as the main path's
@@ -1303,23 +1329,27 @@ class PGCase:
 
 def se3_calls(name, batches):
     """PGCase.calls of kernel 6 (`name`: pg_linearize or pg_error) on
-    `batches`, each ((R, t, rows, ZR, Zt, kind, noise, sign), flip, d);
-    linearize's outputs start as NaN: each must be written in full."""
+    `batches`, each ((R, t, rows, ZR, Zt, kind, noise, sign), flip, d) or
+    with a fourth entry, the loss arguments (loss code, its parameter,
+    mu); linearize's outputs start as NaN: each must be written in full."""
     import torch
     out = []
-    for base, flip, d in batches:
+    for base, flip, d, *extra in batches:
+        la = tuple(extra[0]) if extra else (0, 0.0, 1000.0)
         if name == "pg_error":
-            out.append((lambda base=base: base, lambda r, a: (r,)))
+            out.append((lambda base=base, la=la: base + la,
+                        lambda r, a: (r,)))
             continue
         N, arity = base[2].shape
 
-        def mk(base=base, flip=flip, N=N, arity=arity, d=d):
+        def mk(base=base, flip=flip, N=N, arity=arity, d=d, la=la):
             nan = float("nan")
             return base + (flip, torch.full(
                 (N, 3 if arity == 2 else 1, d * d), nan, dtype=torch.float64,
                 device="cuda"), torch.full((N, arity, d), nan,
-                                           dtype=torch.float64, device="cuda"))
-        out.append((mk, lambda r, a: (a[-2], a[-1])))
+                                           dtype=torch.float64,
+                                           device="cuda")) + la[:2]
+        out.append((mk, lambda r, a: (a[-4], a[-3])))
     return out
 
 
@@ -1373,15 +1403,194 @@ def se3_batch(n_poses, N, arity, d, kind, per_factor, seed):
 
 class SE3Batches:
     """Kernel 6's synthetic batches in PGCase's form for check_pg_kernels:
-    each spec of se3_batch without its seed."""
+    each spec of se3_batch without its seed (or, with batches=, batches in
+    se3_calls' form)."""
     lam = 1.0
 
-    def __init__(self, specs):
-        self.batches = [se3_batch(*spec, seed=k)
-                        for k, spec in enumerate(specs)]
+    def __init__(self, specs=(), batches=None):
+        self.batches = batches if batches is not None else [
+            se3_batch(*spec, seed=k) for k, spec in enumerate(specs)]
 
     def calls(self, name):
         return se3_calls(name, self.batches)
+
+
+# -- kernel 6's loss branch: robust and constrained SE3 batches ---------------
+
+# the Huber threshold of the sphere-outliers runs (GTSAM's default k)
+HUBER_K = 1.345
+
+
+def loss_args(name, param=None):
+    """Kernel 6's loss arguments (code, parameter, mu) of the named loss of
+    gtsam_torch.base.losses at `param` (None: its default)."""
+    from gtsam_torch.base import losses
+    fn = losses.LOSSES[name]
+    loss = fn() if param is None or name == "null" else fn(param)
+    return losses.kernel_code(loss) + (1000.0,)
+
+
+def with_loss(batches, la):
+    """se3_calls' batches with loss arguments la."""
+    return [(base, flip, d, la) for base, flip, d, *_ in batches]
+
+
+def branch_batch(arity, model, seed, N=97, n_poses=40):
+    """A seeded batch of N SE3 between (arity 2) or prior factors whose
+    whitened residual norms spread from 0 (two factors whose measurement is
+    the relative pose itself) over 1e-6 .. 1e4 (rotation errors up to 2
+    rad, the rest translation), in se3_calls' form, and the plain version's
+    whitened norm of each factor.  model: "unit", "diagonal" (inverse
+    sigmas in [0.5, 20], one a factor), "gaussian" (a square-root
+    information a factor) or "gnc" (the diagonal model scaled by the
+    square roots of per-factor GNC weights: 0, 1 and between)."""
+    import numpy as np
+    import torch
+    from gtsam_torch.geometry import se3
+    from gtsam_torch.geometry.se3 import SE3
+    from gtsam_torch.linear import supernodal_kernels as K
+    rng = np.random.default_rng(100 + seed)
+    T = se3.expmap(torch.as_tensor(rng.normal(size=(n_poses, 6))
+                                   * np.array([1.0] * 3 + [10.0] * 3)))
+    i = rng.integers(0, n_poses, N)
+    rows = i[:, None]
+    Tz = SE3(T.R[i], T.t[i])
+    if arity == 2:
+        j = (i + 1 + rng.integers(0, n_poses - 1, N)) % n_poses
+        rows = np.stack([i, j], 1)
+        Tz = se3.between(Tz, SE3(T.R[j], T.t[j]))
+    s = np.concatenate([[0.0, 0.0], np.geomspace(1e-6, 1e4, N - 2)])
+    u = rng.normal(size=(N, 6))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    xi = u * s[:, None]
+    rot = np.linalg.norm(xi[:, :3], axis=1, keepdims=True)
+    xi[:, :3] *= np.minimum(1.0, 2.0 / np.maximum(rot, 1e-300))
+    Z = se3.compose(Tz, se3.expmap(torch.as_tensor(xi)))
+    ZR = torch.where(torch.as_tensor(s == 0)[:, None, None], Tz.R, Z.R)
+    Zt = torch.where(torch.as_tensor(s == 0)[:, None], Tz.t, Z.t)
+    inv = rng.uniform(0.5, 20.0, size=(N, 6))
+    data = {"unit": None,
+            "diagonal": inv,
+            "gaussian": np.linalg.cholesky(
+                (lambda A: A @ A.transpose(0, 2, 1) + 6 * np.eye(6))(
+                    rng.normal(size=(N, 6, 6)))).transpose(0, 2, 1),
+            "gnc": inv * np.sqrt(np.where(
+                np.arange(N) % 3 == 0, 0.0, np.where(
+                    np.arange(N) % 3 == 1, 1.0,
+                    rng.uniform(0.0, 1.0, N))))[:, None]}[model]
+    kind = {"gnc": "diagonal"}.get(model, model)
+
+    def dev(x):
+        return None if x is None else torch.as_tensor(x).to(
+            "cuda").contiguous()
+    base = (dev(T.R), dev(T.t), dev(torch.as_tensor(rows, dtype=torch.int32)),
+            dev(ZR), dev(Zt), kind, dev(data), -1.0 if seed % 2 else 1.0)
+    _, b = K.pg_jacobians_plain(*base[:7])
+    return (base, dev(torch.as_tensor(rng.random(N) < 0.5)), 6), \
+        torch.sqrt(torch.sum(b * b, dim=-1))
+
+
+def constrained_batch(arity, shared, seed, N=97, n_poses=40):
+    """A seeded SE3 batch (se3_batch's geometry) under constrained noise:
+    inverse sigmas in [0.5, 20] with hard (zero) rows, one model for the
+    batch (rows 0 and 4 hard) or one a factor (each row hard with
+    probability 0.3, every row of some factors), and mu 1000 or 50."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(200 + seed)
+    base, flip, d = se3_batch(n_poses, N, arity, 6, "diagonal",
+                              not shared, seed)
+    M = 1 if shared else N
+    inv = rng.uniform(0.5, 20.0, size=(M, 6))
+    if shared:
+        inv[:, [0, 4]] = 0.0
+    else:
+        inv[rng.random((M, 6)) < 0.3] = 0.0
+        inv[::7] = 0.0
+    data = torch.as_tensor(inv).to("cuda").contiguous()
+    return ((base[:5] + ("constrained", data, base[7]), flip, d,
+             (0, 0.0, 1000.0 if seed % 2 else 50.0)))
+
+
+def loss_branch_checks():
+    """Phase 3 of kernel 6's loss branch on synthetic batches: each of the
+    nine losses under unit, diagonal, gaussian and GNC-scaled noise, on a
+    between batch and a prior batch whose whitened norms cover 0, the
+    loss's threshold (its parameter set to the median nonzero plain
+    whitened norm, one factor's own; for dcs, whose rho jumps there, the
+    square of a norm between two factors') and far beyond; constrained noise,
+    shared and per factor; each against its plain version at PG_TOL and
+    twice for the same bits; then every loss and constrained noise on
+    SE3_BIG between factors (one gaussian model a factor)."""
+    import torch
+    from gtsam_torch.base import losses
+    for model in ("unit", "diagonal", "gaussian", "gnc"):
+        made = [branch_batch(arity, model, k)
+                for k, arity in enumerate((2, 1))]
+        for name in losses.LOSSES:
+            batches = []
+            for batch, d in made:
+                # a factor's own norm (GNC's zero weights leave zeros)
+                at = float(torch.median(d[d > 0]))
+                if name == "dcs":
+                    # dcs's rho jumps at its threshold (0.5 c against 0):
+                    # where an ulp of d^2 decides, two correct evaluations
+                    # differ, so its threshold lies between two factors
+                    e2 = torch.sort(d * d).values
+                    k = int(torch.searchsorted(e2, at * at))
+                    at = float(torch.sqrt(0.5 * (e2[k - 1] + e2[k])))
+                la = loss_args(name, at * at if name == "dcs" else at)
+                batches.append(batch + (la,))
+                below = int((d < at).sum())
+                if not 0 < below < len(d) - 1:
+                    raise AssertionError("the branch batch misses a side "
+                                         "of the threshold")
+            check_pg_kernels(SE3Batches(batches=batches),
+                             f"loss {name} {model} noise",
+                             ["pg_linearize", "pg_error"])
+    check_pg_kernels(SE3Batches(batches=[
+        constrained_batch(arity, shared, k)
+        for k, (arity, shared) in enumerate(
+            ((2, True), (2, False), (1, True), (1, False)))]),
+        "constrained noise", ["pg_linearize", "pg_error"])
+    big = SE3Batches([(SE3_POSES, SE3_BIG, 2, 6, "gaussian", True)])
+    for name in losses.LOSSES:
+        check_pg_kernels(SE3Batches(batches=with_loss(
+            big.batches, loss_args(name))), f"loss {name} at {SE3_BIG}",
+            ["pg_linearize", "pg_error"])
+    (base, flip, d), = big.batches
+    data = base[6][:, :, 0].abs().contiguous()
+    data[::5, 2] = 0.0
+    check_pg_kernels(SE3Batches(batches=[
+        (base[:5] + ("constrained", data, base[7]), flip, d,
+         (0, 0.0, 1000.0))]), f"constrained noise at {SE3_BIG}",
+        ["pg_linearize", "pg_error"])
+
+
+def graph_loss_checks(case, label):
+    """Kernel 6's loss branch on a pose-graph case's own SE3 batches: each
+    batch under each of the nine losses at its default parameter, and
+    under constrained noise (its first and fourth rows hard), against the
+    plain versions at PG_TOL, twice for the same bits."""
+    import torch
+    from gtsam_torch.base import losses
+    batches = [((case.arrays["SE3"].R, case.arrays["SE3"].t, st.rows_i32,
+                 b.measurements.R, b.measurements.t, b.noise.kind,
+                 b.noise.data, b.sign),
+                case.s.dev.flips[i][1 if b.arity == 2 else 0], case.s.d)
+               for i, b, st in case.se3_batches()]
+    for name in losses.LOSSES:
+        check_pg_kernels(SE3Batches(batches=with_loss(
+            batches, loss_args(name))), f"{label} loss {name}",
+            ["pg_linearize", "pg_error"])
+    hard = []
+    for base, flip, d in batches:
+        data = torch.full((1, 6), 10.0, dtype=torch.float64, device="cuda")
+        data[0, [0, 3]] = 0.0
+        hard.append((base[:5] + ("constrained", data, base[7]), flip, d,
+                     (0, 0.0, 1000.0)))
+    check_pg_kernels(SE3Batches(batches=hard), f"{label} constrained",
+                     ["pg_linearize", "pg_error"])
 
 
 def se3_batch_checks():
@@ -1416,7 +1625,7 @@ def check_pg_kernels(case, label, names=None):
     for name in names or K.KERNELS:
         kern = getattr(K, name)
         plain = getattr(K, name + "_plain")
-        tol = PG_TOL[name]
+        tol = getattr(case, "tol", {}).get(name, PG_TOL[name])
         if case.lam < 1.0:
             tol = PG_TOL_SMALL_LAM.get(name, tol)
         tols = tol if isinstance(tol, tuple) else None
@@ -1613,6 +1822,8 @@ def pg_small_checks():
                     f"{len(case.s.level_plans)} levels, B {case.s.B}, ok "
                     f"{case.ok}")
                 check_pg_kernels(case, f"{label} lam={lam} dd={dd}")
+                if lam == 1.0 and not dd:
+                    graph_loss_checks(case, label)
                 check_level_extras(case, f"{label} lam={lam} dd={dd}")
                 check_fill_untouched(case, f"{label} lam={lam} dd={dd}")
                 check_bad_pivot(case, f"{label} lam={lam} dd={dd}")
@@ -1759,6 +1970,331 @@ def sphere_main_path():
                              "generic path")
     return dict(fn=fn, solver=solver, graph=graph, vals0=vals0, runs=runs,
                 plan_s=plan_s, chordal_s=chordal_s)
+
+
+# -- the sphere-outliers configuration: robust, GNC and hard-prior runs ------
+
+# `python3 scripts/port_robust_reference.py` (gtsam_tpu on the CPU, float64)
+# on the graph of scripts/port_robust_data.py: each run's iterations, tries
+# and converged half-chi2, its target (x 1.0001), the optimum of the inlier
+# graph and of the graph of the closures GNC keeps, and GNC's outer
+# iterations, final error and the true closures it leaves below a weight of
+# 0.5.  robust-huber converged in 26 iterations from the chordal start,
+# hard-prior in 3 (7283.316670500946: the sphere's optimum, the prior
+# exact), GNC in 40 outer iterations, keeping 99.59% of the true closures
+# above 0.9 and the kept graph at its optimum (5678.78653757442 against
+# 5678.786537576247); the inlier graph's half-chi2 at GNC's values is
+# 6030.288377137409, 4.7% above its optimum, from the eight true closures
+# TLS rejects.
+ROBUST_REF = {
+    # robust-huber: 5% of the edges (248 closures) replaced
+    "robust_huber": {"iterations": 26, "tries": 26,
+                     "final_half_chi2": 600986.7987058215,
+                     "target": 601046.8973856921},
+    "hard_prior": {"iterations": 3, "tries": 3,
+                   "final_half_chi2": 7283.316670500946,
+                   "target": 7284.045002167996},
+    "inlier": {"final_half_chi2": 5759.472482489824},
+    "gnc_kept": {"final_half_chi2": 5678.786537576247},
+    # the JAX run (318 s on the CPU): every replaced closure and these
+    # true ones end below a weight of 0.5
+    "gnc_tls": {"outer_iterations": 40,
+                "final_error": 5678.786537574422,
+                "true_below_half": [232, 291, 787, 1011, 1959, 1986, 2240, 2384]}}
+HUBER_LM = dict(relative_error_tol=1e-7, absolute_error_tol=1e-9,
+                lambda_policy="gain")
+# GNC's outer iterations: GTSAM's GncParams default, 100; with the JAX
+# package's 20, TLS's mu has not grown enough on this graph to keep the
+# true closures (the JAX run's own result: 0.6% of them above 0.9)
+GNC_MAX_ITERATIONS = 100
+
+
+def outlier_graphs(laps, per_lap, **kw):
+    """The sphere-outliers graphs (scripts/port_robust_data.py, written
+    under build/): "plain" (odometry, the closures with 10% of all edges
+    replaced, bench.py's prior: GNC's graph), "inlier" (without the
+    replaced closures), "huber" (the closures with 5% of the edges
+    replaced, under Huber at HUBER_K: at 10% the JAX package's LM does not
+    converge within 100 iterations from the chordal start) and "hard"
+    (the clean stand-in with the prior noise.constrained_all(6)); and the
+    10% graph's replaced closures' indices.  kw: write_sphere_g2o's
+    (radius, sigmas, seed)."""
+    import dataclasses as dc
+    import numpy as np
+    from gtsam_torch.base import losses, noise
+    from gtsam_torch.geometry.se3 import SE3
+    from gtsam_torch.graph import factors
+    from gtsam_torch.graph.graph import FactorGraph
+    from gtsam_torch.io import datasets
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(here, "build", "port_sphere")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"outliers_{laps}x{per_lap}.g2o")
+    hpath = os.path.join(out, f"outliers5_{laps}x{per_lap}.g2o")
+    clean = os.path.join(out, f"clean_{laps}x{per_lap}.g2o")
+    data = _port_module("port_robust_data")
+    _, _, bad = data.write_outlier_g2o(path, laps, per_lap, **kw)
+    data.write_outlier_g2o(hpath, laps, per_lap,
+                           data.default_bad(laps, per_lap, 0.05), **kw)
+    _port_module("port_sphere_data").write_sphere_g2o(clean, laps, per_lap,
+                                                      **kw)
+    n_odo = laps * per_lap - 1
+
+    def split(p):
+        edges = datasets.load_3d(p)[0].batches[0]
+        return (factors.slice_batch(edges, np.arange(n_odo)),
+                factors.slice_batch(edges, np.arange(n_odo,
+                                                     edges.num_factors)))
+    odo, clo = split(path)
+    hodo, hclo = split(hpath)
+    good = np.setdiff1d(np.arange(clo.num_factors), bad)
+    pose = SE3(np.eye(3)[None], np.zeros((1, 3)))
+
+    def prior(model=None):
+        return factors.prior_factors("SE3", [0], pose, model or noise.sigmas(
+            [[1e-3] * 3 + [1e-2] * 3]))
+    return {"huber": FactorGraph([hodo, dc.replace(hclo, noise=noise.robust(
+                hclo.noise, losses.huber(HUBER_K))), prior()]),
+            "plain": FactorGraph([odo, clo, prior()]),
+            "inlier": FactorGraph([odo, factors.slice_batch(clo, good),
+                                   prior()]),
+            "hard": FactorGraph([datasets.load_3d(clean)[0].batches[0],
+                                 prior(noise.constrained_all(6))])}, bad
+
+
+def prior_local(arrays):
+    """||Local(identity, x_0)||: how far the hard prior's pose moved."""
+    import torch
+    from gtsam_torch.geometry import se3
+    from gtsam_torch.geometry.se3 import SE3
+    T = arrays["SE3"]
+    x0 = SE3(T.R[:1], T.t[:1])
+    eye = SE3(torch.eye(3, dtype=T.R.dtype, device=T.R.device)[None],
+              torch.zeros((1, 3), dtype=T.t.dtype, device=T.t.device))
+    return float(torch.linalg.norm(se3.local(eye, x0)))
+
+
+def robust_small_checks():
+    """Phase 3 of the robust paths: on a 6 x 8 outlier sphere, a Huber LM
+    and a hard-prior LM (SparseSolver, kernel 6's loss and constrained
+    branches) and a GNC (TLS) on the card against the same runs on the
+    CPU."""
+    import numpy as np
+    from gtsam_torch import LMParams
+    from gtsam_torch.optimize import gnc
+    from gtsam_torch.optimize import optimizers as O
+    from gtsam_torch.slam.initialize import initialize_pose3_chordal
+    graphs, bad = outlier_graphs(6, 8, radius=10.0, sigma_t=0.1,
+                                 sigma_r=0.05, seed=1)
+    p = LMParams(max_iterations=40, **HUBER_LM)
+    for name in ("huber", "hard"):
+        g = graphs[name]
+        v0 = initialize_pose3_chordal(g)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            fn = O.make_fused_lm(g, v0, p, solver=O.SparseSolver(
+                refine_iters=1, supernodal_kwargs=dict(force_width=4,
+                                                       max_width=8)),
+                device=dev)
+            it, arrays, err, conv, hist, tries = fn(v0.arrays)
+            res[dev] = (it, tries, err, prior_local(arrays))
+        d = abs(res["cuda"][2] - res["cpu"][2]) / res["cpu"][2]
+        log(f"small {name} LM: card {res['cuda']} cpu {res['cpu']} (it, "
+            f"tries, half-chi2, |Local(prior, x0)|); rel diff {d:.3e}")
+        if not (d <= 1e-9 and res["cuda"][:2] == res["cpu"][:2]):
+            raise AssertionError(f"the small {name} LM on the card "
+                                 "disagrees with the CPU")
+        if name == "hard" and not res["cuda"][3] <= 1e-9:
+            raise AssertionError("the small hard prior moved")
+    g = graphs["plain"]
+    v0 = initialize_pose3_chordal(g)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        r = gnc.gnc_optimize(g, v0, gnc.GncParams(loss_type="TLS",
+                                                  robust_batches=[1]),
+                             device=dev)
+        res[dev] = (r.gnc_iterations, r.error, r.history[-1][1][0])
+    d = abs(res["cuda"][1] - res["cpu"][1]) / res["cpu"][1]
+    dw = float(np.max(np.abs(res["cuda"][2] - res["cpu"][2])))
+    log(f"small GNC (TLS): outer iterations card {res['cuda'][0]} cpu "
+        f"{res['cpu'][0]}; final error card {res['cuda'][1]!r} cpu "
+        f"{res['cpu'][1]!r} rel diff {d:.3e}; weights max diff {dw:.3e}; "
+        f"{int((res['cuda'][2] < 0.5).sum())} of {len(res['cuda'][2])} "
+        f"closures below 0.5 ({len(bad)} replaced)")
+    if not (res["cuda"][0] == res["cpu"][0] and d <= 1e-8 and dw <= 1e-6):
+        raise AssertionError("the small GNC on the card disagrees with the "
+                             "CPU")
+
+
+def _run_counted(fn):
+    """fn() with every launch count and the generic and constraint
+    linearization counts set to 0 just before it; (its result, the
+    pose-graph kernels' launches, generic, constraint linearizations,
+    wall seconds)."""
+    import torch
+    from gtsam_torch import _kernels
+    from gtsam_torch.graph import factors
+    from gtsam_torch.linear import supernodal_kernels as K
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    factors.GENERIC_LINEARIZATIONS[0] = 0
+    factors.CONSTRAINT_LINEARIZATIONS[0] = 0
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: v for k, v in _kernels.launch_counts().items()
+                if k in K.KERNELS}
+    return (out, launches, factors.GENERIC_LINEARIZATIONS[0],
+            factors.CONSTRAINT_LINEARIZATIONS[0], wall)
+
+
+def _same_arrays(a, b):
+    import torch
+    return (torch.equal(a["SE3"].R, b["SE3"].R)
+            and torch.equal(a["SE3"].t, b["SE3"].t))
+
+
+def outlier_main_paths(laps=50, per_lap=50):
+    """Phase 4 of the sphere-outliers configuration at the full stand-in
+    shape (2,500 poses; 495 of the 2,450 closures replaced): robust-huber,
+    gnc-tls and hard-prior, each from initialize_pose3_chordal of its own
+    graph, each twice for the same bits, each held to its target, with
+    every launch count read from the first run alone; returns what phases
+    5 and 6 need."""
+    import numpy as np
+    import torch
+    from gtsam_torch import LMParams
+    from gtsam_torch.optimize import gnc
+    from gtsam_torch.optimize import optimizers as O
+    from gtsam_torch.slam.initialize import initialize_pose3_chordal
+    from gtsam_torch.graph.graph import BoundGraph
+    graphs, bad = outlier_graphs(laps, per_lap)
+    good = np.setdiff1d(np.arange(graphs["plain"].batches[1].num_factors),
+                        bad)
+    log(f"sphere-outliers: {graphs['plain'].num_factors} factors, "
+        f"{len(bad)} of {graphs['plain'].batches[1].num_factors} closures "
+        f"replaced")
+    out = {}
+    for name, ref in (("huber", ROBUST_REF["robust_huber"]),
+                      ("hard", ROBUST_REF["hard_prior"])):
+        g = graphs[name]
+        t0 = time.time()
+        v0 = initialize_pose3_chordal(g)
+        chordal_s = time.time() - t0
+        p = LMParams(max_iterations=ref["iterations"],
+                     error_tol=ref["target"], **HUBER_LM)
+        t0 = time.time()
+        fn = O.make_fused_lm(g, v0, p, solver=O.SparseSolver(**SPHERE_SOLVER),
+                             device="cuda")
+        plan_s = time.time() - t0
+        runs = [_run_counted(lambda: fn(v0.arrays)) for _ in range(2)]
+        (it, arrays, err, conv, hist, tries), launches, generic, cons, wall \
+            = runs[0]
+        moved = prior_local(arrays)
+        label = {"huber": "robust-huber", "hard": "hard-prior"}[name]
+        log(f"{label} run: half-chi2 {[r[0][2] for r in runs]} (target "
+            f"{ref['target']!r}) in {it} iterations, {tries} tries, "
+            f"converged {conv}, wall {[r[4] for r in runs]} s, plan "
+            f"{plan_s:.3f} s, chordal {chordal_s:.3f} s; |Local(prior, "
+            f"x0)| {moved:.3e}")
+        log(f"  history {hist[:it + 1].tolist()}")
+        log(f"  launches {launches}; generic linearizations {generic}; "
+            f"constraint linearizations {cons}")
+        # kernel 6 once a batch an iteration (linearize) and at the start
+        # and each try (error); kernel 8 twice a try (the solve and its
+        # refinement), or three times for hard-prior's augmented-Lagrangian
+        # passes, which refine nothing (no kernel 9)
+        nb = len(g.batches)
+        solves = (3 if name == "hard" else 2) * tries
+        want = {"pg_linearize": nb * it, "pg_error": nb * (tries + 1),
+                "sn_forward": solves, "sn_backward": solves,
+                "sn_matvec": 0 if name == "hard" else tries}
+        got = {k: launches[k] for k in want}
+        same = all(torch.equal(r[0][4][:it + 1], hist[:it + 1])
+                   and _same_arrays(r[0][1], arrays) for r in runs[1:])
+        if not err <= ref["target"]:
+            raise AssertionError(f"{label} did not reach {ref['target']}: "
+                                 f"{err}")
+        if got != want or generic:
+            raise AssertionError(f"{label}: kernels 6, 8 and 9 launched "
+                                 f"{got}, not {want}, or {generic} generic "
+                                 "linearizations ran")
+        if any(n <= 0 for k, n in launches.items() if k not in want):
+            raise AssertionError(f"{label}: a pose-graph kernel was not "
+                                 f"launched: {launches}")
+        if name == "hard" and not (moved <= 1e-9 and cons == it):
+            raise AssertionError(f"hard-prior: the prior moved by {moved} "
+                                 f"or {cons} constraint linearizations "
+                                 f"ran in {it} iterations")
+        if not same:
+            raise AssertionError(f"two runs of {label} differ")
+        out[name] = dict(fn=fn, graph=g, vals0=v0, it=it, tries=tries,
+                         err=[r[0][2] for r in runs], arrays=arrays,
+                         wall=[r[4] for r in runs], launches=launches,
+                         plan_s=plan_s, chordal_s=chordal_s,
+                         history=hist[:it + 1].tolist(), moved=moved)
+    # gnc-tls
+    g = graphs["plain"]
+    v0 = initialize_pose3_chordal(g)
+    params = gnc.GncParams(loss_type="TLS", robust_batches=[1],
+                           max_iterations=GNC_MAX_ITERATIONS)
+    runs = [_run_counted(lambda: gnc.gnc_optimize(g, v0, params,
+                                                  device="cuda"))
+            for _ in range(2)]
+    res, launches, generic, cons, wall = runs[0]
+    w = res.history[-1][1][0]
+    vals = res.values
+    inl_err = float(BoundGraph(graphs["inlier"], vals, "cuda").error(
+        vals.arrays))
+    # GNC's basin: the graph of the closures it keeps (weight >= 0.5) at
+    # its values against that graph's JAX optimum (the inlier graph also
+    # holds the true closures TLS rejects past the chi2 quantile)
+    from gtsam_torch.graph import factors
+    from gtsam_torch.graph.graph import FactorGraph
+    kg = FactorGraph([g.batches[0], factors.slice_batch(
+        g.batches[1], np.flatnonzero(w >= 0.5)), g.batches[2]])
+    kept_err = float(BoundGraph(kg, vals, "cuda").error(vals.arrays))
+    ref = ROBUST_REF["gnc_tls"]
+    summary = {"outer_iterations": res.gnc_iterations,
+               "final_error": [r[0].error for r in runs],
+               "wall_s": [r[4] for r in runs],
+               "replaced_max_weight": float(w[bad].max()),
+               "true_above_0.9": float(np.mean(w[good] > 0.9)),
+               "true_below_0.1": int((w[good] < 0.1).sum()),
+               "below_half": int((w < 0.5).sum()),
+               "inlier_half_chi2": inl_err,
+               "inlier_optimum": ROBUST_REF["inlier"]["final_half_chi2"],
+               "kept_half_chi2": kept_err,
+               "kept_optimum": ROBUST_REF["gnc_kept"]["final_half_chi2"],
+               "launches": launches, "generic": generic}
+    log(f"gnc-tls: {json.dumps(summary)}")
+    same = (all(np.array_equal(r[0].history[-1][1][0], w)
+                and _same_arrays(r[0].values.arrays, vals.arrays)
+                for r in runs[1:]))
+    if not same:
+        raise AssertionError("two runs of gnc-tls differ")
+    if not (summary["replaced_max_weight"] < 0.1
+            and summary["true_above_0.9"] >= 0.97):
+        raise AssertionError(f"gnc-tls weights: {summary}")
+    if not kept_err <= 1.01 * summary["kept_optimum"]:
+        raise AssertionError(f"gnc-tls is not in its kept closures' basin: "
+                             f"{kept_err}")
+    below = np.flatnonzero(w < 0.5).tolist()
+    jax_below = sorted(set(bad.tolist()) | set(ref["true_below_half"]))
+    d = abs(res.error - ref["final_error"]) / ref["final_error"]
+    log(f"gnc-tls against the JAX run: outer iterations "
+        f"{res.gnc_iterations} / {ref['outer_iterations']}, the closures "
+        f"below 0.5 the same {below == jax_below} ({len(below)} / "
+        f"{len(jax_below)}), final error rel diff {d:.3e}")
+    if not (res.gnc_iterations == ref["outer_iterations"]
+            and below == jax_below and d <= 1e-6):
+        raise AssertionError("gnc-tls differs from the JAX run")
+    if generic or launches["pg_linearize"] <= 0 or launches["pg_error"] <= 0:
+        raise AssertionError(f"gnc-tls: kernel 6 launches {launches}, "
+                             f"generic linearizations {generic}")
+    out["gnc"] = dict(summary=summary, graph=g, vals0=v0)
+    return out
 
 
 def pg_work(case):
@@ -2060,6 +2596,122 @@ def se3_big_times(kernels, ms_fn):
         next(k for k in kernels if k["name"] == name)["at_50000"] = row
         log(f"time {name} at N = {SE3_BIG}: {json.dumps(row)} "
             f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP)")
+
+
+def robust_kernel_times(outl, ms_fn):
+    """Phase 5 of kernel 6's loss branch: linearize and error on the
+    robust-huber run's converged state, its closure batch under Huber
+    (the run's robust calls) beside the same batch without the loss, and
+    one synthetic batch of SE3_BIG between factors (one gaussian model a
+    factor) under Huber beside it without: each against its plain version
+    at PG_TOL (twice for the same bits; the converged closures' H under
+    Huber at A^T b's tolerance, for A^T b's reason), events and device
+    time, the plain version's time, the bound; rows of their own, with
+    the robust-huber run's launches."""
+    import torch
+    from gtsam_torch.base import losses
+    from gtsam_torch.linear import supernodal_kernels as K
+    run = outl["huber"]
+    fn = run["fn"]
+    bound = fn.bound
+    arrays = run["arrays"]
+    s = fn.solver._s
+    bi = 1
+    b, st = bound.graph.batches[bi], bound.structures[bi]
+    base = (arrays["SE3"].R, arrays["SE3"].t, st.rows_i32, b.measurements.R,
+            b.measurements.t, b.noise.kind, b.noise.data, b.sign)
+    flip = s.dev.flips[bi][1]
+    huber = losses.kernel_code(b.noise.loss) + (b.noise.mu,)
+    big = SE3Batches([(SE3_POSES, SE3_BIG, 2, 6, "gaussian", True)])
+    # under a loss H = w A^T A carries w(||R_w r||), so the rounding of r
+    # that sets A^T b's tolerance (PG_TOL) reaches H too: at the converged
+    # state many closures sit at Huber's k with residuals of ~1e-2 m over
+    # positions ~100 m from the origin.  Two plain evaluations of the same
+    # H (the card's and the CPU's) show that floor; H is held at A^T b's
+    # 1e-10 there.
+    Hs = []
+    for dev in ("cuda", "cpu"):
+        a = tuple(x.to(dev) if hasattr(x, "to") else x
+                  for x in base + (flip,))
+        H = torch.zeros((b.num_factors, 3, s.d * s.d), dtype=torch.float64,
+                        device=dev)
+        gv = torch.zeros((b.num_factors, 2, s.d), dtype=torch.float64,
+                         device=dev)
+        K.pg_linearize_plain(*a, H, gv, *huber[:2])
+        Hs.append(H.cpu())
+    floor = float((Hs[0] - Hs[1]).abs().max() / Hs[1].abs().max())
+    log(f"sphere closures huber: two plain evaluations of H (card, CPU) "
+        f"differ by {floor:.3e} of its largest entry")
+    rows = []
+    for where, batches in (
+            ("sphere closures", [(base, flip, s.d)]),
+            (f"{SE3_BIG} factors", big.batches)):
+        for label, la in (("huber", huber), ("no loss", None)):
+            case = SE3Batches(batches=with_loss(batches, la) if la
+                              else batches)
+            if la and where == "sphere closures":
+                case.tol = {"pg_linearize": (PG_TOL["pg_linearize"][1],) * 2}
+            errs = check_pg_kernels(case, f"{where} {label}",
+                                    ["pg_linearize", "pg_error"])
+            for name in ("pg_linearize", "pg_error"):
+                (mk, _), = case.calls(name)
+                args = mk()
+                kfn, pfn = getattr(K, name), getattr(K, name + "_plain")
+                b0 = case.batches[0][0]
+                nbytes, flops = se3_work(name, b0[2], b0[6], case.batches[0][2])
+                bnd, by = bound_ms(nbytes, 0, flops)
+                row = {"name": f"{name}[{label}, {where}]", "route": "cuda",
+                       "source": "gtsam_torch/csrc/pg_between.cu",
+                       "replaces": K.KERNELS[name].replaces,
+                       "launches": run["launches"][name] if la else 0,
+                       "max_abs_err": errs[name],
+                       "ms": ms_fn(lambda: kfn(*args), reps=20),
+                       "plain_ms": ms_fn(lambda: pfn(*args), reps=3,
+                                         warmup=1),
+                       "bound_ms": bnd, "bound_by": by, "library_ms": None,
+                       "device_ms": device_ms(lambda: kfn(*args)),
+                       "N": int(b0[2].shape[0])}
+                log(f"time {row['name']}: {json.dumps(row)}")
+                rows.append(row)
+    return rows
+
+
+def profile_robust(outl):
+    """Phase 6 of the robust path: one traced robust-huber run: kernel 6's
+    linearize and error appear, and no generic linearization runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gtsam_torch.graph import factors
+    run = outl["huber"]
+    factors.GENERIC_LINEARIZATIONS[0] = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        out = run["fn"](run["vals0"].arrays)
+        torch.cuda.synchronize()
+        traced_ms = (time.time() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    log(json.dumps({"profile": {
+        "path": "robust-huber", "wall_ms": traced_ms, "tries": out[5],
+        "device_busy_ms": busy if rows else None,
+        "idle_share": 1.0 - busy / traced_ms if rows else None,
+        "launches": sum(r[2] for r in rows),
+        "by_kernel_ms": [[k[:80], ms, c] for k, ms, c in rows[:24]]}}))
+    # kernel 6's instantiations: <true> with the loss branch (the closure
+    # batch), <false> without (the odometry and the prior)
+    k6 = {f"{n}<{b}>": sum(c for k, _, c in rows
+                           if f"{n}_kernel<{b}>" in k)
+          for n in ("pg_linearize", "pg_error") for b in ("true", "false")}
+    generic = factors.GENERIC_LINEARIZATIONS[0]
+    log(f"  robust-huber: kernel 6 in the trace {k6}; generic "
+        f"linearizations {generic}")
+    if not all(k6.values()) or generic:
+        raise AssertionError(f"the traced robust-huber run: kernel 6 {k6}, "
+                             f"generic linearizations {generic}")
 
 
 def front_levels(s, case, ms_fn):
@@ -2432,6 +3084,8 @@ def main(argv):
             raise AssertionError(f"small BA ({mode}) on the card disagrees "
                                  "with the CPU")
     pg_small_checks()
+    loss_branch_checks()
+    robust_small_checks()
 
     if quick:
         log(json.dumps({"kernels": [], "quick": True}))
@@ -2507,6 +3161,8 @@ def main(argv):
                 for name in list(bk.KERNELS) + list(dk.KERNELS)}
     # the pose graph at the sphere2500 shape (bench.py's run_sphere)
     sphere = sphere_main_path()
+    # the sphere-outliers configuration: robust-huber, gnc-tls, hard-prior
+    outl = outlier_main_paths()
 
     # -- 5. kernels against their plain versions, and timed, at the Ladybug
     # shape (the float64 path's converged state; lam = 1 as in phase 3, so
@@ -2615,6 +3271,13 @@ def main(argv):
                       for m, r in runs.items()}}))
 
     pg_kernels, pg_levels, pg_stages = pg_kernel_times(sphere, cuda_ms)
+    robust_rows = robust_kernel_times(outl, cuda_ms)
+    log(json.dumps({"sphere_outliers": {
+        name: {k: v for k, v in run.items()
+               if k in ("it", "tries", "err", "wall", "plan_s", "chordal_s",
+                        "launches", "history", "moved")}
+        for name, run in outl.items() if name != "gnc"}
+        | {"gnc": outl["gnc"]["summary"]}}))
     r1 = sphere["runs"][0]
     log(json.dumps({"sphere": {
         "half_chi2": [r["err"] for r in sphere["runs"]],
@@ -2695,8 +3358,10 @@ def main(argv):
 
     profile_sphere(sphere)
     profile_factorize(sphere)
+    profile_robust(outl)
 
-    log(json.dumps({"kernels": kernels + dense_rows + pg_kernels}))
+    log(json.dumps({"kernels": kernels + dense_rows + pg_kernels
+                    + robust_rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
 // Kernel 6: SE3 between / prior factors of the pose graph -- linearization,
-// block-store assembly and the half-chi2 (float64 throughout).
+// block-store assembly and the half-chi2 (float64 throughout), with robust
+// losses and constrained noise.
 //
 // Replaces: gtsam_tpu/graph/factors.py::linearize (:147-176, via jacfwd of
 // _between_residual :186 and _prior_residual :208) for SE3 batches, the
@@ -62,6 +63,30 @@
 // addition is too and two calls give the same bits; no value is summed by
 // atomics.  The first design ran one 512-thread CTA on one SM.
 //
+// The loss branch (robust losses, IRLS; gtsam_tpu/graph/factors.py:167-171
+// and base/noise.py:83-98): both kernels take a loss code (enum Loss, the
+// CODES of gtsam_torch/base/losses.py; 0: none) and its parameter.  Each
+// kernel is a template on whether the batch has a loss (the error's also
+// on constrained noise), so the loss-free launch runs the code it ran
+// before the branch: a first design with the branch inline cost the
+// loss-free calls 0.3-0.9 us a launch on an H100 (scripts/port_pg_probe.py
+// against the older source).  Inside the robust instantiation the loss
+// is a runtime switch on a grid-uniform value (no divergence) in two
+// __noinline__ functions, loss_weight and loss_rho; a template per loss
+// would make ten copies of each kernel.  ptxas on sm_90a: 164 registers
+// (linearize) and 80 (error), 0 spills, in every instantiation.  In
+// linearize lane 0 of a pair, which whitens r, takes sqrt(w(||R_w r||))
+// and hands it to lane 1 by __shfl_sync; each lane scales its whitened
+// Jacobian M, and lane 0 its b, before they go to shared memory, so phase
+// 2's Gram products and the (0, 1) block carry w with no change.  A weight of 0 (Tukey beyond c, a GNC outlier) leaves
+// zero blocks.  In the error each lane's value is twice its factor's
+// error: ||R_w r||^2, 2 rho(||R_w r||) under a loss, or ||R_w r||^2 +
+// mu r^2 over the hard rows of kind 3, constrained noise (a diagonal
+// whose zeros mark hard rows; linearize whitens it as a diagonal, so the
+// hard rows are zero, as the JAX package's whiten gives them); the last
+// CTA's 0.5 stays the one halving, and doubling is exact, so the
+// loss-free path's bits are unchanged.
+//
 // Bound on the H100: linearize by bytes, ~1.3 KB a between factor (H and
 // gv written: 1,056 bytes at d = 6) against ~3,200 FP64 operations; error
 // by bytes too (~0.3 KB read a factor), though at the sphere's size both
@@ -84,6 +109,85 @@ constexpr int kErrorThreads = gt::kWarp;       // ERROR_BLOCK (Python)
 constexpr int kMaxD = 12;                      // store width d <= 12
 constexpr double kSmall = 1e-10;     // so3.py _SMALL (theta^2)
 constexpr double kJrSmall = 5e-3;    // se3.py _JR_SMALL (theta^2)
+constexpr int kConstrained = 3;      // noise kind: a diagonal, 0 = hard row
+
+// the losses of gtsam_torch/base/losses.py, by its CODES (0: none)
+enum Loss {
+  kLossNone = 0, kLossNull, kLossFair, kLossHuber, kLossCauchy, kLossTukey,
+  kLossWelsch, kLossGemanMcClure, kLossDcs, kLossDeadZone
+};
+
+// the IRLS weight w(d) of loss `code` with parameter c (k) at the whitened
+// norm d >= 0, in losses.py's formulas and branches (inclusive <= at a
+// threshold, max(d, 1e-30), Tukey's 0 beyond c)
+__device__ __noinline__ double loss_weight(int code, double c, double d) {
+  switch (code) {
+    case kLossFair:
+      return 1.0 / (1.0 + d / c);
+    case kLossHuber:
+      return d <= c ? 1.0 : c / fmax(d, 1e-30);
+    case kLossCauchy: {
+      const double k2 = c * c;
+      return k2 / (k2 + d * d);
+    }
+    case kLossTukey: {
+      const double r = d * d / (c * c), u = 1.0 - r;
+      return d <= c ? u * u : 0.0;
+    }
+    case kLossWelsch:
+      return exp(-d * d / (c * c));
+    case kLossGemanMcClure: {
+      const double c2 = c * c, q = c2 / (c2 + d * d);
+      return q * q;
+    }
+    case kLossDcs: {
+      const double e2 = d * d, q = 2.0 * c / (c + e2);
+      return e2 > c ? q * q : 1.0;
+    }
+    case kLossDeadZone:
+      return d <= c ? 0.0 : (d - c) / fmax(d, 1e-30);
+    default:   // kLossNull
+      return 1.0;
+  }
+}
+
+// rho(d) of loss `code` (as loss_weight)
+__device__ __noinline__ double loss_rho(int code, double c, double d) {
+  switch (code) {
+    case kLossFair: {
+      const double ad = d / c;
+      return c * c * (ad - log1p(ad));
+    }
+    case kLossHuber:
+      return d <= c ? 0.5 * d * d : c * d - 0.5 * c * c;
+    case kLossCauchy: {
+      const double k2 = c * c;
+      return 0.5 * k2 * log1p(d * d / k2);
+    }
+    case kLossTukey: {
+      const double c2 = c * c, u = 1.0 - fmin(d * d / c2, 1.0);
+      return c2 / 6.0 * (1.0 - u * u * u);
+    }
+    case kLossWelsch: {
+      const double c2 = c * c;
+      return 0.5 * c2 * (1.0 - exp(-d * d / c2));
+    }
+    case kLossGemanMcClure: {
+      const double c2 = c * c;
+      return 0.5 * c2 * d * d / (c2 + d * d);
+    }
+    case kLossDcs: {
+      const double e2 = d * d;
+      return e2 > c ? 2.0 * c * e2 / (c + e2) - c : 0.5 * e2;
+    }
+    case kLossDeadZone: {
+      const double u = d - c;
+      return d <= c ? 0.0 : 0.5 * u * u;
+    }
+    default:   // kLossNull
+      return 0.5 * d * d;
+  }
+}
 
 struct Pose {
   double R[9];
@@ -337,13 +441,16 @@ __device__ __forceinline__ void copy_async8(double* dst, const double* src) {
                : "memory");
 }
 
+// kLoss: the batch has a loss (the IRLS branch); the loss-free
+// instantiation is the code of kernel 6 without the branch
+template <bool kLoss>
 __global__ void __launch_bounds__(kLinThreads) pg_linearize_kernel(
     int N, int arity, int d, const double* __restrict__ R,
     const double* __restrict__ t, const int* __restrict__ rows,
     const double* __restrict__ ZR, const double* __restrict__ Zt, int kind,
-    int stride, const double* __restrict__ noise, double sign,
-    const unsigned char* __restrict__ flip, double* __restrict__ H,
-    double* __restrict__ gv) {
+    int stride, const double* __restrict__ noise, double sign, int loss,
+    double lparam, const unsigned char* __restrict__ flip,
+    double* __restrict__ H, double* __restrict__ gv) {
   // a factor's A_0 (A_i, or a prior's A), A_1 (A_j) and b, kFactorDoubles
   // apart; then its 6x6 blocks and gv rows, kOutDoubles apart
   __shared__ double sBuf[kLinFactors * kOutDoubles];
@@ -394,8 +501,34 @@ __global__ void __launch_bounds__(kLinThreads) pg_linearize_kernel(
       0xffffffffu, half == 1 && f < nf && arity == 2 && flip[k] != 0);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncwarp();
-  double M[36];   // this lane's whitened Jacobian
-  if (forms) {
+  double M[36];   // this lane's whitened (and reweighted) Jacobian
+  if (kLoss) {
+    // lane 0 of a pair whitens r and takes the IRLS weight's square root
+    // sqrt(w(||R_w r||)), which its partner gets by a shuffle
+    const double* nz = sN + (stride == 0 ? 0 : f * m);
+    double wr[6], sw = 1.0;
+    if (half == 0 && f < nf) {
+      whiten_vec(kind, nz, r, wr);
+      double d2 = 0.0;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) d2 += wr[i] * wr[i];
+      sw = sqrt(loss_weight(loss, lparam, sqrt(d2)));
+    }
+    sw = __shfl_sync(0xffffffffu, sw, lane & ~1);
+    if (forms) {
+      double* s = sBuf + f * kFactorDoubles;
+      whiten_into(kind, nz, D, C, half == 0 ? 1.0 : -1.0, M);
+#pragma unroll
+      for (int i = 0; i < 36; ++i) {
+        M[i] *= sw;
+        s[kSlot * slot + i] = M[i];
+      }
+      if (half == 0) {
+#pragma unroll
+        for (int i = 0; i < 6; ++i) s[2 * kSlot + i] = -(wr[i] * sw);
+      }
+    }
+  } else if (forms) {
     const double* nz = sN + (stride == 0 ? 0 : f * m);
     double* s = sBuf + f * kFactorDoubles;
     whiten_into(kind, nz, D, C, half == 0 ? 1.0 : -1.0, M);
@@ -498,23 +631,38 @@ __global__ void __launch_bounds__(kLinThreads) pg_linearize_kernel(
   }
 }
 
+// kExt: the batch has a loss or constrained noise; the other
+// instantiation is the code of kernel 6 without either
+template <bool kExt>
 __global__ void __launch_bounds__(kErrorThreads) pg_error_kernel(
     int N, int arity, const double* __restrict__ R,
     const double* __restrict__ t, const int* __restrict__ rows,
     const double* __restrict__ ZR, const double* __restrict__ Zt, int kind,
-    int stride, const double* __restrict__ noise, double sign,
-    double* __restrict__ partial, int* __restrict__ counter,
-    double* __restrict__ out) {
+    int stride, const double* __restrict__ noise, double sign, int loss,
+    double lparam, double mu, double* __restrict__ partial,
+    int* __restrict__ counter, double* __restrict__ out) {
   __shared__ bool last;
   const int64_t k = (int64_t)blockIdx.x * kErrorThreads + threadIdx.x;
+  // each lane's value is twice its factor's error: ||R_w r||^2, plus
+  // mu r^2 on the hard rows of a constrained model, or 2 rho(||R_w r||)
+  // (doubling and the last CTA's halving are exact)
   double v = 0.0;
   if (k < N) {
     double r[6], wr[6];
     Pose Tji;
     residual(R, t, rows, ZR, Zt, arity, k, r, Tji);
-    whiten_vec(kind, kind == 0 ? nullptr : noise + (int64_t)stride * k, r, wr);
+    const double* nz = kind == 0 ? nullptr : noise + (int64_t)stride * k;
+    whiten_vec(kExt && kind == kConstrained ? 1 : kind, nz, r, wr);
 #pragma unroll
     for (int i = 0; i < 6; ++i) v += wr[i] * wr[i];
+    if (kExt && loss != kLossNone) {
+      v = 2.0 * loss_rho(loss, lparam, sqrt(v));
+    } else if (kExt) {   // constrained: mu r^2 on the hard rows
+      double h = 0.0;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) h += nz[i] == 0.0 ? r[i] * r[i] : 0.0;
+      v += mu * h;
+    }
   }
   v = gt::warp_sum(v);
   if (threadIdx.x == 0) {
@@ -594,21 +742,30 @@ __global__ void __launch_bounds__(kAsmThreads) pg_assemble_kernel(
 }  // namespace
 
 // N factors of arity 1 (prior) or 2 (between); 6 <= d <= 12 the store's
-// block width; kind 0 unit, 1 diagonal, 2 gaussian noise, `stride` doubles
-// apart (0: one model shared by every factor).  H: N x npair x d*d, gv: N x
-// arity x d.
+// block width; kind 0 unit, 1 diagonal, 2 gaussian, 3 constrained noise (a
+// diagonal whose zeros are hard rows), `stride` doubles apart (0: one model
+// shared by every factor); loss: a code of enum Loss (0: none) and its
+// parameter.  H: N x npair x d*d, gv: N x arity x d.
 GT_EXPORT int gt_pg_linearize(int N, int arity, int d, const double* R,
                               const double* t, const int* rows,
                               const double* ZR, const double* Zt, int kind,
                               int stride, const double* noise, double sign,
+                              int loss, double lparam,
                               const unsigned char* flip, double* H,
                               double* gv, void* stream) {
-  if (d < 6 || d > kMaxD) return (int)cudaErrorInvalidValue;
-  if (N > 0)
-    pg_linearize_kernel<<<(N + kLinFactors - 1) / kLinFactors, kLinThreads,
-                          0, (cudaStream_t)stream>>>(N, arity, d, R, t, rows,
-                                                     ZR, Zt, kind, stride,
-                                                     noise, sign, flip, H, gv);
+  if (d < 6 || d > kMaxD || loss < kLossNone || loss > kLossDeadZone)
+    return (int)cudaErrorInvalidValue;
+  if (kind == kConstrained) kind = 1;   // hard rows whiten to 0
+  const int grid = (N + kLinFactors - 1) / kLinFactors;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (N > 0 && loss != kLossNone)
+    pg_linearize_kernel<true><<<grid, kLinThreads, 0, st>>>(
+        N, arity, d, R, t, rows, ZR, Zt, kind, stride, noise, sign, loss,
+        lparam, flip, H, gv);
+  else if (N > 0)
+    pg_linearize_kernel<false><<<grid, kLinThreads, 0, st>>>(
+        N, arity, d, R, t, rows, ZR, Zt, kind, stride, noise, sign, loss,
+        lparam, flip, H, gv);
   return (int)cudaGetLastError();
 }
 
@@ -619,12 +776,21 @@ GT_EXPORT int gt_pg_linearize(int N, int arity, int d, const double* R,
 GT_EXPORT int gt_pg_error(int N, int arity, const double* R, const double* t,
                           const int* rows, const double* ZR, const double* Zt,
                           int kind, int stride, const double* noise,
-                          double sign, double* partial, int* counter,
-                          double* out, void* stream) {
+                          double sign, int loss, double lparam, double mu,
+                          double* partial, int* counter, double* out,
+                          void* stream) {
+  if (loss < kLossNone || loss > kLossDeadZone)
+    return (int)cudaErrorInvalidValue;
   const int grid = N > 0 ? (N + kErrorThreads - 1) / kErrorThreads : 1;
-  pg_error_kernel<<<grid, kErrorThreads, 0, (cudaStream_t)stream>>>(
-      N, arity, R, t, rows, ZR, Zt, kind, stride, noise, sign, partial,
-      counter, out);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (loss != kLossNone || kind == kConstrained)
+    pg_error_kernel<true><<<grid, kErrorThreads, 0, st>>>(
+        N, arity, R, t, rows, ZR, Zt, kind, stride, noise, sign, loss,
+        lparam, mu, partial, counter, out);
+  else
+    pg_error_kernel<false><<<grid, kErrorThreads, 0, st>>>(
+        N, arity, R, t, rows, ZR, Zt, kind, stride, noise, sign, loss,
+        lparam, mu, partial, counter, out);
   return (int)cudaGetLastError();
 }
 

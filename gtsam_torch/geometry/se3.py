@@ -131,3 +131,9 @@ def retract(T, xi):
 def local(T1, T2):
     """Log(T1^-1 T2)."""
     return logmap(between(T1, T2))
+
+
+def stack(transforms):
+    """One batched SE3 of a list of SE3."""
+    return SE3(torch.stack([T.R for T in transforms]),
+               torch.stack([T.t for T in transforms]))

@@ -44,6 +44,11 @@ def hat(w):
     ], dim=-2)
 
 
+def vee(W):
+    """(...,3,3) skew -> (...,3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
 def expmap(w):
     """Rodrigues' formula: exp(hat(w)). (...,3) -> (...,3,3)."""
     A, B, _ = _taylor_coeffs(torch.sum(w * w, dim=-1))
@@ -94,6 +99,14 @@ def logmap(R):
     return qv * scale[..., None]
 
 
+def right_jacobian(w):
+    """J_r = I - B*W + C*W^2: d Log(Exp(w)^-1 Exp(w + dw)) / d dw at 0
+    (reference SO3.h:74 ExpmapDerivative)."""
+    _, B, C = _taylor_coeffs(torch.sum(w * w, dim=-1))
+    W = hat(w)
+    return _eye_like(W) - B[..., None, None] * W + C[..., None, None] * (W @ W)
+
+
 def left_jacobian(w):
     """J_l = I + B*W + C*W^2; also the 'V' matrix of the SE(3) exponential."""
     _, B, C = _taylor_coeffs(torch.sum(w * w, dim=-1))
@@ -111,3 +124,39 @@ def left_jacobian_inverse(w):
                     (1.0 - 0.5 * A / B) / safe)
     W = hat(w)
     return _eye_like(W) - 0.5 * W + E[..., None, None] * (W @ W)
+
+
+def _rot(rows):
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def rx(t):
+    c, s = torch.cos(t), torch.sin(t)
+    z, o = torch.zeros_like(t), torch.ones_like(t)
+    return _rot([[o, z, z], [z, c, -s], [z, s, c]])
+
+
+def ry(t):
+    c, s = torch.cos(t), torch.sin(t)
+    z, o = torch.zeros_like(t), torch.ones_like(t)
+    return _rot([[c, z, s], [z, o, z], [-s, z, c]])
+
+
+def rz(t):
+    c, s = torch.cos(t), torch.sin(t)
+    z, o = torch.zeros_like(t), torch.ones_like(t)
+    return _rot([[c, -s, z], [s, c, z], [z, z, o]])
+
+
+def ypr(yaw, pitch, roll):
+    """Rz(yaw) Ry(pitch) Rx(roll) (reference Rot3::Ypr)."""
+    return rz(yaw) @ ry(pitch) @ rx(roll)
+
+
+def from_quaternion(q):
+    """(w, x, y, z) unit quaternion -> rotation matrix."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return _rot([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])

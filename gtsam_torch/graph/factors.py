@@ -5,8 +5,10 @@ FactorBatch (a key table and stacked measurements).  The generic
 linearization is `torch.func.vmap` of forward-mode `jacfwd` of the
 tangent-perturbed residual, the port of linearize_raw.  On the supernodal
 path, SE3 between and prior batches take kernel 6 instead
-(linear/supernodal_kernels.py); every other batch takes this path, which
-counts its calls in GENERIC_LINEARIZATIONS.
+(linear/supernodal_kernels.py), robust or constrained ones too, when their
+loss is one of the nine of base/losses.py; every other batch (a loss of
+the user's own callables included) takes this path, which counts its calls
+in GENERIC_LINEARIZATIONS.
 
 A residual_fn has the signature (xs: tuple of elements, meas) -> (rdim,);
 the port's geometry broadcasts, so it is also applied to stacked batches.
@@ -19,6 +21,7 @@ from typing import Any, Callable, Tuple
 import numpy as np
 import torch
 
+from ..base import losses
 from ..base.noise import NoiseModel
 from ..geometry import se3
 from ..geometry.se3 import SE3
@@ -26,6 +29,9 @@ from . import manifolds
 
 # calls of linearize() on a batch without linearize_fn
 GENERIC_LINEARIZATIONS = [0]
+# calls of linearize_raw() for the hard rows of constrained batches
+# (graph.BoundGraph.constraint_system)
+CONSTRAINT_LINEARIZATIONS = [0]
 
 
 @dataclasses.dataclass
@@ -42,6 +48,9 @@ class FactorBatch:
     linearize_fn: Callable = None
     # +1.0 normally; -1.0 subtracts this batch's information (AntiFactor.h)
     sign: float = 1.0
+    # residual_fn takes one factor's elements only (custom_factors): the
+    # batched residuals run it under vmap
+    vmap_residual: bool = False
 
     def __post_init__(self):
         self.keys = np.atleast_2d(np.asarray(self.keys, dtype=np.int64))
@@ -70,6 +79,8 @@ class FactorBatch:
 def residuals(batch: FactorBatch, xs):
     """Batched unwhitened residuals (N, rdim): xs = tuple of stacked
     elements per slot."""
+    if batch.vmap_residual:
+        return torch.func.vmap(batch.residual_fn)(xs, batch.measurements)
     return batch.residual_fn(xs, batch.measurements)
 
 
@@ -95,7 +106,8 @@ def linearize_raw(batch: FactorBatch, xs):
 def linearize(batch: FactorBatch, xs):
     """Batched whitened Jacobians and right-hand sides in tangent space:
     (A: tuple of (N, rdim, d_i), b: (N, rdim)) with ||A dx - b||^2 and
-    b = -whitened residual."""
+    b = -whitened residual; a robust loss scales both rows of factor n by
+    sqrt(w(||R r_n||)), after the whitening (IRLS)."""
     if batch.linearize_fn is not None:
         J, b = torch.func.vmap(batch.linearize_fn)(xs, batch.measurements)
         return J, b
@@ -103,6 +115,10 @@ def linearize(batch: FactorBatch, xs):
     J, r = linearize_raw(batch, xs)
     wr = batch.noise.whiten(r)
     wJ = tuple(batch.noise.whiten_jacobian(Ji) for Ji in J)
+    w = batch.noise.robust_weights(wr)
+    if w is not None:
+        wr = wr * w[:, None]
+        wJ = tuple(Ji * w[:, None, None] for Ji in wJ)
     return wJ, -wr
 
 
@@ -168,10 +184,49 @@ def prior_factors(tname: str, keys, measurements, noise: NoiseModel,
                        noise=noise)
 
 
+def _take(meas, rows):
+    if isinstance(meas, SE3):
+        return SE3(meas.R[rows], meas.t[rows])
+    return None if meas is None else meas[rows]
+
+
+def slice_batch(batch: FactorBatch, rows) -> FactorBatch:
+    """The factors `rows` of a batch (the residual shared, the data sliced;
+    a per-factor noise model sliced, its loss and mu kept)."""
+    rows = np.asarray(rows)
+    noise = batch.noise
+    data = noise.data
+    if data is not None and data.shape[0] > 1:
+        data = data[torch.as_tensor(rows, device=data.device)]
+    meas = batch.measurements
+    if meas is not None:
+        dev = (meas.t if isinstance(meas, SE3) else meas).device
+        meas = _take(meas, torch.as_tensor(rows, device=dev))
+    return dataclasses.replace(
+        batch, keys=batch.keys[rows], measurements=meas,
+        noise=NoiseModel(noise.kind, data, noise.loss, noise.mu))
+
+
+def custom_factors(name: str, var_types, keys, residual_fn, rdim,
+                   measurements, noise: NoiseModel) -> FactorBatch:
+    """An arbitrary residual, the CustomFactor / ExpressionFactor analog
+    (gtsam/nonlinear/CustomFactor.h:36): Jacobians from torch.func.  The
+    residual must accept one factor's elements (it runs under vmap);
+    measurements are a tensor (or SE3) with a leading dimension N, or
+    None."""
+    if measurements is not None:
+        measurements = _as_measurements(measurements)
+    return FactorBatch(name, tuple(var_types), np.asarray(keys), rdim,
+                       residual_fn, measurements, noise, vmap_residual=True)
+
+
 def se3_route(batch: FactorBatch):
     """"between" or "prior" for an SE3 batch that kernel 6 linearizes (no
-    custom linearize_fn), else None."""
+    custom linearize_fn, no loss but one of the nine of base/losses.py),
+    else None."""
     if batch.linearize_fn is not None:
+        return None
+    if losses.kernel_code(batch.noise.loss) is None:
         return None
     if batch.residual_fn is _between_residual("SE3"):
         return "between"

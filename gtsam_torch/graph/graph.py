@@ -6,8 +6,11 @@ graph structure against a Values' key table and moves measurements, noise
 and row indices to the values' device once; the bound graph's error,
 linearization and dense Gauss-Newton system are functions of the arrays.
 The error of an SE3 between or prior batch is kernel 6's `pg_error`, on
-every device; other batches use the generic residuals.  Hard constraints
-(constrained noise) are not ported yet.
+every device, robust and constrained ones included (factors.se3_route);
+other batches use the generic residuals.  The hard (sigma == 0) rows of
+constrained noise models are also exact equality constraints C dx = c
+(constraint_system), which the solvers keep apart from the least-squares
+system.
 """
 
 import dataclasses
@@ -16,6 +19,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..base import losses
 from ..geometry.se3 import SE3
 from . import factors as factors_mod
 from .values import Layout, Values, take_rows
@@ -69,9 +73,6 @@ class BoundGraph:
         self.layout: Layout = values.layout()
         self.structures: List[_BatchStructure] = []
         for b in graph.batches:
-            if b.noise.kind not in ("unit", "diagonal", "gaussian"):
-                raise NotImplementedError("constrained noise is not ported "
-                                          "yet")
             rows, offs = [], []
             for s, t in enumerate(b.var_types):
                 r = values.rows_of(t, b.keys[:, s])
@@ -84,6 +85,25 @@ class BoundGraph:
                                        dtype=torch.int32, device=self.device)
             self.structures.append(_BatchStructure(tuple(rows), tuple(offs),
                                                    rows_dev, rows_i32))
+        # the hard rows of constrained noise models: exact equality
+        # constraints C dx = c (reference constraint-aware QR,
+        # NoiseModel.h:260), host-side (batch, factors, rows, first row)
+        self._constraints = []
+        nc = 0
+        for bi, b in enumerate(graph.batches):
+            if b.noise.kind != "constrained":
+                continue
+            if b.linearize_fn is not None:
+                raise NotImplementedError(
+                    "constrained noise requires the autodiff linearize path")
+            data = b.noise.data.cpu().numpy()
+            mask = np.broadcast_to(data == 0, (b.num_factors, b.rdim))
+            n_idx, r_idx = np.nonzero(mask)
+            if len(n_idx):
+                self._constraints.append(
+                    (bi, n_idx.astype(np.int64), r_idx.astype(np.int64), nc))
+                nc += len(n_idx)
+        self.num_constraints = nc
 
     def _xs(self, b, st, arrays):
         return tuple(take_rows(arrays[t], st.rows_dev[s])
@@ -97,7 +117,9 @@ class BoundGraph:
             if factors_mod.se3_route(b) is not None:
                 e = sk.pg_error(arrays["SE3"].R, arrays["SE3"].t, st.rows_i32,
                                 b.measurements.R, b.measurements.t,
-                                b.noise.kind, b.noise.data, b.sign)
+                                b.noise.kind, b.noise.data, b.sign,
+                                *losses.kernel_code(b.noise.loss),
+                                b.noise.mu)
             else:
                 r = factors_mod.residuals(b, self._xs(b, st, arrays))
                 e = b.sign * b.noise.error(r)
@@ -142,3 +164,35 @@ class BoundGraph:
                         H.index_put_((idx[j][:, :, None], idx[i][:, None, :]),
                                      Hij.transpose(1, 2), accumulate=True)
         return H, g
+
+    def constraint_system(self, arrays):
+        """The linearized hard constraints C dx = c of the sigma == 0 rows:
+        C (Nc, D) their unwhitened Jacobian rows, c (Nc,) their negated
+        residuals, by the generic linearization of their batches (counted
+        in factors.CONSTRAINT_LINEARIZATIONS)."""
+        D = self.layout.total_dim
+        dev = self.device
+        C = torch.zeros((self.num_constraints, D), dtype=torch.float64,
+                        device=dev)
+        c = torch.zeros(self.num_constraints, dtype=torch.float64,
+                        device=dev)
+        for bi, n_idx, r_idx, row0 in self._constraints:
+            b, st = self.graph.batches[bi], self.structures[bi]
+            factors_mod.CONSTRAINT_LINEARIZATIONS[0] += 1
+            J, r = factors_mod.linearize_raw(b, self._xs(b, st, arrays))
+            n_t = torch.as_tensor(n_idx, device=dev)
+            r_t = torch.as_tensor(r_idx, device=dev)
+            rows = torch.arange(row0, row0 + len(n_idx), device=dev)
+            c[rows] = -r[n_t, r_t]
+            for i, d in enumerate(b.dims()):
+                cols = torch.as_tensor(st.col_offsets[i][n_idx][:, None]
+                                       + np.arange(d)[None, :],
+                                       dtype=torch.long, device=dev)
+                C.index_put_((rows[:, None].expand_as(cols), cols),
+                             J[i][n_t, r_t, :], accumulate=True)
+        return C, c
+
+    def gradient(self, arrays):
+        """The gradient of the half-chi2 at `arrays` (-g of gn_system)."""
+        _, g = self.gn_system(arrays)
+        return -g

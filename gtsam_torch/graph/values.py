@@ -133,6 +133,16 @@ class Values:
                                                   self.layout()))
 
 
+def vmapped_retract(m: manifolds.ManifoldType):
+    """m.retract over stacked elements (the port's retractions broadcast;
+    torch.func.vmap keeps the JAX package's per-element semantics)."""
+    return torch.func.vmap(m.retract)
+
+
+def vmapped_local(m: manifolds.ManifoldType):
+    return torch.func.vmap(m.local)
+
+
 def retract_arrays(arrays, delta, layout: Layout):
     """Retract the stacked arrays by the flat delta (canonical layout)."""
     return {t: manifolds.get(t).retract(arrays[t],

@@ -123,3 +123,14 @@ def nested_dissection(adj: sp.csr_matrix, leaf_size: int = 32,
 
     rec(np.arange(n))
     return np.asarray(order, dtype=np.int64)
+
+
+def constrained_last(adj: sp.csr_matrix, last: Sequence[int]) -> np.ndarray:
+    """The COLAMD-constrained analog (Ordering.h:112): the variables not in
+    `last` by minimum degree, then `last` in sorted order."""
+    n = adj.shape[0]
+    last = np.asarray(sorted(set(int(x) for x in last)), dtype=np.int64)
+    rest = np.setdiff1d(np.arange(n), last)
+    if len(rest):
+        rest = rest[minimum_degree(adj[rest][:, rest])]
+    return np.concatenate([rest, last])

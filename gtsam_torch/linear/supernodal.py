@@ -6,7 +6,8 @@ elimination, gtsam/inference/ClusterTree-inst.h:285).  The symbolic phase
 the assembly tree; the host plans built here from it equal the JAX
 package's, array for array, and move to the device once (`to`).  Then:
 
-  system:    kernel 6 linearizes the SE3 between/prior batches straight into
+  system:    kernel 6 linearizes the SE3 between/prior batches (robust
+             ones with their loss's IRLS weights) straight into
              a contribution buffer (other batches: the generic torch.func
              path), and pg_assemble sums it into the block store (B+1, d*d)
              and the gradient (n, d) through sorted CSRs;
@@ -54,6 +55,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..base import losses
 from ..graph import factors as factors_mod
 from ..graph import manifolds
 from ..graph.graph import BoundGraph
@@ -361,6 +363,29 @@ class SupernodalCholeskySolver:
         self._port_plans()
         self.to(bound.device)
 
+    def rebind(self, bound: BoundGraph) -> bool:
+        """Take `bound` (its batches' noise models and measurements) in
+        place of the bound graph planned for, when its structure is the
+        same: the same device and layout and, batch by batch, the same
+        variable types and rows.  True then; False (nothing changed)
+        otherwise.  The plans depend on the structure alone, so a rebound
+        solver computes what a new one over `bound` would."""
+        old = self.bound
+        same = (bound.device == old.device
+                and bound.layout.total_dim == old.layout.total_dim
+                and bound.layout.type_order == old.layout.type_order
+                and len(bound.graph.batches) == len(old.graph.batches)
+                and all(b.var_types == a.var_types
+                        and len(s1.rows) == len(s0.rows)
+                        and all(np.array_equal(r1, r0)
+                                for r1, r0 in zip(s1.rows, s0.rows))
+                        for b, a, s1, s0 in zip(
+                            bound.graph.batches, old.graph.batches,
+                            bound.structures, old.structures)))
+        if same:
+            self.bound = bound
+        return same
+
     def _port_plans(self):
         """Host arrays the port's kernels read on top of the JAX plans: the
         contribution buffer's layout (factor-major per batch: factor n's
@@ -577,7 +602,7 @@ class SupernodalCholeskySolver:
                 K.pg_linearize(arrays["SE3"].R, arrays["SE3"].t, st.rows_i32,
                                b.measurements.R, b.measurements.t,
                                b.noise.kind, b.noise.data, b.sign, flip, H,
-                               gv)
+                               gv, *losses.kernel_code(b.noise.loss))
                 continue
             wJ, bvec = bound.linearize_batch(bi, arrays)
             dims = b.dims()

@@ -36,6 +36,7 @@ import torch
 from .. import _kernels
 from .._kernels import (DBL, INT, P, Kernel, check, on_cpu, ptr,
                        segment_owner)
+from ..base import losses
 from ..geometry import se3
 from ..geometry.se3 import SE3
 
@@ -43,17 +44,21 @@ F64 = torch.float64
 I32 = torch.int32
 BOOL = torch.bool
 
-NOISE_KINDS = {"unit": 0, "diagonal": 1, "gaussian": 2}
+# kernel 6's noise kinds; 'constrained' is a diagonal whose zeros mark the
+# hard rows
+NOISE_KINDS = {"unit": 0, "diagonal": 1, "gaussian": 2, "constrained": 3}
 
 KERNELS = _kernels.table(
     Kernel("pg_linearize", "pg_between", "pg_linearize",
            "gtsam_tpu/graph/factors.py:147",
-           [INT, INT, INT] + [P] * 5 + [INT, INT, P, DBL, P, P, P]),
+           [INT, INT, INT] + [P] * 5 + [INT, INT, P, DBL, INT, DBL, P, P,
+                                        P]),
     Kernel("pg_assemble", "pg_between", "pg_assemble",
            "gtsam_tpu/linear/supernodal.py:320", [INT] * 3 + [P] * 11),
     Kernel("pg_error", "pg_between", "pg_error",
            "gtsam_tpu/graph/graph.py:108",
-           [INT, INT] + [P] * 5 + [INT, INT, P, DBL, P, P, P]),
+           [INT, INT] + [P] * 5 + [INT, INT, P, DBL, INT, DBL, DBL, P, P,
+                                   P]),
     Kernel("sn_front_factor", "sn_factor", "sn_front_factor",
            "gtsam_tpu/linear/supernodal.py:404",
            [INT] * 5 + [P] * 9 + [DBL, INT, DBL, DBL] + [P] * 6),
@@ -107,30 +112,43 @@ def _residual_plain(R, t, rows, ZR, Zt):
 def _whiten(kind, noise, r):
     if kind == "unit":
         return r
-    if kind == "diagonal":
+    if kind in ("diagonal", "constrained"):
         return r * noise
     return (noise @ r[..., None])[..., 0]
 
 
-def pg_jacobians_plain(R, t, rows, ZR, Zt, kind, noise):
+def _norm(wr):
+    """||wr|| of each row, summed in index order as kernel 6 does."""
+    return torch.sqrt(torch.sum(wr * wr, dim=-1))
+
+
+def pg_jacobians_plain(R, t, rows, ZR, Zt, kind, noise, loss=0, param=0.0):
     """Whitened Jacobians (A_0[, A_1]) (N, 6, 6) and b = -R_w r (N, 6) of
     SE3 between (arity 2) or prior (arity 1) factors, in closed form: with
     r = Log(Z^-1 T_i^-1 T_j), A_j = R_w Jr^-1(r) and
-    A_i = -R_w Jr^-1(r) Ad(T_j^-1 T_i); a prior has A = R_w Jr^-1(r)."""
+    A_i = -R_w Jr^-1(r) Ad(T_j^-1 T_i); a prior has A = R_w Jr^-1(r).
+    `loss` (a code of base/losses.py, 0: none) with its parameter scales
+    both by sqrt(w(||R_w r||)) after the whitening (IRLS)."""
     r, Tji = _residual_plain(R, t, rows, ZR, Zt)
     Jinv = se3.right_jacobian_inverse(r)
     J = (Jinv,) if Tji is None else (-(Jinv @ se3.adjoint(Tji)), Jinv)
     if kind == "unit":
         A = J
-    elif kind == "diagonal":
+    elif kind in ("diagonal", "constrained"):
         A = tuple(Ji * noise[..., None] for Ji in J)
     else:
         A = tuple(noise @ Ji for Ji in J)
-    return A, -_whiten(kind, noise, r)
+    wr = _whiten(kind, noise, r)
+    if loss:
+        sw = torch.sqrt(losses.from_code(loss, param).weight(_norm(wr)))
+        A = tuple(Ai * sw[:, None, None] for Ai in A)
+        wr = wr * sw[:, None]
+    return A, -wr
 
 
-def pg_linearize_plain(R, t, rows, ZR, Zt, kind, noise, sign, flip, H, gv):
-    A, b = pg_jacobians_plain(R, t, rows, ZR, Zt, kind, noise)
+def pg_linearize_plain(R, t, rows, ZR, Zt, kind, noise, sign, flip, H, gv,
+                       loss=0, param=0.0):
+    A, b = pg_jacobians_plain(R, t, rows, ZR, Zt, kind, noise, loss, param)
     N, arity = rows.shape
     d = gv.shape[2]
     H.zero_()
@@ -145,10 +163,15 @@ def pg_linearize_plain(R, t, rows, ZR, Zt, kind, noise, sign, flip, H, gv):
         gv[:, s, :6] = sign * torch.einsum("nrd,nr->nd", A[s], b)
 
 
-def _se3_specs(name, R, t, rows, ZR, Zt, kind, noise, *extra):
+def _se3_specs(name, R, t, rows, ZR, Zt, kind, noise, loss, *extra):
     """Checks of the arguments of pg_linearize and pg_error (`extra`: more
     specs); returns (device, noise kind code, noise stride, noise
     pointer)."""
+    if loss not in range(len(losses.CODES) + 1):
+        raise ValueError(f"{name}: loss code {loss} is not one of kernel "
+                         "6's")
+    if loss and kind == "constrained":
+        raise ValueError(f"{name}: a robust loss on constrained noise")
     Nv, (N, arity) = R.shape[0], rows.shape
     if arity not in (1, 2):
         raise ValueError(f"{name}: rows must have 1 or 2 slots, got {arity}")
@@ -162,7 +185,7 @@ def _se3_specs(name, R, t, rows, ZR, Zt, kind, noise, *extra):
         if M not in (1, N):
             raise ValueError(f"{name}: noise must have 1 or {N} rows, got {M}")
         specs.append(("noise", noise, F64,
-                      (M, 6) if kind == "diagonal" else (M, 6, 6)))
+                      (M, 6, 6) if kind == "gaussian" else (M, 6)))
     dev = check(name, *specs, *extra)
     if kind == "unit":
         return dev, 0, 0, 0
@@ -175,36 +198,49 @@ def _se3_specs(name, R, t, rows, ZR, Zt, kind, noise, *extra):
 LINEARIZE_FACTORS = 16
 
 
-def pg_linearize(R, t, rows, ZR, Zt, kind, noise, sign, flip, H, gv):
+def pg_linearize(R, t, rows, ZR, Zt, kind, noise, sign, flip, H, gv,
+                 loss=0, param=0.0):
     """Kernel 6, linearize: for each SE3 between (arity 2) or prior (arity
     1) factor n, writes sign A_s1^T A_s2 of each slot pair (s1 <= s2; the
     (0, 1) block transposed where flip[n]) into H[n, pair] ((N, P, d*d), P
     = 3 or 1, zero outside the leading 6x6) and sign A_s^T b into
     gv[n, s] ((N, arity, d)).  R, t: the SE3 values; rows: (N, arity)
     int32 rows of the slots; ZR, Zt: the measurements; noise: None (unit),
-    (1 or N, 6) inverse sigmas or (1 or N, 6, 6) square-root informations.
-    On the card one launch of one-warp CTAs, LINEARIZE_FACTORS factors
-    each, that stage their factors' blocks in shared memory and copy their
-    spans of H and gv out with coalesced stores (d <= 12)."""
+    (1 or N, 6) inverse sigmas (diagonal, or constrained: its zeros the
+    hard rows, which get weight 0) or (1 or N, 6, 6) square-root
+    informations; loss: a code of base/losses.py (0: none) and its
+    parameter, whose IRLS weight scales A and b.  On the card one launch
+    of one-warp CTAs, LINEARIZE_FACTORS factors each, that stage their
+    factors' blocks in shared memory and copy their spans of H and gv out
+    with coalesced stores (d <= 12)."""
     args = (R, t, rows, ZR, Zt)
     if on_cpu(*args, *_tensors(noise), flip, H, gv):
-        return pg_linearize_plain(*args, kind, noise, sign, flip, H, gv)
+        return pg_linearize_plain(*args, kind, noise, sign, flip, H, gv,
+                                  loss, param)
     N, arity = rows.shape
     d = gv.shape[-1]
     dev, code, stride, nptr = _se3_specs(
-        "pg_linearize", *args, kind, noise, ("flip", flip, BOOL, (N,)),
+        "pg_linearize", *args, kind, noise, loss, ("flip", flip, BOOL, (N,)),
         ("H", H, F64, (N, len(_pair_slots(arity)), d * d)),
         ("gv", gv, F64, (N, arity, d)))
     if d < 6:
         raise ValueError(f"pg_linearize: block width {d} < 6")
     KERNELS["pg_linearize"].launch(dev, N, arity, d, *map(ptr, args), code,
-                                   stride, nptr, float(sign), ptr(flip),
-                                   ptr(H), ptr(gv))
+                                   stride, nptr, float(sign), int(loss),
+                                   float(param), ptr(flip), ptr(H), ptr(gv))
 
 
-def pg_error_plain(R, t, rows, ZR, Zt, kind, noise, sign):
+def pg_error_plain(R, t, rows, ZR, Zt, kind, noise, sign, loss=0,
+                   param=0.0, mu=1000.0):
     r, _ = _residual_plain(R, t, rows, ZR, Zt)
     wr = _whiten(kind, noise, r)
+    if loss:
+        return sign * torch.sum(losses.from_code(loss, param).loss(
+            _norm(wr)))
+    if kind == "constrained":
+        v = torch.sum(wr * wr, dim=-1) + mu * torch.sum(
+            torch.where(noise == 0, r, 0.0) ** 2, dim=-1)
+        return sign * (0.5 * torch.sum(v))
     return sign * (0.5 * torch.sum(wr * wr))
 
 
@@ -213,22 +249,26 @@ def pg_error_plain(R, t, rows, ZR, Zt, kind, noise, sign):
 ERROR_BLOCK = 32
 
 
-def pg_error(R, t, rows, ZR, Zt, kind, noise, sign):
+def pg_error(R, t, rows, ZR, Zt, kind, noise, sign, loss=0, param=0.0,
+             mu=1000.0):
     """Kernel 6, error: sign * 0.5 * sum ||R_w r||^2 over the batch's SE3
-    between or prior factors, a 0-d tensor.  On the card one launch over a
-    grid of ceil(N / ERROR_BLOCK) CTAs, each writing its partial, the last
-    to finish summing them in index order: the order of every addition is
-    fixed by N alone."""
+    between or prior factors, a 0-d tensor; with a loss (a code of
+    base/losses.py and its parameter) sign * sum rho(||R_w r||); under
+    constrained noise plus sign * 0.5 mu r^2 on the hard rows.  On the
+    card one launch over a grid of ceil(N / ERROR_BLOCK) CTAs, each
+    writing its partial, the last to finish summing them in index order:
+    the order of every addition is fixed by N alone."""
     args = (R, t, rows, ZR, Zt)
     if on_cpu(*args, *_tensors(noise)):
-        return pg_error_plain(*args, kind, noise, sign)
+        return pg_error_plain(*args, kind, noise, sign, loss, param, mu)
     N, arity = rows.shape
-    dev, code, stride, nptr = _se3_specs("pg_error", *args, kind, noise)
+    dev, code, stride, nptr = _se3_specs("pg_error", *args, kind, noise,
+                                         loss)
     ticket, part = _kernels.sum_scratch(dev, max(1, -(-N // ERROR_BLOCK)))
     out = torch.empty((), dtype=F64, device=dev)
     KERNELS["pg_error"].launch(dev, N, arity, *map(ptr, args), code, stride,
-                               nptr, float(sign), ptr(part), ptr(ticket),
-                               ptr(out))
+                               nptr, float(sign), int(loss), float(param),
+                               float(mu), ptr(part), ptr(ticket), ptr(out))
     return out
 
 

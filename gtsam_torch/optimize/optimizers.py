@@ -4,17 +4,22 @@ Counterpart of gtsam_tpu/optimize/optimizers.py.  Semantics mirror the
 reference optimizers (NonlinearOptimizer.cpp:62-120, :182 checkConvergence;
 LevenbergMarquardtOptimizer.cpp:121-273).  The loops run on the host; each
 try is the solver's device work and one device-to-host read.  Solvers:
-DenseSolver (normal equations, small graphs) and SparseSolver (the
-supernodal Cholesky, linear/supernodal.py).  Dogleg, nonlinear CG, QR and
-the constrained (KKT) solve are not ported yet.
+DenseSolver (normal equations, small graphs; an exact KKT solve for the
+hard rows of constrained noise) and SparseSolver (the supernodal Cholesky,
+linear/supernodal.py; hard rows by the method of weighting and three
+augmented-Lagrangian passes).  A system is (H-like, g) or, with hard
+rows, (H-like, g, C, c).  Dogleg, nonlinear CG and QR are not ported
+yet.
 """
 
+import copy
 import dataclasses
 import math
 from typing import Optional
 
 import torch
 
+from ..base.noise import NoiseModel
 from ..config import resolve_device
 from ..graph.graph import BoundGraph, FactorGraph
 from ..graph.values import Values, arrays_to, retract_arrays
@@ -63,24 +68,46 @@ class OptimizeResult:
     history: list
 
 
+def _kkt_solve(H, g, C, c, lam, diagonal_damping, min_diag=1e-6,
+               max_diag=1e32):
+    """The equality-constrained GN step: min 0.5 dx'H dx - g'dx s.t.
+    C dx = c, from the KKT system [[H + damping, C'], [C, -eps I]]
+    [dx; nu] = [g; c] (damping on H only; the -eps regularizer keeps the
+    LU nonsingular under redundant constraints).  (dx, ok)."""
+    D, m = H.shape[0], C.shape[0]
+    Hd = H + torch.diag(DenseSolver._damp(H, lam, diagonal_damping,
+                                          min_diag, max_diag))
+    eps = 1e-12 if H.dtype == torch.float64 else 1e-6
+    K = torch.cat([torch.cat([Hd, C.T], dim=1), torch.cat(
+        [C, -eps * torch.eye(m, dtype=H.dtype, device=H.device)], dim=1)])
+    sol, info = torch.linalg.solve_ex(K, torch.cat([g, c]))
+    return sol[:D], info == 0
+
+
 class DenseSolver:
-    """Dense normal equations and Cholesky (small graphs); the solve
-    returns (dx, ok) with ok from cholesky_ex."""
+    """Dense normal equations and Cholesky (small graphs); graphs with
+    hard (constrained) rows get an exact KKT solve.  The solve returns
+    (dx, ok), ok from cholesky_ex (or the KKT solve's LU)."""
 
     def bind(self, bound):
         self._bound = bound
         return self
 
     def system(self, arrays):
+        if self._bound.num_constraints:
+            H, g = self._bound.gn_system(arrays)
+            return (H, g) + self._bound.constraint_system(arrays)
         return self._bound.gn_system(arrays)
 
     @staticmethod
-    def _damp(H, lam, diagonal_damping):
+    def _damp(H, lam, diagonal_damping, min_diag=1e-6, max_diag=1e32):
         if diagonal_damping:
-            return lam * torch.clamp(torch.diagonal(H), 1e-6, 1e32)
+            return lam * torch.clamp(torch.diagonal(H), min_diag, max_diag)
         return lam * torch.ones(H.shape[0], dtype=H.dtype, device=H.device)
 
     def solve(self, system, lam, diagonal_damping):
+        if len(system) == 4:
+            return _kkt_solve(*system, lam, diagonal_damping)
         H, g = system
         Hd = H + torch.diag(self._damp(H, lam, diagonal_damping))
         L, info = torch.linalg.cholesky_ex(Hd)
@@ -89,17 +116,42 @@ class DenseSolver:
     def predicted_decrease(self, system, dx, lam, diagonal_damping):
         """Linear-model decrease 0.5 (dx'g + lam dx'D dx) of the damped GN
         model (the gain ratio's denominator)."""
-        H, g = system
+        H, g = system[0], system[1]
         d = torch.clamp(torch.diagonal(H), 1e-6, 1e32) if diagonal_damping \
             else 1.0
         return 0.5 * (torch.dot(dx, g) + lam * torch.sum(d * dx * dx))
 
 
+def _soften_constraints(bound, weight: float):
+    """The bound graph with its hard rows made soft rows of weight
+    `weight` (precision weight^2): the sparse path's method of weighting
+    (the reference pivots constrained rows in QR, NoiseModel.h:514).  The
+    structures and layout are the original's; no constraint is left."""
+    batches = []
+    for b in bound.graph.batches:
+        nz = b.noise
+        if nz.kind == "constrained":
+            data = torch.where(nz.data == 0, weight, nz.data)
+            b = dataclasses.replace(
+                b, noise=NoiseModel("diagonal", data, nz.loss, nz.mu))
+        batches.append(b)
+    soft = copy.copy(bound)
+    soft.graph = type(bound.graph)(batches)
+    soft._constraints = []
+    soft.num_constraints = 0
+    return soft
+
+
 class SparseSolver:
     """The supernodal sparse Cholesky (linear/supernodal.py), with
     refine_iters float64 refinement passes per solve (solve_refined).  The
-    JAX package's other methods ('levels', 'qr') and constrained rows are
-    not ported.
+    JAX package's other methods ('levels', 'qr') are not ported.
+
+    Hard (constrained) rows: bind() softens them to precision
+    constraint_weight^2 (method of weighting; 1e3 by default), and a solve
+    factorizes that system once and makes three augmented-Lagrangian
+    passes over it (SparseSolver._solve_constrained of the JAX package),
+    with no refinement inside them.
 
     It owns one block store, zeroed once at its first system() call, and
     every system() call assembles into it: only H's own blocks are written,
@@ -108,35 +160,72 @@ class SparseSolver:
     one; nothing writes into it (factorize works on a copy)."""
 
     def __init__(self, order: str = "auto", method: str = "supernodal",
+                 constraint_weight: Optional[float] = None,
                  refine_iters: Optional[int] = None,
                  supernodal_kwargs: Optional[dict] = None):
         if method != "supernodal":
             raise NotImplementedError(f"SparseSolver method {method!r} is "
                                       "not ported yet")
         self._order = order
+        self._cweight = constraint_weight
         self._sn_kwargs = supernodal_kwargs or {}
         self._refine = refine_iters or 0
+        self._s = None
 
     def bind(self, bound):
-        self._s = SupernodalCholeskySolver(bound, order=self._order,
-                                           **self._sn_kwargs)
-        self.store = None
+        """Bind to a bound graph.  A solver bound before keeps its plan
+        (and its owned store) when the new graph has the same structure
+        (SupernodalCholeskySolver.rebind): GNC's inner runs change only
+        noise models."""
+        self._orig_bound = bound
+        self._w = None
+        if bound.num_constraints:
+            # modest: the augmented-Lagrangian passes give exactness, and a
+            # large weight would put cond ~ w^2 into the factorization
+            self._w = 1e3 if self._cweight is None else self._cweight
+            bound = _soften_constraints(bound, self._w)
+        if self._s is None or not self._s.rebind(bound):
+            self._s = SupernodalCholeskySolver(bound, order=self._order,
+                                               **self._sn_kwargs)
+            self.store = None
         return self
 
     def system(self, arrays):
         if self.store is None:
             self.store = self._s.new_store()
-        return self._s.system(arrays, out=self.store)
+        sys_ = self._s.system(arrays, out=self.store)
+        if self._w is not None:
+            return sys_ + self._orig_bound.constraint_system(arrays)
+        return sys_
 
     def solve(self, system, lam, diagonal_damping):
+        if len(system) == 4:
+            return self._solve_constrained(system, lam, diagonal_damping)
         blocks, g = system
         return self._s.solve_refined(blocks, g, lam, diagonal_damping,
                                      self._refine)
 
+    def _solve_constrained(self, system, lam, diagonal_damping,
+                           al_iters: int = 3):
+        """Exact hard rows on the sparse path: the factorization of the
+        weighted system M = H + w^2 C'C (damped), then al_iters passes of
+        dx = M^-1 (g + C' nu), nu += w^2 (c - C dx), each contracting the
+        constraint violation by ~1/w^2.  (dx, ok)."""
+        blocks, g, C, c = system
+        factored = self._s.factorize(blocks, lam, diagonal_damping)
+        w2 = self._w ** 2
+        nu = torch.zeros_like(c)
+        dx = None
+        for _ in range(al_iters):
+            dx = self._s.solve_factored(factored, g + self._s.pack_rhs(
+                C.T @ nu))
+            nu = nu + w2 * (c - C @ dx)
+        return dx, factored.ok
+
     def predicted_decrease(self, system, dx, lam, diagonal_damping):
         """0.5 (dx'g + dx'D dx) on the block store (gain-ratio
         denominator)."""
-        blocks, g = system
+        blocks, g = system[0], system[1]
         xp = self._s.pack_rhs(dx)
         damp = self._s.damp_vec(blocks, lam, diagonal_damping)
         return 0.5 * (torch.sum(xp * g) + torch.sum(damp * xp * xp))
@@ -146,9 +235,10 @@ class SparseSolver:
 
 
 def _auto_solver(bound):
-    """DenseSolver for systems of up to 1024 dimensions, the supernodal
-    sparse solver above (reference default MULTIFRONTAL_CHOLESKY)."""
-    if bound.layout.total_dim <= 1024:
+    """DenseSolver for graphs with hard rows and for systems of up to 1024
+    dimensions, the supernodal sparse solver above (reference default
+    MULTIFRONTAL_CHOLESKY)."""
+    if bound.num_constraints or bound.layout.total_dim <= 1024:
         return DenseSolver()
     return SparseSolver()
 

@@ -1,4 +1,5 @@
-"""Trajectory metrics: ATE with SE(3)/Sim(3) Umeyama alignment (numpy).
+"""Trajectory metrics: ATE with SE(3)/Sim(3) Umeyama alignment, and RPE
+(numpy).
 
 Counterpart of gtsam_tpu/utils/metrics.py.
 """
@@ -40,3 +41,13 @@ def ate(estimate: np.ndarray, groundtruth: np.ndarray, align: bool = True,
             "mean": float(err.mean()),
             "median": float(np.median(err)),
             "max": float(err.max())}
+
+
+def rpe(estimate: np.ndarray, groundtruth: np.ndarray, delta: int = 1) -> dict:
+    """Relative pose (translation) error over index gaps of `delta`."""
+    est = np.asarray(estimate, dtype=float)
+    gt = np.asarray(groundtruth, dtype=float)
+    err = np.linalg.norm((est[delta:] - est[:-delta])
+                         - (gt[delta:] - gt[:-delta]), axis=1)
+    return {"rmse": float(np.sqrt(np.mean(err ** 2))),
+            "mean": float(err.mean()), "max": float(err.max())}

@@ -2,21 +2,25 @@
 """Break kernel 6's linearize and error kernels (csrc/pg_between.cu) down by
 their parts, on one card, at the sphere2500 shape and at 50,000 factors.
 
-    python3 scripts/port_pg_probe.py [--reps N] [--alt NAME=PATH ...]
+    python3 scripts/port_pg_probe.py [--reps N] [--only a,b]
+                                     [--alt NAME=PATH ...]
 
 Compiles variants of gtsam_torch/csrc/pg_between.cu, each from a copy of
 the source with text replacements (VARIANTS; a replacement whose text the
 source no longer holds raises), one nvcc process each, into
 build/port_pg_probe/, and prints each variant's ptxas register and spill
-lines; --alt adds another copy of the source as it is (an older tree's, to
-compare two designs in one call).  Then it binds the 50 x 50 stand-in of
+lines; --only keeps the named variants; --alt adds another copy of the
+source as it is (an older tree's, to compare two designs in one call; a
+source whose entry points predate the loss arguments is called with the
+arguments it has, and times the loss-free calls only).  Then it binds the 50 x 50 stand-in of
 scripts/port_sphere_data.py (chip_smoke.py's sphere graph, bench.py's
 prior, chordal initialization, SparseSolver's supernodal plan) and makes
 chip_smoke.py's synthetic batch of 50,000 between factors over 10,000 poses
 (a gaussian model a factor), and times, as device time per launch
 (torch.profiler over N launches), each variant's linearize and error launch
 through the wrappers on the sphere's between batch, its prior and the
-synthetic batch.  A variant's difference from "base" is the time of the
+synthetic batch, each without a loss and under Huber (k = 1.345, the
+robust-huber run's loss; "+huber" in the key).  A variant's difference from "base" is the time of the
 part it cuts or changes; a cut variant computes nothing correct.  Prints
 one JSON line with the card's name and power limit.
 """
@@ -25,6 +29,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -67,6 +72,28 @@ def _build(name, edits, out_dir, path=None):
     return so, proc
 
 
+def _params(src, name):
+    """The parameter names of entry point gt_<name> in a source's text."""
+    m = re.search(rf"GT_EXPORT int gt_{name}\(([^)]*)\)", src)
+    return [re.findall(r"\w+", p)[-1] for p in m.group(1).split(",")]
+
+
+def _entry(lib, kern, src):
+    """gt_<kern.name> of `lib` as a function of the current argument list:
+    the arguments an older source's entry point lacks are dropped."""
+    from gtsam_torch import _build as b
+    now = _params(open(b.CSRC / "pg_between.cu").read(), kern.name)
+    old = _params(src, kern.name)
+    fn = getattr(lib, "gt_" + kern.name)
+    fn.restype = ctypes.c_int
+    if old == now:
+        fn.argtypes = kern.argtypes
+        return fn, True
+    keep = [now.index(n) for n in old]
+    fn.argtypes = [kern.argtypes[i] for i in keep]
+    return (lambda *a: fn(*(a[i] for i in keep))), False
+
+
 def _launch_ms(fn, reps, key):
     """Device time of one launch of the kernels named `key` in fn."""
     import torch
@@ -86,6 +113,8 @@ def _launch_ms(fn, reps, key):
 def main(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--only", default=None,
+                    help="comma-separated variants to build (default all)")
     ap.add_argument("--alt", action="append", default=[],
                     metavar="NAME=PATH")
     a = ap.parse_args(argv)
@@ -100,10 +129,15 @@ def main(argv):
     from gtsam_torch.linear.supernodal import SupernodalCholeskySolver
     out_dir = os.path.join(ROOT, "build", "port_pg_probe")
     os.makedirs(out_dir, exist_ok=True)
-    procs = {n: _build(n, e, out_dir) for n, e in VARIANTS.items()}
+    only = a.only.split(",") if a.only else list(VARIANTS)
+    procs = {n: _build(n, e, out_dir) for n, e in VARIANTS.items()
+             if n in only}
+    srcs = {n: open(os.path.join(out_dir, f"pg_between_{n}.cu")).read()
+            for n in procs}
     for alt in a.alt:
         n, path = alt.split("=", 1)
         procs[n] = _build(n, [], out_dir, os.path.abspath(path))
+        srcs[n] = open(os.path.abspath(path)).read()
     libs, ptxas = {}, {}
     for n, (so, proc) in procs.items():
         out, _ = proc.communicate()
@@ -126,22 +160,25 @@ def main(argv):
         batches[name] = (base, s.dev.flips[i][1 if b.arity == 2 else 0], s.d)
     batches["synthetic_50000"] = cs.SE3Batches(
         [(cs.SE3_POSES, cs.SE3_BIG, 2, 6, "gaussian", True)]).batches[0]
-    calls = {(kname, bname): cs.se3_calls(kname, [batch])[0][0]()
-             for kname in ("pg_linearize", "pg_error")
-             for bname, batch in batches.items()}
+    huber = cs.loss_args("huber", cs.HUBER_K)
+    calls = {(kname, bname + tag): cs.se3_calls(
+        kname, cs.with_loss([batch], la) if la else [batch])[0][0]()
+        for kname in ("pg_linearize", "pg_error")
+        for bname, batch in batches.items()
+        for tag, la in (("", None), ("+huber", huber))}
     kerns = {k: K.KERNELS[k] for k in ("pg_linearize", "pg_error")}
     saved = {k: kern._fn for k, kern in kerns.items()}
     times = {}
     try:
         for n, lib in libs.items():
+            with_loss = True
             for k, kern in kerns.items():
-                fn = getattr(lib, "gt_" + k)
-                fn.argtypes = kern.argtypes
-                fn.restype = ctypes.c_int
-                kern._fn = fn
+                kern._fn, same = _entry(lib, kern, srcs[n])
+                with_loss &= same
             times[n] = {f"{k} {b}": _launch_ms(
                 lambda k=k, args=args: getattr(K, k)(*args), a.reps,
-                k + "_kernel") for (k, b), args in calls.items()}
+                k + "_kernel") for (k, b), args in calls.items()
+                if with_loss or not b.endswith("+huber")}
     finally:
         for k, kern in kerns.items():
             kern._fn = saved[k]

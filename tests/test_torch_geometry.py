@@ -60,6 +60,7 @@ SO3_CASES = {
     "left_jacobian": (so3.left_jacobian, jso3.left_jacobian),
     "left_jacobian_inverse": (so3.left_jacobian_inverse,
                               jso3.left_jacobian_inverse),
+    "right_jacobian": (so3.right_jacobian, jso3.right_jacobian),
 }
 
 
@@ -146,3 +147,35 @@ def test_bal_retract_and_local():
     _close(c2.pose.t, jc2.pose.t)
     _close(c2.calib, jc2.calib)
     _close(cameras.bal_local(cam, c2), jcameras.bal_local(jcam, jc2))
+
+
+def test_so3_vee():
+    """vee inverts hat, as the JAX package's does (exactly)."""
+    w = _angles(np.random.default_rng(11))
+    _close(so3.vee(so3.hat(_t(w))), jso3.vee(jso3.hat(jnp.asarray(w))))
+    assert torch.equal(so3.vee(so3.hat(_t(w))), _t(w))
+
+
+def test_so3_axis_rotations_ypr_and_quaternions():
+    """rx, ry, rz, ypr and from_quaternion against the JAX package's, and
+    from_quaternion inverting to_quaternion."""
+    rng = np.random.default_rng(12)
+    a = rng.uniform(-np.pi, np.pi, size=(3, B))
+    for f in ("rx", "ry", "rz"):
+        _close(getattr(so3, f)(_t(a[0])), getattr(jso3, f)(jnp.asarray(a[0])))
+    _close(so3.ypr(*map(_t, a)), jso3.ypr(*map(jnp.asarray, a)))
+    q = rng.normal(size=(B, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    _close(so3.from_quaternion(_t(q)), jso3.from_quaternion(jnp.asarray(q)))
+    R = so3.from_quaternion(_t(q))
+    _close(so3.from_quaternion(so3.to_quaternion(R)), R.numpy())
+
+
+def test_se3_stack():
+    """stack makes one batched SE3 of a list, as the JAX package's does."""
+    T, jT = _se3_pair(np.random.default_rng(13))
+    got = se3.stack([se3.SE3(T.R[k], T.t[k]) for k in range(4)])
+    ref = jse3.stack([jse3.SE3(jT.R[k], jT.t[k]) for k in range(4)])
+    _close(got.R, ref.R)
+    _close(got.t, ref.t)
+    assert got.R.shape == (4, 3, 3)

@@ -789,3 +789,82 @@ def test_native_orderings_build_or_raise(monkeypatch, tmp_path):
                                            "-no-such-flag"))
     with pytest.raises(RuntimeError, match="native orderings"):
         native.build()
+
+
+def test_keys_are_the_reference_keys():
+    """base/keys.py is the JAX package's (pure Python) copied: the same
+    keys, tags and labels."""
+    from gtsam_torch.base import keys as tkeys
+    from gtsam_tpu.base import keys as jkeys
+    for c, j in (("x", 0), ("l", 17), ("b", (1 << 56) - 1)):
+        k = tkeys.symbol(c, j)
+        assert k == jkeys.symbol(c, j)
+        assert (tkeys.symbol_chr(k), tkeys.symbol_index(k),
+                tkeys.format_key(k)) == (jkeys.symbol_chr(k),
+                                         jkeys.symbol_index(k),
+                                         jkeys.format_key(k))
+    k = tkeys.labeled_symbol("x", "b", 9)
+    assert k == jkeys.labeled_symbol("x", "b", 9)
+    assert (tkeys.labeled_symbol_chr(k), tkeys.labeled_symbol_label(k),
+            tkeys.labeled_symbol_index(k)) == ("x", "b", 9)
+    assert tkeys.shorthand("x")(3) == jkeys.shorthand("x")(3)
+    assert tkeys.format_key(5) == "5"
+
+
+def test_vmapped_retract_and_local():
+    """values.vmapped_retract and vmapped_local (torch.func.vmap of a
+    manifold's retract and local) against the JAX package's on SE3 and
+    Point3: 1e-12."""
+    import jax.numpy as jnp
+    from gtsam_torch.geometry import se3
+    from gtsam_torch.graph import manifolds, values
+    from gtsam_tpu.graph import manifolds as jmanifolds
+    from gtsam_tpu.graph import values as jvalues
+    from gtsam_tpu.geometry import se3 as jse3
+    rng = np.random.default_rng(21)
+    xi, d = rng.normal(size=(5, 6)), rng.normal(size=(5, 6)) * 0.3
+    T = se3.expmap(torch.as_tensor(xi))
+    jT = jse3.expmap(jnp.asarray(xi))
+    got = values.vmapped_retract(manifolds.get("SE3"))(T, torch.as_tensor(d))
+    ref = jvalues.vmapped_retract(jmanifolds.get("SE3"))(jT, jnp.asarray(d))
+    np.testing.assert_allclose(got.t.numpy(), np.asarray(ref.t), rtol=1e-12,
+                               atol=1e-12)
+    loc = values.vmapped_local(manifolds.get("SE3"))(T, got)
+    jloc = jvalues.vmapped_local(jmanifolds.get("SE3"))(jT, ref)
+    np.testing.assert_allclose(loc.numpy(), np.asarray(jloc), rtol=1e-12,
+                               atol=1e-12)
+    p = rng.normal(size=(5, 3))
+    got = values.vmapped_retract(manifolds.get("Point3"))(
+        torch.as_tensor(p), torch.as_tensor(d[:, :3]))
+    np.testing.assert_array_equal(got.numpy(), p + d[:, :3])
+
+
+def test_constrained_last_ordering():
+    """inference/ordering.py::constrained_last equals the JAX package's on
+    a seeded graph: the rest by minimum degree, then the forced
+    variables."""
+    from gtsam_torch.inference import ordering as tordering
+    from gtsam_tpu.inference import ordering as jordering
+    rng = np.random.default_rng(22)
+    n = 30
+    keys = [np.stack([np.arange(n - 1), np.arange(1, n)], 1),
+            rng.integers(0, n, size=(25, 2))]
+    keys[1] = keys[1][keys[1][:, 0] != keys[1][:, 1]]
+    A = tordering.adjacency_from_factors(keys, n)
+    jA = jordering.adjacency_from_factors(keys, n)
+    last = [17, 3, 17, 25]
+    got = tordering.constrained_last(A, last)
+    np.testing.assert_array_equal(got, jordering.constrained_last(jA, last))
+    np.testing.assert_array_equal(got[-3:], [3, 17, 25])
+    assert sorted(got) == list(range(n))
+
+
+def test_rpe_matches():
+    """utils/metrics.py::rpe against the JAX package's (numpy both)."""
+    from gtsam_torch.utils import metrics as tmetrics
+    from gtsam_tpu.utils import metrics as jmetrics
+    rng = np.random.default_rng(23)
+    gt_ = np.cumsum(rng.normal(size=(40, 3)), axis=0)
+    est = gt_ + rng.normal(size=(40, 3)) * 0.1
+    for delta in (1, 5):
+        assert tmetrics.rpe(est, gt_, delta) == jmetrics.rpe(est, gt_, delta)

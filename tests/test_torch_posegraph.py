@@ -231,12 +231,21 @@ def test_noise_whiten_and_error(kind):
 
 
 def test_unported_noise_and_manifolds_raise():
+    """What the port still refuses: SE2 (and Between of it), an unknown
+    noise kind or manifold, SparseSolver's other methods.  Robust and
+    constrained noise are ported (tests/test_torch_robust.py,
+    tests/test_torch_constrained.py)."""
     with pytest.raises(NotImplementedError):
-        tnoise.constrained([0.0, 1.0])
+        tnoise.NoiseModel("isotropic_robust")
     with pytest.raises(NotImplementedError):
-        tnoise.robust(tnoise.unit(), "huber")
+        TO.SparseSolver(method="qr")
     with pytest.raises(NotImplementedError):
         manifolds.get("SE2")
+    with pytest.raises(NotImplementedError):
+        tfactors.between_factors("SE2", [0], [1], np.zeros((1, 3)),
+                                 tnoise.unit())
+    assert tnoise.constrained([0.0, 1.0]).kind == "constrained"
+    assert tnoise.robust(tnoise.unit(), "huber").loss.name == "huber"
     assert manifolds.get("Vec4").dim == 4
     with pytest.raises(KeyError):
         manifolds.get("NoSuchType")
