@@ -72,7 +72,8 @@
 // loss-free calls 0.3-0.9 us a launch on an H100 (scripts/port_pg_probe.py
 // against the older source).  Inside the robust instantiation the loss
 // is a runtime switch on a grid-uniform value (no divergence) in two
-// __noinline__ functions, loss_weight and loss_rho; a template per loss
+// __noinline__ functions, loss_weight and loss_rho (pg_losses.cuh, which
+// the Pose2 variant in pg_pose2.cu shares); a template per loss
 // would make ten copies of each kernel.  ptxas on sm_90a: 164 registers
 // (linearize) and 80 (error), 0 spills, in every instantiation.  In
 // linearize lane 0 of a pair, which whitens r, takes sqrt(w(||R_w r||))
@@ -96,9 +97,11 @@
 // once (sphere stand-in: 14,848 and 7,449 rows of 288 B, ~6.7 MB with g
 // and the indices, ~0.002 ms at 3.35 TB/s), where the first design wrote
 // the whole 36 MB store on every call.
-#include "ba_common.cuh"
+#include "pg_losses.cuh"
 
 namespace {
+
+using namespace pg;
 
 constexpr int kLinFactors = 16;                // factors a CTA of linearize
 constexpr int kLinThreads = 2 * kLinFactors;   // a lane pair a factor: a warp
@@ -109,85 +112,6 @@ constexpr int kErrorThreads = gt::kWarp;       // ERROR_BLOCK (Python)
 constexpr int kMaxD = 12;                      // store width d <= 12
 constexpr double kSmall = 1e-10;     // so3.py _SMALL (theta^2)
 constexpr double kJrSmall = 5e-3;    // se3.py _JR_SMALL (theta^2)
-constexpr int kConstrained = 3;      // noise kind: a diagonal, 0 = hard row
-
-// the losses of gtsam_torch/base/losses.py, by its CODES (0: none)
-enum Loss {
-  kLossNone = 0, kLossNull, kLossFair, kLossHuber, kLossCauchy, kLossTukey,
-  kLossWelsch, kLossGemanMcClure, kLossDcs, kLossDeadZone
-};
-
-// the IRLS weight w(d) of loss `code` with parameter c (k) at the whitened
-// norm d >= 0, in losses.py's formulas and branches (inclusive <= at a
-// threshold, max(d, 1e-30), Tukey's 0 beyond c)
-__device__ __noinline__ double loss_weight(int code, double c, double d) {
-  switch (code) {
-    case kLossFair:
-      return 1.0 / (1.0 + d / c);
-    case kLossHuber:
-      return d <= c ? 1.0 : c / fmax(d, 1e-30);
-    case kLossCauchy: {
-      const double k2 = c * c;
-      return k2 / (k2 + d * d);
-    }
-    case kLossTukey: {
-      const double r = d * d / (c * c), u = 1.0 - r;
-      return d <= c ? u * u : 0.0;
-    }
-    case kLossWelsch:
-      return exp(-d * d / (c * c));
-    case kLossGemanMcClure: {
-      const double c2 = c * c, q = c2 / (c2 + d * d);
-      return q * q;
-    }
-    case kLossDcs: {
-      const double e2 = d * d, q = 2.0 * c / (c + e2);
-      return e2 > c ? q * q : 1.0;
-    }
-    case kLossDeadZone:
-      return d <= c ? 0.0 : (d - c) / fmax(d, 1e-30);
-    default:   // kLossNull
-      return 1.0;
-  }
-}
-
-// rho(d) of loss `code` (as loss_weight)
-__device__ __noinline__ double loss_rho(int code, double c, double d) {
-  switch (code) {
-    case kLossFair: {
-      const double ad = d / c;
-      return c * c * (ad - log1p(ad));
-    }
-    case kLossHuber:
-      return d <= c ? 0.5 * d * d : c * d - 0.5 * c * c;
-    case kLossCauchy: {
-      const double k2 = c * c;
-      return 0.5 * k2 * log1p(d * d / k2);
-    }
-    case kLossTukey: {
-      const double c2 = c * c, u = 1.0 - fmin(d * d / c2, 1.0);
-      return c2 / 6.0 * (1.0 - u * u * u);
-    }
-    case kLossWelsch: {
-      const double c2 = c * c;
-      return 0.5 * c2 * (1.0 - exp(-d * d / c2));
-    }
-    case kLossGemanMcClure: {
-      const double c2 = c * c;
-      return 0.5 * c2 * d * d / (c2 + d * d);
-    }
-    case kLossDcs: {
-      const double e2 = d * d;
-      return e2 > c ? 2.0 * c * e2 / (c + e2) - c : 0.5 * e2;
-    }
-    case kLossDeadZone: {
-      const double u = d - c;
-      return d <= c ? 0.0 : 0.5 * u * u;
-    }
-    default:   // kLossNull
-      return 0.5 * d * d;
-  }
-}
 
 struct Pose {
   double R[9];

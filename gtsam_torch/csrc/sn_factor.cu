@@ -66,7 +66,11 @@
 // multiplied on the FP64 tensor cores (mma.sync m16n8k16), a warp a 32 x 32
 // quadrant; the panel skips the 16 x 16 blocks of L^-1 above its diagonal.
 // Values written in this launch by other CTAs are read past L1 (cp.async.cg,
-// ld.cg).  No atomics: every sum runs in a fixed order.
+// ld.cg).  Widths may be odd (W*d, R*d at d = 3): staging, stores and sums
+// move pairs of entries 16 bytes at a time where they are 16-byte aligned
+// and 8 where not (copy_pair, store_pair, ldcg_pair), the pair past an odd
+// width's last entry zero or not stored.  No atomics: every sum runs in a
+// fixed order.
 // Bound on the H100: the products' FP64 tensor-core operations (L^-1's
 // triangle and U's block triangle counted once), ~2.6 GFLOP a sphere
 // factorization (0.040 ms) against ~0.12 GB moved (0.035 ms).  On an H100
@@ -113,10 +117,28 @@ __device__ __forceinline__ bool zero_tile(int tri, int rt, int kt) {
   return tri == kUpperZero ? kt > rt : tri == kLowerZero && kt < rt;
 }
 
+// Queue the copy of the pair src[0], src[1] into dst (16-byte aligned),
+// the first `valid` (0, 1 or 2) of them read and the rest zeroed: one
+// 16-byte cp.async where src is 16-byte aligned; else (an odd width puts
+// every other row of an operand, and every other front, on an 8-byte
+// boundary) two loads past L1 and stores into dst, which the barrier
+// before the slab's use orders like the copies.
+__device__ __forceinline__ void copy_pair(double* dst, const double* src,
+                                          int valid) {
+  if (valid == 2 && !(reinterpret_cast<uintptr_t>(src) & 15)) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+    return;
+  }
+  dst[0] = valid > 0 ? __ldcg(src) : 0.0;
+  dst[1] = valid > 1 ? __ldcg(src + 1) : 0.0;
+}
+
 // Queue the copy of columns k0 .. k0 + 31 of rows 0 .. kRows - 1 of o into
-// the kRows / 32 tiles at dst (row pitch kLd), zero outside o: 16 bytes a
-// cp.async (widths are even, so a pair is whole or absent), 16 threads a
-// row.
+// the kRows / 32 tiles at dst (row pitch kLd), zero outside o: a pair of
+// columns a thread (copy_pair), 16 threads a row.
 template <int kRows>
 __device__ __forceinline__ void stage_slab(const Opnd& o, int k0,
                                            double* dst) {
@@ -125,12 +147,8 @@ __device__ __forceinline__ void stage_slab(const Opnd& o, int k0,
     const int z = threadIdx.x + chol::kThreads * q;
     const int r = z >> 4, c = 2 * (z & 15);
     const int valid = r < o.rows ? max(0, min(2, o.cols - k0 - c)) : 0;
-    const double* src = valid ? o.p + r * o.ld + k0 + c : o.p;
-    const unsigned d = (unsigned)__cvta_generic_to_shared(
-        dst + (r >> 5) * kTileSz + (r & 31) * kLd + c);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
-                 "l"(src), "r"(8 * valid)
-                 : "memory");
+    copy_pair(dst + (r >> 5) * kTileSz + (r & 31) * kLd + c,
+              valid ? o.p + r * o.ld + k0 + c : o.p, valid);
   }
 }
 
@@ -632,8 +650,8 @@ constexpr int kMaxChunks = 8;              // k-chunks of a split product's tile
 
 // Queue the copy of rows k0 .. k0 + 31 (< K) and columns c0 .. c0 + 63
 // (< cols) of a k-major operand (entry (k, c) at p[k * ld + c]) into dst
-// (pitch kUPitch), zero outside: 16 bytes a cp.async (widths are even, so
-// a pair is whole or absent), a warp a row.
+// (pitch kUPitch), zero outside: a pair of columns a thread (copy_pair), a
+// warp a row.
 __device__ __forceinline__ void stage_kslab(const double* p, int64_t ld,
                                             int K, int cols, int k0, int c0,
                                             double* dst) {
@@ -642,13 +660,28 @@ __device__ __forceinline__ void stage_kslab(const double* p, int64_t ld,
     const int z = threadIdx.x + kUThreads * q;
     const int r = z >> 5, c = 2 * (z & 31);
     const int valid = k0 + r < K ? max(0, min(2, cols - c0 - c)) : 0;
-    const double* src = valid ? p + (int64_t)(k0 + r) * ld + c0 + c : p;
-    const unsigned d =
-        (unsigned)__cvta_generic_to_shared(dst + r * kUPitch + c);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
-                 "l"(src), "r"(8 * valid)
-                 : "memory");
+    copy_pair(dst + r * kUPitch + c,
+              valid ? p + (int64_t)(k0 + r) * ld + c0 + c : p, valid);
   }
+}
+
+// Store v0, v1 at p[0], p[1] (only v0 where `two` is false): one 16-byte
+// store where p is 16-byte aligned, else 8-byte ones.
+__device__ __forceinline__ void store_pair(double* p, double v0, double v1,
+                                           bool two) {
+  if (two && !(reinterpret_cast<uintptr_t>(p) & 15)) {
+    *reinterpret_cast<double2*>(p) = make_double2(v0, v1);
+  } else {
+    p[0] = v0;
+    if (two) p[1] = v1;
+  }
+}
+
+// p[0], p[1] read past L1: one 16-byte load where p is 16-byte aligned.
+__device__ __forceinline__ double2 ldcg_pair(const double* p) {
+  if (!(reinterpret_cast<uintptr_t>(p) & 15))
+    return __ldcg(reinterpret_cast<const double2*>(p));
+  return make_double2(__ldcg(p), __ldcg(p + 1));
 }
 
 enum UpdateProduct { kPanel, kLowerU };
@@ -804,7 +837,7 @@ __device__ __forceinline__ void reduce_chunks(int S, int per, int nk,
 #pragma unroll
     for (int k = 0; k < kMaxChunks; ++k)
       if (k < nv)
-        v[k] = __ldcg(reinterpret_cast<const double2*>(p + k * kUTileSq));
+        v[k] = ldcg_pair(p + k * kUTileSq);
     double2 acc = make_double2(0.0, 0.0);
 #pragma unroll
     for (int k = 0; k < kMaxChunks; ++k)
@@ -851,12 +884,11 @@ __global__ void __launch_bounds__(kUThreads, 2) sn_schur_update_kernel(
         k0, k1, kUT * mt, kUT * nt, d, usm,
         [&](int r, int c, double v0, double v1) {
           if (nk1 > 1)
-            *reinterpret_cast<double2*>(
-                Ps + (r - kUT * mt) * kUT + c - kUT * nt) =
-                make_double2(v0, v1);
+            store_pair(Ps + (r - kUT * mt) * kUT + c - kUT * nt, v0, v1,
+                       true);
           else if (r < Wd && c < Rd)
-            *reinterpret_cast<double2*>(Ls + (int64_t)r * Rd + c) =
-                make_double2(finite_or_zero(v0), finite_or_zero(v1));
+            store_pair(Ls + (int64_t)r * Rd + c, finite_or_zero(v0),
+                       finite_or_zero(v1), c + 1 < Rd);
         });
   };
   // 2. U's block-lower tiles: U[a][b] = sum_k Lp^T[k][a] Lp^T[k][b], each
@@ -874,12 +906,10 @@ __global__ void __launch_bounds__(kUThreads, 2) sn_schur_update_kernel(
         Ls, Rd, Rd, Ls, Rd, Rd, k0, k1, kUT * mt, kUT * nt, d, usm,
         [&](int r, int c, double v0, double v1) {
           if (nk2 > 1)
-            *reinterpret_cast<double2*>(
-                Ps + (r - kUT * mt) * kUT + c - kUT * nt) =
-                make_double2(v0, v1);
+            store_pair(Ps + (r - kUT * mt) * kUT + c - kUT * nt, v0, v1,
+                       true);
           else if (r < Rd && c < Rd)
-            *reinterpret_cast<double2*>(Us + (int64_t)r * Rd + c) =
-                make_double2(v0, v1);
+            store_pair(Us + (int64_t)r * Rd + c, v0, v1, c + 1 < Rd);
         });
   };
   for (int j = blockIdx.x; j < jobs1; j += gridDim.x) panel_job(j);
@@ -896,8 +926,8 @@ __global__ void __launch_bounds__(kUThreads, 2) sn_schur_update_kernel(
         },
         [&](int s, int r, int c, double v0, double v1) {
           if (r < Wd && c < Rd)
-            *reinterpret_cast<double2*>(Lp + ((int64_t)s * Wd + r) * Rd + c) =
-                make_double2(finite_or_zero(v0), finite_or_zero(v1));
+            store_pair(Lp + ((int64_t)s * Wd + r) * Rd + c,
+                       finite_or_zero(v0), finite_or_zero(v1), c + 1 < Rd);
         });
   }
   grid.sync();
@@ -917,8 +947,8 @@ __global__ void __launch_bounds__(kUThreads, 2) sn_schur_update_kernel(
         // the pairs outside U's block-lower triangle are never read
         [&](int s, int r, int c, double v0, double v1) {
           if (r < Rd && c < Rd)
-            *reinterpret_cast<double2*>(U + ((int64_t)s * Rd + r) * Rd + c) =
-                make_double2(v0, v1);
+            store_pair(U + ((int64_t)s * Rd + r) * Rd + c, v0, v1,
+                       c + 1 < Rd);
         });
   }
   grid.sync();
@@ -996,8 +1026,9 @@ GT_EXPORT int gt_sn_pivot_check(int N, const int* rec, int* state,
 // segments ptr, with unique target rows tgt of work; ck1, ck2: the slabs of a k-chunk
 // of the panel's and U's products (as deep as Wd: no split); Lp: S x Wd x
 // Rd (Lp^T row-major), U: the scratch, S x Rd x Rd and, where a product is
-// split, the partial 64 x 64 tiles of its chunks after it; all 16-byte
-// aligned.  One cooperative launch of as many CTAs as the phases have work
+// split, the partial 64 x 64 tiles of its chunks after it; any Wd and Rd
+// (a pair of entries moves in 8-byte halves where it is not 16-byte
+// aligned).  One cooperative launch of as many CTAs as the phases have work
 // for and the card holds at once.
 GT_EXPORT int gt_sn_schur_update(int S, int W, int R, int d, int T, int ck1,
                                  int ck2, const double* X, const double* At,

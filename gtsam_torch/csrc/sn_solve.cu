@@ -35,7 +35,9 @@
 // while tile t's solution is formed and shared, so a tile step waits on
 // barriers and arithmetic rather than on memory.
 // L and P are column-major per front, as cholesky_ex and solve_triangular
-// leave them; the wrapper's level table holds their addresses.  No atomics:
+// leave them; the wrapper's level table holds their addresses.  Any W*d and
+// R*d (odd ones at a store width d = 3): a pair of a front's entries is read
+// 16 bytes at a time where it is 16-byte aligned, 8 where not.  No atomics:
 // every sum runs in a fixed order.  Values written in this launch by other
 // CTAs (c in the forward, x in the backward) are read past L1 (ld.cg)
 // after the grid barrier.
@@ -102,8 +104,17 @@ __device__ __forceinline__ double strided_part(const double* __restrict__ col,
   return acc;
 }
 
+// e[0] and e[1], zero past the first `avail` of them: one 16-byte load
+// where e is 16-byte aligned, else 8-byte ones (an odd W*d puts every
+// other column of a front, and every other front, on an 8-byte boundary).
+__device__ __forceinline__ double2 load_pair(const double* e, int avail) {
+  if (avail >= 2 && !(reinterpret_cast<uintptr_t>(e) & 15))
+    return *reinterpret_cast<const double2*>(e);
+  return make_double2(avail > 0 ? e[0] : 0.0, avail > 1 ? e[1] : 0.0);
+}
+
 // sum over j in [sub * 32 / Q, (sub + 1) * 32 / Q) (< nb) of row[j] y[j]:
-// a contiguous, 16-byte aligned run, read 16 bytes at a time.
+// a contiguous run, read 16 bytes at a time where it is aligned.
 template <int Q>
 __device__ __forceinline__ double contiguous_part(
     const double* __restrict__ row, const double* y, int nb, int sub) {
@@ -117,9 +128,7 @@ __device__ __forceinline__ double contiguous_part(
 #pragma unroll
     for (int m = 0; m < B; ++m) {
       const int k = k0 + 2 * (g + m);
-      a[m] = k + 1 < nb ? *reinterpret_cast<const double2*>(row + k)
-             : k < nb   ? make_double2(row[k], 0.0)
-                        : make_double2(0.0, 0.0);
+      a[m] = load_pair(row + k, nb - k);
     }
 #pragma unroll
     for (int m = 0; m < B; ++m) {
@@ -391,10 +400,7 @@ __device__ void front_backward(const double* __restrict__ L, int Wd,
     for (int m = 0; m < n / 2; ++m) {
       const int k = sub * n + 2 * m;
       const double* e = lrow + j0 + 2 * m;
-      pre[m] = !above       ? make_double2(0.0, 0.0)
-               : k + 1 < nb ? *reinterpret_cast<const double2*>(e)
-               : k < nb     ? make_double2(e[0], 0.0)
-                            : make_double2(0.0, 0.0);
+      pre[m] = above ? load_pair(e, nb - k) : make_double2(0.0, 0.0);
     }
   };
   if (QP > 0) load(nt - 1);

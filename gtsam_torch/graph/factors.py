@@ -4,11 +4,11 @@ Counterpart of gtsam_tpu/graph/factors.py: all factors of one type form a
 FactorBatch (a key table and stacked measurements).  The generic
 linearization is `torch.func.vmap` of forward-mode `jacfwd` of the
 tangent-perturbed residual, the port of linearize_raw.  On the supernodal
-path, SE3 between and prior batches take kernel 6 instead
-(linear/supernodal_kernels.py), robust or constrained ones too, when their
-loss is one of the nine of base/losses.py; every other batch (a loss of
-the user's own callables included) takes this path, which counts its calls
-in GENERIC_LINEARIZATIONS.
+path, SE3 and SE2 between and prior batches take kernel 6 instead
+(linear/supernodal_kernels.py; `kernel_route`), robust or constrained ones
+too, when their loss is one of the nine of base/losses.py; every other
+batch (a loss of the user's own callables included) takes this path, which
+counts its calls in GENERIC_LINEARIZATIONS.
 
 A residual_fn has the signature (xs: tuple of elements, meas) -> (rdim,);
 the port's geometry broadcasts, so it is also applied to stacked batches.
@@ -23,7 +23,7 @@ import torch
 
 from ..base import losses
 from ..base.noise import NoiseModel
-from ..geometry import se3
+from ..geometry import se2, se3
 from ..geometry.se3 import SE3
 from . import manifolds
 
@@ -128,10 +128,13 @@ def linearize(batch: FactorBatch, xs):
 @functools.lru_cache(maxsize=None)
 def _between_residual(tname):
     # memoized: every Between<T> batch shares one residual function object,
-    # which is how the supernodal path recognises the SE3 ones
+    # which is how the supernodal path recognises the SE3 and SE2 ones
     if tname == "SE3":
         def fn(xs, meas):
             return se3.local(meas, se3.between(xs[0], xs[1]))
+    elif tname == "SE2":
+        def fn(xs, meas):
+            return se2.local(meas, se2.between(xs[0], xs[1]))
     else:
         mt = manifolds.get(tname)
         if not tname.startswith(("Point", "Vec")):
@@ -220,16 +223,22 @@ def custom_factors(name: str, var_types, keys, residual_fn, rdim,
                        residual_fn, measurements, noise, vmap_residual=True)
 
 
-def se3_route(batch: FactorBatch):
-    """"between" or "prior" for an SE3 batch that kernel 6 linearizes (no
-    custom linearize_fn, no loss but one of the nine of base/losses.py),
-    else None."""
+# the groups of kernel 6's variants: SE3 (csrc/pg_between.cu) and SE2
+# (csrc/pg_pose2.cu)
+KERNEL_GROUPS = ("SE3", "SE2")
+
+
+def kernel_route(batch: FactorBatch):
+    """(group, "between" or "prior") for an SE3 or SE2 batch that kernel 6
+    linearizes (no custom linearize_fn, no loss but one of the nine of
+    base/losses.py), else None."""
     if batch.linearize_fn is not None:
         return None
     if losses.kernel_code(batch.noise.loss) is None:
         return None
-    if batch.residual_fn is _between_residual("SE3"):
-        return "between"
-    if batch.residual_fn is _prior_residual("SE3"):
-        return "prior"
+    for group in KERNEL_GROUPS:
+        if batch.residual_fn is _between_residual(group):
+            return group, "between"
+        if batch.residual_fn is _prior_residual(group):
+            return group, "prior"
     return None

@@ -5,12 +5,12 @@ gtsam/nonlinear/NonlinearFactorGraph.cpp:239-274).  `bind()` freezes the
 graph structure against a Values' key table and moves measurements, noise
 and row indices to the values' device once; the bound graph's error,
 linearization and dense Gauss-Newton system are functions of the arrays.
-The error of an SE3 between or prior batch is kernel 6's `pg_error`, on
-every device, robust and constrained ones included (factors.se3_route);
-other batches use the generic residuals.  The hard (sigma == 0) rows of
-constrained noise models are also exact equality constraints C dx = c
-(constraint_system), which the solvers keep apart from the least-squares
-system.
+The error of an SE3 or SE2 between or prior batch is kernel 6's (pg_error,
+pg2_error), on every device, robust and constrained ones included
+(factors.kernel_route); other batches use the generic residuals.  The hard
+(sigma == 0) rows of constrained noise models are also exact equality
+constraints C dx = c (constraint_system), which the solvers keep apart
+from the least-squares system.
 """
 
 import dataclasses
@@ -114,12 +114,14 @@ class BoundGraph:
         from ..linear import supernodal_kernels as sk
         total = None
         for b, st in zip(self.graph.batches, self.structures):
-            if factors_mod.se3_route(b) is not None:
-                e = sk.pg_error(arrays["SE3"].R, arrays["SE3"].t, st.rows_i32,
-                                b.measurements.R, b.measurements.t,
-                                b.noise.kind, b.noise.data, b.sign,
-                                *losses.kernel_code(b.noise.loss),
-                                b.noise.mu)
+            route = factors_mod.kernel_route(b)
+            if route is not None:
+                group = route[0]
+                e = sk.ERROR[group](*sk.group_args(group, arrays,
+                                                   st.rows_i32, b),
+                                    b.noise.kind, b.noise.data, b.sign,
+                                    *losses.kernel_code(b.noise.loss),
+                                    b.noise.mu)
             else:
                 r = factors_mod.residuals(b, self._xs(b, st, arrays))
                 e = b.sign * b.noise.error(r)

@@ -4,8 +4,8 @@ Counterpart of gtsam_tpu/graph/manifolds.py (reference traits<T>,
 gtsam/base/Manifold.h:50): named manifold types, each with `retract` and
 `local` on its tensor representation.  The port's functions broadcast over
 leading dimensions, so they act on one element or on a stacked batch alike.
-Ported types: SE3 and vector spaces ("Point3", "Vec6", ..., "Vec<n>" on
-demand); any other name raises NotImplementedError.
+Ported types: SE3, SE2 and vector spaces ("Point3", "Vec6", ..., "Vec<n>"
+on demand); any other name raises NotImplementedError.
 """
 
 import dataclasses
@@ -13,7 +13,7 @@ from typing import Callable
 
 import torch
 
-from ..geometry import se3
+from ..geometry import se2, se3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +36,7 @@ def _vector_manifold(name: str, d: int) -> ManifoldType:
 MANIFOLDS: dict = {}
 
 # types of the JAX registry that wait for their geometry to be ported
-NOT_PORTED = ("SE2", "SO3", "Sim2", "Sim3", "BalCamera", "PinholeCameraS2",
+NOT_PORTED = ("SO3", "Sim2", "Sim3", "BalCamera", "PinholeCameraS2",
               "Scalar", "NavState")
 
 
@@ -56,6 +56,7 @@ def get(name: str) -> ManifoldType:
 
 
 SE3 = register(ManifoldType("SE3", 6, se3.retract, se3.local, se3.identity))
+SE2 = register(ManifoldType("SE2", 3, se2.retract, se2.local, se2.identity))
 POINT3 = register(_vector_manifold("Point3", 3))
 POINT2 = register(_vector_manifold("Point2", 2))
 VEC3 = register(_vector_manifold("Vec3", 3))

@@ -6,8 +6,8 @@ elimination, gtsam/inference/ClusterTree-inst.h:285).  The symbolic phase
 the assembly tree; the host plans built here from it equal the JAX
 package's, array for array, and move to the device once (`to`).  Then:
 
-  system:    kernel 6 linearizes the SE3 between/prior batches (robust
-             ones with their loss's IRLS weights) straight into
+  system:    kernel 6 linearizes the SE3 and SE2 between/prior batches
+             (robust ones with their loss's IRLS weights) straight into
              a contribution buffer (other batches: the generic torch.func
              path), and pg_assemble sums it into the block store (B+1, d*d)
              and the gradient (n, d) through sorted CSRs;
@@ -597,12 +597,14 @@ class SupernodalCholeskySolver:
             gv = gc[self._g_base[bi]:self._g_base[bi] + N * arity].view(
                 N, arity, d)
             flips = dv.flips[bi]
-            if factors_mod.se3_route(b) is not None:
+            route = factors_mod.kernel_route(b)
+            if route is not None:
+                group = route[0]
                 flip = flips[1] if arity == 2 else flips[0]
-                K.pg_linearize(arrays["SE3"].R, arrays["SE3"].t, st.rows_i32,
-                               b.measurements.R, b.measurements.t,
-                               b.noise.kind, b.noise.data, b.sign, flip, H,
-                               gv, *losses.kernel_code(b.noise.loss))
+                K.LINEARIZE[group](*K.group_args(group, arrays, st.rows_i32,
+                                                 b),
+                                   b.noise.kind, b.noise.data, b.sign, flip,
+                                   H, gv, *losses.kernel_code(b.noise.loss))
                 continue
             wJ, bvec = bound.linearize_batch(bi, arrays)
             dims = b.dims()

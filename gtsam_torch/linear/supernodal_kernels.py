@@ -1,9 +1,9 @@
 """Wrappers of the hand-written CUDA kernels of the pose-graph path.
 
-Kernels 6-9 (csrc/pg_between.cu, sn_factor.cu, sn_solve.cu, sn_matvec.cu)
-port the device routines of the JAX package's pose-graph LM: the SE3
-between/prior linearization with block-store assembly
-(gtsam_tpu/graph/factors.py, linear/supernodal.py::system), the
+Kernels 6-9 (csrc/pg_between.cu, pg_pose2.cu, sn_factor.cu, sn_solve.cu,
+sn_matvec.cu) port the device routines of the JAX package's pose-graph LM:
+the SE3 and SE2 (Pose2) between/prior linearization with block-store
+assembly (gtsam_tpu/graph/factors.py, linear/supernodal.py::system), the
 level-batched supernodal factorization (supernodal.py::factorize), the
 forward and backward substitution (_solve_padded: one launch per direction
 over all levels, on the inverses of the fronts' diagonal tiles that the
@@ -26,7 +26,10 @@ Kernel 7 takes two launches a level: the front kernel factors and inverts
 the level's fronts (and leaves the inverses of their diagonal tiles for
 kernel 8), and the Schur update forms the panel Lp = A L^-T as
 (L^-1 A^T)^T, U = Lp Lp^T's block-lower triangle and the scatter into the
-working store, over the whole card.
+working store, over the whole card.  Kernels 7 and 8 take any front
+widths: at the 2D graphs' store width d = 3 a front's W*d and R*d are
+often odd, and the kernels move a pair of entries 16 bytes at a time where
+it is 16-byte aligned and 8 where not (the store stays 3 wide).
 """
 
 from typing import NamedTuple
@@ -37,7 +40,7 @@ from .. import _kernels
 from .._kernels import (DBL, INT, P, Kernel, check, on_cpu, ptr,
                        segment_owner)
 from ..base import losses
-from ..geometry import se3
+from ..geometry import se2, se3
 from ..geometry.se3 import SE3
 
 F64 = torch.float64
@@ -58,6 +61,14 @@ KERNELS = _kernels.table(
     Kernel("pg_error", "pg_between", "pg_error",
            "gtsam_tpu/graph/graph.py:108",
            [INT, INT] + [P] * 5 + [INT, INT, P, DBL, INT, DBL, DBL, P, P,
+                                   P]),
+    Kernel("pg2_linearize", "pg_pose2", "pg2_linearize",
+           "gtsam_tpu/graph/factors.py:147",
+           [INT, INT, INT] + [P] * 3 + [INT, INT, P, DBL, INT, DBL, P, P,
+                                        P]),
+    Kernel("pg2_error", "pg_pose2", "pg2_error",
+           "gtsam_tpu/graph/graph.py:108",
+           [INT, INT] + [P] * 3 + [INT, INT, P, DBL, INT, DBL, DBL, P, P,
                                    P]),
     Kernel("sn_front_factor", "sn_factor", "sn_front_factor",
            "gtsam_tpu/linear/supernodal.py:404",
@@ -88,7 +99,7 @@ def _width(dd):
     return d
 
 
-# -- kernel 6: SE3 between / prior linearization, assembly, error -------------
+# -- kernel 6: SE3 and SE2 between / prior linearization, assembly, error -----
 
 
 def _pair_slots(arity):
@@ -109,6 +120,16 @@ def _residual_plain(R, t, rows, ZR, Zt):
             se3.between(Tj, Ti))
 
 
+def _residual2_plain(x, rows, Z):
+    """_residual_plain of SE2 poses x (n, 3) and measurements Z (N, 3)."""
+    Ti = x[rows[:, 0].long()]
+    if rows.shape[1] == 1:
+        return se2.logmap(se2.between(Z, Ti)), None
+    Tj = x[rows[:, 1].long()]
+    return (se2.logmap(se2.between(Z, se2.between(Ti, Tj))),
+            se2.between(Tj, Ti))
+
+
 def _whiten(kind, noise, r):
     if kind == "unit":
         return r
@@ -122,16 +143,9 @@ def _norm(wr):
     return torch.sqrt(torch.sum(wr * wr, dim=-1))
 
 
-def pg_jacobians_plain(R, t, rows, ZR, Zt, kind, noise, loss=0, param=0.0):
-    """Whitened Jacobians (A_0[, A_1]) (N, 6, 6) and b = -R_w r (N, 6) of
-    SE3 between (arity 2) or prior (arity 1) factors, in closed form: with
-    r = Log(Z^-1 T_i^-1 T_j), A_j = R_w Jr^-1(r) and
-    A_i = -R_w Jr^-1(r) Ad(T_j^-1 T_i); a prior has A = R_w Jr^-1(r).
-    `loss` (a code of base/losses.py, 0: none) with its parameter scales
-    both by sqrt(w(||R_w r||)) after the whitening (IRLS)."""
-    r, Tji = _residual_plain(R, t, rows, ZR, Zt)
-    Jinv = se3.right_jacobian_inverse(r)
-    J = (Jinv,) if Tji is None else (-(Jinv @ se3.adjoint(Tji)), Jinv)
+def _whitened(r, J, kind, noise, loss, param):
+    """(R_w J_s for each slot, -R_w r), both scaled by sqrt(w(||R_w r||))
+    under a loss (a code of base/losses.py, 0: none)."""
     if kind == "unit":
         A = J
     elif kind in ("diagonal", "constrained"):
@@ -146,11 +160,33 @@ def pg_jacobians_plain(R, t, rows, ZR, Zt, kind, noise, loss=0, param=0.0):
     return A, -wr
 
 
-def pg_linearize_plain(R, t, rows, ZR, Zt, kind, noise, sign, flip, H, gv,
-                       loss=0, param=0.0):
-    A, b = pg_jacobians_plain(R, t, rows, ZR, Zt, kind, noise, loss, param)
-    N, arity = rows.shape
-    d = gv.shape[2]
+def pg_jacobians_plain(R, t, rows, ZR, Zt, kind, noise, loss=0, param=0.0):
+    """Whitened Jacobians (A_0[, A_1]) (N, 6, 6) and b = -R_w r (N, 6) of
+    SE3 between (arity 2) or prior (arity 1) factors, in closed form: with
+    r = Log(Z^-1 T_i^-1 T_j), A_j = R_w Jr^-1(r) and
+    A_i = -R_w Jr^-1(r) Ad(T_j^-1 T_i); a prior has A = R_w Jr^-1(r).
+    `loss` (a code of base/losses.py, 0: none) with its parameter scales
+    both by sqrt(w(||R_w r||)) after the whitening (IRLS)."""
+    r, Tji = _residual_plain(R, t, rows, ZR, Zt)
+    Jinv = se3.right_jacobian_inverse(r)
+    J = (Jinv,) if Tji is None else (-(Jinv @ se3.adjoint(Tji)), Jinv)
+    return _whitened(r, J, kind, noise, loss, param)
+
+
+def pg2_jacobians_plain(x, rows, Z, kind, noise, loss=0, param=0.0):
+    """pg_jacobians_plain of SE2 factors ((N, 3, 3) and (N, 3)), with SE(2)'s
+    Jr^-1 and adjoint (geometry/se2.py), in the tangent order [vx, vy,
+    w]."""
+    r, P = _residual2_plain(x, rows, Z)
+    Jinv = se2.right_jacobian_inverse(r)
+    J = (Jinv,) if P is None else (-(Jinv @ se2.adjoint(P)), Jinv)
+    return _whitened(r, J, kind, noise, loss, param)
+
+
+def _blocks_plain(A, b, sign, flip, H, gv):
+    """What kernel 6's linearize writes for whitened (A, b): H and gv."""
+    N, arity, d = gv.shape
+    k = b.shape[1]
     H.zero_()
     gv.zero_()
     Hv = H.view(N, -1, d, d)
@@ -158,44 +194,78 @@ def pg_linearize_plain(R, t, rows, ZR, Zt, kind, noise, sign, flip, H, gv,
         Hij = sign * torch.einsum("nri,nrj->nij", A[s1], A[s2])
         if s1 != s2:
             Hij = torch.where(flip[:, None, None], Hij.transpose(1, 2), Hij)
-        Hv[:, p, :6, :6] = Hij
+        Hv[:, p, :k, :k] = Hij
     for s in range(arity):
-        gv[:, s, :6] = sign * torch.einsum("nrd,nr->nd", A[s], b)
+        gv[:, s, :k] = sign * torch.einsum("nrd,nr->nd", A[s], b)
 
 
-def _se3_specs(name, R, t, rows, ZR, Zt, kind, noise, loss, *extra):
-    """Checks of the arguments of pg_linearize and pg_error (`extra`: more
-    specs); returns (device, noise kind code, noise stride, noise
-    pointer)."""
+def pg_linearize_plain(R, t, rows, ZR, Zt, kind, noise, sign, flip, H, gv,
+                       loss=0, param=0.0):
+    _blocks_plain(*pg_jacobians_plain(R, t, rows, ZR, Zt, kind, noise, loss,
+                                      param), sign, flip, H, gv)
+
+
+def pg2_linearize_plain(x, rows, Z, kind, noise, sign, flip, H, gv, loss=0,
+                        param=0.0):
+    _blocks_plain(*pg2_jacobians_plain(x, rows, Z, kind, noise, loss, param),
+                  sign, flip, H, gv)
+
+
+def _factor_specs(name, rows, kind, noise, loss, rdim, *specs):
+    """Checks of the arguments of kernel 6's linearize and error (`specs`:
+    the group's own, then more); returns (device, noise kind code, noise
+    stride, noise pointer)."""
     if loss not in range(len(losses.CODES) + 1):
         raise ValueError(f"{name}: loss code {loss} is not one of kernel "
                          "6's")
     if loss and kind == "constrained":
         raise ValueError(f"{name}: a robust loss on constrained noise")
-    Nv, (N, arity) = R.shape[0], rows.shape
+    N, arity = rows.shape
     if arity not in (1, 2):
         raise ValueError(f"{name}: rows must have 1 or 2 slots, got {arity}")
-    specs = [("R", R, F64, (Nv, 3, 3)), ("t", t, F64, (Nv, 3)),
-             ("rows", rows, I32, (N, arity)), ("ZR", ZR, F64, (N, 3, 3)),
-             ("Zt", Zt, F64, (N, 3))]
     if kind not in NOISE_KINDS:
         raise NotImplementedError(f"{name}: noise kind {kind!r}")
+    specs = list(specs)
     if kind != "unit":
         M = noise.shape[0]
         if M not in (1, N):
             raise ValueError(f"{name}: noise must have 1 or {N} rows, got {M}")
-        specs.append(("noise", noise, F64,
-                      (M, 6, 6) if kind == "gaussian" else (M, 6)))
-    dev = check(name, *specs, *extra)
+        specs.append(("noise", noise, F64, (M, rdim, rdim)
+                      if kind == "gaussian" else (M, rdim)))
+    dev = check(name, *specs)
     if kind == "unit":
         return dev, 0, 0, 0
     stride = 0 if noise.shape[0] == 1 else noise[0].numel()
     return dev, NOISE_KINDS[kind], stride, ptr(noise)
 
 
+def _se3_specs(name, R, t, rows, ZR, Zt, kind, noise, loss, *extra):
+    Nv, N = R.shape[0], rows.shape[0]
+    return _factor_specs(name, rows, kind, noise, loss, 6,
+                         ("R", R, F64, (Nv, 3, 3)), ("t", t, F64, (Nv, 3)),
+                         ("rows", rows, I32, tuple(rows.shape)),
+                         ("ZR", ZR, F64, (N, 3, 3)), ("Zt", Zt, F64, (N, 3)),
+                         *extra)
+
+
+def _se2_specs(name, x, rows, Z, kind, noise, loss, *extra):
+    return _factor_specs(name, rows, kind, noise, loss, 3,
+                         ("x", x, F64, (x.shape[0], 3)),
+                         ("rows", rows, I32, tuple(rows.shape)),
+                         ("Z", Z, F64, (rows.shape[0], 3)), *extra)
+
+
+def _out_specs(N, arity, d, flip, H, gv):
+    return (("flip", flip, BOOL, (N,)),
+            ("H", H, F64, (N, len(_pair_slots(arity)), d * d)),
+            ("gv", gv, F64, (N, arity, d)))
+
+
 # factors of a CTA of pg_linearize_kernel, a lane pair each (kLinFactors in
-# csrc/pg_between.cu)
+# csrc/pg_between.cu), and of pg2_linearize_kernel, a lane each (kP2Factors
+# in csrc/pg_pose2.cu)
 LINEARIZE_FACTORS = 16
+LINEARIZE2_FACTORS = 32
 
 
 def pg_linearize(R, t, rows, ZR, Zt, kind, noise, sign, flip, H, gv,
@@ -220,9 +290,8 @@ def pg_linearize(R, t, rows, ZR, Zt, kind, noise, sign, flip, H, gv,
     N, arity = rows.shape
     d = gv.shape[-1]
     dev, code, stride, nptr = _se3_specs(
-        "pg_linearize", *args, kind, noise, loss, ("flip", flip, BOOL, (N,)),
-        ("H", H, F64, (N, len(_pair_slots(arity)), d * d)),
-        ("gv", gv, F64, (N, arity, d)))
+        "pg_linearize", *args, kind, noise, loss,
+        *_out_specs(N, arity, d, flip, H, gv))
     if d < 6:
         raise ValueError(f"pg_linearize: block width {d} < 6")
     KERNELS["pg_linearize"].launch(dev, N, arity, d, *map(ptr, args), code,
@@ -230,9 +299,31 @@ def pg_linearize(R, t, rows, ZR, Zt, kind, noise, sign, flip, H, gv,
                                    float(param), ptr(flip), ptr(H), ptr(gv))
 
 
-def pg_error_plain(R, t, rows, ZR, Zt, kind, noise, sign, loss=0,
-                   param=0.0, mu=1000.0):
-    r, _ = _residual_plain(R, t, rows, ZR, Zt)
+def pg2_linearize(x, rows, Z, kind, noise, sign, flip, H, gv, loss=0,
+                  param=0.0):
+    """Kernel 6's Pose2 variant, linearize: pg_linearize for SE2 between or
+    prior factors; x (n, 3) the SE2 values, Z (N, 3) the measurements,
+    noise None, (1 or N, 3) or (1 or N, 3, 3); H and gv zero outside the
+    leading 3x3 and 3 (3 <= d <= 12).  On the card one launch of one-warp
+    CTAs, LINEARIZE2_FACTORS factors each, a lane a factor, that copy
+    their spans of H and gv out with coalesced stores."""
+    args = (x, rows, Z)
+    if on_cpu(*args, *_tensors(noise), flip, H, gv):
+        return pg2_linearize_plain(*args, kind, noise, sign, flip, H, gv,
+                                   loss, param)
+    N, arity = rows.shape
+    d = gv.shape[-1]
+    dev, code, stride, nptr = _se2_specs(
+        "pg2_linearize", *args, kind, noise, loss,
+        *_out_specs(N, arity, d, flip, H, gv))
+    if d < 3:
+        raise ValueError(f"pg2_linearize: block width {d} < 3")
+    KERNELS["pg2_linearize"].launch(dev, N, arity, d, *map(ptr, args), code,
+                                    stride, nptr, float(sign), int(loss),
+                                    float(param), ptr(flip), ptr(H), ptr(gv))
+
+
+def _error_plain(r, kind, noise, sign, loss, param, mu):
     wr = _whiten(kind, noise, r)
     if loss:
         return sign * torch.sum(losses.from_code(loss, param).loss(
@@ -244,9 +335,32 @@ def pg_error_plain(R, t, rows, ZR, Zt, kind, noise, sign, loss=0,
     return sign * (0.5 * torch.sum(wr * wr))
 
 
-# factors of a CTA of pg_error_kernel, one a thread (kErrorThreads in
-# csrc/pg_between.cu): the launch writes one partial a CTA
+def pg_error_plain(R, t, rows, ZR, Zt, kind, noise, sign, loss=0,
+                   param=0.0, mu=1000.0):
+    return _error_plain(_residual_plain(R, t, rows, ZR, Zt)[0], kind, noise,
+                        sign, loss, param, mu)
+
+
+def pg2_error_plain(x, rows, Z, kind, noise, sign, loss=0, param=0.0,
+                    mu=1000.0):
+    return _error_plain(_residual2_plain(x, rows, Z)[0], kind, noise, sign,
+                        loss, param, mu)
+
+
+# factors of a CTA of pg_error_kernel and pg2_error_kernel, one a thread
+# (kErrorThreads in csrc/pg_between.cu and pg_pose2.cu): the launch writes
+# one partial a CTA
 ERROR_BLOCK = 32
+
+
+def _error_launch(name, dev, N, arity, args, code, stride, nptr, sign, loss,
+                  param, mu):
+    ticket, part = _kernels.sum_scratch(dev, max(1, -(-N // ERROR_BLOCK)))
+    out = torch.empty((), dtype=F64, device=dev)
+    KERNELS[name].launch(dev, N, arity, *map(ptr, args), code, stride, nptr,
+                         float(sign), int(loss), float(param), float(mu),
+                         ptr(part), ptr(ticket), ptr(out))
+    return out
 
 
 def pg_error(R, t, rows, ZR, Zt, kind, noise, sign, loss=0, param=0.0,
@@ -264,12 +378,36 @@ def pg_error(R, t, rows, ZR, Zt, kind, noise, sign, loss=0, param=0.0,
     N, arity = rows.shape
     dev, code, stride, nptr = _se3_specs("pg_error", *args, kind, noise,
                                          loss)
-    ticket, part = _kernels.sum_scratch(dev, max(1, -(-N // ERROR_BLOCK)))
-    out = torch.empty((), dtype=F64, device=dev)
-    KERNELS["pg_error"].launch(dev, N, arity, *map(ptr, args), code, stride,
-                               nptr, float(sign), int(loss), float(param),
-                               float(mu), ptr(part), ptr(ticket), ptr(out))
-    return out
+    return _error_launch("pg_error", dev, N, arity, args, code, stride, nptr,
+                         sign, loss, param, mu)
+
+
+def pg2_error(x, rows, Z, kind, noise, sign, loss=0, param=0.0, mu=1000.0):
+    """Kernel 6's Pose2 variant, error: pg_error for SE2 between or prior
+    factors (x, Z as in pg2_linearize), one launch the same way."""
+    args = (x, rows, Z)
+    if on_cpu(*args, *_tensors(noise)):
+        return pg2_error_plain(*args, kind, noise, sign, loss, param, mu)
+    N, arity = rows.shape
+    dev, code, stride, nptr = _se2_specs("pg2_error", *args, kind, noise,
+                                         loss)
+    return _error_launch("pg2_error", dev, N, arity, args, code, stride,
+                         nptr, sign, loss, param, mu)
+
+
+# kernel 6's wrappers by group, and their leading arguments for a batch
+LINEARIZE = {"SE3": pg_linearize, "SE2": pg2_linearize}
+ERROR = {"SE3": pg_error, "SE2": pg2_error}
+
+
+def group_args(group, arrays, rows, batch):
+    """Kernel 6's leading arguments for a between or prior batch of
+    `group`: the values, the batch's rows (N, arity) and its measurements
+    (SE3: R, t, rows, ZR, Zt; SE2: x, rows, Z)."""
+    if group == "SE3":
+        return (arrays["SE3"].R, arrays["SE3"].t, rows, batch.measurements.R,
+                batch.measurements.t)
+    return (arrays[group], rows, batch.measurements)
 
 
 def pg_assemble_plain(hc, gc, asm_src, asm_ptr, asm_blk, asm_diag, g_src,
@@ -447,9 +585,6 @@ def sn_front_factor(work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
               for k, (o, shape) in enumerate(zip(out, shapes))
               if o is not None and shape is not None]
     dev = check("sn_front_factor", *specs)
-    if Wd % 2:
-        raise ValueError("sn_front_factor: the front kernel copies pairs of "
-                         f"columns; W*d = {Wd} must be even")
     L, X, At, tiles = (
         None if shape is None else o if o is not None
         else torch.empty(shape, dtype=F64, device=dev)
@@ -638,10 +773,6 @@ def sn_schur_update(Linv, At, plan, work, U, out=None):
                          f"the plan's")
     if out is None:
         out = torch.empty((S, Wd, Rd), dtype=F64, device=dev)
-    if Wd % 2 or Rd % 2 or any(ptr(t) % 16 for t in (Linv, At, out)):
-        raise ValueError("sn_schur_update: the kernel moves pairs of "
-                         "entries; W*d and R*d must be even and Linv, At "
-                         "and the panel 16-byte aligned")
     KERNELS["sn_schur_update"].launch(
         dev, S, plan.W, R, d, plan.tgt.shape[0], plan.split.panel_chunk,
         plan.split.u_chunk, ptr(Linv), ptr(At), ptr(plan.uoff),
@@ -726,12 +857,6 @@ def level_table(Ls, Ps, d):
             if P is not None:
                 specs.append((f"P[{k}]", P.mT, F64, (S, Wd, P.shape[1])))
         dev = check("level_table", *specs)
-        # kernel 8 reads two rows, or two columns, at once with 16-byte
-        # loads
-        for _, t, _, shape in specs:
-            if shape[1] % 2 or shape[2] % 2 or ptr(t) % 16:
-                raise ValueError("level_table: kernel 8 needs even W*d and "
-                                 "R*d and 16-byte aligned factors")
         if front * 8 > SHARED_BYTES:
             raise ValueError(f"level_table: a front of {front} rows exceeds "
                              "kernel 8's shared memory")

@@ -1,10 +1,10 @@
-"""Pose-graph initialization: 3D chordal relaxation.
+"""Pose-graph initialization: 3D chordal relaxation and 2D LAGO.
 
 Counterpart of gtsam_tpu/slam/initialize.py (reference
 gtsam/slam/InitializePose3.{h,cpp}, computeOrientationsChordal:45,
-initialize:87): one-time host preprocessing with scipy's sparse LU, as in
-the reference; the nonlinear refinement then runs on the device.  LAGO (2D)
-is not ported yet.
+initialize:87, and gtsam/slam/lago.{h,cpp}): one-time host preprocessing
+with scipy's sparse LU, as in the reference; the nonlinear refinement then
+runs on the device.
 
 Rotations: for each between factor (i, j, Rij), Rj ~ Ri Rij; with the rows
 of each R as unknowns this is three decoupled sparse least-squares systems
@@ -94,3 +94,82 @@ def initialize_pose3_chordal(graph: FactorGraph, anchor_key=None) -> Values:
     t = spla.splu((A.T @ A).tocsc()).solve(A.T @ bv).reshape(n, 3)
     return Values({"SE3": SE3(torch.as_tensor(R), torch.as_tensor(t))},
                   {"SE3": keys})
+
+
+def initialize_pose2_lago(graph: FactorGraph, anchor_key=None) -> Values:
+    """LAGO 2D initialization (gtsam/slam/lago.{h,cpp}) of the BetweenSE2
+    batches of `graph`: orientations first, from a linear system whose
+    2 pi corrections come off a spanning tree (depth-first from the
+    anchor), then positions linearly at those orientations.  Values on the
+    CPU, keys sorted; the JAX package's algorithm, loop for loop."""
+    edges = []
+    for b in graph.batches:
+        if b.var_types == ("SE2", "SE2") and b.name.startswith("Between"):
+            m = b.measurements.detach().cpu().numpy()
+            for n in range(b.num_factors):
+                edges.append((int(b.keys[n, 0]), int(b.keys[n, 1]),
+                              m[n, 0], m[n, 1], m[n, 2]))
+    if not edges:
+        raise ValueError("no BetweenSE2 factors")
+    keys = sorted({k for e in edges for k in (e[0], e[1])})
+    idx = {k: i for i, k in enumerate(keys)}
+    n = len(keys)
+    a = idx[anchor_key] if anchor_key is not None else 0
+
+    # spanning tree -> initial theta guesses
+    adj = {}
+    for ei, (i, j, dx, dy, dth) in enumerate(edges):
+        adj.setdefault(idx[i], []).append((idx[j], dth, ei))
+        adj.setdefault(idx[j], []).append((idx[i], -dth, ei))
+    theta0 = np.full(n, np.nan)
+    theta0[a] = 0.0
+    stack = [a]
+    while stack:
+        u = stack.pop()
+        for (v, dth, _e) in adj.get(u, []):
+            if np.isnan(theta0[v]):
+                theta0[v] = theta0[u] + dth
+                stack.append(v)
+    theta0 = np.nan_to_num(theta0)
+
+    # linear orientation solve with integer 2 pi corrections from theta0
+    rows, cols, vals, rhs = [], [], [], []
+    rc = 0
+    for (i, j, _dx, _dy, dth) in edges:
+        ii, jj = idx[i], idx[j]
+        k2pi = np.round((theta0[jj] - theta0[ii] - dth) / (2 * np.pi))
+        rows += [rc, rc]
+        cols += [jj, ii]
+        vals += [1.0, -1.0]
+        rhs.append(dth + 2 * np.pi * k2pi)
+        rc += 1
+    rows.append(rc)
+    cols.append(a)
+    vals.append(10.0)
+    rhs.append(0.0)
+    A = sp.csr_matrix((vals, (rows, cols)), shape=(rc + 1, n))
+    theta = spla.splu((A.T @ A).tocsc()).solve(A.T @ np.asarray(rhs))
+
+    # linear position solve at the fixed orientations
+    rows, cols, vals, rhs = [], [], [], []
+    rc = 0
+    for (i, j, dx, dy, _dth) in edges:
+        ii, jj = idx[i], idx[j]
+        c, s = np.cos(theta[ii]), np.sin(theta[ii])
+        wx, wy = c * dx - s * dy, s * dx + c * dy
+        for r, w in ((0, wx), (1, wy)):
+            rows += [rc, rc]
+            cols += [2 * jj + r, 2 * ii + r]
+            vals += [1.0, -1.0]
+            rhs.append(w)
+            rc += 1
+    for r in range(2):
+        rows.append(rc + r)
+        cols.append(2 * a + r)
+        vals.append(10.0)
+        rhs.append(0.0)
+    A = sp.csr_matrix((vals, (rows, cols)), shape=(rc + 2, 2 * n))
+    xy = spla.splu((A.T @ A).tocsc()).solve(
+        A.T @ np.asarray(rhs)).reshape(n, 2)
+    pose = np.concatenate([xy, theta[:, None]], axis=1)  # key order
+    return Values({"SE2": torch.as_tensor(pose)}, {"SE2": np.asarray(keys)})

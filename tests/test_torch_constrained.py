@@ -170,7 +170,7 @@ def test_kernel6_plain_versions_under_constrained_noise():
     T = tv.arrays["SE3"]
     for bi in (0, 2):
         b, st, jbatch = tg.batches[bi], tb.structures[bi], jg.batches[bi]
-        assert tfactors.se3_route(b) is not None
+        assert tfactors.kernel_route(b) is not None
         rows = st.rows_i32
         args = (T.R, T.t, rows, b.measurements.R, b.measurements.t,
                 b.noise.kind, b.noise.data)

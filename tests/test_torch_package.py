@@ -111,7 +111,7 @@ def test_cpu_path_counts_no_launch():
         base | {k + "_f32" for k in base}
         | {"bal_error", "ba_back_substitute", "ba_schur_matvec"}
         | set(supernodal_kernels.KERNELS) | set(dense_kernels.KERNELS))
-    assert len(supernodal_kernels.KERNELS) == 9
+    assert len(supernodal_kernels.KERNELS) == 11
     assert all(n == 0 for n in _kernels.launch_counts().values())
 
 
@@ -188,6 +188,7 @@ def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
 
     Wd, Rd = 6 * W, 6 * R
     se3 = (f(Nv, 3, 3), f(Nv, 3), i(N, 2), f(N, 3, 3), f(N, 3))
+    se2 = (f(Nv, 3), i(N, 2), f(N, 3))
     levels = supernodal_kernels.Levels(
         l(1, 12), [f(S, Wd, Wd)], [f(S, Rd, Wd)], S, S * Wd, S * Rd, S * W,
         S * R, Wd + Rd)
@@ -198,6 +199,9 @@ def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
         "pg_linearize": se3 + ("gaussian", f(N, 6, 6), 1.0, b(N),
                                f(N, 3, 36), f(N, 2, 6)),
         "pg_error": se3 + ("diagonal", f(N, 6), 1.0),
+        "pg2_linearize": se2 + ("gaussian", f(N, 3, 3), 1.0, b(N),
+                                f(N, 3, 9), f(N, 2, 3)),
+        "pg2_error": se2 + ("diagonal", f(N, 3), 1.0),
         "pg_assemble": (f(12, 36), f(8, 6), i(12), i(T + 1), i(T), i(T),
                         i(8), i(n + 1), f(n, 6), nb),
         "sn_front_factor": (f(nb, 36), f(nb, 36), i(S, W, W), b(S, W, W),
@@ -407,10 +411,46 @@ def _random_poses(rng, n):
     return T.R.numpy(), T.t.numpy()
 
 
+def _cpu_args_pose2(name):
+    """Arguments of kernel 6's Pose2 wrappers at the shapes the supernodal
+    solver gives them (store width 3), from a small SE2 ring graph with
+    per-factor gaussian noise, on the CPU."""
+    from gtsam_torch.base import noise
+    from gtsam_torch.geometry import se2
+    rng = np.random.default_rng(2)
+    n = 12
+    x = torch.as_tensor(np.concatenate([rng.normal(size=(n, 2)) * 3.0,
+                                        rng.uniform(-3, 3, (n, 1))], 1))
+    i = np.concatenate([np.arange(n - 1), np.arange(n - 4)])
+    j = np.concatenate([np.arange(1, n), np.arange(4, n)])
+    Z = se2.retract(se2.between(x[i], x[j]),
+                    torch.as_tensor(rng.normal(size=(len(i), 3)) * 0.1))
+    A = rng.normal(size=(len(i), 3, 3))
+    g = FactorGraph([tfactors.between_factors(
+        "SE2", i, j, Z, noise.information(A @ A.transpose(0, 2, 1)
+                                          + 3 * np.eye(3)))])
+    g.add(tfactors.prior_factors("SE2", [0], x[:1], noise.sigmas([[0.1] * 3])))
+    vals = Values({"SE2": x}, {"SE2": np.arange(n)})
+    s = SupernodalCholeskySolver(BoundGraph(g, vals, "cpu"), force_width=2,
+                                 max_width=4)
+    b, st = s.bound.graph.batches[0], s.bound.structures[0]
+    N, d = b.num_factors, s.d
+    args = (x, st.rows_i32, b.measurements)
+    return {
+        "pg2_linearize": args + (
+            "gaussian", b.noise.data, 1.0, s.dev.flips[0][1],
+            torch.zeros((N, 3, d * d), dtype=torch.float64),
+            torch.zeros((N, 2, d), dtype=torch.float64)),
+        "pg2_error": args + ("gaussian", b.noise.data, -1.0),
+    }[name]
+
+
 def _cpu_args_pg(name):
     """Arguments of each pose-graph wrapper at the shapes the supernodal
     solver gives it, from a small pose graph, on the CPU; made anew at each
     call."""
+    if name.startswith("pg2_"):
+        return _cpu_args_pose2(name)
     graph, vals = _small_pose_graph()
     s = SupernodalCholeskySolver(BoundGraph(graph, vals, "cpu"),
                                  force_width=2, max_width=4)

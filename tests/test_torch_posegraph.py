@@ -231,19 +231,23 @@ def test_noise_whiten_and_error(kind):
 
 
 def test_unported_noise_and_manifolds_raise():
-    """What the port still refuses: SE2 (and Between of it), an unknown
-    noise kind or manifold, SparseSolver's other methods.  Robust and
-    constrained noise are ported (tests/test_torch_robust.py,
+    """What the port still refuses: a type still unported (Sim2, and
+    Between of it), an unknown noise kind or manifold, SparseSolver's other
+    methods.  SE2 and its between factors build (tests/test_torch_pose2.py),
+    as do robust and constrained noise (tests/test_torch_robust.py,
     tests/test_torch_constrained.py)."""
     with pytest.raises(NotImplementedError):
         tnoise.NoiseModel("isotropic_robust")
     with pytest.raises(NotImplementedError):
         TO.SparseSolver(method="qr")
     with pytest.raises(NotImplementedError):
-        manifolds.get("SE2")
+        manifolds.get("Sim2")
     with pytest.raises(NotImplementedError):
-        tfactors.between_factors("SE2", [0], [1], np.zeros((1, 3)),
+        tfactors.between_factors("Sim2", [0], [1], np.zeros((1, 4)),
                                  tnoise.unit())
+    assert manifolds.get("SE2").dim == 3
+    assert tfactors.between_factors("SE2", [0], [1], np.zeros((1, 3)),
+                                    tnoise.unit()).rdim == 3
     assert tnoise.constrained([0.0, 1.0]).kind == "constrained"
     assert tnoise.robust(tnoise.unit(), "huber").loss.name == "huber"
     assert manifolds.get("Vec4").dim == 4

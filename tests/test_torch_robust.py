@@ -93,7 +93,7 @@ def test_loss_weight_and_rho_at_branch_points(name):
 
 def test_a_loss_of_the_users_own_has_no_kernel_code():
     """A Loss of callables of the user's own (even under a built-in name)
-    goes the generic way: kernel_code gives None, and se3_route sends its
+    goes the generic way: kernel_code gives None, and kernel_route sends its
     SE3 batch to the generic linearization."""
     mine = tlosses.Loss("huber", lambda d: torch.ones_like(d),
                         lambda d: 0.5 * d * d, 1.0)
@@ -103,9 +103,9 @@ def test_a_loss_of_the_users_own_has_no_kernel_code():
     b = tfactors.between_factors("SE3", [0, 1], [1, 2],
                                  SE3(T.R[:2], T.t[:2]),
                                  tnoise.robust(tnoise.unit(), mine))
-    assert tfactors.se3_route(b) is None
+    assert tfactors.kernel_route(b) is None
     b2 = dataclasses.replace(b, noise=tnoise.robust(tnoise.unit(), "huber"))
-    assert tfactors.se3_route(b2) == "between"
+    assert tfactors.kernel_route(b2) == ("SE3", "between")
 
 
 def _spd(n, count, seed):
@@ -233,7 +233,7 @@ def test_kernel6_plain_versions_with_each_loss(name):
     _close(tb.error(tv.arrays), jg.bind(jv).error(jv.arrays), 1e-12)
     for jbatch, b, st in zip(jg.batches, tg.batches, tb.structures):
         rows = st.rows_i32
-        assert tfactors.se3_route(b) is not None
+        assert tfactors.kernel_route(b) is not None
         jxs = tuple(gt.SE3(jnp.asarray(T.R.numpy()[rows[:, s].numpy()]),
                            jnp.asarray(T.t.numpy()[rows[:, s].numpy()]))
                     for s in range(b.arity))
@@ -315,7 +315,7 @@ def test_custom_factors():
                                  jnp.asarray(z),
                                  jnoise.robust(jnoise.isotropic(3, 0.5),
                                                "huber"))
-    assert tfactors.se3_route(tb) is None
+    assert tfactors.kernel_route(tb) is None
     txs = (SE3(T.R[op], T.t[op]), _t(pts)[ol])
     jxs = (_jse3(txs[0]), jnp.asarray(pts[ol]))
     tA, tbv = tfactors.linearize(tb, txs)
