@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # full run: needs one NVIDIA card
     python3 chip_smoke.py --quick    # build + kernel checks + a small BA only
+    python3 chip_smoke.py --qr       # build + the QR, dogleg and NCG phases
 
 Phases (each one raises on failure; the script exits 0 only if all pass):
   1. the card's name and power limit (nvidia-smi) and torch's device name;
@@ -58,7 +59,17 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      POSE2_BIG), then kernels 6-9 on a 60-pose Manhattan world whose plan
      has levels of odd W*d and of odd R*d at d = 3 and on an SE2 + Point2
      graph, as on the sphere (NaN-filled outputs, level extras, fill, bad
-     pivot), and a small 2D LM on the card against the CPU;
+     pivot), and a small 2D LM on the card against the CPU; kernel 6's
+     Jacobian mode (pg_jacobians, pg2_jacobians) on seeded batches under
+     each noise kind, Huber and constrained noise, and kernel 12
+     (sn_front_qr) against its plain version level by level, NaN-filled
+     outputs, twice for the same bits, on the small sphere and the
+     60-pose Manhattan world (odd W*d and R*d) and the SE3 + Point3 graph
+     at lam 0 and 1 and on the
+     small sphere without its prior (ok false, the plain badcol); the
+     sparse QR LM on a 1,000-pose 2D graph, the dense QR under
+     Gauss-Newton (with and without a hard prior) and dogleg on a
+     300-pose 2D graph, each on the card against the CPU;
   4. the main paths: gtsam_torch.sfm.ba.ba_optimize at the Ladybug-1723
      shape (make_bal_problem(1723, 150000, 4, seed=0)) with bench.py's LM
      settings, (a) float64 and (b) mixed precision (dtype=float32,
@@ -95,7 +106,13 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      make_fused_lm on SparseSolver(refine_iters=1)), twice, held to the JAX
      optimum x 1.0001 (TARGET_STANDIN) with the same bits, every kernel's
      launches counted exactly (kernel 6's Pose2 variant, no SE3 one, no
-     generic linearization);
+     generic linearization); then on the sphere, from its chordal start:
+     LM on SparseSolver(method="qr") (sphere_qr: the JAX QR run's optimum
+     x 1.0001 and TARGET_SPHERE, twice for the same bits, kernel 12 once
+     a level a try, no generic linearization), dogleg (sphere_dogleg: the
+     JAX dogleg's iterations, its history at 1e-9, one factorization an
+     iteration, twice for the same bits) and nonlinear CG (sphere_ncg: 25
+     iterations, the JAX history at 1e-6, monotone);
   5. each kernel against its plain version again at the Ladybug shape, on
      the converged state (same tolerances), then its time (CUDA events)
      beside the plain version's time and its bound from this run's shapes,
@@ -127,7 +144,13 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      version and timed the same way (kernel 6's Pose2 rows, the others as
      rows "[d=3]"), kernel 6's Pose2 variant at POSE2_BIG factors, per
      level the front kernel and the Schur update at d = 3, and a 2D try by
-     stage (JSON `w10000_standin`);
+     stage (JSON `w10000_standin`); kernel 12 per level of the sphere's
+     QR at lam 1 on sphere_qr's converged state, by events and device
+     time beside its bound (at the card and at the level's S-SM share),
+     torch.linalg.qr of the same fronts (the library yardstick) and the
+     plain version, a QR factorization against a Cholesky one, and kernel
+     6's Jacobian mode on the sphere's and the 2D QR run's batches (JSON
+     `sphere_qr`, `sphere_dogleg`, `sphere_ncg`);
   6. one profiled run of each main path: device busy time by kernel (no
      cuSOLVER potrf, no trsv/trsm and no tril kernel may appear, and
      kernels 10 and 11 must), and the rows of the full-matrix passes (mul,
@@ -139,7 +162,8 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      pivot check, and no cuBLAS product, potrf or trsm), and one profiled
      robust-huber run (kernel 6's linearize and error, no generic
      linearization); then the same two traces of the stand-in (its path:
-     busy and idle share; its factorization).
+     busy and idle share; its factorization); and one traced QR solve
+     (kernel 12 once a level; no geqrf, cuSOLVER or torch.linalg.qr).
 The last three lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}.  Imports neither JAX nor gtsam_tpu.
 """
@@ -1092,11 +1116,13 @@ PG_TOL = {"pg_linearize": (1e-12, 1e-10), "pg_error": 1e-12,
           "sn_pivot_check": 0.0,
           "sn_schur_update": (1e-10, 1e-10),
           "sn_forward": 1e-10, "sn_backward": 1e-10,
-          "sn_matvec": 1e-12}
+          "sn_matvec": 1e-12,
+          "pg_jacobians": 1e-12, "pg2_jacobians": 1e-12}
 PG_SOLVE_TOL_SMALL_LAM = 1e-8
 # kernels that check_pg_kernels also calls twice for the same bits
 REPEAT_CHECKED = ("sn_front_factor", "sn_pivot_check", "sn_schur_update",
-                  "pg_linearize", "pg_error", "pg2_linearize", "pg2_error")
+                  "pg_linearize", "pg_error", "pg2_linearize", "pg2_error",
+                  "pg_jacobians", "pg2_jacobians")
 # kernel 6's synthetic batches (phase 3; the largest also timed in phase 5):
 # SE3_BIG between factors over SE3_POSES poses, and of its Pose2 variant
 # POSE2_BIG over POSE2_POSES
@@ -1301,8 +1327,8 @@ class PGCase:
         """The pose-graph kernels this case has calls of: kernel 6's
         variants of the groups its batches hold, and kernels 7-9."""
         from gtsam_torch.linear import supernodal_kernels as K
-        return [n for n in K.KERNELS
-                if n not in K6_GROUP or self.k6_batches(K6_GROUP[n])]
+        return [n for n in K.KERNELS if n not in QR_KERNELS and (
+            n not in K6_GROUP or self.k6_batches(K6_GROUP[n]))]
 
     def _levels(self):
         import torch
@@ -1413,6 +1439,9 @@ class PGCase:
 # kernel 6's variants, by the group of the batches each takes
 K6_GROUP = {"pg_linearize": "SE3", "pg_error": "SE3",
             "pg2_linearize": "SE2", "pg2_error": "SE2"}
+# the kernels of the QR path alone (kernel 6's Jacobian mode, kernel 12):
+# the Cholesky paths launch none of them, and PGCase does not check them
+QR_KERNELS = ("pg_jacobians", "pg2_jacobians", "sn_front_qr")
 
 
 def _k6_rows(base):
@@ -1436,6 +1465,17 @@ def k6_calls(name, batches):
                         lambda r, a: (r,)))
             continue
         N, arity = _k6_rows(base).shape
+        if name.endswith("_jacobians"):
+            # the Jacobian mode: the rows of every slot, NaN-filled, each
+            # written in full (rmax the group's rdim)
+            r = 6 if name == "pg_jacobians" else 3
+
+            def mkj(base=base, N=N, arity=arity, d=d, la=la, r=r):
+                return base[:-1] + la[:2] + (torch.full(
+                    (N, arity, r, d), float("nan"), dtype=torch.float64,
+                    device="cuda"),)
+            out.append((mkj, lambda r, a: (a[-1],)))
+            continue
 
         def mk(base=base, flip=flip, N=N, arity=arity, d=d, la=la):
             nan = float("nan")
@@ -2154,7 +2194,7 @@ def sphere_main_path():
     # every pose-graph kernel but the Pose2 variant of kernel 6, which an
     # SE3 graph never launches
     for name, n in a["launches"].items():
-        if (n <= 0) != (K6_GROUP.get(name) == "SE2"):
+        if (n <= 0) != (K6_GROUP.get(name) == "SE2" or name in QR_KERNELS):
             raise AssertionError(f"kernel {name} was launched {n} times on "
                                  "the sphere path")
     # kernel 8: one forward and one backward launch per solve (two a try:
@@ -2434,7 +2474,7 @@ def outlier_main_paths(laps=50, per_lap=50):
             raise AssertionError(f"{label}: kernels 6, 8 and 9 launched "
                                  f"{got}, not {want}, or {generic} generic "
                                  "linearizations ran")
-        if any((n <= 0) != (K6_GROUP.get(k) == "SE2")
+        if any((n <= 0) != (K6_GROUP.get(k) == "SE2" or k in QR_KERNELS)
                for k, n in launches.items() if k not in want):
             raise AssertionError(f"{label}: a pose-graph kernel was not "
                                  f"launched, or kernel 6's Pose2 variant "
@@ -3244,9 +3284,10 @@ def profile_robust(outl):
         "launches": sum(r[2] for r in rows),
         "by_kernel_ms": [[k[:80], ms, c] for k, ms, c in rows[:24]]}}))
     # kernel 6's instantiations: <true> with the loss branch (the closure
-    # batch), <false> without (the odometry and the prior)
+    # batch), <false> without (the odometry and the prior); linearize's
+    # second flag (the Jacobian mode) is false on this path
     k6 = {f"{n}<{b}>": sum(c for k, _, c in rows
-                           if f"{n}_kernel<{b}>" in k)
+                           if f"{n}_kernel<{b}" in k)
           for n in ("pg_linearize", "pg_error") for b in ("true", "false")}
     generic = factors.GENERIC_LINEARIZATIONS[0]
     log(f"  robust-huber: kernel 6 in the trace {k6}; generic "
@@ -3563,13 +3604,710 @@ def profile_factorize(main, path="sphere"):
                              f"{library}")
 
 
+# -- the rest of the optimizers and the multifrontal QR -----------------------
+
+# `python3 scripts/port_optimizers_reference.py` (gtsam_tpu on the CPU,
+# float64) on the sphere stand-in from the chordal start: fused LM with
+# SparseSolver(method="qr", refine_iters=1, force_width=32) and QR_LM
+# converged in 3 iterations and 3 tries; dogleg with SPHERE_SOLVER and
+# DOGLEG in 8 iterations (one factorization each here, ten tries at most);
+# nonlinear CG ran NCG_ITERATIONS iterations.
+QR_LM = dict(max_iterations=30, error_tol=0.0, relative_error_tol=1e-7,
+             absolute_error_tol=1e-9, lambda_policy="gtsam")
+QR_SOLVER = dict(method="qr", refine_iters=1,
+                 supernodal_kwargs=dict(force_width=32))
+DOGLEG = dict(max_iterations=30, error_tol=0.0, relative_error_tol=1e-7,
+              absolute_error_tol=1e-9)
+NCG_ITERATIONS = 25
+SPHERE_QR_REF = {"iterations": 3, "tries": 3,
+                 "history": [31083.377014146037, 7338.089142460061,
+                             7283.316700234342, 7283.316670501323],
+                 "final_half_chi2": 7283.316670501323}
+SPHERE_DOGLEG_REF = {
+    "iterations": 8,
+    "history": [31083.377014146037, 17104.00099292139, 14289.508058209138,
+                12320.580584477584, 9979.125658195699, 7567.2530123306615,
+                7283.331607319364, 7283.316670515755, 7283.316670500461],
+    "final_half_chi2": 7283.316670500461}
+SPHERE_NCG_REF = {
+    "iterations": 25,
+    "history": [31083.377014146037, 19410.917052564313, 18814.717086754856,
+                16070.319063766008, 15390.262835397712, 15066.776354671025,
+                14885.739509215457, 14783.6048434729, 14737.766911128509,
+                13856.891143030387, 13790.780388416917, 13651.80265652482,
+                13412.65625327387, 13295.206191463552, 12518.173127212853,
+                12467.537161608167, 12392.714014600802, 12340.15275755486,
+                12300.614792488721, 12271.844596731813, 12252.959437653026,
+                12244.198078625135, 12123.927888017968, 12100.149142688022,
+                12062.674507595717, 11999.057308964608],
+    "final_half_chi2": 11999.057308964608}
+# kernel 12 against its plain version (torch.linalg.qr of the same gather,
+# LAPACK's blocked Householder in another order): R is unique once its
+# diagonal is positive, and two backward-stable QRs of a front differ by
+# its condition number times the rounding; at lam = 1 (every level of the
+# sphere, the small graphs) 1e-10 of the level's largest entry, as kernel
+# 7 is held at lam = 1; at lam = 0 (the damping rows zero) the fronts'
+# conditioning is the graph's own: 1e-8, as kernel 7 at lam = 1e-4.  The
+# tile inverses invert those factors' tiles: the same tolerances; the
+# records exactly; the solution x = (R^T R)^-1 g of kernel 8 on the two
+# factors: the same tolerances.
+QR_TOL = {1.0: 1e-10, 0.0: 1e-8}
+# the Armijo search's decisions make NCG's history; the card's and the
+# CPU's float64 gradients differ by rounding, so its history is held at
+# 1e-6 relative and dogleg's (a factorization an iteration, no search) at
+# 1e-9
+DOGLEG_HIST_TOL = 1e-9
+NCG_HIST_TOL = 1e-6
+# the 2D graphs of the QR path's card-against-CPU runs
+POSE2_QR_POSES, POSE2_QR_EDGES = 1000, 3000
+DENSE_QR_POSES, DENSE_QR_EDGES = 300, 600
+
+
+def jacobian_mode_checks():
+    """Phase 3 of kernel 6's Jacobian mode (pg_jacobians, pg2_jacobians) on
+    seeded synthetic batches against the plain versions at PG_TOL, twice
+    for the same bits: between and prior factors (a CTA's worth plus one,
+    store widths the group's rdim and wider) under unit, diagonal and
+    gaussian noise, one model for the batch and one a factor; constrained
+    noise (shared and per factor); and the gaussian batches under Huber."""
+    from gtsam_torch.linear import supernodal_kernels as K
+    for group, Batches, name, r in (("SE3", SE3Batches, "pg_jacobians", 6),
+                                    ("SE2", Pose2Batches, "pg2_jacobians",
+                                     3)):
+        sizes = [(40, K.LINEARIZE_FACTORS + 1, 2, r), (40, 33, 2, r + 3),
+                 (40, 17, 1, r)]
+        for kind, scope in (("unit", False), ("diagonal", False),
+                            ("diagonal", True), ("gaussian", False),
+                            ("gaussian", True)):
+            case = Batches([size + (kind, scope) for size in sizes])
+            check_pg_kernels(case, f"{group} jacobians {kind} "
+                             f"{'per-factor' if scope else 'shared'}", [name])
+            if kind == "gaussian" and scope:
+                check_pg_kernels(Batches(batches=with_loss(
+                    case.batches, loss_args("huber"))),
+                    f"{group} jacobians huber", [name])
+        check_pg_kernels(Batches(batches=[
+            constrained_batch(arity, shared, k, group=group)
+            for k, (arity, shared) in enumerate(
+                ((2, True), (2, False), (1, True), (1, False)))]),
+            f"{group} jacobians constrained", [name])
+
+
+def qr_plain_chain(s, pool, lam):
+    """The plain versions' multifrontal QR of `pool` on supernodal solver s,
+    level after level with their own R_sep buffer: per level (Lt, Pt,
+    tiles, records), the state and the solution of g by kernel 8's plain
+    versions."""
+    import torch
+    from gtsam_torch.linear import supernodal_kernels as K
+    qp, dv = s._qr_plan(), s.dev
+    rsep = torch.zeros_like(qp.rsep)
+    out, recs = [], []
+    for lv, ql in zip(dv.levels, qp.levels):
+        rec = torch.empty(ql.S, dtype=torch.int32, device="cuda")
+        tiles = torch.empty((lv.tiles.stop - lv.tiles.start, K.TILE, K.TILE),
+                            dtype=torch.float64, device="cuda")
+        Lt, Pt = K.sn_front_qr_plain(pool, ql, lv.valid_diag, lv.col_vars,
+                                     qp.roff, qp.rld, rsep, lam, rec, tiles)
+        out.append((Lt, Pt, tiles, rec))
+        recs.append(rec)
+    state = torch.empty(2, dtype=torch.int32, device="cuda")
+    K.sn_pivot_check_plain(torch.cat(recs), state)
+    return out, state
+
+
+def check_front_qr(s, pool, g, lam, label, expect_ok=True):
+    """Kernel 12 on supernodal solver s against its plain version, level by
+    level on the same inputs (the children's R_sep the kernel wrote): its
+    records exactly; where the factorization is sound its R's frontal
+    block and panel, its tile inverses and R_sep^T R_sep of the R_sep it
+    passes up (R_sep itself is unique only up to its rows past the
+    separator block's rank) at QR_TOL[lam] of the largest entry, each
+    output written whole
+    (NaN-filled first) and a second launch giving the same bits; then
+    factorize_qr's (ok, badcol) against the plain chain's, and, when sound,
+    the solution of g through kernel 8 against the plain versions'.
+    Returns the max abs err of the level outputs."""
+    import torch
+    from gtsam_torch.linear import supernodal_kernels as K
+    qp, dv = s._qr_plan(), s.dev
+    tol = QR_TOL[lam]
+    qp.rsep.fill_(float("nan"))
+    worst_rel, worst_abs = 0.0, 0.0
+    for lv, ql in zip(dv.levels, qp.levels):
+        rsep_p = qp.rsep.clone()
+        nt = lv.tiles.stop - lv.tiles.start
+        outs = []
+        for rep in range(2):
+            rec = torch.full((ql.S,), -7, dtype=torch.int32, device="cuda")
+            tiles = torch.full((nt, K.TILE, K.TILE), float("nan"),
+                               dtype=torch.float64, device="cuda")
+            Lt, Pt = K.sn_front_qr(pool, ql, lv.valid_diag, lv.col_vars,
+                                   qp.roff, qp.rld, qp.rsep, lam, rec, tiles,
+                                   1e-10, qp.scratch)
+            lo = int(s._qr.roff[ql.front0]) if ql.R else 0
+            hi = lo + ql.S * (ql.R * s.d) ** 2 if ql.R else 0
+            outs.append((Lt, Pt, tiles, rec, qp.rsep[lo:hi].clone()))
+        rec_p = torch.empty(ql.S, dtype=torch.int32, device="cuda")
+        tiles_p = torch.empty_like(tiles)
+        Lt_p, Pt_p = K.sn_front_qr_plain(pool, ql, lv.valid_diag,
+                                         lv.col_vars, qp.roff, qp.rld,
+                                         rsep_p, lam, rec_p, tiles_p)
+        torch.cuda.synchronize()
+        a, b = outs
+        same = all(x is None or torch.equal(x, y) for x, y in zip(a, b))
+        if not same:
+            raise AssertionError(f"kernel 12 ({label}): two launches on the "
+                                 "same inputs differ")
+        if not torch.equal(a[3], rec_p):
+            raise AssertionError(f"kernel 12 ({label}): records {a[3]} != "
+                                 f"{rec_p}")
+        if not expect_ok:
+            continue
+        pairs = [(a[0], Lt_p), (a[2], tiles_p)]
+        if ql.R:
+            # R_sep is unique only up to the rows past the separator
+            # block's rank (a front with few rows, a padded dimension's
+            # all-zero column): it is held by R_sep^T R_sep, which is
+            Rd = ql.R * s.d
+            rk, rp = a[4].view(ql.S, Rd, Rd), rsep_p[lo:hi].view(ql.S, Rd,
+                                                                 Rd)
+            pairs += [(a[1], Pt_p), (rk.mT @ rk, rp.mT @ rp)]
+        for got, ref in pairs:
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"kernel 12 ({label}): an output is not "
+                                     "written whole or not finite")
+            err = float((got - ref).abs().max())
+            worst_abs = max(worst_abs, err)
+            worst_rel = max(worst_rel, err / float(ref.abs().max()))
+    f = s.factorize_qr(pool, lam)
+    chain, state = qr_plain_chain(s, pool, lam)
+    got = [int(bool(f.ok)), int(f.badcol)]
+    log(f"check {label} sn_front_qr: {len(qp.levels)} levels, max rel err "
+        f"{worst_rel:.3e} (tol {tol:.0e}), max abs err {worst_abs:.3e}; "
+        f"(ok, badcol) card {got}, plain {state.tolist()}")
+    if not worst_rel <= tol or got != state.tolist():
+        raise AssertionError(f"kernel 12 disagrees with its plain version "
+                             f"({label})")
+    if expect_ok != bool(got[0]):
+        raise AssertionError(f"kernel 12 ({label}): ok {got[0]}, expected "
+                             f"{expect_ok}")
+    if expect_ok:
+        x = s._solve_padded(f, g)
+        levels = K.level_table([c[0].mT for c in chain],
+                               [None if c[1] is None else c[1].mT
+                                for c in chain], s.d)
+        Linv = torch.cat([c[2] for c in chain])
+        y, c = K.sn_forward_plain(g, levels, Linv, s.dev.sol_cols,
+                                  s.dev.gat_ptr, s.dev.gat_seg,
+                                  s.dev.gat_src, torch.empty_like(s.dev.sol_y),
+                                  torch.empty_like(s.dev.sol_c))
+        xp = K.sn_backward_plain(y, levels, Linv, s.dev.sol_cols,
+                                 s.dev.sol_rows, torch.empty_like(x))
+        err = float((x - xp).abs().max() / xp.abs().max())
+        log(f"  {label}: the solve on kernel 12's factor against the plain "
+            f"versions' {err:.3e} (tol {tol:.0e})")
+        if not err <= tol:
+            raise AssertionError(f"the solve on kernel 12's factor "
+                                 f"({label}): {err}")
+    return worst_abs
+
+
+def qr_case(graph, vals, **sn_kw):
+    """(supernodal solver on the card, its Jacobian pool, g and the
+    arrays on the card) of a graph at its values."""
+    from gtsam_torch.graph.graph import BoundGraph
+    from gtsam_torch.linear.supernodal import SupernodalCholeskySolver
+    v = vals.to("cuda")
+    s = SupernodalCholeskySolver(BoundGraph(graph, v, "cuda"), **sn_kw)
+    _, g = s.system(v.arrays)
+    return s, s.jacobian_pool(v.arrays), g, v.arrays
+
+
+def qr_small_checks():
+    """Phase 3 of the QR path: kernel 6's Jacobian mode
+    (jacobian_mode_checks); kernel 12 against its plain version
+    (check_front_qr) on the small sphere (SE3), the 60-pose Manhattan
+    world (d = 3, levels of odd W d and R d) and the SE3 + Point3 graph
+    (the generic rows in the pool, the landmarks' padded dimensions) at
+    lam 0 and 1, and on the
+    small sphere without its prior at lam 0 (rank deficient: ok false and
+    the plain version's badcol); the pool of kernel 6's Jacobian mode
+    against the plain pool; then the small card-against-CPU runs: the
+    sparse QR LM on a 1,000-pose 2D graph (kernel 6's Pose2 Jacobian
+    mode on a main path), the dense QR under Gauss-Newton on a 300-pose
+    2D graph, with and without a hard prior, and dogleg on the
+    constrained one."""
+    import torch
+    from gtsam_torch.base import losses, noise
+    from gtsam_torch.graph import factors
+    from gtsam_torch.graph.graph import FactorGraph
+    from gtsam_torch.linear import supernodal_kernels as K
+    from gtsam_torch.optimize import optimizers as O
+    jacobian_mode_checks()
+    sph, sph_vals, _, _ = sphere_graph(6, 8, radius=10.0, sigma_t=0.1,
+                                       sigma_r=0.05, seed=1)
+    man, man_vals = manhattan_graph(60, 150, seed=3)
+    mix, mix_vals = mixed_graph()
+    for label, (g, v) in {"small sphere": (sph, sph_vals),
+                          "manhattan 60": (man, man_vals),
+                          "mixed": (mix, mix_vals)}.items():
+        s, pool, gv, arrays = qr_case(g, v, force_width=4, max_width=8)
+        odd_w, odd_r = odd_levels(s)
+        log(f"qr case {label}: d {s.d}, levels (S, W*d, R*d) "
+            f"{[(lp.S, lp.W * s.d, lp.R * s.d) for lp in s.level_plans]}, "
+            f"rows a front {[q.mmax for q in s._qr.levels]}")
+        if label == "manhattan 60" and not (odd_w and odd_r):
+            raise AssertionError("the small 2D graph's plan has no level of "
+                                 "odd W*d or of odd R*d")
+        # the pool of kernel 6's Jacobian mode against the plain pool
+        ref = torch.zeros_like(pool)
+        for bi, b in enumerate(s.bound.graph.batches):
+            N, arity = b.num_factors, b.arity
+            view = ref[s._g_base[bi]:s._g_base[bi] + N * arity].view(
+                N, arity, pool.shape[1], s.d)
+            route = factors.kernel_route(b)
+            if route is None:     # the generic rows: the same torch code
+                s.bound.jacobian_rows(bi, arrays, view)
+                continue
+            fn = K.pg_jacobians_plain if route[0] == "SE3" \
+                else K.pg2_jacobians_plain
+            fn(*K.group_args(route[0], arrays,
+                             s.bound.structures[bi].rows_i32, b),
+               b.noise.kind, b.noise.data,
+               *losses.kernel_code(b.noise.loss), out=view)
+        err = float((pool - ref).abs().max() / ref.abs().max())
+        log(f"  {label}: the Jacobian pool against the plain pool {err:.3e}")
+        if not err <= 1e-12:
+            raise AssertionError(f"the Jacobian pool ({label}): {err}")
+        for lam in (0.0, 1.0):
+            check_front_qr(s, pool, gv, lam, f"{label} lam={lam}")
+    # no prior: the gauge is free, the last front's last pivots vanish
+    free = FactorGraph([b for b in sph.batches if b.arity == 2])
+    s, pool, gv, _ = qr_case(free, sph_vals, force_width=4, max_width=8)
+    check_front_qr(s, pool, gv, 0.0, "small sphere without its prior",
+                   expect_ok=False)
+    # card against CPU: the sparse QR LM on a 2D graph
+    g2, v2 = manhattan_graph(POSE2_QR_POSES, POSE2_QR_EDGES, seed=5)
+    p = O.LMParams(**QR_LM)
+    res, fns = {}, {}
+    for dev in ("cuda", "cpu"):
+        fn = fns[dev] = O.make_fused_lm(
+            g2, v2, p, solver=O.SparseSolver(**QR_SOLVER), device=dev)
+        if dev == "cuda":
+            out, launches, generic, _, wall = _run_counted(
+                lambda: fn(v2.arrays))
+        else:
+            out = fn(v2.arrays)
+        res[dev] = out
+    fn = fns["cuda"]
+    it, _, err, conv, hist, tries = res["cuda"]
+    d = abs(err - res["cpu"][2]) / res["cpu"][2]
+    log(f"pose2 QR LM ({POSE2_QR_POSES} poses): card {err!r} cpu "
+        f"{res['cpu'][2]!r} rel diff {d:.3e}; iterations/tries card "
+        f"{(it, tries)} cpu {res['cpu'][0], res['cpu'][5]}; launches "
+        f"{launches}; generic linearizations {generic}; wall {wall:.3f} s")
+    nlev = len(fn.solver._s.level_plans)
+    if not (d <= 1e-9 and (it, tries) == (res["cpu"][0], res["cpu"][5])
+            and launches["pg2_jacobians"] == len(g2.batches) * it
+            and launches["sn_front_qr"] == nlev * tries and not generic
+            and launches["sn_front_factor"] == 0):
+        raise AssertionError("the 2D QR LM on the card disagrees with the CPU"
+                             " or launched other kernels")
+    pose2_qr = dict(launches=launches, it=it, tries=tries, err=err,
+                    wall=wall, fn=fn, vals0=v2)
+    # the dense QR under Gauss-Newton, with and without a hard prior, and
+    # dogleg on the constrained graph
+    g3, v3 = manhattan_graph(DENSE_QR_POSES, DENSE_QR_EDGES, seed=7)
+    hard = FactorGraph(g3.batches[:-1] + [dataclasses.replace(
+        g3.batches[-1], noise=noise.constrained_all(3))])
+    for label, graph, run in (
+            ("dense QR gauss-newton", g3, lambda gr, dev: O.gauss_newton(
+                gr, v3, O.OptimizerParams(max_iterations=10),
+                solver=O.DenseQRSolver(), device=dev)),
+            ("dense QR gauss-newton, hard prior", hard,
+             lambda gr, dev: O.gauss_newton(
+                 gr, v3, O.OptimizerParams(max_iterations=10),
+                 solver=O.DenseQRSolver(), device=dev)),
+            ("dogleg, hard prior", hard, lambda gr, dev: O.dogleg(
+                gr, v3, O.DoglegParams(max_iterations=20), device=dev))):
+        a, b = run(graph, "cuda"), run(graph, "cpu")
+        d = abs(a.error - b.error) / b.error
+        log(f"{label} ({DENSE_QR_POSES} poses, D = {3 * DENSE_QR_POSES}): "
+            f"card {a.error!r} cpu {b.error!r} rel diff {d:.3e}; "
+            f"iterations card {a.iterations} cpu {b.iterations}")
+        if not (d <= 1e-9 and a.iterations == b.iterations):
+            raise AssertionError(f"{label} on the card disagrees with the "
+                                 "CPU")
+    return pose2_qr
+
+
+def qr_main_path(sphere):
+    """Phase 4 of the QR path on the sphere stand-in (sphere_main_path's
+    graph and chordal start): fused LM with SparseSolver(**QR_SOLVER) and
+    QR_LM, twice: each run held to SPHERE_QR_REF's final half-chi2 x
+    1.0001 and TARGET_SPHERE, the two to the same bits, the first's
+    launches to exact counts (kernel 12 once a level a try, kernel 6's
+    Jacobian mode once a batch an iteration, no kernel 7 front and no
+    generic linearization)."""
+    import torch
+    from gtsam_torch import LMParams
+    from gtsam_torch.graph import factors
+    from gtsam_torch.optimize import optimizers as O
+    graph, vals0 = sphere["graph"], sphere["vals0"]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fn = O.make_fused_lm(graph, vals0, LMParams(**QR_LM),
+                         solver=O.SparseSolver(**QR_SOLVER), device="cuda")
+    fn.solver._s._qr_plan()
+    torch.cuda.synchronize()
+    plan_s = time.time() - t0
+    s = fn.solver._s
+    log(f"sphere QR plan: {plan_s:.3f} s (symbolic, Cholesky and QR plans); "
+        f"rows a front per level {[q.mmax for q in s._qr.levels]}; scratch "
+        f"{s._qr.scratch.numel() * 8 / 1e6:.1f} MB, R_sep "
+        f"{s._qr.rsep.numel() * 8 / 1e6:.1f} MB")
+    runs = [_run_counted(lambda: fn(vals0.arrays)) for _ in range(2)]
+    (it, arrays, err, conv, hist, tries), launches, generic, _, wall = runs[0]
+    target = min(TARGET_SPHERE, SPHERE_QR_REF["final_half_chi2"] * 1.0001)
+    log(f"sphere_qr: half-chi2 {[r[0][2] for r in runs]} (JAX QR run "
+        f"{SPHERE_QR_REF['final_half_chi2']!r}, target {target!r}; the "
+        f"sphere's Cholesky optimum {TARGET_SPHERE / 1.0001!r}) in {it} "
+        f"iterations, {tries} tries, converged {conv}, wall "
+        f"{[r[4] for r in runs]} s")
+    log(f"  history {hist[:it + 1].tolist()}")
+    log(f"  launches {launches}; generic linearizations {generic}")
+    for r in runs:
+        if not r[0][2] <= target:
+            raise AssertionError(f"sphere_qr did not reach {target}: "
+                                 f"{r[0][2]}")
+    same = all(torch.equal(r[0][4][:it + 1], hist[:it + 1])
+               and _same_arrays(r[0][1], arrays) for r in runs[1:])
+    log(f"sphere_qr: two runs give the same bits: {same}")
+    if not same:
+        raise AssertionError("two runs of sphere_qr differ")
+    nlev = len(s.level_plans)
+    nb = len(graph.batches)
+    want = {"pg_jacobians": nb * it, "pg_linearize": nb * it,
+            "pg_assemble": it, "pg_error": nb * (tries + 1),
+            "sn_front_qr": nlev * tries, "sn_pivot_check": tries,
+            "sn_forward": 2 * tries, "sn_backward": 2 * tries,
+            "sn_matvec": tries, "sn_front_factor": 0, "sn_schur_update": 0,
+            "pg2_jacobians": 0}
+    got = {k: launches[k] for k in want}
+    log(f"sphere_qr: launches {got} (expected {want})")
+    if got != want or generic:
+        raise AssertionError(f"sphere_qr launched {got}, not {want}, or "
+                             f"{generic} generic linearizations")
+    return dict(fn=fn, solver=fn.solver, graph=graph, vals0=vals0,
+                arrays=arrays, it=it, tries=tries, err=[r[0][2] for r in runs],
+                hist=hist[:it + 1].tolist(), launches=launches,
+                wall=[r[4] for r in runs], plan_s=plan_s)
+
+
+def dogleg_main_path(sphere):
+    """Phase 4 of dogleg on the sphere stand-in: dogleg with
+    SparseSolver(**SPHERE_SOLVER) (bound once beforehand, so the runs'
+    walls leave the plan out) and DOGLEG from the chordal start, twice:
+    held to the JAX dogleg (SPHERE_DOGLEG_REF: its iterations, its history
+    at DOGLEG_HIST_TOL, its final half-chi2 x 1.0001) and to TARGET_SPHERE,
+    the two runs to the same bits, one factorization (kernel 7's pivot
+    check) an iteration."""
+    import torch
+    from gtsam_torch.graph.graph import BoundGraph
+    from gtsam_torch.optimize import optimizers as O
+    graph, vals0 = sphere["graph"], sphere["vals0"]
+    # the plan apart: a solver bound once keeps it (rebind)
+    t0 = time.time()
+    solver = O.SparseSolver(**SPHERE_SOLVER).bind(
+        BoundGraph(graph, vals0.to("cuda"), "cuda"))
+    plan_s = time.time() - t0
+    runs = [_run_counted(lambda: O.dogleg(
+        graph, vals0, O.DoglegParams(**DOGLEG), solver=solver,
+        device="cuda")) for _ in range(2)]
+    res, launches, generic, _, wall = runs[0]
+    ref = SPHERE_DOGLEG_REF
+    rel = max(abs(a - b) / b for a, b in zip(res.history, ref["history"])) \
+        if len(res.history) == len(ref["history"]) else float("inf")
+    log(f"sphere_dogleg: half-chi2 {[r[0].error for r in runs]} (JAX "
+        f"{ref['final_half_chi2']!r}) in {res.iterations} iterations (JAX "
+        f"{ref['iterations']}), history {res.history}, max rel diff from the "
+        f"JAX history {rel:.3e} (tol {DOGLEG_HIST_TOL:.0e}); wall "
+        f"{[r[4] for r in runs]} s (the plan apart: {plan_s:.3f} s); "
+        f"launches {launches}")
+    target = min(TARGET_SPHERE, ref["final_half_chi2"] * 1.0001)
+    if not (res.iterations == ref["iterations"] and rel <= DOGLEG_HIST_TOL
+            and res.error <= target):
+        raise AssertionError("sphere_dogleg does not follow the JAX dogleg")
+    b = runs[1][0]
+    same = (b.history == res.history and _same_arrays(
+        b.values.arrays, res.values.arrays))
+    log(f"sphere_dogleg: two runs give the same bits: {same}; "
+        f"factorizations {launches['sn_pivot_check']} in {res.iterations} "
+        "iterations (one each)")
+    if not same or launches["sn_pivot_check"] != res.iterations or generic:
+        raise AssertionError("sphere_dogleg: the runs differ, or not one "
+                             "factorization an iteration")
+    return dict(iterations=res.iterations, history=res.history,
+                err=[r[0].error for r in runs], wall=[r[4] for r in runs],
+                plan_s=plan_s, launches=launches, max_rel_diff_jax=rel)
+
+
+def ncg_main_path(sphere):
+    """Phase 4 of nonlinear CG on the sphere stand-in: NCG_ITERATIONS
+    iterations from the chordal start (no tolerance stops it), held to the
+    JAX history (SPHERE_NCG_REF) at NCG_HIST_TOL and to a monotone
+    history; the gradient on kernel 6 and its assembly (no generic
+    linearization, no dense H)."""
+    from gtsam_torch.optimize import optimizers as O
+    graph, vals0 = sphere["graph"], sphere["vals0"]
+    res, launches, generic, _, wall = _run_counted(
+        lambda: O.nonlinear_conjugate_gradient(
+            graph, vals0, O.OptimizerParams(
+                max_iterations=NCG_ITERATIONS, relative_error_tol=0.0,
+                absolute_error_tol=0.0, error_tol=0.0), device="cuda"))
+    ref = SPHERE_NCG_REF["history"]
+    flips = [k for k, (a, b) in enumerate(zip(res.history, ref))
+             if abs(a - b) / b > NCG_HIST_TOL]
+    rel = max(abs(a - b) / b for a, b in zip(res.history, ref))
+    mono = all(b <= a for a, b in zip(res.history, res.history[1:]))
+    log(f"sphere_ncg: {res.iterations} iterations, half-chi2 {res.error!r} "
+        f"(JAX {SPHERE_NCG_REF['final_half_chi2']!r}), max rel diff from the "
+        f"JAX history {rel:.3e} (tol {NCG_HIST_TOL:.0e}; iterations beyond "
+        f"it {flips}), monotone {mono}, wall {wall:.3f} s "
+        f"({wall / max(res.iterations, 1):.4f} s an iteration); launches "
+        f"{launches}; generic linearizations {generic}")
+    if flips or not mono or len(res.history) != len(ref) or generic \
+            or launches["pg_assemble"] != res.iterations + 1:
+        raise AssertionError("sphere_ncg does not follow the JAX history, "
+                             "or its gradient left kernel 6")
+    return dict(iterations=res.iterations, history=res.history,
+                err=res.error, wall=wall, s_per_iteration=wall
+                / max(res.iterations, 1), launches=launches,
+                max_rel_diff_jax=rel)
+
+
+def qr_work(s, ql):
+    """(bytes that must move, FP64 operations) of kernel 12 on one level:
+    the pool rows, the children's R_sep and the plan read once, R's blocks,
+    R_sep, the tile inverses and the records written once; Householder QR
+    of each front's true rows, 2 m C^2 - 2 C^3 / 3 (m >= C; 2 C m^2 - 2
+    m^3 / 3 otherwise)."""
+    import numpy as np
+    d = s.d
+    Wd, Rd = ql.W * d, ql.R * d
+    C = Wd + Rd
+    m = ql.m.cpu().numpy().astype(np.float64)
+    k = np.minimum(m, C)
+    flops = float(np.sum(2 * np.maximum(m, C) * k * k - 2 * k ** 3 / 3))
+    rows_in = float(np.sum(ql.srows.cpu().numpy())) * d * 8
+    child = float(np.sum((ql.cr.cpu().numpy() * d) ** 2)) * 8 / 2
+    out = ql.S * (Wd * Wd / 2 + Wd * Rd + Rd * Rd / 2 + -(-Wd // 32)
+                  * 1024) * 8 + ql.S * 4
+    return rows_in + child + out, flops
+
+
+def qr_level_times(qr, ms_fn):
+    """Phase 5 of kernel 12, per level of the sphere's QR at lam = 1 on the
+    converged state: its launch by events and device time beside its bound
+    (at the card, and at the level's S-SM share) and the library yardstick
+    torch.linalg.qr(front, mode="r") over the same level's fronts (the
+    plain gather outside the timing), one call on the batch padded to the
+    level's most rows and, beside it, calls on the fronts grouped by their
+    true row counts (kernel 12 touches only those), with the padded share
+    of the batch's rows; the plain version's time; and a QR factorization
+    against a Cholesky one at lam 1e-3.  Returns (the levels' rows, the
+    kernel's row of the kernels line)."""
+    import numpy as np
+    import torch
+    from gtsam_torch.linear import supernodal_kernels as K
+    s = qr["solver"]._s
+    arrays = qr["arrays"]
+    blocks, g = s.system(arrays)
+    pool = s.jacobian_pool(arrays)
+    qp, dv = s._qr_plan(), s.dev
+    err = check_front_qr(s, pool, g, 1.0, "sphere lam=1")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, tot = [], {}
+    s.factorize_qr(pool, 1.0)    # every level's children's R_sep in place
+    for lv, ql in zip(dv.levels, qp.levels):
+        rec = torch.empty(ql.S, dtype=torch.int32, device="cuda")
+        tiles = torch.empty((lv.tiles.stop - lv.tiles.start, K.TILE, K.TILE),
+                            dtype=torch.float64, device="cuda")
+        args = (pool, ql, lv.valid_diag, lv.col_vars, qp.roff, qp.rld,
+                qp.rsep, 1.0, rec, tiles, 1e-10, qp.scratch)
+        front = K._qr_fronts(pool, ql, lv.valid_diag, qp.roff, qp.rld,
+                             qp.rsep, 1.0)
+        nbytes, flops = qr_work(s, ql)
+        # the FP64 tensor cores' rate, as kernel 7's fronts are bounded
+        bnd, by = bound_ms(nbytes, flops)
+        rsep_p = qp.rsep.clone()
+        # a front's rows as kernel 12 factors them (square at the least)
+        m = np.maximum(ql.m.cpu().numpy(), (ql.W + ql.R) * s.d)
+        groups = [(torch.as_tensor(np.nonzero(m == r)[0], device="cuda"),
+                   int(r)) for r in np.unique(m)]
+
+        def plain(args=args, rsep_p=rsep_p):
+            return K.sn_front_qr_plain(*args[:6], rsep_p, *args[7:11])
+
+        def lib(front=front):
+            return torch.linalg.qr(front, mode="r")
+
+        def lib_true(front=front, groups=groups):
+            return [torch.linalg.qr(front[i, :r], mode="r")
+                    for i, r in groups]
+        row = {"S": ql.S, "W": ql.W, "R": ql.R, "Wd": ql.W * s.d,
+               "Rd": ql.R * s.d, "rows_max": ql.mmax,
+               "ms": ms_fn(lambda: K.sn_front_qr(*args), reps=3, warmup=1),
+               "device_ms": device_ms(lambda: K.sn_front_qr(*args), reps=3),
+               "bound_ms": bnd, "bound_by": by,
+               "bound_sms_ms": bnd * sms / min(ql.S, sms),
+               "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+               "library_qr_ms": ms_fn(lib, reps=3, warmup=1),
+               "library_qr_device_ms": device_ms(lib, reps=3),
+               "padded_row_share": 1.0 - float(m.sum()) / (
+                   ql.S * front.shape[1]),
+               "library_true_rows_calls": len(groups),
+               "library_true_rows_ms": ms_fn(lib_true, reps=3, warmup=1),
+               "library_true_rows_device_ms": device_ms(lib_true, reps=3),
+               "plain_ms": ms_fn(plain, reps=1, warmup=1)}
+        for k in ("ms", "device_ms", "bound_ms", "bound_sms_ms",
+                  "library_qr_ms", "library_qr_device_ms",
+                  "library_true_rows_ms", "library_true_rows_device_ms",
+                  "plain_ms", "gflop"):
+            tot[k] = tot.get(k, 0.0) + row[k]
+        tot["bound_" + by] = tot.get("bound_" + by, 0.0) + bnd
+        log(f"qr level S {ql.S} W*d {row['Wd']} R*d {row['Rd']}: "
+            f"{json.dumps(row)}")
+        rows.append(row)
+        del front
+    f_qr = ms_fn(lambda: s.factorize_qr(pool, 1e-3), reps=3, warmup=1)
+    f_chol = ms_fn(lambda: s.factorize(blocks, 1e-3), reps=3, warmup=1)
+    log(f"qr levels, a factorization: {json.dumps(tot)}; a QR factorization "
+        f"{f_qr:.3f} ms against a Cholesky one {f_chol:.3f} ms (events)")
+    kern = K.KERNELS["sn_front_qr"]
+    krow = {"name": "sn_front_qr", "route": "cuda",
+            "source": f"gtsam_torch/csrc/{kern.source}.cu",
+            "replaces": kern.replaces,
+            "launches": qr["launches"]["sn_front_qr"], "max_abs_err": err,
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            # what bounds the larger part of the levels' summed bound
+            "bound_by": max(("bytes", "operations"),
+                            key=lambda b: tot.get("bound_" + b, 0.0)),
+            "library_ms": tot["library_qr_ms"],
+            "device_ms": tot["device_ms"],
+            "library_device_ms": tot["library_qr_device_ms"],
+            "library_true_rows_ms": tot["library_true_rows_ms"],
+            "library_true_rows_device_ms": tot["library_true_rows_device_ms"],
+            "bound_sms_ms": tot["bound_sms_ms"], "calls_timed": len(rows),
+            "factorize_qr_ms": f_qr, "factorize_cholesky_ms": f_chol}
+    return rows, krow
+
+
+def jacobian_kernel_rows(qr, pose2_qr, ms_fn):
+    """Phase 5 of kernel 6's Jacobian mode: on the sphere's converged state
+    (its between and prior batches) and on the 2D QR run's start (its
+    batches), every call against its plain version (check_pg_kernels),
+    timed by events and device time, with its bound (se3_work's or
+    se2_work's linearize, with A's rows in place of H and gv) and the
+    plain version's time: the rows of the kernels line, their launches
+    those of sphere_qr and of the 2D QR run."""
+    from gtsam_torch.base import losses
+    from gtsam_torch.linear import supernodal_kernels as K
+    out = []
+    for name, group, run, Batches, arrays in (
+            ("pg_jacobians", "SE3", qr, SE3Batches, qr["arrays"]),
+            ("pg2_jacobians", "SE2", pose2_qr, Pose2Batches,
+             pose2_qr["vals0"].to("cuda").arrays)):
+        bound = run["fn"].bound
+        s = run["fn"].solver._s
+        batches = [(K.group_args(group, arrays, st.rows_i32, b)
+                    + (b.noise.kind, b.noise.data, b.sign), None, s.d,
+                    losses.kernel_code(b.noise.loss) + (b.noise.mu,))
+                   for b, st in zip(bound.graph.batches, bound.structures)]
+        case = Batches(batches=batches)
+        errs = check_pg_kernels(case, f"{group} path jacobians", [name])
+        calls = [mk() for mk, _ in case.calls(name)]
+        kfn, pfn = getattr(K, name), getattr(K, name + "_plain")
+
+        def run_all(f, calls=calls):
+            for a in calls:
+                f(*a)
+        nbytes = flops = 0
+        work = se3_work if group == "SE3" else se2_work
+        r = 6 if group == "SE3" else 3
+        for base, _, d, _ in batches:
+            rows = _k6_rows(base)
+            b_, f_ = work("pg_linearize" if group == "SE3"
+                          else "pg2_linearize", rows, base[-2], d)
+            N, arity = rows.shape
+            npair = 3 if arity == 2 else 1
+            nbytes += b_ - N - N * (npair * d * d + arity * d) * 8 \
+                + N * arity * r * d * 8
+            flops += f_
+        bnd, by = bound_ms(nbytes, 0, flops)
+        kern = K.KERNELS[name]
+        row = {"name": name, "route": "cuda",
+               "source": f"gtsam_torch/csrc/{kern.source}.cu",
+               "replaces": kern.replaces, "launches": run["launches"][name],
+               "max_abs_err": errs[name],
+               "ms": ms_fn(lambda: run_all(kfn), reps=20),
+               "plain_ms": ms_fn(lambda: run_all(pfn), reps=3, warmup=1),
+               "bound_ms": bnd, "bound_by": by, "library_ms": None,
+               "device_ms": device_ms(lambda: run_all(kfn)),
+               "calls_timed": len(calls)}
+        log(f"time {name}: {json.dumps(row)}")
+        out.append(row)
+    return out
+
+
+def profile_qr_try(qr):
+    """Phase 6 of the QR path: one traced QR solve at the converged state
+    (a factorization and its refinement): kernel 12 once a level and no
+    geqrf, cuSOLVER or torch.linalg.qr, on the device or among the host's
+    operators."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    s = qr["solver"]._s
+    system = qr["solver"].system(qr["arrays"])
+    s.solve_qr(*system, 1e-3, 1)
+    torch.cuda.synchronize()
+    want = len(s.level_plans)
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            profiler_settle()
+            s.solve_qr(*system, 1e-3, 1)
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        dev_rows = [(e.key, e.count) for e in ev
+                    if str(e.device_type).endswith("CUDA")
+                    and e.self_device_time_total > 0
+                    and SETTLE_KERNEL not in e.key]
+        n12 = sum(c for k, c in dev_rows if "sn_front_qr_kernel" in k)
+        library = [e.key for e in ev if any(
+            w in e.key.lower() for w in ("geqrf", "cusolver", "linalg_qr",
+                                         "orgqr", "ormqr", "larfb"))]
+        log(f"  traced QR try: device kernels {[[k[:60], c] for k, c in dev_rows]}"
+            f"; kernel 12 {n12} (expected {want}); library QR {library}")
+        if library or n12 == want or n12 > want:
+            break
+        log(f"  the trace lost launches (attempt {attempt + 1}): again")
+    if library or n12 != want:
+        raise AssertionError(f"the traced QR try: kernel 12 {n12}, library "
+                             f"{library}")
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA card", file=sys.stderr)
         return 1
+    t_start = time.time()
     quick = "--quick" in argv
+    qr_only = "--qr" in argv
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
     from gtsam_torch import LMParams, _build, _kernels, native
@@ -3595,6 +4333,24 @@ def main(argv):
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+
+    if qr_only:
+        # the QR path, dogleg and NCG alone: their checks, main paths,
+        # times and trace
+        pose2_qr = qr_small_checks()
+        sphere = sphere_main_path()
+        qr = qr_main_path(sphere)
+        log(json.dumps({"sphere_dogleg": dogleg_main_path(sphere)}))
+        log(json.dumps({"sphere_ncg": ncg_main_path(sphere)}))
+        qr_levels, qr_row = qr_level_times(qr, cuda_ms)
+        jac_rows = jacobian_kernel_rows(qr, pose2_qr, cuda_ms)
+        profile_qr_try(qr)
+        log(json.dumps({"kernels": [qr_row] + jac_rows, "qr_only": True}))
+        log(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # -- 3. kernels against their plain versions, small problem -------------
     torch.manual_seed(0)
@@ -3667,6 +4423,7 @@ def main(argv):
     loss_branch_checks()
     robust_small_checks()
     pose2_small_checks()
+    pose2_qr = qr_small_checks()
 
     if quick:
         log(json.dumps({"kernels": [], "quick": True}))
@@ -3675,6 +4432,8 @@ def main(argv):
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
         return 0
+
+    log(f"phases 1-3 done at {time.time() - t_start:.1f} s")
 
     # -- 4. the main paths at the Ladybug-1723 shape -------------------------
     t0 = time.time()
@@ -3746,6 +4505,13 @@ def main(argv):
     outl = outlier_main_paths()
     # the 2D pose graph at w10000's size
     standin = standin_main_path()
+    # the rest of the optimizers on the sphere: LM on the sparse QR, dogleg
+    # and nonlinear CG
+    qr = qr_main_path(sphere)
+    dogleg_run = dogleg_main_path(sphere)
+    ncg_run = ncg_main_path(sphere)
+
+    log(f"phases 1-4 done at {time.time() - t_start:.1f} s")
 
     # -- 5. kernels against their plain versions, and timed, at the Ladybug
     # shape (the float64 path's converged state; lam = 1 as in phase 3, so
@@ -3876,6 +4642,20 @@ def main(argv):
         "ate_rmse": standin["ate"], "history": standin["hist"],
         "launches": r1["launches"], "stage_ms": pose2_stages,
         "levels": pose2_levels}}))
+    qr_levels, qr_row = qr_level_times(qr, cuda_ms)
+    jac_rows = jacobian_kernel_rows(qr, pose2_qr, cuda_ms)
+    log(json.dumps({"sphere_qr": {
+        "half_chi2": qr["err"], "jax": SPHERE_QR_REF,
+        "target": TARGET_SPHERE, "iterations": qr["it"],
+        "tries": qr["tries"], "history": qr["hist"], "plan_s": qr["plan_s"],
+        "wall_to_converged_s": qr["wall"],
+        "s_per_try": [w / qr["tries"] for w in qr["wall"]],
+        "launches": qr["launches"], "levels": qr_levels,
+        "factorize_qr_ms": qr_row["factorize_qr_ms"],
+        "factorize_cholesky_ms": qr_row["factorize_cholesky_ms"]}}))
+    log(json.dumps({"sphere_dogleg": dogleg_run | {
+        "jax": SPHERE_DOGLEG_REF, "target": TARGET_SPHERE}}))
+    log(json.dumps({"sphere_ncg": ncg_run | {"jax": SPHERE_NCG_REF}}))
     r1 = sphere["runs"][0]
     log(json.dumps({"sphere": {
         "half_chi2": [r["err"] for r in sphere["runs"]],
@@ -3888,6 +4668,8 @@ def main(argv):
         "history": r1["hist"][:r1["it"] + 1].tolist(),
         "launches": r1["launches"], "stage_ms": pg_stages,
         "levels": pg_levels}}))
+
+    log(f"phases 1-5 done at {time.time() - t_start:.1f} s")
 
     # -- 6. where the time goes: one traced run of each main path ------------
     from torch.profiler import ProfilerActivity, profile
@@ -3964,9 +4746,11 @@ def main(argv):
     profile_robust(outl)
     profile_sphere(standin, "w10000-standin")
     profile_factorize(standin, "w10000-standin")
+    profile_qr_try(qr)
 
+    log(f"phases 1-6 done at {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels + dense_rows + pg_kernels
-                    + robust_rows + pose2_rows}))
+                    + robust_rows + pose2_rows + [qr_row] + jac_rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -366,10 +366,13 @@ __device__ __forceinline__ void copy_async8(double* dst, const double* src) {
 }
 
 // kLoss: the batch has a loss (the IRLS branch); the loss-free
-// instantiation is the code of kernel 6 without the branch
-template <bool kLoss>
+// instantiation is the code of kernel 6 without the branch.  kJac: the
+// Jacobian mode (the QR path's): each lane writes its whitened (and
+// reweighted) Jacobian M into H, read as the pool rows (N, arity, rmax, d),
+// and the launch ends there; the Gram mode (kJac false) is unchanged.
+template <bool kLoss, bool kJac = false>
 __global__ void __launch_bounds__(kLinThreads) pg_linearize_kernel(
-    int N, int arity, int d, const double* __restrict__ R,
+    int N, int arity, int d, int rmax, const double* __restrict__ R,
     const double* __restrict__ t, const int* __restrict__ rows,
     const double* __restrict__ ZR, const double* __restrict__ Zt, int kind,
     int stride, const double* __restrict__ noise, double sign, int loss,
@@ -464,6 +467,16 @@ __global__ void __launch_bounds__(kLinThreads) pg_linearize_kernel(
 #pragma unroll
       for (int i = 0; i < 6; ++i) s[2 * kSlot + i] = -wr[i];
     }
+  }
+  if constexpr (kJac) {
+    // slot `slot`'s rows 0..5 of the pool, zero past column 6
+    if (forms) {
+      double* o = H + ((k * arity + slot) * rmax) * d;
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+        for (int j = 0; j < d; ++j) o[i * d + j] = j < 6 ? M[6 * i + j] : 0.0;
+    }
+    return;
   }
   __syncwarp();
 
@@ -684,12 +697,38 @@ GT_EXPORT int gt_pg_linearize(int N, int arity, int d, const double* R,
   const cudaStream_t st = (cudaStream_t)stream;
   if (N > 0 && loss != kLossNone)
     pg_linearize_kernel<true><<<grid, kLinThreads, 0, st>>>(
-        N, arity, d, R, t, rows, ZR, Zt, kind, stride, noise, sign, loss,
+        N, arity, d, 0, R, t, rows, ZR, Zt, kind, stride, noise, sign, loss,
         lparam, flip, H, gv);
   else if (N > 0)
     pg_linearize_kernel<false><<<grid, kLinThreads, 0, st>>>(
-        N, arity, d, R, t, rows, ZR, Zt, kind, stride, noise, sign, loss,
+        N, arity, d, 0, R, t, rows, ZR, Zt, kind, stride, noise, sign, loss,
         lparam, flip, H, gv);
+  return (int)cudaGetLastError();
+}
+
+// The Jacobian mode: A (N x arity x rmax x d), slot s of factor n's rows
+// 0..5 written (zero past column 6), rmax >= 6, 6 <= d <= 12; no sign (the
+// QR factors the rows themselves).
+GT_EXPORT int gt_pg_jacobians(int N, int arity, int d, int rmax,
+                              const double* R, const double* t,
+                              const int* rows, const double* ZR,
+                              const double* Zt, int kind, int stride,
+                              const double* noise, int loss, double lparam,
+                              double* A, void* stream) {
+  if (d < 6 || d > kMaxD || rmax < 6 || loss < kLossNone ||
+      loss > kLossDeadZone)
+    return (int)cudaErrorInvalidValue;
+  if (kind == kConstrained) kind = 1;   // hard rows whiten to 0
+  const int grid = (N + kLinFactors - 1) / kLinFactors;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (N > 0 && loss != kLossNone)
+    pg_linearize_kernel<true, true><<<grid, kLinThreads, 0, st>>>(
+        N, arity, d, rmax, R, t, rows, ZR, Zt, kind, stride, noise, 1.0,
+        loss, lparam, nullptr, A, nullptr);
+  else if (N > 0)
+    pg_linearize_kernel<false, true><<<grid, kLinThreads, 0, st>>>(
+        N, arity, d, rmax, R, t, rows, ZR, Zt, kind, stride, noise, 1.0,
+        loss, lparam, nullptr, A, nullptr);
   return (int)cudaGetLastError();
 }
 

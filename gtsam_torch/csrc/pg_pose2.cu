@@ -187,10 +187,13 @@ __device__ __forceinline__ void gram(const double* P, const double* Q,
 }
 
 // kLoss: the batch has a loss (the IRLS branch); the loss-free
-// instantiation runs code without it
-template <bool kLoss>
+// instantiation runs code without it.  kJac: the Jacobian mode (the QR
+// path's): each lane writes its factor's whitened (and reweighted)
+// Jacobians into H, read as the pool rows (N, arity, rmax, d), and the
+// launch ends there; the Gram mode (kJac false) is unchanged.
+template <bool kLoss, bool kJac = false>
 __global__ void __launch_bounds__(kP2Factors) pg2_linearize_kernel(
-    int N, int arity, int d, const double* __restrict__ x,
+    int N, int arity, int d, int rmax, const double* __restrict__ x,
     const int* __restrict__ rows, const double* __restrict__ Z, int kind,
     int stride, const double* __restrict__ noise, double sign, int loss,
     double lparam, const unsigned char* __restrict__ flip,
@@ -222,13 +225,13 @@ __global__ void __launch_bounds__(kP2Factors) pg2_linearize_kernel(
     double b[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) b[i] = -(wr[i] * sw);
-    double* o = sOut + lane * kP2Out;
+    double M0[9];
     if (arity == 2) {
       // A_i = -R_w Jr^-1 Ad(P)
       double s, c;
       sincos(P.th, &s, &c);
       const double Ad[9] = {c, -s, P.y, s, c, -P.x, 0.0, 0.0, 1.0};
-      double JA[9], M0[9];
+      double JA[9];
 #pragma unroll
       for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -240,6 +243,22 @@ __global__ void __launch_bounds__(kP2Factors) pg2_linearize_kernel(
 #pragma unroll
         for (int i = 0; i < 9; ++i) M0[i] *= sw;
       }
+    }
+    double* o = sOut + lane * kP2Out;
+    if constexpr (kJac) {
+      // slot arity - 1 takes M1, slot 0 of a between factor M0; rows 0..2
+      // of the pool, zero past column 3
+      double* a = H + k * arity * rmax * d;
+      double* a1 = a + (arity - 1) * rmax * d;
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < d; ++j) a1[i * d + j] = j < 3 ? M1[3 * i + j] : 0.0;
+      if (arity == 2) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          for (int j = 0; j < d; ++j) a[i * d + j] = j < 3 ? M0[3 * i + j] : 0.0;
+      }
+    } else if (arity == 2) {
       gram(M0, M0, sign, false, o);
       gram(M0, M1, sign, flip[k] != 0, o + 9);
       gram(M1, M1, sign, false, o + 18);
@@ -255,6 +274,7 @@ __global__ void __launch_bounds__(kP2Factors) pg2_linearize_kernel(
         o[27 + i] = sign * (M1[i] * b[0] + M1[3 + i] * b[1] + M1[6 + i] * b[2]);
     }
   }
+  if constexpr (kJac) return;
   __syncwarp();
 
   // the CTA's spans of H and gv, in order, a lane an entry: entry e of the
@@ -349,12 +369,36 @@ GT_EXPORT int gt_pg2_linearize(int N, int arity, int d, const double* x,
   const cudaStream_t st = (cudaStream_t)stream;
   if (N > 0 && loss != kLossNone)
     pg2_linearize_kernel<true><<<grid, kP2Factors, 0, st>>>(
-        N, arity, d, x, rows, Z, kind, stride, noise, sign, loss, lparam,
+        N, arity, d, 0, x, rows, Z, kind, stride, noise, sign, loss, lparam,
         flip, H, gv);
   else if (N > 0)
     pg2_linearize_kernel<false><<<grid, kP2Factors, 0, st>>>(
-        N, arity, d, x, rows, Z, kind, stride, noise, sign, loss, lparam,
+        N, arity, d, 0, x, rows, Z, kind, stride, noise, sign, loss, lparam,
         flip, H, gv);
+  return (int)cudaGetLastError();
+}
+
+// The Jacobian mode: A (N x arity x rmax x d), slot s of factor n's rows
+// 0..2 written (zero past column 3), rmax >= 3, 3 <= d <= 12; no sign.
+GT_EXPORT int gt_pg2_jacobians(int N, int arity, int d, int rmax,
+                               const double* x, const int* rows,
+                               const double* Z, int kind, int stride,
+                               const double* noise, int loss, double lparam,
+                               double* A, void* stream) {
+  if (d < 3 || d > kMaxD || rmax < 3 || loss < kLossNone ||
+      loss > kLossDeadZone)
+    return (int)cudaErrorInvalidValue;
+  if (kind == kConstrained) kind = 1;   // hard rows whiten to 0
+  const int grid = (N + kP2Factors - 1) / kP2Factors;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (N > 0 && loss != kLossNone)
+    pg2_linearize_kernel<true, true><<<grid, kP2Factors, 0, st>>>(
+        N, arity, d, rmax, x, rows, Z, kind, stride, noise, 1.0, loss,
+        lparam, nullptr, A, nullptr);
+  else if (N > 0)
+    pg2_linearize_kernel<false, true><<<grid, kP2Factors, 0, st>>>(
+        N, arity, d, rmax, x, rows, Z, kind, stride, noise, 1.0, loss,
+        lparam, nullptr, A, nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -135,6 +135,60 @@ class BoundGraph:
         b, st = self.graph.batches[i], self.structures[i]
         return factors_mod.linearize(b, self._xs(b, st, arrays))
 
+    def contributions(self, bi, arrays, H, gv, flips):
+        """Batch bi's Gram blocks and gradient rows, as the supernodal
+        assembly takes them: sign A_s1^T A_s2 of each slot pair (s1 <= s2)
+        into H (N, npair, d*d), the (s1, s2) block transposed where
+        flips[pair] says so, and sign A_s^T b into gv (N, arity, d), zero
+        outside each block's leading dims x dims.  Kernel 6 for the SE3
+        and SE2 batches it routes (factors.kernel_route), the generic
+        linearization for the others."""
+        from ..linear import supernodal_kernels as sk
+        b, st = self.graph.batches[bi], self.structures[bi]
+        N, arity = b.num_factors, b.arity
+        d = gv.shape[-1]
+        route = factors_mod.kernel_route(b)
+        if route is not None:
+            group = route[0]
+            flip = flips[1] if arity == 2 else flips[0]
+            sk.LINEARIZE[group](*sk.group_args(group, arrays, st.rows_i32, b),
+                                b.noise.kind, b.noise.data, b.sign, flip, H,
+                                gv, *losses.kernel_code(b.noise.loss))
+            return
+        wJ, bvec = self.linearize_batch(bi, arrays)
+        dims = b.dims()
+        H.zero_()
+        gv.zero_()
+        Hv = H.view(N, -1, d, d)
+        pairs = [(s1, s2) for s1 in range(arity) for s2 in range(s1, arity)]
+        for p, (s1, s2) in enumerate(pairs):
+            Hij = b.sign * torch.einsum("nri,nrj->nij", wJ[s1], wJ[s2])
+            Hij = torch.nn.functional.pad(Hij, (0, d - dims[s2],
+                                                0, d - dims[s1]))
+            Hv[:, p] = torch.where(flips[p][:, None, None],
+                                   Hij.transpose(1, 2), Hij)
+        for s in range(arity):
+            gv[:, s, :dims[s]] = b.sign * torch.einsum("nrd,nr->nd", wJ[s],
+                                                       bvec)
+
+    def jacobian_rows(self, bi, arrays, out):
+        """Batch bi's whitened Jacobian rows A_s into out (N, arity, rmax,
+        d): rows rdim.. and columns past each slot's dims zero (kernel 6 in
+        its Jacobian mode leaves rows rdim.. unwritten)."""
+        from ..linear import supernodal_kernels as sk
+        b, st = self.graph.batches[bi], self.structures[bi]
+        route = factors_mod.kernel_route(b)
+        if route is not None:
+            group = route[0]
+            sk.JACOBIANS[group](*sk.group_args(group, arrays, st.rows_i32, b),
+                                b.noise.kind, b.noise.data,
+                                *losses.kernel_code(b.noise.loss), out)
+            return
+        wJ, _ = self.linearize_batch(bi, arrays)
+        out.zero_()
+        for s, Js in enumerate(wJ):
+            out[:, s, :Js.shape[1], :Js.shape[2]] = Js
+
     def linearize(self, arrays):
         """Per-batch whitened (A, b) blocks; list of (wJ tuple, b)."""
         return [self.linearize_batch(i, arrays)
@@ -194,7 +248,92 @@ class BoundGraph:
                              J[i][n_t, r_t, :], accumulate=True)
         return C, c
 
+    def _gradient_plan(self):
+        """The sparse gradient's plan, built once: the contribution buffer
+        (factor-major per batch, a d-row per factor slot, as the
+        supernodal system's), the sorted CSR of its rows by variable in the
+        canonical order (stable: a variable's rows summed in (batch,
+        factor, slot) order), and the flat index of each tangent entry in
+        the (n, d) sum."""
+        if getattr(self, "_grad", None) is not None:
+            return self._grad
+        from . import manifolds
+        lay, dev = self.layout, self.device
+        dims, var0 = [], {}
+        for t in lay.type_order:
+            var0[t] = len(dims)
+            dims += [manifolds.get(t).dim] * len(lay.offsets[t])
+        n, dims = len(dims), np.asarray(dims, np.int64)
+        d = int(dims.max()) if n else 1
+        tgt, base, hbase, gb, hb = [], [], [], 0, 0
+        for b, st in zip(self.graph.batches, self.structures):
+            ids = np.stack([var0[t] + np.asarray(st.rows[s]) for s, t in
+                            enumerate(b.var_types)], axis=1)
+            base.append(gb)
+            hbase.append(hb)
+            tgt.append(ids.reshape(-1))
+            gb += ids.size
+            hb += b.num_factors * b.arity * (b.arity + 1) // 2
+        tgt = np.concatenate(tgt) if tgt else np.zeros(0, np.int64)
+        ptr = np.concatenate([[0], np.cumsum(np.bincount(tgt, minlength=n))])
+        flat = (np.repeat(np.arange(n) * d, dims)
+                + np.arange(int(dims.sum())) - np.repeat(
+                    np.cumsum(dims) - dims, dims))
+
+        def i32(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.int32,
+                                   device=dev)
+        empty = i32(np.zeros(0))
+        # sign * mu of each hard row of constraint_system
+        mu = [np.zeros(0)] + [
+            np.full(len(n_idx), self.graph.batches[bi].sign
+                    * self.graph.batches[bi].noise.mu)
+            for bi, n_idx, _, _ in self._constraints]
+        self._grad = dict(
+            n=n, d=d, base=base, hbase=hbase, ngc=gb, nhc=hb,
+            g_src=i32(np.argsort(tgt, kind="stable")), g_ptr=i32(ptr),
+            flat=torch.as_tensor(flat, dtype=torch.long, device=dev),
+            flips=[[torch.zeros(b.num_factors, dtype=torch.bool,
+                                device=dev)] * (b.arity * (b.arity + 1) // 2)
+                   for b in self.graph.batches],
+            pad=torch.zeros((n, d), dtype=torch.float64, device=dev),
+            empty=empty, ptr0=i32([0]),
+            hc0=torch.zeros((0, d * d), dtype=torch.float64, device=dev),
+            mu=torch.as_tensor(np.concatenate(mu), dtype=torch.float64,
+                               device=dev))
+        return self._grad
+
     def gradient(self, arrays):
-        """The gradient of the half-chi2 at `arrays` (-g of gn_system)."""
-        _, g = self.gn_system(arrays)
-        return -g
+        """The gradient of the half-chi2 at `arrays` (-g of gn_system),
+        flat in the canonical layout, without H: each batch's gradient rows
+        sign A_s^T b (kernel 6 for the batches it routes, the generic
+        linearization for the others; contributions), summed per variable
+        in a fixed order by kernel 6's assembly (pg_assemble over no
+        blocks: its g half)."""
+        from ..linear import supernodal_kernels as sk
+        gp = self._gradient_plan()
+        d, dev = gp["d"], self.device
+        hc = torch.empty((gp["nhc"], d * d), dtype=torch.float64, device=dev)
+        gc = torch.empty((gp["ngc"], d), dtype=torch.float64, device=dev)
+        for bi, b in enumerate(self.graph.batches):
+            N, arity = b.num_factors, b.arity
+            npair = arity * (arity + 1) // 2
+            h0, g0 = gp["hbase"][bi], gp["base"][bi]
+            self.contributions(
+                bi, arrays, hc[h0:h0 + N * npair].view(N, npair, d * d),
+                gc[g0:g0 + N * arity].view(N, arity, d), gp["flips"][bi])
+        e = gp["empty"]
+        _, g = sk.pg_assemble(gp["hc0"], gc, e, gp["ptr0"], e, e,
+                              gp["g_src"], gp["g_ptr"], gp["pad"], 1)
+        return -g.reshape(-1)[gp["flat"]]
+
+    def error_gradient(self, arrays):
+        """The gradient of error(arrays): gradient, plus on a graph with
+        hard rows the gradient sign mu C^T r of their penalty 0.5 mu r^2
+        (the whitened rows give them weight 0; C and c = -r from
+        constraint_system)."""
+        g = self.gradient(arrays)
+        if not self.num_constraints:
+            return g
+        C, c = self.constraint_system(arrays)
+        return g - C.T @ (self._gradient_plan()["mu"] * c)

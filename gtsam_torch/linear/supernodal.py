@@ -36,10 +36,16 @@ exact-zero terms.  system(arrays, out=store) writes T's rows of a store
 that is zero outside T and leaves the rest alone: SparseSolver owns one
 such store, zeroed once, and every iteration assembles into it.
 
+  QR:        the multifrontal QR of the whitened Jacobian (factorize_qr):
+             kernel 6's Jacobian mode writes each factor slot's rows into
+             a pool, and kernel 12, a launch a level, gathers and factors
+             every front of the level (its R_sep rows go up to the
+             parent); R^T takes L's place in kernel 8's solves.
+
 Every kernel has a plain PyTorch version (supernodal_kernels.py) that the
-CPU runs.  The multifrontal QR and the two-float refinement of the JAX
-package (matvec_df, solve_refined_df) are not ported: the card refines in
-native float64 (solve_refined).
+CPU runs.  The two-float refinement of the JAX package (matvec_df,
+solve_refined_df) is not ported: the card refines in native float64
+(solve_refined, solve_qr).
 
 A failed factorization: jnp.linalg.cholesky fills a failed front with NaN
 and the JAX SparseSolver solves on with a zeroed factor, so the step's
@@ -55,8 +61,6 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..base import losses
-from ..graph import factors as factors_mod
 from ..graph import manifolds
 from ..graph.graph import BoundGraph
 from ..inference import ordering as ordering_mod
@@ -588,38 +592,15 @@ class SupernodalCholeskySolver:
         bound = self.bound
         hc = torch.empty((self._n_hc, d * d), dtype=F64, device=self.device)
         gc = torch.empty((self._n_gc, d), dtype=F64, device=self.device)
-        for bi, (b, st) in enumerate(zip(bound.graph.batches,
-                                         bound.structures)):
+        for bi, b in enumerate(bound.graph.batches):
             N, arity = b.num_factors, b.arity
             npair = len(_slot_pairs(arity))
-            H = hc[self._h_base[bi]:self._h_base[bi] + N * npair].view(
-                N, npair, d * d)
-            gv = gc[self._g_base[bi]:self._g_base[bi] + N * arity].view(
-                N, arity, d)
-            flips = dv.flips[bi]
-            route = factors_mod.kernel_route(b)
-            if route is not None:
-                group = route[0]
-                flip = flips[1] if arity == 2 else flips[0]
-                K.LINEARIZE[group](*K.group_args(group, arrays, st.rows_i32,
-                                                 b),
-                                   b.noise.kind, b.noise.data, b.sign, flip,
-                                   H, gv, *losses.kernel_code(b.noise.loss))
-                continue
-            wJ, bvec = bound.linearize_batch(bi, arrays)
-            dims = b.dims()
-            H.zero_()
-            gv.zero_()
-            Hv = H.view(N, npair, d, d)
-            for p, (s1, s2) in enumerate(_slot_pairs(arity)):
-                Hij = b.sign * torch.einsum("nri,nrj->nij", wJ[s1], wJ[s2])
-                Hij = torch.nn.functional.pad(Hij, (0, d - dims[s2],
-                                                    0, d - dims[s1]))
-                Hv[:, p] = torch.where(flips[p][:, None, None],
-                                       Hij.transpose(1, 2), Hij)
-            for s in range(arity):
-                gv[:, s, :dims[s]] = b.sign * torch.einsum("nrd,nr->nd",
-                                                           wJ[s], bvec)
+            bound.contributions(
+                bi, arrays,
+                hc[self._h_base[bi]:self._h_base[bi] + N * npair].view(
+                    N, npair, d * d),
+                gc[self._g_base[bi]:self._g_base[bi] + N * arity].view(
+                    N, arity, d), dv.flips[bi])
         return K.pg_assemble(hc, gc, dv.asm_src, dv.asm_ptr, dv.asm_blk,
                              dv.asm_diag, dv.g_src, dv.g_ptr, dv.pad_diag,
                              self.B + 1, out)
@@ -714,6 +695,155 @@ class SupernodalCholeskySolver:
         blocks, g = self.system(arrays)
         return self.solve_refined(blocks, g, lam, diagonal_damping,
                                   refine_iters)[0]
+
+    # -- multifrontal QR ----------------------------------------------------
+    #
+    # The JAX package's sparse EliminateQR (supernodal.py:642-845): per
+    # level, each front is [its factors' whitened Jacobian rows | its
+    # children's R_sep rows | sqrt(lam) on the true diagonal, 1 on the
+    # padding] over the Cholesky level plan's [W d frontal | R d separator]
+    # columns; its R's frontal block and panel take the places of L^T and
+    # Lp^T, and its R_sep goes up to the parent.  Kernel 8 then solves
+    # R^T R x = g as it solves L L^T x = g.  A factor belongs to the front
+    # of its first variable in the elimination order.
+
+    def _qr_plan(self):
+        """Kernel 12's plan (supernodal_kernels.QRLevel per level), the pool
+        layout of kernel 6's Jacobian rows (the contribution buffer's: a
+        slot a factor's variable, factor-major per batch), the R_sep buffer
+        and the fronts' scratch, built on the host at the first QR call and
+        kept on the device."""
+        if getattr(self, "_qr", None) is not None:
+            return self._qr
+        sym, d = self.sym, self.d
+        front_id, W_of = {}, {}
+        for lp in self.level_plans:
+            for sid in lp.snodes:
+                front_id[int(sid)] = len(front_id)
+                W_of[int(sid)] = lp.W
+
+        def pos(sn, pcol):
+            c0, w = int(sym.snode_start[sn]), int(sym.snode_width[sn])
+            if c0 <= pcol < c0 + w:
+                return pcol - c0
+            return W_of[sn] + int(np.searchsorted(sym.snode_rows[sn], pcol))
+
+        batches = self.bound.graph.batches
+        rmax = max([1] + [int(b.rdim) for b in batches])
+        slots = [[] for _ in range(sym.nsuper)]   # (pool id, pos, rdim)
+        for bi, (b, ids) in enumerate(zip(batches, self.batch_var_ids)):
+            pcols = sym.inv_perm[ids]
+            smin = sym.snode_of[pcols.min(axis=1)]
+            base = self._g_base[bi]
+            for i in range(ids.shape[0]):
+                sn = int(smin[i])
+                slots[sn].append([(base + i * ids.shape[1] + a,
+                                   pos(sn, int(pcols[i, a])), int(b.rdim))
+                                  for a in range(ids.shape[1])])
+        children = [[] for _ in range(sym.nsuper)]
+        for c in range(sym.nsuper):
+            if sym.snode_parent[c] >= 0:
+                children[int(sym.snode_parent[c])].append(c)
+        nfront = len(front_id)
+        rld = np.zeros(nfront, np.int32)
+        for lp in self.level_plans:
+            for sid in lp.snodes:
+                rld[front_id[int(sid)]] = lp.R * d
+        roff = np.concatenate([[0], np.cumsum(rld.astype(np.int64) ** 2)])
+        levels, front0, fmax = [], 0, 0
+        for lp in self.level_plans:
+            S, W, R = lp.S, lp.W, lp.R
+            m, sptr, spool, spos, srow0, srows = [], [0], [], [], [], []
+            cptr, crow0, cr, cfront, mptr, cmap = [0], [], [], [], [0], []
+            for sid in lp.snodes:
+                sid = int(sid)
+                row = 0
+                for fac in slots[sid]:
+                    for pid, p, r in fac:
+                        spool.append(pid)
+                        spos.append(p)
+                        srow0.append(row)
+                        srows.append(r)
+                    row += fac[0][2]
+                sptr.append(len(spool))
+                for c in children[sid]:
+                    rows_c = sym.snode_rows[c]
+                    crow0.append(row)
+                    cr.append(len(rows_c))
+                    cfront.append(front_id[c])
+                    cmap.extend(pos(sid, int(pc)) for pc in rows_c)
+                    mptr.append(len(cmap))
+                    row += len(rows_c) * d
+                cptr.append(len(cr))
+                m.append(row + W * d)
+            ql = K.qr_level(S, W, R, d, front0, m, sptr, spool, spos, srow0,
+                            srows, cptr, crow0, cr, cfront, mptr, cmap,
+                            self.device)
+            levels.append(ql)
+            front0 += S
+            fmax = max(fmax, ql.fsize)
+        dev = self.device
+        self._qr = types.SimpleNamespace(
+            levels=levels, rmax=rmax,
+            roff=torch.as_tensor(roff[:-1], dtype=torch.int64, device=dev),
+            rld=torch.as_tensor(rld, device=dev),
+            rsep=torch.empty(int(roff[-1]), dtype=F64, device=dev),
+            scratch=torch.empty(fmax if dev.type == "cuda" else 0,
+                                dtype=F64, device=dev))
+        return self._qr
+
+    def jacobian_pool(self, arrays):
+        """The whitened Jacobian rows of every factor slot (P, rmax, d), in
+        the pool layout of _qr_plan: kernel 6's Jacobian mode for the
+        batches it routes, the generic linearization for the others."""
+        qp = self._qr_plan()
+        pool = torch.empty((self._n_gc, qp.rmax, self.d), dtype=F64,
+                           device=self.device)
+        for bi, b in enumerate(self.bound.graph.batches):
+            N, arity = b.num_factors, b.arity
+            self.bound.jacobian_rows(
+                bi, arrays, pool[self._g_base[bi]:self._g_base[bi]
+                                 + N * arity].view(N, arity, qp.rmax,
+                                                   self.d))
+        return pool
+
+    def factorize_qr(self, pool, lam=0.0, pivot_tol=1e-10) -> Factored:
+        """The multifrontal QR of the whitened Jacobian rows `pool`
+        (jacobian_pool) and sqrt(lam) damping rows, kernel 12 a level, as a
+        Factored whose L = R^T (its diagonal non-negative): solve_factored,
+        the refinement and kernel 8 take it as they take the Cholesky
+        factor.  ok / badcol: every true pivot |R_kk| finite and above
+        pivot_tol / the first bad one's permuted column, the first failing
+        level's first (front, column), or -1 (kernel 7's pivot check over
+        kernel 12's records)."""
+        qp, dv = self._qr_plan(), self.dev
+        rec = torch.empty(dv.fronts, dtype=I32, device=self.device)
+        tiles = torch.empty((int(self.tile_off[-1]), K.TILE, K.TILE),
+                            dtype=F64, device=self.device)
+        Ls, Lps = [], []
+        for lv, ql in zip(dv.levels, qp.levels):
+            Lt, Pt = K.sn_front_qr(
+                pool, ql, lv.valid_diag, lv.col_vars, qp.roff, qp.rld,
+                qp.rsep, lam, rec[ql.front0:ql.front0 + ql.S],
+                tiles[lv.tiles], pivot_tol, qp.scratch)
+            Ls.append(Lt.mT)
+            Lps.append(None if Pt is None else Pt.mT)
+        state = torch.empty(2, dtype=I32, device=self.device)
+        K.sn_pivot_check(rec, state)
+        return Factored(K.level_table(Ls, Lps, self.d), state[0] == 1,
+                        state[1], tiles)
+
+    def solve_qr(self, blocks, g, pool, lam=0.0, refine_iters: int = 0):
+        """QR-factorize and solve R^T R x = g, with refine_iters float64
+        refinement passes against kernel 9's (H + lam) x on the block store
+        (blocks, g from system()): (flat delta in the canonical layout,
+        ok)."""
+        factored = self.factorize_qr(pool, lam)
+        x = self._solve_padded(factored, g)
+        for _ in range(refine_iters):
+            r = g - self.matvec(blocks, x, lam)
+            x = x + self._solve_padded(factored, r)
+        return self._flatten(x), factored.ok
 
     def check_system(self, arrays, lam=0.0):
         """Factorize and raise IndeterminantLinearSystemError on a bad

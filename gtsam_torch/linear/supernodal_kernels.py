@@ -84,6 +84,15 @@ KERNELS = _kernels.table(
     Kernel("sn_matvec", "sn_matvec", "sn_matvec",
            "gtsam_tpu/linear/supernodal.py:456",
            [INT] * 2 + [P] * 10 + [DBL, INT, DBL, DBL, P]),
+    Kernel("pg_jacobians", "pg_between", "pg_jacobians",
+           "gtsam_tpu/linear/supernodal.py:769",
+           [INT] * 4 + [P] * 5 + [INT, INT, P, INT, DBL, P]),
+    Kernel("pg2_jacobians", "pg_pose2", "pg2_jacobians",
+           "gtsam_tpu/linear/supernodal.py:769",
+           [INT] * 4 + [P] * 3 + [INT, INT, P, INT, DBL, P]),
+    Kernel("sn_front_qr", "sn_qr", "sn_front_qr",
+           "gtsam_tpu/linear/supernodal.py:800",
+           [INT] * 7 + [P] * 18 + [DBL, DBL] + [P] * 6),
 )
 
 
@@ -160,27 +169,44 @@ def _whitened(r, J, kind, noise, loss, param):
     return A, -wr
 
 
-def pg_jacobians_plain(R, t, rows, ZR, Zt, kind, noise, loss=0, param=0.0):
+def _jacobian_rows(A, out):
+    """Whitened Jacobians A (a tuple over slots of (N, k, k)) into `out`
+    (N, arity, rmax, d): slot s's k rows, zero past column k; rows k..rmax
+    are left as they are."""
+    k = A[0].shape[-1]
+    d = out.shape[-1]
+    for s, As in enumerate(A):
+        out[:, s, :k] = torch.nn.functional.pad(As, (0, d - k))
+    return out
+
+
+def pg_jacobians_plain(R, t, rows, ZR, Zt, kind, noise, loss=0, param=0.0,
+                       out=None):
     """Whitened Jacobians (A_0[, A_1]) (N, 6, 6) and b = -R_w r (N, 6) of
     SE3 between (arity 2) or prior (arity 1) factors, in closed form: with
     r = Log(Z^-1 T_i^-1 T_j), A_j = R_w Jr^-1(r) and
     A_i = -R_w Jr^-1(r) Ad(T_j^-1 T_i); a prior has A = R_w Jr^-1(r).
     `loss` (a code of base/losses.py, 0: none) with its parameter scales
-    both by sqrt(w(||R_w r||)) after the whitening (IRLS)."""
+    both by sqrt(w(||R_w r||)) after the whitening (IRLS).  With `out`
+    (N, arity, rmax, d): the A rows written into it as pg_jacobians writes
+    them, and `out` returned."""
     r, Tji = _residual_plain(R, t, rows, ZR, Zt)
     Jinv = se3.right_jacobian_inverse(r)
     J = (Jinv,) if Tji is None else (-(Jinv @ se3.adjoint(Tji)), Jinv)
-    return _whitened(r, J, kind, noise, loss, param)
+    A, b = _whitened(r, J, kind, noise, loss, param)
+    return (A, b) if out is None else _jacobian_rows(A, out)
 
 
-def pg2_jacobians_plain(x, rows, Z, kind, noise, loss=0, param=0.0):
+def pg2_jacobians_plain(x, rows, Z, kind, noise, loss=0, param=0.0,
+                        out=None):
     """pg_jacobians_plain of SE2 factors ((N, 3, 3) and (N, 3)), with SE(2)'s
     Jr^-1 and adjoint (geometry/se2.py), in the tangent order [vx, vy,
     w]."""
     r, P = _residual2_plain(x, rows, Z)
     Jinv = se2.right_jacobian_inverse(r)
     J = (Jinv,) if P is None else (-(Jinv @ se2.adjoint(P)), Jinv)
-    return _whitened(r, J, kind, noise, loss, param)
+    A, b = _whitened(r, J, kind, noise, loss, param)
+    return (A, b) if out is None else _jacobian_rows(A, out)
 
 
 def _blocks_plain(A, b, sign, flip, H, gv):
@@ -323,6 +349,48 @@ def pg2_linearize(x, rows, Z, kind, noise, sign, flip, H, gv, loss=0,
                                     float(param), ptr(flip), ptr(H), ptr(gv))
 
 
+def _jacobian_launch(name, spec, group_rdim, args, loss, param, out):
+    dev, code, stride, nptr = spec
+    N, arity, rmax, d = out.shape
+    if d < group_rdim or rmax < group_rdim:
+        raise ValueError(f"{name}: rows of {rmax} x {d} hold no "
+                         f"{group_rdim} x {group_rdim} Jacobian")
+    KERNELS[name].launch(dev, N, arity, d, rmax, *map(ptr, args), code,
+                         stride, nptr, int(loss), float(param), ptr(out))
+    return out
+
+
+def pg_jacobians(R, t, rows, ZR, Zt, kind, noise, loss, param, out):
+    """Kernel 6, Jacobian rows (the QR path's output mode of pg_linearize):
+    each SE3 between or prior factor's whitened Jacobians A_s (6 x 6, under
+    a loss scaled by sqrt(w), as pg_linearize scales them; no sign) into
+    out[n, s, :6] ((N, arity, rmax, d), zero past column 6; rows 6..rmax
+    are not written).  Arguments as pg_linearize's.  On the card one
+    launch of pg_linearize's kernel in its Jacobian mode (a template flag:
+    the Gram mode's code is unchanged)."""
+    args = (R, t, rows, ZR, Zt)
+    if on_cpu(*args, *_tensors(noise), out):
+        return pg_jacobians_plain(*args, kind, noise, loss, param, out)
+    N, arity = rows.shape
+    spec = _se3_specs("pg_jacobians", *args, kind, noise, loss,
+                      ("out", out, F64, (N, arity) + tuple(out.shape[2:])))
+    return _jacobian_launch("pg_jacobians", spec, 6, args, loss, param, out)
+
+
+def pg2_jacobians(x, rows, Z, kind, noise, loss, param, out):
+    """Kernel 6's Pose2 variant, Jacobian rows: pg_jacobians of SE2 factors
+    (3 x 3 Jacobians into out[n, s, :3], zero past column 3).  On the card
+    one launch of pg2_linearize's kernel in its Jacobian mode."""
+    args = (x, rows, Z)
+    if on_cpu(*args, *_tensors(noise), out):
+        return pg2_jacobians_plain(*args, kind, noise, loss, param, out)
+    N, arity = rows.shape
+    spec = _se2_specs("pg2_jacobians", *args, kind, noise, loss,
+                      ("out", out, F64, (N, arity) + tuple(out.shape[2:])))
+    return _jacobian_launch("pg2_jacobians", spec, 3, args, loss, param,
+                            out)
+
+
 def _error_plain(r, kind, noise, sign, loss, param, mu):
     wr = _whiten(kind, noise, r)
     if loss:
@@ -397,6 +465,7 @@ def pg2_error(x, rows, Z, kind, noise, sign, loss=0, param=0.0, mu=1000.0):
 
 # kernel 6's wrappers by group, and their leading arguments for a batch
 LINEARIZE = {"SE3": pg_linearize, "SE2": pg2_linearize}
+JACOBIANS = {"SE3": pg_jacobians, "SE2": pg2_jacobians}
 ERROR = {"SE3": pg_error, "SE2": pg2_error}
 
 
@@ -1069,3 +1138,201 @@ def sn_matvec(blocks, x, row_ptr, row_blk, col_ptr, col_blk, block_row,
                                 int(bool(diagonal_damping)), float(min_diag),
                                 float(max_diag), ptr(y))
     return y
+
+
+# -- kernel 12: the level step of the multifrontal QR ------------------------
+
+# A front's Householder vector lives in kernel 12's dynamic shared memory,
+# beside its kilobyte of static shared memory: a front may have at most
+# QR_MAX_ROWS rows.
+QR_MAX_ROWS = (SHARED_BYTES - 1024) // 8
+
+
+class QRLevel(NamedTuple):
+    """One level's fronts as kernel 12 gathers them (qr_level): S fronts of
+    W column blocks and R row blocks of width d, the level's first front in
+    the factorization's order (front0), each front's true rows m (S,) and
+    its offset in the scratch foff (S,) int64 (column-major m x (W + R) d);
+    row order: the factor rows, the children's rows, then the W d damping
+    rows.  Factor slots (a slot is one factor's Jacobian of one variable):
+    front s owns slots sptr[s]..sptr[s+1], slot q's rdim rows srows[q] from
+    pool entry spool[q] at block position spos[q], from front row
+    srow0[q].  Children: front s owns cptr[s]..cptr[s+1]; child q is front
+    cfront[q] of the factorization (its R_sep at roff[cfront[q]] in the
+    R_sep buffer, rld[cfront[q]] wide), with cr[q] row blocks that go to
+    this front's block positions cmap[mptr[q]:mptr[q+1]], from front row
+    crow0[q].  mmax: the most rows of a front; fsize: the doubles of the
+    level's fronts in the scratch."""
+    S: int
+    W: int
+    R: int
+    d: int
+    front0: int
+    mmax: int
+    fsize: int
+    m: torch.Tensor
+    foff: torch.Tensor
+    sptr: torch.Tensor
+    spool: torch.Tensor
+    spos: torch.Tensor
+    srow0: torch.Tensor
+    srows: torch.Tensor
+    cptr: torch.Tensor
+    crow0: torch.Tensor
+    cr: torch.Tensor
+    cfront: torch.Tensor
+    mptr: torch.Tensor
+    cmap: torch.Tensor
+
+
+def qr_level(S, W, R, d, front0, m, sptr, spool, spos, srow0, srows, cptr,
+             crow0, cr, cfront, mptr, cmap, device) -> QRLevel:
+    """A level's QRLevel from host (numpy) arrays, checked once (every row
+    and column an entry lands on lies in its front) and moved to
+    `device`."""
+    import numpy as np
+    C = (W + R) * d
+    m = np.asarray(m, np.int64)
+    nslot = np.diff(sptr)
+    srows, srow0 = np.asarray(srows), np.asarray(srow0)
+    own = np.repeat(np.arange(S), nslot)
+    ownc = np.repeat(np.arange(S), np.diff(cptr))
+    ok = (len(m) == S and (m >= W * d).all()
+          and (srow0 + srows <= m[own] - W * d).all()
+          and (np.asarray(spos) < W + R).all()
+          and (np.asarray(crow0) + np.asarray(cr) * d
+               <= m[ownc] - W * d).all()
+          and (np.asarray(cmap) < W + R).all())
+    if not ok:
+        raise ValueError("qr_level: an index of the plan is out of range")
+    mmax = int(m.max()) if S else 0
+    if mmax > QR_MAX_ROWS:
+        raise ValueError(f"qr_level: a front of {mmax} rows exceeds kernel "
+                         f"12's shared memory ({QR_MAX_ROWS} rows)")
+    foff = np.concatenate([[0], np.cumsum(m * C)])
+    if foff[-1] >= 2 ** 62:
+        raise ValueError("qr_level: the level's fronts outgrow int64")
+
+    def t(a, dtype=I32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+    return QRLevel(int(S), int(W), int(R), int(d), int(front0), mmax,
+                   int(foff[-1]), t(m), t(foff[:-1], torch.int64), t(sptr),
+                   t(spool), t(spos), t(srow0), t(srows), t(cptr), t(crow0),
+                   t(cr), t(cfront), t(mptr), t(cmap))
+
+
+def _qr_fronts(pool, plan, valid_diag, roff, rld, rsep, lam):
+    """The level's fronts (S, max(mmax, C), C) as kernel 12 gathers them,
+    zero rows appended (the plain version's padded batch)."""
+    S, W, R, d = plan.S, plan.W, plan.R, plan.d
+    Wd, C = W * d, (W + R) * d
+    dev = pool.device
+    M = max(plan.mmax, C)
+    front = torch.zeros((S, M, C), dtype=F64, device=dev)
+    own = segment_owner(plan.sptr)
+    rmax = pool.shape[1]
+    i = torch.arange(rmax, device=dev)
+    q, r = torch.nonzero(i[None, :] < plan.srows.long()[:, None],
+                         as_tuple=True)
+    cols = plan.spos.long()[q, None] * d + torch.arange(d, device=dev)
+    front[own[q, None], (plan.srow0.long()[q] + r)[:, None], cols] = \
+        pool[plan.spool.long()[q], r]
+    if plan.cr.numel():
+        cptr, crow0, cr = (plan.cptr.tolist(), plan.crow0.tolist(),
+                           plan.cr.tolist())
+        cfront, mptr = plan.cfront.tolist(), plan.mptr.tolist()
+        ro, ld = roff.tolist(), rld.tolist()
+        for s in range(S):
+            for k in range(cptr[s], cptr[s + 1]):
+                f, n = cfront[k], cr[k] * d
+                blk = rsep[ro[f]:ro[f] + ld[f] * ld[f]].view(ld[f], ld[f])
+                c = (plan.cmap[mptr[k]:mptr[k + 1]].long()[:, None] * d
+                     + torch.arange(d, device=dev)).reshape(-1)
+                front[s, crow0[k]:crow0[k] + n, c] = torch.triu(
+                    blk[:n, :n])
+    t = torch.arange(Wd, device=dev)
+    dval = torch.full(valid_diag.shape, float(lam) ** 0.5, dtype=F64,
+                      device=dev).masked_fill_(~valid_diag, 1.0)
+    front[torch.arange(S, device=dev)[:, None],
+          plan.m.long()[:, None] - Wd + t[None, :], t[None, :]] = dval
+    return front
+
+
+def sn_front_qr_plain(pool, plan, valid_diag, col_vars, roff, rld, rsep, lam,
+                      rec, tiles, pivot_tol=1e-10, scratch=None):
+    S, W, R, d = plan.S, plan.W, plan.R, plan.d
+    Wd, Rd = W * d, R * d
+    front = _qr_fronts(pool, plan, valid_diag, roff, rld, rsep, lam)
+    Rf = torch.linalg.qr(front, mode="r").R
+    # the sign rule: R's diagonal non-negative, each row whose diagonal is
+    # negative negated (R^T R is unchanged)
+    sgn = torch.where(Rf.diagonal(dim1=1, dim2=2) < 0, -1.0, 1.0)
+    Rf = Rf * sgn[..., None]
+    piv = Rf.diagonal(dim1=1, dim2=2)[:, :Wd]
+    bad = valid_diag & ~(torch.isfinite(piv) & (piv > pivot_tol))
+    first = bad.to(torch.int8).argmax(dim=1)
+    col = torch.gather(col_vars, 1, (first // d)[:, None])[:, 0]
+    rec.copy_(torch.where(bad.any(dim=1), col, -1))
+    Lt = _finite(torch.triu(Rf[:, :Wd, :Wd]).contiguous())
+    Pt = _finite(Rf[:, :Wd, Wd:].contiguous()) if R else None
+    if R:
+        ro = roff[plan.front0:plan.front0 + S].tolist()
+        for s in range(S):
+            rsep[ro[s]:ro[s] + Rd * Rd].copy_(
+                torch.triu(Rf[s, Wd:, Wd:]).reshape(-1))
+    tiles.copy_(tile_inverses([Lt.mT]))
+    return Lt, Pt
+
+
+def sn_front_qr(pool, plan, valid_diag, col_vars, roff, rld, rsep, lam, rec,
+                tiles, pivot_tol=1e-10, scratch=None):
+    """Kernel 12: one level of the multifrontal QR of the whitened Jacobian
+    (supernodal.py::factorize_qr).  Each front (plan, a QRLevel) is
+    [its factors' rows of pool (P, rmax, d), the pool entries of kernel 6's
+    Jacobian rows | its children's R_sep rows, read from rsep | sqrt(lam)
+    on the true diagonal, 1 on the padding] over its [W d frontal | R d
+    separator] columns, factored R = Q^T front with R's diagonal made
+    non-negative (each row with a negative diagonal negated).  Returns (Lt,
+    Pt): R's frontal block (S, W d, W d) and panel (S, W d, R d; None when
+    R = 0), row-major, non-finite entries zeroed (L = Lt^T and the panel
+    Lp = Pt^T, column-major per front, as level_table keeps them); writes
+    each front's R_sep (R d x R d, upper triangular, row-major) at
+    roff[front0 + s] of rsep, the inverses of L's 32 x 32 diagonal tiles
+    into tiles (S * ceil(W d / 32), 32, 32) in kernel 8's order, and rec
+    (S,) int32: each front's first true pivot |R_kk| not finite or <=
+    pivot_tol, as its permuted column (col_vars), or -1.  On the card one
+    launch, a CTA a front, in `scratch` (at least plan.fsize doubles), the
+    fronts column-major, Householder column by column; the plain version
+    is torch.linalg.qr of the same gather."""
+    args = (pool, valid_diag, col_vars, roff, rld, rsep, rec, tiles)
+    if on_cpu(*args, plan.m, *_tensors(scratch)):
+        return sn_front_qr_plain(pool, plan, valid_diag, col_vars, roff,
+                                 rld, rsep, lam, rec, tiles, pivot_tol)
+    S, W, R, d = plan.S, plan.W, plan.R, plan.d
+    Wd, Rd = W * d, R * d
+    P, rmax, dp = pool.shape
+    if scratch is None or scratch.numel() < plan.fsize:
+        raise ValueError(f"sn_front_qr: the scratch must hold {plan.fsize} "
+                         "doubles")
+    dev = check("sn_front_qr", ("pool", pool, F64, (P, rmax, d)),
+                ("valid_diag", valid_diag, BOOL, (S, Wd)),
+                ("col_vars", col_vars, I32, (S, W)),
+                ("roff", roff, I64, (roff.shape[0],)),
+                ("rld", rld, I32, roff.shape),
+                ("rsep", rsep, F64, (rsep.shape[0],)),
+                ("rec", rec, I32, (S,)),
+                ("tiles", tiles, F64, (S * _ntiles(Wd), TILE, TILE)),
+                ("scratch", scratch, F64, (scratch.shape[0],)),
+                ("m", plan.m, I32, (S,)))
+    Lt = torch.empty((S, Wd, Wd), dtype=F64, device=dev)
+    Pt = torch.empty((S, Wd, Rd), dtype=F64, device=dev) if R else None
+    KERNELS["sn_front_qr"].launch(
+        dev, S, W, R, d, rmax, plan.front0, plan.mmax, ptr(pool),
+        *map(ptr, (plan.sptr, plan.spool, plan.spos, plan.srow0, plan.srows,
+                   plan.cptr, plan.crow0, plan.cr, plan.cfront, plan.mptr,
+                   plan.cmap, plan.m, plan.foff, valid_diag, col_vars, roff,
+                   rld)),
+        float(lam) ** 0.5, float(pivot_tol), ptr(scratch), ptr(rsep),
+        ptr(Lt), ptr(Pt) if R else 0, ptr(tiles), ptr(rec))
+    return Lt, Pt

@@ -111,7 +111,7 @@ def test_cpu_path_counts_no_launch():
         base | {k + "_f32" for k in base}
         | {"bal_error", "ba_back_substitute", "ba_schur_matvec"}
         | set(supernodal_kernels.KERNELS) | set(dense_kernels.KERNELS))
-    assert len(supernodal_kernels.KERNELS) == 11
+    assert len(supernodal_kernels.KERNELS) == 14
     assert all(n == 0 for n in _kernels.launch_counts().values())
 
 
@@ -195,6 +195,10 @@ def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
     plan = supernodal_kernels.SchurPlan(
         i(7), i(T + 1), i(T), i(7), S, W, R, 6, nb,
         supernodal_kernels.update_split(S, W, R, 6, T))
+    m = 40
+    qr = supernodal_kernels.QRLevel(
+        S, W, R, 6, 0, m, S * m * (Wd + Rd), i(S), l(S), i(S + 1), i(3),
+        i(3), i(3), i(3), i(S + 1), i(1), i(1), i(1), i(2), i(1))
     return {
         "pg_linearize": se3 + ("gaussian", f(N, 6, 6), 1.0, b(N),
                                f(N, 3, 36), f(N, 2, 6)),
@@ -202,6 +206,13 @@ def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
         "pg2_linearize": se2 + ("gaussian", f(N, 3, 3), 1.0, b(N),
                                 f(N, 3, 9), f(N, 2, 3)),
         "pg2_error": se2 + ("diagonal", f(N, 3), 1.0),
+        "pg_jacobians": se3 + ("gaussian", f(N, 6, 6), 0, 0.0,
+                               f(N, 2, 6, 6)),
+        "pg2_jacobians": se2 + ("gaussian", f(N, 3, 3), 0, 0.0,
+                                f(N, 2, 3, 3)),
+        "sn_front_qr": (f(8, 6, 6), qr, b(S, Wd), i(S, W), l(4), i(4),
+                        f(100), 0.1, i(S), f(S, 1, 32, 32).view(S, 32, 32),
+                        1e-10, f(qr.fsize)),
         "pg_assemble": (f(12, 36), f(8, 6), i(12), i(T + 1), i(T), i(T),
                         i(8), i(n + 1), f(n, 6), nb),
         "sn_front_factor": (f(nb, 36), f(nb, 36), i(S, W, W), b(S, W, W),
@@ -442,6 +453,9 @@ def _cpu_args_pose2(name):
             torch.zeros((N, 3, d * d), dtype=torch.float64),
             torch.zeros((N, 2, d), dtype=torch.float64)),
         "pg2_error": args + ("gaussian", b.noise.data, -1.0),
+        "pg2_jacobians": args + ("gaussian", b.noise.data, 0, 0.0,
+                                 torch.zeros((N, 2, 3, d),
+                                             dtype=torch.float64)),
     }[name]
 
 
@@ -468,6 +482,8 @@ def _cpu_args_pg(name):
         lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, 0.1, False,
         torch.zeros(lv.S, dtype=torch.int32))
     sol = (f.levels, f.Linv, dv.sol_cols)
+    qp = s._qr_plan()
+    lv0, ql = dv.levels[0], qp.levels[0]    # leaves: no children's rows
     y, _ = supernodal_kernels.sn_forward_plain(
         g, *sol, dv.gat_ptr, dv.gat_seg, dv.gat_src,
         torch.zeros(s.n_y, dtype=torch.float64),
@@ -478,6 +494,15 @@ def _cpu_args_pg(name):
             torch.zeros((N, 3, d * d), dtype=torch.float64),
             torch.zeros((N, 2, d), dtype=torch.float64)),
         "pg_error": se3_args + ("gaussian", b.noise.data, -1.0),
+        "pg_jacobians": se3_args + (
+            "gaussian", b.noise.data, 0, 0.0,
+            torch.zeros((N, 2, 6, d), dtype=torch.float64)),
+        "sn_front_qr": (
+            s.jacobian_pool(vals.arrays), ql, lv0.valid_diag, lv0.col_vars,
+            qp.roff, qp.rld, torch.zeros_like(qp.rsep), 0.3,
+            torch.zeros(ql.S, dtype=torch.int32),
+            torch.zeros((lv0.tiles.stop - lv0.tiles.start, 32, 32),
+                        dtype=torch.float64)),
         "pg_assemble": (
             torch.as_tensor(rng.normal(size=(s._n_hc, d * d))),
             torch.as_tensor(rng.normal(size=(s._n_gc, d))), dv.asm_src,
