@@ -3716,62 +3716,71 @@ def qr_plain_chain(s, pool, lam):
     return out, state
 
 
-def check_front_qr(s, pool, g, lam, label, expect_ok=True):
-    """Kernel 12 on supernodal solver s against its plain version, level by
-    level on the same inputs (the children's R_sep the kernel wrote): its
-    records exactly; where the factorization is sound its R's frontal
-    block and panel, its tile inverses and R_sep^T R_sep of the R_sep it
-    passes up (R_sep itself is unique only up to its rows past the
-    separator block's rank) at QR_TOL[lam] of the largest entry, each
-    output written whole
-    (NaN-filled first) and a second launch giving the same bits; then
-    factorize_qr's (ok, badcol) against the plain chain's, and, when sound,
-    the solution of g through kernel 8 against the plain versions'.
-    Returns the max abs err of the level outputs."""
+def _nan_outputs(*shapes):
+    """Leave NaN in the caching allocator's blocks of these float64 shapes,
+    so that a wrapper's torch.empty of them (kernel 12's Lt and Pt) most
+    likely starts NaN-filled: an entry the kernel does not write shows."""
+    import torch
+    for shape in shapes:
+        torch.full(shape, float("nan"), dtype=torch.float64, device="cuda")
+
+
+def check_qr_level(pool, ql, valid_diag, col_vars, roff, rld, rsep, lam,
+                   scratch, label, expect_ok=True):
+    """Kernel 12 on one level (plan ql) against its plain version on the
+    same inputs (the children's R_sep in rsep): its records exactly; where
+    the factorization is sound its R's frontal block and panel, its tile
+    inverses and R_sep^T R_sep of the R_sep it passes up (R_sep itself is
+    unique only up to its rows past the separator block's rank: a front
+    with few rows, a padded dimension's all-zero column) at QR_TOL[lam] of
+    the largest entry, each output written whole (NaN-filled first); a
+    second launch giving the same bits, and a third on the other route
+    (one CTA a front where the level's default, K.qr_ctas, is several;
+    several, 3 at the most, where it is one) giving the same bits too.
+    Returns (max rel err, max abs err, (S, CTAs a front, the other
+    route's CTAs))."""
     import torch
     from gtsam_torch.linear import supernodal_kernels as K
-    qp, dv = s._qr_plan(), s.dev
-    tol = QR_TOL[lam]
-    qp.rsep.fill_(float("nan"))
-    worst_rel, worst_abs = 0.0, 0.0
-    for lv, ql in zip(dv.levels, qp.levels):
-        rsep_p = qp.rsep.clone()
-        nt = lv.tiles.stop - lv.tiles.start
-        outs = []
-        for rep in range(2):
-            rec = torch.full((ql.S,), -7, dtype=torch.int32, device="cuda")
-            tiles = torch.full((nt, K.TILE, K.TILE), float("nan"),
-                               dtype=torch.float64, device="cuda")
-            Lt, Pt = K.sn_front_qr(pool, ql, lv.valid_diag, lv.col_vars,
-                                   qp.roff, qp.rld, qp.rsep, lam, rec, tiles,
-                                   1e-10, qp.scratch)
-            lo = int(s._qr.roff[ql.front0]) if ql.R else 0
-            hi = lo + ql.S * (ql.R * s.d) ** 2 if ql.R else 0
-            outs.append((Lt, Pt, tiles, rec, qp.rsep[lo:hi].clone()))
-        rec_p = torch.empty(ql.S, dtype=torch.int32, device="cuda")
-        tiles_p = torch.empty_like(tiles)
-        Lt_p, Pt_p = K.sn_front_qr_plain(pool, ql, lv.valid_diag,
-                                         lv.col_vars, qp.roff, qp.rld,
-                                         rsep_p, lam, rec_p, tiles_p)
-        torch.cuda.synchronize()
-        a, b = outs
-        same = all(x is None or torch.equal(x, y) for x, y in zip(a, b))
-        if not same:
-            raise AssertionError(f"kernel 12 ({label}): two launches on the "
-                                 "same inputs differ")
-        if not torch.equal(a[3], rec_p):
-            raise AssertionError(f"kernel 12 ({label}): records {a[3]} != "
-                                 f"{rec_p}")
-        if not expect_ok:
-            continue
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    d = ql.d
+    Wd, Rd = ql.W * d, ql.R * d
+    nt = ql.S * -(-Wd // K.TILE)
+    auto = K.qr_ctas(ql.S, Wd + Rd, sms)
+    other = 1 if auto > 1 else min(3, sms // ql.S,
+                                   -(-(Wd + Rd) // K.QR_PANEL))
+    lo = int(roff[ql.front0]) if ql.R else 0
+    hi = lo + ql.S * Rd * Rd
+    rsep_p = rsep.clone()
+    outs = []
+    for ctas in (None, None, other):
+        rec = torch.full((ql.S,), -7, dtype=torch.int32, device="cuda")
+        tiles = torch.full((nt, K.TILE, K.TILE), float("nan"),
+                           dtype=torch.float64, device="cuda")
+        rsep[lo:hi] = float("nan")
+        _nan_outputs((ql.S, Wd, Wd), (ql.S, Wd, Rd))
+        Lt, Pt = K.sn_front_qr(pool, ql, valid_diag, col_vars, roff, rld,
+                               rsep, lam, rec, tiles, 1e-10, scratch,
+                               ctas=ctas)
+        outs.append((Lt, Pt, tiles, rec, rsep[lo:hi].clone()))
+    rec_p = torch.empty(ql.S, dtype=torch.int32, device="cuda")
+    tiles_p = torch.empty_like(tiles)
+    Lt_p, Pt_p = K.sn_front_qr_plain(pool, ql, valid_diag, col_vars, roff,
+                                     rld, rsep_p, lam, rec_p, tiles_p)
+    torch.cuda.synchronize()
+    a = outs[0]
+    for b, what in ((outs[1], "two launches on the same inputs"),
+                    (outs[2], f"{auto} and {other} CTAs a front")):
+        if not all(x is None or torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"kernel 12 ({label}): {what} differ")
+    if not torch.equal(a[3], rec_p):
+        raise AssertionError(f"kernel 12 ({label}): records {a[3]} != "
+                             f"{rec_p}")
+    worst_rel = worst_abs = 0.0
+    if expect_ok:
         pairs = [(a[0], Lt_p), (a[2], tiles_p)]
         if ql.R:
-            # R_sep is unique only up to the rows past the separator
-            # block's rank (a front with few rows, a padded dimension's
-            # all-zero column): it is held by R_sep^T R_sep, which is
-            Rd = ql.R * s.d
-            rk, rp = a[4].view(ql.S, Rd, Rd), rsep_p[lo:hi].view(ql.S, Rd,
-                                                                 Rd)
+            rk = a[4].view(ql.S, Rd, Rd)
+            rp = rsep_p[lo:hi].view(ql.S, Rd, Rd)
             pairs += [(a[1], Pt_p), (rk.mT @ rk, rp.mT @ rp)]
         for got, ref in pairs:
             if not bool(torch.isfinite(got).all()):
@@ -3780,12 +3789,34 @@ def check_front_qr(s, pool, g, lam, label, expect_ok=True):
             err = float((got - ref).abs().max())
             worst_abs = max(worst_abs, err)
             worst_rel = max(worst_rel, err / float(ref.abs().max()))
+    return worst_rel, worst_abs, (ql.S, auto, other)
+
+
+def check_front_qr(s, pool, g, lam, label, expect_ok=True):
+    """Kernel 12 on supernodal solver s against its plain version, level by
+    level (check_qr_level, each level on the children's R_sep the kernel
+    wrote); then factorize_qr's (ok, badcol) against the plain chain's,
+    and, when sound, the solution of g through kernel 8 against the plain
+    versions'.  Returns the max abs err of the level outputs."""
+    import torch
+    from gtsam_torch.linear import supernodal_kernels as K
+    qp, dv = s._qr_plan(), s.dev
+    tol = QR_TOL[lam]
+    qp.rsep.fill_(float("nan"))
+    worst_rel, worst_abs, routes = 0.0, 0.0, []
+    for lv, ql in zip(dv.levels, qp.levels):
+        rel, err, route = check_qr_level(
+            pool, ql, lv.valid_diag, lv.col_vars, qp.roff, qp.rld, qp.rsep,
+            lam, qp.scratch, label, expect_ok)
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+        routes.append(route)
     f = s.factorize_qr(pool, lam)
     chain, state = qr_plain_chain(s, pool, lam)
     got = [int(bool(f.ok)), int(f.badcol)]
     log(f"check {label} sn_front_qr: {len(qp.levels)} levels, max rel err "
         f"{worst_rel:.3e} (tol {tol:.0e}), max abs err {worst_abs:.3e}; "
-        f"(ok, badcol) card {got}, plain {state.tolist()}")
+        f"(ok, badcol) card {got}, plain {state.tolist()}; (S, CTAs a "
+        f"front, the other route's) {routes}")
     if not worst_rel <= tol or got != state.tolist():
         raise AssertionError(f"kernel 12 disagrees with its plain version "
                              f"({label})")
@@ -3811,6 +3842,43 @@ def check_front_qr(s, pool, g, lam, label, expect_ok=True):
             raise AssertionError(f"the solve on kernel 12's factor "
                                  f"({label}): {err}")
     return worst_abs
+
+
+def check_tall_front():
+    """Kernel 12 on a seeded synthetic level of one front taller than its
+    panels' shared memory holds (2,364 rows: every panel in place, through
+    L2), W d = 60 frontal and R d = 36 separator columns at d = 6: 384
+    factors of 6 rows, each on two random block positions (two slots, as
+    a between factor's), at lam 1 (check_qr_level: both routes, the plain
+    version at QR_TOL[1.0])."""
+    import numpy as np
+    import torch
+    from gtsam_torch.linear import supernodal_kernels as K
+    rng = np.random.default_rng(11)
+    d, W, R, rdim, nfac = 6, 10, 6, 6, 384
+    Rd = R * d
+    spos = np.stack([rng.permutation(W + R)[:2] for _ in range(nfac)])
+    rows = np.repeat(np.arange(nfac) * rdim, 2)
+    ql = K.qr_level(1, W, R, d, 0, [nfac * rdim + W * d], [0, 2 * nfac],
+                    np.arange(2 * nfac), spos.reshape(-1), rows,
+                    np.full(2 * nfac, rdim), [0, 0], [], [], [], [0], [],
+                    "cuda")
+    pool = torch.as_tensor(rng.standard_normal((2 * nfac, rdim, d)),
+                           device="cuda")
+    rel, err, route = check_qr_level(
+        pool, ql, torch.ones((1, W * d), dtype=torch.bool, device="cuda"),
+        torch.arange(W, dtype=torch.int32, device="cuda")[None],
+        torch.zeros(1, dtype=torch.int64, device="cuda"),
+        torch.full((1,), Rd, dtype=torch.int32, device="cuda"),
+        torch.empty(Rd * Rd, dtype=torch.float64, device="cuda"), 1.0,
+        torch.empty(K.qr_scratch_doubles(ql), dtype=torch.float64,
+                    device="cuda"), "tall front")
+    log(f"check tall front sn_front_qr: {ql.mmax} rows x {(W + R) * d} "
+        f"columns, max rel err {rel:.3e} (tol {QR_TOL[1.0]:.0e}), max abs "
+        f"err {err:.3e}; (S, CTAs a front, the other route's) {route}")
+    if not rel <= QR_TOL[1.0]:
+        raise AssertionError("kernel 12 disagrees with its plain version "
+                             "(tall front)")
 
 
 def qr_case(graph, vals, **sn_kw):
@@ -3880,8 +3948,22 @@ def qr_small_checks():
         log(f"  {label}: the Jacobian pool against the plain pool {err:.3e}")
         if not err <= 1e-12:
             raise AssertionError(f"the Jacobian pool ({label}): {err}")
+        narrow = sum(int((q.m < (q.W + q.R) * s.d).sum())
+                     for q in s._qr.levels)
+        log(f"  {label}: fronts of fewer rows than columns {narrow}")
+        if label != "mixed" and not narrow:
+            raise AssertionError(f"{label}: no front has m < C")
         for lam in (0.0, 1.0):
             check_front_qr(s, pool, gv, lam, f"{label} lam={lam}")
+        if label == "manhattan 60":
+            # the first separator column of the first (leaf) level's
+            # fronts zeroed: tau = 0 there, T's row and column zero
+            ql = s._qr.levels[0]
+            q = torch.nonzero(ql.spos == ql.W).flatten()
+            zpool = pool.clone()
+            zpool[ql.spool[q].long(), :, 0] = 0.0
+            check_front_qr(s, zpool, gv, 1.0, f"{label} zero column")
+    check_tall_front()
     # no prior: the gauge is free, the last front's last pivots vanish
     free = FactorGraph([b for b in sph.batches if b.arity == 2])
     s, pool, gv, _ = qr_case(free, sph_vals, force_width=4, max_width=8)
@@ -4156,10 +4238,14 @@ def qr_level_times(qr, ms_fn):
         def lib_true(front=front, groups=groups):
             return [torch.linalg.qr(front[i, :r], mode="r")
                     for i, r in groups]
+        ctas = K.qr_ctas(ql.S, (ql.W + ql.R) * s.d, sms)
         row = {"S": ql.S, "W": ql.W, "R": ql.R, "Wd": ql.W * s.d,
-               "Rd": ql.R * s.d, "rows_max": ql.mmax,
+               "Rd": ql.R * s.d, "rows_max": ql.mmax, "ctas": ctas,
                "ms": ms_fn(lambda: K.sn_front_qr(*args), reps=3, warmup=1),
                "device_ms": device_ms(lambda: K.sn_front_qr(*args), reps=3),
+               # the one-CTA route: what the split over the SMs gains
+               "one_cta_device_ms": device_ms(
+                   lambda: K.sn_front_qr(*args, ctas=1), reps=3),
                "bound_ms": bnd, "bound_by": by,
                "bound_sms_ms": bnd * sms / min(ql.S, sms),
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
@@ -4171,7 +4257,8 @@ def qr_level_times(qr, ms_fn):
                "library_true_rows_ms": ms_fn(lib_true, reps=3, warmup=1),
                "library_true_rows_device_ms": device_ms(lib_true, reps=3),
                "plain_ms": ms_fn(plain, reps=1, warmup=1)}
-        for k in ("ms", "device_ms", "bound_ms", "bound_sms_ms",
+        for k in ("ms", "device_ms", "one_cta_device_ms", "bound_ms",
+                  "bound_sms_ms",
                   "library_qr_ms", "library_qr_device_ms",
                   "library_true_rows_ms", "library_true_rows_device_ms",
                   "plain_ms", "gflop"):
@@ -4200,7 +4287,9 @@ def qr_level_times(qr, ms_fn):
             "library_device_ms": tot["library_qr_device_ms"],
             "library_true_rows_ms": tot["library_true_rows_ms"],
             "library_true_rows_device_ms": tot["library_true_rows_device_ms"],
-            "bound_sms_ms": tot["bound_sms_ms"], "calls_timed": len(rows),
+            "bound_sms_ms": tot["bound_sms_ms"],
+            "one_cta_device_ms": tot["one_cta_device_ms"],
+            "calls_timed": len(rows),
             "factorize_qr_ms": f_qr, "factorize_cholesky_ms": f_chol}
     return rows, krow
 

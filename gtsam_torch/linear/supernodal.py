@@ -781,7 +781,7 @@ class SupernodalCholeskySolver:
                             self.device)
             levels.append(ql)
             front0 += S
-            fmax = max(fmax, ql.fsize)
+            fmax = max(fmax, K.qr_scratch_doubles(ql))
         dev = self.device
         self._qr = types.SimpleNamespace(
             levels=levels, rmax=rmax,

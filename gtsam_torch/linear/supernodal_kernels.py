@@ -92,7 +92,7 @@ KERNELS = _kernels.table(
            [INT] * 4 + [P] * 3 + [INT, INT, P, INT, DBL, P]),
     Kernel("sn_front_qr", "sn_qr", "sn_front_qr",
            "gtsam_tpu/linear/supernodal.py:800",
-           [INT] * 7 + [P] * 18 + [DBL, DBL] + [P] * 6),
+           [INT] * 8 + [P] * 18 + [DBL, DBL] + [P] * 7),
 )
 
 
@@ -1142,10 +1142,13 @@ def sn_matvec(blocks, x, row_ptr, row_blk, col_ptr, col_blk, block_row,
 
 # -- kernel 12: the level step of the multifrontal QR ------------------------
 
-# A front's Householder vector lives in kernel 12's dynamic shared memory,
-# beside its kilobyte of static shared memory: a front may have at most
-# QR_MAX_ROWS rows.
-QR_MAX_ROWS = (SHARED_BYTES - 1024) // 8
+# Kernel 12's panel width (csrc/sn_qr.cu's kNb): a front's column tiles,
+# each a panel of the blocked Householder and a unit of the CTAs' shares.
+QR_PANEL = 16
+# A front's panel goes through L2 where it does not fit in shared memory,
+# so rows are bounded only by int32 row indices (with room for the
+# rounding of the leading dimension and the 16-row granules).
+QR_MAX_ROWS = 1 << 24
 
 
 class QRLevel(NamedTuple):
@@ -1162,7 +1165,9 @@ class QRLevel(NamedTuple):
     R_sep buffer, rld[cfront[q]] wide), with cr[q] row blocks that go to
     this front's block positions cmap[mptr[q]:mptr[q+1]], from front row
     crow0[q].  mmax: the most rows of a front; fsize: the doubles of the
-    level's fronts in the scratch."""
+    level's fronts in the scratch (each column-major with its leading
+    dimension m rounded up to 16, qr_ld); qr_scratch_doubles adds kernel
+    12's panel blocks after them."""
     S: int
     W: int
     R: int
@@ -1208,8 +1213,8 @@ def qr_level(S, W, R, d, front0, m, sptr, spool, spos, srow0, srows, cptr,
     mmax = int(m.max()) if S else 0
     if mmax > QR_MAX_ROWS:
         raise ValueError(f"qr_level: a front of {mmax} rows exceeds kernel "
-                         f"12's shared memory ({QR_MAX_ROWS} rows)")
-    foff = np.concatenate([[0], np.cumsum(m * C)])
+                         f"12's row indices ({QR_MAX_ROWS} rows)")
+    foff = np.concatenate([[0], np.cumsum(qr_ld(m) * C)])
     if foff[-1] >= 2 ** 62:
         raise ValueError("qr_level: the level's fronts outgrow int64")
 
@@ -1220,6 +1225,50 @@ def qr_level(S, W, R, d, front0, m, sptr, spool, spos, srow0, srows, cptr,
                    int(foff[-1]), t(m), t(foff[:-1], torch.int64), t(sptr),
                    t(spool), t(spos), t(srow0), t(srows), t(cptr), t(crow0),
                    t(cr), t(cfront), t(mptr), t(cmap))
+
+
+def qr_ld(m):
+    """A front's leading dimension in kernel 12's scratch: its rows m
+    rounded up to 16 doubles, so that no 128-byte line holds two columns
+    (each column is one CTA's)."""
+    return (m + 15) // 16 * 16
+
+
+def qr_scratch_doubles(plan):
+    """The scratch kernel 12 needs for a level: its fronts (plan.fsize),
+    then each front's ceil(C / QR_PANEL) panel blocks (T, QR_PANEL x
+    QR_PANEL, and the panel rows' flips)."""
+    C = (plan.W + plan.R) * plan.d
+    return plan.fsize + plan.S * -(-C // QR_PANEL) * (QR_PANEL + 1) \
+        * QR_PANEL
+
+
+def qr_ctas(S, C, sms):
+    """Kernel 12's CTAs a front on a card of `sms` SMs: the level's share
+    of the SMs, at most the front's column tiles, at least one."""
+    return max(1, min(-(-C // QR_PANEL), sms // max(S, 1)))
+
+
+_SMS = {}
+# Kernel 12's flags: per (device, stream) an int32 buffer, zeroed when it
+# is made, and the number of its last launch, which only grows: a flag
+# that holds a launch's number was set in that launch.
+_QR_FLAGS = {}
+
+
+def _qr_flags(device, n):
+    """(flags, this launch's number) of `device`'s current stream, the
+    buffer at least n ints."""
+    key = (device, _kernels.stream(device))
+    fl = _QR_FLAGS.get(key)
+    if fl is None or fl[0].numel() < n:
+        fl = _QR_FLAGS[key] = [torch.zeros(max(n, 4096), dtype=I32,
+                                           device=device), 0]
+    if fl[1] == 2 ** 31 - 1:   # the numbers start again: no stale flag
+        fl[0].zero_()
+        fl[1] = 0
+    fl[1] += 1
+    return fl
 
 
 def _qr_fronts(pool, plan, valid_diag, roff, rld, rsep, lam):
@@ -1286,7 +1335,7 @@ def sn_front_qr_plain(pool, plan, valid_diag, col_vars, roff, rld, rsep, lam,
 
 
 def sn_front_qr(pool, plan, valid_diag, col_vars, roff, rld, rsep, lam, rec,
-                tiles, pivot_tol=1e-10, scratch=None):
+                tiles, pivot_tol=1e-10, scratch=None, ctas=None):
     """Kernel 12: one level of the multifrontal QR of the whitened Jacobian
     (supernodal.py::factorize_qr).  Each front (plan, a QRLevel) is
     [its factors' rows of pool (P, rmax, d), the pool entries of kernel 6's
@@ -1302,9 +1351,15 @@ def sn_front_qr(pool, plan, valid_diag, col_vars, roff, rld, rsep, lam, rec,
     into tiles (S * ceil(W d / 32), 32, 32) in kernel 8's order, and rec
     (S,) int32: each front's first true pivot |R_kk| not finite or <=
     pivot_tol, as its permuted column (col_vars), or -1.  On the card one
-    launch, a CTA a front, in `scratch` (at least plan.fsize doubles), the
-    fronts column-major, Householder column by column; the plain version
-    is torch.linalg.qr of the same gather."""
+    launch in `scratch` (at least qr_scratch_doubles(plan) doubles; the
+    fronts column-major): blocked Householder in panels of QR_PANEL
+    columns, each panel's T by dlarft's recurrence and the later column
+    tiles updated as A -= V (T^T (V^T A)) on the FP64 tensor cores; `ctas`
+    CTAs a front (default qr_ctas: the level's share of the SMs), which
+    share out the front's column tiles and pass each factored panel on by
+    a flag, the owner of the next panel updating it first (look-ahead);
+    any ctas gives the same bits.  The plain version is torch.linalg.qr of
+    the same gather."""
     args = (pool, valid_diag, col_vars, roff, rld, rsep, rec, tiles)
     if on_cpu(*args, plan.m, *_tensors(scratch)):
         return sn_front_qr_plain(pool, plan, valid_diag, col_vars, roff,
@@ -1312,9 +1367,8 @@ def sn_front_qr(pool, plan, valid_diag, col_vars, roff, rld, rsep, lam, rec,
     S, W, R, d = plan.S, plan.W, plan.R, plan.d
     Wd, Rd = W * d, R * d
     P, rmax, dp = pool.shape
-    if scratch is None or scratch.numel() < plan.fsize:
-        raise ValueError(f"sn_front_qr: the scratch must hold {plan.fsize} "
-                         "doubles")
+    if scratch is None:
+        raise ValueError("sn_front_qr: the kernel needs a scratch")
     dev = check("sn_front_qr", ("pool", pool, F64, (P, rmax, d)),
                 ("valid_diag", valid_diag, BOOL, (S, Wd)),
                 ("col_vars", col_vars, I32, (S, W)),
@@ -1325,14 +1379,26 @@ def sn_front_qr(pool, plan, valid_diag, col_vars, roff, rld, rsep, lam, rec,
                 ("tiles", tiles, F64, (S * _ntiles(Wd), TILE, TILE)),
                 ("scratch", scratch, F64, (scratch.shape[0],)),
                 ("m", plan.m, I32, (S,)))
+    need = qr_scratch_doubles(plan)
+    if scratch.numel() < need:
+        raise ValueError(f"sn_front_qr: the scratch must hold {need} "
+                         "doubles")
+    ntile = -(-(Wd + Rd) // QR_PANEL)
+    if ctas is None:
+        if dev not in _SMS:
+            _SMS[dev] = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+        ctas = qr_ctas(S, Wd + Rd, _SMS[dev])
+    ctas = max(1, min(int(ctas), ntile))
+    flags, seq = _qr_flags(dev, S * ntile)
     Lt = torch.empty((S, Wd, Wd), dtype=F64, device=dev)
     Pt = torch.empty((S, Wd, Rd), dtype=F64, device=dev) if R else None
     KERNELS["sn_front_qr"].launch(
-        dev, S, W, R, d, rmax, plan.front0, plan.mmax, ptr(pool),
+        dev, S, W, R, d, rmax, plan.front0, ctas, seq, ptr(pool),
         *map(ptr, (plan.sptr, plan.spool, plan.spos, plan.srow0, plan.srows,
                    plan.cptr, plan.crow0, plan.cr, plan.cfront, plan.mptr,
                    plan.cmap, plan.m, plan.foff, valid_diag, col_vars, roff,
                    rld)),
         float(lam) ** 0.5, float(pivot_tol), ptr(scratch), ptr(rsep),
-        ptr(Lt), ptr(Pt) if R else 0, ptr(tiles), ptr(rec))
+        ptr(Lt), ptr(Pt) if R else 0, ptr(tiles), ptr(rec), ptr(flags))
     return Lt, Pt

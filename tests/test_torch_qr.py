@@ -440,6 +440,153 @@ def test_front_qr_plain_sign_rule_and_records(cases):
         assert bool((torch.tril(R, -1) == 0).all())
 
 
+# -- kernel 12's blocked algorithm, modelled on the CPU ----------------------------
+
+def _blocked_qr(front, nb=K.QR_PANEL):
+    """R of `front` (m x C) as kernel 12 computes it, in torch: panels of
+    nb columns, each factored column by column (dlarfg's beta, tau and v,
+    its columns up to the tile's edge updated), R's row k negated where
+    beta < 0; T by dlarft's recurrence from G = V^T V; the later columns
+    updated as A -= V (T^T (V^T A)), the panel's rows of them then
+    flipped.  Returns R (min(m, C) x C, upper trapezoidal)."""
+    A = front.clone()
+    m, C = A.shape
+    kmax = min(m, C)
+    for k0 in range(0, kmax, nb):
+        tw, wp = min(nb, C - k0), min(nb, kmax - k0)
+        P = A[k0:, k0:k0 + tw]
+        V = torch.zeros((m - k0, nb), dtype=A.dtype)
+        tau = torch.zeros(nb, dtype=A.dtype)
+        flip = torch.ones(nb, dtype=A.dtype)
+        for k in range(wp):
+            x0, sg = float(P[k, k]), float((P[k + 1:, k] ** 2).sum())
+            beta, t, scale = x0, 0.0, 0.0
+            if sg != 0.0:
+                beta = -np.copysign(np.hypot(x0, np.sqrt(sg)), x0)
+                t, scale = (beta - x0) / beta, 1.0 / (x0 - beta)
+            v = P[k:, k].clone()
+            v[0], v[1:] = 1.0, v[1:] * scale
+            V[k:, k], tau[k] = v, t
+            P[k, k], P[k + 1:, k] = abs(beta), 0.0
+            P[k:, k + 1:] -= t * torch.outer(v, v @ P[k:, k + 1:])
+            if beta < 0:
+                P[k, k + 1:] *= -1.0
+                flip[k] = -1.0
+        G = V.T @ V
+        T = torch.zeros((nb, nb), dtype=A.dtype)
+        for i in range(nb):
+            T[:i, i] = -tau[i] * (T[:i, :i] @ G[:i, i])
+            T[i, i] = tau[i]
+        A2 = A[k0:, k0 + tw:]
+        A2 -= V @ (T.T @ (V.T @ A2))
+        A2[:nb] *= flip[:min(nb, m - k0), None]
+    return torch.triu(A[:kmax])
+
+
+def _level_fronts(c, lam, zero_col=False):
+    """Each level's true-row fronts (the plain gather's) beside
+    sn_front_qr_plain's (Lt, Pt, R_sep of each front), level after level
+    on one R_sep buffer.  zero_col: the pool entries of the first level's
+    first separator column zeroed (a leaf level: no child rows), so that
+    its fronts hold a zero column (tau = 0)."""
+    ts, pool = c.ts, c.pool()
+    qp = ts._qr_plan()
+    rsep = torch.zeros_like(qp.rsep)
+    out = []
+    for n, (lv, ql) in enumerate(zip(ts.dev.levels, qp.levels)):
+        Wd, Rd = ql.W * ts.d, ql.R * ts.d
+        if zero_col and n == 0:
+            assert ql.R and not ql.cr.numel()
+            pool = pool.clone()
+            q = torch.nonzero(ql.spos == ql.W).flatten()
+            pool[ql.spool[q].long(), :, 0] = 0.0
+        front = K._qr_fronts(pool, ql, lv.valid_diag, qp.roff, qp.rld,
+                             rsep, lam)
+        rec = torch.empty(ql.S, dtype=torch.int32)
+        tiles = torch.empty((lv.tiles.stop - lv.tiles.start, K.TILE,
+                             K.TILE), dtype=torch.float64)
+        Lt, Pt = K.sn_front_qr_plain(pool, ql, lv.valid_diag, lv.col_vars,
+                                     qp.roff, qp.rld, rsep, lam, rec, tiles)
+        ro = qp.roff[ql.front0:ql.front0 + ql.S].tolist()
+        for s in range(ql.S):
+            rs = rsep[ro[s]:ro[s] + Rd * Rd].view(Rd, Rd) if ql.R else None
+            out.append((front[s, :int(ql.m[s])], Wd, Lt[s],
+                        None if Pt is None else Pt[s], rs))
+        if zero_col:
+            break
+    return out
+
+
+def _hold_blocked(fronts, tol):
+    for front, Wd, Lt, Pt, rs in fronts:
+        R = _blocked_qr(front)
+        k = R.shape[0]
+        got = torch.zeros((Wd, front.shape[1]), dtype=torch.float64)
+        got[:min(k, Wd)] = R[:Wd]
+        ref = Lt if Pt is None else torch.cat([Lt, Pt], dim=1)
+        assert _rel(got, ref) <= tol
+        if rs is not None:
+            sep = torch.zeros_like(rs)
+            sep[:max(k - Wd, 0)] = R[Wd:, Wd:]
+            assert _rel(sep.T @ sep, rs.T @ rs) <= tol
+
+
+@pytest.mark.parametrize("which", ["SE3", "SE2"])
+@pytest.mark.parametrize("lam", [0.0, 1.0])
+def test_blocked_householder_model(cases, which, lam):
+    """Kernel 12's algorithm (_blocked_qr: 32-column panels, T by dlarft's
+    recurrence, the V T^T V^T trailing update, the sign rule after each
+    panel) on every front of the small sphere (d = 6) and the 60-pose
+    Manhattan world (d = 3: odd W d and R d) against sn_front_qr_plain:
+    R's frontal block and panel at 1e-12 of the largest entry (R is unique
+    once its diagonal is non-negative; two backward-stable QRs of these
+    fronts differ by rounding), R_sep by its Gram R_sep^T R_sep (R_sep is
+    unique only up to its rows past the separator block's rank)."""
+    _hold_blocked(_level_fronts(cases[which, "soft"], lam), 1e-12)
+
+
+@pytest.mark.parametrize("lam", [0.0, 1.0])
+def test_blocked_householder_model_zero_column(cases, lam):
+    """The same on the Manhattan world's first level with its first
+    separator column zeroed in every front (sigma = 0 and x0 = 0: tau = 0,
+    T's row and column zero), and on a wide front of fewer rows than
+    columns (m < C: min(m, C) reflectors, the last panel short)."""
+    fronts = _level_fronts(cases["SE2", "soft"], lam, zero_col=True)
+    assert all(float(f[:, Wd].abs().max()) == 0.0
+               for f, Wd, *_ in fronts)
+    _hold_blocked(fronts, 1e-12)
+    rng = np.random.default_rng(17)
+    wide = torch.as_tensor(rng.standard_normal((70, 99)))
+    wide[:, 40] = 0.0
+    R = _blocked_qr(wide)
+    ref = torch.linalg.qr(wide, mode="r").R
+    ref = ref * torch.where(ref.diagonal() < 0, -1.0, 1.0)[:, None]
+    assert R.shape == ref.shape and _rel(R, ref) <= 1e-12
+
+
+def test_kernel12_layout(cases):
+    """What the wrapper and the plan tell kernel 12: QR_PANEL is
+    csrc/sn_qr.cu's panel width kNb (it sizes the scratch's panel blocks
+    and the CTAs' shares); each front's scratch offset steps by its rows
+    rounded up to 16 times its columns; the scratch holds every level's
+    fronts and panel blocks; qr_ctas gives a level its share of the SMs,
+    at most a front's column tiles, at least one CTA a front."""
+    with open(os.path.join(REPO, "gtsam_torch", "csrc", "sn_qr.cu")) as f:
+        assert f"constexpr int kNb = {K.QR_PANEL};" in f.read()
+    ts = cases["SE3", "soft"].ts
+    qp = ts._qr_plan()
+    for ql in qp.levels:
+        C = (ql.W + ql.R) * ql.d
+        step = K.qr_ld(ql.m.long()) * C
+        assert torch.equal(ql.foff, torch.cumsum(step, 0) - step)
+        assert ql.fsize == int(step.sum())
+    need = max(K.qr_scratch_doubles(ql) for ql in qp.levels)
+    assert need > max(ql.fsize for ql in qp.levels)
+    assert K.qr_ctas(1, 660, 132) == -(-660 // K.QR_PANEL)
+    assert K.qr_ctas(58, 348, 132) == 2
+    assert K.qr_ctas(200, 348, 132) == 1
+
+
 # -- the optimizers on the sparse QR -------------------------------------------------
 
 QR_LM = dict(max_iterations=10, relative_error_tol=1e-9,
