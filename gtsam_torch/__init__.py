@@ -7,7 +7,8 @@ The hot path of Schur bundle adjustment runs in hand-written CUDA kernels
 """
 
 from .config import default_dtype, resolve_device
+from .linear.pcg import PCGSolver, SubgraphPCGSolver
 from .optimize.optimizers import LMParams, OptimizerParams, check_convergence
 
 __all__ = ["default_dtype", "resolve_device", "LMParams", "OptimizerParams",
-           "check_convergence"]
+           "check_convergence", "PCGSolver", "SubgraphPCGSolver"]

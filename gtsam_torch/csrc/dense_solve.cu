@@ -310,7 +310,9 @@ __device__ __forceinline__ void receive(const T* out, int n, int k, T* vk) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) dense_forward_kernel(
     int n, int ld, int P, const T* __restrict__ L,
-    const T* __restrict__ Dinv, const T* __restrict__ b, T* y) {
+    const T* __restrict__ Dinv, const T* __restrict__ b, T* y,
+    const int* stop) {
+  if (stop != nullptr && *stop) return;   // a CG loop is done: every CTA
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ T vk[2][kNB];
   const int G = gridDim.x, me = blockIdx.x, lane = threadIdx.x & 31;
@@ -357,7 +359,9 @@ __global__ void __launch_bounds__(kThreads, 1) dense_forward_kernel(
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) dense_backward_kernel(
     int n, int ld, int P, const T* __restrict__ L,
-    const T* __restrict__ Dinv, const T* __restrict__ y, T* x) {
+    const T* __restrict__ Dinv, const T* __restrict__ y, T* x,
+    const int* stop) {
+  if (stop != nullptr && *stop) return;   // a CG loop is done: every CTA
   constexpr int kG = kGroups<T>, kR = kGroupRows<T>, kV = kVec<T>;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ T vk[2][kNB];
@@ -418,9 +422,9 @@ __global__ void __launch_bounds__(kThreads, 1) dense_backward_kernel(
 // partial sums in dynamic shared memory.
 template <typename T>
 int launch_solve(void (*kernel)(int, int, int, const T*, const T*, const T*,
-                                T*),
+                                T*, const int*),
                  int groups, int n, int ld, cudaStream_t stream, const T* L,
-                 const T* Dinv, const T* in, T* out) {
+                 const T* Dinv, const T* in, T* out, const int* stop) {
   const int P = (n + kNB - 1) / kNB;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -448,51 +452,52 @@ int launch_solve(void (*kernel)(int, int, int, const T*, const T*, const T*,
   cfg.stream = stream;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, n, ld, P, L, Dinv, in, out);
+  e = cudaLaunchKernelEx(&cfg, kernel, n, ld, P, L, Dinv, in, out, stop);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int forward(int n, int ld, const T* L, const T* Dinv, const T* b, T* y,
-            void* stream) {
+            const int* stop, void* stream) {
   return launch_solve<T>(dense_forward_kernel<T>, 0, n, ld,
-                         (cudaStream_t)stream, L, Dinv, b, y);
+                         (cudaStream_t)stream, L, Dinv, b, y, stop);
 }
 
 template <typename T>
 int backward(int n, int ld, const T* L, const T* Dinv, const T* y, T* x,
-             void* stream) {
+             const int* stop, void* stream) {
   return launch_solve<T>(dense_backward_kernel<T>, kGroups<T>, n, ld,
-                         (cudaStream_t)stream, L, Dinv, y, x);
+                         (cudaStream_t)stream, L, Dinv, y, x, stop);
 }
 
 }  // namespace
 
 // L: n x n row-major factor (lower triangle), rows ld entries apart;
 // Dinv: ceil(n / 128) x 128 x 128; b, y: n, y filled with kPending.
-// y = L^-1 b.
+// y = L^-1 b.  stop: null, or a word where the launch returns at once when
+// it is set (the done word of a CG loop, linear/pcg.py).
 GT_EXPORT int gt_dense_forward(int n, int ld, const double* L,
                                const double* Dinv, const double* b, double* y,
-                               void* stream) {
-  return forward<double>(n, ld, L, Dinv, b, y, stream);
+                               const int* stop, void* stream) {
+  return forward<double>(n, ld, L, Dinv, b, y, stop, stream);
 }
 
 GT_EXPORT int gt_dense_forward_f32(int n, int ld, const float* L,
                                    const float* Dinv, const float* b,
-                                   float* y, void* stream) {
-  return forward<float>(n, ld, L, Dinv, b, y, stream);
+                                   float* y, const int* stop, void* stream) {
+  return forward<float>(n, ld, L, Dinv, b, y, stop, stream);
 }
 
-// y, x: n, x filled with kPending.  x = L^-T y.
+// y, x: n, x filled with kPending.  x = L^-T y.  stop: as above.
 GT_EXPORT int gt_dense_backward(int n, int ld, const double* L,
                                 const double* Dinv, const double* y,
-                                double* x, void* stream) {
-  return backward<double>(n, ld, L, Dinv, y, x, stream);
+                                double* x, const int* stop, void* stream) {
+  return backward<double>(n, ld, L, Dinv, y, x, stop, stream);
 }
 
 GT_EXPORT int gt_dense_backward_f32(int n, int ld, const float* L,
                                     const float* Dinv, const float* y,
-                                    float* x, void* stream) {
-  return backward<float>(n, ld, L, Dinv, y, x, stream);
+                                    float* x, const int* stop, void* stream) {
+  return backward<float>(n, ld, L, Dinv, y, x, stop, stream);
 }

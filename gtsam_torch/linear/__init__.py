@@ -1,1 +1,3 @@
-"""The supernodal sparse Cholesky and its kernels (torch counterpart of gtsam_tpu.linear)."""
+"""Sparse and dense linear solvers and their kernels: the supernodal and
+level-scheduled sparse Cholesky, PCG, the Kalman filters and the sparse
+export (torch counterpart of gtsam_tpu.linear)."""

@@ -42,13 +42,13 @@ KERNELS = _kernels.table(
     Kernel("dense_factor_diag_f32", "dense_factor", "factor_diag",
            f"{_DENSE}:83", [INT, INT, INT, P, P, P]),
     Kernel("dense_forward", "dense_solve", "solve_forward",
-           f"{_DENSE}:121", [INT, INT, P, P, P, P]),
+           f"{_DENSE}:121", [INT, INT, P, P, P, P, P]),
     Kernel("dense_forward_f32", "dense_solve", "solve_forward",
-           f"{_DENSE}:121", [INT, INT, P, P, P, P]),
+           f"{_DENSE}:121", [INT, INT, P, P, P, P, P]),
     Kernel("dense_backward", "dense_solve", "solve_backward",
-           f"{_DENSE}:134", [INT, INT, P, P, P, P]),
+           f"{_DENSE}:134", [INT, INT, P, P, P, P, P]),
     Kernel("dense_backward_f32", "dense_solve", "solve_backward",
-           f"{_DENSE}:134", [INT, INT, P, P, P, P]),
+           f"{_DENSE}:134", [INT, INT, P, P, P, P, P]),
 )
 
 # Kernel 11's output is also its channel between CTAs: each entry is
@@ -148,13 +148,16 @@ def solve_backward_plain(L, Dinv, y, x):
     return x
 
 
-def _solve_specs(name, L, Dinv, u, v):
+def _solve_specs(name, L, Dinv, u, v, stop):
     """Check kernel 11's arguments and fill its output with PENDING;
     returns (device, n)."""
     n = _square(name, "L", L)
-    dev = check(name, ("L", L, L.dtype, (n, n), ROWS),
-                ("Dinv", Dinv, L.dtype, (panels(n), PANEL, PANEL)),
-                ("rhs", u, L.dtype, (n,)), ("out", v, L.dtype, (n,)))
+    specs = [("L", L, L.dtype, (n, n), ROWS),
+             ("Dinv", Dinv, L.dtype, (panels(n), PANEL, PANEL)),
+             ("rhs", u, L.dtype, (n,)), ("out", v, L.dtype, (n,))]
+    if stop is not None:
+        specs.append(("stop", stop, I32, (stop.shape[0],)))
+    dev = check(name, *specs)
     if u.data_ptr() == v.data_ptr():
         raise ValueError(f"{name}: rhs and out must not share memory")
     word, bits = PENDING[L.dtype]
@@ -162,26 +165,33 @@ def _solve_specs(name, L, Dinv, u, v):
     return dev, n
 
 
-def solve_forward(L, Dinv, b, y):
+def _stopped(stop):
+    return stop is not None and bool(stop[0])
+
+
+def solve_forward(L, Dinv, b, y, stop=None):
     """Kernel 11, forward: y = L^-1 b, from the factor's lower triangle and
     its panels' inverses (factor_diag).  On the card one cooperative launch
-    (and the fill of y that marks its entries unwritten)."""
-    if on_cpu(L, Dinv, b, y):
-        return solve_forward_plain(L, Dinv, b, y)
+    (and the fill of y that marks its entries unwritten).  stop: an int32
+    word (a CG loop's done word) where the launch returns at once when it
+    is set, or None."""
+    if on_cpu(L, Dinv, b, y, *([stop] if stop is not None else [])):
+        return y if _stopped(stop) else solve_forward_plain(L, Dinv, b, y)
     name = _variant("dense_forward", "L", L)
-    dev, n = _solve_specs(name, L, Dinv, b, y)
+    dev, n = _solve_specs(name, L, Dinv, b, y, stop)
     KERNELS[name].launch(dev, n, L.stride(0), ptr(L), ptr(Dinv), ptr(b),
-                         ptr(y))
+                         ptr(y), ptr(stop) if stop is not None else 0)
     return y
 
 
-def solve_backward(L, Dinv, y, x):
+def solve_backward(L, Dinv, y, x, stop=None):
     """Kernel 11, backward: x = L^-T y.  On the card one cooperative launch
-    (and the fill of x that marks its entries unwritten)."""
-    if on_cpu(L, Dinv, y, x):
-        return solve_backward_plain(L, Dinv, y, x)
+    (and the fill of x that marks its entries unwritten); stop as
+    solve_forward's."""
+    if on_cpu(L, Dinv, y, x, *([stop] if stop is not None else [])):
+        return x if _stopped(stop) else solve_backward_plain(L, Dinv, y, x)
     name = _variant("dense_backward", "L", L)
-    dev, n = _solve_specs(name, L, Dinv, y, x)
+    dev, n = _solve_specs(name, L, Dinv, y, x, stop)
     KERNELS[name].launch(dev, n, L.stride(0), ptr(L), ptr(Dinv), ptr(y),
-                         ptr(x))
+                         ptr(x), ptr(stop) if stop is not None else 0)
     return x

@@ -59,6 +59,11 @@ def get_lib() -> ctypes.CDLL:
             lib.symbolic_analyze.argtypes = [ctypes.c_int32, i64, i32, i32,
                                              i32, i64, i32, ctypes.c_int64]
             lib.symbolic_analyze.restype = ctypes.c_int64
+            lib.count_triples.argtypes = [ctypes.c_int32, i64]
+            lib.count_triples.restype = ctypes.c_int64
+            lib.emit_triples.argtypes = [ctypes.c_int32, i64, i32, i64, i32,
+                                         i32, i32, i32, i32, i32]
+            lib.emit_triples.restype = ctypes.c_int64
             lib.amd_order.argtypes = [ctypes.c_int32, i64, i32, i32,
                                       ctypes.POINTER(ctypes.c_uint8)]
             lib.amd_order.restype = ctypes.c_int32
@@ -94,6 +99,29 @@ def symbolic_analyze(n, nbr_indptr, nbr):
             return parent, level, struct_indptr, struct_rows[:total]
         cap *= 4
     raise RuntimeError("symbolic_analyze: the factor's structure does not fit")
+
+
+def emit_triples(n, struct_indptr, struct_rows, sub_base, dblock,
+                 level_of_col):
+    """The update triples of the symbolic factor (target, ik, jk block ids
+    and the target column's level), column k after column k, as the JAX
+    package's emit_triples_native lists them."""
+    lib = get_lib()
+    struct_indptr = np.ascontiguousarray(struct_indptr, dtype=np.int64)
+    struct_rows = np.ascontiguousarray(struct_rows, dtype=np.int32)
+    sub_base = np.ascontiguousarray(sub_base, dtype=np.int64)
+    dblock = np.ascontiguousarray(dblock, dtype=np.int32)
+    level_of_col = np.ascontiguousarray(level_of_col, dtype=np.int32)
+    total = lib.count_triples(ctypes.c_int32(n),
+                              _ptr(struct_indptr, ctypes.c_int64))
+    out = [np.empty(total, dtype=np.int32) for _ in range(4)]
+    lib.emit_triples(
+        ctypes.c_int32(n), _ptr(struct_indptr, ctypes.c_int64),
+        _ptr(struct_rows, ctypes.c_int32), _ptr(sub_base, ctypes.c_int64),
+        _ptr(dblock, ctypes.c_int32),
+        *(_ptr(a, ctypes.c_int32) for a in out),
+        _ptr(level_of_col, ctypes.c_int32))
+    return tuple(out)
 
 
 def amd_order(n, indptr, indices, constrained_last=None):

@@ -10,9 +10,11 @@ DenseSolver (normal equations, small graphs; an exact KKT solve for the
 hard rows of constrained noise), DenseQRSolver (dense QR of the whitened
 rows) and SparseSolver (the supernodal Cholesky or, method="qr", the
 multifrontal QR, linear/supernodal.py; hard rows by the method of
-weighting and three augmented-Lagrangian passes).  A system is (H-like,
-g) or, with hard rows, (H-like, g, C, c); the sparse QR's carries the
-Jacobian rows too.
+weighting and three augmented-Lagrangian passes; method="levels", the
+level-scheduled sparse Cholesky, linear/sparse.py); linear/pcg.py's
+PCGSolver and SubgraphPCGSolver plug in the same way.  A system is
+(H-like, g) or, with hard rows, (H-like, g, C, c); the sparse QR's carries
+the Jacobian rows too.
 """
 
 import copy
@@ -27,6 +29,7 @@ from ..base.noise import NoiseModel
 from ..config import resolve_device
 from ..graph.graph import BoundGraph, FactorGraph
 from ..graph.values import Values, arrays_to, retract_arrays
+from ..linear.sparse import SparseCholeskySolver
 from ..linear.supernodal import SupernodalCholeskySolver
 
 
@@ -257,8 +260,13 @@ class SparseSolver:
     whose system also carries the Jacobian rows (kernel 6's Jacobian mode,
     once an iteration), a solve factorizing them with kernel 12 and
     refining against the Gram matvec; plain lambda damping only, no
-    gain-ratio denominator.  The JAX package's method="levels" is not
-    ported.
+    gain-ratio denominator; or, method="levels", the level-scheduled sparse
+    Cholesky (linear/sparse.py: kernels 13 and 14 a level, the dense root
+    on kernels 10 and 11) with plain lambda damping (diagonal_damping is
+    ignored, as in the JAX package), no refinement and no gain-ratio
+    denominator.  method="levels" refuses hard rows at bind (the JAX
+    package's levels path fails on them with a TypeError in
+    _solve_constrained).
 
     Hard (constrained) rows: bind() softens them to precision
     constraint_weight^2 (method of weighting; 1e3 by default), and a solve
@@ -276,7 +284,7 @@ class SparseSolver:
                  constraint_weight: Optional[float] = None,
                  refine_iters: Optional[int] = None,
                  supernodal_kwargs: Optional[dict] = None):
-        if method not in ("supernodal", "qr"):
+        if method not in ("supernodal", "qr", "levels"):
             raise NotImplementedError(f"SparseSolver method {method!r} is "
                                       "not ported yet")
         self._method = method
@@ -293,6 +301,15 @@ class SparseSolver:
         noise models."""
         self._orig_bound = bound
         self._w = None
+        if self._method == "levels":
+            if bound.num_constraints:
+                raise NotImplementedError(
+                    "SparseSolver(method='levels') does not support "
+                    "constrained (sigma==0) noise; use the supernodal "
+                    "method")
+            self._s = SparseCholeskySolver(bound, order=self._order)
+            self.store = None
+            return self
         if bound.num_constraints:
             self._w = CONSTRAINT_WEIGHT if self._cweight is None \
                 else self._cweight
@@ -318,6 +335,10 @@ class SparseSolver:
         if qr and diagonal_damping:
             raise NotImplementedError(
                 "sparse QR supports plain lambda damping only")
+        if self._method == "levels":
+            blocks, g = system
+            factored = self._s.factorize(blocks, lam)
+            return self._s.solve_factored(factored, g), factored.ok
         if len(system) == 4 + qr:
             return self._solve_constrained(system, lam, diagonal_damping)
         if qr:
@@ -361,7 +382,8 @@ class SparseSolver:
 
     def check_system(self, arrays, lam=0.0):
         """Raise IndeterminantLinearSystemError on a bad pivot (the
-        supernodal Cholesky's; the JAX package checks no QR system)."""
+        supernodal Cholesky's; the JAX package checks no QR or levels
+        system)."""
         if self._method == "supernodal":
             self._s.check_system(arrays, lam)
 
@@ -662,8 +684,9 @@ def dogleg(graph: FactorGraph, initial: Values, params: DoglegParams = None,
     constrained = bool(bound.num_constraints)
     if isinstance(solver, SparseSolver) and solver._method != "supernodal" \
             and not constrained:
-        raise NotImplementedError("dogleg's sparse path takes the supernodal "
-                                  "Cholesky, not SparseSolver(method='qr')")
+        raise NotImplementedError(
+            "dogleg's sparse path takes the supernodal Cholesky, not "
+            f"SparseSolver(method={solver._method!r})")
     err_bound = bound
     if constrained:
         # the method-of-weighting objective drives the Cauchy leg and the

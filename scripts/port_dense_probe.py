@@ -215,12 +215,12 @@ def kernel11(torch, n, _build, _kernels):
             calls = {}
             for d, rhs, o in (("forward", b, y), ("backward", y, x)):
                 f = getattr(lib, f"gt_dense_{d}{sfx}")
-                f.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                f.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
 
                 def call(f=f, rhs=rhs, o=o):
                     o.view(word).fill_(bits)   # the entries unwritten
                     if f(n, L.stride(0), L.data_ptr(), Dinv.data_ptr(),
-                         rhs.data_ptr(), o.data_ptr(), stream):
+                         rhs.data_ptr(), o.data_ptr(), None, stream):
                         raise RuntimeError("kernel 11 launch failed")
                 calls[d] = call
             calls["forward"]()

@@ -19,7 +19,10 @@ from gtsam_torch.geometry.se3 import SE3
 from gtsam_torch.graph import factors as tfactors
 from gtsam_torch.graph.graph import BoundGraph, FactorGraph
 from gtsam_torch.graph.values import Values
-from gtsam_torch.linear import dense_blocked, dense_kernels, supernodal_kernels
+from gtsam_torch.linear import (dense_blocked, dense_kernels, sparse_kernels,
+                                supernodal_kernels)
+from gtsam_torch.linear.pcg import PCGSolver, SubgraphPCGSolver
+from gtsam_torch.linear.sparse import SparseCholeskySolver
 from gtsam_torch.linear.supernodal import SupernodalCholeskySolver
 from gtsam_torch.optimize import optimizers
 from gtsam_torch.sfm import ba, ba_kernels, synthetic
@@ -91,8 +94,9 @@ def test_working_dtype():
 
 
 def test_cpu_path_counts_no_launch():
-    """BA (both modes) and the pose-graph LM on the CPU launch no kernel;
-    the launch counts cover both kernel tables."""
+    """BA (both modes) and the pose-graph LM (the supernodal and the
+    level-scheduled Cholesky, PCG, the subgraph preconditioner) on the CPU
+    launch no kernel; the launch counts cover every kernel table."""
     prob = synthetic.make_bal_problem(6, 40, 3, seed=0)
     _kernels.reset_launch_counts()
     _, info = ba.ba_optimize(prob, device="cpu")
@@ -105,13 +109,21 @@ def test_cpu_path_counts_no_launch():
         graph, vals, optimizers.LMParams(max_iterations=3),
         solver=optimizers.SparseSolver(refine_iters=1), device="cpu")
     assert np.isfinite(fn(vals.arrays)[2])
+    for solver in (optimizers.SparseSolver(method="levels"), PCGSolver(),
+                   SubgraphPCGSolver()):
+        res = optimizers.levenberg_marquardt(
+            graph, vals, optimizers.LMParams(max_iterations=2),
+            solver=solver, device="cpu")
+        assert np.isfinite(res.error)
     base = {"bal_linearize", "ba_point_eliminate", "ba_camera_assemble",
             "ba_pair_assemble"}
     assert set(_kernels.launch_counts()) == (
         base | {k + "_f32" for k in base}
         | {"bal_error", "ba_back_substitute", "ba_schur_matvec"}
-        | set(supernodal_kernels.KERNELS) | set(dense_kernels.KERNELS))
+        | set(supernodal_kernels.KERNELS) | set(dense_kernels.KERNELS)
+        | set(sparse_kernels.KERNELS))
     assert len(supernodal_kernels.KERNELS) == 14
+    assert len(sparse_kernels.KERNELS) == 7
     assert all(n == 0 for n in _kernels.launch_counts().values())
 
 
@@ -151,7 +163,44 @@ def _meta_args(name, K=10, M=3, N=4, P=20, U=5):
                             f(N, 3, 3), f(N, 3)),
         "schur_matvec": (i(N + 1), i(2), i(K), i(K), i(M + 1), i(K),
                          f(K, 9, 3), f(K, 9, 3), f(M, 9, 9), f(M, 9)),
-    }.get(name) or _meta_args_dense(name) or _meta_args_pg(name)
+    }.get(name) or _meta_args_dense(name) or _meta_args_sparse(name) \
+        or _meta_args_pg(name)
+
+
+def _meta_args_sparse(name, B=10, n=5, J=3, T=2, nv=4, Q=8):
+    """Well-formed arguments of each wrapper of kernels 13-16 (d = 6) on
+    the meta device, or None for another name."""
+    if name not in sparse_kernels.KERNELS:
+        return None
+
+    def f(*shape):
+        return torch.empty(shape, dtype=torch.float64, device="meta")
+
+    def i(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+
+    vec = [f(6 * nv) for _ in range(6)]
+    return {
+        "sp_level_factor": (f(B, 36), i(J), i(J + 1), i(5), i(6), i(7), i(7),
+                            f(n, 6), 0.1, f(B, 36), i(J)),
+        "sp_tail_assemble": (f(B, 36), f(B, 36), i(T * T), i(3), i(4), i(5),
+                             i(5), i(T), f(n, 6), 0.1, f(6 * T, 6 * T)),
+        "sp_level_forward": (f(B, 36), f(6 * n), i(6 * n), f(n, 6), i(J),
+                             i(J), i(J), i(J + 1), i(4), i(4), f(n, 6),
+                             True),
+        "sp_level_backward": (f(B, 36), f(n, 6), f(n + T, 6), i(6 * n),
+                              i(J), i(J), i(J), i(J + 1), i(4), i(4),
+                              f(6 * nv)),
+        "pcg_jacobi": (f(Q, 6, 6), i(nv + 1), i(Q), i(nv), f(nv, 6, 6)),
+        "pcg_matvec": (f(Q, 6, 6), f(6 * nv), i(nv + 1), i(Q), i(Q), i(5),
+                       i(Q), i(nv), i(nv), 0.1, f(6 * nv),
+                       f(sparse_kernels.ST_SIZE),
+                       i(sparse_kernels.IST_SIZE)),
+        "pcg_step": (sparse_kernels.UPDATE, f(nv, 6, 6), f(nv, 6, 6), *vec,
+                     i(nv), i(nv), 0.1, 1e-9, 10, True, False,
+                     f(sparse_kernels.ST_SIZE),
+                     i(sparse_kernels.IST_SIZE)),
+    }[name]
 
 
 def _meta_args_dense(name, n=130):
@@ -235,10 +284,12 @@ WRAPPERS = ["linearize", "error", "point_eliminate", "camera_assemble",
             "point_eliminate_f32", "camera_assemble_f32", "pair_assemble_f32",
             "schur_matvec"] + sorted(supernodal_kernels.KERNELS) + [
                 "factor_diag", "factor_diag_f32", "solve_forward",
-                "solve_forward_f32", "solve_backward", "solve_backward_f32"]
+                "solve_forward_f32", "solve_backward", "solve_backward_f32"
+            ] + sorted(sparse_kernels.KERNELS)
 TABLES = {ba_kernels: ba_kernels.KERNELS,
           supernodal_kernels: supernodal_kernels.KERNELS,
-          dense_kernels: dense_kernels.KERNELS}
+          dense_kernels: dense_kernels.KERNELS,
+          sparse_kernels: sparse_kernels.KERNELS}
 DENSE_WRAPPERS = ("factor_diag", "solve_forward", "solve_backward")
 
 
@@ -246,6 +297,8 @@ def _module(name):
     """The kernel table's module whose wrapper a case of WRAPPERS names."""
     if name.removesuffix("_f32") in DENSE_WRAPPERS:
         return dense_kernels
+    if name in sparse_kernels.KERNELS:
+        return sparse_kernels
     return supernodal_kernels if name in supernodal_kernels.KERNELS \
         else ba_kernels
 
@@ -377,7 +430,75 @@ def _cpu_args(name):
                             C, gl),
         "schur_matvec": (plan.pt_ptr, plan.pt_tile, plan.obs_cam, plan.obs_pt,
                          plan.cam_ptr, plan.cam_obs, W, WC, *Hpp_d, dc),
-    }.get(name) or _cpu_args_dense(name) or _cpu_args_pg(name)
+    }.get(name) or _cpu_args_dense(name) or _cpu_args_sparse(name) \
+        or _cpu_args_pg(name)
+
+
+def _cpu_args_sparse(name):
+    """Arguments of each wrapper of kernels 13-16 at the shapes the level
+    solver and PCG give them, from the small pose graph (a plan with leading
+    levels and a dense root; the second leading level, the root, the first
+    forward and backward launches), on the CPU; made anew at each call, or
+    None for another name."""
+    if name not in sparse_kernels.KERNELS:
+        return None
+    graph, vals = _small_pose_graph()
+    bound = BoundGraph(graph, vals, "cpu")
+    s = SparseCholeskySolver(bound, min_level_cols=2)
+    assert s.L_cut >= 2 and s.n_tail > 0
+    dv, d, n, T = s.dev, s.d, s.nvars, s.n_tail
+    blocks, g = s.system(vals.arrays)
+    f = s.factorize(blocks, 0.3)
+    # the factor's leading blocks (the root's blocks of the store are never
+    # written), and the same with the second level's blocks zeroed
+    lead = torch.as_tensor(s.f_cblk, dtype=torch.long)
+    Lf = torch.zeros_like(f.L)
+    Lf[lead] = f.L[lead]
+    L = Lf.clone()
+    c0, c1 = s.lev_off[1], s.lev_off[2]
+    rows = torch.as_tensor(s.f_cblk[s.f_cptr[c0]:s.f_cptr[c1]])
+    L[rows] = 0.0
+    rng = np.random.default_rng(6)
+    fw, bw = dv.fw, dv.bw
+    j0, j1, _ = s._fw_slices[0]
+    b0, b1, _ = s._bw_slices[0]
+    ps = PCGSolver().bind(bound)
+    pool, gp, diag = ps.system(vals.arrays)
+    pl = ps._plan
+    st, ist = ps._state("cpu")
+    st[sparse_kernels.GAMMA], st[sparse_kernels.PAP] = 2.0, 3.0
+    vec = [torch.as_tensor(rng.normal(size=gp.shape[0])) for _ in range(6)]
+    Minv = torch.linalg.inv(diag)
+    return {
+        "sp_level_factor": (blocks, dv.f_cols[c0:c1], dv.f_cptr[c0:c1 + 1],
+                            dv.f_cblk, dv.f_tptr, dv.f_tik, dv.f_tjk,
+                            dv.pad_diag, 0.3, L,
+                            torch.zeros(c1 - c0, dtype=torch.int32)),
+        "sp_tail_assemble": (blocks, Lf, dv.t_map, dv.t_bid, dv.l_ptr,
+                             dv.l_ik, dv.l_jk, dv.t_cols, dv.pad_diag, 0.3,
+                             torch.zeros((T * d, T * d),
+                                         dtype=torch.float64)),
+        "sp_level_forward": (Lf, g.reshape(-1), None,
+                             torch.as_tensor(rng.normal(size=(n, d))),
+                             fw["cols"][j0:j1], fw["rows"][j0:j1],
+                             fw["dbid"][j0:j1], fw["ptr"][j0:j1 + 1],
+                             fw["fbid"], fw["fsrc"],
+                             torch.zeros((n, d), dtype=torch.float64), True),
+        "sp_level_backward": (Lf, torch.as_tensor(rng.normal(size=(n, d))),
+                              torch.as_tensor(rng.normal(size=(n + T, d))),
+                              dv.map_canon, bw["cols"][b0:b1],
+                              bw["rows"][b0:b1], bw["dbid"][b0:b1],
+                              bw["ptr"][b0:b1 + 1], bw["bbid"], bw["bsrc"],
+                              torch.zeros(s.layout.total_dim,
+                                          dtype=torch.float64)),
+        "pcg_jacobi": (pool, pl["vptr"], pl["vslot"], pl["var_dim"],
+                       torch.zeros_like(diag)),
+        "pcg_matvec": (pool, vec[0], *ps._mv_plan(), 0.2,
+                       torch.zeros_like(gp), st, ist),
+        "pcg_step": (sparse_kernels.UPDATE, diag, Minv, gp, *vec[:5],
+                     pl["var_off"], pl["var_dim"], 0.2, 1e-9, 10, True,
+                     False, st, ist),
+    }[name]
 
 
 def _cpu_args_dense(name, n=150):

@@ -232,16 +232,18 @@ def test_noise_whiten_and_error(kind):
 
 def test_unported_noise_and_manifolds_raise():
     """What the port still refuses: a type still unported (Sim2, and
-    Between of it), an unknown noise kind or manifold, SparseSolver's
-    method="levels", and diagonal damping under the sparse QR (as the JAX
-    package refuses it).  SE2 and its between factors build
+    Between of it), an unknown noise kind or manifold, a SparseSolver
+    method it does not know, and diagonal damping under the sparse QR (as
+    the JAX package refuses it).  SE2 and its between factors build
     (tests/test_torch_pose2.py), as do robust and constrained noise
-    (tests/test_torch_robust.py, tests/test_torch_constrained.py) and
-    SparseSolver(method="qr") (tests/test_torch_qr.py)."""
+    (tests/test_torch_robust.py, tests/test_torch_constrained.py),
+    SparseSolver(method="qr") (tests/test_torch_qr.py) and
+    SparseSolver(method="levels") (tests/test_torch_sparse.py)."""
     with pytest.raises(NotImplementedError):
         tnoise.NoiseModel("isotropic_robust")
     with pytest.raises(NotImplementedError):
-        TO.SparseSolver(method="levels")
+        TO.SparseSolver(method="multifrontal_lu")
+    assert TO.SparseSolver(method="levels")._method == "levels"
     with pytest.raises(NotImplementedError):
         TO.SparseSolver(method="qr").solve((None, None, None), 1e-3, True)
     with pytest.raises(NotImplementedError):

@@ -1,0 +1,451 @@
+"""Parity of gtsam_torch's level-scheduled sparse Cholesky and the small
+linear modules beside it with gtsam_tpu's (CPU).
+
+The symbolic analysis (native and Python paths), SparseCholeskySolver
+(system, each level's factor, the dense root's factor, the solve) and
+SparseSolver(method="levels") under levenberg_marquardt, held to the JAX
+package on the same seeded graphs; the Kalman filters, the sparse export
+and the union-find.  The JAX side runs float64 (tests/conftest.py turns x64
+on) and eagerly where the JAX package allows; the torch side float64 on
+the CPU, where every kernel wrapper computes its plain PyTorch version.
+Graphs: a 6-ring x 8-pose sphere (SE3, chordal start), a 60-pose Manhattan
+world (SE2, LAGO start), an SE2 + Point2 graph with loop closures and
+landmarks (the 3-wide store pads the landmarks' 2 dimensions) and an SE3 +
+Point3 graph (6-wide, Point3 padded by 3).  Tolerances, each stated where
+it is used.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gtsam_tpu as gt
+from gtsam_tpu.base import noise as jnoise
+from gtsam_tpu.geometry import se2 as jse2
+from gtsam_tpu.graph import factors as jfactors
+from gtsam_tpu.graph.graph import FactorGraph as JGraph
+from gtsam_tpu.graph.values import Values as JValues
+from gtsam_tpu.inference import ordering as jordering
+from gtsam_tpu.inference import symbolic as jsymbolic
+from gtsam_tpu.linear import kalman as jkalman
+from gtsam_tpu.linear import sparse_export as jexport
+from gtsam_tpu.linear.sparse import SparseCholeskySolver as JSparse
+from gtsam_tpu.optimize import optimizers as JO
+
+from gtsam_torch import _kernels
+from gtsam_torch.base import dsf
+from gtsam_torch.base import noise as tnoise
+from gtsam_torch.geometry import se2
+from gtsam_torch.graph import factors as tfactors
+from gtsam_torch.graph.graph import BoundGraph, FactorGraph
+from gtsam_torch.graph.values import Values
+from gtsam_torch.inference import symbolic as tsymbolic
+from gtsam_torch.linear import kalman as tkalman
+from gtsam_torch.linear import sparse_export as texport
+from gtsam_torch.linear.sparse import SparseCholeskySolver
+from gtsam_torch.optimize import optimizers as TO
+from .test_torch_optimizers import _graphs, _mixed, _rel
+
+GRAPHS = ["SE3", "SE2", "SE2_Point2", "SE3_Point3"]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _se2_point2(seed=7, n=24, nl=5):
+    """(JAX graph, JAX values, torch graph, torch values): an SE2 chain
+    with a prior and six loop closures, and nl Point2 landmarks each seen
+    from three poses (a pose-frame position, sigma 0.1)."""
+    rng = np.random.default_rng(seed)
+    T = np.concatenate([np.arange(n)[:, None] * np.array([[1.0, 0.0]])
+                        + rng.normal(size=(n, 2)) * 0.1,
+                        rng.normal(size=(n, 1)) * 0.1], 1)
+    i = np.concatenate([np.arange(n - 1), rng.integers(0, n - 8, 6)])
+    j = np.concatenate([np.arange(1, n), i[n - 1:] + rng.integers(4, 8, 6)])
+    Z = np.asarray(jse2.between(jnp.asarray(T[i]), jnp.asarray(T[j])))
+    Z = Z + rng.normal(size=Z.shape) * 0.02
+    pts = rng.normal(size=(nl, 2)) * 3.0 + np.array([n / 2, 2.0])
+    op = rng.integers(0, n, 3 * nl)
+    ol = np.repeat(np.arange(nl), 3)
+    z = np.asarray(jse2.transform_to(jnp.asarray(T[op]),
+                                     jnp.asarray(pts[ol])))
+    z = z + rng.normal(size=z.shape) * 0.1
+    T0 = T + rng.normal(size=T.shape) * 0.05
+    pts0 = pts + rng.normal(size=pts.shape) * 0.3
+    keys = np.stack([op, ol + 100], 1)
+    info = np.diag([100.0, 100.0, 400.0])
+    prior = [[0.1, 0.1, 0.05]]
+    jg, tg = JGraph(), FactorGraph()
+    jg.add(jfactors.between_factors("SE2", i, j, jnp.asarray(Z),
+                                    jnoise.information(info)))
+    jg.add(gt.prior_factors("SE2", [0], T0[:1], jnoise.sigmas(prior)))
+    jg.add(jfactors.custom_factors(
+        "Obs", ("SE2", "Point2"), keys,
+        lambda xs, m: jse2.transform_to(xs[0], xs[1]) - m, 2,
+        jnp.asarray(z), jnoise.isotropic(2, 0.1)))
+    tg.add(tfactors.between_factors("SE2", i, j, Z,
+                                    tnoise.information(info)))
+    tg.add(tfactors.prior_factors("SE2", [0], T0[:1], tnoise.sigmas(prior)))
+    tg.add(tfactors.custom_factors(
+        "Obs", ("SE2", "Point2"), keys,
+        lambda xs, m: se2.transform_to(xs[0], xs[1]) - m, 2, z,
+        tnoise.isotropic(2, 0.1)))
+    keys_pt = np.arange(nl) + 100
+    jv = JValues({"SE2": jnp.asarray(T0), "Point2": jnp.asarray(pts0)},
+                 {"SE2": np.arange(n), "Point2": keys_pt})
+    tv = Values({"SE2": torch.as_tensor(T0), "Point2": torch.as_tensor(pts0)},
+                {"SE2": np.arange(n), "Point2": keys_pt})
+    return jg, jv, tg, tv
+
+
+@pytest.fixture(scope="module")
+def graphs(tmp_path_factory):
+    """{name: (JAX graph, JAX start, torch graph, torch start)}."""
+    tmp = str(tmp_path_factory.mktemp("sparse"))
+    return {"SE3": _graphs("SE3", tmp), "SE2": _graphs("SE2", tmp),
+            "SE2_Point2": _se2_point2(), "SE3_Point3": _mixed()}
+
+
+def _bound(graphs, name):
+    jg, jv, tg, tv = graphs[name]
+    return jg.bind(jv), jv, BoundGraph(tg, tv, "cpu"), tv
+
+
+# -- the symbolic analysis ---------------------------------------------------
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "python"])
+@pytest.mark.parametrize("name", GRAPHS)
+def test_symbolic_matches(graphs, name, native):
+    """The port's analyze, native and Python, gives the JAX package's
+    blocks, elimination tree, levels and update triples exactly (the same
+    adjacency and nested-dissection order)."""
+    jb, _, tb, _ = _bound(graphs, name)
+    s = SparseCholeskySolver(tb)
+    adj = jordering.adjacency_from_factors(s.batch_var_ids, s.nvars)
+    ref = jsymbolic.analyze(adj, s.sym.perm)
+    got = tsymbolic.analyze(adj, s.sym.perm, native=native)
+    assert got.n == ref.n and got.nnz_blocks == ref.nnz_blocks
+    for f in ("perm", "inv_perm", "parent", "block_row", "block_col",
+              "col_level", "diag_block_by_col"):
+        assert np.array_equal(getattr(got, f), getattr(ref, f)), f
+    assert got.block_of == ref.block_of
+    assert len(got.levels) == len(ref.levels)
+    assert all(np.array_equal(a, b) for a, b in zip(got.levels, ref.levels))
+    for tl, rl in zip(got.triples_by_level, ref.triples_by_level):
+        assert all(np.array_equal(a, b) for a, b in zip(tl, rl))
+    # and the JAX solver's own plan: the same order
+    assert np.array_equal(got.perm, JSparse(jb).sym.perm)
+
+
+# -- SparseCholeskySolver ----------------------------------------------------
+
+# min_level_cols: the default split, a plan with no dense root (every level
+# batched) and one that is all dense root
+PLANS = {"default": 8, "no_tail": 1, "all_tail": 10 ** 6}
+
+
+@pytest.mark.parametrize("name", GRAPHS)
+def test_system(graphs, name):
+    """system(): the block store and the padded g of the JAX package's
+    system.  The store at 1e-12 (the same products summed in another order;
+    padding's identity); g at 1e-10 on the SE3 and SE2 batches, whose
+    kernel-6 plain versions form the residual in closed form where the JAX
+    package differentiates through jacfwd (~1e-12 of a residual that is
+    a difference of positions, PG_TOL of chip_smoke.py), 1e-12 elsewhere."""
+    jb, jv, tb, tv = _bound(graphs, name)
+    s, js = SparseCholeskySolver(tb), JSparse(jb)
+    blocks, g = s.system(tv.arrays)
+    jblocks, jg = jax.jit(js.system)(jv.arrays)
+    assert blocks.shape == (s.B, s.d * s.d) and g.shape == (s.nvars, s.d)
+    assert _rel(blocks.reshape(-1, s.d, s.d), jblocks) <= 1e-12
+    assert _rel(g, jg) <= (1e-10 if name in ("SE3", "SE2") else 1e-12)
+    # the store is zero outside H's own blocks
+    outside = np.setdiff1d(np.arange(s.B), s.asm_blk)
+    assert bool((blocks[outside] == 0).all())
+
+
+@pytest.mark.parametrize("plan", list(PLANS))
+@pytest.mark.parametrize("name", ["SE3", "SE2_Point2", "SE3_Point3"])
+def test_factorize_and_solve(graphs, name, plan):
+    """factorize(): every leading level's L blocks and the dense root's
+    factor, and solve_factored(), against the JAX package's (jitted) on the
+    same store at lam 0, 1e-3 and 1, at 1e-10 (the same Cholesky and
+    substitutions, the triple sums in another order, which the blocks'
+    conditioning amplifies); the default plan (with a dense root), one
+    with no dense root and one that is all dense root."""
+    jb, jv, tb, tv = _bound(graphs, name)
+    mlc = PLANS[plan]
+    s, js = SparseCholeskySolver(tb, min_level_cols=mlc), \
+        JSparse(jb, min_level_cols=mlc)
+    assert (s.L_cut, s.n_tail) == (js.L_cut, js.n_tail)
+    assert s.n_tail == 0 if plan == "no_tail" else s.n_tail > 0
+    assert s.L_cut == 0 if plan == "all_tail" else True
+    blocks, g = s.system(tv.arrays)
+    jfac = jax.jit(js.factorize)
+    jsolve = jax.jit(js.solve_factored)
+    for lam in (0.0, 1e-3, 1.0):
+        f = s.factorize(blocks, lam)
+        jL, jT = jfac(jnp.asarray(blocks.numpy().reshape(-1, s.d, s.d)),
+                      lam)
+        assert bool(f.ok)
+        lead = s.f_cblk
+        if len(lead):
+            assert _rel(f.L.reshape(-1, s.d, s.d)[lead],
+                        np.asarray(jL)[lead]) <= 1e-10, lam
+        if s.n_tail:
+            assert _rel(torch.tril(f.tail[0]), jT) <= 1e-10, lam
+        else:
+            assert jT is None and f.tail is None
+        x = s.solve_factored(f, g)
+        jx = jsolve((jL, jT), jnp.asarray(g.numpy()))
+        assert _rel(x, jx) <= 1e-10, lam
+    # the solve reads g through its map: the canonical flat vector gives the
+    # same delta
+    keep = s.map_canon >= 0
+    flat = torch.zeros(s.layout.total_dim, dtype=torch.float64)
+    flat[s.map_canon[keep]] = g.reshape(-1)[torch.as_tensor(keep)]
+    x2 = s.solve_factored(f, flat, torch.as_tensor(s.map_canon))
+    assert torch.equal(x, x2)
+
+
+def test_failed_pivot(graphs):
+    """A leading column made indefinite: the JAX factor holds NaN there
+    (LM rejects the try on its error); the port's ok is False and kernel
+    7's pivot check names that column."""
+    jb, jv, tb, tv = _bound(graphs, "SE3")
+    s, js = SparseCholeskySolver(tb, min_level_cols=1), \
+        JSparse(jb, min_level_cols=1)
+    blocks, _ = s.system(tv.arrays)
+    lv = s.L_cut // 2
+    j = int(s.level_indices[lv].cols[0])
+    blocks[s.sym.diag_block_by_col[j]] = -torch.eye(6).reshape(-1)
+    f = s.factorize(blocks, 1e-3)
+    assert not bool(f.ok) and f.state.tolist() == [0, j]
+    jL, _ = jax.jit(js.factorize)(
+        jnp.asarray(blocks.numpy().reshape(-1, 6, 6)), 1e-3)
+    assert not np.isfinite(np.asarray(jL)[s.sym.diag_block_by_col[j]]).all()
+    # the records: the bad column, then every later level's NaN pivots
+    rec = f.rec.tolist()
+    first = next(k for k, r in enumerate(rec) if r >= 0)
+    assert rec[first] == j and s.lev_off[lv] <= first < s.lev_off[lv + 1]
+
+
+@pytest.mark.parametrize("name", ["SE3", "SE2_Point2"])
+def test_levels_lm(graphs, name):
+    """levenberg_marquardt with SparseSolver(method="levels") against the
+    JAX package's: the same iterations, the history at 1e-9 (direct solves
+    that differ by rounding)."""
+    jg, jv, tg, tv = graphs[name]
+    p = dict(max_iterations=15, relative_error_tol=1e-9,
+             absolute_error_tol=1e-12)
+    ref = JO.levenberg_marquardt(jg, jv, JO.LMParams(**p),
+                                 solver=JO.SparseSolver(method="levels"))
+    _kernels.reset_launch_counts()
+    got = TO.levenberg_marquardt(tg, tv, TO.LMParams(**p),
+                                 solver=TO.SparseSolver(method="levels"),
+                                 device="cpu")
+    assert all(n == 0 for n in _kernels.launch_counts().values())
+    assert got.iterations == ref.iterations
+    assert _rel(got.history, ref.history) <= 1e-9
+
+
+def test_levels_refusals(graphs):
+    """method="levels": hard rows refused at bind (the JAX package fails on
+    them in _solve_constrained); no gain-ratio denominator; diagonal
+    damping ignored, as in the JAX package."""
+    _, _, tg, tv = graphs["SE2"]
+    hard = FactorGraph(list(tg.batches))
+    hard.add(tfactors.prior_factors("SE2", [1], tv.at(1)[None].numpy(),
+                                    tnoise.constrained_all(3)))
+    with pytest.raises(NotImplementedError, match="constrained"):
+        TO.SparseSolver(method="levels").bind(BoundGraph(hard, tv, "cpu"))
+    sv = TO.SparseSolver(method="levels").bind(BoundGraph(tg, tv, "cpu"))
+    system = sv.system(tv.arrays)
+    with pytest.raises(NotImplementedError):
+        sv.predicted_decrease(system, torch.zeros(1), 1.0, False)
+    a, ok_a = sv.solve(system, 0.1, False)
+    b, ok_b = sv.solve(system, 0.1, True)
+    assert torch.equal(a, b) and bool(ok_a) and bool(ok_b)
+
+
+def test_solver_owns_store(graphs):
+    """SparseSolver(method="levels") assembles into one store, zeroed once:
+    two systems of the same arrays give the same bits."""
+    _, _, tg, tv = graphs["SE3_Point3"]
+    sv = TO.SparseSolver(method="levels").bind(BoundGraph(tg, tv, "cpu"))
+    b1 = sv.system(tv.arrays)[0].clone()
+    b2 = sv.system(tv.arrays)[0]
+    assert b2.data_ptr() == sv.store.data_ptr() and torch.equal(b1, b2)
+
+
+# -- Kalman filters ----------------------------------------------------------
+
+def _kf_inputs(seed=0, n=4, m=2, steps=6):
+    rng = np.random.default_rng(seed)
+    F = np.eye(n) + 0.1 * rng.normal(size=(n, n))
+    B = rng.normal(size=(n, 1))
+    H = rng.normal(size=(m, n))
+    A = rng.normal(size=(n, n))
+    Q = A @ A.T * 0.01 + 0.01 * np.eye(n)
+    R = np.eye(m) * 0.3
+    return dict(F=F, B=B, H=H, Q=Q, R=R, x0=rng.normal(size=n),
+                P0=np.eye(n), u=rng.normal(size=(steps, 1)),
+                z=rng.normal(size=(steps, m)))
+
+
+def test_kalman_filter_and_smoother():
+    """kf_predict / kf_update over six steps and the RTS smoother against
+    the JAX package's at 1e-12 (the same closed forms; torch.linalg in
+    place of jnp.linalg)."""
+    p = _kf_inputs()
+    t = {k: torch.as_tensor(v) for k, v in p.items()}
+    js = jkalman.kf_init(p["x0"], p["P0"])
+    ts = tkalman.kf_init(t["x0"], t["P0"], device="cpu")
+    jf, tf, jp, tp = [js], [ts], [js], [ts]
+    for k in range(p["u"].shape[0]):
+        js = jkalman.kf_predict(js, p["F"], p["B"], p["u"][k], p["Q"])
+        ts = tkalman.kf_predict(ts, t["F"], t["B"], t["u"][k], t["Q"])
+        jp.append(js)
+        tp.append(ts)
+        js = jkalman.kf_update(js, p["H"], p["z"][k], p["R"])
+        ts = tkalman.kf_update(ts, t["H"], t["z"][k], t["R"])
+        jf.append(js)
+        tf.append(ts)
+        assert _rel(ts.mean, js.mean) <= 1e-12
+        assert _rel(ts.cov, js.cov) <= 1e-12
+    jm, jc = jkalman.kf_smoother(
+        jnp.stack([s.mean for s in jf]), jnp.stack([s.cov for s in jf]),
+        jnp.stack([s.mean for s in jp]), jnp.stack([s.cov for s in jp]),
+        p["F"])
+    tm, tc = tkalman.kf_smoother(
+        torch.stack([s.mean for s in tf]), torch.stack([s.cov for s in tf]),
+        torch.stack([s.mean for s in tp]), torch.stack([s.cov for s in tp]),
+        t["F"])
+    assert _rel(tm, jm) <= 1e-12 and _rel(tc, jc) <= 1e-12
+
+
+def test_kalman_predict_without_control():
+    """kf_predict with B None: x' = F x (the model matrices given as numpy
+    arrays, as the JAX package takes them)."""
+    p = _kf_inputs(seed=1)
+    s = tkalman.kf_predict(tkalman.kf_init(p["x0"], p["P0"], device="cpu"),
+                           p["F"], None, None, p["Q"])
+    assert _rel(s.mean, p["F"] @ p["x0"]) <= 1e-15
+
+
+def test_kalman_init_device():
+    """kf_init places the state on the CUDA device by default, as the
+    port's other entry points do, and raises without CUDA; with
+    device='cpu' the numpy inputs become float64 CPU tensors, and the
+    filter's steps stay there."""
+    p = _kf_inputs(seed=2)
+    if torch.cuda.is_available():
+        assert tkalman.kf_init(p["x0"], p["P0"]).mean.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tkalman.kf_init(p["x0"], p["P0"])
+    s = tkalman.kf_init(p["x0"], p["P0"], device="cpu")
+    assert s.mean.device.type == s.cov.device.type == "cpu"
+    assert s.mean.dtype == s.cov.dtype == torch.float64
+    s = tkalman.kf_update(s, p["H"], p["z"][0], p["R"])
+    assert s.mean.device.type == s.cov.device.type == "cpu"
+
+
+def test_extended_kalman_filter():
+    """ExtendedKalmanFilter on SE(2): a motion and a range-bearing-like
+    measurement, predict and update, against the JAX package's EKF at
+    1e-12 (Jacobians by forward-mode autodiff on both sides)."""
+    u = np.array([0.3, 0.1, 0.05])
+    lm = np.array([2.0, 1.0])
+
+    def jf(x):
+        return jse2.compose(x, jnp.asarray(u))
+
+    def tf(x):
+        return se2.compose(x, torch.as_tensor(u))
+
+    def jh(x):
+        return jse2.transform_to(x, jnp.asarray(lm))
+
+    def th(x):
+        return se2.transform_to(x, torch.as_tensor(lm))
+
+    jekf = jkalman.ExtendedKalmanFilter(jse2.retract, jse2.local, 3)
+    tekf = tkalman.ExtendedKalmanFilter(se2.retract, se2.local, 3)
+    x0 = np.array([0.1, -0.2, 0.3])
+    P0, Q, R = np.eye(3) * 0.1, np.eye(3) * 0.01, np.eye(2) * 0.05
+    z = np.array([1.7, 1.4])
+    jx, jst = jnp.asarray(x0), jkalman.GaussianState(jnp.zeros(3),
+                                                      jnp.asarray(P0))
+    tx, tst = torch.as_tensor(x0), tkalman.GaussianState(
+        torch.zeros(3, dtype=torch.float64), torch.as_tensor(P0))
+    for _ in range(3):
+        jx, jst = jekf.predict(jst, jx, jf, jnp.asarray(Q))
+        tx, tst = tekf.predict(tst, tx, tf, torch.as_tensor(Q))
+        jx, jst = jekf.update(jst, jx, jh, jnp.asarray(z), jnp.asarray(R))
+        tx, tst = tekf.update(tst, tx, th, torch.as_tensor(z),
+                              torch.as_tensor(R))
+        assert _rel(tx, jx) <= 1e-12 and _rel(tst.cov, jst.cov) <= 1e-12
+
+
+# -- the sparse export -------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["SE2_Point2"])
+def test_sparse_export(graphs, name):
+    """sparse_jacobian and sparse_hessian against the JAX package's on the
+    same graph: the same sparsity pattern, A and b at 1e-12 (the generic
+    linearization on both sides), H = A^T A and g = A^T b at 1e-12."""
+    jb, jv, tb, tv = _bound(graphs, name)
+    A, b = texport.sparse_jacobian(tb, tv.arrays)
+    jA, jbv = jexport.sparse_jacobian(jb, jv.arrays)
+    assert A.shape == jA.shape
+    assert np.array_equal(A.indptr, jA.indptr)
+    assert np.array_equal(A.indices, jA.indices)
+    assert _rel(A.data, jA.data) <= 1e-12 and _rel(b, jbv) <= 1e-12
+    H, g = texport.sparse_hessian(tb, tv.arrays)
+    jH, jgv = jexport.sparse_hessian(jb, jv.arrays)
+    assert _rel(H.toarray(), jH.toarray()) <= 1e-12
+    assert _rel(g, jgv) <= 1e-12
+
+
+def test_sparse_export_refuses_anti_factors(graphs):
+    _, _, tg, tv = graphs["SE2"]
+    import dataclasses
+    anti = FactorGraph(list(tg.batches) + [dataclasses.replace(
+        tg.batches[0], sign=-1.0)])
+    with pytest.raises(NotImplementedError, match="anti-factor"):
+        texport.sparse_jacobian(BoundGraph(anti, tv, "cpu"), tv.arrays)
+
+
+# -- the union-find ----------------------------------------------------------
+
+def test_dsf():
+    """DSF: unions by rank with path compression; sets() partitions."""
+    d = dsf.DSF(6)
+    assert d.find(3) == 3
+    d.union(0, 1)
+    d.union(2, 3)
+    d.union(1, 3)
+    assert len({d.find(k) for k in range(4)}) == 1
+    assert d.find(4) != d.find(0) and d.find(5) == 5
+    assert d.make_set() == 6
+    sets = d.sets()
+    assert sorted(len(v) for v in sets.values()) == [1, 1, 1, 4]
+    assert sorted(sum(sets.values(), [])) == list(range(7))
+
+
+def test_dsf_map():
+    """DSFMap over hashable keys, as the JAX package's."""
+    from gtsam_tpu.base import dsf as jdsf
+    for mod in (dsf, jdsf):
+        m = mod.DSFMap()
+        m.merge(("a", 1), ("b", 2))
+        m.merge(("c", 3), ("b", 2))
+        m.merge("x", "y")
+        assert m.find(("a", 1)) == m.find(("c", 3))
+        assert m.find("x") == m.find("y") != m.find(("a", 1))
+        assert sorted(len(v) for v in m.sets().values()) == [2, 3]
