@@ -4456,7 +4456,8 @@ LINEAR_FINAL_TOL = 1e-3
 # subdiagonal solves: 1e-10 at lam >= 1e-4, 1e-8 at lam = 0 (as kernel 8's
 # solves); its records exactly.  The dense root's M sums the same products
 # in another order: 1e-12.  Kernel 14 substitutes as its plain version does
-# and sums each row's block products in another order: the factor's
+# but multiplies by the diagonal's reciprocals where it divides, and sums
+# each row's block products in another order (lane groups): the factor's
 # tolerances.  Kernel 15: sums of the same products in another order:
 # 1e-12.  Kernel 16: M^-1 by Gauss-Jordan against LAPACK's inverse (the
 # block-Jacobi blocks' condition numbers, ~1e4 on the sphere, amplify the
@@ -4532,9 +4533,9 @@ def sparse_case_checks(graph, vals, lam, mlc, label, worst, bad_level=None,
     """Kernels 13 and 14 against their plain versions, launch by launch, on
     the level-scheduled solver of `graph` with min_level_cols `mlc` (or on
     `solver`, a SparseCholeskySolver bound on the card) at lam:
-    every leading level's factorization, the dense root's M, every forward
-    level, the root's rhs, every backward level; each twice for the same
-    bits, the outputs NaN-filled first.  bad_level ("middle"): make the
+    every leading level's factorization, the dense root's M, kernel 14's
+    forward launch (every level and the root's rhs) and its backward
+    launch; each twice for the same bits, the outputs NaN-filled first.  bad_level ("middle"): make the
     first column of the middle leading level indefinite: every record and
     the pivot check's state must equal the plain chain's, and name that
     column.  Returns the solver."""
@@ -4630,29 +4631,26 @@ def sparse_case_checks(graph, vals, lam, mlc, label, worst, bad_level=None,
                          (L[torch.as_tensor(s.f_cblk, dtype=torch.long,
                                             device="cuda")],)):
         raise AssertionError(f"{label}: factorize differs from its launches")
-    # kernel 14: forward levels, the root's rhs, backward levels
+    # kernel 14: the forward launch (every level and the root's rhs), then
+    # the backward launch (every level in reverse, the root's x copied);
+    # a new epoch every launch, as the solver's
     fw, bw = dv.fw, dv.bw
+    flags = torch.zeros((2, n), dtype=torch.int32, device="cuda")
+    epochs = iter(range(1, 10 ** 6))
     Y = torch.full((n, d), float("nan"), dtype=torch.float64, device="cuda")
     rt = torch.full((T, d), float("nan"), dtype=torch.float64, device="cuda")
-    for k, (j0, j1, diag) in enumerate(s._fw_slices):
-        def fresh(Y=Y):
-            out = [Y.clone(), lin_nan(rt)]
-            if diag:
-                rows = fw["cols"][j0:j1].long()
-                out[0][rows] = float("nan")
-            return out
 
-        def run(a, plain, j0=j0, j1=j1, diag=diag):
-            fn = K.sp_level_forward_plain if plain else K.sp_level_forward
-            fn(f.L, g.reshape(-1), None, a[0], fw["cols"][j0:j1],
-               fw["rows"][j0:j1], fw["dbid"][j0:j1], fw["ptr"][j0:j1 + 1],
-               fw["fbid"], fw["fsrc"], a[0] if diag else a[1], diag)
+    def forward(a, plain, rhs=g.reshape(-1), rmap=None):
+        fn = K.sp_level_forward_plain if plain else K.sp_level_forward
+        fn(f.L, rhs, rmap, a[0], a[1], fw["cols"], fw["rows"], fw["dbid"],
+           fw["ptr"], fw["fbid"], fw["fsrc"], fw["lptr"], s._fw_ndiag,
+           flags[0], next(epochs))
 
-        a = lin_triple("sp_level_forward", run, fresh,
-                       lambda a: tuple(a[:2]), f"{label} forward {k}",
+    Y, rt = lin_triple("sp_level_forward", forward,
+                       lambda: [lin_nan(Y), lin_nan(rt)],
+                       lambda a: tuple(a[:2]), f"{label} forward",
                        tol or LIN_TOL["sp_level_forward"], worst)
-        Y, rt = a[0], a[1]
-    # the same launches reading g as a canonical flat vector through
+    # the same launch reading g as a canonical flat vector through
     # map_canon (the subgraph preconditioner's form; a padded component
     # reads 0): the same bits in every true component
     m = dv.map_canon.long()
@@ -4661,15 +4659,11 @@ def sparse_case_checks(graph, vals, lam, mlc, label, worst, bad_level=None,
                        device="cuda")
     flat[m[m >= 0]] = g.reshape(-1)[m >= 0]
     Ym, rm = lin_nan(Y), lin_nan(rt)
-    for j0, j1, diag in s._fw_slices:
-        K.sp_level_forward(f.L, flat, dv.map_canon, Ym, fw["cols"][j0:j1],
-                           fw["rows"][j0:j1], fw["dbid"][j0:j1],
-                           fw["ptr"][j0:j1 + 1], fw["fbid"], fw["fsrc"],
-                           Ym if diag else rm, diag)
+    forward([Ym, rm], False, flat, dv.map_canon)
     kt = keep[dv.t_cols.long()]
     if not lin_same_bits((Ym[keep], rm[kt]), (Y[keep], rt[kt])):
-        raise AssertionError(f"{label}: the forward launches through "
-                             "map_canon differ from those on the padded g")
+        raise AssertionError(f"{label}: the forward launch through "
+                             "map_canon differs from that on the padded g")
     U = torch.full((n + T, d), float("nan"), dtype=torch.float64,
                    device="cuda")
     if T:
@@ -4681,23 +4675,17 @@ def sparse_case_checks(graph, vals, lam, mlc, label, worst, bad_level=None,
         dk.solve_backward(Lt, Dinv, yt, U[n:].view(-1))
     delta = torch.full((s.layout.total_dim,), float("nan"),
                        dtype=torch.float64, device="cuda")
-    for k, (j0, j1, _) in enumerate(s._bw_slices):
-        def fresh(U=U, delta=delta):
-            Ux = U.clone()
-            real = bw["dbid"][j0:j1] >= 0
-            Ux[bw["rows"][j0:j1][real].long()] = float("nan")
-            return [Ux, delta.clone()]
 
-        def run(a, plain, j0=j0, j1=j1):
-            fn = K.sp_level_backward_plain if plain else K.sp_level_backward
-            fn(f.L, Y, a[0], dv.map_canon, bw["cols"][j0:j1],
-               bw["rows"][j0:j1], bw["dbid"][j0:j1], bw["ptr"][j0:j1 + 1],
-               bw["bbid"], bw["bsrc"], a[1])
+    def backward(a, plain):
+        fn = K.sp_level_backward_plain if plain else K.sp_level_backward
+        fn(f.L, Y, a[0], dv.map_canon, bw["cols"], bw["rows"], bw["dbid"],
+           bw["ptr"], bw["bbid"], bw["bsrc"], bw["lptr"], a[1], flags[1],
+           next(epochs))
 
-        a = lin_triple("sp_level_backward", run, fresh,
-                       lambda a: (a[0], a[1]), f"{label} backward {k}",
-                       tol or LIN_TOL["sp_level_backward"], worst)
-        U, delta = a
+    U, delta = lin_triple("sp_level_backward", backward,
+                          lambda: [U.clone(), delta.clone()],
+                          lambda a: (a[0], a[1]), f"{label} backward",
+                          tol or LIN_TOL["sp_level_backward"], worst)
     if not bool(torch.isfinite(delta).all()):
         raise AssertionError(f"{label}: the solve left delta entries "
                              "unwritten")
@@ -5067,19 +5055,111 @@ def _lin_row(name, kern, ms, dev_ms, plain_ms, nbytes, ops, launches, err,
     return row
 
 
+def kernel14_calls(s, f, rhs, rmap, stop=None):
+    """Kernel 14's two launches on the factor f of solver s (rhs read
+    through rmap; None: rhs is the padded g; stop: a done word or None),
+    as solve_factored makes them, a new epoch each: (forward(plain=False),
+    backward(plain=False), prep(Y, U, rt, delta)); prep binds the buffers,
+    then runs the forward launch and kernel 11's root solves once, so that
+    the backward launch reads a solved root."""
+    import torch
+    from gtsam_torch.linear import dense_kernels as dk
+    from gtsam_torch.linear import sparse_kernels as K
+    dv, n, T = s.dev, s.nvars, s.n_tail
+    fw, bw = dv.fw, dv.bw
+    flags = torch.zeros((2, n), dtype=torch.int32, device="cuda")
+    epochs = iter(range(1, 2 ** 31))
+    buf = {}
+
+    def forward(plain=False):
+        fn = K.sp_level_forward_plain if plain else K.sp_level_forward
+        fn(f.L, rhs, rmap, buf["Y"], buf["rt"], fw["cols"], fw["rows"],
+           fw["dbid"], fw["ptr"], fw["fbid"], fw["fsrc"], fw["lptr"],
+           s._fw_ndiag, flags[0], next(epochs), stop)
+
+    def backward(plain=False):
+        fn = K.sp_level_backward_plain if plain else K.sp_level_backward
+        fn(f.L, buf["Y"], buf["U"], dv.map_canon, bw["cols"], bw["rows"],
+           bw["dbid"], bw["ptr"], bw["bbid"], bw["bsrc"], bw["lptr"],
+           buf["delta"], flags[1], next(epochs), stop)
+
+    def prep(Y, U, rt, delta):
+        buf.update(Y=Y, U=U, rt=rt, delta=delta)
+        forward()
+        if T:
+            Lt, Dinv, _ = f.tail
+            yt = dk.solve_forward(Lt, Dinv, rt.reshape(-1),
+                                  torch.empty(T * s.d, dtype=torch.float64,
+                                              device="cuda"))
+            dk.solve_backward(Lt, Dinv, yt, U[n:].view(-1))
+
+    return forward, backward, prep
+
+
+# back-to-back tree solves of kernel14_strain: a few thousand inside one CG
+# chunk (no read of the done word between them)
+STRAIN_SOLVES = 3000
+
+
+def kernel14_strain(sg, arrays):
+    """Kernel 14's flags under strain, on the subgraph solver sg's tree at
+    `arrays` (its factor at lam 1e-8, the PCG g through map_canon, as the
+    CG loop's tree solve): STRAIN_SOLVES solves back to back with the done
+    word clear, each a new epoch, every one the first's bits; one launched
+    with the done word set, which must return without writing; and one
+    after it, which must give the same bits again.  Returns the counts and
+    the seconds a solve (host clock, the launches enqueued and done)."""
+    import torch
+    from gtsam_torch.linear import sparse_kernels as K
+    _, g, _, fact = sg.system(arrays)
+    tree = sg._tree
+    stop = torch.zeros(K.IST_SIZE, dtype=torch.int32, device="cuda")
+
+    def solve(out):
+        return tree.solve_factored(fact, g, tree.dev.map_canon, stop, out=out)
+
+    ref = solve(torch.empty_like(g)).clone()
+    outs = torch.full((STRAIN_SOLVES, g.shape[0]), float("nan"),
+                      dtype=torch.float64, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for k in range(STRAIN_SOLVES):
+        solve(outs[k])
+    torch.cuda.synchronize()
+    secs = (time.time() - t0) / STRAIN_SOLVES
+    same = int((_bits(outs) == _bits(ref)[None]).all(1).sum())
+    stop[K.DONE] = 1
+    stopped = solve(torch.full_like(g, float("nan")))
+    torch.cuda.synchronize()
+    untouched = bool(torch.isnan(stopped).all())
+    stop[K.DONE] = 0
+    after = solve(torch.full_like(g, float("nan")))
+    torch.cuda.synchronize()
+    again = lin_same_bits((after,), (ref,))
+    out = {"solves": STRAIN_SOLVES, "same_bits": same,
+           "s_per_solve": secs, "stopped_untouched": untouched,
+           "after_stop_same_bits": again, "epoch": tree._epoch}
+    log(f"  kernel 14 under strain (subgraph tree): {out}")
+    if same != STRAIN_SOLVES or not untouched or not again:
+        raise AssertionError(f"kernel 14's flags under strain: {out}")
+    return out
+
+
 def linear_kernel_times(lin, worst):
     """Phase 5 of kernels 13-16: first each kernel against its plain
     version at the sizes the main path gives it (the sphere's level solver
-    and PCG system at the runs' converged states, lam = 1: every launch of
-    sparse_case_checks and pcg_case_checks, twice for the same bits on
-    NaN-filled outputs, at LIN_TOL; a row's max_abs_err is this check's,
-    phase3_max_abs_err the small graphs' of phase 3, `worst`).  Then each
+    and PCG system at the runs' converged states, lam = 1, and the
+    subgraph run's tree: every launch of sparse_case_checks and
+    pcg_case_checks, twice for the same bits on NaN-filled outputs, at
+    LIN_TOL; a row's max_abs_err is this check's, tree_max_abs_err the
+    tree's, phase3_max_abs_err the small graphs' of phase 3, `worst`),
+    and kernel 14's flags under strain (kernel14_strain).  Then each
     kernel timed (CUDA events and device time) at the same states, beside
-    its plain version, its bound and its library yardstick; kernel 13 and
-    14 over a factorization's (a solve's) launches, level by level, kernels
-    15 and 16 per launch (kernel 16: one iteration's UPDATE and DIRECTION).
-    Also a levels try and a PCG iteration by stage.  Returns (rows,
-    stages)."""
+    its plain version, its bound and its library yardstick; kernel 13 over
+    a factorization's launches (and level by level), kernel 14 over a
+    solve's launch a direction (and on the tree), kernels 15 and 16 per
+    launch (kernel 16: one iteration's UPDATE and DIRECTION).  Also a
+    levels try and a PCG iteration by stage.  Returns (rows, stages)."""
     import numpy as np
     import torch
     from gtsam_torch.linear import dense_blocked, dense_kernels as dk
@@ -5101,6 +5181,15 @@ def linear_kernel_times(lin, worst):
                     solver=ps)
     log(f"  kernels 13-16 against their plain versions at the sphere's "
         f"sizes (max abs, rel): {main}")
+    # kernels 13-14 on the subgraph run's tree (2,500 columns, 23 levels),
+    # then kernel 14's flags under strain
+    sgr = lin["subgraph"]["runs"][0]
+    tree_err = {}
+    sparse_case_checks(None, sgr["res"].values, 1.0, None,
+                       "subgraph tree lam=1", tree_err,
+                       solver=sgr["solver"]._tree)
+    log(f"  kernels 13-14 on the subgraph tree (max abs, rel): {tree_err}")
+    strain = kernel14_strain(sgr["solver"], sgr["res"].values.arrays)
     blocks, g = s.system(arrays)
     lam, dv, d, n, T = 1.0, s.dev, s.d, s.nvars, s.n_tail
     dd = d * d
@@ -5191,32 +5280,13 @@ def linear_kernel_times(lin, worst):
     Y = torch.empty((n, d), dtype=torch.float64, device="cuda")
     U = torch.empty((n + T, d), dtype=torch.float64, device="cuda")
     rt = torch.empty((T, d), dtype=torch.float64, device="cuda")
-    yt = torch.empty(T * d, dtype=torch.float64, device="cuda")
     delta = torch.empty(s.layout.total_dim, dtype=torch.float64,
                         device="cuda")
-    fw, bw = dv.fw, dv.bw
-
-    def k14f(plain=False):
-        fn = K.sp_level_forward_plain if plain else K.sp_level_forward
-        for j0, j1, diag in s._fw_slices:
-            fn(f.L, g.reshape(-1), None, Y, fw["cols"][j0:j1],
-               fw["rows"][j0:j1], fw["dbid"][j0:j1], fw["ptr"][j0:j1 + 1],
-               fw["fbid"], fw["fsrc"], Y if diag else rt, diag)
-
-    k14f()
-    Lt, Dinv, _ = f.tail
-    yt2 = dk.solve_forward(Lt, Dinv, rt.reshape(-1), torch.empty_like(yt))
-    dk.solve_backward(Lt, Dinv, yt2, U[n:].view(-1))
-
-    def k14b(plain=False):
-        fn = K.sp_level_backward_plain if plain else K.sp_level_backward
-        for j0, j1, _ in s._bw_slices:
-            fn(f.L, Y, U, dv.map_canon, bw["cols"][j0:j1],
-               bw["rows"][j0:j1], bw["dbid"][j0:j1], bw["ptr"][j0:j1 + 1],
-               bw["bbid"], bw["bsrc"], delta)
+    k14f, k14b, k14_prep = kernel14_calls(s, f, g.reshape(-1), None)
+    k14_prep(Y, U, rt, delta)
 
     nlead = len(s.f_cols)
-    nf, nbb = int(fw["fbid"].numel()), int(bw["bbid"].numel())
+    nf, nbb = int(dv.fw["fbid"].numel()), int(dv.bw["bbid"].numel())
     b14f = (8 * dd * (nf + nlead) + 8 * (2 * n * d + 3 * T * d)
             + 4 * (3 * (nlead + T) + 2 * nf + n * d))
     b14b = (8 * dd * (nbb + nlead) + 8 * (2 * n * d + T * d
@@ -5233,6 +5303,23 @@ def linear_kernel_times(lin, worst):
             torch.linalg.solve_triangular(Ld.mT if upper else Ld, r,
                                           upper=upper)
 
+    # kernel 14 on the subgraph run's tree (its factor at the run's lam of
+    # 1e-8, the flat r through map_canon), as the CG loop calls it
+    sg = lin["subgraph"]["runs"][0]["solver"]
+    sarr = lin["subgraph"]["runs"][0]["res"].values.arrays
+    sys_ = sg.system(sarr)
+    tr = sg._tree
+    tY = torch.empty((tr.nvars, tr.d), dtype=torch.float64, device="cuda")
+    tU = torch.empty((tr.nvars + tr.n_tail, tr.d), dtype=torch.float64,
+                     device="cuda")
+    trt = torch.empty((tr.n_tail, tr.d), dtype=torch.float64, device="cuda")
+    tdelta = torch.empty(tr.layout.total_dim, dtype=torch.float64,
+                         device="cuda")
+    t14f, t14b, t14_prep = kernel14_calls(tr, sys_[3], sys_[1],
+                                          tr.dev.map_canon)
+    t14_prep(tY, tU, trt, tdelta)
+    tree = {"forward": (cuda_ms(t14f, 10), device_ms(t14f, 5)),
+            "backward": (cuda_ms(t14b, 10), device_ms(t14b, 5))}
     rows.append(_lin_row(
         "sp_level_forward", KT["sp_level_forward"], cuda_ms(k14f, 10),
         device_ms(k14f, 5), cuda_ms(lambda: k14f(True), 2, 1), b14f,
@@ -5240,7 +5327,9 @@ def linear_kernel_times(lin, worst):
         _lin_err(main, "sp_level_forward"),
         (cuda_ms(lambda: lib14(False), 5),
          "solve_triangular of the diagonal blocks a level"),
-        {"per": "a solve's forward launches (levels and the root's rhs)",
+        {"per": "a solve's forward launch (every level and the root's rhs)",
+         "tree_ms": tree["forward"][0], "tree_device_ms": tree["forward"][1],
+         "tree_max_abs_err": _lin_err(tree_err, "sp_level_forward"),
          "launches_by_path": by_path["sp_level_forward"]}))
     rows.append(_lin_row(
         "sp_level_backward", KT["sp_level_backward"], cuda_ms(k14b, 10),
@@ -5249,7 +5338,10 @@ def linear_kernel_times(lin, worst):
         _lin_err(main, "sp_level_backward"),
         (cuda_ms(lambda: lib14(True), 5),
          "solve_triangular of the diagonal blocks a level"),
-        {"per": "a solve's backward launches",
+        {"per": "a solve's backward launch",
+         "tree_ms": tree["backward"][0],
+         "tree_device_ms": tree["backward"][1],
+         "tree_max_abs_err": _lin_err(tree_err, "sp_level_backward"),
          "launches_by_path": by_path["sp_level_backward"]}))
     # a levels try by stage (lam = 1): factorize, solve, retract, error
     from gtsam_torch.graph.values import retract_arrays
@@ -5343,14 +5435,12 @@ def linear_kernel_times(lin, worst):
     stages["pcg_matvec_ms"] = rows[-3]["ms"]
     stages["pcg_step_ms"] = rows[-1]["ms"]
     stages["pcg_read_ms"] = cuda_ms(lambda: ist[:2].tolist(), 20)
-    sg = lin["subgraph"]["runs"][0]["solver"]
-    sarr = lin["subgraph"]["runs"][0]["res"].values.arrays
-    sys_ = sg.system(sarr)
     z = torch.empty_like(gp)
     stages["subgraph_precondition_ms"] = cuda_ms(
         lambda: sg._tree.solve_factored(sys_[3], gp, sg._tree.dev.map_canon,
                                         None, out=z), 10)
     stages["subgraph_tree_launches"] = sg._tree.launches_per_solve()
+    stages["kernel14_strain"] = strain
     log(json.dumps({"linear_stages": stages}))
     for row in rows:
         row["phase3_max_abs_err"] = worst.get(row["name"])
@@ -5379,13 +5469,21 @@ def linear_summary(lin, stages):
     return out
 
 
+# kernel launches a CG iteration of the traced subgraph solve: the matvec,
+# UPDATE, FINISH, DIRECTION, kernel 14 forward and backward, kernel 11's
+# two directions and the two fills of their outputs, with the start's share
+SUBGRAPH_LAUNCHES_PER_IT = 11
+
+
 def profile_linear(lin):
     """Phase 6 of kernels 13-16: one traced levels factorization and solve
-    (kernels 13 and 14, kernel 7's pivot check, kernels 10 and 11, and as
-    many cuBLAS products as blocked_cholesky alone launches on the same M;
-    no potrf, trsm, trsv or cuSOLVER kernel) and one traced subgraph-PCG
-    solve (kernels 14, 15, 16 and 11; no product, potrf, trsm, trsv or
-    cuSOLVER kernel)."""
+    (kernels 13 and 14, kernel 14 once a direction, kernel 7's pivot
+    check, kernels 10 and 11, and as many cuBLAS products as
+    blocked_cholesky alone launches on the same M; no potrf, trsm, trsv or
+    cuSOLVER kernel) and one traced subgraph-PCG solve (kernels 14, 15, 16
+    and 11, kernel 14 once a direction a tree solve, at most
+    SUBGRAPH_LAUNCHES_PER_IT launches a CG iteration; no product, potrf,
+    trsm, trsv or cuSOLVER kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from gtsam_torch.linear import dense_blocked
@@ -5421,8 +5519,7 @@ def profile_linear(lin):
     rows = trace(lambda: s.solve_factored(s.factorize(blocks, 1e-3), g))
     want = {"sp_level_factor_kernel": s.L_cut,
             "sp_tail_assemble_kernel": 1, "sn_pivot_kernel": 1,
-            "sp_level_forward_kernel": len(s._fw_slices),
-            "sp_level_backward_kernel": len(s._bw_slices),
+            "sp_level_forward_kernel": 1, "sp_level_backward_kernel": 1,
             "dense_factor_diag_kernel": f.tail[1].shape[0],
             "dense_forward_kernel": 1, "dense_backward_kernel": 1}
     got = {k: count(rows, k.lower()) for k in want}
@@ -5445,13 +5542,23 @@ def profile_linear(lin):
     rows = trace(lambda: sg.solve(sys_, 1e-3, False))
     sg.max_iterations = 500
     busy = sum(ms for _, _, ms in rows)
+    # every kernel launch of the solve (copies aside), a CG iteration's
+    # share: the start's and each iteration's, over the iterations launched
+    kernels = sum(c for k, c, _ in rows
+                  if not k.lower().startswith(("memcpy", "memset")))
+    per_it = kernels / max(1, sg.last_solve["launched"])
     log(json.dumps({"profile_subgraph_solve": {
         "device_busy_ms": busy, "cg_iterations": sg.last_solve,
+        "kernel_launches": kernels, "launches_per_cg_iteration": per_it,
         "rows": [[k[:70], c, ms] for k, c, ms in rows]}}))
     need = ("pcg_matvec_kernel", "pcg_step_kernel",
             "sp_level_forward_kernel", "sp_level_backward_kernel")
+    n = sg.last_solve["launched"] + 1     # the tree solves: one a CG step
     if not all(count(rows, k) for k in need) or \
-            count(rows, *solver_words) or count(rows, *gemm):
+            count(rows, *solver_words) or count(rows, *gemm) or \
+            count(rows, "sp_level_forward_kernel") != n or \
+            count(rows, "sp_level_backward_kernel") != n or \
+            not per_it <= SUBGRAPH_LAUNCHES_PER_IT:
         raise AssertionError(f"the traced subgraph-PCG solve: {rows}")
 
 

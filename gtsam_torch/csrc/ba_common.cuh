@@ -45,4 +45,46 @@ __device__ __forceinline__ void inv3x3(const double h[9], double out[9]) {
   out[6] = G * inv_det; out[7] = Hc * inv_det; out[8] = I * inv_det;
 }
 
+// Launch `kernel` cooperatively, in clusters of `cluster` CTAs of `threads`
+// threads, as many as the card holds at once with `shm` bytes of dynamic
+// shared memory each, and no more than max_ctas (rounded up to whole
+// clusters; 0: no cap).  A kernel whose CTAs wait on one another (a grid
+// barrier, or flags set by other CTAs) needs them all resident: kernel 8's
+// solves and kernel 14's.
+template <typename... Args, typename... Act>
+int launch_levels(void (*kernel)(Args...), int threads, int cluster,
+                  size_t shm, int max_ctas, cudaStream_t stream,
+                  Act... args) {
+  cudaError_t e = cudaSuccess;
+  if (shm > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)shm);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute at[2];
+  at[0].id = cudaLaunchAttributeCooperative;
+  at[0].val.cooperative = 1;
+  at[1].id = cudaLaunchAttributeClusterDimension;
+  at[1].val.clusterDim.x = cluster;
+  at[1].val.clusterDim.y = 1;
+  at[1].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = shm;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 2;
+  int ncl = 0;
+  e = cudaOccupancyMaxActiveClusters(&ncl, kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (ncl < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int want = (max_ctas + cluster - 1) / cluster;
+  if (max_ctas > 0 && want < ncl) ncl = want;
+  cfg.gridDim = dim3(ncl * cluster);
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace gt

@@ -16,12 +16,16 @@
 // gt_pcg_jacobi (kernel 15's second entry): a thread an entry (v, i, k) of
 //   the diagonal: the sum over v's slots of column i of A_q times column k,
 //   plus 1 on the padded diagonal.
-// gt_pcg_matvec (kernel 15): a thread a variable v: for each slot q of v,
-//   u = the sum of A_s p over the slots s of q's factor (each factor's u is
-//   formed once a slot of it, so a binary factor's twice), then A_q^T u
-//   summed into v's components; Ap_v = lam p_v + that sum.  Each thread's
-//   p_v . Ap_v goes into its CTA's partial, and the last CTA (a completion
-//   ticket) sums the partials in CTA order into st[PAP].
+// gt_pcg_matvec (kernel 15): a warp a variable v, whose slots it takes in
+//   chunks of floor(32 / S) (S = max(rmax, dmax) lanes a slot), in order:
+//   lane (i, r) of slot q = the chunk's i-th forms row r of u_f = the sum
+//   of A_s p over the slots s of q's factor f (each factor's u is formed
+//   once a slot of it, so a binary factor's twice), then lane (i, c) forms
+//   component c of A_q^T u_f from the u rows by shuffles, and lane c adds
+//   the chunk's slots' components in slot order (shuffles).  Ap_v = lam
+//   p_v + that sum; p_v . Ap_v (a warp butterfly) goes into the CTA's
+//   partial, and the last CTA (a completion ticket) sums the partials in
+//   CTA order into st[PAP].
 // gt_pcg_step (kernel 16): a thread a variable (DIRECTION: an entry), the
 //   phase a launch argument: INIT (M^-1 of each variable's true block by
 //   Gauss-Jordan with partial pivoting, x = 0, r = g, z, p, gamma, r.r, the
@@ -34,11 +38,15 @@
 //   it.
 //
 // No atomic sums: each dot product is summed per variable in component
-// order, in the CTA by a warp butterfly and then warp by warp, and across
-// CTAs in CTA order by the last one; the grid depends on the sizes only, so
-// the same inputs give the same bits.  Bound on the H100: bytes (the pool
-// read once a matvec: ~2.9 MB on the sphere, ~1 us), far below a launch;
-// the loop is bound by its launches (three an iteration with block-Jacobi).
+// order (the matvec: by a butterfly), in the CTA by a warp butterfly and
+// then warp by warp, and across CTAs in CTA order by the last one; the
+// grid depends on the sizes only, so the same inputs give the same bits.
+// Bound on the H100: bytes (the pool read once a matvec: ~2.9 MB on the
+// sphere, ~1 us), far below a launch; the loop is bound by its launches
+// (three an iteration with block-Jacobi).  The matvec's warps each walk a
+// chain of dependent index loads (slot, factor, its slots, their
+// variables) with every lane of a slot at work, 2,500 warps on the sphere
+// over the whole card.
 #include "ba_common.cuh"
 
 namespace {
@@ -48,6 +56,7 @@ constexpr int kMaxR = 12;
 constexpr int kVarThreads = 128;
 constexpr int kVarWarps = kVarThreads / gt::kWarp;
 constexpr int kInit = 0, kUpdate = 1, kFinish = 2, kDirection = 3;
+constexpr unsigned kFull = 0xffffffffu;
 // the state: st (doubles), ist (ints); linear/sparse_kernels.py holds the
 // same indices
 constexpr int kGamma = 0, kPAp = 1, kRR = 2, kTol2 = 3, kBeta = 4;
@@ -122,55 +131,52 @@ __global__ void __launch_bounds__(kVarThreads) pcg_matvec_kernel(
     double lam, double* __restrict__ Ap, double* part, int* ticket,
     double* st, const int* ist) {
   if (ist[kDone]) return;   // every CTA: the ticket stays untouched
-  const int v = blockIdx.x * kVarThreads + threadIdx.x;
+  const int lane = threadIdx.x % gt::kWarp;
+  const int v = blockIdx.x * kVarWarps + threadIdx.x / gt::kWarp;
   const int rd = rmax * dmax;
+  const int S = max(rmax, dmax);         // lanes a slot
+  const int K = gt::kWarp / S;           // slots a chunk
+  const int i = lane / S, r = lane - i * S;
+  const int i0 = i < K ? i : 0;          // lanes past the chunk: slot 0's
   double dot[1] = {0.0};
   if (v < nv) {
-    double y[kMaxD];
-#pragma unroll
-    for (int c = 0; c < kMaxD; ++c) y[c] = 0.0;
-    for (int e = vptr[v]; e < vptr[v + 1]; ++e) {
-      const int q = vslot[e];
-      const int f = slot_fac[q];
-      double u[kMaxR];
-#pragma unroll
-      for (int r = 0; r < kMaxR; ++r) u[r] = 0.0;
-      for (int s = fptr[f]; s < fptr[f + 1]; ++s) {
-        const double* As = pool + (int64_t)s * rd;
-        const double* ps = p + var_off[slot_var[s]];
-        const int ds = var_dim[slot_var[s]];
-#pragma unroll
-        for (int r = 0; r < kMaxR; ++r) {
-          if (r < rmax) {
-            double t = 0.0;
-#pragma unroll
-            for (int c = 0; c < kMaxD; ++c)
-              if (c < ds) t += As[r * dmax + c] * ps[c];
-            u[r] += t;
-          }
-        }
-      }
-      const double* Aq = pool + (int64_t)q * rd;
-#pragma unroll
-      for (int c = 0; c < kMaxD; ++c) {
-        if (c < dmax) {
+    const int e1 = vptr[v + 1];
+    double y = 0.0;                      // lanes < dmax: component lane
+    for (int e0 = vptr[v]; e0 < e1; e0 += K) {
+      const bool live = i < K && e0 + i < e1;
+      const int q = live ? vslot[e0 + i] : 0;
+      double u = 0.0;                    // row r of u_f (r < rmax)
+      if (live && r < rmax) {
+        const int f = slot_fac[q];
+        for (int s = fptr[f]; s < fptr[f + 1]; ++s) {
+          const double* As = pool + (int64_t)s * rd + r * dmax;
+          const int sv = slot_var[s];
+          const double* ps = p + var_off[sv];
+          const int ds = var_dim[sv];
           double t = 0.0;
-#pragma unroll
-          for (int r = 0; r < kMaxR; ++r)
-            if (r < rmax) t += Aq[r * dmax + c] * u[r];
-          y[c] += t;
+          for (int c = 0; c < ds; ++c) t += As[c] * ps[c];
+          u += t;
         }
       }
+      // component r of A_q^T u_f (r < dmax)
+      const double* Aq = pool + (int64_t)q * rd + r;
+      double w = 0.0;
+      for (int k = 0; k < rmax; ++k) {
+        const double uk = __shfl_sync(kFull, u, i0 * S + k);
+        if (live && r < dmax) w += Aq[k * dmax] * uk;
+      }
+      const int nk = min(K, e1 - e0);
+      for (int k = 0; k < nk; ++k) y += __shfl_sync(kFull, w, k * S + r);
     }
     const int o = var_off[v], dv = var_dim[v];
-#pragma unroll
-    for (int c = 0; c < kMaxD; ++c) {
-      if (c < dv) {
-        const double val = lam * p[o + c] + y[c];
-        Ap[o + c] = val;
-        dot[0] += p[o + c] * val;
-      }
+    double pa = 0.0;
+    if (lane < dv) {
+      const double val = lam * p[o + lane] + y;
+      Ap[o + lane] = val;
+      pa = p[o + lane] * val;
     }
+    pa = gt::warp_sum(pa);
+    if (lane == 0) dot[0] = pa;
   }
   double sums[1];
   if (last_cta<1>(dot, part, ticket, sums) && threadIdx.x == 0)
@@ -326,7 +332,7 @@ GT_EXPORT int gt_pcg_jacobi(int nv, int dmax, int rmax, const int* vptr,
 }
 
 // Ap = (J^T J + lam) p and st[PAP] = p.Ap; part: a partial a CTA
-// (ceil(nv / 128)), ticket: zero between launches.
+// (ceil(nv / 4)), ticket: zero between launches.
 GT_EXPORT int gt_pcg_matvec(int nv, int dmax, int rmax, const int* vptr,
                             const int* vslot, const int* slot_fac,
                             const int* fptr, const int* slot_var,
@@ -335,8 +341,8 @@ GT_EXPORT int gt_pcg_matvec(int nv, int dmax, int rmax, const int* vptr,
                             double* Ap, double* part, int* ticket, double* st,
                             const int* ist, void* stream) {
   if (dmax > kMaxD || rmax > kMaxR) return (int)cudaErrorInvalidValue;
-  pcg_matvec_kernel<<<max(var_grid(nv), 1), kVarThreads, 0,
-                      (cudaStream_t)stream>>>(
+  pcg_matvec_kernel<<<max((nv + kVarWarps - 1) / kVarWarps, 1),
+                      kVarThreads, 0, (cudaStream_t)stream>>>(
       nv, dmax, rmax, vptr, vslot, slot_fac, fptr, slot_var, var_off,
       var_dim, pool, p, lam, Ap, part, ticket, st, ist);
   return (int)cudaGetLastError();

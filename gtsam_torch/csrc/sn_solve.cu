@@ -610,41 +610,6 @@ __global__ void __launch_bounds__(kThreads) sn_backward_kernel(
   }
 }
 
-// Launch `kernel` cooperatively, in clusters of `cluster` CTAs, as many as
-// the card holds at once with `shm` bytes of dynamic shared memory each.
-template <typename... Args, typename... Act>
-int launch_levels(void (*kernel)(Args...), int cluster, size_t shm,
-                  cudaStream_t stream, Act... args) {
-  cudaError_t e = cudaSuccess;
-  if (shm > 48 * 1024)
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)shm);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute at[2];
-  at[0].id = cudaLaunchAttributeCooperative;
-  at[0].val.cooperative = 1;
-  at[1].id = cudaLaunchAttributeClusterDimension;
-  at[1].val.clusterDim.x = cluster;
-  at[1].val.clusterDim.y = 1;
-  at[1].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(cluster);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = shm;
-  cfg.stream = stream;
-  cfg.attrs = at;
-  cfg.numAttrs = 2;
-  int ncl = 0;
-  e = cudaOccupancyMaxActiveClusters(&ncl, kernel, &cfg);
-  if (e != cudaSuccess) return (int)e;
-  if (ncl < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  cfg.gridDim = dim3(ncl * cluster);
-  e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // n variables of width d; max_front: the most Wd + Rd of a front (doubles
@@ -660,11 +625,11 @@ GT_EXPORT int gt_sn_forward(int nlev, int d, int n, int max_front,
                             const int* gat_seg, const int* gat_src, double* y,
                             double* c, void* stream) {
   if (nlev == 0) return 0;
-  return launch_levels(sn_forward_kernel, cluster,
-                       (size_t)max_front * sizeof(double),
-                       (cudaStream_t)stream, nlev, d, n,
-                       reinterpret_cast<const Level*>(table), g, Linv, cols,
-                       gat_ptr, gat_seg, gat_src, y, c);
+  return gt::launch_levels(sn_forward_kernel, kThreads, cluster,
+                           (size_t)max_front * sizeof(double), 0,
+                           (cudaStream_t)stream, nlev, d, n,
+                           reinterpret_cast<const Level*>(table), g, Linv,
+                           cols, gat_ptr, gat_seg, gat_src, y, c);
 }
 
 // x: n x d, every variable written once (at its front's true columns);
@@ -675,9 +640,9 @@ GT_EXPORT int gt_sn_backward(int nlev, int d, int n, int max_front,
                              const int* cols, const int* rows, double* x,
                              void* stream) {
   if (nlev == 0) return 0;
-  return launch_levels(sn_backward_kernel, cluster,
-                       (size_t)max_front * sizeof(double),
-                       (cudaStream_t)stream, nlev, d, n,
-                       reinterpret_cast<const Level*>(table), y, Linv, cols,
-                       rows, x);
+  return gt::launch_levels(sn_backward_kernel, kThreads, cluster,
+                           (size_t)max_front * sizeof(double), 0,
+                           (cudaStream_t)stream, nlev, d, n,
+                           reinterpret_cast<const Level*>(table), y, Linv,
+                           cols, rows, x);
 }

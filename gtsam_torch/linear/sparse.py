@@ -19,10 +19,11 @@ maps, the assembly plan) and move to the device once.  Then:
                   triangles; M through dense_blocked.blocked_cholesky
                   (kernel 10 and cuBLAS's trailing products); kernel 7's
                   pivot check reduces the records;
-  solve_factored: kernel 14 forward a level, then the dense root's
-                  right-hand side (kernel 14) and its two solves (kernel
-                  11), then kernel 14 backward a level in reverse, which
-                  also writes the flat delta (un-permuted, un-padded).
+  solve_factored: kernel 14 forward over every level, the dense root's
+                  right-hand side too (one launch), the root's two solves
+                  (kernel 11), then kernel 14 backward over every level in
+                  reverse (one launch), which also writes the flat delta
+                  (un-permuted, un-padded).
 
 Blocks are padded to one width d (the largest variable dimension), with
 the identity on the padding's diagonal and no damping there.  lam I
@@ -315,9 +316,9 @@ class SparseCholeskySolver:
             np.int32)
         self.l_ptr = _csr(owner[o], len(self.tail_bids))
 
-        # kernel 14: forward launches (a level, then the tail's rhs) and
-        # backward launches (levels in reverse; the tail's columns copied in
-        # the first one), each a slice of job arrays
+        # kernel 14's jobs, a level's columns after another's: forward
+        # (then the tail's rhs) and backward (levels in reverse, the tail's
+        # columns copied with the first); one launch a direction
         # rows of U: x of leading column j at j, of tail column at n + pos
         urow = np.where(self.tail_pos >= 0, n + self.tail_pos,
                         np.arange(n)).astype(np.int32)
@@ -371,10 +372,13 @@ class SparseCholeskySolver:
 
     @staticmethod
     def _job_arrays(jobs, ptr_key, keys):
-        """Concatenate launches of jobs: per launch its job slice and its
-        CSR over the entries of `keys`."""
+        """Concatenate a direction's levels of jobs in order: the job
+        arrays, their CSR over the entries of `keys` (ptr), the level
+        pointers (lptr: each level's first job, then the count) and the
+        jobs that substitute (ndiag: the levels before the first with
+        diag False, the tail's rhs)."""
         out = {k: [] for k in ("cols", "rows", "dbid") + keys}
-        ptr, slices, e0, j0 = [0], [], 0, 0
+        ptr, lptr, e0, ndiag = [0], [0], 0, None
         for job in jobs:
             J = job.get("njob", len(job["cols"]))
             counts = np.bincount(job["owner"], minlength=J)
@@ -384,12 +388,14 @@ class SparseCholeskySolver:
             out["dbid"].append(job["dbid"])
             for k in keys:
                 out[k].append(job[k])
-            slices.append((j0, j0 + J, job.get("diag", True)))
+            if ndiag is None and not job.get("diag", True):
+                ndiag = lptr[-1]
             e0 += len(job[keys[0]])
-            j0 += J
+            lptr.append(lptr[-1] + J)
         arrs = {k: _cat(v) for k, v in out.items()}
         arrs["ptr"] = np.asarray(ptr, dtype=np.int32)
-        return arrs, slices
+        arrs["lptr"] = np.asarray(lptr, dtype=np.int32)
+        return arrs, lptr[-1] if ndiag is None else ndiag
 
     def to(self, device) -> "SparseCholeskySolver":
         """Move the plans to `device` (once; the solver then runs there)."""
@@ -401,10 +407,9 @@ class SparseCholeskySolver:
                                    device=dev)
 
         sym, n, d, T = self.sym, self.nvars, self.d, self.n_tail
-        fw, self._fw_slices = self._job_arrays(self._fw_jobs, "orow",
-                                               ("fbid", "fsrc"))
-        bw, self._bw_slices = self._job_arrays(self._bw_jobs, "xrow",
-                                               ("bbid", "bsrc"))
+        fw, self._fw_ndiag = self._job_arrays(self._fw_jobs, "orow",
+                                              ("fbid", "fsrc"))
+        bw, _ = self._job_arrays(self._bw_jobs, "xrow", ("bbid", "bsrc"))
         self.dev = types.SimpleNamespace(
             asm_src=t(self.asm_src), asm_ptr=t(self.asm_ptr),
             asm_blk=t(self.asm_blk), asm_diag=t(self.asm_diag),
@@ -422,6 +427,7 @@ class SparseCholeskySolver:
             bw={k: t(v) for k, v in bw.items()},
             map_canon=t(self.map_canon))
         self._scratch = None
+        self._epoch = 0
         return self
 
     # -- system assembly -------------------------------------------------
@@ -497,32 +503,44 @@ class SparseCholeskySolver:
         rhs = g.reshape(-1)
         if self._scratch is None:
             # y of the leading columns, x of every column (the root's at
-            # n + its position), the root's rhs and y: one solve at a time
+            # n + its position), the root's rhs and y, and kernel 14's
+            # flags, a row of each direction: one solve at a time
             self._scratch = (
                 torch.empty((n, d), dtype=F64, device=dev),
                 torch.empty((n + T, d), dtype=F64, device=dev),
                 torch.empty((T, d), dtype=F64, device=dev),
-                torch.empty(T * d, dtype=F64, device=dev))
-        Y, U, rt, yt = self._scratch
+                torch.empty(T * d, dtype=F64, device=dev),
+                torch.zeros((2, n), dtype=I32, device=dev))
+        Y, U, rt, yt, flags = self._scratch
+        epoch = self._next_epoch(flags)
         delta = out if out is not None else torch.empty(
             self.layout.total_dim, dtype=F64, device=dev)
         fw, bw = dv.fw, dv.bw
-        for j0, j1, diag in self._fw_slices:
-            K.sp_level_forward(L, rhs, rhs_map, Y, fw["cols"][j0:j1],
-                               fw["rows"][j0:j1], fw["dbid"][j0:j1],
-                               fw["ptr"][j0:j1 + 1], fw["fbid"], fw["fsrc"],
-                               Y if diag else rt, diag, stop)
+        if len(fw["cols"]):
+            K.sp_level_forward(L, rhs, rhs_map, Y, rt, fw["cols"],
+                               fw["rows"], fw["dbid"], fw["ptr"], fw["fbid"],
+                               fw["fsrc"], fw["lptr"], self._fw_ndiag,
+                               flags[0], epoch, stop)
         if T:
             Lt, Dinv, _ = factored.tail
             dense_kernels.solve_forward(Lt, Dinv, rt.view(-1), yt, stop=stop)
             dense_kernels.solve_backward(Lt, Dinv, yt, U[n:].view(-1),
                                          stop=stop)
-        for j0, j1, _ in self._bw_slices:
-            K.sp_level_backward(L, Y, U, dv.map_canon, bw["cols"][j0:j1],
-                                bw["rows"][j0:j1], bw["dbid"][j0:j1],
-                                bw["ptr"][j0:j1 + 1], bw["bbid"],
-                                bw["bsrc"], delta, stop)
+        if len(bw["cols"]):
+            K.sp_level_backward(L, Y, U, dv.map_canon, bw["cols"],
+                                bw["rows"], bw["dbid"], bw["ptr"],
+                                bw["bbid"], bw["bsrc"], bw["lptr"], delta,
+                                flags[1], epoch, stop)
         return delta
+
+    def _next_epoch(self, flags):
+        """Kernel 14's number of this solve, a new one each solve; before
+        the numbers start again the flags are zeroed, so none is stale."""
+        if self._epoch == 2 ** 31 - 1:
+            flags.zero_()
+            self._epoch = 0
+        self._epoch += 1
+        return self._epoch
 
     def solve(self, arrays, lam=0.0):
         blocks, g = self.system(arrays)
@@ -540,11 +558,10 @@ class SparseCholeskySolver:
                 if T else 0}
 
     def launches_per_solve(self) -> dict:
-        """Kernel launches of one solve_factored(): kernel 14 forward a
-        level and once for the root's rhs, backward a level (or once, to
-        copy the root, without leading levels), kernel 11 once a
-        direction."""
-        return {"sp_level_forward": len(self._fw_slices),
-                "sp_level_backward": len(self._bw_slices),
+        """Kernel launches of one solve_factored(): kernel 14 once a
+        direction (every level, and the root's rhs or its copy), kernel 11
+        once a direction."""
+        return {"sp_level_forward": int(len(self.dev.fw["cols"]) > 0),
+                "sp_level_backward": int(len(self.dev.bw["cols"]) > 0),
                 "dense_forward": int(self.n_tail > 0),
                 "dense_backward": int(self.n_tail > 0)}

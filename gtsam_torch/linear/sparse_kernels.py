@@ -6,16 +6,18 @@ gtsam_tpu/linear/sparse.py: the factorization a level at a time
 (factorize: each column's blocks updated by the level's triples, the
 diagonal block's Cholesky with a pivot record, the subdiagonal blocks'
 triangular solves; then the late triples and the dense root's matrix M)
-and the forward and backward substitution a level at a time
-(solve_factored).  Kernels 15 and 16 (csrc/pcg.cu) port gtsam_tpu/linear/
-pcg.py: the matrix-free (J^T J + lam) v over the whitened Jacobian rows with
-p.Ap, the block-Jacobi diagonal, and the steps of the CG iteration.
+and the forward and backward substitution (solve_factored), one launch a
+direction over every level, the columns passing their rows on by flags.
+Kernels 15 and 16 (csrc/pcg.cu) port gtsam_tpu/linear/pcg.py: the
+matrix-free (J^T J + lam) v over the whitened Jacobian rows with p.Ap, the
+block-Jacobi diagonal, and the steps of the CG iteration.
 
 Layouts: the block store is (B, d*d) float64, block b's d x d entries
 row-major (L_ij with i >= j lower-stored); vectors of the level solver are
 (rows, d) in the permuted (elimination) order; the flat vectors of PCG are
-in the canonical tangent layout.  Index arrays are int32 and 1-D, a level's
-slice of the solver's plan (linear/sparse.py).  Each wrapper
+in the canonical tangent layout.  Index arrays are int32 and 1-D: a
+level's slice of the solver's plan (linear/sparse.py) for kernel 13, a
+direction's job arrays for kernel 14.  Each wrapper
   - on CPU tensors computes its plain PyTorch version (`*_plain`), which the
     CPU tests compare against the JAX package;
   - on CUDA tensors checks dtype, shape, contiguity and device, launches its
@@ -48,9 +50,9 @@ KERNELS = _kernels.table(
     Kernel("sp_tail_assemble", "sp_level", "sp_tail_assemble", f"{_SP}:252",
            [INT] * 3 + [P] * 9 + [DBL, P]),
     Kernel("sp_level_forward", "sp_level", "sp_level_forward", f"{_SP}:278",
-           [INT] * 3 + [P] * 12),
+           [INT] * 5 + [P] * 13),
     Kernel("sp_level_backward", "sp_level", "sp_level_backward",
-           f"{_SP}:302", [INT, INT] + [P] * 12),
+           f"{_SP}:302", [INT] * 4 + [P] * 13),
     Kernel("pcg_jacobi", "pcg", "pcg_jacobi", f"{_PCG}:57",
            [INT] * 3 + [P] * 5),
     Kernel("pcg_matvec", "pcg", "pcg_matvec", f"{_PCG}:87",
@@ -70,8 +72,10 @@ INIT, UPDATE, FINISH, DIRECTION = 0, 1, 2, 3
 GAMMA, PAP, RR, TOL2, BETA = 0, 1, 2, 3, 4
 DONE, IT = 0, 1
 ST_SIZE, IST_SIZE = 8, 4
-# threads of a CTA of pcg_matvec and pcg_step, a variable each (kVarThreads)
+# threads of a CTA of pcg_step, a variable each (kVarThreads), and the
+# variables of a CTA of pcg_matvec, a warp each (kVarWarps)
 VAR_THREADS = 128
+VAR_WARPS = VAR_THREADS // 32
 
 
 def _width(d, name):
@@ -234,7 +238,7 @@ def sp_tail_assemble(A, L, tmap, tbid, lptr, lik, ljk, tcols, pad, lam, M):
     return M
 
 
-# -- kernel 14: a level of the forward and backward substitution -------------
+# -- kernel 14: the forward and backward substitution -----------------------
 
 
 def _forward_rows(acc, Ld):
@@ -263,10 +267,16 @@ def _gather_rhs(rhs, rhs_map, cols, d):
     return torch.where(idx >= 0, rhs[idx.clamp(min=0)], 0.0)
 
 
-def sp_level_forward_plain(L, rhs, rhs_map, Y, cols, orow, dbid, fptr, fbid,
-                           fsrc, out, diag, stop=None):
-    if _stopped(stop):
-        return out
+def _levels(lptr):
+    """The (first, past-last) job of each level of a level-pointer array."""
+    p = lptr.tolist()
+    return list(zip(p[:-1], p[1:]))
+
+
+def _forward_level(L, rhs, rhs_map, Y, cols, orow, dbid, fptr, fbid, fsrc,
+                   out, diag):
+    """One level of the forward substitution (its jobs' slices; every
+    source in an earlier level)."""
     d = Y.shape[1]
     J = cols.shape[0]
     f0, f1 = int(fptr[0]), int(fptr[J])
@@ -282,21 +292,40 @@ def sp_level_forward_plain(L, rhs, rhs_map, Y, cols, orow, dbid, fptr, fbid,
     return out
 
 
-def sp_level_forward(L, rhs, rhs_map, Y, cols, orow, dbid, fptr, fbid, fsrc,
-                     out, diag, stop=None):
-    """Kernel 14, forward: for each job q (column j = cols[q]): acc = the
-    rhs at j (rhs[rhs_map[j*d + c]], 0 where the map is -1; rhs[j*d + c]
-    with rhs_map None, rhs then the padded (n, d) g flat) less the sum of
-    L_b y_k over the job's blocks fbid/fsrc[fptr[q]:fptr[q+1]] (y_k: row k
-    of Y), then with `diag` y = L_jj^-1 acc (L_jj: block dbid[q]), written
-    to out[orow[q]] (out may be Y).  A level of the forward substitution,
-    or with diag False the dense root's right-hand side.  stop: the done
-    word of a CG loop (the launch returns at once where it is set) or None.
-    On the card one launch, a warp a job."""
-    args = (L, rhs, rhs_map, Y, cols, orow, dbid, fptr, fbid, fsrc, out)
+def sp_level_forward_plain(L, rhs, rhs_map, Y, rt, cols, orow, dbid, fptr,
+                           fbid, fsrc, lptr, ndiag, flags, epoch, stop=None):
+    if _stopped(stop):
+        return Y, rt
+    for j0, j1 in _levels(lptr):
+        diag = j1 <= ndiag
+        _forward_level(L, rhs, rhs_map, Y, cols[j0:j1], orow[j0:j1],
+                       dbid[j0:j1], fptr[j0:j1 + 1], fbid, fsrc,
+                       Y if diag else rt, diag)
+    return Y, rt
+
+
+def sp_level_forward(L, rhs, rhs_map, Y, rt, cols, orow, dbid, fptr, fbid,
+                     fsrc, lptr, ndiag, flags, epoch, stop=None):
+    """Kernel 14, forward, every level at once: the jobs q (column j =
+    cols[q]) in order, level by level (lptr: the levels' first jobs and the
+    end; each job's sources in earlier levels): acc = the rhs at j
+    (rhs[rhs_map[j*d + c]], 0 where the map is -1; rhs[j*d + c] with
+    rhs_map None, rhs then the padded (n, d) g flat) less the sum of L_b y_k
+    over the job's blocks fbid/fsrc[fptr[q]:fptr[q+1]] (y_k: row k of Y);
+    the first ndiag jobs (whole levels: the leading ones) write y = L_jj^-1
+    acc (L_jj: block dbid[q]) to Y[orow[q]], the rest (the dense root's
+    right-hand side) acc to rt[orow[q]].  flags (one int32 a row of Y) and
+    epoch (a new number every solve, never 0): on the card each row's flag
+    is set to epoch once the row is written, and a job reads a row once its
+    flag holds it; the plain version ignores both.  stop: the done word of
+    a CG loop (the launch returns at once where it is set) or None.  On the
+    card one launch, a warp a job."""
+    args = (L, rhs, rhs_map, Y, rt, cols, orow, dbid, fptr, fbid, fsrc,
+            lptr)
     extra = tuple(t for t in (rhs_map, stop) if t is not None)
-    if on_cpu(L, rhs, Y, cols, orow, dbid, fptr, fbid, fsrc, out, *extra):
-        return sp_level_forward_plain(*args, diag, stop)
+    if on_cpu(L, rhs, Y, rt, cols, orow, dbid, fptr, fbid, fsrc, lptr, flags,
+              *extra):
+        return sp_level_forward_plain(*args, ndiag, flags, epoch, stop)
     B, dd = L.shape
     nY, d = Y.shape
     J = cols.shape[0]
@@ -304,11 +333,12 @@ def sp_level_forward(L, rhs, rhs_map, Y, cols, orow, dbid, fptr, fbid, fsrc,
     # without a map, rhs is the padded g: a row of d for each row of Y
     nrhs = tuple(rhs.shape) if rhs_map is not None else (nY * d,)
     specs = [("L", L, F64, (B, dd)), ("rhs", rhs, F64, nrhs),
-             ("Y", Y, F64, (nY, d)), ("cols", cols, I32, (J,)),
-             ("orow", orow, I32, (J,)), ("dbid", dbid, I32, (J,)),
-             ("fptr", fptr, I32, (J + 1,)), ("fbid", fbid, I32, (nf,)),
-             ("fsrc", fsrc, I32, (nf,)),
-             ("out", out, F64, (out.shape[0], d))]
+             ("Y", Y, F64, (nY, d)), ("rt", rt, F64, (rt.shape[0], d)),
+             ("cols", cols, I32, (J,)), ("orow", orow, I32, (J,)),
+             ("dbid", dbid, I32, (J,)), ("fptr", fptr, I32, (J + 1,)),
+             ("fbid", fbid, I32, (nf,)), ("fsrc", fsrc, I32, (nf,)),
+             ("lptr", lptr, I32, (lptr.shape[0],)),
+             ("flags", flags, I32, (nY,))]
     if rhs.dim() != 1 or (rhs_map is not None and (
             rhs_map.dim() != 1 or rhs_map.shape[0] % d)):
         raise ValueError("sp_level_forward: rhs and rhs_map must be vectors, "
@@ -319,20 +349,22 @@ def sp_level_forward(L, rhs, rhs_map, Y, cols, orow, dbid, fptr, fbid, fsrc,
         specs.append(("stop", stop, I32, (stop.shape[0],)))
     dev = check("sp_level_forward", *specs)
     _width(d, "sp_level_forward")
-    if dd != d * d:
-        raise ValueError("sp_level_forward: L must be (B, d*d)")
+    if dd != d * d or not 0 <= ndiag <= J or not 0 < epoch < 2 ** 31:
+        raise ValueError(f"sp_level_forward: L must be (B, d*d), ndiag in "
+                         f"0..{J}, epoch in 1..2^31-1")
     KERNELS["sp_level_forward"].launch(
-        dev, J, d, int(bool(diag)),
+        dev, J, int(ndiag), d, nY, int(epoch),
         *map(ptr, (cols, orow, dbid, fptr, fbid, fsrc, L, rhs)),
-        ptr(rhs_map) if rhs_map is not None else 0, ptr(Y), ptr(out),
-        ptr(stop) if stop is not None else 0)
-    return out
+        ptr(rhs_map) if rhs_map is not None else 0, ptr(Y), ptr(rt),
+        ptr(flags), ptr(stop) if stop is not None else 0)
+    return Y, rt
 
 
-def sp_level_backward_plain(L, Y, U, out_map, cols, xrow, dbid, bptr, bbid,
-                            bsrc, delta, stop=None):
-    if _stopped(stop):
-        return U, delta
+def _backward_level(L, Y, U, out_map, cols, xrow, dbid, bptr, bbid, bsrc,
+                    delta):
+    """One level of the backward substitution (its jobs' slices; every
+    source in an earlier level of the backward order, or the dense
+    root's)."""
     d = Y.shape[1]
     J = cols.shape[0]
     b0, b1 = int(bptr[0]), int(bptr[J])
@@ -352,41 +384,61 @@ def sp_level_backward_plain(L, Y, U, out_map, cols, xrow, dbid, bptr, bbid,
     return U, delta
 
 
+def sp_level_backward_plain(L, Y, U, out_map, cols, xrow, dbid, bptr, bbid,
+                            bsrc, lptr, delta, flags, epoch, stop=None):
+    if _stopped(stop):
+        return U, delta
+    for j0, j1 in _levels(lptr):
+        _backward_level(L, Y, U, out_map, cols[j0:j1], xrow[j0:j1],
+                        dbid[j0:j1], bptr[j0:j1 + 1], bbid, bsrc, delta)
+    return U, delta
+
+
 def sp_level_backward(L, Y, U, out_map, cols, xrow, dbid, bptr, bbid, bsrc,
-                      delta, stop=None):
-    """Kernel 14, backward: for each job q (column j = cols[q]) with a
-    diagonal block (dbid[q] >= 0): x_j = L_jj^-T (y_j - the sum of L_b^T x_i
-    over the job's blocks bbid/bsrc[bptr[q]:bptr[q+1]], x_i: row bsrc of
-    U), written to U[xrow[q]]; a job with dbid -1 (a dense-root column,
-    solved by kernel 11 into U) only copies.  Every job's x also goes to
-    delta[out_map[j*d + c]] (the flat tangent layout; -1: a padded
-    component).  A level of the backward substitution.  stop: as
-    sp_level_forward's.  On the card one launch, a warp a job."""
-    args = (L, Y, U, out_map, cols, xrow, dbid, bptr, bbid, bsrc, delta)
+                      lptr, delta, flags, epoch, stop=None):
+    """Kernel 14, backward, every level at once: the jobs q (column j =
+    cols[q]) in order, level by level (lptr as sp_level_forward's; the
+    levels in reverse), each with a diagonal block (dbid[q] >= 0): x_j =
+    L_jj^-T (y_j - the sum of L_b^T x_i over the job's blocks
+    bbid/bsrc[bptr[q]:bptr[q+1]], x_i: row bsrc of U), written to U[xrow[q]]
+    (a row below flags' length, as every source row that a job of this
+    launch writes); a job with dbid -1 (a dense-root column, solved by
+    kernel 11 into a row of U at or past flags' length) only copies.  Every
+    job's x also goes to delta[out_map[j*d + c]] (the flat tangent layout;
+    -1: a padded component).  flags, epoch, stop: as sp_level_forward's.
+    On the card one launch, a warp a job."""
+    args = (L, Y, U, out_map, cols, xrow, dbid, bptr, bbid, bsrc, lptr,
+            delta)
     extra = (stop,) if stop is not None else ()
-    if on_cpu(*args, *extra):
-        return sp_level_backward_plain(*args, stop)
+    if on_cpu(*args, flags, *extra):
+        return sp_level_backward_plain(*args, flags, epoch, stop)
     B, dd = L.shape
     nY, d = Y.shape
     J = cols.shape[0]
     nb = bbid.shape[0]
+    nflag = flags.shape[0]
     specs = [("L", L, F64, (B, dd)), ("Y", Y, F64, (nY, d)),
              ("U", U, F64, (U.shape[0], d)),
              ("out_map", out_map, I32, tuple(out_map.shape)),
              ("cols", cols, I32, (J,)), ("xrow", xrow, I32, (J,)),
              ("dbid", dbid, I32, (J,)), ("bptr", bptr, I32, (J + 1,)),
              ("bbid", bbid, I32, (nb,)), ("bsrc", bsrc, I32, (nb,)),
-             ("delta", delta, F64, tuple(delta.shape))]
+             ("lptr", lptr, I32, (lptr.shape[0],)),
+             ("delta", delta, F64, tuple(delta.shape)),
+             ("flags", flags, I32, (nflag,))]
     if stop is not None:
         specs.append(("stop", stop, I32, (stop.shape[0],)))
     dev = check("sp_level_backward", *specs)
     _width(d, "sp_level_backward")
-    if dd != d * d or out_map.dim() != 1 or delta.dim() != 1:
+    if dd != d * d or out_map.dim() != 1 or delta.dim() != 1 or \
+            nflag > U.shape[0] or not 0 < epoch < 2 ** 31:
         raise ValueError("sp_level_backward: L must be (B, d*d), out_map and "
-                         "delta vectors")
+                         "delta vectors, flags no longer than U, epoch in "
+                         "1..2^31-1")
     KERNELS["sp_level_backward"].launch(
-        dev, J, d, *map(ptr, (cols, xrow, dbid, bptr, bbid, bsrc, L, Y, U,
-                              out_map, delta)),
+        dev, J, d, nflag, int(epoch),
+        *map(ptr, (cols, xrow, dbid, bptr, bbid, bsrc, L, Y, U, out_map,
+                   delta, flags)),
         ptr(stop) if stop is not None else 0)
     return U, delta
 
@@ -469,7 +521,7 @@ def pcg_matvec(pool, p, vptr, vslot, slot_fac, fptr, slot_var, var_off,
     vectors): for each variable v, lam p_v plus the sum over its slots
     vslot[vptr[v]:vptr[v+1]] of A_q^T u_f, u_f = the sum of A_s p over f's
     slots, f = slot_fac[q]; and st[PAP] = p.Ap.  Returns at once where
-    ist[DONE] is set.  On the card one launch, a thread a variable, the
+    ist[DONE] is set.  On the card one launch, a warp a variable, the
     partial dot products summed in CTA order by the last CTA."""
     args = (pool, p, vptr, vslot, slot_fac, fptr, slot_var, var_off,
             var_dim)
@@ -489,7 +541,7 @@ def pcg_matvec(pool, p, vptr, vslot, slot_fac, fptr, slot_var, var_off,
     if dmax > MAX_D or rmax > MAX_R:
         raise ValueError(f"pcg_matvec: rows of {rmax} x {dmax} exceed "
                          f"{MAX_R} x {MAX_D}")
-    ctas = max(1, -(-nv // VAR_THREADS))
+    ctas = max(1, -(-nv // VAR_WARPS))
     ticket, part = _kernels.sum_scratch(dev, ctas)
     KERNELS["pcg_matvec"].launch(
         dev, nv, dmax, rmax,

@@ -185,12 +185,12 @@ def _meta_args_sparse(name, B=10, n=5, J=3, T=2, nv=4, Q=8):
                             f(n, 6), 0.1, f(B, 36), i(J)),
         "sp_tail_assemble": (f(B, 36), f(B, 36), i(T * T), i(3), i(4), i(5),
                              i(5), i(T), f(n, 6), 0.1, f(6 * T, 6 * T)),
-        "sp_level_forward": (f(B, 36), f(6 * n), i(6 * n), f(n, 6), i(J),
-                             i(J), i(J), i(J + 1), i(4), i(4), f(n, 6),
-                             True),
+        "sp_level_forward": (f(B, 36), f(6 * n), i(6 * n), f(n, 6),
+                             f(T, 6), i(J), i(J), i(J), i(J + 1), i(4),
+                             i(4), i(3), J - 1, i(n), 1),
         "sp_level_backward": (f(B, 36), f(n, 6), f(n + T, 6), i(6 * n),
-                              i(J), i(J), i(J), i(J + 1), i(4), i(4),
-                              f(6 * nv)),
+                              i(J), i(J), i(J), i(J + 1), i(4), i(4), i(3),
+                              f(6 * nv), i(n), 1),
         "pcg_jacobi": (f(Q, 6, 6), i(nv + 1), i(Q), i(nv), f(nv, 6, 6)),
         "pcg_matvec": (f(Q, 6, 6), f(6 * nv), i(nv + 1), i(Q), i(Q), i(5),
                        i(Q), i(nv), i(nv), 0.1, f(6 * nv),
@@ -437,7 +437,7 @@ def _cpu_args(name):
 def _cpu_args_sparse(name):
     """Arguments of each wrapper of kernels 13-16 at the shapes the level
     solver and PCG give them, from the small pose graph (a plan with leading
-    levels and a dense root; the second leading level, the root, the first
+    levels and a dense root; the second leading level, the root, the
     forward and backward launches), on the CPU; made anew at each call, or
     None for another name."""
     if name not in sparse_kernels.KERNELS:
@@ -460,8 +460,7 @@ def _cpu_args_sparse(name):
     L[rows] = 0.0
     rng = np.random.default_rng(6)
     fw, bw = dv.fw, dv.bw
-    j0, j1, _ = s._fw_slices[0]
-    b0, b1, _ = s._bw_slices[0]
+    flags = torch.zeros(n, dtype=torch.int32)
     ps = PCGSolver().bind(bound)
     pool, gp, diag = ps.system(vals.arrays)
     pl = ps._plan
@@ -480,17 +479,17 @@ def _cpu_args_sparse(name):
                                          dtype=torch.float64)),
         "sp_level_forward": (Lf, g.reshape(-1), None,
                              torch.as_tensor(rng.normal(size=(n, d))),
-                             fw["cols"][j0:j1], fw["rows"][j0:j1],
-                             fw["dbid"][j0:j1], fw["ptr"][j0:j1 + 1],
-                             fw["fbid"], fw["fsrc"],
-                             torch.zeros((n, d), dtype=torch.float64), True),
+                             torch.zeros((T, d), dtype=torch.float64),
+                             fw["cols"], fw["rows"], fw["dbid"], fw["ptr"],
+                             fw["fbid"], fw["fsrc"], fw["lptr"],
+                             s._fw_ndiag, flags, 1),
         "sp_level_backward": (Lf, torch.as_tensor(rng.normal(size=(n, d))),
                               torch.as_tensor(rng.normal(size=(n + T, d))),
-                              dv.map_canon, bw["cols"][b0:b1],
-                              bw["rows"][b0:b1], bw["dbid"][b0:b1],
-                              bw["ptr"][b0:b1 + 1], bw["bbid"], bw["bsrc"],
+                              dv.map_canon, bw["cols"], bw["rows"],
+                              bw["dbid"], bw["ptr"], bw["bbid"], bw["bsrc"],
+                              bw["lptr"],
                               torch.zeros(s.layout.total_dim,
-                                          dtype=torch.float64)),
+                                          dtype=torch.float64), flags, 1),
         "pcg_jacobi": (pool, pl["vptr"], pl["vslot"], pl["var_dim"],
                        torch.zeros_like(diag)),
         "pcg_matvec": (pool, vec[0], *ps._mv_plan(), 0.2,

@@ -28,10 +28,12 @@ from gtsam_torch.base import noise as tnoise
 from gtsam_torch.graph import factors as tfactors
 from gtsam_torch.graph.graph import BoundGraph, FactorGraph
 from gtsam_torch.linear import pcg as tpcg
+from gtsam_torch.linear import sparse_kernels as K
 from gtsam_torch.linear.pcg import PCGSolver, SubgraphPCGSolver
 from gtsam_torch.optimize import optimizers as TO
 from .test_torch_optimizers import _rel
-from .test_torch_sparse import _bound, graphs  # noqa: F401
+from .test_torch_sparse import _bound, check_job_order
+from .test_torch_sparse import graphs  # noqa: F401
 
 SOLVERS = {"pcg": (JPCG, PCGSolver), "subgraph": (JSubgraph,
                                                   SubgraphPCGSolver)}
@@ -120,6 +122,75 @@ def test_pcg_system_and_matvec(graphs, name):
     assert pool.shape == (ts._Q, ts._rmax, ts._dmax)
 
 
+def _matvec_by_lanes(pool, p, plan, lam):
+    """(J^T J + lam) p as kernel 15's matvec forms it, lane by lane: a warp
+    a variable, its slots in chunks of K = 32 // S (S = max(rmax, dmax));
+    lane (i, r) of the chunk's slot i forms row r of u_f, lane (i, c)
+    component c of A_q^T u_f from lanes (i, k), and lane c adds the
+    chunk's slots' components in slot order."""
+    Q, rmax, dmax = pool.shape
+    S = max(rmax, dmax)
+    K = 32 // S
+    A = pool.tolist()
+    pv = p.tolist()
+    vptr, vslot, slot_fac, fptr, slot_var, var_off, var_dim = (
+        t.tolist() for t in plan)
+    Ap = torch.zeros_like(p)
+    for v in range(len(var_dim)):
+        y = [0.0] * 32
+        e1 = vptr[v + 1]
+        for e0 in range(vptr[v], e1, K):
+            u, w = [0.0] * 32, [0.0] * 32
+            for lane in range(32):
+                i, r = divmod(lane, S)
+                if i < K and e0 + i < e1 and r < rmax:
+                    f = slot_fac[vslot[e0 + i]]
+                    for s in range(fptr[f], fptr[f + 1]):
+                        o, ds = var_off[slot_var[s]], var_dim[slot_var[s]]
+                        u[lane] += sum(A[s][r][c] * pv[o + c]
+                                       for c in range(ds))
+            for lane in range(32):
+                i, r = divmod(lane, S)
+                i0 = i if i < K else 0
+                if i < K and e0 + i < e1 and r < dmax:
+                    q = vslot[e0 + i]
+                    for k in range(rmax):
+                        w[lane] += A[q][k][r] * u[i0 * S + k]
+            for lane in range(32):
+                for k in range(min(K, e1 - e0)):
+                    y[lane] += w[k * S + lane % S]
+        o = var_off[v]
+        for c in range(var_dim[v]):
+            Ap[o + c] = lam * pv[o + c] + y[c]
+    return Ap
+
+
+@pytest.mark.parametrize("name", GRAPHS)
+def test_matvec_warp_schedule(graphs, name):
+    """Kernel 15's matvec schedule (_matvec_by_lanes) gives the plain
+    version's (J^T J + lam) p at 1e-13 (the same products, the slots' sums
+    in the plain version's order), also with a hub variable whose slots
+    take several chunks (every slot of the first variable repeated)."""
+    _, _, tb, tv = _bound(graphs, name)
+    ts = PCGSolver().bind(tb)
+    pool, g, _ = ts.system(tv.arrays)
+    p = torch.as_tensor(np.random.default_rng(9).normal(size=g.shape[0]))
+    plan = ts._mv_plan()
+    st, ist = ts._state("cpu")
+    ref = K.pcg_matvec_plain(pool, p, *plan, 0.3, torch.empty_like(p), st,
+                             ist)
+    assert _rel(_matvec_by_lanes(pool, p, plan, 0.3), ref) <= 1e-13
+    vptr, vslot = plan[0], plan[1]
+    S = max(pool.shape[1], pool.shape[2])
+    hub = vslot[:int(vptr[1])].repeat(32 // S + 2)
+    extra = len(hub) - int(vptr[1])
+    plan2 = (torch.cat([vptr[:1], vptr[1:] + extra]),
+             torch.cat([hub, vslot[int(vptr[1]):]])) + tuple(plan[2:])
+    ref2 = K.pcg_matvec_plain(pool, p, *plan2, 0.3, torch.empty_like(p), st,
+                              ist)
+    assert _rel(_matvec_by_lanes(pool, p, plan2, 0.3), ref2) <= 1e-13
+
+
 @pytest.mark.parametrize("kind", list(SOLVERS))
 @pytest.mark.parametrize("name", GRAPHS)
 def test_pcg_solve(graphs, name, kind):
@@ -167,6 +238,24 @@ def test_subgraph_tree(graphs, name):
     # a spanning forest: one tree row per variable less the components
     n_bin = sum(b.num_factors for b in tt if b.arity == 2)
     assert n_bin <= ts._nv - 1
+
+
+@pytest.mark.parametrize("name", GRAPHS)
+def test_subgraph_tree_kernel14_plan(graphs, name):
+    """The tree solver's kernel 14 plan keeps its precondition
+    (test_torch_sparse.check_job_order: level pointers that partition the
+    jobs, every source row from an earlier level), and a tree solve is
+    one kernel 14 launch a direction, so a CG iteration launches the
+    matvec, UPDATE, FINISH, DIRECTION and the tree solve's 2 + 2 (+ 2
+    fills of kernel 11's outputs with a dense root)."""
+    _, _, tb, _ = _bound(graphs, name)
+    tree = SubgraphPCGSolver().bind(tb)._tree
+    check_job_order(tree)
+    sv = tree.launches_per_solve()
+    assert sv["sp_level_forward"] == sv["sp_level_backward"] == 1
+    assert sv["dense_forward"] == sv["dense_backward"] == int(
+        tree.n_tail > 0)
+    assert 4 + sum(sv.values()) <= 8
 
 
 def test_subgraph_matches_dense(graphs):

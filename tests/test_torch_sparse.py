@@ -212,6 +212,171 @@ def test_factorize_and_solve(graphs, name, plan):
     assert torch.equal(x, x2)
 
 
+def check_job_order(s):
+    """Kernel 14's precondition on the plan of solver s, both directions:
+    the level pointers partition the jobs (the forward's substituting jobs
+    whole levels before the root's rhs), every leading column is written
+    by one job, and every source row a job reads comes from a job of an
+    earlier level, so earlier in the direction's order (backward: or is a
+    dense-root row, which kernel 11 writes before the launch)."""
+    n, T = s.nvars, s.n_tail
+    for key, src_key in (("fw", "fsrc"), ("bw", "bsrc")):
+        a = {k: v.numpy() for k, v in getattr(s.dev, key).items()}
+        J = len(a["cols"])
+        lptr = a["lptr"]
+        assert lptr[0] == 0 and lptr[-1] == J
+        assert (np.diff(lptr) > 0).all()
+        level = np.repeat(np.arange(len(lptr) - 1), np.diff(lptr))
+        writes = a["dbid"] >= 0 if key == "bw" else \
+            np.arange(J) < s._fw_ndiag
+        if key == "fw":
+            assert s._fw_ndiag in lptr
+            assert J - s._fw_ndiag == T
+        else:
+            assert (~writes).sum() == T
+        rows = a["rows"][writes]
+        assert sorted(rows) == sorted(set(range(n)) - set(s.tail_cols))
+        job_of = np.full(n + T, -1)
+        job_of[rows] = np.flatnonzero(writes)
+        ptr, src = a["ptr"], a[src_key]
+        assert ptr[0] == 0 and ptr[-1] == len(src)
+        owner = np.repeat(np.arange(J), np.diff(ptr))
+        lead = src < n
+        assert (src[~lead] >= n).all() and (src[~lead] < n + T).all()
+        assert key == "bw" or lead.all()
+        prod = job_of[src[lead]]
+        assert (prod >= 0).all()
+        assert (level[prod] < level[owner[lead]]).all()
+
+
+@pytest.mark.parametrize("plan", list(PLANS))
+@pytest.mark.parametrize("name", GRAPHS)
+def test_kernel14_job_order(graphs, name, plan):
+    """check_job_order on each graph's plans (default, no dense root, all
+    dense root)."""
+    _, _, tb, _ = _bound(graphs, name)
+    check_job_order(SparseCholeskySolver(tb, min_level_cols=PLANS[plan]))
+
+
+def _level_forward(L, rhs, Y, cols, orow, dbid, fptr, fbid, fsrc, out,
+                   diag):
+    """One level of the forward substitution as its own call (the rhs the
+    padded g): each job's rhs less the sum of its blocks' L y_k, then
+    (diag) y = L_jj^-1 acc, written to out."""
+    from gtsam_torch.linear import sparse_kernels as K
+    d = Y.shape[1]
+    J = cols.shape[0]
+    f0, f1 = int(fptr[0]), int(fptr[J])
+    Lv = L.view(-1, d, d)
+    contrib = torch.einsum("bij,bj->bi", Lv[fbid[f0:f1].long()],
+                           Y[fsrc[f0:f1].long()])
+    owner = torch.repeat_interleave(torch.arange(J),
+                                    (fptr[1:] - fptr[:-1]).long())
+    acc = rhs.view(-1, d)[cols.long()] - torch.zeros(
+        (J, d), dtype=torch.float64).index_add_(0, owner, contrib)
+    if diag:
+        acc = K._forward_rows(acc, Lv[dbid.long()])
+    out[orow.long()] = acc
+
+
+def _level_backward(L, Y, U, out_map, cols, xrow, dbid, bptr, bbid, bsrc,
+                    delta):
+    """One level of the backward substitution as its own call: x_j =
+    L_jj^-T (y_j less the sum of L_b^T x_i) where dbid >= 0, into U; every
+    job's x to delta through out_map."""
+    from gtsam_torch.linear import sparse_kernels as K
+    d = Y.shape[1]
+    J = cols.shape[0]
+    b0, b1 = int(bptr[0]), int(bptr[J])
+    Lv = L.view(-1, d, d)
+    real = dbid >= 0
+    contrib = torch.einsum("bij,bi->bj", Lv[bbid[b0:b1].long()],
+                           U[bsrc[b0:b1].long()])
+    owner = torch.repeat_interleave(torch.arange(J),
+                                    (bptr[1:] - bptr[:-1]).long())
+    acc = Y[cols.long()] - torch.zeros(
+        (J, d), dtype=torch.float64).index_add_(0, owner, contrib)
+    U[xrow[real].long()] = K._backward_rows(acc[real],
+                                            Lv[dbid[real].long()])
+    idx = out_map.view(-1, d)[cols.long()].long()
+    keep = idx >= 0
+    delta[idx[keep]] = U[xrow.long()][keep]
+
+
+def _per_level_solve(s, f, g):
+    """The solve a level at a time, a call a level (forward: the root's
+    rhs last; backward: the levels in reverse, the root's x copied with
+    the first): the delta."""
+    from gtsam_torch.linear import dense_kernels
+    d, n, T = s.d, s.nvars, s.n_tail
+    Y = torch.zeros((n, d), dtype=torch.float64)
+    U = torch.zeros((n + T, d), dtype=torch.float64)
+    rt = torch.zeros((T, d), dtype=torch.float64)
+    delta = torch.zeros(s.layout.total_dim, dtype=torch.float64)
+    fw, bw = s.dev.fw, s.dev.bw
+    lp = fw["lptr"].tolist()
+    for j0, j1 in zip(lp[:-1], lp[1:]):
+        diag = j1 <= s._fw_ndiag
+        _level_forward(f.L, g.reshape(-1), Y, fw["cols"][j0:j1],
+                       fw["rows"][j0:j1], fw["dbid"][j0:j1],
+                       fw["ptr"][j0:j1 + 1], fw["fbid"], fw["fsrc"],
+                       Y if diag else rt, diag)
+    if T:
+        Lt, Dinv, _ = f.tail
+        yt = dense_kernels.solve_forward(Lt, Dinv, rt.reshape(-1),
+                                         torch.empty(T * d,
+                                                     dtype=torch.float64))
+        dense_kernels.solve_backward(Lt, Dinv, yt, U[n:].view(-1))
+    lp = bw["lptr"].tolist()
+    for j0, j1 in zip(lp[:-1], lp[1:]):
+        _level_backward(f.L, Y, U, s.dev.map_canon, bw["cols"][j0:j1],
+                        bw["rows"][j0:j1], bw["dbid"][j0:j1],
+                        bw["ptr"][j0:j1 + 1], bw["bbid"], bw["bsrc"],
+                        delta)
+    return delta
+
+
+@pytest.mark.parametrize("plan", list(PLANS))
+@pytest.mark.parametrize("name", ["SE3", "SE2_Point2"])
+def test_kernel14_one_call_matches_levels(graphs, name, plan):
+    """solve_factored's one call a direction (kernel 14's plain version over
+    every level) gives the bits of the solve a level at a time, job by job
+    (_per_level_solve), and the JAX package's solve_factored at 1e-10
+    (test_factorize_and_solve's tolerance), at lam 1e-3; every solve has
+    a new epoch."""
+    jb, _, tb, tv = _bound(graphs, name)
+    mlc = PLANS[plan]
+    s, js = SparseCholeskySolver(tb, min_level_cols=mlc), \
+        JSparse(jb, min_level_cols=mlc)
+    blocks, g = s.system(tv.arrays)
+    f = s.factorize(blocks, 1e-3)
+    x = s.solve_factored(f, g)
+    assert torch.equal(x, _per_level_solve(s, f, g))
+    jL, jT = jax.jit(js.factorize)(
+        jnp.asarray(blocks.numpy().reshape(-1, s.d, s.d)), 1e-3)
+    jx = jax.jit(js.solve_factored)((jL, jT), jnp.asarray(g.numpy()))
+    assert _rel(x, jx) <= 1e-10
+    e = s._epoch
+    assert torch.equal(s.solve_factored(f, g), x) and s._epoch == e + 1
+
+
+@pytest.mark.parametrize("plan", list(PLANS))
+def test_kernel14_launches_per_solve(graphs, plan):
+    """launches_per_solve: kernel 14 once a direction, whatever the levels
+    (the root's rhs and its copy in the same launches), kernel 11 once a
+    direction with a dense root; the CPU solve launches nothing."""
+    _, _, tb, tv = _bound(graphs, "SE3_Point3")
+    s = SparseCholeskySolver(tb, min_level_cols=PLANS[plan])
+    T = s.n_tail
+    assert s.launches_per_solve() == {
+        "sp_level_forward": 1, "sp_level_backward": 1,
+        "dense_forward": int(T > 0), "dense_backward": int(T > 0)}
+    blocks, g = s.system(tv.arrays)
+    _kernels.reset_launch_counts()
+    s.solve_factored(s.factorize(blocks, 0.1), g)
+    assert all(v == 0 for v in _kernels.launch_counts().values())
+
+
 def test_failed_pivot(graphs):
     """A leading column made indefinite: the JAX factor holds NaN there
     (LM rejects the try on its error); the port's ok is False and kernel
