@@ -4533,7 +4533,8 @@ def sparse_case_checks(graph, vals, lam, mlc, label, worst, bad_level=None,
     """Kernels 13 and 14 against their plain versions, launch by launch, on
     the level-scheduled solver of `graph` with min_level_cols `mlc` (or on
     `solver`, a SparseCholeskySolver bound on the card) at lam:
-    every leading level's factorization, the dense root's M, kernel 14's
+    kernel 13's one launch over every leading level (against the level
+    loop), the dense root's M, kernel 14's
     forward launch (every level and the root's rhs) and its backward
     launch; each twice for the same bits, the outputs NaN-filled first.  bad_level ("middle"): make the
     first column of the middle leading level indefinite: every record and
@@ -4558,32 +4559,33 @@ def sparse_case_checks(graph, vals, lam, mlc, label, worst, bad_level=None,
     tol = LIN_TOL_ZERO_LAM if lam == 0.0 else None
     L = torch.full_like(blocks, float("nan"))
     rec = torch.full((len(s.f_cols),), -7, dtype=torch.int32, device="cuda")
-    for lv in range(s.L_cut):
-        c0, c1 = s.lev_off[lv], s.lev_off[lv + 1]
-        rows = torch.as_tensor(s.f_cblk[s.f_cptr[c0]:s.f_cptr[c1]],
-                               dtype=torch.long, device="cuda")
+    if s.L_cut:
+        # kernel 13: one launch over every leading level (a new epoch each)
+        # against its plain version, the level loop
+        rows = torch.as_tensor(s.f_cblk, dtype=torch.long, device="cuda")
+        flags = torch.zeros(n, dtype=torch.int32, device="cuda")
+        epochs = iter(range(1, 2 ** 31))
 
-        def fresh(L=L, rows=rows, c0=c0, c1=c1):
-            Lx = L.clone()
-            Lx[rows] = float("nan")
-            return [Lx, torch.full((c1 - c0,), -7, dtype=torch.int32,
-                                   device="cuda")]
+        def fresh():
+            return [torch.full_like(blocks, float("nan")),
+                    torch.full((len(s.f_cols),), -7, dtype=torch.int32,
+                               device="cuda")]
 
-        def run(a, plain, c0=c0, c1=c1):
+        def run(a, plain):
             f = K.sp_level_factor_plain if plain else K.sp_level_factor
-            f(blocks, dv.f_cols[c0:c1], dv.f_cptr[c0:c1 + 1], dv.f_cblk,
-              dv.f_tptr, dv.f_tik, dv.f_tjk, dv.pad_diag, lam, a[0], a[1])
+            f(blocks, dv.f_cols, dv.f_cptr, dv.f_cblk, dv.f_tptr, dv.f_tik,
+              dv.f_tjk, dv.f_lptr, dv.f_wptr, dv.f_wsrc, dv.pad_diag, lam,
+              a[0], a[1], flags, next(epochs))
 
         a = lin_triple("sp_level_factor", run, fresh,
-                       lambda a, rows=rows: (a[0][rows], a[1]),
-                       f"{label} level {lv}",
+                       lambda a: (a[0][rows], a[1]), f"{label} one launch",
                        tol or LIN_TOL["sp_level_factor"], worst)
         rp = fresh()
         run(rp, True)
         if not torch.equal(a[1], rp[1]):
-            raise AssertionError(f"sp_level_factor ({label} level {lv}): "
-                                 "records differ from the plain version's")
-        L, rec[c0:c1] = a[0], a[1]
+            raise AssertionError(f"sp_level_factor ({label}): records "
+                                 "differ from the plain version's")
+        L, rec = a
     state = torch.empty(2, dtype=torch.int32, device="cuda")
     state_p = state.clone()
     if len(rec):
@@ -4704,8 +4706,8 @@ def pcg_case_checks(graph, vals, lam, label, worst, solver=None):
     block-Jacobi diagonal, the matvec, every phase of
     pcg_step (block-Jacobi and with a preconditioner outside, FINISH's
     first and later), each twice for the same bits, the outputs NaN-filled
-    first; then every phase and the matvec with the done word set must
-    leave every output as it was."""
+    first; then every phase, the matvec and the loop's groups with the done
+    word set must leave every output as it was; then pcg_loop_checks."""
     import torch
     from gtsam_torch.graph.graph import BoundGraph
     from gtsam_torch.linear import sparse_kernels as K
@@ -4810,11 +4812,124 @@ def pcg_case_checks(graph, vals, lam, label, worst, solver=None):
     K.pcg_matvec(pool, cur[4], *mv, lam, cur[5], cur[6], cur[7])
     for phase in (K.UPDATE, K.FINISH, K.DIRECTION):
         step(cur, phase, False, False, False)
+    for bits in (K.G_MATVEC | K.G_UPDATE, K.G_FINISH | K.G_DIRECTION):
+        K.pcg_loop(bits, False, pool, diag, cur[0], g, *cur[1:6], *mv, lam,
+                   1e-9, 500, False, False, cur[6], cur[7])
     torch.cuda.synchronize()
     if not lin_same_bits(cur, before):
         raise AssertionError(f"pcg ({label}): a launch after done wrote")
+    pcg_loop_checks(ps, pool, g, diag, lam, label, worst)
     log(f"  pcg case {label}: lam {lam}, {ps._nv} variables, {ps._Q} slots:"
         f" ok")
+
+
+# kernel 16's loop against its plain version: a few iterations (the CG
+# iterates drift apart by rounding as the loop goes on)
+LOOP_PLAIN_ITERATIONS = 1
+
+
+def pcg_loop_checks(ps, pool, g, diag, lam, label, worst, max_it=60):
+    """Kernel 16's loop (pcg_loop) on the PCG system (pool, g, diag) of
+    solver ps at lam: a block-Jacobi solve of max_it iterations (a
+    tolerance never met) in one launch, twice for the same bits, against
+    the same kernel's phase-group launches ([INIT], then [MATVEC, UPDATE,
+    DIRECTION] a launch an iteration) and against the phases' own launches
+    (pcg_step's INIT, then pcg_matvec and pcg_step's UPDATE and DIRECTION):
+    the same bits in x, r, z, p, Minv and the state; the subgraph's groups
+    ([MATVEC, UPDATE] and [FINISH, DIRECTION], z from outside: here 2 r)
+    against the phases' launches, the same bits; LOOP_PLAIN_ITERATIONS
+    iterations against the plain loop within LIN_TOL["pcg_step_minv"]; the
+    done word: max_iterations 0 stops at INIT (done 1, 0 iterations, x
+    0), a tolerance met at once (tol 1e9) too, a tolerance never met
+    stops at max_it."""
+    import torch
+    from gtsam_torch.linear import sparse_kernels as K
+    pl, mv = ps._plan, ps._mv_plan()
+    jac = K.G_INIT | K.G_MATVEC | K.G_UPDATE | K.G_DIRECTION
+
+    def fresh():
+        st, ist = ps._state("cuda")
+        return [lin_nan(diag)] + [lin_nan(g) for _ in range(5)] + [st, ist]
+
+    def outs(a):
+        return tuple(a)
+
+    def loop(a, bits, repeat, it, tol=1e-300, first=False, plain=False,
+             jacobi=True):
+        fn = K.pcg_loop_plain if plain else K.pcg_loop
+        fn(bits, repeat, pool, diag, a[0], g, *a[1:6], *mv, lam, tol, it,
+           jacobi, first, a[6], a[7])
+
+    def steps(a, phases, it, jacobi=True, tol=1e-300):
+        for ph in phases:
+            if ph == "mv":
+                K.pcg_matvec(pool, a[4], *mv, lam, a[5], a[6], a[7])
+            else:
+                K.pcg_step(ph, diag, a[0], g, *a[1:6], pl["var_off"],
+                           pl["var_dim"], lam, tol, it, jacobi, False, a[6],
+                           a[7])
+
+    a1, a2, a3, a4 = fresh(), fresh(), fresh(), fresh()
+    loop(a1, jac, True, max_it)
+    loop(a2, jac, True, max_it)
+    loop(a3, K.G_INIT, False, max_it)
+    steps(a4, (K.INIT,), max_it)
+    for _ in range(max_it):
+        loop(a3, K.G_MATVEC | K.G_UPDATE | K.G_DIRECTION, False, max_it)
+        steps(a4, ("mv", K.UPDATE, K.DIRECTION), max_it)
+    torch.cuda.synchronize()
+    it = int(a1[7][K.IT])
+    if not (lin_same_bits(a1, a2) and lin_same_bits(a1, a3)
+            and lin_same_bits(a1, a4)) or it != max_it \
+            or int(a1[7][K.DONE]) != 1:
+        raise AssertionError(f"pcg_loop ({label}): the one-launch solve "
+                             f"({it} iterations) differs from its phase "
+                             "groups' or the phases' launches")
+    # the subgraph's groups against the phases' launches, z from outside
+    b1, b2 = fresh(), fresh()
+    for b in (b1, b2):
+        steps(b, (K.INIT,), max_it, jacobi=False)
+        b[3].copy_(2.0 * b[2])
+    loop(b1, K.G_FINISH | K.G_DIRECTION, False, max_it, first=True,
+         jacobi=False)
+    K.pcg_step(K.FINISH, diag, b2[0], g, *b2[1:6], pl["var_off"],
+               pl["var_dim"], lam, 1e-300, max_it, False, True, b2[6], b2[7])
+    steps(b2, (K.DIRECTION,), max_it, jacobi=False)
+    for _ in range(3):
+        loop(b1, K.G_MATVEC | K.G_UPDATE, False, max_it, jacobi=False)
+        steps(b2, ("mv", K.UPDATE), max_it, jacobi=False)
+        for b in (b1, b2):
+            b[3].copy_(2.0 * b[2])
+        loop(b1, K.G_FINISH | K.G_DIRECTION, False, max_it, jacobi=False)
+        steps(b2, (K.FINISH, K.DIRECTION), max_it, jacobi=False)
+    torch.cuda.synchronize()
+    if not lin_same_bits(b1[1:], b2[1:]):
+        raise AssertionError(f"pcg_loop ({label}): the subgraph's groups "
+                             "differ from the phases' launches")
+
+    # a few iterations against the plain loop
+    def run(a, plain):
+        loop(a, jac, True, LOOP_PLAIN_ITERATIONS, plain=plain)
+
+    c1 = lin_triple("pcg_loop", run, fresh, lambda a: tuple(a[:6]), label,
+                    LIN_TOL["pcg_step_minv"], worst)
+    c3 = fresh()
+    run(c3, True)
+    if not torch.equal(c1[7], c3[7]):
+        raise AssertionError(f"pcg_loop ({label}): done and the count "
+                             f"{c1[7].tolist()} != plain {c3[7].tolist()}")
+    # the done word: max_iterations 0, a tolerance met at once
+    for it0, tol in ((0, 1e-9), (max_it, 1e9)):
+        d1 = fresh()
+        loop(d1, jac, True, it0, tol=tol)
+        torch.cuda.synchronize()
+        if d1[7][:2].tolist() != [1, 0] or bool((d1[1] != 0).any()):
+            raise AssertionError(f"pcg_loop ({label}): max_iterations "
+                                 f"{it0}, tol {tol}: state "
+                                 f"{d1[7].tolist()}")
+    log(f"  pcg_loop {label}: {max_it} iterations in one launch, the bits "
+        "of the phase groups' and the phases' launches; the subgraph's "
+        "groups the phases' bits; the done word at 0 iterations and at once")
 
 
 def lm_counted(graph, vals, solver, device, params):
@@ -4902,12 +5017,14 @@ def linear_expected(s_lev, runs, it, tries, cg=None, tree=None, nb=2):
     want = {"pcg_jacobi": it, "pg_jacobians": nb * it,
             "pg_error": nb * (tries + 1)}
     if runs == "pcg":
-        want.update(pcg_matvec=n, pcg_step=tries + 2 * n,
-                    pg_linearize=nb * it, pg_assemble=it)
+        # a solve is one launch of kernel 16's loop
+        want.update(pcg_loop=tries, pg_linearize=nb * it, pg_assemble=it)
         return want
     f, sv = tree.launches_per_factorization(), tree.launches_per_solve()
     solves = tries + n
-    want.update(pcg_matvec=n, pcg_step=3 * tries + 3 * n,
+    # a solve: [INIT], the tree solve, [FINISH, DIRECTION]; an iteration:
+    # [MATVEC, UPDATE], the tree solve, [FINISH, DIRECTION]
+    want.update(pcg_loop=2 * tries + 2 * n,
                 pg_linearize=(nb + len(tree.bound.graph.batches)) * it,
                 pg_assemble=2 * it)
     for k, v in f.items():
@@ -5145,6 +5262,61 @@ def kernel14_strain(sg, arrays):
     return out
 
 
+# CG iterations of the block-Jacobi solve that times kernel 16's loop
+LOOP_TIME_ITERATIONS = 500
+
+# back-to-back factorizations of kernel13_strain, each a new epoch
+STRAIN_FACTORIZATIONS = 1000
+
+
+def kernel13_strain(s, blocks, lam, label):
+    """Kernel 13's flags under strain on solver s (blocks at lam):
+    STRAIN_FACTORIZATIONS launches back to back, each a new epoch of the
+    solver's, into one L, every one held on the device to the first's bits
+    (records too); then one with the epoch numbers wrapped (the flags
+    zeroed first), which must give the same bits.  Returns the counts and
+    the seconds a launch (host clock, the launches enqueued and done)."""
+    import torch
+    from gtsam_torch.linear import sparse_kernels as K
+    dv = s.dev
+    flags = s._scratch_buffers()[4]
+    rows = torch.as_tensor(s.f_cblk, dtype=torch.long, device="cuda")
+    L = torch.full_like(blocks, float("nan"))
+    rec = torch.empty(len(s.f_cols), dtype=torch.int32, device="cuda")
+
+    def launch():
+        K.sp_level_factor(blocks, dv.f_cols, dv.f_cptr, dv.f_cblk,
+                          dv.f_tptr, dv.f_tik, dv.f_tjk, dv.f_lptr,
+                          dv.f_wptr, dv.f_wsrc, dv.pad_diag, lam, L, rec,
+                          flags[2], s._next_epoch(flags))
+
+    launch()
+    ref, ref_rec = _bits(L[rows]).clone(), rec.clone()
+    differ = torch.zeros((), dtype=torch.int64, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(STRAIN_FACTORIZATIONS):
+        L.fill_(float("nan"))
+        launch()
+        differ += ((_bits(L[rows]) != ref).any()
+                   | (rec != ref_rec).any()).long()
+    torch.cuda.synchronize()
+    secs = (time.time() - t0) / STRAIN_FACTORIZATIONS
+    s._epoch = 2 ** 31 - 1
+    L.fill_(float("nan"))
+    launch()
+    torch.cuda.synchronize()
+    again = bool((_bits(L[rows]) == ref).all()) and torch.equal(rec, ref_rec)
+    out = {"factorizations": STRAIN_FACTORIZATIONS,
+           "differ": int(differ), "s_per_launch": secs,
+           "after_wrap_same_bits": again, "epoch": s._epoch}
+    log(f"  kernel 13 under strain ({label}): {out}")
+    if int(differ) or not again or s._epoch != 1:
+        raise AssertionError(f"kernel 13's flags under strain ({label}): "
+                             f"{out}")
+    return out
+
+
 def linear_kernel_times(lin, worst):
     """Phase 5 of kernels 13-16: first each kernel against its plain
     version at the sizes the main path gives it (the sphere's level solver
@@ -5191,19 +5363,24 @@ def linear_kernel_times(lin, worst):
     log(f"  kernels 13-14 on the subgraph tree (max abs, rel): {tree_err}")
     strain = kernel14_strain(sgr["solver"], sgr["res"].values.arrays)
     blocks, g = s.system(arrays)
+    strain13 = {"sphere": kernel13_strain(s, blocks, 1.0, "sphere")}
+    tree13 = sgr["solver"]._tree
+    strain13["tree"] = kernel13_strain(
+        tree13, tree13.system(sgr["res"].values.arrays)[0], 1e-8,
+        "subgraph tree")
     lam, dv, d, n, T = 1.0, s.dev, s.d, s.nvars, s.n_tail
     dd = d * d
     f = s.factorize(blocks, lam)
     L = f.L
     rec = torch.empty(len(s.f_cols), dtype=torch.int32, device="cuda")
 
+    flags13 = s._scratch_buffers()[4]
+
     def k13(plain=False):
         fn = K.sp_level_factor_plain if plain else K.sp_level_factor
-        for lv in range(s.L_cut):
-            c0, c1 = s.lev_off[lv], s.lev_off[lv + 1]
-            fn(blocks, dv.f_cols[c0:c1], dv.f_cptr[c0:c1 + 1], dv.f_cblk,
-               dv.f_tptr, dv.f_tik, dv.f_tjk, dv.pad_diag, lam, L,
-               rec[c0:c1])
+        fn(blocks, dv.f_cols, dv.f_cptr, dv.f_cblk, dv.f_tptr, dv.f_tik,
+           dv.f_tjk, dv.f_lptr, dv.f_wptr, dv.f_wsrc, dv.pad_diag, lam, L,
+           rec, flags13[2], s._next_epoch(flags13))
 
     # bytes and FLOPs of a factorization's leading levels
     nb13 = ops13 = 0
@@ -5233,21 +5410,14 @@ def linear_kernel_times(lin, worst):
                     Ld[li.sub_col_pos], blocks.view(-1, d, d)[
                         li.sub_ids].mT, upper=False)
 
-    # kernel 13 by level: (columns, blocks, triples, ms by events)
+    # the plan by level (columns, blocks, triples); kernel 13's time by
+    # level: scripts/port_k13_probe.py
     by_level = []
     for lv in range(s.L_cut):
         c0, c1 = s.lev_off[lv], s.lev_off[lv + 1]
         e0, e1 = s.f_cptr[c0], s.f_cptr[c1]
-
-        def one(c0=c0, c1=c1):
-            K.sp_level_factor(blocks, dv.f_cols[c0:c1],
-                              dv.f_cptr[c0:c1 + 1], dv.f_cblk, dv.f_tptr,
-                              dv.f_tik, dv.f_tjk, dv.pad_diag, lam, L,
-                              rec[c0:c1])
         by_level.append([int(c1 - c0), int(e1 - e0),
-                         int(s.f_tptr[e1] - s.f_tptr[e0]), cuda_ms(one, 5)])
-    log(f"  sp_level_factor by level (columns, blocks, triples, ms): "
-        f"{by_level}")
+                         int(s.f_tptr[e1] - s.f_tptr[e0])])
     rows = []
     rows.append(_lin_row(
         "sp_level_factor", KT["sp_level_factor"], cuda_ms(k13, 10),
@@ -5255,8 +5425,8 @@ def linear_kernel_times(lin, worst):
         launches["sp_level_factor"], _lin_err(main, "sp_level_factor"),
         (cuda_ms(lib13, 5), "bmm + index_add_ + cholesky_ex + "
          "solve_triangular a level"),
-        {"per": "a factorization's leading levels",
-         "levels": s.L_cut, "by_level": by_level,
+        {"per": "a factorization's leading levels (one launch)",
+         "levels": s.L_cut, "plan_by_level": by_level,
          "launches_by_path": by_path["sp_level_factor"]}))
     M = f.tail[0]
 
@@ -5430,10 +5600,41 @@ def linear_kernel_times(lin, worst):
         _lin_err(main, "pcg_step"), None,
         {"per": "one iteration's UPDATE and DIRECTION",
          "launches_by_path": by_path["pcg_step"]}))
+    # kernel 16's loop: a block-Jacobi solve of LOOP_TIME_ITERATIONS (a
+    # tolerance never met) in one launch, a CG iteration's share; its plain
+    # version over fewer iterations
+    st2, ist2 = ps._state("cuda")
+    lvec = [torch.empty_like(gp) for _ in range(5)]
+    Minv2 = torch.empty_like(diag)
+
+    def k16l(plain=False, its=LOOP_TIME_ITERATIONS):
+        fn = K.pcg_loop_plain if plain else K.pcg_loop
+        fn(K.G_INIT | K.G_MATVEC | K.G_UPDATE | K.G_DIRECTION, True, pool,
+           diag, Minv2, gp, *lvec, *mv, lam, 1e-300, its, True, False, st2,
+           ist2)
+
+    k16l()
+    torch.cuda.synchronize()
+    if int(ist2[K.IT]) != LOOP_TIME_ITERATIONS:
+        raise AssertionError(f"the timed loop ran {ist2.tolist()}")
+    per_it = 1.0 / LOOP_TIME_ITERATIONS
+    plain_its = 5
+    rows.append(_lin_row(
+        "pcg_loop", KT["pcg_loop"], cuda_ms(k16l, 5) * per_it,
+        device_ms(k16l, 3) * per_it,
+        cuda_ms(lambda: k16l(True, plain_its), 2, 1) / plain_its,
+        mv_bytes + 8 * (10 * D + nv * dmax * dmax) + 4 * 2 * nv,
+        mv_ops + 2 * nv * dmax * dmax + 12 * D, launches["pcg_loop"],
+        _lin_err(main, "pcg_loop"), None,
+        {"per": f"a CG iteration of a block-Jacobi solve of "
+                f"{LOOP_TIME_ITERATIONS} iterations in one launch (INIT "
+                "included); plain: its phases, a torch call each",
+         "launches_by_path": by_path["pcg_loop"]}))
     # a PCG iteration by stage, and the done word read
     stages["pcg_system_ms"] = cuda_ms(lambda: ps.system(parr), 5)
-    stages["pcg_matvec_ms"] = rows[-3]["ms"]
-    stages["pcg_step_ms"] = rows[-1]["ms"]
+    stages["pcg_matvec_ms"] = rows[-4]["ms"]
+    stages["pcg_step_ms"] = rows[-2]["ms"]
+    stages["pcg_loop_iteration_ms"] = rows[-1]["ms"]
     stages["pcg_read_ms"] = cuda_ms(lambda: ist[:2].tolist(), 20)
     z = torch.empty_like(gp)
     stages["subgraph_precondition_ms"] = cuda_ms(
@@ -5441,6 +5642,7 @@ def linear_kernel_times(lin, worst):
                                         None, out=z), 10)
     stages["subgraph_tree_launches"] = sg._tree.launches_per_solve()
     stages["kernel14_strain"] = strain
+    stages["kernel13_strain"] = strain13
     log(json.dumps({"linear_stages": stages}))
     for row in rows:
         row["phase3_max_abs_err"] = worst.get(row["name"])
@@ -5469,10 +5671,12 @@ def linear_summary(lin, stages):
     return out
 
 
-# kernel launches a CG iteration of the traced subgraph solve: the matvec,
-# UPDATE, FINISH, DIRECTION, kernel 14 forward and backward, kernel 11's
-# two directions and the two fills of their outputs, with the start's share
-SUBGRAPH_LAUNCHES_PER_IT = 11
+# kernel launches a CG iteration of the traced subgraph solve: kernel 16's
+# loop twice ([MATVEC, UPDATE], [FINISH, DIRECTION]), kernel 14 forward and
+# backward, kernel 11's two directions and the two fills of their outputs,
+# with the start's share; and the wrapper calls (the fills aside)
+SUBGRAPH_LAUNCHES_PER_IT = 9
+SUBGRAPH_CALLS_PER_IT = 6
 
 
 def profile_linear(lin):
@@ -5480,12 +5684,16 @@ def profile_linear(lin):
     (kernels 13 and 14, kernel 14 once a direction, kernel 7's pivot
     check, kernels 10 and 11, and as many cuBLAS products as
     blocked_cholesky alone launches on the same M; no potrf, trsm, trsv or
-    cuSOLVER kernel) and one traced subgraph-PCG solve (kernels 14, 15, 16
+    cuSOLVER kernel; kernel 13 once), one traced block-Jacobi PCG solve
+    (one launch of kernel 16's loop, its device time a CG iteration) and
+    one traced subgraph-PCG solve (kernel 16's INIT and loop, kernels 14
     and 11, kernel 14 once a direction a tree solve, at most
-    SUBGRAPH_LAUNCHES_PER_IT launches a CG iteration; no product, potrf,
-    trsm, trsv or cuSOLVER kernel)."""
+    SUBGRAPH_LAUNCHES_PER_IT launches and SUBGRAPH_CALLS_PER_IT wrapper
+    calls a CG iteration; no product, potrf, trsm, trsv or cuSOLVER
+    kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from gtsam_torch import _kernels
     from gtsam_torch.linear import dense_blocked
     lev = lin["levels"]["runs"][0]
     s = lev["solver"]._s
@@ -5493,7 +5701,12 @@ def profile_linear(lin):
     f = s.factorize(blocks, 1e-3)
     M = f.tail[0].clone()
 
-    def trace(fn):
+    def trace(fn, need=()):
+        # a session that recorded no device work, or no launch of a kernel
+        # in `need` (which fn launches whatever it computes), is taken again
+        # (up to three times): the profiler lost its events (once in a run
+        # of this script, the block-Jacobi solve's loop kernel, its two
+        # fills recorded); what the caller checks is one session's rows
         for attempt in range(3):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -5505,7 +5718,7 @@ def profile_linear(lin):
                     if str(e.device_type).endswith("CUDA")
                     and e.self_device_time_total > 0
                     and SETTLE_KERNEL not in e.key]
-            if rows:
+            if rows and all(count(rows, k) for k in need):
                 return rows
         return rows
 
@@ -5516,8 +5729,10 @@ def profile_linear(lin):
     gemm = ("gemm", "xmma", "cutlass", "sm90_")
     solver_words = ("potrf", "trsm", "trsv", "cusolver", "getrf")
     alone = trace(lambda: dense_blocked.blocked_cholesky(M.clone()))
-    rows = trace(lambda: s.solve_factored(s.factorize(blocks, 1e-3), g))
-    want = {"sp_level_factor_kernel": s.L_cut,
+    rows = trace(lambda: s.solve_factored(s.factorize(blocks, 1e-3), g),
+                 ("sp_level_factor_kernel", "sp_level_forward_kernel",
+                  "sp_level_backward_kernel"))
+    want = {"sp_level_factor_kernel": 1,
             "sp_tail_assemble_kernel": 1, "sn_pivot_kernel": 1,
             "sp_level_forward_kernel": 1, "sp_level_backward_kernel": 1,
             "dense_factor_diag_kernel": f.tail[1].shape[0],
@@ -5536,10 +5751,28 @@ def profile_linear(lin):
                              f"{count(rows, *solver_words)}, products "
                              f"{count(rows, *gemm)} against "
                              f"{count(alone, *gemm)}")
+    # a block-Jacobi PCG solve: one launch of kernel 16's loop
+    ps = lin["pcg"]["runs"][0]["solver"]
+    psys = ps.system(lin["pcg"]["runs"][0]["res"].values.arrays)
+    rows = trace(lambda: ps.solve(psys, 1e-3, False), ("pcg_loop_kernel",))
+    loop_ms = sum(ms for k, _, ms in rows if "pcg_loop_kernel" in k)
+    its = ps.last_solve["iterations"]
+    log(json.dumps({"profile_pcg_solve": {
+        "device_busy_ms": sum(ms for _, _, ms in rows),
+        "cg_iterations": ps.last_solve,
+        "loop_device_ms_per_iteration": loop_ms / max(1, its),
+        "rows": [[k[:70], c, ms] for k, c, ms in rows]}}))
+    if count(rows, "pcg_loop_kernel") != 1 or ps.last_solve["reads"] != 1 \
+            or count(rows, "pcg_step_kernel", "pcg_matvec_kernel"):
+        raise AssertionError(f"the traced block-Jacobi solve: {rows}")
     sg = lin["subgraph"]["runs"][0]["solver"]
     sys_ = sg.system(lin["subgraph"]["runs"][0]["res"].values.arrays)
     sg.max_iterations = 16       # one chunk: a read of the done word
-    rows = trace(lambda: sg.solve(sys_, 1e-3, False))
+    need = ("pcg_loop_kernel", "sp_level_forward_kernel",
+            "sp_level_backward_kernel")
+    rows = trace(lambda: (_kernels.reset_launch_counts(),
+                          sg.solve(sys_, 1e-3, False)), need)
+    calls = sum(_kernels.launch_counts().values())
     sg.max_iterations = 500
     busy = sum(ms for _, _, ms in rows)
     # every kernel launch of the solve (copies aside), a CG iteration's
@@ -5547,19 +5780,26 @@ def profile_linear(lin):
     kernels = sum(c for k, c, _ in rows
                   if not k.lower().startswith(("memcpy", "memset")))
     per_it = kernels / max(1, sg.last_solve["launched"])
+    # wrapper calls: the start's ([INIT], the tree solve, the first
+    # [FINISH, DIRECTION]) and each iteration's
+    start = 2 + sum(sg._tree.launches_per_solve().values())
+    calls_per_it = (calls - start) / max(1, sg.last_solve["launched"])
     log(json.dumps({"profile_subgraph_solve": {
         "device_busy_ms": busy, "cg_iterations": sg.last_solve,
         "kernel_launches": kernels, "launches_per_cg_iteration": per_it,
+        "wrapper_calls": calls, "wrapper_calls_per_cg_iteration":
+            calls_per_it,
         "rows": [[k[:70], c, ms] for k, c, ms in rows]}}))
-    need = ("pcg_matvec_kernel", "pcg_step_kernel",
-            "sp_level_forward_kernel", "sp_level_backward_kernel")
     n = sg.last_solve["launched"] + 1     # the tree solves: one a CG step
     if not all(count(rows, k) for k in need) or \
             count(rows, *solver_words) or count(rows, *gemm) or \
             count(rows, "sp_level_forward_kernel") != n or \
             count(rows, "sp_level_backward_kernel") != n or \
-            not per_it <= SUBGRAPH_LAUNCHES_PER_IT:
-        raise AssertionError(f"the traced subgraph-PCG solve: {rows}")
+            count(rows, "pcg_step_kernel", "pcg_matvec_kernel") or \
+            not per_it <= SUBGRAPH_LAUNCHES_PER_IT or \
+            calls_per_it != SUBGRAPH_CALLS_PER_IT:
+        raise AssertionError(f"the traced subgraph-PCG solve: {rows}, "
+                             f"{calls_per_it} wrapper calls an iteration")
 
 
 def main(argv):

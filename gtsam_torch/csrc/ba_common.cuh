@@ -9,6 +9,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 #define GT_EXPORT extern "C" __attribute__((visibility("default")))
 
 namespace gt {
@@ -50,16 +53,25 @@ __device__ __forceinline__ void inv3x3(const double h[9], double out[9]) {
 // shared memory each, and no more than max_ctas (rounded up to whole
 // clusters; 0: no cap).  A kernel whose CTAs wait on one another (a grid
 // barrier, or flags set by other CTAs) needs them all resident: kernel 8's
-// solves and kernel 14's.
+// solves, kernels 13 and 14's, kernel 16's loop.  The occupancy query (and
+// the shared-memory attribute) runs once a kernel, shape and device; later
+// launches take the cached count (the query cost 12-14 us a launch).
+// cudaErrorCooperativeLaunchTooLarge: not one CTA of that shape fits.
 template <typename... Args, typename... Act>
 int launch_levels(void (*kernel)(Args...), int threads, int cluster,
                   size_t shm, int max_ctas, cudaStream_t stream,
                   Act... args) {
+  struct Seen {
+    void (*fn)(Args...);
+    int device, threads, cluster;
+    size_t shm;
+    int ncl;
+  };
+  static std::mutex mu;
+  static std::vector<Seen> seen;
   cudaError_t e = cudaSuccess;
-  if (shm > 48 * 1024)
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)shm);
+  int device = 0;
+  e = cudaGetDevice(&device);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute at[2];
@@ -75,10 +87,37 @@ int launch_levels(void (*kernel)(Args...), int threads, int cluster,
   cfg.stream = stream;
   cfg.attrs = at;
   cfg.numAttrs = 2;
-  int ncl = 0;
-  e = cudaOccupancyMaxActiveClusters(&ncl, kernel, &cfg);
-  if (e != cudaSuccess) return (int)e;
-  if (ncl < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  int ncl = -1;
+  {
+    std::lock_guard<std::mutex> hold(mu);
+    for (const Seen& x : seen)
+      if (x.fn == kernel && x.device == device && x.threads == threads &&
+          x.cluster == cluster && x.shm == shm)
+        ncl = x.ncl;
+  }
+  if (ncl < 0) {
+    // the opt-in to dynamic shared memory: the most any launch of this
+    // kernel on this device has asked for (never lowered, so a launch that
+    // takes a cached count still fits), and for any amount (static and
+    // dynamic shared memory over 48 KB need it together)
+    size_t most = shm;
+    {
+      std::lock_guard<std::mutex> hold(mu);
+      for (const Seen& x : seen)
+        if (x.fn == kernel && x.device == device && x.shm > most)
+          most = x.shm;
+    }
+    if (most > 0)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)most);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveClusters(&ncl, kernel, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (ncl < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    std::lock_guard<std::mutex> hold(mu);
+    seen.push_back({kernel, device, threads, cluster, shm, ncl});
+  }
   const int want = (max_ctas + cluster - 1) / cluster;
   if (max_ctas > 0 && want < ncl) ncl = want;
   cfg.gridDim = dim3(ncl * cluster);

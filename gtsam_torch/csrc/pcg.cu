@@ -33,23 +33,42 @@
 //   M^-1 r, r.z, r.r; the last CTA: beta, gamma, the iteration count, the
 //   stop test into the done word), FINISH (r.z and beta with z from a
 //   preconditioner outside) and DIRECTION (p = z + beta p).  Every phase
-//   but INIT, and the matvec, return at once where the done word is set, so
-//   the host launches a fixed number of iterations between two reads of
-//   it.
+//   but INIT, and the matvec, return at once where the done word is set.
+// gt_pcg_loop (kernel 16's loop): one cooperative launch that runs a group
+//   of those phases (a bit mask: INIT, MATVEC, UPDATE, FINISH, DIRECTION)
+//   in that order, and with `loop` again and again until the done word is
+//   set: a block-Jacobi solve is one launch (INIT, then every iteration's
+//   matvec, UPDATE and DIRECTION), the subgraph preconditioner's start
+//   [INIT] and its iteration two ([MATVEC, UPDATE] and [FINISH,
+//   DIRECTION]) around its tree solve.
+//   The CTAs take the phases' chunks grid-stride: the matvec's chunks of 4
+//   variables (a warp each) and the steps' chunks of 128 (a thread each),
+//   the old launches' CTAs, with the same bodies (matvec_vars, step_vars);
+//   each chunk writes its partial dot products, the grid syncs, and every
+//   CTA sums the partials in chunk order as the old last CTA did and
+//   updates its own copy of the state (update_state), so every CTA takes
+//   the same alpha, beta and stop; CTA 0 writes the state back at the end.
+//   Three grid syncs an iteration (after the matvec, UPDATE and DIRECTION).
 //
 // No atomic sums: each dot product is summed per variable in component
-// order (the matvec: by a butterfly), in the CTA by a warp butterfly and
-// then warp by warp, and across CTAs in CTA order by the last one; the
-// grid depends on the sizes only, so the same inputs give the same bits.
-// Bound on the H100: bytes (the pool read once a matvec: ~2.9 MB on the
-// sphere, ~1 us), far below a launch; the loop is bound by its launches
-// (three an iteration with block-Jacobi).  The matvec's warps each walk a
-// chain of dependent index loads (slot, factor, its slots, their
-// variables) with every lane of a slot at work, 2,500 warps on the sphere
-// over the whole card.
+// order (the matvec: by a butterfly), in a chunk by a warp butterfly and
+// then warp by warp, and across the chunks in chunk order (by the last CTA
+// of a phase's launch, or by every CTA of the loop); the chunks depend on
+// the sizes only, not on the grid, so the same inputs give the same bits,
+// and the loop the phases' bits.  Bound on the H100: bytes (the pool read
+// once a matvec: ~2.9 MB on the sphere, ~1 us); a phase a launch is bound
+// by the launches (three an iteration with block-Jacobi, each behind a
+// host wrapper call), the loop by its grid syncs and the matvec's chains.
+// The matvec's warps each walk a chain of dependent index loads (slot,
+// factor, its slots, their variables) with every lane of a slot at work,
+// 2,500 warps on the sphere over the whole card.
+#include <cooperative_groups.h>
+
 #include "ba_common.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kMaxD = 12;
 constexpr int kMaxR = 12;
@@ -61,6 +80,9 @@ constexpr unsigned kFull = 0xffffffffu;
 // same indices
 constexpr int kGamma = 0, kPAp = 1, kRR = 2, kTol2 = 3, kBeta = 4;
 constexpr int kDone = 0, kIt = 1;
+// gt_pcg_loop's phase bits (linear/sparse_kernels.py holds the same)
+constexpr int kBitInit = 1, kBitMatvec = 2, kBitUpdate = 4, kBitFinish = 8,
+              kBitDirection = 16;
 
 // The sum of v over the CTA, in a fixed order; every thread gets it.
 __device__ __forceinline__ double cta_sum(double v, double* sh) {
@@ -122,23 +144,24 @@ __global__ void __launch_bounds__(kVarThreads) pcg_jacobi_kernel(
   diag[t] = s;
 }
 
-__global__ void __launch_bounds__(kVarThreads) pcg_matvec_kernel(
-    int nv, int dmax, int rmax, const int* __restrict__ vptr,
+// Ap of matvec chunk c's variables (4, a warp each): the matvec's body.
+// Returns p_v . Ap_v in lane 0 of variable v's warp (0 elsewhere).  p and
+// Ap carry no __restrict__: the loop writes them in the same launch.
+__device__ __forceinline__ double matvec_vars(
+    int chunk, int nv, int dmax, int rmax, const int* __restrict__ vptr,
     const int* __restrict__ vslot, const int* __restrict__ slot_fac,
     const int* __restrict__ fptr, const int* __restrict__ slot_var,
     const int* __restrict__ var_off, const int* __restrict__ var_dim,
-    const double* __restrict__ pool, const double* __restrict__ p,
-    double lam, double* __restrict__ Ap, double* part, int* ticket,
-    double* st, const int* ist) {
-  if (ist[kDone]) return;   // every CTA: the ticket stays untouched
+    const double* __restrict__ pool, const double* p, double lam,
+    double* Ap) {
   const int lane = threadIdx.x % gt::kWarp;
-  const int v = blockIdx.x * kVarWarps + threadIdx.x / gt::kWarp;
+  const int v = chunk * kVarWarps + threadIdx.x / gt::kWarp;
   const int rd = rmax * dmax;
   const int S = max(rmax, dmax);         // lanes a slot
   const int K = gt::kWarp / S;           // slots a chunk
   const int i = lane / S, r = lane - i * S;
   const int i0 = i < K ? i : 0;          // lanes past the chunk: slot 0's
-  double dot[1] = {0.0};
+  double dot = 0.0;
   if (v < nv) {
     const int e1 = vptr[v + 1];
     double y = 0.0;                      // lanes < dmax: component lane
@@ -176,8 +199,22 @@ __global__ void __launch_bounds__(kVarThreads) pcg_matvec_kernel(
       pa = p[o + lane] * val;
     }
     pa = gt::warp_sum(pa);
-    if (lane == 0) dot[0] = pa;
+    if (lane == 0) dot = pa;
   }
+  return dot;
+}
+
+__global__ void __launch_bounds__(kVarThreads) pcg_matvec_kernel(
+    int nv, int dmax, int rmax, const int* __restrict__ vptr,
+    const int* __restrict__ vslot, const int* __restrict__ slot_fac,
+    const int* __restrict__ fptr, const int* __restrict__ slot_var,
+    const int* __restrict__ var_off, const int* __restrict__ var_dim,
+    const double* __restrict__ pool, const double* p, double lam,
+    double* Ap, double* part, int* ticket, double* st, const int* ist) {
+  if (ist[kDone]) return;   // every CTA: the ticket stays untouched
+  double dot[1] = {matvec_vars(blockIdx.x, nv, dmax, rmax, vptr, vslot,
+                               slot_fac, fptr, slot_var, var_off, var_dim,
+                               pool, p, lam, Ap)};
   double sums[1];
   if (last_cta<1>(dot, part, ticket, sums) && threadIdx.x == 0)
     st[kPAp] = sums[0];
@@ -222,96 +259,225 @@ __device__ void invert_block(const double* __restrict__ D, int dmax, int dv,
       Minv[i * dmax + k] = i < dv && k < dv ? b[i][k] : 0.0;
 }
 
+// The CG state, as st and ist hold it.
+struct State {
+  double gamma, pap, rr, tol2, beta;
+  int done, it;
+};
+
+__device__ __forceinline__ State load_state(const double* st,
+                                            const int* ist) {
+  return {st[kGamma], st[kPAp], st[kRR], st[kTol2], st[kBeta], ist[kDone],
+          ist[kIt]};
+}
+
+__device__ __forceinline__ void store_state(const State& s, double* st,
+                                            int* ist) {
+  st[kGamma] = s.gamma;
+  st[kPAp] = s.pap;
+  st[kRR] = s.rr;
+  st[kTol2] = s.tol2;
+  st[kBeta] = s.beta;
+  ist[kDone] = s.done;
+  ist[kIt] = s.it;
+}
+
+// A phase's variable part for step chunk c's variables (128, a thread
+// each): INIT, UPDATE (alpha from the state) or FINISH; acc gets the
+// thread's r.z and r.r.  x, r, z, p, Ap and Minv carry no __restrict__:
+// the loop writes them in the same launch.
+__device__ __forceinline__ void step_vars(
+    int phase, int chunk, int nv, int dmax,
+    const int* __restrict__ var_off,
+    const int* __restrict__ var_dim, const double* __restrict__ diag,
+    double* Minv, const double* __restrict__ g, double* x, double* r,
+    double* z, double* p, const double* Ap, double lam, int jacobi,
+    double alpha, double (&acc)[2]) {
+  const int v = chunk * kVarThreads + threadIdx.x;
+  acc[0] = acc[1] = 0.0;   // r.z, r.r
+  if (v >= nv) return;
+  const int o = var_off[v], dv = var_dim[v];
+  const double* Mv = Minv + (int64_t)v * dmax * dmax;
+  double rv[kMaxD];
+  if (phase == kInit) {
+    if (jacobi) invert_block(diag + (int64_t)v * dmax * dmax, dmax, dv, lam,
+                             Minv + (int64_t)v * dmax * dmax);
+#pragma unroll
+    for (int c = 0; c < kMaxD; ++c) {
+      if (c < dv) {
+        rv[c] = g[o + c];
+        x[o + c] = 0.0;
+        r[o + c] = rv[c];
+        if (!jacobi) p[o + c] = 0.0;
+      }
+    }
+  } else if (phase == kUpdate) {
+#pragma unroll
+    for (int c = 0; c < kMaxD; ++c) {
+      if (c < dv) {
+        x[o + c] += alpha * p[o + c];
+        rv[c] = r[o + c] - alpha * Ap[o + c];
+        r[o + c] = rv[c];
+      }
+    }
+  } else {   // kFinish: z from the preconditioner outside
+#pragma unroll
+    for (int c = 0; c < kMaxD; ++c)
+      if (c < dv) acc[0] += r[o + c] * z[o + c];
+  }
+  if (phase != kFinish) {
+#pragma unroll
+    for (int c = 0; c < kMaxD; ++c)
+      if (c < dv) acc[1] += rv[c] * rv[c];
+    if (jacobi) {
+#pragma unroll
+      for (int c = 0; c < kMaxD; ++c) {
+        if (c < dv) {
+          double s = 0.0;
+#pragma unroll
+          for (int k = 0; k < kMaxD; ++k)
+            if (k < dv) s += Mv[c * dmax + k] * rv[k];
+          z[o + c] = s;
+          if (phase == kInit) p[o + c] = s;
+          acc[0] += rv[c] * s;
+        }
+      }
+    }
+  }
+}
+
+// The state after a phase whose sums over the variables are rz (r.z) and
+// rr (r.r): the tolerance, beta, gamma, the iteration count and the stop.
+__device__ __forceinline__ void update_state(int phase, double rz, double rr,
+                                             double tol, int max_it,
+                                             int jacobi, int first,
+                                             State& s) {
+  if (phase == kInit) {
+    s.rr = rr;
+    s.tol2 = tol * tol * fmax(rr, 1e-300);
+    s.beta = 0.0;
+    if (jacobi) s.gamma = rz;
+    s.it = 0;
+    s.done = !(rr > s.tol2) || max_it <= 0;
+  } else if (phase == kUpdate) {
+    s.it += 1;
+    s.rr = rr;
+    if (jacobi) {
+      s.beta = rz / fmax(s.gamma, 1e-300);
+      s.gamma = rz;
+    }
+    s.done = !(rr > s.tol2) || s.it >= max_it;
+  } else {
+    s.beta = first ? 0.0 : rz / fmax(s.gamma, 1e-300);
+    s.gamma = rz;
+  }
+}
+
 __global__ void __launch_bounds__(kVarThreads) pcg_step_kernel(
     int phase, int nv, int dmax, int ntot, const int* __restrict__ var_off,
     const int* __restrict__ var_dim, const double* __restrict__ diag,
-    double* __restrict__ Minv, const double* __restrict__ g,
-    double* __restrict__ x, double* __restrict__ r, double* __restrict__ z,
-    double* __restrict__ p, const double* __restrict__ Ap, double lam,
-    double tol, int max_it, int jacobi, int first, double* part,
-    int* ticket, double* st, int* ist) {
+    double* Minv, const double* __restrict__ g, double* x, double* r,
+    double* z, double* p, const double* Ap, double lam, double tol,
+    int max_it, int jacobi, int first, double* part, int* ticket, double* st,
+    int* ist) {
   if (phase != kInit && ist[kDone]) return;   // every CTA
   if (phase == kDirection) {
     const int i = blockIdx.x * kVarThreads + threadIdx.x;
     if (i < ntot) p[i] = z[i] + st[kBeta] * p[i];
     return;
   }
-  const int v = blockIdx.x * kVarThreads + threadIdx.x;
-  double acc[2] = {0.0, 0.0};   // r.z, r.r
-  if (v < nv) {
-    const int o = var_off[v], dv = var_dim[v];
-    const double* Mv = Minv + (int64_t)v * dmax * dmax;
-    double rv[kMaxD];
-    if (phase == kInit) {
-      if (jacobi) invert_block(diag + (int64_t)v * dmax * dmax, dmax, dv, lam,
-                               Minv + (int64_t)v * dmax * dmax);
-#pragma unroll
-      for (int c = 0; c < kMaxD; ++c) {
-        if (c < dv) {
-          rv[c] = g[o + c];
-          x[o + c] = 0.0;
-          r[o + c] = rv[c];
-          if (!jacobi) p[o + c] = 0.0;
-        }
-      }
-    } else if (phase == kUpdate) {
-      const double alpha = st[kGamma] / fmax(st[kPAp], 1e-300);
-#pragma unroll
-      for (int c = 0; c < kMaxD; ++c) {
-        if (c < dv) {
-          x[o + c] += alpha * p[o + c];
-          rv[c] = r[o + c] - alpha * Ap[o + c];
-          r[o + c] = rv[c];
-        }
-      }
-    } else {   // kFinish: z from the preconditioner outside
-#pragma unroll
-      for (int c = 0; c < kMaxD; ++c)
-        if (c < dv) acc[0] += r[o + c] * z[o + c];
-    }
-    if (phase != kFinish) {
-#pragma unroll
-      for (int c = 0; c < kMaxD; ++c)
-        if (c < dv) acc[1] += rv[c] * rv[c];
-      if (jacobi) {
-#pragma unroll
-        for (int c = 0; c < kMaxD; ++c) {
-          if (c < dv) {
-            double s = 0.0;
-#pragma unroll
-            for (int k = 0; k < kMaxD; ++k)
-              if (k < dv) s += Mv[c * dmax + k] * rv[k];
-            z[o + c] = s;
-            if (phase == kInit) p[o + c] = s;
-            acc[0] += rv[c] * s;
-          }
-        }
-      }
-    }
-  }
+  double acc[2];
+  step_vars(phase, blockIdx.x, nv, dmax, var_off, var_dim, diag, Minv, g, x,
+            r, z, p, Ap, lam, jacobi,
+            phase == kUpdate ? st[kGamma] / fmax(st[kPAp], 1e-300) : 0.0,
+            acc);
   double sums[2];
   if (!last_cta<2>(acc, part, ticket, sums) || threadIdx.x != 0) return;
-  const double rz = sums[0], rr = sums[1];
-  if (phase == kInit) {
-    st[kRR] = rr;
-    st[kTol2] = tol * tol * fmax(rr, 1e-300);
-    st[kBeta] = 0.0;
-    if (jacobi) st[kGamma] = rz;
-    ist[kIt] = 0;
-    ist[kDone] = !(rr > st[kTol2]) || max_it <= 0;
-  } else if (phase == kUpdate) {
-    const int it = ist[kIt] + 1;
-    ist[kIt] = it;
-    st[kRR] = rr;
-    if (jacobi) {
-      st[kBeta] = rz / fmax(st[kGamma], 1e-300);
-      st[kGamma] = rz;
+  State s = load_state(st, ist);
+  update_state(phase, sums[0], sums[1], tol, max_it, jacobi, first, s);
+  store_state(s, st, ist);
+}
+
+// The sum of the n-wide partials part[n * i + k] over the chunks i <
+// nchunk, in the order the last CTA of a phase's launch sums them; every
+// thread gets it.
+__device__ __forceinline__ double chunk_total(const double* part, int n,
+                                              int k, int nchunk,
+                                              double* sh) {
+  double s = 0.0;
+  for (int i = threadIdx.x; i < nchunk; i += kVarThreads)
+    s += __ldcg(part + n * i + k);   // from L2: written by other SMs
+  return cta_sum(s, sh);
+}
+
+__global__ void __launch_bounds__(kVarThreads) pcg_loop_kernel(
+    int groups, int loop, int nv, int dmax, int rmax, int ntot,
+    const int* __restrict__ vptr, const int* __restrict__ vslot,
+    const int* __restrict__ slot_fac, const int* __restrict__ fptr,
+    const int* __restrict__ slot_var, const int* __restrict__ var_off,
+    const int* __restrict__ var_dim, const double* __restrict__ pool,
+    const double* __restrict__ diag, double* Minv,
+    const double* __restrict__ g, double* x, double* r, double* z, double* p,
+    double* Ap, double lam, double tol, int max_it, int jacobi, int first,
+    double* part, double* st, int* ist) {
+  __shared__ double sh[kVarWarps];
+  cg::grid_group grid = cg::this_grid();
+  const int nmv = max((nv + kVarWarps - 1) / kVarWarps, 1);
+  const int nst = max((nv + kVarThreads - 1) / kVarThreads, 1);
+  double* pmv = part;          // a partial a matvec chunk
+  double* pst = part + nmv;    // two a step chunk
+  State s;
+  double acc[2];
+  // one phase of step_vars over every step chunk, its partials summed by
+  // every CTA into its state
+  auto step = [&](int phase, double alpha) {
+    for (int c = blockIdx.x; c < nst; c += gridDim.x) {
+      step_vars(phase, c, nv, dmax, var_off, var_dim, diag, Minv, g, x, r, z,
+                p, Ap, lam, jacobi, alpha, acc);
+      const double rz = cta_sum(acc[0], sh), rr = cta_sum(acc[1], sh);
+      if (threadIdx.x == 0) {
+        pst[2 * c] = rz;
+        pst[2 * c + 1] = rr;
+      }
     }
-    ist[kDone] = !(rr > st[kTol2]) || it >= max_it;
+    grid.sync();
+    const double rz = chunk_total(pst, 2, 0, nst, sh);
+    const double rr = chunk_total(pst, 2, 1, nst, sh);
+    update_state(phase, rz, rr, tol, max_it, jacobi, first, s);
+  };
+  if (groups & kBitInit) {
+    s = load_state(st, ist);
+    step(kInit, 0.0);
   } else {
-    st[kBeta] = first ? 0.0 : rz / fmax(st[kGamma], 1e-300);
-    st[kGamma] = rz;
+    s = load_state(st, ist);   // the launch before this one wrote it
+    if (s.done) return;        // every CTA, before any sync
   }
+  while (!s.done) {
+    if (groups & kBitMatvec) {
+      for (int c = blockIdx.x; c < nmv; c += gridDim.x) {
+        const double d = cta_sum(
+            matvec_vars(c, nv, dmax, rmax, vptr, vslot, slot_fac, fptr,
+                        slot_var, var_off, var_dim, pool, p, lam, Ap), sh);
+        if (threadIdx.x == 0) pmv[c] = d;
+      }
+      grid.sync();
+      s.pap = chunk_total(pmv, 1, 0, nmv, sh);
+    }
+    if (groups & kBitUpdate) {
+      step(kUpdate, s.gamma / fmax(s.pap, 1e-300));
+      if (s.done) break;       // the phases after it return at once
+    }
+    if (groups & kBitFinish) step(kFinish, 0.0);
+    if (groups & kBitDirection) {
+      const int stride = gridDim.x * kVarThreads;
+      for (int i = blockIdx.x * kVarThreads + threadIdx.x; i < ntot;
+           i += stride)
+        p[i] = z[i] + s.beta * p[i];
+      if (loop) grid.sync();   // the next matvec reads p
+    }
+    if (!loop) break;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) store_state(s, st, ist);
 }
 
 int var_grid(int n) { return (n + kVarThreads - 1) / kVarThreads; }
@@ -364,4 +530,32 @@ GT_EXPORT int gt_pcg_step(int phase, int nv, int dmax, int ntot,
       phase, nv, dmax, ntot, var_off, var_dim, diag, Minv, g, x, r, z, p, Ap,
       lam, tol, max_it, jacobi, first, part, ticket, st, ist);
   return (int)cudaGetLastError();
+}
+
+// A group of the CG loop's phases (groups: kBit* bits, run in the order
+// INIT, MATVEC, UPDATE, FINISH, DIRECTION; with loop, again until the done
+// word is set) in one cooperative launch over nv variables (ntot flat
+// entries); the matvec's plan and pool as gt_pcg_matvec's, the steps'
+// vectors as gt_pcg_step's; part: ceil(nv / 4) + 2 ceil(nv / 128)
+// partials.  The grid is as many CTAs as the card holds at once, up to the
+// most chunks of a phase.
+GT_EXPORT int gt_pcg_loop(int groups, int loop, int nv, int dmax, int rmax,
+                          int ntot, const int* vptr, const int* vslot,
+                          const int* slot_fac, const int* fptr,
+                          const int* slot_var, const int* var_off,
+                          const int* var_dim, const double* pool,
+                          const double* diag, double* Minv, const double* g,
+                          double* x, double* r, double* z, double* p,
+                          double* Ap, double lam, double tol, int max_it,
+                          int jacobi, int first, double* part, double* st,
+                          int* ist, void* stream) {
+  if (dmax > kMaxD || rmax > kMaxR) return (int)cudaErrorInvalidValue;
+  if (loop && !(groups & kBitUpdate)) return (int)cudaErrorInvalidValue;
+  const int most = max(max((nv + kVarWarps - 1) / kVarWarps, var_grid(nv)),
+                       max(var_grid(ntot), 1));
+  return gt::launch_levels(pcg_loop_kernel, kVarThreads, 1, 0, most,
+                           (cudaStream_t)stream, groups, loop, nv, dmax, rmax,
+                           ntot, vptr, vslot, slot_fac, fptr, slot_var,
+                           var_off, var_dim, pool, diag, Minv, g, x, r, z, p,
+                           Ap, lam, tol, max_it, jacobi, first, part, st, ist);
 }

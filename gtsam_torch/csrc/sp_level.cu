@@ -10,15 +10,33 @@
 // triples (A_ij -= L_ik L_jk^T) sorted by target in the JAX order, and the
 // solves' per-column block lists.
 //
-// gt_sp_level_factor (kernel 13): one launch a leading level, a CTA a
-//   column j.  Its warps take the column's blocks: lane (r, c) of a block
-//   forms A_rc (+ lam on the true diagonal) less the sum over the block's
-//   triples of row r of L_ik times row c of L_jk (each a d-term dot
-//   product), in the plan's order.  The diagonal block goes to shared
-//   memory, where warp 0 factors it right-looking (a pivot that is not
-//   finite and positive marks the column in rec), and every thread then
-//   solves one row of a subdiagonal block, x L_jj^T = a, by forward
-//   substitution.  A is read, the factor written to L (out of place).
+// gt_sp_level_factor (kernel 13): one cooperative launch over every leading
+//   level, a CTA of 512 threads a job (a column j; job q = CTA + k grid, in
+//   level order; 192 KB of shared memory, one CTA an SM).  The job's
+//   first round of triple ids is loaded while warp 0 waits on the flags of
+//   the columns its triples read (wsrc; a lane a column, backing off).
+//   Then its triples (its blocks', block after block) go in rounds that fit
+//   in shared memory, pipelined: while a round's products are formed, the
+//   next round's source blocks L_ik and L_jk are staged by cp.async
+//   (16-byte, past L1; 8-byte ld.cg for odd d), the ids of the round after
+//   it loaded, and the previous round's products summed.  The threads form
+//   lane groups of d^2, a thread an entry (r, c) throughout, so no lane
+//   carries two chains: a group takes every G-th triple of a round and
+//   forms its products (row r of L_ik times row c of L_jk, a d-term dot
+//   product, in column order; 16-byte loads at d = 6); then a group takes
+//   every G-th block of the round and adds the block's products to its sum
+//   in triple order, a partial sum carried into the next round in shared
+//   memory where the block's triples go on.  Each block becomes A (+ lam
+//   on the true diagonal) less its sum: the arithmetic of a factorization
+//   a launch a level, in its order, so its bits.  The diagonal block goes
+//   to shared memory, where warp 0 factors it right-looking, a row a lane
+//   in registers by shuffles (a pivot that is not finite and positive
+//   marks the column in rec), and every thread then solves one row of a
+//   subdiagonal block (two in flight), x L_jj^T = a, by forward
+//   substitution.  After a barrier, one thread stores the factorization's
+//   epoch into the column's flag with release semantics at GPU scope
+//   (cumulative over the CTA's writes).  A is read, the factor written to
+//   L (out of place).
 // gt_sp_tail_assemble (kernel 13's second entry): a warp a block of the
 //   dense root M's lower triangle: the stored tail block less its late
 //   triples (sources in the leading columns), plus lam on the diagonal,
@@ -59,21 +77,31 @@
 //   rows eight at a time, a lane an entry, shared by shuffles; the
 //   substitution stays in group 0 and multiplies by the reciprocals.
 //
-// No atomics: every sum runs in an order fixed by the plan, so a launch
-// gives the same bits on every run.  Bound on the H100: at the sphere's
-// sizes a level's bytes are ~0.1-5 MB and its FLOPs (2 d^3 a triple) ~0.05-
-// 0.2 GFLOP, a few microseconds at 3.35 TB/s or 34 TFLOP/s; kernel 13's
-// launches (one a level) and the chains of dependent loads bound it, and
-// the few-column levels run on a few SMs.  Kernel 14 moves ~10 MB a
-// direction (3 us): the chain of its levels (38 hand-offs through L2 on
-// the sphere) bounds it.
+// Kernel 13's flags: one int a column in a buffer the solver keeps, the
+//   epoch a new number every factorization, as kernel 14's below; the jobs
+//   are taken in level order and every source lies in an earlier level,
+//   so the lowest unfinished job can always run.
+//
+// No atomics: every sum runs in an order fixed by the plan (kernel 13: a
+// block's products in triple order, as a launch a level sums them: the
+// same bits), so a launch gives the same bits on every
+// run, whatever the grid.  Bound on the H100:
+// at the sphere's sizes kernel 13 moves ~85 MB (25 us at 3.35 TB/s) and
+// does ~0.1 GFLOP (2 d^3 a triple); the chain of columns through the
+// elimination tree (38 levels on the sphere, a hand-off through L2, a
+// diagonal Cholesky and its row solves each) and the top columns' ~1,100
+// triples on one SM (staged at one SM's share of L2's rate) bound it.
+// Kernel 14
+// moves ~10 MB a direction (3 us): the chain of its levels (38 hand-offs
+// through L2 on the sphere) bounds it.
 #include "ba_common.cuh"
 
 namespace {
 
 constexpr int kMaxD = 12;
-constexpr int kFactorThreads = 128;      // kernel 13: a CTA a column
-constexpr int kFactorWarps = kFactorThreads / gt::kWarp;
+constexpr int kFactorThreads = 512;      // kernel 13: a CTA a column
+constexpr int kFactorShm = 192 * 1024;   // its rounds' staged blocks
+constexpr int kMetaBlocks = 512;         // a job's block ids kept in shared
 constexpr int kTailThreads = 256;        // a warp a block of M
 constexpr int kSolveThreads = 128;       // kernel 14: a warp a job
 constexpr int kSolveWarps = kSolveThreads / gt::kWarp;
@@ -81,6 +109,18 @@ constexpr int kSlice = 1024;             // doubles of shared memory a warp
 constexpr int kBatch = 8;                // list blocks a group a trip to L2
 constexpr long long kStall = 4000000000LL;
 constexpr unsigned kFull = 0xffffffffu;
+
+// An int load with acquire, a store with release, at GPU scope.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
 
 // sum over the triples [t0, t1) of row r of L_ik times row c of L_jk
 __device__ __forceinline__ double triple_sum(
@@ -100,79 +140,345 @@ __device__ __forceinline__ double triple_sum(
   return acc;
 }
 
-__global__ void __launch_bounds__(kFactorThreads) sp_level_factor_kernel(
-    int d, const int* __restrict__ cols, const int* __restrict__ cptr,
-    const int* __restrict__ cblk, const int* __restrict__ tptr,
-    const int* __restrict__ tik, const int* __restrict__ tjk,
-    const double* __restrict__ A, const double* __restrict__ pad,
-    double lam, double* L, int* __restrict__ rec) {
-  __shared__ double sD[kMaxD * kMaxD];
-  const int q = blockIdx.x;
-  const int j = cols[q];
-  const int e0 = cptr[q], e1 = cptr[q + 1];
+// Wait until the flag of every column in wsrc[w0 .. w1) holds `epoch`: the
+// lanes of warp 0 poll them, lane l columns l, l + 32, ..., each backing
+// off from 64 ns to 512 ns between loads, so that the CTAs that wait (most
+// of the grid, while the top levels run) load the flags' few L2 lines
+// lightly; a wait of kStall cycles can only be a fault and traps (see
+// await_sources).
+__device__ __forceinline__ void await_columns(const int* flags, int epoch,
+                                              const int* __restrict__ wsrc,
+                                              int w0, int w1) {
+  if (threadIdx.x < gt::kWarp) {
+    for (int w = w0 + threadIdx.x; w < w1; w += gt::kWarp) {
+      const int k = wsrc[w];
+      const long long t0 = clock64();
+      unsigned ns = 64;
+      while (ld_acquire(flags + k) != epoch) {
+        if (clock64() - t0 > kStall) __trap();
+        __nanosleep(ns);
+        ns = min(2 * ns, 512u);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Queue the copies of a round's source blocks: n_t triples, triple t's
+// L_ik to S + t 2 dd, its L_jk dd further, their block ids read from sIk /
+// sJk (the round's, in shared memory).  Lane group grp (of G) takes
+// triples grp, grp + G, ..., its thread ent the same pieces of each.  Past
+// L1 (the blocks were written in this launch by other SMs): 16-byte
+// cp.async.cg, committed as one group, where dd is even (piece ent: 16
+// bytes of L_ik, or of L_jk past dd / 2); else 8-byte ld.cg loads, stored
+// at once (entry ent of both blocks).
+__device__ __forceinline__ void stage_round(double* S, const double* L,
+                                            const int* sIk, const int* sJk,
+                                            int n_t, int dd, int G, int grp,
+                                            int ent) {
+  if (grp < G) {
+    if ((dd & 1) == 0) {
+      const int h = dd / 2;
+      const int which = ent / h, off = 2 * (ent - which * h);
+      const int* ids = which ? sJk : sIk;
+      for (int t = grp; t < n_t; t += G) {
+        const unsigned dst = (unsigned)__cvta_generic_to_shared(
+            S + t * 2 * dd + which * dd + off);
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+                     "l"(L + (int64_t)ids[t] * dd + off)
+                     : "memory");
+      }
+    } else {
+      for (int t = grp; t < n_t; t += G) {
+        const double a = __ldcg(L + (int64_t)sIk[t] * dd + ent);
+        const double b = __ldcg(L + (int64_t)sJk[t] * dd + ent);
+        S[t * 2 * dd + ent] = a;
+        S[t * 2 * dd + dd + ent] = b;
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// A round's products: lane group grp takes triples grp, grp + G, ... of
+// the n_t staged in Sc, its thread ent entry (er, ec) of each, row er of
+// L_ik times row ec of L_jk summed in column order, into Pc.  D: 6 (the
+// pose graphs' width: 16-byte loads), or 0 (any d).
+template <int D>
+__device__ __forceinline__ void round_products(const double* Sc, double* Pc,
+                                               int n_t, int d, int G,
+                                               int grp, int ent, int er,
+                                               int ec) {
   const int dd = d * d;
+#pragma unroll 2
+  for (int t = grp; t < n_t; t += G) {
+    const double* li = Sc + t * 2 * dd + er * d;
+    const double* lj = Sc + t * 2 * dd + dd + ec * d;
+    double s = 0.0;
+    if (D == 6) {
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        const double2 a = reinterpret_cast<const double2*>(li)[m];
+        const double2 b = reinterpret_cast<const double2*>(lj)[m];
+        s += a.x * b.x;
+        s += a.y * b.y;
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < kMaxD; ++m)
+        if (m < d) s += li[m] * lj[m];
+    }
+    Pc[t * dd + ent] = s;
+  }
+}
+
+__global__ void __launch_bounds__(kFactorThreads) sp_level_factor_kernel(
+    int J, int d, int epoch, const int* __restrict__ cols,
+    const int* __restrict__ cptr, const int* __restrict__ cblk,
+    const int* __restrict__ tptr, const int* __restrict__ tik,
+    const int* __restrict__ tjk, const int* __restrict__ wptr,
+    const int* __restrict__ wsrc, const double* __restrict__ A,
+    const double* __restrict__ pad, double lam, double* L,
+    int* __restrict__ rec, int* flags) {
+  extern __shared__ __align__(16) double smem[];
+  __shared__ double sD[kMaxD * kMaxD];
+  // the partial sum a block carries from one round into the next (two:
+  // read in a round, written for the next)
+  __shared__ double sCarry[2][kMaxD * kMaxD];
+  // the job's block ids and triple pointers (its first kMetaBlocks)
+  __shared__ int sBlk[kMetaBlocks], sTp[kMetaBlocks + 1];
+  const int dd = d * d;
+  // a round: `cap` triples (at most one a thread, whose ids that thread
+  // prefetches); two buffers of their two staged blocks (S), block ids
+  // (sIk, sJk) and products (Pb): the round's and the next's
+  const int cap = min(kFactorShm / (6 * dd * (int)sizeof(double) +
+                                    4 * (int)sizeof(int)),
+                      kFactorThreads);
+  int* ids = (int*)(smem + cap * 6 * dd);
+  auto S = [&](int b) { return smem + b * cap * 2 * dd; };
+  auto Pb = [&](int b) { return smem + cap * 4 * dd + b * cap * dd; };
+  auto sIk = [&](int b) { return ids + b * 2 * cap; };
+  auto sJk = [&](int b) { return ids + b * 2 * cap + cap; };
+  // lane groups of dd threads, a thread an entry (er, ec) throughout
+  const int G = kFactorThreads / dd;
+  const int grp = threadIdx.x / dd, ent = threadIdx.x - grp * dd;
+  const int er = ent / d, ec = ent - er * d;
+  const bool live = grp < G;
   const int warp = threadIdx.x / gt::kWarp, lane = threadIdx.x % gt::kWarp;
-  // the column's blocks, a warp each: A (+ damping) less the triples
-  for (int e = e0 + warp; e < e1; e += kFactorWarps) {
-    const int64_t b = cblk[e];
-    const int t0 = tptr[e], t1 = tptr[e + 1];
-    for (int idx = lane; idx < dd; idx += gt::kWarp) {
-      const int r = idx / d, c = idx - r * d;
-      double a = A[b * dd + idx];
-      if (e == e0 && r == c) a += lam * (1.0 - pad[(int64_t)j * d + r]);
-      a -= triple_sum(L, tik, tjk, t0, t1, d, r, c);
-      if (e == e0)
-        sD[idx] = a;
-      else
-        L[b * dd + idx] = a;
+  for (int q = blockIdx.x; q < J; q += gridDim.x) {
+    const int j = cols[q];
+    const int e0 = cptr[q], e1 = cptr[q + 1];
+    for (int i = threadIdx.x; i <= min(e1 - e0, kMetaBlocks);
+         i += kFactorThreads) {
+      if (i < min(e1 - e0, kMetaBlocks)) sBlk[i] = cblk[e0 + i];
+      sTp[i] = tptr[e0 + i];
     }
-  }
-  __syncthreads();
-  // the diagonal block's Cholesky, right-looking, in warp 0
-  if (warp == 0) {
-    int bad = -1;
-    for (int k = 0; k < d; ++k) {
-      const double s = sD[k * d + k];
-      if (bad < 0 && !(s > 0.0 && isfinite(s))) bad = k;
-      const double piv = sqrt(s);
-      __syncwarp();
-      if (lane == k) sD[k * d + k] = piv;
-      if (lane > k && lane < d) sD[lane * d + k] /= piv;
-      __syncwarp();
-      for (int idx = lane; idx < dd; idx += gt::kWarp) {
-        const int i = idx / d, c = idx - i * d;
-        if (c > k && c <= i) sD[idx] -= sD[i * d + k] * sD[c * d + k];
+    // the first round's triple ids, in flight during the wait
+    const int T0 = tptr[e0], T1 = tptr[e1];
+    int nik = 0, njk = 0;
+    if (T0 + (int)threadIdx.x < min(T1, T0 + cap)) {
+      nik = tik[T0 + threadIdx.x];
+      njk = tjk[T0 + threadIdx.x];
+    }
+    auto blk = [&](int e) {
+      return e - e0 < kMetaBlocks ? sBlk[e - e0] : cblk[e];
+    };
+    auto tp = [&](int e) {
+      return e - e0 <= kMetaBlocks ? sTp[e - e0] : tptr[e];
+    };
+    await_columns(flags, epoch, wsrc, wptr[q], wptr[q + 1]);
+    // the column's triples in rounds, two in the pipeline: while a round's
+    // products (a thread an entry of its group's triples) and sums (each
+    // block's products in triple order, carried across a round's end in
+    // sCarry) run, the next round's blocks are staged and the one after's
+    // triple ids loaded
+    if (T0 < T1) {
+      if ((int)threadIdx.x < min(T1 - T0, cap)) {
+        sIk(0)[threadIdx.x] = nik;
+        sJk(0)[threadIdx.x] = njk;
       }
-      __syncwarp();
-    }
-    const int64_t b = cblk[e0];
-    for (int idx = lane; idx < dd; idx += gt::kWarp) {
-      const int i = idx / d, c = idx - i * d;
-      L[b * dd + idx] = c <= i ? sD[idx] : 0.0;
-    }
-    if (lane == 0) rec[q] = bad >= 0 ? j : -1;
-  }
-  __syncthreads();
-  // the subdiagonal blocks: L_ij = A_ij L_jj^-T, a thread a row
-  const int nrow = (e1 - e0 - 1) * d;
-  for (int w = threadIdx.x; w < nrow; w += kFactorThreads) {
-    const int e = e0 + 1 + w / d, r = w % d;
-    double* row = L + (int64_t)cblk[e] * dd + r * d;
-    double x[kMaxD];
-#pragma unroll
-    for (int c = 0; c < kMaxD; ++c) x[c] = c < d ? row[c] : 0.0;
-#pragma unroll
-    for (int c = 0; c < kMaxD; ++c) {
-      if (c < d) {
-        x[c] /= sD[c * d + c];
-#pragma unroll
-        for (int c2 = c + 1; c2 < kMaxD; ++c2)
-          if (c2 < d) x[c2] -= x[c] * sD[c2 * d + c];
+      __syncthreads();
+      stage_round(S(0), L, sIk(0), sJk(0), min(T1 - T0, cap), dd, G, grp,
+                  ent);
+      const int tn = T0 + cap + (int)threadIdx.x;
+      if (tn < min(T1, T0 + 2 * cap)) {
+        nik = tik[tn];
+        njk = tjk[tn];
       }
     }
+    int eb = e0;                 // the first block not summed to its end
+    // the sums of round rs (its triples [sa, sa + sn), products in Pc):
+    // a group a block, each block's products added in triple order to its
+    // sum, four loads ahead of the adds; a partial sum carried into the
+    // next round (sCarry[rs & 1]) where the block's triples go on
+    auto sums = [&](int rs, int sa, int sn, const double* Pc) {
+      while (tp(eb + 1) <= sa) ++eb;
+      int ee = eb;
+      while (ee < e1 && tp(ee) < sa + sn) ++ee;
+      if (!live) return;
+      for (int e = eb + grp; e < ee; e += G) {
+        const int t0 = tp(e), t1 = tp(e + 1);
+        double acc = t0 < sa ? sCarry[(rs & 1) ^ 1][ent] : 0.0;
+        const int u0 = max(t0, sa) - sa, u1 = min(t1, sa + sn) - sa;
+        int u = u0;
+        for (; u + 4 <= u1; u += 4) {
+          double v[4];
 #pragma unroll
-    for (int c = 0; c < kMaxD; ++c)
-      if (c < d) row[c] = x[c];
+          for (int k = 0; k < 4; ++k) v[k] = Pc[(u + k) * dd + ent];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc += v[k];
+        }
+        for (; u < u1; ++u) acc += Pc[u * dd + ent];
+        if (t1 > sa + sn)
+          sCarry[rs & 1][ent] = acc;
+        else
+          L[(int64_t)blk(e) * dd + ent] = acc;
+      }
+    };
+    // round r: its products overlap the sums of round r - 1 (two product
+    // buffers), one barrier between rounds (a round's products, staged
+    // blocks and carried partial are read only after the next barrier)
+    int pa = 0, pn = 0;          // the round whose sums are pending
+    int r = 0;
+    for (int ta = T0; ta < T1; ta += cap, ++r) {
+      const int nt = min(T1 - ta, cap), cur = r & 1;
+      asm volatile("cp.async.wait_all;" ::: "memory");
+      if (ta + cap < T1 && (int)threadIdx.x < min(T1 - ta - cap, cap)) {
+        sIk(cur ^ 1)[threadIdx.x] = nik;
+        sJk(cur ^ 1)[threadIdx.x] = njk;
+      }
+      __syncthreads();
+      if (ta + cap < T1) {
+        stage_round(S(cur ^ 1), L, sIk(cur ^ 1), sJk(cur ^ 1),
+                    min(T1 - ta - cap, cap), dd, G, grp, ent);
+        const int tn = ta + 2 * cap + (int)threadIdx.x;
+        if (tn < min(T1, ta + 3 * cap)) {
+          nik = tik[tn];
+          njk = tjk[tn];
+        }
+      }
+      if (live) {
+        if (d == 6)
+          round_products<6>(S(cur), Pb(cur), nt, d, G, grp, ent, er, ec);
+        else
+          round_products<0>(S(cur), Pb(cur), nt, d, G, grp, ent, er, ec);
+      }
+      if (r > 0) sums(r - 1, pa, pn, Pb(cur ^ 1));
+      pa = ta;
+      pn = nt;
+    }
+    // the last round's sums read products and a carried partial that
+    // other groups wrote in the loop's last trip: a barrier first
+    if (r > 0) {
+      __syncthreads();
+      sums(r - 1, pa, pn, Pb((r - 1) & 1));
+    }
+    __syncthreads();
+    // A (+ damping on the diagonal) less the sums (a block without
+    // triples: nothing), four blocks a group in flight; the diagonal block
+    // to shared memory
+    if (live) {
+      for (int e4 = e0 + grp; e4 < e1; e4 += 4 * G) {
+        double a[4], acc[4];
+        int64_t at[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = min(e4 + u * G, e1 - 1);
+          at[u] = (int64_t)blk(e) * dd + ent;
+          a[u] = A[at[u]];
+          acc[u] = tp(e) < tp(e + 1) ? L[at[u]] : 0.0;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = e4 + u * G;
+          if (e >= e1) break;
+          if (e == e0 && er == ec)
+            a[u] += lam * (1.0 - pad[(int64_t)j * d + er]);
+          a[u] -= acc[u];
+          if (e == e0)
+            sD[ent] = a[u];
+          else
+            L[at[u]] = a[u];
+        }
+      }
+    }
+    __syncthreads();
+    // the diagonal block's Cholesky, right-looking, in warp 0: lane i
+    // keeps row i in registers and takes the rows it needs by shuffles
+    if (warp == 0) {
+      const int64_t bd = blk(e0);
+      double a[kMaxD];
+#pragma unroll
+      for (int c = 0; c < kMaxD; ++c)
+        a[c] = c < d && lane < d ? sD[lane * d + c] : 0.0;
+      int bad = -1;
+#pragma unroll
+      for (int k = 0; k < kMaxD; ++k) {
+        if (k < d) {
+          const double s = __shfl_sync(kFull, a[k], k);
+          if (bad < 0 && !(s > 0.0 && isfinite(s))) bad = k;
+          const double piv = sqrt(s);
+          if (lane == k) a[k] = piv;
+          if (lane > k && lane < d) a[k] /= piv;
+#pragma unroll
+          for (int c = k + 1; c < kMaxD; ++c) {
+            if (c < d) {
+              const double v = __shfl_sync(kFull, a[k], c);
+              if (lane >= c && lane < d) a[c] -= a[k] * v;
+            }
+          }
+        }
+      }
+      if (lane < d) {
+#pragma unroll
+        for (int c = 0; c < kMaxD; ++c) {
+          if (c < d) {
+            sD[lane * d + c] = a[c];
+            L[bd * dd + lane * d + c] = c <= lane ? a[c] : 0.0;
+          }
+        }
+      }
+      if (lane == 0) rec[q] = bad >= 0 ? j : -1;
+    }
+    __syncthreads();
+    // the subdiagonal blocks: L_ij = A_ij L_jj^-T, a thread a row, two rows
+    // in flight a thread
+    const int nrow = (e1 - e0 - 1) * d;
+    for (int w = threadIdx.x; w < nrow; w += 2 * kFactorThreads) {
+      double* row[2];
+      double x[2][kMaxD];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int wr = min(w + h * kFactorThreads, nrow - 1);
+        row[h] = L + (int64_t)blk(e0 + 1 + wr / d) * dd + (wr % d) * d;
+#pragma unroll
+        for (int c = 0; c < kMaxD; ++c) x[h][c] = c < d ? row[h][c] : 0.0;
+      }
+#pragma unroll
+      for (int c = 0; c < kMaxD; ++c) {
+        if (c < d) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            x[h][c] /= sD[c * d + c];
+#pragma unroll
+            for (int c2 = c + 1; c2 < kMaxD; ++c2)
+              if (c2 < d) x[h][c2] -= x[h][c] * sD[c2 * d + c];
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (w + h * kFactorThreads < nrow) {
+#pragma unroll
+          for (int c = 0; c < kMaxD; ++c)
+            if (c < d) row[h][c] = x[h][c];
+        }
+      }
+    }
+    // the column done: __syncthreads orders every thread's writes before
+    // thread 0's release at GPU scope (cumulative), then the flag
+    __syncthreads();
+    if (threadIdx.x == 0) st_release(flags + j, epoch);
   }
 }
 
@@ -202,18 +508,6 @@ __global__ void __launch_bounds__(kTailThreads) sp_tail_assemble_kernel(
     M[(int64_t)(r * d + i) * ld + c * d + k] = v;
     if (r != c) M[(int64_t)(c * d + k) * ld + r * d + i] = v;
   }
-}
-
-// An int load with acquire, a store with release, at GPU scope.
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
 }
 
 __device__ __forceinline__ void copy_async8(double* dst, const double* src) {
@@ -437,21 +731,25 @@ __global__ void __launch_bounds__(kSolveThreads) sp_level_backward_kernel(
 
 }  // namespace
 
-// One leading level of J columns; store blocks of d x d (d <= 12); cols,
-// cptr (J + 1) the level's slices, cblk, tptr, tik, tjk the whole plan's;
-// A the assembled store (read), L the factor (its earlier levels read, this
-// level's blocks written), rec (J) the pivot records.
-GT_EXPORT int gt_sp_level_factor(int J, int d, const int* cols,
-                                 const int* cptr, const int* cblk,
-                                 const int* tptr, const int* tik,
-                                 const int* tjk, const double* A,
-                                 const double* pad, double lam, double* L,
-                                 int* rec, void* stream) {
-  if (d > kMaxD) return (int)cudaErrorInvalidValue;
-  if (J > 0)
-    sp_level_factor_kernel<<<J, kFactorThreads, 0, (cudaStream_t)stream>>>(
-        d, cols, cptr, cblk, tptr, tik, tjk, A, pad, lam, L, rec);
-  return (int)cudaGetLastError();
+// Every leading level's J columns (jobs in level order); store blocks of
+// d x d (d <= 12); cols, cptr (J + 1), cblk, tptr, tik, tjk the plan's;
+// wptr (J + 1), wsrc the columns each job waits on; A the assembled store
+// (read), L the factor (written), rec (J) the pivot records; flags (nflag
+// ints, one a column) set to epoch as each column is done.
+GT_EXPORT int gt_sp_level_factor(int J, int d, int nflag, int epoch,
+                                 const int* cols, const int* cptr,
+                                 const int* cblk, const int* tptr,
+                                 const int* tik, const int* tjk,
+                                 const int* wptr, const int* wsrc,
+                                 const double* A, const double* pad,
+                                 double lam, double* L, int* rec, int* flags,
+                                 void* stream) {
+  if (d > kMaxD || nflag < 0) return (int)cudaErrorInvalidValue;
+  if (J == 0) return 0;
+  return gt::launch_levels(sp_level_factor_kernel, kFactorThreads, 1,
+                           kFactorShm, J, (cudaStream_t)stream, J, d, epoch,
+                           cols, cptr, cblk, tptr, tik, tjk, wptr, wsrc, A,
+                           pad, lam, L, rec, flags);
 }
 
 // The dense root: T tail columns, M (T d x T d, rows ld apart).

@@ -12,22 +12,25 @@ slot (kernel 15), and the CG iteration's steps are kernel 16's.
           gradient (kernel 6's linearize and assembly), and kernel 15's
           second entry forms the block-Jacobi diagonal from the pool, with
           the identity on each variable's padding;
-  solve:  kernel 16 starts the loop (M^-1 = (diag + lam I)^-1 once a solve,
-          x = 0, r = g, z, p, the tolerance), then each iteration is kernel
-          15's matvec with p.Ap, kernel 16's update (alpha, x, r, z, r.z,
-          beta, the iteration count and the stop test into the done word)
-          and its direction p = z + beta p.  The subgraph preconditioner
-          applies the spanning tree's sparse Cholesky (linear/sparse.py,
-          kernels 14 and 11) between the update and kernel 16's FINISH step
-          (r.z and beta).
+  solve:  block-Jacobi: kernel 16's loop runs the whole solve in one
+          launch (M^-1 = (diag + lam I)^-1 once a solve, x = 0, r = g, z, p,
+          the tolerance; then each iteration kernel 15's matvec with p.Ap,
+          the update (alpha, x, r, z, r.z, beta, the iteration count and the
+          stop test into the done word) and the direction p = z + beta p,
+          until the done word is set), and the host reads the done word
+          once.  The subgraph preconditioner applies the spanning tree's
+          sparse Cholesky (linear/sparse.py, kernels 14 and 11) between two
+          launches of the loop an iteration: [matvec, update] and [FINISH
+          (r.z and beta), direction].
 
 The loop stops where the JAX while_loop stops: r.r <= tol^2 max(g.g,
-1e-300) or max_iterations.  The test runs on the device into the done word,
-and every kernel of the loop returns at once when it is set; the host reads
-the word every CHECK_EVERY iterations (fewer before max_iterations), so
-the iteration count is the JAX loop's without a read an iteration.
-`last_solve` keeps the last solve's iterations, reads of the word and
-iterations launched (those past the stop return at once).
+1e-300) or max_iterations.  The test runs on the device into the done
+word; the subgraph loop's launches return at once when it is set, and the
+host reads the word every CHECK_EVERY iterations (fewer before
+max_iterations), so the iteration count is the JAX loop's without a read
+an iteration.  `last_solve` keeps the last solve's iterations, reads of
+the word and iterations launched (block-Jacobi: one read, the iterations
+run; the subgraph's: those past the stop return at once).
 
 Hard (sigma == 0) rows and anti-factor batches are refused at bind:
 whitened to weight 0 the former would be dropped, and the JAX package's PCG
@@ -168,31 +171,32 @@ class PCGSolver:
         x, r, z, p, Ap = (torch.empty_like(g) for _ in range(5))
         Minv = torch.empty_like(diag)
         jacobi = precondition is None
-        pl = self._plan
-        vecs = (diag, Minv, g, x, r, z, p, Ap, pl["var_off"], pl["var_dim"])
+        mv = self._mv_plan()
+        vecs = (diag, Minv, g, x, r, z, p, Ap)
         args = (lam, self.tol, self.max_iterations, jacobi)
 
-        def step(phase, first=False):
-            K.pcg_step(phase, *vecs, *args, first, st, ist)
+        def group(bits, loop=False, first=False):
+            K.pcg_loop(bits, loop, pool, *vecs, *mv, *args, first, st, ist)
 
-        step(K.INIT)
-        if not jacobi:
-            precondition(r, z, ist)
-            step(K.FINISH, first=True)
-            step(K.DIRECTION)
-        mv = self._mv_plan()
+        if jacobi:
+            # the whole solve in one launch, its done word read once
+            group(K.G_INIT | K.G_MATVEC | K.G_UPDATE | K.G_DIRECTION,
+                  loop=True)
+            it = int(ist[K.IT])
+            self.last_solve = {"iterations": it, "reads": 1, "launched": it}
+            return x
+        group(K.G_INIT)
+        precondition(r, z, ist)
+        group(K.G_FINISH | K.G_DIRECTION, first=True)
         reads = launched = it = 0
         while True:
             # never past max_iterations: a loop that runs to it launches
             # nothing after its done word is set
             n = min(CHECK_EVERY, self.max_iterations - it)
             for _ in range(n):
-                K.pcg_matvec(pool, p, *mv, lam, Ap, st, ist)
-                step(K.UPDATE)
-                if not jacobi:
-                    precondition(r, z, ist)
-                    step(K.FINISH)
-                step(K.DIRECTION)
+                group(K.G_MATVEC | K.G_UPDATE)
+                precondition(r, z, ist)
+                group(K.G_FINISH | K.G_DIRECTION)
             launched += n
             done, it = ist[:2].tolist()
             reads += 1

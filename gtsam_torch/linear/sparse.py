@@ -1,4 +1,4 @@
-"""Sparse block Cholesky: host-planned, level-scheduled, a launch a level.
+"""Sparse block Cholesky: host-planned, level-scheduled, a launch a pass.
 
 Counterpart of gtsam_tpu/linear/sparse.py (reference multifrontal
 elimination, ClusterTree-inst.h:285).  The symbolic analysis
@@ -13,12 +13,14 @@ maps, the assembly plan) and move to the device once.  Then:
                   store (B, d*d) and the padded gradient g (n, d), the
                   padding diagonals' identity included (as the supernodal
                   solver's system);
-  factorize:      kernel 13 a leading level (triples, diagonal Cholesky
-                  with a pivot record, subdiagonal solves), then its second
-                  entry: the late triples and the dense root M, both
-                  triangles; M through dense_blocked.blocked_cholesky
-                  (kernel 10 and cuBLAS's trailing products); kernel 7's
-                  pivot check reduces the records;
+  factorize:      kernel 13 in one launch over every leading level, a
+                  column a job (triples, diagonal Cholesky with a pivot
+                  record, subdiagonal solves; each column passed on by a
+                  flag), then its second entry: the late triples and the
+                  dense root M, both triangles; M through
+                  dense_blocked.blocked_cholesky (kernel 10 and cuBLAS's
+                  trailing products); kernel 7's pivot check reduces the
+                  records;
   solve_factored: kernel 14 forward over every level, the dense root's
                   right-hand side too (one launch), the root's two solves
                   (kernel 11), then kernel 14 backward over every level in
@@ -300,6 +302,7 @@ class SparseCholeskySolver:
         self.f_tptr = np.asarray(tptr, dtype=np.int32)
         self.f_tik, self.f_tjk = _cat(tik), _cat(tjk)
         self.lev_off = lev_off
+        self._factor_jobs()
 
         # kernel 13's dense root: M's block map and the late triples by
         # stored tail block (stable: the JAX order)
@@ -370,6 +373,25 @@ class SparseCholeskySolver:
                 self.var_offsets[v] + np.arange(self.var_dims[v])
         self.map_canon = canon.reshape(-1).astype(np.int32)
 
+    def _factor_jobs(self):
+        """Kernel 13's one launch over every leading level: the jobs are the
+        leading columns in level order (f_cols; f_lptr the levels' first
+        jobs); each job waits on the columns that its triples read
+        (f_wptr, f_wsrc: the sorted source columns, all in earlier
+        levels)."""
+        col = self.sym.block_col
+        wptr, wsrc = [0], []
+        tp = self.f_tptr[self.f_cptr]
+        for q in range(len(self.f_cols)):
+            t0, t1 = tp[q], tp[q + 1]
+            k = np.unique(col[np.concatenate([self.f_tik[t0:t1],
+                                              self.f_tjk[t0:t1]])])
+            wsrc.append(k)
+            wptr.append(wptr[-1] + len(k))
+        self.f_wptr = np.asarray(wptr, dtype=np.int32)
+        self.f_wsrc = _cat(wsrc)
+        self.f_lptr = np.asarray(self.lev_off, dtype=np.int32)
+
     @staticmethod
     def _job_arrays(jobs, ptr_key, keys):
         """Concatenate a direction's levels of jobs in order: the job
@@ -420,6 +442,8 @@ class SparseCholeskySolver:
             f_cols=t(self.f_cols), f_cptr=t(self.f_cptr),
             f_cblk=t(self.f_cblk), f_tptr=t(self.f_tptr),
             f_tik=t(self.f_tik), f_tjk=t(self.f_tjk),
+            f_wptr=t(self.f_wptr), f_wsrc=t(self.f_wsrc),
+            f_lptr=t(self.f_lptr),
             t_map=t(self.t_map), t_bid=t(self.tail_bids),
             l_ptr=t(self.l_ptr), l_ik=t(self.l_ik), l_jk=t(self.l_jk),
             t_cols=t(self.tail_cols),
@@ -468,12 +492,12 @@ class SparseCholeskySolver:
         dv, dev, d, T = self.dev, self.device, self.d, self.n_tail
         L = torch.empty_like(blocks)
         rec = torch.empty(len(self.f_cols), dtype=I32, device=dev)
-        for lv in range(self.L_cut):
-            c0, c1 = self.lev_off[lv], self.lev_off[lv + 1]
-            K.sp_level_factor(blocks, dv.f_cols[c0:c1],
-                              dv.f_cptr[c0:c1 + 1], dv.f_cblk, dv.f_tptr,
-                              dv.f_tik, dv.f_tjk, dv.pad_diag, lam, L,
-                              rec[c0:c1])
+        if len(rec):
+            flags = self._scratch_buffers()[4]
+            K.sp_level_factor(blocks, dv.f_cols, dv.f_cptr, dv.f_cblk,
+                              dv.f_tptr, dv.f_tik, dv.f_tjk, dv.f_lptr,
+                              dv.f_wptr, dv.f_wsrc, dv.pad_diag, lam, L,
+                              rec, flags[2], self._next_epoch(flags))
         state = None
         ok = torch.ones((), dtype=torch.bool, device=dev)
         if len(rec):
@@ -501,17 +525,7 @@ class SparseCholeskySolver:
             self.n_tail
         L = factored.L
         rhs = g.reshape(-1)
-        if self._scratch is None:
-            # y of the leading columns, x of every column (the root's at
-            # n + its position), the root's rhs and y, and kernel 14's
-            # flags, a row of each direction: one solve at a time
-            self._scratch = (
-                torch.empty((n, d), dtype=F64, device=dev),
-                torch.empty((n + T, d), dtype=F64, device=dev),
-                torch.empty((T, d), dtype=F64, device=dev),
-                torch.empty(T * d, dtype=F64, device=dev),
-                torch.zeros((2, n), dtype=I32, device=dev))
-        Y, U, rt, yt, flags = self._scratch
+        Y, U, rt, yt, flags = self._scratch_buffers()
         epoch = self._next_epoch(flags)
         delta = out if out is not None else torch.empty(
             self.layout.total_dim, dtype=F64, device=dev)
@@ -533,9 +547,25 @@ class SparseCholeskySolver:
                                 flags[1], epoch, stop)
         return delta
 
+    def _scratch_buffers(self):
+        """(Y, U, rt, yt, flags): y of the leading columns, x of every
+        column (the root's at n + its position), the root's rhs and y, and
+        the flags (3, n): kernel 14's, a row a direction, and kernel 13's;
+        one factorization or solve at a time."""
+        if self._scratch is None:
+            dev, n, d, T = self.device, self.nvars, self.d, self.n_tail
+            self._scratch = (
+                torch.empty((n, d), dtype=F64, device=dev),
+                torch.empty((n + T, d), dtype=F64, device=dev),
+                torch.empty((T, d), dtype=F64, device=dev),
+                torch.empty(T * d, dtype=F64, device=dev),
+                torch.zeros((3, n), dtype=I32, device=dev))
+        return self._scratch
+
     def _next_epoch(self, flags):
-        """Kernel 14's number of this solve, a new one each solve; before
-        the numbers start again the flags are zeroed, so none is stale."""
+        """Kernels 13 and 14's number of this factorization or solve, a new
+        one each; before the numbers start again the flags are zeroed, so
+        none is stale."""
         if self._epoch == 2 ** 31 - 1:
             flags.zero_()
             self._epoch = 0
@@ -547,11 +577,11 @@ class SparseCholeskySolver:
         return self.solve_factored(self.factorize(blocks, lam), g)
 
     def launches_per_factorization(self) -> dict:
-        """Kernel launches of one factorize(): kernel 13 a leading level and
-        once for the dense root, kernel 7's pivot check once (with leading
-        levels), kernel 10 a panel of the root."""
+        """Kernel launches of one factorize(): kernel 13 once over every
+        leading level and once for the dense root, kernel 7's pivot check
+        once (with leading levels), kernel 10 a panel of the root."""
         T = self.n_tail
-        return {"sp_level_factor": self.L_cut,
+        return {"sp_level_factor": int(self.L_cut > 0),
                 "sp_tail_assemble": int(T > 0),
                 "sn_pivot_check": int(self.L_cut > 0),
                 "dense_factor_diag": dense_kernels.panels(T * self.d)

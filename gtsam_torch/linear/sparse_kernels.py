@@ -2,30 +2,34 @@
 Cholesky and of preconditioned conjugate gradients.
 
 Kernels 13 and 14 (csrc/sp_level.cu) port the device routines of
-gtsam_tpu/linear/sparse.py: the factorization a level at a time
-(factorize: each column's blocks updated by the level's triples, the
-diagonal block's Cholesky with a pivot record, the subdiagonal blocks'
-triangular solves; then the late triples and the dense root's matrix M)
-and the forward and backward substitution (solve_factored), one launch a
-direction over every level, the columns passing their rows on by flags.
+gtsam_tpu/linear/sparse.py: the factorization (factorize: each column's
+blocks updated by its triples, the diagonal block's Cholesky with a pivot
+record, the subdiagonal blocks' triangular solves, one launch over every
+leading level; then the late triples and the dense root's matrix M) and
+the forward and backward substitution (solve_factored), one launch a
+direction over every level; in both the columns pass their results on by
+flags.
 Kernels 15 and 16 (csrc/pcg.cu) port gtsam_tpu/linear/pcg.py: the
 matrix-free (J^T J + lam) v over the whitened Jacobian rows with p.Ap, the
-block-Jacobi diagonal, and the steps of the CG iteration.
+block-Jacobi diagonal, the steps of the CG iteration, and the loop that
+runs a group of those steps, or a whole block-Jacobi solve, in one
+launch.
 
 Layouts: the block store is (B, d*d) float64, block b's d x d entries
 row-major (L_ij with i >= j lower-stored); vectors of the level solver are
 (rows, d) in the permuted (elimination) order; the flat vectors of PCG are
-in the canonical tangent layout.  Index arrays are int32 and 1-D: a
-level's slice of the solver's plan (linear/sparse.py) for kernel 13, a
-direction's job arrays for kernel 14.  Each wrapper
+in the canonical tangent layout.  Index arrays are int32 and 1-D: the
+solver's job plan (linear/sparse.py) for kernel 13, a direction's job
+arrays for kernel 14.  Each wrapper
   - on CPU tensors computes its plain PyTorch version (`*_plain`), which the
     CPU tests compare against the JAX package;
   - on CUDA tensors checks dtype, shape, contiguity and device, launches its
     kernel on the current stream and counts the launch.
 It never falls back to the plain version on a CUDA tensor.  No kernel sums
 with atomics: every sum runs in an order fixed by the plan (PCG's dot
-products across CTAs in CTA order, by the last CTA, found by a completion
-ticket), so two runs on the same inputs give the same bits.
+products across fixed chunks of variables in chunk order, by the last CTA
+found by a completion ticket or by every CTA of the loop), so two runs on
+the same inputs give the same bits.
 
 The CG loop's kernels and the level solves it runs take `stop`, the
 solver's done word: a launch returns at once where it is set, so the host
@@ -46,7 +50,7 @@ _PCG = "gtsam_tpu/linear/pcg.py"
 
 KERNELS = _kernels.table(
     Kernel("sp_level_factor", "sp_level", "sp_level_factor", f"{_SP}:235",
-           [INT, INT] + [P] * 8 + [DBL, P, P]),
+           [INT] * 4 + [P] * 10 + [DBL] + [P] * 3),
     Kernel("sp_tail_assemble", "sp_level", "sp_tail_assemble", f"{_SP}:252",
            [INT] * 3 + [P] * 9 + [DBL, P]),
     Kernel("sp_level_forward", "sp_level", "sp_level_forward", f"{_SP}:278",
@@ -59,6 +63,8 @@ KERNELS = _kernels.table(
            [INT] * 3 + [P] * 9 + [DBL] + [P] * 5),
     Kernel("pcg_step", "pcg", "pcg_step", f"{_PCG}:130",
            [INT] * 4 + [P] * 10 + [DBL, DBL, INT, INT, INT] + [P] * 4),
+    Kernel("pcg_loop", "pcg", "pcg_loop", f"{_PCG}:142",
+           [INT] * 6 + [P] * 16 + [DBL, DBL, INT, INT, INT] + [P] * 3),
 )
 
 # the widest block (kMaxD in csrc/sp_level.cu and csrc/pcg.cu) and the most
@@ -67,6 +73,9 @@ MAX_D = 12
 MAX_R = 12
 # kernel 16's phases (kInit ... in csrc/pcg.cu)
 INIT, UPDATE, FINISH, DIRECTION = 0, 1, 2, 3
+# pcg_loop's phase bits (kBitInit ... in csrc/pcg.cu): a group of phases,
+# run in this order
+G_INIT, G_MATVEC, G_UPDATE, G_FINISH, G_DIRECTION = 1, 2, 4, 8, 16
 # the CG state: st (float64) gamma = r.z, p.Ap, r.r, tol^2 max(g.g, 1e-300),
 # beta; ist (int32) done, the iteration count
 GAMMA, PAP, RR, TOL2, BETA = 0, 1, 2, 3, 4
@@ -121,8 +130,12 @@ def _solve_rows(X, Lc):
     return X
 
 
-def sp_level_factor_plain(A, cols, cptr, cblk, tptr, tik, tjk, pad, lam, L,
-                          rec):
+def factor_level_plain(A, cols, cptr, cblk, tptr, tik, tjk, pad, lam, L,
+                       rec):
+    """One leading level of the factorization (its columns cols, their
+    slices cptr, rec; the whole plan's cblk, tptr, tik, tjk), as a kernel
+    13 launched a level at a time computes it: every block's triple sum,
+    then the diagonal Cholesky and the subdiagonal solves."""
     d = pad.shape[1]
     J = cols.shape[0]
     e0, e1 = int(cptr[0]), int(cptr[J])
@@ -148,20 +161,39 @@ def sp_level_factor_plain(A, cols, cptr, cblk, tptr, tik, tjk, pad, lam, L,
     return L, rec
 
 
-def sp_level_factor(A, cols, cptr, cblk, tptr, tik, tjk, pad, lam, L, rec):
-    """Kernel 13, a leading level of the factorization.  For each of the
-    level's columns j (cols, J of them): its blocks cblk[cptr[q]:cptr[q+1]]
-    (the diagonal first) each become A_b (+ lam on the true dimensions of
-    the diagonal: lam (1 - pad[j])) less the sum of L_ik L_jk^T over the
-    block's triples tik/tjk[tptr[e]:tptr[e+1]] (in that order), read from
-    the output store L of the earlier levels; then the diagonal block's
-    Cholesky L_jj and the subdiagonal blocks' L_ij = A_ij L_jj^-T are written
-    into L (B, d*d).  rec (J,) gets j where L_jj met a pivot that is not
-    finite and positive, else -1.  A (B, d*d) is not written.  On the card
-    one launch, a CTA a column."""
-    args = (A, cols, cptr, cblk, tptr, tik, tjk, pad)
-    if on_cpu(*args, L, rec):
-        return sp_level_factor_plain(*args, lam, L, rec)
+def sp_level_factor_plain(A, cols, cptr, cblk, tptr, tik, tjk, lptr, wptr,
+                          wsrc, pad, lam, L, rec, flags, epoch):
+    for j0, j1 in _levels(lptr):
+        factor_level_plain(A, cols[j0:j1], cptr[j0:j1 + 1], cblk, tptr, tik,
+                           tjk, pad, lam, L, rec[j0:j1])
+    return L, rec
+
+
+def sp_level_factor(A, cols, cptr, cblk, tptr, tik, tjk, lptr, wptr, wsrc,
+                    pad, lam, L, rec, flags, epoch):
+    """Kernel 13, every leading level of the factorization at once: the
+    jobs q (column j = cols[q], J of them) in order, level by level (lptr:
+    the levels' first jobs and the end; every source of a job in an
+    earlier level).  Job q's blocks cblk[cptr[q]:cptr[q+1]] (the diagonal
+    first) each become A_b (+ lam on the true dimensions of the diagonal:
+    lam (1 - pad[j])) less the sum of L_ik L_jk^T over the block's triples
+    tik/tjk[tptr[e]:tptr[e+1]] (in that order), read from the output store
+    L of the earlier levels; then the diagonal block's Cholesky L_jj and
+    the subdiagonal blocks' L_ij = A_ij L_jj^-T are written into L (B,
+    d*d).  rec (J,) gets j where L_jj met a pivot that is not finite and
+    positive, else -1.  A (B, d*d) is not written.  wptr, wsrc: the
+    columns each job waits on (SparseCholeskySolver._factor_jobs).  flags
+    (one int32 a column) and epoch (a new number every factorization,
+    never 0): on the card each column's flag is set to epoch once its
+    blocks are written, and a job reads a column once its flag holds it;
+    the plain version (the level loop of factor_level_plain) ignores
+    wptr, wsrc, flags and epoch.  On the card one cooperative launch, a
+    CTA a job: the products of a round of its triples a thread an entry,
+    from source blocks staged in shared memory, each block's products
+    summed in triple order."""
+    args = (A, cols, cptr, cblk, tptr, tik, tjk, lptr, wptr, wsrc, pad)
+    if on_cpu(*args, L, rec, flags):
+        return sp_level_factor_plain(*args, lam, L, rec, flags, epoch)
     B, dd = A.shape
     n, d = pad.shape
     J = cols.shape[0]
@@ -170,14 +202,21 @@ def sp_level_factor(A, cols, cptr, cblk, tptr, tik, tjk, pad, lam, L, rec):
                 ("cblk", cblk, I32, tuple(cblk.shape)),
                 ("tptr", tptr, I32, (cblk.shape[0] + 1,)),
                 ("tik", tik, I32, tuple(tik.shape)),
-                ("tjk", tjk, I32, tik.shape), ("pad", pad, F64, (n, d)),
-                ("L", L, F64, (B, d * d)), ("rec", rec, I32, (J,)))
+                ("tjk", tjk, I32, tik.shape),
+                ("lptr", lptr, I32, (lptr.shape[0],)),
+                ("wptr", wptr, I32, (J + 1,)),
+                ("wsrc", wsrc, I32, tuple(wsrc.shape)),
+                ("pad", pad, F64, (n, d)), ("L", L, F64, (B, d * d)),
+                ("rec", rec, I32, (J,)), ("flags", flags, I32, (n,)))
     _width(d, "sp_level_factor")
-    if dd != d * d:
-        raise ValueError(f"sp_level_factor: A must have shape {(B, d * d)}")
+    if dd != d * d or not 0 < epoch < 2 ** 31 or L.data_ptr() % 16:
+        raise ValueError(f"sp_level_factor: A must have shape "
+                         f"{(B, d * d)}, epoch in 1..2^31-1, L 16-byte "
+                         "aligned")
     KERNELS["sp_level_factor"].launch(
-        dev, J, d, *map(ptr, (cols, cptr, cblk, tptr, tik, tjk, A, pad)),
-        float(lam), ptr(L), ptr(rec))
+        dev, J, d, n, int(epoch),
+        *map(ptr, (cols, cptr, cblk, tptr, tik, tjk, wptr, wsrc, A, pad)),
+        float(lam), ptr(L), ptr(rec), ptr(flags))
     return L, rec
 
 
@@ -657,3 +696,80 @@ def pcg_step(phase, diag, Minv, g, x, r, z, p, Ap, var_off, var_dim, lam,
         *map(ptr, (var_off, var_dim, diag, Minv, g, x, r, z, p, Ap)),
         float(lam), float(tol), int(max_it), int(bool(jacobi)),
         int(bool(first)), *map(ptr, (part, ticket, st, ist)))
+
+
+def pcg_loop_plain(groups, loop, pool, diag, Minv, g, x, r, z, p, Ap, vptr,
+                   vslot, slot_fac, fptr, slot_var, var_off, var_dim, lam,
+                   tol, max_it, jacobi, first, st, ist):
+    _loop_groups(groups, loop)
+    mv = (vptr, vslot, slot_fac, fptr, slot_var, var_off, var_dim)
+
+    def step(phase):
+        pcg_step_plain(phase, diag, Minv, g, x, r, z, p, Ap, var_off, var_dim,
+                       lam, tol, max_it, jacobi, first, st, ist)
+
+    if groups & G_INIT:
+        step(INIT)
+    while not _stopped(ist):
+        if groups & G_MATVEC:
+            pcg_matvec_plain(pool, p, *mv, lam, Ap, st, ist)
+        for bit, phase in ((G_UPDATE, UPDATE), (G_FINISH, FINISH),
+                           (G_DIRECTION, DIRECTION)):
+            if groups & bit:
+                step(phase)
+        if not loop:
+            break
+
+
+def _loop_groups(groups, loop):
+    if not 0 < groups < 32 or (loop and not groups & G_UPDATE):
+        raise ValueError(f"pcg_loop: phase bits {groups}; a loop needs "
+                         "UPDATE")
+
+
+def pcg_loop(groups, loop, pool, diag, Minv, g, x, r, z, p, Ap, vptr, vslot,
+             slot_fac, fptr, slot_var, var_off, var_dim, lam, tol, max_it,
+             jacobi, first, st, ist):
+    """Kernel 16's loop: the phases of `groups` (G_INIT, G_MATVEC, G_UPDATE,
+    G_FINISH, G_DIRECTION bits), in that order, each as pcg_step's phase
+    (G_MATVEC: pcg_matvec's Ap = (J^T J + lam) p and p.Ap over the pool and
+    its plan); with `loop`, all but INIT again and again until ist[DONE] is
+    set (a block-Jacobi solve: INIT | MATVEC | UPDATE | DIRECTION).  Like
+    the phases, the group returns at once where ist[DONE] is set (INIT
+    aside), and a phase after UPDATE returns where UPDATE set it.  On the
+    card one cooperative launch, its CTAs taking the phases' chunks (the
+    matvec's 4 variables, the steps' 128) grid-stride, a grid sync after
+    each phase; the chunks' partial dot products summed in chunk order by
+    every CTA, so the group gives the bits of its phases' launches."""
+    args = (pool, diag, Minv, g, x, r, z, p, Ap, vptr, vslot, slot_fac, fptr,
+            slot_var, var_off, var_dim)
+    if on_cpu(*args, st, ist):
+        return pcg_loop_plain(groups, loop, *args, lam, tol, max_it, jacobi,
+                              first, st, ist)
+    _loop_groups(groups, loop)
+    Q, rmax, dmax = pool.shape
+    nv = var_dim.shape[0]
+    D = g.shape[0]
+    vec = [(name, t, F64, (D,)) for name, t in
+           (("g", g), ("x", x), ("r", r), ("z", z), ("p", p), ("Ap", Ap))]
+    dev = check("pcg_loop", ("pool", pool, F64, (Q, rmax, dmax)),
+                ("diag", diag, F64, (nv, dmax, dmax)),
+                ("Minv", Minv, F64, (nv, dmax, dmax)), *vec,
+                ("vptr", vptr, I32, (nv + 1,)), ("vslot", vslot, I32, (Q,)),
+                ("slot_fac", slot_fac, I32, (Q,)),
+                ("fptr", fptr, I32, tuple(fptr.shape)),
+                ("slot_var", slot_var, I32, (Q,)),
+                ("var_off", var_off, I32, (nv,)),
+                ("var_dim", var_dim, I32, (nv,)),
+                ("st", st, F64, (ST_SIZE,)), ("ist", ist, I32, (IST_SIZE,)))
+    if dmax > MAX_D or rmax > MAX_R:
+        raise ValueError(f"pcg_loop: rows of {rmax} x {dmax} exceed "
+                         f"{MAX_R} x {MAX_D}")
+    _, part = _kernels.sum_scratch(
+        dev, max(1, -(-nv // VAR_WARPS)) + 2 * max(1, -(-nv // VAR_THREADS)))
+    KERNELS["pcg_loop"].launch(
+        dev, int(groups), int(bool(loop)), nv, dmax, rmax, D,
+        *map(ptr, (vptr, vslot, slot_fac, fptr, slot_var, var_off, var_dim,
+                   pool, diag, Minv, g, x, r, z, p, Ap)),
+        float(lam), float(tol), int(max_it), int(bool(jacobi)),
+        int(bool(first)), *map(ptr, (part, st, ist)))

@@ -123,7 +123,7 @@ def test_cpu_path_counts_no_launch():
         | set(supernodal_kernels.KERNELS) | set(dense_kernels.KERNELS)
         | set(sparse_kernels.KERNELS))
     assert len(supernodal_kernels.KERNELS) == 14
-    assert len(sparse_kernels.KERNELS) == 7
+    assert len(sparse_kernels.KERNELS) == 8
     assert all(n == 0 for n in _kernels.launch_counts().values())
 
 
@@ -182,7 +182,8 @@ def _meta_args_sparse(name, B=10, n=5, J=3, T=2, nv=4, Q=8):
     vec = [f(6 * nv) for _ in range(6)]
     return {
         "sp_level_factor": (f(B, 36), i(J), i(J + 1), i(5), i(6), i(7), i(7),
-                            f(n, 6), 0.1, f(B, 36), i(J)),
+                            i(3), i(J + 1), i(2), f(n, 6), 0.1, f(B, 36),
+                            i(J), i(n), 1),
         "sp_tail_assemble": (f(B, 36), f(B, 36), i(T * T), i(3), i(4), i(5),
                              i(5), i(T), f(n, 6), 0.1, f(6 * T, 6 * T)),
         "sp_level_forward": (f(B, 36), f(6 * n), i(6 * n), f(n, 6),
@@ -199,6 +200,11 @@ def _meta_args_sparse(name, B=10, n=5, J=3, T=2, nv=4, Q=8):
         "pcg_step": (sparse_kernels.UPDATE, f(nv, 6, 6), f(nv, 6, 6), *vec,
                      i(nv), i(nv), 0.1, 1e-9, 10, True, False,
                      f(sparse_kernels.ST_SIZE),
+                     i(sparse_kernels.IST_SIZE)),
+        "pcg_loop": (sparse_kernels.G_MATVEC | sparse_kernels.G_UPDATE, True,
+                     f(Q, 6, 6), f(nv, 6, 6), f(nv, 6, 6), *vec, i(nv + 1),
+                     i(Q), i(Q), i(5), i(Q), i(nv), i(nv), 0.1, 1e-9, 10,
+                     True, False, f(sparse_kernels.ST_SIZE),
                      i(sparse_kernels.IST_SIZE)),
     }[name]
 
@@ -458,6 +464,8 @@ def _cpu_args_sparse(name):
     c0, c1 = s.lev_off[1], s.lev_off[2]
     rows = torch.as_tensor(s.f_cblk[s.f_cptr[c0]:s.f_cptr[c1]])
     L[rows] = 0.0
+    # kernel 13 writes every leading block: its output starts as zeros
+    L13 = torch.zeros_like(f.L)
     rng = np.random.default_rng(6)
     fw, bw = dv.fw, dv.bw
     flags = torch.zeros(n, dtype=torch.int32)
@@ -469,10 +477,11 @@ def _cpu_args_sparse(name):
     vec = [torch.as_tensor(rng.normal(size=gp.shape[0])) for _ in range(6)]
     Minv = torch.linalg.inv(diag)
     return {
-        "sp_level_factor": (blocks, dv.f_cols[c0:c1], dv.f_cptr[c0:c1 + 1],
-                            dv.f_cblk, dv.f_tptr, dv.f_tik, dv.f_tjk,
-                            dv.pad_diag, 0.3, L,
-                            torch.zeros(c1 - c0, dtype=torch.int32)),
+        "sp_level_factor": (blocks, dv.f_cols, dv.f_cptr, dv.f_cblk,
+                            dv.f_tptr, dv.f_tik, dv.f_tjk, dv.f_lptr,
+                            dv.f_wptr, dv.f_wsrc, dv.pad_diag, 0.3, L13,
+                            torch.zeros(len(s.f_cols), dtype=torch.int32),
+                            flags, 1),
         "sp_tail_assemble": (blocks, Lf, dv.t_map, dv.t_bid, dv.l_ptr,
                              dv.l_ik, dv.l_jk, dv.t_cols, dv.pad_diag, 0.3,
                              torch.zeros((T * d, T * d),
@@ -497,6 +506,10 @@ def _cpu_args_sparse(name):
         "pcg_step": (sparse_kernels.UPDATE, diag, Minv, gp, *vec[:5],
                      pl["var_off"], pl["var_dim"], 0.2, 1e-9, 10, True,
                      False, st, ist),
+        "pcg_loop": (sparse_kernels.G_INIT | sparse_kernels.G_MATVEC
+                     | sparse_kernels.G_UPDATE | sparse_kernels.G_DIRECTION,
+                     True, pool, diag, torch.zeros_like(diag), gp, *vec[:5],
+                     *ps._mv_plan(), 0.2, 1e-9, 10, True, False, st, ist),
     }[name]
 
 

@@ -215,10 +215,15 @@ def test_pcg_solve(graphs, name, kind):
         assert float(jrr) <= float(jtol2) or int(jit) == js.max_iterations
         slack = 1 if kind == "pcg" else max(2, math.ceil(0.05 * int(jit)))
         assert abs(it - int(jit)) <= slack, (it, int(jit))
-        assert ts.last_solve["reads"] == max(1, math.ceil(
-            it / tpcg.CHECK_EVERY))
-        assert ts.last_solve["launched"] == min(
-            ts.max_iterations, tpcg.CHECK_EVERY * ts.last_solve["reads"])
+        if kind == "pcg":
+            # one launch a solve (kernel 16's loop), its done word read once
+            assert ts.last_solve["reads"] == 1
+            assert ts.last_solve["launched"] == it
+        else:
+            assert ts.last_solve["reads"] == max(1, math.ceil(
+                it / tpcg.CHECK_EVERY))
+            assert ts.last_solve["launched"] == min(
+                ts.max_iterations, tpcg.CHECK_EVERY * ts.last_solve["reads"])
         assert _rel(x, jx) <= 1e-6, (lam, it, int(jit))
 
 
@@ -309,19 +314,113 @@ def test_refusals(graphs):
 
 
 def test_done_word(graphs):
-    """The loop stops exactly at max_iterations (a tolerance never met),
-    reading the done word every CHECK_EVERY iterations and launching
-    nothing past max_iterations; max_iterations 0 leaves x at 0; the steps
-    are diagonal-damping-free."""
+    """The loop stops exactly at max_iterations (a tolerance never met):
+    the block-Jacobi solve in one launch, its done word read once, the
+    iterations it ran; max_iterations 0 leaves x at 0; the steps are
+    diagonal-damping-free."""
     _, _, tb, tv = _bound(graphs, "SE3")
     ts = PCGSolver(max_iterations=37, tol=1e-300).bind(tb)
     system = ts.system(tv.arrays)
     x, _ = ts.solve(system, 1e-3, False)
-    assert ts.last_solve == {"iterations": 37, "reads": math.ceil(
-        37 / tpcg.CHECK_EVERY), "launched": 37}
+    assert ts.last_solve == {"iterations": 37, "reads": 1, "launched": 37}
     x2, _ = ts.solve(system, 1e-3, True)
     assert torch.equal(x, x2)
     ts.max_iterations = 0
     x0, _ = ts.solve(system, 1e-3, False)
     assert ts.last_solve == {"iterations": 0, "reads": 1, "launched": 0}
     assert bool((x0 == 0).all())
+
+
+def _phase_sequence(ts, system, lam, subgraph, max_it):
+    """The CG loop as separate plain calls of kernels 15 and 16, a phase a
+    call, in the order of a host loop that launches a phase a call (the
+    done word read after every iteration): (x, r, z, p, st, ist)."""
+    pool, g, diag = system[:3]
+    st, ist = ts._state("cpu")
+    x, r, z, p, Ap = (torch.empty_like(g) for _ in range(5))
+    Minv = torch.empty_like(diag)
+    pl, mv = ts._plan, ts._mv_plan()
+
+    def step(phase, first=False):
+        K.pcg_step_plain(phase, diag, Minv, g, x, r, z, p, Ap, pl["var_off"],
+                         pl["var_dim"], lam, ts.tol, max_it, not subgraph,
+                         first, st, ist)
+
+    def precondition():
+        ts._tree.solve_factored(system[3], r, ts._tree.dev.map_canon, ist,
+                                out=z)
+
+    step(K.INIT)
+    if subgraph:
+        precondition()
+        step(K.FINISH, first=True)
+        step(K.DIRECTION)
+    while not int(ist[K.DONE]):
+        K.pcg_matvec_plain(pool, p, *mv, lam, Ap, st, ist)
+        step(K.UPDATE)
+        if subgraph:
+            precondition()
+            step(K.FINISH)
+        step(K.DIRECTION)
+    return x, r, z, p, st, ist
+
+
+@pytest.mark.parametrize("kind", list(SOLVERS))
+@pytest.mark.parametrize("max_it", [0, 7, 500])
+def test_loop_matches_phases(graphs, kind, max_it):
+    """Kernel 16's loop (pcg_loop: block-Jacobi's whole solve in one call,
+    the subgraph's [MATVEC, UPDATE] and [FINISH, DIRECTION] groups around
+    the tree solve) gives the bits of the phases called one by one, in
+    x, r, z, p and the state, at lam 1e-3: max_iterations 0 (done at INIT),
+    7 (stopped by the count) and 500 (stopped by the tolerance)."""
+    _, _, tb, tv = _bound(graphs, "SE3_Point3")
+    ts = SOLVERS[kind][1](max_iterations=max_it).bind(tb)
+    system = ts.system(tv.arrays)
+    seen = {}
+    group = K.pcg_loop
+
+    def spy(bits, loop, pool, diag, Minv, g, x, r, z, p, *rest):
+        seen.update(x=x, r=r, z=z, p=p, st=rest[-2], ist=rest[-1])
+        return group(bits, loop, pool, diag, Minv, g, x, r, z, p, *rest)
+
+    K.pcg_loop = spy
+    try:
+        x, _ = ts.solve(system, 1e-3, False)
+    finally:
+        K.pcg_loop = group
+    ref = _phase_sequence(ts, system, 1e-3, kind == "subgraph", max_it)
+    got = (x, seen["r"], seen["z"], seen["p"], seen["st"], seen["ist"])
+    # z: the tree solve's output, never written where INIT stops the loop
+    keep = [k for k in range(6)
+            if k != 2 or kind == "pcg" or max_it > 0]
+    assert all(torch.equal(got[k], ref[k]) for k in keep)
+    it = int(ref[5][K.IT])
+    assert ts.last_solve["iterations"] == it
+    assert (it == max_it) == (max_it < 500)
+
+
+def test_loop_refuses_a_loop_without_update(graphs):
+    """A looping group without UPDATE would never stop: refused on the CPU
+    and before any launch on the card."""
+    _, _, tb, tv = _bound(graphs, "SE3")
+    ts = PCGSolver().bind(tb)
+    pool, g, diag = ts.system(tv.arrays)
+    st, ist = ts._state("cpu")
+    vecs = [torch.zeros_like(g) for _ in range(6)]
+    for dev in ("cpu", "meta"):
+        args = [t.to(dev) for t in (pool, diag, diag, *vecs,
+                                    *ts._mv_plan())]
+        with pytest.raises(ValueError, match="needs UPDATE"):
+            K.pcg_loop(K.G_MATVEC | K.G_DIRECTION, True, *args, 1e-3, 1e-9,
+                       10, True, False, st.to(dev), ist.to(dev))
+
+
+def test_loop_bits_match_the_source():
+    """pcg_loop's phase bits are kernel 16's (csrc/pcg.cu kBit*)."""
+    import re
+    from gtsam_torch import _build
+    src = (_build.CSRC / "pcg.cu").read_text()
+    bits = dict(re.findall(r"kBit(\w+) = (\d+)", src))
+    assert {k: int(v) for k, v in bits.items()} == {
+        "Init": K.G_INIT, "Matvec": K.G_MATVEC, "Update": K.G_UPDATE,
+        "Finish": K.G_FINISH, "Direction": K.G_DIRECTION}

@@ -44,6 +44,7 @@ from gtsam_torch.graph.values import Values
 from gtsam_torch.inference import symbolic as tsymbolic
 from gtsam_torch.linear import kalman as tkalman
 from gtsam_torch.linear import sparse_export as texport
+from gtsam_torch.linear import sparse_kernels as K
 from gtsam_torch.linear.sparse import SparseCholeskySolver
 from gtsam_torch.optimize import optimizers as TO
 from .test_torch_optimizers import _graphs, _mixed, _rel
@@ -375,6 +376,155 @@ def test_kernel14_launches_per_solve(graphs, plan):
     _kernels.reset_launch_counts()
     s.solve_factored(s.factorize(blocks, 0.1), g)
     assert all(v == 0 for v in _kernels.launch_counts().values())
+
+
+def check_factor_jobs(s):
+    """Kernel 13's precondition on the plan of solver s: the jobs are the
+    leading columns in level order (f_lptr the levels' first jobs), and
+    each job waits on exactly the columns its triples read, every one a
+    leading column of an earlier level, so an earlier job."""
+    sym = s.sym
+    J = len(s.f_cols)
+    lptr = s.f_lptr
+    assert lptr[0] == 0 and lptr[-1] == J and (np.diff(lptr) > 0).all()
+    level = np.repeat(np.arange(len(lptr) - 1), np.diff(lptr))
+    job_of = np.full(s.nvars, -1)
+    job_of[s.f_cols] = np.arange(J)
+    assert (sym.col_level[s.f_cols] == level).all()
+    assert s.f_wptr[0] == 0 and s.f_wptr[-1] == len(s.f_wsrc)
+    for q in range(J):
+        t0, t1 = s.f_tptr[s.f_cptr[q]], s.f_tptr[s.f_cptr[q + 1]]
+        want = np.unique(sym.block_col[np.concatenate(
+            [s.f_tik[t0:t1], s.f_tjk[t0:t1]])])
+        got = s.f_wsrc[s.f_wptr[q]:s.f_wptr[q + 1]]
+        assert np.array_equal(got, want)
+        assert (job_of[got] >= 0).all()
+        assert (level[job_of[got]] < level[q]).all()
+
+
+@pytest.mark.parametrize("plan", list(PLANS))
+@pytest.mark.parametrize("name", GRAPHS)
+def test_kernel13_job_order(graphs, name, plan):
+    """check_factor_jobs on each graph's plans (default, no dense root, all
+    dense root)."""
+    _, _, tb, _ = _bound(graphs, name)
+    check_factor_jobs(SparseCholeskySolver(tb, min_level_cols=PLANS[plan]))
+
+
+def _round_sums(s, q, cap):
+    """A sequential model of the walk that kernel 13's loops make over job
+    q's triples with room for `cap` triples a round (csrc/sp_level.cu: the
+    round [ta, ta + nt), the blocks [eb, ee) it touches, each block's
+    triples in it, a block's partial sum carried into the next round where
+    its triples go on past the round): {block: the triples added to its
+    sum in order}, for the blocks whose sums are written to L (the ones
+    with triples).  It runs no kernel and has no concurrency: it checks the
+    arithmetic of the plan's rounds, not the kernel's barriers."""
+    tptr = s.f_tptr
+    e0, e1 = s.f_cptr[q], s.f_cptr[q + 1]
+    written, carry = {}, None
+    T1, eb, ta = tptr[e1], e0, tptr[e0]
+    while ta < T1:
+        nt = min(T1 - ta, cap)
+        while tptr[eb + 1] <= ta:
+            eb += 1
+        ee = eb
+        while ee < e1 and tptr[ee] < ta + nt:
+            ee += 1
+        out = None
+        for e in range(eb, ee):
+            t0, t1 = tptr[e], tptr[e + 1]
+            if t0 < ta:
+                assert carry is not None and carry[0] == e
+                acc = carry[1]
+            else:
+                acc = []
+            acc = acc + list(range(max(t0, ta), min(t1, ta + nt)))
+            if t1 > ta + nt:
+                assert out is None
+                out = (e, acc)
+            elif t1 > t0:
+                assert e not in written
+                written[e] = acc
+        carry = out
+        ta += cap
+    assert carry is None
+    return written
+
+
+@pytest.mark.parametrize("name", ["SE3", "SE2_Point2", "SE3_Point3"])
+def test_kernel13_rounds_add_each_triple_once(graphs, name):
+    """The plan of kernel 13's rounds (_round_sums' model of its walk):
+    whatever a round holds (1, 2, 7 or 135 triples: kernel 13's at d = 6),
+    the rounds add every triple of a block to that block's sum once, in the
+    plan's order, one partial sum at most crossing a round's end, and write
+    every block with triples once, so the order of the sums is the launch-
+    a-level factorization's.  That the kernel follows this walk without a
+    race is checked on the card (chip_smoke.py: its bits against the plain
+    version's order, twice, and 1,000 factorizations in a row)."""
+    _, _, tb, _ = _bound(graphs, name)
+    s = SparseCholeskySolver(tb, min_level_cols=1)
+    assert len(s.f_tik) > 0
+    for cap in (1, 2, 7, 135):
+        for q in range(len(s.f_cols)):
+            got = _round_sums(s, q, cap)
+            e0, e1 = s.f_cptr[q], s.f_cptr[q + 1]
+            want = {e: list(range(s.f_tptr[e], s.f_tptr[e + 1]))
+                    for e in range(e0, e1) if s.f_tptr[e + 1] > s.f_tptr[e]}
+            assert got == want
+
+
+@pytest.mark.parametrize("plan", list(PLANS))
+@pytest.mark.parametrize("name", ["SE3", "SE2_Point2"])
+def test_kernel13_one_launch_matches_levels(graphs, name, plan):
+    """factorize's one call of kernel 13 (its plain version over every
+    level) gives the bits of the level loop, a level a call
+    (factor_level_plain, a level a call), and its records, and the JAX
+    package's factor at 1e-10 (test_factorize_and_solve's tolerance), at
+    lam 1e-3 and 1; every factorization takes a new epoch."""
+    jb, _, tb, tv = _bound(graphs, name)
+    mlc = PLANS[plan]
+    s = SparseCholeskySolver(tb, min_level_cols=mlc)
+    jfac = jax.jit(JSparse(jb, min_level_cols=mlc).factorize)
+    blocks, _ = s.system(tv.arrays)
+    lead = torch.as_tensor(s.f_cblk, dtype=torch.long)
+    for lam in (1e-3, 1.0):
+        e = s._epoch
+        f = s.factorize(blocks, lam)
+        assert s._epoch == e + int(s.L_cut > 0)
+        L = torch.zeros_like(blocks)
+        rec = torch.full((len(s.f_cols),), -7, dtype=torch.int32)
+        dv = s.dev
+        for lv in range(s.L_cut):
+            c0, c1 = s.lev_off[lv], s.lev_off[lv + 1]
+            K.factor_level_plain(blocks, dv.f_cols[c0:c1],
+                                 dv.f_cptr[c0:c1 + 1], dv.f_cblk, dv.f_tptr,
+                                 dv.f_tik, dv.f_tjk, dv.pad_diag, lam, L,
+                                 rec[c0:c1])
+        assert torch.equal(f.L[lead], L[lead]) and torch.equal(f.rec, rec)
+        if len(lead):
+            jL, _ = jfac(jnp.asarray(blocks.numpy().reshape(-1, s.d, s.d)),
+                         lam)
+            assert _rel(f.L.reshape(-1, s.d, s.d)[lead],
+                        np.asarray(jL)[lead]) <= 1e-10
+
+
+def test_kernel13_epoch_wrap(graphs):
+    """Before the epoch numbers start again the flags of kernels 13 and 14
+    are zeroed (no flag can hold a later factorization's number early); a
+    factorization and a solve each take the next number."""
+    _, _, tb, tv = _bound(graphs, "SE3")
+    s = SparseCholeskySolver(tb)
+    blocks, g = s.system(tv.arrays)
+    flags = s._scratch_buffers()[4]
+    assert flags.shape == (3, s.nvars)
+    flags.fill_(5)
+    s._epoch = 2 ** 31 - 1
+    f = s.factorize(blocks, 1e-3)
+    assert s._epoch == 1 and bool((flags == 0).all())
+    s.solve_factored(f, g)
+    assert s._epoch == 2
+    assert s.launches_per_factorization()["sp_level_factor"] == 1
 
 
 def test_failed_pivot(graphs):
