@@ -6,6 +6,8 @@
     python3 chip_smoke.py --qr       # build + the QR, dogleg and NCG phases
     python3 chip_smoke.py --linear   # build + the levels, PCG and subgraph
                                      # phases (kernels 13-16)
+    python3 chip_smoke.py --sfm      # build + the graph-form BA phases
+                                     # (kernels 17-18, kernels 6-9 at d = 9)
 
 Phases (each one raises on failure; the script exits 0 only if all pass):
   1. the card's name and power limit (nvidia-smi) and torch's device name;
@@ -166,6 +168,21 @@ Phases (each one raises on failure; the script exits 0 only if all pass):
      linearization); then the same two traces of the stand-in (its path:
      busy and idle share; its factorization); and one traced QR solve
      (kernel 12 once a level; no geqrf, cuSOLVER or torch.linalg.qr).
+Then the graph-form bundle adjustment (sfm_phases; alone with --sfm):
+kernels 17 and 18 (csrc/proj_factor.cu: both camera variants, the Gram
+and Jacobian modes and the error) against their plain versions on seeded
+batches (each noise kind, the nine losses, depths at and around the
+cheirality threshold, a partial last CTA, twice for the same bits);
+kernels 6-9 and 17-18 on a small graph-form BA at store width 9 and a
+generic projection graph at 6, as on the other graphs; small LMs (graph
+BA, generic projection, stereo, planar bearing-range SLAM) on the card
+against the CPU; the path at the dubrovnik-16-22106 shape (to_graph,
+levenberg_marquardt on SparseSolver(order="amd"), plan timed apart), twice
+for the same bits, held to the JAX run's iterations, tries and history
+(SFM_REF, 1e-9) and to the port's Schur-form ba_optimize (1e-6), exact
+launch counts; each kernel at its converged state against its plain
+version and timed (kernels 6-9 as rows "[d=9]"), the padding's bytes, a
+try by stage and one traced run (JSON `sfm`).
 The last three lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}.  Imports neither JAX nor gtsam_tpu.
 """
@@ -1110,7 +1127,10 @@ SPHERE_SOLVER = dict(refine_iters=1, supernodal_kwargs=dict(force_width=32))
 # 1e-8 at lam = 1e-4.  Kernel 6's Pose2 variant shares its plain version's
 # formulas as the SE3 kernel does, and its A^T b carries r as the SE3
 # kernel's does (positions up to ~40 m from the origin): the same 1e-12
-# and 1e-10.
+# and 1e-10.  Kernels 17 and 18 (projection factors) share their plain
+# versions' formulas too; their A^T b carries the pixel residual, a
+# difference of pixels up to ~1e3 that is ~1 px at the optimum: 1e-12 and
+# 1e-10 the same way; the Jacobian mode 1e-12.
 PG_TOL = {"pg_linearize": (1e-12, 1e-10), "pg_error": 1e-12,
           "pg2_linearize": (1e-12, 1e-10), "pg2_error": 1e-12,
           "pg_assemble": 1e-12,
@@ -1119,12 +1139,18 @@ PG_TOL = {"pg_linearize": (1e-12, 1e-10), "pg_error": 1e-12,
           "sn_schur_update": (1e-10, 1e-10),
           "sn_forward": 1e-10, "sn_backward": 1e-10,
           "sn_matvec": 1e-12,
-          "pg_jacobians": 1e-12, "pg2_jacobians": 1e-12}
+          "pg_jacobians": 1e-12, "pg2_jacobians": 1e-12,
+          "proj_linearize": (1e-12, 1e-10), "proj_error": 1e-12,
+          "proj3_linearize": (1e-12, 1e-10), "proj3_error": 1e-12,
+          "proj_jacobians": 1e-12, "proj3_jacobians": 1e-12}
 PG_SOLVE_TOL_SMALL_LAM = 1e-8
 # kernels that check_pg_kernels also calls twice for the same bits
 REPEAT_CHECKED = ("sn_front_factor", "sn_pivot_check", "sn_schur_update",
                   "pg_linearize", "pg_error", "pg2_linearize", "pg2_error",
-                  "pg_jacobians", "pg2_jacobians")
+                  "pg_jacobians", "pg2_jacobians", "proj_linearize",
+                  "proj_error", "proj3_linearize", "proj3_error",
+                  "proj_jacobians", "proj3_jacobians", "pg_assemble",
+                  "sn_forward", "sn_backward", "sn_matvec")
 # kernel 6's synthetic batches (phase 3; the largest also timed in phase 5):
 # SE3_BIG between factors over SE3_POSES poses, and of its Pose2 variant
 # POSE2_BIG over POSE2_POSES
@@ -1438,18 +1464,32 @@ class PGCase:
         return out
 
 
-# kernel 6's variants, by the group of the batches each takes
+# kernel 6's variants and kernel 17's (and 18's), by the group of the
+# batches each takes
 K6_GROUP = {"pg_linearize": "SE3", "pg_error": "SE3",
-            "pg2_linearize": "SE2", "pg2_error": "SE2"}
-# the kernels of the QR path alone (kernel 6's Jacobian mode, kernel 12):
-# the Cholesky paths launch none of them, and PGCase does not check them
-QR_KERNELS = ("pg_jacobians", "pg2_jacobians", "sn_front_qr")
+            "pg2_linearize": "SE2", "pg2_error": "SE2",
+            "proj_linearize": "BalCamera", "proj_error": "BalCamera",
+            "proj3_linearize": "GenericProjection",
+            "proj3_error": "GenericProjection"}
+# the kernels of the QR path alone (kernel 6's and kernel 17's Jacobian
+# modes, kernel 12): the Cholesky paths launch none of them, and PGCase
+# does not check them
+QR_KERNELS = ("pg_jacobians", "pg2_jacobians", "sn_front_qr",
+              "proj_jacobians", "proj3_jacobians")
+# kernels 17 and 18: the pose-graph paths launch none of them
+PROJ_KERNELS = ("proj_linearize", "proj_error", "proj_jacobians",
+                "proj3_linearize", "proj3_error", "proj3_jacobians")
+# the rows a factor's Jacobian mode writes a slot
+JAC_ROWS = {"pg_jacobians": 6, "pg2_jacobians": 3, "proj_jacobians": 2,
+            "proj3_jacobians": 2}
 
 
 def _k6_rows(base):
-    """The rows (N, arity) among kernel 6's leading arguments: (R, t, rows,
-    ZR, Zt, ...) of SE3 or (x, rows, Z, ...) of SE2."""
-    return base[2] if len(base) == 8 else base[1]
+    """The rows (N, arity) among the leading arguments of kernel 6 or 17:
+    their one int32 tensor."""
+    import torch
+    return next(a for a in base if isinstance(a, torch.Tensor)
+                and a.dtype == torch.int32)
 
 
 def k6_calls(name, batches):
@@ -1470,7 +1510,7 @@ def k6_calls(name, batches):
         if name.endswith("_jacobians"):
             # the Jacobian mode: the rows of every slot, NaN-filled, each
             # written in full (rmax the group's rdim)
-            r = 6 if name == "pg_jacobians" else 3
+            r = JAC_ROWS[name]
 
             def mkj(base=base, N=N, arity=arity, d=d, la=la, r=r):
                 return base[:-1] + la[:2] + (torch.full(
@@ -1881,7 +1921,8 @@ def check_pg_kernels(case, label, names=None):
         plain = getattr(K, name + "_plain")
         tol = getattr(case, "tol", {}).get(name, PG_TOL[name])
         if case.lam < 1.0:
-            tol = PG_TOL_SMALL_LAM.get(name, tol)
+            tol = getattr(case, "tol_small_lam", PG_TOL_SMALL_LAM).get(
+                name, tol)
         tols = tol if isinstance(tol, tuple) else None
         worst_rel, worst_abs = {}, 0.0
         calls = case.calls(name)
@@ -2194,9 +2235,10 @@ def sphere_main_path():
     if not same:
         raise AssertionError("two runs of the sphere path differ")
     # every pose-graph kernel but the Pose2 variant of kernel 6, which an
-    # SE3 graph never launches
+    # SE3 graph never launches (nor the QR path's and the projections')
     for name, n in a["launches"].items():
-        if (n <= 0) != (K6_GROUP.get(name) == "SE2" or name in QR_KERNELS):
+        if (n <= 0) != (K6_GROUP.get(name) == "SE2" or name in QR_KERNELS
+                        or name in PROJ_KERNELS):
             raise AssertionError(f"kernel {name} was launched {n} times on "
                                  "the sphere path")
     # kernel 8: one forward and one backward launch per solve (two a try:
@@ -2476,7 +2518,8 @@ def outlier_main_paths(laps=50, per_lap=50):
             raise AssertionError(f"{label}: kernels 6, 8 and 9 launched "
                                  f"{got}, not {want}, or {generic} generic "
                                  "linearizations ran")
-        if any((n <= 0) != (K6_GROUP.get(k) == "SE2" or k in QR_KERNELS)
+        if any((n <= 0) != (K6_GROUP.get(k) == "SE2" or k in QR_KERNELS
+                            or k in PROJ_KERNELS)
                for k, n in launches.items() if k not in want):
             raise AssertionError(f"{label}: a pose-graph kernel was not "
                                  f"launched, or kernel 6's Pose2 variant "
@@ -2872,7 +2915,7 @@ def pg_work(case):
     k6 = {}
     for name, group in K6_GROUP.items():
         acc = k6[name] = [0, 0]
-        work = se3_work if group == "SE3" else se2_work
+        work = {"SE3": se3_work, "SE2": se2_work}.get(group, proj_work)
         for _, b, st in case.k6_batches(group):
             w = work(name, st.rows_i32, b.noise.data, d)
             acc[0] += w[0]
@@ -5802,6 +5845,789 @@ def profile_linear(lin):
                              f"{calls_per_it} wrapper calls an iteration")
 
 
+# -- graph-form bundle adjustment: kernels 17 and 18, kernels 6-9 at d = 9 ---
+
+# The path: the reference's timing/timeSFMBAL.cpp on the dubrovnik-16-22106
+# stand-in (BAL's file is not in the repository): make_bal_problem(16,
+# 22106, 4, seed=0) keeps 16 cameras, 21,684 points and 76,427
+# observations; sfm/bal.py::to_graph (a BalCamera a camera, a Point3 a
+# point, one ProjectionBal batch), then levenberg_marquardt with
+# SparseSolver(order=SFM_ORDER) at SFM_LM, float64, on the card.  Store
+# width d = 9: each Point3 padded from 3 to 9.  SFM_ORDER is "amd", the
+# ordering SparseSolver()'s order="auto" picks on this graph: "auto" also
+# analyzes a BFS nested dissection whose fill here grows with the square of
+# the points (7.8 million blocks and 8.5 s of plan at 6,000 points on a CPU,
+# against 24,307 blocks for AMD; the JAX package's plan of it passed 24 GB
+# at the full size), which it then rejects.
+SFM_SHAPE = (16, 22106, 4)
+SFM_LM = dict(max_iterations=50)
+SFM_ORDER = "amd"
+# `python3 scripts/port_sfm_reference.py --iterations 50 --spread 2`
+# (gtsam_tpu on the CPU, float64, the same graph, SparseSolver(order="amd")
+# and LMParams): converged in 5 iterations and 14 tries; its own history
+# moved by 7.7e-14 and 4.5e-13 when the points moved by 1e-15 of their value
+# (--spread), so SFM_HIST_TOL = 1e-9 holds the port to it with room.
+SFM_REF = {"iterations": 5, "tries": 14,
+           "final_half_chi2": 44613.445543817186,
+           "history": [136078.67337478563, 44913.01379853414,
+                       44658.77550356679, 44614.85121913672,
+                       44613.47379569971, 44613.445543817186]}
+SFM_HIST_TOL = 1e-9
+# the port's Schur-form ba_optimize at the same LMParams (tests/test_sfm.py
+# holds the JAX pair to 1e-6)
+SFM_SCHUR_TOL = 1e-6
+# the small graph-form BA of the card-against-CPU LM: its 7-dof gauge moves
+# its history by up to 2.9e-8 when the points move by 1e-15 of their value
+# (12 moves), so two runs that round differently lie within twice that
+# (tests/test_torch_sfm_graph.py's HIST_TOL); on an H100 the card's run
+# lay 3.0e-8 from the CPU's
+SFM_SMALL = (4, 60, 3)
+SFM_SMALL_HIST_TOL = 6e-8
+# The small graph-form BA's kernel checks at lam 1e-4 without diagonal
+# damping: its 7-dof gauge leaves the camera front 7 directions of
+# eigenvalue ~lam (its condition number is logged, ~1e11), which every
+# inverse and solve carries: kernel 7's L^-1 and tile inverses, the Schur
+# update's panel and kernel 8's solves are held to SFM_GAUGE_TOL in place of
+# PG_SOLVE_TOL_SMALL_LAM (on an H100 the front kernel's L^-1 lay 1.6e-8
+# from the plain version's, L itself 3.1e-12).
+SFM_GAUGE_TOL = 1e-7
+SLAM_HIST_TOL = 1e-9
+# the kernels of the path (no refinement: kernel 9 is not launched there)
+SFM_PATH_KERNELS = ("proj_linearize", "proj_error", "pg_assemble",
+                    "sn_front_factor", "sn_pivot_check", "sn_schur_update",
+                    "sn_forward", "sn_backward")
+PROJ_NAMES = {"BalCamera": ["proj_linearize", "proj_jacobians", "proj_error"],
+              "GenericProjection": ["proj3_linearize", "proj3_jacobians",
+                                    "proj3_error"]}
+GP_K = [520.0, 510.0, 0.5, 320.0, 240.0]
+
+
+def proj_work(name, rows, noise, d):
+    """(bytes that must move, FP64 operations) of one launch of kernel 17
+    or 18 (`name`) on a batch of projection factors with slot rows `rows`
+    (N, 2), noise data `noise` (None: unit) and store width d: each camera
+    the batch reads (R, t and a BalCamera's calibration: 120 bytes; an
+    SE3's 96, and K and the extrinsic once), each point (24), each factor's
+    measurement and rows (24) and the noise model read once; H, gv and the
+    flags, or the pool's two rows a slot, or the sum, written once; ~740
+    FP64 operations a BalCamera factor's linearization (the projection and
+    its Jacobians ~150, the whitening ~70, the Gram blocks and gradient rows
+    ~520), ~460 a GenericProjection factor's, ~220 and ~150 in the Jacobian
+    mode, ~40 an error."""
+    import torch
+    N = rows.shape[0]
+    bal = not name.startswith("proj3")
+    inputs = (int(torch.unique(rows[:, 0]).numel()) * (120 if bal else 96)
+              + int(torch.unique(rows[:, 1]).numel()) * 24 + N * 24
+              + (0 if noise is None else noise.numel() * 8)
+              + (0 if bal else 136))
+    if name.endswith("_error"):
+        return inputs + 8, N * 40
+    if name.endswith("_jacobians"):
+        return inputs + N * 2 * 2 * d * 8, N * (220 if bal else 150)
+    return (inputs + N + N * (3 * d * d + 2 * d) * 8,
+            N * (740 if bal else 460))
+
+
+def proj_batch(variant, n_cams, N, d, kind, per_factor, seed, edge=False):
+    """A seeded batch of N projection factors of `variant` ("BalCamera" or
+    "GenericProjection") over n_cams cameras, on the card as kernel 17's
+    wrappers take it: (base, flip, d), base the group's leading arguments,
+    the noise kind and data and the sign.  Each factor has a point of its
+    own in front of its camera (depth 2-30, within ~0.3 of the axis), its
+    measurement the projection plus N(0, 1) px.  edge=True puts every
+    camera at the identity and the points at depths 1e-8 (the cheirality
+    threshold: behind), the next double above it, 1e-8 (1 -+ 1e-6), 0, -1
+    and 2e-8 in turn (the residual then exact: p_c = p).  The noise: unit,
+    diagonal (inverse sigmas in [0.3, 5]), gaussian (square roots of random
+    SPD matrices) or constrained (the first row hard), one model or one a
+    factor; the GenericProjection variant a fixed K and, on odd seeds (not
+    at the edge), an extrinsic; the sign alternates with the seed."""
+    import numpy as np
+    import torch
+    from gtsam_torch.base import noise
+    from gtsam_torch.geometry import se3, so3
+    from gtsam_torch.geometry.se3 import SE3
+    from gtsam_torch.linear import supernodal_kernels as K
+    rng = np.random.default_rng(seed)
+    f64 = torch.float64
+    R = so3.expmap(torch.as_tensor(rng.normal(size=(n_cams, 3))))
+    t = torch.as_tensor(rng.normal(size=(n_cams, 3)) * 10.0)
+    cam = rng.integers(0, n_cams, N)
+    if edge:
+        R = torch.eye(3, dtype=f64).expand(n_cams, 3, 3).contiguous()
+        t = torch.zeros((n_cams, 3), dtype=f64)
+        e = K.CHEIRALITY_EPS
+        z = np.resize([e, np.nextafter(e, 1.0), e * (1 - 1e-6),
+                       e * (1 + 1e-6), 0.0, -1.0, 2 * e], N)
+        xy = rng.normal(size=(N, 2)) * 1e-8
+    else:
+        z = rng.uniform(2.0, 30.0, N)
+        xy = rng.normal(size=(N, 2)) * 0.3 * z[:, None]
+    pc = torch.as_tensor(np.concatenate([xy, z[:, None]], 1))
+    pts = se3.transform_from(SE3(R[cam], t[cam]), pc)
+    rows = torch.as_tensor(np.stack([cam, np.arange(N)], 1),
+                           dtype=torch.int32)
+    if variant == "BalCamera":
+        calib = torch.as_tensor(np.stack([
+            500.0 + rng.normal(size=n_cams) * 10.0,
+            rng.normal(size=n_cams) * 1e-2,
+            rng.normal(size=n_cams) * 1e-3], 1))
+        cams = (R, t, calib)
+    else:
+        ext = None
+        if seed % 2 and not edge:
+            B = se3.expmap(torch.as_tensor(rng.normal(size=6) * 0.1))
+            ext = torch.cat([B.R.reshape(9), B.t])
+        cams = (R, t, torch.tensor(GP_K, dtype=f64), ext)
+    proj, _ = K._proj_plain(cams, pts, rows, torch.zeros((N, 2), dtype=f64))
+    uv = proj + torch.as_tensor(rng.normal(size=(N, 2)))
+    M = N if per_factor else 1
+    if kind == "unit":
+        data = None
+    elif kind == "diagonal":
+        data = noise.sigmas(1.0 / rng.uniform(0.3, 5.0, (M, 2))).data
+    elif kind == "gaussian":
+        A = rng.normal(size=(M, 2, 2))
+        data = noise.information(A @ A.transpose(0, 2, 1)
+                                 + 2 * np.eye(2)).data
+    else:
+        s = rng.uniform(0.3, 5.0, (M, 2))
+        s[:, 0] = 0.0
+        data = noise.constrained(s).data
+    flip = torch.as_tensor(rng.random(N) < 0.5)
+
+    def dev(x):
+        return None if x is None else x.to("cuda").contiguous()
+    lead = ((cams[0], cams[1], cams[2], pts, rows, uv)
+            if variant == "BalCamera" else
+            (cams[0], cams[1], pts, rows, uv, cams[2], cams[3]))
+    base = tuple(dev(x) for x in lead) + (
+        kind, dev(data), -1.0 if seed % 2 else 1.0)
+    return base, dev(flip), d
+
+
+class ProjBatches(SE3Batches):
+    """SE3Batches of kernels 17 and 18 (proj_batch's specs)."""
+    make = staticmethod(proj_batch)
+
+
+def _proj_norms(variant, base):
+    """The plain whitened norms ||R_w r|| of a proj_batch's factors."""
+    import torch
+    from gtsam_torch.linear import supernodal_kernels as K
+    fn = (K.proj_jacobians_plain if variant == "BalCamera"
+          else K.proj3_jacobians_plain)
+    _, b = fn(*base[:-1])
+    return torch.linalg.norm(b, dim=-1)
+
+
+def proj_batch_checks():
+    """Phase 3 of kernels 17 and 18 alone, both variants (BalCamera and
+    GenericProjection), both modes of kernel 17 (Gram and Jacobian) and
+    the error, against their plain versions at PG_TOL, each called twice
+    for the same bits: seeded batches of 2,000 factors over 50 cameras,
+    one CTA plus one (a partial last CTA), three CTAs less five and one
+    factor, at two store widths each (9 and 12, 6 and 9), under each noise
+    kind, shared and one a factor; the cheirality edge (depths at and
+    around 1e-8, 0 and behind), checked to flip the residual at the
+    threshold; each of the nine losses at its threshold (the median plain
+    whitened norm; dcs and the dead zone between two factors)."""
+    import torch
+    from gtsam_torch.base import losses
+    from gtsam_torch.linear import supernodal_kernels as K
+    for variant, (d1, d2) in (("BalCamera", (9, 12)),
+                              ("GenericProjection", (6, 9))):
+        names = PROJ_NAMES[variant]
+        sizes = [(50, 2000, d1), (7, K.PROJ_FACTORS + 1, d2),
+                 (7, 3 * K.PROJ_FACTORS - 5, d1), (7, 1, d2)]
+        for kind, scope in (("unit", False), ("diagonal", False),
+                            ("diagonal", True), ("gaussian", False),
+                            ("gaussian", True), ("constrained", False),
+                            ("constrained", True)):
+            check_pg_kernels(ProjBatches([(variant,) + size + (kind, scope)
+                                          for size in sizes]),
+                             f"{variant} batches {kind} "
+                             f"{'per-factor' if scope else 'shared'}", names)
+        edge = ProjBatches(batches=[proj_batch(
+            variant, 3, 70, d1, "unit", False, seed=k, edge=True)
+            for k in (0, 2)])
+        r = _proj_norms(variant, edge.batches[0][0]).cpu()
+        behind = (r > 1e3).tolist()[:7]
+        log(f"{variant} cheirality edge: behind {behind} at depths 1e-8, "
+            "next above, 1e-8 (1 -+ 1e-6), 0, -1, 2e-8")
+        if behind != [True, False, True, False, True, True, False]:
+            raise AssertionError(f"{variant}: the cheirality threshold "
+                                 f"moved: {behind}")
+        check_pg_kernels(edge, f"{variant} cheirality edge", names)
+        (base, flip, d), = ProjBatches([(variant, 50, 2000, d1, "gaussian",
+                                         True)]).batches
+        norms = _proj_norms(variant, base)
+        for name in losses.LOSSES:
+            at = float(torch.median(norms))
+            if name in ("dcs", "l2_with_dead_zone"):
+                # dcs's rho jumps at its threshold and the dead zone's
+                # sqrt(w) = sqrt((d - c) / d) grows like the square root of
+                # d - c: where an ulp of d decides, two correct evaluations
+                # differ by ~1e-8, so the threshold lies between two factors
+                e = torch.sort(norms).values
+                k = int(torch.searchsorted(e, at))
+                at = float(0.5 * (e[k - 1] + e[k]))
+            la = loss_args(name, at * at if name == "dcs" else at)
+            check_pg_kernels(ProjBatches(batches=[(base, flip, d, la)]),
+                             f"{variant} loss {name}", names)
+
+
+def gp_graph(n_poses=8, n_points=60, seed=0):
+    """(graph, values) of SE3 + Point3 SLAM on generic projection factors:
+    make_bal_problem's cameras as poses with a fixed K and an extrinsic, its
+    points, the measurements the projections plus N(0, 0.5^2) px, and
+    priors on the first two poses; the start moved by 0.02."""
+    import numpy as np
+    import torch
+    from gtsam_torch.base import noise
+    from gtsam_torch.geometry import se3
+    from gtsam_torch.geometry.se3 import SE3
+    from gtsam_torch.graph import factors
+    from gtsam_torch.graph.graph import FactorGraph
+    from gtsam_torch.graph.values import Values
+    from gtsam_torch.sfm import synthetic
+    from gtsam_torch.slam import factors as slam
+    prob = synthetic.make_bal_problem(n_poses, n_points, 3, seed=seed)
+    rng = np.random.default_rng(seed)
+    body = se3.expmap(torch.tensor([0.02, -0.01, 0.03, 0.1, 0.0, -0.05],
+                                   dtype=torch.float64))
+    T = SE3(torch.as_tensor(prob.cam_R), torch.as_tensor(prob.cam_t))
+    P = torch.as_tensor(prob.points)
+    pk = 100 + prob.obs_pt
+    probe = slam.generic_projection_factors(
+        prob.obs_cam, pk, np.zeros((prob.num_observations, 2)), GP_K,
+        noise.unit(), body)
+    r = probe.residual_fn((SE3(T.R[prob.obs_cam], T.t[prob.obs_cam]),
+                           P[prob.obs_pt]), probe.measurements)
+    uv = r.numpy() + rng.normal(size=r.shape) * 0.5
+    g = FactorGraph([slam.generic_projection_factors(
+        prob.obs_cam, pk, uv, GP_K, noise.isotropic(2, 0.5), body)])
+    g.add(factors.prior_factors("SE3", [0, 1], SE3(T.R[:2], T.t[:2]),
+                                noise.sigmas([[1e-3] * 6])))
+    T0 = se3.retract(T, torch.as_tensor(rng.normal(size=(n_poses, 6))
+                                        * 0.02))
+    v = Values({"SE3": T0, "Point3": P + torch.as_tensor(
+        rng.normal(size=P.shape) * 0.05)},
+        {"SE3": np.arange(n_poses),
+         "Point3": 100 + np.arange(prob.num_points)})
+    return g, v
+
+
+def stereo_graph(n_poses=6, n_points=40, seed=1):
+    """SE3 + Point3 SLAM on stereo factors (the generic route) with priors
+    on two poses: the cameras of make_bal_problem, measurements (uL, uR, v)
+    plus N(0, 0.5^2) px, the start moved by 0.02."""
+    import numpy as np
+    import torch
+    from gtsam_torch.base import noise
+    from gtsam_torch.geometry import cameras, se3
+    from gtsam_torch.geometry.se3 import SE3
+    from gtsam_torch.graph import factors
+    from gtsam_torch.graph.graph import FactorGraph
+    from gtsam_torch.graph.values import Values
+    from gtsam_torch.sfm import synthetic
+    from gtsam_torch.slam import factors as slam
+    prob = synthetic.make_bal_problem(n_poses, n_points, 3, seed=seed)
+    rng = np.random.default_rng(seed)
+    T = SE3(torch.as_tensor(prob.cam_R), torch.as_tensor(prob.cam_t))
+    P = torch.as_tensor(prob.points)
+    z, ok = cameras.stereo_project(
+        SE3(T.R[prob.obs_cam], T.t[prob.obs_cam]),
+        torch.tensor(GP_K, dtype=torch.float64), 0.3, P[prob.obs_pt])
+    keep = ok.numpy()
+    meas = z.numpy()[keep] + rng.normal(size=(int(keep.sum()), 3)) * 0.5
+    g = FactorGraph([slam.stereo_factors(
+        prob.obs_cam[keep], 100 + prob.obs_pt[keep], meas, GP_K, 0.3,
+        noise.isotropic(3, 0.5))])
+    g.add(factors.prior_factors("SE3", [0, 1], SE3(T.R[:2], T.t[:2]),
+                                noise.sigmas([[1e-3] * 6])))
+    T0 = se3.retract(T, torch.as_tensor(rng.normal(size=(n_poses, 6))
+                                        * 0.02))
+    v = Values({"SE3": T0, "Point3": P + torch.as_tensor(
+        rng.normal(size=P.shape) * 0.05)},
+        {"SE3": np.arange(n_poses),
+         "Point3": 100 + np.arange(prob.num_points)})
+    return g, v
+
+
+def planar_graph(n_poses=30, n_lm=8, seed=2):
+    """Planar SLAM: an SE2 odometry chain, bearing-range sightings of Point2
+    landmarks (sam/factors.py), a prior on pose 0; the start the
+    odometry's composition and the landmarks' first sightings, as load_2d
+    makes them."""
+    import numpy as np
+    import torch
+    from gtsam_torch.base import keys, noise
+    from gtsam_torch.geometry import se2
+    from gtsam_torch.graph import factors
+    from gtsam_torch.graph.graph import FactorGraph
+    from gtsam_torch.graph.values import Values
+    from gtsam_torch.sam import factors as sam
+    rng = np.random.default_rng(seed)
+    x = np.zeros((n_poses, 3))
+    for i in range(1, n_poses):
+        x[i] = x[i - 1] + [np.cos(x[i - 1, 2]), np.sin(x[i - 1, 2]), 0.2]
+    lm = rng.normal(size=(n_lm, 2)) * 3
+    xt = torch.as_tensor(x)
+    Z = se2.between(xt[:-1], xt[1:]) + torch.as_tensor(
+        rng.normal(size=(n_poses - 1, 3)) * [0.05, 0.05, 0.02])
+    g = FactorGraph([factors.between_factors(
+        "SE2", np.arange(n_poses - 1), np.arange(1, n_poses), Z,
+        noise.sigmas([[0.05, 0.05, 0.02]]))])
+    pi = np.repeat(np.arange(n_poses), 2)
+    li = (pi + np.tile([0, 3], n_poses)) % n_lm
+    loc = se2.transform_to(xt[pi], torch.as_tensor(lm[li])).numpy()
+    b = np.arctan2(loc[:, 1], loc[:, 0]) + rng.normal(size=len(pi)) * 0.01
+    r = np.hypot(loc[:, 0], loc[:, 1]) + rng.normal(size=len(pi)) * 0.05
+    lk = np.array([keys.symbol("l", j) for j in li])
+    g.add(sam.bearing_range_2d_factors(pi, lk, b, r,
+                                       noise.sigmas([[0.01, 0.05]])))
+    g.add(factors.prior_factors("SE2", [0], xt[:1],
+                                noise.sigmas([[1e-3, 1e-3, 1e-4]])))
+    odo = [x[0]]
+    for i in range(n_poses - 1):
+        odo.append(se2.compose(torch.as_tensor(odo[-1]), Z[i]).numpy())
+    odo = np.stack(odo)
+    first = {}
+    for i, j, bb, rr in zip(pi, li, b, r):
+        first.setdefault(j, odo[i, :2] + rr * np.array(
+            [np.cos(odo[i, 2] + bb), np.sin(odo[i, 2] + bb)]))
+    order = sorted(first)
+    v = Values({"SE2": torch.as_tensor(odo),
+                "Point2": torch.as_tensor(np.stack([first[j]
+                                                    for j in order]))},
+               {"SE2": np.arange(n_poses),
+                "Point2": np.array([keys.symbol("l", j) for j in order])})
+    return g, v
+
+
+def lm_tries(graph, vals, params, solver, device):
+    """levenberg_marquardt(...) and its tries: the calls of the try_step
+    that optimizers._make_step_fns returns (one a try)."""
+    from gtsam_torch.optimize import optimizers as O
+    calls = []
+    make = O._make_step_fns
+
+    def counting(*a, **kw):
+        out = list(make(*a, **kw))
+        step = out[-2]
+
+        def counted(*a2, **k2):
+            calls.append(1)
+            return step(*a2, **k2)
+        out[-2] = counted
+        return tuple(out)
+    O._make_step_fns = counting
+    try:
+        res = O.levenberg_marquardt(graph, vals, params, solver=solver,
+                                    device=device)
+    finally:
+        O._make_step_fns = make
+    return res, len(calls)
+
+
+def sfm_small_lms():
+    """Small LM runs on the card against the same runs on the CPU: the
+    graph-form BA of SFM_SMALL (kernel 17 and 18's BalCamera variant), SE3
+    SLAM on generic projection factors with an extrinsic (their
+    GenericProjection variant, with kernel 6's priors), SE3 SLAM on stereo
+    factors (the generic route) and planar SLAM with bearing-range
+    landmarks (the generic route, kernel 6's Pose2 variant): the same
+    iterations and tries, histories within SFM_SMALL_HIST_TOL (the BA's
+    gauge) or SLAM_HIST_TOL; each card run's launches of kernel 17 and 18
+    as its tries say, and no generic linearization on the projection
+    runs."""
+    import numpy as np
+    from gtsam_torch import _kernels
+    from gtsam_torch.graph import factors
+    from gtsam_torch.optimize import optimizers as O
+    from gtsam_torch.sfm import bal, synthetic
+    runs = {}
+    prob = synthetic.make_bal_problem(*SFM_SMALL, seed=0)
+    cases = {"graph BA": (*bal.to_graph(prob), 40, SFM_SMALL_HIST_TOL,
+                          "proj"),
+             "generic projection": (*gp_graph(), 10, SLAM_HIST_TOL, "proj3"),
+             "stereo": (*stereo_graph(), 10, SLAM_HIST_TOL, None),
+             "planar bearing-range": (*planar_graph(), 10, SLAM_HIST_TOL,
+                                      None)}
+    for label, (g, v, its, tol, kern) in cases.items():
+        res = {}
+        for dev in ("cuda", "cpu"):
+            _kernels.reset_launch_counts()
+            factors.GENERIC_LINEARIZATIONS[0] = 0
+            r, tries = lm_tries(g, v, O.LMParams(max_iterations=its),
+                                O.SparseSolver(), dev)
+            res[dev] = (r, tries, _kernels.launch_counts(),
+                        factors.GENERIC_LINEARIZATIONS[0])
+        (rc, tc, lc, gc), (rp, tp, _, _) = res["cuda"], res["cpu"]
+        h, hp = np.asarray(rc.history), np.asarray(rp.history)
+        d = float(np.max(np.abs(h - hp) / hp)) if h.shape == hp.shape \
+            else float("inf")
+        log(f"small LM {label}: card {rc.error!r} cpu {rp.error!r}, history "
+            f"max rel diff {d:.3e} (tol {tol:.0e}); iterations/tries card "
+            f"{(rc.iterations, tc)} cpu {(rp.iterations, tp)}; generic "
+            f"linearizations {gc}")
+        if not (d <= tol and (rc.iterations, tc) == (rp.iterations, tp)
+                and h[-1] < h[0]):
+            raise AssertionError(f"the small {label} LM on the card "
+                                 "disagrees with the CPU")
+        if kern is not None:
+            want = {f"{kern}_linearize": rc.iterations,
+                    f"{kern}_error": tc + 1}
+            got = {k: lc[k] for k in want}
+            if got != want or gc:
+                raise AssertionError(f"{label}: launches {got}, not {want}, "
+                                     f"or {gc} generic linearizations")
+        runs[label] = dict(iterations=rc.iterations, tries=tc,
+                           error=rc.error, launches={
+                               k: n for k, n in lc.items() if n})
+    return runs
+
+
+def sfm_small_checks():
+    """Phase 3 of the graph-form BA: kernels 17 and 18 on seeded batches
+    (proj_batch_checks); kernels 6-9 and 17-18 against their plain versions
+    on the graph of SFM_SMALL (three points behind their cameras; store
+    width 9, every level's W*d and R*d a multiple of 9) and on the generic
+    projection graph (d = 6, kernel 6's priors beside kernel 17), at lam
+    1e-4 and 1, damping off and on, with the level extras, the fill and a
+    bad pivot as on the other graphs; the small LMs (sfm_small_lms)."""
+    import numpy as np
+    from gtsam_torch import _kernels
+    from gtsam_torch.graph import factors
+    from gtsam_torch.sfm import bal, synthetic
+    proj_batch_checks()
+    prob = synthetic.make_bal_problem(*SFM_SMALL, seed=0)
+    pts = prob.points.copy()
+    for j in range(3):   # behind every camera that sees them
+        pts[j] = 3.0 * prob.cam_t[prob.obs_cam[np.argmax(prob.obs_pt == j)]]
+    prob = dataclasses.replace(prob, points=pts)
+    for label, (g, v) in {"graph BA": bal.to_graph(prob),
+                          "generic projection": gp_graph()}.items():
+        for lam in (1e-4, 1.0):
+            for dd in (False, True):
+                _kernels.reset_launch_counts()
+                factors.GENERIC_LINEARIZATIONS[0] = 0
+                case = PGCase(g, v, lam, dd, force_width=4, max_width=8)
+                s = case.s
+                shape = [(lp.S, lp.W * s.d, lp.R * s.d)
+                         for lp in s.level_plans]
+                counts = _kernels.launch_counts()
+                kern = "proj_linearize" if label == "graph BA" \
+                    else "proj3_linearize"
+                log(f"sfm case {label}: lam {lam} diagonal_damping {dd}: d "
+                    f"{s.d}, levels (S, W*d, R*d) {shape}, ok {case.ok}; "
+                    f"{kern} {counts[kern]} launches, generic "
+                    f"linearizations {factors.GENERIC_LINEARIZATIONS[0]}")
+                want_d = 9 if label == "graph BA" else 6
+                if s.d != want_d or case.blocks.shape[1] != want_d ** 2:
+                    raise AssertionError(f"{label}: the store is not "
+                                         f"{want_d} wide")
+                if label == "graph BA" and not odd_levels(s)[0]:
+                    raise AssertionError("the graph BA's plan has no level "
+                                         "of odd W*d")
+                if not counts[kern] or factors.GENERIC_LINEARIZATIONS[0]:
+                    raise AssertionError(f"{label}: the projections did not "
+                                         "take kernel 17")
+                if label == "graph BA" and lam < 1.0 and not dd:
+                    import torch
+                    kappa = max(float(torch.linalg.cond(e["front"]).max())
+                                for e in case.lv)
+                    log(f"sfm case {label}: the fronts' largest condition "
+                        f"number {kappa:.3e} (the gauge at lam {lam})")
+                    g8 = SFM_GAUGE_TOL
+                    case.tol_small_lam = {
+                        "sn_forward": g8, "sn_backward": g8,
+                        "sn_front_factor": (g8, g8, None, g8, 0.0),
+                        "sn_schur_update": (g8, g8)}
+                check_pg_kernels(case, f"{label} lam={lam} dd={dd}")
+                check_level_extras(case, f"{label} lam={lam} dd={dd}")
+                check_fill_untouched(case, f"{label} lam={lam} dd={dd}")
+                check_bad_pivot(case, f"{label} lam={lam} dd={dd}")
+                del case
+    return sfm_small_lms()
+
+
+def sfm_main_path():
+    """Phase 4 of the graph-form BA at the dubrovnik-16-22106 shape: the
+    plan (SparseSolver(order=SFM_ORDER) bound once, timed apart), then
+    to_graph -> levenberg_marquardt at SFM_LM twice: each run's iterations,
+    tries and history held to SFM_REF (SFM_HIST_TOL), the two to the same
+    bits, the first's launches to exact counts (kernel 17 once an
+    iteration, kernel 18 once a try and once before, kernel 7's front
+    kernel once a level a try, no generic linearization, no refinement
+    matvec); the port's Schur-form ba_optimize at the same LMParams within
+    SFM_SCHUR_TOL."""
+    import numpy as np
+    import torch
+    from gtsam_torch.graph.graph import BoundGraph
+    from gtsam_torch.optimize import optimizers as O
+    from gtsam_torch.sfm import ba, bal, synthetic
+    t0 = time.time()
+    prob = synthetic.make_bal_problem(*SFM_SHAPE, seed=0)
+    graph, vals = bal.to_graph(prob)
+    made_s = time.time() - t0
+    log(f"sfm problem: {prob.num_cameras} cams, {prob.num_points} pts, "
+        f"{prob.num_observations} obs (made and to_graph in {made_s:.2f} s)")
+    if SFM_SHAPE == (16, 22106, 4) and (
+            prob.num_points, prob.num_observations) != (21684, 76427):
+        raise AssertionError("the stand-in's generator moved")
+    solver = O.SparseSolver(order=SFM_ORDER)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    solver.bind(BoundGraph(graph, vals.to("cuda"), "cuda"))
+    torch.cuda.synchronize()
+    plan_s = time.time() - t0
+    s = solver._s
+    log(f"sfm plan: {plan_s:.3f} s; d {s.d}, B {s.B} blocks, store "
+        f"{(s.B + 1) * s.d * s.d * 8 / 1e6:.1f} MB, levels (S, W, R) "
+        f"{[(lp.S, lp.W, lp.R) for lp in s.level_plans]}")
+    params = O.LMParams(**SFM_LM)
+    runs = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        (res, tries), launches, generic, _, wall = _run_counted(
+            lambda: lm_tries(graph, vals, params, solver, "cuda"))
+        runs.append((res, tries, launches, generic, wall,
+                     torch.cuda.max_memory_allocated()))
+    res, tries, launches, generic, wall, peak = runs[0]
+    hist = np.asarray(res.history)
+    ref = np.asarray(SFM_REF["history"])
+    d = float(np.max(np.abs(hist - ref) / ref)) if hist.shape == ref.shape \
+        else float("inf")
+    log(f"sfm path: half-chi2 {[r[0].error for r in runs]} (JAX "
+        f"{SFM_REF['final_half_chi2']!r}) in {res.iterations} iterations, "
+        f"{tries} tries (JAX {SFM_REF['iterations']}, {SFM_REF['tries']}), "
+        f"history max rel diff {d:.3e} (tol {SFM_HIST_TOL:.0e}), wall "
+        f"{[r[4] for r in runs]} s, plan {plan_s:.3f} s, peak "
+        f"{peak / 2**30:.3f} GiB")
+    log(f"  history {res.history}")
+    if not (d <= SFM_HIST_TOL and res.iterations == SFM_REF["iterations"]
+            and tries == SFM_REF["tries"]):
+        raise AssertionError("the graph-form BA path disagrees with the JAX "
+                             "run")
+    a1, a2 = res.values.arrays, runs[1][0].values.arrays
+    same = (res.history == runs[1][0].history
+            and torch.equal(a1["Point3"], a2["Point3"])
+            and all(torch.equal(x, y) for x, y in zip(
+                (a1["BalCamera"].pose.R, a1["BalCamera"].pose.t,
+                 a1["BalCamera"].calib),
+                (a2["BalCamera"].pose.R, a2["BalCamera"].pose.t,
+                 a2["BalCamera"].calib))))
+    log(f"sfm path: two runs give the same bits: {same}")
+    if not same:
+        raise AssertionError("two runs of the graph-form BA path differ")
+    it = res.iterations
+    nlev = len(s.level_plans)
+    nup = sum(1 for lp in s.level_plans if lp.R)
+    want = {"proj_linearize": it, "pg_assemble": it,
+            "proj_error": tries + 1, "sn_front_factor": nlev * tries,
+            "sn_schur_update": nup * tries, "sn_pivot_check": tries,
+            "sn_forward": tries, "sn_backward": tries, "sn_matvec": 0,
+            "pg_linearize": 0, "proj_jacobians": 0}
+    got = {k: launches[k] for k in want}
+    log(f"sfm path: launches {got} (expected {want}); generic "
+        f"linearizations {generic}")
+    if got != want or generic:
+        raise AssertionError(f"the graph-form BA path launched {got}, not "
+                             f"{want}, or {generic} generic linearizations")
+    for name in SFM_PATH_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "graph-form BA path")
+    t0 = time.time()
+    _, info = ba.ba_optimize(prob, params, device="cuda")
+    torch.cuda.synchronize()
+    schur_s = time.time() - t0
+    rel = abs(res.error - info["error"]) / info["error"]
+    log(f"sfm path against the Schur form: graph {res.error!r} Schur "
+        f"{info['error']!r} ({info['iterations']} iterations, {schur_s:.3f} "
+        f"s) rel diff {rel:.3e} (tol {SFM_SCHUR_TOL:.0e})")
+    if not rel <= SFM_SCHUR_TOL:
+        raise AssertionError("the graph-form BA and the Schur form disagree")
+    return dict(prob=prob, graph=graph, vals=vals, solver=solver,
+                arrays=res.values.arrays, it=it, tries=tries,
+                err=[r[0].error for r in runs], hist=res.history,
+                launches=launches, wall=[r[4] for r in runs], plan_s=plan_s,
+                peak=peak, schur=dict(error=info["error"],
+                                      iterations=info["iterations"],
+                                      wall_s=schur_s))
+
+
+def sfm_stages(main, ms_fn):
+    """One try of the path by stage at its converged state (lam 1e-3,
+    events): the error, the linearization and assembly, a factorization,
+    the solve, the retraction and the whole try."""
+    from gtsam_torch.graph.values import retract_arrays
+    solver, arrays = main["solver"], main["arrays"]
+    s = solver._s
+    bound = s.bound
+    layout = bound.layout
+    blocks, g = solver.system(arrays)
+    f = s.factorize(blocks, 1e-3)
+    dx = s.solve_factored(f, g)
+    return {
+        "error": ms_fn(lambda: bound.error(arrays), reps=10),
+        "linearize_assemble": ms_fn(lambda: solver.system(arrays), reps=10),
+        "factorize": ms_fn(lambda: s.factorize(blocks, 1e-3), reps=10),
+        "solve": ms_fn(lambda: s.solve_factored(f, g), reps=10),
+        "retract": ms_fn(lambda: retract_arrays(arrays, dx, layout), reps=10),
+        "try": ms_fn(lambda: bound.error(retract_arrays(
+            arrays, solver.solve((blocks, g), 1e-3, False)[0], layout)),
+            reps=10)}
+
+
+def _proj_row(name, calls, launches, err, ms_fn, work, lib=None):
+    """A kernels-line row of kernel 17 or 18 (`name`) over `calls` (fresh
+    argument tuples): events and device time, the plain version's, the
+    bound of `work`."""
+    from gtsam_torch.linear import supernodal_kernels as K
+    kern = K.KERNELS[name]
+    kfn, pfn = getattr(K, name), getattr(K, name + "_plain")
+
+    def run(f):
+        for a in calls:
+            f(*a)
+    ms = ms_fn(lambda: run(kfn), reps=20)
+    plain_ms = ms_fn(lambda: run(pfn), reps=3, warmup=1)
+    dev_ms = device_ms(lambda: run(kfn))
+    bound, bound_by = bound_ms(work[0], 0, work[1])
+    log(f"time {name}: {ms:.4f} ms, device {dev_ms:.4f} ms (plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms by {bound_by}, "
+        f"{work[0] / 1e6:.2f} MB); launches {launches}")
+    return {"name": name, "route": "cuda",
+            "source": f"gtsam_torch/csrc/{kern.source}.cu",
+            "replaces": kern.replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib,
+            "device_ms": dev_ms}
+
+
+def sfm_kernel_times(main, small_runs, ms_fn):
+    """Phase 5 of the graph-form BA, at the path's converged state at lam
+    = 1: kernels 17 and 18 and kernels 6-9 at d = 9 against their plain
+    versions (twice, the same bits), timed, with their bounds, plain
+    versions' times and library calls (case_kernel_rows; rows "[d=9]" for
+    kernels 6-9), the level extras and the fill; kernel 17's Jacobian mode
+    there; the GenericProjection variant on a seeded batch of the path's
+    size (d = 6; its launches those of the small generic projection LM);
+    the padding's bytes; a try by stage."""
+    from gtsam_torch.linear import supernodal_kernels as K
+    graph, vals = main["graph"], main["vals"]
+    case = PGCase(graph, vals.replace_arrays(main["arrays"]), 1.0, False,
+                  order=SFM_ORDER)
+    rows, work = case_kernel_rows(case, main["launches"], ms_fn, "sfm")
+    for r in rows:
+        if not r["name"].startswith("proj"):
+            r["name"] += "[d=9]"
+    check_level_extras(case, "sfm")
+    check_fill_untouched(case, "sfm")
+    s = case.s
+    (i, b, st), = case.k6_batches("BalCamera")
+    base = K.group_args("BalCamera", case.arrays, st.rows_i32, b) + (
+        b.noise.kind, b.noise.data, b.sign)
+    jac = ProjBatches(batches=[(base, s.dev.flips[i][1], s.d)])
+    err = check_pg_kernels(jac, "sfm path state", ["proj_jacobians"])
+    N = b.num_factors
+    rows.append(_proj_row(
+        "proj_jacobians", [mk() for mk, _ in jac.calls("proj_jacobians")],
+        main["launches"]["proj_jacobians"], err["proj_jacobians"], ms_fn,
+        proj_work("proj_jacobians", st.rows_i32, b.noise.data, s.d)))
+    gp = ProjBatches([("GenericProjection", SFM_SHAPE[0], N, 6,
+                       "diagonal", False)])
+    (gbase, gflip, _), = gp.batches
+    gp_launch = small_runs["generic projection"]["launches"]
+    for name in PROJ_NAMES["GenericProjection"]:
+        err = check_pg_kernels(gp, "GenericProjection at the path's size",
+                               [name])
+        rows.append(_proj_row(
+            name, [mk() for mk, _ in gp.calls(name)],
+            gp_launch.get(name, 0), err[name], ms_fn,
+            proj_work(name, _k6_rows(gbase), gbase[-2], 6)))
+    # the padding: each Point3's 3 x 3 diagonal block and 9 x 3 camera-point
+    # blocks stored 9 x 9
+    n_pt = main["prob"].num_points
+    pad = {"store_mb": (s.B + 1) * 81 * 8 / 1e6,
+           "store_true_mb": (n_pt * 9 + N * 27 + (s.B - n_pt - N) * 81)
+           * 8 / 1e6,
+           "contributions_mb": N * (3 * 81 + 18) * 8 / 1e6,
+           "contributions_true_mb": N * (81 + 27 + 9 + 12) * 8 / 1e6}
+    log(f"sfm padding: {json.dumps(pad)}")
+    stages = sfm_stages(main, ms_fn)
+    log(f"sfm try by stage (ms): {json.dumps(stages)}")
+    del case
+    return rows, stages, pad
+
+
+def profile_sfm(main):
+    """Phase 6 of the graph-form BA: one traced run of the path: device busy
+    time and idle share, time by kernel; kernels 17, 18 and 7 in it, no
+    library factorization or triangular solve."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gtsam_torch.optimize import optimizers as O
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiler_settle()
+        t0 = time.time()
+        res, tries = lm_tries(main["graph"], main["vals"],
+                              O.LMParams(**SFM_LM), main["solver"], "cuda")
+        torch.cuda.synchronize()
+        traced_ms = (time.time() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and e.self_device_time_total > 0
+                   and SETTLE_KERNEL not in e.key), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    out = {"path": "sfm-dubrovnik-16-22106", "wall_ms": traced_ms,
+           "tries": tries, "device_busy_ms": busy if rows else None,
+           "idle_share": 1.0 - busy / traced_ms if rows else None,
+           "launches": sum(r[2] for r in rows),
+           "by_kernel_ms": [[k[:80], ms, c] for k, ms, c in rows[:24]]}
+    log(json.dumps({"profile": out}))
+    library = [k for k, _, _ in rows if any(
+        w in k.lower() for w in ("potrf", "trsm", "trsv"))]
+    have = {w: any(w in k for k, _, _ in rows) for w in (
+        "proj_linearize_kernel", "proj_error_kernel",
+        "sn_front_factor_kernel")}
+    log(f"  sfm: kernels in the trace {have}; library factorization or "
+        f"solve kernels {library}")
+    if library or not all(have.values()):
+        raise AssertionError(f"the traced sfm run: {library}, {have}")
+    return out
+
+
+def sfm_phases(ms_fn):
+    """The graph-form BA's phases 3-6: returns (its kernels-line rows, its
+    JSON summary)."""
+    small_runs = sfm_small_checks()
+    main = sfm_main_path()
+    rows, stages, pad = sfm_kernel_times(main, small_runs, ms_fn)
+    prof = profile_sfm(main)
+    summary = {
+        "shape": {"cameras": main["prob"].num_cameras,
+                  "points": main["prob"].num_points,
+                  "observations": main["prob"].num_observations},
+        "half_chi2": main["err"], "jax": SFM_REF,
+        "iterations": main["it"], "tries": main["tries"],
+        "history": main["hist"], "order": SFM_ORDER,
+        "plan_s": main["plan_s"], "wall_s": main["wall"],
+        "s_per_try": [w / main["tries"] for w in main["wall"]],
+        "peak_bytes": main["peak"], "schur": main["schur"],
+        "launches": {k: v for k, v in main["launches"].items() if v},
+        "stage_ms": stages, "padding": pad, "small_lms": small_runs,
+        "idle_share": prof["idle_share"],
+        "device_busy_ms": prof["device_busy_ms"]}
+    return rows, summary
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -5812,6 +6638,7 @@ def main(argv):
     quick = "--quick" in argv
     qr_only = "--qr" in argv
     linear_only = "--linear" in argv
+    sfm_only = "--sfm" in argv
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
     from gtsam_torch import LMParams, _build, _kernels, native
@@ -5837,6 +6664,19 @@ def main(argv):
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+
+    if sfm_only:
+        # the graph-form bundle adjustment alone: kernels 17 and 18, kernels
+        # 6-9 at d = 9, the path at the dubrovnik-16-22106 shape
+        sfm_rows, sfm_summary = sfm_phases(cuda_ms)
+        log(json.dumps({"sfm": sfm_summary}))
+        log(f"phases 1-6 (sfm) done at {time.time() - t_start:.1f} s")
+        log(json.dumps({"kernels": sfm_rows, "sfm_only": True}))
+        log(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     if linear_only:
         # the level-scheduled Cholesky, PCG and the subgraph preconditioner
@@ -6184,6 +7024,9 @@ def main(argv):
     log(json.dumps({"sphere_ncg": ncg_run | {"jax": SPHERE_NCG_REF}}))
     lin_rows, lin_stages = linear_kernel_times(lin, lin_worst)
     log(json.dumps({"sphere_linear": linear_summary(lin, lin_stages)}))
+    # the graph-form bundle adjustment: its checks, path, times and trace
+    sfm_rows, sfm_summary = sfm_phases(cuda_ms)
+    log(json.dumps({"sfm": sfm_summary}))
     r1 = sphere["runs"][0]
     log(json.dumps({"sphere": {
         "half_chi2": [r["err"] for r in sphere["runs"]],
@@ -6280,7 +7123,7 @@ def main(argv):
     log(f"phases 1-6 done at {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels + dense_rows + pg_kernels
                     + robust_rows + pose2_rows + [qr_row] + jac_rows
-                    + lin_rows}))
+                    + lin_rows + sfm_rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -51,12 +51,10 @@
 // of them) took 0.017 ms of device time on an H100 SXM, 256-row blocks
 // (2147: more waves, four times the atomics and partials) 0.022 ms
 // (scripts/port_kernel1_time.py).
-#include "ba_common.cuh"
+#include "projection.cuh"
 
 namespace {
 
-constexpr double kCheiralityEps = 1e-8;
-constexpr double kPenalty = 1e3;
 constexpr int kThreads = 128;         // bal_linearize_kernel: 4 warp tiles
 constexpr int kTileRows = gt::kWarp;  // LINEARIZE_TILE_ROWS in ba_kernels.py
 constexpr int kErrorThreads = 256;    // bal_error_kernel
@@ -64,7 +62,8 @@ constexpr int kErrorRows = 4;         // rows per thread
 constexpr int kErrorBlock = kErrorThreads * kErrorRows;  // ERROR_BLOCK
 
 // Residual (and, when Jc != nullptr, the 2x9 / 2x3 Jacobians, row-major)
-// of observation k.
+// of observation k: projection.cuh's Bundler projection, which kernel 17
+// shares.
 __device__ __forceinline__ void project(
     int k, const double* __restrict__ cam_R, const double* __restrict__ cam_t,
     const double* __restrict__ calib, const double* __restrict__ points,
@@ -72,62 +71,8 @@ __device__ __forceinline__ void project(
     const double* __restrict__ uv, double r[2], double* Jc, double* Jp) {
   const int c = obs_cam[k];
   const int p = obs_pt[k];
-  const double* R = cam_R + 9 * (int64_t)c;
-  const double d0 = points[3 * (int64_t)p + 0] - cam_t[3 * c + 0];
-  const double d1 = points[3 * (int64_t)p + 1] - cam_t[3 * c + 1];
-  const double d2 = points[3 * (int64_t)p + 2] - cam_t[3 * c + 2];
-  // p_c = R^T d
-  const double pc0 = R[0] * d0 + R[3] * d1 + R[6] * d2;
-  const double pc1 = R[1] * d0 + R[4] * d1 + R[7] * d2;
-  const double pc2 = R[2] * d0 + R[5] * d1 + R[8] * d2;
-  if (!(pc2 > kCheiralityEps)) {
-    r[0] = kPenalty;
-    r[1] = kPenalty;
-    if (Jc) {
-      for (int i = 0; i < 18; ++i) Jc[i] = 0.0;
-      for (int i = 0; i < 6; ++i) Jp[i] = 0.0;
-    }
-    return;
-  }
-  const double f = calib[3 * c + 0], k1 = calib[3 * c + 1], k2 = calib[3 * c + 2];
-  const double x = pc0 / pc2, y = pc1 / pc2;
-  const double r2 = x * x + y * y;
-  const double radial = 1.0 + k1 * r2 + k2 * r2 * r2;
-  const double g = f * radial;
-  r[0] = x * g - uv[2 * (int64_t)k + 0];
-  r[1] = y * g - uv[2 * (int64_t)k + 1];
-  if (!Jc) return;
-
-  // d pixel / d (x, y) = g I + 2 f (k1 + 2 k2 r2) [x y]^T [x y]
-  const double dg = 2.0 * f * (k1 + 2.0 * k2 * r2);
-  const double J00 = g + dg * x * x, J01 = dg * x * y, J11 = g + dg * y * y;
-  // Mm = d pixel / d p_c = Juv * [[1/z, 0, -x/z], [0, 1/z, -y/z]]
-  const double iz = 1.0 / pc2;
-  const double m[2][3] = {
-      {J00 * iz, J01 * iz, -(J00 * x + J01 * y) * iz},
-      {J01 * iz, J11 * iz, -(J01 * x + J11 * y) * iz}};
-  const double xy[2] = {x, y};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    double* row = Jc + 9 * i;
-    // rotation: Mm [p_c]x
-    row[0] = m[i][1] * pc2 - m[i][2] * pc1;
-    row[1] = m[i][2] * pc0 - m[i][0] * pc2;
-    row[2] = m[i][0] * pc1 - m[i][1] * pc0;
-    // translation: -Mm
-    row[3] = -m[i][0];
-    row[4] = -m[i][1];
-    row[5] = -m[i][2];
-    // calibration f, k1, k2
-    row[6] = radial * xy[i];
-    row[7] = f * r2 * xy[i];
-    row[8] = f * r2 * r2 * xy[i];
-    // point: Mm R^T
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      Jp[3 * i + j] = m[i][0] * R[3 * j + 0] + m[i][1] * R[3 * j + 1] +
-                      m[i][2] * R[3 * j + 2];
-  }
+  proj::project_bal(cam_R + 9 * (int64_t)c, cam_t + 3 * c, calib + 3 * c,
+                    points + 3 * (int64_t)p, uv + 2 * (int64_t)k, r, Jc, Jp);
 }
 
 template <typename T> struct Pair;

@@ -160,3 +160,40 @@ def from_quaternion(q):
         [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
         [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
         [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+
+
+def inverse(R):
+    return R.transpose(-1, -2)
+
+
+def compose(R1, R2):
+    return R1 @ R2
+
+
+def between(R1, R2):
+    """R1^-1 R2."""
+    return inverse(R1) @ R2
+
+
+def rotate(R, p):
+    """R p: (...,3,3), (...,3) -> (...,3)."""
+    return torch.einsum("...ij,...j->...i", R, p)
+
+
+def unrotate(R, p):
+    """R^T p."""
+    return torch.einsum("...ji,...j->...i", R, p)
+
+
+def retract(R, w):
+    """Right retraction R Exp(w) (Rot3's Expmap retract)."""
+    return R @ expmap(w)
+
+
+def local(R1, R2):
+    """Log(R1^-1 R2)."""
+    return logmap(between(R1, R2))
+
+
+def identity(dtype=torch.float64):
+    return torch.eye(3, dtype=dtype)

@@ -4,7 +4,8 @@ Counterpart of gtsam_tpu/graph/factors.py: all factors of one type form a
 FactorBatch (a key table and stacked measurements).  The generic
 linearization is `torch.func.vmap` of forward-mode `jacfwd` of the
 tangent-perturbed residual, the port of linearize_raw.  On the supernodal
-path, SE3 and SE2 between and prior batches take kernel 6 instead
+path, SE3 and SE2 between and prior batches take kernel 6 instead, and
+the BalCamera and SE3 projection batches kernel 17
 (linear/supernodal_kernels.py; `kernel_route`), robust or constrained ones
 too, when their loss is one of the nine of base/losses.py; every other
 batch (a loss of the user's own callables included) takes this path, which
@@ -24,8 +25,8 @@ import torch
 from ..base import losses
 from ..base.noise import NoiseModel
 from ..geometry import se2, se3
-from ..geometry.se3 import SE3
 from . import manifolds
+from .values import first_leaf, take_rows, tree_map
 
 # calls of linearize() on a batch without linearize_fn
 GENERIC_LINEARIZATIONS = [0]
@@ -41,7 +42,7 @@ class FactorBatch:
     keys: np.ndarray                 # (N, arity) int64, host-side
     rdim: int
     residual_fn: Callable            # (xs, meas) -> (rdim,)
-    measurements: Any                # tensor or SE3 with leading dim N
+    measurements: Any                # tensor or NamedTuple, leading dim N
     noise: NoiseModel
     # optional custom whitened linearization:
     # (xs_one, meas_one) -> (tuple of (rdim, d_i) jacobians, (rdim,) b)
@@ -68,10 +69,8 @@ class FactorBatch:
 
     def to(self, device) -> "FactorBatch":
         meas = self.measurements
-        if isinstance(meas, SE3):
-            meas = SE3(meas.R.to(device), meas.t.to(device))
-        elif meas is not None:
-            meas = meas.to(device)
+        if meas is not None:
+            meas = tree_map(lambda a: a.to(device), meas)
         return dataclasses.replace(self, measurements=meas,
                                    noise=self.noise.to(device))
 
@@ -156,9 +155,9 @@ def _prior_residual(tname):
 
 
 def _as_measurements(m):
-    if isinstance(m, SE3):
-        return SE3(torch.as_tensor(m.R, dtype=torch.float64),
-                   torch.as_tensor(m.t, dtype=torch.float64))
+    """float64 tensors of a measurement array or NamedTuple of arrays."""
+    if isinstance(m, tuple):
+        return tree_map(lambda a: torch.as_tensor(a, dtype=torch.float64), m)
     return torch.as_tensor(np.asarray(m), dtype=torch.float64)
 
 
@@ -188,9 +187,7 @@ def prior_factors(tname: str, keys, measurements, noise: NoiseModel,
 
 
 def _take(meas, rows):
-    if isinstance(meas, SE3):
-        return SE3(meas.R[rows], meas.t[rows])
-    return None if meas is None else meas[rows]
+    return None if meas is None else take_rows(meas, rows)
 
 
 def slice_batch(batch: FactorBatch, rows) -> FactorBatch:
@@ -203,7 +200,7 @@ def slice_batch(batch: FactorBatch, rows) -> FactorBatch:
         data = data[torch.as_tensor(rows, device=data.device)]
     meas = batch.measurements
     if meas is not None:
-        dev = (meas.t if isinstance(meas, SE3) else meas).device
+        dev = first_leaf(meas).device
         meas = _take(meas, torch.as_tensor(rows, device=dev))
     return dataclasses.replace(
         batch, keys=batch.keys[rows], measurements=meas,
@@ -226,16 +223,27 @@ def custom_factors(name: str, var_types, keys, residual_fn, rdim,
 # the groups of kernel 6's variants: SE3 (csrc/pg_between.cu) and SE2
 # (csrc/pg_pose2.cu)
 KERNEL_GROUPS = ("SE3", "SE2")
+# the groups of kernel 17's variants (csrc/proj_factor.cu): a residual
+# function with a `projection_group` attribute names its group, which
+# fixes its computation: "BalCamera" (sfm/bal.py::_projection_residual,
+# BalCamera + Point3) and "GenericProjection"
+# (slam/factors.py::GenericProjectionResidual, SE3 + Point3 with a fixed
+# Cal3_S2 and optional extrinsic, which the residual object carries)
+PROJECTION_GROUPS = ("BalCamera", "GenericProjection")
 
 
 def kernel_route(batch: FactorBatch):
     """(group, "between" or "prior") for an SE3 or SE2 batch that kernel 6
-    linearizes (no custom linearize_fn, no loss but one of the nine of
-    base/losses.py), else None."""
+    linearizes, (group, "projection") for a projection batch that kernel
+    17 linearizes (no custom linearize_fn, no loss but one of the nine of
+    base/losses.py, both), else None."""
     if batch.linearize_fn is not None:
         return None
     if losses.kernel_code(batch.noise.loss) is None:
         return None
+    group = getattr(batch.residual_fn, "projection_group", None)
+    if group in PROJECTION_GROUPS:
+        return group, "projection"
     for group in KERNEL_GROUPS:
         if batch.residual_fn is _between_residual(group):
             return group, "between"

@@ -6,7 +6,8 @@ graph structure against a Values' key table and moves measurements, noise
 and row indices to the values' device once; the bound graph's error,
 linearization and dense Gauss-Newton system are functions of the arrays.
 The error of an SE3 or SE2 between or prior batch is kernel 6's (pg_error,
-pg2_error), on every device, robust and constrained ones included
+pg2_error), of a projection batch kernel 18's (proj_error, proj3_error),
+on every device, robust and constrained ones included
 (factors.kernel_route); other batches use the generic residuals.  The hard
 (sigma == 0) rows of constrained noise models are also exact equality
 constraints C dx = c (constraint_system), which the solvers keep apart
@@ -20,9 +21,8 @@ import numpy as np
 import torch
 
 from ..base import losses
-from ..geometry.se3 import SE3
 from . import factors as factors_mod
-from .values import Layout, Values, take_rows
+from .values import Layout, Values, first_leaf, take_rows
 
 
 class FactorGraph:
@@ -59,8 +59,7 @@ class _BatchStructure:
 
 
 def _device_of(values: Values):
-    a = next(iter(values.arrays.values()))
-    return (a.t if isinstance(a, SE3) else a).device
+    return first_leaf(next(iter(values.arrays.values()))).device
 
 
 class BoundGraph:
@@ -141,8 +140,9 @@ class BoundGraph:
         into H (N, npair, d*d), the (s1, s2) block transposed where
         flips[pair] says so, and sign A_s^T b into gv (N, arity, d), zero
         outside each block's leading dims x dims.  Kernel 6 for the SE3
-        and SE2 batches it routes (factors.kernel_route), the generic
-        linearization for the others."""
+        and SE2 batches it routes, kernel 17 for the projection batches
+        (factors.kernel_route), the generic linearization for the
+        others."""
         from ..linear import supernodal_kernels as sk
         b, st = self.graph.batches[bi], self.structures[bi]
         N, arity = b.num_factors, b.arity

@@ -2,7 +2,8 @@
 
 Counterpart of gtsam_tpu/graph/values.py (reference gtsam/nonlinear/Values.h):
 one stacked representation per manifold type (SE3 as an SE3 of (N, 3, 3)
-and (N, 3) tensors, a vector type as an (N, d) tensor), all on one device;
+and (N, 3) tensors, a camera as a NamedTuple of a stacked SE3 and its
+(N, k) calibration, a vector type as an (N, d) tensor), all on one device;
 keys are host-side metadata.  The tangent layout is canonical: types in
 sorted order, rows in order.
 """
@@ -38,10 +39,24 @@ class Layout:
         return self._index[key]
 
 
+def tree_map(fn, a):
+    """`fn` applied to every tensor of one stacked element: a tensor, or a
+    NamedTuple of them (SE3; a camera's pose and calibration), rebuilt with
+    its own type."""
+    if isinstance(a, tuple):
+        return type(a)(*(tree_map(fn, x) for x in a))
+    return fn(a)
+
+
+def first_leaf(a):
+    """The first tensor of a stacked element (its device and batch size)."""
+    return first_leaf(a[0]) if isinstance(a, tuple) else a
+
+
 def map_arrays(fn, arrays):
-    """`fn` applied to every tensor of an arrays dict (SE3 fields too)."""
-    return {t: SE3(fn(a.R), fn(a.t)) if isinstance(a, SE3) else fn(a)
-            for t, a in arrays.items()}
+    """`fn` applied to every tensor of an arrays dict (SE3 and camera
+    fields too)."""
+    return {t: tree_map(fn, a) for t, a in arrays.items()}
 
 
 def arrays_to(arrays, device):
@@ -49,7 +64,32 @@ def arrays_to(arrays, device):
 
 
 def take_rows(a, rows):
-    return SE3(a.R[rows], a.t[rows]) if isinstance(a, SE3) else a[rows]
+    return tree_map(lambda x: x[rows], a)
+
+
+# the port's element type of each manifold whose element is a NamedTuple
+# (from_numpy rebuilds them from any tuples of arrays of the same layout,
+# the JAX package's included)
+def _element_types():
+    from ..geometry.cameras import BalCamera, PinholeCameraS2
+    return {"SE3": SE3, "BalCamera": (BalCamera, SE3),
+            "PinholeCameraS2": (PinholeCameraS2, SE3)}
+
+
+def element_from_numpy(tname, a, device="cpu"):
+    """One stacked element of manifold `tname` from numpy arrays (or
+    anything np.asarray takes: a tuple of arrays in the element's field
+    order, nested for a camera's pose), as float64 tensors on `device`."""
+    def f(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float64,
+                               device=device)
+    kind = _element_types().get(tname)
+    if kind is None:
+        return f(a)
+    if kind is SE3:
+        return SE3(f(a[0]), f(a[1]))
+    cls, pose = kind
+    return cls(pose(f(a[0][0]), f(a[0][1])), f(a[1]))
 
 
 class Values:
@@ -73,14 +113,16 @@ class Values:
         for key, tname, val in entries:
             per_type.setdefault(tname, []).append(val)
             keys.setdefault(tname, []).append(key)
-        arrays = {}
-        for t, vals in per_type.items():
-            if isinstance(vals[0], SE3):
-                arrays[t] = SE3(torch.stack([torch.as_tensor(v.R) for v in vals]),
-                                torch.stack([torch.as_tensor(v.t) for v in vals]))
-            else:
-                arrays[t] = torch.stack([torch.as_tensor(v) for v in vals])
+        arrays = {t: _stack(vals) for t, vals in per_type.items()}
         return Values(arrays, {t: np.asarray(k) for t, k in keys.items()})
+
+    @staticmethod
+    def from_numpy(arrays, keys, device="cpu") -> "Values":
+        """Values of numpy arrays (arrays: type -> one stacked element as
+        element_from_numpy takes it, e.g. a JAX package's BalCamera of
+        numpy-convertible leaves), as float64 tensors on `device`."""
+        return Values({t: element_from_numpy(t, a, device)
+                       for t, a in arrays.items()}, keys)
 
     def replace_arrays(self, arrays) -> "Values":
         out = Values.__new__(Values)
@@ -131,6 +173,14 @@ class Values:
         """delta: flat (total_dim,) tangent vector in canonical layout."""
         return self.replace_arrays(retract_arrays(self.arrays, delta,
                                                   self.layout()))
+
+
+def _stack(vals):
+    """One stacked element of a list of single elements."""
+    if isinstance(vals[0], tuple):
+        return type(vals[0])(*(_stack([v[i] for v in vals])
+                               for i in range(len(vals[0]))))
+    return torch.stack([torch.as_tensor(v) for v in vals])
 
 
 def vmapped_retract(m: manifolds.ManifoldType):

@@ -17,6 +17,7 @@ import os
 import numpy as np
 import torch
 
+from ..base import keys as keys_mod
 from ..base import noise as noise_mod
 from ..geometry.se3 import SE3
 from ..graph import factors as factors_mod
@@ -82,11 +83,13 @@ def load_2d(path: str, noise_format: str = "auto"):
     poses, on the CPU); reference load2D (dataset.cpp:152).  EDGE_SE2 rows
     store information (g2o) under noise_format "auto"; the other edge tags
     are auto-detected (_info2d_from_vector).  Poses without a vertex
-    compose the odometry (_initials_2d).  BR and LANDMARK rows raise
-    NotImplementedError: their factors (bearing_range_2d_factors) are not
-    ported yet."""
+    compose the odometry (_initials_2d).  BR and LANDMARK rows (bearing-
+    range sightings of landmark l_j, dataset.cpp:463-486) become one
+    bearing_range_2d_factors batch, each landmark's initial Point2 from its
+    first sighting of a pose with an initial value."""
     poses = {}
     e_i, e_j, e_meas, e_info = [], [], [], []
+    br_i, br_l, br_b, br_r, br_sig = [], [], [], [], []
     with open(path) as f:
         for line in f:
             tok = line.split()
@@ -106,20 +109,47 @@ def load_2d(path: str, noise_format: str = "auto"):
                 e_info.append(_info2d_from_vector(
                     [float(t) for t in tok[6:12]], fmt))
             elif tag in ("BR", "LANDMARK"):
-                raise NotImplementedError(
-                    f"load_2d: {tag} rows need sam/factors.py::"
-                    "bearing_range_2d_factors, which is not ported yet")
+                i, lm = int(tok[1]), int(tok[2])
+                if tag == "BR":
+                    b, r = float(tok[3]), float(tok[4])
+                    bs, rs = float(tok[5]), float(tok[6])
+                else:
+                    lmx, lmy = float(tok[3]), float(tok[4])
+                    v1, v3 = float(tok[5]), float(tok[7])
+                    b = np.arctan2(lmy, lmx)
+                    r = np.hypot(lmx, lmy)
+                    if abs(v1 - v3) < 1e-4:
+                        bs, rs = np.sqrt(v1 / 10.0), np.sqrt(v1)
+                    else:
+                        bs, rs = 1.0, 1.0
+                br_i.append(i)
+                br_l.append(keys_mod.symbol("l", lm))
+                br_b.append(b)
+                br_r.append(r)
+                br_sig.append([bs, rs])
     graph = FactorGraph()
     if e_i:
         graph.add(factors_mod.between_factors(
             "SE2", np.array(e_i), np.array(e_j), np.asarray(e_meas),
             noise_mod.information(np.asarray(e_info))))
+    if br_i:
+        from ..sam.factors import bearing_range_2d_factors
+        graph.add(bearing_range_2d_factors(
+            br_i, br_l, br_b, br_r, noise_mod.sigmas(np.asarray(br_sig))))
     initial = _initials_2d(poses, e_i, e_j, e_meas)
-    keys = sorted(initial)
-    vals = Values({"SE2": torch.as_tensor(
-        np.stack([initial[k] for k in keys]), dtype=torch.float64)},
-        {"SE2": np.asarray(keys)})
-    return graph, vals
+    entries = [(k, "SE2", torch.as_tensor(initial[k], dtype=torch.float64))
+               for k in sorted(initial)]
+    # landmark initials from the first sighting
+    seen = {}
+    for i, lk, b, r in zip(br_i, br_l, br_b, br_r):
+        if lk in seen or i not in initial:
+            continue
+        px, py, th = initial[i]
+        seen[lk] = np.array([px + r * np.cos(th + b),
+                             py + r * np.sin(th + b)])
+    entries += [(lk, "Point2", torch.as_tensor(p, dtype=torch.float64))
+                for lk, p in sorted(seen.items())]
+    return graph, Values.from_entries(entries)
 
 
 def _initials_2d(poses, e_i, e_j, e_meas):

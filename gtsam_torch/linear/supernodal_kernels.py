@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written CUDA kernels of the pose-graph path.
+"""Wrappers of the hand-written CUDA kernels of the supernodal paths.
 
 Kernels 6-9 (csrc/pg_between.cu, pg_pose2.cu, sn_factor.cu, sn_solve.cu,
 sn_matvec.cu) port the device routines of the JAX package's pose-graph LM:
@@ -7,7 +7,10 @@ assembly (gtsam_tpu/graph/factors.py, linear/supernodal.py::system), the
 level-batched supernodal factorization (supernodal.py::factorize), the
 forward and backward substitution (_solve_padded: one launch per direction
 over all levels, on the inverses of the fronts' diagonal tiles that the
-factorization leaves) and the refinement matvec (matvec).  Every tensor is
+factorization leaves) and the refinement matvec (matvec).  Kernels 17 and
+18 (csrc/proj_factor.cu) linearize and evaluate the projection factors of
+the graph-form bundle adjustment and of SE3 + Point3 SLAM into the same
+buffers.  Every tensor is
 float64 (int32 indices, bool masks), row-major and contiguous, in the
 layout of
 gtsam_torch/linear/supernodal.py: the block store is (B+1, d*d) with a
@@ -93,6 +96,24 @@ KERNELS = _kernels.table(
     Kernel("sn_front_qr", "sn_qr", "sn_front_qr",
            "gtsam_tpu/linear/supernodal.py:800",
            [INT] * 8 + [P] * 18 + [DBL, DBL] + [P] * 7),
+    Kernel("proj_linearize", "proj_factor", "proj_linearize",
+           "gtsam_tpu/graph/factors.py:147",
+           [INT, INT] + [P] * 6 + [INT, INT, P, DBL, INT, DBL, P, P, P]),
+    Kernel("proj_jacobians", "proj_factor", "proj_jacobians",
+           "gtsam_tpu/linear/supernodal.py:769",
+           [INT] * 3 + [P] * 6 + [INT, INT, P, INT, DBL, P]),
+    Kernel("proj_error", "proj_factor", "proj_error",
+           "gtsam_tpu/graph/graph.py:108",
+           [INT] + [P] * 6 + [INT, INT, P, DBL, INT, DBL, DBL, P, P, P]),
+    Kernel("proj3_linearize", "proj_factor", "proj3_linearize",
+           "gtsam_tpu/graph/factors.py:147",
+           [INT, INT] + [P] * 7 + [INT, INT, P, DBL, INT, DBL, P, P, P]),
+    Kernel("proj3_jacobians", "proj_factor", "proj3_jacobians",
+           "gtsam_tpu/linear/supernodal.py:769",
+           [INT] * 3 + [P] * 7 + [INT, INT, P, INT, DBL, P]),
+    Kernel("proj3_error", "proj_factor", "proj3_error",
+           "gtsam_tpu/graph/graph.py:108",
+           [INT] + [P] * 7 + [INT, INT, P, DBL, INT, DBL, DBL, P, P, P]),
 )
 
 
@@ -425,7 +446,9 @@ def _error_launch(name, dev, N, arity, args, code, stride, nptr, sign, loss,
                   param, mu):
     ticket, part = _kernels.sum_scratch(dev, max(1, -(-N // ERROR_BLOCK)))
     out = torch.empty((), dtype=F64, device=dev)
-    KERNELS[name].launch(dev, N, arity, *map(ptr, args), code, stride, nptr,
+    lead = (N,) if arity is None else (N, arity)
+    KERNELS[name].launch(dev, *lead, *(0 if a is None else ptr(a)
+                                       for a in args), code, stride, nptr,
                          float(sign), int(loss), float(param), float(mu),
                          ptr(part), ptr(ticket), ptr(out))
     return out
@@ -463,19 +486,356 @@ def pg2_error(x, rows, Z, kind, noise, sign, loss=0, param=0.0, mu=1000.0):
                          nptr, sign, loss, param, mu)
 
 
-# kernel 6's wrappers by group, and their leading arguments for a batch
-LINEARIZE = {"SE3": pg_linearize, "SE2": pg2_linearize}
-JACOBIANS = {"SE3": pg_jacobians, "SE2": pg2_jacobians}
-ERROR = {"SE3": pg_error, "SE2": pg2_error}
+# -- kernels 17 and 18: projection factors (csrc/proj_factor.cu) -------------
+#
+# Two variants: the BalCamera group (BalCamera + Point3, the graph form's
+# ProjectionBal batch: R, t, calib (nc, 3) of the cameras) and the
+# GenericProjection group (SE3 + Point3 with a fixed Cal3_S2 K (5,) and an
+# optional body-to-sensor extrinsic ext (12,): Rb row-major, then tb).
+# Each has a Gram mode (proj*_linearize: H (N, 3, d*d), gv (N, 2, d)), a
+# Jacobian mode (proj*_jacobians: the pool's rows) and an error
+# (proj*_error).  The residual is projection - uv, the constant
+# CHEIRALITY_PENALTY with zero Jacobians at z <= CHEIRALITY_EPS.
+
+CHEIRALITY_EPS = 1e-8
+CHEIRALITY_PENALTY = 1e3
+# factors of a CTA of proj_linearize_kernel, a lane each (kFactors in
+# csrc/proj_factor.cu)
+PROJ_FACTORS = 32
+
+
+def _zero_invalid(valid, *ts):
+    return tuple(torch.where(valid.view((-1,) + (1,) * (t.dim() - 1)), t,
+                             torch.zeros_like(t)) for t in ts)
+
+
+def _proj_bal_plain(R, t, calib, pts, rows):
+    """r + uv (the projection, before the measurement), the 2x9 and 2x3
+    Jacobians (N, 2, 9), (N, 2, 3) and the valid mask of BalCamera
+    factors, in csrc/projection.cuh's formulas (project_bal)."""
+    c, p = rows[:, 0].long(), rows[:, 1].long()
+    Rc = R[c]
+    pc = torch.einsum("nji,nj->ni", Rc, pts[p] - t[c])
+    valid = pc[:, 2] > CHEIRALITY_EPS
+    z = torch.where(valid, pc[:, 2], torch.ones_like(pc[:, 2]))
+    f, k1, k2 = calib[c, 0], calib[c, 1], calib[c, 2]
+    x, y = pc[:, 0] / z, pc[:, 1] / z
+    r2 = x * x + y * y
+    radial = 1.0 + k1 * r2 + k2 * r2 * r2
+    g = f * radial
+    proj = torch.stack([x * g, y * g], -1)
+    dg = 2.0 * f * (k1 + 2.0 * k2 * r2)
+    J00, J01, J11 = g + dg * x * x, dg * x * y, g + dg * y * y
+    iz = 1.0 / z
+    m = torch.stack([
+        torch.stack([J00 * iz, J01 * iz, -(J00 * x + J01 * y) * iz], -1),
+        torch.stack([J01 * iz, J11 * iz, -(J01 * x + J11 * y) * iz], -1)], 1)
+    xy = torch.stack([x, y], -1)
+    Jc = torch.cat([_rot_cols(m, pc), -m, torch.stack(
+        [radial[:, None] * xy, (f * r2)[:, None] * xy,
+         (f * r2 * r2)[:, None] * xy], -1)], -1)
+    Jp = m @ Rc.transpose(-1, -2)
+    return proj, Jc, Jp, valid
+
+
+def _rot_cols(m, p):
+    """m [p]x (N, 2, 3): the rotation columns of a projection Jacobian."""
+    p = p[:, None, :]
+    return torch.stack([m[..., 1] * p[..., 2] - m[..., 2] * p[..., 1],
+                        m[..., 2] * p[..., 0] - m[..., 0] * p[..., 2],
+                        m[..., 0] * p[..., 1] - m[..., 1] * p[..., 0]], -1)
+
+
+def _proj_pinhole_plain(R, t, pts, rows, K, ext):
+    """_proj_bal_plain of GenericProjection factors (project_pinhole): the
+    2x6 pose and 2x3 point Jacobians."""
+    c, p = rows[:, 0].long(), rows[:, 1].long()
+    Rc = R[c]
+    pb = torch.einsum("nji,nj->ni", Rc, pts[p] - t[c])
+    pc = pb
+    if ext is not None:
+        Rb, tb = ext[:9].view(3, 3), ext[9:]
+        pc = torch.einsum("ji,nj->ni", Rb, pb - tb)
+    valid = pc[:, 2] > CHEIRALITY_EPS
+    z = torch.where(valid, pc[:, 2], torch.ones_like(pc[:, 2]))
+    fx, fy, s, u0, v0 = (K[i] for i in range(5))
+    x, y = pc[:, 0] / z, pc[:, 1] / z
+    proj = torch.stack([fx * x + s * y + u0, fy * y + v0], -1)
+    iz = 1.0 / z
+    zero = torch.zeros_like(iz)
+    n = torch.stack([
+        torch.stack([fx * iz, s * iz, -(fx * x + s * y) * iz], -1),
+        torch.stack([zero, fy * iz, -(fy * y) * iz], -1)], 1)
+    if ext is not None:
+        n = n @ ext[:9].view(3, 3).T
+    Jc = torch.cat([_rot_cols(n, pb), -n], -1)
+    Jp = n @ Rc.transpose(-1, -2)
+    return proj, Jc, Jp, valid
+
+
+def _proj_plain(cams, pts, rows, uv):
+    """(r, (Jc, Jp)) of either variant: cams (R, t, calib) or (R, t, K,
+    ext)."""
+    proj, Jc, Jp, valid = (_proj_bal_plain(*cams[:3], pts, rows)
+                           if len(cams) == 3 else
+                           _proj_pinhole_plain(cams[0], cams[1], pts, rows,
+                                               *cams[2:]))
+    r = torch.where(valid[:, None], proj - uv,
+                    torch.full_like(proj, CHEIRALITY_PENALTY))
+    return r, _zero_invalid(valid, Jc, Jp)
+
+
+def _proj_jacobians_plain(cams, pts, rows, uv, kind, noise, loss, param,
+                          out):
+    r, J = _proj_plain(cams, pts, rows, uv)
+    A, b = _whitened(r, J, kind, noise, loss, param)
+    if out is None:
+        return A, b
+    d = out.shape[-1]
+    for s, As in enumerate(A):
+        out[:, s, :2] = torch.nn.functional.pad(As, (0, d - As.shape[-1]))
+    return out
+
+
+def _proj_linearize_plain(cams, pts, rows, uv, kind, noise, sign, flip, H,
+                          gv, loss, param):
+    (Ac, Ap), b = _proj_jacobians_plain(cams, pts, rows, uv, kind, noise,
+                                        loss, param, None)
+    N, _, d = gv.shape
+    kc = Ac.shape[-1]
+    pad = torch.nn.functional.pad
+    Hv = H.view(N, 3, d, d)
+    Hv[:, 0] = pad(sign * torch.einsum("nri,nrj->nij", Ac, Ac),
+                   (0, d - kc, 0, d - kc))
+    cp = sign * torch.einsum("nri,nrj->nij", Ac, Ap)
+    Hv[:, 1] = torch.where(flip[:, None, None],
+                           pad(cp.transpose(1, 2), (0, d - kc, 0, d - 3)),
+                           pad(cp, (0, d - 3, 0, d - kc)))
+    Hv[:, 2] = pad(sign * torch.einsum("nri,nrj->nij", Ap, Ap),
+                   (0, d - 3, 0, d - 3))
+    gv[:, 0] = pad(sign * torch.einsum("nrd,nr->nd", Ac, b), (0, d - kc))
+    gv[:, 1] = pad(sign * torch.einsum("nrd,nr->nd", Ap, b), (0, d - 3))
+
+
+def proj_linearize_plain(R, t, calib, pts, rows, uv, kind, noise, sign,
+                         flip, H, gv, loss=0, param=0.0):
+    _proj_linearize_plain((R, t, calib), pts, rows, uv, kind, noise, sign,
+                          flip, H, gv, loss, param)
+
+
+def proj3_linearize_plain(R, t, pts, rows, uv, K, ext, kind, noise, sign,
+                          flip, H, gv, loss=0, param=0.0):
+    _proj_linearize_plain((R, t, K, ext), pts, rows, uv, kind, noise, sign,
+                          flip, H, gv, loss, param)
+
+
+def proj_jacobians_plain(R, t, calib, pts, rows, uv, kind, noise, loss=0,
+                         param=0.0, out=None):
+    """Whitened Jacobians (A_cam (N, 2, 9), A_pt (N, 2, 3)) and b = -R_w r
+    (N, 2) of BalCamera projection factors; with `out` (N, 2, rmax, d) the
+    rows written into it as proj_jacobians writes them, and `out`
+    returned."""
+    return _proj_jacobians_plain((R, t, calib), pts, rows, uv, kind, noise,
+                                 loss, param, out)
+
+
+def proj3_jacobians_plain(R, t, pts, rows, uv, K, ext, kind, noise, loss=0,
+                          param=0.0, out=None):
+    """proj_jacobians_plain of GenericProjection factors (A_pose (N, 2,
+    6))."""
+    return _proj_jacobians_plain((R, t, K, ext), pts, rows, uv, kind, noise,
+                                 loss, param, out)
+
+
+def proj_error_plain(R, t, calib, pts, rows, uv, kind, noise, sign, loss=0,
+                     param=0.0, mu=1000.0):
+    return _error_plain(_proj_plain((R, t, calib), pts, rows, uv)[0], kind,
+                        noise, sign, loss, param, mu)
+
+
+def proj3_error_plain(R, t, pts, rows, uv, K, ext, kind, noise, sign,
+                      loss=0, param=0.0, mu=1000.0):
+    return _error_plain(_proj_plain((R, t, K, ext), pts, rows, uv)[0], kind,
+                        noise, sign, loss, param, mu)
+
+
+def _proj_specs(name, cams, pts, rows, uv, kind, noise, loss, *extra):
+    """Checks of kernel 17 and 18's arguments (cams: (R, t, calib) or (R,
+    t, K, ext)); returns _factor_specs' (device, code, stride, pointer)."""
+    if rows.dim() != 2 or rows.shape[1] != 2:
+        raise ValueError(f"{name}: rows must be (N, 2), got "
+                         f"{tuple(rows.shape)}")
+    nc, N = cams[0].shape[0], rows.shape[0]
+    specs = [("R", cams[0], F64, (nc, 3, 3)), ("t", cams[1], F64, (nc, 3))]
+    if len(cams) == 3:
+        specs.append(("calib", cams[2], F64, (nc, 3)))
+    specs += [("pts", pts, F64, (pts.shape[0], 3)),
+              ("rows", rows, I32, (N, 2)), ("uv", uv, F64, (N, 2))]
+    if len(cams) == 4:
+        specs.append(("K", cams[2], F64, (5,)))
+        if cams[3] is not None:
+            specs.append(("ext", cams[3], F64, (12,)))
+    return _factor_specs(name, rows, kind, noise, loss, 2, *specs, *extra)
+
+
+def _proj_ptrs(cams, pts, rows, uv):
+    """The leading pointers of a C entry point of kernel 17 or 18: (R, t,
+    calib, pts, rows, uv), or (R, t, pts, rows, uv, K, ext) with ext 0 when
+    None."""
+    cp = tuple(0 if c is None else ptr(c) for c in cams)
+    mid = (ptr(pts), ptr(rows), ptr(uv))
+    return cp + mid if len(cams) == 3 else cp[:2] + mid + cp[2:]
+
+
+def _proj_linearize(name, cams, pts, rows, uv, kind, noise, sign, flip, H,
+                    gv, loss, param):
+    N = rows.shape[0]
+    d = gv.shape[-1]
+    dev, code, stride, nptr = _proj_specs(
+        name, cams, pts, rows, uv, kind, noise, loss,
+        *_out_specs(N, 2, d, flip, H, gv))
+    kc = 9 if len(cams) == 3 else 6
+    if not kc <= d <= 12:
+        raise ValueError(f"{name}: block width {d} outside [{kc}, 12]")
+    KERNELS[name].launch(dev, N, d, *_proj_ptrs(cams, pts, rows, uv), code,
+                         stride, nptr, float(sign), int(loss), float(param),
+                         ptr(flip), ptr(H), ptr(gv))
+
+
+def proj_linearize(R, t, calib, pts, rows, uv, kind, noise, sign, flip, H,
+                   gv, loss=0, param=0.0):
+    """Kernel 17, Gram mode: for each BalCamera projection factor n (rows
+    (N, 2) int32: its camera's and its point's rows), writes sign A_c^T
+    A_c, sign A_c^T A_p (transposed where flip[n]) and sign A_p^T A_p into
+    H[n] ((N, 3, d*d), each zero outside its leading 9x9, 9x3 or 3x3) and
+    sign A_c^T b, sign A_p^T b into gv[n] ((N, 2, d)); R, t, calib: the
+    cameras (nc, 3, 3), (nc, 3), (nc, 3); pts (np, 3); uv (N, 2) the
+    measurements; noise as pg_linearize's at 2 rows; 9 <= d <= 12.  On the
+    card one launch of one-warp CTAs, PROJ_FACTORS factors each, a lane a
+    factor, that copy their spans of H and gv out in order."""
+    args = (R, t, calib, pts, rows, uv)
+    if on_cpu(*args, *_tensors(noise), flip, H, gv):
+        return proj_linearize_plain(*args, kind, noise, sign, flip, H, gv,
+                                    loss, param)
+    _proj_linearize("proj_linearize", (R, t, calib), pts, rows, uv, kind,
+                    noise, sign, flip, H, gv, loss, param)
+
+
+def proj3_linearize(R, t, pts, rows, uv, K, ext, kind, noise, sign, flip, H,
+                    gv, loss=0, param=0.0):
+    """Kernel 17's GenericProjection variant, Gram mode: proj_linearize for
+    SE3 + Point3 factors with the fixed K (5,) and extrinsic ext (12,) or
+    None; 6 <= d <= 12."""
+    args = (R, t, pts, rows, uv, K)
+    if on_cpu(*args, *_tensors(ext, noise), flip, H, gv):
+        return proj3_linearize_plain(R, t, pts, rows, uv, K, ext, kind,
+                                     noise, sign, flip, H, gv, loss, param)
+    _proj_linearize("proj3_linearize", (R, t, K, ext), pts, rows, uv, kind,
+                    noise, sign, flip, H, gv, loss, param)
+
+
+def _proj_jacobians(name, cams, pts, rows, uv, kind, noise, loss, param,
+                    out):
+    N = rows.shape[0]
+    dev, code, stride, nptr = _proj_specs(
+        name, cams, pts, rows, uv, kind, noise, loss,
+        ("out", out, F64, (N, 2) + tuple(out.shape[2:])))
+    _, _, rmax, d = out.shape
+    kc = 9 if len(cams) == 3 else 6
+    if not (kc <= d <= 12 and rmax >= 2):
+        raise ValueError(f"{name}: rows of {rmax} x {d} hold no 2 x {kc} "
+                         "Jacobian")
+    KERNELS[name].launch(dev, N, d, rmax, *_proj_ptrs(cams, pts, rows, uv),
+                         code, stride, nptr, int(loss), float(param),
+                         ptr(out))
+    return out
+
+
+def proj_jacobians(R, t, calib, pts, rows, uv, kind, noise, loss, param,
+                   out):
+    """Kernel 17, Jacobian mode: each BalCamera projection factor's
+    whitened (under a loss sqrt(w)-scaled) rows A_c (2 x 9) and A_p (2 x
+    3) into out[n, 0, :2] and out[n, 1, :2] ((N, 2, rmax, d), zero past
+    the slot's width; rows 2..rmax not written); no sign.  On the card one
+    launch of proj_linearize's kernel in its Jacobian mode."""
+    args = (R, t, calib, pts, rows, uv)
+    if on_cpu(*args, *_tensors(noise), out):
+        return proj_jacobians_plain(*args, kind, noise, loss, param, out)
+    return _proj_jacobians("proj_jacobians", (R, t, calib), pts, rows, uv,
+                           kind, noise, loss, param, out)
+
+
+def proj3_jacobians(R, t, pts, rows, uv, K, ext, kind, noise, loss, param,
+                    out):
+    """Kernel 17's GenericProjection variant, Jacobian mode (A_pose 2 x
+    6)."""
+    args = (R, t, pts, rows, uv, K)
+    if on_cpu(*args, *_tensors(ext, noise), out):
+        return proj3_jacobians_plain(R, t, pts, rows, uv, K, ext, kind, noise,
+                                     loss, param, out)
+    return _proj_jacobians("proj3_jacobians", (R, t, K, ext), pts, rows, uv,
+                           kind, noise, loss, param, out)
+
+
+def proj_error(R, t, calib, pts, rows, uv, kind, noise, sign, loss=0,
+               param=0.0, mu=1000.0):
+    """Kernel 18: sign * 0.5 * sum ||R_w r||^2 over the BalCamera
+    projection factors (a loss: sign * sum rho(||R_w r||); constrained
+    noise: plus sign * 0.5 mu r^2 on the hard rows), a 0-d tensor.  On the
+    card pg_error's design: ceil(N / ERROR_BLOCK) one-warp CTAs, a lane a
+    factor, the last CTA summing the partials in index order."""
+    args = (R, t, calib, pts, rows, uv)
+    if on_cpu(*args, *_tensors(noise)):
+        return proj_error_plain(*args, kind, noise, sign, loss, param, mu)
+    dev, code, stride, nptr = _proj_specs("proj_error", (R, t, calib), pts,
+                                          rows, uv, kind, noise, loss)
+    return _error_launch("proj_error", dev, rows.shape[0], None, args, code,
+                         stride, nptr, sign, loss, param, mu)
+
+
+def proj3_error(R, t, pts, rows, uv, K, ext, kind, noise, sign, loss=0,
+                param=0.0, mu=1000.0):
+    """Kernel 18's GenericProjection variant."""
+    args = (R, t, pts, rows, uv, K)
+    if on_cpu(*args, *_tensors(ext, noise)):
+        return proj3_error_plain(R, t, pts, rows, uv, K, ext, kind, noise,
+                                 sign, loss, param, mu)
+    dev, code, stride, nptr = _proj_specs("proj3_error", (R, t, K, ext), pts,
+                                          rows, uv, kind, noise, loss)
+    lead = (R, t, pts, rows, uv, K, ext)
+    return _error_launch("proj3_error", dev, rows.shape[0], None, lead, code,
+                         stride, nptr, sign, loss, param, mu)
+
+
+# kernel 6's and kernel 17's wrappers by group, and their leading arguments
+# for a batch
+LINEARIZE = {"SE3": pg_linearize, "SE2": pg2_linearize,
+             "BalCamera": proj_linearize,
+             "GenericProjection": proj3_linearize}
+JACOBIANS = {"SE3": pg_jacobians, "SE2": pg2_jacobians,
+             "BalCamera": proj_jacobians,
+             "GenericProjection": proj3_jacobians}
+ERROR = {"SE3": pg_error, "SE2": pg2_error, "BalCamera": proj_error,
+         "GenericProjection": proj3_error}
 
 
 def group_args(group, arrays, rows, batch):
-    """Kernel 6's leading arguments for a between or prior batch of
-    `group`: the values, the batch's rows (N, arity) and its measurements
-    (SE3: R, t, rows, ZR, Zt; SE2: x, rows, Z)."""
+    """The leading arguments of a group's wrappers for a batch: the values,
+    the batch's rows (N, arity) and its measurements (SE3: R, t, rows, ZR,
+    Zt; SE2: x, rows, Z; BalCamera: R, t, calib, pts, rows, uv;
+    GenericProjection: R, t, pts, rows, uv, K, ext, the last two the
+    residual's own on the rows' device)."""
     if group == "SE3":
         return (arrays["SE3"].R, arrays["SE3"].t, rows, batch.measurements.R,
                 batch.measurements.t)
+    if group == "BalCamera":
+        cam = arrays["BalCamera"]
+        return (cam.pose.R, cam.pose.t, cam.calib, arrays["Point3"], rows,
+                batch.measurements)
+    if group == "GenericProjection":
+        pose = arrays["SE3"]
+        return (pose.R, pose.t, arrays["Point3"], rows, batch.measurements,
+                *batch.residual_fn.kernel_args(rows.device))
     return (arrays[group], rows, batch.measurements)
 
 

@@ -151,7 +151,8 @@ def test_linearize_matches_jacfwd(behind):
     cam_k = BalCamera(SE3(cams.pose.R[oc], cams.pose.t[oc]), cams.calib[oc])
 
     def residual(dc, dp, cam, point, m):
-        return bal._projection_residual(bal_retract(cam, dc), point + dp, m)
+        return bal._schur_projection_residual(bal_retract(cam, dc), point + dp,
+                                              m)
 
     zc, zp = torch.zeros(9, dtype=torch.float64), torch.zeros(3,
                                                             dtype=torch.float64)

@@ -122,7 +122,7 @@ def test_cpu_path_counts_no_launch():
         | {"bal_error", "ba_back_substitute", "ba_schur_matvec"}
         | set(supernodal_kernels.KERNELS) | set(dense_kernels.KERNELS)
         | set(sparse_kernels.KERNELS))
-    assert len(supernodal_kernels.KERNELS) == 14
+    assert len(supernodal_kernels.KERNELS) == 20
     assert len(sparse_kernels.KERNELS) == 8
     assert all(n == 0 for n in _kernels.launch_counts().values())
 
@@ -244,6 +244,8 @@ def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
     Wd, Rd = 6 * W, 6 * R
     se3 = (f(Nv, 3, 3), f(Nv, 3), i(N, 2), f(N, 3, 3), f(N, 3))
     se2 = (f(Nv, 3), i(N, 2), f(N, 3))
+    bal = (f(Nv, 3, 3), f(Nv, 3), f(Nv, 3), f(n, 3), i(N, 2), f(N, 2))
+    pin = (f(Nv, 3, 3), f(Nv, 3), f(n, 3), i(N, 2), f(N, 2), f(5), f(12))
     levels = supernodal_kernels.Levels(
         l(1, 12), [f(S, Wd, Wd)], [f(S, Rd, Wd)], S, S * Wd, S * Rd, S * W,
         S * R, Wd + Rd)
@@ -265,6 +267,16 @@ def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
                                f(N, 2, 6, 6)),
         "pg2_jacobians": se2 + ("gaussian", f(N, 3, 3), 0, 0.0,
                                 f(N, 2, 3, 3)),
+        "proj_linearize": bal + ("gaussian", f(N, 2, 2), 1.0, b(N),
+                                 f(N, 3, 81), f(N, 2, 9)),
+        "proj_jacobians": bal + ("gaussian", f(N, 2, 2), 0, 0.0,
+                                 f(N, 2, 2, 9)),
+        "proj_error": bal + ("diagonal", f(N, 2), 1.0),
+        "proj3_linearize": pin + ("gaussian", f(N, 2, 2), 1.0, b(N),
+                                  f(N, 3, 36), f(N, 2, 6)),
+        "proj3_jacobians": pin + ("gaussian", f(N, 2, 2), 0, 0.0,
+                                  f(N, 2, 2, 6)),
+        "proj3_error": pin + ("diagonal", f(N, 2), 1.0),
         "sn_front_qr": (f(8, 6, 6), qr, b(S, Wd), i(S, W), l(4), i(4),
                         f(100), 0.1, i(S), f(S, 1, 32, 32).view(S, 32, 32),
                         1e-10, f(qr.fsize)),
@@ -592,12 +604,56 @@ def _cpu_args_pose2(name):
     }[name]
 
 
+def _cpu_args_proj(name):
+    """Arguments of kernels 17 and 18's wrappers at the shapes the
+    supernodal solver gives them: the graph form of a small BA problem
+    (store width 9), or for the GenericProjection variant its cameras as
+    SE3 poses with a fixed K and an extrinsic (store width 6), one
+    gaussian model a factor, on the CPU."""
+    from gtsam_torch.base import noise
+    from gtsam_torch.geometry import se3
+    from gtsam_torch.sfm import bal
+    from gtsam_torch.slam import factors as slam
+    prob = synthetic.make_bal_problem(5, 30, 3, seed=2)
+    A = np.random.default_rng(3).normal(size=(prob.num_observations, 2, 2))
+    model = noise.information(A @ A.transpose(0, 2, 1) + np.eye(2))
+    if name.startswith("proj3"):
+        T = SE3(torch.as_tensor(prob.cam_R), torch.as_tensor(prob.cam_t))
+        body = se3.expmap(torch.tensor([0.1, 0.0, -0.1, 0.2, 0.1, 0.0],
+                                       dtype=torch.float64))
+        graph = FactorGraph([slam.generic_projection_factors(
+            prob.obs_cam, 100 + prob.obs_pt, prob.obs_uv,
+            [500.0, 490.0, 0.0, 1.0, -2.0], model, body)])
+        vals = Values({"SE3": T, "Point3": torch.as_tensor(prob.points)},
+                      {"SE3": np.arange(prob.num_cameras),
+                       "Point3": 100 + np.arange(prob.num_points)})
+    else:
+        graph, vals = bal.to_graph(prob)
+        graph.batches[0].noise = model
+    s = SupernodalCholeskySolver(BoundGraph(graph, vals, "cpu"))
+    b, st = s.bound.graph.batches[0], s.bound.structures[0]
+    group = tfactors.kernel_route(b)[0]
+    args = supernodal_kernels.group_args(group, vals.arrays, st.rows_i32, b)
+    N, d = b.num_factors, s.d
+    z = torch.zeros
+    return {
+        "linearize": args + ("gaussian", b.noise.data, 1.0, s.dev.flips[0][1],
+                             z((N, 3, d * d), dtype=torch.float64),
+                             z((N, 2, d), dtype=torch.float64)),
+        "jacobians": args + ("gaussian", b.noise.data, 0, 0.0,
+                             z((N, 2, 2, d), dtype=torch.float64)),
+        "error": args + ("gaussian", b.noise.data, -1.0),
+    }[name.split("_")[1]]
+
+
 def _cpu_args_pg(name):
     """Arguments of each pose-graph wrapper at the shapes the supernodal
     solver gives it, from a small pose graph, on the CPU; made anew at each
     call."""
     if name.startswith("pg2_"):
         return _cpu_args_pose2(name)
+    if name.startswith("proj"):
+        return _cpu_args_proj(name)
     graph, vals = _small_pose_graph()
     s = SupernodalCholeskySolver(BoundGraph(graph, vals, "cpu"),
                                  force_width=2, max_width=4)

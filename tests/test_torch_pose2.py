@@ -535,8 +535,10 @@ def test_load_2d(tmp_path, layout):
 
 def test_load_2d_refuses(tmp_path):
     """An unrecognized auto layout raises ValueError as the JAX package's
-    does; BR and LANDMARK rows raise NotImplementedError naming the factor
-    that is not ported (never skipped in silence)."""
+    does.  BR and LANDMARK rows, which the port refused until
+    sam/factors.py::bearing_range_2d_factors was ported, now load as the
+    JAX package loads them (one bearing-range batch, the landmark's
+    initial from its sighting), never skipped in silence."""
     path = str(tmp_path / "bad.graph")
     with open(path, "w") as f:
         f.write("\n".join(_edge_rows("EDGE2", [1.0, 0.1, 1.0, 1.0, 0.0,
@@ -548,9 +550,13 @@ def test_load_2d_refuses(tmp_path):
         with open(path, "w") as f:
             f.write("\n".join(_edge_rows("EDGE2", [0.01, 0, 0.01, 0.001, 0,
                                                    0]) + [row]) + "\n")
-        with pytest.raises(NotImplementedError,
-                           match="bearing_range_2d_factors"):
-            tdatasets.load_2d(path)
+        tg, tv = tdatasets.load_2d(path)
+        jg, jv = jdatasets.load_2d(path)
+        assert [b.name for b in tg.batches] == [b.name for b in jg.batches]
+        assert tg.batches[-1].name == "BearingRange2D"
+        assert np.array_equal(tv.keys["Point2"], jv.keys["Point2"])
+        _close(tv.arrays["Point2"], jv.arrays["Point2"], 1e-12)
+        _close(tg.error(tv), jg.error(jv), 1e-12)
 
 
 def test_write_g2o_and_read_back(tmp_path, manhattan):
