@@ -1390,10 +1390,12 @@ class PGCase:
             from gtsam_torch.base import losses
             from gtsam_torch.linear import supernodal_kernels as K
             group = K6_GROUP[name]
+            gram = s._cplan.device_gram("cuda")
             return k6_calls(name, [
                 (K.group_args(group, self.arrays, st.rows_i32, b)
                  + (b.noise.kind, b.noise.data, b.sign),
-                 dv.flips[i][1 if b.arity == 2 else 0], s.d,
+                 (gram[i], dv.flips[i]) if gram[i] is not None
+                 else dv.flips[i][1 if b.arity == 2 else 0], s.d,
                  losses.kernel_code(b.noise.loss) + (b.noise.mu,))
                 for i, b, st in self.k6_batches(group)])
         if name == "pg_assemble":
@@ -1479,6 +1481,9 @@ QR_KERNELS = ("pg_jacobians", "pg2_jacobians", "sn_front_qr",
 # kernels 17 and 18: the pose-graph paths launch none of them
 PROJ_KERNELS = ("proj_linearize", "proj_error", "proj_jacobians",
                 "proj3_linearize", "proj3_error", "proj3_jacobians")
+# the device functions of the wrappers not named <wrapper>_kernel
+KERNEL_FUNCTIONS = {"proj_linearize": "proj_gram_kernel",
+                    "proj3_linearize": "proj_gram_kernel"}
 # the rows a factor's Jacobian mode writes a slot
 JAC_ROWS = {"pg_jacobians": 6, "pg2_jacobians": 3, "proj_jacobians": 2,
             "proj3_jacobians": 2}
@@ -1497,7 +1502,9 @@ def k6_calls(name, batches):
     `batches`, each ((R, t, rows, ZR, Zt, kind, noise, sign), flip, d), or
     ((x, rows, Z, kind, noise, sign), flip, d) for the Pose2 variant, or
     with a fourth entry, the loss arguments (loss code, its parameter,
-    mu); linearize's outputs start as NaN: each must be written in full."""
+    mu); kernel 17's (the projection batches) flip is (its Gram plan on
+    the card, the plan's rows' flips); linearize's outputs start as NaN:
+    each must be written in full."""
     import torch
     out = []
     for base, flip, d, *extra in batches:
@@ -1517,6 +1524,23 @@ def k6_calls(name, batches):
                     (N, arity, r, d), float("nan"), dtype=torch.float64,
                     device="cuda"),)
             out.append((mkj, lambda r, a: (a[-1],)))
+            continue
+
+        if name in PROJ_KERNELS:
+            # kernel 17's Gram mode: flip is (its plan, the rows' flips);
+            # a row of H or gv a chunk and target
+            plan, rflip = flip
+            nh = int((plan.rkind < 3).sum())
+            ng = plan.rkind.shape[0] - nh
+
+            def mkg(base=base, plan=plan, rflip=rflip, nh=nh, ng=ng, d=d,
+                    la=la):
+                nan = float("nan")
+                return base + (plan, rflip, torch.full(
+                    (nh, d * d), nan, dtype=torch.float64, device="cuda"),
+                    torch.full((ng, d), nan, dtype=torch.float64,
+                               device="cuda")) + la[:2]
+            out.append((mkg, lambda r, a: (a[-4], a[-3])))
             continue
 
         def mk(base=base, flip=flip, N=N, arity=arity, d=d, la=la):
@@ -2916,8 +2940,11 @@ def pg_work(case):
     for name, group in K6_GROUP.items():
         acc = k6[name] = [0, 0]
         work = {"SE3": se3_work, "SE2": se2_work}.get(group, proj_work)
-        for _, b, st in case.k6_batches(group):
-            w = work(name, st.rows_i32, b.noise.data, d)
+        for i, b, st in case.k6_batches(group):
+            gram = s._cplan.gram[i]
+            w = work(name, st.rows_i32, b.noise.data, d,
+                     *(() if gram is None or name.endswith("_error")
+                       else (gram.plan,)))
             acc[0] += w[0]
             acc[1] += w[1]
     # assembly: the contribution rows and their indices, T's CSR, g's CSR
@@ -3486,7 +3513,8 @@ def case_kernel_rows(case, launches, ms_fn, label, suffix=""):
             f"launches on the path {kernels[-1]['launches']}")
         if name not in ("sn_pivot_check",):
             for line in ptxas_lines(_build.BUILD_LOG.get(kern.source, ""),
-                                    name + "_kernel"):
+                                    KERNEL_FUNCTIONS.get(name,
+                                                         name + "_kernel")):
                 log(f"  {name}: {line}")
     return kernels, work
 
@@ -3977,7 +4005,7 @@ def qr_small_checks():
         ref = torch.zeros_like(pool)
         for bi, b in enumerate(s.bound.graph.batches):
             N, arity = b.num_factors, b.arity
-            view = ref[s._g_base[bi]:s._g_base[bi] + N * arity].view(
+            view = ref[s._pool_base[bi]:s._pool_base[bi] + N * arity].view(
                 N, arity, pool.shape[1], s.d)
             route = factors.kernel_route(b)
             if route is None:     # the generic rows: the same torch code
@@ -4661,8 +4689,8 @@ def sparse_case_checks(graph, vals, lam, mlc, label, worst, bad_level=None,
 
         def run(a, plain):
             f = K.sp_tail_assemble_plain if plain else K.sp_tail_assemble
-            f(blocks, L, dv.t_map, dv.t_bid, dv.l_ptr, dv.l_ik, dv.l_jk,
-              dv.t_cols, dv.pad_diag, lam, a[0])
+            f(blocks, L, dv.t_map, dv.t_bid, dv.t_pos, dv.l_ptr, dv.l_ik,
+              dv.l_jk, dv.t_cols, dv.pad_diag, lam, a[0])
 
         M = lin_triple("sp_tail_assemble", run, fresh, lambda a: (a[0],),
                        label, LIN_TOL["sp_tail_assemble"], worst)[0]
@@ -5471,23 +5499,50 @@ def linear_kernel_times(lin, worst):
         {"per": "a factorization's leading levels (one launch)",
          "levels": s.L_cut, "plan_by_level": by_level,
          "launches_by_path": by_path["sp_level_factor"]}))
+    def tail_call(sv, A, Lf, M, lam):
+        """Kernel 13's second entry (or its plain version) on solver sv's
+        dense root: fn(plain=False)."""
+        tv = sv.dev
+
+        def fn(plain=False):
+            k = K.sp_tail_assemble_plain if plain else K.sp_tail_assemble
+            k(A, Lf, tv.t_map, tv.t_bid, tv.t_pos, tv.l_ptr, tv.l_ik,
+              tv.l_jk, tv.t_cols, tv.pad_diag, lam, M)
+        return fn
+
+    def tail_bytes(sv):
+        """Bytes that must move: the stored tail blocks, the leading L
+        blocks the late triples read, M written, the plan's ints."""
+        src = np.unique(np.concatenate([sv.l_ik, sv.l_jk]))
+        Tv, dv2 = sv.n_tail, sv.d * sv.d
+        return (8 * dv2 * (len(sv.tail_bids) + len(src)) + 8 * (Tv * sv.d) ** 2
+                + 4 * (Tv * Tv + 3 * len(sv.tail_bids) + 1 + 2 * len(sv.l_ik)
+                       + Tv))
+
     M = f.tail[0]
-
-    def k13t(plain=False):
-        fn = K.sp_tail_assemble_plain if plain else K.sp_tail_assemble
-        fn(blocks, L, dv.t_map, dv.t_bid, dv.l_ptr, dv.l_ik, dv.l_jk,
-           dv.t_cols, dv.pad_diag, lam, M)
-
-    src = np.unique(np.concatenate([s.l_ik, s.l_jk]))
-    nbt = (8 * dd * (len(s.tail_bids) + len(src)) + 8 * (T * d) ** 2
-           + 4 * (T * T + 2 * len(s.tail_bids) + 1 + 2 * len(s.l_ik) + T))
+    k13t = tail_call(s, blocks, L, M, lam)
+    # the subgraph tree's root, at the tree's lam
+    tree_blocks = tree13.system(sgr["res"].values.arrays)[0]
+    tf = tree13.factorize(tree_blocks, 1e-8)
+    k13tt = tail_call(tree13, tree_blocks, tf.L, tf.tail[0], 1e-8)
+    tree_bound = bound_ms(tail_bytes(tree13), 0,
+                          2 * tree13.d ** 3 * len(tree13.l_ik))
+    tree_row = {"tree_ms": cuda_ms(k13tt, 10),
+                "tree_device_ms": device_ms(k13tt, 5),
+                "tree_plain_ms": cuda_ms(lambda: k13tt(True), 2, 1),
+                "tree_bound_ms": tree_bound[0],
+                "tree_bound_by": tree_bound[1], "tree_T": tree13.n_tail,
+                "tree_late_triples": len(tree13.l_ik),
+                "tree_stored_blocks": len(tree13.tail_bids)}
+    log(f"time sp_tail_assemble on the subgraph tree: {json.dumps(tree_row)}")
     rows.append(_lin_row(
         "sp_tail_assemble", KT["sp_tail_assemble"], cuda_ms(k13t, 10),
-        device_ms(k13t, 5), cuda_ms(lambda: k13t(True), 2, 1), nbt,
-        2 * d ** 3 * len(s.l_ik), launches["sp_tail_assemble"],
+        device_ms(k13t, 5), cuda_ms(lambda: k13t(True), 2, 1),
+        tail_bytes(s), 2 * d ** 3 * len(s.l_ik), launches["sp_tail_assemble"],
         _lin_err(main, "sp_tail_assemble"), None,
         {"T": T, "late_triples": len(s.l_ik),
-         "launches_by_path": by_path["sp_tail_assemble"]}))
+         "stored_blocks": len(s.tail_bids),
+         "launches_by_path": by_path["sp_tail_assemble"], **tree_row}))
     # kernel 14 on the factor of lam = 1
     f = s.factorize(blocks, lam)
     Y = torch.empty((n, d), dtype=torch.float64, device="cuda")
@@ -5902,14 +5957,16 @@ PROJ_NAMES = {"BalCamera": ["proj_linearize", "proj_jacobians", "proj_error"],
 GP_K = [520.0, 510.0, 0.5, 320.0, 240.0]
 
 
-def proj_work(name, rows, noise, d):
+def proj_work(name, rows, noise, d, plan=None):
     """(bytes that must move, FP64 operations) of one launch of kernel 17
     or 18 (`name`) on a batch of projection factors with slot rows `rows`
     (N, 2), noise data `noise` (None: unit) and store width d: each camera
     the batch reads (R, t and a BalCamera's calibration: 120 bytes; an
     SE3's 96, and K and the extrinsic once), each point (24), each factor's
-    measurement and rows (24) and the noise model read once; H, gv and the
-    flags, or the pool's two rows a slot, or the sum, written once; ~740
+    measurement and rows (24) and the noise model read once; the Gram
+    mode's plan (`plan`) read once and its rows of H and gv written once
+    (without a plan: a row a factor and slot pair, the per-factor layout's
+    work), or the pool's two rows a slot, or the sum, written once; ~740
     FP64 operations a BalCamera factor's linearization (the projection and
     its Jacobians ~150, the whitening ~70, the Gram blocks and gradient rows
     ~520), ~460 a GenericProjection factor's, ~220 and ~150 in the Jacobian
@@ -5925,15 +5982,24 @@ def proj_work(name, rows, noise, d):
         return inputs + 8, N * 40
     if name.endswith("_jacobians"):
         return inputs + N * 2 * 2 * d * 8, N * (220 if bal else 150)
-    return (inputs + N + N * (3 * d * d + 2 * d) * 8,
-            N * (740 if bal else 460))
+    ops = N * (740 if bal else 460)
+    if plan is None:    # a row of H and of gv a factor and slot pair / slot
+        return inputs + N + N * (3 * d * d + 2 * d) * 8, ops
+    # the Gram plan (order, cptr, rkind, mptr, mem, rout and the flips) read
+    # once, its rows written once
+    nr = int(plan.rkind.shape[0])
+    nh = int((plan.rkind < 3).sum())
+    return (inputs + 4 * (N + int(plan.cptr.shape[0]) + 3 * nr + 1
+                          + int(plan.mem.shape[0])) + nr
+            + (nh * d * d + (nr - nh) * d) * 8, ops)
 
 
 def proj_batch(variant, n_cams, N, d, kind, per_factor, seed, edge=False):
     """A seeded batch of N projection factors of `variant` ("BalCamera" or
     "GenericProjection") over n_cams cameras, on the card as kernel 17's
-    wrappers take it: (base, flip, d), base the group's leading arguments,
-    the noise kind and data and the sign.  Each factor has a point of its
+    wrappers take it: (base, (Gram plan, its rows' flips), d), base the
+    group's leading arguments, the noise kind and data and the sign.  Each
+    factor has a point of its
     own in front of its camera (depth 2-30, within ~0.3 of the axis), its
     measurement the projection plus N(0, 1) px.  edge=True puts every
     camera at the identity and the points at depths 1e-8 (the cheirality
@@ -5995,7 +6061,10 @@ def proj_batch(variant, n_cams, N, d, kind, per_factor, seed, edge=False):
         s = rng.uniform(0.3, 5.0, (M, 2))
         s[:, 0] = 0.0
         data = noise.constrained(s).data
-    flip = torch.as_tensor(rng.random(N) < 0.5)
+    # kernel 17's Gram plan of the rows (each factor a point of its own:
+    # its camera-point and point rows single factors) and a flip a row
+    plan, rep = K.proj_gram_plan(cam, np.arange(N))
+    flip = (plan.rkind == 1) & (rng.random(N) < 0.5)[rep]
 
     def dev(x):
         return None if x is None else x.to("cuda").contiguous()
@@ -6004,7 +6073,9 @@ def proj_batch(variant, n_cams, N, d, kind, per_factor, seed, edge=False):
             (cams[0], cams[1], pts, rows, uv, cams[2], cams[3]))
     base = tuple(dev(x) for x in lead) + (
         kind, dev(data), -1.0 if seed % 2 else 1.0)
-    return base, dev(flip), d
+    return base, (K.GramPlan(*(torch.as_tensor(a, device="cuda")
+                               for a in plan)),
+                  dev(torch.as_tensor(flip))), d
 
 
 class ProjBatches(SE3Batches):
@@ -6029,7 +6100,8 @@ def proj_batch_checks():
     for the same bits: seeded batches of 2,000 factors over 50 cameras,
     one CTA plus one (a partial last CTA), three CTAs less five and one
     factor, at two store widths each (9 and 12, 6 and 9), under each noise
-    kind, shared and one a factor; the cheirality edge (depths at and
+    kind, shared and one a factor (the Gram mode's chunks: seven and a
+    part, a part, one whole); the cheirality edge (depths at and
     around 1e-8, 0 and behind), checked to flip the residual at the
     threshold; each of the nine losses at its threshold (the median plain
     whitened norm; dcs and the dead zone between two factors)."""
@@ -6040,7 +6112,8 @@ def proj_batch_checks():
                               ("GenericProjection", (6, 9))):
         names = PROJ_NAMES[variant]
         sizes = [(50, 2000, d1), (7, K.PROJ_FACTORS + 1, d2),
-                 (7, 3 * K.PROJ_FACTORS - 5, d1), (7, 1, d2)]
+                 (7, 3 * K.PROJ_FACTORS - 5, d1), (7, 1, d2),
+                 (9, K.PROJ_CHUNK, d2)]
         for kind, scope in (("unit", False), ("diagonal", False),
                             ("diagonal", True), ("gaussian", False),
                             ("gaussian", True), ("constrained", False),
@@ -6518,6 +6591,7 @@ def sfm_kernel_times(main, small_runs, ms_fn):
     there; the GenericProjection variant on a seeded batch of the path's
     size (d = 6; its launches those of the small generic projection LM);
     the padding's bytes; a try by stage."""
+    import numpy as np
     from gtsam_torch.linear import supernodal_kernels as K
     graph, vals = main["graph"], main["vals"]
     case = PGCase(graph, vals.replace_arrays(main["arrays"]), 1.0, False,
@@ -6530,9 +6604,23 @@ def sfm_kernel_times(main, small_runs, ms_fn):
     check_fill_untouched(case, "sfm")
     s = case.s
     (i, b, st), = case.k6_batches("BalCamera")
+    # kernel 17's Gram mode beside the per-factor layout's work (a row of H
+    # a factor and slot pair), the same products
+    pf = bound_ms(*proj_work("proj_linearize", st.rows_i32, b.noise.data,
+                             s.d))
+    k17 = next(r for r in rows if r["name"] == "proj_linearize")
+    k17.update(bound_per_factor_ms=pf[0], bound_per_factor_by=pf[1])
+    # the library yardsticks of the front kernel and the Schur update at d =
+    # 9, a level at a time: cholesky_ex + solve_triangular(L, I), two bmm
+    _, front_row, update_row = front_levels(s, case, ms_fn)
+    next(r for r in rows if r["name"] == "sn_front_factor[d=9]").update(
+        front_row)
+    next(r for r in rows if r["name"] == "sn_schur_update[d=9]").update(
+        update_row)
     base = K.group_args("BalCamera", case.arrays, st.rows_i32, b) + (
         b.noise.kind, b.noise.data, b.sign)
-    jac = ProjBatches(batches=[(base, s.dev.flips[i][1], s.d)])
+    gram = s._cplan.device_gram("cuda")[i]
+    jac = ProjBatches(batches=[(base, (gram, s.dev.flips[i]), s.d)])
     err = check_pg_kernels(jac, "sfm path state", ["proj_jacobians"])
     N = b.num_factors
     rows.append(_proj_row(
@@ -6549,16 +6637,36 @@ def sfm_kernel_times(main, small_runs, ms_fn):
         rows.append(_proj_row(
             name, [mk() for mk, _ in gp.calls(name)],
             gp_launch.get(name, 0), err[name], ms_fn,
-            proj_work(name, _k6_rows(gbase), gbase[-2], 6)))
+            proj_work(name, _k6_rows(gbase), gbase[-2], 6,
+                      *((gflip[0],) if name.endswith("_linearize")
+                        else ()))))
     # the padding: each Point3's 3 x 3 diagonal block and 9 x 3 camera-point
-    # blocks stored 9 x 9
+    # blocks stored 9 x 9; the contribution buffer (kernel 17's Gram rows, a
+    # chunk and target each) beside the per-factor layout's (a row a factor
+    # and slot pair), and their true entries; the assembly's longest rows
     n_pt = main["prob"].num_points
+    g17 = s._cplan.gram[i].plan
+    kinds = np.bincount(g17.rkind, minlength=K.GRAM_KINDS)
+    cam_blk = s.sym.diag_block_by_col[s.sym.inv_perm[
+        np.arange(main["prob"].num_cameras)]]
+    lens = np.diff(s.asm_ptr)
     pad = {"store_mb": (s.B + 1) * 81 * 8 / 1e6,
            "store_true_mb": (n_pt * 9 + N * 27 + (s.B - n_pt - N) * 81)
            * 8 / 1e6,
-           "contributions_mb": N * (3 * 81 + 18) * 8 / 1e6,
-           "contributions_true_mb": N * (81 + 27 + 9 + 12) * 8 / 1e6}
-    log(f"sfm padding: {json.dumps(pad)}")
+           "contributions_mb": (s._n_hc * 81 + s._n_gc * 9) * 8 / 1e6,
+           "contributions_true_mb": (kinds[0] * 81 + kinds[1] * 27
+                                     + kinds[2] * 9 + kinds[3] * 9
+                                     + kinds[4] * 3) * 8 / 1e6,
+           "contributions_per_factor_mb": N * (3 * 81 + 18) * 8 / 1e6,
+           "contributions_per_factor_true_mb": N * (81 + 27 + 9 + 12) * 8
+           / 1e6,
+           "gram_rows_by_kind": kinds.tolist(),
+           "chunks": len(g17.cptr) - 1,
+           "longest_assembly_row": int(lens.max()),
+           "longest_camera_block_row": int(lens[np.searchsorted(
+               s.asm_blk, cam_blk)].max()),
+           "longest_gradient_row": int(np.diff(s.g_ptr).max())}
+    log(f"sfm padding and assembly rows: {json.dumps(pad)}")
     stages = sfm_stages(main, ms_fn)
     log(f"sfm try by stage (ms): {json.dumps(stages)}")
     del case
@@ -6595,8 +6703,7 @@ def profile_sfm(main):
     library = [k for k, _, _ in rows if any(
         w in k.lower() for w in ("potrf", "trsm", "trsv"))]
     have = {w: any(w in k for k, _, _ in rows) for w in (
-        "proj_linearize_kernel", "proj_error_kernel",
-        "sn_front_factor_kernel")}
+        "proj_gram_kernel", "proj_error_kernel", "sn_front_factor_kernel")}
     log(f"  sfm: kernels in the trace {have}; library factorization or "
         f"solve kernels {library}")
     if library or not all(have.values()):

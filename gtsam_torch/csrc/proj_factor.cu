@@ -22,19 +22,28 @@
 // square-root information; one for the batch or one a factor) and, under
 // a loss, scaled by sqrt(w(||R_w r||)) (pg_losses.cuh); b = -R_w r.
 //
-// proj_linearize_kernel<kCam, kLoss, kJac>: a CTA is one warp and owns 32
-// consecutive factors, a lane each, as pg_pose2.cu's.  A lane forms its
-// factor's whitened Jacobians in registers (24 doubles at kCam = 9), then
-// sign A_c^T A_c (kCam x kCam), sign A_c^T A_p (kCam x 3, or its transpose
-// where flip says the plan stores the pair so), sign A_p^T A_p and the
-// gradient rows sign A^T b, compact in shared memory (129 doubles a factor
-// at kCam = 9, 73 at 6: odd strides keep the lanes on distinct banks;
-// 33 KB at 9).  The CTA copies its span of H ((N, 3, d*d), factor-major,
-// each block zero outside its leading dims) and of gv ((N, 2, d)) out in
-// order, a lane an entry, so each store instruction writes 256 contiguous
-// bytes.  The Jacobian mode (kJac) writes each lane's whitened rows into
-// the pool (N, 2, rmax, d) -- rows 0-1 of each slot, zero past the slot's
-// width -- and ends there.
+// proj_gram_kernel<kCam, kLoss> (the Gram mode): a CTA of 256 threads owns
+// a chunk of 256 of the batch's factors, in the order of a plan built on
+// the host (linear/supernodal_kernels.py::proj_gram_plan: the factors
+// sorted by their point's first camera, then by point, so a point's
+// observations share a chunk and a chunk holds few cameras), a thread
+// each.  While a thread linearizes its factor, the CTA stages the chunk's
+// plan in shared memory; the thread then stages its factor's whitened
+// Jacobians and b there (27 doubles at kCam = 9, 21 at 6; 55 KB at 9).
+// The chunk's rows -- one for each camera, (camera, point) pair and point
+// its factors name, and for each camera and point gradient row -- are
+// consecutive rows of H and of gv, and their entries go to the threads in
+// turn: an entry is the sum over the row's factors, in the plan's order,
+// of the per-factor product (sign A_c^T A_c, sign A_c^T A_p, or its
+// transpose where the row's flip says the store holds the pair so, sign
+// A_p^T A_p, sign A^T b), zero outside the block's leading dims.  A
+// camera's blocks of one chunk are summed there, so the assembly
+// (pg_assemble) reads one row a chunk for it in place of one a factor: at
+// the dubrovnik-16-22106 stand-in at most 197 in place of ~4,800.
+// proj_jacobians_kernel<kCam, kLoss> (the Jacobian mode): a CTA is one
+// warp and owns 32 consecutive factors, a lane each, which writes its
+// whitened rows into the pool (N, 2, rmax, d) -- rows 0-1 of each slot,
+// zero past the slot's width.
 // proj_error_kernel<kCam, kExt>: a lane a factor (twice its error:
 // ||R_w r||^2, 2 rho(||R_w r||), or ||R_w r||^2 + mu r^2 on the hard rows
 // of a constrained model), the warp's butterfly sum into a CTA partial,
@@ -42,11 +51,13 @@
 // order: the order of every addition depends on N alone.
 // No value is summed by atomics, so the same inputs give the same bits.
 //
-// Bound on the H100: bytes.  At d = 9 a factor writes 3 * 81 + 18 doubles
-// of H and gv (2,088 bytes) and reads 228 (its camera, point,
-// measurement, rows), against ~740 FP64 operations; the padding of the
-// point's 3x3 and 9x3 blocks to 9x9 is most of those bytes (the JAX
-// package's store layout, gtsam_tpu/linear/supernodal.py:99-111).
+// Bound on the H100: bytes.  A factor reads 228 bytes (its camera, point,
+// measurement, rows); the Gram mode writes its plan's rows, 81 doubles a
+// row of H at d = 9 (one a chunk and camera, a camera-point pair, a point:
+// ~1.3 a factor at the stand-in), against ~740 FP64 operations a factor.
+// (A row a factor and block wrote 3 * 81 + 18 doubles a factor, 2,088
+// bytes, most of it the padding of the point's 3x3 and 9x3 blocks to 9x9:
+// the JAX package's store layout, gtsam_tpu/linear/supernodal.py:99-111.)
 #include "pg_losses.cuh"
 #include "projection.cuh"
 
@@ -55,6 +66,9 @@ namespace {
 using namespace pg;
 
 constexpr int kFactors = gt::kWarp;        // PROJ_FACTORS (Python)
+constexpr int kChunk = 256;                // PROJ_CHUNK (Python)
+constexpr int kChunkWarps = kChunk / gt::kWarp;
+constexpr int kRows = 5 * kChunk;          // a chunk's rows (and members)
 constexpr int kErrorThreads = gt::kWarp;   // ERROR_BLOCK (Python)
 constexpr int kMaxD = 12;                  // the store width kCam <= d <= 12
 
@@ -65,16 +79,6 @@ struct Cams {
   const double* calib;   // (nc, 3) f, k1, k2
   const double* K;       // (5,) fx, fy, s, u0, v0
   const double* ext;     // (12,) Rb, tb; null: none
-};
-
-template <int kCam>
-struct Out {
-  static constexpr int kCC = kCam * kCam;    // camera-camera block
-  static constexpr int kCP = 3 * kCam;       // camera-point block
-  static constexpr int kPP = 9;              // point-point block
-  static constexpr int kGC = kCC + kCP + kPP;   // camera gradient row
-  static constexpr int kGP = kGC + kCam;        // point gradient row
-  static constexpr int kStride = (kGP + 3) | 1;
 };
 
 template <int kCam>
@@ -121,106 +125,189 @@ __device__ __forceinline__ void whiten_rows(int kind, const double* nz,
   }
 }
 
-template <int kCam, bool kLoss, bool kJac>
-__global__ void __launch_bounds__(kFactors) proj_linearize_kernel(
+// Factor k's whitened Jacobians Jc (2 x kCam), Jp (2 x 3), row-major, and
+// b = -R_w r, all scaled by sqrt(w(||R_w r||)) under a loss.
+template <int kCam, bool kLoss>
+__device__ __forceinline__ void whitened(const Cams& cams, int64_t k,
+                                         const double* __restrict__ pts,
+                                         const int* __restrict__ rows,
+                                         const double* __restrict__ uv,
+                                         int kind, int stride,
+                                         const double* __restrict__ noise,
+                                         int loss, double lparam, double* Jc,
+                                         double* Jp, double b[2]) {
+  double r[2];
+  residual<kCam>(cams, k, pts, rows, uv, r, Jc, Jp);
+  const double* nz = kind == 0 ? nullptr : noise + (int64_t)stride * k;
+  double wr[2];
+  whiten2(kind, nz, r[0], r[1], wr);
+  double sw = 1.0;
+  if (kLoss)
+    sw = sqrt(loss_weight(loss, lparam, sqrt(wr[0] * wr[0] + wr[1] * wr[1])));
+  whiten_rows<kCam>(kind, nz, sw, Jc);
+  whiten_rows<3>(kind, nz, sw, Jp);
+  b[0] = -(wr[0] * sw);
+  b[1] = -(wr[1] * sw);
+}
+
+// The Jacobian mode: a lane a factor, its rows into the pool.
+template <int kCam, bool kLoss>
+__global__ void __launch_bounds__(kFactors) proj_jacobians_kernel(
     int N, int d, int rmax, Cams cams, const double* __restrict__ pts,
     const int* __restrict__ rows, const double* __restrict__ uv, int kind,
+    int stride, const double* __restrict__ noise, int loss, double lparam,
+    double* __restrict__ A) {
+  const int64_t k = (int64_t)blockIdx.x * kFactors + threadIdx.x;
+  if (k >= N) return;
+  double Jc[2 * kCam], Jp[6], b[2];
+  whitened<kCam, kLoss>(cams, k, pts, rows, uv, kind, stride, noise, loss,
+                        lparam, Jc, Jp, b);
+  double* a = A + k * 2 * rmax * d;
+  double* p = a + rmax * d;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < kCam; ++j) a[i * d + j] = Jc[kCam * i + j];
+    for (int j = kCam; j < d; ++j) a[i * d + j] = 0.0;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) p[i * d + j] = Jp[3 * i + j];
+    for (int j = 3; j < d; ++j) p[i * d + j] = 0.0;
+  }
+}
+
+// A factor's staged rows in proj_gram_kernel's shared memory: Jc's two
+// rows, Jp's two, then b (odd strides keep the lanes on distinct banks).
+template <int kCam>
+struct Stage {
+  static constexpr int kP = 2 * kCam;          // Jp's first row
+  static constexpr int kB = kP + 6;            // b0, b1
+  static constexpr int kStride = (kB + 2) | 1;
+  // then the chunk's plan: a row's code and output row (at most kRows
+  // rows), its factors' positions (kRows)
+  static constexpr int kBytes = kChunk * kStride * 8 + 3 * kRows * 4;
+};
+
+// The Gram mode: CTA c owns the chunk order[c * kChunk ..] of the batch,
+// a thread a factor; each thread stages its factor's whitened rows, then
+// the threads take the entries of the chunk's rows of the plan (staged
+// in shared memory while the factors are linearized) in turn, a thread an
+// entry: an entry of a row of H (kinds 0-2: camera-camera, camera-point,
+// point-point) is the sum over the row's members (chunk positions
+// mem[mptr[r] ..], ascending) of sign (a_0 b_0 + a_1 b_1) for the entry's
+// two Jacobian columns, the per-factor product; a camera-point row with
+// flip set transposed; zero outside the leading dims.  A row of gv (kinds
+// 3-4) likewise with b.  A chunk's rows of H, and its rows of gv, are
+// consecutive rows of H and gv (the plan lists them so), so each store
+// instruction of a warp writes 256 contiguous bytes.
+template <int kCam, bool kLoss>
+__global__ void __launch_bounds__(kChunk, 2) proj_gram_kernel(
+    int N, int d, Cams cams, const double* __restrict__ pts,
+    const int* __restrict__ rows, const double* __restrict__ uv, int kind,
     int stride, const double* __restrict__ noise, double sign, int loss,
-    double lparam, const unsigned char* __restrict__ flip,
+    double lparam, const int* __restrict__ order,
+    const int* __restrict__ cptr, const int* __restrict__ rkind,
+    const int* __restrict__ mptr, const int* __restrict__ mem,
+    const int* __restrict__ rout, const unsigned char* __restrict__ flip,
     double* __restrict__ H, double* __restrict__ gv) {
-  using O = Out<kCam>;
-  __shared__ double sOut[kJac ? 1 : kFactors * O::kStride];
-  __shared__ unsigned char sFlip[kFactors];
-  const int lane = threadIdx.x;
-  const int64_t k0 = (int64_t)blockIdx.x * kFactors;
-  const int64_t left = (int64_t)N - k0;
-  const int nf = left < kFactors ? (int)left : kFactors;
-  const int64_t k = k0 + lane;
-  if (lane < nf) {
-    double r[2], Jc[2 * kCam], Jp[6];
-    residual<kCam>(cams, k, pts, rows, uv, r, Jc, Jp);
-    const double* nz = kind == 0 ? nullptr : noise + (int64_t)stride * k;
-    double wr[2];
-    whiten2(kind, nz, r[0], r[1], wr);
-    double sw = 1.0;
-    if (kLoss) sw = sqrt(loss_weight(loss, lparam,
-                                     sqrt(wr[0] * wr[0] + wr[1] * wr[1])));
-    whiten_rows<kCam>(kind, nz, sw, Jc);
-    whiten_rows<3>(kind, nz, sw, Jp);
-    if constexpr (kJac) {
-      double* a = H + k * 2 * rmax * d;
-      double* p = a + rmax * d;
+  using S = Stage<kCam>;
+  extern __shared__ double sJ[];   // kChunk factors, S::kStride each
+  int* sCode = reinterpret_cast<int*>(sJ + kChunk * S::kStride);
+  int* sOut = sCode + kRows;
+  int* sMem = sOut + kRows;
+  const int c = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int64_t q = (int64_t)c * kChunk + tid;
+  const int nf = min((int64_t)kChunk, (int64_t)N - (int64_t)c * kChunk);
+  // the chunk's plan into shared memory, its loads in flight while the
+  // factors are linearized: a row's kind | flip << 3 | its first member's
+  // offset << 4, its output row, and its members' positions
+  __shared__ int sNh;   // the chunk's rows of H: its rows before the first
+                        // of kind 3 (a chunk has rows of every kind)
+  const int r0 = cptr[c], nr = cptr[c + 1] - r0, mbase = mptr[r0];
+  for (int k = tid; k < nr; k += kChunk) {
+    const int kd = rkind[r0 + k];
+    sCode[k] = kd | (flip[r0 + k] ? 8 : 0) | ((mptr[r0 + k] - mbase) << 4);
+    sOut[k] = rout[r0 + k];
+    if (kd >= 3 && rkind[r0 + k - 1] < 3) sNh = k;
+  }
+  for (int k = tid; k < 5 * nf; k += kChunk) sMem[k] = mem[mbase + k];
+  if (q < N) {
+    double Jc[2 * kCam], Jp[6], b[2];
+    whitened<kCam, kLoss>(cams, order[q], pts, rows, uv, kind, stride, noise,
+                          loss, lparam, Jc, Jp, b);
+    double* x = sJ + tid * S::kStride;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < 2 * kCam; ++i) x[i] = Jc[i];
 #pragma unroll
-        for (int j = 0; j < kCam; ++j) a[i * d + j] = Jc[kCam * i + j];
-        for (int j = kCam; j < d; ++j) a[i * d + j] = 0.0;
-#pragma unroll
-        for (int j = 0; j < 3; ++j) p[i * d + j] = Jp[3 * i + j];
-        for (int j = 3; j < d; ++j) p[i * d + j] = 0.0;
+    for (int i = 0; i < 6; ++i) x[S::kP + i] = Jp[i];
+    x[S::kB] = b[0];
+    x[S::kB + 1] = b[1];
+  }
+  __syncthreads();
+
+  // the chunk's rows of H (its first nh rows, kinds 0-2) are consecutive
+  // rows of H from sOut[0], its rows of gv from sOut[nh]: the threads take
+  // their entries in turn, thread t entries t, t + kChunk, ..., so each
+  // warp's stores are 256 contiguous bytes
+  const int nh = sNh;
+  const int dd = d * d;
+  double* Hc = H + (int64_t)sOut[0] * dd;
+  int r = tid / dd, e = tid - (tid / dd) * dd;
+  const int rq = kChunk / dd, rr = kChunk - rq * dd;
+  for (int f = tid; f < nh * dd; f += kChunk) {
+    const int code = sCode[r];
+    const int kd = code & 7;
+    const int m0 = code >> 4, m1 = sCode[r + 1] >> 4;
+    int i = e / d, j = e - (e / d) * d;
+    if (code & 8) {   // entry (i, j) of the transpose: the product's (j, i)
+      const int t = i;
+      i = j;
+      j = t;
+    }
+    // column i of the first slot's rows (at ao, ao + as), column j of the
+    // second's (bo, bo + bs)
+    const bool cam1 = kd < 2, cam2 = kd == 0;
+    const int w1 = cam1 ? kCam : 3, w2 = cam2 ? kCam : 3;
+    const int ao = (cam1 ? 0 : S::kP) + i, as = w1;
+    const int bo = (cam2 ? 0 : S::kP) + j, bs = w2;
+    double acc = 0.0;
+    if (i < w1 && j < w2) {
+      for (int m = m0; m < m1; ++m) {
+        const double* x = sJ + sMem[m] * S::kStride;
+        acc += sign * (x[ao] * x[bo] + x[ao + as] * x[bo + bs]);
       }
-    } else {
-      const double b0 = -(wr[0] * sw), b1 = -(wr[1] * sw);
-      const bool tr = flip[k] != 0;
-      double* o = sOut + lane * O::kStride;
-#pragma unroll
-      for (int i = 0; i < kCam; ++i) {
-#pragma unroll
-        for (int j = 0; j < kCam; ++j)
-          o[kCam * i + j] =
-              sign * (Jc[i] * Jc[j] + Jc[kCam + i] * Jc[kCam + j]);
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          const double v =
-              sign * (Jc[i] * Jp[j] + Jc[kCam + i] * Jp[3 + j]);
-          o[O::kCC + (tr ? kCam * j + i : 3 * i + j)] = v;
-        }
-        o[O::kGC + i] = sign * (Jc[i] * b0 + Jc[kCam + i] * b1);
-      }
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-          o[O::kCC + O::kCP + 3 * i + j] =
-              sign * (Jp[i] * Jp[j] + Jp[3 + i] * Jp[3 + j]);
-        o[O::kGP + i] = sign * (Jp[i] * b0 + Jp[3 + i] * b1);
-      }
-      sFlip[lane] = tr;
+    }
+    Hc[f] = acc;
+    r += rq;
+    e += rr;
+    if (e >= dd) {
+      e -= dd;
+      ++r;
     }
   }
-  if constexpr (!kJac) {
-    __syncwarp();
-
-    // the CTA's spans of H and gv, in order, a lane an entry: entry e of the
-    // span is entry q = e % npd of factor e / npd
-    const int dd = d * d, npd = 3 * dd, ng = 2 * d;
-    double* Hs = H + k0 * npd;
-    for (int e = lane; e < nf * npd; e += kFactors) {
-      const int g = e / npd, q = e - g * npd;
-      const int p = q / dd, qq = q - p * dd;
-      const int i = qq / d, j = qq - i * d;
-      const double* o = sOut + g * O::kStride;
-      double v = 0.0;
-      if (p == 0) {
-        if (i < kCam && j < kCam) v = o[kCam * i + j];
-      } else if (p == 1) {
-        if (sFlip[g]) {
-          if (i < 3 && j < kCam) v = o[O::kCC + kCam * i + j];
-        } else if (i < kCam && j < 3) {
-          v = o[O::kCC + 3 * i + j];
-        }
-      } else if (i < 3 && j < 3) {
-        v = o[O::kCC + O::kCP + 3 * i + j];
+  double* Gc = gv + (int64_t)sOut[nh] * d;
+  r = nh + tid / d;
+  e = tid - (tid / d) * d;
+  const int gq = kChunk / d, gr = kChunk - gq * d;
+  for (int f = tid; f < (nr - nh) * d; f += kChunk) {
+    const int code = sCode[r];
+    const bool cam = (code & 7) == 3;
+    const int m0 = code >> 4;
+    const int m1 = r + 1 < nr ? sCode[r + 1] >> 4 : 5 * nf;
+    const int w = cam ? kCam : 3, ao = cam ? 0 : S::kP;
+    double acc = 0.0;
+    if (e < w) {
+      for (int m = m0; m < m1; ++m) {
+        const double* x = sJ + sMem[m] * S::kStride;
+        acc += sign * (x[ao + e] * x[S::kB] + x[ao + w + e] * x[S::kB + 1]);
       }
-      Hs[e] = v;
     }
-    double* Gs = gv + k0 * ng;
-    for (int e = lane; e < nf * ng; e += kFactors) {
-      const int g = e / ng, q = e - g * ng;
-      const int sl = q / d, i = q - sl * d;
-      const double* o = sOut + g * O::kStride;
-      Gs[e] = sl == 0 ? (i < kCam ? o[O::kGC + i] : 0.0)
-                      : (i < 3 ? o[O::kGP + i] : 0.0);
+    Gc[f] = acc;
+    r += gq;
+    e += gr;
+    if (e >= d) {
+      e -= d;
+      ++r;
     }
   }
 }
@@ -274,26 +361,64 @@ __global__ void __launch_bounds__(kErrorThreads) proj_error_kernel(
   }
 }
 
-template <int kCam, bool kJac>
-int launch_linearize(int N, int d, int rmax, const Cams& cams,
+template <int kCam>
+int launch_jacobians(int N, int d, int rmax, const Cams& cams,
                      const double* pts, const int* rows, const double* uv,
-                     int kind, int stride, const double* noise, double sign,
-                     int loss, double lparam, const unsigned char* flip,
-                     double* H, double* gv, void* stream) {
-  if (d < kCam || d > kMaxD || (kJac && rmax < 2) || loss < kLossNone ||
+                     int kind, int stride, const double* noise, int loss,
+                     double lparam, double* A, void* stream) {
+  if (d < kCam || d > kMaxD || rmax < 2 || loss < kLossNone ||
       loss > kLossDeadZone)
     return (int)cudaErrorInvalidValue;
   if (kind == kConstrained) kind = 1;   // hard rows whiten to 0
   const int grid = (N + kFactors - 1) / kFactors;
   const cudaStream_t st = (cudaStream_t)stream;
   if (N > 0 && loss != kLossNone)
-    proj_linearize_kernel<kCam, true, kJac><<<grid, kFactors, 0, st>>>(
-        N, d, rmax, cams, pts, rows, uv, kind, stride, noise, sign, loss,
-        lparam, flip, H, gv);
+    proj_jacobians_kernel<kCam, true><<<grid, kFactors, 0, st>>>(
+        N, d, rmax, cams, pts, rows, uv, kind, stride, noise, loss, lparam,
+        A);
   else if (N > 0)
-    proj_linearize_kernel<kCam, false, kJac><<<grid, kFactors, 0, st>>>(
-        N, d, rmax, cams, pts, rows, uv, kind, stride, noise, sign, loss,
-        lparam, flip, H, gv);
+    proj_jacobians_kernel<kCam, false><<<grid, kFactors, 0, st>>>(
+        N, d, rmax, cams, pts, rows, uv, kind, stride, noise, loss, lparam,
+        A);
+  return (int)cudaGetLastError();
+}
+
+template <int kCam, bool kLoss>
+void gram(int grid, cudaStream_t st, int N, int d, const Cams& cams,
+          const double* pts, const int* rows, const double* uv, int kind,
+          int stride, const double* noise, double sign, int loss,
+          double lparam, const int* order, const int* cptr, const int* rkind,
+          const int* mptr, const int* mem, const int* rout,
+          const unsigned char* flip, double* H, double* gv) {
+  constexpr int shm = Stage<kCam>::kBytes;
+  cudaFuncSetAttribute(proj_gram_kernel<kCam, kLoss>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, shm);
+  proj_gram_kernel<kCam, kLoss><<<grid, kChunk, shm, st>>>(
+      N, d, cams, pts, rows, uv, kind, stride, noise, sign, loss, lparam,
+      order, cptr, rkind, mptr, mem, rout, flip, H, gv);
+}
+
+template <int kCam>
+int launch_gram(int N, int d, const Cams& cams, const double* pts,
+                const int* rows, const double* uv, int kind, int stride,
+                const double* noise, double sign, int loss, double lparam,
+                const int* order, const int* cptr, const int* rkind,
+                const int* mptr, const int* mem, const int* rout,
+                const unsigned char* flip, double* H, double* gv,
+                void* stream) {
+  if (d < kCam || d > kMaxD || loss < kLossNone || loss > kLossDeadZone)
+    return (int)cudaErrorInvalidValue;
+  if (kind == kConstrained) kind = 1;   // hard rows whiten to 0
+  const int grid = (N + kChunk - 1) / kChunk;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (N > 0 && loss != kLossNone)
+    gram<kCam, true>(grid, st, N, d, cams, pts, rows, uv, kind, stride,
+                     noise, sign, loss, lparam, order, cptr, rkind, mptr,
+                     mem, rout, flip, H, gv);
+  else if (N > 0)
+    gram<kCam, false>(grid, st, N, d, cams, pts, rows, uv, kind, stride,
+                      noise, sign, loss, lparam, order, cptr, rkind, mptr,
+                      mem, rout, flip, H, gv);
   return (int)cudaGetLastError();
 }
 
@@ -333,17 +458,23 @@ Cams pinhole_cams(const double* R, const double* t, const double* K,
 // (np x 3), measurements uv (N x 2); 9 <= d <= 12 the store's width; kind
 // 0 unit, 1 diagonal, 2 gaussian, 3 constrained, models `stride` doubles
 // apart (0: one shared by every factor); loss: a code of enum Loss (0:
-// none) and its parameter.  H: N x 3 x d*d, gv: N x 2 x d.
+// none) and its parameter.  The Gram plan (linear/supernodal_kernels.py,
+// GramPlan): order (N), cptr (ceil(N / kChunk) + 1), rkind, mptr, mem,
+// rout and flip of its rows; H: its rows of kinds 0-2 (d*d each), gv: of
+// kinds 3-4 (d each).
 GT_EXPORT int gt_proj_linearize(int N, int d, const double* R,
                                 const double* t, const double* calib,
                                 const double* pts, const int* rows,
                                 const double* uv, int kind, int stride,
                                 const double* noise, double sign, int loss,
-                                double lparam, const unsigned char* flip,
+                                double lparam, const int* order,
+                                const int* cptr, const int* rkind,
+                                const int* mptr, const int* mem,
+                                const int* rout, const unsigned char* flip,
                                 double* H, double* gv, void* stream) {
-  return launch_linearize<9, false>(N, d, 0, bal_cams(R, t, calib), pts, rows,
-                                    uv, kind, stride, noise, sign, loss,
-                                    lparam, flip, H, gv, stream);
+  return launch_gram<9>(N, d, bal_cams(R, t, calib), pts, rows, uv, kind,
+                        stride, noise, sign, loss, lparam, order, cptr,
+                        rkind, mptr, mem, rout, flip, H, gv, stream);
 }
 
 // The SE3 + Cal3_S2 camera: K (5), ext (12) or null; 6 <= d <= 12.
@@ -352,12 +483,14 @@ GT_EXPORT int gt_proj3_linearize(int N, int d, const double* R,
                                  const int* rows, const double* uv,
                                  const double* K, const double* ext, int kind,
                                  int stride, const double* noise, double sign,
-                                 int loss, double lparam,
-                                 const unsigned char* flip, double* H,
-                                 double* gv, void* stream) {
-  return launch_linearize<6, false>(N, d, 0, pinhole_cams(R, t, K, ext), pts,
-                                    rows, uv, kind, stride, noise, sign, loss,
-                                    lparam, flip, H, gv, stream);
+                                 int loss, double lparam, const int* order,
+                                 const int* cptr, const int* rkind,
+                                 const int* mptr, const int* mem,
+                                 const int* rout, const unsigned char* flip,
+                                 double* H, double* gv, void* stream) {
+  return launch_gram<6>(N, d, pinhole_cams(R, t, K, ext), pts, rows, uv,
+                        kind, stride, noise, sign, loss, lparam, order, cptr,
+                        rkind, mptr, mem, rout, flip, H, gv, stream);
 }
 
 // The Jacobian mode: A (N x 2 x rmax x d), slot s of factor n's rows 0-1
@@ -368,9 +501,9 @@ GT_EXPORT int gt_proj_jacobians(int N, int d, int rmax, const double* R,
                                 const double* uv, int kind, int stride,
                                 const double* noise, int loss, double lparam,
                                 double* A, void* stream) {
-  return launch_linearize<9, true>(N, d, rmax, bal_cams(R, t, calib), pts,
-                                   rows, uv, kind, stride, noise, 1.0, loss,
-                                   lparam, nullptr, A, nullptr, stream);
+  return launch_jacobians<9>(N, d, rmax, bal_cams(R, t, calib), pts, rows,
+                             uv, kind, stride, noise, loss, lparam, A,
+                             stream);
 }
 
 GT_EXPORT int gt_proj3_jacobians(int N, int d, int rmax, const double* R,
@@ -379,9 +512,9 @@ GT_EXPORT int gt_proj3_jacobians(int N, int d, int rmax, const double* R,
                                  const double* K, const double* ext, int kind,
                                  int stride, const double* noise, int loss,
                                  double lparam, double* A, void* stream) {
-  return launch_linearize<6, true>(N, d, rmax, pinhole_cams(R, t, K, ext),
-                                   pts, rows, uv, kind, stride, noise, 1.0,
-                                   loss, lparam, nullptr, A, nullptr, stream);
+  return launch_jacobians<6>(N, d, rmax, pinhole_cams(R, t, K, ext), pts,
+                             rows, uv, kind, stride, noise, loss, lparam, A,
+                             stream);
 }
 
 // partial must hold max(1, ceil(N / 32)) doubles (ERROR_BLOCK in

@@ -37,11 +37,20 @@
 //   epoch into the column's flag with release semantics at GPU scope
 //   (cumulative over the CTA's writes).  A is read, the factor written to
 //   L (out of place).
-// gt_sp_tail_assemble (kernel 13's second entry): a warp a block of the
-//   dense root M's lower triangle: the stored tail block less its late
-//   triples (sources in the leading columns), plus lam on the diagonal,
-//   written to M and, transposed, to its mirror; blocks with no stored
-//   block are zeroed.  M then goes to dense_blocked.blocked_cholesky.
+// gt_sp_tail_assemble (kernel 13's second entry): a warp a stored block of
+//   the dense root M's lower triangle: the stored tail block less its late
+//   triples (sources in the leading columns), plus lam on the diagonal.
+//   The warp stages a trip of triples' L_ik and L_jk in its slice of
+//   shared memory (576 doubles: 8 triples at d = 6, at most 16), every
+//   entry's copy queued at once by cp.async (coalesced along each block,
+//   so a trip waits on one round of loads), then forms the products'
+//   entries a lane each (at d = 6, 16-byte reads of the slice, and the
+//   entries past the 32nd of every triple of the trip at once), the
+//   triples in lptr order (the bits do not depend on the launch); the
+//   block goes through the slice to M and, transposed, to its mirror, both
+//   a lane an entry along M's rows.  Warps of the launch's last CTAs zero
+//   the entries of M's blocks with no stored block, a row of M each.  M
+//   then goes to dense_blocked.blocked_cholesky.
 // gt_sp_level_forward / gt_sp_level_backward (kernel 14): one launch a
 //   direction over every level, a warp a job, the jobs in the direction's
 //   order (level by level; a warp takes jobs w, w + W, ... of W warps).
@@ -102,7 +111,10 @@ constexpr int kMaxD = 12;
 constexpr int kFactorThreads = 512;      // kernel 13: a CTA a column
 constexpr int kFactorShm = 192 * 1024;   // its rounds' staged blocks
 constexpr int kMetaBlocks = 512;         // a job's block ids kept in shared
-constexpr int kTailThreads = 256;        // a warp a block of M
+constexpr int kTailThreads = 128;        // a warp a stored block of M
+constexpr int kTailWarps = kTailThreads / gt::kWarp;
+constexpr int kTailSlice = 576;          // doubles of shared memory a warp
+constexpr int kTailSlots = (kMaxD * kMaxD + gt::kWarp - 1) / gt::kWarp;
 constexpr int kSolveThreads = 128;       // kernel 14: a warp a job
 constexpr int kSolveWarps = kSolveThreads / gt::kWarp;
 constexpr int kSlice = 1024;             // doubles of shared memory a warp
@@ -120,24 +132,6 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
 __device__ __forceinline__ void st_release(int* p, int v) {
   asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
                : "memory");
-}
-
-// sum over the triples [t0, t1) of row r of L_ik times row c of L_jk
-__device__ __forceinline__ double triple_sum(
-    const double* L, const int* __restrict__ tik,
-    const int* __restrict__ tjk, int t0, int t1, int d, int r, int c) {
-  const int dd = d * d;
-  double acc = 0.0;
-  for (int t = t0; t < t1; ++t) {
-    const double* li = L + (int64_t)tik[t] * dd + r * d;
-    const double* lj = L + (int64_t)tjk[t] * dd + c * d;
-    double s = 0.0;
-#pragma unroll
-    for (int m = 0; m < kMaxD; ++m)
-      if (m < d) s += li[m] * lj[m];
-    acc += s;
-  }
-  return acc;
 }
 
 // Wait until the flag of every column in wsrc[w0 .. w1) holds `epoch`: the
@@ -482,38 +476,142 @@ __global__ void __launch_bounds__(kFactorThreads) sp_level_factor_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kTailThreads) sp_tail_assemble_kernel(
-    int T, int d, int ld, const int* __restrict__ tmap,
-    const int* __restrict__ tbid, const int* __restrict__ lptr,
-    const int* __restrict__ lik, const int* __restrict__ ljk,
-    const int* __restrict__ tcols, const double* __restrict__ A,
-    const double* __restrict__ L, const double* __restrict__ pad,
-    double lam, double* __restrict__ M) {
-  const int64_t w =
-      ((int64_t)blockIdx.x * kTailThreads + threadIdx.x) / gt::kWarp;
-  if (w >= (int64_t)T * T) return;
-  const int r = (int)(w / T), c = (int)(w % T);
-  if (c > r) return;
-  const int lane = threadIdx.x % gt::kWarp;
-  const int e = tmap[w];
-  const int dd = d * d;
-  for (int idx = lane; idx < dd; idx += gt::kWarp) {
-    const int i = idx / d, k = idx - i * d;
-    double v = 0.0;
-    if (e >= 0) {
-      v = A[(int64_t)tbid[e] * dd + idx];
-      if (r == c && i == k) v += lam * (1.0 - pad[(int64_t)tcols[r] * d + i]);
-      v -= triple_sum(L, lik, ljk, lptr[e], lptr[e + 1], d, i, k);
-    }
-    M[(int64_t)(r * d + i) * ld + c * d + k] = v;
-    if (r != c) M[(int64_t)(c * d + k) * ld + r * d + i] = v;
-  }
-}
-
 __device__ __forceinline__ void copy_async8(double* dst, const double* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src)
                : "memory");
+}
+
+// Row i of L_ik times row k of L_jk of a trip's triple u (staged at sw +
+// u * 2 dd and + dd): a d-term dot product in column order (16-byte reads
+// at kD = 6; kD = 0: any d).
+template <int kD>
+__device__ __forceinline__ double dot_rows(const double* sw, int u, int d,
+                                           int i, int k) {
+  const int dd = d * d;
+  const double* li = sw + u * 2 * dd + i * d;
+  const double* lj = sw + u * 2 * dd + dd + k * d;
+  double sm = 0.0;
+  if (kD == 6) {
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const double2 a = reinterpret_cast<const double2*>(li)[m];
+      const double2 b = reinterpret_cast<const double2*>(lj)[m];
+      sm += a.x * b.x;
+      sm += a.y * b.y;
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < kMaxD; ++m)
+      if (m < d) sm += li[m] * lj[m];
+  }
+  return sm;
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kTailThreads, 8) sp_tail_assemble_kernel(
+    int T, int dr, int ld, int nb, int blk_ctas, const int* __restrict__ tmap,
+    const int* __restrict__ tbid, const int* __restrict__ tpos,
+    const int* __restrict__ lptr, const int* __restrict__ lik,
+    const int* __restrict__ ljk, const int* __restrict__ tcols,
+    const double* __restrict__ A, const double* __restrict__ L,
+    const double* __restrict__ pad, double lam, double* __restrict__ M) {
+  __shared__ __align__(16) double sL[kTailWarps][kTailSlice];
+  const int d = kD ? kD : dr;
+  const int lane = threadIdx.x % gt::kWarp, wi = threadIdx.x / gt::kWarp;
+  if ((int)blockIdx.x >= blk_ctas) {
+    // the zero fill: a warp a row of M, its entries in blocks with no
+    // stored block
+    const int64_t row =
+        (int64_t)((int)blockIdx.x - blk_ctas) * kTailWarps + wi;
+    if (row >= (int64_t)T * d) return;
+    const int r = (int)(row / d);
+    double* out = M + row * ld;
+#pragma unroll 8
+    for (int col = lane; col < T * d; col += gt::kWarp) {
+      const int c = col / d;
+      if ((r >= c ? tmap[r * T + c] : tmap[c * T + r]) < 0) out[col] = 0.0;
+    }
+    return;
+  }
+  const int e = (int)blockIdx.x * kTailWarps + wi;
+  if (e >= nb) return;
+  const int r = tpos[e] / T, c = tpos[e] - (tpos[e] / T) * T;
+  const int dd = d * d, per = min(gt::kWarp / 2, kTailSlice / (2 * dd));
+  double* sw = sL[wi];
+  double acc[kTailSlots];
+#pragma unroll
+  for (int s = 0; s < kTailSlots; ++s) acc[s] = 0.0;
+  const int t1 = lptr[e + 1];
+  for (int tb = lptr[e]; tb < t1; tb += per) {
+    const int nt = min(per, t1 - tb);
+    // stage the trip's L_ik and L_jk (blocks 2u and 2u + 1 of the slice):
+    // the ids a lane each, then every entry's copy queued at once
+    // (cp.async, coalesced along each block), so a trip waits on one
+    // round of loads
+    const int bid = lane < 2 * nt
+        ? (lane & 1 ? ljk[tb + lane / 2] : lik[tb + lane / 2]) : 0;
+    __syncwarp();
+    int u2 = lane / dd, w = lane - (lane / dd) * dd;
+    for (int q = lane; q < kTailSlice; q += gt::kWarp) {
+      const int b = __shfl_sync(kFull, bid, u2 < gt::kWarp ? u2 : 0);
+      if (q < nt * 2 * dd) copy_async8(sw + q, L + (int64_t)b * dd + w);
+      w += gt::kWarp;
+      while (w >= dd) {
+        w -= dd;
+        ++u2;
+      }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncwarp();
+    // entry (i, k) of each triple's product, a lane an entry, added in
+    // triple order
+#pragma unroll
+    for (int s = 0; s < (kD == 6 ? 1 : kTailSlots); ++s) {
+      const int idx = lane + s * gt::kWarp;
+      if (idx < dd) {
+        const int i = idx / d, k = idx - (idx / d) * d;
+        for (int u = 0; u < nt; ++u) acc[s] += dot_rows<kD>(sw, u, d, i, k);
+      }
+    }
+    if (kD == 6) {
+      // entries 32-35 (row 5, columns 2-5): lane 4u + j forms triple u's
+      // entry 32 + j, all of the trip's at once; lanes 0-3 add them in
+      // triple order
+      const int j = lane & 3;
+      const double sm = (lane >> 2) < nt
+          ? dot_rows<6>(sw, lane >> 2, 6, 5, 2 + j) : 0.0;
+      for (int u = 0; u < nt; ++u) {
+        const double t = __shfl_sync(kFull, sm, 4 * u + j);
+        if (lane < 4) acc[1] += t;
+      }
+    }
+  }
+  // the block, A less the sum (lam on the true diagonal), into the warp's
+  // slice; then M's block rows and, transposed, its mirror's, a lane an
+  // entry along each row
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < kTailSlots; ++s) {
+    const int idx = lane + s * gt::kWarp;
+    if (idx < dd) {
+      const int i = idx / d, k = idx - (idx / d) * d;
+      double v = A[(int64_t)tbid[e] * dd + idx];
+      if (r == c && i == k) v += lam * (1.0 - pad[(int64_t)tcols[r] * d + i]);
+      sw[idx] = v - acc[s];
+    }
+  }
+  __syncwarp();
+  for (int idx = lane; idx < dd; idx += gt::kWarp) {
+    const int i = idx / d, k = idx - (idx / d) * d;
+    M[(int64_t)(r * d + i) * ld + c * d + k] = sw[idx];
+  }
+  if (r != c) {
+    for (int idx = lane; idx < dd; idx += gt::kWarp) {
+      const int k = idx / d, i = idx - (idx / d) * d;
+      M[(int64_t)(c * d + k) * ld + r * d + i] = sw[i * d + k];
+    }
+  }
 }
 
 // Queue the copies of blocks bid[e0 + k0 .. e0 + k1) of a job's list into
@@ -752,20 +850,28 @@ GT_EXPORT int gt_sp_level_factor(int J, int d, int nflag, int epoch,
                            pad, lam, L, rec, flags);
 }
 
-// The dense root: T tail columns, M (T d x T d, rows ld apart).
-GT_EXPORT int gt_sp_tail_assemble(int T, int d, int ld, const int* tmap,
-                                  const int* tbid, const int* lptr,
+// The dense root: T tail columns, M (T d x T d, rows ld apart); nb stored
+// tail blocks, block e at tail position tpos[e] = r T + c (r >= c).
+GT_EXPORT int gt_sp_tail_assemble(int T, int d, int ld, int nb,
+                                  const int* tmap, const int* tbid,
+                                  const int* tpos, const int* lptr,
                                   const int* lik, const int* ljk,
                                   const int* tcols, const double* A,
                                   const double* L, const double* pad,
                                   double lam, double* M, void* stream) {
   if (d > kMaxD) return (int)cudaErrorInvalidValue;
-  const int64_t threads = (int64_t)T * T * gt::kWarp;
-  if (threads > 0)
-    sp_tail_assemble_kernel<<<(unsigned)((threads + kTailThreads - 1) /
-                                         kTailThreads),
-                              kTailThreads, 0, (cudaStream_t)stream>>>(
-        T, d, ld, tmap, tbid, lptr, lik, ljk, tcols, A, L, pad, lam, M);
+  const int blk_ctas = (nb + kTailWarps - 1) / kTailWarps;
+  const int zero_ctas = (T * d + kTailWarps - 1) / kTailWarps;
+  const int grid = blk_ctas + zero_ctas;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (grid > 0 && d == 6)
+    sp_tail_assemble_kernel<6><<<grid, kTailThreads, 0, st>>>(
+        T, d, ld, nb, blk_ctas, tmap, tbid, tpos, lptr, lik, ljk, tcols, A, L,
+        pad, lam, M);
+  else if (grid > 0)
+    sp_tail_assemble_kernel<0><<<grid, kTailThreads, 0, st>>>(
+        T, d, ld, nb, blk_ctas, tmap, tbid, tpos, lptr, lik, ljk, tcols, A, L,
+        pad, lam, M);
   return (int)cudaGetLastError();
 }
 

@@ -15,6 +15,7 @@ from the least-squares system.
 """
 
 import dataclasses
+import types
 from typing import List, Tuple
 
 import numpy as np
@@ -134,20 +135,44 @@ class BoundGraph:
         b, st = self.graph.batches[i], self.structures[i]
         return factors_mod.linearize(b, self._xs(b, st, arrays))
 
-    def contributions(self, bi, arrays, H, gv, flips):
-        """Batch bi's Gram blocks and gradient rows, as the supernodal
-        assembly takes them: sign A_s1^T A_s2 of each slot pair (s1 <= s2)
-        into H (N, npair, d*d), the (s1, s2) block transposed where
-        flips[pair] says so, and sign A_s^T b into gv (N, arity, d), zero
-        outside each block's leading dims x dims.  Kernel 6 for the SE3
-        and SE2 batches it routes, kernel 17 for the projection batches
+    def contribution_plan(self) -> "ContributionPlan":
+        """The contribution buffer's plan of this graph, built once and
+        shared by the supernodal and level solvers' systems and by
+        gradient."""
+        if getattr(self, "_cplan", None) is None:
+            self._cplan = ContributionPlan(self)
+        return self._cplan
+
+    def contributions(self, bi, arrays, plan, hc, gc, flips):
+        """Batch bi's Gram blocks and gradient rows into its rows of the
+        contribution buffer (plan: a ContributionPlan of this structure; hc
+        (plan.n_hc, d*d), gc (plan.n_gc, d)): a row a factor and slot pair
+        (s1 <= s2) of sign A_s1^T A_s2, transposed where flips[pair] says
+        so, and a row a factor and slot of sign A_s^T b, zero outside each
+        block's leading dims x dims; for a batch that kernel 17 linearizes
+        the rows of its Gram plan instead, each the sum over its factors of
+        one chunk (flips: one a row).  Kernel 6 for the SE3 and SE2 batches
+        it routes, kernel 17 for the projection batches
         (factors.kernel_route), the generic linearization for the
         others."""
         from ..linear import supernodal_kernels as sk
         b, st = self.graph.batches[bi], self.structures[bi]
         N, arity = b.num_factors, b.arity
-        d = gv.shape[-1]
+        d = gc.shape[-1]
+        h0, g0 = plan.h_base[bi], plan.g_base[bi]
         route = factors_mod.kernel_route(b)
+        gram = plan.gram[bi]
+        if gram is not None:
+            group = route[0]
+            sk.LINEARIZE[group](*sk.group_args(group, arrays, st.rows_i32, b),
+                                b.noise.kind, b.noise.data, b.sign,
+                                plan.device_gram(hc.device)[bi], flips,
+                                hc[h0:h0 + gram.nh], gc[g0:g0 + gram.ng],
+                                *losses.kernel_code(b.noise.loss))
+            return
+        npair = arity * (arity + 1) // 2
+        H = hc[h0:h0 + N * npair].view(N, npair, d * d)
+        gv = gc[g0:g0 + N * arity].view(N, arity, d)
         if route is not None:
             group = route[0]
             flip = flips[1] if arity == 2 else flips[0]
@@ -250,32 +275,26 @@ class BoundGraph:
 
     def _gradient_plan(self):
         """The sparse gradient's plan, built once: the contribution buffer
-        (factor-major per batch, a d-row per factor slot, as the
-        supernodal system's), the sorted CSR of its rows by variable in the
-        canonical order (stable: a variable's rows summed in (batch,
-        factor, slot) order), and the flat index of each tangent entry in
-        the (n, d) sum."""
+        (contribution_plan's), the sorted CSR of its gradient rows by
+        variable in the canonical order (stable: a variable's rows summed
+        in (batch, factor, slot) order, a Gram plan's in chunk order), and
+        the flat index of each tangent entry in the (n, d) sum."""
         if getattr(self, "_grad", None) is not None:
             return self._grad
         from . import manifolds
         lay, dev = self.layout, self.device
+        cp = self.contribution_plan()
         dims, var0 = [], {}
         for t in lay.type_order:
             var0[t] = len(dims)
             dims += [manifolds.get(t).dim] * len(lay.offsets[t])
         n, dims = len(dims), np.asarray(dims, np.int64)
         d = int(dims.max()) if n else 1
-        tgt, base, hbase, gb, hb = [], [], [], 0, 0
-        for b, st in zip(self.graph.batches, self.structures):
-            ids = np.stack([var0[t] + np.asarray(st.rows[s]) for s, t in
-                            enumerate(b.var_types)], axis=1)
-            base.append(gb)
-            hbase.append(hb)
-            tgt.append(ids.reshape(-1))
-            gb += ids.size
-            hb += b.num_factors * b.arity * (b.arity + 1) // 2
-        tgt = np.concatenate(tgt) if tgt else np.zeros(0, np.int64)
-        ptr = np.concatenate([[0], np.cumsum(np.bincount(tgt, minlength=n))])
+        slot_tgt = [[var0[t] + np.asarray(st.rows[s]) for s, t in
+                     enumerate(b.var_types)]
+                    for b, st in zip(self.graph.batches, self.structures)]
+        asm = cp.assembly(None, slot_tgt, 0, np.zeros(0, np.int64), n,
+                          factor_major=True)
         flat = (np.repeat(np.arange(n) * d, dims)
                 + np.arange(int(dims.sum())) - np.repeat(
                     np.cumsum(dims) - dims, dims))
@@ -290,12 +309,11 @@ class BoundGraph:
                     * self.graph.batches[bi].noise.mu)
             for bi, n_idx, _, _ in self._constraints]
         self._grad = dict(
-            n=n, d=d, base=base, hbase=hbase, ngc=gb, nhc=hb,
-            g_src=i32(np.argsort(tgt, kind="stable")), g_ptr=i32(ptr),
+            n=n, d=d, g_src=i32(asm["g_src"]), g_ptr=i32(asm["g_ptr"]),
             flat=torch.as_tensor(flat, dtype=torch.long, device=dev),
-            flips=[[torch.zeros(b.num_factors, dtype=torch.bool,
-                                device=dev)] * (b.arity * (b.arity + 1) // 2)
-                   for b in self.graph.batches],
+            flips=cp.row_flips([[np.zeros(b.num_factors, dtype=bool)]
+                                * (b.arity * (b.arity + 1) // 2)
+                                for b in self.graph.batches], dev),
             pad=torch.zeros((n, d), dtype=torch.float64, device=dev),
             empty=empty, ptr0=i32([0]),
             hc0=torch.zeros((0, d * d), dtype=torch.float64, device=dev),
@@ -306,22 +324,18 @@ class BoundGraph:
     def gradient(self, arrays):
         """The gradient of the half-chi2 at `arrays` (-g of gn_system),
         flat in the canonical layout, without H: each batch's gradient rows
-        sign A_s^T b (kernel 6 for the batches it routes, the generic
-        linearization for the others; contributions), summed per variable
-        in a fixed order by kernel 6's assembly (pg_assemble over no
-        blocks: its g half)."""
+        sign A_s^T b (kernel 6 for the batches it routes, kernel 17 for the
+        projection batches, the generic linearization for the others;
+        contributions), summed per variable in a fixed order by kernel 6's
+        assembly (pg_assemble over no blocks: its g half)."""
         from ..linear import supernodal_kernels as sk
         gp = self._gradient_plan()
+        cp = self.contribution_plan()
         d, dev = gp["d"], self.device
-        hc = torch.empty((gp["nhc"], d * d), dtype=torch.float64, device=dev)
-        gc = torch.empty((gp["ngc"], d), dtype=torch.float64, device=dev)
-        for bi, b in enumerate(self.graph.batches):
-            N, arity = b.num_factors, b.arity
-            npair = arity * (arity + 1) // 2
-            h0, g0 = gp["hbase"][bi], gp["base"][bi]
-            self.contributions(
-                bi, arrays, hc[h0:h0 + N * npair].view(N, npair, d * d),
-                gc[g0:g0 + N * arity].view(N, arity, d), gp["flips"][bi])
+        hc = torch.empty((cp.n_hc, d * d), dtype=torch.float64, device=dev)
+        gc = torch.empty((cp.n_gc, d), dtype=torch.float64, device=dev)
+        for bi in range(len(self.graph.batches)):
+            self.contributions(bi, arrays, cp, hc, gc, gp["flips"][bi])
         e = gp["empty"]
         _, g = sk.pg_assemble(gp["hc0"], gc, e, gp["ptr0"], e, e,
                               gp["g_src"], gp["g_ptr"], gp["pad"], 1)
@@ -337,3 +351,127 @@ class BoundGraph:
             return g
         C, c = self.constraint_system(arrays)
         return g - C.T @ (self._gradient_plan()["mu"] * c)
+
+
+class ContributionPlan:
+    """The contribution buffer of a bound graph: where each batch's Gram
+    blocks and gradient rows go, and in what order the assembly sums them
+    (pg_assemble's asm_src / asm_ptr and g_src / g_ptr), built once on the
+    host for the supernodal and level solvers' systems and for
+    BoundGraph.gradient.  hc (n_hc, d*d) holds batch bi's H rows from
+    h_base[bi], gc (n_gc, d) its gradient rows from g_base[bi]: a batch
+    that kernel 17 linearizes (a projection batch) the rows of its Gram
+    plan (gram[bi]: the plan, each row's first factor `rep`, its nh rows of
+    H and ng of gv), a row a (chunk, target); any other batch a row a factor
+    and slot pair, factor-major, and a row a factor and slot."""
+
+    def __init__(self, bound: BoundGraph):
+        from ..linear import supernodal_kernels as sk
+        self.h_base, self.g_base, self.gram = [], [], []
+        self._dev = {}
+        hb = gb = 0
+        for b, st in zip(bound.graph.batches, bound.structures):
+            self.h_base.append(hb)
+            self.g_base.append(gb)
+            route = factors_mod.kernel_route(b)
+            if route is not None and route[1] == "projection":
+                plan, rep = sk.proj_gram_plan(st.rows[0], st.rows[1])
+                nh, ng = sk.gram_rows(plan)
+                self.gram.append(types.SimpleNamespace(plan=plan, rep=rep,
+                                                       nh=nh, ng=ng))
+                hb, gb = hb + nh, gb + ng
+            else:
+                self.gram.append(None)
+                hb += b.num_factors * b.arity * (b.arity + 1) // 2
+                gb += b.num_factors * b.arity
+        self.n_hc, self.n_gc = hb, gb
+
+    def device_gram(self, device):
+        """Each batch's Gram plan as int32 tensors on `device` (None for a
+        batch without one), made once a device."""
+        from ..linear import supernodal_kernels as sk
+        key = str(torch.device(device))
+        if key not in self._dev:
+            self._dev[key] = [None if g is None else sk.GramPlan(*(
+                torch.as_tensor(a, dtype=torch.int32, device=device)
+                for a in g.plan)) for g in self.gram]
+        return self._dev[key]
+
+    def _rows(self, bi, N, k, nslot, base):
+        """(rows, factors): batch bi's buffer rows of Gram kind k (or its
+        slot pair or slot k of `nslot` without a Gram plan), from `base`,
+        and a factor of each row's target."""
+        g = self.gram[bi]
+        if g is None:
+            return base + np.arange(N) * nslot + k, np.arange(N)
+        r = np.flatnonzero(g.plan.rkind == k)
+        return base + g.plan.rout[r].astype(np.int64), g.rep[r]
+
+    def assembly(self, pair_tgt, slot_tgt, nb, diag_col_blocks, n,
+                 factor_major=False):
+        """pg_assemble's plan over this buffer.  pair_tgt[bi][p] (N,): the
+        store block of factor n's slot pair p (None: no H); slot_tgt[bi][s]
+        (N,): factor n's slot-s variable; nb store blocks, the diagonal
+        block of each of the n variables in diag_col_blocks.  A target's
+        rows are summed batch after batch, slot pair after pair (slot after
+        slot; factor_major: a factor's slots in order), a Gram plan's in
+        chunk order.  Returns int32 arrays asm_src, asm_ptr, asm_blk (T:
+        the blocks that get a row, and every diagonal), asm_diag (the
+        column of a diagonal block of T, else -1), g_src, g_ptr, and the
+        bool mask in_t (nb,)."""
+        from ..linear.supernodal_kernels import GRAM_SLOT0
+        h_src, h_tgt, g_src, g_tgt = [], [], [], []
+        for bi, sl in enumerate(slot_tgt):
+            N, arity = len(sl[0]), len(sl)
+            npair = arity * (arity + 1) // 2
+            if pair_tgt is not None:
+                for p in range(npair):
+                    src, rep = self._rows(bi, N, p, npair, self.h_base[bi])
+                    h_src.append(src)
+                    h_tgt.append(np.asarray(pair_tgt[bi][p])[rep])
+            if factor_major and self.gram[bi] is None:
+                g_src.append(self.g_base[bi] + np.arange(N * arity))
+                g_tgt.append(np.stack([np.asarray(t) for t in sl],
+                                      1).reshape(-1))
+                continue
+            for s in range(arity):
+                k = s if self.gram[bi] is None else s + GRAM_SLOT0
+                src, rep = self._rows(bi, N, k, arity, self.g_base[bi])
+                g_src.append(src)
+                g_tgt.append(np.asarray(sl[s])[rep])
+
+        def cat(xs):
+            return np.concatenate(xs).astype(np.int64) if xs else \
+                np.zeros(0, np.int64)
+        h_src, h_tgt, g_src, g_tgt = map(cat, (h_src, h_tgt, g_src, g_tgt))
+        counts = np.bincount(h_tgt, minlength=nb)
+        diag_col = np.full(nb, -1, np.int32)
+        diag_col[np.asarray(diag_col_blocks, np.int64)] = np.arange(
+            len(diag_col_blocks), dtype=np.int32)
+        in_t = (counts > 0) | (diag_col >= 0)
+        asm_blk = np.flatnonzero(in_t)
+        i32 = np.int32
+        return dict(
+            asm_src=h_src[np.argsort(h_tgt, kind="stable")].astype(i32),
+            asm_ptr=np.concatenate([[0], np.cumsum(counts[asm_blk])]).astype(
+                i32),
+            asm_blk=asm_blk.astype(i32), asm_diag=diag_col[asm_blk],
+            g_src=g_src[np.argsort(g_tgt, kind="stable")].astype(i32),
+            g_ptr=np.concatenate([[0], np.cumsum(np.bincount(
+                g_tgt, minlength=n))]).astype(i32),
+            in_t=in_t)
+
+    def row_flips(self, pair_flip, device):
+        """contributions' flips of each batch, bool tensors on `device`,
+        from pair_flip[bi][p] (N,), each factor's: the same list, or for a
+        Gram batch one a row (its camera-point rows' factors')."""
+        out = []
+        for g, fl in zip(self.gram, pair_flip):
+            if g is None:
+                out.append([torch.as_tensor(np.asarray(f, dtype=bool),
+                                            device=device) for f in fl])
+            else:
+                out.append(torch.as_tensor(
+                    (g.plan.rkind == 1) & np.asarray(fl[1], dtype=bool)[g.rep],
+                    device=device))
+        return out

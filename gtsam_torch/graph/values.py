@@ -14,6 +14,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from ..geometry.se3 import SE3
 from . import manifolds
 
@@ -76,13 +77,16 @@ def _element_types():
             "PinholeCameraS2": (PinholeCameraS2, SE3)}
 
 
-def element_from_numpy(tname, a, device="cpu"):
+def element_from_numpy(tname, a, device=None):
     """One stacked element of manifold `tname` from numpy arrays (or
     anything np.asarray takes: a tuple of arrays in the element's field
-    order, nested for a camera's pose), as float64 tensors on `device`."""
+    order, nested for a camera's pose), as float64 tensors on `device`
+    (CUDA when None: config.resolve_device)."""
+    dev = resolve_device(device)
+
     def f(x):
         return torch.as_tensor(np.asarray(x), dtype=torch.float64,
-                               device=device)
+                               device=dev)
     kind = _element_types().get(tname)
     if kind is None:
         return f(a)
@@ -117,11 +121,13 @@ class Values:
         return Values(arrays, {t: np.asarray(k) for t, k in keys.items()})
 
     @staticmethod
-    def from_numpy(arrays, keys, device="cpu") -> "Values":
+    def from_numpy(arrays, keys, device=None) -> "Values":
         """Values of numpy arrays (arrays: type -> one stacked element as
         element_from_numpy takes it, e.g. a JAX package's BalCamera of
-        numpy-convertible leaves), as float64 tensors on `device`."""
-        return Values({t: element_from_numpy(t, a, device)
+        numpy-convertible leaves), as float64 tensors on `device` (CUDA
+        when None)."""
+        dev = resolve_device(device)
+        return Values({t: element_from_numpy(t, a, dev)
                        for t, a in arrays.items()}, keys)
 
     def replace_arrays(self, arrays) -> "Values":

@@ -8,9 +8,10 @@ min_level_cols, the per-level index bundles, the late triples, the tail
 maps, the assembly plan) and move to the device once.  Then:
 
   system:         kernel 6 linearizes the SE3 and SE2 between/prior batches
-                  into a contribution buffer (other batches: the generic
-                  torch.func path) and pg_assemble sums it into the block
-                  store (B, d*d) and the padded gradient g (n, d), the
+                  and kernel 17 the projection batches into a contribution
+                  buffer (the graph's ContributionPlan; other batches: the
+                  generic torch.func path) and pg_assemble sums it into the
+                  block store (B, d*d) and the padded gradient g (n, d), the
                   padding diagonals' identity included (as the supernodal
                   solver's system);
   factorize:      kernel 13 in one launch over every leading level, a
@@ -239,42 +240,18 @@ class SparseCholeskySolver:
         """The arrays kernels 6, 13 and 14 read on top of the JAX plans."""
         sym, n, d, B = self.sym, self.nvars, self.d, self.sym.nnz_blocks
         self.B = B
-        # system: the contribution buffer, factor-major per batch (factor
-        # n's slot pairs, then its slots), summed per block of T (the blocks
-        # H puts something into, and every diagonal) in the JAX plan's
-        # order, and per variable for g
-        h_src, h_tgt, g_src, g_tgt = [], [], [], []
-        self._h_base, self._g_base = [], []
-        hb = gb = 0
-        for ids, plan in zip(self.batch_var_ids, self.assembly):
-            N, arity = ids.shape
-            npair = len(plan)
-            self._h_base.append(hb)
-            self._g_base.append(gb)
-            for p, (_, _, bids, _) in enumerate(plan):
-                h_src.append(hb + np.arange(N) * npair + p)
-                h_tgt.append(bids)
-            for s in range(arity):
-                g_src.append(gb + np.arange(N) * arity + s)
-                g_tgt.append(sym.inv_perm[ids[:, s]])
-            hb += N * npair
-            gb += N * arity
-        self._n_hc, self._n_gc = hb, gb
-        h_src, h_tgt = _cat(h_src, np.int64), _cat(h_tgt, np.int64)
-        order = np.argsort(h_tgt, kind="stable")
-        counts = np.bincount(h_tgt, minlength=B)
-        diag_col = np.full(B, -1, np.int32)
-        diag_col[sym.diag_block_by_col] = np.arange(n, dtype=np.int32)
-        in_t = (counts > 0) | (diag_col >= 0)
-        self.asm_src = h_src[order].astype(np.int32)
-        self.asm_blk = np.flatnonzero(in_t).astype(np.int32)
-        self.asm_ptr = np.concatenate(
-            [[0], np.cumsum(counts[self.asm_blk])]).astype(np.int32)
-        self.asm_diag = diag_col[self.asm_blk]
-        g_src, g_tgt = _cat(g_src, np.int64), _cat(g_tgt, np.int64)
-        gorder = np.argsort(g_tgt, kind="stable")
-        self.g_src = g_src[gorder].astype(np.int32)
-        self.g_ptr = _csr(g_tgt, n)
+        # system: the graph's contribution plan, summed per block of T (the
+        # blocks H puts something into, and every diagonal) in the JAX
+        # plan's order, and per variable for g
+        cp = self._cplan = self.bound.contribution_plan()
+        asm = cp.assembly(
+            [[bids for _, _, bids, _ in plan] for plan in self.assembly],
+            [[sym.inv_perm[ids[:, s]] for s in range(ids.shape[1])]
+             for ids in self.batch_var_ids], B, sym.diag_block_by_col, n)
+        self._n_hc, self._n_gc = cp.n_hc, cp.n_gc
+        for key in ("asm_src", "asm_ptr", "asm_blk", "asm_diag", "g_src",
+                    "g_ptr"):
+            setattr(self, key, asm[key])
 
         # kernel 13: per leading column (level order) its blocks, diagonal
         # first, and per block its triples sorted by target (stable: the
@@ -308,8 +285,10 @@ class SparseCholeskySolver:
         # stored tail block (stable: the JAX order)
         T = self.n_tail
         self.t_map = np.full(T * T, -1, dtype=np.int32)
-        self.t_map[self.tail_r.astype(np.int64) * T + self.tail_c] = \
-            np.arange(len(self.tail_bids), dtype=np.int32)
+        self.t_pos = (self.tail_r.astype(np.int64) * T
+                      + self.tail_c).astype(np.int32)
+        self.t_map[self.t_pos] = np.arange(len(self.tail_bids),
+                                           dtype=np.int32)
         pos = np.full(B, -1, np.int64)
         pos[self.tail_bids] = np.arange(len(self.tail_bids))
         lt, lik, ljk = self.late_triples
@@ -437,14 +416,16 @@ class SparseCholeskySolver:
             asm_blk=t(self.asm_blk), asm_diag=t(self.asm_diag),
             g_src=t(self.g_src), g_ptr=t(self.g_ptr),
             pad_diag=t(self.pad_diag, F64),
-            flips=[[t(flip, torch.bool) for (_, _, _, flip) in plan]
-                   for plan in self.assembly],
+            flips=self._cplan.row_flips(
+                [[flip for (_, _, _, flip) in plan]
+                 for plan in self.assembly], dev),
             f_cols=t(self.f_cols), f_cptr=t(self.f_cptr),
             f_cblk=t(self.f_cblk), f_tptr=t(self.f_tptr),
             f_tik=t(self.f_tik), f_tjk=t(self.f_tjk),
             f_wptr=t(self.f_wptr), f_wsrc=t(self.f_wsrc),
             f_lptr=t(self.f_lptr),
             t_map=t(self.t_map), t_bid=t(self.tail_bids),
+            t_pos=t(self.t_pos),
             l_ptr=t(self.l_ptr), l_ik=t(self.l_ik), l_jk=t(self.l_jk),
             t_cols=t(self.tail_cols),
             fw={k: t(v) for k, v in fw.items()},
@@ -471,15 +452,8 @@ class SparseCholeskySolver:
         d, dv, bound = self.d, self.dev, self.bound
         hc = torch.empty((self._n_hc, d * d), dtype=F64, device=self.device)
         gc = torch.empty((self._n_gc, d), dtype=F64, device=self.device)
-        for bi, b in enumerate(bound.graph.batches):
-            N, arity = b.num_factors, b.arity
-            npair = arity * (arity + 1) // 2
-            bound.contributions(
-                bi, arrays,
-                hc[self._h_base[bi]:self._h_base[bi] + N * npair].view(
-                    N, npair, d * d),
-                gc[self._g_base[bi]:self._g_base[bi] + N * arity].view(
-                    N, arity, d), dv.flips[bi])
+        for bi in range(len(bound.graph.batches)):
+            bound.contributions(bi, arrays, self._cplan, hc, gc, dv.flips[bi])
         return SK.pg_assemble(hc, gc, dv.asm_src, dv.asm_ptr, dv.asm_blk,
                               dv.asm_diag, dv.g_src, dv.g_ptr, dv.pad_diag,
                               self.B, out)
@@ -507,9 +481,9 @@ class SparseCholeskySolver:
         tail = None
         if T:
             M = _kernels.row_strided(T * d, F64, dev)
-            K.sp_tail_assemble(blocks, L, dv.t_map, dv.t_bid, dv.l_ptr,
-                               dv.l_ik, dv.l_jk, dv.t_cols, dv.pad_diag,
-                               lam, M)
+            K.sp_tail_assemble(blocks, L, dv.t_map, dv.t_bid, dv.t_pos,
+                               dv.l_ptr, dv.l_ik, dv.l_jk, dv.t_cols,
+                               dv.pad_diag, lam, M)
             tail = dense_blocked.blocked_cholesky(M)
             ok = ok & (tail[2] == 0)
         return Factored(L, tail, ok, rec, state)

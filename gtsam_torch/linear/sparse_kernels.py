@@ -52,7 +52,7 @@ KERNELS = _kernels.table(
     Kernel("sp_level_factor", "sp_level", "sp_level_factor", f"{_SP}:235",
            [INT] * 4 + [P] * 10 + [DBL] + [P] * 3),
     Kernel("sp_tail_assemble", "sp_level", "sp_tail_assemble", f"{_SP}:252",
-           [INT] * 3 + [P] * 9 + [DBL, P]),
+           [INT] * 4 + [P] * 10 + [DBL, P]),
     Kernel("sp_level_forward", "sp_level", "sp_level_forward", f"{_SP}:278",
            [INT] * 5 + [P] * 13),
     Kernel("sp_level_backward", "sp_level", "sp_level_backward",
@@ -220,8 +220,8 @@ def sp_level_factor(A, cols, cptr, cblk, tptr, tik, tjk, lptr, wptr, wsrc,
     return L, rec
 
 
-def sp_tail_assemble_plain(A, L, tmap, tbid, lptr, lik, ljk, tcols, pad,
-                           lam, M):
+def sp_tail_assemble_plain(A, L, tmap, tbid, tpos, lptr, lik, ljk, tcols,
+                           pad, lam, M):
     d = pad.shape[1]
     T = tcols.shape[0]
     Lv = L.view(-1, d, d)
@@ -243,16 +243,20 @@ def sp_tail_assemble_plain(A, L, tmap, tbid, lptr, lik, ljk, tcols, pad,
     return M
 
 
-def sp_tail_assemble(A, L, tmap, tbid, lptr, lik, ljk, tcols, pad, lam, M):
+def sp_tail_assemble(A, L, tmap, tbid, tpos, lptr, lik, ljk, tcols, pad, lam,
+                     M):
     """Kernel 13, the dense root: for every stored block of the tail
     (tbid[e] at tail block position (r, c), r >= c, tmap[r*T + c] = e, else
-    -1), A_b (+ lam (1 - pad) on its true diagonal when r == c) less the
-    sum of L_ik L_jk^T over its late triples lik/ljk[lptr[e]:lptr[e+1]]
-    (the leading columns' L, in L), written into M (T*d x T*d, rows
-    contiguous at any stride) at block (r, c) and, transposed, at (c, r);
-    M's other blocks are zeroed.  tcols (T,): the tail's columns.  On the
-    card one launch, a warp a block of M's lower triangle."""
-    args = (A, L, tmap, tbid, lptr, lik, ljk, tcols, pad)
+    -1; tpos[e] = r*T + c), A_b (+ lam (1 - pad) on its true diagonal when
+    r == c) less the sum of L_ik L_jk^T over its late triples
+    lik/ljk[lptr[e]:lptr[e+1]] (the leading columns' L, in L), written into
+    M (T*d x T*d, rows contiguous at any stride) at block (r, c) and,
+    transposed, at (c, r); M's other blocks are zeroed.  tcols (T,): the
+    tail's columns.  On the card one launch: a warp a stored block, its
+    triples' L blocks staged in shared memory a trip at a time, the block
+    and its transpose stored a lane an entry along M's rows; the last CTAs
+    zero the rest."""
+    args = (A, L, tmap, tbid, tpos, lptr, lik, ljk, tcols, pad)
     if on_cpu(*args, M):
         return sp_tail_assemble_plain(*args, lam, M)
     B, dd = A.shape
@@ -261,7 +265,8 @@ def sp_tail_assemble(A, L, tmap, tbid, lptr, lik, ljk, tcols, pad, lam, M):
     nb = tbid.shape[0]
     dev = check("sp_tail_assemble", ("A", A, F64, (B, dd)),
                 ("L", L, F64, (B, dd)), ("tmap", tmap, I32, (T * T,)),
-                ("tbid", tbid, I32, (nb,)), ("lptr", lptr, I32, (nb + 1,)),
+                ("tbid", tbid, I32, (nb,)), ("tpos", tpos, I32, (nb,)),
+                ("lptr", lptr, I32, (nb + 1,)),
                 ("lik", lik, I32, tuple(lik.shape)),
                 ("ljk", ljk, I32, tuple(lik.shape)),
                 ("tcols", tcols, I32, (T,)), ("pad", pad, F64, (n, d)),
@@ -271,8 +276,8 @@ def sp_tail_assemble(A, L, tmap, tbid, lptr, lik, ljk, tcols, pad, lam, M):
         raise ValueError(f"sp_tail_assemble: A must have shape "
                          f"{(B, d * d)}")
     KERNELS["sp_tail_assemble"].launch(
-        dev, T, d, M.stride(0),
-        *map(ptr, (tmap, tbid, lptr, lik, ljk, tcols, A, L, pad)),
+        dev, T, d, M.stride(0), nb,
+        *map(ptr, (tmap, tbid, tpos, lptr, lik, ljk, tcols, A, L, pad)),
         float(lam), ptr(M))
     return M
 

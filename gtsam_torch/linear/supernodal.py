@@ -8,9 +8,12 @@ package's, array for array, and move to the device once (`to`).  Then:
 
   system:    kernel 6 linearizes the SE3 and SE2 between/prior batches
              (robust ones with their loss's IRLS weights) straight into
-             a contribution buffer (other batches: the generic torch.func
-             path), and pg_assemble sums it into the block store (B+1, d*d)
-             and the gradient (n, d) through sorted CSRs;
+             a contribution buffer, a row a factor and slot pair, kernel
+             17 the projection batches, a row a chunk of factors and
+             target (the graph's ContributionPlan; other batches: the
+             generic torch.func path), and pg_assemble sums it into the
+             block store (B+1, d*d) and the gradient (n, d) through sorted
+             CSRs;
   factorize: per level, kernel 7's front kernel gathers the fronts and
              panels from a working copy of the store (damping applied
              there), factors and inverts every front in one launch and
@@ -32,7 +35,8 @@ working copy receives.  The invariant: outside T, the store that system()
 returns is zero.  The assembly plan (asm_ptr over asm_src, asm_diag) and
 the matvec's row and column CSRs list T's blocks only, in the JAX plans'
 order with the fill removed, so their sums are the JAX package's less
-exact-zero terms.  system(arrays, out=store) writes T's rows of a store
+exact-zero terms (a projection batch's: its chunks' partial sums in chunk
+order).  system(arrays, out=store) writes T's rows of a store
 that is zero outside T and leaves the rest alone: SparseSolver owns one
 such store, zeroed once, and every iteration assembles into it.
 
@@ -332,6 +336,7 @@ class SupernodalCholeskySolver:
                 self._asm_plan.append((s1, s2, flip, pos))
                 asm_tgt.append(bids)
                 pos += len(bids)
+        self._pair_bids = asm_tgt
         if asm_tgt:
             ao, aseg, auniq = _sorted_segments(np.concatenate(asm_tgt))
             self._asm_order, self._asm_seg, self._asm_uniq = ao, aseg, auniq
@@ -392,48 +397,32 @@ class SupernodalCholeskySolver:
 
     def _port_plans(self):
         """Host arrays the port's kernels read on top of the JAX plans: the
-        contribution buffer's layout (factor-major per batch: factor n's
-        slot pairs, then its slots), the assembly CSRs over that layout and
-        over T, the matvec's CSRs over T, and the CSR offsets of the Schur
-        and forward segments."""
+        assembly CSRs over the contribution buffer (the bound graph's
+        ContributionPlan) and over T, the matvec's CSRs over T, and the CSR
+        offsets of the Schur and forward segments."""
         n, B = self.nvars, self.B
         sym = self.sym
-        h_port, g_port = [], []
-        self._h_base, self._g_base = [], []
-        hb = gb = 0
+        # the buffer's rows and T (H's own blocks, module docstring): the
+        # graph's contribution plan over this solver's blocks and order
+        cp = self._cplan = self.bound.contribution_plan()
+        pair_tgt, slot_tgt, k = [], [], 0
         for ids in self.batch_var_ids:
-            N, arity = ids.shape
-            npair = len(_slot_pairs(arity))
-            self._h_base.append(hb)
-            self._g_base.append(gb)
-            for p in range(npair):     # JAX position (pair p, factor k)
-                h_port.append(hb + np.arange(N) * npair + p)
-            for s in range(arity):
-                g_port.append(gb + np.arange(N) * arity + s)
-            hb += N * npair
-            gb += N * arity
-        self._n_hc, self._n_gc = hb, gb
-        h_port = np.concatenate(h_port) if h_port else np.zeros(0, np.int64)
-        g_port = np.concatenate(g_port) if g_port else np.zeros(0, np.int64)
-        self.asm_src = h_port[self._asm_order].astype(np.int32)
-        counts = np.zeros(B, np.int64)
-        counts[self._asm_uniq] = np.bincount(self._asm_seg,
-                                             minlength=len(self._asm_uniq))
-        diag_col = np.full(B, -1, np.int32)
-        diag_col[sym.diag_block_by_col] = np.arange(n, dtype=np.int32)
-        # T: H's own blocks (module docstring), ascending, as asm_src's
-        # targets are sorted
-        in_t = (counts > 0) | (diag_col >= 0)
-        self.asm_blk = np.flatnonzero(in_t).astype(np.int32)
-        self.asm_ptr = np.concatenate(
-            [[0], np.cumsum(counts[self.asm_blk])]).astype(np.int32)
-        self.asm_diag = diag_col[self.asm_blk]
-        self.g_src = g_port[self._g_order].astype(np.int32)
-        gcounts = np.zeros(n, np.int64)
-        gcounts[self._g_uniq] = np.bincount(self._g_seg,
-                                            minlength=len(self._g_uniq))
-        self.g_ptr = np.concatenate([[0], np.cumsum(gcounts)]).astype(
-            np.int32)
+            npair = len(_slot_pairs(ids.shape[1]))
+            pair_tgt.append(self._pair_bids[k:k + npair])
+            slot_tgt.append([sym.inv_perm[ids[:, s]]
+                             for s in range(ids.shape[1])])
+            k += npair
+        asm = cp.assembly(pair_tgt, slot_tgt, B, sym.diag_block_by_col, n)
+        self._n_hc, self._n_gc = cp.n_hc, cp.n_gc
+        # the QR pool's layout: a row block a factor and slot, factor-major
+        # per batch
+        sizes = [ids.size for ids in self.batch_var_ids]
+        self._pool_base = np.concatenate([[0], np.cumsum(sizes)])[:-1]
+        self._n_pool = int(sum(sizes))
+        for key in ("asm_src", "asm_ptr", "asm_blk", "asm_diag", "g_src",
+                    "g_ptr"):
+            setattr(self, key, asm[key])
+        in_t = asm["in_t"]
         # the matvec's CSRs: the JAX plan's sorted blocks that lie in T
         ro, rseg, runiq, offd, coi, cseg, cuniq = self._mv_plan
         self.mv_row_blk = ro[in_t[ro]].astype(np.int32)
@@ -541,8 +530,9 @@ class SupernodalCholeskySolver:
             sol_y=torch.empty(self.n_y, dtype=F64, device=dev),
             sol_c=torch.empty(self.n_c, dtype=F64, device=dev),
             fronts=sum(lp.S for lp in self.level_plans),
-            flips=[[t(flip, torch.bool) for (_, _, flip, _) in pairs]
-                   for pairs in self._batch_pairs()],
+            flips=self._cplan.row_flips(
+                [[flip for (_, _, flip, _) in pairs]
+                 for pairs in self._batch_pairs()], dev),
             # the Schur update's scratch (U and partial tiles), a level at a
             # time
             schur_U=torch.empty(max([K.update_split(
@@ -592,15 +582,8 @@ class SupernodalCholeskySolver:
         bound = self.bound
         hc = torch.empty((self._n_hc, d * d), dtype=F64, device=self.device)
         gc = torch.empty((self._n_gc, d), dtype=F64, device=self.device)
-        for bi, b in enumerate(bound.graph.batches):
-            N, arity = b.num_factors, b.arity
-            npair = len(_slot_pairs(arity))
-            bound.contributions(
-                bi, arrays,
-                hc[self._h_base[bi]:self._h_base[bi] + N * npair].view(
-                    N, npair, d * d),
-                gc[self._g_base[bi]:self._g_base[bi] + N * arity].view(
-                    N, arity, d), dv.flips[bi])
+        for bi in range(len(bound.graph.batches)):
+            bound.contributions(bi, arrays, self._cplan, hc, gc, dv.flips[bi])
         return K.pg_assemble(hc, gc, dv.asm_src, dv.asm_ptr, dv.asm_blk,
                              dv.asm_diag, dv.g_src, dv.g_ptr, dv.pad_diag,
                              self.B + 1, out)
@@ -734,7 +717,7 @@ class SupernodalCholeskySolver:
         for bi, (b, ids) in enumerate(zip(batches, self.batch_var_ids)):
             pcols = sym.inv_perm[ids]
             smin = sym.snode_of[pcols.min(axis=1)]
-            base = self._g_base[bi]
+            base = self._pool_base[bi]
             for i in range(ids.shape[0]):
                 sn = int(smin[i])
                 slots[sn].append([(base + i * ids.shape[1] + a,
@@ -797,14 +780,14 @@ class SupernodalCholeskySolver:
         the pool layout of _qr_plan: kernel 6's Jacobian mode for the
         batches it routes, the generic linearization for the others."""
         qp = self._qr_plan()
-        pool = torch.empty((self._n_gc, qp.rmax, self.d), dtype=F64,
+        pool = torch.empty((self._n_pool, qp.rmax, self.d), dtype=F64,
                            device=self.device)
         for bi, b in enumerate(self.bound.graph.batches):
             N, arity = b.num_factors, b.arity
+            p0 = int(self._pool_base[bi])
             self.bound.jacobian_rows(
-                bi, arrays, pool[self._g_base[bi]:self._g_base[bi]
-                                 + N * arity].view(N, arity, qp.rmax,
-                                                   self.d))
+                bi, arrays, pool[p0:p0 + N * arity].view(N, arity, qp.rmax,
+                                                        self.d))
         return pool
 
     def factorize_qr(self, pool, lam=0.0, pivot_tol=1e-10) -> Factored:

@@ -37,6 +37,7 @@ it is 16-byte aligned and 8 where not (the store stays 3 wide).
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import _kernels
@@ -98,7 +99,7 @@ KERNELS = _kernels.table(
            [INT] * 8 + [P] * 18 + [DBL, DBL] + [P] * 7),
     Kernel("proj_linearize", "proj_factor", "proj_linearize",
            "gtsam_tpu/graph/factors.py:147",
-           [INT, INT] + [P] * 6 + [INT, INT, P, DBL, INT, DBL, P, P, P]),
+           [INT, INT] + [P] * 6 + [INT, INT, P, DBL, INT, DBL] + [P] * 9),
     Kernel("proj_jacobians", "proj_factor", "proj_jacobians",
            "gtsam_tpu/linear/supernodal.py:769",
            [INT] * 3 + [P] * 6 + [INT, INT, P, INT, DBL, P]),
@@ -107,7 +108,7 @@ KERNELS = _kernels.table(
            [INT] + [P] * 6 + [INT, INT, P, DBL, INT, DBL, DBL, P, P, P]),
     Kernel("proj3_linearize", "proj_factor", "proj3_linearize",
            "gtsam_tpu/graph/factors.py:147",
-           [INT, INT] + [P] * 7 + [INT, INT, P, DBL, INT, DBL, P, P, P]),
+           [INT, INT] + [P] * 7 + [INT, INT, P, DBL, INT, DBL] + [P] * 9),
     Kernel("proj3_jacobians", "proj_factor", "proj3_jacobians",
            "gtsam_tpu/linear/supernodal.py:769",
            [INT] * 3 + [P] * 7 + [INT, INT, P, INT, DBL, P]),
@@ -499,9 +500,87 @@ def pg2_error(x, rows, Z, kind, noise, sign, loss=0, param=0.0, mu=1000.0):
 
 CHEIRALITY_EPS = 1e-8
 CHEIRALITY_PENALTY = 1e3
-# factors of a CTA of proj_linearize_kernel, a lane each (kFactors in
-# csrc/proj_factor.cu)
+# factors of a CTA of the Jacobian mode's proj_jacobians_kernel, a lane
+# each (kFactors in csrc/proj_factor.cu)
 PROJ_FACTORS = 32
+# factors of a CTA of the Gram mode's proj_gram_kernel, a thread each
+# (kChunk): a chunk of a batch's factors in plan order
+PROJ_CHUNK = 256
+# the kinds of a Gram-mode row: the slot pairs (0, 0), (0, 1), (1, 1) (rows
+# of H), then the slots 0 and 1 (rows of gv)
+GRAM_KINDS = 5
+GRAM_SLOT0 = 3
+
+
+class GramPlan(NamedTuple):
+    """Kernel 17's Gram-mode plan of one projection batch of N factors
+    (int32, numpy arrays on the host or tensors on the device).  Chunk c
+    holds the factors order[c * PROJ_CHUNK:(c + 1) * PROJ_CHUNK], at
+    positions 0.. in it; its rows are cptr[c]..cptr[c + 1], each of kind
+    rkind[r] (0 camera-camera, 1 camera-point, 2 point-point: a row of H;
+    3 camera, 4 point: a row of gv) summing the chunk's factors at
+    positions mem[mptr[r]:mptr[r + 1]] (ascending) into row rout[r] of H or
+    of gv.  A chunk's rows of H come first, and rout numbers the rows of H
+    (and of gv) in row order, so a chunk's are consecutive rows: the kernel
+    writes them as one span."""
+
+    order: object
+    cptr: object
+    rkind: object
+    mptr: object
+    mem: object
+    rout: object
+
+
+def proj_gram_plan(cam, pt):
+    """The Gram plan of factors with camera ids `cam` and point ids `pt`
+    ((N,) ints: equal ids, one variable).  The factors are sorted by the
+    first camera that sees their point, then by point (stable), so a
+    point's factors share a chunk and a chunk holds few cameras, and cut
+    into chunks of PROJ_CHUNK; each chunk has a row for each camera (kinds
+    0 and 3), each (camera, point) pair (1) and each point (2 and 4) its
+    factors name, rows in (kind, id) order, chunk after chunk.  Returns
+    (GramPlan of numpy int32 arrays, rep (R,) int64: each row's first
+    member, a factor of its target)."""
+    cam = np.asarray(cam, dtype=np.int64)
+    pt = np.asarray(pt, dtype=np.int64)
+    N = cam.shape[0]
+    npt = int(pt.max()) + 1 if N else 1
+    first = np.full(npt, np.iinfo(np.int64).max)
+    np.minimum.at(first, pt, cam)
+    order = np.lexsort((pt, first[pt]))
+    pos = np.empty(N, np.int64)
+    pos[order] = np.arange(N)
+    ch, loc = pos // PROJ_CHUNK, pos % PROJ_CHUNK
+    pair = cam * npt + pt
+    K = GRAM_KINDS
+    ich, iloc = np.tile(ch, K), np.tile(loc, K)
+    ikind = np.repeat(np.arange(K), N)
+    ikey = np.concatenate([cam, pair, pt, cam, pt])
+    o = np.lexsort((iloc, ikey, ikind, ich))
+    sch, skind, skey = ich[o], ikind[o], ikey[o]
+    new = np.ones(K * N, dtype=bool)
+    new[1:] = ((sch[1:] != sch[:-1]) | (skind[1:] != skind[:-1])
+               | (skey[1:] != skey[:-1]))
+    start = np.flatnonzero(new)
+    rkind = skind[start]
+    hrow = rkind < GRAM_SLOT0
+    rout = np.where(hrow, np.cumsum(hrow) - 1, np.cumsum(~hrow) - 1)
+    nchunk = -(-N // PROJ_CHUNK)
+    i32 = np.int32
+    plan = GramPlan(
+        order=order.astype(i32),
+        cptr=np.searchsorted(sch[start], np.arange(nchunk + 1)).astype(i32),
+        rkind=rkind.astype(i32),
+        mptr=np.append(start, K * N).astype(i32),
+        mem=iloc[o].astype(i32), rout=rout.astype(i32))
+    return plan, np.tile(np.arange(N), K)[o][start]
+
+
+def gram_rows(plan):
+    """(rows of H, rows of gv) that `plan` writes."""
+    nh = int((np.asarray(plan.rkind) < GRAM_SLOT0).sum())
+    return nh, len(plan.rkind) - nh
 
 
 def _zero_invalid(valid, *ts):
@@ -597,36 +676,56 @@ def _proj_jacobians_plain(cams, pts, rows, uv, kind, noise, loss, param,
     return out
 
 
-def _proj_linearize_plain(cams, pts, rows, uv, kind, noise, sign, flip, H,
-                          gv, loss, param):
+def _proj_linearize_plain(cams, pts, rows, uv, kind, noise, sign, plan,
+                          flip, H, gv, loss, param):
+    """The Gram mode's plain version: each factor's blocks and gradient
+    rows (the per-factor products), then each row of the plan the sum
+    of its members' (index_add_ in member order), the camera-point rows
+    transposed where flip says so."""
     (Ac, Ap), b = _proj_jacobians_plain(cams, pts, rows, uv, kind, noise,
                                         loss, param, None)
-    N, _, d = gv.shape
+    N = Ac.shape[0]
+    d = gv.shape[-1]
     kc = Ac.shape[-1]
     pad = torch.nn.functional.pad
-    Hv = H.view(N, 3, d, d)
-    Hv[:, 0] = pad(sign * torch.einsum("nri,nrj->nij", Ac, Ac),
-                   (0, d - kc, 0, d - kc))
-    cp = sign * torch.einsum("nri,nrj->nij", Ac, Ap)
-    Hv[:, 1] = torch.where(flip[:, None, None],
-                           pad(cp.transpose(1, 2), (0, d - kc, 0, d - 3)),
-                           pad(cp, (0, d - 3, 0, d - kc)))
-    Hv[:, 2] = pad(sign * torch.einsum("nri,nrj->nij", Ap, Ap),
-                   (0, d - 3, 0, d - 3))
-    gv[:, 0] = pad(sign * torch.einsum("nrd,nr->nd", Ac, b), (0, d - kc))
-    gv[:, 1] = pad(sign * torch.einsum("nrd,nr->nd", Ap, b), (0, d - 3))
+    blk = torch.stack([
+        pad(sign * torch.einsum("nri,nrj->nij", Ac, Ac),
+            (0, d - kc, 0, d - kc)),
+        pad(sign * torch.einsum("nri,nrj->nij", Ac, Ap),
+            (0, d - 3, 0, d - kc)),
+        pad(sign * torch.einsum("nri,nrj->nij", Ap, Ap),
+            (0, d - 3, 0, d - 3))], 1)
+    grad = torch.stack([
+        pad(sign * torch.einsum("nrd,nr->nd", Ac, b), (0, d - kc)),
+        pad(sign * torch.einsum("nrd,nr->nd", Ap, b), (0, d - 3))], 1)
+    kinds, rout = plan.rkind.long(), plan.rout.long()
+    owner = segment_owner(plan.mptr)
+    chunk = torch.searchsorted(plan.cptr[1:].long(), owner, right=True)
+    fac = plan.order.long()[chunk * PROJ_CHUNK + plan.mem.long()]
+    mk = kinds[owner]
+    R = kinds.shape[0]
+    hm = mk < GRAM_SLOT0
+    vals = blk[fac[hm], mk[hm]]
+    vals = torch.where(flip[owner[hm]][:, None, None], vals.mT, vals)
+    hsum = torch.zeros((R, d * d), dtype=F64, device=H.device).index_add_(
+        0, owner[hm], vals.reshape(-1, d * d))
+    gsum = torch.zeros((R, d), dtype=F64, device=H.device).index_add_(
+        0, owner[~hm], grad[fac[~hm], mk[~hm] - GRAM_SLOT0])
+    hr = kinds < GRAM_SLOT0
+    H[rout[hr]] = hsum[hr]
+    gv[rout[~hr]] = gsum[~hr]
 
 
 def proj_linearize_plain(R, t, calib, pts, rows, uv, kind, noise, sign,
-                         flip, H, gv, loss=0, param=0.0):
+                         plan, flip, H, gv, loss=0, param=0.0):
     _proj_linearize_plain((R, t, calib), pts, rows, uv, kind, noise, sign,
-                          flip, H, gv, loss, param)
+                          plan, flip, H, gv, loss, param)
 
 
 def proj3_linearize_plain(R, t, pts, rows, uv, K, ext, kind, noise, sign,
-                          flip, H, gv, loss=0, param=0.0):
+                          plan, flip, H, gv, loss=0, param=0.0):
     _proj_linearize_plain((R, t, K, ext), pts, rows, uv, kind, noise, sign,
-                          flip, H, gv, loss, param)
+                          plan, flip, H, gv, loss, param)
 
 
 def proj_jacobians_plain(R, t, calib, pts, rows, uv, kind, noise, loss=0,
@@ -687,51 +786,62 @@ def _proj_ptrs(cams, pts, rows, uv):
     return cp + mid if len(cams) == 3 else cp[:2] + mid + cp[2:]
 
 
-def _proj_linearize(name, cams, pts, rows, uv, kind, noise, sign, flip, H,
-                    gv, loss, param):
+def _proj_linearize(name, cams, pts, rows, uv, kind, noise, sign, plan,
+                    flip, H, gv, loss, param):
     N = rows.shape[0]
-    d = gv.shape[-1]
+    nh, dd = H.shape
+    ng, d = gv.shape
+    nr = plan.rkind.shape[0]
     dev, code, stride, nptr = _proj_specs(
         name, cams, pts, rows, uv, kind, noise, loss,
-        *_out_specs(N, 2, d, flip, H, gv))
+        ("order", plan.order, I32, (N,)),
+        ("cptr", plan.cptr, I32, (-(-N // PROJ_CHUNK) + 1,)),
+        ("rkind", plan.rkind, I32, (nr,)),
+        ("mptr", plan.mptr, I32, (nr + 1,)),
+        ("mem", plan.mem, I32, (GRAM_KINDS * N,)),
+        ("rout", plan.rout, I32, (nr,)), ("flip", flip, BOOL, (nr,)),
+        ("H", H, F64, (nh, d * d)), ("gv", gv, F64, (ng, d)))
     kc = 9 if len(cams) == 3 else 6
     if not kc <= d <= 12:
         raise ValueError(f"{name}: block width {d} outside [{kc}, 12]")
     KERNELS[name].launch(dev, N, d, *_proj_ptrs(cams, pts, rows, uv), code,
                          stride, nptr, float(sign), int(loss), float(param),
-                         ptr(flip), ptr(H), ptr(gv))
+                         *map(ptr, plan), ptr(flip), ptr(H), ptr(gv))
 
 
-def proj_linearize(R, t, calib, pts, rows, uv, kind, noise, sign, flip, H,
-                   gv, loss=0, param=0.0):
-    """Kernel 17, Gram mode: for each BalCamera projection factor n (rows
-    (N, 2) int32: its camera's and its point's rows), writes sign A_c^T
-    A_c, sign A_c^T A_p (transposed where flip[n]) and sign A_p^T A_p into
-    H[n] ((N, 3, d*d), each zero outside its leading 9x9, 9x3 or 3x3) and
-    sign A_c^T b, sign A_p^T b into gv[n] ((N, 2, d)); R, t, calib: the
-    cameras (nc, 3, 3), (nc, 3), (nc, 3); pts (np, 3); uv (N, 2) the
-    measurements; noise as pg_linearize's at 2 rows; 9 <= d <= 12.  On the
-    card one launch of one-warp CTAs, PROJ_FACTORS factors each, a lane a
-    factor, that copy their spans of H and gv out in order."""
+def proj_linearize(R, t, calib, pts, rows, uv, kind, noise, sign, plan,
+                   flip, H, gv, loss=0, param=0.0):
+    """Kernel 17, Gram mode: for the BalCamera projection factors (rows
+    (N, 2) int32: each one's camera and point rows), the rows of `plan` (a
+    GramPlan, proj_gram_plan's): each row of kind 0, 1 or 2 the sum over
+    its members of sign A_c^T A_c, sign A_c^T A_p (transposed where
+    flip[row]) or sign A_p^T A_p into H[rout] ((nh, d*d), zero outside its
+    leading 9x9, 9x3 or 3x3), each of kind 3 or 4 the sum of sign A_c^T b
+    or sign A_p^T b into gv[rout] ((ng, d)); R, t, calib: the cameras (nc,
+    3, 3), (nc, 3), (nc, 3); pts (np, 3); uv (N, 2) the measurements; noise
+    as pg_linearize's at 2 rows; 9 <= d <= 12.  On the card one launch, a
+    CTA a chunk of PROJ_CHUNK factors in plan order, a thread a factor,
+    whose warps then sum the chunk's rows in member order."""
     args = (R, t, calib, pts, rows, uv)
-    if on_cpu(*args, *_tensors(noise), flip, H, gv):
-        return proj_linearize_plain(*args, kind, noise, sign, flip, H, gv,
-                                    loss, param)
+    if on_cpu(*args, *_tensors(noise), *plan, flip, H, gv):
+        return proj_linearize_plain(*args, kind, noise, sign, plan, flip, H,
+                                    gv, loss, param)
     _proj_linearize("proj_linearize", (R, t, calib), pts, rows, uv, kind,
-                    noise, sign, flip, H, gv, loss, param)
+                    noise, sign, plan, flip, H, gv, loss, param)
 
 
-def proj3_linearize(R, t, pts, rows, uv, K, ext, kind, noise, sign, flip, H,
-                    gv, loss=0, param=0.0):
+def proj3_linearize(R, t, pts, rows, uv, K, ext, kind, noise, sign, plan,
+                    flip, H, gv, loss=0, param=0.0):
     """Kernel 17's GenericProjection variant, Gram mode: proj_linearize for
     SE3 + Point3 factors with the fixed K (5,) and extrinsic ext (12,) or
     None; 6 <= d <= 12."""
     args = (R, t, pts, rows, uv, K)
-    if on_cpu(*args, *_tensors(ext, noise), flip, H, gv):
+    if on_cpu(*args, *_tensors(ext, noise), *plan, flip, H, gv):
         return proj3_linearize_plain(R, t, pts, rows, uv, K, ext, kind,
-                                     noise, sign, flip, H, gv, loss, param)
+                                     noise, sign, plan, flip, H, gv, loss,
+                                     param)
     _proj_linearize("proj3_linearize", (R, t, K, ext), pts, rows, uv, kind,
-                    noise, sign, flip, H, gv, loss, param)
+                    noise, sign, plan, flip, H, gv, loss, param)
 
 
 def _proj_jacobians(name, cams, pts, rows, uv, kind, noise, loss, param,

@@ -344,7 +344,7 @@ def test_values_of_cameras():
             "Point3": np.arange(20, 25)}
     jv = JValues({"BalCamera": jcams, "PinholeCameraS2": js2,
                   "Point3": jnp.asarray(pts)}, keys)
-    tv = Values.from_numpy(jv.arrays, keys)
+    tv = Values.from_numpy(jv.arrays, keys, device="cpu")
     assert isinstance(tv.arrays["BalCamera"], tcam.BalCamera)
     assert isinstance(tv.arrays["PinholeCameraS2"].pose, SE3)
     assert tv.layout().total_dim == jv.layout().total_dim == 4 * 9 + 33 + 15
@@ -361,6 +361,26 @@ def test_values_of_cameras():
     fe = Values.from_entries([(k, "BalCamera", tvalues.take_rows(
         tv.arrays["BalCamera"], i)) for i, k in enumerate(keys["BalCamera"])])
     _close(_flat(fe.arrays["BalCamera"]), _flat(tv.arrays["BalCamera"]))
+
+
+def test_values_from_numpy_default_to_cuda(monkeypatch):
+    """Values.from_numpy and element_from_numpy with no device go to the
+    card, as the port's other entry points do: with no CUDA present they
+    raise config.resolve_device's error."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(6)
+    _, cams = _element(rng, "BalCamera", 2)
+    pts = rng.normal(size=(3, 3))
+    keys = {"BalCamera": np.arange(2), "Point3": np.arange(10, 13)}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Values.from_numpy({"BalCamera": cams, "Point3": pts}, keys)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tvalues.element_from_numpy("Point3", pts)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tvalues.element_from_numpy("BalCamera", cams)
+    tv = Values.from_numpy({"BalCamera": cams, "Point3": pts}, keys,
+                           device="cpu")
+    assert tv.arrays["Point3"].device.type == "cpu"
 
 
 def jax_row(jv, key):

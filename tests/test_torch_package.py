@@ -184,8 +184,9 @@ def _meta_args_sparse(name, B=10, n=5, J=3, T=2, nv=4, Q=8):
         "sp_level_factor": (f(B, 36), i(J), i(J + 1), i(5), i(6), i(7), i(7),
                             i(3), i(J + 1), i(2), f(n, 6), 0.1, f(B, 36),
                             i(J), i(n), 1),
-        "sp_tail_assemble": (f(B, 36), f(B, 36), i(T * T), i(3), i(4), i(5),
-                             i(5), i(T), f(n, 6), 0.1, f(6 * T, 6 * T)),
+        "sp_tail_assemble": (f(B, 36), f(B, 36), i(T * T), i(3), i(3), i(4),
+                             i(5), i(5), i(T), f(n, 6), 0.1,
+                             f(6 * T, 6 * T)),
         "sp_level_forward": (f(B, 36), f(6 * n), i(6 * n), f(n, 6),
                              f(T, 6), i(J), i(J), i(J), i(J + 1), i(4),
                              i(4), i(3), J - 1, i(n), 1),
@@ -252,6 +253,10 @@ def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
     plan = supernodal_kernels.SchurPlan(
         i(7), i(T + 1), i(T), i(7), S, W, R, 6, nb,
         supernodal_kernels.update_split(S, W, R, 6, T))
+    G = 10    # a Gram plan's rows: 6 of H, 4 of gv
+    gram = supernodal_kernels.GramPlan(
+        i(N), i(-(-N // supernodal_kernels.PROJ_CHUNK) + 1), i(G), i(G + 1),
+        i(supernodal_kernels.GRAM_KINDS * N), i(G))
     m = 40
     qr = supernodal_kernels.QRLevel(
         S, W, R, 6, 0, m, S * m * (Wd + Rd), i(S), l(S), i(S + 1), i(3),
@@ -267,13 +272,13 @@ def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
                                f(N, 2, 6, 6)),
         "pg2_jacobians": se2 + ("gaussian", f(N, 3, 3), 0, 0.0,
                                 f(N, 2, 3, 3)),
-        "proj_linearize": bal + ("gaussian", f(N, 2, 2), 1.0, b(N),
-                                 f(N, 3, 81), f(N, 2, 9)),
+        "proj_linearize": bal + ("gaussian", f(N, 2, 2), 1.0, gram, b(G),
+                                 f(6, 81), f(4, 9)),
         "proj_jacobians": bal + ("gaussian", f(N, 2, 2), 0, 0.0,
                                  f(N, 2, 2, 9)),
         "proj_error": bal + ("diagonal", f(N, 2), 1.0),
-        "proj3_linearize": pin + ("gaussian", f(N, 2, 2), 1.0, b(N),
-                                  f(N, 3, 36), f(N, 2, 6)),
+        "proj3_linearize": pin + ("gaussian", f(N, 2, 2), 1.0, gram, b(G),
+                                  f(6, 36), f(4, 6)),
         "proj3_jacobians": pin + ("gaussian", f(N, 2, 2), 0, 0.0,
                                   f(N, 2, 2, 6)),
         "proj3_error": pin + ("diagonal", f(N, 2), 1.0),
@@ -494,8 +499,9 @@ def _cpu_args_sparse(name):
                             dv.f_wptr, dv.f_wsrc, dv.pad_diag, 0.3, L13,
                             torch.zeros(len(s.f_cols), dtype=torch.int32),
                             flags, 1),
-        "sp_tail_assemble": (blocks, Lf, dv.t_map, dv.t_bid, dv.l_ptr,
-                             dv.l_ik, dv.l_jk, dv.t_cols, dv.pad_diag, 0.3,
+        "sp_tail_assemble": (blocks, Lf, dv.t_map, dv.t_bid, dv.t_pos,
+                             dv.l_ptr, dv.l_ik, dv.l_jk, dv.t_cols,
+                             dv.pad_diag, 0.3,
                              torch.zeros((T * d, T * d),
                                          dtype=torch.float64)),
         "sp_level_forward": (Lf, g.reshape(-1), None,
@@ -636,10 +642,12 @@ def _cpu_args_proj(name):
     args = supernodal_kernels.group_args(group, vals.arrays, st.rows_i32, b)
     N, d = b.num_factors, s.d
     z = torch.zeros
+    gram = s._cplan.gram[0]
     return {
-        "linearize": args + ("gaussian", b.noise.data, 1.0, s.dev.flips[0][1],
-                             z((N, 3, d * d), dtype=torch.float64),
-                             z((N, 2, d), dtype=torch.float64)),
+        "linearize": args + ("gaussian", b.noise.data, 1.0,
+                             s._cplan.device_gram("cpu")[0], s.dev.flips[0],
+                             z((gram.nh, d * d), dtype=torch.float64),
+                             z((gram.ng, d), dtype=torch.float64)),
         "jacobians": args + ("gaussian", b.noise.data, 0, 0.0,
                              z((N, 2, 2, d), dtype=torch.float64)),
         "error": args + ("gaussian", b.noise.data, -1.0),

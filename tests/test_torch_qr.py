@@ -226,7 +226,7 @@ def test_qr_plan_against_the_jax_cell_maps(cases, which):
     for bi, b in enumerate(c.tg.batches):
         for i in range(b.num_factors):
             for s in range(b.arity):
-                tid[ts._g_base[bi] + i * b.arity + s] = (bi, i, s)
+                tid[ts._pool_base[bi] + i * b.arity + s] = (bi, i, s)
     sn_of = {}
     for lp in ts.level_plans:
         for sid in lp.snodes:
@@ -274,14 +274,14 @@ def _jax_pool(c, jg, jv):
     """The JAX package's whitened Jacobian rows (factors.linearize) in the
     port's pool layout."""
     ts = c.ts
-    pool = np.zeros((ts._n_gc, c.ts._qr_plan().rmax, ts.d))
+    pool = np.zeros((ts._n_pool, c.ts._qr_plan().rmax, ts.d))
     for bi, (wJ, _) in enumerate(jax.jit(jg.bind(jv).linearize)(
             jv.arrays)):
         b = c.tg.batches[bi]
         N = b.num_factors
         for s, J in enumerate(wJ):
             J = np.asarray(J)
-            pool[ts._g_base[bi] + np.arange(N) * b.arity + s,
+            pool[ts._pool_base[bi] + np.arange(N) * b.arity + s,
                  :J.shape[1], :J.shape[2]] = J
     return pool
 

@@ -134,7 +134,7 @@ def test_read_bundler_matches_jax(tmp_path):
 
 
 def _jax_values(jv):
-    return Values.from_numpy(jv.arrays, jv.keys)
+    return Values.from_numpy(jv.arrays, jv.keys, device="cpu")
 
 
 def test_to_graph_matches_jax():
@@ -210,13 +210,37 @@ def _batches(prob, kind, loss=None, param=None):
     return jb, jv, tb, tv
 
 
+def gram_per_factor(linearize, args, sign, flip, d, la=()):
+    """Kernel 17's plain Gram mode (`linearize`, on the batch's leading
+    arguments, noise kind and data `args`) on a plan whose rows are single
+    factors (each factor with a camera and a point of its own), the rows
+    put back a factor each: H (M, 3, d*d) and gv (M, 2, d), the (0, 1)
+    block transposed where the factor's flip says so."""
+    M = flip.shape[0]
+    plan, rep = K.proj_gram_plan(np.arange(M), M + np.arange(M))
+    assert (np.diff(plan.mptr) == 1).all()
+    nh, ng = K.gram_rows(plan)
+    f64 = torch.float64
+    H = torch.full((nh, d * d), np.nan, dtype=f64)
+    gv = torch.full((ng, d), np.nan, dtype=f64)
+    rflip = torch.as_tensor((plan.rkind == 1) & flip.numpy()[rep])
+    linearize(*args, sign, K.GramPlan(*map(torch.as_tensor, plan)), rflip,
+              H, gv, *la)
+    h = plan.rkind < K.GRAM_SLOT0
+    Hf = torch.full((M, 3, d * d), np.nan, dtype=f64)
+    gf = torch.full((M, 2, d), np.nan, dtype=f64)
+    Hf[rep[h], plan.rkind[h]] = H[plan.rout[h]]
+    gf[rep[~h], plan.rkind[~h] - K.GRAM_SLOT0] = gv[plan.rout[~h]]
+    return Hf, gf
+
+
 def _check_kernel17_plain(jb, jv, tb, tv, d=9):
     """Kernel 17's plain Jacobian mode and Gram mode and kernel 18's plain
     error on the port's batch against the JAX package's linearize and
-    error: A and b at LIN_TOL, the H and gv blocks at store width d (zero
-    past each block's leading dims; sign -1; the (0, 1) block transposed
-    where flip says so) against the same products of the JAX Jacobians,
-    the error at ERR_TOL."""
+    error: A and b at LIN_TOL, the H and gv blocks at store width d (the
+    Gram mode on a plan of single factors; zero past each block's leading
+    dims; sign -1; the (0, 1) block transposed where flip says so) against
+    the same products of the JAX Jacobians, the error at ERR_TOL."""
     tg, jg = FactorGraph([tb]), type(jv)  # noqa: F841 (jg unused)
     bound = BoundGraph(tg, tv, "cpu")
     st, b = bound.structures[0], bound.graph.batches[0]
@@ -232,9 +256,7 @@ def _check_kernel17_plain(jb, jv, tb, tv, d=9):
     _close(bv, jbv, LIN_TOL)
     M = b.num_factors
     fl = torch.as_tensor(np.arange(M) % 3 == 1)
-    H = torch.full((M, 3, d * d), np.nan, dtype=torch.float64)
-    gv = torch.full((M, 2, d), np.nan, dtype=torch.float64)
-    K.proj_linearize_plain(*args, -1.0, fl, H, gv, *la)
+    H, gv = gram_per_factor(K.proj_linearize_plain, args, -1.0, fl, d, la)
     H, gv = H.view(M, 3, d, d).numpy(), gv.numpy()
     dims = (9, 3)
     for p, (s1, s2) in enumerate(((0, 0), (0, 1), (1, 1))):
@@ -411,3 +433,270 @@ def test_graph_lm_matches_schur_ba():
                                  device="cpu")
     _, info = ba.ba_optimize(prob, params, device="cpu")
     assert abs(res.error - info["error"]) <= SCHUR_TOL * info["error"]
+
+
+# -- kernel 17's Gram plan: a row a chunk of factors and target ---------------
+
+
+def _gram_batch(variant, noise_kind, seed=3):
+    """A projection batch of a seeded stand-in (5 cameras, 300 points: more
+    than three chunks), bound on the CPU: BalCamera (its graph form) or
+    GenericProjection (its cameras as SE3 poses with a fixed K and an
+    extrinsic); noise_kind "loss" (a gaussian model a factor under Huber
+    at the median whitened norm) or "constrained" (the first row hard).
+    Returns (the plain Gram mode, its leading arguments with the noise, the
+    rows (N, 2), the loss arguments, the sign)."""
+    from gtsam_torch.geometry import se3
+    from gtsam_torch.geometry.se3 import SE3
+    from gtsam_torch.slam import factors as tslam
+    prob = synthetic.make_bal_problem(5, 300, 4, seed=seed)
+    N = prob.num_observations
+    rng = np.random.default_rng(seed)
+    if noise_kind == "constrained":
+        model = tnoise.constrained(np.array([[0.0, 1.5]]))
+    else:
+        A = rng.normal(size=(N, 2, 2))
+        model = tnoise.information(A @ A.transpose(0, 2, 1) + np.eye(2))
+    if variant == "GenericProjection":
+        T = SE3(torch.as_tensor(prob.cam_R), torch.as_tensor(prob.cam_t))
+        body = se3.expmap(torch.tensor([0.1, 0.0, -0.1, 0.2, 0.1, 0.0],
+                                       dtype=torch.float64))
+        graph = FactorGraph([tslam.generic_projection_factors(
+            prob.obs_cam, 100 + prob.obs_pt, prob.obs_uv,
+            [500.0, 490.0, 0.0, 1.0, -2.0], model, body)])
+        vals = Values({"SE3": T, "Point3": torch.as_tensor(prob.points)},
+                      {"SE3": np.arange(prob.num_cameras),
+                       "Point3": 100 + np.arange(prob.num_points)})
+        fn, sign = K.proj3_linearize_plain, -1.0
+    else:
+        graph, vals = tbal.to_graph(prob)
+        graph.batches[0].noise = model
+        fn, sign = K.proj_linearize_plain, 1.0
+    if noise_kind == "loss":
+        bound = BoundGraph(graph, vals, "cpu")
+        b = bound.graph.batches[0]
+        r = tfactors.residuals(b, bound._xs(b, bound.structures[0],
+                                            vals.arrays))
+        med = float(torch.median(torch.linalg.norm(b.noise.whiten(r), dim=-1)))
+        graph.batches[0].noise = tnoise.robust(model, tlosses.huber(med))
+    bound = BoundGraph(graph, vals, "cpu")
+    b, st = bound.graph.batches[0], bound.structures[0]
+    group = tfactors.kernel_route(b)[0]
+    args = K.group_args(group, vals.arrays, st.rows_i32, b) + (
+        b.noise.kind, b.noise.data)
+    return fn, args, st.rows_i32.numpy(), tlosses.kernel_code(b.noise.loss), \
+        sign
+
+
+def _by_target(parts, cam, pt):
+    """parts[k] = (values, each value's factor): the sums per target of
+    Gram kind k (a camera, a camera-point pair, a point, a camera, a
+    point), each target's values added in the order given; [(target ids,
+    sums)] by kind."""
+    keys = (cam, cam * (int(pt.max()) + 1) + pt, pt, cam, pt)
+    out = []
+    for k, (vals, fac) in enumerate(parts):
+        u, inv = np.unique(keys[k][fac], return_inverse=True)
+        out.append((u, torch.zeros((len(u),) + tuple(vals.shape[1:]),
+                                   dtype=torch.float64).index_add_(
+            0, torch.as_tensor(inv), vals)))
+    return out
+
+
+GRAM_CASES = [("BalCamera", 9, "loss"), ("BalCamera", 9, "constrained"),
+              ("BalCamera", 11, "loss"), ("BalCamera", 11, "constrained"),
+              ("GenericProjection", 6, "loss"),
+              ("GenericProjection", 6, "constrained")]
+
+
+@pytest.mark.parametrize("variant,d,noise_kind", GRAM_CASES)
+def test_gram_mode_sums_the_per_factor_rows(variant, d, noise_kind):
+    """Kernel 17's plain Gram mode on its batch's plan (the factors sorted
+    by point, chunks of PROJ_CHUNK, a row a chunk and target) writes every
+    row, and its rows summed per target (a camera's block, a camera-point
+    block, a point's block, a camera's and a point's gradient row) in plan
+    order equal the per-factor rows (a plan of single factors) summed per
+    target in factor order, at LIN_TOL: both variants, store widths 9, 11
+    and 6, a loss and constrained noise, camera-point blocks transposed
+    where their flip says so."""
+    fn, args, rows, la, sign = _gram_batch(variant, noise_kind)
+    cam, pt = rows[:, 0].astype(np.int64), rows[:, 1].astype(np.int64)
+    N = len(cam)
+    fl = (cam * 7 + pt) % 3 == 1          # a function of the block
+    plan, rep = K.proj_gram_plan(cam, pt)
+    assert len(plan.cptr) - 1 == -(-N // K.PROJ_CHUNK) >= 3
+    nh, ng = K.gram_rows(plan)
+    H = torch.full((nh, d * d), np.nan, dtype=torch.float64)
+    gv = torch.full((ng, d), np.nan, dtype=torch.float64)
+    rflip = (plan.rkind == 1) & fl[rep]
+    assert rflip.any() and not rflip[plan.rkind == 1].all()
+    fn(*args, sign, K.GramPlan(*map(torch.as_tensor, plan)),
+       torch.as_tensor(rflip), H, gv, *la)
+    assert torch.isfinite(H).all() and torch.isfinite(gv).all()
+    Hf, gf = gram_per_factor(fn, args, sign, torch.as_tensor(fl), d, la)
+    kinds, rout = plan.rkind, plan.rout
+    new = ([(H[rout[kinds == k]], rep[kinds == k]) for k in range(3)]
+           + [(gv[rout[kinds == k]], rep[kinds == k]) for k in (3, 4)])
+    old = ([(Hf[:, k], np.arange(N)) for k in range(3)]
+           + [(gf[:, k], np.arange(N)) for k in range(2)])
+    for (u1, s1), (u2, s2) in zip(_by_target(new, cam, pt),
+                                  _by_target(old, cam, pt)):
+        assert np.array_equal(u1, u2)
+        _close(s1, s2, LIN_TOL)
+    # fewer rows of H than the per-factor layout's 3 a factor
+    assert nh < 2 * N
+
+
+def test_gram_single_factor_plan_is_per_factor():
+    """A plan whose rows are single factors (each factor a camera and a
+    point of its own) writes each factor's own products, exactly: its rows
+    are the Jacobian mode's sign A_s1^T A_s2 (zero past the leading dims,
+    the camera-point block transposed where flip says so) and sign A_s^T
+    b, one term each."""
+    fn, args, rows, la, sign = _gram_batch("BalCamera", "loss")
+    N, d = rows.shape[0], 9
+    fl = torch.as_tensor(np.arange(N) % 3 == 1)
+    Hf, gf = gram_per_factor(fn, args, sign, fl, d, la)
+    (Ac, Ap), b = K.proj_jacobians_plain(*args, *la)
+    pad = torch.nn.functional.pad
+    cp = pad(sign * torch.einsum("nri,nrj->nij", Ac, Ap), (0, 6, 0, 0))
+    ref = torch.stack([
+        sign * torch.einsum("nri,nrj->nij", Ac, Ac),
+        torch.where(fl[:, None, None], cp.mT, cp),
+        pad(sign * torch.einsum("nri,nrj->nij", Ap, Ap), (0, 6, 0, 6))], 1)
+    assert torch.equal(Hf, ref.reshape(N, 3, d * d))
+    gref = torch.stack([sign * torch.einsum("nrd,nr->nd", Ac, b),
+                        pad(sign * torch.einsum("nrd,nr->nd", Ap, b),
+                            (0, 6))], 1)
+    assert torch.equal(gf, gref)
+
+
+def _graph_with_prior(prob):
+    """Both packages' graph forms of prob with a second batch on the camera
+    blocks: a prior on every camera (the generic route)."""
+    tg, tv = tbal.to_graph(prob)
+    jg, jv = jbal.to_graph(prob)
+    keys = tv.keys["BalCamera"]
+    tg.add(tfactors.prior_factors("BalCamera", keys, tv.arrays["BalCamera"],
+                                  tnoise.isotropic(9, 0.5)))
+    jg.add(jfactors.prior_factors("BalCamera", keys, jv.arrays["BalCamera"],
+                                  jnoise.isotropic(9, 0.5)))
+    return tg, tv, jg, jv
+
+
+def test_gram_plan_adds_each_factor_once():
+    """A sequential model of kernel 17's walk over the plan (chunk after
+    chunk, a chunk's rows in order, a row's members in order) and of
+    pg_assemble's over the supernodal solver's CSRs, on the graph form of a
+    stand-in with a camera prior batch: every (factor, slot pair) and
+    (factor, slot) is added exactly once, to the store block or variable
+    that the JAX package's assembly plan names for it; every row of the
+    contribution buffer is summed once; a chunk's rows of H and of gv are
+    each one span of consecutive rows.  (A check of the plan, not of the
+    kernel's arithmetic.)"""
+    from gtsam_tpu.linear.supernodal import SupernodalCholeskySolver as JS
+    prob = synthetic.make_bal_problem(4, 200, 3, seed=2)
+    tg, tv, jg, jv = _graph_with_prior(prob)
+    ts = SupernodalCholeskySolver(BoundGraph(tg, tv, "cpu"))
+    js = JS(jg.bind(jv))
+    cp = ts._cplan
+    assert cp.gram[0] is not None and cp.gram[1] is None
+    # the JAX plan's target of each (batch, pair, factor) and (batch, slot,
+    # factor) position
+    jt = np.empty(len(js._asm_order), np.int64)
+    jt[js._asm_order] = js._asm_uniq[js._asm_seg]
+    gt_ = np.empty(len(js._g_order), np.int64)
+    gt_[js._g_order] = js._g_uniq[js._g_seg]
+    # the port's target of each buffer row
+    for a, n in (("asm_src", cp.n_hc), ("g_src", cp.n_gc)):
+        assert np.array_equal(np.sort(getattr(ts, a)), np.arange(n))
+    hblk = np.empty(cp.n_hc, np.int64)
+    hblk[ts.asm_src] = np.repeat(ts.asm_blk, np.diff(ts.asm_ptr))
+    gvar = np.empty(cp.n_gc, np.int64)
+    gvar[ts.g_src] = np.repeat(np.arange(ts.nvars), np.diff(ts.g_ptr))
+    jpos, gpos = 0, 0
+    for bi, b in enumerate(tg.batches):
+        N, arity = b.num_factors, b.arity
+        npair = arity * (arity + 1) // 2
+        seen = np.zeros((N, npair + arity), np.int64)
+        g = cp.gram[bi]
+        if g is None:
+            for n in range(N):
+                for p in range(npair):
+                    seen[n, p] += 1
+                    assert hblk[cp.h_base[bi] + n * npair + p] == \
+                        jt[jpos + p * N + n]
+                for s in range(arity):
+                    seen[n, npair + s] += 1
+                    assert gvar[cp.g_base[bi] + n * arity + s] == \
+                        gt_[gpos + s * N + n]
+        else:
+            pl = g.plan
+            for c in range(len(pl.cptr) - 1):
+                # the chunk's rows of H first, then of gv, each a span of
+                # consecutive rows (the kernel writes them so)
+                rk = pl.rkind[pl.cptr[c]:pl.cptr[c + 1]]
+                ro = pl.rout[pl.cptr[c]:pl.cptr[c + 1]]
+                nh = int((rk < K.GRAM_SLOT0).sum())
+                assert (rk[:nh] < K.GRAM_SLOT0).all() and nh < len(rk)
+                assert (np.diff(ro[:nh]) == 1).all()
+                assert (np.diff(ro[nh:]) == 1).all()
+                for r in range(pl.cptr[c], pl.cptr[c + 1]):
+                    k = int(pl.rkind[r])
+                    for m in range(pl.mptr[r], pl.mptr[r + 1]):
+                        n = int(pl.order[c * K.PROJ_CHUNK + pl.mem[m]])
+                        seen[n, k] += 1
+                        if k < K.GRAM_SLOT0:
+                            assert hblk[cp.h_base[bi] + pl.rout[r]] == \
+                                jt[jpos + k * N + n]
+                        else:
+                            s = k - K.GRAM_SLOT0
+                            assert gvar[cp.g_base[bi] + pl.rout[r]] == \
+                                gt_[gpos + s * N + n]
+        assert (seen == 1).all()
+        jpos += npair * N
+        gpos += arity * N
+
+
+def test_gram_plan_bounds_the_camera_rows():
+    """On a stand-in of 4 cameras (~1,000 observations each) with a camera
+    prior batch, the longest assembly row of a camera's diagonal block (and
+    of its gradient row) is at most ceil(N / PROJ_CHUNK) chunk partials
+    plus the one prior factor that shares the block, where a row a factor
+    summed every observation of the camera; the system equals the JAX
+    package's at LIN_TOL."""
+    from gtsam_tpu.linear.supernodal import SupernodalCholeskySolver as JS
+    prob = synthetic.make_bal_problem(4, 600, 4, seed=1)
+    tg, tv, jg, jv = _graph_with_prior(prob)
+    ts = SupernodalCholeskySolver(BoundGraph(tg, tv, "cpu"))
+    N = prob.num_observations
+    bound = -(-N // K.PROJ_CHUNK) + 1
+    cams = ts.sym.inv_perm[np.arange(prob.num_cameras)]
+    dblk = ts.sym.diag_block_by_col[cams]
+    lens = np.diff(ts.asm_ptr)[np.searchsorted(ts.asm_blk, dblk)]
+    glens = np.diff(ts.g_ptr)[cams]
+    per_cam = np.bincount(prob.obs_cam, minlength=prob.num_cameras)
+    assert lens.max() <= bound and glens.max() <= bound
+    assert (lens < per_cam).all() and per_cam.min() > 3 * bound
+    blocks, g = ts.system(tv.arrays)
+    jblocks, jgv = JS(jg.bind(jv)).system(jv.arrays)
+    _close(blocks, np.asarray(jblocks), LIN_TOL)
+    _close(g, np.asarray(jgv), LIN_TOL)
+
+
+def test_gradient_of_a_projection_graph_matches_jax_grad():
+    """BoundGraph.gradient on the graph form with a camera prior (kernel
+    17's Gram rows, summed a chunk at a time, beside the prior's generic
+    rows) against jax.grad of the JAX package's error through retract at
+    zero, at 1e-10 (the gradient rows' cancellation: tests/
+    test_torch_slam_factors.py's GRAD_TOL)."""
+    from gtsam_tpu.graph.values import retract_arrays as jretract
+    prob = synthetic.make_bal_problem(4, 400, 3, seed=4)
+    tg, tv, jg, jv = _graph_with_prior(prob)
+    bound = BoundGraph(tg, tv, "cpu")
+    assert bound.contribution_plan().gram[0] is not None
+    layout = jv.layout()
+    jb = jg.bind(jv)
+    ref = np.asarray(jax.grad(lambda dx: jb.error(jretract(
+        jv.arrays, dx, layout)))(jnp.zeros(layout.total_dim)))
+    _close(bound.gradient(tv.arrays), ref, 1e-10)

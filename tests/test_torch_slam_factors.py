@@ -54,6 +54,25 @@ HIST_TOL = 1e-9
 GRAD_TOL = 1e-10
 
 
+def gram_per_factor(linearize, args, sign, flip, d):
+    """Kernel 17's plain Gram mode on a plan whose rows are single factors,
+    its rows put back a factor each: H (M, 3, d*d) and gv (M, 2, d)
+    (tests/test_torch_sfm_graph.py's helper of the same name)."""
+    M = flip.shape[0]
+    plan, rep = K.proj_gram_plan(np.arange(M), M + np.arange(M))
+    nh, ng = K.gram_rows(plan)
+    H = torch.full((nh, d * d), np.nan, dtype=torch.float64)
+    gv = torch.full((ng, d), np.nan, dtype=torch.float64)
+    linearize(*args, sign, K.GramPlan(*map(torch.as_tensor, plan)),
+              torch.as_tensor((plan.rkind == 1) & flip.numpy()[rep]), H, gv)
+    h = plan.rkind < K.GRAM_SLOT0
+    Hf = torch.full((M, 3, d * d), np.nan, dtype=torch.float64)
+    gf = torch.full((M, 2, d), np.nan, dtype=torch.float64)
+    Hf[rep[h], plan.rkind[h]] = H[plan.rout[h]]
+    gf[rep[~h], plan.rkind[~h] - K.GRAM_SLOT0] = gv[plan.rout[~h]]
+    return Hf, gf
+
+
 @pytest.fixture(autouse=True)
 def _one_thread():
     torch.set_num_threads(1)
@@ -193,9 +212,8 @@ def test_generic_projection_kernel17_plain(body, noise_kind):
         _close(a, g, LIN_TOL)
     M, d = b.num_factors, 6
     fl = torch.as_tensor(np.arange(M) % 2 == 0)
-    H = torch.full((M, 3, d * d), np.nan, dtype=torch.float64)
-    gv = torch.full((M, 2, d), np.nan, dtype=torch.float64)
-    K.proj3_linearize_plain(*args, b.noise.kind, b.noise.data, 1.0, fl, H, gv)
+    H, gv = gram_per_factor(K.proj3_linearize_plain,
+                            args + (b.noise.kind, b.noise.data), 1.0, fl, d)
     H = H.view(M, 3, d, d).numpy()
     jA = [np.asarray(a) for a in jA]
     cp = np.einsum("nri,nrj->nij", jA[0], jA[1])
