@@ -174,15 +174,20 @@ and Jacobian modes and the error) against their plain versions on seeded
 batches (each noise kind, the nine losses, depths at and around the
 cheirality threshold, a partial last CTA, twice for the same bits);
 kernels 6-9 and 17-18 on a small graph-form BA at store width 9 and a
-generic projection graph at 6, as on the other graphs; small LMs (graph
+generic projection graph at 6, as on the other graphs (kernel 7's narrow
+pair, csrc/sn_narrow.cu, on their narrow point levels, with a failed pivot
+there too; every PGCase logs kernel 7's route of each level, and so do the
+main paths); small LMs (graph
 BA, generic projection, stereo, planar bearing-range SLAM) on the card
 against the CPU; the path at the dubrovnik-16-22106 shape (to_graph,
 levenberg_marquardt on SparseSolver(order="amd"), plan timed apart), twice
 for the same bits, held to the JAX run's iterations, tries and history
 (SFM_REF, 1e-9) and to the port's Schur-form ba_optimize (1e-6), exact
-launch counts; each kernel at its converged state against its plain
-version and timed (kernels 6-9 as rows "[d=9]"), the padding's bytes, a
-try by stage and one traced run (JSON `sfm`).
+launch counts (its 21,636 point fronts on the narrow pair, its root on the
+front kernel); each kernel at its converged state against its plain
+version and timed (kernels 6-9 as rows "[d=9]"; the level algebra by
+level and route beside its library calls), the padding's bytes, a try by
+stage and one traced run with the narrow pair in it (JSON `sfm`).
 The last three lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}.  Imports neither JAX nor gtsam_tpu.
 """
@@ -1124,7 +1129,17 @@ SPHERE_SOLVER = dict(refine_iters=1, supernodal_kwargs=dict(force_width=32))
 # U's blocks into the store as they do: its panel (output 0) and store
 # (output 1) carry the rounding of the same products as the front kernel's
 # L^-1, which the fronts' condition numbers amplify: 1e-10 at lam = 1 and
-# 1e-8 at lam = 1e-4.  Kernel 6's Pose2 variant shares its plain version's
+# 1e-8 at lam = 1e-4.  Kernel 7's narrow front kernel factors and inverts
+# the same fronts as the plain cholesky_ex and triangular solve, in another
+# order, and forms the panel and U's blocks from them: L, L^-1, its tile
+# inverses, Lp and its chunk rows (outputs 0, 1, 3, 4, 5) carry what the
+# front kernel's and the Schur update's carry, 1e-10 at lam = 1 and 1e-8
+# at lam = 1e-4; its records (output 2) exactly.  Kernel 7's narrow
+# scatter sums the same blocks of U as its plain version (the chunk rows
+# the plain front leaves, then the chunks in order, against the level's
+# sorted segment sum), whose terms cancel by up to ~1e2 in a camera block:
+# 1e-12 of the store's largest entry (measured ~1e-14).  Kernel 6's Pose2
+# variant shares its plain version's
 # formulas as the SE3 kernel does, and its A^T b carries r as the SE3
 # kernel's does (positions up to ~40 m from the origin): the same 1e-12
 # and 1e-10.  Kernels 17 and 18 (projection factors) share their plain
@@ -1137,6 +1152,8 @@ PG_TOL = {"pg_linearize": (1e-12, 1e-10), "pg_error": 1e-12,
           "sn_front_factor": (1e-10, 1e-10, None, 1e-10, 0.0),
           "sn_pivot_check": 0.0,
           "sn_schur_update": (1e-10, 1e-10),
+          "sn_narrow_front": (1e-10, 1e-10, None, 1e-10, 1e-10, 1e-10),
+          "sn_narrow_scatter": 1e-12,
           "sn_forward": 1e-10, "sn_backward": 1e-10,
           "sn_matvec": 1e-12,
           "pg_jacobians": 1e-12, "pg2_jacobians": 1e-12,
@@ -1146,6 +1163,7 @@ PG_TOL = {"pg_linearize": (1e-12, 1e-10), "pg_error": 1e-12,
 PG_SOLVE_TOL_SMALL_LAM = 1e-8
 # kernels that check_pg_kernels also calls twice for the same bits
 REPEAT_CHECKED = ("sn_front_factor", "sn_pivot_check", "sn_schur_update",
+                  "sn_narrow_front", "sn_narrow_scatter",
                   "pg_linearize", "pg_error", "pg2_linearize", "pg2_error",
                   "pg_jacobians", "pg2_jacobians", "proj_linearize",
                   "proj_error", "proj3_linearize", "proj3_error",
@@ -1177,6 +1195,11 @@ PG_TOL_SMALL_LAM = {"sn_forward": PG_SOLVE_TOL_SMALL_LAM,
                                         PG_SOLVE_TOL_SMALL_LAM, None,
                                         PG_SOLVE_TOL_SMALL_LAM, 0.0),
                     "sn_schur_update": (PG_SOLVE_TOL_SMALL_LAM,
+                                        PG_SOLVE_TOL_SMALL_LAM),
+                    "sn_narrow_front": (PG_SOLVE_TOL_SMALL_LAM,
+                                        PG_SOLVE_TOL_SMALL_LAM, None,
+                                        PG_SOLVE_TOL_SMALL_LAM,
+                                        PG_SOLVE_TOL_SMALL_LAM,
                                         PG_SOLVE_TOL_SMALL_LAM)}
 # the front kernel's tile inverses against the inverses of its own L's
 # diagonal tiles: two inversions of the same 32 x 32 triangles of Cholesky
@@ -1286,6 +1309,41 @@ def chains_graph(n_chains, length):
     return g, Values({"SE3": T0}, {"SE3": np.arange(n)})
 
 
+def kernel7_launches(s, factorizations):
+    """Kernel 7's launches in `factorizations` factorizations on
+    supernodal solver s, by the plan's route of each level: the front
+    kernel once a wide level, the Schur update once a wide level with a
+    panel, the narrow front kernel once a narrow level, the narrow scatter
+    once a narrow level with a panel, the pivot check once."""
+    wide = [lp for lp in s.level_plans if not lp.narrow]
+    narrow = [lp for lp in s.level_plans if lp.narrow]
+    n = factorizations
+    return {"sn_front_factor": len(wide) * n,
+            "sn_schur_update": sum(lp.R > 0 for lp in wide) * n,
+            "sn_narrow_front": len(narrow) * n,
+            "sn_narrow_scatter": sum(lp.R > 0 for lp in narrow) * n,
+            "sn_pivot_check": n}
+
+
+def log_routes(label, s):
+    """Log kernel 7's route of every level of supernodal solver s."""
+    log(f"{label}: kernel 7's routes, a level (S, W*d, R*d): "
+        + ", ".join(f"({lp.S}, {lp.W * s.d}, {lp.R * s.d}) "
+                    f"{'narrow' if lp.narrow else 'wide'}"
+                    for lp in s.level_plans))
+
+
+def schur_scratch(s, lv):
+    """The Schur update's scratch for level lv of solver s: the solver's
+    own (sized for its wide levels) where it is large enough, else a new
+    one (a narrow level that a check runs the wide pair on)."""
+    import torch
+    need = lv.schur.split.scratch
+    if s.dev.schur_U.numel() >= need:
+        return s.dev.schur_U
+    return torch.empty(need, dtype=torch.float64, device=s.dev.schur_U.device)
+
+
 def plain_levels(s, blocks, lam, dd):
     """The plain versions' factorization of `blocks` on supernodal solver s,
     level by level as factorize() runs it: per level a dict of the working
@@ -1342,6 +1400,7 @@ class PGCase:
         self.blocks, self.g = self.s.system(self.arrays)
         torch.cuda.synchronize()
         self._levels()
+        log_routes("pg case", self.s)
 
     def k6_batches(self, group):
         """(index, batch, structure) of the batches of `group` (SE3 or
@@ -1353,10 +1412,14 @@ class PGCase:
 
     def names(self):
         """The pose-graph kernels this case has calls of: kernel 6's
-        variants of the groups its batches hold, and kernels 7-9."""
+        variants of the groups its batches hold, and kernels 7-9 (kernel
+        7's narrow pair where its plan has a narrow level)."""
         from gtsam_torch.linear import supernodal_kernels as K
+        narrow = [lv for lv in self.s.dev.levels if lv.narrow is not None]
         return [n for n in K.KERNELS if n not in QR_KERNELS and (
-            n not in K6_GROUP or self.k6_batches(K6_GROUP[n]))]
+            n not in K6_GROUP or self.k6_batches(K6_GROUP[n])) and (
+            n != "sn_narrow_front" or narrow) and (
+            n != "sn_narrow_scatter" or any(lv.R for lv in narrow))]
 
     def _levels(self):
         import torch
@@ -1379,10 +1442,13 @@ class PGCase:
             self.y, self.levels, self.Linv, dv.sol_cols, dv.sol_rows,
             torch.empty((n, d), dtype=f64, device="cuda"))
 
-    def calls(self, name):
+    def calls(self, name, on_path=False):
         """[(argument maker, outputs of a call)]: each call of kernel `name`
         on this case; the maker gives fresh arguments (in-place outputs
-        cloned), the second returns the tensors to compare."""
+        cloned), the second returns the tensors to compare.  Kernel 7's wide
+        pair is called on every level (on_path: only on the levels whose
+        route it is, as factorize() calls it), its narrow pair on the
+        narrow levels."""
         import torch
         s, dv = self.s, self.s.dev
         out = []
@@ -1432,7 +1498,49 @@ class PGCase:
                 (2,), -7, dtype=torch.int32, device="cuda")),
                 lambda r, a: (a[1],))]
         for lv, e in zip(dv.levels, self.lv):
-            if name == "sn_front_factor":
+            if on_path and lv.narrow is not None and name in (
+                    "sn_front_factor", "sn_schur_update"):
+                continue
+            if name == "sn_narrow_front" and lv.narrow is not None:
+                # every output NaN-filled (the records -7, the chunk rows
+                # NaN): written whole
+                def mk(e=e, lv=lv):
+                    Wd, Rd = e["L"].shape[1], lv.R * s.d
+                    nan = float("nan")
+                    buf = [torch.full((lv.S, Wd, Wd), nan,
+                                      dtype=torch.float64, device="cuda")
+                           for _ in range(2)]
+                    buf.append(torch.full((lv.S, Wd, Rd), nan,
+                                          dtype=torch.float64, device="cuda")
+                               if lv.R else None)
+                    buf.append(torch.full((lv.S, 32, 32), nan,
+                                          dtype=torch.float64, device="cuda"))
+                    return (e["work"], self.blocks, lv.diag_ids, lv.diag_flip,
+                            lv.diag_pad, lv.valid_diag, lv.col_vars, dv.dbc,
+                            lv.panel_ids, self.lam, self.dd,
+                            torch.full((lv.S,), -7, dtype=torch.int32,
+                                       device="cuda"), lv.narrow,
+                            torch.full_like(dv.narrow_part, nan), 1e-6, 1e32,
+                            tuple(buf))
+                n = lv.narrow.nrows * s.d ** 2
+                out.append((mk, lambda r, a, n=n: (r[0], r[1], a[11], r[3])
+                            + ((r[2], a[13][:n]) if r[2] is not None
+                               else ())))
+            elif name == "sn_narrow_scatter" and lv.narrow is not None \
+                    and lv.R:
+                # the chunk rows of the plain Lp (what the plain front
+                # leaves; formed once: the model sums by index_add_, whose
+                # atomics vary its bits on the card), the level's own store
+                from gtsam_torch.linear import supernodal_kernels as K
+                part = torch.zeros_like(dv.narrow_part)
+                rows = K.narrow_chunk_plan_model(e["Lp"], lv.narrow)[0]
+                part[:rows.numel()] = rows.reshape(-1)
+
+                def mk(e=e, lv=lv, part=part):
+                    return (e["Lp"], part.clone(), lv.narrow,
+                            e["work"].clone())
+                out.append((mk, lambda r, a: (a[3],)))
+            elif name == "sn_front_factor":
                 # every output NaN-filled (the records -7): written whole
                 def mk(e=e, lv=lv):
                     Wd, Rd = e["L"].shape[1], lv.R * s.d
@@ -1459,7 +1567,8 @@ class PGCase:
                 def mk(e=e, lv=lv):
                     nan = float("nan")
                     return (e["Linv"], e["At"], lv.schur, e["work"].clone(),
-                            torch.full_like(dv.schur_U, nan),
+                            torch.full((lv.schur.split.scratch,), nan,
+                                       dtype=torch.float64, device="cuda"),
                             torch.full(e["At"].shape, nan,
                                        dtype=torch.float64, device="cuda"))
                 out.append((mk, lambda r, a: (r, a[3])))
@@ -2055,54 +2164,119 @@ def check_level_extras(case, label):
             continue
         other = torch.ones(s.B + 1, dtype=torch.bool, device="cuda")
         other[lv.schur.tgt.long()] = False
-        args = [e["Linv"], e["At"], lv.schur, e["work"].clone(),
-                s.dev.schur_U]
+        U = schur_scratch(s, lv)
+        args = [e["Linv"], e["At"], lv.schur, e["work"].clone(), U]
         K.sn_schur_update(*args)
         nan_work = e["work"].clone()
         nan_work[other] = float("nan")
-        K.sn_schur_update(*args[:3], nan_work, s.dev.schur_U)
+        K.sn_schur_update(*args[:3], nan_work, U)
         nan = torch.full_like(nan_work[other], float("nan"))
         if not (torch.equal(nan_work[other].view(torch.int64),
                             nan.view(torch.int64))
                 and torch.equal(nan_work[~other], args[3][~other])):
             raise AssertionError(f"the Schur update wrote outside its "
                                  f"targets, or read there ({label})")
+    # kernel 7's narrow pair on the narrow levels: the same two checks
+    narrow = [lv for lv in s.dev.levels if lv.narrow is not None]
+    for (mk, _), lv in zip(case.calls("sn_narrow_front"), narrow):
+        L, _, _, tiles = K.sn_narrow_front(*mk()[:-1])
+        ref = K.tile_inverses([L])
+        err = float((tiles - ref).abs().max() / ref.abs().max())
+        worst = max(worst, err)
+        if not err <= TILE_TOL:
+            raise AssertionError(f"the narrow front kernel's tile inverses "
+                                 f"({label}): {err:.3e} from those of its "
+                                 "own L")
+    for (mk, _), lv in zip(case.calls("sn_narrow_scatter"),
+                           [lv for lv in narrow if lv.R]):
+        other = torch.ones(s.B + 1, dtype=torch.bool, device="cuda")
+        other[lv.narrow.tgt.long()] = False
+        a1, a2 = mk(), mk()
+        K.sn_narrow_scatter(*a1)
+        a2[3][other] = float("nan")
+        K.sn_narrow_scatter(*a2)
+        nan = torch.full_like(a2[3][other], float("nan"))
+        if not (torch.equal(a2[3][other].view(torch.int64),
+                            nan.view(torch.int64))
+                and torch.equal(a2[3][~other], a1[3][~other])):
+            raise AssertionError(f"the narrow scatter wrote outside its "
+                                 f"targets, or read there ({label})")
     log(f"level extras ({label}): tile inverses {worst:.3e} from those of "
-        f"the kernel's own L (tol {TILE_TOL:.0e}); the Schur update leaves "
-        "every other store row alone")
+        f"the kernel's own L (tol {TILE_TOL:.0e}); the Schur update "
+        f"{'and the narrow scatter ' if narrow else ''}leave every other "
+        "store row alone")
+
+
+def card_records(s, bad, lam, dd, route):
+    """Every front's failure record of a factorization of store `bad` on
+    the card, level after level: by the plan's routes ("plan": kernel 7's
+    narrow pair on the narrow levels) or by the wide pair throughout
+    ("wide")."""
+    import torch
+    from gtsam_torch.linear import supernodal_kernels as K
+    card = torch.empty(sum(lv.S for lv in s.dev.levels), dtype=torch.int32,
+                       device="cuda")
+    work, off = bad.clone(), 0
+    for lv in s.dev.levels:
+        args = (work, bad, lv.diag_ids, lv.diag_flip, lv.diag_pad,
+                lv.valid_diag, lv.col_vars, s.dev.dbc, lv.panel_ids, lam, dd,
+                card[off:off + lv.S])
+        off += lv.S
+        if route == "plan" and lv.narrow is not None:
+            _, _, Lp, _ = K.sn_narrow_front(*args, lv.narrow,
+                                            s.dev.narrow_part)
+            if lv.R:
+                K.sn_narrow_scatter(Lp, s.dev.narrow_part, lv.narrow, work)
+            continue
+        _, Linv, At, _ = K.sn_front_factor(*args)
+        if lv.R:
+            K.sn_schur_update(Linv, At, lv.schur, work, schur_scratch(s, lv))
+    return card
 
 
 def check_bad_pivot(case, label):
-    """The front kernel's failure records: a store whose middle level's
+    """The front kernels' failure records: a store whose middle level's
     first front has its first column's diagonal at -1e6 factorizes on the
-    card to ok False and the badcol the plain versions give, every level's
-    records equal to theirs."""
+    card to ok False and the badcol the plain versions give, the wide
+    pair's records on every level equal to theirs; and where the plan has a
+    narrow level (the middle one, or else the first), the plan's routes
+    give those records up to the failing level (the later levels read the
+    failed front's zeroed factor, which each route leaves its own way)
+    and, with the failure in the first narrow level, the same (ok, badcol)
+    as the wide pair."""
     import torch
     from gtsam_torch.linear import supernodal_kernels as K
     s = case.s
     m = len(s.level_plans) // 2
-    c = int(s.level_plans[m].col_vars[0, 0])
-    bad = case.blocks.clone()
-    bad[int(s.sym.diag_block_by_col[c]), 0] = -1e6
-    f = s.factorize(bad, case.lam, case.dd)
-    _, recs, state = plain_levels(s, bad, case.lam, case.dd)
-    card = torch.empty_like(recs)
-    work, off = bad.clone(), 0
-    for lv in s.dev.levels:
-        _, Linv, At, _ = K.sn_front_factor(
-            work, bad, lv.diag_ids, lv.diag_flip, lv.diag_pad, lv.valid_diag,
-            lv.col_vars, s.dev.dbc, lv.panel_ids, case.lam, case.dd,
-            card[off:off + lv.S])
-        off += lv.S
-        if lv.R:
-            K.sn_schur_update(Linv, At, lv.schur, work, s.dev.schur_U)
-    got = [int(bool(f.ok)), int(f.badcol)]
-    log(f"bad pivot ({label}): level {m} column {c}: card (ok, badcol) "
-        f"{got}, plain {state.tolist()}; records equal "
-        f"{torch.equal(card, recs)}")
-    if not (got == state.tolist() == [0, c] and torch.equal(card, recs)):
-        raise AssertionError(f"the front kernel's failure records disagree "
-                             f"with the plain versions' ({label})")
+    spots = [m] + [k for k, lp in enumerate(s.level_plans)
+                   if lp.narrow and k != m and not s.level_plans[m].narrow][
+                       :1]
+    for k in spots:
+        c = int(s.level_plans[k].col_vars[0, 0])
+        bad = case.blocks.clone()
+        bad[int(s.sym.diag_block_by_col[c]), 0] = -1e6
+        f = s.factorize(bad, case.lam, case.dd)
+        _, recs, state = plain_levels(s, bad, case.lam, case.dd)
+        wide = card_records(s, bad, case.lam, case.dd, "wide")
+        upto = sum(lp.S for lp in s.level_plans[:k + 1])
+        plan = card_records(s, bad, case.lam, case.dd, "plan")
+        got = [int(bool(f.ok)), int(f.badcol)]
+        wide_state = torch.empty(2, dtype=torch.int32, device="cuda")
+        K.sn_pivot_check(wide, wide_state)
+        same = torch.equal(wide[:upto] if k != m else wide,
+                           recs[:upto] if k != m else recs)
+        same_plan = torch.equal(plan[:upto], recs[:upto])
+        log(f"bad pivot ({label}): level {k} "
+            f"({'narrow' if s.level_plans[k].narrow else 'wide'}) column "
+            f"{c}: card (ok, badcol) {got}, the wide pair's "
+            f"{wide_state.tolist()}, plain {state.tolist()}; the wide pair's "
+            f"records equal {same}, the plan's routes' up to the level "
+            f"{same_plan}")
+        if not (got == state.tolist() == wide_state.tolist() == [0, c]
+                and same and same_plan):
+            raise AssertionError(f"the front kernels' failure records "
+                                 f"disagree with the plain versions' "
+                                 f"({label}, level {k})")
 
 
 def pg_small_checks():
@@ -2259,26 +2433,26 @@ def sphere_main_path():
     if not same:
         raise AssertionError("two runs of the sphere path differ")
     # every pose-graph kernel but the Pose2 variant of kernel 6, which an
-    # SE3 graph never launches (nor the QR path's and the projections')
+    # SE3 graph never launches (nor the QR path's and the projections', nor
+    # a kernel 7 route that the plan gives no level)
+    k7 = kernel7_launches(solver._s, a["tries"])
+    log_routes("sphere path", solver._s)
     for name, n in a["launches"].items():
         if (n <= 0) != (K6_GROUP.get(name) == "SE2" or name in QR_KERNELS
-                        or name in PROJ_KERNELS):
+                        or name in PROJ_KERNELS or k7.get(name, 1) == 0):
             raise AssertionError(f"kernel {name} was launched {n} times on "
                                  "the sphere path")
     # kernel 8: one forward and one backward launch per solve (two a try:
     # the solve and its refinement)
-    # kernel 7: the front kernel once per level (its tile inverses with it),
-    # the Schur update once per level with a panel, the pivot check once
-    # per factorization
+    # kernel 7: the front kernel once per wide level (its tile inverses
+    # with it), the Schur update once per wide level with a panel, the
+    # narrow pair likewise on the narrow levels, the pivot check once per
+    # factorization (kernel7_launches)
     # kernel 6: linearize once a batch an iteration, the error once a
     # batch at the start and a try
-    nlev = len(solver._s.level_plans)
-    npanel = sum(lp.R > 0 for lp in solver._s.level_plans)
     nb = sum(factors.kernel_route(b) is not None for b in graph.batches)
     want = {"pg_linearize": nb * a["it"], "pg_error": nb * (a["tries"] + 1),
-            "sn_front_factor": nlev * a["tries"],
-            "sn_schur_update": npanel * a["tries"],
-            "sn_pivot_check": a["tries"], "sn_forward": 2 * a["tries"],
+            **k7, "sn_forward": 2 * a["tries"],
             "sn_backward": 2 * a["tries"]}
     got = {k: a["launches"][k] for k in want}
     log(f"sphere path: kernel 6-8 launches {got} (expected {want}); "
@@ -2542,8 +2716,10 @@ def outlier_main_paths(laps=50, per_lap=50):
             raise AssertionError(f"{label}: kernels 6, 8 and 9 launched "
                                  f"{got}, not {want}, or {generic} generic "
                                  "linearizations ran")
+        k7 = kernel7_launches(fn.solver._s, tries)
+        log_routes(label, fn.solver._s)
         if any((n <= 0) != (K6_GROUP.get(k) == "SE2" or k in QR_KERNELS
-                            or k in PROJ_KERNELS)
+                            or k in PROJ_KERNELS or k7.get(k, 1) == 0)
                for k, n in launches.items() if k not in want):
             raise AssertionError(f"{label}: a pose-graph kernel was not "
                                  f"launched, or kernel 6's Pose2 variant "
@@ -2853,12 +3029,10 @@ def standin_main_path():
     # iteration; kernel 7 and 8 as on the sphere; kernel 9 once a try (the
     # refinement)
     nb = len(graph.batches)
-    nlev = len(s.level_plans)
-    npanel = sum(lp.R > 0 for lp in s.level_plans)
+    log_routes("stand-in path", s)
     want = {"pg2_linearize": nb * it, "pg2_error": nb * (tries + 1),
             "pg_linearize": 0, "pg_error": 0, "pg_assemble": it,
-            "sn_front_factor": nlev * tries,
-            "sn_schur_update": npanel * tries, "sn_pivot_check": tries,
+            **kernel7_launches(s, tries),
             "sn_forward": 2 * tries, "sn_backward": 2 * tries,
             "sn_matvec": tries}
     got = {k: launches[k] for k in want}
@@ -2918,7 +3092,7 @@ def standin_kernel_times(main, ms_fn):
         if not r["name"].startswith("pg2_"):
             r["name"] += "[d=3]"
     pose2_big_times(rows, ms_fn)
-    levels, front_row, update_row = front_levels(solver._s, case, ms_fn)
+    levels, front_row, update_row, _ = front_levels(solver._s, case, ms_fn)
     next(k for k in rows if k["name"] == "sn_front_factor[d=3]").update(
         front_row)
     next(k for k in rows if k["name"] == "sn_schur_update[d=3]").update(
@@ -2957,6 +3131,12 @@ def pg_work(case):
     gather = [0, 0]
     schur = [0, 0]
     update = [0, 0, 0]
+    # kernel 7 by the plan's routes: the wide pair on the wide levels (on
+    # the path) and on all levels (a check's calls), the narrow pair
+    path_front = [0, 0]
+    path_update = [0, 0, 0]
+    narrow_front = [0, 0]
+    narrow_scatter = [0, 0]
     inv = [0, 0]
     fwd = [0, 0]
     bwd = [0, 0]
@@ -2969,6 +3149,17 @@ def pg_work(case):
         gather[1] += gops
         front[0] += fb
         front[1] += fops
+        if lp.narrow:
+            for acc, w in zip((narrow_front, narrow_scatter),
+                              narrow_work(s, lp, lv.narrow)):
+                acc[0] += w[0]
+                acc[1] += w[1]
+        else:
+            path_front[0] += gb + fb
+            path_front[1] += gops + fops
+            if R:
+                for j, v in enumerate(update_work(s, lp)):
+                    path_update[j] += v
         # kernel 8: each diagonal tile's lower triangle in, its inverse
         # out; per solve the function's own inputs, L's lower triangles and
         # P (the kernels read the tile inverses in place of the diagonal
@@ -3012,9 +3203,13 @@ def pg_work(case):
     piv = (fronts * 4 + 8, fronts)
     return {**{k: tuple(v) for k, v in k6.items()},
             "pg_assemble": asm,
-            "sn_front_factor": front, "sn_front_gather": tuple(gather),
+            "sn_front_factor": tuple(path_front),
+            "sn_front_factor_all": front, "sn_front_gather": tuple(gather),
             "sn_pivot_check": piv,
-            "sn_schur_update": tuple(update),
+            "sn_schur_update": tuple(path_update),
+            "sn_schur_update_all": tuple(update),
+            "sn_narrow_front": tuple(narrow_front),
+            "sn_narrow_scatter": tuple(narrow_scatter),
             "sn_schur_scatter": tuple(schur), "sn_invert_tiles": tuple(inv),
             "sn_forward": tuple(fwd), "sn_backward": tuple(bwd),
             "sn_matvec": mv, "gather": gather_csr}
@@ -3035,6 +3230,40 @@ def update_work(s, lp):
               + 4 * (nsrc + 2 * T + 1) + 2 * T * dd * 8)
     tc = S * Rd * Wd * (Wd + 1) + S * R * (R + 1) * dd * Wd
     return nbytes, tc, nsrc * dd
+
+
+def narrow_work(s, lp, plan):
+    """((bytes, FP64 operations) of the narrow front kernel, (bytes,
+    operations) of the narrow scatter) on narrow level plan lp of
+    supernodal solver s with chunk plan `plan`: the front kernel's gather
+    (as front_work's) and the chunk plan read once; L, L^-1 (as front_work
+    counts them), Lp, the tile inverses (identity padding included), the
+    records and the chunk rows written once; a front's factorization and
+    inverse, Wd^3 / 3 operations each, its true panel rows' products with
+    L^-1 and its true blocks of U (this level's Schur blocks, Wd-deep dot
+    products).  The scatter: the chunk rows, its CSR and targets read, the
+    targets' store rows read and written, an addition an entry of a row."""
+    d, dd, n = s.d, s.d * s.d, s.nvars
+    S, W, R = lp.S, lp.W, lp.R
+    Wd, Rd = W * d, R * d
+    (gb, _), _ = front_work(s, lp)
+    nblk = R * (R + 1) // 2
+    rows = int((lp.row_vars < n).sum()) * d if R else 0
+    nsrc = len(lp.schur_src) if R else 0
+    T = len(lp.schur_tgt) if R else 0
+    nbytes = (gb + 4 * (S + plan.cptr.numel() + plan.rptr.numel()
+                        + S * nblk)
+              + 2 * S * Wd * Wd * 8 + S * Rd * Wd * 8
+              + S * K_TILE * K_TILE * 8 + S * 4 + plan.nrows * dd * 8)
+    ops = (2 * S * Wd ** 3 // 3 + rows * Wd * (Wd + 1)
+           + 2 * nsrc * dd * Wd)
+    scatter = (plan.nrows * dd * 8 + 4 * (T + 1 + plan.nrows + T)
+               + 2 * T * dd * 8, plan.nrows * dd)
+    return (nbytes, ops), scatter
+
+
+# kernel 8's tile (kTile of csrc/sn_solve.cu), a narrow front's one tile
+K_TILE = 32
 
 
 def bound_ms(nbytes, tc_ops=0, ops=0):
@@ -3223,6 +3452,19 @@ def _library_call(name, case):
             .to_sparse_csr()
         x = case.x.reshape(-1, 1)
         return lambda: torch.sparse.mm(H, x)
+    if name == "sn_narrow_scatter":
+        # each narrow level's blocks of U (the plain Lp's, formed outside
+        # the timing) straight to their targets: one index_add_ a level
+        # into a copy of the level's store
+        adds = []
+        for lv, e in zip(dv.levels, case.lv):
+            if lv.narrow is None or not lv.R:
+                continue
+            Ub = K._u_blocks(e["Lp"], lv.S, lv.R, s.d)[lv.schur.src.long()]
+            tgt = lv.schur.tgt.long()[K.segment_owner(lv.schur.ptr)]
+            adds.append((e["work"].clone(), tgt, Ub))
+        return lambda: [w.index_add_(0, t, u, alpha=-1.0)
+                        for w, t, u in adds]
     return None
 
 
@@ -3370,29 +3612,35 @@ def profile_robust(outl):
 
 
 def front_levels(s, case, ms_fn):
-    """Phase 5, per level of the sphere's factorization: the front kernel's
-    launch by events and device time beside two bounds, the card's and the
-    share of the level's S SMs (one CTA a front; as kernel 10's one-SM
-    bound), the library yardstick of two calls on the same fronts
-    (cholesky_ex, then solve_triangular of its factor against I); the Schur
-    update's launch by events and device time beside its bound and its work
-    items per phase (update_split), and the two products it replaced as its
-    library yardstick (the panel Lp^T = L^-1 At and U = Lp Lp^T by bmm,
-    events and device time), each beside its bound.  Returns (rows, the
-    front kernel's and the update's per-factorization sums for their
-    kernel rows)."""
+    """Phase 5, per level of a factorization (the sphere's, the stand-in's,
+    the sfm's), by the plan's route of the level.  A wide level: the front
+    kernel's launch by events and device time beside two bounds, the
+    card's and the share of the level's S SMs (one CTA a front; as kernel
+    10's one-SM bound), the library yardstick of two calls on the same
+    fronts (cholesky_ex, then solve_triangular of its factor against I);
+    the Schur update's launch by events and device time beside its bound
+    and its work items per phase (update_split), and the two products it
+    replaced as its library yardstick (the panel Lp^T = L^-1 At and U = Lp
+    Lp^T by bmm, events and device time), each beside its bound.  A narrow
+    level: kernel 7's narrow pair, each launch by events and device time
+    beside its bound, and the library yardstick of the pair's function on
+    that level alone (cholesky_ex, solve_triangular(L, I), the two bmm and
+    index_add_ of U's blocks into the store: the front kernel's four calls,
+    then the scatter's one), events and device time.  Returns (rows, the
+    wide front kernel's, the Schur update's and the narrow pair's
+    per-factorization sums for their kernel rows)."""
     import torch
     from gtsam_torch.linear import supernodal_kernels as K
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, tot = [], {}
-    calls = case.calls("sn_front_factor")
+    calls = iter(case.calls("sn_front_factor"))
     updates = iter(case.calls("sn_schur_update"))
-    for lp, e, (mk, _) in zip(s.level_plans, case.lv, calls):
+    narrow_calls = iter(case.calls("sn_narrow_front"))
+    scatters = iter(case.calls("sn_narrow_scatter"))
+    for lp, lv, e in zip(s.level_plans, s.dev.levels, case.lv):
         Wd, Rd = lp.W * s.d, lp.R * s.d
-        (gb, gops), (fb, fops) = front_work(s, lp)
-        card = max((gb + fb) / HBM_BYTES_PER_S,
-                   fops / FP64_TC_FLOPS) * 1e3
-        args = mk()
+        mk = next(calls)[0]
+        umk = next(updates)[0] if lp.R else None
         eye = torch.eye(Wd, dtype=torch.float64, device="cuda").expand(
             lp.S, Wd, Wd)
 
@@ -3400,56 +3648,126 @@ def front_levels(s, case, ms_fn):
             L = torch.linalg.cholesky_ex(e["front"])[0]
             return torch.linalg.solve_triangular(L, eye, upper=False)
         row = {"S": lp.S, "W": lp.W, "R": lp.R, "Wd": Wd, "Rd": Rd,
-               "front_ms": ms_fn(lambda: K.sn_front_factor(*args), reps=10),
-               "front_device_ms": device_ms(lambda: K.sn_front_factor(*args)),
-               "front_bound_ms": card,
-               "front_bound_sms_ms": card * sms / min(lp.S, sms),
-               "library_two_calls_ms": ms_fn(lib, reps=10),
-               "library_two_calls_device_ms": device_ms(lib)}
-        if lp.R:
-            uargs = next(updates)[0]()
-            row["update_ms"] = ms_fn(lambda: K.sn_schur_update(*uargs),
-                                     reps=10)
-            row["update_device_ms"] = device_ms(
-                lambda: K.sn_schur_update(*uargs))
-            row["update_bound_ms"], row["update_bound_by"] = bound_ms(
-                *update_work(s, lp))
-            row["update_split"] = K.update_split(
-                lp.S, lp.W, lp.R, s.d, len(lp.schur_tgt))._asdict()
+               "route": "narrow" if lp.narrow else "wide"}
+        if lp.narrow:
+            args = next(narrow_calls)[0]()[:-1]
+            (fb, fops), (sb, sops) = narrow_work(s, lp, lv.narrow)
+            row["narrow_front_ms"] = ms_fn(lambda: K.sn_narrow_front(*args),
+                                           reps=10)
+            row["narrow_front_device_ms"] = device_ms(
+                lambda: K.sn_narrow_front(*args))
+            row["narrow_front_bound_ms"], row["narrow_front_bound_by"] = \
+                bound_ms(fb, 0, fops)
+            adds = None
+            if lp.R:
+                sargs = next(scatters)[0]()
+                row["narrow_scatter_ms"] = ms_fn(
+                    lambda: K.sn_narrow_scatter(*sargs), reps=10)
+                row["narrow_scatter_device_ms"] = device_ms(
+                    lambda: K.sn_narrow_scatter(*sargs))
+                row["narrow_scatter_bound_ms"], \
+                    row["narrow_scatter_bound_by"] = bound_ms(sb, 0, sops)
+                Ub = K._u_blocks(e["Lp"], lp.S, lp.R, s.d)[
+                    lv.schur.src.long()]
+                tgt = lv.schur.tgt.long()[K.segment_owner(lv.schur.ptr)]
+                adds = (e["work"].clone(), tgt, Ub)
 
-            def panel(e=e):
-                return torch.bmm(e["Linv"], e["At"])
+            def lib4(e=e, lib=lib, R=lp.R):
+                X = lib()
+                if R:
+                    P = torch.bmm(X, e["At"]).mT
+                    torch.bmm(P, P.mT)
 
-            def u(e=e):
-                return torch.bmm(e["Lp"], e["Lp"].mT)
-            row["panel_bmm_ms"] = ms_fn(panel, reps=10)
-            row["panel_bmm_device_ms"] = device_ms(panel)
-            row["panel_bmm_bound_ms"] = max(
-                2 * lp.S * Rd * Wd * Wd / FP64_TC_FLOPS,
-                (lp.S * Wd * Wd + 2 * lp.S * Rd * Wd) * 8
-                / HBM_BYTES_PER_S) * 1e3
-            row["u_bmm_ms"] = ms_fn(u, reps=10)
-            row["u_bmm_device_ms"] = device_ms(u)
-            row["u_bmm_bound_ms"] = max(
-                2 * lp.S * Rd * Rd * Wd / FP64_TC_FLOPS,
-                (lp.S * Rd * Wd + lp.S * Rd * Rd) * 8 / HBM_BYTES_PER_S) * 1e3
-        for k in ("front_ms", "front_device_ms", "front_bound_ms",
-                  "front_bound_sms_ms", "library_two_calls_ms",
-                  "library_two_calls_device_ms", "update_ms",
-                  "update_device_ms", "update_bound_ms", "panel_bmm_ms",
-                  "panel_bmm_device_ms", "u_bmm_ms", "u_bmm_device_ms"):
+            def lib_all(lib4=lib4, adds=adds):
+                lib4()
+                if adds is not None:
+                    adds[0].index_add_(0, adds[1], adds[2], alpha=-1.0)
+            row["library_four_calls_ms"] = ms_fn(lib4, reps=10)
+            row["library_four_calls_device_ms"] = device_ms(lib4)
+            row["library_level_ms"] = ms_fn(lib_all, reps=10)
+            row["library_level_device_ms"] = device_ms(lib_all)
+            keys = ("narrow_front_ms", "narrow_front_device_ms",
+                    "narrow_front_bound_ms", "narrow_scatter_ms",
+                    "narrow_scatter_device_ms", "library_four_calls_ms",
+                    "library_four_calls_device_ms", "library_level_ms",
+                    "library_level_device_ms")
+        else:
+            args = mk()
+            (gb, gops), (fb, fops) = front_work(s, lp)
+            card = max((gb + fb) / HBM_BYTES_PER_S,
+                       fops / FP64_TC_FLOPS) * 1e3
+            row.update({
+                "front_ms": ms_fn(lambda: K.sn_front_factor(*args), reps=10),
+                "front_device_ms": device_ms(
+                    lambda: K.sn_front_factor(*args)),
+                "front_bound_ms": card,
+                "front_bound_sms_ms": card * sms / min(lp.S, sms),
+                "library_two_calls_ms": ms_fn(lib, reps=10),
+                "library_two_calls_device_ms": device_ms(lib)})
+            if lp.R:
+                uargs = umk()
+                row["update_ms"] = ms_fn(lambda: K.sn_schur_update(*uargs),
+                                         reps=10)
+                row["update_device_ms"] = device_ms(
+                    lambda: K.sn_schur_update(*uargs))
+                row["update_bound_ms"], row["update_bound_by"] = bound_ms(
+                    *update_work(s, lp))
+                row["update_split"] = K.update_split(
+                    lp.S, lp.W, lp.R, s.d, len(lp.schur_tgt))._asdict()
+
+                def panel(e=e):
+                    return torch.bmm(e["Linv"], e["At"])
+
+                def u(e=e):
+                    return torch.bmm(e["Lp"], e["Lp"].mT)
+                row["panel_bmm_ms"] = ms_fn(panel, reps=10)
+                row["panel_bmm_device_ms"] = device_ms(panel)
+                row["panel_bmm_bound_ms"] = max(
+                    2 * lp.S * Rd * Wd * Wd / FP64_TC_FLOPS,
+                    (lp.S * Wd * Wd + 2 * lp.S * Rd * Wd) * 8
+                    / HBM_BYTES_PER_S) * 1e3
+                row["u_bmm_ms"] = ms_fn(u, reps=10)
+                row["u_bmm_device_ms"] = device_ms(u)
+                row["u_bmm_bound_ms"] = max(
+                    2 * lp.S * Rd * Rd * Wd / FP64_TC_FLOPS,
+                    (lp.S * Rd * Wd + lp.S * Rd * Rd) * 8
+                    / HBM_BYTES_PER_S) * 1e3
+            keys = ("front_ms", "front_device_ms", "front_bound_ms",
+                    "front_bound_sms_ms", "library_two_calls_ms",
+                    "library_two_calls_device_ms", "update_ms",
+                    "update_device_ms", "update_bound_ms", "panel_bmm_ms",
+                    "panel_bmm_device_ms", "u_bmm_ms", "u_bmm_device_ms")
+        for k in keys:
             tot[k] = tot.get(k, 0.0) + row.get(k, 0.0)
-        log(f"level S {lp.S} W*d {Wd} R*d {Rd}: {json.dumps(row)}")
+        log(f"level S {lp.S} W*d {Wd} R*d {Rd} ({row['route']}): "
+            f"{json.dumps(row)}")
         rows.append(row)
     log(f"levels, a factorization: {json.dumps(tot)}")
-    return rows, {"bound_sms_ms": tot["front_bound_sms_ms"],
-                  "library_two_calls_ms": tot["library_two_calls_ms"],
-                  "library_two_calls_device_ms":
-                      tot["library_two_calls_device_ms"],
-                  "level_algebra_ms": tot["front_ms"] + tot["update_ms"]}, {
-        "library_two_bmm_ms": tot["panel_bmm_ms"] + tot["u_bmm_ms"],
-        "library_two_bmm_device_ms": tot["panel_bmm_device_ms"]
-        + tot["u_bmm_device_ms"]}
+    front_row = update_row = narrow_row = {}
+    if any(not lp.narrow for lp in s.level_plans):
+        front_row = {"bound_sms_ms": tot["front_bound_sms_ms"],
+                     "library_two_calls_ms": tot["library_two_calls_ms"],
+                     "library_two_calls_device_ms":
+                         tot["library_two_calls_device_ms"],
+                     "level_algebra_ms": tot["front_ms"]
+                     + tot.get("update_ms", 0.0)}
+    if any(not lp.narrow and lp.R for lp in s.level_plans):
+        update_row = {"library_two_bmm_ms": tot["panel_bmm_ms"]
+                      + tot["u_bmm_ms"],
+                      "library_two_bmm_device_ms": tot["panel_bmm_device_ms"]
+                      + tot["u_bmm_device_ms"]}
+    if any(lp.narrow for lp in s.level_plans):
+        narrow_row = {
+            "library_four_calls_ms": tot["library_four_calls_ms"],
+            "library_four_calls_device_ms":
+                tot["library_four_calls_device_ms"],
+            "library_level_ms": tot["library_level_ms"],
+            "library_level_device_ms": tot["library_level_device_ms"],
+            "level_algebra_ms": tot["narrow_front_ms"]
+            + tot["narrow_scatter_ms"],
+            "level_algebra_device_ms": tot["narrow_front_device_ms"]
+            + tot["narrow_scatter_device_ms"]}
+    return rows, front_row, update_row, narrow_row
 
 
 def case_kernel_rows(case, launches, ms_fn, label, suffix=""):
@@ -3469,7 +3787,13 @@ def case_kernel_rows(case, launches, ms_fn, label, suffix=""):
     for name in case.names():
         kern = K.KERNELS[name]
         kfn, pfn = getattr(K, name), getattr(K, name + "_plain")
-        calls = case.calls(name)
+        # the calls of the main path's routes (kernel 7's wide pair on the
+        # wide levels); a kernel that the routes never call is timed on
+        # every level its check called it on, its row off the path
+        calls = case.calls(name, on_path=True)
+        off_path = not calls
+        if off_path:
+            calls = case.calls(name)
         built = [mk() for mk, _ in calls]
 
         def run(f, built=built):
@@ -3489,7 +3813,7 @@ def case_kernel_rows(case, launches, ms_fn, label, suffix=""):
             library_ms = ms_fn(lib, reps=reps, warmup=1)
             lib_dev_ms = device_ms(lib, reps=min(reps, 10))
         dev_ms = device_ms(lambda: run(kfn))
-        nbytes, flops, *more = work[name]
+        nbytes, flops, *more = work[name + "_all" if off_path else name]
         # the front kernel's and the Schur update's products run on the
         # FP64 tensor cores
         if name == "sn_schur_update":
@@ -3506,6 +3830,8 @@ def case_kernel_rows(case, launches, ms_fn, label, suffix=""):
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": library_ms, "calls_timed": len(built),
             "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
+        if off_path:
+            kernels[-1]["off_path"] = True
         log(f"time {name}{suffix}: {ms:.4f} ms for {len(built)} launches, "
             f"device {dev_ms:.4f} ms (plain {plain_ms:.4f} ms, library "
             f"{library_ms}, device {lib_dev_ms}, bound {bound:.4f} ms by "
@@ -3583,7 +3909,7 @@ def pg_kernel_times(main, ms_fn):
             "launches": 0, "max_abs_err": None, "ms": None,
             "plain_ms": None, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None, "folded_into": into})
-    levels, front_row, update_row = front_levels(solver._s, case, ms_fn)
+    levels, front_row, update_row, _ = front_levels(solver._s, case, ms_fn)
     next(k for k in kernels if k["name"] == "sn_front_factor").update(
         front_row)
     next(k for k in kernels if k["name"] == "sn_schur_update").update(
@@ -3646,9 +3972,8 @@ def profile_factorize(main, path="sphere"):
     blocks, _ = s.system(main["runs"][0]["arrays"])
     s.factorize(blocks, 1e-3)
     torch.cuda.synchronize()
-    want = {"sn_front_factor_kernel": len(s.level_plans),
-            "sn_schur_update_kernel": sum(lp.R > 0 for lp in s.level_plans),
-            "sn_pivot_kernel": 1}
+    want = {f"{k.replace('_check', '')}_kernel": n
+            for k, n in kernel7_launches(s, 1).items()}
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -4148,6 +4473,7 @@ def qr_main_path(sphere):
             "sn_front_qr": nlev * tries, "sn_pivot_check": tries,
             "sn_forward": 2 * tries, "sn_backward": 2 * tries,
             "sn_matvec": tries, "sn_front_factor": 0, "sn_schur_update": 0,
+            "sn_narrow_front": 0, "sn_narrow_scatter": 0,
             "pg2_jacobians": 0}
     got = {k: launches[k] for k in want}
     log(f"sphere_qr: launches {got} (expected {want})")
@@ -4177,6 +4503,7 @@ def dogleg_main_path(sphere):
     solver = O.SparseSolver(**SPHERE_SOLVER).bind(
         BoundGraph(graph, vals0.to("cuda"), "cuda"))
     plan_s = time.time() - t0
+    log_routes("sphere_dogleg", solver._s)
     runs = [_run_counted(lambda: O.dogleg(
         graph, vals0, O.DoglegParams(**DOGLEG), solver=solver,
         device="cuda")) for _ in range(2)]
@@ -5942,15 +6269,17 @@ SFM_SMALL_HIST_TOL = 6e-8
 # damping: its 7-dof gauge leaves the camera front 7 directions of
 # eigenvalue ~lam (its condition number is logged, ~1e11), which every
 # inverse and solve carries: kernel 7's L^-1 and tile inverses, the Schur
-# update's panel and kernel 8's solves are held to SFM_GAUGE_TOL in place of
-# PG_SOLVE_TOL_SMALL_LAM (on an H100 the front kernel's L^-1 lay 1.6e-8
-# from the plain version's, L itself 3.1e-12).
+# update's panel, the narrow front kernel's outputs (its point fronts' L^-1
+# lay 8.2e-10 from the plain version's on an H100: scripts/
+# port_narrow_probe.py) and kernel 8's solves are held to SFM_GAUGE_TOL in
+# place of PG_SOLVE_TOL_SMALL_LAM (on an H100 the front kernel's L^-1 lay
+# 1.6e-8 from the plain version's, L itself 3.1e-12).
 SFM_GAUGE_TOL = 1e-7
 SLAM_HIST_TOL = 1e-9
 # the kernels of the path (no refinement: kernel 9 is not launched there)
 SFM_PATH_KERNELS = ("proj_linearize", "proj_error", "pg_assemble",
-                    "sn_front_factor", "sn_pivot_check", "sn_schur_update",
-                    "sn_forward", "sn_backward")
+                    "sn_front_factor", "sn_pivot_check", "sn_narrow_front",
+                    "sn_narrow_scatter", "sn_forward", "sn_backward")
 PROJ_NAMES = {"BalCamera": ["proj_linearize", "proj_jacobians", "proj_error"],
               "GenericProjection": ["proj3_linearize", "proj3_jacobians",
                                     "proj3_error"]}
@@ -6418,7 +6747,8 @@ def sfm_small_checks():
                     case.tol_small_lam = {
                         "sn_forward": g8, "sn_backward": g8,
                         "sn_front_factor": (g8, g8, None, g8, 0.0),
-                        "sn_schur_update": (g8, g8)}
+                        "sn_schur_update": (g8, g8),
+                        "sn_narrow_front": (g8, g8, None, g8, g8, g8)}
                 check_pg_kernels(case, f"{label} lam={lam} dd={dd}")
                 check_level_extras(case, f"{label} lam={lam} dd={dd}")
                 check_fill_untouched(case, f"{label} lam={lam} dd={dd}")
@@ -6461,6 +6791,11 @@ def sfm_main_path():
     log(f"sfm plan: {plan_s:.3f} s; d {s.d}, B {s.B} blocks, store "
         f"{(s.B + 1) * s.d * s.d * 8 / 1e6:.1f} MB, levels (S, W, R) "
         f"{[(lp.S, lp.W, lp.R) for lp in s.level_plans]}")
+    log_routes("sfm path", s)
+    if [lp.narrow for lp in s.level_plans] != [True, False] and \
+            SFM_SHAPE == (16, 22106, 4):
+        raise AssertionError("the stand-in's level 0 does not take kernel "
+                             "7's narrow route, or its root does")
     params = O.LMParams(**SFM_LM)
     runs = []
     for _ in range(2):
@@ -6497,11 +6832,8 @@ def sfm_main_path():
     if not same:
         raise AssertionError("two runs of the graph-form BA path differ")
     it = res.iterations
-    nlev = len(s.level_plans)
-    nup = sum(1 for lp in s.level_plans if lp.R)
     want = {"proj_linearize": it, "pg_assemble": it,
-            "proj_error": tries + 1, "sn_front_factor": nlev * tries,
-            "sn_schur_update": nup * tries, "sn_pivot_check": tries,
+            "proj_error": tries + 1, **kernel7_launches(s, tries),
             "sn_forward": tries, "sn_backward": tries, "sn_matvec": 0,
             "pg_linearize": 0, "proj_jacobians": 0}
     got = {k: launches[k] for k in want}
@@ -6610,13 +6942,19 @@ def sfm_kernel_times(main, small_runs, ms_fn):
                              s.d))
     k17 = next(r for r in rows if r["name"] == "proj_linearize")
     k17.update(bound_per_factor_ms=pf[0], bound_per_factor_by=pf[1])
-    # the library yardsticks of the front kernel and the Schur update at d =
-    # 9, a level at a time: cholesky_ex + solve_triangular(L, I), two bmm
-    _, front_row, update_row = front_levels(s, case, ms_fn)
+    # the library yardsticks a level, by the plan's routes: the root's front
+    # kernel beside cholesky_ex + solve_triangular(L, I); level 0's narrow
+    # pair beside those, the two bmm and index_add_ on level 0 alone (the
+    # Schur update has no wide level with a panel here: its row times it
+    # on level 0, off the path)
+    levels, front_row, update_row, narrow_row = front_levels(s, case, ms_fn)
     next(r for r in rows if r["name"] == "sn_front_factor[d=9]").update(
         front_row)
     next(r for r in rows if r["name"] == "sn_schur_update[d=9]").update(
         update_row)
+    next(r for r in rows if r["name"] == "sn_narrow_front[d=9]").update(
+        narrow_row)
+    log(f"sfm levels: {json.dumps(levels)}")
     base = K.group_args("BalCamera", case.arrays, st.rows_i32, b) + (
         b.noise.kind, b.noise.data, b.sign)
     gram = s._cplan.device_gram("cuda")[i]
@@ -6703,7 +7041,8 @@ def profile_sfm(main):
     library = [k for k, _, _ in rows if any(
         w in k.lower() for w in ("potrf", "trsm", "trsv"))]
     have = {w: any(w in k for k, _, _ in rows) for w in (
-        "proj_gram_kernel", "proj_error_kernel", "sn_front_factor_kernel")}
+        "proj_gram_kernel", "proj_error_kernel", "sn_front_factor_kernel",
+        "sn_narrow_front_kernel", "sn_narrow_scatter_kernel")}
     log(f"  sfm: kernels in the trace {have}; library factorization or "
         f"solve kernels {library}")
     if library or not all(have.values()):

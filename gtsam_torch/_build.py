@@ -19,7 +19,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "gtsam_torch_kernels"
 SOURCES = ("bal_linearize", "ba_point_eliminate", "ba_schur_assemble",
            "ba_back_substitute", "ba_schur_matvec", "pg_between",
-           "pg_pose2", "sn_factor", "sn_solve", "sn_matvec", "sn_qr",
+           "pg_pose2", "sn_factor", "sn_narrow", "sn_solve", "sn_matvec",
+           "sn_qr",
            "dense_factor", "dense_solve", "sp_level", "pcg", "proj_factor")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

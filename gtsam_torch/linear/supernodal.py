@@ -20,8 +20,14 @@ package's, array for array, and move to the device once (`to`).  Then:
              leaves the inverses of its 32x32 diagonal tiles for kernel 8;
              then kernel 7's Schur update, one launch: the panel
              Lp = A L^-T = (L^-1 A^T)^T, U = Lp Lp^T's block-lower
-             triangle and the scatter into the working store; after the
-             levels, kernel 7's pivot check (one launch);
+             triangle and the scatter into the working store.  A level
+             whose fronts fit one tile (the plan's route, `narrow`) takes
+             kernel 7's narrow pair instead: one launch factors its fronts
+             a warp each, forms their panels and sums their U blocks a row
+             a (chunk, target) by the level's chunk plan
+             (supernodal_kernels.narrow_plan), and one sums each target's
+             rows and subtracts them; after the levels, kernel 7's pivot
+             check (one launch);
   solve:     kernel 8, one launch forward over all levels (the lower
              levels' panel products gathered per column through a CSR)
              and one backward;
@@ -101,6 +107,14 @@ class _LevelPlan:
     fwd_tgt: Optional[np.ndarray]     # unique row var ids
     x_sc_src: np.ndarray        # flat into (S*W)
     x_sc_tgt: np.ndarray        # col var ids (unique by construction)
+
+    @property
+    def narrow(self) -> bool:
+        """Kernel 7's route of the level: the narrow pair
+        (K.narrow_route), else the wide one.  A property, not a field: the
+        fields are the JAX package's plan."""
+        return K.narrow_route(self.W, self.R, self.diag_pad.shape[1]
+                              // self.W)
 
 
 def _sorted_segments(tgt: np.ndarray):
@@ -537,8 +551,8 @@ class SupernodalCholeskySolver:
             # time
             schur_U=torch.empty(max([K.update_split(
                 lp.S, lp.W, lp.R, self.d, 0).scratch
-                for lp in self.level_plans if lp.R] + [0]),
-                dtype=F64, device=dev),
+                for lp in self.level_plans if lp.R and not lp.narrow]
+                + [0]), dtype=F64, device=dev),
             levels=[types.SimpleNamespace(
                 S=lp.S, W=lp.W, R=lp.R,
                 diag_ids=t(lp.diag_ids), diag_flip=t(lp.diag_flip, torch.bool),
@@ -550,9 +564,15 @@ class SupernodalCholeskySolver:
                             int(self.tile_off[k + 1])),
                 schur=None if lp.R == 0 else K.schur_plan(
                     t(lp.schur_src), t(sp), t(lp.schur_tgt), lp.S, lp.W,
-                    lp.R, self.d, self.B + 1))
+                    lp.R, self.d, self.B + 1),
+                narrow=K.narrow_plan(lp, sp, self.d, self.B + 1, dev)
+                if lp.narrow else None)
                 for k, (lp, sp) in enumerate(zip(self.level_plans,
                                                  self.schur_ptr))])
+        # the narrow levels' chunk rows, a level at a time
+        self.dev.narrow_part = torch.empty(max(
+            [lv.narrow.nrows * self.d ** 2 for lv in self.dev.levels
+             if lv.narrow is not None] + [0]), dtype=F64, device=dev)
         return self
 
     def _batch_pairs(self):
@@ -605,15 +625,24 @@ class SupernodalCholeskySolver:
         Ls, Lps = [], []
         off = 0
         for lv in dv.levels:
-            L, Linv, At, _ = K.sn_front_factor(
-                work, blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
-                lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, lam,
-                diagonal_damping, rec[off:off + lv.S], min_diag, max_diag,
-                out=(None, None, None, tiles[lv.tiles]))
+            args = (work, blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
+                    lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, lam,
+                    diagonal_damping, rec[off:off + lv.S])
             off += lv.S
-            Lp = None
-            if lv.R:      # A L^-T, column-major; the Schur update of work
-                Lp = K.sn_schur_update(Linv, At, lv.schur, work, dv.schur_U)
+            if lv.narrow is not None:
+                L, _, Lp, _ = K.sn_narrow_front(
+                    *args, lv.narrow, dv.narrow_part, min_diag, max_diag,
+                    out=(None, None, None, tiles[lv.tiles]))
+                if lv.R:
+                    K.sn_narrow_scatter(Lp, dv.narrow_part, lv.narrow, work)
+            else:
+                L, Linv, At, _ = K.sn_front_factor(
+                    *args, min_diag, max_diag,
+                    out=(None, None, None, tiles[lv.tiles]))
+                Lp = None
+                if lv.R:  # A L^-T, column-major; the Schur update of work
+                    Lp = K.sn_schur_update(Linv, At, lv.schur, work,
+                                           dv.schur_U)
             Ls.append(L)
             Lps.append(Lp)
         state = torch.empty(2, dtype=I32, device=self.device)

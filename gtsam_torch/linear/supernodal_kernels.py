@@ -32,7 +32,12 @@ kernel 8), and the Schur update forms the panel Lp = A L^-T as
 working store, over the whole card.  Kernels 7 and 8 take any front
 widths: at the 2D graphs' store width d = 3 a front's W*d and R*d are
 often odd, and the kernels move a pair of entries 16 bytes at a time where
-it is 16-byte aligned and 8 where not (the store stays 3 wide).
+it is 16-byte aligned and 8 where not (the store stays 3 wide).  A level
+of narrow fronts (narrow_route: one 32 x 32 tile wide, panels of at most
+64 rows; the graph-form BA's one-point fronts) takes kernel 7's narrow
+route instead (csrc/sn_narrow.cu): a launch factors its fronts a warp
+each, many a CTA, and sums their U blocks a row a (chunk, target); a
+second sums each target's rows and subtracts once.
 """
 
 from typing import NamedTuple
@@ -81,6 +86,11 @@ KERNELS = _kernels.table(
            "gtsam_tpu/linear/supernodal.py:405", [INT, P, P]),
     Kernel("sn_schur_update", "sn_factor", "sn_schur_update",
            "gtsam_tpu/linear/supernodal.py:431", [INT] * 7 + [P] * 8),
+    Kernel("sn_narrow_front", "sn_narrow", "sn_narrow_front",
+           "gtsam_tpu/linear/supernodal.py:404",
+           [INT] * 7 + [P] * 13 + [DBL, INT, DBL, DBL] + [P] * 6),
+    Kernel("sn_narrow_scatter", "sn_narrow", "sn_narrow_scatter",
+           "gtsam_tpu/linear/supernodal.py:441", [INT] * 2 + [P] * 5),
     Kernel("sn_forward", "sn_solve", "sn_forward",
            "gtsam_tpu/linear/supernodal.py:580", [INT] * 5 + [P] * 9),
     Kernel("sn_backward", "sn_solve", "sn_backward",
@@ -1258,18 +1268,29 @@ def schur_plan(src, ptr_, tgt, S, W, R, d, nb) -> SchurPlan:
                      int(nb), update_split(S, W, R, d, T))
 
 
+def _u_blocks(Lp, S, R, d):
+    """U = Lp Lp^T of every front as flat (s, a, b) blocks (S * R * R,
+    d * d)."""
+    return torch.bmm(Lp, Lp.mT).reshape(S, R, d, R, d).permute(
+        0, 1, 3, 2, 4).reshape(-1, d * d)
+
+
+def _schur_scatter_plain(Lp, src, ptr_, tgt, S, R, d, work):
+    """work[tgt[i]] -= the sum of U's blocks src[ptr[i]:ptr[i+1]], in that
+    order (the plain Schur scatter of one level)."""
+    seg = torch.zeros((tgt.shape[0], d * d), dtype=F64,
+                      device=work.device).index_add_(
+        0, segment_owner(ptr_), _u_blocks(Lp, S, R, d)[src.long()])
+    work[tgt.long()] -= seg
+
+
 def sn_schur_update_plain(Linv, At, plan, work, U, out=None):
-    S, R, d = plan.S, plan.R, plan.d
     LpT = _finite(torch.bmm(Linv, At))
     if out is not None:
         LpT = out.copy_(LpT)
     Lp = LpT.mT
-    Ub = torch.bmm(Lp, Lp.mT).reshape(S, R, d, R, d).permute(
-        0, 1, 3, 2, 4).reshape(-1, d * d)
-    seg = torch.zeros((plan.tgt.shape[0], d * d), dtype=F64,
-                      device=work.device).index_add_(
-        0, segment_owner(plan.ptr), Ub[plan.src.long()])
-    work[plan.tgt.long()] -= seg
+    _schur_scatter_plain(Lp, plan.src, plan.ptr, plan.tgt, plan.S, plan.R,
+                         plan.d, work)
     return Lp
 
 
@@ -1317,6 +1338,307 @@ def sn_schur_update(Linv, At, plan, work, U, out=None):
         plan.split.u_chunk, ptr(Linv), ptr(At), ptr(plan.uoff),
         ptr(plan.ptr), ptr(plan.tgt), ptr(out), ptr(U), ptr(work))
     return out.mT
+
+
+# -- kernel 7's narrow route (csrc/sn_narrow.cu) ------------------------------
+
+# A level takes the narrow route when its fronts fit one of kernel 8's 32 x
+# 32 tiles (W*d <= NARROW_WD: kMaxWd) and its panels are at most
+# NARROW_RD (kMaxRd) rows: then a CTA factors a chunk of up to
+# NARROW_CHUNK fronts, a warp a front, NARROW_WARPS (kMaxWarps) at a time
+# where their buffers fit NARROW_FRONT_BYTES of shared memory, and sums the
+# chunk's U blocks into a row a (chunk, target) kept in NARROW_ROW_BYTES
+# of it.
+NARROW_WD = 32
+NARROW_RD = 64
+NARROW_CHUNK = 32
+NARROW_WARPS = 8
+NARROW_FRONT_BYTES = 96 * 1024
+NARROW_ROW_BYTES = 96 * 1024
+
+
+def narrow_route(W, R, d) -> bool:
+    """The plan's route of a level of fronts W blocks wide with R row
+    blocks, d wide: True for the narrow kernels, False for the wide
+    ones."""
+    return W * d <= NARROW_WD and R * d <= NARROW_RD
+
+
+def narrow_pitch(Wd):
+    """The row pitch of a front's buffers in the narrow kernel (odd)."""
+    return Wd | 1
+
+
+def narrow_warp_bytes(W, R, d):
+    """Shared memory of a front in the narrow kernel: the front, L^-1 and
+    the panel at narrow_pitch, and the chunk rows of its R(R+1)/2 blocks of
+    U (int32, two a double)."""
+    Wd, Rd, nblk = W * d, R * d, R * (R + 1) // 2
+    return ((2 * Wd + Rd) * narrow_pitch(Wd) + (nblk + 1) // 2) * 8
+
+
+def narrow_warps(W, R, d):
+    """Fronts a CTA of the narrow kernel takes at once (its warps): as many
+    of the warps' buffers (narrow_warp_bytes, NARROW_FRONT_BYTES in all) as
+    fit, at most NARROW_WARPS."""
+    return max(1, min(NARROW_WARPS,
+                      NARROW_FRONT_BYTES // narrow_warp_bytes(W, R, d)))
+
+
+class NarrowPlan(NamedTuple):
+    """One narrow level's chunk plan (narrow_plan; int32 tensors on the
+    solver's device).  Plan position p holds front order[p]: the fronts
+    sorted by their first row variable, then front.  Chunk c takes the
+    positions cptr[c]..cptr[c+1] and sums them into the rows
+    rptr[c]..rptr[c+1] of the partial buffer, a row a (chunk, target) in
+    target order; urow (S, R(R+1)/2): the chunk's row of each block (a, b),
+    b <= a, of U at position p (-1: none).  Target i (tgt, the level's
+    unique targets, ascending) takes the rows trow[tptr[i]:tptr[i+1]], in
+    chunk order.  mem_row, mem_src: every block of U (flat (s, a, b) over
+    (S, R, R)) beside its row, sorted by row then position (the model's
+    order); src, ptr: the level's Schur plan (its sorted segment sum, which
+    the plain scatter runs).  warps: the kernel's fronts at once; rows_max:
+    the most rows of a chunk."""
+    order: torch.Tensor
+    cptr: torch.Tensor
+    rptr: torch.Tensor
+    urow: torch.Tensor
+    tptr: torch.Tensor
+    trow: torch.Tensor
+    tgt: torch.Tensor
+    mem_row: torch.Tensor
+    mem_src: torch.Tensor
+    src: torch.Tensor
+    ptr: torch.Tensor
+    S: int
+    W: int
+    R: int
+    d: int
+    nb: int
+    nrows: int
+    rows_max: int
+    warps: int
+
+
+def narrow_chunks(row0, tgt_blocks, rows_cap, chunk):
+    """(order, cptr) of a narrow level's chunk plan: the fronts sorted by
+    their first row variable row0 (S,), then front, cut into chunks of at
+    most `chunk` fronts whose blocks (tgt_blocks (S, nblk): each block's
+    target, -1 for none) reach at most rows_cap distinct targets; numpy."""
+    S = row0.shape[0]
+    order = np.argsort(row0, kind="stable")
+    cuts = list(range(0, S, chunk)) + [S]
+    tb = tgt_blocks[order]
+    out = [0]
+    for c0, c1 in zip(cuts[:-1], cuts[1:]):
+        t = tb[c0:c1]
+        if np.unique(t[t >= 0]).size <= rows_cap:
+            out.append(c1)
+            continue
+        seen = set()     # a chunk over the cap: cut it front by front
+        for p in range(c0, c1):
+            new = seen | set(tb[p][tb[p] >= 0].tolist())
+            if len(new) > rows_cap and seen:
+                out.append(p)
+                new = set(tb[p][tb[p] >= 0].tolist())
+            seen = new
+        out.append(c1)
+    return order.astype(np.int32), np.asarray(out, dtype=np.int32)
+
+
+def narrow_plan(lp, ptr_, d, nb, device) -> NarrowPlan:
+    """The NarrowPlan of level plan lp (supernodal.py::_LevelPlan, narrow)
+    with its Schur segments' CSR offsets ptr_ (None without a panel), on a
+    store of nb rows; built on the host, checked, moved to `device`."""
+    S, W, R = lp.S, lp.W, lp.R
+    nblk = R * (R + 1) // 2
+    tri = np.tril(np.ones((R, R), dtype=bool))
+    tb = np.full((S, nblk), -1, np.int64)
+    if R:
+        src = lp.schur_src.astype(np.int64)
+        full = np.full((S, R, R), -1, np.int64)
+        full[src // (R * R), src % (R * R) // R, src % R] = \
+            lp.schur_tgt[lp.schur_seg]
+        tb = full[:, tri]
+    row0 = (lp.row_vars[:, 0] if R else np.zeros(S)).astype(np.int64)
+    cap = NARROW_ROW_BYTES // (d * d * 8)
+    order, cptr = narrow_chunks(row0, tb, cap, NARROW_CHUNK)
+    nchunk = len(cptr) - 1
+    chunk_of = np.repeat(np.arange(nchunk), np.diff(cptr))
+    # rows: the distinct (chunk, target) pairs in that order
+    pos = np.repeat(np.arange(S), nblk)
+    tpos = tb[order].reshape(-1)
+    keep = tpos >= 0
+    pc, pt = chunk_of[pos[keep]], tpos[keep]
+    T = 0 if lp.schur_tgt is None else len(lp.schur_tgt)
+    key = pc * (T + 1) + np.searchsorted(
+        lp.schur_tgt if T else np.zeros(0), pt)
+    rkey, rid = np.unique(key, return_inverse=True)
+    rchunk, rtgt = rkey // (T + 1), rkey % (T + 1)
+    rptr = np.searchsorted(rchunk, np.arange(nchunk + 1)).astype(np.int32)
+    urow = np.full(S * nblk, -1, np.int64)
+    urow[np.flatnonzero(keep)] = rid - rptr[pc]
+    # members: every block of U beside its row, by row then position
+    ab = np.flatnonzero(tri.reshape(-1))
+    msrc = (order[pos[keep]].astype(np.int64) * R * R
+            + np.tile(ab, S)[keep])
+    mo = np.lexsort((pos[keep], rid))
+    # each target's rows in chunk order
+    to = np.lexsort((rchunk, rtgt))
+    tptr = np.searchsorted(rtgt[to], np.arange(T + 1))
+    rows = np.diff(rptr)
+    i32 = torch.int32
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=i32,
+                               device=device)
+    empty = np.zeros(0, np.int32)
+    plan = NarrowPlan(
+        order=t(order), cptr=t(cptr), rptr=t(rptr),
+        urow=t(urow.reshape(S, nblk)), tptr=t(tptr), trow=t(to),
+        tgt=t(lp.schur_tgt if T else empty), mem_row=t(rid[mo]),
+        mem_src=t(msrc[mo]), src=t(lp.schur_src if R else empty),
+        ptr=t(ptr_ if R else np.zeros(1, np.int32)), S=int(S), W=int(W),
+        R=int(R), d=int(d), nb=int(nb), nrows=int(len(rkey)),
+        rows_max=int(rows.max()) if nchunk else 0,
+        warps=narrow_warps(W, R, d))
+    if not (narrow_route(W, R, d) and plan.rows_max <= max(cap, nblk)
+            and (T == 0 or (int(lp.schur_tgt.max()) < nb - 1
+                            and np.all(np.diff(tptr) > 0)))
+            and len(msrc) == (0 if lp.schur_src is None
+                              else len(lp.schur_src))):
+        raise ValueError("narrow_plan: the level does not fit the narrow "
+                         "route, or its plan is out of range")
+    return plan
+
+
+def narrow_chunk_plan_model(Lp, plan):
+    """The chunk plan's sums, plainly: (part (nrows, d*d), each (chunk,
+    target) row the sum of its blocks of U = Lp Lp^T in plan order; seg
+    (T, d*d), each target's rows summed in chunk order)."""
+    d = plan.d
+    dev = Lp.device
+    Ub = _u_blocks(Lp, plan.S, plan.R, d)
+    part = torch.zeros((plan.nrows, d * d), dtype=F64,
+                       device=dev).index_add_(
+        0, plan.mem_row.long(), Ub[plan.mem_src.long()])
+    seg = torch.zeros((plan.tgt.shape[0], d * d), dtype=F64,
+                      device=dev).index_add_(
+        0, segment_owner(plan.tptr), part[plan.trow.long()])
+    return part, seg
+
+
+def sn_narrow_front_plain(work, blocks, diag_ids, diag_flip, diag_pad,
+                          valid_diag, col_vars, dbc, panel_ids, lam,
+                          diagonal_damping, rec, plan, part, min_diag=1e-6,
+                          max_diag=1e32, out=None):
+    L, Linv, At, tiles = sn_front_factor_plain(
+        work, blocks, diag_ids, diag_flip, diag_pad, valid_diag, col_vars,
+        dbc, panel_ids, lam, diagonal_damping, rec, min_diag, max_diag)
+    LpT = None if At is None else _finite(torch.bmm(Linv, At))
+    bufs = (L.mT, Linv.mT, LpT, tiles)    # as the kernel writes them
+    if out is not None:
+        bufs = tuple(t if o is None or t is None else o.copy_(t)
+                     for o, t in zip(out, bufs))
+    Lp = None if LpT is None else bufs[2].mT
+    if Lp is not None:
+        part[:plan.nrows * plan.d ** 2] = narrow_chunk_plan_model(
+            Lp, plan)[0].reshape(-1)
+    return bufs[0].mT, bufs[1].mT, Lp, bufs[3]
+
+
+def sn_narrow_front(work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
+                    col_vars, dbc, panel_ids, lam, diagonal_damping, rec,
+                    plan, part, min_diag=1e-6, max_diag=1e32, out=None):
+    """Kernel 7n, fronts of a narrow level (narrow_route): what
+    sn_front_factor computes on the level (L, L^-1, the tile inverses, a
+    front's one 32 x 32 tile, and the records), and the panel Lp = A L^-T
+    in place of At: returns (L, L^-1 (S, W*d, W*d), Lp (S, R*d, W*d; None
+    without a row structure), each column-major per front, tiles (S, 32,
+    32)); and into `part` (a flat scratch of at least plan.nrows * d * d
+    doubles) the chunk plan's rows: each (chunk, target) row the sum of its
+    blocks of U = Lp Lp^T in plan order (narrow_chunk_plan_model).  On the
+    card one launch, a CTA a chunk of fronts and a warp a front; `out`:
+    the buffers it writes whole, (L^T, L^-T, Lp^T, tiles) row-major, each
+    None for a new one."""
+    args = (work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
+            col_vars, dbc)
+    if on_cpu(*args, rec, part, *_tensors(panel_ids)):
+        return sn_narrow_front_plain(*args, panel_ids, lam, diagonal_damping,
+                                     rec, plan, part, min_diag, max_diag,
+                                     out)
+    nb, dd = work.shape
+    d = _width(dd)
+    S, W, _ = diag_ids.shape
+    R = 0 if panel_ids is None else panel_ids.shape[1]
+    n = dbc.shape[0]
+    Wd, Rd = W * d, R * d
+    specs = [("work", work, F64, (nb, dd)), ("blocks", blocks, F64, (nb, dd)),
+             ("diag_ids", diag_ids, I32, (S, W, W)),
+             ("diag_flip", diag_flip, BOOL, (S, W, W)),
+             ("diag_pad", diag_pad, F64, (S, Wd)),
+             ("valid_diag", valid_diag, BOOL, (S, Wd)),
+             ("col_vars", col_vars, I32, (S, W)), ("dbc", dbc, I32, (n,)),
+             ("rec", rec, I32, (S,)), ("part", part, F64, (part.shape[0],))]
+    if R:
+        specs.append(("panel_ids", panel_ids, I32, (S, R, W)))
+    shapes = ((S, Wd, Wd), (S, Wd, Wd), (S, Wd, Rd) if R else None,
+              (S, TILE, TILE))
+    out = (None,) * 4 if out is None else tuple(out)
+    specs += [(f"out[{k}]", o, F64, shape)
+              for k, (o, shape) in enumerate(zip(out, shapes))
+              if o is not None and shape is not None]
+    dev = check("sn_narrow_front", *specs)
+    if (S, W, R, d, nb) != (plan.S, plan.W, plan.R, plan.d, plan.nb) or \
+            plan.order.device != dev or \
+            part.shape[0] < plan.nrows * dd:
+        raise ValueError(f"sn_narrow_front: the plan is for {plan.S} fronts "
+                         f"(W {plan.W}, R {plan.R}, d {plan.d}, {plan.nb} "
+                         f"store rows) on {plan.order.device}, or part holds "
+                         f"fewer than {plan.nrows * dd} doubles")
+    L, X, LpT, tiles = (
+        None if shape is None else o if o is not None
+        else torch.empty(shape, dtype=F64, device=dev)
+        for o, shape in zip(out, shapes))
+    KERNELS["sn_narrow_front"].launch(
+        dev, plan.cptr.shape[0] - 1, W, R, d, n, plan.warps,
+        plan.rows_max, *map(ptr, args), ptr(panel_ids) if R else 0,
+        ptr(plan.order), ptr(plan.cptr), ptr(plan.rptr), ptr(plan.urow),
+        float(lam), int(bool(diagonal_damping)), float(min_diag),
+        float(max_diag), ptr(L), ptr(X), ptr(LpT) if R else 0, ptr(tiles),
+        ptr(part), ptr(rec))
+    return L.mT, X.mT, None if LpT is None else LpT.mT, tiles
+
+
+def sn_narrow_scatter_plain(Lp, part, plan, work):
+    _schur_scatter_plain(Lp, plan.src, plan.ptr, plan.tgt, plan.S, plan.R,
+                         plan.d, work)
+
+
+def sn_narrow_scatter(Lp, part, plan, work):
+    """Kernel 7n, the Schur scatter of a narrow level: work[tgt[i]] -= the
+    sum of the blocks of U = Lp Lp^T that target it (Lp: sn_narrow_front's
+    panel, (S, R*d, W*d) column-major per front).  On the card one launch
+    that sums each target's chunk rows of `part` (sn_narrow_front's) in
+    chunk order, a thread an entry, and subtracts once; the plain version
+    sums U's blocks in the level's Schur plan order, as
+    sn_schur_update_plain does."""
+    if on_cpu(Lp, part, work):
+        return sn_narrow_scatter_plain(Lp, part, plan, work)
+    S, R, d = plan.S, plan.R, plan.d
+    Rd, Wd = R * d, plan.W * d
+    dev = check("sn_narrow_scatter",
+                ("Lp", Lp.mT if Lp.mT.is_contiguous() else Lp, F64,
+                 (S, Wd, Rd) if Lp.mT.is_contiguous() else (S, Rd, Wd)),
+                ("part", part, F64, (part.shape[0],)),
+                ("work", work, F64, (plan.nb, d * d)))
+    if plan.tgt.device != dev or part.shape[0] < plan.nrows * d * d:
+        raise ValueError(f"sn_narrow_scatter: the plan lies on "
+                         f"{plan.tgt.device}, or part holds fewer than "
+                         f"{plan.nrows * d * d} doubles")
+    KERNELS["sn_narrow_scatter"].launch(
+        dev, plan.tgt.shape[0], d, ptr(plan.tptr), ptr(plan.trow),
+        ptr(plan.tgt), ptr(part), ptr(work))
 
 
 # -- kernel 8: forward and backward substitution -----------------------------

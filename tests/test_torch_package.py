@@ -122,7 +122,7 @@ def test_cpu_path_counts_no_launch():
         | {"bal_error", "ba_back_substitute", "ba_schur_matvec"}
         | set(supernodal_kernels.KERNELS) | set(dense_kernels.KERNELS)
         | set(sparse_kernels.KERNELS))
-    assert len(supernodal_kernels.KERNELS) == 20
+    assert len(supernodal_kernels.KERNELS) == 22
     assert len(sparse_kernels.KERNELS) == 8
     assert all(n == 0 for n in _kernels.launch_counts().values())
 
@@ -253,6 +253,11 @@ def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
     plan = supernodal_kernels.SchurPlan(
         i(7), i(T + 1), i(T), i(7), S, W, R, 6, nb,
         supernodal_kernels.update_split(S, W, R, 6, T))
+    nrows = 5
+    narrow = supernodal_kernels.NarrowPlan(
+        i(S), i(2), i(2), i(S, R * (R + 1) // 2), i(T + 1), i(nrows), i(T),
+        i(7), i(7), i(7), i(T + 1), S, W, R, 6, nb, nrows, nrows,
+        supernodal_kernels.narrow_warps(W, R, 6))
     G = 10    # a Gram plan's rows: 6 of H, 4 of gv
     gram = supernodal_kernels.GramPlan(
         i(N), i(-(-N // supernodal_kernels.PROJ_CHUNK) + 1), i(G), i(G + 1),
@@ -293,6 +298,11 @@ def _meta_args_pg(name, N=4, Nv=5, n=5, nb=10, S=2, W=2, R=3, T=3):
         "sn_pivot_check": (i(3 * S), i(2)),
         "sn_schur_update": (f(S, Wd, Wd).mT, f(S, Wd, Rd), plan, f(nb, 36),
                             f(plan.split.scratch)),
+        "sn_narrow_front": (f(nb, 36), f(nb, 36), i(S, W, W), b(S, W, W),
+                            f(S, Wd), b(S, Wd), i(S, W), i(n), i(S, R, W),
+                            1e-3, False, i(S), narrow, f(nrows * 36)),
+        "sn_narrow_scatter": (f(S, Wd, Rd).mT, f(nrows * 36), narrow,
+                              f(nb, 36)),
         "sn_forward": (f(n, 6), levels, f(S, 32, 32), i(S * W),
                        i(S * W + 1), i(T + 1), i(7), f(S * Wd), f(S * Rd)),
         "sn_backward": (f(S * Wd), levels, f(S, 32, 32), i(S * W), i(S * R),
@@ -673,6 +683,7 @@ def _cpu_args_pg(name):
     rng = np.random.default_rng(1)
     blocks, g = s.system(vals.arrays)
     lv = next(lv for lv in dv.levels if lv.R)
+    assert lv.narrow is not None     # the small graph's levels are narrow
     f = s.factorize(blocks, 0.1)
     _, Linv, At, _ = supernodal_kernels.sn_front_factor(
         blocks.clone(), blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
@@ -714,6 +725,13 @@ def _cpu_args_pg(name):
                            torch.zeros(2, dtype=torch.int32)),
         "sn_schur_update": (Linv, At, lv.schur, blocks.clone(),
                             torch.zeros_like(dv.schur_U)),
+        "sn_narrow_front": (blocks.clone(), blocks, lv.diag_ids,
+                            lv.diag_flip, lv.diag_pad, lv.valid_diag,
+                            lv.col_vars, dv.dbc, lv.panel_ids, 0.3, True,
+                            torch.zeros(lv.S, dtype=torch.int32), lv.narrow,
+                            torch.zeros_like(dv.narrow_part)),
+        "sn_narrow_scatter": (f.levels.Ps[0], torch.as_tensor(rng.normal(
+            size=dv.narrow_part.shape)), lv.narrow, blocks.clone()),
         "sn_forward": (torch.as_tensor(rng.normal(size=(s.nvars, d))), *sol,
                        dv.gat_ptr, dv.gat_seg, dv.gat_src,
                        torch.zeros(s.n_y, dtype=torch.float64),
@@ -838,6 +856,47 @@ def test_schur_update_sizes_match_the_source():
             if max(sp.panel_chunks, sp.u_chunks) > 1 else 0
         assert sp.scratch == S * Rd * Rd + part * tile * tile
         assert sp.scatter_ctas == -(-7 * d // K.UPDATE_THREADS)
+
+
+def test_narrow_sizes_match_the_source():
+    """The narrow route's limits, warps and buffers, by which narrow_route
+    picks a level's route and narrow_warps and narrow_plan size a CTA's
+    work, are csrc/sn_narrow.cu's own: a front one of kernel 8's tiles, a
+    panel two rows a lane, a front's three buffers at an odd pitch; at every
+    narrow shape (d 1-32) the warps' buffers and the most rows a chunk may
+    hold fit the card's shared memory, and one row past a limit is wide."""
+    src = _cu_source("sn_narrow")
+
+    def const(name):
+        m = re.search(rf"constexpr int {name} = ([^;]+);", src)
+        assert m, name
+        return m.group(1).strip()
+
+    K = supernodal_kernels
+    assert int(const("kMaxWd")) == K.NARROW_WD == int(const("kTile")) \
+        == K.TILE
+    assert int(const("kMaxRd")) == K.NARROW_RD == 2 * 32
+    assert int(const("kMaxWarps")) == K.NARROW_WARPS
+    assert "return Wd | 1;" in src
+    assert "return (2 * Wd + Rd) * pitch(Wd) + (nblk + 1) / 2;" in src
+    assert "__launch_bounds__(kMaxWarps * 32) sn_narrow_front_kernel" in src
+    for d in range(1, K.NARROW_WD + 1):
+        for W in range(1, K.NARROW_WD // d + 1):
+            for R in range(K.NARROW_RD // d + 1):
+                assert K.narrow_route(W, R, d)
+                Wd, Rd, nblk = W * d, R * d, R * (R + 1) // 2
+                per = ((2 * Wd + Rd) * K.narrow_pitch(Wd) + (nblk + 1) // 2) \
+                    * 8
+                assert K.narrow_warp_bytes(W, R, d) == per
+                warps = K.narrow_warps(W, R, d)
+                rows = max(K.NARROW_ROW_BYTES // (d * d * 8),
+                           R * (R + 1) // 2)
+                assert K.narrow_pitch(Wd) % 2 == 1
+                assert 1 <= warps <= K.NARROW_WARPS
+                assert warps * per <= K.NARROW_FRONT_BYTES
+                assert warps * per + rows * d * d * 8 <= K.SHARED_BYTES
+            assert not K.narrow_route(W, K.NARROW_RD // d + 1, d)
+        assert not K.narrow_route(K.NARROW_WD // d + 1, 0, d)
 
 
 def test_point_pass_sizes_match_the_source():
