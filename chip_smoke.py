@@ -1326,11 +1326,17 @@ def kernel7_launches(s, factorizations):
 
 
 def log_routes(label, s):
-    """Log kernel 7's route of every level of supernodal solver s."""
+    """Log kernel 7's route of every level of supernodal solver s: narrow,
+    or wide with the front kernel's CTAs a front and the Schur update's
+    route (direct: its U tiles subtract from the store)."""
+    def route(lp, lv):
+        if lp.narrow:
+            return "narrow"
+        direct = lv.schur is not None and lv.schur.split.direct
+        return f"wide ctas {lv.ctas}" + (" direct" if direct else "")
     log(f"{label}: kernel 7's routes, a level (S, W*d, R*d): "
-        + ", ".join(f"({lp.S}, {lp.W * s.d}, {lp.R * s.d}) "
-                    f"{'narrow' if lp.narrow else 'wide'}"
-                    for lp in s.level_plans))
+        + ", ".join(f"({lp.S}, {lp.W * s.d}, {lp.R * s.d}) {route(lp, lv)}"
+                    for lp, lv in zip(s.level_plans, s.dev.levels)))
 
 
 def schur_scratch(s, lv):
@@ -1348,7 +1354,8 @@ def plain_levels(s, blocks, lam, dd):
     """The plain versions' factorization of `blocks` on supernodal solver s,
     level by level as factorize() runs it: per level a dict of the working
     store it starts from, the front (the plain gather, for the library
-    yardstick), L, L^-1, At, the tile inverses, Lp, U (for the library
+    yardstick), L, L^-1 and At (in the front kernel's layout:
+    front_buffers), the tile inverses, Lp, U (for the library
     yardstick) and the records; all the records (level after level) and
     the state they reduce to."""
     import torch
@@ -1363,9 +1370,12 @@ def plain_levels(s, blocks, lam, dd):
             lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, lam, dd,
             1e-6, 1e32)[0]
         rec = torch.empty(lv.S, dtype=torch.int32, device=blocks.device)
+        # L^-1 and At in the layout the front kernel leaves them
         e["L"], e["Linv"], e["At"], e["tiles"] = K.sn_front_factor_plain(
             work, blocks, lv.diag_ids, lv.diag_flip, lv.diag_pad,
-            lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, lam, dd, rec)
+            lv.valid_diag, lv.col_vars, dv.dbc, lv.panel_ids, lam, dd, rec,
+            out=(None, *K.front_buffers(lv.S, e["front"].shape[1],
+                                        lv.R * s.d, blocks.device), None))
         e["rec"], e["Lp"] = rec, None
         if lv.R:
             e["Lp"] = K.sn_schur_update_plain(e["Linv"], e["At"], lv.schur,
@@ -1541,18 +1551,20 @@ class PGCase:
                             e["work"].clone())
                 out.append((mk, lambda r, a: (a[3],)))
             elif name == "sn_front_factor":
-                # every output NaN-filled (the records -7): written whole
+                # every output NaN-filled (the records -7): written whole;
+                # L^-T and At in the kernel's own layout (front_buffers)
                 def mk(e=e, lv=lv):
+                    from gtsam_torch.linear import supernodal_kernels as K
                     Wd, Rd = e["L"].shape[1], lv.R * s.d
                     nan = float("nan")
                     buf = [torch.full((lv.S, Wd, Wd), nan,
-                                      dtype=torch.float64, device="cuda")
-                           for _ in range(2)]
-                    buf.append(torch.full((lv.S, Wd, Rd), nan,
-                                          dtype=torch.float64, device="cuda")
-                               if lv.R else None)
-                    buf.append(torch.full(e["tiles"].shape, nan,
-                                          dtype=torch.float64, device="cuda"))
+                                      dtype=torch.float64, device="cuda"),
+                           *K.front_buffers(lv.S, Wd, Rd, "cuda"),
+                           torch.full(e["tiles"].shape, nan,
+                                      dtype=torch.float64, device="cuda")]
+                    for o in buf[1:3]:
+                        if o is not None:
+                            o.fill_(nan)
                     return (e["work"], self.blocks, lv.diag_ids, lv.diag_flip,
                             lv.diag_pad, lv.valid_diag, lv.col_vars, dv.dbc,
                             lv.panel_ids, self.lam, self.dd,
@@ -2205,6 +2217,71 @@ def check_level_extras(case, label):
         f"the kernel's own L (tol {TILE_TOL:.0e}); the Schur update "
         f"{'and the narrow scatter ' if narrow else ''}leave every other "
         "store row alone")
+
+
+def check_front_split(case, label, lams=(1.0, 1e-4)):
+    """Kernel 7's front kernel split over its plan's CTAs a front against
+    the one-CTA route (ctas=1) on every wide level of `case` (a PGCase), at
+    each lam of `lams`, damping off and on: the five outputs (L, L^-1, the
+    records, the tile inverses, At) equal bit for bit, twice, and twice in
+    the delay-injected build (_build.TEST_BUILDS' sn_factor_race, which the
+    main path never loads).  The outputs are NaN-filled before the one-CTA
+    call and before every other split call, zero-filled before the rest, so
+    an entry that a route leaves unwritten shows; and the two routes into
+    buffers of their own (out=None), the same bits.
+    Returns the wide levels' (S, W*d, R*d, ctas)."""
+    import ctypes
+    import torch
+    from gtsam_torch import _build
+    from gtsam_torch.linear import supernodal_kernels as K
+    s = case.s
+    kern = K.KERNELS["sn_front_factor"]
+    race = _build.load("sn_factor_race").gt_sn_front_factor
+    race.argtypes = kern.argtypes
+    race.restype = ctypes.c_int
+    wide = [lv for lv in s.dev.levels if lv.narrow is None]
+    shapes = []
+    for (mk, _), lv in zip(case.calls("sn_front_factor", on_path=True),
+                           wide):
+        shapes.append((lv.S, lv.W * s.d, lv.R * s.d, lv.ctas))
+        for lam in lams:
+            for dd in (False, True):
+                def run(ctas, fill, fn=None, lam=lam, dd=dd, mk=mk):
+                    a = list(mk())
+                    a[9], a[10] = lam, dd
+                    if fill is None:    # buffers of the kernel's own
+                        a[-1] = None
+                    for o in a[-1] or ():
+                        if o is not None:
+                            o.fill_(fill)
+                    fn0 = kern._fn
+                    if fn is not None:
+                        kern._fn = fn
+                    try:
+                        r = K.sn_front_factor(*a, ctas=ctas)
+                    finally:
+                        kern._fn = fn0
+                    return (r[0], r[1], a[11], r[3]) + (
+                        (r[2],) if r[2] is not None else ())
+                nan = float("nan")
+                ref = run(1, nan)
+                got = [run(lv.ctas, f, fn) for fn in (None, race)
+                       for f in (0.0, nan)]
+                torch.cuda.synchronize()
+                same = [lin_same_bits(ref, g) for g in got]
+                same.append(lin_same_bits(run(1, None), run(lv.ctas, None)))
+                if not all(same):
+                    raise AssertionError(
+                        f"the front kernel at {lv.ctas} CTAs a front "
+                        f"differs from one CTA ({label}, level (S {lv.S}, "
+                        f"W*d {lv.W * s.d}, R*d {lv.R * s.d}), lam {lam}, "
+                        f"dd {dd}; normal, normal, delayed, delayed, "
+                        f"new buffers: {same})")
+    log(f"front split ({label}): every wide level (S, W*d, R*d, ctas) "
+        f"{shapes} at lam {list(lams)}, damping off and on: the split "
+        "route's five outputs equal the one-CTA route's bit for bit, twice, "
+        "and twice in the delay-injected build")
+    return shapes
 
 
 def card_records(s, bad, lam, dd, route):
@@ -3088,6 +3165,7 @@ def standin_kernel_times(main, ms_fn):
                                "stand-in")
     check_level_extras(case, "stand-in")
     check_fill_untouched(case, "stand-in")
+    check_front_split(case, "stand-in")
     for r in rows:
         if not r["name"].startswith("pg2_"):
             r["name"] += "[d=3]"
@@ -3692,16 +3770,20 @@ def front_levels(s, case, ms_fn):
                     "library_four_calls_device_ms", "library_level_ms",
                     "library_level_device_ms")
         else:
-            args = mk()
+            args = mk()[:-1]     # into the kernel's even-pitched buffers
             (gb, gops), (fb, fops) = front_work(s, lp)
             card = max((gb + fb) / HBM_BYTES_PER_S,
                        fops / FP64_TC_FLOPS) * 1e3
             row.update({
-                "front_ms": ms_fn(lambda: K.sn_front_factor(*args), reps=10),
+                "ctas": lv.ctas,
+                "front_ms": ms_fn(lambda: K.sn_front_factor(
+                    *args, ctas=lv.ctas), reps=10),
                 "front_device_ms": device_ms(
-                    lambda: K.sn_front_factor(*args)),
+                    lambda: K.sn_front_factor(*args, ctas=lv.ctas)),
+                "front_one_cta_device_ms": device_ms(
+                    lambda: K.sn_front_factor(*args, ctas=1)),
                 "front_bound_ms": card,
-                "front_bound_sms_ms": card * sms / min(lp.S, sms),
+                "front_bound_sms_ms": card * sms / min(lp.S * lv.ctas, sms),
                 "library_two_calls_ms": ms_fn(lib, reps=10),
                 "library_two_calls_device_ms": device_ms(lib)})
             if lp.R:
@@ -3712,8 +3794,7 @@ def front_levels(s, case, ms_fn):
                     lambda: K.sn_schur_update(*uargs))
                 row["update_bound_ms"], row["update_bound_by"] = bound_ms(
                     *update_work(s, lp))
-                row["update_split"] = K.update_split(
-                    lp.S, lp.W, lp.R, s.d, len(lp.schur_tgt))._asdict()
+                row["update_split"] = lv.schur.split._asdict()
 
                 def panel(e=e):
                     return torch.bmm(e["Linv"], e["At"])
@@ -3732,8 +3813,9 @@ def front_levels(s, case, ms_fn):
                     2 * lp.S * Rd * Rd * Wd / FP64_TC_FLOPS,
                     (lp.S * Rd * Wd + lp.S * Rd * Rd) * 8
                     / HBM_BYTES_PER_S) * 1e3
-            keys = ("front_ms", "front_device_ms", "front_bound_ms",
-                    "front_bound_sms_ms", "library_two_calls_ms",
+            keys = ("front_ms", "front_device_ms", "front_one_cta_device_ms",
+                    "front_bound_ms", "front_bound_sms_ms",
+                    "library_two_calls_ms",
                     "library_two_calls_device_ms", "update_ms",
                     "update_device_ms", "update_bound_ms", "panel_bmm_ms",
                     "panel_bmm_device_ms", "u_bmm_ms", "u_bmm_device_ms")
@@ -3746,6 +3828,10 @@ def front_levels(s, case, ms_fn):
     front_row = update_row = narrow_row = {}
     if any(not lp.narrow for lp in s.level_plans):
         front_row = {"bound_sms_ms": tot["front_bound_sms_ms"],
+                     "one_cta_device_ms": tot["front_one_cta_device_ms"],
+                     "ctas": [lv.ctas for lp, lv in zip(s.level_plans,
+                                                        s.dev.levels)
+                              if not lp.narrow],
                      "library_two_calls_ms": tot["library_two_calls_ms"],
                      "library_two_calls_device_ms":
                          tot["library_two_calls_device_ms"],
@@ -3795,6 +3881,9 @@ def case_kernel_rows(case, launches, ms_fn, label, suffix=""):
         if off_path:
             calls = case.calls(name)
         built = [mk() for mk, _ in calls]
+        # timed as the path runs them: the front kernel into new buffers
+        if name == "sn_front_factor":
+            built = [a[:-1] for a in built]
 
         def run(f, built=built):
             for a in built:
@@ -3883,6 +3972,8 @@ def pg_kernel_times(main, ms_fn):
                                      ms_fn, "sphere")
     check_level_extras(case, "sphere")
     check_fill_untouched(case, "sphere")
+    check_front_split(case, "sphere")
+    check_bad_pivot(case, "sphere")     # its middle level is split
     se3_big_times(kernels, ms_fn)
     # the segment sum of the forward pass is no kernel of its own any more:
     # sn_forward gathers it per column (its bound: the gather's share of
@@ -6126,12 +6217,20 @@ def profile_linear(lin):
     f = s.factorize(blocks, 1e-3)
     M = f.tail[0].clone()
 
-    def trace(fn, need=()):
+    def trace(fn, need=(), launched=(), witnesses=()):
         # a session that recorded no device work, or no launch of a kernel
         # in `need` (which fn launches whatever it computes), is taken again
         # (up to three times): the profiler lost its events (once in a run
         # of this script, the block-Jacobi solve's loop kernel, its two
-        # fills recorded); what the caller checks is one session's rows
+        # fills recorded); so is one that recorded fewer launches of a
+        # kernel in `launched` than its wrapper counted in fn (fn resets the
+        # counts) only where it lost launches of a kernel in `witnesses`
+        # too, which the caller does not check: the profiler lost part of
+        # the session, not one launch (once in a run of this script, the
+        # first half of a traced subgraph solve: kernel 14's pair 8 and 9
+        # of 17, kernel 11's pair 9 of 17, kernel 16's loop 17 of 34).
+        # Each retake logs the two counts; what the caller checks is one
+        # session's rows
         for attempt in range(3):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -6143,8 +6242,16 @@ def profile_linear(lin):
                     if str(e.device_type).endswith("CUDA")
                     and e.self_device_time_total > 0
                     and SETTLE_KERNEL not in e.key]
-            if rows and all(count(rows, k) for k in need):
+            counted = _kernels.launch_counts()
+            short = {k: (count(rows, k + "_kernel"), counted.get(k, 0))
+                     for k in launched + witnesses
+                     if count(rows, k + "_kernel") < counted.get(k, 0)}
+            lost = (any(k in short for k in launched)
+                    and any(k in short for k in witnesses))
+            if rows and all(count(rows, k) for k in need) and not lost:
                 return rows
+            log(f"profile_linear: session {attempt} incomplete (traced, "
+                f"counted by the wrappers: {short}; need {need})")
         return rows
 
     def count(rows, *words):
@@ -6196,8 +6303,11 @@ def profile_linear(lin):
     need = ("pcg_loop_kernel", "sp_level_forward_kernel",
             "sp_level_backward_kernel")
     rows = trace(lambda: (_kernels.reset_launch_counts(),
-                          sg.solve(sys_, 1e-3, False)), need)
-    calls = sum(_kernels.launch_counts().values())
+                          sg.solve(sys_, 1e-3, False)), need,
+                 ("sp_level_forward", "sp_level_backward"),
+                 ("dense_forward", "dense_backward"))
+    counted = _kernels.launch_counts()
+    calls = sum(counted.values())
     sg.max_iterations = 500
     busy = sum(ms for _, _, ms in rows)
     # every kernel launch of the solve (copies aside), a CG iteration's
@@ -6224,7 +6334,8 @@ def profile_linear(lin):
             not per_it <= SUBGRAPH_LAUNCHES_PER_IT or \
             calls_per_it != SUBGRAPH_CALLS_PER_IT:
         raise AssertionError(f"the traced subgraph-PCG solve: {rows}, "
-                             f"{calls_per_it} wrapper calls an iteration")
+                             f"{calls_per_it} wrapper calls an iteration; "
+                             f"the wrappers counted {counted}")
 
 
 # -- graph-form bundle adjustment: kernels 17 and 18, kernels 6-9 at d = 9 ---
@@ -6934,6 +7045,7 @@ def sfm_kernel_times(main, small_runs, ms_fn):
             r["name"] += "[d=9]"
     check_level_extras(case, "sfm")
     check_fill_untouched(case, "sfm")
+    check_front_split(case, "sfm")      # the root
     s = case.s
     (i, b, st), = case.k6_batches("BalCamera")
     # kernel 17's Gram mode beside the per-factor layout's work (a row of H
@@ -7101,7 +7213,9 @@ def main(argv):
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.time()
-    paths = _build.build()
+    # every source and the test builds (kernel 7's delay-injected copy), all
+    # nvcc processes at once
+    paths = _build.build(_build.SOURCES + tuple(_build.TEST_BUILDS))
     log(f"build: {time.time() - t0:.3f} s for {len(paths)} libraries")
     t0 = time.time()
     log(f"native orderings: {native.build().name} in "

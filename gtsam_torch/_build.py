@@ -24,6 +24,12 @@ SOURCES = ("bal_linearize", "ba_point_eliminate", "ba_schur_assemble",
            "dense_factor", "dense_solve", "sp_level", "pcg", "proj_factor")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Test builds: a source compiled again with extra flags into a library of
+# its own, which checks load (chip_smoke.py) and the main path never does.
+# sn_factor_race: kernel 7 with delays before every flag's publish and
+# await in all but a front's first CTA (GT_SN_RACE_DELAYS), so that a
+# missing wait shows as other bits.
+TEST_BUILDS = {"sn_factor_race": ("sn_factor", ("-DGT_SN_RACE_DELAYS",))}
 
 BUILD_LOG = {}   # source name -> nvcc/ptxas output of the last build here
 _LIBS = {}
@@ -41,17 +47,26 @@ def nvcc_path() -> str:
                        "built with nvcc at first use (set CUDA_HOME)")
 
 
+def _source(name: str):
+    """(the .cu file, the nvcc flags) of a library: a source's own, or a
+    test build's (TEST_BUILDS)."""
+    src, extra = TEST_BUILDS.get(name, (name, ()))
+    return CSRC / f"{src}.cu", NVCC_FLAGS + tuple(extra)
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    cu, flags = _source(name)
+    h = hashlib.sha1(" ".join(flags).encode())
+    h.update(cu.read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.read_bytes())
     return BUILD_DIR / f"lib{name}.{h.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> dict:
-    """Compile every library of `names` that is not built yet, all nvcc
-    processes at once.  Returns {name: path}; raises if any build fails."""
+    """Compile every library of `names` (sources, or TEST_BUILDS) that is
+    not built yet, all nvcc processes at once.  Returns {name: path};
+    raises if any build fails."""
     paths = {n: library_path(n) for n in names}
     todo = [n for n in names if not paths[n].exists()]
     if todo:
@@ -60,8 +75,8 @@ def build(names=SOURCES) -> dict:
         procs = {}
         for n in todo:
             tmp = paths[n].with_suffix(f".tmp{os.getpid()}")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   str(CSRC / f"{n}.cu")]
+            cu, flags = _source(n)
+            cmd = [nvcc, *flags, "-I", str(CSRC), "-o", str(tmp), str(cu)]
             procs[n] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))

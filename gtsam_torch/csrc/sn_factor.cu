@@ -8,57 +8,82 @@
 // (:436-441); and kernel 8's inverses of the fronts' 32 x 32 diagonal tiles
 // (:583, which the JAX package leaves to its triangular solves).
 //
-// gt_sn_front_factor: one CTA (8 warps) per front of the level, one launch.
-// The CTA gathers its front from the working store into the level's L^-1
-// output, used as its working buffer (row-major: the lower 128-column
-// blocks and the whole diagonal blocks, with the flips, the padding
-// identity and the damping, lam or lam * clip(H_cc[k, k], min, max) of the
-// undamped store, on true dimensions), and its panel, transposed, into At.
-// Then it factors the front right-looking in 128-column blocks: each
-// diagonal block D is factored and inverted in shared memory by kernel
-// 10's code (chol_tiles.cuh::factor_block, identity past the front's
-// width), the blocks below it become L_ik = A_ik L_D^-T and the trailing
-// blocks A_ij -= L_ik L_jk^T, both products of 128 x 128 blocks on the
-// FP64 tensor cores (mma.sync m16n8k16, kernel 10's fragments), streamed
-// through three shared-memory buffers 32 columns at a time (cp.async) from
-// the working buffer, which L2 holds.  Last it composes L^-1 block by block
-// (X_ij = -X_ii sum_{m=j}^{i-1} L_im X_mj).  L and L^-1 are written
-// column-major per front (what level_table reads), zero above the diagonal
-// and non-finite entries zeroed, and the front's first bad pivot (a true
-// dimension whose L_kk is not finite or not positive) as its permuted
-// column, or -1.  Each diagonal block's L_D^-1 holds the inverses of L's
-// 32 x 32 diagonal tiles on its own diagonal (L_D is block lower
-// triangular in tiles), the identity past the front's width: they are
-// copied into kernel 8's packed tile buffer.  No atomics.
+// gt_sn_front_factor: one launch a level, ctas CTAs (8 warps each) a front
+// (the plan's supernodal_kernels.front_ctas: the level's share of the SMs;
+// 1 where the level fills half the card).  The front's CTAs gather it from
+// the working store into the level's L^-1 output, used as its working
+// buffer (row-major, rows ldx apart: the lower 128-column blocks and the
+// whole diagonal blocks, with the flips, the padding identity and the
+// damping, lam or lam * clip(H_cc[k, k], min, max) of the undamped store,
+// on true dimensions), and its panel, transposed, into At (rows lda
+// apart), a warp a block row or 256 panel rows of a block column.  Then
+// they factor the front right-looking in 128-column blocks: each diagonal
+// block D is factored and inverted in shared memory by kernel 10's code
+// (chol_tiles.cuh::factor_block, identity past the front's width), the
+// blocks below it become L_ik = A_ik L_D^-T and the trailing blocks A_ij
+// -= L_ik L_jk^T, both products of 128 x 128 blocks on the FP64 tensor
+// cores (mma.sync m16n8k16, kernel 10's fragments), streamed through three
+// shared-memory buffers 32 columns at a time (cp.async) from the working
+// buffer, which L2 holds.  Last they compose L^-1 block by block (Y_ij =
+// sum_{m=j}^{i-1} L_im X_mj, then X_ij = -X_ii Y_ij).  Row half h of
+// block (i, j) of L is CTA (2 tid(i, j) + h) % ctas's: its updates and its
+// solve run there in step order (a product's row half is the same sums
+// whether or not the other half is formed beside it); a diagonal block's
+// factorization and block (i, j) of L^-1 are their first half's owner's.
+// So every entry's sums run over the same slabs in the same order
+// whatever ctas, and the outputs are the one-CTA route's bit for bit.  A
+// finished half or block is passed on by a flag (release at GPU scope by
+// its owner, acquire by a reader) holding the launch's number; every CTA
+// walks the steps in one order (each step's diagonal block, its solves,
+// its trailing blocks column by column, the next diagonal block first:
+// look-ahead) and waits only on jobs earlier in it, so the front's CTAs
+// cannot stall each other (a cooperative launch keeps them all
+// resident); a sum of L^-1 waits for its D_i only before its scale.  L
+// and L^-1 are written column-major per front (what level_table reads),
+// zero above the diagonal and non-finite entries zeroed, and the front's
+// first bad pivot (a true dimension whose L_kk is not finite or not
+// positive) as its permuted column, or -1.  Each diagonal block's L_D^-1
+// holds the inverses of L's 32 x 32 diagonal tiles on its own diagonal
+// (L_D is block lower triangular in tiles), the identity past the front's
+// width: they are copied into kernel 8's packed tile buffer.  No atomics.
 // Bound on the H100: the FP64 tensor-core operations of the products and
-// factorizations at the card's rate (or the fronts' bytes); one CTA a front
-// holds a level of S fronts to S of the 132 SMs, and the diagonal blocks'
-// pivots are a chain of Wd steps (kernel 10: ~74 ns a pivot).  On an H100
-// (scripts/port_front_probe.py) a 384-column front takes ~0.53 ms: the
-// products ~0.27 (their tensor-core instructions ~0.18: a thread's 32
-// sums and the fragments fill its registers, and a third buffer for the
-// copies gained nothing), the three diagonal blocks ~0.15, the gathers of
-// front and panel ~0.07.  The gathers are latency-bound at one CTA: each
-// lane loads its block ids, then all of a block's rows, before it stores.
+// factorizations at the card's rate (or the fronts' bytes); a level of S
+// fronts holds S * ctas of the 132 SMs (the one-SM bound over ctas), and
+// the diagonal blocks are a chain of nb = ceil(Wd / 128) factorizations at
+// kernel 10's ~35-50 us a block, each after its step's solve and update of
+// the next block (each a half product on two CTAs).  On an H100
+// (scripts/port_front_probe.py, one CTA) a 384-column front takes ~0.53
+// ms: the products ~0.27, the three diagonal blocks ~0.15, the gathers
+// ~0.07; split (scripts/port_split_probe.py) the sfm root (576 columns)
+// took ~0.53 ms at whole-block jobs (15 CTAs) against one CTA's 1.59.
 // gt_sn_pivot_check: one block reduces the first-bad records of every front
 // of a factorization (level after level) to state = (ok, badcol): the first
 // bad pivot of the first bad level, by a fixed min-tree.
 // gt_sn_schur_update: the level's tail in one cooperative launch of CTAs
 // that share out the level's output tiles, whatever its count of fronts,
-// with a grid barrier between three phases:
+// with a grid barrier between the phases:
 //   1. the panel: Lp^T = L^-1 A^T of every front, in 64 x 64 tiles, from
 //      the front kernel's L^-1 and At, non-finite entries zeroed; written
 //      as (S, Wd, Rd) row-major, which is Lp column-major per front (what
-//      level_table keeps, and kernel 8 reads);
-//   2. U = Lp Lp^T: only the 64 x 64 tiles, and within them the 16 x 8
-//      product blocks, that hold an entry of a d x d block on or below the
-//      block diagonal (the blocks the plan scatters), into a scratch of
-//      the solver's (S, Rd, Rd) that L2 holds;
+//      level_table keeps, and kernel 8 reads), and, for an odd Rd, again
+//      at the even pitch Rd + 1 (zero past Rd) as U's operand;
+//   2. U = Lp Lp^T: only the tiles, and within them the 16 x 8 product
+//      blocks, that hold an entry of a d x d block on or below the block
+//      diagonal (the blocks the plan scatters), into a scratch of the
+//      solver's (S, Rd, Rd) that L2 holds; on the direct route (a level of
+//      one front whose every target takes one block) the tiles subtract
+//      their entries from their targets themselves, old - (0 + u): the
+//      scatter's bits for a sum of one block, with no U, no scatter and
+//      one grid barrier less;
 //   3. the scatter: a thread per row of each unique target block sums its
 //      segment's U blocks in the plan's order and subtracts once.
 // A product phase of few tiles (a level of one or two fronts) splits each
 // tile's depth into k-chunks, a CTA each, and sums their partial tiles in
-// chunk order after a barrier.
+// chunk order after a barrier.  Either pitch and either route give the
+// same bits where the k-chunks are the same.  (A 96-wide tile, a multiple
+// of d = 3 and 6 whose d x d blocks never straddle two tiles, measured
+// slower than 64 on every level of the sphere and the stand-in:
+// scripts/port_update_probe.py's "fitted" variant.)
 // Both products are C = P^T Q of operands stored k-major (P[k][m]: L^-1 is
 // column-major, At and Lp^T row-major), staged by cp.async 32 rows deep
 // through a ring of three shared-memory buffers (a 64-column slab each,
@@ -66,21 +91,21 @@
 // multiplied on the FP64 tensor cores (mma.sync m16n8k16), a warp a 32 x 32
 // quadrant; the panel skips the 16 x 16 blocks of L^-1 above its diagonal.
 // Values written in this launch by other CTAs are read past L1 (cp.async.cg,
-// ld.cg).  Widths may be odd (W*d, R*d at d = 3): staging, stores and sums
-// move pairs of entries 16 bytes at a time where they are 16-byte aligned
-// and 8 where not (copy_pair, store_pair, ldcg_pair), the pair past an odd
+// ld.cg).  The front kernel leaves L^-1 and At at even row pitches, so
+// every staged pair is one 16-byte copy; on odd pitches (d = 3; contiguous
+// operands from elsewhere) pairs move 8 bytes at a time where they are not
+// 16-byte aligned (copy_pair, store_pair, ldcg_pair), the pair past an odd
 // width's last entry zero or not stored.  No atomics: every sum runs in a
 // fixed order.
 // Bound on the H100: the products' FP64 tensor-core operations (L^-1's
 // triangle and U's block triangle counted once), ~2.6 GFLOP a sphere
-// factorization (0.040 ms) against ~0.12 GB moved (0.035 ms).  On an H100
-// (scripts/port_update_probe.py) the sphere's seven launches take ~0.31 ms
-// of device time: ~0.13 the panel, ~0.13 U, ~0.03 the scatter, ~0.03 the
-// launches and grid barriers.  The products run at a fair share of one
-// SM's tensor cores, but a level's time is its deepest tile's chain of
-// slabs, and 64 x 64 tiles waste work on ragged widths (R*d 144, 198, 426,
-// 450); splitting the tiles of the wider levels into k-chunks cost more in
-// partial tiles than it saved in balance.
+// factorization (0.040 ms) against ~0.12 GB moved (0.035 ms), 10.4 GFLOP a
+// w10000 stand-in factorization (0.155 ms).  On an H100
+// (scripts/port_update_probe.py) the stand-in's 18 launches take ~2.0 ms
+// on odd pitches: ~0.73 the panel, ~1.0 U, ~0.25 the scatter, ~0.07 the
+// launches and barriers; the copies, not the products, take most (the
+// time with no copies ~0.9, with no products ~1.6): each tile's chain of
+// slabs waits on L2.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -99,6 +124,7 @@ constexpr int kWarps = chol::kWarps;
 constexpr int kLd = chol::kLd<double>;
 constexpr int kTileSz = chol::kTileSz<double>;
 constexpr int kRowBatch = 8;   // a gather's rows of a block in flight at once
+constexpr int kPanelRows = 256;   // a warp's panel rows of a block column
 
 // An operand of a block product: entry (r, c) at p[r * ld + c] for r < rows
 // and c < cols, zero outside, and (tri) zero above its diagonal (c > r;
@@ -216,11 +242,13 @@ __device__ __forceinline__ void mma_slab(double (&acc)[2][16],
 // this one.
 // A warp holds one 32 x 32 tile of a row half, or two 32 x 16 strips of a
 // column half.  `lower`: only C's tiles on and below its diagonal are
-// needed (the others come out zero).  Ends with a CTA barrier, so the
-// epilogue's writes are seen by the next product's loads.
+// needed (the others come out zero).  Only the halves h0 .. h1 - 1 are
+// formed: a half's entries are the same sums whatever else is formed.
+// Ends with a CTA barrier, so the epilogue's writes are seen by the next
+// product's loads.
 template <bool kRowHalves, typename G, typename F>
 __device__ void product(int n, G term, double* smem, F epi,
-                        bool lower = false) {
+                        bool lower = false, int h0 = 0, int h1 = 2) {
   constexpr int kH = kNB / 2;                      // a half's rows or columns
   constexpr int kAR = kRowHalves ? kH : kNB;       // A rows staged
   constexpr int kBR = kRowHalves ? kNB : kH;       // B rows staged
@@ -232,7 +260,7 @@ __device__ void product(int n, G term, double* smem, F epi,
   const int bt = kRowHalves ? warp & 3 : 0;            // its first B tile
   const int c[2] = {kRowHalves ? 0 : 16 * (warp & 1),
                     kRowHalves ? 16 : 16 * (warp & 1)};
-  for (int h = 0; h < 2; ++h) {
+  for (int h = h0; h < h1; ++h) {
     Opnd A, B;
     term(0, A, B);
     if ((kRowHalves ? A.rows : B.rows) <= h * kH) break;
@@ -321,9 +349,67 @@ __device__ __forceinline__ double finite_or_zero(double v) {
   return isfinite(v) ? v : 0.0;
 }
 
+// The split route's flags (ctas > 1): set (release, GPU scope) by thread 0
+// once the CTA's writes before it are done, awaited (acquire) by thread 0,
+// then a CTA barrier; a flag holds the number of the launch that set it.
+// A wait that outlasts kStall cycles (seconds: a front takes milliseconds)
+// can only be a fault: it traps, so the launch fails and the caller's next
+// synchronisation raises, instead of hanging the card.  GT_SN_RACE_DELAYS
+// (a test build of this file only, _build.TEST_BUILDS) sleeps before every
+// publish and await in every CTA but a front's first, so that a missing
+// wait shows as other bits.
+constexpr long long kStall = 20000000000LL;
+
+__device__ __forceinline__ void race_delay(int me) {
+#ifdef GT_SN_RACE_DELAYS
+  if (me != 0 && threadIdx.x == 0) {
+    const unsigned h = (unsigned)clock64() * 2654435761u ^ blockIdx.x;
+    __nanosleep(2000u + (h >> 20) % 16u * 1000u);
+  }
+#else
+  (void)me;
+#endif
+}
+
+__device__ __forceinline__ void publish(int* flag, int seq, int me) {
+  race_delay(me);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(flag), "r"(seq)
+                 : "memory");
+  }
+}
+
+// Thread 0: until flag holds seq (no barrier).
+__device__ __forceinline__ void spin(const int* flag, int seq) {
+  const long long t0 = clock64();
+  int v;
+  while (true) {
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+                 : "=r"(v)
+                 : "l"(flag)
+                 : "memory");
+    if (v == seq) break;
+    if (clock64() - t0 > kStall) __trap();
+    __nanosleep(32);
+  }
+}
+
+// A front's flags (ints): fB, a diagonal block factored and inverted; fS,
+// a row half of a block below it solved (at 2 tid(i, j) + h); fU, the
+// second row half of a diagonal block updated by its last step; fX, a
+// block of L^-1 composed (at tid(i, j)); each CTA's gather and end; then
+// the diagonal blocks' first bad pivots, stored as -1 - f (negative: never
+// a launch's number).
+__host__ __device__ __forceinline__ int front_flags(int nb, int ctas) {
+  return 3 * nb + 3 * (nb * (nb + 1) / 2) + 2 * ctas;
+}
+
 __global__ void __launch_bounds__(chol::kThreads, 1) sn_front_factor_kernel(
-    int W, int R, int d, int n, const double* __restrict__ work,
-    const double* __restrict__ blocks, const int* __restrict__ diag_ids,
+    int W, int R, int d, int n, int ctas, int seq, int ldx, int lda,
+    const double* __restrict__ work, const double* __restrict__ blocks,
+    const int* __restrict__ diag_ids,
     const unsigned char* __restrict__ diag_flip,
     const double* __restrict__ diag_pad,
     const unsigned char* __restrict__ valid_diag,
@@ -332,26 +418,64 @@ __global__ void __launch_bounds__(chol::kThreads, 1) sn_front_factor_kernel(
     double min_diag, double max_diag, double* __restrict__ Lout,
     double* __restrict__ Xout, double* __restrict__ At,
     double* __restrict__ Dinv, double* __restrict__ tiles,
-    int* __restrict__ rec) {
+    int* __restrict__ rec, int* __restrict__ flags) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ double rinv[kNT * kTile];
   __shared__ __align__(16) double lt[kNT * kTile * chol::kLtPitch];
   __shared__ int ready[kNT * 8];
   __shared__ int info;          // factor_tile's record (unused here)
-  __shared__ int first[kNT + 1];   // a block's first bad pivot per tile row;
-                                   // [kNT]: the front's, or -1
-  const int s = blockIdx.x;
+  __shared__ int first[kNT];    // a block's first bad pivot per tile row
+  const int s = blockIdx.x / ctas, me = blockIdx.x - s * ctas;
   const int Wd = W * d, Rd = R * d, dd = d * d;
-  const int nb = (Wd + kNB - 1) / kNB;
+  const int nb = (Wd + kNB - 1) / kNB, nlow = nb * (nb + 1) / 2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t fo = (int64_t)s * Wd * Wd;
-  double* Wk = Xout + fo;   // the working front (row-major), then L^-1
-  double* Lo = Lout + fo;   // L, column-major
+  // the front's warps over its CTAs, for the gathers and the zero fills
+  const int gw = me * kWarps + warp, nw = ctas * kWarps;
+  // the working front (row-major, rows ldx apart), then L^-1
+  // (column-major); L, column-major
+  double* Wk = Xout + (int64_t)s * ldx * ldx;
+  double* Lo = Lout + (int64_t)s * Wd * Wd;
   double* Ds = Dinv + (int64_t)s * nb * kNB * kNB;
   double* Ts = tiles + (int64_t)s * ((Wd + kTile - 1) / kTile) * kTile * kTile;
+  int* fB = flags + (int64_t)s * front_flags(nb, ctas);
+  int* fS = fB + nb;
+  int* fU = fS + 2 * nlow;
+  int* fX = fU + nb;
+  int* fG = fX + nlow;
+  int* fE = fG + ctas;
+  int* bad = fE + ctas;
+  const bool split = ctas > 1;
   auto width = [&](int k) { return min(kNB, Wd - k * kNB); };
+  // a block's row halves (a second where it is more than 64 rows)
+  auto halves = [&](int i) { return width(i) > kNB / 2 ? 2 : 1; };
   auto at = [&](int i, int j) {   // block (i, j) of the row-major view
-    return Wk + (int64_t)i * kNB * Wd + j * kNB;
+    return Wk + (int64_t)i * kNB * ldx + j * kNB;
+  };
+  auto tid = [](int i, int j) { return chol::tid_of(i, j); };
+  // row half h of block (i, j) of L is this CTA's: all its updates and its
+  // solve run here, in step order; a diagonal block's factorization and a
+  // block of L^-1 are their first half's owner's
+  auto own = [&](int i, int j, int h) {
+    return (2 * tid(i, j) + h) % ctas == me;
+  };
+  auto post = [&](int* f) {
+    if (split) publish(f, seq, me);
+  };
+  // await the flags f(0) .. f(m - 1)
+  auto wait = [&](int m, auto f) {
+    if (!split) return;
+    race_delay(me);
+    if (threadIdx.x == 0)
+      for (int q = 0; q < m; ++q) spin(f(q), seq);
+    __syncthreads();
+  };
+  auto all = [&](int* f) {   // every CTA of the front at f (warp 0)
+    if (!split) return;
+    publish(f + me, seq, me);
+    race_delay(me);
+    if (warp == 0)
+      for (int c = lane; c < ctas; c += 32) spin(f + c, seq);
+    __syncthreads();
   };
   double* dsm = reinterpret_cast<double*>(smem);
 
@@ -360,8 +484,9 @@ __global__ void __launch_bounds__(chol::kThreads, 1) sn_front_factor_kernel(
   // warp per block row a and a lane per column, two 32-column chunks at a
   // time, each lane's store ids loaded first and then all of its d rows'
   // entries, so that a chunk costs two trips to memory, and the stores are
-  // whole rows; the damping as the plain version adds it
-  for (int a = warp; a < W; a += kWarps) {
+  // whole rows; the damping as the plain version adds it.  The block rows
+  // are dealt out over the warps of the front's CTAs.
+  for (int a = gw; a < W; a += nw) {
     const int cend = min(Wd, ((a + 1) * d - 1) / kNB * kNB + kNB);
     const int64_t row = ((int64_t)s * W + a) * W;
     for (int c0 = lane; c0 < cend; c0 += 2 * 32) {
@@ -410,18 +535,23 @@ __global__ void __launch_bounds__(chol::kThreads, 1) sn_front_factor_kernel(
               }
               x = x + (diag_pad[e] + damp);
             }
-            Wk[(int64_t)r * Wd + c] = x;
+            Wk[(int64_t)r * ldx + c] = x;
           }
         }
       }
     }
   }
-  // the panel, transposed (At[c][r] = A(r, c)): a warp per block column b
-  // and a lane per row, as the front
+  // the panel, transposed (At[c][r] = A(r, c), rows lda apart, the
+  // columns past Rd zero): a warp per block column b and kPanelRows rows
+  // (a job), a lane per row, as the front
   if (R > 0) {
-    double* Ats = At + (int64_t)s * Wd * Rd;
-    for (int b = warp; b < W; b += kWarps) {
-      for (int r0 = lane; r0 < Rd; r0 += 2 * 32) {
+    double* Ats = At + (int64_t)s * Wd * lda;
+    for (int r = gw * 32 + lane; r < Wd; r += nw * 32)
+      for (int c = Rd; c < lda; ++c) Ats[(int64_t)r * lda + c] = 0.0;
+    const int chunks = (Rd + kPanelRows - 1) / kPanelRows;
+    for (int q = gw; q < W * chunks; q += nw) {
+      const int b = q % W, rb = q / W * kPanelRows;
+      for (int r0 = rb + lane; r0 < min(Rd, rb + kPanelRows); r0 += 2 * 32) {
         int blk[2], off[2];
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
@@ -445,7 +575,7 @@ __global__ void __launch_bounds__(chol::kThreads, 1) sn_front_factor_kernel(
 #pragma unroll
             for (int j = 0; j < kRowBatch; ++j)
               if (j0 + j < d)
-                Ats[(int64_t)(b * d + j0 + j) * Rd + r] =
+                Ats[(int64_t)(b * d + j0 + j) * lda + r] =
                     finite_or_zero(v[u][j]);
           }
         }
@@ -454,18 +584,20 @@ __global__ void __launch_bounds__(chol::kThreads, 1) sn_front_factor_kernel(
   }
   // L's blocks above the diagonal blocks (column-major: column c, rows
   // above its block)
-  for (int c = kNB + warp; c < Wd; c += kWarps)
+  for (int c = kNB + gw; c < Wd; c += nw)
     for (int r = lane; r < c / kNB * kNB; r += 32)
       Lo[(int64_t)c * Wd + r] = 0.0;
-  if (threadIdx.x == 0) {
-    info = 0;
-    first[kNT] = -1;
-  }
+  if (threadIdx.x == 0) info = 0;
   __syncthreads();
+  all(fG);
 
-  for (int k = 0; k < nb; ++k) {
+  // Step k, diagonal block D = (k, k): factored and inverted in shared
+  // memory (kernel 10's code), its first bad pivot, L_D^-1's diagonal
+  // tiles for kernel 8, L_D into L and L_D^-1 over D's place
+  auto factor = [&](int k) {
     const int o = k * kNB, w = width(k);
     double* Dk = Ds + (int64_t)k * kNB * kNB;
+    if (k > 0 && halves(k) == 2) wait(1, [&](int) { return fU + k; });
     chol::Block<double> b;
     b.A = dsm;
     b.X = b.A + chol::kTiles * kTileSz;
@@ -475,7 +607,7 @@ __global__ void __launch_bounds__(chol::kThreads, 1) sn_front_factor_kernel(
     b.S = at(k, k);
     b.D = Dk;
     b.info = &info;
-    b.ld = Wd;
+    b.ld = ldx;
     b.o = o;
     b.w = w;
     chol::factor_block(b);
@@ -484,9 +616,9 @@ __global__ void __launch_bounds__(chol::kThreads, 1) sn_front_factor_kernel(
     if (warp < kNT) {
       const int r = kTile * warp + lane;
       const double p = b.a(warp, warp)[lane * kLd + lane];
-      const bool bad = r < w && valid_diag[(int64_t)s * Wd + o + r] &&
-                       !(p > 0.0 && isfinite(p));
-      const unsigned m = __ballot_sync(0xffffffffu, bad);
+      const bool bd = r < w && valid_diag[(int64_t)s * Wd + o + r] &&
+                      !(p > 0.0 && isfinite(p));
+      const unsigned m = __ballot_sync(0xffffffffu, bd);
       if (lane == 0) first[warp] = m ? kTile * warp + __ffs(m) - 1 : kNB;
     }
     // L_D^-1's 32 x 32 diagonal tiles, in shared memory, into kernel 8's
@@ -518,97 +650,136 @@ __global__ void __launch_bounds__(chol::kThreads, 1) sn_front_factor_kernel(
     for (int q = warp; q < kNB * kNT; q += kWarps) {
       const int C = q / kNT, r = kTile * (q % kNT) + lane;
       if (C < w && r < w)
-        Wk[(int64_t)(o + C) * Wd + o + r] =
+        Wk[(int64_t)(o + C) * ldx + o + r] =
             finite_or_zero(dsm[C * (kNB + 1) + r]);
     }
-    __syncthreads();
-    if (threadIdx.x == 0 && first[kNT] < 0) {
+    if (threadIdx.x == 0) {
       int f = kNB;
       for (int t = 0; t < kNT; ++t) f = min(f, first[t]);
-      if (f < kNB) first[kNT] = o + f;
+      bad[k] = -1 - f;
     }
-    // the blocks below: L_ik = A_ik L_D^-T, into the working buffer (in
-    // place) and into L, column-major
-    for (int i = k + 1; i < nb; ++i) {
-      const int wi = width(i);
-      double* Aik = at(i, k);
-      product<true>(
-          1,
-          [&](int, Opnd& A, Opnd& B) {
-            A = Opnd{Aik, Wd, wi, w, kDense};
-            B = Opnd{Dk, kNB, w, w, kUpperZero};     // L_D^-1
-          },
-          dsm,
-          [&](int r, int c, double v) {
-            if (r < wi && c < w) {
-              Aik[(int64_t)r * Wd + c] = v;
-              Lo[(int64_t)(o + c) * Wd + i * kNB + r] = finite_or_zero(v);
-            }
-          });
-    }
-    // the trailing blocks: A_ij -= L_ik L_jk^T (j <= i; of a diagonal
-    // block, the tiles that its factorization reads)
-    for (int j = k + 1; j < nb; ++j) {
-      const int wj = width(j);
-      for (int i = j; i < nb; ++i) {
-        const int wi = width(i);
-        double* Aij = at(i, j);
-        product<false>(
-            1,
-            [&](int, Opnd& A, Opnd& B) {
-              A = Opnd{at(i, k), Wd, wi, w, kDense};
-              B = Opnd{at(j, k), Wd, wj, w, kDense};
-            },
-            dsm,
-            [&](int r, int c, double v) {
-              if (r < wi && c < wj) Aij[(int64_t)r * Wd + c] -= v;
-            },
-            i == j);
-      }
-    }
+    __syncthreads();
+    post(fB + k);
+  };
+  // row half h of a block below D: L_ik = A_ik L_D^-T, into the working
+  // buffer (in place) and into L, column-major
+  auto solve = [&](int i, int k, int h) {
+    const int o = k * kNB, w = width(k), wi = width(i);
+    const double* Dk = Ds + (int64_t)k * kNB * kNB;
+    double* Aik = at(i, k);
+    wait(1, [&](int) { return fB + k; });
+    product<true>(
+        1,
+        [&](int, Opnd& A, Opnd& B) {
+          A = Opnd{Aik, ldx, wi, w, kDense};
+          B = Opnd{Dk, kNB, w, w, kUpperZero};     // L_D^-1
+        },
+        dsm,
+        [&](int r, int c, double v) {
+          if (r < wi && c < w) {
+            Aik[(int64_t)r * ldx + c] = v;
+            Lo[(int64_t)(o + c) * Wd + i * kNB + r] = finite_or_zero(v);
+          }
+        },
+        false, h, h + 1);
+    post(fS + 2 * tid(i, k) + h);
+  };
+  // row half h of a trailing block: A_ij -= L_ik L_jk^T (j <= i; of a
+  // diagonal block, the tiles that its factorization reads), from L_ik's
+  // half h and the whole L_jk
+  auto update = [&](int i, int j, int k, int h) {
+    const int w = width(k), wi = width(i), wj = width(j);
+    double* Aij = at(i, j);
+    wait(1 + halves(j), [&](int q) {
+      return fS + (q ? 2 * tid(j, k) + q - 1 : 2 * tid(i, k) + h);
+    });
+    product<true>(
+        1,
+        [&](int, Opnd& A, Opnd& B) {
+          A = Opnd{at(i, k), ldx, wi, w, kDense};
+          B = Opnd{at(j, k), ldx, wj, w, kDense};
+        },
+        dsm,
+        [&](int r, int c, double v) {
+          if (r < wi && c < wj) Aij[(int64_t)r * ldx + c] -= v;
+        },
+        i == j, h, h + 1);
+    if (i == j && h == 1 && k == j - 1) post(fU + j);
+  };
+  // The factorization, right-looking in 128-column blocks: every CTA walks
+  // the steps in order and takes its own jobs (the diagonal block, then
+  // the row halves of the blocks below it, then those of the trailing
+  // blocks column by column, the next diagonal block first), each
+  // awaiting the blocks it reads.  A job waits only on jobs earlier in
+  // this order, so the front's CTAs cannot stall each other.
+  for (int k = 0; k < nb; ++k) {
+    if (own(k, k, 0)) factor(k);
+    for (int i = k + 1; i < nb; ++i)
+      for (int h = 0; h < halves(i); ++h)
+        if (own(i, k, h)) solve(i, k, h);
+    for (int j = k + 1; j < nb; ++j)
+      for (int i = j; i < nb; ++i)
+        for (int h = 0; h < halves(i); ++h)
+          if (own(i, j, h)) update(i, j, k, h);
   }
 
-  // L^-1 below its diagonal blocks, column by column of blocks: X_ij (i > j)
-  // lies column-major at block (j, i) of the row-major view, which the
+  // L^-1 below its diagonal blocks, block by block in row order: X_ij (i >
+  // j) lies column-major at block (j, i) of the row-major view, which the
   // factorization never used; first Y = sum_{m=j}^{i-1} L_im X_mj there
   // (L_im row-major at block (i, m), X_mj column-major at (j, m)), then
-  // X_ij = -X_ii Y in place (X_ii row-major in Dinv)
-  for (int j = 0; j + 1 < nb; ++j) {
-    const int wj = width(j);
-    for (int i = j + 1; i < nb; ++i) {
-      const int wi = width(i);
+  // X_ij = -X_ii Y in place (X_ii row-major in Dinv); the owner of block
+  // (i, j) composes it
+  for (int i = 1; i < nb; ++i) {
+    const int wi = width(i);
+    for (int j = 0; j < i; ++j) {
+      if (!own(i, j, 0)) continue;
+      const int wj = width(j), hi = halves(i), nl = (i - j) * hi;
       double* Xij = at(j, i);
+      // the sum: L_ij .. L_i,i-1 solved (each half), X_jj factored,
+      // X_j+1,j .. X_i-1,j composed; then the scale: D_i factored
+      wait(nl + i - j, [&](int q) {
+        return q < nl ? fS + 2 * tid(i, j + q / hi) + q % hi
+                      : q == nl ? fB + j : fX + tid(j + q - nl, j);
+      });
       product<false>(
           i - j,
           [&](int t, Opnd& A, Opnd& B) {
             const int m = j + t, wm = width(m);
-            A = Opnd{at(i, m), Wd, wi, wm, kDense};
+            A = Opnd{at(i, m), ldx, wi, wm, kDense};
             // X_jj^T (m = j) is zero below its diagonal
-            B = Opnd{at(j, m), Wd, wj, wm, m == j ? kLowerZero : kDense};
+            B = Opnd{at(j, m), ldx, wj, wm, m == j ? kLowerZero : kDense};
           },
           dsm,
           [&](int r, int c, double v) {
-            if (r < wi && c < wj) Xij[(int64_t)c * Wd + r] = v;
+            if (r < wi && c < wj) Xij[(int64_t)c * ldx + r] = v;
           });
+      wait(1, [&](int) { return fB + i; });
       product<false>(
           1,
           [&](int, Opnd& A, Opnd& B) {
             A = Opnd{Ds + (int64_t)i * kNB * kNB, kNB, wi, wi, kUpperZero};
-            B = Opnd{Xij, Wd, wj, wi, kDense};
+            B = Opnd{Xij, ldx, wj, wi, kDense};
           },
           dsm,
           [&](int r, int c, double v) {
-            if (r < wi && c < wj) Xij[(int64_t)c * Wd + r] = finite_or_zero(-v);
+            if (r < wi && c < wj)
+              Xij[(int64_t)c * ldx + r] = finite_or_zero(-v);
           });
+      post(fX + tid(i, j));
     }
   }
+  all(fE);
   // L^-1 above its diagonal blocks (the row-major view's lower blocks,
   // which held L): zero
-  for (int r = kNB + warp; r < Wd; r += kWarps)
+  for (int r = kNB + gw; r < Wd; r += nw)
     for (int c = lane; c < r / kNB * kNB; c += 32)
-      Wk[(int64_t)r * Wd + c] = 0.0;
-  if (threadIdx.x == 0) {
-    const int f = first[kNT];
+      Wk[(int64_t)r * ldx + c] = 0.0;
+  if (me == 0 && threadIdx.x == 0) {
+    int f = -1;
+    for (int k = 0; k < nb && f < 0; ++k) {
+      const int b = -1 - __ldcg(bad + k);
+      if (b < kNB) f = k * kNB + b;
+    }
     rec[s] = f < 0 ? -1 : col_vars[(int64_t)s * W + f / d];
   }
 }
@@ -639,7 +810,8 @@ __global__ void __launch_bounds__(kCheckThreads) sn_pivot_kernel(
 // -- the level's tail: panel, U's block-lower tiles and the scatter ---------
 
 constexpr int kUT = 64;                    // a CTA's output tile
-constexpr int kUThreads = 128;             // 4 warps, a 32 x 32 quadrant each
+// a warp a 32 x 32 quadrant of the tile
+constexpr int kUThreads = (kUT / 32) * (kUT / 32) * 32;
 constexpr int kUPitch = kUT + 4;           // shared row pitch of a slab
 constexpr int kUSlab = kTile * kUPitch;    // one operand's 32-row slab
 constexpr int kUStages = 3;                // slabs in flight
@@ -648,17 +820,19 @@ constexpr int kUTileSq = kUT * kUT;        // a partial tile in the scratch
 constexpr int kMaxD = 12;                  // the widest block the scatter takes
 constexpr int kMaxChunks = 8;              // k-chunks of a split product's tile
 
-// Queue the copy of rows k0 .. k0 + 31 (< K) and columns c0 .. c0 + 63
+// Queue the copy of rows k0 .. k0 + 31 (< K) and columns c0 .. c0 + kUT - 1
 // (< cols) of a k-major operand (entry (k, c) at p[k * ld + c]) into dst
-// (pitch kUPitch), zero outside: a pair of columns a thread (copy_pair), a
-// warp a row.
+// (pitch kUPitch), zero outside: a pair of columns a thread (copy_pair),
+// kUT / 2 threads a row.
 __device__ __forceinline__ void stage_kslab(const double* p, int64_t ld,
                                             int K, int cols, int k0, int c0,
                                             double* dst) {
+  constexpr int kPairs = kTile * kUT / 2;
 #pragma unroll
-  for (int q = 0; q < kTile * kUT / 2 / kUThreads; ++q) {
+  for (int q = 0; q < (kPairs + kUThreads - 1) / kUThreads; ++q) {
     const int z = threadIdx.x + kUThreads * q;
-    const int r = z >> 5, c = 2 * (z & 31);
+    if (kPairs % kUThreads != 0 && z >= kPairs) break;
+    const int r = z / (kUT / 2), c = 2 * (z % (kUT / 2));
     const int valid = k0 + r < K ? max(0, min(2, cols - c0 - c)) : 0;
     copy_pair(dst + r * kUPitch + c,
               valid ? p + (int64_t)(k0 + r) * ld + c0 + c : p, valid);
@@ -686,7 +860,7 @@ __device__ __forceinline__ double2 ldcg_pair(const double* p) {
 
 enum UpdateProduct { kPanel, kLowerU };
 
-// The 64 x 64 tile (m0, n0) of C = P^T Q over k in [k0, k1), P and Q
+// The kUT x kUT tile (m0, n0) of C = P^T Q over k in [k0, k1), P and Q
 // k-major (rows ldp, ldq apart; pcols and qcols columns, zero past them),
 // then epi(r, c, two values) for the pairs (r, c), (r, c + 1) of every
 // 16 x 8 block the warps formed.  Blocks past C's rows (pcols) or columns
@@ -706,7 +880,8 @@ __device__ __forceinline__ void tile_product(const double* P, int64_t ldp,
                                              double* smem, F epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
-  const int r0 = m0 + 32 * (warp >> 1), c0 = n0 + 32 * (warp & 1);
+  const int r0 = m0 + 32 * (warp / (kUT / 32));
+  const int c0 = n0 + 32 * (warp % (kUT / 32));
   const bool same = kMode == kLowerU && m0 == n0;
   unsigned live = 0u;   // bit 4 mb + nb: the block is formed
 #pragma unroll
@@ -837,7 +1012,7 @@ __device__ __forceinline__ void reduce_chunks(int S, int per, int nk,
 #pragma unroll
     for (int k = 0; k < kMaxChunks; ++k)
       if (k < nv)
-        v[k] = ldcg_pair(p + k * kUTileSq);
+        v[k] = ldcg_pair(p + (int64_t)k * kUTileSq);
     double2 acc = make_double2(0.0, 0.0);
 #pragma unroll
     for (int k = 0; k < kMaxChunks; ++k)
@@ -849,12 +1024,25 @@ __device__ __forceinline__ void reduce_chunks(int S, int per, int nk,
   }
 }
 
-__global__ void __launch_bounds__(kUThreads, 2) sn_schur_update_kernel(
-    int S, int Wd, int Rd, int d, int T, int ck1, int ck2,
-    const double* __restrict__ X, const double* __restrict__ At,
-    const int* __restrict__ uoff, const int* __restrict__ ptr,
-    const int* __restrict__ tgt, double* __restrict__ Lp,
-    double* __restrict__ U, double* work) {
+// The scratch of a launch (doubles, in this order): U (S x Rd x Rd; none
+// on the direct route), the partial tiles of the split products, and U's
+// operand Lp^T at the even pitch ldu where it differs from Rd.
+__host__ __device__ __forceinline__ int64_t update_u_size(int S, int Rd,
+                                                          int direct) {
+  return direct ? 0 : (int64_t)S * Rd * Rd;
+}
+
+__global__ void __launch_bounds__(kUThreads, 2)
+    sn_schur_update_kernel(int S, int Wd, int Rd, int d, int T, int ck1,
+                           int ck2, int ldx, int lda, int ldu, int direct,
+                           const double* __restrict__ X,
+                           const double* __restrict__ At,
+                           const int* __restrict__ uoff,
+                           const int* __restrict__ ptr,
+                           const int* __restrict__ tgt,
+                           const int* __restrict__ utgt,
+                           double* __restrict__ Lp, double* __restrict__ U,
+                           double* work) {
   extern __shared__ __align__(16) double usm[];
   cg::grid_group grid = cg::this_grid();
   const int mtn = (Wd + kUT - 1) / kUT, ntn = (Rd + kUT - 1) / kUT;
@@ -862,13 +1050,51 @@ __global__ void __launch_bounds__(kUThreads, 2) sn_schur_update_kernel(
   const int nk1 = (slabs + ck1 - 1) / ck1, nk2 = (slabs + ck2 - 1) / ck2;
   const int per = u_tiles(ntn);
   const int jobs1 = S * mtn * ntn * nk1, jobs2 = S * per * nk2;
-  // the partial tiles of split products, past U
-  double* part = U + (int64_t)S * Rd * Rd;
+  const int R = Rd / d, dd = d * d;
+  // the partial tiles of split products, past U; U's operand past them
+  // where its pitch is not Rd's
+  double* part = U + update_u_size(S, Rd, direct);
+  const int64_t psz = (int64_t)max(nk1 > 1 ? jobs1 : 0, nk2 > 1 ? jobs2 : 0)
+                      * kUTileSq;
+  double* Lu = ldu == Rd ? Lp : part + psz;
+  // the panel's entry pair (r, c), (r, c + 1) of front s: into Lp^T (pitch
+  // Rd, kernel 8's) and into U's operand at pitch ldu, whose columns past
+  // Rd stay zero
+  auto panel_out = [&](int s, int r, int c, double v0, double v1) {
+    if (r >= Wd || c >= Rd) return;
+    v0 = finite_or_zero(v0);
+    v1 = c + 1 < Rd ? finite_or_zero(v1) : 0.0;
+    store_pair(Lp + ((int64_t)s * Wd + r) * Rd + c, v0, v1, c + 1 < Rd);
+    if (Lu != Lp)
+      store_pair(Lu + ((int64_t)s * Wd + r) * ldu + c, v0, v1, c + 1 < ldu);
+  };
+  // the direct route (one front, each target block one source): U's entry
+  // (r, c) of block (a, b), b <= a, taken from its target at once, as the
+  // scatter takes a sum of one block
+  auto subtract = [&](int r, int c, double v) {
+    if (r >= Rd || c >= Rd) return;
+    const int a = r / d, b = c / d;
+    if (b > a) return;
+    const int t = utgt[a * R + b];
+    if (t < 0) return;
+    double* w = work + (int64_t)t * dd + (r - a * d) * d + c - b * d;
+    *w = *w - (0.0 + v);
+  };
+  auto u_out = [&](int s, int r, int c, double v0, double v1) {
+    if (direct) {
+      subtract(r, c, v0);
+      subtract(r, c + 1, v1);
+    } else if (r < Rd && c < Rd) {
+      store_pair(U + ((int64_t)s * Rd + r) * Rd + c, v0, v1, c + 1 < Rd);
+    }
+  };
   // 1. Lp^T = L^-1 At: rows m take L^-1's columns k <= m only; each tile's
   // k range in nk1 chunks of ck1 slabs (a job each, the deepest row tiles
   // first), whose partial tiles are summed in order after a barrier when
-  // nk1 > 1
-  auto panel_slabs = [&](int mt) { return min(2 * mt + 2, slabs); };
+  // nk1 > 1; At's columns past Rd (up to lda) are zero
+  auto panel_slabs = [&](int mt) {
+    return min((kUT / 32) * (mt + 1), slabs);
+  };
   auto panel_job = [&](int j) {
     const int tile = j / nk1, kc = j - tile * nk1;
     const int mt = mtn - 1 - tile / (S * ntn), rem = tile % (S * ntn);
@@ -876,19 +1102,17 @@ __global__ void __launch_bounds__(kUThreads, 2) sn_schur_update_kernel(
     if (kc * ck1 >= panel_slabs(mt)) return;
     const int k0 = kTile * kc * ck1;
     const int k1 = min(min(Wd, kUT * mt + kUT), k0 + kTile * ck1);
-    double* Ls = Lp + (int64_t)s * Wd * Rd;
     double* Ps = part + ((int64_t)(s * mtn + mt) * ntn + nt) * nk1 * kUTileSq
                  + (int64_t)kc * kUTileSq;
     tile_product<kPanel>(
-        X + (int64_t)s * Wd * Wd, Wd, Wd, At + (int64_t)s * Wd * Rd, Rd, Rd,
-        k0, k1, kUT * mt, kUT * nt, d, usm,
+        X + (int64_t)s * ldx * ldx, ldx, Wd, At + (int64_t)s * Wd * lda, lda,
+        lda, k0, k1, kUT * mt, kUT * nt, d, usm,
         [&](int r, int c, double v0, double v1) {
           if (nk1 > 1)
             store_pair(Ps + (r - kUT * mt) * kUT + c - kUT * nt, v0, v1,
                        true);
-          else if (r < Wd && c < Rd)
-            store_pair(Ls + (int64_t)r * Rd + c, finite_or_zero(v0),
-                       finite_or_zero(v1), c + 1 < Rd);
+          else
+            panel_out(s, r, c, v0, v1);
         });
   };
   // 2. U's block-lower tiles: U[a][b] = sum_k Lp^T[k][a] Lp^T[k][b], each
@@ -899,17 +1123,16 @@ __global__ void __launch_bounds__(kUThreads, 2) sn_schur_update_kernel(
     int mt, nt;
     if (!u_tile(tile - s * per, ntn, Rd, d, mt, nt)) return;
     const int k0 = kTile * kc * ck2, k1 = min(Wd, k0 + kTile * ck2);
-    const double* Ls = Lp + (int64_t)s * Wd * Rd;
-    double* Us = U + (int64_t)s * Rd * Rd;
+    const double* Ls = Lu + (int64_t)s * Wd * ldu;
     double* Ps = part + ((int64_t)tile * nk2 + kc) * kUTileSq;
     tile_product<kLowerU>(
-        Ls, Rd, Rd, Ls, Rd, Rd, k0, k1, kUT * mt, kUT * nt, d, usm,
+        Ls, ldu, ldu, Ls, ldu, ldu, k0, k1, kUT * mt, kUT * nt, d, usm,
         [&](int r, int c, double v0, double v1) {
           if (nk2 > 1)
             store_pair(Ps + (r - kUT * mt) * kUT + c - kUT * nt, v0, v1,
                        true);
-          else if (r < Rd && c < Rd)
-            store_pair(Us + (int64_t)r * Rd + c, v0, v1, c + 1 < Rd);
+          else
+            u_out(s, r, c, v0, v1);
         });
   };
   for (int j = blockIdx.x; j < jobs1; j += gridDim.x) panel_job(j);
@@ -924,11 +1147,7 @@ __global__ void __launch_bounds__(kUThreads, 2) sn_schur_update_kernel(
           nv = (panel_slabs(mt) + ck1 - 1) / ck1;
           return true;
         },
-        [&](int s, int r, int c, double v0, double v1) {
-          if (r < Wd && c < Rd)
-            store_pair(Lp + ((int64_t)s * Wd + r) * Rd + c,
-                       finite_or_zero(v0), finite_or_zero(v1), c + 1 < Rd);
-        });
+        panel_out);
   }
   grid.sync();
   for (int j = blockIdx.x; j < jobs2; j += gridDim.x) u_job(j);
@@ -945,12 +1164,9 @@ __global__ void __launch_bounds__(kUThreads, 2) sn_schur_update_kernel(
           return formed;
         },
         // the pairs outside U's block-lower triangle are never read
-        [&](int s, int r, int c, double v0, double v1) {
-          if (r < Rd && c < Rd)
-            store_pair(U + ((int64_t)s * Rd + r) * Rd + c, v0, v1,
-                       c + 1 < Rd);
-        });
+        u_out);
   }
+  if (direct) return;
   grid.sync();
   // 3. the scatter, a thread per row of a target block: its old row and
   // the first source's row loaded at once (d <= kMaxD contiguous entries
@@ -962,7 +1178,7 @@ __global__ void __launch_bounds__(kUThreads, 2) sn_schur_update_kernel(
     const int64_t t = idx / d;
     const int i = (int)(idx - t * d);
     const int kb = ptr[t], ke = ptr[t + 1];
-    double* w = work + (int64_t)tgt[t] * d * d + i * d;
+    double* w = work + (int64_t)tgt[t] * dd + i * d;
     double old[kMaxD], acc[kMaxD];
 #pragma unroll
     for (int j = 0; j < kMaxD; ++j) {
@@ -984,29 +1200,50 @@ __global__ void __launch_bounds__(kUThreads, 2) sn_schur_update_kernel(
 }  // namespace
 
 // One level: S fronts of W blocks (d wide), R panel rows (0: no panel), n
-// variables (col_vars' sentinel).  L, X: S x Wd x Wd, each front
-// column-major (L and L^-1); At: S x Wd x Rd (the panel transposed; unused
-// when R = 0); Dinv: S x ceil(Wd / 128) x 128 x 128 scratch; tiles: the
+// variables (col_vars' sentinel).  L: S x Wd x Wd, each front column-major;
+// X: S x ldx x ldx (ldx >= Wd), each front's L^-1 column-major with columns
+// ldx apart (the working front before it); At: S x Wd x Rd at row pitch
+// lda >= Rd (the panel transposed, the columns past Rd zero; unused when
+// R = 0); Dinv: S x ceil(Wd / 128) x 128 x 128 scratch; tiles: the
 // level's S x ceil(Wd / 32) inverses of L's 32 x 32 diagonal tiles, 32 x 32
-// row-major each (kernel 8's order); rec: S ints.
+// row-major each (kernel 8's order); rec: S ints.  ctas CTAs a front (1:
+// S CTAs, a plain launch; more: one cooperative launch of S * ctas CTAs,
+// which the card must hold at once, one an SM); flags: S *
+// front_flags(ceil(Wd / 128), ctas) ints, seq this launch's number (larger
+// than any that a flag holds).
 GT_EXPORT int gt_sn_front_factor(
-    int S, int W, int R, int d, int n, const double* work,
+    int S, int W, int R, int d, int n, int ctas, int seq, int ldx, int lda,
+    const double* work,
     const double* blocks, const int* diag_ids, const unsigned char* diag_flip,
     const double* diag_pad, const unsigned char* valid_diag,
     const int* col_vars, const int* dbc, const int* panel_ids, double lam,
     int diagonal_damping, double min_diag, double max_diag, double* L,
-    double* X, double* At, double* Dinv, double* tiles, int* rec,
+    double* X, double* At, double* Dinv, double* tiles, int* rec, int* flags,
     void* stream) {
   if (S == 0) return 0;
+  if (ctas < 1 || ldx < W * d || lda < R * d)
+    return (int)cudaErrorInvalidValue;
   const size_t shm = 2 * chol::kTiles * kTileSz * sizeof(double);
   cudaError_t e = cudaFuncSetAttribute(
       sn_front_factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)shm);
   if (e != cudaSuccess) return (int)e;
-  sn_front_factor_kernel<<<S, chol::kThreads, shm, (cudaStream_t)stream>>>(
-      W, R, d, n, work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
-      col_vars, dbc, panel_ids, lam, diagonal_damping, min_diag, max_diag, L,
-      X, At, Dinv, tiles, rec);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeCooperative;
+  at[0].val.cooperative = 1;
+  cfg.gridDim = dim3((unsigned)(S * ctas));
+  cfg.blockDim = dim3(chol::kThreads);
+  cfg.dynamicSmemBytes = shm;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = at;
+  cfg.numAttrs = ctas > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, sn_front_factor_kernel, W, R, d, n, ctas, seq,
+                         ldx, lda, work, blocks, diag_ids, diag_flip, diag_pad,
+                         valid_diag, col_vars, dbc, panel_ids, lam,
+                         diagonal_damping, min_diag, max_diag, L, X, At,
+                         Dinv, tiles, rec, flags);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -1020,23 +1257,33 @@ GT_EXPORT int gt_sn_pivot_check(int N, const int* rec, int* state,
 }
 
 // One level's tail: S fronts of W column blocks and R row blocks of width d
-// <= 12 (Wd = W d, Rd = R d), X the front kernel's L^-1 (S x Wd x Wd, each
-// front column-major), At its panels transposed (S x Wd x Rd); the level's
-// scatter plan: uoff, the first entry in U of each summed block, in T
-// segments ptr, with unique target rows tgt of work; ck1, ck2: the slabs of a k-chunk
-// of the panel's and U's products (as deep as Wd: no split); Lp: S x Wd x
-// Rd (Lp^T row-major), U: the scratch, S x Rd x Rd and, where a product is
-// split, the partial 64 x 64 tiles of its chunks after it; any Wd and Rd
-// (a pair of entries moves in 8-byte halves where it is not 16-byte
-// aligned).  One cooperative launch of as many CTAs as the phases have work
-// for and the card holds at once.
+// <= 12 (Wd = W d, Rd = R d), X the front kernel's L^-1 (S x ldx x ldx,
+// each front column-major with columns ldx apart), At its panels
+// transposed (S x Wd x Rd at row pitch lda >= Rd, the columns past Rd
+// zero); the level's scatter plan: uoff, the first entry in U of each
+// summed block, in T segments ptr, with unique target rows tgt of work;
+// ck1, ck2: the slabs of a k-chunk of the panel's and U's products (as
+// deep as Wd: no split); ldu: the row pitch of U's operand
+// (Rd: Lp itself; Rd + 1 for an odd Rd: an even-pitched copy in the
+// scratch); direct (S = 1, each target one block; utgt: the target row of
+// U's block (a, b), R x R, -1 for none): U's tiles subtract their blocks
+// from work themselves, no U and no scatter.  Lp: S x Wd x Rd (Lp^T
+// row-major), U: the scratch (update_u_size, then the split products'
+// partial tiles, then U's operand where ldu != Rd).  One cooperative
+// launch of as many CTAs as the phases have work for and the card holds
+// at once.
 GT_EXPORT int gt_sn_schur_update(int S, int W, int R, int d, int T, int ck1,
-                                 int ck2, const double* X, const double* At,
-                                 const int* uoff, const int* ptr,
-                                 const int* tgt, double* Lp, double* U,
+                                 int ck2, int ldx, int lda, int ldu,
+                                 int direct, const double* X,
+                                 const double* At, const int* uoff,
+                                 const int* ptr, const int* tgt,
+                                 const int* utgt, double* Lp, double* U,
                                  double* work, void* stream) {
   if (S == 0 || R == 0) return 0;
-  if (d > kMaxD) return (int)cudaErrorInvalidValue;
+  const int Rd = R * d;
+  if (d > kMaxD || ldx < W * d || lda < Rd || (ldu != Rd && ldu != Rd + 1) ||
+      (direct && S != 1))
+    return (int)cudaErrorInvalidValue;
   // the co-resident CTAs of each device, found once
   static int cap[64];
   int dev = 0;
@@ -1057,13 +1304,14 @@ GT_EXPORT int gt_sn_schur_update(int S, int W, int R, int d, int T, int ck1,
     if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
     cap[dev] = sms * per_sm;
   }
-  const int Wd = W * d, Rd = R * d;
+  const int Wd = W * d;
   const int mtn = (Wd + kUT - 1) / kUT, ntn = (Rd + kUT - 1) / kUT;
   const int slabs = (Wd + kTile - 1) / kTile;
   const long long nk1 = (slabs + ck1 - 1) / ck1, nk2 = (slabs + ck2 - 1) / ck2;
   const long long tiles1 = (long long)S * mtn * ntn;
   const long long tiles2 = (long long)S * u_tiles(ntn);
-  const long long scatter = ((long long)T * d + kUThreads - 1) / kUThreads;
+  const long long scatter =
+      direct ? 0 : ((long long)T * d + kUThreads - 1) / kUThreads;
   const long long jobs = std::max({tiles1 * nk1, tiles2 * nk2, scatter});
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute at[1];
@@ -1076,7 +1324,8 @@ GT_EXPORT int gt_sn_schur_update(int S, int W, int R, int d, int T, int ck1,
   cfg.attrs = at;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, sn_schur_update_kernel, S, Wd, Rd, d, T, ck1,
-                         ck2, X, At, uoff, ptr, tgt, Lp, U, work);
+                         ck2, ldx, lda, ldu, direct, X, At, uoff, ptr, tgt,
+                         utgt, Lp, U, work);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -526,6 +526,7 @@ class SupernodalCholeskySolver:
                 np.ascontiguousarray(a), dtype=dtype, device=dev)
 
         sym = self.sym
+        sms = K.device_sms(dev)
         self.dev = types.SimpleNamespace(
             asm_src=t(self.asm_src), asm_ptr=t(self.asm_ptr),
             asm_blk=t(self.asm_blk), asm_diag=t(self.asm_diag),
@@ -547,14 +548,11 @@ class SupernodalCholeskySolver:
             flips=self._cplan.row_flips(
                 [[flip for (_, _, flip, _) in pairs]
                  for pairs in self._batch_pairs()], dev),
-            # the Schur update's scratch (U and partial tiles), a level at a
-            # time
-            schur_U=torch.empty(max([K.update_split(
-                lp.S, lp.W, lp.R, self.d, 0).scratch
-                for lp in self.level_plans if lp.R and not lp.narrow]
-                + [0]), dtype=F64, device=dev),
             levels=[types.SimpleNamespace(
                 S=lp.S, W=lp.W, R=lp.R,
+                # the front kernel's CTAs a front (1 off the card)
+                ctas=K.front_ctas(lp.S, lp.W, lp.R, self.d, sms)
+                if sms else 1,
                 diag_ids=t(lp.diag_ids), diag_flip=t(lp.diag_flip, torch.bool),
                 diag_pad=t(lp.diag_pad, F64),
                 valid_diag=t(lp.valid_diag, torch.bool),
@@ -569,6 +567,12 @@ class SupernodalCholeskySolver:
                 if lp.narrow else None)
                 for k, (lp, sp) in enumerate(zip(self.level_plans,
                                                  self.schur_ptr))])
+        # the Schur update's scratch (U, partial tiles, U's even-pitched
+        # operand), a wide level at a time
+        self.dev.schur_U = torch.empty(max(
+            [lv.schur.split.scratch for lv in self.dev.levels
+             if lv.schur is not None and lv.narrow is None] + [0]),
+            dtype=F64, device=dev)
         # the narrow levels' chunk rows, a level at a time
         self.dev.narrow_part = torch.empty(max(
             [lv.narrow.nrows * self.d ** 2 for lv in self.dev.levels
@@ -638,7 +642,7 @@ class SupernodalCholeskySolver:
             else:
                 L, Linv, At, _ = K.sn_front_factor(
                     *args, min_diag, max_diag,
-                    out=(None, None, None, tiles[lv.tiles]))
+                    out=(None, None, None, tiles[lv.tiles]), ctas=lv.ctas)
                 Lp = None
                 if lv.R:  # A L^-T, column-major; the Schur update of work
                     Lp = K.sn_schur_update(Linv, At, lv.schur, work,

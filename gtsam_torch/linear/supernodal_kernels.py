@@ -81,11 +81,11 @@ KERNELS = _kernels.table(
                                    P]),
     Kernel("sn_front_factor", "sn_factor", "sn_front_factor",
            "gtsam_tpu/linear/supernodal.py:404",
-           [INT] * 5 + [P] * 9 + [DBL, INT, DBL, DBL] + [P] * 6),
+           [INT] * 9 + [P] * 9 + [DBL, INT, DBL, DBL] + [P] * 7),
     Kernel("sn_pivot_check", "sn_factor", "sn_pivot_check",
            "gtsam_tpu/linear/supernodal.py:405", [INT, P, P]),
     Kernel("sn_schur_update", "sn_factor", "sn_schur_update",
-           "gtsam_tpu/linear/supernodal.py:431", [INT] * 7 + [P] * 8),
+           "gtsam_tpu/linear/supernodal.py:431", [INT] * 11 + [P] * 9),
     Kernel("sn_narrow_front", "sn_narrow", "sn_narrow_front",
            "gtsam_tpu/linear/supernodal.py:404",
            [INT] * 7 + [P] * 13 + [DBL, INT, DBL, DBL] + [P] * 6),
@@ -1016,8 +1016,55 @@ def pg_assemble(hc, gc, asm_src, asm_ptr, asm_blk, asm_diag, g_src, g_ptr,
 # -- kernel 7: the level step of the supernodal factorization ---------------
 
 # The column blocks of sn_front_factor's fronts (kNB in chol_tiles.cuh): its
-# Dinv scratch holds a 128 x 128 inverse per block.
+# Dinv scratch holds a 128 x 128 inverse per block.  A CTA of the front
+# kernel has FRONT_WARPS warps (kWarps), each of which gathers a block row
+# of the front, or FRONT_PANEL_ROWS rows (kPanelRows) of a block column of
+# its panel, at a time.
 FRONT_BLOCK = 128
+FRONT_WARPS = 8
+FRONT_PANEL_ROWS = 256
+_SMS = {}
+
+
+def front_ctas(S, W, R, d, sms):
+    """The front kernel's CTAs a front of a level of S fronts W blocks wide
+    (R row blocks, d wide) on a card of `sms` SMs: the level's share of the
+    SMs (one CTA an SM), at most the front's jobs (the row halves of its
+    lower 128-column blocks, or the gathers' warp jobs, a block row of the
+    front or FRONT_PANEL_ROWS rows of a block column of the panel,
+    FRONT_WARPS a CTA, whichever are more), at least one; 1 wherever the
+    level fills half the card (S >= sms / 2).  A plan property of each
+    wide level (never a fallback); any count gives the same bits."""
+    if 2 * S >= sms:
+        return 1
+    Wd = W * d
+    nb = -(-Wd // FRONT_BLOCK)
+    last = Wd - (nb - 1) * FRONT_BLOCK
+    halves = nb * (nb + 1) - (nb if last <= FRONT_BLOCK // 2 else 0)
+    chunks = max(1, -(-R * d // FRONT_PANEL_ROWS))
+    jobs = max(halves, -(-W * chunks // FRONT_WARPS))
+    return max(1, min(sms // max(S, 1), jobs))
+
+
+def front_flags(W, d, ctas):
+    """The ints of a front in the front kernel's flags (front_flags in
+    csrc/sn_factor.cu): a flag a diagonal block (factored), two a lower
+    block of L (its row halves solved), one a diagonal block (its second
+    half updated), one a lower block of L^-1, one a CTA for the gathers
+    and one for the end, and a first-bad record a diagonal block."""
+    nb = -(-W * d // FRONT_BLOCK)
+    return 3 * nb + 3 * (nb * (nb + 1) // 2) + 2 * ctas
+
+
+def device_sms(device):
+    """The SM count of a CUDA device (found once), 0 for another device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
 
 
 def _damp_entries(blocks, col_vars, valid, dbc, d, lam, diagonal_damping,
@@ -1089,9 +1136,42 @@ def sn_front_factor_plain(work, blocks, diag_ids, diag_flip, diag_pad,
     return bufs[0].mT, bufs[1].mT, bufs[2], bufs[3]
 
 
+def even_pitch(n):
+    """n rounded up to even: the row pitch of the front kernel's L^-T and
+    At (front_buffers) and of the Schur update's U operand, so that every
+    row starts 16-byte aligned."""
+    return n + (n & 1)
+
+
+def front_buffers(S, Wd, Rd, device):
+    """New buffers of the front kernel's L^-T (S, Wd, Wd) and At (S, Wd,
+    Rd; None where Rd = 0), as views of buffers at even row pitches
+    (even_pitch), which the Schur update stages 16 bytes at a time; the
+    front kernel writes At's columns past Rd zero."""
+    ldx, lda = even_pitch(Wd), even_pitch(Rd)
+    X = torch.empty((S, ldx, ldx), dtype=F64, device=device)
+    At = torch.empty((S, Wd, lda), dtype=F64, device=device) if Rd else None
+    return X[:, :Wd, :Wd], None if At is None else At[..., :Rd]
+
+
+def _padded(t, cols, square):
+    """(the buffer under t, its row pitch): t a (S, rows, cols) view that
+    front_buffers made, of (S, pitch, pitch) where `square`, else (S,
+    rows, pitch), pitch = even_pitch(cols) (for an even cols, a contiguous
+    t).  Anything else is returned as it is, for the checks to refuse."""
+    pitch = even_pitch(cols)
+    if t.dim() != 3:
+        return t, pitch
+    shape = (t.shape[0], pitch if square else t.shape[1], pitch)
+    strides = (shape[1] * pitch, pitch, 1)
+    if t.stride() != strides:
+        return t, pitch
+    return t.as_strided(shape, strides), pitch
+
+
 def sn_front_factor(work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
                     col_vars, dbc, panel_ids, lam, diagonal_damping, rec,
-                    min_diag=1e-6, max_diag=1e32, out=None):
+                    min_diag=1e-6, max_diag=1e32, out=None, ctas=None):
     """Kernel 7, fronts: one level's dense fronts (S, W*d, W*d) gathered
     from the working store `work` (diag_ids blocks, transposed where
     diag_flip), plus diag_pad and the damping (lam, or lam * clip(diag,
@@ -1105,8 +1185,13 @@ def sn_front_factor(work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
     tiles of the blocks' L_D^-1, the identity past the front's width).
     rec (S,) int32 receives each front's first bad pivot (a true dimension
     not finite or not positive) as its permuted column, or -1.  On the
-    card one launch, a CTA a front; `out`: the buffers it writes whole,
-    (L^T, L^-T, At, tiles) row-major, each None for a new one."""
+    card one launch of `ctas` CTAs a front (default front_ctas, the plan's
+    count), which share out the front's gathers and its 128-column blocks
+    and pass each finished block on by a flag; any count gives the same
+    bits (ctas=1: a CTA a front, no flags).  `out`: the buffers it writes
+    whole, (L^T, L^-T, At, tiles) row-major, each None for a new one, L^-T
+    and At as front_buffers makes them (views of buffers at even row
+    pitches)."""
     args = (work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
             col_vars, dbc)
     if on_cpu(*args, rec, *_tensors(panel_ids)):
@@ -1127,25 +1212,118 @@ def sn_front_factor(work, blocks, diag_ids, diag_flip, diag_pad, valid_diag,
              ("rec", rec, I32, (S,))]
     if R:
         specs.append(("panel_ids", panel_ids, I32, (S, R, W)))
-    shapes = ((S, Wd, Wd), (S, Wd, Wd), (S, Wd, R * d) if R else None,
+    ldx, lda = even_pitch(Wd), even_pitch(R * d)
+    shapes = ((S, Wd, Wd), (S, ldx, ldx), (S, Wd, lda) if R else None,
               (S * _ntiles(Wd), TILE, TILE))
-    out = (None,) * 4 if out is None else tuple(out)
+    out = [None] * 4 if out is None else list(out)
+    # L^-T and At checked by the buffers under them
+    bufs = [out[0], out[1] if out[1] is None else _padded(out[1], Wd, True)[0],
+            out[2] if out[2] is None else _padded(out[2], R * d, False)[0],
+            out[3]]
     specs += [(f"out[{k}]", o, F64, shape)
-              for k, (o, shape) in enumerate(zip(out, shapes))
+              for k, (o, shape) in enumerate(zip(bufs, shapes))
               if o is not None and shape is not None]
     dev = check("sn_front_factor", *specs)
-    L, X, At, tiles = (
-        None if shape is None else o if o is not None
-        else torch.empty(shape, dtype=F64, device=dev)
-        for o, shape in zip(out, shapes))
+    if out[1] is None or (R and out[2] is None):
+        fresh = front_buffers(S, Wd, R * d, dev)
+        out[1:3] = [f if o is None else o for o, f in zip(out[1:3], fresh)]
+    for k in (0, 3):
+        if out[k] is None:
+            out[k] = torch.empty(shapes[k], dtype=F64, device=dev)
+    L, X, At, tiles = out
     Dinv = torch.empty((S, -(-Wd // FRONT_BLOCK), FRONT_BLOCK, FRONT_BLOCK),
                        dtype=F64, device=dev)
+    if ctas is None:
+        ctas = front_ctas(S, W, R, d, device_sms(dev))
+    ctas = int(ctas)
+    if ctas < 1 or (ctas > 1 and S * ctas > device_sms(dev)):
+        raise ValueError(f"sn_front_factor: {ctas} CTAs a front of {S} do "
+                         "not fit the card at once")
+    flags, seq = _launch_flags("front", dev, S * front_flags(W, d, ctas))
     KERNELS["sn_front_factor"].launch(
-        dev, S, W, R, d, n, *map(ptr, args), ptr(panel_ids) if R else 0,
-        float(lam), int(bool(diagonal_damping)), float(min_diag),
-        float(max_diag), ptr(L), ptr(X), ptr(At) if R else 0, ptr(Dinv),
-        ptr(tiles), ptr(rec))
-    return L.mT, X.mT, At, tiles
+        dev, S, W, R, d, n, ctas, seq, ldx, lda, *map(ptr, args),
+        ptr(panel_ids) if R else 0, float(lam), int(bool(diagonal_damping)),
+        float(min_diag), float(max_diag), ptr(L), ptr(X),
+        ptr(At) if R else 0, ptr(Dinv), ptr(tiles), ptr(rec), ptr(flags))
+    return L.mT, X.mT, At if R else None, tiles
+
+
+def front_split_jobs(nb, ctas, last=FRONT_BLOCK):
+    """The front kernel's jobs on a front of nb 128-column blocks (the last
+    `last` wide) split over `ctas` CTAs, per CTA in the order it walks them
+    (csrc/sn_factor.cu, sn_front_factor_kernel): the steps in order, each
+    the diagonal block's factorization, the row halves of the solves below
+    it and of the trailing updates column by column, then L^-1's blocks in
+    row order.  Row half h of block (i, j) of L is CTA (2 tid(i, j) + h) %
+    ctas's (a block of at most 64 rows has one half), a diagonal block's
+    factorization and a block of L^-1 their first half's owner's.  A job is
+    (kind, i, j, k, h, awaited flags, flag set): "factor" (block (k, k)),
+    "solve" (half h of L_ik = A_ik L_kk^-T), "update" (half h of A_ij -=
+    L_ik L_jk^T), "sum" (Y_ij = sum_{m=j}^{i-1} L_im X_mj) or "scale" (X_ij
+    = -X_ii Y_ij; k and h None for the last two); a flag ("B", k) marks
+    diagonal block k factored, ("S", i, k, h) half h of L_ik solved, ("U",
+    j) diagonal block j's second half updated by its last step, ("X", i,
+    j) block (i, j) of L^-1 composed.  The gathers and the end are
+    barriers of all the front's CTAs, before the first job and after the
+    last."""
+    def halves(i):
+        w = last if i == nb - 1 else FRONT_BLOCK
+        return 2 if w > FRONT_BLOCK // 2 else 1
+
+    def own(i, j, h):
+        return (2 * (i * (i + 1) // 2 + j) + h) % ctas
+    jobs = [[] for _ in range(ctas)]
+    for k in range(nb):
+        waits = (("U", k),) if k and halves(k) == 2 else ()
+        jobs[own(k, k, 0)].append(("factor", k, k, k, 0, waits, ("B", k)))
+        for i in range(k + 1, nb):
+            for h in range(halves(i)):
+                jobs[own(i, k, h)].append(("solve", i, k, k, h,
+                                           (("B", k),), ("S", i, k, h)))
+        for j in range(k + 1, nb):
+            for i in range(j, nb):
+                for h in range(halves(i)):
+                    waits = (("S", i, k, h),) + tuple(
+                        ("S", j, k, g) for g in range(halves(j)))
+                    flag = ("U", j) if i == j and h == 1 and k == j - 1 \
+                        else None
+                    jobs[own(i, j, h)].append(("update", i, j, k, h, waits,
+                                               flag))
+    for i in range(1, nb):
+        for j in range(i):
+            waits = (tuple(("S", i, m, g) for m in range(j, i)
+                           for g in range(halves(i))) + (("B", j),)
+                     + tuple(("X", m, j) for m in range(j + 1, i)))
+            jobs[own(i, j, 0)] += [
+                ("sum", i, j, None, None, waits, None),
+                ("scale", i, j, None, None, (("B", i),), ("X", i, j))]
+    return jobs
+
+
+def front_split_model(nb, ctas, seed=0, last=FRONT_BLOCK):
+    """A sequential run of front_split_jobs(nb, ctas, last): while jobs
+    remain, a CTA drawn at random (numpy, `seed`) among those whose next
+    job's flags are all set runs that job and sets its flag.  Returns the
+    log, [(cta, job)] in the order run; raises RuntimeError if no CTA can
+    go on (the walk would stall the card)."""
+    rng = np.random.default_rng(seed)
+    jobs = front_split_jobs(nb, ctas, last)
+    nxt = [0] * ctas
+    flags, log = set(), []
+    while any(n < len(q) for n, q in zip(nxt, jobs)):
+        ready = [c for c in range(ctas) if nxt[c] < len(jobs[c])
+                 and all(f in flags for f in jobs[c][nxt[c]][5])]
+        if not ready:
+            left = [q[n] for n, q in zip(nxt, jobs) if n < len(q)]
+            raise RuntimeError(f"the split walk stalls: nb {nb}, ctas "
+                               f"{ctas}, next jobs {left}")
+        c = int(rng.choice(ready))
+        job = jobs[c][nxt[c]]
+        nxt[c] += 1
+        if job[6] is not None:
+            flags.add(job[6])
+        log.append((c, job))
+    return log
 
 
 def sn_pivot_check_plain(rec, state):
@@ -1168,14 +1346,18 @@ def sn_pivot_check(rec, state):
     KERNELS["sn_pivot_check"].launch(dev, rec.shape[0], ptr(rec), ptr(state))
 
 
-# The output tile of a CTA of sn_schur_update_kernel (kUT in sn_factor.cu)
-# and its threads (kUThreads): 4 warps, a 32 x 32 quadrant each.  A product
-# phase with fewer tiles than UPDATE_JOBS splits each tile's k range into
-# at most UPDATE_MAX_CHUNKS chunks of at least UPDATE_MIN_CHUNK slabs of 32
-# rows, towards that many jobs, so that a level of one or two fronts keeps
-# the card busy; the chunks' partial tiles are summed in chunk order.  (On
-# an H100, splitting the wider levels too, at 512 or 1024 jobs, cost more
-# in partial tiles than it saved: scripts/port_update_probe.py.)
+# The output tile of sn_schur_update_kernel's CTAs: UPDATE_TILE (kUT in
+# sn_factor.cu; UPDATE_THREADS threads: 4 warps, a 32 x 32 quadrant each,
+# two CTAs an SM).  (A 96-wide tile, a multiple of d = 3 and 6 so that no
+# d x d block straddles two tiles, measured slower on every level of the
+# sphere and the w10000 stand-in on an H100: scripts/port_update_probe.py
+# "fitted".)  A product phase with fewer tiles than UPDATE_JOBS splits
+# each tile's k range into at most UPDATE_MAX_CHUNKS chunks of at least
+# UPDATE_MIN_CHUNK slabs of 32 rows, towards that many jobs, so that a
+# level of one or two fronts keeps the card busy; the chunks' partial
+# tiles are summed in chunk order.  (On an H100, splitting the wider
+# levels too, at 512 or 1024 jobs, cost more in partial tiles than it
+# saved: scripts/port_update_probe.py.)
 UPDATE_TILE = 64
 UPDATE_THREADS = 128
 UPDATE_JOBS = 256
@@ -1189,8 +1371,12 @@ class UpdateSplit(NamedTuple):
     the panel's output tiles and the slabs (and count) of their k-chunks,
     U's tiles on or next to the diagonal (nt <= mt + 1; those that hold no
     entry of U's block-lower triangle are skipped) and theirs, the
-    scatter's CTAs of UPDATE_THREADS block rows, and the doubles of scratch
-    it needs (U, then the partial tiles of a split product)."""
+    scatter's CTAs of UPDATE_THREADS block rows (0 on the direct route),
+    and the doubles of scratch it needs (U, none on the direct route; then
+    the partial tiles of a split product; then U's operand Lp^T at `pitch`
+    where that is not R*d); the row pitch of U's operand (even_pitch(R*d):
+    every row 16-byte aligned) and the route (direct: a level of one front,
+    whose U tiles subtract their blocks from the store themselves)."""
     panel_tiles: int
     panel_chunk: int
     panel_chunks: int
@@ -1199,12 +1385,16 @@ class UpdateSplit(NamedTuple):
     u_chunks: int
     scatter_ctas: int
     scratch: int
+    pitch: int
+    direct: bool
 
 
-def update_split(S, W, R, d, T) -> UpdateSplit:
+def update_split(S, W, R, d, T, direct=False) -> UpdateSplit:
     tile = UPDATE_TILE
-    mtn, ntn = -(-W * d // tile), -(-R * d // tile)
-    slabs = -(-W * d // 32)
+    Wd, Rd = W * d, R * d
+    pitch = even_pitch(Rd)
+    mtn, ntn = -(-Wd // tile), -(-Rd // tile)
+    slabs = -(-Wd // 32)
     t1 = S * mtn * ntn
     t2 = S * sum(min(m + 2, ntn) for m in range(ntn))
 
@@ -1215,9 +1405,11 @@ def update_split(S, W, R, d, T) -> UpdateSplit:
         return ck, -(-slabs // ck)
     (ck1, nk1), (ck2, nk2) = chunk(t1), chunk(t2)
     part = max(t1 * nk1 if nk1 > 1 else 0, t2 * nk2 if nk2 > 1 else 0)
+    scratch = ((0 if direct else S * Rd * Rd) + part * tile * tile
+               + (S * Wd * pitch if pitch != Rd else 0))
     return UpdateSplit(t1, ck1, nk1, t2, ck2, nk2,
-                       -(-T * d // UPDATE_THREADS),
-                       S * (R * d) ** 2 + part * tile * tile)
+                       0 if direct else -(-T * d // UPDATE_THREADS),
+                       scratch, pitch, bool(direct))
 
 
 class SchurPlan(NamedTuple):
@@ -1225,7 +1417,10 @@ class SchurPlan(NamedTuple):
     sum of the U blocks src[ptr[i]:ptr[i+1]] (flat (s, a, b) over (S, R,
     R), b <= a), in that order; uoff: each such block's first entry in U
     (S, R*d, R*d); S fronts of W column blocks and R row blocks of width d,
-    on a store of nb rows; `split`: the launch's work (update_split)."""
+    on a store of nb rows; `split`: the launch's work (update_split);
+    utgt: on the direct route (split.direct: one front, every target one
+    block) the target row of U's block (a, b), (R, R) int32, -1 for none;
+    else None."""
     src: torch.Tensor
     ptr: torch.Tensor
     tgt: torch.Tensor
@@ -1236,12 +1431,14 @@ class SchurPlan(NamedTuple):
     d: int
     nb: int
     split: UpdateSplit
+    utgt: "torch.Tensor | None" = None
 
 
 def schur_plan(src, ptr_, tgt, S, W, R, d, nb) -> SchurPlan:
     """A level's SchurPlan, checked once, where the solver moves to its
     device: dtypes, shapes, one device, and every index in range (one sync
-    on the card), so that sn_schur_update checks only its other tensors."""
+    on the card), so that sn_schur_update checks only its other tensors.
+    The route is direct where S = 1 and every target takes one block."""
     T = tgt.shape[0]
     specs = [("src", src, I32, (src.shape[0],)), ("ptr", ptr_, I32, (T + 1,)),
              ("tgt", tgt, I32, (T,))]
@@ -1264,8 +1461,14 @@ def schur_plan(src, ptr_, tgt, S, W, R, d, nb) -> SchurPlan:
                          f"scatter takes at most {UPDATE_MAX_D}")
     s, ab = src.long() // (R * R), src.long() % (R * R)
     uoff = ((s * Rd + ab // R * d) * Rd + ab % R * d).to(I32)
+    direct = S == 1 and bool((steps == 1).all())
+    utgt = None
+    if direct:
+        utgt = torch.full((R * R,), -1, dtype=I32, device=src.device)
+        utgt[ab] = tgt[segment_owner(ptr_)]
+        utgt = utgt.view(R, R)
     return SchurPlan(src, ptr_, tgt, uoff, int(S), int(W), int(R), int(d),
-                     int(nb), update_split(S, W, R, d, T))
+                     int(nb), update_split(S, W, R, d, T, direct), utgt)
 
 
 def _u_blocks(Lp, S, R, d):
@@ -1300,8 +1503,9 @@ def sn_schur_update(Linv, At, plan, work, U, out=None):
     W*d) column-major per front (what level_table keeps); then work[tgt[i]]
     -= the sum of the blocks (a, b) of U = Lp Lp^T that plan (a SchurPlan,
     checked once by schur_plan) lists for target i, in its order.  Linv:
-    the front kernel's L^-1 (S, W*d, W*d), column-major per front; At: its
-    panels transposed (S, W*d, R*d); U: a flat scratch of at least
+    the front kernel's L^-1 (S, W*d, W*d), column-major per front, and At,
+    its panels transposed (S, W*d, R*d), as the front kernel leaves them
+    (front_buffers: at even pitches); U: a flat scratch of at least
     plan.split.scratch doubles, which the kernel fills with U's block-lower
     triangle (and a split product's partial tiles); `out`:
     the (S, W*d, R*d) buffer of Lp^T (default: a new one).  On the card one
@@ -1311,19 +1515,24 @@ def sn_schur_update(Linv, At, plan, work, U, out=None):
     S, Wd, _ = Linv.shape
     R, d = plan.R, plan.d
     Rd = R * d
-    # Linv is checked in either layout here, so a device or dtype fault is
-    # reported as such, and must then be column-major
-    specs = [("Linv", Linv.mT if Linv.mT.is_contiguous() else Linv, F64,
-              (S, Wd, Wd)),
-             ("At", At, F64, (S, Wd, Rd)),
+    # Linv and At as front_buffers lays them out (views of buffers at even
+    # pitches; At's columns past Rd zero), checked by those buffers; Linv
+    # in another layout is checked as it is, so that a device or dtype
+    # fault is reported as such, and then refused
+    X, ldx = _padded(Linv.mT, Wd, True)
+    At_full, lda = _padded(At, Rd, False)
+    specs = [("Linv", X if X.is_contiguous() else Linv, F64,
+              (S, ldx, ldx) if X.is_contiguous() else (S, Wd, Wd)),
+             ("At", At_full, F64, (S, Wd, lda)),
              ("work", work, F64, (plan.nb, d * d)),
              ("U", U, F64, (U.shape[0],))]
     if out is not None:
         specs.append(("out", out, F64, (S, Wd, Rd)))
     dev = check("sn_schur_update", *specs)
-    if not Linv.mT.is_contiguous():
+    if not X.is_contiguous():
         raise ValueError("sn_schur_update: Linv must be column-major per "
-                         "front, as the front kernel leaves it")
+                         "front at an even pitch, as the front kernel "
+                         "leaves it (front_buffers)")
     if S != plan.S or plan.src.device != dev:
         raise ValueError(f"sn_schur_update: the plan is for {plan.S} fronts "
                          f"on {plan.src.device}, not {S} on {dev}")
@@ -1333,10 +1542,12 @@ def sn_schur_update(Linv, At, plan, work, U, out=None):
                          f"the plan's")
     if out is None:
         out = torch.empty((S, Wd, Rd), dtype=F64, device=dev)
+    sp = plan.split
     KERNELS["sn_schur_update"].launch(
-        dev, S, plan.W, R, d, plan.tgt.shape[0], plan.split.panel_chunk,
-        plan.split.u_chunk, ptr(Linv), ptr(At), ptr(plan.uoff),
-        ptr(plan.ptr), ptr(plan.tgt), ptr(out), ptr(U), ptr(work))
+        dev, S, plan.W, R, d, plan.tgt.shape[0], sp.panel_chunk,
+        sp.u_chunk, ldx, lda, sp.pitch, int(sp.direct), ptr(X), ptr(At),
+        ptr(plan.uoff), ptr(plan.ptr), ptr(plan.tgt),
+        ptr(plan.utgt) if sp.direct else 0, ptr(out), ptr(U), ptr(work))
     return out.mT
 
 
@@ -2041,21 +2252,21 @@ def qr_ctas(S, C, sms):
     return max(1, min(-(-C // QR_PANEL), sms // max(S, 1)))
 
 
-_SMS = {}
-# Kernel 12's flags: per (device, stream) an int32 buffer, zeroed when it
-# is made, and the number of its last launch, which only grows: a flag
-# that holds a launch's number was set in that launch.
-_QR_FLAGS = {}
+# The flags of kernels 7 (the front kernel) and 12: per (kernel, device,
+# stream) an int32 buffer, zeroed when it is made, and the number of its
+# last launch, which only grows: a flag that holds a launch's number was
+# set in that launch.
+_FLAGS = {}
 
 
-def _qr_flags(device, n):
-    """(flags, this launch's number) of `device`'s current stream, the
-    buffer at least n ints."""
-    key = (device, _kernels.stream(device))
-    fl = _QR_FLAGS.get(key)
+def _launch_flags(kind, device, n):
+    """(flags, this launch's number) of kernel `kind` on `device`'s current
+    stream, the buffer at least n ints."""
+    key = (kind, device, _kernels.stream(device))
+    fl = _FLAGS.get(key)
     if fl is None or fl[0].numel() < n:
-        fl = _QR_FLAGS[key] = [torch.zeros(max(n, 4096), dtype=I32,
-                                           device=device), 0]
+        fl = _FLAGS[key] = [torch.zeros(max(n, 4096), dtype=I32,
+                                        device=device), 0]
     if fl[1] == 2 ** 31 - 1:   # the numbers start again: no stale flag
         fl[0].zero_()
         fl[1] = 0
@@ -2177,12 +2388,9 @@ def sn_front_qr(pool, plan, valid_diag, col_vars, roff, rld, rsep, lam, rec,
                          "doubles")
     ntile = -(-(Wd + Rd) // QR_PANEL)
     if ctas is None:
-        if dev not in _SMS:
-            _SMS[dev] = torch.cuda.get_device_properties(
-                dev).multi_processor_count
-        ctas = qr_ctas(S, Wd + Rd, _SMS[dev])
+        ctas = qr_ctas(S, Wd + Rd, device_sms(dev))
     ctas = max(1, min(int(ctas), ntile))
-    flags, seq = _qr_flags(dev, S * ntile)
+    flags, seq = _launch_flags("qr", dev, S * ntile)
     Lt = torch.empty((S, Wd, Wd), dtype=F64, device=dev)
     Pt = torch.empty((S, Wd, Rd), dtype=F64, device=dev) if R else None
     KERNELS["sn_front_qr"].launch(

@@ -30,21 +30,22 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # variant: [(text of the source, its replacement)]
 VARIANTS = {
     "base": [],
-    "no_products": [("                        bool lower = false) {\n",
-                     "                        bool lower = false) {\n"
-                     "  if (n >= 0) return;\n")],
+    "no_products": [("                        bool lower = false, int h0 = 0, "
+                     "int h1 = 2) {\n",
+                     "                        bool lower = false, int h0 = 0, "
+                     "int h1 = 2) {\n  if (n >= 0) return;\n")],
     "no_factor": [("    chol::factor_block(b);\n", "    __syncthreads();\n")],
-    "no_inverse": [("  for (int j = 0; j + 1 < nb; ++j) {",
-                    "  for (int j = 0; j + 1 < 0; ++j) {")],
+    "no_inverse": [("  for (int i = 1; i < nb; ++i) {\n    const int wi",
+                    "  for (int i = 1; i < 0; ++i) {\n    const int wi")],
     "no_mma": [("      mma_slab(acc, buf + at * kTileSz, Bt, c, live);\n",
                 "")],
     "no_panel": [("  if (R > 0) {\n    double* Ats",
                   "  if (R < 0) {\n    double* Ats")],
-    "no_gather": [("  for (int a = warp; a < W; a += kWarps) {\n"
+    "no_gather": [("  for (int a = gw; a < W; a += nw) {\n"
                    "    const int cend",
-                   "  for (int a = warp; a < 0; a += kWarps) {\n"
+                   "  for (int a = gw; a < 0; a += nw) {\n"
                    "    const int cend")],
-    "no_xcopy": [("        Wk[(int64_t)(o + C) * Wd + o + r] =\n"
+    "no_xcopy": [("        Wk[(int64_t)(o + C) * ldx + o + r] =\n"
                   "            finite_or_zero(dsm[C * (kNB + 1) + r]);",
                   "        ;")],
 }

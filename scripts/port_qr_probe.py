@@ -128,7 +128,7 @@ def main(argv):
     scratch = torch.empty(2 * qp.scratch.numel(), dtype=torch.float64,
                           device="cuda")
     # room for the narrowest variant's flags
-    K._qr_flags(torch.device("cuda", 0), 4 * max(
+    K._launch_flags("qr", torch.device("cuda", 0), 4 * max(
         q.S * -(-(q.W + q.R) * q.d // K.QR_PANEL) for q in qp.levels))
     kern = K.KERNELS["sn_front_qr"]
     fn0 = kern._fn

@@ -800,14 +800,15 @@ def test_kernel1_sizes_match_the_source():
 
 def test_schur_update_sizes_match_the_source():
     """sn_schur_update's output tile and threads, by which update_split
-    counts its work, are the kernel's own constants; its ring of three
-    slabs of both operands leaves room for the two CTAs an SM that its
-    launch bounds ask for; the U tiles it walks (nt <= mt + 1, skipping
-    those outside U's block-lower triangle) are exactly the tiles that hold
-    an entry (r, c) with c // d <= r // d; and each product's k-chunks
-    cover its depth once, as the kernel counts them, with the scratch for
-    their partial tiles; at shapes with partial tiles and at the sphere's
-    level shapes."""
+    counts its work, are the kernel's own constants (a warp a 32 x 32
+    quadrant); its ring of three slabs of both operands leaves room for the
+    two CTAs an SM that its launch bounds ask for; the U tiles it walks
+    (nt <= mt + 1, skipping those outside U's block-lower triangle) are
+    exactly the tiles that hold an entry (r, c) with c // d <= r // d; and
+    each product's k-chunks cover its depth once, as the kernel counts
+    them, with the scratch for U (none on the direct route), their partial
+    tiles and U's even-pitched operand; at shapes with partial tiles and
+    at the sphere's and the w10000 stand-in's level shapes."""
     src = _cu_source("sn_factor")
 
     def const(name):
@@ -817,18 +818,21 @@ def test_schur_update_sizes_match_the_source():
 
     K = supernodal_kernels
     assert int(const("kUT")) == K.UPDATE_TILE == 64
-    assert int(const("kUThreads")) == K.UPDATE_THREADS == 4 * 32
+    assert const("kUThreads") == "(kUT / 32) * (kUT / 32) * 32"
+    assert K.UPDATE_THREADS == (64 // 32) ** 2 * 32 == 4 * 32
     assert int(const("kMaxChunks")) == K.UPDATE_MAX_CHUNKS
     assert int(const("kMaxD")) == K.UPDATE_MAX_D
     assert const("kUPitch") == "kUT + 4" and const("kUStages") == "3"
-    assert "__launch_bounds__(kUThreads, 2) sn_schur_update_kernel" in src
+    assert "__launch_bounds__(kUThreads, 2)\n    sn_schur_update_kernel" \
+        in src
     assert "nk1 = (slabs + ck1 - 1) / ck1, nk2 = (slabs + ck2 - 1) / ck2" \
         in src
     assert 2 * 3 * 2 * 32 * (K.UPDATE_TILE + 4) * 8 <= K.SHARED_BYTES
     tile = K.UPDATE_TILE
     shapes = [(5, 63, 71, 6), (1, 60, 50, 6), (2, 3, 11, 6), (1, 8, 23, 9),
               (58, 34, 24, 6), (16, 37, 33, 6), (8, 60, 48, 6),
-              (3, 64, 75, 6), (1, 64, 32, 6)]
+              (3, 64, 75, 6), (1, 64, 32, 6), (1, 64, 289, 3),
+              (181, 63, 74, 3)]
     for S, W, R, d in shapes:
         Rd = R * d
         ntn = -(-Rd // tile)
@@ -840,22 +844,29 @@ def test_schur_update_sizes_match_the_source():
                   for nt in range(min(mt + 2, ntn))
                   if tile * nt // d <= min(tile * mt + tile - 1, Rd - 1) // d}
         assert walked == needed
-        sp = K.update_split(S, W, R, d, 7)
-        slabs = -(-W * d // 32)
-        for tiles, ck, nk in ((sp.panel_tiles, sp.panel_chunk,
-                               sp.panel_chunks),
-                              (sp.u_tiles, sp.u_chunk, sp.u_chunks)):
-            assert ck >= min(K.UPDATE_MIN_CHUNK, slabs) and nk == -(
-                -slabs // ck) and (nk - 1) * ck < slabs <= nk * ck
-            assert nk <= K.UPDATE_MAX_CHUNKS
-            assert nk == 1 or tiles * nk <= 2 * K.UPDATE_JOBS
-        assert sp.panel_tiles == S * -(-W * d // tile) * ntn
-        assert sp.u_tiles == S * sum(min(m + 2, ntn) for m in range(ntn))
-        part = max(t * n for t, n in ((sp.panel_tiles, sp.panel_chunks),
-                                      (sp.u_tiles, sp.u_chunks)) if n > 1) \
-            if max(sp.panel_chunks, sp.u_chunks) > 1 else 0
-        assert sp.scratch == S * Rd * Rd + part * tile * tile
-        assert sp.scatter_ctas == -(-7 * d // K.UPDATE_THREADS)
+        for direct in (False, True):
+            sp = K.update_split(S, W, R, d, 7, direct)
+            assert sp.direct == direct
+            assert sp.pitch == Rd + Rd % 2 and sp.pitch % 2 == 0
+            slabs = -(-W * d // 32)
+            for tiles, ck, nk in ((sp.panel_tiles, sp.panel_chunk,
+                                   sp.panel_chunks),
+                                  (sp.u_tiles, sp.u_chunk, sp.u_chunks)):
+                assert ck >= min(K.UPDATE_MIN_CHUNK, slabs) and nk == -(
+                    -slabs // ck) and (nk - 1) * ck < slabs <= nk * ck
+                assert nk <= K.UPDATE_MAX_CHUNKS
+                assert nk == 1 or tiles * nk <= 2 * K.UPDATE_JOBS
+            assert sp.panel_tiles == S * -(-W * d // tile) * ntn
+            assert sp.u_tiles == S * sum(min(m + 2, ntn) for m in range(ntn))
+            part = max(t * n for t, n in ((sp.panel_tiles, sp.panel_chunks),
+                                          (sp.u_tiles, sp.u_chunks))
+                       if n > 1) \
+                if max(sp.panel_chunks, sp.u_chunks) > 1 else 0
+            assert sp.scratch == ((0 if direct else S * Rd * Rd)
+                                  + part * tile * tile
+                                  + (S * W * d * sp.pitch if Rd % 2 else 0))
+            assert sp.scatter_ctas == (0 if direct else
+                                       -(-7 * d // K.UPDATE_THREADS))
 
 
 def test_narrow_sizes_match_the_source():
